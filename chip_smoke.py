@@ -12,9 +12,16 @@ Phases, each reported on its own line:
 3. kernels: each kernel against its plain PyTorch version on the card, with
    EXACT equality — the block cull at C=4, cap=2^20, M=256 (NaN lanes on
    both sides, dead rows), the tail scatters at cap=2^20 with 8..1024 rows
-   (pads included), the winner bits at n=2^20 and 2^24;
-4. the slice at full size, with every launch counter set to 0 just before
-   and read just after: a 1M-file table laid out as the hot-plan benchmark's
+   (pads included), the winner bits at n=2^20 and 2^24, the expression
+   interpreter (K15) at 2^20 rows over a corpus of programs that covers
+   every opcode and dtype (NaN and ±inf lanes, timestamps before 1970,
+   int32 overflow, saturating casts, an IN with a NULL in a column option),
+   bit for bit except exp/log/pow/sqrt, where the lanes that differ are
+   counted and must be within 1 ulp, and the replay (K5) at n=2^20 (pads,
+   removes on both sides of the retention cutoff, re-added paths);
+4. the scan-planning path at full size, with every launch counter set to 0
+   just before and read just after: a 1M-file table laid out as the hot-plan
+   benchmark's
    config 6 (``bench.py:915-1000``, seed 13: 4 stats columns, well
    clustered) written as JSON commits through the port's LogStore (v0 =
    protocol + metadata, then 10 commits of 100k adds); ``DeltaLog`` on the
@@ -23,12 +30,23 @@ Phases, each reported on its own line:
    applied incrementally and re-planned; ``replay_columns`` on the card.
    Every plan is checked against the float64 host evaluation over the
    mirrors, which does not use the block cull;
-5. per kernel: time on the card (CUDA events, warmed, many launches) at the
+5. the normal leg and the tombstone replay on the same table, with the
+   counters set to 0 again: three queries the resident planner declines
+   (each checked to be declined), planned by ``files_for_scan`` through the
+   K15 interpreter on the card and checked file for file against the host
+   prune (``_prune_host``, numpy); one query that synthesis makes exact,
+   served by the resident planner; ``replay_alive_mask`` over the log's
+   whole action stream, whose alive set must be the snapshot's live files
+   and whose tombstones the host replay's;
+6. per kernel: time on the card (CUDA events, warmed, many launches) at the
    main path's shapes and inputs, the plain version's time, the least time
    the card could take (bytes over 3.35 TB/s or compares over 33.5e12/s,
    whichever is larger) and, where one PyTorch call computes the
    same function, that call's time; one JSON line lists them;
-6. last line: ``{"ok": true, "device": {...}}``.
+7. last line: ``{"ok": true, "device": {...}}``.
+
+``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
+it prints no result line.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a kernel does not build, launch or agree, or when any check fails.
@@ -44,11 +62,13 @@ import numpy as np
 import torch
 
 from delta_tpu_torch import DeltaLog
-from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr import device_eval, ir
 from delta_tpu_torch.expr.parser import parse_expression
-from delta_tpu_torch.ops import native, pruning, replay_kernel, state_cache
+from delta_tpu_torch.ops import native, pruning, replay_kernel, state_cache, state_export
 from delta_tpu_torch.protocol import filenames
-from delta_tpu_torch.protocol.actions import AddFile, Metadata, Protocol, RemoveFile
+from delta_tpu_torch.protocol.actions import (
+    AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
+)
 from delta_tpu_torch.schema.types import DoubleType, LongType, StructType
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -106,7 +126,7 @@ def bitwise_equal(a, b):
 
 
 def max_abs_err(a, b):
-    if a.dtype == torch.float32:
+    if a.is_floating_point():
         both_nan = torch.isnan(a) & torch.isnan(b)
         d = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
         return float(torch.nan_to_num(d, nan=float("inf")).max())
@@ -164,6 +184,133 @@ def synthetic_checks(dev):
         check(torch.equal(got, replay_kernel.winner_bits_plain(p, num_paths)),
               f"winner_bits != plain at n={n}")
     say("kernels: winner_bits n=2^20, 2^24 exact")
+    k15_checks(dev)
+    k5_checks(dev)
+
+
+#: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
+#: timestamps before 1970, int32 and int64 overflow, saturating casts, IN
+#: with a NULL in a column option, scalars, Kleene logic
+K15_CORPUS = [
+    "a > 2 AND (b < 20 OR flag)", "NOT (a = 2) OR a IS NULL", "a IN (1, 4, 5)",
+    "a >= i OR b <= g", "big != i",
+    "a IN (b, 3, NULL)", "(a IN (1, 2)) IN (flag, (a IN (b, NULL)))", "big IN (i, NULL)",
+    "a + 1 > 3", "b / 2 > 1", "b / a", "a / 0", "a * 2 = 8", "b IS NOT NULL AND b > 0",
+    "i + 1", "i * i", "- i", "abs(i)", "big * big", "big + i", "- big", "abs(big)",
+    "2147483647 + 1", "9223372036854775807 + 1", "b + g", "big + g", "i + b", "g * g - g",
+    "CAST(b AS INT)", "CAST(b AS BIGINT)", "CAST(g AS INT)", "CAST(g AS BIGINT)",
+    "CAST(big AS INT)", "CAST(b AS BOOLEAN)", "CAST(a AS DOUBLE)", "CAST(i AS FLOAT) > g",
+    "NOT b", "flag + flag", "flag * flag", "flag + 1", "abs(flag)", "abs(g)", "- b",
+    "floor(b)", "ceil(g)", "floor(a)", "ceil(b)", "floor(g)",
+    "exp(b)", "sqrt(b)", "log(b)", "pow(b, 2)", "pow(a, b)", "sqrt(a)", "log(g)", "exp(g)",
+    "hour(t)", "minute(t)", "second(t)", "hour(i)", "minute(i)", "second(a)", "hour(g)",
+    "hour(flag)", "date_add(a, 7)", "date_sub(b, i)", "date_add(flag, a)",
+    "date_sub(i, big)", "datediff(a, b)", "datediff(i, big)",
+    "coalesce(a, b)", "coalesce(NULL, a, 5)", "coalesce(g, big)",
+    "CASE WHEN a > 3 THEN 1 WHEN a > 1 THEN 2 ELSE 3 END",
+    "CASE WHEN flag THEN b ELSE g END", "CASE WHEN a > 0 THEN NULL END",
+    "a <=> b", "a <=> NULL", "NULL + 1", "1 + 2 > 2", "TRUE AND NULL", "NULL OR a > 1",
+    "NOT NULL", "a > NULL", "g > 1e40", "(a > 1) = (b > 1)", "i <=> g", "b IN (a, g)",
+]
+_TRANSCENDENTAL = ("exp(", "log(", "pow(", "sqrt(")
+
+
+def k15_columns(n, seed, dev):
+    """Columns of every dtype the interpreter reads, with the edge lanes
+    first: NaN, ±inf, -0.0, int32 / int64 extremes, negative timestamps."""
+    rng = np.random.RandomState(seed)
+    edges = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e300, -1e300, 3e9, -3e9, 9.3e18,
+                      -9.3e18, 2.5, -2.5, -1e-300])
+    cols = {
+        "a": rng.randint(-10, 10, n).astype(np.int64),
+        "b": np.concatenate([edges, rng.randn(n - len(edges)) * 1e3]),
+        "i": np.concatenate([[2**31 - 1, -2**31, 0, -1],
+                             rng.randint(-2**31, 2**31 - 1, n - 4)]).astype(np.int32),
+        "g": np.concatenate([[np.nan, 3e9, -3e9, np.inf], rng.randn(n - 4) * 100]
+                            ).astype(np.float32),
+        "flag": rng.rand(n) > 0.5,
+        "t": np.concatenate([[-1.0, -3_600_000_001.0, -0.0, 86_399_999_999.0],
+                             rng.randn(n - 4) * 1e12]),
+        "big": np.concatenate([[2**63 - 1, -2**63], rng.randint(-2**62, 2**62, n - 2)]
+                              ).astype(np.int64),
+    }
+    masks = {k: rng.rand(n) > 0.1 for k in cols}
+    return device_eval.columns_from_numpy(cols, masks, device=dev)
+
+
+def ulp_diff(a, b):
+    """Lanes where two float tensors differ (NaN equal to NaN), and the
+    largest difference in units of the last place among them."""
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if bool(same.all()):
+        return 0, 0
+    d = (a.view(ints).to(torch.float64) - b.view(ints).to(torch.float64)).abs()
+    return int((~same).sum()), int(d[~same].max())
+
+
+def k15_checks(dev):
+    n = 1 << 20
+    env = k15_columns(n, 3, dev)
+    seen_ops, seen_dts, diffs, faults = set(), set(), [], []
+    for sql in K15_CORPUS:
+        program = device_eval.compile_expr(parse_expression(sql)).program(env)
+        seen_ops.update(program.opcodes())
+        seen_dts.update(program.instrs[:, 1].tolist())
+        got = device_eval.expr_eval(program, env)
+        torch.cuda.synchronize()
+        ref = device_eval.expr_eval_plain(program, env)
+        if got.values.dtype != ref.values.dtype or got.values.shape != ref.values.shape:
+            faults.append(f"{sql}: dtype or shape differs from plain")
+            continue
+        if not torch.equal(got.valid, ref.valid):
+            faults.append(f"{sql}: validity differs from plain")
+        if got.values.is_floating_point():
+            lanes, ulps = ulp_diff(got.values, ref.values)
+            if lanes:
+                diffs.append(f"{sql}: {lanes} lanes <= {ulps} ulp")
+                if not (any(f in sql for f in _TRANSCENDENTAL) and ulps <= 1):
+                    bad = ((got.values != ref.values)
+                           & ~(torch.isnan(got.values) & torch.isnan(ref.values)))
+                    at = torch.nonzero(bad.reshape(-1))[:3].reshape(-1).tolist()
+                    sample = [(i, {k: c.values.reshape(-1)[i].item() for k, c in env.items()
+                                   if k in program.columns},
+                               got.values.reshape(-1)[i].item(), ref.values.reshape(-1)[i].item())
+                              for i in at]
+                    faults.append(f"{sql}: {lanes} lanes differ by up to {ulps} ulp, e.g. "
+                                  f"(row, inputs, kernel, plain) {sample}")
+        elif not torch.equal(got.values, ref.values):
+            faults.append(f"{sql}: values differ from plain")
+    for f in faults:
+        say(f"kernels: K15 FAULT {f}")
+    check(not faults, f"K15 differs from its plain version on {len(faults)} programs")
+    missing = set(device_eval.OPS) - seen_ops
+    check(not missing, f"K15 corpus misses opcodes {sorted(missing)}")
+    check(seen_dts >= set(range(5)), "K15 corpus misses a dtype")
+    say(f"kernels: expr_eval n=2^20 x {len(K15_CORPUS)} programs, all {len(device_eval.OPS)} "
+        f"opcodes, 5 dtypes: bit-exact except transcendentals "
+        f"{diffs if diffs else '(none differ)'}")
+
+
+def k5_checks(dev):
+    n = 1 << 20
+    rng = np.random.RandomState(11)
+    num_paths = n // 4  # most paths re-added or removed several times
+    pid = rng.randint(0, num_paths, n).astype(np.int32)
+    pid[-(n // 50):] = -1  # the pad
+    seq = (rng.permutation(n).astype(np.int64) << 8) + 7
+    is_add = rng.rand(n) > 0.3
+    size = rng.randint(0, 2**62, n).astype(np.int64)  # the int64 sum wraps
+    dts = rng.randint(0, 2000, n).astype(np.int64)
+    cols = [torch.from_numpy(x).to(dev) for x in (pid, seq, is_add, size, dts)]
+    for cutoff in (0, 1000):
+        got = replay_kernel.replay(*cols, num_paths, cutoff)
+        torch.cuda.synchronize()
+        ref = replay_kernel.replay_plain(*cols, num_paths, cutoff)
+        for g, r, what in zip(got, ref, ("alive", "tombstone", "sums")):
+            check(torch.equal(g, r), f"K5 {what} != plain at cutoff {cutoff}")
+    say(f"kernels: replay n=2^20 num_paths={num_paths} cutoffs 0, 1000 exact "
+        f"(sums {ref[2].tolist()})")
 
 
 # -- phase 4: the slice at full size -------------------------------------------
@@ -343,10 +490,99 @@ def run_slice(dev, workdir):
         f"(equal to the host winner)")
 
     launches = dict(native.launches)  # -- the main path ends here
-    say(f"slice: launches on the main path {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    return entry, ranges, cols, launches
+    say(f"slice: launches on the scan-planning path {launches}")
+    for name in ("block_cull", "scatter_bool", "scatter_cols", "winner_bits"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the scan-planning path")
+    return {"entry": entry, "ranges": ranges, "cols": cols, "launches": launches,
+            "log": log, "snap": snap, "store": store, "n_live": n_live}
+
+
+# -- phase 5: the normal leg and the tombstone replay ----------------------------
+
+
+def fallback_queries():
+    """Three queries the resident planner declines on config 6 (a strict
+    float bound, a multi-column interval, a null count) and one that
+    synthesis makes exact."""
+    declined = ["c0 != 123456789 AND c1 > 999000.5", "c0 * c1 > 1.0e18",
+                "c2 IS NULL OR c3 * 2 > 1999000.5"]
+    exact = "c0 * 2 + 10 >= 2198000000010"
+    return declined, exact
+
+
+def log_actions(store, log_path, version):
+    return [(v, actions_from_lines(store.read(f"{log_path}/{filenames.delta_file(v)}")))
+            for v in range(version + 1)]
+
+
+def run_fallback(dev, ctx):
+    snap, log, store = ctx["snap"], ctx["log"], ctx["store"]
+    declined, exact = fallback_queries()
+    meta = snap.metadata
+    t0 = time.perf_counter()
+    files = snap.all_files  # materialized once per snapshot, as the leg needs
+    all_files_s = time.perf_counter() - t0
+
+    native.reset_launches()  # -- the normal leg's path starts here
+    scan_ms, kept = [], []
+    for q in declined:
+        filters = [parse_expression(q)]
+        check(pruning._resident_scan(snap, [], filters) is None,
+              f"the resident planner served {q!r}; it should decline")
+        before = native.launches["expr_eval"]
+        t0 = time.perf_counter()
+        s = pruning.files_for_scan(snap, filters)
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        check(native.launches["expr_eval"] > before, f"{q!r} did not launch K15")
+        kept.append(s)
+    s_exact = pruning.files_for_scan(snap, [parse_expression(exact)])
+    check(native.launches["block_cull"] > 0, f"{exact!r} was not served by the resident planner")
+    t0 = time.perf_counter()
+    stream = state_export.actions_to_arrays(log_actions(store, log.log_path, snap.version))
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = replay_kernel.replay_alive_mask(stream, min_retention_ts=N_COMMITS + 5, device=dev)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(native.launches)  # -- the normal leg's path ends here
+    say(f"normal leg: launches {launches}")
+    for name in ("expr_eval", "replay", "block_cull"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the normal leg")
+
+    # each declined query against the host prune over the same files
+    for q, s in zip(declined, kept):
+        rw = ir.and_all([r.rewritten for r in pruning.conjunct_rewrites(
+            [parse_expression(q)], frozenset(), pruning.schema_types(meta))])
+        t0 = time.perf_counter()
+        host = pruning._prune_host(files, meta, rw)
+        host_s = time.perf_counter() - t0
+        want = [f.path for f, k in zip(files, host) if k]
+        check([f.path for f in s.files] == want, f"{q!r}: the card's files differ from the host prune")
+        check(s.total.files == ctx["n_live"], f"{q!r}: total DataSize")
+        say(f"normal leg: {q!r}: {len(want)} of {len(files)} files, equal to the host prune "
+            f"({host_s:.3f} s on the host)")
+    host_exact = ctx["entry"].plan_ranges(
+        [lower(ctx["entry"], snap, exact)], k=ctx["entry"].num_rows, use_device=False)[0]
+    check([f.path for f in s_exact.files] == sorted(ctx["entry"].paths[r] for r in host_exact.rows),
+          f"{exact!r}: the resident plan differs from the host plan")
+    say(f"normal leg: {exact!r} served resident, {len(s_exact.files)} files, equal to the host "
+        "plan")
+
+    # the replay against the snapshot and the host replay
+    live = {stream.paths[stream.path_id[i]] for i in np.nonzero(rep.alive)[0]}
+    check(live == {f.path for f in files}, "replay_alive_mask: alive set != the snapshot's files")
+    _, tomb = snap._columnar.replay(min_retention_ts=N_COMMITS + 5)
+    check(int(rep.stats.num_tombstones) == int(tomb.sum()) > 0,
+          f"replay_alive_mask: {int(rep.stats.num_tombstones)} tombstones, host {int(tomb.sum())}")
+    check(int(rep.stats.num_files) == len(files), "replay_alive_mask: file count")
+    check(int(rep.stats.total_size) == snap.size_in_bytes, "replay_alive_mask: total size")
+    say(f"normal leg: replay_alive_mask over {stream.num_rows} actions in {replay_ms:.3f} ms "
+        f"({stream_s:.3f} s to parse the log): {int(rep.stats.num_files)} live files, "
+        f"{int(rep.stats.num_tombstones)} tombstones, equal to the snapshot and host replay")
+    p50 = float(np.percentile(scan_ms, 50))
+    say(f"normal leg: files_for_scan ms {[round(x, 3) for x in scan_ms]} (p50 {p50:.3f}); "
+        f"all_files {all_files_s:.3f} s once")
+    ctx.update(fallback_launches=launches, stream=stream, files=files, declined=declined,
+               fallback_p50_ms=p50)
 
 
 # -- phase 5: times and bounds at the main path's shapes -----------------------
@@ -460,6 +696,68 @@ def measure(dev, entry, ranges, cols, launches):
     return out
 
 
+def measure_normal_leg(dev, ctx):
+    """K15 on the multi-column declined query's program over the live files' lanes,
+    and K5 over the log's action stream: time, plain time, bound."""
+    out = []
+    meta, files = ctx["snap"].metadata, ctx["files"]
+    q = ctx["declined"][1]
+    rw = ir.and_all([r.rewritten for r in pruning.conjunct_rewrites(
+        [parse_expression(q)], frozenset(), pruning.schema_types(meta))])
+    t0 = time.perf_counter()
+    arrays = state_export.files_to_arrays(files, meta)
+    f2a_s = time.perf_counter() - t0
+    program = pruning._compiled_skipping(rw).program_for(arrays.lane_dtypes())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = arrays.device_env(dev, names=program.columns)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    got = device_eval.expr_eval(program, env)
+    ref = device_eval.expr_eval_plain(program, env)
+    check(torch.equal(got.values, ref.values) and torch.equal(got.valid, ref.valid),
+          "expr_eval != plain on the normal leg's lanes")
+    n = arrays.num_files
+    lane_bytes = sum(c.values.element_size() + 1 for c in env.values()) * n
+    nbytes = lane_bytes + (got.values.element_size() + 1) * n
+    b, by = bound(nbytes)
+    out.append({
+        "name": "expr_eval", "route": "cuda", "source": "delta_tpu_torch/csrc/expr_eval.cu",
+        "replaces": "delta_tpu/expr/jaxeval.py:149", "launches": ctx["fallback_launches"]["expr_eval"],
+        "max_abs_err": max_abs_err(got.values, ref.values),
+        "ms": cuda_ms(lambda: device_eval.expr_eval(program, env), 50),
+        "plain_ms": cuda_ms(lambda: device_eval.expr_eval_plain(program, env), 5),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"n={n} {program.instrs.shape[0]} instructions over {len(env)} lanes ({q!r}); "
+                 f"files_to_arrays {f2a_s:.3f} s, lane upload {upload_ms:.3f} ms"})
+
+    stream = ctx["stream"]
+    cap = replay_kernel._next_pow2(stream.num_rows, floor=8)
+    cols = [torch.from_numpy(replay_kernel._pad(np.asarray(a, dt), cap, fill)).to(dev)
+            for a, dt, fill in ((stream.path_id, np.int32, -1), (stream.seq, np.int64, 0),
+                                (stream.is_add, bool, False), (stream.size, np.int64, 0),
+                                (stream.deletion_timestamp, np.int64, 0))]
+    num_paths, cutoff = len(stream.paths), N_COMMITS + 5
+    got = replay_kernel.replay(*cols, num_paths, cutoff)
+    ref = replay_kernel.replay_plain(*cols, num_paths, cutoff)
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)), "replay != plain on the log's stream")
+    valid = cols[0] >= 0
+    pid64, seq = cols[0][valid].long(), cols[1][valid]
+    best = torch.empty(num_paths, dtype=torch.int64, device=dev)
+    b, by = bound(cap * (4 + 8 + 1 + 8 + 8) + 2 * cap + 3 * 8)
+    out.append({
+        "name": "replay", "route": "cuda", "source": "delta_tpu_torch/csrc/replay.cu",
+        "replaces": "delta_tpu/ops/replay_kernel.py:56", "launches": ctx["fallback_launches"]["replay"],
+        "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        "ms": cuda_ms(lambda: replay_kernel.replay(*cols, num_paths, cutoff), 50),
+        "plain_ms": cuda_ms(lambda: replay_kernel.replay_plain(*cols, num_paths, cutoff), 10),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: best.fill_(-(1 << 63)).scatter_reduce_(
+            0, pid64, seq, "amax"), 50),
+        "shape": f"n={cap} ({stream.num_rows} actions) num_paths={num_paths}"})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -470,9 +768,13 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     say(f"build: {native.build_all():.3f} s")
     synthetic_checks(dev)
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        entry, ranges, cols, launches = run_slice(dev, workdir)
-        kernels = measure(dev, entry, ranges, cols, launches)
+        ctx = run_slice(dev, workdir)
+        run_fallback(dev, ctx)
+        kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
+        kernels += measure_normal_leg(dev, ctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

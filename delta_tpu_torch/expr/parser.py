@@ -1,14 +1,11 @@
-"""Predicate parser (the port's own copy of ``delta_tpu.expr.parser``).
+"""Predicate / expression parser (the port's own copy of
+``delta_tpu.expr.parser``): the same tokenizer, grammar and trees, so a SQL
+string parses to the same expression in both packages.
 
-Same tokenizer and precedence as the JAX package's, so a SQL string parses
-to the same tree in both:
-
-    OR < AND < NOT < comparison (= == != <> < <= > >= <=> IS IN BETWEEN)
-    < primary (literal, column, parenthesised predicate)
-
-The grammar stops at what the scan-planning slice lowers. Arithmetic, unary
-minus, LIKE, CAST, CASE and function calls raise ``NotImplementedError``:
-they reach the predicate-synthesis and device-evaluator slices, not this one.
+Grammar (precedence climbing, low -> high):
+    OR < AND < NOT < comparison (= == != <> < <= > >= <=> IS IN BETWEEN LIKE)
+    < additive (+ -) < multiplicative (* / %) < unary (- +) < primary
+    (literal, column, CAST, CASE, function call, parenthesised expression)
 """
 from __future__ import annotations
 
@@ -16,7 +13,8 @@ import re
 from typing import List, Optional
 
 from delta_tpu_torch.expr import ir
-from delta_tpu_torch.utils.errors import DeltaParseError
+from delta_tpu_torch.schema.types import parse_data_type
+from delta_tpu_torch.utils import errors
 
 __all__ = ["parse_expression", "parse_predicate"]
 
@@ -37,19 +35,6 @@ _KEYWORDS = {
     "LIKE", "CAST", "AS", "CASE", "WHEN", "THEN", "ELSE", "END",
 }
 
-_CMP = {
-    "=": ir.Eq, "==": ir.Eq, "!=": ir.Ne, "<>": ir.Ne, "<": ir.Lt,
-    "<=": ir.Le, ">": ir.Gt, ">=": ir.Ge, "<=>": ir.NullSafeEq,
-}
-
-
-def _later_slice(what: str, source: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} in {source!r} is not ported yet: the scan-planning slice "
-        "parses comparisons, AND/OR/NOT, IN, BETWEEN and IS [NOT] NULL over "
-        "columns and literals; expressions come with the predicate-synthesis "
-        "and device-evaluator slices")
-
 
 class _Tok:
     def __init__(self, kind: str, text: str):
@@ -66,7 +51,7 @@ def _tokenize(s: str) -> List[_Tok]:
     while pos < len(s):
         m = _TOKEN_RE.match(s, pos)
         if not m:
-            raise DeltaParseError(f"Cannot tokenize predicate at {s[pos:pos + 20]!r}")
+            raise errors.cannot_tokenize_predicate(s[pos:pos+20])
         pos = m.end()
         if m.lastgroup == "ws":
             continue
@@ -92,7 +77,7 @@ class _Parser:
     def next(self) -> _Tok:
         t = self.peek()
         if t is None:
-            raise DeltaParseError(f"Unexpected end of expression: {self.source!r}")
+            raise errors.unexpected_end_of_expression(self.source)
         self.i += 1
         return t
 
@@ -106,14 +91,13 @@ class _Parser:
     def expect(self, kind: str, text: Optional[str] = None) -> _Tok:
         t = self.accept(kind, text)
         if t is None:
-            raise DeltaParseError(
-                f"Expected {text or kind} at token {self.peek()} in {self.source!r}")
+            raise errors.parse_expected(text or kind, self.peek(), self.source)
         return t
 
     def parse(self) -> ir.Expression:
         e = self.parse_or()
         if self.peek() is not None:
-            raise DeltaParseError(f"Trailing tokens at {self.peek()} in {self.source!r}")
+            raise errors.trailing_tokens(self.peek(), self.source)
         return e
 
     def parse_or(self) -> ir.Expression:
@@ -134,51 +118,79 @@ class _Parser:
         return self.parse_comparison()
 
     def parse_comparison(self) -> ir.Expression:
-        left = self.parse_operand()
+        left = self.parse_additive()
         t = self.peek()
         if t is None:
             return left
-        if t.kind == "op" and t.text in _CMP:
+        if t.kind == "op" and t.text in ("=", "==", "!=", "<>", "<", "<=", ">", ">=", "<=>"):
             self.next()
-            return _CMP[t.text](left, self.parse_operand())
+            right = self.parse_additive()
+            return {
+                "=": ir.Eq, "==": ir.Eq, "!=": ir.Ne, "<>": ir.Ne,
+                "<": ir.Lt, "<=": ir.Le, ">": ir.Gt, ">=": ir.Ge,
+                "<=>": ir.NullSafeEq,
+            }[t.text](left, right)
         if t.kind == "kw" and t.text == "IS":
             self.next()
             negate = self.accept("kw", "NOT") is not None
             self.expect("kw", "NULL")
             return ir.IsNotNull(left) if negate else ir.IsNull(left)
         negate = False
-        nxt = self.peek(1)
-        if (t.kind == "kw" and t.text == "NOT" and nxt is not None
-                and nxt.kind == "kw" and nxt.text in ("IN", "BETWEEN", "LIKE")):
+        if t.kind == "kw" and t.text == "NOT" and self.peek(1) and self.peek(1).kind == "kw" \
+                and self.peek(1).text in ("IN", "BETWEEN", "LIKE"):
             self.next()
             negate = True
             t = self.peek()
         if t and t.kind == "kw" and t.text == "IN":
             self.next()
             self.expect("op", "(")
-            opts = [self.parse_operand()]
+            opts = [self.parse_additive()]
             while self.accept("op", ","):
-                opts.append(self.parse_operand())
+                opts.append(self.parse_additive())
             self.expect("op", ")")
             e: ir.Expression = ir.In(left, opts)
             return ir.Not(e) if negate else e
         if t and t.kind == "kw" and t.text == "BETWEEN":
             self.next()
-            lo = self.parse_operand()
+            lo = self.parse_additive()
             self.expect("kw", "AND")
-            hi = self.parse_operand()
+            hi = self.parse_additive()
             e = ir.And(ir.Ge(left, lo), ir.Le(left, hi))
             return ir.Not(e) if negate else e
         if t and t.kind == "kw" and t.text == "LIKE":
-            raise _later_slice("LIKE", self.source)
+            self.next()
+            e = ir.Like(left, self.parse_additive())
+            return ir.Not(e) if negate else e
         return left
 
-    def parse_operand(self) -> ir.Expression:
-        e = self.parse_primary()
-        t = self.peek()
-        if t is not None and t.kind == "op" and t.text in ("+", "-", "*", "/", "%"):
-            raise _later_slice(f"arithmetic ({t.text})", self.source)
-        return e
+    def parse_additive(self) -> ir.Expression:
+        left = self.parse_multiplicative()
+        while True:
+            t = self.peek()
+            if t and t.kind == "op" and t.text in ("+", "-"):
+                self.next()
+                right = self.parse_multiplicative()
+                left = (ir.Add if t.text == "+" else ir.Sub)(left, right)
+            else:
+                return left
+
+    def parse_multiplicative(self) -> ir.Expression:
+        left = self.parse_unary()
+        while True:
+            t = self.peek()
+            if t and t.kind == "op" and t.text in ("*", "/", "%"):
+                self.next()
+                right = self.parse_unary()
+                left = {"*": ir.Mul, "/": ir.Div, "%": ir.Mod}[t.text](left, right)
+            else:
+                return left
+
+    def parse_unary(self) -> ir.Expression:
+        if self.accept("op", "-"):
+            return ir.Neg(self.parse_unary())
+        if self.accept("op", "+"):
+            return self.parse_unary()
+        return self.parse_primary()
 
     def parse_primary(self) -> ir.Expression:
         t = self.next()
@@ -200,41 +212,80 @@ class _Parser:
                 return ir.Literal(True)
             if t.text == "FALSE":
                 return ir.Literal(False)
+            if t.text == "CAST":
+                self.expect("op", "(")
+                e = self.parse_or()
+                self.expect("kw", "AS")
+                type_name = self._parse_type_name()
+                self.expect("op", ")")
+                return ir.Cast(e, parse_data_type(type_name))
+            if t.text == "CASE":
+                branches = []
+                while self.accept("kw", "WHEN"):
+                    c = self.parse_or()
+                    self.expect("kw", "THEN")
+                    v = self.parse_or()
+                    branches.append((c, v))
+                default = None
+                if self.accept("kw", "ELSE"):
+                    default = self.parse_or()
+                self.expect("kw", "END")
+                return ir.CaseWhen(branches, default)
             if t.text == "NOT":
                 return ir.Not(self.parse_not())
-            if t.text in ("CAST", "CASE"):
-                raise _later_slice(t.text, self.source)
-            raise DeltaParseError(f"Unexpected keyword {t.text} in {self.source!r}")
+            raise errors.unexpected_keyword(t.text, self.source)
         if t.kind == "op" and t.text == "(":
             e = self.parse_or()
             self.expect("op", ")")
             return e
-        if t.kind == "op" and t.text in ("-", "+"):
-            raise _later_slice(f"unary {t.text}", self.source)
         if t.kind in ("id", "bq"):
             name = t.text[1:-1].replace("``", "`") if t.kind == "bq" else t.text
-            nxt = self.peek()
-            if t.kind == "id" and nxt and nxt.kind == "op" and nxt.text == "(":
-                raise _later_slice(f"function {name}()", self.source)
-            # dotted column path -> single column name "a.b.c"
+            # function call?
+            if t.kind == "id" and self.peek() and self.peek().kind == "op" and self.peek().text == "(":
+                self.next()
+                args: List[ir.Expression] = []
+                if not self.accept("op", ")"):
+                    args.append(self.parse_or())
+                    while self.accept("op", ","):
+                        args.append(self.parse_or())
+                    self.expect("op", ")")
+                lname = name.lower()
+                if lname == "coalesce":
+                    return ir.Coalesce(*args)
+                if lname == "startswith" and len(args) == 2:
+                    return ir.StartsWith(args[0], args[1])
+                return ir.Func(name, args)
+            # dotted column path → single column name "a.b.c"
             parts = [name]
             while self.peek() and self.peek().kind == "op" and self.peek().text == ".":
                 self.next()
-                part = self.next()
-                if part.kind not in ("id", "bq"):
-                    raise DeltaParseError(f"Bad column path after '.' in {self.source!r}")
-                parts.append(part.text[1:-1].replace("``", "`")
-                             if part.kind == "bq" else part.text)
+                nxt = self.next()
+                if nxt.kind not in ("id", "bq"):
+                    raise errors.bad_column_path(self.source)
+                parts.append(nxt.text[1:-1].replace("``", "`") if nxt.kind == "bq" else nxt.text)
             return ir.Column(".".join(parts))
-        raise DeltaParseError(f"Unexpected token {t} in {self.source!r}")
+        raise errors.unexpected_token(t, self.source)
+
+    def _parse_type_name(self) -> str:
+        tok = self.next()
+        if tok.kind not in ("id", "kw"):
+            raise errors.expected_type_name(tok)
+        name = tok.text.lower()
+        if name == "decimal" and self.accept("op", "("):
+            p = self.next().text
+            self.expect("op", ",")
+            s = self.next().text
+            self.expect("op", ")")
+            return f"decimal({p},{s})"
+        return name
 
 
-def parse_expression(s) -> ir.Expression:
+def parse_expression(s: str) -> ir.Expression:
     if isinstance(s, ir.Expression):
         return s
     return _Parser(_tokenize(s), s).parse()
 
 
-def parse_predicate(s) -> ir.Expression:
+def parse_predicate(s: str) -> ir.Expression:
     """Alias with intent: the result is used as a boolean filter."""
     return parse_expression(s)

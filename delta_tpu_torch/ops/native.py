@@ -11,8 +11,8 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 ``cudaGetLastError()``, and :func:`call` raises when it is not 0.
 
 ``launches`` counts the launches of each kernel. The wrappers beside the
-plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``) add one
-where they launch, and nowhere else.
+plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
+``expr/device_eval``) add one where they launch, and nowhere else.
 """
 from __future__ import annotations
 
@@ -48,6 +48,10 @@ _KERNELS = {
                      [_P, _P, _P, _I, _I, _L, _P]),
     "winner_bits": ("winner_bits", "dtt_winner_bits",
                     [_P, _L, _P, _I, _P, _P, _P]),
+    "replay": ("replay", "dtt_replay",
+               [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P]),
+    "expr_eval": ("expr_eval", "dtt_expr_eval",
+                  [_P, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _I, _I, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

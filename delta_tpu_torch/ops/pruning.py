@@ -1,37 +1,52 @@
-"""File pruning for a scan, served from the device-resident state.
+"""File pruning for a scan: partition filters, then min/max data skipping.
 
-The port's own copy of the resident path of ``delta_tpu.ops.pruning``: a
-query's conjuncts split into partition and data filters, each is rewritten
-into a can-match predicate over per-file stats (``min.c`` / ``max.c``) by the
-base rules of :func:`skipping_predicate`, lowered to range boxes
-(``ops/state_cache.extract_range_union``) and planned on the resident lanes:
-one block-cull launch, then the exact host fine pass. Only the files that
-survive are materialized as AddFiles.
+The port's own copy of ``delta_tpu.ops.pruning``. A data predicate is
+rewritten into a *can-match* predicate over per-file stats columns
+(``min.c`` / ``max.c`` / ``nullCount.c`` / ``numRecords``) by the base
+rules of :func:`skipping_predicate` and, where they cannot exclude
+anything, by predicate synthesis (``expr/synthesis``). Then:
 
-What the JAX package serves elsewhere waits for later slices: predicate
-synthesis (``expr/synthesis``), the non-resident host prune over Arrow
-(``_prune_host``) and the device skipping evaluator (``_prune_device``).
-Where a query needs one of them — a conjunct the base rules cannot lower, a
-lowering that is not exact, a table the resident state cannot hold —
-:func:`files_for_scan` raises ``NotImplementedError`` rather than return a
-different answer.
+* the resident leg (:func:`_resident_scan`): when the rewrite lowers
+  EXACTLY to range boxes, the scan plans on the table's resident lanes
+  (``ops/state_cache``: one block-cull launch, then the exact host fine
+  pass) and only the surviving files materialize as AddFiles;
+* otherwise the normal leg: every file materializes, partition predicates
+  evaluate per file, and :func:`prune_files` evaluates the rewrite — on the
+  card from :data:`DEVICE_PRUNING_MIN_FILES` files up (``_prune_device``,
+  the K15 interpreter over ``files_to_arrays`` lanes), else on the host
+  (``_prune_host``, numpy over ``stats_table``). A rewrite the device
+  program cannot express goes to the host too.
+
+Conservativeness invariant: a file is dropped only when the rewritten
+predicate is *definitely False*; NULL (missing stats) keeps the file. Kleene
+logic gives this: False AND unknown = False, False OR unknown = unknown.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from functools import lru_cache
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr import partition as partition_expr
-from delta_tpu_torch.protocol.actions import AddFile
-from delta_tpu_torch.schema.types import (
-    CharType, DataType, DoubleType, FloatType,
-)
+from delta_tpu_torch.expr import synthesis
+from delta_tpu_torch.ops import state_export
+from delta_tpu_torch.protocol.actions import AddFile, Metadata
+from delta_tpu_torch.schema.types import DoubleType, FloatType
 
 __all__ = ["DataSize", "DeltaScan", "skipping_predicate", "ConjunctRewrite",
-           "conjunct_rewrites", "can_exclude", "schema_types", "files_for_scan"]
+           "conjunct_rewrites", "schema_types", "prune_files", "files_for_scan",
+           "DEVICE_PRUNING_MIN_FILES"]
+
+#: From this many candidate files the skipping predicate evaluates on the
+#: card; below it the host evaluator finishes first (the JAX package's
+#: ``delta.tpu.device.pruning.minFiles`` default).
+DEVICE_PRUNING_MIN_FILES = 4096
+
+schema_types = synthesis.schema_types
 
 
 @dataclass
@@ -87,43 +102,44 @@ def _not_flip_safe(c: ir.Expression, types) -> bool:
 
 def skipping_predicate(
     e: ir.Expression, partition_cols: frozenset = frozenset(),
-    types: Optional[Dict[str, DataType]] = None,
+    types=None, synthesize: Optional[bool] = None,
 ) -> ir.Expression:
     """Rewrite a data predicate into a can-match predicate over stats
-    columns by the base rules; ``Literal(None)`` (= keep) for shapes they
-    do not cover. Partition-column predicates pass through unchanged (they
-    evaluate exactly per file); a partition column mixed with data columns
-    rewrites to UNKNOWN. ``types`` (lowercased column name -> DataType) arms
-    the NaN-safe NOT flips."""
+    columns; ``Literal(None)`` (= keep) for shapes nothing covers.
+    Partition-column predicates pass through unchanged (they evaluate
+    exactly per file); a partition column mixed with data columns rewrites
+    to UNKNOWN. ``types`` (lowercased column name -> DataType) arms the NOT
+    flips and the synthesis fallback; ``synthesize=False`` keeps to the
+    base rules even with types."""
 
     def _is_part(col: ir.Expression) -> bool:
         return isinstance(col, ir.Column) and col.name.lower() in partition_cols
 
+    def rec(x: ir.Expression) -> ir.Expression:
+        return skipping_predicate(x, partition_cols, types, synthesize)
+
     t = type(e)
     if t is ir.And or t is ir.Or:
-        return t(skipping_predicate(e.left, partition_cols, types),
-                 skipping_predicate(e.right, partition_cols, types))
+        return t(rec(e.left), rec(e.right))
     if t is ir.Not:
         c = e.child
         if isinstance(c, ir.IsNull):
-            return skipping_predicate(ir.IsNotNull(c.child), partition_cols, types)
+            return rec(ir.IsNotNull(c.child))
         if isinstance(c, ir.IsNotNull):
-            return skipping_predicate(ir.IsNull(c.child), partition_cols, types)
+            return rec(ir.IsNull(c.child))
         if all(col.lower() in partition_cols for col in ir.references(c)):
             return e  # exact per-file partition verdict, negation included
         if isinstance(c, ir.Not):
-            return skipping_predicate(c.child, partition_cols, types)
+            return rec(c.child)
         tc = type(c)
         if tc in _NOT_FLIP and _not_flip_safe(c, types):
-            return skipping_predicate(_NOT_FLIP[tc](c.left, c.right), partition_cols, types)
+            return rec(_NOT_FLIP[tc](c.left, c.right))
         if tc is ir.And:  # De Morgan: each side rewrites conservatively
-            return skipping_predicate(
-                ir.Or(ir.Not(c.left), ir.Not(c.right)), partition_cols, types)
+            return rec(ir.Or(ir.Not(c.left), ir.Not(c.right)))
         if tc is ir.Or:
-            return skipping_predicate(
-                ir.And(ir.Not(c.left), ir.Not(c.right)), partition_cols, types)
-        return _UNKNOWN
-    if any(_is_part(c) for c in e.children):
+            return rec(ir.And(ir.Not(c.left), ir.Not(c.right)))
+        return _synth_fallback(e, partition_cols, types, synthesize)
+    if any(_is_part(c) for c in getattr(e, "children", ())):
         if all(col.lower() in partition_cols for col in ir.references(e)):
             return e
         return _UNKNOWN
@@ -134,7 +150,7 @@ def skipping_predicate(
             t = type(e)
             left, right = e.left, e.right
         if not (isinstance(left, ir.Column) and isinstance(right, ir.Literal)):
-            return _UNKNOWN
+            return _synth_fallback(e, partition_cols, types, synthesize)
         c, lit = left.name, right
         if lit.value is None:
             return ir.Literal(False)  # col <op> NULL matches nothing
@@ -153,91 +169,170 @@ def skipping_predicate(
             return _UNKNOWN
         out: Optional[ir.Expression] = None
         for o in opts:
-            one = skipping_predicate(ir.Eq(e.value, o), partition_cols, types)
+            one = rec(ir.Eq(e.value, o))
             out = one if out is None else ir.Or(out, one)
         return out if out is not None else ir.Literal(False)
     if t is ir.IsNull and isinstance(e.child, ir.Column):
         return ir.Gt(_nulls(e.child.name), ir.Literal(0))
     if t is ir.IsNotNull and isinstance(e.child, ir.Column):
         return ir.Lt(_nulls(e.child.name), ir.Column("numRecords"))
-    return _UNKNOWN
+    if t is ir.StartsWith and isinstance(e.left, ir.Column) and isinstance(e.right, ir.Literal):
+        p = e.right.value
+        if isinstance(p, str) and p:
+            c = e.left.name
+            lower = ir.Ge(_max(c), ir.Literal(p))  # some value >= the prefix
+            hi = _prefix_upper_bound(p)
+            if hi is None:
+                return lower
+            # every string with prefix p is strictly < hi
+            return ir.And(ir.Lt(_min(c), ir.Literal(hi)), lower)
+    return _synth_fallback(e, partition_cols, types, synthesize)
 
 
-def can_exclude(rewritten: ir.Expression) -> bool:
-    """Can a skipping rewrite ever evaluate to False, i.e. exclude a file?
-    An OR excludes only when both branches can, an AND through either; a
-    constant leaf never depends on stats (FALSE excludes everything)."""
-    if isinstance(rewritten, ir.Literal):
-        return rewritten.value is False
-    if isinstance(rewritten, ir.And):
-        return can_exclude(rewritten.left) or can_exclude(rewritten.right)
-    if isinstance(rewritten, ir.Or):
-        return can_exclude(rewritten.left) and can_exclude(rewritten.right)
-    return True
+def _synth_fallback(e: ir.Expression, partition_cols: frozenset, types,
+                    synthesize: Optional[bool]) -> ir.Expression:
+    """Hand a leaf the base rules cannot lower to predicate synthesis, when
+    armed (types known and ``synthesize`` not False)."""
+    if types is None or synthesize is False:
+        return _UNKNOWN
+    return synthesis.synthesize(
+        e, partition_cols, types, base=lambda x: skipping_predicate(x, partition_cols))
+
+
+def _prefix_upper_bound(p: str) -> Optional[str]:
+    """Smallest string greater than every string with prefix ``p`` (in
+    code-point order): bump the last bumpable char. None = unbounded."""
+    chars = list(p)
+    while chars:
+        cp = ord(chars[-1])
+        if cp < 0x10FFFF:
+            nxt = cp + 1
+            if 0xD800 <= nxt <= 0xDFFF:  # skip the surrogate block
+                nxt = 0xE000
+            chars[-1] = chr(nxt)
+            return "".join(chars)
+        chars.pop()
+    return None
 
 
 @dataclass
 class ConjunctRewrite:
-    """One conjunct's skipping rewrite. ``needs_synthesis`` marks a conjunct
-    the base rules cannot make exclude anything: the JAX package hands it to
-    predicate synthesis, which this slice does not port."""
+    """One conjunct's skipping rewrite: ``attempted`` when the base rules
+    could not exclude on this shape (so synthesis was consulted),
+    ``synthesized`` when synthesis produced a rewrite that can, ``family``
+    its rewrite family (arithmetic / string / cast / ...)."""
 
     conjunct: ir.Expression
     rewritten: ir.Expression
-    needs_synthesis: bool = False
+    attempted: bool = False
+    synthesized: bool = False
+    family: Optional[str] = None
 
 
-def conjunct_rewrites(
-    filters: Sequence[ir.Expression],
-    partition_cols: frozenset,
-    types: Optional[Dict[str, DataType]],
-) -> List[ConjunctRewrite]:
-    """Per-conjunct base-rule rewrites; their AND equals
-    ``skipping_predicate(and_all(filters))``."""
+def conjunct_rewrites(filters: Sequence[ir.Expression], partition_cols: frozenset,
+                      types) -> List[ConjunctRewrite]:
+    """Per-conjunct skipping rewrites; their AND equals
+    ``skipping_predicate(and_all(filters), ..., types)``."""
     out: List[ConjunctRewrite] = []
     for f in filters:
         for c in ir.split_conjuncts(f):
+            base_rw = skipping_predicate(c, partition_cols, types, synthesize=False)
+            if synthesis.can_exclude(base_rw) or types is None:
+                out.append(ConjunctRewrite(c, base_rw))
+                continue
             rw = skipping_predicate(c, partition_cols, types)
+            ok = synthesis.can_exclude(rw)
             out.append(ConjunctRewrite(
-                c, rw, needs_synthesis=types is not None and not can_exclude(rw)))
+                c, rw, attempted=True, synthesized=ok,
+                family=synthesis.classify_family(c) if ok else None))
     return out
 
 
-def schema_types(metadata) -> Dict[str, DataType]:
-    """Lowercased column name -> declared DataType (arms the NOT flips)."""
-    return {f.name.lower(): f.data_type for f in metadata.schema.fields}
+def _prune_host(files: Sequence[AddFile], metadata: Metadata, pred: ir.Expression) -> np.ndarray:
+    """The keep mask by the host evaluator over ``stats_table``. Building
+    the table raises where the stats mix types no column holds (as the JAX
+    package's ``from_pylist`` does); an error while evaluating keeps every
+    file."""
+    from delta_tpu_torch.expr.vectorized import evaluate, to_keep_mask
+
+    table = state_export.stats_table(files, metadata)
+    try:
+        return to_keep_mask(evaluate(pred, table))
+    except Exception:  # noqa: BLE001 — a stats/type surprise (foreign stats
+        # that contradict the declared schema under a synthesized rewrite,
+        # a row the exact evaluator refuses) degrades to keep-everything,
+        # never fails the scan, as in the JAX package
+        return np.ones(len(files), bool)
 
 
-def _not_served(why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"files_for_scan: {why}; the JAX package serves this case through "
-        "paths not ported yet (predicate synthesis, the host prune, the "
-        "device skipping evaluator)")
+@lru_cache(maxsize=256)
+def _compiled_skipping(pred: ir.Expression):
+    """The compiled skipping predicate, cached per expression so repeat
+    scans reuse its lowered programs."""
+    from delta_tpu_torch.expr.device_eval import compile_expr
+
+    return compile_expr(pred)
+
+
+def _prune_device(arrays: state_export.FileStateArrays, pred: ir.Expression,
+                  device="cuda") -> Optional[np.ndarray]:
+    """The keep mask by the K15 interpreter over the lanes on ``device``;
+    None when the rewrite has no device program (the caller takes the host
+    evaluator, as the JAX package does where its trace fails). Errors of
+    the build or launch propagate."""
+    from delta_tpu_torch.expr.device_eval import NotDeviceCompilable, expr_eval
+
+    try:
+        program = _compiled_skipping(pred).program_for(arrays.lane_dtypes())
+    except NotDeviceCompilable:
+        return None
+    col = expr_eval(program, arrays.device_env(device, names=program.columns))
+    keep = (col.values.to(torch.bool) | ~col.valid).cpu().numpy()
+    if keep.ndim == 0:
+        keep = np.full(arrays.num_files, bool(keep))
+    return keep
+
+
+def prune_files(files: Sequence[AddFile], metadata: Metadata,
+                data_filters: Sequence[ir.Expression], device="cuda") -> List[AddFile]:
+    """Apply min/max skipping; returns the files that may contain matches.
+    From :data:`DEVICE_PRUNING_MIN_FILES` candidates the rewrite evaluates
+    on ``device``, below it (or when it has no device program) on the
+    host."""
+    if not files or not data_filters:
+        return list(files)
+    pcols = frozenset(c.lower() for c in metadata.partition_columns)
+    rewrites = conjunct_rewrites(list(data_filters), pcols, schema_types(metadata))
+    pred = ir.and_all([r.rewritten for r in rewrites])
+    keep: Optional[np.ndarray] = None
+    if len(files) >= DEVICE_PRUNING_MIN_FILES:
+        keep = _prune_device(state_export.files_to_arrays(files, metadata), pred, device)
+    if keep is None:
+        keep = _prune_host(files, metadata, pred)
+    return [f for f, k in zip(files, keep) if k]
 
 
 def _resident_scan(snapshot, partition_filters: Sequence[ir.Expression],
-                   data_filters: Sequence[ir.Expression]) -> DeltaScan:
+                   data_filters: Sequence[ir.Expression]) -> Optional[DeltaScan]:
     """Serve a scan from the resident state cache (``ops/state_cache``):
     only the surviving files materialize as AddFiles. Taken only when the
-    range lowering is EXACT, so the result matches the exact evaluator file
-    for file; any other case raises ``NotImplementedError``."""
+    range lowering is EXACT, so the result matches the evaluator file for
+    file; None sends the scan to the normal leg."""
+    if getattr(snapshot, "delta_log", None) is None:
+        return None  # a bare snapshot shim has no resident state
     from delta_tpu_torch.ops.state_cache import DeviceStateCache, extract_range_union
 
     entry = DeviceStateCache.instance().get(snapshot)
     if entry is None:
-        raise _not_served("the table's state cannot be made resident "
-                          "(an older version than the resident one, or an "
-                          "unsupported layout)")
+        return None
     pcols = frozenset(c.lower() for c in snapshot.metadata.partition_columns)
     rewrites = conjunct_rewrites(list(partition_filters) + list(data_filters), pcols,
                                  schema_types(snapshot.metadata))
-    if any(r.needs_synthesis for r in rewrites):
-        raise _not_served("a conjunct needs predicate synthesis")
     pred = ir.and_all([r.rewritten for r in rewrites])
     terms = extract_range_union(pred, entry.columns, entry.part_info,
                                 str_lanes=entry.str_lanes)
     if not terms or not all(t.exact for t in terms):
-        raise _not_served("the predicate does not lower exactly to range boxes")
+        return None
     n_main = len(terms)
     if partition_filters and data_filters:
         # partition-only leg on the same lanes, for the partition DataSize
@@ -245,12 +340,12 @@ def _resident_scan(snapshot, partition_filters: Sequence[ir.Expression],
         pterms = extract_range_union(ppred, entry.columns, entry.part_info,
                                      str_lanes=entry.str_lanes)
         if not pterms or not all(t.exact for t in pterms):
-            raise _not_served("the partition filters do not lower exactly")
+            return None
         terms = terms + pterms
     plans = entry.plan_ranges(terms, k=max(entry.num_rows, 1),
                               expected_version=snapshot.version)
     if plans is None:
-        raise _not_served("the resident state advanced past this snapshot")
+        return None
 
     def _union(chunk):
         if len(chunk) == 1:
@@ -282,13 +377,22 @@ def _resident_scan(snapshot, partition_filters: Sequence[ir.Expression],
     )
 
 
-def files_for_scan(snapshot, filters: Sequence[ir.Expression] = ()) -> DeltaScan:
-    """Partition-prune then stats-prune the snapshot's files for a query,
-    from the resident state on the table's device. With no filter every
-    file is returned."""
+def files_for_scan(snapshot, filters: Sequence[ir.Expression] = (),
+                   keep_num_indexed_cols: Optional[int] = None) -> DeltaScan:
+    """Partition-prune then stats-prune the snapshot's files for a query
+    (`PartitionFiltering.scala:27-42` plus the skipping path). A predicate
+    that lowers exactly serves from the resident state; any other goes
+    through every AddFile, with the skipping rewrite evaluated on the
+    table's device from :data:`DEVICE_PRUNING_MIN_FILES` files up.
+    ``keep_num_indexed_cols`` is accepted as the JAX package accepts it,
+    and unused there too."""
+    from delta_tpu_torch.schema.char_varchar import pad_char_literals
+
     metadata = snapshot.metadata
-    if any(isinstance(f.data_type, CharType) for f in metadata.schema.fields):
-        raise _not_served("char(n) columns need read-side literal padding")
+    # read-side char padding: literals compared to char(n) columns pad to
+    # width, so they match the stored padded form
+    filters = [pad_char_literals(f, metadata) for f in filters]
+    part_schema = metadata.partition_schema
     part_cols = metadata.partition_columns
     partition_filters: List[ir.Expression] = []
     data_filters: List[ir.Expression] = []
@@ -299,13 +403,34 @@ def files_for_scan(snapshot, filters: Sequence[ir.Expression] = ()) -> DeltaScan
             else:
                 data_filters.append(conj)
     if data_filters or partition_filters:
-        return _resident_scan(snapshot, partition_filters, data_filters)
-    files = snapshot.all_files
-    total = DataSize(bytes_compressed=sum(f.size or 0 for f in files), files=len(files))
+        fast = _resident_scan(snapshot, partition_filters, data_filters)
+        if fast is not None:
+            return fast
+
+    all_files = snapshot.all_files
+    total = DataSize(bytes_compressed=sum(f.size or 0 for f in all_files), files=len(all_files))
+    if partition_filters:
+        pred = ir.and_all(partition_filters)
+        # a NULL partition verdict is constant for the whole file: no row in
+        # it can satisfy the WHERE clause, so it is pruned
+        after_part = [f for f in all_files if partition_expr.matches(pred, f, part_schema)]
+    else:
+        after_part = list(all_files)
+    partition = DataSize(bytes_compressed=sum(f.size or 0 for f in after_part),
+                         files=len(after_part))
+    delta_log = getattr(snapshot, "delta_log", None)
+    device = delta_log.device if delta_log is not None else "cuda"
+    kept = prune_files(after_part, metadata, data_filters, device=device)
     return DeltaScan(
-        version=snapshot.version, files=files, total=total, partition=total,
+        version=snapshot.version,
+        files=kept,
+        total=total,
+        partition=partition,
         scanned=DataSize(
-            bytes_compressed=total.bytes_compressed, files=len(files),
-            rows=sum(f.num_logical_records or 0 for f in files) or None,
+            bytes_compressed=sum(f.size or 0 for f in kept),
+            files=len(kept),
+            rows=sum(f.num_logical_records or 0 for f in kept) or None,
         ),
+        partition_filters=partition_filters,
+        data_filters=data_filters,
     )

@@ -164,3 +164,68 @@ def test_scans_on_the_card_match_the_cpu(cuda, tmp_path, partitioned):
             assert (a.total, a.partition, a.scanned) == (b.total, b.partition, b.scanned), q
     entry = state_cache.DeviceStateCache.instance().get(on_card)
     assert entry._dev["mins"].is_cuda
+
+
+# -- K15 and K5 (the second slice) ---------------------------------------------
+
+
+def test_expr_eval_kernel_matches_plain(cuda):
+    """chip_smoke.py's corpus at 4096 rows: bit for bit, except exp / log /
+    pow / sqrt, within 1 ulp."""
+    import chip_smoke
+    from delta_tpu_torch.expr import device_eval
+
+    env = chip_smoke.k15_columns(4096, 5, cuda)
+    before = native.launches["expr_eval"]
+    for sql in chip_smoke.K15_CORPUS:
+        program = device_eval.compile_expr(parse_expression(sql)).program(env)
+        got = device_eval.expr_eval(program, env)
+        torch.cuda.synchronize()
+        ref = device_eval.expr_eval_plain(program, env)
+        assert torch.equal(got.valid, ref.valid), sql
+        if got.values.is_floating_point():
+            lanes, ulps = chip_smoke.ulp_diff(got.values, ref.values)
+            assert lanes == 0 or (any(f in sql for f in chip_smoke._TRANSCENDENTAL)
+                                  and ulps <= 1), sql
+        else:
+            assert torch.equal(got.values, ref.values), sql
+    assert native.launches["expr_eval"] == before + len(chip_smoke.K15_CORPUS)
+
+
+@pytest.mark.parametrize("n,num_paths", [(8, 3), (4096, 1000), (1 << 20, 1 << 18)])
+def test_replay_kernel_matches_plain(cuda, n, num_paths):
+    rng = np.random.RandomState(n)
+    pid = rng.randint(0, num_paths, n).astype(np.int32)
+    pid[rng.rand(n) < 0.05] = -1
+    cols = [torch.from_numpy(x).to(cuda) for x in (
+        pid, rng.permutation(n).astype(np.int64) * 5, rng.rand(n) > 0.3,
+        rng.randint(0, 2**62, n).astype(np.int64), rng.randint(0, 100, n).astype(np.int64))]
+    for cutoff in (0, 50):
+        got = replay_kernel.replay(*cols, num_paths, cutoff)
+        torch.cuda.synchronize()
+        ref = replay_kernel.replay_plain(*cols, num_paths, cutoff)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def test_replay_kernel_rejects_out_of_range_ids(cuda):
+    p = torch.arange(8, dtype=torch.int32, device=cuda)
+    z = torch.zeros(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        replay_kernel.replay(p, z, torch.ones(8, dtype=torch.bool, device=cuda), z, z, 7)
+
+
+def test_normal_leg_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Queries the resident planner declines, over 4200 files: the card's
+    K15 prune and the CPU's plain prune return the same files."""
+    rng = np.random.RandomState(8)
+    path = str(tmp_path / "t")
+    _table(path, 4200, False, rng)
+    on_card = DeltaLog.for_table(path, device=cuda).update()
+    on_cpu = DeltaLog.for_table(path, device="cpu").update()
+    before = native.launches["expr_eval"]
+    for q in ["c1 > 5000.5", "c0 * c1 > 1e10", "c0 IS NULL OR c1 * 2 > 19000",
+              "c0 != 5 AND c1 < 100.25", "abs(c1 - 300.5) < 2 OR c0 > 4000000.5"]:
+        a = pruning.files_for_scan(on_card, [parse_expression(q)])
+        b = pruning.files_for_scan(on_cpu, [parse_expression(q)])
+        assert [f.json() for f in a.files] == [f.json() for f in b.files], q
+    assert native.launches["expr_eval"] > before

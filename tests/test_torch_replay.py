@@ -145,3 +145,86 @@ def test_random_logs_decode_like_jax(tmp_path, seed):
     rows = np.nonzero(ta)[0]
     assert tc.partition_strings(rows, ["p"])["p"] == (
         jc.partition_strings(rows, ["p"])["p"].to_pylist())
+
+
+# -- K5: replay_alive_mask (the cases of tests/test_ops.py) ---------------------
+
+
+def _k5_pair(versioned):
+    from delta_tpu.ops import state_export as jexport
+    from delta_tpu_torch.ops import state_export as texport
+    from delta_tpu_torch.protocol.actions import action_from_json
+
+    jarr = jexport.actions_to_arrays(versioned)
+    tarr = texport.actions_to_arrays(
+        [(v, [action_from_json(a.json()) for a in acts]) for v, acts in versioned])
+    assert tarr.paths == jarr.paths
+    for name in ("path_id", "seq", "is_add", "size", "deletion_timestamp"):
+        assert np.array_equal(getattr(tarr, name), getattr(jarr, name)), name
+    return jarr, tarr
+
+
+def _assert_replay_equal(jarr, tarr, retention):
+    ref = jrk.replay_alive_mask(jarr, min_retention_ts=retention)
+    got = trk.replay_alive_mask(tarr, min_retention_ts=retention, device="cpu")
+    assert np.array_equal(got.alive, np.asarray(ref.alive))
+    assert np.array_equal(got.tombstone, np.asarray(ref.tombstone))
+    assert int(got.stats.num_files) == int(ref.stats.num_files)
+    assert int(got.stats.total_size) == int(ref.stats.total_size)
+    assert int(got.stats.num_tombstones) == int(ref.stats.num_tombstones)
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 5])
+def test_replay_alive_mask_matches_jax(seed):
+    """tests/test_ops.py's random streams (adds and removes of 25 paths over
+    40 commits), at retention cutoffs on both sides of the removes."""
+    from tests.test_ops import _random_stream
+
+    jarr, tarr = _k5_pair(_random_stream(seed))
+    for retention in (0, 10_000, 25_000, 10**9):
+        _assert_replay_equal(jarr, tarr, retention)
+
+
+def test_replay_alive_mask_tombstone_retention():
+    from delta_tpu.protocol.actions import AddFile, RemoveFile
+
+    versioned = [
+        (0, [AddFile(path="a", partition_values={}, size=1, modification_time=0,
+                     data_change=True)]),
+        (1, [RemoveFile(path="a", deletion_timestamp=500, data_change=True)]),
+        (2, [AddFile(path="b", partition_values={}, size=2, modification_time=0,
+                     data_change=True)]),
+    ]
+    jarr, tarr = _k5_pair(versioned)
+    assert int(_assert_replay_equal(jarr, tarr, 100).stats.num_tombstones) == 1
+    assert int(_assert_replay_equal(jarr, tarr, 1000).stats.num_tombstones) == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1000, 4097])
+def test_replay_alive_mask_pads_and_wraps_like_jax(n):
+    """Streams padded to a power of two, re-added paths, removes on both
+    sides of the cutoff, and sizes whose int64 sum wraps."""
+    from delta_tpu.ops.state_export import ReplayArrays as JaxArrays
+    from delta_tpu_torch.ops.state_export import ReplayArrays as TorchArrays
+
+    rng = np.random.RandomState(n)
+    num_paths = max(n // 3, 1)
+    cols = dict(paths=[f"p{i}" for i in range(num_paths)],
+                path_id=rng.randint(0, num_paths, n).astype(np.int32),
+                seq=rng.permutation(n).astype(np.int64) * 3 + 11,
+                is_add=rng.rand(n) > 0.35,
+                size=rng.randint(2**60, 2**62, n).astype(np.int64),
+                deletion_timestamp=rng.randint(0, 1000, n).astype(np.int64))
+    jarr, tarr = JaxArrays(**cols), TorchArrays(**cols)
+    for retention in (0, 500):
+        _assert_replay_equal(jarr, tarr, retention)
+
+
+def test_replay_rejects_out_of_range_ids():
+    pid = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7], dtype=torch.int32)
+    z = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        trk.replay(pid, z, torch.ones(8, dtype=torch.bool), z, z, 7)
+    with pytest.raises(TypeError):
+        trk.replay(pid.long(), z, torch.ones(8, dtype=torch.bool), z, z, 8)

@@ -111,9 +111,10 @@ def test_partitioned_scans_match_jax_before_and_after_tail(tmp_path):
     after = [q for q in PARTITIONED_QUERIES
              if not any(("day >" in s or "day <" in s) for s in q)]
     _assert_scans_equal(path, after + [["day = '2020-12-31'"], ["day = '2021-02-01'"]])
+    # ...and take the normal leg, with the JAX package's answer
     tsnap = TorchDeltaLog.for_table(path, device="cpu").update()
-    with pytest.raises(NotImplementedError):
-        torch_pruning.files_for_scan(tsnap, [torch_parse("day >= '2021-01-20'")])
+    assert torch_pruning._resident_scan(tsnap, [torch_parse("day >= '2021-01-20'")], []) is None
+    _assert_scans_equal(path, [["day >= '2021-01-20'"], ["day <= '2021-01-03'"]])
 
 
 def test_table_written_by_write_command(tmp_path):
@@ -131,31 +132,42 @@ def test_table_written_by_write_command(tmp_path):
                                ["b <= 2.0"], ["a IN (1, 200)"], []])
 
 
-@pytest.mark.parametrize("predicate", [
-    "c1 > 5.0",          # strict bound: the range lowering is not exact
-    "NOT (c0 <= 4000000)",  # flips to a strict c0 > 4000000: not exact
-    "c0 IS NULL",        # null counts are not range lanes
-    "c0 + 1 >= 5",       # arithmetic: parsed by a later slice
-    "c0 >= -5",          # unary minus: parsed by a later slice
-    "c0 != 5",           # needs predicate synthesis
+@pytest.mark.parametrize("predicate,served", [
+    ("c1 > 5.0", False),          # strict bound: the range lowering is not exact
+    ("NOT (c0 <= 4000000)", False),  # flips to a strict c0 > 4000000: not exact
+    ("c0 IS NULL", False),        # null counts are not range lanes
+    ("c0 + 1 >= 5", True),        # synthesis inverts it exactly: max.c0 >= 4
+    ("c0 >= -5", True),           # unary minus folds into the literal
+    ("c0 != 5", True),            # rewrites to UNKNOWN: keep every file
 ])
-def test_unlowerable_predicate_raises(tmp_path, predicate):
+def test_unlowerable_predicate_raises(tmp_path, predicate, served):
+    """Once the first slice raised on each; now a predicate the resident
+    planner cannot lower exactly takes the normal leg, and every one
+    returns the JAX package's answer."""
     path = str(tmp_path / "t")
     write_table(path, n_files=200)
     tsnap = TorchDeltaLog.for_table(path, device="cpu").update()
-    with pytest.raises(NotImplementedError):
-        torch_pruning.files_for_scan(tsnap, [torch_parse(predicate)])
+    got = torch_pruning._resident_scan(tsnap, [], [torch_parse(predicate)])
+    assert (got is not None) == served
+    _assert_scans_equal(path, [[predicate]])
 
 
 def test_time_travel_snapshot_below_residency_raises(tmp_path):
+    """A snapshot older than the resident state takes the normal leg (the
+    first slice raised here) and answers as the JAX package does."""
     path = str(tmp_path / "t")
     state = write_table(path, n_files=300)
     write_tail(path, state, n_commits=1)
     log = TorchDeltaLog.for_table(path, device="cpu")
-    q = [torch_parse("c0 >= 0")]
-    torch_pruning.files_for_scan(log.update(), q)
-    with pytest.raises(NotImplementedError):
-        torch_pruning.files_for_scan(log.get_snapshot_at(2), q)
+    q = "c0 >= 0 AND c0 <= 3000000"
+    torch_pruning.files_for_scan(log.update(), [torch_parse(q)])
+    old = log.get_snapshot_at(2)
+    assert torch_pruning._resident_scan(old, [], [torch_parse(q)]) is None
+    ts = torch_pruning.files_for_scan(old, [torch_parse(q)])
+    js = jax_pruning.files_for_scan(JaxDeltaLog.for_table(path).get_snapshot_at(2),
+                                    [jax_parse(q)])
+    assert [f.json() for f in ts.files] == [f.json() for f in js.files]
+    assert _size(ts.total) == _size(js.total) and _size(ts.scanned) == _size(js.scanned)
 
 
 def test_port_imports_no_jax_pyarrow_or_delta_tpu():
@@ -168,14 +180,19 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
         "('jax', 'jaxlib', 'pyarrow', 'delta_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('delta_tpu_torch.')]))\n"
         "print(bad)\n"
+        "print(' '.join(sorted(n for n in sys.modules if n.startswith('delta_tpu_torch.'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().splitlines()
-    assert int(n_modules) >= 17
+    n_modules, bad, names = out.stdout.strip().splitlines()
+    assert int(n_modules) >= 30
     assert bad == "[]"
+    for m in ("expr.device_eval", "expr.vectorized", "expr.synthesis", "expr.partition",
+              "schema.char_varchar", "utils.timeparse", "ops.replay_kernel", "ops.pruning",
+              "ops.state_export"):
+        assert f"delta_tpu_torch.{m}" in names.split(), m
 
 
 def test_chip_smoke_imports_no_jax_or_delta_tpu():
@@ -214,14 +231,14 @@ def test_default_device_raises_without_a_card(tmp_path):
     ("part = 'us' OR id > 350", False),
     ("name IS NULL", False),
     ("name >= 'zz'", False),  # string-prefix lanes are never exact
-    ("name LIKE '%x%'", False),
+    ("name LIKE '%x%'", True),  # no literal prefix: UNKNOWN, keep every file
 ])
 def test_ops_pruning_cases_match_jax(tmp_path, predicate, served):
     path = str(tmp_path / "t")
     write_ops_table(path)
-    if served:
-        _assert_scans_equal(path, [[predicate]])
-    else:
-        tsnap = TorchDeltaLog.for_table(path, device="cpu").update()
-        with pytest.raises(NotImplementedError):
-            torch_pruning.files_for_scan(tsnap, [torch_parse(predicate)])
+    tsnap = TorchDeltaLog.for_table(path, device="cpu").update()
+    filters = [torch_parse(predicate)]
+    parts = [c for c in filters if "part" in c.sql() and "id" not in c.sql()]
+    data = [c for c in filters if c not in parts]
+    assert (torch_pruning._resident_scan(tsnap, parts, data) is not None) == served
+    _assert_scans_equal(path, [[predicate]])
