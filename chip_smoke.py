@@ -17,8 +17,13 @@ Phases, each reported on its own line:
    every opcode and dtype (NaN and ±inf lanes, timestamps before 1970,
    int32 overflow, saturating casts, an IN with a NULL in a column option),
    bit for bit except exp/log/pow/sqrt, where the lanes that differ are
-   counted and must be within 1 ulp, and the replay (K5) at n=2^20 (pads,
-   removes on both sides of the retention cutoff, re-added paths);
+   counted and must be within 1 ulp, the replay (K5) at n=2^20 (pads,
+   removes on both sides of the retention cutoff, re-added paths), and the
+   MERGE key slab's kernels: the radix sort (K8) and the search probe (K9)
+   at n=2^20 and at cap=10,485,760 (duplicates, negatives, int64.max keys,
+   pads, invalid rows, sentinels, absent keys, a dense band, source sizes 1
+   and 2^20), the pair compaction (K10) on empty, partial and full matches,
+   and the six slab updates (K11) with pads out of range;
 4. the scan-planning path at full size, with every launch counter set to 0
    just before and read just after: a 1M-file table laid out as the hot-plan
    benchmark's
@@ -38,12 +43,23 @@ Phases, each reported on its own line:
    served by the resident planner; ``replay_alive_mask`` over the log's
    whole action stream, whose alive set must be the snapshot's live files
    and whose tombstones the host replay's;
-6. per kernel: time on the card (CUDA events, warmed, many launches) at the
+6. the MERGE key slab on bench config 2 (``bench.py:165-260``), with the
+   counters set to 0 again: the 10M-row ``_store_sales`` target written
+   through the port's Parquet writer (files of at most 4M rows, stats from
+   ``collect_stats``, committed as v0 with deletion vectors enabled); a cold
+   ``KeyCache.get`` on the card, its parts timed; probes of the bench's 1M
+   source keys (p50/p99 of 7, one insert-only), each held pair for pair
+   against a numpy reference join and ``pairs_for_file`` file by file;
+   four tail commits (a DV of 10,000 rows, the DV shrunk to 5,000, a
+   300,000-row file with a removal, a 1,000-row file), each advanced
+   incrementally and re-probed; a probe on the composite key
+   ``(ss_customer_sk, ss_store_sk)``;
+7. per kernel: time on the card (CUDA events, warmed, many launches) at the
    main path's shapes and inputs, the plain version's time, the least time
    the card could take (bytes over 3.35 TB/s or compares over 33.5e12/s,
    whichever is larger) and, where one PyTorch call computes the
    same function, that call's time; one JSON line lists them;
-7. last line: ``{"ok": true, "device": {...}}``.
+8. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -64,11 +80,14 @@ import torch
 from delta_tpu_torch import DeltaLog
 from delta_tpu_torch.expr import device_eval, ir
 from delta_tpu_torch.expr.parser import parse_expression
-from delta_tpu_torch.ops import native, pruning, replay_kernel, state_cache, state_export
+from delta_tpu_torch.exec.parquet import collect_stats, read_parquet_file, write_parquet_file
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, evaluate
+from delta_tpu_torch.ops import key_cache, native, pruning, replay_kernel, state_cache, state_export
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
     AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
 )
+from delta_tpu_torch.protocol.deletion_vectors import write_deletion_vector
 from delta_tpu_torch.schema.types import DoubleType, LongType, StructType
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -81,6 +100,14 @@ N_QUERIES = 256
 N_TAILS = 10
 TAIL_ADDS, TAIL_REMOVES = 1000, 500
 SEED = 13
+# bench config 2 (bench.py:165-260): the MERGE upsert's target and source
+MERGE_ROWS, MERGE_SOURCE = 10_000_000, 1_000_000
+MERGE_FILE_ROWS = 4_000_000  # delta.tpu.write.targetFileRows
+MERGE_PROBES = 7
+MERGE_DV_ROWS, MERGE_APPEND_ROWS, MERGE_SMALL_ROWS = 10_000, 300_000, 1_000
+I64_MAX = (1 << 63) - 1
+SLAB_KERNELS = ("slab_sort", "slab_probe", "pair_compact", "slab_kill", "slab_revive",
+                "slab_append", "slab_widen", "slab_map_rows", "slab_slice_append")
 
 
 class SmokeFailure(RuntimeError):
@@ -186,6 +213,7 @@ def synthetic_checks(dev):
     say("kernels: winner_bits n=2^20, 2^24 exact")
     k15_checks(dev)
     k5_checks(dev)
+    slab_checks(dev)
 
 
 #: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
@@ -311,6 +339,106 @@ def k5_checks(dev):
             check(torch.equal(g, r), f"K5 {what} != plain at cutoff {cutoff}")
     say(f"kernels: replay n=2^20 num_paths={num_paths} cutoffs 0, 1000 exact "
         f"(sums {ref[2].tolist()})")
+
+
+def equal_all(got, ref):
+    return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def slab_keys(rng, n, cap):
+    """A key lane: duplicates, negatives, int64.max keys, full-range keys, and
+    garbage in the pad rows [n, cap)."""
+    keys = rng.randint(-(1 << 62), 1 << 62, cap).astype(np.int64)
+    keys[: n // 4] = rng.randint(-500, 500, n // 4)  # dense duplicates
+    keys[n // 4: n // 2] = rng.randint(0, 1 << 25, n // 2 - n // 4)
+    keys[rng.choice(n, min(n, 64), replace=False)] = I64_MAX
+    keys[rng.choice(n, min(n, 64), replace=False)] = -I64_MAX - 1
+    return keys
+
+
+def slab_checks(dev):
+    """K8-K11 against their plain versions on the card, exactly."""
+    rng = np.random.RandomState(23)
+    for n, cap in ((1 << 20, 1 << 20), (10_000_000, 10_485_760), (0, 1024), (1, 1024)):
+        k = torch.from_numpy(slab_keys(rng, max(n, 1), cap) if n else np.zeros(cap, np.int64))
+        k, v = k.to(dev), torch.from_numpy(rng.rand(cap) > 0.1).to(dev)
+        for keys in (k, k & ((1 << 25) - 1)):  # all 8 digit passes, then 4
+            got = key_cache.slab_sort(keys, v, n)
+            torch.cuda.synchronize()
+            check(equal_all(got, key_cache.slab_sort_plain(keys, v, n)),
+                  f"slab_sort != plain at n={n} cap={cap}")
+    say("kernels: slab_sort n=2^20 cap=2^20, n=10,000,000 cap=10,485,760, n=0, 1: exact")
+
+    for n, cap in ((1 << 20, 1 << 20), (10_000_000, 10_485_760)):
+        keys = slab_keys(rng, n, cap)
+        keys[n // 2: n // 2 + 300_000] = np.arange(300_000) + (1 << 40)  # the dense band
+        k, v = torch.from_numpy(keys).to(dev), torch.from_numpy(rng.rand(cap) > 0.1).to(dev)
+        sk, perm, _, sv = key_cache.slab_sort_plain(k, v, n)
+        for m in (1, 1 << 20):
+            src = np.concatenate([
+                keys[rng.randint(0, n, m)],  # present, duplicated in the source
+                rng.randint(-(1 << 62), 1 << 62, m),  # absent
+                np.arange(1 << 40, (1 << 40) + m),  # the band: all present
+                [I64_MAX, I64_MAX - 1, -I64_MAX],  # a real int64.max, sentinels
+            ])
+            src = src[rng.permutation(len(src))][: max(m, 8)]
+            cap_s = key_cache._bucket(len(src))
+            s_in = np.full(cap_s, I64_MAX - 1, np.int64)
+            s_in[: len(src)] = src
+            s = torch.from_numpy(s_in).to(dev)
+            got = key_cache.slab_probe(sk, sv, n, s)
+            torch.cuda.synchronize()
+            ref = key_cache.slab_probe_plain(sk, sv, n, s)
+            check(equal_all(got, ref), f"slab_probe != plain at n={n} m={m}")
+            t_match, s_first = ref[1], ref[2]
+            mc = int(t_match.sum())
+            for tm in (torch.zeros_like(t_match), t_match, torch.ones_like(t_match)):
+                out_cap = state_cache._next_pow2(int(tm.sum()), floor=64)
+                got = key_cache.pair_compact(tm, s_first, perm, out_cap)
+                torch.cuda.synchronize()
+                check(torch.equal(got, key_cache.pair_compact_plain(tm, s_first, perm, out_cap)),
+                      f"pair_compact != plain at n={n} m={m}")
+        s32 = torch.from_numpy(np.concatenate([keys[:4096] & 0xFFFFF, [2**31 - 2] * 8]
+                                              ).astype(np.int32)).to(dev)
+        sk32, _, _, sv32 = key_cache.slab_sort_plain(k & 0xFFFFF, v, n)
+        check(equal_all(key_cache.slab_probe(sk32, sv32, n, s32),
+                        key_cache.slab_probe_plain(sk32, sv32, n, s32)),
+              f"slab_probe != plain with an int32 source at n={n}")
+    say(f"kernels: slab_probe n=2^20 and 10,000,000, m=1 and 2^20 (int64), 4104 (int32): exact "
+        f"({mc} matched rows in the last); pair_compact empty, partial, full: exact")
+
+    cap = 10_485_760
+    lane = torch.from_numpy(rng.rand(cap) > 0.5).to(dev)
+    keys = torch.from_numpy(rng.randint(-(1 << 40), 1 << 40, cap)).to(dev)
+    inv = torch.from_numpy(rng.permutation(cap).astype(np.int32)).to(dev)
+    for d in (64, 16384, 1 << 20):
+        rows_np = np.full(d, cap, np.int32)
+        k = d - d // 8
+        rows_np[:k] = rng.choice(cap, k, replace=False)
+        rows_np[k] = -3  # XLA wraps a negative index
+        rows = torch.from_numpy(rows_np).to(dev)
+        for fn, value in ((key_cache.slab_kill, False), (key_cache.slab_revive, True)):
+            got = fn(lane, rows)
+            torch.cuda.synchronize()
+            check(torch.equal(got, key_cache.slab_flip_plain(lane, rows, value)),
+                  f"{fn.__name__} != plain at d={d}")
+        check(torch.equal(key_cache.slab_map_rows(inv, rows),
+                          key_cache.slab_map_rows_plain(inv, rows)), f"slab_map_rows at d={d}")
+        for dt in (np.int32, np.int64):
+            nk = torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, d).astype(dt)).to(dev)
+            nv = torch.from_numpy(rng.rand(d) > 0.5).to(dev)
+            check(equal_all(key_cache.slab_append(keys, lane, rows, nk, nv),
+                            key_cache.slab_append_plain(keys, lane, rows, nk, nv)),
+                  f"slab_append != plain at a={d}")
+            for start in (0, cap - d - 5, cap):  # the last clamps
+                check(equal_all(key_cache.slab_slice_append(keys, lane, start, nk, nv),
+                                key_cache.slab_slice_append_plain(keys, lane, start, nk, nv)),
+                      f"slab_slice_append != plain at a={d} start={start}")
+    k32 = torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, cap).astype(np.int32)).to(dev)
+    check(torch.equal(key_cache.slab_widen(k32), key_cache.slab_widen_plain(k32)), "slab_widen")
+    torch.cuda.synchronize()
+    say("kernels: slab kill/revive/map_rows d=64..2^20, append/slice_append a=64..2^20 "
+        "(int32 and int64 keys, pads out of range), widen cap=10,485,760: exact")
 
 
 # -- phase 4: the slice at full size -------------------------------------------
@@ -585,7 +713,267 @@ def run_fallback(dev, ctx):
                fallback_p50_ms=p50)
 
 
-# -- phase 5: times and bounds at the main path's shapes -----------------------
+# -- phase 6: the MERGE key slab on bench config 2 -------------------------------
+
+
+def store_sales(n, rng):
+    """bench.py:168 `_store_sales`, as numpy columns (same draws)."""
+    return {
+        "ss_item_sk": rng.permutation(n * 2)[:n].astype(np.int64),
+        "ss_customer_sk": rng.randint(0, 1_000_000, n).astype(np.int64),
+        "ss_sold_date_sk": rng.randint(2450000, 2452000, n).astype(np.int64),
+        "ss_store_sk": rng.randint(0, 500, n).astype(np.int64),
+        "ss_quantity": rng.randint(1, 100, n).astype(np.int64),
+        "ss_sales_price": rng.rand(n).astype(np.float64) * 100,
+        "ss_ext_discount_amt": rng.rand(n).astype(np.float64) * 10,
+        "ss_net_paid": rng.rand(n).astype(np.float64) * 90,
+    }
+
+
+def host_table(cols):
+    n = len(next(iter(cols.values())))
+    kinds = {np.dtype(np.int64): "int", np.dtype(np.float64): "double"}
+    return HostTable({k: HostColumn(kinds[v.dtype], v, np.ones(n, bool)) for k, v in cols.items()},
+                     n)
+
+
+def write_data_file(path, name, cols):
+    """One data file through the port's writer; its AddFile with stats."""
+    size, mtime = write_parquet_file(host_table(cols), os.path.join(path, name))
+    stats = json.dumps(collect_stats(host_table(cols)))
+    return AddFile(path=name, size=size, modification_time=mtime, data_change=True, stats=stats)
+
+
+def write_config2_table(path, store):
+    """bench_merge_upsert's target (bench.py:192-203): 10M store_sales rows
+    from RandomState(7), files of at most 4M rows, committed as v0 with
+    deletion vectors enabled; and its source (:205-214)."""
+    rng = np.random.RandomState(7)
+    cols = store_sales(MERGE_ROWS, rng)
+    schema = StructType()
+    for k, v in cols.items():
+        schema = schema.add(k, LongType() if v.dtype == np.int64 else DoubleType())
+    files, adds = {}, []
+    for i, lo in enumerate(range(0, MERGE_ROWS, MERGE_FILE_ROWS)):
+        part = {k: v[lo:lo + MERGE_FILE_ROWS] for k, v in cols.items()}
+        name = f"part-{i:05d}-c2.parquet"
+        adds.append(write_data_file(path, name, part))
+        files[name] = part
+    store.write(f"{path}/_delta_log/{filenames.delta_file(0)}", [
+        Protocol(3, 7, ("deletionVectors",), ("deletionVectors",)).json(),
+        Metadata(schema_string=schema.to_json(),
+                 configuration={"delta.tpu.enableDeletionVectors": "true"}).json(),
+        *[a.json() for a in adds]])
+    existing = cols["ss_item_sk"][rng.choice(MERGE_ROWS, MERGE_SOURCE // 2, replace=False)]
+    fresh = np.arange(MERGE_ROWS * 2, MERGE_ROWS * 2 + (MERGE_SOURCE - MERGE_SOURCE // 2),
+                      dtype=np.int64)
+    src_keys = np.concatenate([existing, fresh])
+    rng.shuffle(src_keys)
+    source = store_sales(MERGE_SOURCE, np.random.RandomState(11))
+    source["ss_item_sk"] = src_keys
+    return files, {a.path: a for a in adds}, source
+
+
+def reference_join(live, packed, s_keys, s_ok):
+    """The numpy reference: per live file, (local rows, first source row) of
+    every valid row whose key a valid source row has; the source's matched
+    flags and multi-match flag. ``packed(path)`` gives a file's key lane."""
+    vidx = np.flatnonzero(s_ok)
+    uniq, first, counts = np.unique(s_keys[vidx], return_index=True, return_counts=True)
+    pairs, member = {}, np.zeros(len(uniq), bool)
+    for path, (_, dv) in live.items():
+        k = packed(path)
+        valid = np.ones(len(k), bool)
+        valid[dv] = False
+        pos = np.minimum(np.searchsorted(uniq, k), len(uniq) - 1)
+        hit = valid & (uniq[pos] == k)
+        pairs[path] = (np.flatnonzero(hit), vidx[first[pos[hit]]])
+        member[pos[hit]] = True
+    s_matched = np.zeros(len(s_keys), bool)
+    pos = np.minimum(np.searchsorted(uniq, s_keys), len(uniq) - 1)
+    s_matched[vidx] = member[pos[vidx]]
+    multi = bool((member & (counts > 1)).any())
+    return pairs, s_matched, multi
+
+
+def check_probe(entry, live, packed, s_keys, s_ok, label, insert_only=False):
+    """One probe through ``probe_async`` against the reference join: flags,
+    multi, every pair, and ``pairs_for_file`` file by file. Returns (probe
+    ms, the probe)."""
+    t0 = time.perf_counter()
+    probe = entry.probe_async(s_keys, s_ok, expected_version=entry.version,
+                              insert_only=insert_only).result()
+    ms = (time.perf_counter() - t0) * 1e3
+    pairs, s_matched, multi = reference_join(live, packed, s_keys, s_ok)
+    check(np.array_equal(probe.s_matched, s_matched), f"{label}: s_matched differs")
+    check(probe.any_multi == multi, f"{label}: any_multi {probe.any_multi}, reference {multi}")
+    if insert_only:
+        check(probe.t_pairs is None, f"{label}: an insert-only probe fetched pairs")
+        return ms, probe
+    check(set(probe.slabs) == set(live), f"{label}: the slab's files differ from the live set")
+    phys = []
+    for path, (want_rows, want_src) in pairs.items():
+        off, rows = probe.slabs[path]
+        got = probe.pairs_for_file(path, None, rows)
+        check(got is not None and np.array_equal(got[0], want_rows)
+              and np.array_equal(got[1], want_src), f"{label}: pairs differ in {path}")
+        phys.append((off, want_rows + off, want_src))
+    want_phys = np.concatenate([p for _, p, _ in sorted(phys, key=lambda t: t[0])])
+    want_src = np.concatenate([s for _, _, s in sorted(phys, key=lambda t: t[0])])
+    check(np.array_equal(probe.t_pairs[0], want_phys)
+          and np.array_equal(probe.t_pairs[1], want_src), f"{label}: t_pairs differ")
+    return ms, probe
+
+
+def run_merge(dev, workdir):
+    """Bench config 2's resident key slab, cold build to advances, on the card."""
+    from delta_tpu_torch.storage.logstore import LocalLogStore
+
+    path = os.path.join(workdir, "config2")
+    store = LocalLogStore()
+    t0 = time.perf_counter()
+    files, adds, source = write_config2_table(path, store)
+    say(f"merge: wrote {MERGE_ROWS} rows x 8 columns as {len(files)} files in "
+        f"{time.perf_counter() - t0:.3f} s")
+    live = {p: (cols, np.empty(0, np.int64)) for p, cols in files.items()}
+    item = lambda p: live[p][0]["ss_item_sk"]  # noqa: E731
+    s_keys = source["ss_item_sk"]
+    s_ok = np.ones(MERGE_SOURCE, bool)
+    exprs = [ir.Column("ss_item_sk")]
+
+    native.reset_launches()  # -- the MERGE key slab's path starts here
+    DeltaLog.clear_cache()
+    key_cache.KeyCache.reset()
+    log = DeltaLog.for_table(path, device=dev)
+    cache = key_cache.KeyCache.instance()
+    t0 = time.perf_counter()
+    snap = log.update()
+    t_get = time.perf_counter()
+    entry = cache.get(snap, "item", ["ss_item_sk"], exprs)
+    t_up = time.perf_counter()
+    check(entry is not None and entry.num_rows == MERGE_ROWS, "cold build")
+    entry.ensure_resident()
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter()
+    entry._ensure_sorted()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    check(MERGE_ROWS != 10_000_000 or entry.capacity == 10_485_760,
+          f"slab capacity {entry.capacity}")
+    # the host decode alone, again, for the breakdown of get()
+    t1 = time.perf_counter()
+    tabs = [read_parquet_file(os.path.join(path, p), ["ss_item_sk"]) for p in files]
+    decode_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for tab in tabs:
+        key_cache._pack_lanes(tab, exprs, evaluate)
+    pack_s = time.perf_counter() - t1
+    cold = {"snapshot_s": t_get - t0, "get_s": t_up - t_get, "decode_s": decode_s,
+            "pack_s": pack_s, "upload_widen_ms": (t_sort - t_up) * 1e3,
+            "sort_ms": (t_end - t_sort) * 1e3, "total_s": t_end - t0}
+    say(f"merge: cold build {cold['total_s']:.3f} s: snapshot {cold['snapshot_s']:.3f} s, "
+        f"KeyCache.get {cold['get_s']:.3f} s (of which decode {decode_s:.3f} s, pack "
+        f"{pack_s:.3f} s, measured again alone), upload int32 + widen "
+        f"{cold['upload_widen_ms']:.3f} ms, K8 sort {cold['sort_ms']:.3f} ms "
+        f"(cap {entry.capacity}, {entry.num_rows} rows)")
+
+    probe_ms = []
+    for i in range(MERGE_PROBES):
+        ms, probe = check_probe(entry, live, item, s_keys, s_ok, f"probe {i}")
+        probe_ms.append(ms)
+    check(int(probe.s_matched.sum()) == MERGE_SOURCE // 2 and len(probe.t_pairs[0])
+          == MERGE_SOURCE // 2 and not probe.any_multi, "cold probe: half the source matches, "
+          "no multi")
+    ins_ms, _ = check_probe(entry, live, item, s_keys, s_ok, "insert-only", insert_only=True)
+    p50, p99 = np.percentile(probe_ms, [50, 99])
+    say(f"merge: probe x{MERGE_PROBES} ms {[round(x, 3) for x in probe_ms]} (p50 {p50:.3f}, "
+        f"p99 {p99:.3f}), insert-only {ins_ms:.3f} ms; {MERGE_SOURCE // 2} matched, all equal to "
+        "the reference join")
+
+    # the tail commits
+    names = list(files)
+    f0, f2 = names[0], names[-1]
+    rng = np.random.RandomState(31)
+    dv10 = np.sort(rng.choice(MERGE_FILE_ROWS, MERGE_DV_ROWS, replace=False))
+    dv5 = np.sort(dv10[rng.choice(MERGE_DV_ROWS, MERGE_DV_ROWS // 2, replace=False)])
+    new_c = store_sales(MERGE_APPEND_ROWS, np.random.RandomState(41))
+    new_c["ss_item_sk"] = np.arange(MERGE_ROWS * 2, MERGE_ROWS * 2 + MERGE_APPEND_ROWS)
+    new_d = store_sales(MERGE_SMALL_ROWS, np.random.RandomState(43))
+    new_d["ss_item_sk"] = np.arange(MERGE_ROWS * 4, MERGE_ROWS * 4 + MERGE_SMALL_ROWS)
+
+    def readd(dv_rows):
+        desc = write_deletion_vector(dv_rows, path)
+        a = adds[f0]
+        return AddFile(path=a.path, size=a.size, modification_time=a.modification_time,
+                       data_change=True, stats=a.stats, deletion_vector=desc.to_dict())
+
+    steps = [
+        (f"a: DV of {len(dv10)} rows", lambda: [readd(dv10)], {f0: dv10},
+         ("slab_kill", "slab_map_rows")),
+        (f"b: DV shrunk to {len(dv5)}", lambda: [readd(dv5)], {f0: dv5}, ("slab_revive",)),
+        (f"c: {MERGE_APPEND_ROWS}-row file + a removal",
+         lambda: [RemoveFile(path=f2, deletion_timestamp=3, data_change=True),
+                  write_data_file(path, "part-00003-c2.parquet", new_c)],
+         {"part-00003-c2.parquet": None}, ("slab_append", "slab_kill")),
+        (f"d: {MERGE_SMALL_ROWS}-row file", lambda: [write_data_file(path, "part-00004-c2.parquet", new_d)],
+         {"part-00004-c2.parquet": None}, ("slab_slice_append",)),
+    ]
+    advance_ms, reprobe_ms = [], []
+    for v, (label, actions, change, kernels) in enumerate(steps, start=1):
+        store.write(f"{path}/_delta_log/{filenames.delta_file(v)}", [a.json() for a in actions()])
+        for p, dv in change.items():
+            if dv is None:
+                files[p] = new_c if p.startswith("part-00003") else new_d
+                live[p] = (files[p], np.empty(0, np.int64))
+            else:
+                live[p] = (files[p], dv)
+        if v == 3:
+            live.pop(f2)
+        before = {k: native.launches[k] for k in kernels}
+        snap = log.update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = cache.get(snap, "item", ["ss_item_sk"], exprs)
+        torch.cuda.synchronize()
+        advance_ms.append((time.perf_counter() - t0) * 1e3)
+        check(e is entry and e.version == v, f"advance {label}: not applied incrementally")
+        for k in kernels:
+            check(native.launches[k] > before[k], f"advance {label}: {k} was not launched")
+        ms, probe = check_probe(entry, live, item, s_keys, s_ok, f"after {label}")
+        reprobe_ms.append(ms)
+        say(f"merge: advance {label}: {advance_ms[-1]:.3f} ms, re-probe {ms:.3f} ms, "
+            f"{len(probe.t_pairs[0])} pairs, equal to the reference join")
+
+    # the composite key (ss_customer_sk, ss_store_sk): both fit int32
+    c_exprs = [ir.Column("ss_customer_sk"), ir.Column("ss_store_sk")]
+    t0 = time.perf_counter()
+    ce = cache.get(snap, "customer-store", ["ss_customer_sk", "ss_store_sk"], c_exprs)
+    check(ce is not None and ce is not entry
+          and ce.num_rows == sum(len(cols["ss_item_sk"]) for cols, _ in live.values()),
+          "composite build")
+    composite_build_s = time.perf_counter() - t0
+    src_tab = host_table(source)
+    c_keys, c_ok = key_cache._pack_lanes(src_tab, c_exprs, evaluate)
+    check(np.array_equal(c_keys, (source["ss_customer_sk"] << 32) | source["ss_store_sk"]),
+          "composite source packing")
+    pack = lambda p: (live[p][0]["ss_customer_sk"] << 32) | live[p][0]["ss_store_sk"]  # noqa
+    c_ms, c_probe = check_probe(ce, live, pack, c_keys, c_ok, "composite")
+    # at full size ~1000 source keys repeat and ~2% of keys are in the target
+    check(MERGE_ROWS != 10_000_000 or c_probe.any_multi,
+          "composite probe: any_multi must be true")
+    launches = dict(native.launches)  # -- the MERGE key slab's path ends here
+    say(f"merge: composite (ss_customer_sk, ss_store_sk): build {composite_build_s:.3f} s, "
+        f"probe {c_ms:.3f} ms, {len(c_probe.t_pairs[0])} pairs, any_multi {c_probe.any_multi}, "
+        "equal to the reference join")
+    say(f"merge: launches on the key slab's path {launches}")
+    for name in SLAB_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the key slab's path")
+    return {"entry": entry, "source": s_keys, "launches": launches, "cold": cold,
+            "probe_p50_ms": float(p50), "probe_p99_ms": float(p99),
+            "advance_ms": advance_ms, "dv10": dv10, "dv5": dv5, "off": entry.slabs[f0][0]}
+
+
+# -- phase 7: times and bounds at the main path's shapes -----------------------
 
 
 def cull_ops(mins, maxs, alive, lo, hi):
@@ -758,6 +1146,157 @@ def measure_normal_leg(dev, ctx):
     return out
 
 
+def slab_row(name, src, launches, got, ref, ms, plain_ms, nbytes, library_ms, shape):
+    b, by = bound(nbytes)
+    return {"name": name, "route": "cuda", "source": f"delta_tpu_torch/csrc/{src}",
+            "replaces": {"slab_sort.cu": "delta_tpu/ops/key_cache.py:166",
+                         "slab_probe.cu": "delta_tpu/ops/key_cache.py:206",
+                         "pair_compact.cu": "delta_tpu/ops/key_cache.py:353",
+                         "slab_update.cu": "delta_tpu/ops/key_cache.py:379"}[src],
+            "launches": launches[name],
+            "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms, "shape": shape}
+
+
+def measure_slab(dev, mctx):
+    """K8-K11 at the MERGE path's shapes: the slab after the advances, the
+    bench source, the advances' row counts."""
+    out, launches = [], mctx["launches"]
+    e = mctx["entry"]
+    keys, valid, n = e._dev["keys"], e._dev["valid"], e.num_rows
+    cap = keys.shape[0]
+    args = (keys, valid, n)
+    got, ref = key_cache.slab_sort(*args), key_cache.slab_sort_plain(*args)
+    check(equal_all(got, ref), "slab_sort != plain on the slab")
+    enc = torch.where(torch.arange(cap, device=dev) < n, keys, torch.full_like(keys, I64_MAX))
+    out.append(slab_row("slab_sort", "slab_sort.cu", launches, got, ref,
+                        cuda_ms(lambda: key_cache.slab_sort(*args), 20),
+                        cuda_ms(lambda: key_cache.slab_sort_plain(*args), 5), 26 * cap,
+                        cuda_ms(lambda: torch.sort(enc, stable=True), 20),
+                        f"cap={cap} n={n}"))
+    sk, perm, inv, sv = got
+
+    s_keys = mctx["source"]
+    m = len(s_keys)
+    cap_s = key_cache._bucket(m)
+    s_in = np.full(cap_s, np.iinfo(np.int32).max - 1, np.int32)
+    s_in[:m] = s_keys
+    s = torch.from_numpy(s_in).to(dev)
+    got, ref = key_cache.slab_probe(sk, sv, n, s), key_cache.slab_probe_plain(sk, sv, n, s)
+    check(equal_all(got, ref), "slab_probe != plain on the slab")
+    t_match, s_first = got[1], got[2]
+    mc = int(t_match.sum())
+    s64, real = s.to(torch.int64), sk[:n]
+    out.append(slab_row("slab_probe", "slab_probe.cu", launches, got, ref,
+                        cuda_ms(lambda: key_cache.slab_probe(sk, sv, n, s), 20),
+                        cuda_ms(lambda: key_cache.slab_probe_plain(sk, sv, n, s), 5),
+                        5 * cap + 6 + cap_s // 8 + 4 * cap_s + 8 * cap_s + mc,
+                        cuda_ms(lambda: torch.searchsorted(real, s64), 20),
+                        f"cap={cap} n={n} m={cap_s} ({m} source rows, int32), {mc} matched"))
+
+    out_cap = state_cache._next_pow2(mc, floor=64)
+    got = key_cache.pair_compact(t_match, s_first, perm, out_cap)
+    ref = key_cache.pair_compact_plain(t_match, s_first, perm, out_cap)
+    check(torch.equal(got, ref), "pair_compact != plain on the probe's rows")
+
+    def library_compact():
+        idx = torch.nonzero(t_match).reshape(-1)
+        return torch.index_select(perm, 0, idx), torch.index_select(s_first, 0, idx)
+
+    # the host side of the probe's finalize on these pairs: the download and
+    # the stable argsort into physical order (probe_async's finalize)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = got.cpu().numpy()
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    phys = pairs[0, :mc].astype(np.int64)
+    np.argsort(phys, kind="stable")
+    argsort_ms = (time.perf_counter() - t0) * 1e3
+
+    out.append(slab_row("pair_compact", "pair_compact.cu", launches, [got], [ref],
+                        cuda_ms(lambda: key_cache.pair_compact(t_match, s_first, perm, out_cap),
+                                20),
+                        cuda_ms(lambda: key_cache.pair_compact_plain(t_match, s_first, perm,
+                                                                     out_cap), 5),
+                        cap + 8 * mc + 8 * out_cap, cuda_ms(library_compact, 20),
+                        f"cap={cap} {mc} pairs out_cap={out_cap}; host: download "
+                        f"{fetch_ms:.3f} ms, stable argsort {argsort_ms:.3f} ms"))
+
+    def padded(rows, d):
+        r = np.full(d, cap, np.int32)
+        r[:len(rows)] = rows
+        return torch.from_numpy(r).to(dev)
+
+    off = mctx["off"]
+    for name, fn, plain, rows_np, value in (
+            ("slab_kill", key_cache.slab_kill, key_cache.slab_flip_plain, mctx["dv10"], False),
+            ("slab_revive", key_cache.slab_revive, key_cache.slab_flip_plain, mctx["dv5"], True)):
+        d = state_cache._next_pow2(len(rows_np), floor=64)
+        rows = padded(rows_np + off, d)
+        got, ref = fn(valid, rows), plain(valid, rows, value)
+        check(torch.equal(got, ref), f"{name} != plain on the slab")
+        lane, kept = valid.clone(), rows[rows < cap].long()
+        out.append(slab_row(name, "slab_update.cu", launches, [got], [ref],
+                            cuda_ms(lambda: fn(valid, rows), 50),
+                            cuda_ms(lambda: plain(valid, rows, value), 20), 2 * cap + 4 * d,
+                            cuda_ms(lambda: lane.index_fill_(0, kept, value), 50),
+                            f"cap={cap} d={d} ({len(rows_np)} rows)"))
+    d = state_cache._next_pow2(len(mctx["dv10"]), floor=64)
+    rows = padded(mctx["dv10"] + off, d)
+    got, ref = key_cache.slab_map_rows(inv, rows), key_cache.slab_map_rows_plain(inv, rows)
+    check(torch.equal(got, ref), "slab_map_rows != plain on the slab")
+    kept = rows[rows < cap].long()
+    out.append(slab_row("slab_map_rows", "slab_update.cu", launches, [got], [ref],
+                        cuda_ms(lambda: key_cache.slab_map_rows(inv, rows), 50),
+                        cuda_ms(lambda: key_cache.slab_map_rows_plain(inv, rows), 20), 12 * d,
+                        cuda_ms(lambda: torch.take(inv, kept), 50), f"cap={cap} d={d}"))
+
+    a_rows = MERGE_APPEND_ROWS
+    a = state_cache._next_pow2(a_rows, floor=64)
+    rows = padded(np.arange(MERGE_ROWS, MERGE_ROWS + a_rows, dtype=np.int32), a)
+    nk_np = np.zeros(a, np.int32)
+    nk_np[:a_rows] = np.arange(MERGE_ROWS * 2, MERGE_ROWS * 2 + a_rows)
+    nk, nv = torch.from_numpy(nk_np).to(dev), torch.from_numpy(np.arange(a) < a_rows).to(dev)
+    got = key_cache.slab_append(keys, valid, rows, nk, nv)
+    ref = key_cache.slab_append_plain(keys, valid, rows, nk, nv)
+    check(equal_all(got, ref), "slab_append != plain at the advance's shape")
+    lane, kept, nk64 = keys.clone(), rows[rows < cap].long(), nk[:a_rows].long()
+    kept_nk = nk64[: len(kept)]
+    out.append(slab_row("slab_append", "slab_update.cu", launches, got, ref,
+                        cuda_ms(lambda: key_cache.slab_append(keys, valid, rows, nk, nv), 20),
+                        cuda_ms(lambda: key_cache.slab_append_plain(keys, valid, rows, nk, nv),
+                                10), 18 * cap + 9 * a,
+                        cuda_ms(lambda: lane.index_copy_(0, kept, kept_nk), 50),
+                        f"cap={cap} a={a} ({a_rows} rows, {len(kept)} inside cap)"))
+
+    k32 = keys.to(torch.int32)
+    got, ref = key_cache.slab_widen(k32), key_cache.slab_widen_plain(k32)
+    check(torch.equal(got, ref), "slab_widen != plain on the slab")
+    out.append(slab_row("slab_widen", "slab_update.cu", launches, [got], [ref],
+                        cuda_ms(lambda: key_cache.slab_widen(k32), 50),
+                        cuda_ms(lambda: key_cache.slab_widen_plain(k32), 50), 12 * cap,
+                        cuda_ms(lambda: k32.to(torch.int64), 50), f"cap={cap}"))
+
+    a = state_cache._next_pow2(MERGE_SMALL_ROWS, floor=64)
+    start = e.num_rows - MERGE_SMALL_ROWS
+    nk, nv = nk[:a].contiguous(), torch.ones(a, dtype=torch.bool, device=dev)
+    got = key_cache.slab_slice_append(keys, valid, start, nk, nv)
+    ref = key_cache.slab_slice_append_plain(keys, valid, start, nk, nv)
+    check(equal_all(got, ref), "slab_slice_append != plain at the advance's shape")
+    lane, nk64 = keys.clone(), nk.long()
+    out.append(slab_row("slab_slice_append", "slab_update.cu", launches, got, ref,
+                        cuda_ms(lambda: key_cache.slab_slice_append(keys, valid, start, nk, nv),
+                                50),
+                        cuda_ms(lambda: key_cache.slab_slice_append_plain(keys, valid, start,
+                                                                          nk, nv), 20),
+                        18 * cap + 5 * a,
+                        cuda_ms(lambda: lane[start:start + a].copy_(nk64), 50),
+                        f"cap={cap} a={a} start={start}"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -775,6 +1314,9 @@ def main() -> int:
         run_fallback(dev, ctx)
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
         kernels += measure_normal_leg(dev, ctx)
+        ctx = None  # the scan phases' lanes and host state are done with
+        mctx = run_merge(dev, workdir)
+        kernels += measure_slab(dev, mctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

@@ -1,9 +1,11 @@
 """delta_tpu_torch: the PyTorch + CUDA port of ``delta_tpu`` for an NVIDIA H100.
 
-A second package beside the JAX one, which stays the reference. This slice
-ports the hot scan-planning path: log replay into a snapshot, the table's
-scan lanes resident on the card, and batched block-cull planning with an
-exact host fine pass::
+A second package beside the JAX one, which stays the reference. Ported so
+far: the scan-planning path (log replay into a snapshot, the table's scan
+lanes resident on the card, batched block-cull planning with an exact host
+fine pass, the whole of ``files_for_scan``), the tombstone replay, and the
+MERGE key slab (``ops/key_cache``) over a Parquet codec of the port's own
+(``exec/parquet``)::
 
     from delta_tpu_torch import DeltaLog
     from delta_tpu_torch.expr.parser import parse_expression

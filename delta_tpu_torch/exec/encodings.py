@@ -1,0 +1,201 @@
+"""Parquet value and level encodings, decoded and encoded with numpy.
+
+Decoders for what flat data files carry: PLAIN for every physical type in
+scope, the RLE/bit-packed hybrid (definition levels, dictionary indices,
+RLE booleans), the dictionary encodings (PLAIN_DICTIONARY and
+RLE_DICTIONARY: hybrid indices into a PLAIN dictionary page) and
+BYTE_STREAM_SPLIT. Fixed-width values decode as one ``np.frombuffer``; a
+bit-packed run unpacks as one ``np.unpackbits`` and a weighted sum, so the
+Python work is per run, not per value. BYTE_ARRAY values are
+length-prefixed one after another and decode value by value (each becomes
+a Python object anyway).
+
+The encoders are the writer's: PLAIN and the hybrid for levels.
+"""
+from __future__ import annotations
+
+import struct
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["PLAIN", "PLAIN_DICTIONARY", "RLE", "RLE_DICTIONARY",
+           "BYTE_STREAM_SPLIT", "ENCODING_NAMES", "BOOLEAN", "INT32", "INT64", "INT96",
+           "FLOAT", "DOUBLE", "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY", "TYPE_NAMES",
+           "read_varint", "decode_hybrid", "decode_plain", "decode_byte_stream_split",
+           "decode_dictionary_indices", "encode_hybrid_bits", "encode_plain"]
+
+# Encoding (parquet.thrift)
+PLAIN, PLAIN_DICTIONARY, RLE = 0, 2, 3
+RLE_DICTIONARY, BYTE_STREAM_SPLIT = 8, 9
+ENCODING_NAMES = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE", 4: "BIT_PACKED",
+                  5: "DELTA_BINARY_PACKED", 6: "DELTA_LENGTH_BYTE_ARRAY",
+                  7: "DELTA_BYTE_ARRAY", 8: "RLE_DICTIONARY", 9: "BYTE_STREAM_SPLIT"}
+
+# physical Type (parquet.thrift)
+BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY = range(8)
+TYPE_NAMES = {0: "BOOLEAN", 1: "INT32", 2: "INT64", 3: "INT96", 4: "FLOAT", 5: "DOUBLE",
+              6: "BYTE_ARRAY", 7: "FIXED_LEN_BYTE_ARRAY"}
+
+_FIXED = {INT32: np.dtype("<i4"), INT64: np.dtype("<i8"), FLOAT: np.dtype("<f4"),
+          DOUBLE: np.dtype("<f8")}
+
+
+class EncodingError(ValueError):
+    """The page's bytes do not decode as its header says."""
+
+
+def read_varint(buf, pos: int) -> Tuple[int, int]:
+    shift = result = 0
+    while True:
+        if pos >= len(buf):
+            raise EncodingError("truncated varint")
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+
+
+def _unpack_bits(raw: np.ndarray, bit_width: int, count: int) -> np.ndarray:
+    """``count`` little-endian ``bit_width``-bit values packed LSB first."""
+    if bit_width == 0:
+        return np.zeros(count, np.int64)
+    bits = np.unpackbits(raw, bitorder="little")[: count * bit_width]
+    bits = bits.reshape(count, bit_width).astype(np.int64)
+    return bits @ (np.int64(1) << np.arange(bit_width, dtype=np.int64))
+
+
+def decode_hybrid(buf, pos: int, end: int, bit_width: int, num_values: int) -> np.ndarray:
+    """The RLE/bit-packed hybrid over ``buf[pos:end]`` (no length prefix):
+    ``num_values`` values as int64."""
+    if bit_width > 32:
+        raise EncodingError(f"hybrid bit width {bit_width} > 32")
+    data = np.frombuffer(buf, np.uint8)
+    byte_width = (bit_width + 7) // 8
+    pieces: List[np.ndarray] = []
+    got = 0
+    while got < num_values:
+        if pos >= end:
+            raise EncodingError(f"hybrid runs end after {got} of {num_values} values")
+        header, pos = read_varint(buf, pos)
+        if header & 1:  # bit-packed: (header >> 1) groups of 8 values
+            count = (header >> 1) * 8
+            nbytes = (header >> 1) * bit_width
+            if pos + nbytes > end:
+                raise EncodingError("bit-packed run past the end of its buffer")
+            pieces.append(_unpack_bits(data[pos:pos + nbytes], bit_width, count))
+            pos += nbytes
+        else:
+            count = header >> 1
+            value = int.from_bytes(bytes(buf[pos:pos + byte_width]), "little")
+            pos += byte_width
+            pieces.append(np.full(count, value, np.int64))
+        got += count
+    if not pieces:
+        return np.zeros(0, np.int64)
+    out = pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+    return out[:num_values]
+
+
+def decode_plain(buf, pos: int, end: int, ptype: int, count: int):
+    """``count`` PLAIN values of physical type ``ptype``: a numpy array for
+    fixed widths and booleans, a list of ``bytes`` for BYTE_ARRAY."""
+    if ptype in _FIXED:
+        dt = _FIXED[ptype]
+        if pos + count * dt.itemsize > end:
+            raise EncodingError(f"{count} PLAIN {TYPE_NAMES[ptype]} values past the page end")
+        return np.frombuffer(buf, dt, count, pos)
+    if ptype == BOOLEAN:
+        nbytes = (count + 7) // 8
+        if pos + nbytes > end:
+            raise EncodingError("PLAIN booleans past the page end")
+        raw = np.frombuffer(buf, np.uint8, nbytes, pos)
+        return np.unpackbits(raw, count=count, bitorder="little").astype(bool)
+    if ptype == BYTE_ARRAY:
+        out = []
+        mv = memoryview(buf)
+        unpack = struct.Struct("<I").unpack_from
+        for _ in range(count):
+            if pos + 4 > end:
+                raise EncodingError("PLAIN BYTE_ARRAY values past the page end")
+            (n,) = unpack(mv, pos)
+            pos += 4
+            if pos + n > end:
+                raise EncodingError("PLAIN BYTE_ARRAY value past the page end")
+            out.append(bytes(mv[pos:pos + n]))
+            pos += n
+        return out
+    raise EncodingError(f"PLAIN {TYPE_NAMES.get(ptype, ptype)} is not decoded here")
+
+
+def decode_byte_stream_split(buf, pos: int, end: int, ptype: int, count: int) -> np.ndarray:
+    """BYTE_STREAM_SPLIT: byte k of every value stored together, stream
+    after stream."""
+    dt = _FIXED.get(ptype)
+    if dt is None:
+        raise EncodingError(f"BYTE_STREAM_SPLIT of {TYPE_NAMES.get(ptype, ptype)}")
+    w = dt.itemsize
+    if pos + count * w > end:
+        raise EncodingError("BYTE_STREAM_SPLIT values past the page end")
+    raw = np.frombuffer(buf, np.uint8, count * w, pos).reshape(w, count)
+    return np.ascontiguousarray(raw.T).view(dt).reshape(count)
+
+
+def decode_dictionary_indices(buf, pos: int, end: int, count: int) -> np.ndarray:
+    """RLE_DICTIONARY / PLAIN_DICTIONARY data: one byte of bit width, then
+    the hybrid."""
+    if count == 0:
+        return np.zeros(0, np.int64)
+    bit_width = buf[pos]
+    return decode_hybrid(buf, pos + 1, end, bit_width, count)
+
+
+# -- encoding (the writer) -------------------------------------------------------
+
+
+def _put_varint(out: bytearray, n: int) -> None:
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
+
+
+def encode_hybrid_bits(bits: np.ndarray) -> bytes:
+    """Bit-width-1 hybrid (definition levels of a flat optional column): one
+    RLE run when all values agree, else one bit-packed run."""
+    out = bytearray()
+    n = len(bits)
+    if n == 0:
+        return b""
+    if bits.all() or not bits.any():
+        _put_varint(out, n << 1)
+        out.append(1 if bits[0] else 0)
+        return bytes(out)
+    groups = (n + 7) // 8
+    _put_varint(out, (groups << 1) | 1)
+    out += np.packbits(np.asarray(bits, bool), bitorder="little").tobytes()
+    return bytes(out)
+
+
+def encode_plain(ptype: int, values) -> bytes:
+    """PLAIN bytes of ``values`` (numpy for fixed widths and booleans, a
+    sequence of ``bytes`` for BYTE_ARRAY)."""
+    if ptype in _FIXED:
+        return np.ascontiguousarray(values, _FIXED[ptype]).tobytes()
+    if ptype == BOOLEAN:
+        return np.packbits(np.asarray(values, bool), bitorder="little").tobytes()
+    if ptype == BYTE_ARRAY:
+        vs: Sequence[bytes] = values
+        lens = np.fromiter((len(v) for v in vs), np.uint32, len(vs)).astype("<u4")
+        parts = []
+        for ln, v in zip(lens, vs):
+            parts.append(ln.tobytes())
+            parts.append(v)
+        return b"".join(parts)
+    raise EncodingError(f"PLAIN {TYPE_NAMES.get(ptype, ptype)} is not encoded here")

@@ -1,0 +1,602 @@
+"""Parquet data files without ``pyarrow``: reader, writer and file stats.
+
+The port's own copy of ``delta_tpu.exec.parquet``, which encodes and
+decodes through Arrow's C++ Parquet module. The port does not depend on
+``pyarrow``, so this module carries a codec of its own for flat data files
+(``exec/thrift`` for the footer and page headers, ``exec/encodings`` for
+the values, ``exec/snappy`` for the JAX package's compressed pages):
+
+* :func:`read_parquet_file` / :func:`read_parquet_files`: a file's columns
+  (all, or a projection) as the port's ``HostTable``
+  (``expr/vectorized``);
+* :func:`write_parquet_file`: PLAIN values, uncompressed pages, RLE
+  definition levels, row groups of :data:`ROW_GROUP_ROWS` rows (the JAX
+  package's ``delta.tpu.write.rowGroupRows`` default) and min/max/null
+  statistics per column chunk in the footer;
+* :func:`json_stat_value`, :func:`collect_stats`, :func:`stats_json`: the
+  protocol's per-file stats, with the JAX package's output.
+
+Scope: flat schemas; physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE
+and BYTE_ARRAY; logical types int8/16/32/64, date, timestamp (ms, µs) and
+string/binary; codecs UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2.
+Anything else — a nested column, FIXED_LEN_BYTE_ARRAY or INT96, an
+unsigned or decimal column, ZSTD/LZ4/BROTLI, a DELTA_* encoding — raises
+``NotImplementedError`` naming the column and what it lacks.
+
+Columns map to ``HostColumn`` kinds as ``pyarrow`` types map to the JAX
+package's evaluator: integers -> ``int`` (int64 values), floats ->
+``double`` (float64 values), strings -> ``str``, binary -> ``object``
+(``bytes``), dates -> ``date`` (epoch days), timestamps -> ``ts`` (epoch
+µs), booleans -> ``bool``. ``HostColumn.type`` keeps the stored type
+(``int32``, ``float32``, ...), so a file read and written again keeps its
+schema.
+"""
+from __future__ import annotations
+
+import datetime as _dt
+import decimal as _decimal
+import json
+import math
+import os
+import struct
+import zlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from delta_tpu_torch.exec import encodings as enc
+from delta_tpu_torch.exec import snappy, thrift
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+
+__all__ = [
+    "write_parquet_file",
+    "read_parquet_file",
+    "read_parquet_files",
+    "read_metadata",
+    "column_names",
+    "collect_stats",
+    "stats_json",
+    "json_stat_value",
+    "ROW_GROUP_ROWS",
+]
+
+MAGIC = b"PAR1"
+#: rows per row group the writer emits (``delta.tpu.write.rowGroupRows``)
+ROW_GROUP_ROWS = 131_072
+
+# CompressionCodec, PageType, FieldRepetitionType, ConvertedType (parquet.thrift)
+UNCOMPRESSED, SNAPPY, GZIP = 0, 1, 2
+_CODEC_NAMES = {0: "UNCOMPRESSED", 1: "SNAPPY", 2: "GZIP", 3: "LZO", 4: "BROTLI",
+                5: "LZ4", 6: "ZSTD", 7: "LZ4_RAW"}
+DATA_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = 0, 2, 3
+OPTIONAL, REPEATED = 1, 2
+_UTF8, _ENUM, _DECIMAL, _DATE, _TS_MILLIS, _TS_MICROS = 0, 4, 5, 6, 9, 10
+_INT_8, _INT_16, _INT_32, _INT_64, _JSON = 15, 16, 17, 18, 19
+
+_EPOCH_DAY = _dt.date(1970, 1, 1)
+_EPOCH_TS = _dt.datetime(1970, 1, 1)
+
+
+# -- stats (the JAX package's exec/parquet.py:33-100) ---------------------------
+
+
+def json_stat_value(v: Any, round_up: bool = False) -> Any:
+    """Encode one Python min/max value for the protocol's JSON stats."""
+    if isinstance(v, _dt.datetime):
+        if round_up and v.microsecond % 1000:
+            # maxValues truncated to ms must round UP or data skipping would
+            # prune files containing sub-millisecond maxima
+            v = v + _dt.timedelta(microseconds=1000 - v.microsecond % 1000)
+        return v.strftime("%Y-%m-%dT%H:%M:%S.%f")[:-3] + "Z"
+    if isinstance(v, _dt.date):
+        return v.isoformat()
+    if isinstance(v, float) and (math.isnan(v) or math.isinf(v)):
+        return None
+    if isinstance(v, bytes):
+        return None  # binary stats not representable in JSON stats
+    if isinstance(v, _decimal.Decimal):
+        return None
+    return v
+
+
+def _py(kind: str, v: Any) -> Any:
+    """A column value as the Python object ``pyarrow``'s ``as_py`` gives."""
+    if kind == "int":
+        return int(v)
+    if kind == "double":
+        return float(v)
+    if kind == "bool":
+        return bool(v)
+    if kind == "date":
+        return _EPOCH_DAY + _dt.timedelta(days=int(v))
+    if kind == "ts":
+        return _EPOCH_TS + _dt.timedelta(microseconds=int(v))
+    return v
+
+
+def _min_max(col: HostColumn) -> Optional[Tuple[Any, Any]]:
+    """(min, max) over the valid values, as ``pyarrow.compute.min``/``max``
+    give them (NaN skipped unless every value is NaN); None when every value
+    is NULL."""
+    vals = col.values[col.valid]
+    if len(vals) == 0:
+        return None
+    if col.kind == "double":
+        finite = vals[~np.isnan(vals)]
+        if len(finite) == 0:
+            return math.nan, math.nan
+        return float(finite.min()), float(finite.max())
+    if col.kind in ("str", "object"):
+        lst = vals.tolist()
+        return min(lst), max(lst)
+    return _py(col.kind, vals.min()), _py(col.kind, vals.max())
+
+
+def collect_stats(table: HostTable, num_indexed_cols: int = 32) -> Dict[str, Any]:
+    """Per-file stats over the first ``num_indexed_cols`` leaf columns."""
+    mins: Dict[str, Any] = {}
+    maxs: Dict[str, Any] = {}
+    nulls: Dict[str, Any] = {}
+    names = table.column_names[: num_indexed_cols if num_indexed_cols >= 0 else None]
+    for name in names:
+        col = table.columns[name]
+        null_count = int(len(col.valid) - col.valid.sum())
+        nulls[name] = null_count
+        skippable = col.kind in ("int", "double", "str", "date", "ts", "bool")
+        if not skippable or null_count == table.num_rows:
+            continue
+        mm = _min_max(col)
+        mn = json_stat_value(mm[0])
+        mx = json_stat_value(mm[1], round_up=True)
+        if mn is not None:
+            mins[name] = mn
+        if mx is not None:
+            maxs[name] = mx
+    return {
+        "numRecords": table.num_rows,
+        "minValues": mins,
+        "maxValues": maxs,
+        "nullCount": nulls,
+    }
+
+
+def stats_json(table: HostTable, num_indexed_cols: int = 32) -> str:
+    return json.dumps(collect_stats(table, num_indexed_cols))
+
+
+# -- column types ----------------------------------------------------------------
+
+#: stored type -> (kind, physical type, LogicalType, ConvertedType)
+_TYPES = {
+    "bool": ("bool", enc.BOOLEAN, None, None),
+    "int8": ("int", enc.INT32, thrift.LogicalType(INTEGER=thrift.IntType(
+        bitWidth=8, isSigned=True)), _INT_8),
+    "int16": ("int", enc.INT32, thrift.LogicalType(INTEGER=thrift.IntType(
+        bitWidth=16, isSigned=True)), _INT_16),
+    "int32": ("int", enc.INT32, None, None),
+    "int64": ("int", enc.INT64, None, None),
+    "float32": ("double", enc.FLOAT, None, None),
+    "float64": ("double", enc.DOUBLE, None, None),
+    "string": ("str", enc.BYTE_ARRAY, thrift.LogicalType(STRING=thrift.Empty()), _UTF8),
+    "binary": ("object", enc.BYTE_ARRAY, None, None),
+    "date32": ("date", enc.INT32, thrift.LogicalType(DATE=thrift.Empty()), _DATE),
+    "timestamp[us]": ("ts", enc.INT64, thrift.LogicalType(TIMESTAMP=thrift.TimestampType(
+        isAdjustedToUTC=False, unit=thrift.TimeUnit(MICROS=thrift.Empty()))), None),
+    "timestamp[us, tz=UTC]": ("ts", enc.INT64, thrift.LogicalType(
+        TIMESTAMP=thrift.TimestampType(isAdjustedToUTC=True,
+                                       unit=thrift.TimeUnit(MICROS=thrift.Empty()))),
+        _TS_MICROS),
+}
+_DEFAULT_TYPE = {"bool": "bool", "int": "int64", "double": "float64", "str": "string",
+                 "object": "binary", "date": "date32", "ts": "timestamp[us]"}
+_INT_RANGE = {"int8": 8, "int16": 16, "int32": 32, "int64": 64}
+
+
+def _unsupported(name: str, what: str) -> NotImplementedError:
+    return NotImplementedError(f"Parquet column {name!r}: {what} is not supported by the "
+                               "port's Parquet codec")
+
+
+def _leaf_type(el) -> Tuple[str, int]:
+    """(stored type, scale of a timestamp to µs) of a leaf
+    ``SchemaElement``; raises for what the codec does not cover."""
+    name, pt, lt, ct = el.name, el.type, el.logicalType, el.converted_type
+    if pt in (enc.INT96, enc.FIXED_LEN_BYTE_ARRAY):
+        raise _unsupported(name, f"physical type {enc.TYPE_NAMES[pt]}")
+    if (lt is not None and lt.DECIMAL is not None) or ct == _DECIMAL:
+        raise _unsupported(name, "a DECIMAL column")
+    if pt == enc.BOOLEAN:
+        return "bool", 1
+    if pt in (enc.FLOAT, enc.DOUBLE):
+        return ("float32" if pt == enc.FLOAT else "float64"), 1
+    if pt == enc.BYTE_ARRAY:
+        if lt is not None and (lt.STRING is not None or lt.ENUM is not None
+                               or lt.JSON is not None):
+            return "string", 1
+        if ct in (_UTF8, _ENUM, _JSON):
+            return "string", 1
+        if lt is not None and any(getattr(lt, f) is not None for f in ("BSON", "UUID")):
+            raise _unsupported(name, "a BSON/UUID BYTE_ARRAY column")
+        return "binary", 1
+    # INT32 / INT64
+    if lt is not None and lt.INTEGER is not None:
+        if not lt.INTEGER.isSigned:
+            raise _unsupported(name, f"an unsigned {lt.INTEGER.bitWidth}-bit integer column")
+        return f"int{lt.INTEGER.bitWidth}", 1
+    if ct in (11, 12, 13, 14):
+        raise _unsupported(name, "an unsigned integer column")
+    if pt == enc.INT32:
+        if (lt is not None and lt.DATE is not None) or ct == _DATE:
+            return "date32", 1
+        if _has_logical(lt):
+            raise _unsupported(name, "an INT32 column of this logical type")
+        if ct is not None and ct not in (_INT_8, _INT_16, _INT_32):
+            raise _unsupported(name, "an INT32 column of this converted type")
+        return {_INT_8: "int8", _INT_16: "int16"}.get(ct, "int32"), 1
+    ts = lt.TIMESTAMP if lt is not None else None
+    if ts is not None:
+        unit = ts.unit
+        tz = ", tz=UTC" if ts.isAdjustedToUTC else ""
+        if unit.MICROS is not None:
+            return f"timestamp[us{tz}]", 1
+        if unit.MILLIS is not None:
+            return f"timestamp[us{tz}]", 1000
+        raise _unsupported(name, "a nanosecond timestamp column")
+    if ct in (_TS_MICROS, _TS_MILLIS):
+        return "timestamp[us, tz=UTC]", (1000 if ct == _TS_MILLIS else 1)
+    if _has_logical(lt):
+        raise _unsupported(name, "an INT64 column of this logical type")
+    if ct is not None and ct != _INT_64:
+        raise _unsupported(name, "an INT64 column of this converted type")
+    return "int64", 1
+
+
+def _has_logical(lt) -> bool:
+    return lt is not None and any(getattr(lt, f) is not None
+                                  for f, _ in thrift.LogicalType.FIELDS.values())
+
+
+# -- reading ---------------------------------------------------------------------
+
+
+def read_metadata(abs_path: str):
+    """The file's footer (``thrift.FileMetaData``)."""
+    with open(abs_path, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        size = f.tell()
+        if size < 12:
+            raise ValueError(f"{abs_path}: {size} bytes is too short for a Parquet file")
+        f.seek(size - 8)
+        tail = f.read(8)
+        if tail[4:] != MAGIC:
+            raise ValueError(f"{abs_path}: not a Parquet file (no PAR1 footer)")
+        (n,) = struct.unpack("<I", tail[:4])
+        if n + 12 > size:
+            raise ValueError(f"{abs_path}: footer length {n} exceeds the file")
+        f.seek(size - 8 - n)
+        meta, _ = thrift.read(thrift.FileMetaData, f.read(n))
+    return meta
+
+
+def _top_level(schema) -> Dict[str, Tuple[Any, int]]:
+    """top-level name -> (element, leaf index) for flat leaves, or (element,
+    -1) for a group (nested) column."""
+    out: Dict[str, Tuple[Any, int]] = {}
+    root = schema[0]
+    i, leaf = 1, 0
+    for _ in range(root.num_children or 0):
+        el = schema[i]
+
+        def skip(j):  # index after the subtree at j, and its leaf count
+            n = schema[j].num_children or 0
+            j += 1
+            leaves = 0 if n else 1
+            for _ in range(n):
+                j, lv = skip(j)
+                leaves += lv
+            return j, leaves
+
+        nxt, leaves = skip(i)
+        nested = bool(el.num_children) or el.repetition_type == REPEATED
+        out[el.name] = (el, -1 if nested else leaf)
+        leaf += leaves
+        i = nxt
+    return out
+
+
+def _decompress(codec: int, raw: bytes, size: int, name: str) -> bytes:
+    if codec == UNCOMPRESSED:
+        return raw
+    if codec == SNAPPY:
+        return snappy.decompress(raw)
+    if codec == GZIP:
+        try:
+            return zlib.decompress(raw, 47)  # gzip or zlib header
+        except zlib.error as e:
+            raise ValueError(f"Parquet column {name!r}: corrupt GZIP page: {e}") from e
+    raise _unsupported(name, f"codec {_CODEC_NAMES.get(codec, codec)}")
+
+
+def _decode_values(name: str, buf, pos: int, end: int, encoding: int, ptype: int,
+                   count: int, dictionary):
+    if encoding == enc.PLAIN:
+        return enc.decode_plain(buf, pos, end, ptype, count)
+    if encoding in (enc.RLE_DICTIONARY, enc.PLAIN_DICTIONARY):
+        if dictionary is None:
+            raise ValueError(f"Parquet column {name!r}: dictionary-encoded page "
+                             "without a dictionary page")
+        idx = enc.decode_dictionary_indices(buf, pos, end, count)
+        if len(idx) and int(idx.max()) >= len(dictionary):
+            raise ValueError(f"Parquet column {name!r}: dictionary index out of range")
+        return dictionary[idx]
+    if encoding == enc.BYTE_STREAM_SPLIT:
+        return enc.decode_byte_stream_split(buf, pos, end, ptype, count)
+    if encoding == enc.RLE and ptype == enc.BOOLEAN:
+        (n,) = struct.unpack_from("<I", buf, pos)
+        return enc.decode_hybrid(buf, pos + 4, pos + 4 + n, 1, count).astype(bool)
+    raise _unsupported(name, f"encoding {enc.ENCODING_NAMES.get(encoding, encoding)}")
+
+
+def _as_array(ptype: int, vals):
+    # np.fromiter keeps each bytes object whole (np.array would make a
+    # fixed-width bytes array and strip trailing NULs)
+    if ptype == enc.BYTE_ARRAY and isinstance(vals, list):
+        return np.fromiter(vals, object, len(vals))
+    return vals
+
+
+def _read_chunk(f, el, md, num_rows: int):
+    """One column chunk: (physical values, valid mask), values zero/None at
+    NULL rows."""
+    name = el.name
+    ptype = md.type
+    optional = el.repetition_type == OPTIONAL
+    start = md.dictionary_page_offset if md.dictionary_page_offset else md.data_page_offset
+    if md.data_page_offset < start:
+        start = md.data_page_offset
+    f.seek(start)
+    data = f.read(md.total_compressed_size)
+    pos = 0
+    dictionary = None
+    values: List[Any] = []
+    valids: List[np.ndarray] = []
+    seen = 0
+    while seen < md.num_values:
+        ph, pos = thrift.read(thrift.PageHeader, data, pos)
+        body_end = pos + ph.compressed_page_size
+        if body_end > len(data):
+            raise ValueError(f"Parquet column {name!r}: page runs past its column chunk")
+        if ph.type == DICTIONARY_PAGE:
+            dh = ph.dictionary_page_header
+            if dh.encoding not in (enc.PLAIN, enc.PLAIN_DICTIONARY):
+                raise _unsupported(name, f"dictionary encoding "
+                                   f"{enc.ENCODING_NAMES.get(dh.encoding, dh.encoding)}")
+            page = _decompress(md.codec, data[pos:body_end], ph.uncompressed_page_size, name)
+            dictionary = _as_array(ptype, enc.decode_plain(page, 0, len(page), ptype,
+                                                           dh.num_values))
+        elif ph.type == DATA_PAGE:
+            dh = ph.data_page_header
+            n = dh.num_values
+            page = _decompress(md.codec, data[pos:body_end], ph.uncompressed_page_size, name)
+            p = 0
+            if optional:
+                if dh.definition_level_encoding != enc.RLE:
+                    raise _unsupported(name, "definition levels encoded "
+                                       f"{enc.ENCODING_NAMES.get(dh.definition_level_encoding)}")
+                (ln,) = struct.unpack_from("<I", page, 0)
+                valid = enc.decode_hybrid(page, 4, 4 + ln, 1, n).astype(bool)
+                p = 4 + ln
+            else:
+                valid = np.ones(n, bool)
+            k = int(valid.sum())
+            vals = _decode_values(name, page, p, len(page), dh.encoding, ptype, k, dictionary)
+            values.append(_as_array(ptype, vals))
+            valids.append(valid)
+            seen += n
+        elif ph.type == DATA_PAGE_V2:
+            dh = ph.data_page_header_v2
+            n = dh.num_values
+            dl, rl = dh.definition_levels_byte_length, dh.repetition_levels_byte_length
+            if rl:
+                raise _unsupported(name, "repetition levels (a nested column)")
+            if optional:
+                valid = enc.decode_hybrid(data, pos, pos + dl, 1, n).astype(bool)
+            else:
+                valid = np.ones(n, bool)
+            body = data[pos + dl + rl:body_end]
+            if dh.is_compressed is None or dh.is_compressed:
+                body = _decompress(md.codec, body, ph.uncompressed_page_size - dl - rl, name)
+            k = n - int(dh.num_nulls or 0) if optional else n
+            if k != int(valid.sum()):
+                raise ValueError(f"Parquet column {name!r}: page null count disagrees "
+                                 "with its definition levels")
+            vals = _decode_values(name, body, 0, len(body), dh.encoding, ptype, k, dictionary)
+            values.append(_as_array(ptype, vals))
+            valids.append(valid)
+            seen += n
+        pos = body_end
+    valid = np.concatenate(valids) if valids else np.zeros(0, bool)
+    if len(valid) != num_rows:
+        raise ValueError(f"Parquet column {name!r}: {len(valid)} values in a row group "
+                         f"of {num_rows} rows")
+    dense = np.concatenate(values) if values else _as_array(ptype, [])
+    return dense, valid
+
+
+def _to_column(stype: str, scale: int, chunks: List[Tuple[Any, np.ndarray]]) -> HostColumn:
+    kind = _TYPES[stype][0]
+    valid = np.concatenate([v for _, v in chunks]) if chunks else np.zeros(0, bool)
+    n = len(valid)
+    if kind in ("str", "object"):
+        out = np.empty(n, object)
+        dense = [d for d, _ in chunks]
+        if n:
+            flat = np.concatenate(dense)
+            if kind == "str":
+                flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
+                                   len(flat))
+            out[valid] = flat
+        return HostColumn(kind, out, valid, stype if stype != _DEFAULT_TYPE[kind] else None)
+    np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
+    out = np.zeros(n, np_dt)
+    if n:
+        flat = np.concatenate([np.asarray(d) for d, _ in chunks])
+        out[valid] = flat.astype(np_dt) * scale if scale != 1 else flat
+    return HostColumn(kind, out, valid, stype if stype != _DEFAULT_TYPE[kind] else None)
+
+
+def column_names(meta) -> List[str]:
+    """The file's top-level column names (``pyarrow``'s
+    ``schema_arrow.names``)."""
+    return list(_top_level(meta.schema))
+
+
+def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None) -> HostTable:
+    """A data file's columns (all, or ``columns`` in the order given) as a
+    ``HostTable``."""
+    meta = read_metadata(abs_path)
+    top = _top_level(meta.schema)
+    names = list(top) if columns is None else list(columns)
+    for c in names:
+        if c not in top:
+            raise KeyError(f"{abs_path}: no column {c!r} (columns: {list(top)})")
+        el, leaf = top[c]
+        if leaf < 0:
+            raise _unsupported(c, "a nested column")
+    cols: Dict[str, HostColumn] = {}
+    row_groups = meta.row_groups or []
+    with open(abs_path, "rb") as f:
+        for c in names:
+            el, leaf = top[c]
+            stype, scale = _leaf_type(el)
+            chunks = []
+            for rg in row_groups:
+                md = rg.columns[leaf].meta_data
+                chunks.append(_read_chunk(f, el, md, rg.num_rows))
+            cols[c] = _to_column(stype, scale, chunks)
+    return HostTable(cols, int(meta.num_rows))
+
+
+def read_parquet_files(abs_paths: Sequence[str],
+                       columns: Optional[Sequence[str]] = None) -> List[HostTable]:
+    """Read data files; one table per file."""
+    return [read_parquet_file(p, columns) for p in abs_paths]
+
+
+# -- writing ---------------------------------------------------------------------
+
+
+def _stored_type(name: str, col: HostColumn) -> str:
+    if col.type is not None:
+        if col.type not in _TYPES or _TYPES[col.type][0] != col.kind:
+            raise _unsupported(name, f"type {col.type!r} for a {col.kind} column")
+        return col.type
+    if col.kind not in _DEFAULT_TYPE:
+        raise _unsupported(name, f"a {col.kind} column")
+    return _DEFAULT_TYPE[col.kind]
+
+
+def _physical(stype: str, kind: str, vals: np.ndarray):
+    """The PLAIN-encodable values (dense, valid rows only) of one chunk."""
+    if kind == "str":
+        return [v.encode("utf-8") for v in vals.tolist()]
+    if kind == "object":
+        return [bytes(v) for v in vals.tolist()]
+    if stype == "float32":
+        return vals.astype(np.float32)
+    if stype in _INT_RANGE:
+        bits = _INT_RANGE[stype]
+        if len(vals) and (vals.min() < -(1 << (bits - 1)) or vals.max() >= 1 << (bits - 1)):
+            raise ValueError(f"a value does not fit {stype}")
+        return vals.astype(np.int32 if bits < 64 else np.int64)
+    if kind in ("date",):
+        return vals.astype(np.int32)
+    return vals
+
+
+def _stat_bytes(ptype: int, v) -> bytes:
+    if ptype == enc.BYTE_ARRAY:
+        return bytes(v)
+    if ptype == enc.BOOLEAN:
+        return b"\x01" if v else b"\x00"
+    return enc.encode_plain(ptype, np.asarray([v]))
+
+
+def _chunk_stats(ptype: int, dense, nulls: int):
+    st = thrift.Statistics(null_count=nulls)
+    if ptype == enc.BYTE_ARRAY:
+        if dense:
+            st.min_value, st.max_value = min(dense), max(dense)
+    elif len(dense):
+        vals = dense
+        if ptype in (enc.FLOAT, enc.DOUBLE):
+            vals = vals[~np.isnan(vals)]
+        if len(vals):
+            mn, mx = vals.min(), vals.max()
+            if ptype in (enc.FLOAT, enc.DOUBLE):  # the spec's signed zeros
+                mn = -abs(mn) if mn == 0 else mn
+                mx = abs(mx) if mx == 0 else mx
+            st.min_value, st.max_value = _stat_bytes(ptype, mn), _stat_bytes(ptype, mx)
+    if st.min_value is not None:
+        st.is_min_value_exact = st.is_max_value_exact = True
+    return st
+
+
+def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
+    """Write one Parquet file; returns (size_bytes, mtime_ms). Every column
+    is OPTIONAL, PLAIN, uncompressed; one data page per column chunk."""
+    names = table.column_names
+    cols = [table.columns[c] for c in names]
+    stypes = [_stored_type(c, col) for c, col in zip(names, cols)]
+    schema = [thrift.SchemaElement(name="schema", num_children=len(names))]
+    for c, st in zip(names, stypes):
+        _, ptype, lt, ct = _TYPES[st]
+        schema.append(thrift.SchemaElement(type=ptype, repetition_type=OPTIONAL, name=c,
+                                           converted_type=ct, logicalType=lt))
+    n = table.num_rows
+    out = bytearray(MAGIC)
+    row_groups = []
+    for rg_i, lo in enumerate(range(0, n, ROW_GROUP_ROWS)):
+        hi = min(lo + ROW_GROUP_ROWS, n)
+        chunks = []
+        rg_start = len(out)
+        for c, col, st in zip(names, cols, stypes):
+            kind, ptype, _, _ = _TYPES[st]
+            valid = np.asarray(col.valid[lo:hi], bool)
+            dense = _physical(st, kind, col.values[lo:hi][valid])
+            levels = enc.encode_hybrid_bits(valid)
+            body = struct.pack("<I", len(levels)) + levels + enc.encode_plain(ptype, dense)
+            header = thrift.PageHeader(
+                type=DATA_PAGE, uncompressed_page_size=len(body), compressed_page_size=len(body),
+                data_page_header=thrift.DataPageHeader(
+                    num_values=hi - lo, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
+                    repetition_level_encoding=enc.RLE)).write()
+            offset = len(out)
+            out += header
+            out += body
+            size = len(header) + len(body)
+            md = thrift.ColumnMetaData(
+                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=[c],
+                codec=UNCOMPRESSED, num_values=hi - lo, total_uncompressed_size=size,
+                total_compressed_size=size, data_page_offset=offset,
+                statistics=_chunk_stats(ptype, dense, int((~valid).sum())))
+            chunks.append(thrift.ColumnChunk(file_offset=offset, meta_data=md))
+        total = len(out) - rg_start
+        row_groups.append(thrift.RowGroup(columns=chunks, total_byte_size=total,
+                                          num_rows=hi - lo, file_offset=rg_start,
+                                          total_compressed_size=total, ordinal=rg_i))
+    meta = thrift.FileMetaData(
+        version=2, schema=schema, num_rows=n, row_groups=row_groups,
+        created_by="delta_tpu_torch parquet writer",
+        column_orders=[thrift.ColumnOrder(TYPE_ORDER=thrift.Empty()) for _ in names])
+    footer = meta.write()
+    out += footer
+    out += struct.pack("<I", len(footer))
+    out += MAGIC
+    os.makedirs(os.path.dirname(abs_path) or ".", exist_ok=True)
+    tmp = f"{abs_path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(out)
+    os.replace(tmp, abs_path)
+    st_ = os.stat(abs_path)
+    return st_.st_size, int(st_.st_mtime * 1000)

@@ -63,7 +63,9 @@ class DeviceColumn(NamedTuple):
     valid: torch.Tensor
 
     @staticmethod
-    def of(values, valid=None, device="cpu") -> "DeviceColumn":
+    def of(values, valid=None, *, device) -> "DeviceColumn":
+        """A column on ``device`` (required: nothing picks the CPU for the
+        caller)."""
         v = torch.as_tensor(np.asarray(values) if not torch.is_tensor(values) else values)
         v = v.to(device)
         ok = torch.ones(v.shape, dtype=torch.bool, device=v.device) if valid is None else \
@@ -76,8 +78,8 @@ Env = Dict[str, DeviceColumn]
 
 
 def columns_from_numpy(data: Dict[str, np.ndarray],
-                       masks: Optional[Dict[str, np.ndarray]] = None, device="cpu") -> Env:
-    """A device env from host numpy columns."""
+                       masks: Optional[Dict[str, np.ndarray]] = None, *, device) -> Env:
+    """A device env from host numpy columns on ``device`` (required)."""
     masks = masks or {}
     return {k: DeviceColumn.of(v, masks.get(k), device=device) for k, v in data.items()}
 

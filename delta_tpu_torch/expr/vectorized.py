@@ -61,11 +61,16 @@ class _NoKernel(Exception):
 class HostColumn:
     """One column: ``kind`` is null | bool | int | double | str | date |
     ts | object; ``values`` numpy (int64 days for date, int64 µs for ts,
-    object for str/object); ``valid`` True = non-NULL."""
+    object for str/object); ``valid`` True = non-NULL. ``type`` is the
+    stored column type where it is narrower than the kind says (``int8``,
+    ``int16``, ``int32``, ``float32``, ``binary``,
+    ``timestamp[us, tz=UTC]``: see ``exec/parquet``); None takes the kind's
+    widest type."""
 
     kind: str
     values: np.ndarray
     valid: np.ndarray
+    type: Optional[str] = None
 
 
 @dataclass

@@ -1,0 +1,1151 @@
+"""Resident MERGE join keys: a table's key lane kept on the card.
+
+The port's own copy of ``delta_tpu.ops.key_cache`` (all of it but
+``SlabBuilder``, which only the MERGE command's cold pipeline calls). A CDC
+upsert loop merges into the same table every few minutes, so the target's
+key lane is built once, kept resident, and advanced as the log moves: new
+files' keys append (a projected Parquet read of just those files, through
+the port's own codec, ``exec/parquet``), removed files' rows die, and
+deletion-vector growth or shrink flips per-row validity. A probe then
+uploads only the source keys and downloads the per-source matched bits and
+the matched (slab row, first source row) pairs.
+
+Layout: one int64 key lane per (table, join-key signature, device) in
+PHYSICAL row order per file; deletion-vector-deleted rows stay in place,
+marked invalid. Composite integer keys pack into one lane (hi<<32 | lo)
+when both components fit int32.
+
+Kernels (hand-written CUDA in ``delta_tpu_torch/csrc``, bound in
+``ops/native``), each beside its plain PyTorch version, which the wrapper
+takes only for tensors on the CPU; for a CUDA tensor it launches the kernel
+or raises:
+
+* K8 :func:`slab_sort` (``csrc/slab_sort.cu``) replaces ``_sort_kernel``
+  (``key_cache.py:166``): a stable LSD radix sort of the key lane;
+* K9 :func:`slab_probe` (``csrc/slab_probe.cu``) replaces
+  ``_probe_sorted_kernel`` (``:206``): binary search of each source key in
+  the sorted slab, where the TPU kernel brute-compares blocks against
+  candidate windows. It never overflows; the head's overflow byte is 0;
+* K10 :func:`pair_compact` (``csrc/pair_compact.cu``) replaces
+  ``_pair_compact_kernel`` (``:353``);
+* K11 :func:`slab_kill`, :func:`slab_revive`, :func:`slab_append`,
+  :func:`slab_widen`, :func:`slab_map_rows`, :func:`slab_slice_append`
+  (``csrc/slab_update.cu``) replace ``_update_kernels`` (``:379``).
+
+JAX arrays are immutable, and a probe in flight on its staging thread
+keeps the arrays it pinned while a tail advance binds new ones. The port
+keeps that: every K11 update writes a NEW tensor (a copy of the lane with
+the rows changed) and never changes one a probe may hold.
+
+``delta.tpu.keyCache.maxBytes``/``maxEntries`` are the constants
+:data:`MAX_DEVICE_BYTES`/:data:`MAX_ENTRIES` (the port has no session conf);
+the HBM ledger, the link router and the telemetry counters are not ported.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import urllib.parse
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from delta_tpu_torch.ops import native
+from delta_tpu_torch.ops.join_kernel import PendingJoin as PendingProbe
+from delta_tpu_torch.ops.join_kernel import _bucket
+from delta_tpu_torch.ops.state_cache import _next_pow2, _packbits, _xla_rows
+from delta_tpu_torch.utils.device import resolve
+
+__all__ = ["ResidentJoinKeys", "KeyCache", "PhysicalProbe", "MAX_DEVICE_BYTES", "MAX_ENTRIES",
+           "slab_sort", "slab_sort_plain", "slab_probe", "slab_probe_plain", "pair_compact",
+           "pair_compact_plain", "slab_kill", "slab_revive", "slab_flip_plain", "slab_append",
+           "slab_append_plain", "slab_widen", "slab_widen_plain", "slab_map_rows",
+           "slab_map_rows_plain", "slab_slice_append", "slab_slice_append_plain"]
+
+#: device bytes of resident slabs beyond which LRU entries drop their device
+#: copy (``delta.tpu.keyCache.maxBytes``)
+MAX_DEVICE_BYTES = 1 << 30
+#: entries beyond which LRU entries drop whole (``delta.tpu.keyCache.maxEntries``)
+MAX_ENTRIES = 8
+
+# sentinel version for an entry whose tail application failed part-way:
+# greater than any real snapshot version, so every staleness guard
+# (`entry.version > snapshot.version`) discards the entry immediately
+_POISON_VERSION = 1 << 62
+
+_I64_MAX = (1 << 63) - 1
+
+
+@dataclass
+class PhysicalProbe:
+    """Probe output in physical slab space: per-source matched flags and the
+    matched PAIRS (physical slab row -> first matching source row).
+    ``slabs`` maps file path -> (offset, rows). ``t_pairs`` is None for an
+    insert-only probe. ``t_bits`` (per slab row) materializes lazily from
+    the pairs."""
+
+    s_matched: np.ndarray  # bool per source row
+    any_multi: bool
+    slabs: Dict[str, Tuple[int, int]]
+    num_rows: int = 0  # live slab rows (t_bits length)
+    # (physical slab rows ascending, first-match source row per pair)
+    t_pairs: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    _bits: Optional[np.ndarray] = None
+
+    @property
+    def t_bits(self) -> Optional[np.ndarray]:
+        """Bool per physical slab row; None for an insert-only probe."""
+        if self._bits is None and self.t_pairs is not None:
+            t = np.zeros(self.num_rows, bool)
+            phys, _ = self.t_pairs
+            t[phys[phys < self.num_rows]] = True
+            self._bits = t
+        return self._bits
+
+    def bits_for_file(self, path: str, positions: Optional[np.ndarray],
+                      num_rows: int) -> Optional[np.ndarray]:
+        """Matched flags for a file's *decoded* rows. ``positions`` are the
+        decoded rows' physical positions (None = decode was not DV-filtered).
+        None when the file isn't in the slab or shapes disagree."""
+        ent = self.slabs.get(path)
+        if ent is None or self.t_bits is None:
+            return None
+        off, rows = ent
+        if positions is None:
+            if num_rows != rows:
+                return None
+            return self.t_bits[off:off + rows]
+        if len(positions) and positions.max() >= rows:
+            return None
+        return self.t_bits[off + positions]
+
+    def pairs_for_file(self, path: str, positions: Optional[np.ndarray],
+                       num_rows: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The matched pairs landing in one file, mapped onto its *decoded*
+        rows: (decoded row indices, first-match source rows). None when the
+        file isn't in the slab or the slab disagrees with the decode."""
+        ent = self.slabs.get(path)
+        if ent is None or self.t_pairs is None:
+            return None
+        off, rows = ent
+        phys, srows = self.t_pairs
+        lo = int(np.searchsorted(phys, off))
+        hi = int(np.searchsorted(phys, off + rows))
+        p_local = phys[lo:hi] - off
+        s_local = srows[lo:hi]
+        if positions is None:
+            if num_rows != rows:
+                return None
+            return p_local, s_local
+        if len(positions) and int(positions[-1]) >= rows:
+            return None
+        idx = np.searchsorted(positions, p_local)
+        if (idx >= len(positions)).any():
+            return None
+        if len(idx) and not (positions[idx] == p_local).all():
+            return None  # slab matched a row the decode dropped: fall back
+        return idx, s_local
+
+
+# -- the kernels and their plain versions -----------------------------------------
+
+
+def _same_device(name: str, *ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    return dev
+
+
+def _contiguous(name: str, *ts: torch.Tensor) -> None:
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def slab_sort_plain(keys: torch.Tensor, valid: torch.Tensor, n: int):
+    """Plain PyTorch version of K8: rows at or past ``n`` encode as
+    int64.max, then a stable sort."""
+    cap = keys.shape[0]
+    iota = torch.arange(cap, dtype=torch.int64, device=keys.device)
+    enc = torch.where(iota < n, keys, torch.full_like(keys, _I64_MAX))
+    sk, perm = torch.sort(enc, stable=True)
+    inv = torch.empty(cap, dtype=torch.int32, device=keys.device)
+    inv[perm] = iota.to(torch.int32)
+    sv = (valid & (iota < n))[perm]
+    return sk, perm.to(torch.int32), inv, sv
+
+
+#: keys per radix tile of K8 (``csrc/slab_sort.cu``'s kTile)
+_SORT_TILE = 4096
+_ALIGN = 256
+
+
+def _scan_aux_elems(length: int) -> int:
+    total = 0
+    while length > 1:
+        length = (length + 4095) // 4096
+        total += length
+    return total + 1
+
+
+def _sort_scratch_bytes(n: int) -> int:
+    """An upper bound of K8's scratch (the kernel computes its own need and
+    refuses a smaller buffer)."""
+    tiles = max((n + _SORT_TILE - 1) // _SORT_TILE, 1)
+    hist = 256 * tiles
+    parts = [8 * n, 8 * n, 4 * n, 4 * n, 4 * hist, 4 * _scan_aux_elems(hist), 8]
+    return sum(p + _ALIGN for p in parts)
+
+
+def slab_sort(keys: torch.Tensor, valid: torch.Tensor, n: int):
+    """K8: the slab's key lane sorted, rows at or past ``n`` as int64.max at
+    the tail. Returns (sorted keys int64, perm int32, inv int32 with
+    ``inv[perm[i]] = i``, sorted validity ``valid[perm] & (perm < n)``).
+    keys ``(cap,)`` int64, valid ``(cap,)`` bool. Stable: equal keys keep
+    their row order."""
+    if keys.dtype != torch.int64 or valid.dtype != torch.bool or keys.dim() != 1 \
+            or valid.shape != keys.shape:
+        raise TypeError("slab_sort: keys must be 1-D int64 and valid bool of the same shape")
+    cap = keys.shape[0]
+    if not 0 <= n <= cap or cap >= 1 << 31:
+        raise ValueError(f"slab_sort: n={n} outside [0, cap={cap}] or cap too large")
+    dev = _same_device("slab_sort", keys, valid)
+    if dev.type == "cpu":
+        return slab_sort_plain(keys, valid, n)
+    _contiguous("slab_sort", keys, valid)
+    sk = torch.empty(cap, dtype=torch.int64, device=dev)
+    perm = torch.empty(cap, dtype=torch.int32, device=dev)
+    inv = torch.empty(cap, dtype=torch.int32, device=dev)
+    sv = torch.empty(cap, dtype=torch.bool, device=dev)
+    nbytes = _sort_scratch_bytes(n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    native.call("slab_sort", dev, keys.data_ptr(), valid.data_ptr(), n, cap, sk.data_ptr(),
+                perm.data_ptr(), inv.data_ptr(), sv.data_ptr(), scratch.data_ptr(), nbytes)
+    native.launches["slab_sort"] += 1
+    return sk, perm, inv, sv
+
+
+def slab_probe_plain(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: int,
+                     s_keys: torch.Tensor):
+    """Plain PyTorch version of K9, with the kernel's contract:
+
+    * ``head`` = ``[multi | 0 | matched count, 4 bytes LE | s_bits]``,
+      ``s_bits`` big-endian packed ``s_match``: source ``j`` equals a VALID
+      slab row among the real rows ``[0, n)``; ``multi``: some matched
+      source key occurs at least twice in the source;
+    * ``t_match`` (cap,): a valid real row whose key equals a source key;
+    * ``s_first`` (cap,) int32: for a real row whose key equals a source
+      key, the smallest such source index; ``m`` elsewhere."""
+    dev = sorted_keys.device
+    cap, m = sorted_keys.shape[0], s_keys.shape[0]
+    s = s_keys.to(torch.int64)
+    jj = torch.arange(m, dtype=torch.int64, device=dev)
+    sk = sorted_keys[:n]
+    if n:
+        lb = torch.searchsorted(sk, s)
+        hit = (lb < n) & (sk[lb.clamp(max=n - 1)] == s)
+    else:
+        lb = torch.zeros(m, dtype=torch.int64, device=dev)
+        hit = torch.zeros(m, dtype=torch.bool, device=dev)
+    first = torch.full((max(n, 1),), m, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, lb[hit], jj[hit], "amin")
+    start = torch.searchsorted(sk, sk) if n else torch.zeros(0, dtype=torch.int64, device=dev)
+    row_first = first[start]
+    row_hit = row_first < m
+    run_valid = torch.zeros(max(n, 1), dtype=torch.int64, device=dev)
+    run_valid.scatter_reduce_(0, start, (sorted_valid[:n] & row_hit).to(torch.int64), "amax")
+    t_match = torch.zeros(cap, dtype=torch.bool, device=dev)
+    t_match[:n] = row_hit & sorted_valid[:n]
+    s_first = torch.full((cap,), m, dtype=torch.int32, device=dev)
+    s_first[:n] = row_first.to(torch.int32)
+    lbc = lb.clamp(max=max(n - 1, 0))
+    s_match = hit & (run_valid[lbc] > 0)
+    multi = bool((s_match & (first[lbc] != jj)).any())
+    mc = int(t_match.sum())
+    head = torch.cat([
+        torch.tensor([int(multi), 0] + [(mc >> sh) & 0xFF for sh in (0, 8, 16, 24)],
+                     dtype=torch.uint8, device=dev),
+        _packbits(s_match),
+    ])
+    return head, t_match, s_first
+
+
+def slab_probe(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: int,
+               s_keys: torch.Tensor):
+    """K9: membership probe of the source keys (``(m,)`` int32 or int64, m
+    a multiple of 8) against the sorted slab's real rows ``[0, n)``.
+    Returns (head uint8 ``(6 + m/8,)``, t_match bool ``(cap,)``, s_first
+    int32 ``(cap,)``), as :func:`slab_probe_plain` defines them."""
+    if sorted_keys.dtype != torch.int64 or sorted_valid.dtype != torch.bool \
+            or s_keys.dtype not in (torch.int32, torch.int64):
+        raise TypeError("slab_probe: sorted keys int64, validity bool, source int32/int64")
+    cap, m = sorted_keys.shape[0], s_keys.shape[0]
+    if sorted_valid.shape != (cap,) or s_keys.dim() != 1 or m % 8 or not 0 <= n <= cap:
+        raise ValueError(f"slab_probe: bad shapes keys {tuple(sorted_keys.shape)} valid "
+                         f"{tuple(sorted_valid.shape)} source {tuple(s_keys.shape)} n={n}")
+    if m >= 1 << 31 or cap >= 1 << 31:
+        raise ValueError("slab_probe: sizes must fit int32")
+    dev = _same_device("slab_probe", sorted_keys, sorted_valid, s_keys)
+    if dev.type == "cpu":
+        return slab_probe_plain(sorted_keys, sorted_valid, n, s_keys)
+    _contiguous("slab_probe", sorted_keys, sorted_valid, s_keys)
+    head = torch.empty(6 + m // 8, dtype=torch.uint8, device=dev)
+    t_match = torch.empty(cap, dtype=torch.bool, device=dev)
+    s_first = torch.empty(cap, dtype=torch.int32, device=dev)
+    # run_first int32[n], run_valid u8[n], s_pos int32[m], flags u32[2]
+    scratch = torch.empty(4 * n + n + 4 * m + 8 + 4 * _ALIGN, dtype=torch.uint8, device=dev)
+    native.call("slab_probe", dev, sorted_keys.data_ptr(), sorted_valid.data_ptr(), n, cap,
+                s_keys.data_ptr(), 1 if s_keys.dtype == torch.int32 else 0, m, head.data_ptr(),
+                t_match.data_ptr(), s_first.data_ptr(), scratch.data_ptr(), scratch.numel())
+    native.launches["slab_probe"] += 1
+    return head, t_match, s_first
+
+
+def pair_compact_plain(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tensor,
+                       out_cap: int) -> torch.Tensor:
+    """Plain PyTorch version of K10."""
+    idx = torch.nonzero(t_match).reshape(-1)[:out_cap]
+    out = torch.zeros((2, out_cap), dtype=torch.int32, device=t_match.device)
+    out[0, :len(idx)] = perm[idx]
+    out[1, :len(idx)] = s_first[idx]
+    return out
+
+
+def pair_compact(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tensor,
+                 out_cap: int) -> torch.Tensor:
+    """K10: the matched sorted rows, in sorted order, compacted into a
+    ``(2, out_cap)`` int32 of (``perm[i]``, ``s_first[i]``); zeros past the
+    matched count, rows past ``out_cap`` dropped."""
+    cap = t_match.shape[0]
+    if t_match.dtype != torch.bool or s_first.dtype != torch.int32 or perm.dtype != torch.int32:
+        raise TypeError("pair_compact: t_match bool, s_first and perm int32")
+    if s_first.shape != (cap,) or perm.shape != (cap,) or out_cap < 0:
+        raise ValueError("pair_compact: bad shapes")
+    dev = _same_device("pair_compact", t_match, s_first, perm)
+    if dev.type == "cpu":
+        return pair_compact_plain(t_match, s_first, perm, out_cap)
+    _contiguous("pair_compact", t_match, s_first, perm)
+    out = torch.empty((2, out_cap), dtype=torch.int32, device=dev)
+    tiles = max((cap + _SORT_TILE - 1) // _SORT_TILE, 1)
+    scratch = torch.empty(4 * tiles + 4 * _scan_aux_elems(tiles) + 2 * _ALIGN,
+                          dtype=torch.uint8, device=dev)
+    native.call("pair_compact", dev, t_match.data_ptr(), s_first.data_ptr(), perm.data_ptr(),
+                cap, out.data_ptr(), out_cap, scratch.data_ptr(), scratch.numel())
+    native.launches["pair_compact"] += 1
+    return out
+
+
+def slab_flip_plain(v: torch.Tensor, rows: torch.Tensor, value: bool) -> torch.Tensor:
+    """Plain PyTorch version of K11's ``kill``/``revive``: a copy of ``v``
+    with ``rows`` set to ``value`` (XLA drop semantics)."""
+    out = v.clone()
+    keep, r = _xla_rows(rows, v.shape[0])
+    out[r[keep]] = value
+    return out
+
+
+def _flip(name: str, v: torch.Tensor, rows: torch.Tensor, value: bool) -> torch.Tensor:
+    if v.dtype != torch.bool or rows.dtype != torch.int32 or v.dim() != 1 or rows.dim() != 1:
+        raise TypeError(f"{name}: v must be 1-D bool, rows 1-D int32")
+    dev = _same_device(name, v, rows)
+    if dev.type == "cpu":
+        return slab_flip_plain(v, rows, value)
+    _contiguous(name, v, rows)
+    out = torch.empty_like(v)
+    native.call(name, dev, v.data_ptr(), out.data_ptr(), v.shape[0], rows.data_ptr(),
+                rows.shape[0], 1 if value else 0)
+    native.launches[name] += 1
+    return out
+
+
+def slab_kill(v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """K11 ``kill``: a new lane, ``v`` with ``rows`` False (drop-mode)."""
+    return _flip("slab_kill", v, rows, False)
+
+
+def slab_revive(v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """K11 ``revive``: a new lane, ``v`` with ``rows`` True (drop-mode)."""
+    return _flip("slab_revive", v, rows, True)
+
+
+def slab_append_plain(keys, valid, rows, nk, nv):
+    """Plain PyTorch version of K11's ``append``."""
+    k2, v2 = keys.clone(), valid.clone()
+    keep, r = _xla_rows(rows, keys.shape[0])
+    k2[r[keep]] = nk[keep].to(torch.int64)
+    v2[r[keep]] = nv[keep]
+    return k2, v2
+
+
+def slab_append(keys: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
+                nk: torch.Tensor, nv: torch.Tensor):
+    """K11 ``append``: new lanes, ``keys[rows] = nk`` (int32 keys cast up)
+    and ``valid[rows] = nv``, drop-mode; rows distinct."""
+    a = rows.shape[0]
+    if keys.dtype != torch.int64 or valid.dtype != torch.bool or rows.dtype != torch.int32 \
+            or nk.dtype not in (torch.int32, torch.int64) or nv.dtype != torch.bool:
+        raise TypeError("slab_append: keys int64, valid bool, rows int32, nk int32/int64, nv bool")
+    if valid.shape != keys.shape or nk.shape != (a,) or nv.shape != (a,):
+        raise ValueError("slab_append: bad shapes")
+    dev = _same_device("slab_append", keys, valid, rows, nk, nv)
+    if dev.type == "cpu":
+        return slab_append_plain(keys, valid, rows, nk, nv)
+    _contiguous("slab_append", keys, valid, rows, nk, nv)
+    k2, v2 = torch.empty_like(keys), torch.empty_like(valid)
+    native.call("slab_append", dev, keys.data_ptr(), valid.data_ptr(), k2.data_ptr(),
+                v2.data_ptr(), keys.shape[0], rows.data_ptr(), nk.data_ptr(),
+                1 if nk.dtype == torch.int32 else 0, nv.data_ptr(), a)
+    native.launches["slab_append"] += 1
+    return k2, v2
+
+
+def slab_widen_plain(k: torch.Tensor) -> torch.Tensor:
+    return k.to(torch.int64)
+
+
+def slab_widen(k: torch.Tensor) -> torch.Tensor:
+    """K11 ``widen``: an int32 lane as int64."""
+    if k.dtype != torch.int32 or k.dim() != 1:
+        raise TypeError("slab_widen: k must be 1-D int32")
+    if k.device.type == "cpu":
+        return slab_widen_plain(k)
+    _contiguous("slab_widen", k)
+    out = torch.empty(k.shape[0], dtype=torch.int64, device=k.device)
+    native.call("slab_widen", k.device, k.data_ptr(), out.data_ptr(), k.shape[0])
+    native.launches["slab_widen"] += 1
+    return out
+
+
+def slab_map_rows_plain(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    cap = inv.shape[0]
+    r = rows.to(torch.int64)
+    ok = (r >= 0) & (r < cap)
+    return torch.where(ok, inv[r.clamp(0, cap - 1)], torch.full_like(rows, cap))
+
+
+def slab_map_rows(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """K11 ``map_rows``: rows to sorted positions through the inverse
+    permutation; a row outside [0, cap) maps to cap (the next scatter drops
+    it)."""
+    if inv.dtype != torch.int32 or rows.dtype != torch.int32 or inv.dim() != 1 \
+            or rows.dim() != 1:
+        raise TypeError("slab_map_rows: inv and rows must be 1-D int32")
+    dev = _same_device("slab_map_rows", inv, rows)
+    if dev.type == "cpu":
+        return slab_map_rows_plain(inv, rows)
+    _contiguous("slab_map_rows", inv, rows)
+    out = torch.empty_like(rows)
+    native.call("slab_map_rows", dev, inv.data_ptr(), inv.shape[0], rows.data_ptr(),
+                out.data_ptr(), rows.shape[0])
+    native.launches["slab_map_rows"] += 1
+    return out
+
+
+def slab_slice_append_plain(keys, valid, start: int, nk, nv):
+    """Plain PyTorch version of K11's ``slice_append``
+    (``dynamic_update_slice``: the start clamps so the slice fits)."""
+    cap, a = keys.shape[0], nk.shape[0]
+    s = min(max(start, 0), cap - a)
+    k2, v2 = keys.clone(), valid.clone()
+    k2[s:s + a] = nk.to(torch.int64)
+    v2[s:s + a] = nv
+    return k2, v2
+
+
+def slab_slice_append(keys: torch.Tensor, valid: torch.Tensor, start: int,
+                      nk: torch.Tensor, nv: torch.Tensor):
+    """K11 ``slice_append``: new lanes with all ``a`` elements of ``nk``/
+    ``nv`` written at ``start`` (clamped to ``[0, cap - a]``)."""
+    cap, a = keys.shape[0], nk.shape[0]
+    if keys.dtype != torch.int64 or valid.dtype != torch.bool \
+            or nk.dtype not in (torch.int32, torch.int64) or nv.dtype != torch.bool:
+        raise TypeError("slab_slice_append: keys int64, valid bool, nk int32/int64, nv bool")
+    if valid.shape != keys.shape or nv.shape != (a,) or a > cap:
+        raise ValueError("slab_slice_append: bad shapes")
+    dev = _same_device("slab_slice_append", keys, valid, nk, nv)
+    if dev.type == "cpu":
+        return slab_slice_append_plain(keys, valid, start, nk, nv)
+    _contiguous("slab_slice_append", keys, valid, nk, nv)
+    k2, v2 = torch.empty_like(keys), torch.empty_like(valid)
+    native.call("slab_slice_append", dev, keys.data_ptr(), valid.data_ptr(), k2.data_ptr(),
+                v2.data_ptr(), cap, start, nk.data_ptr(), 1 if nk.dtype == torch.int32 else 0,
+                nv.data_ptr(), a)
+    native.launches["slab_slice_append"] += 1
+    return k2, v2
+
+
+def _decode_head(head: np.ndarray, cap_s: int, m: int):
+    """Decode the probe head fetched from the device: (multi, overflow,
+    matched_count, s_matched[:m])."""
+    multi = bool(head[0])
+    overflow = bool(head[1])
+    mc = (int(head[2]) | (int(head[3]) << 8) | (int(head[4]) << 16)
+          | (int(head[5]) << 24))
+    s = np.unpackbits(head[6:6 + cap_s // 8], count=cap_s)[:m].astype(bool)
+    return multi, overflow, mc, s
+
+
+# -- the resident entry -----------------------------------------------------------
+
+
+class ResidentJoinKeys:
+    """One table's packed join-key lane, resident on ``device`` with host
+    mirrors."""
+
+    def __init__(self, log_path: str, metadata_id: str, version: int,
+                 signature: str, key_cols: List[str], device="cuda"):
+        self.log_path = log_path
+        self.metadata_id = metadata_id
+        self.version = version
+        self.signature = signature
+        self.key_cols = key_cols
+        self.device = resolve(device)
+        # table rewrite generation at build time (KeyCache.bump_epoch)
+        self.epoch = 0
+        self.slabs: Dict[str, Tuple[int, int]] = {}  # path -> (offset, rows)
+        # path -> (storageType, pathOrInlineDv, cardinality) of the masked DV
+        self.dv_tags: Dict[str, Optional[Tuple[str, str, int]]] = {}
+        self.h_keys = np.empty(0, np.int64)
+        self.h_valid = np.empty(0, bool)
+        # immutable per row once appended: key is non-NULL. h_valid is
+        # derived: null_ok AND file alive AND not deletion-vector-deleted
+        self.h_nullok = np.empty(0, bool)
+        # conservative valid-key range, maintained on append (kills and DV
+        # masks only shrink the valid set): keeps the per-probe sentinel and
+        # narrowing decision O(source)
+        self.h_min = np.iinfo(np.int64).max
+        self.h_max = np.iinfo(np.int64).min
+        self.num_rows = 0
+        self.capacity = 1024
+        self._dead = 0
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._pending = None  # batched device updates (see device_batch)
+        # True when the sorted view lags the key lane: set by key appends,
+        # not by validity flips. The next probe re-sorts once.
+        self._sort_stale = True
+        self._lock = threading.RLock()
+        self.last_used = 0.0
+
+    # -- batched device updates ------------------------------------------
+    #
+    # A tail advance touches many files; inside a device_batch the mutators
+    # accumulate row indices and the flush issues at most three updates.
+
+    def device_batch(self):
+        @contextlib.contextmanager
+        def batch():
+            with self._lock:
+                self._pending = {"kill": [], "revive": [],
+                                 "rows": [], "keys": [], "valid": []}
+            try:
+                yield
+            finally:
+                self._flush_batch()
+
+        return batch()
+
+    def _flush_batch(self) -> None:
+        with self._lock:
+            p, self._pending = self._pending, None
+            if p is None or self._dev is None:
+                return  # device copy dropped mid-batch: mirrors re-ship later
+            # row scatter FIRST: a file appended and DV-masked in the same
+            # batch carries pre-DV validity in the scatter — the kill of its
+            # masked rows must land after, never be overwritten
+            if p["rows"]:
+                rows = np.concatenate(p["rows"]).astype(np.int32)
+                keys = np.concatenate(p["keys"]).astype(np.int64)
+                valid = np.concatenate(p["valid"]).astype(bool)
+                self._dev_scatter_rows(rows, keys, valid)
+            if p["kill"]:
+                self._dev_kill(np.concatenate(p["kill"]).astype(np.int32))
+            if p["revive"]:
+                self._dev_revive(np.concatenate(p["revive"]).astype(np.int32))
+
+    # -- host-side maintenance -------------------------------------------
+
+    def _append_file(self, path: str, keys: np.ndarray, valid: np.ndarray) -> bool:
+        with self._lock:
+            n = len(keys)
+            if path in self.slabs:
+                return False
+            self.slabs[path] = (self.num_rows, n)
+            self.h_keys = np.concatenate([self.h_keys, keys.astype(np.int64)])
+            self.h_valid = np.concatenate([self.h_valid, valid.astype(bool)])
+            self.h_nullok = np.concatenate([self.h_nullok, valid.astype(bool)])
+            if valid.any():
+                self.h_min = min(self.h_min, int(keys[valid].min()))
+                self.h_max = max(self.h_max, int(keys[valid].max()))
+            start = self.num_rows
+            self.num_rows += n
+            if self.num_rows > self.capacity:
+                # regrow: drop the device copy; the next probe re-ships the
+                # mirrors. 25% headroom so a steady append stream doesn't
+                # cross a bucket every few commits
+                self._dev = None
+                self.capacity = max(_bucket(int(self.num_rows * 1.25)), 1024)
+                return True
+            if self._pending is not None:
+                self._pending["rows"].append(
+                    np.arange(start, start + n, dtype=np.int32))
+                self._pending["keys"].append(keys.astype(np.int64))
+                self._pending["valid"].append(valid.astype(bool))
+            elif self._dev is not None:
+                self._dev_scatter_rows(
+                    np.arange(start, start + n, dtype=np.int32),
+                    keys.astype(np.int64), valid.astype(bool))
+            return True
+
+    def _kill_file(self, path: str) -> None:
+        with self._lock:
+            ent = self.slabs.pop(path, None)
+            self.dv_tags.pop(path, None)
+            if ent is None:
+                return
+            off, rows = ent
+            self.h_valid[off:off + rows] = False
+            self._dead += rows
+            if self._pending is not None:
+                self._pending["kill"].append(
+                    np.arange(off, off + rows, dtype=np.int32))
+            elif self._dev is not None:
+                self._dev_kill(np.arange(off, off + rows, dtype=np.int32))
+
+    def _set_dv(self, path: str, positions: np.ndarray) -> bool:
+        """Install a file's deletion-vector state EXACTLY: validity becomes
+        null_ok AND NOT deleted (growth, shrink and replacement; the device
+        gets only the diff rows). False when the DV disagrees with the slab
+        (positions beyond the recorded row count, or no slab): the caller
+        must rebuild."""
+        with self._lock:
+            ent = self.slabs.get(path)
+            if ent is None:
+                return False
+            off, rows = ent
+            if len(positions) and int(positions.max()) >= rows:
+                return False
+            new_valid = self.h_nullok[off:off + rows].copy()
+            if len(positions):
+                new_valid[positions] = False
+            old_valid = self.h_valid[off:off + rows]
+            diff = np.nonzero(new_valid != old_valid)[0]
+            if len(diff) == 0:
+                return True
+            self.h_valid[off:off + rows] = new_valid
+            to_false = (off + diff[~new_valid[diff]]).astype(np.int32)
+            to_true = (off + diff[new_valid[diff]]).astype(np.int32)
+            if self._pending is not None:
+                if len(to_false):
+                    self._pending["kill"].append(to_false)
+                if len(to_true):
+                    self._pending["revive"].append(to_true)
+            elif self._dev is not None:
+                if len(to_false):
+                    self._dev_kill(to_false)
+                if len(to_true):
+                    self._dev_revive(to_true)
+            return True
+
+    @property
+    def garbage_fraction(self) -> float:
+        return self._dead / max(self.num_rows, 1)
+
+    # -- device residency -------------------------------------------------
+
+    @property
+    def device_bytes(self) -> int:
+        # keys(8) + valid(1) + sorted view: sorted_keys(8) + perm(4) +
+        # inv_perm(4) + sorted_valid(1)
+        return self.capacity * 26
+
+    @property
+    def is_resident(self) -> bool:
+        return self._dev is not None
+
+    def drop_device(self) -> None:
+        with self._lock:
+            self._dev = None
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    def ensure_resident(self) -> None:
+        """Ship the mirrors to the device, the keys narrowed to int32 when
+        every one fits (K11 ``widen`` casts them up there)."""
+        with self._lock:
+            if self._dev is not None:
+                return
+            keys = np.zeros(self.capacity, np.int64)
+            keys[: self.num_rows] = self.h_keys
+            valid = np.zeros(self.capacity, bool)
+            valid[: self.num_rows] = self.h_valid
+            # invalid/null rows store 0, so a raw min/max scan is the exact
+            # narrowing test
+            narrow = (self.num_rows == 0 or (
+                int(keys.min()) >= np.iinfo(np.int32).min
+                and int(keys.max()) <= np.iinfo(np.int32).max))
+            if narrow:
+                dk = slab_widen(self._upload(keys.astype(np.int32)))
+            else:
+                dk = self._upload(keys)
+            dv = self._upload(valid)
+            self._dev = {"keys": dk, "valid": dv}
+            self._sort_stale = True
+
+    def _ensure_sorted(self) -> None:
+        """Sort the slab (K8) if the sorted view is stale (caller holds the
+        entry lock)."""
+        if self._dev is None:
+            return
+        if not self._sort_stale and "sorted_keys" in self._dev:
+            return
+        sk, pm, inv, sv = slab_sort(self._dev["keys"], self._dev["valid"], self.num_rows)
+        self._dev["sorted_keys"] = sk
+        self._dev["perm"] = pm
+        self._dev["inv_perm"] = inv
+        self._dev["sorted_valid"] = sv
+        self._sort_stale = False
+
+    def _dev_flip_valid(self, rows: np.ndarray, value: bool) -> None:
+        """Validity flip in ROW space plus, when the sorted view is live,
+        the mirrored flip in SORTED space through the inverse permutation
+        (a k-row update, never a re-sort). Both bind new lanes."""
+        d = _next_pow2(max(len(rows), 1), floor=64)
+        padded = np.full(d, self.capacity, np.int32)
+        padded[: len(rows)] = rows
+        flip = slab_revive if value else slab_kill
+        rows_dev = self._upload(padded)
+        self._dev["valid"] = flip(self._dev["valid"], rows_dev)
+        if not self._sort_stale and "sorted_valid" in self._dev:
+            spos = slab_map_rows(self._dev["inv_perm"], rows_dev)
+            self._dev["sorted_valid"] = flip(self._dev["sorted_valid"], spos)
+
+    def _dev_kill(self, rows: np.ndarray) -> None:
+        self._dev_flip_valid(rows, False)
+
+    def _dev_revive(self, rows: np.ndarray) -> None:
+        self._dev_flip_valid(rows, True)
+
+    def _dev_scatter_rows(self, row_idx: np.ndarray, keys: np.ndarray,
+                          valid: np.ndarray) -> None:
+        k = len(keys)
+        a = _next_pow2(max(k, 1), floor=64)
+        i32 = np.iinfo(np.int32)
+        kdtype = (np.int32 if len(keys) and keys.min() >= i32.min
+                  and keys.max() <= i32.max else np.int64)
+        nk = np.zeros(a, kdtype)
+        nk[:k] = keys
+        nv = np.zeros(a, bool)
+        nv[:k] = valid
+        contiguous = (
+            k > 0
+            and row_idx[0] + a <= self.capacity
+            and bool((row_idx == np.arange(row_idx[0], row_idx[0] + k,
+                                           dtype=row_idx.dtype)).all())
+        )
+        # key rows changed: the sorted view lags; drop it and let the next
+        # probe re-sort
+        self._sort_stale = True
+        for name in ("sorted_keys", "perm", "inv_perm", "sorted_valid"):
+            self._dev.pop(name, None)
+        if contiguous:
+            self._dev["keys"], self._dev["valid"] = slab_slice_append(
+                self._dev["keys"], self._dev["valid"], int(row_idx[0]),
+                self._upload(nk), self._upload(nv))
+            return
+        rows = np.full(a, self.capacity, np.int32)
+        rows[:k] = row_idx
+        self._dev["keys"], self._dev["valid"] = slab_append(
+            self._dev["keys"], self._dev["valid"], self._upload(rows),
+            self._upload(nk), self._upload(nv))
+
+    # -- probing ----------------------------------------------------------
+
+    def probe_async(self, s_keys: np.ndarray, s_ok: np.ndarray,
+                    expected_version: Optional[int] = None,
+                    insert_only: bool = False) -> Optional[PendingProbe]:
+        """Membership probe of the source keys against the resident slab,
+        fused with the pairing: K9 emits each matched slab row's first
+        source row and K10 compacts the pairs, so the finalize downloads
+        O(matched). None when no sentinel value exists (the valid keys span
+        int64) or the slab is not at ``expected_version``.
+
+        ``insert_only``: only the per-source flags are fetched (the head).
+
+        The device pipeline runs on a staging thread over the arrays pinned
+        here; a concurrent advance binds new arrays and never changes
+        these."""
+        with self._lock:
+            if expected_version is not None and self.version != expected_version:
+                return None
+            n = self.num_rows
+            if n == 0:
+                m = len(s_keys)
+                slabs = dict(self.slabs)
+                empty = np.empty(0, np.int64)
+                return PendingProbe(lambda: PhysicalProbe(
+                    np.zeros(m, bool), False, slabs, 0, (empty, empty)))
+            s_key64 = np.ascontiguousarray(s_keys, np.int64)
+            s_okb = np.asarray(s_ok, bool)
+            # the slab's valid range is kept incrementally (a superset), so
+            # only the source is scanned here. Narrow the source upload to
+            # int32 when every valid key fits: the sentinel then lives in
+            # int32 space
+            lo = min(self.h_min, int(np.min(s_key64, where=s_okb, initial=2**62)))
+            hi = max(self.h_max, int(np.max(s_key64, where=s_okb, initial=-2**62)))
+            i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+            if lo >= i32.min + 2 and hi <= i32.max - 2:
+                dtype, s_sent = np.int32, i32.max - 1
+            elif hi <= i64.max - 2:
+                dtype, s_sent = np.int64, i64.max - 1
+            elif lo >= i64.min + 2:
+                dtype, s_sent = np.int64, i64.min + 1
+            else:
+                return None  # valid keys span int64: no sentinel room
+            s_enc = np.where(s_okb, s_key64, s_sent).astype(dtype)
+            self.ensure_resident()
+            self._ensure_sorted()
+            # pin this version's arrays: updates bind new tensors, so a
+            # concurrent tail advance never changes these
+            dev = {"sorted_keys": self._dev["sorted_keys"],
+                   "sorted_valid": self._dev["sorted_valid"],
+                   "perm": self._dev["perm"]}
+            slabs = dict(self.slabs)
+            device = self.device
+        m = len(s_enc)
+        cap_s = _bucket(m)
+        s_in = np.full(cap_s, s_sent, s_enc.dtype)
+        s_in[:m] = s_enc
+        state: dict = {}
+
+        def launch():
+            # the whole device pipeline runs on this thread, so the caller
+            # overlaps it with host work; finalize joins and fetches pairs
+            try:
+                ctx = torch.cuda.device(device) if device.type == "cuda" \
+                    else contextlib.nullcontext()
+                with ctx:
+                    head_dev, t_match_dev, s_first_dev = slab_probe(
+                        dev["sorted_keys"], dev["sorted_valid"], n,
+                        torch.from_numpy(s_in).to(device))
+                    head = head_dev.cpu().numpy()  # waits for the kernel
+                    state["head"] = head
+                    _multi, _overflow, mc, _s = _decode_head(head, cap_s, m)
+                    if insert_only or mc == 0:
+                        return
+                    out_cap = _next_pow2(mc, floor=64)
+                    state["pairs"] = pair_compact(t_match_dev, s_first_dev, dev["perm"],
+                                                  out_cap).cpu().numpy()
+            except BaseException as e:
+                state["err"] = e
+
+        th = threading.Thread(target=launch, daemon=True, name="delta-merge-device-probe")
+        th.start()
+
+        def finalize() -> PhysicalProbe:
+            th.join()
+            if "err" in state:
+                raise state["err"]
+            multi, overflow, mc, s = _decode_head(state["head"], cap_s, m)
+            if overflow:
+                raise RuntimeError("slab_probe reported an overflow, which it never does")
+            if insert_only:
+                return PhysicalProbe(s, multi, slabs, n, None)
+            if mc == 0:
+                empty = np.empty(0, np.int64)
+                return PhysicalProbe(s, multi, slabs, n, (empty, empty))
+            pairs = state["pairs"]
+            phys = pairs[0, :mc].astype(np.int64)
+            srows = pairs[1, :mc].astype(np.int64)
+            order = np.argsort(phys, kind="stable")
+            return PhysicalProbe(s, multi, slabs, n, (phys[order], srows[order]))
+
+        return PendingProbe(finalize)
+
+
+# -- building / advancing ---------------------------------------------------------
+
+
+def _abs_data_path(data_path: str, path: str) -> str:
+    if "://" in path or os.path.isabs(path):
+        return urllib.parse.unquote(path)
+    return os.path.join(data_path, urllib.parse.unquote(path).replace("/", os.sep))
+
+
+def _file_keys(data_path: str, add, key_cols: List[str], exprs) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The packed target key lane over a file's PHYSICAL rows (no DV
+    filtering; DV positions are masked invalid separately). None for a
+    missing file or column or an unpackable lane, as in the JAX package; the
+    codec's ``NotImplementedError`` propagates."""
+    from delta_tpu_torch.exec.parquet import column_names, read_metadata, read_parquet_file
+    from delta_tpu_torch.expr.vectorized import evaluate
+
+    abs_path = _abs_data_path(data_path, add.path)
+    try:
+        names = column_names(read_metadata(abs_path))
+        present = [c for c in key_cols if c in names]
+        if len(present) != len(key_cols):
+            return None
+        tab = read_parquet_file(abs_path, present)
+    except (OSError, ValueError):
+        return None
+    return _pack_lanes(tab, exprs, evaluate)
+
+
+def _pack_lanes(tab, exprs, evaluate) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(keys int64, valid) of the key expressions over ``tab`` (a
+    ``HostTable``): one integer lane, or two packed ``hi<<32 | lo`` when
+    both fit int32. None where a lane is not an integer."""
+    lanes = []
+    for e in exprs:
+        try:
+            vals = evaluate(e, tab)
+        except Exception:
+            return None
+        if vals.kind != "int":
+            return None
+        valid = np.asarray(vals.valid, bool).copy()
+        keys = np.where(valid, vals.values, 0).astype(np.int64)
+        lanes.append((keys, valid))
+    if len(lanes) == 1:
+        return lanes[0]
+    if len(lanes) != 2:
+        return None
+    i32 = np.iinfo(np.int32)
+    (k0, v0), (k1, v1) = lanes
+    ok = v0 & v1
+    if (np.min(k0, where=ok, initial=0) < i32.min
+            or np.max(k0, where=ok, initial=0) > i32.max
+            or np.min(k1, where=ok, initial=0) < i32.min
+            or np.max(k1, where=ok, initial=0) > i32.max):
+        return None
+    return (k0 << 32) | (k1 & 0xFFFFFFFF), ok
+
+
+def _dv_tag(dv_dict) -> Optional[Tuple[str, str, int]]:
+    if not dv_dict:
+        return None
+    return (dv_dict.get("storageType"), dv_dict.get("pathOrInlineDv"),
+            int(dv_dict.get("cardinality", -1)))
+
+
+def _dv_positions(dv_dict, data_path: str) -> Optional[np.ndarray]:
+    from delta_tpu_torch.protocol.deletion_vectors import (
+        DeletionVectorDescriptor, read_deletion_vector,
+    )
+
+    try:
+        return read_deletion_vector(
+            DeletionVectorDescriptor.from_dict(dv_dict), data_path)
+    except Exception:
+        return None
+
+
+class KeyCache:
+    """Process-wide registry of resident join-key lanes, keyed by (log path,
+    signature, device). Registry lock for lookups, per-entry build locks
+    for the slow work."""
+
+    _instance: Optional["KeyCache"] = None
+    _instance_lock = threading.Lock()
+
+    def __init__(self):
+        self._entries: Dict[Tuple[str, str, str], ResidentJoinKeys] = {}
+        self._build_locks: Dict[Tuple[str, str, str], threading.Lock] = {}
+        self._lock = threading.RLock()
+        self._tick = 0
+        # per-table rewrite generation (bump_epoch): entries built under an
+        # older epoch are never served or cached
+        self._epochs: Dict[str, int] = {}
+
+    @classmethod
+    def instance(cls) -> "KeyCache":
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = KeyCache()
+            return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._instance_lock:
+            cls._instance = None
+
+    def epoch(self, log_path: str) -> int:
+        with self._lock:
+            return self._epochs.get(log_path, 0)
+
+    def bump_epoch(self, log_path: str) -> None:
+        """File-rewrite invalidation (OPTIMIZE / UPDATE-rewrite / RESTORE):
+        drop the table's entries outright. In-flight holders of a dropped
+        entry fail their version guard: the version is poisoned first."""
+        with self._lock:
+            self._epochs[log_path] = self._epochs.get(log_path, 0) + 1
+            for k in [k for k in self._entries if k[0] == log_path]:
+                e = self._entries.pop(k)
+                e.version = _POISON_VERSION
+                self._build_locks.pop(k, None)
+                e.drop_device()
+
+    def peek(self, log_path: str, signature: str, device="cuda") -> Optional[ResidentJoinKeys]:
+        with self._lock:
+            return self._entries.get((log_path, signature, str(resolve(device))))
+
+    def _usable(self, e, snapshot, cur_epoch) -> bool:
+        return not (e.metadata_id != snapshot.metadata.id or e.version > snapshot.version
+                    or e.epoch != cur_epoch)
+
+    def get(self, snapshot, signature: str, key_cols: List[str],
+            exprs, build_if_missing: bool = True) -> Optional[ResidentJoinKeys]:
+        """Entry current at the snapshot's version on the snapshot's device,
+        advancing incrementally through the log tail (appending new files'
+        keys, killing removed files, masking DV changes), or built cold.
+        ``build_if_missing=False`` only serves or advances an existing
+        entry."""
+        log_path = snapshot.delta_log.log_path
+        device = snapshot.delta_log.device
+        key = (log_path, signature, str(device))
+        with self._lock:
+            self._tick += 1
+            tick = self._tick
+            cur_epoch = self._epochs.get(log_path, 0)
+            build_lock = self._build_locks.setdefault(key, threading.Lock())
+            e = self._entries.get(key)
+        if e is not None and not self._usable(e, snapshot, cur_epoch):
+            e = None
+        if e is not None and e.version == snapshot.version:
+            e.last_used = tick
+            return e
+        if e is None and not build_if_missing:
+            return None
+        with build_lock:
+            with self._lock:
+                cur_epoch = self._epochs.get(log_path, 0)
+                e = self._entries.get(key)
+            if e is not None and not self._usable(e, snapshot, cur_epoch):
+                e = None
+            if e is not None and e.version == snapshot.version:
+                e.last_used = tick
+                return e
+            if e is not None and not self._advance(e, snapshot, key_cols, exprs):
+                # a failed advance may have half-applied its tail: the entry
+                # must not stay visible at its (stale) version
+                with self._lock:
+                    if self._entries.get(key) is e:
+                        self._entries.pop(key, None)
+                e = None
+            if e is None:
+                if not build_if_missing:
+                    return None
+                e = self._build(snapshot, signature, key_cols, exprs, epoch=cur_epoch)
+                if e is None:
+                    return None
+                with self._lock:
+                    # a rewrite may have raced the build: the entry stays
+                    # exact for the caller's snapshot, but is only CACHED
+                    # when the epoch still matches
+                    if self._epochs.get(log_path, 0) == cur_epoch:
+                        self._entries[key] = e
+            e.last_used = tick
+            self._evict(keep=key)
+            return e
+
+    def _build(self, snapshot, signature, key_cols, exprs,
+               epoch: int = 0) -> Optional[ResidentJoinKeys]:
+        e = ResidentJoinKeys(snapshot.delta_log.log_path, snapshot.metadata.id,
+                             snapshot.version, signature, list(key_cols),
+                             device=snapshot.delta_log.device)
+        e.epoch = epoch
+        data_path = snapshot.delta_log.data_path
+        for add in snapshot.all_files:
+            kv = _file_keys(data_path, add, key_cols, exprs)
+            if kv is None:
+                return None
+            keys, valid = kv
+            e._append_file(add.path, keys, valid)
+            if add.deletion_vector is not None:
+                pos = _dv_positions(add.deletion_vector, data_path)
+                if pos is None:
+                    return None
+                if not e._set_dv(add.path, pos):
+                    return None
+                e.dv_tags[add.path] = _dv_tag(add.deletion_vector)
+        return e
+
+    def _advance(self, e: ResidentJoinKeys, snapshot, key_cols, exprs) -> bool:
+        """Apply the log tail (e.version, snapshot.version]."""
+        from delta_tpu_torch.log.columnar import decode_segment
+        from delta_tpu_torch.protocol import filenames
+        from delta_tpu_torch.protocol.actions import AddFile, Metadata, RemoveFile
+
+        if e.garbage_fraction > 0.5 and e.num_rows > 1 << 20:
+            return False  # too much garbage: a rebuild compacts
+        log = snapshot.delta_log
+        paths = [f"{log.log_path}/{filenames.delta_file(v)}"
+                 for v in range(e.version + 1, snapshot.version + 1)]
+        try:
+            cols = decode_segment(log.store, [], paths)
+        except Exception:
+            return False
+        if any(isinstance(a, Metadata) for a in cols.other_actions):
+            return False
+        actions = cols.materialize(cols.winner_mask())
+        data_path = log.data_path
+        # hold the ENTRY lock across the whole application and the version
+        # bump: a concurrent probe sees the slab fully at its version or
+        # fully past it
+        with e._lock, e.device_batch():
+            # poison a half-applied tail before releasing the lock, on a
+            # clean failure and on an exception alike
+            ok = False
+            try:
+                for a in actions:
+                    if isinstance(a, RemoveFile):
+                        e._kill_file(a.path)
+                    elif isinstance(a, AddFile):
+                        if a.path not in e.slabs:
+                            kv = _file_keys(data_path, a, key_cols, exprs)
+                            if kv is None:
+                                return False
+                            if not e._append_file(a.path, *kv):
+                                return False
+                        # re-adds keep their keys (physical rows are
+                        # immutable); only the DV validity may change
+                        new_tag = _dv_tag(a.deletion_vector)
+                        if e.dv_tags.get(a.path) != new_tag:
+                            if a.deletion_vector is not None:
+                                pos = _dv_positions(a.deletion_vector, data_path)
+                                if pos is None:
+                                    return False
+                            else:
+                                pos = np.empty(0, np.int64)
+                            if not e._set_dv(a.path, pos):
+                                return False
+                            e.dv_tags[a.path] = new_tag
+                ok = True
+                return True
+            finally:
+                e.version = snapshot.version if ok else _POISON_VERSION
+
+    def _evict(self, keep) -> None:
+        with self._lock:
+            resident = [(k, e) for k, e in self._entries.items() if e.is_resident]
+            total = sum(e.device_bytes for _, e in resident)
+            for k, e in sorted(resident, key=lambda kv: kv[1].last_used):
+                if total <= MAX_DEVICE_BYTES:
+                    break
+                if k == keep:
+                    continue
+                e.drop_device()
+                total -= e.device_bytes
+            if len(self._entries) > MAX_ENTRIES:
+                for k, e in sorted(self._entries.items(), key=lambda kv: kv[1].last_used):
+                    if k == keep:
+                        continue
+                    self._entries.pop(k, None)
+                    self._build_locks.pop(k, None)
+                    e.drop_device()
+                    if len(self._entries) <= MAX_ENTRIES:
+                        break

@@ -12,7 +12,8 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 
 ``launches`` counts the launches of each kernel. The wrappers beside the
 plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
-``expr/device_eval``) add one where they launch, and nowhere else.
+``expr/device_eval``, ``ops/key_cache``) add one where they launch, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -52,6 +53,20 @@ _KERNELS = {
                [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P]),
     "expr_eval": ("expr_eval", "dtt_expr_eval",
                   [_P, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _I, _I, _P]),
+    "slab_sort": ("slab_sort", "dtt_slab_sort",
+                  [_P, _P, _L, _L, _P, _P, _P, _P, _P, _L, _P]),
+    "slab_probe": ("slab_probe", "dtt_slab_probe",
+                   [_P, _P, _L, _L, _P, _I, _L, _P, _P, _P, _P, _L, _P]),
+    "pair_compact": ("pair_compact", "dtt_pair_compact",
+                     [_P, _P, _P, _L, _P, _L, _P, _L, _P]),
+    "slab_kill": ("slab_update", "dtt_slab_flip", [_P, _P, _L, _P, _L, ctypes.c_ubyte, _P]),
+    "slab_revive": ("slab_update", "dtt_slab_flip", [_P, _P, _L, _P, _L, ctypes.c_ubyte, _P]),
+    "slab_append": ("slab_update", "dtt_slab_append",
+                    [_P, _P, _P, _P, _L, _P, _P, _I, _P, _L, _P]),
+    "slab_widen": ("slab_update", "dtt_slab_widen", [_P, _P, _L, _P]),
+    "slab_map_rows": ("slab_update", "dtt_slab_map_rows", [_P, _L, _P, _P, _L, _P]),
+    "slab_slice_append": ("slab_update", "dtt_slab_slice_append",
+                          [_P, _P, _P, _P, _L, _L, _P, _I, _P, _L, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}
@@ -80,9 +95,12 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def _target(stem: str) -> Path:
-    """The library's path, named by a hash of its source and the flags, so
-    a change to either builds anew."""
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags, so a change to any builds
+    anew."""
     h = hashlib.sha256((_CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return _BUILD / f"{stem}-{h.hexdigest()[:16]}.so"
 

@@ -60,7 +60,8 @@ def _jax(sql):
 
 
 def _port(sql):
-    out = device_eval.compile_expr(torch_parse(sql))(device_eval.columns_from_numpy(COLS, MASKS))
+    env = device_eval.columns_from_numpy(COLS, MASKS, device="cpu")
+    out = device_eval.compile_expr(torch_parse(sql))(env)
     return out.values.numpy(), out.valid.numpy()
 
 
@@ -155,7 +156,7 @@ def test_time_fields_floor_negative_timestamps(sql):
 def test_in_reduces_option_validity_over_all_rows(sql):
     _assert_same(sql)
     program = device_eval.compile_expr(torch_parse(sql)).program(
-        device_eval.columns_from_numpy(COLS, MASKS))
+        device_eval.columns_from_numpy(COLS, MASKS, device="cpu"))
     assert program.passes == (2 if sql.startswith("(a IN") else 1)
 
 
@@ -188,7 +189,7 @@ def test_scalar_program_is_zero_dimensional():
 def test_registers_are_reused():
     sql = " AND ".join(f"(a + {k} > b)" for k in range(60))
     program = device_eval.compile_expr(torch_parse(sql)).program(
-        device_eval.columns_from_numpy(COLS, MASKS))
+        device_eval.columns_from_numpy(COLS, MASKS, device="cpu"))
     assert program.instrs.shape[0] > 200 and program.n_regs <= 8
     _assert_same(sql)
 

@@ -9,7 +9,7 @@ imported:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: exact equality (bits, packed bytes, f32 lanes bit for bit, file
-lists).
+lists, key-slab flags and pairs).
 """
 import json
 
@@ -19,7 +19,7 @@ import torch
 
 from delta_tpu_torch import DeltaLog
 from delta_tpu_torch.expr.parser import parse_expression
-from delta_tpu_torch.ops import native, pruning, replay_kernel, state_cache
+from delta_tpu_torch.ops import key_cache, native, pruning, replay_kernel, state_cache
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import AddFile, Metadata, Protocol, RemoveFile
 from delta_tpu_torch.schema.types import DoubleType, IntegerType, LongType, StringType, StructType
@@ -229,3 +229,139 @@ def test_normal_leg_on_the_card_matches_the_cpu(cuda, tmp_path):
         b = pruning.files_for_scan(on_cpu, [parse_expression(q)])
         assert [f.json() for f in a.files] == [f.json() for f in b.files], q
     assert native.launches["expr_eval"] > before
+
+
+# -- K8-K11 and the MERGE key slab (the third slice) ---------------------------------
+
+
+def _equal_all(got, ref):
+    return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("n,cap", [(0, 1024), (1, 1024), (5000, 8192), (1 << 20, 1 << 21)])
+def test_slab_sort_kernel_matches_plain(cuda, n, cap):
+    rng = np.random.RandomState(n + 1)
+    keys = rng.randint(-(1 << 62), 1 << 62, cap).astype(np.int64)
+    keys[: n // 3] = rng.randint(-20, 20, n // 3)
+    keys[:2] = [(1 << 63) - 1, -(1 << 63)]
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(rng.rand(cap) > 0.3).to(cuda)
+    for lane in (k, k & 0xFFFF):
+        before = native.launches["slab_sort"]
+        got = key_cache.slab_sort(lane, v, n)
+        torch.cuda.synchronize()
+        assert native.launches["slab_sort"] == before + 1
+        assert _equal_all(got, key_cache.slab_sort_plain(lane, v, n))
+
+
+@pytest.mark.parametrize("n,m,dtype", [(5000, 8, torch.int64), (5000, 4096, torch.int32),
+                                       (1 << 20, 1 << 18, torch.int64)])
+def test_slab_probe_and_pair_compact_kernels_match_plain(cuda, n, m, dtype):
+    rng = np.random.RandomState(m)
+    cap = 1 << (n - 1).bit_length()
+    keys = rng.randint(0, n // 2, cap).astype(np.int64)  # dense duplicates
+    keys[:3] = [(1 << 31) - 2, (1 << 31) - 1, 0]
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(rng.rand(cap) > 0.2).to(cuda)
+    sk, perm, _, sv = key_cache.slab_sort_plain(k, v, n)
+    s = np.concatenate([keys[rng.randint(0, n, m // 2)], rng.randint(-n, 2 * n, m - m // 2)])
+    s[-1] = (1 << 31) - 2  # the int32 sentinel, a real slab key here
+    s = torch.from_numpy(s).to(dtype).to(cuda)
+    got = key_cache.slab_probe(sk, sv, n, s)
+    torch.cuda.synchronize()
+    ref = key_cache.slab_probe_plain(sk, sv, n, s)
+    assert _equal_all(got, ref)
+    t_match, s_first = ref[1], ref[2]
+    for tm in (torch.zeros_like(t_match), t_match, torch.ones_like(t_match)):
+        out_cap = state_cache._next_pow2(int(tm.sum()), floor=64)
+        got = key_cache.pair_compact(tm, s_first, perm, out_cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, key_cache.pair_compact_plain(tm, s_first, perm, out_cap))
+
+
+def test_slab_update_kernels_match_plain(cuda):
+    rng = np.random.RandomState(6)
+    cap = 1 << 16
+    lane = torch.from_numpy(rng.rand(cap) > 0.5).to(cuda)
+    keys = torch.from_numpy(rng.randint(-(1 << 40), 1 << 40, cap)).to(cuda)
+    inv = torch.from_numpy(rng.permutation(cap).astype(np.int32)).to(cuda)
+    rows_np = np.full(1024, cap, np.int32)
+    rows_np[:900] = rng.choice(cap, 900, replace=False)
+    rows_np[900:903] = [-1, -cap, cap + 5]
+    rows = torch.from_numpy(rows_np).to(cuda)
+    lane0, keys0 = lane.clone(), keys.clone()
+    assert torch.equal(key_cache.slab_kill(lane, rows), key_cache.slab_flip_plain(lane, rows, False))
+    assert torch.equal(key_cache.slab_revive(lane, rows), key_cache.slab_flip_plain(lane, rows, True))
+    assert torch.equal(key_cache.slab_map_rows(inv, rows), key_cache.slab_map_rows_plain(inv, rows))
+    for dt in (torch.int32, torch.int64):
+        nk = torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1, 1024)).to(dt).to(cuda)
+        nv = torch.from_numpy(rng.rand(1024) > 0.5).to(cuda)
+        assert _equal_all(key_cache.slab_append(keys, lane, rows, nk, nv),
+                          key_cache.slab_append_plain(keys, lane, rows, nk, nv))
+        for start in (0, 777, cap - 1024, cap):
+            assert _equal_all(key_cache.slab_slice_append(keys, lane, start, nk, nv),
+                              key_cache.slab_slice_append_plain(keys, lane, start, nk, nv))
+    k32 = keys.to(torch.int32)
+    assert torch.equal(key_cache.slab_widen(k32), key_cache.slab_widen_plain(k32))
+    torch.cuda.synchronize()
+    assert torch.equal(lane, lane0) and torch.equal(keys, keys0)  # inputs never change
+
+
+def _slab_table(path, rng):
+    """Two data files through the port's writer, committed with DVs enabled."""
+    from delta_tpu_torch.exec.parquet import collect_stats, write_parquet_file
+    from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+
+    def data_file(name, keys):
+        n = len(keys)
+        t = HostTable({"k": HostColumn("int", keys, rng.rand(n) > 0.02),
+                       "v": HostColumn("double", rng.rand(n), np.ones(n, bool))}, n)
+        size, mtime = write_parquet_file(t, f"{path}/{name}")
+        return AddFile(path=name, size=size, modification_time=mtime,
+                       stats=json.dumps(collect_stats(t)))
+
+    schema = StructType().add("k", LongType()).add("v", DoubleType())
+    adds = [data_file("a.parquet", rng.permutation(60_000)[:30_000].astype(np.int64)),
+            data_file("b.parquet", rng.randint(0, 60_000, 20_000).astype(np.int64))]
+    _write(path, 0, [Protocol(3, 7, ("deletionVectors",), ("deletionVectors",)),
+                     Metadata(schema_string=schema.to_json(),
+                              configuration={"delta.tpu.enableDeletionVectors": "true"}),
+                     *adds])
+    return adds, data_file
+
+
+def test_key_slab_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Build, advance (DV growth and shrink, an append, a removal) and probe
+    a key slab on the card and on the CPU: every PhysicalProbe equal."""
+    from delta_tpu_torch.expr import ir
+    from delta_tpu_torch.protocol.deletion_vectors import write_deletion_vector
+
+    rng = np.random.RandomState(12)
+    path = str(tmp_path / "t")
+    adds, data_file = _slab_table(path, rng)
+    a = adds[0]
+
+    def readd(rows):
+        dv = write_deletion_vector(rows, path).to_dict()
+        return AddFile(path=a.path, size=a.size, modification_time=a.modification_time,
+                       stats=a.stats, deletion_vector=dv)
+
+    tails = [[readd(rng.choice(30_000, 3000, replace=False))],
+             [readd(np.arange(0, 30_000, 97))],
+             [data_file("c.parquet", np.arange(60_000, 70_000, dtype=np.int64))],
+             [RemoveFile(path="b.parquet", deletion_timestamp=4)]]
+    s = rng.randint(0, 75_000, 40_000).astype(np.int64)
+    ok = rng.rand(len(s)) > 0.05
+    key_cache.KeyCache.reset()
+    for version in range(len(tails) + 1):
+        if version:
+            _write(path, version, tails[version - 1])
+        probes = []
+        for dev in (cuda, "cpu"):
+            snap = DeltaLog.for_table(path, device=dev).update()
+            e = key_cache.KeyCache.instance().get(snap, "k", ["k"], [ir.Column("k")])
+            assert e.version == version and e.device == torch.device(dev)
+            probes.append(e.probe_async(s, ok, expected_version=version).result())
+        g, c = probes
+        assert np.array_equal(g.s_matched, c.s_matched) and g.any_multi == c.any_multi
+        assert g.slabs == c.slabs and g.num_rows == c.num_rows
+        assert all(np.array_equal(x, y) for x, y in zip(g.t_pairs, c.t_pairs))
+    assert key_cache.KeyCache.instance().peek(f"{path}/_delta_log", "k", cuda)._dev["keys"].is_cuda

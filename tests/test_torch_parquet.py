@@ -1,0 +1,371 @@
+"""The port's Parquet codec (``delta_tpu_torch.exec``: thrift, snappy,
+encodings, parquet, rowgroups) and deletion-vector reader
+(``delta_tpu_torch.protocol.deletion_vectors``) held against ``pyarrow`` and
+``delta_tpu`` on the CPU.
+
+* the reader, on files ``delta_tpu.exec.parquet.write_parquet_file`` writes
+  on every branch of its policy (dictionary strings, dictionary overflow to
+  PLAIN pages, BYTE_STREAM_SPLIT floats, snappy or none, gzip, nulls,
+  all-null and empty files, several row groups and pages, every type in
+  scope) and on ``pyarrow``'s own defaults (v1 and v2 data pages): every
+  value equal to what ``pyarrow`` reads;
+* the writer: ``pyarrow`` reads the port's files back equal, types
+  included;
+* ``collect_stats``/``stats_json``: equal to ``delta_tpu``'s;
+* deletion vectors, inline and sidecar: equal to ``delta_tpu``'s;
+* what the codec does not cover raises ``NotImplementedError`` naming the
+  column.
+
+Tolerance: exact (NaN equal to NaN).
+"""
+import datetime as dt
+import json
+import math
+import os
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
+from delta_tpu.exec import parquet as jpq
+from delta_tpu.protocol import deletion_vectors as jdv
+from delta_tpu.utils.config import conf
+from delta_tpu_torch.exec import encodings, parquet as tpq, rowgroups, snappy, thrift
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+from delta_tpu_torch.protocol import deletion_vectors as tdv
+
+#: pyarrow type -> the port's stored type (``HostColumn.type or default``)
+_STORED = {pa.bool_(): "bool", pa.int8(): "int8", pa.int16(): "int16", pa.int32(): "int32",
+           pa.int64(): "int64", pa.float32(): "float32", pa.float64(): "float64",
+           pa.string(): "string", pa.binary(): "binary", pa.date32(): "date32",
+           pa.timestamp("us"): "timestamp[us]", pa.timestamp("ms"): "timestamp[us]",
+           pa.timestamp("us", tz="UTC"): "timestamp[us, tz=UTC]"}
+_DEFAULT = {"bool": "bool", "int": "int64", "double": "float64", "str": "string",
+            "object": "binary", "date": "date32", "ts": "timestamp[us]"}
+_EPOCH_TS = dt.datetime(1970, 1, 1)
+
+
+def _py(col: HostColumn):
+    """A port column as the Python values ``pyarrow``'s ``to_pylist`` gives."""
+    out = []
+    utc = col.type == "timestamp[us, tz=UTC]"
+    for v, ok in zip(col.values.tolist(), col.valid.tolist()):
+        if not ok:
+            out.append(None)
+        elif col.kind == "date":
+            out.append(dt.date(1970, 1, 1) + dt.timedelta(days=v))
+        elif col.kind == "ts":
+            t = _EPOCH_TS + dt.timedelta(microseconds=v)
+            out.append(t.replace(tzinfo=dt.timezone.utc) if utc else t)
+        else:
+            out.append(v)
+    return out
+
+
+def _eq(a, b):
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, float) and isinstance(y, float) and math.isnan(x) and math.isnan(y):
+            continue
+        if x != y or type(x) is not type(y):
+            return False
+    return True
+
+
+def _assert_reads_like_pyarrow(path, columns=None):
+    got = tpq.read_parquet_file(path, columns)
+    ref = pq.read_table(path, columns=columns)
+    assert got.column_names == ref.column_names
+    assert got.num_rows == ref.num_rows
+    for name in ref.column_names:
+        c = got.columns[name]
+        t = ref.schema.field(name).type
+        assert (c.type or _DEFAULT[c.kind]) == _STORED[t], name
+        assert _eq(_py(c), ref.column(name).to_pylist()), name
+    return got
+
+
+def _table(n, seed=0, nulls=True):
+    rng = np.random.RandomState(seed)
+    mask = (lambda p: rng.rand(n) < p) if nulls else (lambda p: np.zeros(n, bool))
+    return pa.table({
+        "i64": pa.array(rng.randint(-2**62, 2**62, n), pa.int64()),
+        "low": pa.array(rng.randint(0, 5, n), pa.int64(), mask=mask(0.1)),
+        "i32": pa.array(rng.randint(-2**31, 2**31 - 1, n).astype(np.int32), mask=mask(0.2)),
+        "i16": pa.array(rng.randint(-2**15, 2**15 - 1, n).astype(np.int16)),
+        "i8": pa.array(rng.randint(-128, 127, n).astype(np.int8), mask=mask(0.5)),
+        "f32": pa.array(rng.randn(n).astype(np.float32), mask=mask(0.1)),
+        "f64": pa.array(np.where(rng.rand(n) < 0.01, np.nan, rng.randn(n) * 1e6)),
+        "s": pa.array([f"v{x}" for x in rng.randint(0, 50, n)], pa.string(), mask=mask(0.1)),
+        "u": pa.array(["é€" * (x % 3) + str(x) for x in rng.randint(0, 10**9, n)], pa.string()),
+        "b": pa.array(rng.rand(n) < 0.3, mask=mask(0.05)),
+        "d": pa.array(rng.randint(-1000, 30000, n).astype(np.int32)).cast(pa.date32()),
+        "ts": pa.array(rng.randint(-2**45, 2**50, n)).cast(pa.timestamp("us")),
+        "tz": pa.array(rng.randint(0, 2**50, n), mask=mask(0.1)).cast(
+            pa.timestamp("us", tz="UTC")),
+        "bin": pa.array([bytes([x % 256, 0]) * (x % 4) for x in range(n)], pa.binary()),
+        "nul": pa.array([None] * n, pa.int64()),
+    })
+
+
+# -- the reader on the JAX package's files -----------------------------------------
+
+
+@pytest.mark.parametrize("compression", [None, "none", "snappy", "gzip"])
+def test_reader_on_jax_writer_policies(tmp_path, compression):
+    """``None`` is the writer's "auto" policy: dictionary strings, snappy on
+    strings, floats and low-entropy ints, BYTE_STREAM_SPLIT floats."""
+    p = str(tmp_path / "f.parquet")
+    jpq.write_parquet_file(_table(3000), p, compression=compression)
+    md = pq.ParquetFile(p).metadata
+    if compression is None:
+        encs = {md.schema.column(i).name: md.row_group(0).column(i).encodings
+                for i in range(md.num_columns)}
+        assert "BYTE_STREAM_SPLIT" in encs["f64"] and "RLE_DICTIONARY" in encs["s"]
+    _assert_reads_like_pyarrow(p)
+    _assert_reads_like_pyarrow(p, ["tz", "i8", "s"])
+
+
+def test_reader_row_groups_pages_and_dictionary_overflow(tmp_path):
+    """Several row groups, several pages per column chunk, and a string
+    dictionary past its page limit that falls back to PLAIN pages."""
+    n = 300_000
+    t = pa.table({"k": np.arange(n, dtype=np.int64),
+                  "hs": pa.array([f"key-{i:012d}" for i in range(n)])})
+    p = str(tmp_path / "f.parquet")
+    with conf.set_temporarily(**{"delta.tpu.write.rowGroupRows": 120_000}):
+        jpq.write_parquet_file(t, p)
+    md = pq.ParquetFile(p).metadata
+    assert md.num_row_groups == 3
+    encs = md.row_group(0).column(1).encodings
+    assert "RLE_DICTIONARY" in encs and "PLAIN" in encs  # the fallback
+    _assert_reads_like_pyarrow(p)
+    assert rowgroups.read_footer(p).num_rows == n
+
+
+def test_reader_on_all_null_and_empty_files(tmp_path):
+    p = str(tmp_path / "e.parquet")
+    jpq.write_parquet_file(_table(0), p)
+    got = _assert_reads_like_pyarrow(p)
+    assert got.num_rows == 0
+    p2 = str(tmp_path / "n.parquet")
+    jpq.write_parquet_file(pa.table({"a": pa.array([None] * 10, pa.int64()),
+                                     "s": pa.array([None] * 10, pa.string())}), p2)
+    _assert_reads_like_pyarrow(p2)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"data_page_version": "2.0"}, {"compression": "gzip", "data_page_version": "2.0"},
+    {"use_dictionary": False, "compression": "none"},
+    {"use_byte_stream_split": ["f32", "f64", "i64", "i32"], "use_dictionary": False},
+    {"data_page_size": 1000, "row_group_size": 700},
+])
+def test_reader_on_pyarrow_defaults(tmp_path, kw):
+    p = str(tmp_path / "p.parquet")
+    t = _table(2000, seed=3).append_column(
+        "ms", pa.array(np.arange(2000) * 1000, pa.int64()).cast(pa.timestamp("ms")))
+    pq.write_table(t, p, **kw)
+    _assert_reads_like_pyarrow(p)
+
+
+def test_reader_on_required_columns(tmp_path):
+    schema = pa.schema([pa.field("a", pa.int64(), nullable=False),
+                        pa.field("s", pa.string(), nullable=False)])
+    p = str(tmp_path / "r.parquet")
+    pq.write_table(pa.table({"a": np.arange(100), "s": [str(i) for i in range(100)]},
+                            schema=schema), p)
+    _assert_reads_like_pyarrow(p)
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda p: pq.write_table(pa.table({"a": [1, 2]}), p, compression="zstd"), "ZSTD"),
+    (lambda p: pq.write_table(pa.table({"a": [1, 2]}), p, compression="lz4"), "LZ4"),
+    (lambda p: pq.write_table(pa.table({"a": [1, 2]}), p, compression="brotli"), "BROTLI"),
+    (lambda p: pq.write_table(pa.table({"a": np.arange(500)}), p, use_dictionary=False,
+                              column_encoding={"a": "DELTA_BINARY_PACKED"}),
+     "DELTA_BINARY_PACKED"),
+    (lambda p: pq.write_table(pa.table({"a": [[1], [2, 3]]}), p), "nested"),
+    (lambda p: pq.write_table(pa.table({"a": pa.array([{"x": 1}])}), p), "nested"),
+    (lambda p: pq.write_table(pa.table({"a": pa.array([b"ab"], pa.binary(2))}), p),
+     "FIXED_LEN_BYTE_ARRAY"),
+    (lambda p: pq.write_table(pa.table({"a": pa.array([1], pa.timestamp("ns"))}), p,
+                              use_deprecated_int96_timestamps=True), "INT96"),
+    (lambda p: pq.write_table(pa.table({"a": pa.array([1], pa.uint32())}), p), "unsigned"),
+    (lambda p: pq.write_table(pa.table({"a": pa.array([1], pa.timestamp("ns"))}), p),
+     "nanosecond"),
+])
+def test_unsupported_raises_not_implemented(tmp_path, make, what):
+    p = str(tmp_path / "x.parquet")
+    make(p)
+    with pytest.raises(NotImplementedError, match=f"'a'.*{what}|{what}.*'a'"):
+        tpq.read_parquet_file(p)
+
+
+def test_unsupported_column_outside_the_projection_is_not_read(tmp_path):
+    p = str(tmp_path / "x.parquet")
+    pq.write_table(pa.table({"a": [[1], [2]], "k": [1, 2]}), p)
+    assert tpq.read_parquet_file(p, ["k"]).column("k").values.tolist() == [1, 2]
+
+
+# -- the writer --------------------------------------------------------------------
+
+
+def _host(t: pa.Table) -> HostTable:
+    """A pyarrow table as the port's HostTable, through a pyarrow-written
+    file and the port's reader (whose equality the reader tests hold)."""
+    import io
+
+    buf = io.BytesIO()
+    pq.write_table(t, buf)
+    p = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"host-{os.getpid()}-{id(t)}.parquet")
+    with open(p, "wb") as f:
+        f.write(buf.getvalue())
+    try:
+        return tpq.read_parquet_file(p)
+    finally:
+        os.unlink(p)
+
+
+def test_writer_round_trips_through_pyarrow(tmp_path):
+    src = _table(5000, seed=1)
+    host = _host(src)
+    p = str(tmp_path / "w.parquet")
+    size, mtime = tpq.write_parquet_file(host, p)
+    assert size == os.path.getsize(p) and mtime > 0
+    back = pq.read_table(p)
+    assert back.schema.names == src.schema.names
+    for name in src.column_names:
+        assert back.schema.field(name).type == src.schema.field(name).type, name
+        assert _eq(back.column(name).to_pylist(), src.column(name).to_pylist()), name
+    md = pq.ParquetFile(p).metadata
+    st0 = md.row_group(0).column(0).statistics
+    assert st0.has_min_max and st0.min == min(src.column("i64").to_pylist())
+    assert md.row_group(0).column(2).statistics.null_count == src.column("i32").null_count
+    _assert_reads_like_pyarrow(p)
+
+
+def test_writer_row_groups_and_empty_table(tmp_path):
+    n = tpq.ROW_GROUP_ROWS * 2 + 17
+    host = HostTable({"k": HostColumn("int", np.arange(n, dtype=np.int64), np.ones(n, bool))}, n)
+    p = str(tmp_path / "big.parquet")
+    tpq.write_parquet_file(host, p)
+    md = pq.ParquetFile(p).metadata
+    assert md.num_row_groups == 3 and md.row_group(2).num_rows == 17
+    assert pq.read_table(p).column("k").to_numpy().tolist() == list(range(n))
+    e = HostTable({"k": HostColumn("int", np.zeros(0, np.int64), np.zeros(0, bool))}, 0)
+    p2 = str(tmp_path / "empty.parquet")
+    tpq.write_parquet_file(e, p2)
+    assert pq.read_table(p2).num_rows == 0
+
+
+@settings(max_examples=40, deadline=None, suppress_health_check=[HealthCheck.too_slow,
+                                                                  HealthCheck.function_scoped_fixture])
+@given(ints=st.lists(st.one_of(st.none(), st.integers(-2**63, 2**63 - 1)), max_size=300),
+       strs=st.lists(st.one_of(st.none(), st.text(max_size=12)), max_size=300),
+       floats=st.lists(st.one_of(st.none(), st.floats(width=64)), max_size=300))
+def test_hypothesis_round_trips(tmp_path, ints, strs, floats):
+    n = min(len(ints), len(strs), len(floats))
+    t = pa.table({"i": pa.array(ints[:n], pa.int64()), "s": pa.array(strs[:n], pa.string()),
+                  "f": pa.array(floats[:n], pa.float64())})
+    p = str(tmp_path / "h.parquet")
+    pq.write_table(t, p, data_page_size=256)
+    got = _assert_reads_like_pyarrow(p)
+    p2 = str(tmp_path / "h2.parquet")
+    tpq.write_parquet_file(got, p2)
+    back = pq.read_table(p2)
+    for name in t.column_names:
+        assert _eq(back.column(name).to_pylist(), t.column(name).to_pylist())
+    assert tpq.collect_stats(got) == jpq.collect_stats(t)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.binary(max_size=5000))
+def test_hypothesis_snappy_matches_pyarrow(raw):
+    assert snappy.decompress(pa.compress(raw, codec="snappy", asbytes=True)) == raw
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.integers(0, 2**20 - 1), max_size=600), st.integers(1, 20))
+def test_hypothesis_hybrid_levels(values, width):
+    bits = np.array([v & 1 for v in values], bool)
+    enc = encodings.encode_hybrid_bits(bits)
+    assert encodings.decode_hybrid(enc, 0, len(enc), 1, len(bits)).astype(bool).tolist() \
+        == bits.tolist()
+
+
+def test_snappy_repeated_pattern_and_corrupt_input():
+    raw = b"abc" * 5000 + bytes(range(256)) * 40
+    assert snappy.decompress(pa.compress(raw, codec="snappy", asbytes=True)) == raw
+    with pytest.raises(snappy.SnappyError):
+        snappy.decompress(b"\x10\x09\x08")
+
+
+def test_thrift_round_trips_pyarrow_footers(tmp_path):
+    p = str(tmp_path / "f.parquet")
+    pq.write_table(_table(100), p, data_page_version="2.0")
+    meta = tpq.read_metadata(p)
+    again, end = thrift.read(thrift.FileMetaData, meta.write())
+    assert again == meta and end == len(meta.write())
+    assert meta.num_rows == 100 and [s.name for s in meta.schema[1:]] == _table(1).column_names
+    with pytest.raises(thrift.ThriftError):
+        thrift.read(thrift.FileMetaData, meta.write()[:20])
+
+
+# -- stats -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("num_indexed", [32, 2, 0, -1])
+def test_collect_stats_matches_jax(num_indexed):
+    t = _table(2000, seed=9)
+    host = _host(t)
+    assert tpq.collect_stats(host, num_indexed) == jpq.collect_stats(t, num_indexed)
+    assert tpq.stats_json(host, num_indexed) == jpq.stats_json(t, num_indexed)
+
+
+@pytest.mark.parametrize("values,typ", [
+    ([float("nan"), 1.5, -0.5], pa.float64()), ([float("nan")] * 3, pa.float64()),
+    ([float("inf"), 1.0], pa.float64()), ([None, None], pa.int64()),
+    ([dt.datetime(2020, 1, 1, 0, 0, 0, 1500), dt.datetime(2019, 5, 5)], pa.timestamp("us")),
+    ([dt.date(1969, 12, 31), dt.date(2100, 1, 1)], pa.date32()),
+    (["b", "a", "é"], pa.string()), ([True, False], pa.bool_()), ([], pa.int32()),
+])
+def test_collect_stats_edges_match_jax(values, typ):
+    t = pa.table({"c": pa.array(values, typ)})
+    assert tpq.collect_stats(_host(t)) == jpq.collect_stats(t)
+    assert tpq.json_stat_value(dt.datetime(2020, 1, 1, 0, 0, 0, 1), True) == \
+        jpq.json_stat_value(dt.datetime(2020, 1, 1, 0, 0, 0, 1), True)
+
+
+# -- deletion vectors --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [[], [0], [5, 3, 3, 9], list(range(0, 100000, 7)),
+                                  list(np.random.RandomState(1).choice(10**6, 20000,
+                                                                       replace=False))])
+def test_deletion_vectors_match_jax(tmp_path, rows):
+    rows = np.asarray(rows, np.int64)
+    payload = jdv.encode_bitmap(rows)
+    assert tdv.encode_bitmap(rows) == payload
+    assert np.array_equal(tdv.decode_bitmap(payload), jdv.decode_bitmap(payload))
+    d = str(tmp_path)
+    for writer, reader in ((jdv, tdv), (tdv, jdv)):
+        desc = writer.write_deletion_vector(rows, d)
+        other = reader.DeletionVectorDescriptor.from_dict(desc.to_dict())
+        got = reader.read_deletion_vector(other, d)
+        want = jdv.read_deletion_vector(jdv.DeletionVectorDescriptor.from_dict(desc.to_dict()), d)
+        assert np.array_equal(got, want) and got.dtype == want.dtype
+        assert desc.storage_type == ("i" if len(payload) <= 4096 else "u")
+    with pytest.raises(ValueError, match="bad magic"):
+        tdv.decode_bitmap(b"nope")
+
+
+def test_stats_of_a_port_written_file_describe_it(tmp_path):
+    host = _host(_table(500, seed=4))
+    p = str(tmp_path / "s.parquet")
+    tpq.write_parquet_file(host, p)
+    stats = json.loads(tpq.stats_json(tpq.read_parquet_file(p)))
+    assert stats == jpq.collect_stats(pq.read_table(p))

@@ -191,7 +191,9 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
     assert bad == "[]"
     for m in ("expr.device_eval", "expr.vectorized", "expr.synthesis", "expr.partition",
               "schema.char_varchar", "utils.timeparse", "ops.replay_kernel", "ops.pruning",
-              "ops.state_export"):
+              "ops.state_export", "exec.thrift", "exec.snappy", "exec.encodings",
+              "exec.parquet", "exec.rowgroups", "protocol.deletion_vectors",
+              "ops.join_kernel", "ops.key_cache"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 
