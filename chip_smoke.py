@@ -18,12 +18,15 @@ Phases, each reported on its own line:
    int32 overflow, saturating casts, an IN with a NULL in a column option),
    bit for bit except exp/log/pow/sqrt, where the lanes that differ are
    counted and must be within 1 ulp, the replay (K5) at n=2^20 (pads,
-   removes on both sides of the retention cutoff, re-added paths), and the
+   removes on both sides of the retention cutoff, re-added paths), the
    MERGE key slab's kernels: the radix sort (K8) and the search probe (K9)
    at n=2^20 and at cap=10,485,760 (duplicates, negatives, int64.max keys,
    pads, invalid rows, sentinels, absent keys, a dense band, source sizes 1
    and 2^20), the pair compaction (K10) on empty, partial and full matches,
-   and the six slab updates (K11) with pads out of range;
+   and the six slab updates (K11) with pads out of range; and the upload
+   join (K12), int32 and int64, at cap_t=12,582,912 and cap_s=2^20
+   (sentinels at both ends of the range, duplicate runs on both sides, no
+   match, all matched, one source key);
 4. the scan-planning path at full size, with every launch counter set to 0
    just before and read just after: a 1M-file table laid out as the hot-plan
    benchmark's
@@ -54,12 +57,28 @@ Phases, each reported on its own line:
    300,000-row file with a removal, a 1,000-row file), each advanced
    incrementally and re-probed; a probe on the composite key
    ``(ss_customer_sk, ss_store_sk)``;
-7. per kernel: time on the card (CUDA events, warmed, many launches) at the
-   main path's shapes and inputs, the plain version's time, the least time
-   the card could take (bytes over 3.35 TB/s or compares over 33.5e12/s,
-   whichever is larger) and, where one PyTorch call computes the
+7. the MERGE command on bench config 2, with the counters set to 0 again:
+   the 10M-row target written through ``WriteIntoDelta`` (files of at most
+   4M rows), deletion vectors enabled with ``set_table_properties``, a
+   hard-linked copy as ``bench.py:216-224`` makes; then four upserts of 1M
+   source rows (half live keys, half fresh), update * and insert * on
+   ``t.ss_item_sk = s.ss_item_sk``: M0 on the copy with the host join, M1
+   the same source on the table through the cold slab pipeline (K8-K11),
+   M2 a new source through the resident slab after its advance over M1's
+   commit, M3 a third with deletion vectors off — copy-on-write over the
+   files M1 and M2 gave deletion vectors — through the upload join K12.
+   Each merge must take its route, launch its kernels, fall back nowhere,
+   update and insert 500,000 rows each, and leave an end state (read back
+   with ``scan_to_table``) equal, all 8 columns exactly, to a numpy
+   reference upsert; M0's end state must equal M1's. Each merge's wall time
+   and ``phase_ms`` are printed, and K12's time beside M3's;
+8. per kernel: time on the card (CUDA events, warmed, many launches) at the
+   main path's shapes and inputs (K12 at M3's own padded inputs, held
+   against its plain version there), the plain version's time, the least
+   time the card could take (bytes over 3.35 TB/s or compares over
+   33.5e12/s, whichever is larger) and, where one PyTorch call computes the
    same function, that call's time; one JSON line lists them;
-8. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -77,12 +96,15 @@ import time
 import numpy as np
 import torch
 
-from delta_tpu_torch import DeltaLog
+from delta_tpu_torch import DeltaLog, MergeClause, MergeIntoCommand, WriteIntoDelta
+from delta_tpu_torch.exec.scan import scan_to_table
 from delta_tpu_torch.expr import device_eval, ir
 from delta_tpu_torch.expr.parser import parse_expression
 from delta_tpu_torch.exec.parquet import collect_stats, read_parquet_file, write_parquet_file
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, evaluate
-from delta_tpu_torch.ops import key_cache, native, pruning, replay_kernel, state_cache, state_export
+from delta_tpu_torch.ops import (
+    join_kernel, key_cache, native, pruning, replay_kernel, state_cache, state_export,
+)
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
     AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
@@ -214,6 +236,7 @@ def synthetic_checks(dev):
     k15_checks(dev)
     k5_checks(dev)
     slab_checks(dev)
+    k12_checks(dev)
 
 
 #: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
@@ -439,6 +462,65 @@ def slab_checks(dev):
     torch.cuda.synchronize()
     say("kernels: slab kill/revive/map_rows d=64..2^20, append/slice_append a=64..2^20 "
         "(int32 and int64 keys, pads out of range), widen cap=10,485,760: exact")
+
+
+#: bench config 2's upload join shapes: cap_t = _bucket(~11M live rows), cap_s
+#: = _bucket(1M source rows)
+K12_CAP_T, K12_CAP_S = 12_582_912, 1 << 20
+
+
+def k12_inputs(rng, dt, cap_t, n, cap_s, m, shape):
+    """Padded K12 inputs as ``inner_join_async`` builds them: n target and m
+    source keys, then per-side sentinel pads (the top of the range, or the
+    bottom for ``shape == "low"``)."""
+    info = np.iinfo(dt)
+    lo_k, hi_k = (info.min + 2, info.max - 2) if dt == np.int64 else (-(1 << 30), 1 << 30)
+    if shape == "dups":  # long duplicate runs on both sides
+        t = rng.randint(-500, 500, n)
+        s = rng.randint(-700, 700, m)
+    elif shape == "none":  # disjoint
+        t = rng.randint(0, 1 << 24, n) * 2
+        s = rng.randint(0, 1 << 24, m) * 2 + 1
+    elif shape == "all":  # every key on both sides matches
+        s = rng.randint(lo_k, hi_k, m)
+        t = s[rng.randint(0, m, n)]
+    else:  # half the source present (some twice), half fresh; wide keys
+        t = rng.randint(lo_k, hi_k, n)
+        s = np.concatenate([t[rng.randint(0, n, m - m // 2)], rng.randint(lo_k, hi_k, m // 2)])
+        s = s[rng.permutation(m)]
+    if shape == "low":
+        t_fill, s_fill = info.min, info.min + 1
+    else:
+        t_fill, s_fill = info.max, info.max - 1
+    t_in = np.full(cap_t, t_fill, dt)
+    t_in[:n] = t
+    s_in = np.full(cap_s, s_fill, dt)
+    s_in[:m] = s
+    return t_in, s_in
+
+
+def k12_checks(dev):
+    """K12 (the upload join) against its plain version on the card, exactly."""
+    rng = np.random.RandomState(29)
+    cases = [(np.int32, K12_CAP_T, 11_000_000, K12_CAP_S, 1_000_000, "half"),
+             (np.int64, K12_CAP_T, 11_000_000, K12_CAP_S, 1_000_000, "half"),
+             (np.int64, K12_CAP_T, 11_000_000, K12_CAP_S, 1_000_000, "low"),
+             (np.int32, 1 << 20, 1 << 20, 1 << 16, 60_000, "dups"),
+             (np.int64, 1 << 20, 1_000_000, 1 << 16, 60_000, "dups"),
+             (np.int32, 1 << 20, 1_000_000, 1 << 16, 65_536, "none"),
+             (np.int64, 1 << 20, 1 << 20, 1 << 16, 65_536, "all"),
+             (np.int32, 1024, 1000, 8, 1, "half"),
+             (np.int64, 64, 64, 8, 1, "all")]
+    for dt, cap_t, n, cap_s, m, shape in cases:
+        t_in, s_in = k12_inputs(rng, dt, cap_t, n, cap_s, m, shape)
+        t, s = torch.from_numpy(t_in).to(dev), torch.from_numpy(s_in).to(dev)
+        got = join_kernel.join_probe(t, s)
+        torch.cuda.synchronize()
+        ref = join_kernel.join_probe_plain(t, s)
+        check(equal_all(got, ref), f"join_probe != plain: {np.dtype(dt).name} cap_t={cap_t} "
+              f"cap_s={cap_s} m={m} {shape}")
+    say("kernels: join_probe (K12) int32 and int64, cap_t=12,582,912 cap_s=2^20, sentinels at "
+        "both ends, duplicate runs on both sides, no match, all matched, m=1: exact")
 
 
 # -- phase 4: the slice at full size -------------------------------------------
@@ -973,7 +1055,200 @@ def run_merge(dev, workdir):
             "advance_ms": advance_ms, "dv10": dv10, "dv5": dv5, "off": entry.slabs[f0][0]}
 
 
-# -- phase 7: times and bounds at the main path's shapes -----------------------
+# -- phase 7: the MERGE command on bench config 2 --------------------------------
+
+STORE_SALES = ("ss_item_sk", "ss_customer_sk", "ss_sold_date_sk", "ss_store_sk", "ss_quantity",
+               "ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
+K11 = ("slab_kill", "slab_revive", "slab_append", "slab_widen", "slab_map_rows",
+       "slab_slice_append")
+#: the merges of the phase: (name, table, session settings, the route it must
+#: take, the kernels it must launch; a tuple is "one of these": K11's updates
+#: depend on the layout, e.g. the advance over M1's commit regrows the 10M-row
+#: slab past its capacity, and the re-upload widens)
+MERGES = (
+    ("M0", "copy", {"delta.tpu.merge.devicePath.mode": "off"}, "host", ()),
+    ("M1", "table", {"delta.tpu.merge.devicePath.mode": "force"}, "device-cold",
+     ("slab_sort", "slab_probe", "pair_compact", K11)),
+    ("M2", "table", {"delta.tpu.merge.devicePath.mode": "force"}, "resident",
+     ("slab_probe", "pair_compact", K11)),
+    ("M3", "table", {"delta.tpu.merge.devicePath.mode": "force",
+                     "delta.tpu.deletionVectors.enabled": False}, "device-upload",
+     ("join_probe",)),
+)
+
+
+def merge_sources(target_keys):
+    """The phase's three sources, 1M rows each: M1's (and M0's) is the
+    bench's (bench.py:205-214, drawn after the target from RandomState(7),
+    payload RandomState(11)); M2's and M3's are half live keys and half
+    fresh keys above every key so far, payload and draws RandomState(12)
+    and (13)."""
+    rng = np.random.RandomState(7)
+    store_sales(MERGE_ROWS, rng)  # the target's draws
+    existing = target_keys[rng.choice(MERGE_ROWS, MERGE_SOURCE // 2, replace=False)]
+    top = MERGE_ROWS * 2
+    fresh = np.arange(top, top + MERGE_SOURCE - MERGE_SOURCE // 2, dtype=np.int64)
+    keys = np.concatenate([existing, fresh])
+    rng.shuffle(keys)
+    sources = [dict(store_sales(MERGE_SOURCE, np.random.RandomState(11)), ss_item_sk=keys)]
+    live = np.union1d(target_keys, fresh)
+    for seed in (12, 13):
+        top += MERGE_SOURCE
+        r = np.random.RandomState(seed)
+        existing = live[r.choice(len(live), MERGE_SOURCE // 2, replace=False)]
+        fresh = np.arange(top, top + MERGE_SOURCE - MERGE_SOURCE // 2, dtype=np.int64)
+        keys = np.concatenate([existing, fresh])
+        r.shuffle(keys)
+        sources.append(dict(store_sales(MERGE_SOURCE, r), ss_item_sk=keys))
+        live = np.union1d(live, fresh)
+    return sources
+
+
+def reference_upsert(state, src):
+    """The numpy reference, independent of the port: ``state`` sorted by
+    ss_item_sk; a source row whose key is in the state replaces that row,
+    the others append. Returns the new state, sorted by ss_item_sk."""
+    keys = state["ss_item_sk"]
+    pos = np.minimum(np.searchsorted(keys, src["ss_item_sk"]), len(keys) - 1)
+    hit = keys[pos] == src["ss_item_sk"]
+    out = {}
+    for c in STORE_SALES:
+        col = state[c].copy()
+        col[pos[hit]] = src[c][hit]
+        out[c] = np.concatenate([col, src[c][~hit]])
+    order = np.argsort(out["ss_item_sk"], kind="stable")
+    return {c: v[order] for c, v in out.items()}
+
+
+def end_state(log):
+    """The table's live rows, read back through the port's scan, sorted by
+    ss_item_sk."""
+    t = scan_to_table(log.update())
+    cols = {c: t.column(c).values for c in STORE_SALES}
+    check(all(t.column(c).valid.all() for c in STORE_SALES), "a NULL in the end state")
+    order = np.argsort(cols["ss_item_sk"], kind="stable")
+    return {c: v[order] for c, v in cols.items()}
+
+
+def run_merge_command(dev, workdir):
+    """M0-M3: bench config 2's MERGE through the port's entry points, each
+    route checked against the numpy reference upsert."""
+    import shutil
+
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.utils.config import conf
+
+    target = store_sales(MERGE_ROWS, np.random.RandomState(7))
+    sources = merge_sources(target["ss_item_sk"])
+    path = os.path.join(workdir, "config2-merge")
+    DeltaLog.clear_cache()
+    key_cache.KeyCache.reset()
+    captured = {}
+    real_join_probe = join_kernel.join_probe
+
+    def capturing_join_probe(t, s):  # keeps M3's padded K12 inputs
+        captured["args"] = (t.clone(), s.clone())
+        return real_join_probe(t, s)
+
+    with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": MERGE_FILE_ROWS}):
+        t0 = time.perf_counter()
+        log = DeltaLog.for_table(path, device=dev)
+        WriteIntoDelta(log, "append", target).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        write_s = time.perf_counter() - t0
+        shutil.copytree(path, path + "-copy", copy_function=os.link)  # as bench.py:216-224
+        logs = {"table": log, "copy": DeltaLog.for_table(path + "-copy", device=dev)}
+        say(f"merge command: wrote the {MERGE_ROWS}-row target through WriteIntoDelta in "
+            f"{write_s:.3f} s ({len(log.update().all_files)} files), deletion vectors on")
+        order = np.argsort(target["ss_item_sk"], kind="stable")
+        refs = [reference_upsert({c: target[c][order] for c in STORE_SALES}, sources[0])]
+        for src in sources[1:]:
+            refs.append(reference_upsert(refs[-1], src))
+        ends, out = {}, []
+        native.reset_launches()  # -- the MERGE command's path starts here
+        join_kernel.join_probe = capturing_join_probe
+        try:
+            for i, (name, table, settings, route, kernels) in enumerate(MERGES):
+                src = sources[max(i - 1, 0)]
+                before = dict(native.launches)
+                with conf.set_temporarily(**settings):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cmd = MergeIntoCommand(
+                        logs[table], src, "t.ss_item_sk = s.ss_item_sk",
+                        [MergeClause("update")], [MergeClause("insert")],
+                        source_alias="s", target_alias="t")
+                    cmd.run()
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
+                delta = {k: native.launches[k] - before[k] for k in native.launches
+                         if native.launches[k] != before[k]}
+                check(cmd._join_path == route, f"{name}: route {cmd._join_path}, not {route}")
+                check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
+                check(key_cache.KeyCache.instance().last_build_error is None,
+                      f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
+                for k in kernels:
+                    group = k if isinstance(k, tuple) else (k,)
+                    check(any(delta.get(g, 0) > 0 for g in group),
+                          f"{name}: none of {group} was launched")
+                check(cmd.metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
+                      and cmd.metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
+                      f"{name}: metrics {cmd.metrics}")
+                want = refs[max(i - 1, 0)]
+                got = end_state(logs[table])
+                for c in STORE_SALES:
+                    check(np.array_equal(got[c], want[c]),
+                          f"{name}: end-state column {c} differs from the reference upsert")
+                ends[name] = got
+                if name == "M1":
+                    check(all(np.array_equal(ends["M0"][c], got[c]) for c in STORE_SALES),
+                          "M0's end state differs from M1's")
+                phases = {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+                out.append({"name": name, "route": cmd._join_path, "wall_s": wall_s,
+                            "phase_ms": phases, "launches": delta,
+                            "rows": len(got["ss_item_sk"])})
+                say(f"merge command: {name} {cmd._join_path} {wall_s:.3f} s wall, phase_ms "
+                    f"{phases}, launches {delta}; {cmd.metrics['numTargetRowsUpdated']} updated, "
+                    f"{cmd.metrics['numTargetRowsInserted']} inserted; end state of "
+                    f"{len(got['ss_item_sk'])} rows x 8 columns equal to the reference upsert")
+        finally:
+            join_kernel.join_probe = real_join_probe
+        launches = dict(native.launches)  # -- the MERGE command's path ends here
+    say(f"merge command: launches on the MERGE command's path {launches}")
+    for k in ("slab_sort", "slab_probe", "pair_compact", "join_probe"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the MERGE command's path")
+    check(any(launches[k] > 0 for k in K11), "no K11 update on the MERGE command's path")
+    check("args" in captured, "M3 did not reach K12")
+    return {"merges": out, "launches": launches, "k12_args": captured["args"]}
+
+
+def measure_join_probe(dev, cctx):
+    """K12 at M3's own padded inputs: held against its plain version, timed
+    with both and with torch.searchsorted (the lookup half) as the yardstick."""
+    t, s = cctx["k12_args"]
+    got, ref = join_kernel.join_probe(t, s), join_kernel.join_probe_plain(t, s)
+    torch.cuda.synchronize()
+    check(equal_all(got, ref), "join_probe != plain on M3's inputs")
+    cap_t, cap_s = t.shape[0], s.shape[0]
+    sorted_s = torch.sort(s).values
+    b, by = bound(t.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1,
+                  cap_t * max(int(np.ceil(np.log2(cap_s))), 1))
+    ms = cuda_ms(lambda: join_kernel.join_probe(t, s), 20)
+    m3 = cctx["merges"][-1]
+    say(f"merge command: {m3['name']} {m3['route']}: K12 {ms:.6f} ms of its join_ms "
+        f"{m3['phase_ms']['join_ms']} and wall {m3['wall_s']:.3f} s")
+    return [{"name": "join_probe", "route": "cuda", "source": "delta_tpu_torch/csrc/join_probe.cu",
+             "replaces": "delta_tpu/ops/join_kernel.py:127",
+             "launches": cctx["launches"]["join_probe"],
+             "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+             "ms": ms, "plain_ms": cuda_ms(lambda: join_kernel.join_probe_plain(t, s), 5),
+             "bound_ms": b, "bound_by": by,
+             "library_ms": cuda_ms(lambda: torch.searchsorted(sorted_s, t), 20),
+             "shape": f"cap_t={cap_t} cap_s={cap_s} {t.dtype} (M3)"}]
+
+
+# -- phase 8: times and bounds at the main path's shapes -----------------------
 
 
 def cull_ops(mins, maxs, alive, lo, hi):
@@ -1317,6 +1592,11 @@ def main() -> int:
         ctx = None  # the scan phases' lanes and host state are done with
         mctx = run_merge(dev, workdir)
         kernels += measure_slab(dev, mctx)
+        mctx = None  # the key-slab phase's slabs are done with
+        key_cache.KeyCache.reset()
+        torch.cuda.empty_cache()
+        cctx = run_merge_command(dev, workdir)
+        kernels += measure_join_probe(dev, cctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

@@ -6,16 +6,12 @@
 // inverse (`inv[perm[i]] = i`) and the sorted validity
 // `valid[perm] & (perm < n)`.
 //
-// Design: an LSD radix sort of the n real rows only. Keys map to uint64
-// with the sign bit flipped (order-preserving), 8-bit digits. One pass per
-// digit: a per-tile histogram (tiles of 4096 keys, digit-major so one flat
-// exclusive scan gives every (digit, tile) its output offset), the scan
-// (scan.cuh), and a stable scatter: each tile walks its keys in order, 256
-// at a time, ranking equal digits inside a warp with __match_any_sync and
-// across the 8 warps through shared per-digit counters. A pass whose digit
-// is the same for every real key is the identity and is skipped: one OR
-// reduction of `key ^ key[0]` (read back to the host) names the varying
-// bytes, so keys below 2^25 take 4 passes, not 8.
+// Design: an LSD radix sort of the n real rows only (radix.cuh): keys map
+// to uint64 with the sign bit flipped (order-preserving), 8-bit digits, one
+// stable pass per digit. A pass whose digit is the same for every real key
+// is the identity and is skipped: one OR reduction of `key ^ key[0]` (read
+// back to the host) names the varying bytes, so keys below 2^25 take 4
+// passes, not 8.
 // Padding rows are the largest possible key and come after every real row
 // in index order, so a stable sort of all cap rows is the sorted real rows
 // followed by the pads in order: the finish kernel writes them directly.
@@ -27,16 +23,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scan.cuh"
+#include "radix.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // == kRadix: thread t owns digit t's counters
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;
-constexpr int kRadix = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr uint64_t kSign = 0x8000000000000000ull;
+using namespace dtt_radix;
 
 __global__ void encode_kernel(const int64_t* __restrict__ keys, long long n,
                               uint64_t* __restrict__ uk, int32_t* __restrict__ perm,
@@ -53,62 +44,6 @@ __global__ void encode_kernel(const int64_t* __restrict__ keys, long long n,
 #pragma unroll
   for (int o = 16; o; o >>= 1) local |= __shfl_xor_sync(0xffffffffu, local, o);
   if ((threadIdx.x & 31) == 0 && local) atomicOr(diff, local);
-}
-
-__global__ void hist_kernel(const uint64_t* __restrict__ uk, long long n, int shift,
-                            uint32_t* __restrict__ hist, long long tiles) {
-  __shared__ uint32_t h[kRadix];
-  h[threadIdx.x] = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * kTile;
-#pragma unroll 4
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + (long long)k * kThreads + threadIdx.x;
-    if (i < n) atomicAdd(&h[(unsigned)(uk[i] >> shift) & 0xFFu], 1u);
-  }
-  __syncthreads();
-  hist[(long long)threadIdx.x * tiles + blockIdx.x] = h[threadIdx.x];
-}
-
-__global__ void scatter_kernel(const uint64_t* __restrict__ uk_in,
-                               const int32_t* __restrict__ p_in,
-                               uint64_t* __restrict__ uk_out, int32_t* __restrict__ p_out,
-                               long long n, int shift, const uint32_t* __restrict__ offs,
-                               long long tiles) {
-  __shared__ uint32_t base[kRadix];              // next output slot per digit
-  __shared__ uint32_t start[kWarps][kRadix];     // per-warp count, then start
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  base[t] = offs[(long long)t * tiles + blockIdx.x];
-  const long long tile0 = (long long)blockIdx.x * kTile;
-  for (int k = 0; k < kItems; ++k) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) start[w][t] = 0;
-    __syncthreads();
-    const long long i = tile0 + (long long)k * kThreads + t;
-    const bool live = i < n;
-    const uint64_t u = live ? uk_in[i] : 0;
-    const int32_t p = live ? p_in[i] : 0;
-    const unsigned d = live ? ((unsigned)(u >> shift) & 0xFFu) : 0x100u;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const unsigned rank = __popc(peers & ((1u << lane) - 1u));
-    if (live && rank == 0) start[warp][d] = __popc(peers);
-    __syncthreads();
-    uint32_t run = base[t];
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = start[w][t];
-      start[w][t] = run;
-      run += c;
-    }
-    base[t] = run;
-    __syncthreads();
-    if (live) {
-      const uint32_t pos = start[warp][d] + rank;
-      uk_out[pos] = u;
-      p_out[pos] = p;
-    }
-    __syncthreads();
-  }
 }
 
 __global__ void finish_kernel(const uint64_t* __restrict__ uk, const int32_t* __restrict__ p,
@@ -130,12 +65,6 @@ __global__ void finish_kernel(const uint64_t* __restrict__ uk, const int32_t* __
       sv[i] = 0;
     }
   }
-}
-
-unsigned grid_for(long long work) {
-  long long g = (work + kThreads - 1) / kThreads;
-  if (g > 132 * 16) g = 132 * 16;
-  return (unsigned)(g < 1 ? 1 : g);
 }
 
 }  // namespace
@@ -171,17 +100,7 @@ extern "C" int dtt_slab_sort(const int64_t* keys, const uint8_t* valid, long lon
     err = cudaMemcpyAsync(&h_diff, diff, 8, cudaMemcpyDeviceToHost, s);
     if (err == cudaSuccess) err = cudaStreamSynchronize(s);
     if (err != cudaSuccess) return (int)err;
-    int cur_buf = 0;
-    for (int digit = 0; digit < 8; ++digit) {
-      const int shift = 8 * digit;
-      if (((h_diff >> shift) & 0xFFull) == 0) continue;  // constant digit: identity
-      hist_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(uk[cur_buf], n, shift, hist, tiles);
-      dtt_scan::exclusive_scan(hist, hist_len, aux, s);
-      scatter_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(uk[cur_buf], pp[cur_buf],
-                                                          uk[1 - cur_buf], pp[1 - cur_buf],
-                                                          n, shift, hist, tiles);
-      cur_buf = 1 - cur_buf;
-    }
+    const int cur_buf = sort_passes(uk, pp, n, h_diff, hist, aux, s);
     finish_kernel<<<grid_for(cap), kThreads, 0, s>>>(uk[cur_buf], pp[cur_buf], n, cap, valid,
                                                      sk, perm, inv, sv);
   } else if (cap > 0) {

@@ -46,7 +46,7 @@ import numpy as np
 
 from delta_tpu_torch.exec import encodings as enc
 from delta_tpu_torch.exec import snappy, thrift
-from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+from delta_tpu_torch.expr.vectorized import DEFAULT_TYPE, HostColumn, HostTable
 
 __all__ = [
     "write_parquet_file",
@@ -187,8 +187,6 @@ _TYPES = {
                                        unit=thrift.TimeUnit(MICROS=thrift.Empty()))),
         _TS_MICROS),
 }
-_DEFAULT_TYPE = {"bool": "bool", "int": "int64", "double": "float64", "str": "string",
-                 "object": "binary", "date": "date32", "ts": "timestamp[us]"}
 _INT_RANGE = {"int8": 8, "int16": 16, "int32": 32, "int64": 64}
 
 
@@ -436,13 +434,13 @@ def _to_column(stype: str, scale: int, chunks: List[Tuple[Any, np.ndarray]]) -> 
                 flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
                                    len(flat))
             out[valid] = flat
-        return HostColumn(kind, out, valid, stype if stype != _DEFAULT_TYPE[kind] else None)
+        return HostColumn(kind, out, valid, stype if stype != DEFAULT_TYPE[kind] else None)
     np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
     out = np.zeros(n, np_dt)
     if n:
         flat = np.concatenate([np.asarray(d) for d, _ in chunks])
         out[valid] = flat.astype(np_dt) * scale if scale != 1 else flat
-    return HostColumn(kind, out, valid, stype if stype != _DEFAULT_TYPE[kind] else None)
+    return HostColumn(kind, out, valid, stype if stype != DEFAULT_TYPE[kind] else None)
 
 
 def column_names(meta) -> List[str]:
@@ -491,9 +489,9 @@ def _stored_type(name: str, col: HostColumn) -> str:
         if col.type not in _TYPES or _TYPES[col.type][0] != col.kind:
             raise _unsupported(name, f"type {col.type!r} for a {col.kind} column")
         return col.type
-    if col.kind not in _DEFAULT_TYPE:
+    if col.kind not in DEFAULT_TYPE:
         raise _unsupported(name, f"a {col.kind} column")
-    return _DEFAULT_TYPE[col.kind]
+    return DEFAULT_TYPE[col.kind]
 
 
 def _physical(stype: str, kind: str, vals: np.ndarray):

@@ -8,14 +8,15 @@ semantics).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.protocol.actions import AddFile
 from delta_tpu_torch.schema.types import DateType, StringType, StructType, TimestampType
 from delta_tpu_torch.utils.timeparse import iso_to_date, iso_to_naive_utc
 
-__all__ = ["typed_partition_row", "eval_on_file", "matches", "is_partition_predicate"]
+__all__ = ["typed_partition_row", "eval_on_file", "matches", "matches_maybe", "filter_files",
+           "is_partition_predicate"]
 
 
 def typed_partition_row(add: AddFile, partition_schema: StructType) -> Dict[str, Any]:
@@ -53,6 +54,21 @@ def eval_on_file(expr: ir.Expression, add: AddFile, partition_schema: StructType
 def matches(expr: ir.Expression, add: AddFile, partition_schema: StructType) -> bool:
     """Spark filter semantics: NULL -> no match."""
     return eval_on_file(expr, add, partition_schema) is True
+
+
+def matches_maybe(expr: ir.Expression, add: AddFile, partition_schema: StructType) -> bool:
+    """Conservative: NULL -> possible match (the conflict checker's rule)."""
+    return eval_on_file(expr, add, partition_schema) is not False
+
+
+def filter_files(files: Iterable[AddFile], predicates: Sequence[ir.Expression],
+                 metadata) -> List[AddFile]:
+    """Files surviving the conjunction of partition predicates."""
+    if not predicates:
+        return list(files)
+    pschema = metadata.partition_schema
+    pred = ir.and_all(list(predicates))
+    return [f for f in files if matches(pred, f, pschema)]
 
 
 def is_partition_predicate(expr: ir.Expression, partition_columns: Sequence[str]) -> bool:

@@ -1,6 +1,12 @@
-"""Columnar expression evaluation over a host stats table, in numpy (the
-port's own copy of ``delta_tpu.expr.vectorized``, cut to what the host
-prune, ``ops/pruning._prune_host``, reaches).
+"""Columnar expression evaluation over a host table, in numpy (the port's
+own copy of ``delta_tpu.expr.vectorized``, cut to what the host prune,
+``ops/pruning._prune_host``, and the MERGE command reach).
+
+``HostTable`` also carries the table operations the JAX package's MERGE
+and writer take from ``pyarrow`` (take, filter, slice, select, append,
+rename, concat) and :func:`cast_column`, the unsafe cast to a schema's
+declared type (``pc.cast(..., safe=False)``: integers wrap, doubles
+truncate toward zero).
 
 The JAX package builds its stats table with ``pyarrow.Table.from_pylist``
 and evaluates with ``pyarrow.compute``, falling back to row-at-a-time
@@ -41,7 +47,8 @@ from delta_tpu_torch.schema.types import (
 from delta_tpu_torch.utils import errors
 
 __all__ = ["HostColumn", "HostTable", "StatsTypeError", "table_from_rows",
-           "evaluate", "to_keep_mask"]
+           "evaluate", "to_keep_mask", "boolean_mask", "filter_table", "concat_tables",
+           "column_from_values", "cast_column", "null_column", "DEFAULT_TYPE", "stored_type"]
 
 _EPOCH_DAY = _dt.date(1970, 1, 1)
 _EPOCH_TS = _dt.datetime(1970, 1, 1)
@@ -71,6 +78,16 @@ class HostColumn:
     values: np.ndarray
     valid: np.ndarray
     type: Optional[str] = None
+
+
+#: each kind's widest stored type: an untagged column's type
+DEFAULT_TYPE = {"bool": "bool", "int": "int64", "double": "float64", "str": "string",
+                "object": "binary", "date": "date32", "ts": "timestamp[us]"}
+
+
+def stored_type(col: HostColumn) -> str:
+    """A column's stored type, its kind's widest where untagged."""
+    return col.type if col.type is not None else DEFAULT_TYPE.get(col.kind, col.kind)
 
 
 @dataclass
@@ -222,6 +239,36 @@ class HostTable:
             cols = {k: _to_python(c) for k, c in self.columns.items()}
             self._rows = [{k: cols[k][i] for k in cols} for i in range(self.num_rows)]
         return self._rows
+
+    def to_pylist(self) -> List[Dict[str, Any]]:
+        return [dict(r) for r in self.rows()]
+
+    def take(self, idx) -> "HostTable":
+        idx = np.asarray(idx, np.int64)
+        return HostTable({k: HostColumn(c.kind, c.values[idx], c.valid[idx], c.type)
+                          for k, c in self.columns.items()}, len(idx))
+
+    def filter(self, mask) -> "HostTable":
+        return self.take(np.flatnonzero(np.asarray(mask, bool)))
+
+    def slice(self, start: int, length: Optional[int] = None) -> "HostTable":
+        stop = self.num_rows if length is None else min(start + length, self.num_rows)
+        return HostTable({k: HostColumn(c.kind, c.values[start:stop], c.valid[start:stop], c.type)
+                          for k, c in self.columns.items()}, max(stop - start, 0))
+
+    def select(self, names: Sequence[str]) -> "HostTable":
+        return HostTable({n: self.columns[n] for n in names}, self.num_rows)
+
+    def append_column(self, name: str, col: HostColumn) -> "HostTable":
+        if len(col.valid) != self.num_rows:
+            raise ValueError(f"column {name!r} has {len(col.valid)} rows, the table "
+                             f"{self.num_rows}")
+        cols = dict(self.columns)
+        cols[name] = col
+        return HostTable(cols, self.num_rows)
+
+    def rename_columns(self, names: Sequence[str]) -> "HostTable":
+        return HostTable(dict(zip(names, self.columns.values())), self.num_rows)
 
 
 def table_from_rows(rows: Sequence[Dict[str, Any]]) -> HostTable:
@@ -744,3 +791,124 @@ def to_keep_mask(verdict: HostColumn) -> np.ndarray:
     else:
         raise StatsTypeError(f"cannot cast a {verdict.kind} verdict to bool")
     return b | ~ok
+
+
+def boolean_mask(expr: ir.Expression, table: HostTable) -> np.ndarray:
+    """A predicate as a NULL-free row mask (NULL -> False; numbers are true
+    when non-zero), as ``pc.fill_null(pc.cast(..., bool), False)``."""
+    v = evaluate(expr, table)
+    if v.kind == "null":
+        return np.zeros(table.num_rows, bool)
+    if v.kind not in ("bool", "int", "double"):
+        raise StatsTypeError(f"cannot cast a {v.kind} predicate to bool")
+    return (v.values != 0) & v.valid if v.kind != "bool" else v.values.astype(bool) & v.valid
+
+
+def filter_table(table: HostTable, expr: Optional[ir.Expression]) -> HostTable:
+    """Keep rows where ``expr`` is exactly TRUE (NULL drops, like SQL WHERE)."""
+    if expr is None or table.num_rows == 0:
+        return table
+    return table.filter(boolean_mask(expr, table))
+
+
+def _concat_columns(cols: Sequence[HostColumn]) -> HostColumn:
+    kinds = {c.kind for c in cols} - {"null"}
+    if not kinds:
+        return HostColumn("null", np.zeros(sum(len(c.valid) for c in cols), np.int64),
+                          np.zeros(sum(len(c.valid) for c in cols), bool))
+    if len(kinds) > 1:
+        raise StatsTypeError(f"cannot concatenate columns of kinds {sorted(kinds)}")
+    kind = kinds.pop()
+    types = {c.type for c in cols if c.kind != "null"}
+    parts = [c.values if c.kind != "null" else _nulls(len(c.valid), kind).values for c in cols]
+    return HostColumn(kind, np.concatenate(parts), np.concatenate([c.valid for c in cols]),
+                      types.pop() if len(types) == 1 else None)
+
+
+def concat_tables(tables: Sequence[HostTable]) -> HostTable:
+    """Row-wise concatenation; every table has the first one's columns (by
+    name), a NULL column takes the others' type (``promote_options=
+    "permissive"``)."""
+    tables = list(tables)
+    names = tables[0].column_names
+    cols = {n: _concat_columns([t.columns[n] for t in tables]) for n in names}
+    return HostTable(cols, sum(t.num_rows for t in tables))
+
+
+_NP_KINDS = {"b": "bool", "i": "int", "f": "double"}
+_NP_TYPES = {np.dtype(np.int8): "int8", np.dtype(np.int16): "int16",
+             np.dtype(np.int32): "int32", np.dtype(np.float32): "float32"}
+
+
+def column_from_values(name: str, values) -> HostColumn:
+    """One column from a numpy array (a masked array's mask is NULL), or a
+    Python list typed as ``pyarrow.array`` types it."""
+    if isinstance(values, HostColumn):
+        return values
+    if isinstance(values, np.ndarray):
+        valid = np.ones(len(values), bool)
+        if isinstance(values, np.ma.MaskedArray):
+            valid = ~np.ma.getmaskarray(values)
+            values = values.filled(0 if values.dtype.kind in "biuf" else None)
+        if values.dtype.kind == "u":
+            raise StatsTypeError(f"column {name!r}: unsigned columns are not supported")
+        kind = _NP_KINDS.get(values.dtype.kind)
+        if kind is None:  # strings, objects: typed value by value
+            vals = [v if ok else None for v, ok in zip(values.tolist(), valid)]
+            return _convert(name, _infer_kind(vals), vals)
+        stype = _NP_TYPES.get(values.dtype)
+        np_dt = {"bool": bool, "int": np.int64, "double": np.float64}[kind]
+        return HostColumn(kind, values.astype(np_dt), valid, stype)
+    vals = list(values)
+    return _convert(name, _infer_kind(vals), vals)
+
+
+def null_column(n: int, kind: str, stype: Optional[str] = None) -> HostColumn:
+    c = _nulls(n, kind)
+    return HostColumn(c.kind, c.values, c.valid, stype)
+
+
+_INT_BITS = {"int8": 8, "int16": 16, "int32": 32, None: 64, "int64": 64}
+
+
+def _wrap(vals: np.ndarray, stype: Optional[str]) -> np.ndarray:
+    bits = _INT_BITS[stype]
+    if bits == 64:
+        return vals.astype(np.int64)
+    return vals.astype({8: np.int8, 16: np.int16, 32: np.int32}[bits]).astype(np.int64)
+
+
+def cast_column(col: HostColumn, kind: str, stype: Optional[str]) -> HostColumn:
+    """``col`` cast to (kind, stored type) as Arrow's unsafe cast does:
+    integers wrap to the narrower width, doubles truncate toward zero
+    (then wrap), a double narrowed to float32 rounds, bools cast to 0/1,
+    numbers to bool by ``!= 0``; a NULL column takes the type. Casts Arrow
+    would make between other kinds raise ``NotImplementedError``."""
+    stype = None if stype == DEFAULT_TYPE.get(kind) else stype
+    n = len(col.valid)
+    valid = col.valid
+    if col.kind == "null":
+        return null_column(n, kind, stype)
+    if kind == "int" and col.kind in ("int", "double", "bool"):
+        with np.errstate(all="ignore"):
+            v = col.values
+            if col.kind == "double":
+                v = np.where(np.isfinite(v), np.trunc(v), 0)
+                v = np.where(np.abs(v) < 2.0 ** 63, v, 0).astype(np.int64)
+            return HostColumn("int", _wrap(v.astype(np.int64), stype), valid, stype)
+    if kind == "double" and col.kind in ("int", "double", "bool"):
+        v = col.values.astype(np.float64)
+        if stype == "float32":
+            with np.errstate(all="ignore"):
+                v = v.astype(np.float32).astype(np.float64)
+        return HostColumn("double", v, valid, stype)
+    if kind == "bool" and col.kind in ("int", "double", "bool"):
+        return HostColumn("bool", col.values != 0, valid, None)
+    if kind == col.kind and kind in ("str", "date", "ts", "object"):
+        return HostColumn(kind, col.values, valid, stype)
+    if kind == "str" and col.kind == "int":
+        out = np.empty(n, object)
+        for i in np.nonzero(valid)[0]:
+            out[i] = str(int(col.values[i]))
+        return HostColumn("str", out, valid, None)
+    raise NotImplementedError(f"casting a {col.kind} column to {kind} ({stype}) is not ported")

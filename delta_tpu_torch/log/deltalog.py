@@ -1,7 +1,7 @@
-"""DeltaLog: the per-table handle (the port's own copy of the read side of
-``delta_tpu.log.deltalog``): the log store, snapshot updates, time travel
-and a per-(path, device) singleton cache. Transactions, checkpointing and
-cleanup belong to later slices.
+"""DeltaLog: the per-table handle (the port's own copy of
+``delta_tpu.log.deltalog``, without checkpointing and cleanup): the log
+store, snapshot updates, time travel, a per-(path, device) singleton cache,
+the protocol gates and the transactions (``txn/transaction``).
 
 An ``update()`` that finds only new commits decodes just those and extends
 the previous snapshot's columnar state (when it was decoded), where the JAX
@@ -21,9 +21,14 @@ import torch
 from delta_tpu_torch.log import snapshot_management as sm
 from delta_tpu_torch.log.columnar import decode_segment, extend_segment_columns
 from delta_tpu_torch.log.snapshot import Snapshot
+from delta_tpu_torch.protocol.actions import (
+    READER_VERSION, SUPPORTED_READER_FEATURES, SUPPORTED_READER_VERSION,
+    SUPPORTED_WRITER_FEATURES, SUPPORTED_WRITER_VERSION, WRITER_VERSION, Protocol,
+)
 from delta_tpu_torch.storage.logstore import LocalLogStore
+from delta_tpu_torch.utils import errors as errors_mod
 from delta_tpu_torch.utils.device import resolve
-from delta_tpu_torch.utils.errors import VersionNotFoundError
+from delta_tpu_torch.utils.errors import DeltaIllegalStateError, VersionNotFoundError
 
 __all__ = ["DeltaLog"]
 
@@ -40,6 +45,8 @@ class DeltaLog:
         self.store = store or LocalLogStore()
         self._snapshot: Optional[Snapshot] = None
         self._update_lock = threading.Lock()
+        # serializes this process's commits to the table (txn/transaction)
+        self.lock = threading.RLock()
         self.update()
 
     @classmethod
@@ -91,6 +98,73 @@ class DeltaLog:
             raise VersionNotFoundError(version, 0, latest)
         segment = sm.get_log_segment_for_version(self.store, self.log_path, version)
         return Snapshot(self, segment.version, segment)
+
+    @property
+    def snapshot(self) -> Snapshot:
+        s = self._snapshot
+        return s if s is not None else self.update()
+
+    @property
+    def table_exists(self) -> bool:
+        return self.snapshot.version >= 0
+
+    # -- protocol gating (DeltaLog.scala:248-275) ------------------------
+
+    def assert_protocol_read(self, protocol: Protocol) -> None:
+        """Reader gate: legacy version 1 passes, version 3 only when every
+        listed reader feature is supported."""
+        if protocol is None:
+            return
+        v = protocol.min_reader_version
+        ok = v <= READER_VERSION or (
+            v == SUPPORTED_READER_VERSION and protocol.reader_features is not None
+            and set(protocol.reader_features) <= SUPPORTED_READER_FEATURES)
+        if not ok:
+            raise errors_mod.invalid_protocol_version(
+                SUPPORTED_READER_VERSION, SUPPORTED_WRITER_VERSION, v,
+                protocol.min_writer_version or 0)
+
+    def assert_protocol_write(self, protocol: Protocol) -> None:
+        """Writer gate: legacy versions up to 4 pass, version 7 only when
+        every listed writer feature is supported."""
+        if protocol is None:
+            return
+        v = protocol.min_writer_version
+        ok = v <= WRITER_VERSION or (
+            v == SUPPORTED_WRITER_VERSION and protocol.writer_features is not None
+            and set(protocol.writer_features) <= SUPPORTED_WRITER_FEATURES)
+        if not ok:
+            raise errors_mod.invalid_protocol_version(
+                SUPPORTED_READER_VERSION, SUPPORTED_WRITER_VERSION,
+                protocol.min_reader_version or 0, v)
+
+    # -- transactions ----------------------------------------------------
+
+    def start_transaction(self):
+        from delta_tpu_torch.txn.transaction import OptimisticTransaction
+
+        self.update()
+        return OptimisticTransaction(self)
+
+    def with_new_transaction(self, thunk):
+        """Run ``thunk(txn)`` with the active-transaction ambient set
+        (``DeltaLog.scala:183-191``)."""
+        from delta_tpu_torch.txn.transaction import OptimisticTransaction
+
+        txn = self.start_transaction()
+        token = OptimisticTransaction.set_active(txn)
+        try:
+            return thunk(txn)
+        finally:
+            OptimisticTransaction.clear_active(token)
+
+    def update_after_commit(self, committed_version: int) -> Snapshot:
+        snap = self.update()
+        if snap.version < committed_version:
+            raise DeltaIllegalStateError(
+                f"The committed version is {committed_version} but the current version is "
+                f"{snap.version}")
+        return snap
 
     def __repr__(self) -> str:
         v = self._snapshot.version if self._snapshot else "?"

@@ -66,6 +66,12 @@ class Snapshot:
         m = self._other_state[1]
         return m if m is not None else Metadata()
 
+    def transaction_version(self, app_id: str) -> int:
+        """The latest committed version of a streaming ``appId``, -1 when
+        none (``DeltaSink`` idempotency)."""
+        t = self._other_state[2].get(app_id)
+        return t.version if t else -1
+
     @cached_property
     def _alive_mask(self) -> np.ndarray:
         alive, _ = self._columnar.replay(winner=self._winner)

@@ -1,26 +1,67 @@
-"""The MERGE join's shared pieces (the port's own copy of
-``delta_tpu.ops.join_kernel``, cut to what the resident key slab uses).
+"""The MERGE join (the port's own copy of ``delta_tpu.ops.join_kernel``,
+single device): the upload join K12, the host joins, and the
+``PendingJoin``/``JoinResult`` contract every executor returns.
 
-:class:`PendingJoin` is the memoizing handle an in-flight device probe
-returns (``ops/key_cache.ResidentJoinKeys.probe_async``); :func:`_bucket` is
-the pad-size rule of the slab capacity and of the uploaded source lane. The
-single-device and sharded join kernels (K12, K13) and the host sort-merge
-join belong to a later slice.
+* :func:`inner_join_async` is the upload route: integer target and source
+  keys (int64 values plus validity) are narrowed to int32 when both sides
+  fit with a margin of 2, NULLs and pads become per-side sentinels
+  (:func:`_sentinel_encode`, so invalid never matches anything), both sides
+  are padded to :func:`_bucket` sizes, uploaded, and K12 (:func:`join_probe`,
+  ``csrc/join_probe.cu``) returns the packed per-target and per-source
+  match bits and the multi-match flag. The pairing (each matched target
+  row's first source row) is recovered on the host
+  (:func:`_first_match_recovery`), as in the JAX package. When the valid
+  keys leave no sentinel room, the numpy sort-merge :func:`_host_join`
+  gives the same result.
+* :func:`host_equi_join` is the host join of the MERGE command's other
+  shapes (any key type, any number of keys): factorized keys, a sort-merge,
+  every pair, NULL never matching NULL.
+
+K12 replaces ``_single_device_kernel`` (``join_kernel.py:127``). Its plain
+PyTorch version :func:`join_probe_plain` (``torch.sort`` +
+``torch.searchsorted``) is what the wrapper runs for tensors on the CPU; for
+a CUDA tensor it launches the kernel or raises. The launch runs on a staging
+thread (the caller overlaps it with the full-column decode), on that
+thread's current stream: the thread records a CUDA event after the launch
+and its downloads are blocking copies, and the finalize joins the thread and
+waits on the event, so no result is read before the card wrote it. The
+sharded kernel K13 and the link cost model that declines a launch
+(``budget_s``) are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+import contextlib
+import threading
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
-__all__ = ["PendingJoin"]
+import numpy as np
+import torch
+
+from delta_tpu_torch.ops import native
+
+__all__ = ["JoinResult", "PendingJoin", "inner_join", "inner_join_async", "join_probe",
+           "join_probe_plain", "host_equi_join"]
+
+
+class JoinResult(NamedTuple):
+    """Per-row join outcome (host numpy, unpadded)."""
+
+    t_first_s: np.ndarray  # int64 per target row: first matching source row, -1 = no match
+    s_matched: np.ndarray  # bool per source row: has at least one target match
+    any_multi: bool  # some target row matched more than one source row
+
+    @property
+    def t_matched(self) -> np.ndarray:
+        return self.t_first_s >= 0
 
 
 class PendingJoin:
     """Handle for an in-flight device join; ``.result()`` blocks on the
     device->host transfer and finishes the host side once."""
 
-    def __init__(self, finalize: Callable[[], Any]):
+    def __init__(self, finalize: Callable[[], object]):
         self._finalize = finalize
-        self._result: Optional[Any] = None
+        self._result: Optional[object] = None
 
     def result(self):
         if self._result is None:
@@ -41,3 +82,249 @@ def _bucket(n: int) -> int:
         return p
     g = 2_097_152
     return ((n + g - 1) // g) * g
+
+
+# -- K12 and its plain version ------------------------------------------------------
+
+
+def join_probe_plain(t: torch.Tensor, s: torch.Tensor):
+    """Plain PyTorch version of K12, the TPU kernel's own formulation: sort
+    both sides, count with two-way searchsorted. Returns (t_bits uint8
+    ``(cap_t/8,)``, s_bits uint8 ``(cap_s/8,)``, multi bool ``(1,)``)."""
+    from delta_tpu_torch.ops.state_cache import _packbits
+
+    s_sorted = torch.sort(s).values
+    t_sorted = torch.sort(t).values
+    count = (torch.searchsorted(s_sorted, t, right=True) - torch.searchsorted(s_sorted, t))
+    s_count = (torch.searchsorted(t_sorted, s, right=True) - torch.searchsorted(t_sorted, s))
+    return _packbits(count > 0), _packbits(s_count > 0), (count > 1).any().reshape(1)
+
+
+def _join_scratch_bytes(cap_s: int) -> int:
+    from delta_tpu_torch.ops.key_cache import _SORT_TILE, _scan_aux_elems
+
+    tiles = max((cap_s + _SORT_TILE - 1) // _SORT_TILE, 1)
+    hist = 256 * tiles
+    parts = [8 * cap_s, 8 * cap_s, 4 * cap_s, 4 * cap_s, 4 * hist, 4 * _scan_aux_elems(hist),
+             8 * cap_s, cap_s, cap_s, 16]
+    return sum((p + 255) // 256 * 256 for p in parts)
+
+
+def join_probe(t: torch.Tensor, s: torch.Tensor):
+    """K12: the membership probe of the padded target keys ``t`` against the
+    padded source keys ``s`` (1-D, both int32 or both int64, lengths
+    multiples of 8, ``s`` at least 8). Returns (t_bits, s_bits, multi) as
+    :func:`join_probe_plain` defines them."""
+    if t.dtype not in (torch.int32, torch.int64) or s.dtype != t.dtype or t.dim() != 1 \
+            or s.dim() != 1:
+        raise TypeError("join_probe: t and s must be 1-D, both int32 or both int64")
+    cap_t, cap_s = t.shape[0], s.shape[0]
+    if cap_t % 8 or cap_s % 8 or cap_s < 8 or cap_s >= 1 << 31:
+        raise ValueError(f"join_probe: bad sizes cap_t={cap_t} cap_s={cap_s}")
+    if t.device != s.device:
+        raise ValueError("join_probe: t and s must be on one device")
+    dev = t.device
+    if dev.type == "cpu":
+        return join_probe_plain(t, s)
+    if not (t.is_contiguous() and s.is_contiguous()):
+        raise ValueError("join_probe: tensors must be contiguous")
+    t_bits = torch.empty(cap_t // 8, dtype=torch.uint8, device=dev)
+    s_bits = torch.empty(cap_s // 8, dtype=torch.uint8, device=dev)
+    multi = torch.empty(1, dtype=torch.uint8, device=dev)
+    nbytes = _join_scratch_bytes(cap_s)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    native.call("join_probe", dev, t.data_ptr(), cap_t, s.data_ptr(), cap_s,
+                1 if t.dtype == torch.int32 else 0, t_bits.data_ptr(), s_bits.data_ptr(),
+                multi.data_ptr(), scratch.data_ptr(), nbytes)
+    native.launches["join_probe"] += 1
+    return t_bits, s_bits, multi.view(torch.bool)
+
+
+# -- the host side -----------------------------------------------------------------
+
+
+def _pad(col: np.ndarray, cap: int, fill) -> np.ndarray:
+    out = np.full(cap, fill, dtype=col.dtype)
+    out[: len(col)] = col
+    return out
+
+
+def _first_match_recovery(t_keys: np.ndarray, t_matched_idx: np.ndarray, s_keys: np.ndarray,
+                          s_ok: np.ndarray) -> np.ndarray:
+    """For each matched target row, the lowest source row index with an
+    equal key: a binary search over the valid source keys, stable-sorted so
+    ties resolve to the earliest original row."""
+    vidx = np.flatnonzero(s_ok)
+    vk = s_keys[vidx]
+    order = np.argsort(vk, kind="stable")
+    sk = vk[order]
+    si = vidx[order]
+    pos = np.searchsorted(sk, t_keys[t_matched_idx], side="left")
+    return si[pos]
+
+
+def _host_join(t_key64, t_ok, s_key64, s_ok) -> JoinResult:
+    """The numpy sort-merge join: K12's semantics without the device (used
+    when no sentinel value exists)."""
+    n, m = len(t_key64), len(s_key64)
+    sk = np.sort(s_key64[s_ok])
+    lo = np.searchsorted(sk, t_key64, side="left")
+    hi = np.searchsorted(sk, t_key64, side="right")
+    count = np.where(t_ok, hi - lo, 0)
+    t_first_s = np.full(n, -1, np.int64)
+    idx = np.flatnonzero(count > 0)
+    if idx.size:
+        t_first_s[idx] = _first_match_recovery(t_key64, idx, s_key64, s_ok)
+    ts = np.sort(t_key64[t_ok])
+    s_matched = s_ok & (np.searchsorted(ts, s_key64, side="right")
+                        > np.searchsorted(ts, s_key64, side="left"))
+    return JoinResult(t_first_s, s_matched, bool((count > 1).any()))
+
+
+def _sentinel_encode(t_key, t_ok, s_key, s_ok, dtype):
+    """Replace invalid keys with per-side sentinels outside both sides'
+    valid range (invalid never matches anything, other invalids included).
+    Returns (t_enc, s_enc, t_pad_fill, s_pad_fill), or None when the valid
+    values span the whole dtype range."""
+    info = np.iinfo(dtype)
+    lo = min(np.min(t_key, where=t_ok, initial=info.max),
+             np.min(s_key, where=s_ok, initial=info.max))
+    hi = max(np.max(t_key, where=t_ok, initial=info.min),
+             np.max(s_key, where=s_ok, initial=info.min))
+    if hi <= info.max - 2:
+        t_sent, s_sent = info.max, info.max - 1
+    elif lo >= info.min + 2:
+        t_sent, s_sent = info.min, info.min + 1
+    else:
+        return None
+    t_enc = t_key if t_ok.all() else np.where(t_ok, t_key, dtype(t_sent))
+    s_enc = s_key if s_ok.all() else np.where(s_ok, s_key, dtype(s_sent))
+    return (np.ascontiguousarray(t_enc, dtype), np.ascontiguousarray(s_enc, dtype),
+            dtype(t_sent), dtype(s_sent))
+
+
+def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray,
+                     s_valid: np.ndarray, device="cuda") -> PendingJoin:
+    """Launch the upload join on ``device`` without blocking. Rows with
+    ``valid == False`` (SQL NULL keys) never match. ``device="cpu"`` runs
+    K12's plain version."""
+    from delta_tpu_torch.utils.device import resolve
+
+    dev = resolve(device)
+    n, m = len(t_keys), len(s_keys)
+    if n == 0 or m == 0:
+        return PendingJoin(lambda: JoinResult(np.full(n, -1, np.int64), np.zeros(m, bool), False))
+    t_key64 = np.ascontiguousarray(t_keys, np.int64)
+    s_key64 = np.ascontiguousarray(s_keys, np.int64)
+    t_ok = np.asarray(t_valid, bool)
+    s_ok = np.asarray(s_valid, bool)
+    # narrow to int32 when exact; a margin of 2 keeps sentinel room
+    i32 = np.iinfo(np.int32)
+    if (np.min(t_key64, where=t_ok, initial=0) >= i32.min + 2
+            and np.max(t_key64, where=t_ok, initial=0) <= i32.max
+            and np.min(s_key64, where=s_ok, initial=0) >= i32.min + 2
+            and np.max(s_key64, where=s_ok, initial=0) <= i32.max):
+        enc = _sentinel_encode(np.where(t_ok, t_key64, 0).astype(np.int32), t_ok,
+                               np.where(s_ok, s_key64, 0).astype(np.int32), s_ok, np.int32)
+    else:
+        enc = _sentinel_encode(t_key64, t_ok, s_key64, s_ok, np.int64)
+    if enc is None:
+        # the valid keys span the whole dtype: no sentinel room
+        return PendingJoin(lambda: _host_join(t_key64, t_ok, s_key64, s_ok))
+    t_enc, s_enc, t_fill, s_fill = enc
+    cap_t, cap_s = _bucket(n), _bucket(m)
+    t_in = _pad(t_enc, cap_t, t_fill)
+    s_in = _pad(s_enc, cap_s, s_fill)
+    state: dict = {}
+
+    def launch():
+        try:
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with ctx:
+                t_bits, s_bits, multi = join_probe(torch.from_numpy(t_in).to(dev),
+                                                   torch.from_numpy(s_in).to(dev))
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+                    state["done"] = done
+                state["out"] = (t_bits.cpu().numpy(), s_bits.cpu().numpy(),
+                                bool(multi.cpu()[0]))
+        except BaseException as e:  # surfaces in .result(), not on the thread
+            state["err"] = e
+
+    th = threading.Thread(target=launch, daemon=True, name="delta-join-upload")
+    th.start()
+
+    def finalize() -> JoinResult:
+        th.join()
+        if "err" in state:
+            raise state["err"]
+        if "done" in state:
+            state["done"].synchronize()
+        t_bits, s_bits, any_multi = state["out"]
+        t_matched = np.unpackbits(t_bits)[:n].astype(bool)
+        s_matched = np.unpackbits(s_bits)[:m].astype(bool)
+        t_first_s = np.full(n, -1, np.int64)
+        idx = np.flatnonzero(t_matched)
+        if idx.size:
+            t_first_s[idx] = _first_match_recovery(t_key64, idx, s_key64, s_ok)
+        return JoinResult(t_first_s, s_matched, any_multi)
+
+    return PendingJoin(finalize)
+
+
+def inner_join(t_keys, t_valid, s_keys, s_valid, device="cuda") -> JoinResult:
+    """Blocking wrapper of :func:`inner_join_async`."""
+    return inner_join_async(t_keys, t_valid, s_keys, s_valid, device=device).result()
+
+
+# -- the host equi join ---------------------------------------------------------------
+
+
+def _factorize(t_vals: np.ndarray, s_vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Dense codes of one key column over both sides (equal values, equal
+    codes), and the number of distinct values."""
+    both = np.concatenate([t_vals, s_vals])
+    uniq, inv = np.unique(both, return_inverse=True)
+    return inv[: len(t_vals)].astype(np.int64), inv[len(t_vals):].astype(np.int64), len(uniq)
+
+
+def host_equi_join(keys: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Inner equi join on one or more key columns, each given as (target
+    values, target valid, source values, source valid) of one comparable
+    type. Returns (target rows, source rows) of every matching pair, sorted
+    by target row then source row; a row with a NULL key matches nothing."""
+    n, m = len(keys[0][0]), len(keys[0][2])
+    t_ok = np.ones(n, bool)
+    s_ok = np.ones(m, bool)
+    for _, tv, _, sv in keys:
+        t_ok &= tv
+        s_ok &= sv
+    t_rows, s_rows = np.flatnonzero(t_ok), np.flatnonzero(s_ok)
+    t0, s0 = keys[0][0][t_rows], keys[0][2][s_rows]
+    if len(keys) == 1 and t0.dtype.kind in "iu" and s0.dtype.kind in "iu":
+        t_code, s_code = t0, s0  # one integer key: its values are its codes
+    else:
+        t_code, s_code, _ = _factorize(t0, s0)
+    for t_vals, _, s_vals, _ in keys[1:]:
+        tc, sc, card = _factorize(t_vals[t_rows], s_vals[s_rows])
+        # fold the column into the running code and re-densify
+        t_code, s_code, _ = _factorize(t_code * card + tc, s_code * card + sc)
+    order = np.argsort(s_code, kind="stable")
+    sorted_codes = s_code[order]
+    # search the target codes in sorted order (a cache-friendly merge walk,
+    # several times faster than as many random binary searches), then the
+    # run ends of the hits only
+    t_order = np.argsort(t_code)
+    lo = np.empty(len(t_code), np.int64)
+    lo[t_order] = np.searchsorted(sorted_codes, t_code[t_order], side="left")
+    hit = lo < len(sorted_codes)
+    hit[hit] = sorted_codes[lo[hit]] == t_code[hit]
+    counts = np.zeros(len(t_code), np.int64)
+    counts[hit] = np.searchsorted(sorted_codes, t_code[hit], side="right") - lo[hit]
+    pair_t = np.repeat(t_rows, counts)
+    starts = np.repeat(lo - np.cumsum(counts) + counts, counts)
+    within = np.arange(len(pair_t)) + starts
+    pair_s = s_rows[order[within]] if len(pair_t) else np.empty(0, np.int64)
+    return pair_t.astype(np.int64), np.asarray(pair_s, np.int64)

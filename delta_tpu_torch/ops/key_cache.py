@@ -1,7 +1,6 @@
 """Resident MERGE join keys: a table's key lane kept on the card.
 
-The port's own copy of ``delta_tpu.ops.key_cache`` (all of it but
-``SlabBuilder``, which only the MERGE command's cold pipeline calls). A CDC
+The port's own copy of ``delta_tpu.ops.key_cache``. A CDC
 upsert loop merges into the same table every few minutes, so the target's
 key lane is built once, kept resident, and advanced as the log moves: new
 files' keys append (a projected Parquet read of just those files, through
@@ -37,9 +36,27 @@ keeps the arrays it pinned while a tail advance binds new ones. The port
 keeps that: every K11 update writes a NEW tensor (a copy of the lane with
 the rows changed) and never changes one a probe may hold.
 
+:class:`SlabBuilder` is the MERGE command's cold pipeline: each decoded
+file's key lane lands on a pre-sized device slab as the next files decode,
+and :meth:`KeyCache.register` adopts the finished slab so the next MERGE
+against the table probes it without a rebuild. Its uploader thread launches
+on the same stream as the merging thread (neither sets a side stream), so
+the card runs their work in the order the host issued it; the merging
+thread joins the uploader before it reads the slab.
+
+Where the JAX package turns a failure into a quiet fallback, the port
+raises: the builder's constructor and its uploader thread record an
+exception and re-raise it in the merging thread; a device allocation that
+fails after eviction had its chance raises; the post-commit warmup
+(:meth:`KeyCache.warm`) runs off the committing thread and stores any
+exception in :attr:`KeyCache.last_build_error`. The one data fallback kept
+is a file whose key lane cannot be packed or whose rows disagree with its
+recorded count: the builder then reports ``failed`` and the caller takes
+another route.
+
 ``delta.tpu.keyCache.maxBytes``/``maxEntries`` are the constants
-:data:`MAX_DEVICE_BYTES`/:data:`MAX_ENTRIES` (the port has no session conf);
-the HBM ledger, the link router and the telemetry counters are not ported.
+:data:`MAX_DEVICE_BYTES`/:data:`MAX_ENTRIES`; the HBM ledger, the link
+router and the telemetry counters are not ported.
 """
 from __future__ import annotations
 
@@ -59,7 +76,8 @@ from delta_tpu_torch.ops.join_kernel import _bucket
 from delta_tpu_torch.ops.state_cache import _next_pow2, _packbits, _xla_rows
 from delta_tpu_torch.utils.device import resolve
 
-__all__ = ["ResidentJoinKeys", "KeyCache", "PhysicalProbe", "MAX_DEVICE_BYTES", "MAX_ENTRIES",
+__all__ = ["ResidentJoinKeys", "KeyCache", "PhysicalProbe", "SlabBuilder", "key_cache_enabled",
+           "MAX_DEVICE_BYTES", "MAX_ENTRIES",
            "slab_sort", "slab_sort_plain", "slab_probe", "slab_probe_plain", "pair_compact",
            "pair_compact_plain", "slab_kill", "slab_revive", "slab_flip_plain", "slab_append",
            "slab_append_plain", "slab_widen", "slab_widen_plain", "slab_map_rows",
@@ -77,6 +95,16 @@ MAX_ENTRIES = 8
 _POISON_VERSION = 1 << 62
 
 _I64_MAX = (1 << 63) - 1
+
+
+def key_cache_enabled() -> bool:
+    """Whether the cross-MERGE resident key cache may serve and keep
+    entries: ``delta.tpu.merge.keyCache.enabled`` and its older alias
+    ``delta.tpu.merge.residentKeys.enabled``, either false disabling it."""
+    from delta_tpu_torch.utils.config import conf
+
+    return (conf.get_bool("delta.tpu.merge.keyCache.enabled", True)
+            and conf.get_bool("delta.tpu.merge.residentKeys.enabled", True))
 
 
 @dataclass
@@ -672,6 +700,25 @@ class ResidentJoinKeys:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
+    def alloc_device(self) -> None:
+        """Pre-size the device lanes without uploading the host mirrors: the
+        cold pipeline (:class:`SlabBuilder`) then writes each file's lane as
+        it decodes. A failed allocation evicts the cache's other device
+        copies and tries once more, then raises. No-op when a device copy
+        exists."""
+        with self._lock:
+            if self._dev is not None:
+                return
+            try:
+                keys = torch.zeros(self.capacity, dtype=torch.int64, device=self.device)
+                valid = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
+            except torch.cuda.OutOfMemoryError:
+                KeyCache.instance().drop_devices(keep=self)
+                keys = torch.zeros(self.capacity, dtype=torch.int64, device=self.device)
+                valid = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
+            self._dev = {"keys": keys, "valid": valid}
+            self._sort_stale = True
+
     def ensure_resident(self) -> None:
         """Ship the mirrors to the device, the keys narrowed to int32 when
         every one fits (K11 ``widen`` casts them up there)."""
@@ -944,6 +991,94 @@ def _dv_positions(dv_dict, data_path: str) -> Optional[np.ndarray]:
         return None
 
 
+class SlabBuilder:
+    """Streamed cold build of a :class:`ResidentJoinKeys` slab from per-file
+    decoded key tables: the upload leg of the MERGE command's cold pipeline
+    (``commands/merge``). Files arrive in decode-completion order; each
+    file's packed lane lands on a pre-sized device slab.
+
+    The slab is in PHYSICAL row order per file though the decode arrives
+    deletion-vector filtered: each file's physical row count comes from its
+    AddFile stats (``numRecords`` is physical as the engine writes it), or
+    from its Parquet footer when it carries a deletion vector or no stats."""
+
+    def __init__(self, log_path: str, metadata_id: str, version: int, signature: str,
+                 key_cols: List[str], exprs, data_path: str, files, device="cuda",
+                 epoch: int = 0):
+        self.exprs = list(exprs)
+        self.data_path = data_path
+        self.failed: Optional[str] = None
+        self._phys: Dict[str, int] = {}
+        total = 0
+        for add in files:
+            nrec = add.num_logical_records
+            if add.deletion_vector is not None or nrec is None:
+                n = self._footer_rows(add)
+                if n is None:
+                    self.failed = f"no physical row count for {add.path}"
+                    break
+            else:
+                n = int(nrec)
+            self._phys[add.path] = n
+            total += n
+        entry = ResidentJoinKeys(log_path, metadata_id, version, signature, list(key_cols),
+                                 device=device)
+        entry.epoch = epoch
+        entry.capacity = max(_bucket(max(total, 1)), 1024)
+        self.entry = entry
+
+    def _footer_rows(self, add) -> Optional[int]:
+        from delta_tpu_torch.exec.parquet import read_metadata
+
+        try:
+            return int(read_metadata(_abs_data_path(self.data_path, add.path)).num_rows)
+        except OSError:
+            return None
+
+    def add_file(self, add, table, positions: Optional[np.ndarray]) -> bool:
+        """Pack one decoded file's key lane and append it to the slab on the
+        device. ``positions`` are the decoded rows' physical positions (None
+        when the decode was not DV-filtered). A lane that cannot be packed,
+        or rows that disagree with the recorded physical count, fail the
+        build (the caller takes another route)."""
+        if self.failed is not None:
+            return False
+        from delta_tpu_torch.expr.vectorized import evaluate
+
+        phys = self._phys.get(add.path)
+        packed = _pack_lanes(table, self.exprs, evaluate)
+        if phys is None or packed is None:
+            self.failed = f"unpackable key lane for {add.path}"
+            return False
+        keys, valid = packed
+        if positions is None:
+            if len(keys) != phys:
+                self.failed = f"row count mismatch for {add.path}"
+                return False
+            full_k = np.ascontiguousarray(keys, np.int64)
+            full_v = np.asarray(valid, bool)
+        else:
+            if len(positions) != len(keys) or (len(positions) and int(positions[-1]) >= phys):
+                self.failed = f"position/physical mismatch for {add.path}"
+                return False
+            full_k = np.zeros(phys, np.int64)
+            full_v = np.zeros(phys, bool)
+            full_k[positions] = keys
+            full_v[positions] = valid
+        e = self.entry
+        e.alloc_device()
+        if not e._append_file(add.path, full_k, full_v):
+            self.failed = f"duplicate file {add.path}"
+            return False
+        e.dv_tags[add.path] = _dv_tag(add.deletion_vector)
+        return True
+
+    def finish(self, expected_files: int) -> Optional[ResidentJoinKeys]:
+        if self.failed is not None or len(self.entry.slabs) != expected_files:
+            return None
+        return self.entry
+
+
 class KeyCache:
     """Process-wide registry of resident join-key lanes, keyed by (log path,
     signature, device). Registry lock for lookups, per-entry build locks
@@ -960,6 +1095,10 @@ class KeyCache:
         # per-table rewrite generation (bump_epoch): entries built under an
         # older epoch are never served or cached
         self._epochs: Dict[str, int] = {}
+        # the exception of the last post-commit warmup (warm), None when it
+        # built or had nothing to do
+        self.last_build_error: Optional[BaseException] = None
+        self._warmups: List[threading.Thread] = []
 
     @classmethod
     def instance(cls) -> "KeyCache":
@@ -988,6 +1127,71 @@ class KeyCache:
                 e.version = _POISON_VERSION
                 self._build_locks.pop(k, None)
                 e.drop_device()
+
+    def register(self, entry: ResidentJoinKeys) -> bool:
+        """Adopt a slab the MERGE cold pipeline built (:class:`SlabBuilder`)
+        so later MERGEs against the table probe it. Refused when the table's
+        epoch moved during the build or a newer entry holds the key; the
+        caller's probe of the entry stays valid either way."""
+        if not key_cache_enabled():
+            return False
+        key = (entry.log_path, entry.signature, str(entry.device))
+        with self._lock:
+            if entry.epoch != self._epochs.get(entry.log_path, 0):
+                return False
+            cur = self._entries.get(key)
+            if cur is not None and cur.version >= entry.version:
+                return False
+            self._tick += 1
+            entry.last_used = self._tick
+            self._entries[key] = entry
+            self._build_locks.setdefault(key, threading.Lock())
+        self._evict(keep=key)
+        return True
+
+    def warm(self, log, signature: str, key_cols: List[str], exprs, min_rows: int) -> None:
+        """The post-commit warmup: on a thread of its own, bring the table's
+        key lane to its latest version and onto the device, so the next
+        MERGE probes it. Never blocks the caller; an exception is stored in
+        :attr:`last_build_error`, not swallowed. :meth:`wait_warmups` joins."""
+
+        def build():
+            try:
+                snap = log.update()
+                est = sum(f.num_logical_records or 0 for f in snap.all_files)
+                if est < min_rows:
+                    return
+                e = self.get(snap, signature, key_cols, exprs, build_if_missing=True)
+                if e is not None:
+                    with e._lock:
+                        e.ensure_resident()
+                        e._ensure_sorted()
+                    if e.device.type == "cuda":
+                        torch.cuda.synchronize(e.device)
+            except Exception as exc:  # stored for the caller, see above
+                self.last_build_error = exc
+
+        th = threading.Thread(target=build, daemon=True, name="delta-merge-keys-build")
+        with self._lock:
+            self._warmups = [t for t in self._warmups if t.is_alive()] + [th]
+        th.start()
+
+    def wait_warmups(self, timeout: Optional[float] = None) -> bool:
+        """Join every post-commit warmup still running; False when one is
+        still running after ``timeout`` seconds."""
+        with self._lock:
+            pending = list(self._warmups)
+        for th in pending:
+            th.join(timeout)
+        return not any(th.is_alive() for th in pending)
+
+    def drop_devices(self, keep=None) -> None:
+        """Drop the device copy of every entry but ``keep`` (the host
+        mirrors stay; a later probe re-ships them)."""
+        with self._lock:
+            for e in self._entries.values():
+                if e is not keep:
+                    e.drop_device()
 
     def peek(self, log_path: str, signature: str, device="cuda") -> Optional[ResidentJoinKeys]:
         with self._lock:

@@ -12,8 +12,8 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 
 ``launches`` counts the launches of each kernel. The wrappers beside the
 plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
-``expr/device_eval``, ``ops/key_cache``) add one where they launch, and
-nowhere else.
+``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``) add one
+where they launch, and nowhere else.
 """
 from __future__ import annotations
 
@@ -67,6 +67,8 @@ _KERNELS = {
     "slab_map_rows": ("slab_update", "dtt_slab_map_rows", [_P, _L, _P, _P, _L, _P]),
     "slab_slice_append": ("slab_update", "dtt_slab_slice_append",
                           [_P, _P, _P, _P, _L, _L, _P, _I, _P, _L, _P]),
+    "join_probe": ("join_probe", "dtt_join_probe",
+                   [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

@@ -41,6 +41,13 @@ __all__ = [
 # Mirrors actions.scala:52-55 (readerVersion=1, writerVersion=4 in the reference).
 READER_VERSION = 1
 WRITER_VERSION = 4
+# The table-features versions the engine reads and writes, and the features
+# it supports there (the JAX package's protocol/actions.py:50-59).
+SUPPORTED_READER_VERSION = 3
+SUPPORTED_WRITER_VERSION = 7
+DV_FEATURE_NAME = "tpu.deletionVectors"
+SUPPORTED_READER_FEATURES = frozenset({DV_FEATURE_NAME})
+SUPPORTED_WRITER_FEATURES = frozenset({DV_FEATURE_NAME})
 
 
 def _drop_none(d: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,0 +1,245 @@
+"""Session conf and table properties (the port's own copy of part of
+``delta_tpu.utils.config``).
+
+* :data:`conf` holds the session keys the port reads, with the JAX
+  package's defaults: the MERGE routing (``delta.tpu.merge.devicePath.*``,
+  ``delta.tpu.merge.keyCache.enabled`` and its alias
+  ``delta.tpu.merge.residentKeys.enabled``, ``residentKeys.minRows``,
+  ``nonEquiPairBudget``), the writer's ``delta.tpu.write.targetFileRows``,
+  the deletion-vector switch, the schema-evolution switch (which the port
+  refuses when on) and ``delta.tpu.history.metricsEnabled``. A key that is
+  not in the table reads as the caller's default, as in the JAX package.
+* :class:`DeltaConfigs` is the JAX package's table-property registry,
+  whole, so that a table property is validated (and an unknown ``delta.``
+  key refused) exactly as there.
+
+The state cache's and the key cache's budgets stay constants in their
+modules (``ops/state_cache``, ``ops/key_cache``).
+"""
+from __future__ import annotations
+
+import re
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Generic, Optional, TypeVar
+
+from delta_tpu_torch.utils.errors import DeltaIllegalArgumentError
+
+T = TypeVar("T")
+
+__all__ = ["SqlConf", "conf", "DeltaConfig", "DeltaConfigs", "parse_interval_ms"]
+
+
+class SqlConf:
+    """Process-wide conf with defaults; thread-safe; ``with
+    conf.set_temporarily(...)`` for tests."""
+
+    _DEFAULTS: Dict[str, Any] = {
+        # ≈ DELTA_MAX_RETRY_COMMIT_ATTEMPTS (DeltaSQLConf.scala:182)
+        "delta.tpu.maxCommitAttempts": 10_000_000,
+        # the MERGE join on the card: "auto" and "force" take a device route
+        # whenever the merge is eligible (the port has no link cost model),
+        # "off" pins the host join
+        "delta.tpu.merge.devicePath.enabled": True,
+        "delta.tpu.merge.devicePath.mode": "auto",
+        # the cross-MERGE resident key cache (ops/key_cache); either key set
+        # to false disables caching and the post-commit warmup
+        "delta.tpu.merge.keyCache.enabled": True,
+        "delta.tpu.merge.residentKeys.enabled": True,
+        # rows below which the post-commit warmup builds no key lane
+        "delta.tpu.merge.residentKeys.minRows": 1 << 20,
+        # non-equi MERGE: candidate pairs per tile of the target x source grid
+        "delta.tpu.merge.nonEquiPairBudget": 8_000_000,
+        # ≈ DELTA_SCHEMA_AUTO_MIGRATE; the port refuses it when on
+        "delta.tpu.schema.autoMerge.enabled": False,
+        # ≈ DELTA_HISTORY_METRICS_ENABLED
+        "delta.tpu.history.metricsEnabled": True,
+        # target max rows per written data file
+        "delta.tpu.write.targetFileRows": 4_000_000,
+        # DML writes deletion vectors where the table enables them
+        "delta.tpu.deletionVectors.enabled": True,
+    }
+
+    def __init__(self):
+        self._values: Dict[str, Any] = {}
+        self._lock = threading.RLock()
+
+    def get(self, key: str, default: Any = None) -> Any:
+        with self._lock:
+            if key in self._values:
+                return self._values[key]
+        if key in self._DEFAULTS:
+            return self._DEFAULTS[key]
+        return default
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        """Boolean conf with string coercion: "false"/"0"/"off" (any case)
+        are False."""
+        v = self.get(key, default)
+        if isinstance(v, str):
+            return v.strip().lower() not in ("false", "0", "off", "no", "")
+        return bool(v)
+
+    def set_temporarily(self, **kv: Any):
+        """Context manager: ``with conf.set_temporarily(**{'k': v}): ...``"""
+        outer = self
+
+        class _Ctx:
+            def __enter__(self):
+                self._saved = {}
+                for k, v in kv.items():
+                    key = k.replace("__", ".")
+                    with outer._lock:
+                        self._saved[key] = outer._values.get(key, _MISSING)
+                        outer._values[key] = v
+                return outer
+
+            def __exit__(self, *exc):
+                for key, old in self._saved.items():
+                    with outer._lock:
+                        if old is _MISSING:
+                            outer._values.pop(key, None)
+                        else:
+                            outer._values[key] = old
+                return False
+
+        return _Ctx()
+
+
+_MISSING = object()
+conf = SqlConf()
+
+
+_UNIT_MS = {"millisecond": 1, "second": 1000, "minute": 60_000, "hour": 3_600_000,
+            "day": 86_400_000, "week": 7 * 86_400_000}
+_INTERVAL_RE = re.compile(r"(-?\d+)\s+(millisecond|second|minute|hour|day|week)s?",
+                          re.IGNORECASE)
+
+
+def parse_interval_ms(s: str) -> int:
+    """``"interval 30 days"``-style durations in millis; months and years
+    are refused."""
+    text = s.strip()
+    if text.lower().startswith("interval"):
+        text = text[len("interval"):]
+    ms = 0
+    matched = False
+    for m in _INTERVAL_RE.finditer(text):
+        matched = True
+        ms += int(m.group(1)) * _UNIT_MS[m.group(2).lower()]
+    if not matched:
+        raise DeltaIllegalArgumentError(f"Invalid interval: {s!r}")
+    if ms < 0:
+        raise DeltaIllegalArgumentError(f"Interval must be non-negative: {s!r}")
+    return ms
+
+
+@dataclass(frozen=True)
+class DeltaConfig(Generic[T]):
+    key: str  # full key incl. "delta." prefix
+    default: str
+    from_string: Callable[[str], T]
+    validate: Optional[Callable[[T], bool]] = None
+
+    def from_metadata(self, metadata) -> T:
+        raw = (metadata.configuration or {}).get(self.key)
+        if raw is None:
+            raw = conf.get(f"delta.tpu.properties.defaults.{self.key[len('delta.'):]}")
+        if raw is None:
+            raw = self.default
+        try:
+            value = self.from_string(str(raw))
+        except DeltaIllegalArgumentError:
+            raise
+        except (ValueError, TypeError) as e:
+            raise DeltaIllegalArgumentError(
+                f"Invalid value {raw!r} for table property {self.key}: {e}")
+        if self.validate and not self.validate(value):
+            raise DeltaIllegalArgumentError(f"Invalid value {raw!r} for table property {self.key}")
+        return value
+
+
+def _bool(s: str) -> bool:
+    if s.lower() in ("true", "1"):
+        return True
+    if s.lower() in ("false", "0"):
+        return False
+    raise ValueError(f"not a boolean: {s!r}")
+
+
+class _Probe:
+    def __init__(self, configuration: Dict[str, str]):
+        self.configuration = configuration
+
+
+class DeltaConfigs:
+    """Registry of table properties (``DeltaConfig.scala:227-433``)."""
+
+    LOG_RETENTION = DeltaConfig("delta.logRetentionDuration", "interval 30 days",
+                                parse_interval_ms)
+    TOMBSTONE_RETENTION = DeltaConfig("delta.deletedFileRetentionDuration",
+                                      "interval 1 week", parse_interval_ms)
+    CHECKPOINT_INTERVAL = DeltaConfig("delta.checkpointInterval", "10", int, lambda v: v > 0)
+    ENABLE_EXPIRED_LOG_CLEANUP = DeltaConfig("delta.enableExpiredLogCleanup", "true", _bool)
+    IS_APPEND_ONLY = DeltaConfig("delta.appendOnly", "false", _bool)
+    ISOLATION_LEVEL = DeltaConfig("delta.isolationLevel", "WriteSerializable", str,
+                                  lambda v: v in ("Serializable", "WriteSerializable"))
+    ENABLE_DELETION_VECTORS = DeltaConfig("delta.tpu.enableDeletionVectors", "false", _bool)
+    CHECKPOINT_WRITE_STATS_AS_JSON = DeltaConfig("delta.checkpoint.writeStatsAsJson", "true",
+                                                 _bool)
+    CHECKPOINT_WRITE_STATS_AS_STRUCT = DeltaConfig("delta.checkpoint.writeStatsAsStruct",
+                                                   "false", _bool)
+    DATA_SKIPPING_NUM_INDEXED_COLS = DeltaConfig("delta.dataSkippingNumIndexedCols", "32", int,
+                                                 lambda v: v >= -1)
+    SYMLINK_FORMAT_MANIFEST_ENABLED = DeltaConfig(
+        "delta.compatibility.symlinkFormatManifest.enabled", "false", _bool)
+    RANDOMIZE_FILE_PREFIXES = DeltaConfig("delta.randomizeFilePrefixes", "false", _bool)
+    RANDOM_PREFIX_LENGTH = DeltaConfig("delta.randomPrefixLength", "2", int, lambda v: v > 0)
+    CHANGE_DATA_FEED = DeltaConfig("delta.enableChangeDataFeed", "false", _bool)
+    MIN_READER_VERSION = DeltaConfig("delta.minReaderVersion", "1", int, lambda v: v > 0)
+    MIN_WRITER_VERSION = DeltaConfig("delta.minWriterVersion", "2", int, lambda v: v > 0)
+
+    _ALL: Dict[str, DeltaConfig] = {}
+
+    @classmethod
+    def all_configs(cls) -> Dict[str, DeltaConfig]:
+        if not cls._ALL:
+            for name in dir(cls):
+                v = getattr(cls, name)
+                if isinstance(v, DeltaConfig):
+                    cls._ALL[v.key.lower()] = v
+        return cls._ALL
+
+    @classmethod
+    def validate_configuration(cls, configuration: Dict[str, str]) -> Dict[str, str]:
+        """Type-check ``delta.*`` keys; unknown ``delta.`` keys are refused
+        (``delta.constraints.*`` passes through)."""
+        registry = cls.all_configs()
+        out = {}
+        for k, v in configuration.items():
+            lk = k.lower()
+            if lk.startswith("delta."):
+                cfg = registry.get(lk)
+                if cfg is None:
+                    if lk.startswith("delta.constraints."):
+                        out[k] = v
+                        continue
+                    raise DeltaIllegalArgumentError(f"Unknown configuration was specified: {k}")
+                cfg.from_metadata(_Probe({cfg.key: v}))
+                out[cfg.key] = v
+            else:
+                out[k] = v
+        return out
+
+    @classmethod
+    def merge_global_configs(cls, configuration: Dict[str, str]) -> Dict[str, str]:
+        """Session-level defaults ``delta.tpu.properties.defaults.*`` for the
+        keys the user did not set."""
+        out = dict(configuration)
+        for cfg in cls.all_configs().values():
+            if cfg.key in out:
+                continue
+            default = conf.get(f"delta.tpu.properties.defaults.{cfg.key[len('delta.'):]}")
+            if default is not None:
+                out[cfg.key] = str(default)
+        return out

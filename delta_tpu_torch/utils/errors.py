@@ -1,9 +1,10 @@
 """Error classes the port raises (the port's own copy of the subset of
-``delta_tpu.utils.errors`` it needs): the log's, and the expression
-language's (parser, row evaluator, host evaluator)."""
+``delta_tpu.utils.errors`` it needs): the log's, the expression
+language's (parser, row evaluator, host evaluator), the transaction's
+conflict verdicts and the writer's and the MERGE command's."""
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 __all__ = [
     "DeltaError", "DeltaAnalysisError", "DeltaIllegalStateError", "DeltaParseError",
@@ -13,6 +14,18 @@ __all__ = [
     "bad_column_path", "unexpected_token", "expected_type_name", "parse_expected",
     "column_not_found_in_row", "column_not_found_in_table", "unsupported_function",
     "cannot_compare_types", "cannot_apply_operator", "like_requires_strings",
+    "DeltaIllegalArgumentError", "CommitAttemptsExhausted", "DeltaUnsupportedOperationError",
+    "SchemaMismatchError", "ProtocolError", "DeltaConcurrentModificationException", "ConcurrentWriteException",
+    "MetadataChangedException", "ProtocolChangedException", "ConcurrentAppendException",
+    "ConcurrentDeleteReadException", "ConcurrentDeleteDeleteException",
+    "ConcurrentTransactionException", "concurrent_write_exception",
+    "metadata_changed_exception", "protocol_changed_exception", "concurrent_append_exception",
+    "concurrent_delete_read_exception", "concurrent_delete_delete_exception",
+    "concurrent_transaction_exception", "modify_append_only_table", "invalid_protocol_version",
+    "table_already_exists", "merge_conflicting_set_columns", "invalid_merge_clause",
+    "merge_unresolvable_qualifier", "merge_unresolvable_column", "merge_clause_unresolvable",
+    "partition_columns_mismatch", "partition_column_not_found", "duplicate_columns",
+    "invalid_column_name",
 ]
 
 
@@ -24,7 +37,27 @@ class DeltaAnalysisError(DeltaError):
     pass
 
 
+class DeltaIllegalArgumentError(DeltaError, ValueError):
+    pass
+
+
 class DeltaIllegalStateError(DeltaError, RuntimeError):
+    pass
+
+
+class CommitAttemptsExhausted(DeltaIllegalStateError):
+    """The commit retried ``delta.tpu.maxCommitAttempts`` times."""
+
+
+class DeltaUnsupportedOperationError(DeltaError, NotImplementedError):
+    pass
+
+
+class SchemaMismatchError(DeltaAnalysisError):
+    pass
+
+
+class ProtocolError(DeltaError):
     pass
 
 
@@ -117,3 +150,178 @@ def cannot_apply_operator(op: str, left: str, right: str, sql: str) -> DeltaAnal
 
 def like_requires_strings(got: str, sql: str) -> DeltaAnalysisError:
     return DeltaAnalysisError(f"LIKE requires string operands, got {got} in {sql}")
+
+
+# -- the transaction's conflict verdicts (DeltaConcurrentExceptions.scala names) --
+
+
+class DeltaConcurrentModificationException(DeltaError):
+    """Base of the OCC conflict hierarchy."""
+
+    def __init__(self, message: str, conflicting_commit: Optional[dict] = None):
+        super().__init__(message)
+        self.conflicting_commit = conflicting_commit
+
+
+class ConcurrentWriteException(DeltaConcurrentModificationException):
+    pass
+
+
+class MetadataChangedException(DeltaConcurrentModificationException):
+    pass
+
+
+class ProtocolChangedException(DeltaConcurrentModificationException):
+    pass
+
+
+class ConcurrentAppendException(DeltaConcurrentModificationException):
+    pass
+
+
+class ConcurrentDeleteReadException(DeltaConcurrentModificationException):
+    pass
+
+
+class ConcurrentDeleteDeleteException(DeltaConcurrentModificationException):
+    pass
+
+
+class ConcurrentTransactionException(DeltaConcurrentModificationException):
+    pass
+
+
+def _concurrent_msg(base: str, commit: Optional[dict]) -> str:
+    import json
+
+    msg = base
+    if commit:
+        msg += f"\nConflicting commit: {json.dumps(commit, default=str)}"
+    return msg + "\nRefer to https://docs.delta.io/latest/concurrency-control.html for more details."
+
+
+def concurrent_write_exception(commit: Optional[dict] = None) -> ConcurrentWriteException:
+    return ConcurrentWriteException(_concurrent_msg(
+        "A concurrent transaction has written new data since the current "
+        "transaction read the table. Please try the operation again.", commit), commit)
+
+
+def metadata_changed_exception(commit: Optional[dict] = None) -> MetadataChangedException:
+    return MetadataChangedException(_concurrent_msg(
+        "The metadata of the Delta table has been changed by a concurrent "
+        "update. Please try the operation again.", commit), commit)
+
+
+def protocol_changed_exception(commit: Optional[dict] = None) -> ProtocolChangedException:
+    additional = ""
+    if commit and commit.get("version") == 0:
+        additional = ("This happens when multiple writers are writing to an empty "
+                      "directory. Creating the table ahead of time will avoid this conflict. ")
+    return ProtocolChangedException(_concurrent_msg(
+        "The protocol version of the Delta table has been changed by a "
+        f"concurrent update. {additional}Please try the operation again.", commit), commit)
+
+
+def concurrent_append_exception(partition: str, commit: Optional[dict] = None
+                                ) -> ConcurrentAppendException:
+    return ConcurrentAppendException(_concurrent_msg(
+        f"Files were added to {partition} by a concurrent update. "
+        "Please try the operation again.", commit), commit)
+
+
+def concurrent_delete_read_exception(file: str, commit: Optional[dict] = None
+                                     ) -> ConcurrentDeleteReadException:
+    return ConcurrentDeleteReadException(_concurrent_msg(
+        "This transaction attempted to read one or more files that were "
+        f"deleted (for example {file}) by a concurrent update. "
+        "Please try the operation again.", commit), commit)
+
+
+def concurrent_delete_delete_exception(file: str, commit: Optional[dict] = None
+                                       ) -> ConcurrentDeleteDeleteException:
+    return ConcurrentDeleteDeleteException(_concurrent_msg(
+        "This transaction attempted to delete one or more files that were "
+        f"deleted (for example {file}) by a concurrent update. "
+        "Please try the operation again.", commit), commit)
+
+
+def concurrent_transaction_exception(commit: Optional[dict] = None,
+                                     app_id: Optional[str] = None
+                                     ) -> ConcurrentTransactionException:
+    detail = f" (conflicting appId={app_id})" if app_id else ""
+    return ConcurrentTransactionException(_concurrent_msg(
+        "This error occurs when multiple streaming queries are using the "
+        f"same checkpoint to write into this table{detail}. Did you run "
+        "multiple instances of the same streaming query at the same time?", commit), commit)
+
+
+# -- the writer's and the MERGE command's errors ----------------------------------
+
+
+def modify_append_only_table() -> DeltaUnsupportedOperationError:
+    return DeltaUnsupportedOperationError(
+        "This table is configured to only allow appends. If you would like to "
+        "permit updates or deletes, use 'ALTER TABLE <table_name> SET "
+        "TBLPROPERTIES (delta.appendOnly=false)'.")
+
+
+def invalid_protocol_version(client_reader: int, client_writer: int, table_reader: int,
+                             table_writer: int) -> ProtocolError:
+    return ProtocolError(
+        f"Delta protocol version (reader={table_reader}, writer={table_writer}) is too new for "
+        f"this client (supports reader={client_reader}, writer={client_writer}). "
+        "Please upgrade to a newer release.")
+
+
+def table_already_exists(path: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Table already exists: {path}. Use mode='overwrite' / CREATE OR "
+        "REPLACE to replace it, or pick a different location.")
+
+
+def merge_conflicting_set_columns(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"There is a conflict from these SET columns: duplicate assignment to {column!r}.")
+
+
+def invalid_merge_clause(kind: str, matched: bool) -> DeltaAnalysisError:
+    allowed = "UPDATE or DELETE" if matched else "INSERT"
+    block = "WHEN MATCHED" if matched else "WHEN NOT MATCHED"
+    return DeltaAnalysisError(f"Invalid {block} clause: {kind}. Only {allowed} is allowed here.")
+
+
+def merge_unresolvable_qualifier(name: str, qualifier: str, target_alias,
+                                 source_alias) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot resolve {name!r} in MERGE: qualifier {qualifier!r} matches "
+        f"neither target alias {target_alias!r} nor source alias {source_alias!r}")
+
+
+def merge_unresolvable_column(name: str, target_cols, source_cols) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot resolve {name!r} in MERGE (target={list(target_cols)}, "
+        f"source={list(source_cols)})")
+
+
+def merge_clause_unresolvable(column: str, clause: str, source_cols) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"cannot resolve {column} in {clause} clause given columns {list(source_cols)} "
+        "(enable delta.tpu.schema.autoMerge.enabled to evolve the target schema instead)")
+
+
+def partition_columns_mismatch(given, current) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Partition columns {list(given)} don't match the table's {current}")
+
+
+def partition_column_not_found(column: str, schema_str: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Partition column `{column}` not found in schema {schema_str}")
+
+
+def duplicate_columns(context: str, first: str, second: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Found duplicate column(s) {context}: {first}, {second}")
+
+
+def invalid_column_name(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f'Attribute name "{name}" contains invalid character(s) among '
+        '" ,;{}()\\n\\t=". Please use alias to rename it.')

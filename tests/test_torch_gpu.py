@@ -365,3 +365,110 @@ def test_key_slab_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert g.slabs == c.slabs and g.num_rows == c.num_rows
         assert all(np.array_equal(x, y) for x, y in zip(g.t_pairs, c.t_pairs))
     assert key_cache.KeyCache.instance().peek(f"{path}/_delta_log", "k", cuda)._dev["keys"].is_cuda
+
+
+@pytest.mark.parametrize("dtype,cap_t,n,cap_s,m,shape", [
+    (np.int32, 1 << 20, 1_000_000, 1 << 17, 100_000, "half"),
+    (np.int64, 1 << 20, 1_000_000, 1 << 17, 100_000, "low"),
+    (np.int32, 1 << 16, 60_000, 1 << 12, 4000, "dups"),
+    (np.int64, 1 << 16, 1 << 16, 1 << 12, 4096, "all"),
+    (np.int32, 1 << 16, 60_000, 1 << 12, 4000, "none"),
+    (np.int32, 1024, 1000, 8, 1, "half"),
+])
+def test_join_probe_kernel_matches_plain(cuda, dtype, cap_t, n, cap_s, m, shape):
+    """K12 on padded inputs as inner_join_async builds them: both key types,
+    sentinels at the top or the bottom of the range, duplicate runs, no
+    match, all matched, one source key."""
+    from delta_tpu_torch.ops import join_kernel
+
+    rng = np.random.RandomState(cap_t + m)
+    info = np.iinfo(dtype)
+    if shape == "dups":
+        t, s = rng.randint(-300, 300, n), rng.randint(-400, 400, m)
+    elif shape == "none":
+        t, s = rng.randint(0, 1 << 24, n) * 2, rng.randint(0, 1 << 24, m) * 2 + 1
+    elif shape == "all":
+        s = rng.randint(-(1 << 30), 1 << 30, m)
+        t = s[rng.randint(0, m, n)]
+    else:
+        t = rng.randint(info.min + 2, info.max - 2, n, dtype=np.int64)
+        s = np.concatenate([t[rng.randint(0, n, m - m // 2)],
+                            rng.randint(info.min + 2, info.max - 2, m // 2, dtype=np.int64)])
+    t_fill, s_fill = (info.min, info.min + 1) if shape == "low" else (info.max, info.max - 1)
+    t_in, s_in = np.full(cap_t, t_fill, dtype), np.full(cap_s, s_fill, dtype)
+    t_in[:n], s_in[:m] = t, s
+    tt, ss = torch.from_numpy(t_in).to(cuda), torch.from_numpy(s_in).to(cuda)
+    before = native.launches["join_probe"]
+    got = join_kernel.join_probe(tt, ss)
+    torch.cuda.synchronize()
+    assert native.launches["join_probe"] == before + 1
+    assert _equal_all(got, join_kernel.join_probe_plain(tt, ss))
+
+
+def test_merge_routes_on_the_card_match_the_reference(cuda, tmp_path):
+    """A small bench-config-2-shaped MERGE through each route on the card
+    (host, device-cold, resident, device-upload), each end state equal to a
+    numpy reference upsert."""
+    merge_routes(cuda, tmp_path)
+
+
+def merge_routes(dev, tmp_path):
+    import shutil
+
+    from delta_tpu_torch import MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.exec.scan import scan_to_table
+    from delta_tpu_torch.ops.key_cache import KeyCache
+    from delta_tpu_torch.utils.config import conf
+
+    rng = np.random.RandomState(7)
+    n, m = 50_000, 5_000
+    target = {"k": rng.permutation(n * 2)[:n].astype(np.int64), "v": rng.rand(n),
+              "q": rng.randint(0, 100, n).astype(np.int64)}
+
+    def upsert(state, src):
+        keys = state["k"]
+        pos = np.minimum(np.searchsorted(keys, src["k"]), len(keys) - 1)
+        hit = keys[pos] == src["k"]
+        out = {}
+        for c in state:
+            col = state[c].copy()
+            col[pos[hit]] = src[c][hit]
+            out[c] = np.concatenate([col, src[c][~hit]])
+        order = np.argsort(out["k"], kind="stable")
+        return {c: v[order] for c, v in out.items()}
+
+    # the states after M1 (= M0's), M2 and M3, and the sources that make them
+    states = [{c: v[np.argsort(target["k"], kind="stable")] for c, v in target.items()}]
+    sources = []
+    for i in range(3):
+        live = states[-1]["k"]
+        fresh = np.arange(n * 2 + i * m, n * 2 + i * m + m // 2, dtype=np.int64)
+        keys = np.concatenate([live[rng.choice(len(live), m // 2, replace=False)], fresh])
+        rng.shuffle(keys)
+        sources.append({"k": keys, "v": rng.rand(m), "q": rng.randint(0, 100, m)})
+        states.append(upsert(states[-1], sources[-1]))
+    DeltaLog.clear_cache()
+    KeyCache.reset()
+    with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": 20_000}):
+        path = str(tmp_path / "t")
+        log = DeltaLog.for_table(path, device=dev)
+        WriteIntoDelta(log, "append", target).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        shutil.copytree(path, path + "-copy")
+        copy = DeltaLog.for_table(path + "-copy", device=dev)
+        merges = [(copy, "off", True, "host", 0), (log, "force", True, "device-cold", 0),
+                  (log, "force", True, "resident", 1), (log, "force", False, "device-upload", 2)]
+        for lg, mode, dv, route, k in merges:
+            with conf.set_temporarily(**{"delta.tpu.merge.devicePath.mode": mode,
+                                         "delta.tpu.deletionVectors.enabled": dv}):
+                cmd = MergeIntoCommand(lg, sources[k], "t.k = s.k", [MergeClause("update")],
+                                       [MergeClause("insert")], source_alias="s",
+                                       target_alias="t")
+                cmd.run()
+            assert cmd._join_path == route and not cmd._router.get("reason"), route
+            t = scan_to_table(lg.update())
+            order = np.argsort(t.column("k").values, kind="stable")
+            for c, want in states[k + 1].items():
+                assert np.array_equal(t.column(c).values[order], want), (route, c)
+    assert KeyCache.instance().last_build_error is None

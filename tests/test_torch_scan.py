@@ -193,7 +193,10 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
               "schema.char_varchar", "utils.timeparse", "ops.replay_kernel", "ops.pruning",
               "ops.state_export", "exec.thrift", "exec.snappy", "exec.encodings",
               "exec.parquet", "exec.rowgroups", "protocol.deletion_vectors",
-              "ops.join_kernel", "ops.key_cache"):
+              "ops.join_kernel", "ops.key_cache", "utils.config", "schema.schema_utils",
+              "txn.isolation", "txn.conflicts", "txn.transaction", "commands.operations",
+              "commands.write", "commands.alter", "commands.dml_common", "commands.merge",
+              "exec.write", "exec.scan"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 

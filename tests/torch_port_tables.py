@@ -2,15 +2,37 @@
 
 Every table is written through ``delta_tpu``'s own API as JSON commits, and
 both packages read the same ``_delta_log/``. Inputs come from numpy seeds.
+
+The MERGE parity tests (tests/test_torch_merge*.py) use :class:`Pkg`: one
+vocabulary that builds the same tables, sources and clauses in either
+package. A column is a Python list (ints, floats, strings, None for NULL)
+or a ``(type, list)`` pair naming its type; each package builds its own
+table from it (``pyarrow`` for ``delta_tpu``, numpy masked arrays for
+``delta_tpu_torch``).
 """
 import json
 
 import numpy as np
+import pyarrow as pa
 
+import delta_tpu
+import delta_tpu_torch
+from delta_tpu.commands.merge import MergeClause as JaxClause
+from delta_tpu.commands.merge import MergeIntoCommand as JaxMerge
+from delta_tpu.commands.write import WriteIntoDelta as JaxWrite
+from delta_tpu.exec.scan import scan_to_table as jax_scan
 from delta_tpu.log.deltalog import DeltaLog as JaxDeltaLog
+from delta_tpu.ops.key_cache import KeyCache as JaxKeyCache
 from delta_tpu.protocol import filenames
 from delta_tpu.protocol.actions import AddFile, Metadata, Protocol, RemoveFile
 from delta_tpu.schema.types import DoubleType, IntegerType, LongType, StringType, StructType
+from delta_tpu.utils.config import conf as jax_conf
+from delta_tpu_torch.commands.merge import MergeClause as TorchClause
+from delta_tpu_torch.commands.merge import MergeIntoCommand as TorchMerge
+from delta_tpu_torch.commands.write import WriteIntoDelta as TorchWrite
+from delta_tpu_torch.exec.scan import scan_to_table as torch_scan
+from delta_tpu_torch.ops.key_cache import KeyCache as TorchKeyCache
+from delta_tpu_torch.utils.config import conf as torch_conf
 
 DAYS = [f"2021-01-{d:02d}" for d in range(1, 29)]
 
@@ -132,3 +154,122 @@ def write_ops_table(path):
     commit(path, 0, [Protocol(1, 2), Metadata(schema_string=SCHEMA.to_json(),
                                               partition_columns=["part"])])
     commit(path, 1, list(FILES) + extra)
+
+
+# -- the MERGE parity tests' vocabulary -------------------------------------------
+
+
+_NP = {"int64": np.int64, "int32": np.int32, "float64": np.float64, "bool": bool}
+
+
+def _infer(values):
+    vals = [v for v in values if v is not None]
+    if vals and all(isinstance(v, str) for v in vals):
+        return "string"
+    if vals and all(isinstance(v, bool) for v in vals):
+        return "bool"
+    if any(isinstance(v, float) for v in vals):
+        return "float64"
+    return "int64"
+
+
+class Pkg:
+    """One package's entry points under one set of names."""
+
+    def __init__(self, name):
+        self.name = name
+        self.jax = name == "jax"
+        self.conf = jax_conf if self.jax else torch_conf
+        self.Clause = JaxClause if self.jax else TorchClause
+
+    def column(self, spec):
+        typ, values = spec if isinstance(spec, tuple) else (_infer(spec), spec)
+        if isinstance(values, np.ndarray):
+            values = values.tolist()
+        mask = np.array([v is None for v in values], bool)
+        if self.jax:
+            t = {"int64": pa.int64(), "int32": pa.int32(), "float64": pa.float64(),
+                 "string": pa.string(), "bool": pa.bool_()}[typ]
+            return pa.array(values, t)
+        if typ == "string":
+            return np.ma.masked_array(np.array([v or "" for v in values], object), mask)
+        fill = [0 if v is None else v for v in values]
+        return np.ma.masked_array(np.array(fill, _NP[typ]), mask)
+
+    def table(self, cols):
+        if not isinstance(cols, dict):
+            return cols  # already this package's table
+        built = {k: self.column(v) for k, v in cols.items()}
+        return pa.table(built) if self.jax else built
+
+    def log(self, path):
+        if self.jax:
+            return delta_tpu.DeltaLog.for_table(path)
+        return delta_tpu_torch.DeltaLog.for_table(path, device="cpu")
+
+    def write(self, path, cols, mode="append", **kw):
+        log = self.log(path)
+        (JaxWrite if self.jax else TorchWrite)(log, mode, self.table(cols), **kw).run()
+        return log
+
+    def clause(self, kind, condition=None, assignments=None):
+        return self.Clause(kind, condition=condition, assignments=assignments)
+
+    def command(self, log, source, cond, matched=(), not_matched=(), **kw):
+        cls = JaxMerge if self.jax else TorchMerge
+        return cls(log, self.table(source), cond,
+                   [self.clause(*c) for c in matched],
+                   [self.clause(*c) for c in not_matched], **kw)
+
+    def merge(self, log, source, cond, matched=(), not_matched=(), **kw):
+        cmd = self.command(log, source, cond, matched, not_matched, **kw)
+        cmd.run()
+        return cmd
+
+    def scan(self, log):
+        return (jax_scan if self.jax else torch_scan)(log.update())
+
+    def rows(self, log):
+        return sorted_rows(self.scan(log).to_pylist())
+
+    def key_cache(self):
+        return JaxKeyCache if self.jax else TorchKeyCache
+
+
+def sorted_rows(rows):
+    return sorted(rows, key=lambda r: [(v is None, repr(v)) for v in r.values()])
+
+
+def metrics(cmd):
+    return {k: v for k, v in cmd.metrics.items() if not k.endswith("TimeMs")}
+
+
+def observe(fn):
+    """The call's value, or its exception's class name."""
+    try:
+        return fn()
+    except Exception as e:  # the class is the observation
+        return type(e).__name__
+
+
+def both_confs(**kv):
+    """Set the same session keys in both packages."""
+    class _Both:
+        def __enter__(self):
+            self.ctx = [jax_conf.set_temporarily(**kv), torch_conf.set_temporarily(**kv)]
+            for c in self.ctx:
+                c.__enter__()
+            return self
+
+        def __exit__(self, *exc):
+            for c in reversed(self.ctx):
+                c.__exit__(*exc)
+            return False
+
+    return _Both()
+
+
+def reset_caches():
+    JaxKeyCache.reset()
+    TorchKeyCache.reset()
+    delta_tpu_torch.DeltaLog.clear_cache()
