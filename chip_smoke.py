@@ -26,7 +26,12 @@ Phases, each reported on its own line:
    and the six slab updates (K11) with pads out of range; and the upload
    join (K12), int32 and int64, at cap_t=12,582,912 and cap_s=2^20
    (sentinels at both ends of the range, duplicate runs on both sides, no
-   match, all matched, one source key);
+   match, all matched, one source key); the residual mask (K14) over
+   lanes of every dtype padded to 2^20 (1,044,255 real rows): string codes
+   with present, absent and NULL literals, dates and timestamps before
+   1970 and +-10^6 days away, the calendar opcodes, INs whose option is a
+   column; and the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
+   ranks 0 and 65,535);
 4. the scan-planning path at full size, with every launch counter set to 0
    just before and read just after: a 1M-file table laid out as the hot-plan
    benchmark's
@@ -72,13 +77,34 @@ Phases, each reported on its own line:
    with ``scan_to_table``) equal, all 8 columns exactly, to a numpy
    reference upsert; M0's end state must equal M1's. Each merge's wall time
    and ``phase_ms`` are printed, and K12's time beside M3's;
-8. per kernel: time on the card (CUDA events, warmed, many launches) at the
-   main path's shapes and inputs (K12 at M3's own padded inputs, held
-   against its plain version there), the plain version's time, the least
-   time the card could take (bytes over 3.35 TB/s or compares over
-   33.5e12/s, whichever is larger) and, where one PyTorch call computes the
-   same function, that call's time; one JSON line lists them;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. the filtered read path on bench config 12 (``bench.py:579-722``), with
+   the counters set to 0 again: 2,000,000 rows (``id``, ``price``
+   scattered, ``qty``, an 8-value ``cat``, ``ts``) written through
+   ``WriteIntoDelta`` in files of 250,000 rows and row groups of 31,250;
+   the 7 queries of ``bench.py:630-638`` through
+   ``DeltaTable.to_table`` in three legs: ``deviceResidual.mode=off``,
+   cold ``force`` after ``ColumnCache.reset()``, warm ``force``. Every
+   query's rows and ``id`` sum must equal a numpy filter of the generated
+   arrays in every leg; the warm leg must hit the cache, miss nothing,
+   engage 7 times and report ``device_residual == "device"`` for every
+   query. Each leg's total and per-query wall time is printed;
+9. OPTIMIZE ZORDER BY on bench config 3 (``bench.py:392-437``), with the
+   counters set to 0 again: 4,000,000 ``_store_sales`` rows appended in 8
+   commits, the point query ``ss_item_sk = k AND ss_sold_date_sk = d``
+   through ``DeltaTable.to_table`` (timed), ``OptimizeCommand(z_order_by=
+   ["ss_item_sk", "ss_sold_date_sk"], target_rows=500_000)`` (timed), the
+   query again: the same rows before and after, equal to numpy, fewer files
+   scanned after, each new file's rows in the order of a numpy Morton
+   reference, and both device caches' epochs moved;
+10. per kernel: time on the card (CUDA events, warmed, many launches) at
+   the main path's shapes and inputs (K12 at M3's own padded inputs, K14
+   on one config-12 file's resident lanes, K16 at config 3's OPTIMIZE
+   ranks, each held against its plain version there), the plain version's
+   time, the least time the card could take (bytes over 3.35 TB/s or
+   compares over 33.5e12/s, whichever is larger) and, where one PyTorch
+   call computes the same function, that call's time; one JSON line lists
+   them;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -99,18 +125,21 @@ import torch
 from delta_tpu_torch import DeltaLog, MergeClause, MergeIntoCommand, WriteIntoDelta
 from delta_tpu_torch.exec.scan import scan_to_table
 from delta_tpu_torch.expr import device_eval, ir
-from delta_tpu_torch.expr.parser import parse_expression
+from delta_tpu_torch.expr.parser import parse_expression, parse_predicate
 from delta_tpu_torch.exec.parquet import collect_stats, read_parquet_file, write_parquet_file
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, evaluate
 from delta_tpu_torch.ops import (
-    join_kernel, key_cache, native, pruning, replay_kernel, state_cache, state_export,
+    column_cache, join_kernel, key_cache, native, pruning, replay_kernel, state_cache,
+    state_export, zorder,
 )
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
     AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
 )
 from delta_tpu_torch.protocol.deletion_vectors import write_deletion_vector
-from delta_tpu_torch.schema.types import DoubleType, LongType, StructType
+from delta_tpu_torch.schema.types import (
+    BooleanType, DateType, DoubleType, LongType, StringType, StructType, TimestampType,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # H100 SXM fp32 outside the tensor cores is 67e12 FLOP/s counting an FMA as
@@ -237,6 +266,8 @@ def synthetic_checks(dev):
     k5_checks(dev)
     slab_checks(dev)
     k12_checks(dev)
+    k14_checks(dev)
+    k16_checks(dev)
 
 
 #: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
@@ -335,10 +366,11 @@ def k15_checks(dev):
     for f in faults:
         say(f"kernels: K15 FAULT {f}")
     check(not faults, f"K15 differs from its plain version on {len(faults)} programs")
-    missing = set(device_eval.OPS) - seen_ops
+    k15_ops = set(device_eval.OPS) - set(device_eval.RESIDUAL_OPS)
+    missing = k15_ops - seen_ops
     check(not missing, f"K15 corpus misses opcodes {sorted(missing)}")
     check(seen_dts >= set(range(5)), "K15 corpus misses a dtype")
-    say(f"kernels: expr_eval n=2^20 x {len(K15_CORPUS)} programs, all {len(device_eval.OPS)} "
+    say(f"kernels: expr_eval n=2^20 x {len(K15_CORPUS)} programs, all {len(k15_ops)} "
         f"opcodes, 5 dtypes: bit-exact except transcendentals "
         f"{diffs if diffs else '(none differ)'}")
 
@@ -521,6 +553,106 @@ def k12_checks(dev):
               f"cap_s={cap_s} m={m} {shape}")
     say("kernels: join_probe (K12) int32 and int64, cap_t=12,582,912 cap_s=2^20, sentinels at "
         "both ends, duplicate runs on both sides, no match, all matched, m=1: exact")
+
+
+# -- K14: the residual mask -----------------------------------------------------------
+
+#: the declared types of the K14 lanes (the residual lowering's input)
+K14_TYPES = {"s": StringType(), "d": DateType(), "ts": TimestampType(), "a": LongType(),
+             "l": LongType(), "x": DoubleType(), "b": BooleanType()}
+#: the K14 corpus: every lane dtype, string codes (present, absent, NULL
+#: options), dates and timestamps before 1970 and +-10^6 days away, the
+#: calendar opcodes, Kleene logic, and INs whose option is a column
+K14_CORPUS = [
+    "s = 'alpha'", "s != 'beta'", "s <=> 'gamma'", "s IN ('alpha', 'delta')",
+    "s IN ('nosuch', NULL)", "s = 'nosuch' OR a > 10", "s IS NULL",
+    "d >= '2024-01-01'", "d < '1969-12-31'", "year(d) = 2024 OR month(d) = 2",
+    "year(d) < 0 AND day(d) > 15", "year(d) > 3000", "ts < '1969-12-31 23:00:00'",
+    "month(ts) = 12 AND year(ts) > 2000", "to_date(ts) = '1969-12-31'",
+    "day(to_date(ts)) = 1", "hour(ts) >= 12", "year(ts) < 1000",
+    "a > 5 AND x < 0.5", "a * 2 + l > 10", "x BETWEEN -0.2 AND 0.4", "x / a > 0.01",
+    "NOT b OR a = 3", "b", "a IN (1, 2, 3, NULL)", "COALESCE(a, l) > 0",
+    "CASE WHEN a > 0 THEN x ELSE l END > 0.5", "abs(a) <= 3", "NOT (a IN (5, 7))",
+    "NOT (a IN (l))", "a IN (l, 3)", "NOT (a IN (l, NULL))", "x IN (a, 0.5)",
+]
+
+
+def k14_lanes(n, cap, seed, dev):
+    """Lanes of every dtype, ``n`` real rows padded to ``cap`` as the column
+    cache pads them (pad rows invalid): the env and the string dictionary."""
+    rng = np.random.RandomState(seed)
+    words = np.array(["alpha", "beta", "gamma", "delta"], object)
+    s_ok = rng.rand(n) > 0.1
+    codes, _, mapping = column_cache._lane_from_column(
+        HostColumn("str", np.where(s_ok, words[rng.randint(0, 4, n)], None), s_ok))
+    d = rng.randint(-1_000_000, 1_000_001, n).astype(np.int32)
+    d[:5] = [-1, 0, 59, -719_162, -1_000_000]
+    ts = rng.randint(-86_400_000_000 * 1_000_000, 86_400_000_000 * 1_000_000, n)
+    ts[:3] = [-1, -86_400_000_000, -86_400_000_001]
+    x = rng.randn(n)
+    x[::97] = np.nan
+    lanes = {"s": codes, "d": d, "ts": ts.astype(np.int64),
+             "a": rng.randint(-50, 50, n).astype(np.int64),
+             "l": rng.randint(-50, 50, n).astype(np.int64), "x": x, "b": rng.rand(n) > 0.5}
+    env = {}
+    for c, v in lanes.items():
+        pv = np.zeros(cap, v.dtype)
+        pv[:n] = v
+        ok = np.zeros(cap, bool)
+        ok[:n] = s_ok if c == "s" else rng.rand(n) > 0.1
+        env[c] = device_eval.DeviceColumn(torch.from_numpy(pv).to(dev), torch.from_numpy(ok).to(dev))
+    return env, mapping
+
+
+def k14_program(sql, env, mapping, types=K14_TYPES):
+    """The residual program of ``sql`` over ``env``'s lanes and its per-file
+    scalars (each string literal's code in ``mapping``)."""
+    plan = device_eval.compile_residual(parse_predicate(sql), types, ())
+    dtypes = tuple(sorted((c, env[c].values.dtype) for c in plan.refs))
+    scalar_types = tuple((ph, device_eval.I64) for ph, _c, _v in plan.str_binds)
+    program = column_cache._mask_program(plan.expr, dtypes, scalar_types)
+    scalars = {ph: (int(mapping.get(v, device_eval.STR_CODE_ABSENT)), True)
+               for ph, _c, v in plan.str_binds}
+    return program, scalars
+
+
+def k14_checks(dev):
+    n, cap = (1 << 20) - 4321, 1 << 20  # a padded lane
+    env, mapping = k14_lanes(n, cap, 14, dev)
+    kept, seen_ops = [], set()
+    for sql in K14_CORPUS:
+        program, scalars = k14_program(sql, env, mapping)
+        seen_ops.update(program.opcodes())
+        got = column_cache.residual_mask(program, env, n, scalars)
+        torch.cuda.synchronize()
+        ref = column_cache.residual_mask_plain(program, env, n, scalars)
+        check(torch.equal(got, ref), f"residual_mask != plain: {sql}")
+        kept.append(int(got.sum()))
+    missing = set(device_eval.RESIDUAL_OPS) - seen_ops
+    check(not missing, f"K14 corpus misses opcodes {sorted(missing)}")
+    say(f"kernels: residual_mask n={n} cap={cap} exact over {len(K14_CORPUS)} programs "
+        f"(rows kept from {min(kept)} to {max(kept)})")
+
+
+# -- K16: the Morton interleave -------------------------------------------------------
+
+
+def k16_ranks(k, n, seed, dev):
+    rng = np.random.RandomState(seed + k)
+    r = rng.randint(0, 1 << 16, (k, n)).astype(np.int32)
+    r[:, : n // 4] = rng.randint(0, 8, (k, n // 4))  # ties
+    r[:, 0], r[:, 1] = 0, 65535
+    return torch.from_numpy(r).to(dev)
+
+
+def k16_checks(dev):
+    n = 1 << 22
+    for k in range(1, 7):
+        ranks = k16_ranks(k, n, 16, dev)
+        got = zorder.interleave(ranks)
+        torch.cuda.synchronize()
+        check(torch.equal(got, zorder.interleave_plain(ranks)), f"morton != plain at k={k}")
+    say(f"kernels: morton n=2^22 k=1..6 exact (ties, ranks 0 and 65535)")
 
 
 # -- phase 4: the slice at full size -------------------------------------------
@@ -1248,7 +1380,294 @@ def measure_join_probe(dev, cctx):
              "shape": f"cap_t={cap_t} cap_s={cap_s} {t.dtype} (M3)"}]
 
 
-# -- phase 8: times and bounds at the main path's shapes -----------------------
+# -- phase 8: the filtered read path on bench config 12 ------------------------------
+
+SCAN_ROWS = 2_000_000  # bench.py:604 _rows(2_000_000)
+
+
+def config12_data(n):
+    """bench.py:604-622: ``id``, ``price`` scattered over the whole range,
+    ``qty``, an 8-value ``cat`` and ``ts`` (four years from 2020-01-01 UTC,
+    scattered)."""
+    ids = np.arange(n, dtype=np.int64)
+    scattered = (ids * 982_451_653) % n  # a prime above n: a permutation
+    cats = np.array(["us-w", "us-e", "eu-c", "eu-w", "ap-s", "ap-n", "sa-e", "af-s"], object)
+    rng = np.random.RandomState(23)
+    base_us = 1_577_836_800_000_000
+    span_us = 4 * 365 * 86_400_000_000
+    return {"id": ids, "price": scattered, "qty": rng.randint(1, 9, n).astype(np.int64),
+            "cat": cats[ids % len(cats)], "ts": base_us + scattered * (span_us // n)}
+
+
+def config12_queries(n):
+    """bench.py:630-638, each with its numpy reference mask."""
+    return lambda d: [
+        ("string_eq", "cat = 'eu-c'", d["cat"] == "eu-c"),
+        ("string_in", "cat in ('us-w', 'ap-s', 'af-s')",
+         np.isin(d["cat"], ["us-w", "ap-s", "af-s"])),
+        ("num_scatter", f"price >= {int(0.9 * n)}", d["price"] >= int(0.9 * n)),
+        ("arith", f"price * 2 + qty > {int(1.8 * n)}", d["price"] * 2 + d["qty"] > int(1.8 * n)),
+        ("conj", "cat = 'us-w' and qty >= 6", (d["cat"] == "us-w") & (d["qty"] >= 6)),
+        ("temporal_year", "year(ts) = 2021",
+         d["ts"].astype("datetime64[us]").astype("datetime64[Y]").astype(np.int64) == 51),
+        ("low_sel", f"price < {max(n // 100, 1)}", d["price"] < max(n // 100, 1)),
+    ]
+
+
+def run_device_scan(dev, workdir):
+    """Bench config 12 through ``DeltaTable.to_table``: three legs (host,
+    cold device, warm device) of the 7-query residual suite, each query's
+    rows and ``id`` sum held against a numpy filter of the generated data."""
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.obs import scan_report
+    from delta_tpu_torch.utils import telemetry
+    from delta_tpu_torch.utils.config import conf
+
+    n = SCAN_ROWS
+    data = config12_data(n)
+    queries = config12_queries(n)(data)
+    path = os.path.join(workdir, "config12")
+    DeltaLog.clear_cache()
+    column_cache.ColumnCache.reset()
+    table = HostTable({
+        "id": HostColumn("int", data["id"], np.ones(n, bool)),
+        "price": HostColumn("int", data["price"], np.ones(n, bool)),
+        "qty": HostColumn("int", data["qty"], np.ones(n, bool)),
+        "cat": HostColumn("str", data["cat"], np.ones(n, bool)),
+        "ts": HostColumn("ts", data["ts"], np.ones(n, bool))}, n)
+    t0 = time.perf_counter()
+    with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": max(n // 8, 1000),
+                                 "delta.tpu.write.rowGroupRows": max(n // 64, 500)}):
+        WriteIntoDelta(DeltaLog.for_table(path, device=dev), "append", table).run()
+    tab = DeltaTable.for_path(path, device=dev)
+    files = tab.delta_log.update().all_files
+    say(f"device scan: wrote {n} rows in {time.perf_counter() - t0:.3f} s "
+        f"({len(files)} files of {n // len(files)} rows, row groups of {max(n // 64, 500)})")
+    with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "off"}):
+        tab.to_table(filters=[queries[0][1]])  # warm the footers' page cache for every leg
+
+    def leg(mode):
+        out = {}
+        c0 = telemetry.counters()
+        torch.cuda.synchronize()
+        t_leg = time.perf_counter()
+        with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": mode}):
+            for name, q, mask in queries:
+                t1 = time.perf_counter()
+                result = tab.to_table(filters=[q])
+                wall = time.perf_counter() - t1
+                rep = scan_report.last_scan_report()
+                ids = result.column("id").values
+                check(result.num_rows == int(mask.sum())
+                      and int(ids.sum()) == int(data["id"][mask].sum()),
+                      f"config 12 {mode} {name}: {result.num_rows} rows, id sum {int(ids.sum())}; "
+                      f"numpy {int(mask.sum())}, {int(data['id'][mask].sum())}")
+                out[name] = {"rows": result.num_rows, "wall_ms": wall * 1e3,
+                             "device_residual": rep.device_residual,
+                             "bytes_device_survivor": rep.bytes_device_survivor,
+                             "row_groups_device_skipped": rep.row_groups_device_skipped}
+        total = time.perf_counter() - t_leg
+        c1 = telemetry.counters()
+        counters = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1 if c1.get(k, 0) != c0.get(k, 0)}
+        return {"total_s": total, "queries": out, "counters": counters}
+
+    native.reset_launches()  # -- the read path starts here
+    host = leg("off")
+    column_cache.ColumnCache.reset()  # the cold leg starts from an empty cache
+    cold = leg("force")
+    warm = leg("force")
+    launches = dict(native.launches)  # -- the read path ends here
+    for tag, lg in (("host", host), ("cold", cold), ("warm", warm)):
+        per = ", ".join(f"{k} {v['wall_ms']:.1f}" for k, v in lg["queries"].items())
+        say(f"device scan: {tag} leg {lg['total_s']:.3f} s ({per} ms); counters "
+            f"{ {k: v for k, v in sorted(lg['counters'].items()) if k.startswith(('scan.device', 'columnCache', 'scan.rowgroups'))} }")
+    check(cold["counters"].get("columnCache.misses", 0) > 0, "the cold leg decoded no lane")
+    check(warm["counters"].get("columnCache.hits", 0) > 0, "the warm leg hit no lane")
+    check(warm["counters"].get("columnCache.misses", 0) == 0, "the warm leg missed a lane")
+    check(warm["counters"].get("scan.device.engaged", 0) == len(queries),
+          f"the warm leg engaged {warm['counters'].get('scan.device.engaged', 0)} times")
+    check(all(q["device_residual"] == "device" for q in warm["queries"].values()),
+          "a warm query's report is not 'device'")
+    check(all(q["device_residual"] is None for q in host["queries"].values()),
+          "a host query's report says 'device'")
+    check(launches["residual_mask"] > 0, "residual_mask was not launched on the read path")
+    say(f"device scan: launches on the read path {launches}; every query's rows and id sum "
+        f"equal numpy in all three legs")
+    # K14's measured input: the warm arith query's program over one file's lanes
+    cache = column_cache.ColumnCache.instance()
+    log_path = tab.delta_log.log_path
+    lanes = {c: cache.get(log_path, files[0].path, c) for c in ("price", "qty")}
+    return {"legs": {"host": host, "cold": cold, "warm": warm}, "launches": launches,
+            "lanes": lanes, "query": queries[3][1], "types": {"price": LongType(),
+                                                             "qty": LongType()}}
+
+
+def measure_residual_mask(dev, sctx):
+    """K14 on one config-12 file's resident lanes (the arith query), held
+    against its plain version and timed."""
+    lanes = sctx["lanes"]
+    n = lanes["price"].n
+    env = {c: device_eval.DeviceColumn(e.values, e.valid) for c, e in lanes.items()}
+    program, scalars = k14_program(sctx["query"], env, {}, sctx["types"])
+    got = column_cache.residual_mask(program, env, n, scalars)
+    ref = column_cache.residual_mask_plain(program, env, n, scalars)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "residual_mask != plain on config 12's lanes")
+    nbytes = sum(e.values.element_size() * n + n for e in lanes.values()) + n
+    b, by = bound(nbytes)
+    return [{"name": "residual_mask", "route": "cuda",
+             "source": "delta_tpu_torch/csrc/residual_mask.cu",
+             "replaces": "delta_tpu/ops/column_cache.py:312",
+             "launches": sctx["launches"]["residual_mask"],
+             "max_abs_err": max_abs_err(got, ref),
+             "ms": cuda_ms(lambda: column_cache.residual_mask(program, env, n, scalars), 50),
+             "plain_ms": cuda_ms(lambda: column_cache.residual_mask_plain(program, env, n,
+                                                                          scalars), 10),
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"n={n} cap={lanes['price'].values.shape[0]} {len(program.instrs)} "
+                      f"instructions over 2 int64 lanes ({sctx['query']})"}]
+
+
+# -- phase 9: OPTIMIZE ZORDER BY and the point query on bench config 3 --------------
+
+ZORDER_ROWS = 4_000_000  # bench.py:399 _rows(4_000_000)
+
+
+def reference_morton(cols):
+    """The numpy Morton order the JAX package computes: rank_u16, the
+    interleave with bits at 64 or past dropped, an unsigned stable argsort
+    (delta_tpu/ops/zorder.py:24-62, copied)."""
+    k = len(cols)
+    key = np.zeros(len(cols[0]), np.uint64)
+    for c, v in enumerate(cols):
+        order = np.argsort(v, kind="stable")
+        ranks = np.empty(len(v), np.int64)
+        ranks[order] = np.arange(len(v))
+        r = ((ranks * 65535) // max(len(v) - 1, 1)).astype(np.uint64)
+        for b in range(16):
+            if b * k + c < 64:
+                key |= ((r >> np.uint64(b)) & np.uint64(1)) << np.uint64(b * k + c)
+    return np.argsort(key, kind="stable")
+
+
+def run_zorder(dev, workdir):
+    """Bench config 3 through the port's entry points: 4M store_sales rows
+    appended in 8 chunks, the point query, OPTIMIZE ZORDER BY (ss_item_sk,
+    ss_sold_date_sk) with files of 500,000 rows, the point query again."""
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.exec.scan import scan_files
+
+    n = ZORDER_ROWS
+    data = store_sales(n, np.random.RandomState(5))
+    path = os.path.join(workdir, "config3")
+    DeltaLog.clear_cache()
+    key_cache.KeyCache.reset()
+    column_cache.ColumnCache.reset()
+    step = n // 8
+    log = DeltaLog.for_table(path, device=dev)
+    t0 = time.perf_counter()
+    for i in range(8):
+        WriteIntoDelta(log, "append", {c: v[i * step:(i + 1) * step] for c, v in data.items()}).run()
+    say(f"zorder: appended {n} rows in 8 commits in {time.perf_counter() - t0:.3f} s")
+    chunk_of = {}
+    for v in range(8):
+        for line in open(os.path.join(log.log_path, f"{v:020d}.json")):
+            obj = json.loads(line)
+            if "add" in obj:
+                chunk_of[obj["add"]["path"]] = v
+    key = int(data["ss_item_sk"][12345])
+    date = int(data["ss_sold_date_sk"][12345])
+    pred = f"ss_item_sk = {key} AND ss_sold_date_sk = {date}"
+    want = np.flatnonzero((data["ss_item_sk"] == key) & (data["ss_sold_date_sk"] == date))
+
+    def point_query():
+        DeltaLog.clear_cache()
+        t = DeltaTable.for_path(path, device=dev)
+        scan = scan_files(t.delta_log.update(), [pred])
+        out = t.to_table(filters=[pred])
+        torch.cuda.synchronize()
+        return len(scan.files), out
+
+    def rows_equal(out):
+        got = np.sort(out.column("ss_customer_sk").values)
+        return out.num_rows == len(want) and np.array_equal(
+            got, np.sort(data["ss_customer_sk"][want]))
+
+    native.reset_launches()  # -- the Z-order path starts here
+    point_query()
+    t0 = time.perf_counter()
+    pre_files, pre = point_query()
+    pre_s = time.perf_counter() - t0
+    check(rows_equal(pre), f"the point query before OPTIMIZE returned {pre.num_rows} rows")
+    snap = log.update()
+    order_in = [chunk_of[f.path] for f in snap.all_files]
+    epochs = (key_cache.KeyCache.instance().epoch(log.log_path),
+              column_cache.ColumnCache.instance().epoch(log.log_path))
+    t0 = time.perf_counter()
+    cmd = OptimizeCommand(log, z_order_by=["ss_item_sk", "ss_sold_date_sk"], target_rows=step)
+    version = cmd.run()
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    point_query()
+    t0 = time.perf_counter()
+    post_files, post = point_query()
+    post_s = time.perf_counter() - t0
+    launches = dict(native.launches)  # -- the Z-order path ends here
+    check(rows_equal(post), f"the point query after OPTIMIZE returned {post.num_rows} rows")
+    check(post_files < pre_files, f"files scanned {pre_files} -> {post_files}: no fall")
+    check(key_cache.KeyCache.instance().epoch(log.log_path) > epochs[0]
+          and column_cache.ColumnCache.instance().epoch(log.log_path) > epochs[1],
+          "OPTIMIZE did not bump both device caches' epochs")
+    check(launches["morton"] > 0, "morton was not launched on the Z-order path")
+    check(launches["residual_mask"] > 0, "residual_mask was not launched by the point query")
+    # the new files' rows, in order, against the numpy Morton reference
+    src = {c: np.concatenate([v[i * step:(i + 1) * step] for i in order_in])
+           for c, v in data.items()}
+    perm = reference_morton([src["ss_item_sk"], src["ss_sold_date_sk"]])
+    adds = [json.loads(line)["add"] for line in
+            open(os.path.join(log.log_path, f"{version:020d}.json")) if '"add"' in line]
+    check(len(adds) == 8, f"OPTIMIZE wrote {len(adds)} files, not 8")
+    for i, a in enumerate(adds):
+        t = read_parquet_file(os.path.join(path, a["path"]), ["ss_item_sk", "ss_sold_date_sk",
+                                                              "ss_net_paid"])
+        rows = perm[i * step:(i + 1) * step]
+        for c in ("ss_item_sk", "ss_sold_date_sk", "ss_net_paid"):
+            check(np.array_equal(t.column(c).values, src[c][rows]),
+                  f"OPTIMIZE file {i}: column {c} is not in the numpy Morton order")
+    say(f"zorder: point query {pre_s * 1e3:.1f} ms over {pre_files} files before OPTIMIZE, "
+        f"{post_s * 1e3:.1f} ms over {post_files} files after; {post.num_rows} rows both times, "
+        f"equal to numpy")
+    say(f"zorder: OPTIMIZE ZORDER BY (ss_item_sk, ss_sold_date_sk) {opt_s:.3f} s "
+        f"({cmd.metrics['numRemovedFiles']} files -> {cmd.metrics['numAddedFiles']}); every "
+        f"new file's rows in the numpy Morton order; both caches' epochs moved; launches "
+        f"{launches}")
+    ranks = np.stack([zorder.rank_u16(src["ss_item_sk"]),
+                      zorder.rank_u16(src["ss_sold_date_sk"])]).astype(np.int32)
+    return {"launches": launches, "ranks": torch.from_numpy(ranks).to(dev),
+            "pre_ms": pre_s * 1e3, "post_ms": post_s * 1e3, "optimize_s": opt_s,
+            "files": (pre_files, post_files)}
+
+
+def measure_morton(dev, zctx):
+    """K16 at config 3's OPTIMIZE input (k=2, n=4M), held against its plain
+    version and timed."""
+    ranks = zctx["ranks"]
+    k, n = ranks.shape
+    got, ref = zorder.interleave(ranks), zorder.interleave_plain(ranks)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "morton != plain at config 3's ranks")
+    b, by = bound(4 * k * n + 8 * n)
+    return [{"name": "morton", "route": "cuda", "source": "delta_tpu_torch/csrc/morton.cu",
+             "replaces": "delta_tpu/ops/zorder.py:34", "launches": zctx["launches"]["morton"],
+             "max_abs_err": max_abs_err(got, ref),
+             "ms": cuda_ms(lambda: zorder.interleave(ranks), 50),
+             "plain_ms": cuda_ms(lambda: zorder.interleave_plain(ranks), 5),
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"k={k} n={n} (config 3's OPTIMIZE)"}]
+
+
+# -- phase 10: times and bounds at the main path's shapes -----------------------
 
 
 def cull_ops(mins, maxs, alive, lo, hi):
@@ -1597,6 +2016,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         cctx = run_merge_command(dev, workdir)
         kernels += measure_join_probe(dev, cctx)
+        cctx = None
+        key_cache.KeyCache.reset()
+        torch.cuda.empty_cache()
+        sctx = run_device_scan(dev, workdir)
+        kernels += measure_residual_mask(dev, sctx)
+        sctx = None
+        zctx = run_zorder(dev, workdir)
+        kernels += measure_morton(dev, zctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

@@ -4,11 +4,15 @@ A second package beside the JAX one, which stays the reference. Ported so
 far: the scan-planning path (log replay into a snapshot, the table's scan
 lanes resident on the card, batched block-cull planning with an exact host
 fine pass, the whole of ``files_for_scan``), the tombstone replay, the
-transaction and the table writer, and the MERGE command with its key slab
-on the card (``ops/key_cache``) and its upload join (``ops/join_kernel``),
-over a Parquet codec of the port's own (``exec/parquet``)::
+transaction and the table writer, the MERGE command with its key slab on
+the card (``ops/key_cache``) and its upload join (``ops/join_kernel``), the
+filtered read path with row-group skipping and the residual filter on the
+card (``ops/column_cache``), and OPTIMIZE with its Z-order key on the card
+(``ops/zorder``), over a Parquet codec of the port's own
+(``exec/parquet``)::
 
-    from delta_tpu_torch import DeltaLog, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch import DeltaLog, DeltaTable, MergeClause, MergeIntoCommand
+    from delta_tpu_torch import WriteIntoDelta
     from delta_tpu_torch.commands.alter import set_table_properties
 
     log = DeltaLog.for_table(path)                    # device="cuda"
@@ -16,13 +20,17 @@ over a Parquet codec of the port's own (``exec/parquet``)::
     set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
     MergeIntoCommand(log, source, "t.k = s.k", [MergeClause("update")],
                      [MergeClause("insert")], source_alias="s", target_alias="t").run()
+    table = DeltaTable.for_path(path)
+    rows = table.to_table(filters=["k > 10"])       # a HostTable
+    table.optimize().execute_z_order_by("k", "v")
 
 It imports torch, numpy and the standard library only: never ``jax``,
 ``pyarrow`` or ``delta_tpu``. Its CUDA kernels live in ``csrc/`` and build
 at first use (``ops/native``).
 """
+from delta_tpu_torch.api.tables import DeltaTable
 from delta_tpu_torch.commands.merge import MergeClause, MergeIntoCommand
 from delta_tpu_torch.commands.write import WriteIntoDelta
 from delta_tpu_torch.log.deltalog import DeltaLog
 
-__all__ = ["DeltaLog", "WriteIntoDelta", "MergeIntoCommand", "MergeClause"]
+__all__ = ["DeltaLog", "DeltaTable", "WriteIntoDelta", "MergeIntoCommand", "MergeClause"]

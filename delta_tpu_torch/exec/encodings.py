@@ -99,9 +99,27 @@ def decode_hybrid(buf, pos: int, end: int, bit_width: int, num_values: int) -> n
     return out[:num_values]
 
 
+def _fixed_width_byte_arrays(buf, pos: int, end: int, count: int):
+    """PLAIN BYTE_ARRAY values of one length, as an ``S`` array in one
+    numpy pass, or None where the lengths differ (or a value is empty or
+    ends in a NUL byte)."""
+    if count == 0 or pos + 4 > end:
+        return None
+    (n0,) = struct.unpack_from("<I", buf, pos)
+    width = 4 + n0
+    if n0 == 0 or pos + count * width > end:
+        return None
+    block = np.frombuffer(buf, np.uint8, count * width, pos).reshape(count, width)
+    if not (block[:, :4].copy().view("<u4").ravel() == n0).all() or not block[:, -1].all():
+        return None
+    return np.ascontiguousarray(block[:, 4:]).view(f"S{n0}").ravel()
+
+
 def decode_plain(buf, pos: int, end: int, ptype: int, count: int):
     """``count`` PLAIN values of physical type ``ptype``: a numpy array for
-    fixed widths and booleans, a list of ``bytes`` for BYTE_ARRAY."""
+    fixed widths and booleans; for BYTE_ARRAY a fixed-width ``S`` array
+    where every value has one length and none ends in a NUL byte (numpy
+    strips trailing NULs), else a list of ``bytes``."""
     if ptype in _FIXED:
         dt = _FIXED[ptype]
         if pos + count * dt.itemsize > end:
@@ -114,6 +132,9 @@ def decode_plain(buf, pos: int, end: int, ptype: int, count: int):
         raw = np.frombuffer(buf, np.uint8, nbytes, pos)
         return np.unpackbits(raw, count=count, bitorder="little").astype(bool)
     if ptype == BYTE_ARRAY:
+        fixed = _fixed_width_byte_arrays(buf, pos, end, count)
+        if fixed is not None:
+            return fixed
         out = []
         mv = memoryview(buf)
         unpack = struct.Struct("<I").unpack_from
@@ -192,10 +213,18 @@ def encode_plain(ptype: int, values) -> bytes:
         return np.packbits(np.asarray(values, bool), bitorder="little").tobytes()
     if ptype == BYTE_ARRAY:
         vs: Sequence[bytes] = values
-        lens = np.fromiter((len(v) for v in vs), np.uint32, len(vs)).astype("<u4")
-        parts = []
-        for ln, v in zip(lens, vs):
-            parts.append(ln.tobytes())
-            parts.append(v)
-        return b"".join(parts)
+        n = len(vs)
+        lens = np.fromiter((len(v) for v in vs), np.int64, n)
+        starts = np.zeros(n, np.int64)
+        np.cumsum(4 + lens[:-1], out=starts[1:])
+        out = np.empty(int(4 * n + lens.sum()), np.uint8)
+        # each value's 4-byte length, then its bytes, scattered in one pass
+        out[(starts[:, None] + np.arange(4)).ravel()] = \
+            lens.astype("<u4").view(np.uint8).reshape(n, 4).ravel()
+        data = np.frombuffer(b"".join(vs), np.uint8)
+        if data.size:
+            data_starts = np.zeros(n, np.int64)
+            np.cumsum(lens[:-1], out=data_starts[1:])
+            out[np.repeat(starts + 4 - data_starts, lens) + np.arange(data.size)] = data
+        return out.tobytes()
     raise EncodingError(f"PLAIN {TYPE_NAMES.get(ptype, ptype)} is not encoded here")

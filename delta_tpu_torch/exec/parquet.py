@@ -7,12 +7,14 @@ decodes through Arrow's C++ Parquet module. The port does not depend on
 the values, ``exec/snappy`` for the JAX package's compressed pages):
 
 * :func:`read_parquet_file` / :func:`read_parquet_files`: a file's columns
-  (all, or a projection) as the port's ``HostTable``
-  (``expr/vectorized``);
+  (all, or a projection; all row groups, or a subset) as the port's
+  ``HostTable`` (``expr/vectorized``);
 * :func:`write_parquet_file`: PLAIN values, uncompressed pages, RLE
-  definition levels, row groups of :data:`ROW_GROUP_ROWS` rows (the JAX
-  package's ``delta.tpu.write.rowGroupRows`` default) and min/max/null
-  statistics per column chunk in the footer;
+  definition levels, row groups of ``delta.tpu.write.rowGroupRows`` rows
+  and min/max/null statistics per column chunk in the footer;
+* :func:`chunk_statistics`: one column chunk's footer statistics as the
+  Python values ``pyarrow``'s ``Statistics.min``/``max`` give (the row-group
+  planner's input, ``exec/rowgroups``);
 * :func:`json_stat_value`, :func:`collect_stats`, :func:`stats_json`: the
   protocol's per-file stats, with the JAX package's output.
 
@@ -47,6 +49,7 @@ import numpy as np
 from delta_tpu_torch.exec import encodings as enc
 from delta_tpu_torch.exec import snappy, thrift
 from delta_tpu_torch.expr.vectorized import DEFAULT_TYPE, HostColumn, HostTable
+from delta_tpu_torch.utils.config import conf
 
 __all__ = [
     "write_parquet_file",
@@ -57,11 +60,13 @@ __all__ = [
     "collect_stats",
     "stats_json",
     "json_stat_value",
+    "chunk_statistics",
     "ROW_GROUP_ROWS",
 ]
 
 MAGIC = b"PAR1"
-#: rows per row group the writer emits (``delta.tpu.write.rowGroupRows``)
+#: the default of ``delta.tpu.write.rowGroupRows``, the rows per row group
+#: the writer emits
 ROW_GROUP_ROWS = 131_072
 
 # CompressionCodec, PageType, FieldRepetitionType, ConvertedType (parquet.thrift)
@@ -430,9 +435,16 @@ def _to_column(stype: str, scale: int, chunks: List[Tuple[Any, np.ndarray]]) -> 
         dense = [d for d, _ in chunks]
         if n:
             flat = np.concatenate(dense)
-            if kind == "str":
+            if kind == "str" and flat.dtype.kind == "S":
+                # fixed-width bytes: decode each distinct value once
+                uniq, inv = np.unique(flat, return_inverse=True)
+                flat = np.array([u.decode("utf-8") for u in uniq.tolist()],
+                                object)[inv.ravel()]
+            elif kind == "str":
                 flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
                                    len(flat))
+            elif flat.dtype.kind == "S":
+                flat = flat.astype(object)
             out[valid] = flat
         return HostColumn(kind, out, valid, stype if stype != DEFAULT_TYPE[kind] else None)
     np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
@@ -449,10 +461,13 @@ def column_names(meta) -> List[str]:
     return list(_top_level(meta.schema))
 
 
-def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None) -> HostTable:
+def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None,
+                      row_groups: Optional[Sequence[int]] = None, meta=None) -> HostTable:
     """A data file's columns (all, or ``columns`` in the order given) as a
-    ``HostTable``."""
-    meta = read_metadata(abs_path)
+    ``HostTable``: every row group, or those of ``row_groups`` in the order
+    given. ``meta`` is the file's footer where the caller has read it."""
+    if meta is None:
+        meta = read_metadata(abs_path)
     top = _top_level(meta.schema)
     names = list(top) if columns is None else list(columns)
     for c in names:
@@ -462,17 +477,62 @@ def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None) ->
         if leaf < 0:
             raise _unsupported(c, "a nested column")
     cols: Dict[str, HostColumn] = {}
-    row_groups = meta.row_groups or []
+    all_groups = meta.row_groups or []
+    groups = all_groups if row_groups is None else [all_groups[i] for i in row_groups]
     with open(abs_path, "rb") as f:
         for c in names:
             el, leaf = top[c]
             stype, scale = _leaf_type(el)
             chunks = []
-            for rg in row_groups:
+            for rg in groups:
                 md = rg.columns[leaf].meta_data
                 chunks.append(_read_chunk(f, el, md, rg.num_rows))
             cols[c] = _to_column(stype, scale, chunks)
-    return HostTable(cols, int(meta.num_rows))
+    n = int(meta.num_rows) if row_groups is None else sum(int(rg.num_rows) for rg in groups)
+    return HostTable(cols, n)
+
+
+def _stat_value(el, ptype: int, raw: bytes) -> Any:
+    """One PLAIN-encoded footer statistic as ``pyarrow`` gives it: int,
+    float, bool, str for a string column and bytes for a binary one, a
+    ``date``, a ``datetime`` (aware in UTC where the column is adjusted to
+    UTC). Raises for a column the codec does not cover."""
+    stype, scale = _leaf_type(el)
+    if ptype == enc.BYTE_ARRAY:
+        return raw.decode("utf-8") if stype == "string" else bytes(raw)
+    if ptype == enc.BOOLEAN:
+        return raw[0] != 0
+    v = enc.decode_plain(raw, 0, len(raw), ptype, 1)[0]
+    if ptype in (enc.FLOAT, enc.DOUBLE):
+        return float(v)
+    v = int(v)
+    if stype == "date32":
+        return _EPOCH_DAY + _dt.timedelta(days=v)
+    if stype.startswith("timestamp"):
+        ts = _EPOCH_TS + _dt.timedelta(microseconds=v * scale)
+        return ts.replace(tzinfo=_dt.timezone.utc) if "UTC" in stype else ts
+    return v
+
+
+def chunk_statistics(meta, rg: int, leaf: int):
+    """Row group ``rg``'s statistics for leaf column ``leaf``: ``(null_count
+    or None, (min, max) or None)``, or None where the chunk has none. Only
+    ``min_value``/``max_value`` are read; the deprecated ``min``/``max``
+    fields count as absent (a group without bounds is kept)."""
+    md = meta.row_groups[rg].columns[leaf].meta_data
+    st = md.statistics
+    if st is None:
+        return None
+    bounds = None
+    if st.min_value is not None and st.max_value is not None:
+        el = _leaves(meta.schema)[leaf]
+        bounds = (_stat_value(el, md.type, st.min_value), _stat_value(el, md.type, st.max_value))
+    return st.null_count, bounds
+
+
+def _leaves(schema) -> List[Any]:
+    """The leaf ``SchemaElement`` of each column chunk, in chunk order."""
+    return [el for el in schema[1:] if not el.num_children]
 
 
 def read_parquet_files(abs_paths: Sequence[str],
@@ -554,8 +614,9 @@ def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
     n = table.num_rows
     out = bytearray(MAGIC)
     row_groups = []
-    for rg_i, lo in enumerate(range(0, n, ROW_GROUP_ROWS)):
-        hi = min(lo + ROW_GROUP_ROWS, n)
+    rg_rows = max(int(conf.get("delta.tpu.write.rowGroupRows", ROW_GROUP_ROWS)), 1)
+    for rg_i, lo in enumerate(range(0, n, rg_rows)):
+        hi = min(lo + rg_rows, n)
         chunks = []
         rg_start = len(out)
         for c, col, st in zip(names, cols, stypes):

@@ -1,18 +1,180 @@
-"""Parquet footers for the row-group layer (the port's own copy of
-``delta_tpu.exec.rowgroups``, cut to :func:`read_footer`).
+"""Row-group data skipping inside a Parquet file (the port's own copy of
+``delta_tpu.exec.rowgroups``: :func:`read_footer`, the pushdown planner
+:func:`plan_row_groups`, :func:`row_group_offsets` and
+:func:`row_groups_for_positions`).
 
-The JAX package keeps a bounded LRU of ``pyarrow`` footers here, beside the
-row-group pushdown planner; the port reads the footer with its own codec
-(``exec/parquet.read_metadata``) and has no cache and no planner yet.
+The planner evaluates a scan's skipping rewrite (``ops/pruning``, the same
+rewrite the file tier evaluates over AddFile stats) against each row
+group's footer statistics; a group survives unless the rewrite is
+definitely False. The statistics come from the port's own footer reader
+(``exec/parquet.chunk_statistics``), decoded to the Python values
+``pyarrow`` gives, so a plan here equals the JAX package's plan over the
+same file. The JAX package's footer LRU, its fired-rewrite attribution and
+``stats_from_footer`` (CONVERT TO DELTA) are not ported: the port reads
+each footer once per scan.
 """
 from __future__ import annotations
 
-from delta_tpu_torch.exec.parquet import read_metadata
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, FrozenSet, List, Optional
 
-__all__ = ["read_footer"]
+import numpy as np
+
+from delta_tpu_torch.exec.parquet import chunk_statistics, read_metadata
+from delta_tpu_torch.expr import ir
+
+__all__ = ["read_footer", "RowGroupPlan", "plan_row_groups", "row_group_offsets",
+           "row_groups_for_positions"]
 
 
 def read_footer(abs_path: str):
     """The file's parsed footer (``exec.thrift.FileMetaData``: ``num_rows``,
     ``row_groups``, ``schema``)."""
     return read_metadata(abs_path)
+
+
+class _StatsEnv(dict):
+    """Row environment for the skipping rewrite: lookups are
+    case-insensitive and missing stats resolve to NULL instead of raising —
+    NULL keeps the row group, which is what absent or evolved columns must
+    do."""
+
+    def __contains__(self, key: object) -> bool:  # Column.eval probes first
+        return True
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return super().get(key.lower())
+        return super().get(key)
+
+
+def _column_index(meta) -> Dict[str, int]:
+    """Lowercased top-level leaf name -> column-chunk index. Nested leaves
+    are skipped: only flat columns carry stats lanes, as at the file
+    tier."""
+    out: Dict[str, int] = {}
+    if not meta.row_groups:
+        return out
+    for j, chunk in enumerate(meta.row_groups[0].columns):
+        path = chunk.meta_data.path_in_schema
+        if len(path) != 1:
+            continue
+        out[path[0].lower()] = j
+    return out
+
+
+def _float_leaves(meta, col_index: Dict[str, int]) -> FrozenSet[str]:
+    from delta_tpu_torch.exec import encodings as enc
+
+    chunks = meta.row_groups[0].columns if meta.row_groups else []
+    return frozenset(name for name, j in col_index.items()
+                     if chunks[j].meta_data.type in (enc.FLOAT, enc.DOUBLE))
+
+
+def _safe_bounds(mn: Any, mx: Any, is_float: bool):
+    """Drop bound pairs the planner must not trust: binary (possibly
+    truncated) and NaN floats (legacy writers put NaN in min/max)."""
+    if isinstance(mn, bytes) or isinstance(mx, bytes):
+        return None, None
+    if is_float and ((isinstance(mn, float) and math.isnan(mn))
+                     or (isinstance(mx, float) and math.isnan(mx))):
+        return None, None
+    return mn, mx
+
+
+def _rg_env(meta, i: int, col_index: Dict[str, int], float_leaves: FrozenSet[str],
+            part_row: Optional[Dict[str, Any]]) -> _StatsEnv:
+    env = _StatsEnv()
+    env["numrecords"] = int(meta.row_groups[i].num_rows)
+    for name, j in col_index.items():
+        try:
+            st = chunk_statistics(meta, i, j)
+        except Exception:
+            continue  # undecodable stats value: leave the lanes NULL (keep)
+        if st is None:
+            continue
+        null_count, bounds = st
+        if null_count is not None:
+            env[f"nullcount.{name}"] = int(null_count)
+        if bounds is not None:
+            mn, mx = _safe_bounds(bounds[0], bounds[1], name in float_leaves)
+            if mn is not None:
+                env[f"min.{name}"] = mn
+            if mx is not None:
+                env[f"max.{name}"] = mx
+    if part_row:
+        for k, v in part_row.items():
+            env[k.lower()] = v
+    return env
+
+
+@dataclass
+class RowGroupPlan:
+    """Surviving row groups of one file; ``skipped_bytes`` is the
+    uncompressed size of the pruned groups (the decode work avoided)."""
+
+    keep: List[int]
+    total: int
+    skipped_bytes: int = 0
+
+
+def plan_row_groups(meta, predicate: ir.Expression,
+                    part_row: Optional[Dict[str, Any]] = None,
+                    partition_cols: FrozenSet[str] = frozenset(),
+                    types: Optional[Dict[str, Any]] = None,
+                    rewrites: Optional[List] = None) -> RowGroupPlan:
+    """Evaluate ``predicate`` against each row group's footer statistics; a
+    group survives unless the rewritten can-match predicate is definitely
+    False. A file of one group short-circuits (the file tier already
+    ruled). ``types`` (lowercased column name -> DataType) arms the
+    predicate synthesis fallback; ``rewrites`` is a scan-constant
+    ``conjunct_rewrites(...)`` list the caller computed once."""
+    from delta_tpu_torch.ops.pruning import conjunct_rewrites, skipping_predicate
+
+    n = len(meta.row_groups or [])
+    all_groups = list(range(n))
+    if n <= 1:
+        return RowGroupPlan(all_groups, n)
+    if rewrites is None and types is not None:
+        rewrites = conjunct_rewrites([predicate], partition_cols, types)
+    if rewrites is not None:
+        rewritten = ir.and_all([r.rewritten for r in rewrites])
+    else:
+        rewritten = skipping_predicate(predicate, partition_cols)
+    if isinstance(rewritten, ir.Literal) and rewritten.value is None:
+        return RowGroupPlan(all_groups, n)  # nothing lowerable: keep all
+    col_index = _column_index(meta)
+    float_leaves = _float_leaves(meta, col_index)
+    keep: List[int] = []
+    skipped_bytes = 0
+    for i in all_groups:
+        env = _rg_env(meta, i, col_index, float_leaves, part_row)
+        try:
+            verdict = rewritten.eval(env)
+        except Exception:
+            verdict = None  # uncomparable stats value vs literal: keep
+        if verdict is False:
+            skipped_bytes += int(meta.row_groups[i].total_byte_size)
+        else:
+            keep.append(i)
+    return RowGroupPlan(keep, n, skipped_bytes)
+
+
+def row_group_offsets(meta) -> np.ndarray:
+    """Physical row offset of each row group; length ``num_row_groups + 1``
+    (the last entry is the file's row count)."""
+    counts = np.asarray([rg.num_rows for rg in meta.row_groups or []], dtype=np.int64)
+    off = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    return off
+
+
+def row_groups_for_positions(meta, positions) -> FrozenSet[int]:
+    """Row groups containing any of the given physical row positions."""
+    off = row_group_offsets(meta)
+    pos = np.asarray(positions, dtype=np.int64)
+    pos = pos[(pos >= 0) & (pos < off[-1])]
+    if pos.size == 0:
+        return frozenset()
+    return frozenset(int(i) for i in np.unique(np.searchsorted(off, pos, side="right") - 1))

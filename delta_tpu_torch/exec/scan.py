@@ -1,37 +1,51 @@
 """Scan executor: AddFiles -> ``HostTable`` (the port's own copy of
-``delta_tpu.exec.scan``'s ``read_files_as_table`` and ``scan_to_table``,
-unpartitioned).
+``delta_tpu.exec.scan``'s ``read_files_as_table``, ``scan_files`` and
+``scan_to_table``, unpartitioned).
 
 Decode each file through the port's Parquet codec (``exec/parquet``), drop
 the rows its deletion vector marks, fill the columns a file predates with
 NULL, cast each column up to the table's declared type, and optionally
 attach each row's PHYSICAL position in its file.
 
-Left out: partitioned tables (``NotImplementedError``); row-group skipping
-and late materialization — the ``predicate`` and ``late_materialize``
-arguments are accepted and every row group decodes, which is
-result-identical because callers re-filter or never consume the rows a
-pruned group would drop; the device residual masks of the column cache.
+A scan's read goes through three tiers, as in the JAX package: the file
+tier (``ops/pruning.files_for_scan``), the row-group tier inside each file
+(``exec/rowgroups``: footer statistics, then late materialization — the
+predicate's columns decode first and the other columns only for row groups
+with a possible match) and, where the residual lowers, the device residual
+(``ops/column_cache``): per-file Kleene-TRUE row masks computed on the card
+(K14), so row groups whose mask is all False never decode and the rest are
+filtered to the mask. ``scan_to_table`` re-applies the residual on the host
+over what survives, so every tier only changes what decodes, never what
+returns.
+
+Left out: partitioned tables (``NotImplementedError``), the decode thread
+pool, the scan journal and the fired-rewrite attribution.
 """
 from __future__ import annotations
 
 import os
+import time
 import urllib.parse
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from delta_tpu_torch.exec.parquet import column_names, read_metadata, read_parquet_file
+from delta_tpu_torch.exec import rowgroups
+from delta_tpu_torch.exec.parquet import column_names, read_parquet_file
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr.parser import parse_predicate
 from delta_tpu_torch.expr.vectorized import (
-    HostColumn, HostTable, cast_column, concat_tables, filter_table, null_column, stored_type,
+    HostColumn, HostTable, boolean_mask, cast_column, concat_tables, filter_table, null_column,
+    stored_type,
 )
+from delta_tpu_torch.obs import scan_report
 from delta_tpu_torch.ops import pruning
 from delta_tpu_torch.protocol.actions import AddFile
 from delta_tpu_torch.schema import schema_utils
+from delta_tpu_torch.utils import telemetry
+from delta_tpu_torch.utils.config import conf
 
-__all__ = ["read_files_as_table", "scan_to_table"]
+__all__ = ["read_files_as_table", "scan_files", "scan_to_table"]
 
 
 def _abs_data_path(data_path: str, file_path: str) -> str:
@@ -49,15 +63,37 @@ def _empty(metadata, out_names: Sequence[str]) -> HostTable:
     return HostTable(cols, 0)
 
 
+def _group_rows(offsets: np.ndarray, groups: Sequence[int]) -> np.ndarray:
+    """The physical rows of ``groups``, in order."""
+    if not groups:
+        return np.empty(0, np.int64)
+    return np.concatenate([np.arange(offsets[i], offsets[i + 1], dtype=np.int64)
+                           for i in groups])
+
+
 def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                         columns: Optional[Sequence[str]] = None, per_file: bool = False,
                         position_column: Optional[str] = None, predicate=None,
-                        late_materialize: bool = True, file_ready=None):
+                        late_materialize: bool = True, file_ready=None,
+                        device_masks: Optional[Dict[str, np.ndarray]] = None):
     """Decode AddFiles to one ``HostTable`` (or, ``per_file=True``, one per
     file in ``files`` order). Rows a file's deletion vector marks are
     dropped; ``position_column`` attaches each row's physical position
     (int64). ``file_ready(index, add, table)`` is called as each file's
-    table completes; an exception from it fails the read."""
+    table completes; an exception from it fails the read.
+
+    ``predicate`` turns on the row-group tier (``delta.tpu.read.
+    rowGroupSkipping``): row groups whose footer statistics cannot match
+    skip decode, and the survivors late-materialize around the predicate's
+    columns. Rows within surviving groups are NOT filtered: callers pass a
+    predicate only where they re-filter or never consume the rows outside
+    it. ``device_masks`` ({add.path: bool mask over the file's physical
+    rows}, from ``ops/column_cache.device_residual_masks``) switches masked
+    files to the device path: groups whose mask slice is all False skip
+    decode, the rest decode once and ARE filtered to the mask, so only a
+    caller that re-applies the residual may pass it. Positions stay
+    physical throughout: deletion vectors and masks both index physical
+    rows, and compose before any filter."""
     from delta_tpu_torch.protocol.deletion_vectors import (
         DeletionVectorDescriptor, read_deletion_vector,
     )
@@ -67,25 +103,153 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
     schema = metadata.schema
     out_names = list(columns) if columns is not None else [f.name for f in schema.fields]
     declared = {f.name: schema_utils.stored_type_for(f.data_type) for f in schema.fields}
+    total_bytes = sum(f.size or 0 for f in files)
+    telemetry.bump_counter("scan.files.read", len(files))
+    telemetry.bump_counter("scan.bytes.read", total_bytes)
+    scan_report.contribute(bytes_read=total_bytes)
     if not files:
         return [] if per_file else _empty(metadata, out_names)
-    out: List[HostTable] = []
-    for fidx, add in enumerate(files):
+
+    rg_skipping = conf.get_bool("delta.tpu.read.rowGroupSkipping", True)
+    pred_refs = (frozenset(r.lower() for r in ir.references(predicate))
+                 if predicate is not None else frozenset())
+    pred_rewrites = None
+    if predicate is not None:
+        from delta_tpu_torch.expr.synthesis import schema_types
+
+        # scan-constant: the row-group planner's rewrite, computed once
+        pred_rewrites = pruning.conjunct_rewrites([predicate], frozenset(),
+                                                  schema_types(metadata))
+    # per file: (groups, pruned, late skipped, bytes planned away, bytes late
+    # skipped, groups device skipped, bytes device skipped, survivor bytes)
+    rg_stats: List[tuple] = []
+
+    def _mask_table(t1: HostTable) -> HostTable:
+        """``t1`` plus a NULL column for each predicate column the file
+        predates: the table the residual filter will see, so the late
+        verdict cannot diverge from it."""
+        for f in schema.fields:
+            if f.name.lower() in pred_refs and f.name not in t1.columns:
+                kind, stype = declared[f.name]
+                t1 = t1.append_column(f.name, null_column(t1.num_rows, kind, stype))
+        return t1
+
+    def _decode_pruned(abs_path, meta, keep_idx, file_cols, present, need_positions):
+        """Decode only ``keep_idx`` (late-materializing around the predicate
+        columns): (table, physical positions or None, late-skipped groups,
+        late-skipped bytes)."""
+        offsets = rowgroups.row_group_offsets(meta)
+        late_skipped = late_bytes = 0
+        pred_cols = [c for c in file_cols if c.lower() in pred_refs]
+        rest_cols = [c for c in file_cols if c not in pred_cols]
+        # a predicate column stored in the file but outside the projection
+        # would mask as all NULL and late-skip groups that match
+        refs_covered = not (pred_refs & {c.lower() for c in present}
+                            - {c.lower() for c in file_cols})
+        t = None
+        if keep_idx and late_materialize and refs_covered and pred_cols and rest_cols:
+            t1 = read_parquet_file(abs_path, pred_cols, row_groups=keep_idx, meta=meta)
+            try:
+                mask = boolean_mask(predicate, _mask_table(t1))
+            except Exception:
+                mask = None  # unevaluable here: keep every group
+            if mask is not None:
+                survivors, rows = [], []
+                start = 0
+                for i in keep_idx:
+                    n_i = int(meta.row_groups[i].num_rows)
+                    if mask[start:start + n_i].any():
+                        survivors.append(i)
+                        rows.append(np.arange(start, start + n_i))
+                    else:
+                        late_skipped += 1
+                        rg = meta.row_groups[i]
+                        late_bytes += sum(
+                            int(ch.meta_data.total_uncompressed_size) for ch in rg.columns
+                            if ch.meta_data.path_in_schema[0] in rest_cols)
+                    start += n_i
+                if late_skipped:
+                    t1 = t1.take(np.concatenate(rows) if rows else np.empty(0, np.int64))
+                    keep_idx = survivors
+            t2 = read_parquet_file(abs_path, rest_cols, row_groups=keep_idx, meta=meta)
+            cols = dict(t1.columns)
+            cols.update(t2.columns)
+            t = HostTable({c: cols[c] for c in file_cols}, t1.num_rows)
+        if t is None:
+            t = read_parquet_file(abs_path, file_cols, row_groups=keep_idx, meta=meta)
+        pos = _group_rows(offsets, keep_idx) if need_positions else None
+        return t, pos, late_skipped, late_bytes
+
+    def _decode_device_masked(abs_path, meta, keep_idx, file_cols, need_positions, dev_mask):
+        """The device path's survivor fetch: drop the groups whose mask slice
+        is all False, decode the rest once and filter them to the mask:
+        (table, positions or None, (groups skipped, bytes skipped, survivor
+        bytes))."""
+        offsets = rowgroups.row_group_offsets(meta)
+        if len(dev_mask) != offsets[-1]:
+            raise ValueError(f"{abs_path}: a device mask of {len(dev_mask)} rows for a "
+                             f"file of {int(offsets[-1])} rows")
+        survivors = []
+        dev_skipped = dev_bytes = surv_bytes = 0
+        for i in keep_idx:
+            size = int(meta.row_groups[i].total_byte_size)
+            if dev_mask[offsets[i]:offsets[i + 1]].any():
+                survivors.append(i)
+                surv_bytes += size
+            else:
+                dev_skipped += 1
+                dev_bytes += size
+        t = read_parquet_file(abs_path, file_cols, row_groups=survivors, meta=meta)
+        phys = _group_rows(offsets, survivors)
+        keep = dev_mask[phys]
+        t = t.filter(keep)
+        pos = phys[keep] if need_positions else None
+        return t, pos, (dev_skipped, dev_bytes, surv_bytes)
+
+    def read_one(fidx: int, add: AddFile) -> HostTable:
         abs_path = _abs_data_path(data_path, add.path)
-        present = set(column_names(read_metadata(abs_path)))
+        meta = rowgroups.read_footer(abs_path)
+        present = column_names(meta)
         file_cols = [c for c in out_names if c in present]
-        t = read_parquet_file(abs_path, file_cols)
-        n_phys = t.num_rows
-        positions = None
+        need_positions = add.deletion_vector is not None or position_column is not None
+        t = positions = None
+        n_rg = len(meta.row_groups or [])
+        if rg_skipping and predicate is not None and n_rg:
+            keep_idx = list(range(n_rg))
+            skipped_bytes = 0
+            if n_rg > 1:
+                plan = rowgroups.plan_row_groups(meta, predicate, rewrites=pred_rewrites)
+                keep_idx, skipped_bytes = plan.keep, plan.skipped_bytes
+            pruned = n_rg - len(keep_idx)
+            late_capable = late_materialize and keep_idx and pred_refs and n_rg > 1
+            dev_mask = device_masks.get(add.path) if device_masks else None
+            if dev_mask is not None:
+                t, positions, dstats = _decode_device_masked(
+                    abs_path, meta, keep_idx, file_cols, need_positions, dev_mask)
+                rg_stats.append((n_rg, pruned, 0, skipped_bytes, 0) + dstats)
+            elif pruned or late_capable:
+                t, positions, late_n, late_bytes = _decode_pruned(
+                    abs_path, meta, keep_idx, file_cols, present, need_positions)
+                rg_stats.append((n_rg, pruned, late_n, skipped_bytes, late_bytes, 0, 0, 0))
+            else:
+                rg_stats.append((n_rg, 0, 0, 0, 0, 0, 0, 0))
+        if t is None:
+            t = read_parquet_file(abs_path, file_cols, meta=meta)
         if add.deletion_vector is not None:
             dv_rows = read_deletion_vector(DeletionVectorDescriptor.from_dict(add.deletion_vector),
-                                           data_path)
-            keep = np.ones(n_phys, dtype=bool)
-            keep[dv_rows.astype(np.int64)] = False
-            positions = np.flatnonzero(keep)
+                                           data_path).astype(np.int64)
+            if positions is None:
+                keep = np.ones(t.num_rows, dtype=bool)
+                keep[dv_rows] = False
+                positions = np.flatnonzero(keep)
+            else:
+                # a pruned or masked decode: positions are physical but
+                # sparse, so the DV maps through membership
+                keep = ~np.isin(positions, dv_rows)
+                positions = positions[keep]
             t = t.filter(keep)
-        elif position_column is not None:
-            positions = np.arange(n_phys, dtype=np.int64)
+        elif position_column is not None and positions is None:
+            positions = np.arange(t.num_rows, dtype=np.int64)
         cols = {}
         for name in out_names:
             if name not in declared:
@@ -105,28 +269,83 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         t = HostTable(cols, t.num_rows)
         if file_ready is not None:
             file_ready(fidx, add, t)
-        out.append(t)
+        return t
+
+    out = [read_one(i, add) for i, add in enumerate(files)]
+    if rg_stats:
+        s = np.asarray([r for r in rg_stats], np.int64).sum(axis=0)
+        rg_total, rg_pruned, rg_late, planned, late_bytes, rg_dev, dev_bytes, survivor = \
+            (int(v) for v in s)
+        bytes_skipped = planned + late_bytes + dev_bytes
+        telemetry.bump_counter("scan.rowgroups.total", rg_total)
+        for name, v in (("scan.rowgroups.pruned", rg_pruned),
+                        ("scan.rowgroups.lateSkipped", rg_late),
+                        ("scan.rowgroups.deviceSkipped", rg_dev),
+                        ("scan.bytes.skipped", bytes_skipped),
+                        ("scan.bytes.deviceSkipped", dev_bytes),
+                        ("scan.bytes.deviceSurvivor", survivor)):
+            if v:
+                telemetry.bump_counter(name, v)
+        scan_report.contribute(
+            row_groups_total=rg_total, row_groups_pruned=rg_pruned,
+            row_groups_late_skipped=rg_late, bytes_skipped=bytes_skipped,
+            bytes_skipped_planned=planned, row_groups_device_skipped=rg_dev,
+            bytes_device_skipped=dev_bytes, bytes_device_survivor=survivor)
     return out if per_file else concat_tables(out)
+
+
+def scan_files(snapshot, filters: Sequence[Union[str, ir.Expression]] = ()) -> pruning.DeltaScan:
+    exprs = [parse_predicate(f) if isinstance(f, str) else f for f in filters]
+    return pruning.files_for_scan(snapshot, exprs)
 
 
 def scan_to_table(snapshot, filters: Sequence[Union[str, ir.Expression]] = (),
                   columns: Optional[Sequence[str]] = None) -> HostTable:
-    """The full read path: prune the files (``files_for_scan``), decode
-    (projection plus the filters' columns), apply the residual filter,
-    project: the table's live rows."""
-    exprs = [parse_predicate(f) if isinstance(f, str) else f for f in filters]
-    scan = pruning.files_for_scan(snapshot, exprs)
-    residual = scan.partition_filters + scan.data_filters
-    read_cols = columns
-    if columns is not None and residual:
-        needed = set(columns)
-        for e in residual:
-            needed.update(ir.references(e))
-        read_cols = [c for c in [f.name for f in snapshot.metadata.schema.fields] if c in needed]
-    table = read_files_as_table(snapshot.delta_log.data_path, scan.files, snapshot.metadata,
-                                read_cols)
-    if residual and table.num_rows:
-        table = filter_table(table, ir.and_all(residual))
-    if columns is not None and read_cols != list(columns):
-        table = table.select([c for c in columns if c in table.columns])
-    return table
+    """The full read path: prune the files, compute the device residual
+    masks where the residual lowers, decode (projection plus the filters'
+    columns), apply the residual filter, project. Each call records a
+    :class:`~delta_tpu_torch.obs.scan_report.ScanReport`
+    (``obs.scan_report.last_scan_report()``)."""
+    from delta_tpu_torch.ops import column_cache
+
+    if snapshot.metadata.partition_columns:
+        raise NotImplementedError("reading a partitioned table is not ported")
+    token = scan_report.start_report(snapshot.delta_log.data_path, snapshot.version)
+    ok = False
+    try:
+        t0 = time.perf_counter_ns()
+        scan = scan_files(snapshot, filters)
+        t1 = time.perf_counter_ns()
+        residual = scan.partition_filters + scan.data_filters
+        pred = ir.and_all(residual) if residual else None
+        read_cols = columns
+        if columns is not None and residual:
+            needed = set(columns)
+            for e in residual:
+                needed.update(ir.references(e))
+            read_cols = [c for c in [f.name for f in snapshot.metadata.schema.fields]
+                         if c in needed]
+        device_masks = None
+        if residual and scan.files:
+            device_masks = column_cache.device_residual_masks(snapshot, scan.files, pred)
+        table = read_files_as_table(snapshot.delta_log.data_path, scan.files, snapshot.metadata,
+                                    read_cols, predicate=pred, device_masks=device_masks)
+        t2 = time.perf_counter_ns()
+        if residual and table.num_rows:
+            table = filter_table(table, pred)
+        if columns is not None and read_cols != list(columns):
+            table = table.select([c for c in columns if c in table.columns])
+        t3 = time.perf_counter_ns()
+        rep = scan_report.current_report()
+        rep.predicate = pred.sql() if pred is not None else None
+        rep.columns = list(columns) if columns is not None else None
+        rep.files_total = scan.total.files or 0
+        rep.files_after_partition = scan.partition.files or 0
+        rep.files_scanned = len(scan.files)
+        rep.rows_out = table.num_rows
+        rep.phase_ms = {"planning": (t1 - t0) // 1_000_000, "read": (t2 - t1) // 1_000_000,
+                        "filter": (t3 - t2) // 1_000_000}
+        ok = True
+        return table
+    finally:
+        scan_report.finish_report(token, completed=ok)

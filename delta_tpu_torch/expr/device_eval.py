@@ -27,12 +27,21 @@ Semantics are the JAX package's under x64, value for value:
   by constants that take the operand's type (int32 wraps them);
 * ``IN`` is NULL where not found and some option is NULL in ANY row (the
   option's validity reduces over all rows), so the kernel makes a first
-  pass per nesting level to reduce it;
+  pass per nesting level to reduce it; a program lowered with
+  ``row_in=True`` (the residual filter's, :func:`compile_residual`) takes
+  each option's validity in its own row instead, which is the host
+  evaluator's semantics (see ``ops/column_cache``);
 * AND/OR are Kleene.
 
 What the JAX package cannot trace (strings, LIKE, other functions, other
 casts, an unbound column) raises :class:`NotDeviceCompilable` here, at
 lowering, and the caller evaluates on the host instead.
+
+:func:`compile_residual` is the counterpart of ``jaxeval.compile_residual``:
+it rewrites a scan's residual predicate for lanes decoded from data files
+(strings as dictionary codes, dates as epoch days, timestamps as epoch
+microseconds) and adds the calendar nodes ``__ts_days`` and
+``__{year,month,day}_days``, which lower to the opcodes TSDAYS and CIVIL.
 """
 from __future__ import annotations
 
@@ -48,7 +57,8 @@ from delta_tpu_torch.ops import native
 from delta_tpu_torch.utils.errors import DeltaAnalysisError
 
 __all__ = ["DeviceColumn", "NotDeviceCompilable", "columns_from_numpy", "Program",
-           "lower", "compile_expr", "expr_eval", "expr_eval_plain"]
+           "lower", "compile_expr", "expr_eval", "expr_eval_plain", "STR_CODE_ABSENT",
+           "ResidualPlan", "compile_residual", "lane_dtypes"]
 
 
 class NotDeviceCompilable(DeltaAnalysisError):
@@ -97,8 +107,11 @@ _FROM_TORCH = {v: k for k, v in _TORCH.items()}
 OPS = ("LIT", "COL", "CAST", "ADD", "SUB", "MUL", "DIV", "NEG", "EQ", "NE", "LT", "LE",
        "GT", "GE", "AND", "OR", "NOT", "ISNULL", "ISNOTNULL", "NSEQ", "INSTEP", "FLAGALL",
        "INFIN", "COALESCE", "CASESTEP", "ABS", "FLOOR", "CEIL", "EXP", "SQRT", "LOG", "POW",
-       "TIMEFIELD")
+       "TIMEFIELD", "TSDAYS", "CIVIL", "INROW")
 OP = {name: i for i, name in enumerate(OPS)}
+#: the opcodes only a residual program (``compile_residual``, ``row_in``)
+#: holds: the calendar nodes and the per-row IN
+RESIDUAL_OPS = ("TSDAYS", "CIVIL", "INROW")
 
 #: physical registers and instructions the kernel holds (local memory and
 #: shared memory); a program needing more does not lower
@@ -123,7 +136,9 @@ class Program:
     env columns the COL instructions index, ``col_dtypes`` their dtypes.
     ``scalar`` when no column is read (the result is 0-d). ``passes`` is 1
     plus the deepest IN nesting that reduces an option's validity;
-    ``n_flags`` the flags those reductions fill."""
+    ``n_flags`` the flags those reductions fill. ``scalar_slots`` maps each
+    per-launch scalar (a name lowered with ``scalars=``) to the literal
+    slot the caller fills before each launch."""
 
     instrs: np.ndarray
     lits: np.ndarray
@@ -136,14 +151,19 @@ class Program:
     n_flags: int
     passes: int
     scalar: bool
+    scalar_slots: Dict[str, int] = None
 
     def opcodes(self) -> List[str]:
         return [OPS[i] for i in self.instrs[:, 0].tolist()]
 
 
 class _Lowering:
-    def __init__(self, col_dtypes: Dict[str, torch.dtype]):
+    def __init__(self, col_dtypes: Dict[str, torch.dtype], row_in: bool = False,
+                 scalars: Optional[Dict[str, int]] = None):
         self.env_dtypes = col_dtypes
+        self.row_in = row_in
+        self.scalars = scalars or {}
+        self.scalar_slots: Dict[str, int] = {}
         self.code: List[List[int]] = []
         self.lits: List[Tuple[int, bool]] = []
         self.lit_index: Dict[Tuple[int, int, bool], int] = {}
@@ -259,6 +279,12 @@ class _Lowering:
         raise NotDeviceCompilable(f"literal {v!r} has no device representation")
 
     def _column(self, name: str) -> Tuple[int, int]:
+        if name in self.scalars:  # a per-launch scalar: its own literal slot
+            dt = self.scalars[name]
+            if name not in self.scalar_slots:
+                self.scalar_slots[name] = len(self.lits)
+                self.lits.append((0, False))
+            return self.emit("LIT", dt, imm=self.scalar_slots[name]), dt
         key = name if name in self.env_dtypes else name.lower()
         if key not in self.env_dtypes:
             raise NotDeviceCompilable(f"column {name!r} not bound in device env")
@@ -279,11 +305,16 @@ class _Lowering:
         for o in e.options:
             ov = self.lower(o)
             dt = _promote(v[1], ov[1])
+            # INSTEP's validity: every option so far is valid in this row
             hit = self.emit("INSTEP", dt, self.cast(v, dt), self.cast(ov, dt), hit[0]), BOOL
+            if self.row_in:
+                continue
             level = _in_depth(o)
             self.max_level = max(self.max_level, level)
             self.emit("FLAGALL", ov[1], a=ov[0], imm=self.n_flags, imm2=level, dst=False)
             self.n_flags += 1
+        if self.row_in:
+            return self.emit("INROW", BOOL, hit[0], v[0]), BOOL
         return self.emit("INFIN", BOOL, hit[0], v[0], imm=first,
                          imm2=self.n_flags - first), BOOL
 
@@ -344,7 +375,18 @@ class _Lowering:
                         "second": (1_000_000, 60)}[name]
             return self.emit("TIMEFIELD", c[1], c[0], imm=self.slot(c[1], _const_bits(div, c[1])),
                              imm2=self.slot(c[1], _const_bits(mod, c[1]))), c[1]
+        if name == "__ts_days" and len(kids) == 1:
+            # epoch microseconds -> epoch days, a floor division
+            c = self.lower(kids[0])
+            return self.emit("TSDAYS", I64, self.cast(c, I64)), I64
+        if name in _CIVIL and len(kids) == 1:
+            # civil-from-days in int64 (the lane is cast first, as JAX does)
+            c = self.lower(kids[0])
+            return self.emit("CIVIL", I64, self.cast(c, I64), imm=_CIVIL.index(name)), I64
         raise NotDeviceCompilable(f"Func has no device lowering: {e.sql()}")
+
+
+_CIVIL = ("__year_days", "__month_days", "__day_days")
 
 
 def _const_bits(v: int, dt: int) -> int:
@@ -402,7 +444,8 @@ def _allocate(code: List[List[int]], n_vregs: int, root: int) -> Tuple[np.ndarra
 
 _READS = {"LIT": (), "COL": (), "CAST": (3,), "NEG": (3,), "NOT": (3,), "ISNULL": (3,),
           "ISNOTNULL": (3,), "ABS": (3,), "FLOOR": (3,), "CEIL": (3,), "EXP": (3,),
-          "SQRT": (3,), "LOG": (3,), "FLAGALL": (3,), "TIMEFIELD": (3,), "INFIN": (3, 4),
+          "SQRT": (3,), "LOG": (3,), "FLAGALL": (3,), "TIMEFIELD": (3,), "TSDAYS": (3,),
+          "CIVIL": (3,), "INFIN": (3, 4), "INROW": (3, 4),
           "INSTEP": (3, 4, 5), "CASESTEP": (3, 4, 5)}
 
 
@@ -414,11 +457,14 @@ def _reads(ins: List[int]) -> List[int]:
     return [ins[k] for k in _READS.get(OPS[ins[0]], (3, 4))]
 
 
-def lower(e: ir.Expression, col_dtypes: Dict[str, torch.dtype]) -> Program:
+def lower(e: ir.Expression, col_dtypes: Dict[str, torch.dtype], row_in: bool = False,
+          scalars: Optional[Dict[str, int]] = None) -> Program:
     """Lower ``e`` to a :class:`Program` for columns of the given dtypes
     (name -> torch dtype). Raises :class:`NotDeviceCompilable` where the
-    JAX package's ``compile_expr`` cannot trace ``e``."""
-    low = _Lowering(col_dtypes)
+    JAX package's ``compile_expr`` cannot trace ``e``. ``row_in`` takes an
+    IN option's validity per row (no reduction pass); ``scalars`` (name ->
+    program dtype) are names bound per launch into literal slots."""
+    low = _Lowering(col_dtypes, row_in, scalars)
     root, root_dt = low.lower(e)
     if len(low.code) > MAX_INSTRS:
         raise NotDeviceCompilable(f"{len(low.code)} instructions: more than {MAX_INSTRS}")
@@ -428,7 +474,7 @@ def lower(e: ir.Expression, col_dtypes: Dict[str, torch.dtype]) -> Program:
     lits = np.array([b for b, _ in low.lits] or [0], np.int64)
     lit_valid = np.array([v for _, v in low.lits] or [False], bool)
     return Program(instrs, lits, lit_valid, low.columns, low.col_dt, proot, root_dt,
-                   n_phys, low.n_flags, low.max_level + 1, low.scalar)
+                   n_phys, low.n_flags, low.max_level + 1, low.scalar, low.scalar_slots)
 
 
 class CompiledExpr:
@@ -606,6 +652,25 @@ def _floordiv_mod_int(a: torch.Tensor, d: torch.Tensor, m: torch.Tensor, dt: int
     return torch.remainder(q, m).to(_TORCH[dt])
 
 
+def _civil_plain(days: torch.Tensor):
+    """(year, month, day) of int64 epoch days, Hinnant's civil-from-days as
+    ``jaxeval.py:309-322`` writes it: after the era shift every operand is
+    non-negative, so truncating and floor division agree."""
+    z = days + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = torch.div(doe - torch.div(doe, 1460, rounding_mode="floor")
+                    + torch.div(doe, 36524, rounding_mode="floor")
+                    - torch.div(doe, 146096, rounding_mode="floor"), 365, rounding_mode="floor")
+    doy = doe - (365 * yoe + torch.div(yoe, 4, rounding_mode="floor")
+                 - torch.div(yoe, 100, rounding_mode="floor"))
+    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
+    day = doy - torch.div(153 * mp + 2, 5, rounding_mode="floor") + 1
+    month = torch.where(mp < 10, mp + 3, mp - 9)
+    year = yoe + era * 400 + (month <= 2).to(torch.int64)
+    return year, month, day
+
+
 def expr_eval_plain(program: Program, env: Env) -> DeviceColumn:
     """Plain PyTorch version of the K15 kernel: the same program, one
     instruction at a time over whole lanes."""
@@ -681,13 +746,19 @@ def expr_eval_plain(program: Program, env: Env) -> DeviceColumn:
             res = (v, true.expand(v.shape))
         elif op == "INSTEP":
             v = C[0] | ((A[0] == B[0]) & B[1])
-            res = (v, true.expand(v.shape))
+            res = (v, (C[1] & B[1]).expand(v.shape))
         elif op == "FLAGALL":
             flags[imm] = bool((~A[1]).any())
             continue
         elif op == "INFIN":
             any_null = any(flags[imm:imm + imm2])
             res = (A[0], B[1] & (A[0] | (not any_null)))
+        elif op == "INROW":
+            res = (A[0], B[1] & (A[0] | A[1]))
+        elif op == "TSDAYS":
+            res = (torch.div(A[0], 86_400_000_000, rounding_mode="floor"), A[1])
+        elif op == "CIVIL":
+            res = (_civil_plain(A[0])[imm], A[1])
         elif op == "COALESCE":
             res = (torch.where(A[1], A[0], B[0]), A[1] | B[1])
         elif op == "CASESTEP":
@@ -727,3 +798,251 @@ def expr_eval_plain(program: Program, env: Env) -> DeviceColumn:
     values = values.expand(shape) if values.dim() == 0 else values
     valid = valid.expand(shape) if valid.dim() == 0 else valid
     return DeviceColumn(values.to(_TORCH[program.root_dtype]).contiguous(), valid.contiguous())
+
+
+# -- the residual predicate, lowered for the device scan path -------------------
+
+#: dictionary code bound to a string literal ABSENT from a file's dictionary
+#: — real codes are >= 0, so equality never fires against it and inequality
+#: fires for every non-NULL row, exactly the host verdicts
+STR_CODE_ABSENT = -2
+
+_STRLIT_PREFIX = "__strlit"
+_CMP_TYPES = (ir.Eq, ir.Ne, ir.Lt, ir.Le, ir.Gt, ir.Ge)
+_CMP_FLIP = {ir.Lt: ir.Gt, ir.Le: ir.Ge, ir.Gt: ir.Lt, ir.Ge: ir.Le}
+
+
+class ResidualPlan(NamedTuple):
+    """A residual predicate lowered for the device scan path
+    (``ops/column_cache``): the rewritten expression (string literals have
+    become placeholder columns over dictionary codes, temporal literals
+    epoch ints), the data columns bound as lanes, the partition columns
+    bound as per-file scalars, and the string-literal bindings the caller
+    resolves per file against that file's dictionary (absent value ->
+    :data:`STR_CODE_ABSENT`)."""
+
+    expr: ir.Expression
+    refs: frozenset        # data columns needed as lanes (lower-cased)
+    part_refs: frozenset   # partition columns bound as per-file scalars
+    str_binds: tuple       # ((placeholder, column_lower, literal_value), ...)
+
+
+def lane_dtypes(types: Dict[str, Any]) -> Dict[str, torch.dtype]:
+    """The lane dtype of each column of a declared type, as
+    ``ops/column_cache`` decodes it: strings int32 codes, dates int32 epoch
+    days, timestamps int64 epoch µs, integers int64, floats float64,
+    booleans bool; a type with no lane form is left out."""
+    from delta_tpu_torch.schema.types import (
+        BooleanType, ByteType, DateType, DoubleType, FloatType, IntegerType, LongType,
+        ShortType, StringType, TimestampType,
+    )
+
+    out = {}
+    for name, t in types.items():
+        if isinstance(t, (StringType, DateType)):
+            out[name] = torch.int32
+        elif isinstance(t, (TimestampType, ByteType, ShortType, IntegerType, LongType)):
+            out[name] = torch.int64
+        elif isinstance(t, (FloatType, DoubleType)):
+            out[name] = torch.float64
+        elif isinstance(t, BooleanType):
+            out[name] = torch.bool
+    return out
+
+
+def compile_residual(e: ir.Expression, types: Dict[str, Any],
+                     partition_names=()) -> ResidualPlan:
+    """Rewrite and gate a residual predicate so it lowers over decoded file
+    lanes (``jaxeval.py:362``):
+
+    * string equality / ``IN`` against literals lowers to int32
+      dictionary-code compares through per-file placeholder columns; string
+      ORDER comparisons do not lower (codes are unordered);
+    * date/timestamp literals (ISO strings or datetime objects) become the
+      lane encodings (epoch days / epoch microseconds), and
+      ``year``/``month``/``day``/``to_date``/``hour`` over temporal columns
+      lower to the calendar opcodes;
+    * decimal columns, string partition references and mixed
+      date-vs-timestamp compares raise :class:`NotDeviceCompilable`, and
+      the caller keeps the host path.
+
+    ``types`` maps lower-cased column names to declared DataTypes;
+    ``partition_names`` marks the columns bound as per-file scalars."""
+    import datetime as _dt
+
+    from delta_tpu_torch.schema.types import DateType, DecimalType, StringType, TimestampType
+    from delta_tpu_torch.utils.timeparse import iso_to_date, iso_to_naive_utc
+
+    parts = frozenset(c.lower() for c in partition_names)
+    binds: list = []
+    refs: set = set()
+    part_refs: set = set()
+
+    def _ctype(x):
+        while isinstance(x, ir.Alias):
+            x = x.child
+        if isinstance(x, ir.Column):
+            return types.get(x.name.lower())
+        if isinstance(x, ir.Func) and x.name == "to_date" and len(x.children) == 1:
+            ct = _ctype(x.children[0])
+            return DateType() if isinstance(ct, (DateType, TimestampType)) else None
+        return None
+
+    def _note(c: ir.Column) -> ir.Column:
+        n = c.name.lower()
+        if isinstance(types.get(n), DecimalType):
+            raise NotDeviceCompilable(f"decimal column {c.name!r} stays on host (exact arithmetic)")
+        if n in parts:
+            if isinstance(types.get(n), StringType):
+                raise NotDeviceCompilable(f"string partition column {c.name!r} has no device codes")
+            part_refs.add(n)
+        else:
+            refs.add(n)
+        return ir.Column(n)
+
+    def _temporal_lit(lit: ir.Literal, dt) -> ir.Literal:
+        v = lit.value
+        if v is None:
+            return lit
+        if isinstance(v, str):
+            try:
+                v = iso_to_date(v) if isinstance(dt, DateType) else iso_to_naive_utc(v)
+            except ValueError:
+                raise NotDeviceCompilable(f"unparseable temporal literal {lit.value!r}") from None
+        if isinstance(dt, TimestampType) and isinstance(v, _dt.date) \
+                and not isinstance(v, _dt.datetime):
+            v = _dt.datetime.combine(v, _dt.time())  # midnight, like Spark
+        if isinstance(v, _dt.datetime):
+            if not isinstance(dt, TimestampType):
+                raise NotDeviceCompilable("timestamp literal vs date lane")
+            if v.tzinfo is None:
+                v = v.replace(tzinfo=_dt.timezone.utc)  # naive IS UTC here
+            return ir.Literal(int(v.timestamp() * 1_000_000))
+        if isinstance(v, _dt.date):
+            return ir.Literal((v - _dt.date(1970, 1, 1)).days)
+        raise NotDeviceCompilable(f"literal {v!r} does not coerce to a temporal lane")
+
+    def _strip(x):
+        while isinstance(x, ir.Alias):
+            x = x.child
+        return x
+
+    def _ifunc(name: str, child: ir.Expression) -> ir.Func:
+        # a lowering-only node (__ts_days / __{year,month,day}_days), built
+        # by the clone idiom because ir.Func validates public names; the host
+        # evaluators never see it
+        f = object.__new__(ir.Func)
+        f.name = name
+        f.children = (child,)
+        return f
+
+    def rw(x: ir.Expression) -> ir.Expression:
+        t = type(x)
+        if t is ir.Alias:
+            return rw(x.child)
+        if t is ir.Column:
+            return _note(x)
+        if t is ir.Literal:
+            v = x.value
+            if isinstance(v, str):
+                raise NotDeviceCompilable(f"string literal {v!r} outside a dictionary-code compare")
+            if isinstance(v, _dt.datetime):
+                if v.tzinfo is None:
+                    v = v.replace(tzinfo=_dt.timezone.utc)
+                return ir.Literal(int(v.timestamp() * 1_000_000))
+            if isinstance(v, _dt.date):
+                return ir.Literal((v - _dt.date(1970, 1, 1)).days)
+            return x
+        if t in _CMP_TYPES or t is ir.NullSafeEq:
+            l, r = x.left, x.right
+            if isinstance(l, ir.Literal) and not isinstance(r, ir.Literal):
+                l, r = r, l
+                t = _CMP_FLIP.get(t, t)
+            lt_, rt_ = _ctype(l), _ctype(r)
+            if isinstance(lt_, (DateType, TimestampType)) \
+                    and isinstance(rt_, (DateType, TimestampType)):
+                if type(lt_) is not type(rt_):
+                    raise NotDeviceCompilable("mixed date/timestamp compare (lane units differ)")
+                return t(rw(l), rw(r))
+            if isinstance(lt_, (DateType, TimestampType)) and isinstance(r, ir.Literal):
+                return t(rw(l), _temporal_lit(r, lt_))
+            stringy = (isinstance(lt_, StringType) or isinstance(rt_, StringType)
+                       or isinstance(getattr(_strip(l), "value", None), str)
+                       or isinstance(getattr(_strip(r), "value", None), str))
+            if stringy:
+                col, lit = _strip(l), _strip(r)
+                if t in (ir.Eq, ir.Ne, ir.NullSafeEq) and isinstance(lt_, StringType) \
+                        and isinstance(col, ir.Column) and isinstance(lit, ir.Literal) \
+                        and (lit.value is None or isinstance(lit.value, str)):
+                    if lit.value is None:
+                        return t(_note(col), ir.Literal(None))
+                    ph = f"{_STRLIT_PREFIX}{len(binds)}"
+                    binds.append((ph, col.name.lower(), lit.value))
+                    return t(_note(col), ir.Column(ph))
+                raise NotDeviceCompilable(f"string comparison stays on host: {x.sql()}")
+            return t(rw(l), rw(r))
+        if t is ir.In:
+            v = _strip(x.value)
+            vt = _ctype(v)
+            opts = list(x.options)
+            if isinstance(vt, StringType):
+                if not isinstance(v, ir.Column):
+                    raise NotDeviceCompilable("string IN over a non-column")
+                new_opts = []
+                for o in opts:
+                    o = _strip(o)
+                    if not isinstance(o, ir.Literal):
+                        raise NotDeviceCompilable("string IN option is not a literal")
+                    if o.value is None:
+                        new_opts.append(o)  # NULL option: Kleene semantics
+                        continue
+                    if not isinstance(o.value, str):
+                        raise NotDeviceCompilable(f"non-string option {o.value!r} in string IN")
+                    ph = f"{_STRLIT_PREFIX}{len(binds)}"
+                    binds.append((ph, v.name.lower(), o.value))
+                    new_opts.append(ir.Column(ph))
+                return ir.In(_note(v), new_opts)
+            if isinstance(vt, (DateType, TimestampType)):
+                new_opts = [o if (isinstance(_strip(o), ir.Literal) and _strip(o).value is None)
+                            else _temporal_lit(_strip(o), vt)
+                            if isinstance(_strip(o), ir.Literal) else rw(o)
+                            for o in opts]
+                return ir.In(rw(x.value), new_opts)
+            return ir.In(rw(x.value), [rw(o) for o in opts])
+        if t is ir.Func and x.name in ("year", "month", "day") and len(x.children) == 1:
+            ct = _ctype(x.children[0])
+            child = rw(x.children[0])
+            if isinstance(ct, TimestampType):
+                child = _ifunc("__ts_days", child)
+            elif not isinstance(ct, DateType):
+                raise NotDeviceCompilable(f"{x.name}() over a non-temporal lane")
+            return _ifunc(f"__{x.name}_days", child)
+        if t is ir.Func and x.name == "to_date" and len(x.children) == 1:
+            ct = _ctype(x.children[0])
+            if isinstance(ct, TimestampType):
+                return _ifunc("__ts_days", rw(x.children[0]))
+            if isinstance(ct, DateType):
+                return rw(x.children[0])
+            raise NotDeviceCompilable("to_date over a non-temporal lane")
+        if t is ir.Func and x.name == "hour" and len(x.children) == 1:
+            if not isinstance(_ctype(x.children[0]), TimestampType):
+                raise NotDeviceCompilable("hour() needs a timestamp lane")
+            return ir.Func("hour", [rw(x.children[0])])
+        # generic rebuild (And/Or/Not/arithmetic/null tests/Coalesce/CaseWhen/
+        # Cast/other Funcs): unsupported shapes surface from the lowering
+        new_children = tuple(rw(c) for c in x.children)
+        if new_children == x.children:
+            return x
+        clone = object.__new__(t)
+        clone.__dict__.update(x.__dict__)
+        clone.children = new_children
+        return clone
+
+    out = rw(e)
+    plan = ResidualPlan(out, frozenset(refs), frozenset(part_refs), tuple(binds))
+    # validate the lowering now, for the lanes the declared types give
+    dtypes = lane_dtypes(types)
+    scalars = {ph: I64 for ph, _c, _v in plan.str_binds}
+    scalars.update({c: _FROM_TORCH[dtypes.get(c, torch.float64)] for c in plan.part_refs})
+    lower(out, {c: dtypes.get(c, torch.float64) for c in refs}, row_in=True, scalars=scalars)
+    return plan

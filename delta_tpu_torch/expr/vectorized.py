@@ -420,20 +420,20 @@ def _numeric_coerce(l, r, n: int):
     return l, r
 
 
-def _str_cmp(op, a: np.ndarray, b: np.ndarray, valid: np.ndarray) -> np.ndarray:
+def _str_cmp(cls, a: np.ndarray, b: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Strings compare as their UTF-8 bytes (Arrow's order), which is
+    code-point order, Python's own str order: one pass over the valid
+    rows."""
     out = np.zeros(len(valid), bool)
-    for i in np.nonzero(valid)[0]:
-        out[i] = op(a[i].encode("utf-8"), b[i].encode("utf-8"))
+    idx = np.nonzero(valid)[0]
+    if len(idx):
+        out[idx] = np.asarray(_OPS[cls](a[idx], b[idx]), bool)
     return out
 
 
 _OPS = {
     ir.Eq: np.equal, ir.Ne: np.not_equal, ir.Lt: np.less, ir.Le: np.less_equal,
     ir.Gt: np.greater, ir.Ge: np.greater_equal,
-}
-_PYOPS = {
-    ir.Eq: lambda a, b: a == b, ir.Ne: lambda a, b: a != b, ir.Lt: lambda a, b: a < b,
-    ir.Le: lambda a, b: a <= b, ir.Gt: lambda a, b: a > b, ir.Ge: lambda a, b: a >= b,
 }
 
 
@@ -446,7 +446,7 @@ def _compare(cls, l, r, n: int) -> HostColumn:
     rv, rok = _as(r, kind, n)
     valid = lok & rok
     if kind == "str":
-        return HostColumn("bool", _str_cmp(_PYOPS[cls], lv, rv, valid), valid)
+        return HostColumn("bool", _str_cmp(cls, lv, rv, valid), valid)
     with np.errstate(invalid="ignore"):
         out = _OPS[cls](lv, rv)
     return HostColumn("bool", np.asarray(out, bool) & valid, valid)
@@ -728,6 +728,15 @@ class _Vectorizer:
             days = v if c.kind == "date" else np.floor_divide(v, 86_400_000_000)
             field = _civil(days)[("year", "month", "day").index(name)]
             return HostColumn("int", field, ok)
+        if name in ("hour", "minute", "second") and len(e.children) == 1:
+            c = self.visit(e.children[0])
+            if c.kind != "ts":
+                return self._fallback(e)  # int-µs inputs keep the row semantics
+            # Arrow's temporal field kernels: floor to the unit, then the field
+            v, ok = _parts(c, self.n)
+            div, mod = {"hour": (3_600_000_000, 24), "minute": (60_000_000, 60),
+                        "second": (1_000_000, 60)}[name]
+            return HostColumn("int", np.floor_divide(v, div) % mod, ok)
         if name == "to_date" and len(e.children) == 1:
             c = self.visit(e.children[0])
             if c.kind != "str":

@@ -7,7 +7,10 @@
   ``delta.tpu.merge.residentKeys.enabled``, ``residentKeys.minRows``,
   ``nonEquiPairBudget``), the writer's ``delta.tpu.write.targetFileRows``,
   the deletion-vector switch, the schema-evolution switch (which the port
-  refuses when on) and ``delta.tpu.history.metricsEnabled``. A key that is
+  refuses when on), ``delta.tpu.history.metricsEnabled``, and the read
+  path's keys: ``delta.tpu.read.deviceResidual.mode``,
+  ``delta.tpu.read.rowGroupSkipping``, ``delta.tpu.columnCache.maxBytes`` /
+  ``maxEntries`` and the writer's ``delta.tpu.write.rowGroupRows``. A key that is
   not in the table reads as the caller's default, as in the JAX package.
 * :class:`DeltaConfigs` is the JAX package's table-property registry,
   whole, so that a table property is validated (and an unknown ``delta.``
@@ -58,6 +61,17 @@ class SqlConf:
         "delta.tpu.write.targetFileRows": 4_000_000,
         # DML writes deletion vectors where the table enables them
         "delta.tpu.deletionVectors.enabled": True,
+        # rows per Parquet row group the writer emits
+        "delta.tpu.write.rowGroupRows": 131_072,
+        # the device residual filter (ops/column_cache): "auto" and "force"
+        # engage it whenever the residual lowers (the port has no link cost
+        # model), "off" keeps the host path
+        "delta.tpu.read.deviceResidual.mode": "auto",
+        # the scan column cache's budgets (ColumnCache._evict)
+        "delta.tpu.columnCache.maxBytes": 1 << 30,
+        "delta.tpu.columnCache.maxEntries": 4096,
+        # footer row-group skipping and late materialization (exec/rowgroups)
+        "delta.tpu.read.rowGroupSkipping": True,
     }
 
     def __init__(self):

@@ -1,7 +1,7 @@
 """Error classes the port raises (the port's own copy of the subset of
 ``delta_tpu.utils.errors`` it needs): the log's, the expression
 language's (parser, row evaluator, host evaluator), the transaction's
-conflict verdicts and the writer's and the MERGE command's."""
+conflict verdicts, the writer's, the MERGE command's and OPTIMIZE's."""
 from __future__ import annotations
 
 from typing import Iterable, Optional
@@ -25,7 +25,8 @@ __all__ = [
     "table_already_exists", "merge_conflicting_set_columns", "invalid_merge_clause",
     "merge_unresolvable_qualifier", "merge_unresolvable_column", "merge_clause_unresolvable",
     "partition_columns_mismatch", "partition_column_not_found", "duplicate_columns",
-    "invalid_column_name",
+    "invalid_column_name", "not_a_delta_table", "zorder_column_not_in_schema",
+    "zorder_on_partition_column", "OptimizeBudgetExceeded",
 ]
 
 
@@ -325,3 +326,35 @@ def invalid_column_name(name: str) -> DeltaAnalysisError:
     return DeltaAnalysisError(
         f'Attribute name "{name}" contains invalid character(s) among '
         '" ,;{}()\\n\\t=". Please use alias to rename it.')
+
+
+def not_a_delta_table(identifier: str, operation: Optional[str] = None) -> DeltaAnalysisError:
+    if operation:
+        return DeltaAnalysisError(
+            f"{identifier} is not a Delta table. {operation} is only "
+            "supported for Delta tables.")
+    return DeltaAnalysisError(f"{identifier} is not a Delta table.")
+
+
+def zorder_column_not_in_schema(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Z-order column {column!r} not in table schema.")
+
+
+def zorder_on_partition_column(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot Z-order by partition column {column!r}: partition values "
+        "are constant within a file, so they add no clustering. Z-order by "
+        "data columns instead.")
+
+
+class OptimizeBudgetExceeded(DeltaError):
+    """The selected rewrite set exceeds ``max_rewrite_bytes``; raised before
+    any data is read or written."""
+
+    def __init__(self, est_bytes: int, cap_bytes: int, files: int):
+        super().__init__(
+            f"OPTIMIZE would rewrite {est_bytes} bytes across {files} "
+            f"files, over the {cap_bytes}-byte budget")
+        self.est_bytes = est_bytes
+        self.cap_bytes = cap_bytes
+        self.files = files

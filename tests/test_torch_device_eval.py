@@ -201,7 +201,11 @@ def test_plain_version_launches_nothing_on_the_cpu():
 
 
 def test_opcode_and_dtype_tables_match_the_kernel_source():
-    src = open(os.path.join(REPO, "delta_tpu_torch", "csrc", "expr_eval.cu")).read()
+    # the interpreter (opcodes, dtypes, registers) is shared by K15 and K14
+    # through csrc/expr_eval.cuh, which expr_eval.cu includes
+    csrc = os.path.join(REPO, "delta_tpu_torch", "csrc")
+    src = "".join(open(os.path.join(csrc, f)).read() for f in ("expr_eval.cu", "expr_eval.cuh"))
+    assert '#include "expr_eval.cuh"' in src
     ops = re.search(r"enum Op \{(.*?)\};", src, re.S).group(1)
     names = [x.split("=")[0].strip() for x in ops.replace("\n", " ").split(",")]
     assert tuple(names) == device_eval.OPS

@@ -472,3 +472,90 @@ def merge_routes(dev, tmp_path):
             for c, want in states[k + 1].items():
                 assert np.array_equal(t.column(c).values[order], want), (route, c)
     assert KeyCache.instance().last_build_error is None
+
+
+# -- K14 and K16 (the fifth slice) ---------------------------------------------------
+
+
+@pytest.mark.parametrize("n,cap", [(4096 - 17, 4096), ((1 << 20) - 4321, 1 << 20)])
+def test_residual_mask_kernel_matches_plain(cuda, n, cap):
+    """chip_smoke.py's K14 corpus over padded lanes of every dtype: exact."""
+    import chip_smoke
+    from delta_tpu_torch.ops import column_cache
+
+    env, mapping = chip_smoke.k14_lanes(n, cap, 7, cuda)
+    before = native.launches["residual_mask"]
+    for sql in chip_smoke.K14_CORPUS:
+        program, scalars = chip_smoke.k14_program(sql, env, mapping)
+        got = column_cache.residual_mask(program, env, n, scalars)
+        torch.cuda.synchronize()
+        assert torch.equal(got, column_cache.residual_mask_plain(program, env, n, scalars)), sql
+    assert native.launches["residual_mask"] == before + len(chip_smoke.K14_CORPUS)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+def test_morton_kernel_matches_plain(cuda, k):
+    import chip_smoke
+    from delta_tpu_torch.ops import zorder
+
+    ranks = chip_smoke.k16_ranks(k, (1 << 16) + 3, 1, cuda)
+    before = native.launches["morton"]
+    got = zorder.interleave(ranks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, zorder.interleave_plain(ranks))
+    assert native.launches["morton"] == before + 1
+
+
+def test_read_path_and_optimize_on_the_card_match_the_cpu(cuda, tmp_path):
+    """Bench config 12's queries at 64,000 rows and a Z-order OPTIMIZE of
+    the same table, on the card and on the CPU: the same rows, the same
+    files."""
+    import shutil
+
+    import chip_smoke
+    from delta_tpu_torch import DeltaTable, WriteIntoDelta
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.exec.scan import read_files_as_table
+    from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.config import conf
+
+    n = 64_000
+    data = chip_smoke.config12_data(n)
+    cols = {c: HostColumn({"cat": "str", "ts": "ts"}.get(c, "int"), v, np.ones(n, bool))
+            for c, v in data.items()}
+    path = str(tmp_path / "t")
+    with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": n // 8,
+                                 "delta.tpu.write.rowGroupRows": n // 64}):
+        WriteIntoDelta(DeltaLog.for_table(path, device="cpu"), "append",
+                       HostTable(cols, n)).run()
+    shutil.copytree(path, path + "-cpu")
+    ColumnCache.reset()
+    before = native.launches["residual_mask"]
+    with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
+        for _name, q, mask in chip_smoke.config12_queries(n)(data):
+            got = DeltaTable.for_path(path, device=cuda).to_table(filters=[q])
+            ref = DeltaTable.for_path(path + "-cpu", device="cpu").to_table(filters=[q])
+            assert got.num_rows == ref.num_rows == int(mask.sum()), q
+            assert np.array_equal(np.sort(got.column("id").values), data["id"][mask]), q
+    assert native.launches["residual_mask"] > before
+    from delta_tpu_torch.utils import telemetry
+
+    c0 = telemetry.counters("columnCache")
+    with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
+        DeltaTable.for_path(path, device=cuda).to_table(filters=["cat = 'eu-c'"])
+    c1 = telemetry.counters("columnCache")
+    assert c1.get("columnCache.hits", 0) > c0.get("columnCache.hits", 0)  # warm: resident
+    assert c1.get("columnCache.misses", 0) == c0.get("columnCache.misses", 0)
+    before = native.launches["morton"]
+    for p, dev in ((path, cuda), (path + "-cpu", "cpu")):
+        OptimizeCommand(DeltaLog.for_table(p, device=dev), z_order_by=["price", "cat"],
+                        target_rows=10_000).run()
+    assert native.launches["morton"] == before + 1
+    files = []
+    for p in (path, path + "-cpu"):
+        log = DeltaLog.for_table(p, device="cpu")
+        snap = log.update()
+        files.append(sorted((read_files_as_table(log.data_path, [f], snap.metadata)
+                             .column("id").values.tolist() for f in snap.all_files)))
+    assert files[0] == files[1] and len(files[0]) == 7
