@@ -30,10 +30,14 @@ Phases, each reported on its own line:
    lanes of every dtype padded to 2^20 (1,044,255 real rows): string codes
    with present, absent and NULL literals, dates and timestamps before
    1970 and +-10^6 days away, the calendar opcodes, INs whose option is a
-   column; and the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
-   ranks 0 and 65,535);
+   column; the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
+   ranks 0 and 65,535); and the link probe's warm-up (K17) at 8 and 2^20
+   int32;
 4. the scan-planning path at full size, with every launch counter set to 0
-   just before and read just after: a 1M-file table laid out as the hot-plan
+   just before and read just after (phases 4 and 5 pin
+   ``stateCache.devicePlan.mode=force``, phase 9 ``deviceResidual.mode=
+   force``: they count the kernels of a route, and under ``auto`` the router
+   may price the host side cheaper): a 1M-file table laid out as the hot-plan
    benchmark's
    config 6 (``bench.py:915-1000``, seed 13: 4 stats columns, well
    clustered) written as JSON commits through the port's LogStore (v0 =
@@ -96,15 +100,35 @@ Phases, each reported on its own line:
    query again: the same rows before and after, equal to numpy, fewer files
    scanned after, each new file's rows in the order of a numpy Morton
    reference, and both device caches' epochs moved;
-10. per kernel: time on the card (CUDA events, warmed, many launches) at
+10. the link-priced ``auto`` router, with the counters set to 0 again: the
+   link profile probed once (K17 first), then three ``auto`` legs. Config
+   6: the 256-query plan under ``devicePlan.mode=auto`` on phase 4's
+   resident entry, beside ``force`` and ``off`` (``bench.py:1030-1036``),
+   its plans equal to both and its ``via`` the decision ``_price_plan``'s
+   numbers imply. Config 2: a 1M-row upsert under ``devicePath.mode=auto``
+   on a fresh hard-linked copy of phase 7's table with a new source
+   (``bench.py:265-269``), then a resident one after the slab is warm
+   (``bench.py:336-339``), each end state equal to the numpy reference
+   upsert and each route the one ``cmd._router``'s ``deviceEstS`` /
+   ``hostEstS`` imply. Config 12: the 7 queries under
+   ``deviceResidual.mode=auto``, cold after ``ColumnCache.reset()`` and
+   warm, each equal to numpy, each report's ``device_residual`` its audit's
+   decision. The router's audits (predicted, actual, miss) are printed, not
+   gated. One JSON line gives the link profile and one the cost constants
+   measured at the main path's shapes (after phases 6-8 and in this one:
+   the host join and key decode from M0's ``phase_ms``, the cold build's
+   upload + K8, phase 6's probes, K12, config 12's host filter and warm
+   device pass, config 6's host and device plans);
+11. per kernel: time on the card (CUDA events, warmed, many launches) at
    the main path's shapes and inputs (K12 at M3's own padded inputs, K14
    on one config-12 file's resident lanes, K16 at config 3's OPTIMIZE
-   ranks, each held against its plain version there), the plain version's
+   ranks, K17 at the probe's 8 int32, each held against its plain version
+   there), the plain version's
    time, the least time the card could take (bytes over 3.35 TB/s or
    compares over 33.5e12/s, whichever is larger) and, where one PyTorch
    call computes the same function, that call's time; one JSON line lists
    them;
-11. last line: ``{"ok": true, "device": {...}}``.
+12. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -132,6 +156,9 @@ from delta_tpu_torch.ops import (
     column_cache, join_kernel, key_cache, native, pruning, replay_kernel, state_cache,
     state_export, zorder,
 )
+from delta_tpu_torch.obs import router_audit
+from delta_tpu_torch.parallel import link
+from delta_tpu_torch.utils.config import conf
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
     AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
@@ -268,6 +295,20 @@ def synthetic_checks(dev):
     k12_checks(dev)
     k14_checks(dev)
     k16_checks(dev)
+    k17_checks(dev)
+
+
+def k17_checks(dev):
+    """K17 (the link probe's warm-up) against ``a + 1`` at the probe's 8
+    elements and at 2^20 (int32.min included, int32.max - 1 the largest)."""
+    for n in (8, 1 << 20):
+        vals = np.random.RandomState(n).randint(-2**31, 2**31 - 1, n).astype(np.int32)
+        vals[0] = -2**31
+        a = torch.from_numpy(vals).to(dev)
+        got = link.link_probe(a)
+        torch.cuda.synchronize()
+        check(torch.equal(got, link.link_probe_plain(a)), f"link_probe != plain at n={n}")
+    say("kernels: link_probe (K17) n=8, 2^20 exact")
 
 
 #: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
@@ -1352,7 +1393,8 @@ def run_merge_command(dev, workdir):
         check(launches[k] > 0, f"kernel {k} was not launched on the MERGE command's path")
     check(any(launches[k] > 0 for k in K11), "no K11 update on the MERGE command's path")
     check("args" in captured, "M3 did not reach K12")
-    return {"merges": out, "launches": launches, "k12_args": captured["args"]}
+    return {"merges": out, "launches": launches, "k12_args": captured["args"], "path": path,
+            "state": refs[-1]}
 
 
 def measure_join_probe(dev, cctx):
@@ -1499,7 +1541,8 @@ def run_device_scan(dev, workdir):
     lanes = {c: cache.get(log_path, files[0].path, c) for c in ("price", "qty")}
     return {"legs": {"host": host, "cold": cold, "warm": warm}, "launches": launches,
             "lanes": lanes, "query": queries[3][1], "types": {"price": LongType(),
-                                                             "qty": LongType()}}
+                                                             "qty": LongType()},
+            "path": path, "data": data, "queries": queries}
 
 
 def measure_residual_mask(dev, sctx):
@@ -1667,7 +1710,283 @@ def measure_morton(dev, zctx):
              "shape": f"k={k} n={n} (config 3's OPTIMIZE)"}]
 
 
-# -- phase 10: times and bounds at the main path's shapes -----------------------
+# -- phase 10: the link-priced auto router ----------------------------------------
+
+#: the cost constants the router prices with, measured at the main path's
+#: shapes with the port's own code (filled after the phase that has the
+#: shapes; the config 6 pair in the router phase itself)
+CONSTS = {}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def measure_probe_constants(dev, mctx, slab_rows):
+    """RESIDENT_PROBE_S_PER_ROW from K9 + K10 at phase 6's shapes (CUDA
+    events, per slab + source row); RESIDENT_PAIR_S_PER_ROW and
+    RESIDENT_PROBE_FIXED_S from the wall time of a probe and its pair
+    mapping (``pairs_for_file`` per file, as the MERGE's finalize does) at
+    the bench's 1M source keys and at one key, the link terms of the cost
+    model taken out with this run's profile."""
+    entry, s_keys = mctx["entry"], mctx["source"]
+    n, m = entry.num_rows, len(s_keys)
+    k_ms = {r["name"]: r["ms"] for r in slab_rows}
+    rps = (k_ms["slab_probe"] + k_ms["pair_compact"]) / 1e3 / (n + m)
+
+    def probe(keys):
+        ok = np.ones(len(keys), bool)
+        res = entry.probe_async(keys, ok, expected_version=entry.version).result()
+        for path, (_off, rows) in res.slabs.items():
+            res.pairs_for_file(path, None, rows)
+        return len(res.t_pairs[0])
+
+    probe(s_keys)
+    big = sorted(timed(lambda: probe(s_keys)) for _ in range(3))[1]
+    small = sorted(timed(lambda: probe(s_keys[:1])) for _ in range(3))[1]
+    p = link.profile(dev)
+
+    def link_s(mm, pairs):
+        return (p.upload_s(mm * 4) + p.download_s(mm // 8 + 6) + p.download_s(pairs * 8)
+                + 3 * p.latency_s)
+
+    (big_s, big_pairs), (small_s, small_pairs) = big, small
+    pair = (big_s - small_s - (link_s(m, big_pairs) - link_s(1, small_pairs))
+            - (m - 1) * rps) / max(big_pairs - small_pairs, 1)
+    fixed = small_s - link_s(1, small_pairs) - (n + 1) * rps - small_pairs * pair
+    CONSTS.update(RESIDENT_PROBE_S_PER_ROW=rps, RESIDENT_PAIR_S_PER_ROW=pair,
+                  RESIDENT_PROBE_FIXED_S=fixed)
+    c = mctx["cold"]
+    # the cold build's upload + K8, less the transfer the model charges apart
+    CONSTS["DEVICE_SORT_S_PER_ROW"] = ((c["upload_widen_ms"] + c["sort_ms"]) / 1e3
+                                       - p.upload_s(n * 4)) / n
+    say(f"router: probe walls {big_s * 1e3:.3f} ms ({big_pairs} pairs, m={m}) and "
+        f"{small_s * 1e3:.3f} ms (m=1) over the {n}-row slab; cold build upload + widen "
+        f"{c['upload_widen_ms']:.3f} ms + K8 {c['sort_ms']:.3f} ms")
+
+
+def measure_join_constants(cctx, k12_rows):
+    """HOST_JOIN_S_PER_ROW and HOST_KEY_DECODE_S_PER_ROW from M0's
+    ``phase_ms`` (the host join over target + source rows; the decode of
+    the key projection, which is all a star upsert with deletion vectors
+    reads); KERNEL_S_PER_ROW from K12 at M3's padded inputs."""
+    m0 = cctx["merges"][0]
+    check(m0["route"] == "host", "M0 is not the host route")
+    ph = m0["phase_ms"]
+    CONSTS["HOST_JOIN_S_PER_ROW"] = ph["join_ms"] / 1e3 / (MERGE_ROWS + MERGE_SOURCE)
+    CONSTS["HOST_KEY_DECODE_S_PER_ROW"] = ph["decode_ms"] / 1e3 / MERGE_ROWS
+    t, s_ = cctx["k12_args"]
+    CONSTS["KERNEL_S_PER_ROW"] = k12_rows[0]["ms"] / 1e3 / (t.shape[0] + s_.shape[0])
+
+
+def measure_residual_constants(dev, sctx):
+    """HOST_RESIDUAL_S_PER_CELL: the host filter (``boolean_mask``) of each
+    config 12 query over its decoded predicate columns; DEVICE_RESIDUAL_S_
+    PER_CELL: the warm device pass (``device_residual_masks``: K14 per file,
+    the mask downloads), each per (row x predicate column)."""
+    from delta_tpu_torch.exec.scan import read_files_as_table, scan_files
+    from delta_tpu_torch.expr.vectorized import boolean_mask
+
+    log = DeltaLog.for_table(sctx["path"], device=dev)
+    snap = log.update()
+    host_s = dev_s = host_cells = dev_cells = 0
+    for _name, q, _mask in sctx["queries"]:
+        scan = scan_files(snap, [q])
+        pred = ir.and_all(scan.partition_filters + scan.data_filters)
+        refs = {r.lower() for r in ir.references(pred)}
+        cols = [f.name for f in snap.metadata.schema.fields if f.name.lower() in refs]
+        tab = read_files_as_table(log.data_path, scan.files, snap.metadata, columns=cols)
+        t, _ = min((timed(lambda: boolean_mask(pred, tab)) for _ in range(2)),
+                   key=lambda x: x[0])
+        host_s += t
+        host_cells += tab.num_rows * len(cols)
+        with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
+            column_cache.device_residual_masks(snap, scan.files, pred)
+            t, masks = min((timed(lambda: column_cache.device_residual_masks(
+                snap, scan.files, pred)) for _ in range(2)), key=lambda x: x[0])
+        dev_s += t
+        dev_cells += sum(len(mk) for mk in masks.values()) * len(cols)
+    CONSTS["HOST_RESIDUAL_S_PER_CELL"] = host_s / host_cells
+    CONSTS["DEVICE_RESIDUAL_S_PER_CELL"] = dev_s / dev_cells
+
+
+def auto_sources(state, seeds):
+    """Upserts for the auto legs, 1M rows each: half live keys of the
+    reference state, half fresh keys above every key so far."""
+    live = state["ss_item_sk"]
+    top = int(live.max()) + 1
+    out = []
+    for seed in seeds:
+        r = np.random.RandomState(seed)
+        existing = live[r.choice(len(live), MERGE_SOURCE // 2, replace=False)]
+        fresh = np.arange(top, top + MERGE_SOURCE - MERGE_SOURCE // 2, dtype=np.int64)
+        keys = np.concatenate([existing, fresh])
+        r.shuffle(keys)
+        out.append(dict(store_sales(MERGE_SOURCE, r), ss_item_sk=keys))
+        live = np.union1d(live, fresh)
+        top += MERGE_SOURCE
+    return out
+
+
+def implied(est, device_route, host_route):
+    """The route ``deviceEstS`` / ``hostEstS`` imply (both rounded to ms:
+    a tie admits either)."""
+    d, h = est.get("deviceEstS"), est.get("hostEstS")
+    check(d is not None and h is not None, f"no priced estimate in {est}")
+    if d == h:
+        return (device_route, host_route)
+    return (host_route,) if d > h else (device_route,)
+
+
+def run_router(dev, c6, c2, c12, workdir):
+    """Bench configs 6, 2 and 12 under ``auto``: every decision priced with
+    this run's link profile and the port's constants, checked against the
+    decision the printed prices imply, every result against its oracle."""
+    import shutil
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.obs import scan_report
+
+    native.reset_launches()  # -- the router's path starts here
+    link.reset()
+    router_audit.clear_audits()
+    t_probe, p = timed(lambda: link.profile(dev))
+    check(p.probed and np.isfinite([p.up_mbps, p.down_mbps, p.latency_s]).all()
+          and min(p.up_mbps, p.down_mbps, p.latency_s) > 0, f"link profile {p}")
+    say(json.dumps({"link": {"up_mbps": p.up_mbps, "down_mbps": p.down_mbps,
+                             "latency_s": p.latency_s, "probed": p.probed,
+                             "probe_bytes": link._PROBE_BYTES, "probe_s": t_probe}}))
+
+    # config 6: the 256-query plan on the resident entry, as bench.py:1030-1036
+    entry, ranges = c6["entry"], c6["ranges"]
+    k = entry.num_rows
+
+    def plan(mode):
+        with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": mode}):
+            return timed(lambda: entry.plan_ranges(ranges, k=k))
+
+    plan("force")
+    force_s, force_plans = min((plan("force") for _ in range(3)), key=lambda x: x[0])
+    off_s, off_plans = min((plan("off") for _ in range(2)), key=lambda x: x[0])
+    router_audit.clear_audits()
+    auto_runs = [plan("auto") for _ in range(2)]
+    auto_s, auto_plans = min(auto_runs, key=lambda x: x[0])
+    m = sum(r.verdict is None for r in ranges)
+    device_s, host_s, cells, fixed_s = entry._price_plan(m)
+    want_via = "device" if device_s < host_s else "host-resident"
+    for _, plans in auto_runs:
+        for i, (a, f, o) in enumerate(zip(plans, force_plans, off_plans)):
+            check(a.via == want_via, f"config 6 auto: query {i} via {a.via}, priced {want_via}")
+            check(np.array_equal(a.rows, f.rows) and np.array_equal(a.rows, o.rows),
+                  f"config 6 auto: query {i} differs from force or the host plan")
+    audits = [a for a in router_audit.recent_audits() if a["op"] == "scan.plan"]
+    check(len(audits) == 2 and all(a["decision"] == want_via for a in audits),
+          f"config 6 auto: audits {audits}")
+    CONSTS["HOST_PRUNE_S_PER_CELL"] = off_s / cells
+    CONSTS["DEVICE_PRUNE_S_PER_CELL"] = (force_s - fixed_s) / cells
+    a = audits[-1]
+    say(f"router: config 6 plan of {len(ranges)} queries over {k} files: force "
+        f"{force_s * 1e3:.3f} ms, off {off_s * 1e3:.3f} ms, auto {auto_s * 1e3:.3f} ms via "
+        f"{want_via} (priced device {device_s * 1e3:.3f} ms, host {host_s * 1e3:.3f} ms); "
+        f"audit predicted {a['predictedMs']} actual {a['actualMs']} miss {a['miss']}; plans "
+        "equal force's and the host's")
+
+    # config 2: a cold auto upsert on a fresh hard-linked copy of phase 7's
+    # table (bench.py:265-269), then a resident one after a warm slab
+    # (bench.py:336-339)
+    path = c2["path"] + "-auto"
+    shutil.copytree(c2["path"], path, copy_function=os.link)
+    log = DeltaLog.for_table(path, device=dev)
+    srcs = auto_sources(c2["state"], (14, 15))
+    state = c2["state"]
+    legs2 = []
+    for leg, src, routes in (("cold", srcs[0], ("device-cold", "host")),
+                             ("resident", srcs[1], ("resident", "host"))):
+        state = reference_upsert(state, src)
+        router_audit.clear_audits()
+        cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk", [MergeClause("update")],
+                               [MergeClause("insert")], source_alias="s", target_alias="t")
+        with conf.set_temporarily(**{"delta.tpu.merge.devicePath.mode": "auto"}):
+            run_s, _ = timed(cmd.run)
+        check(key_cache.KeyCache.instance().wait_warmups(600), f"auto {leg}: warmup hangs")
+        check(key_cache.KeyCache.instance().last_build_error is None,
+              f"auto {leg}: key-lane build error")
+        want = implied(cmd._router, *routes)
+        check(cmd._join_path in want, f"auto {leg}: route {cmd._join_path}, the prices in "
+              f"{cmd._router} imply {want}")
+        if leg == "resident":
+            check(cmd._router.get("cacheHit") is True, f"auto resident: no slab hit {cmd._router}")
+        check(cmd.metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
+              and cmd.metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
+              f"auto {leg}: metrics {cmd.metrics}")
+        got = end_state(log)
+        for c in STORE_SALES:
+            check(np.array_equal(got[c], state[c]),
+                  f"auto {leg}: end-state column {c} differs from the reference upsert")
+        [a] = [x for x in router_audit.recent_audits() if x["op"] == "merge.join"]
+        phases = {kk: round(v, 3) for kk, v in cmd.phase_ms.items()}
+        legs2.append({"leg": leg, "route": cmd._join_path, "wall_s": run_s})
+        say(f"router: config 2 auto {leg}: {cmd._join_path} {run_s:.3f} s wall, router "
+            f"{cmd._router}, phase_ms {phases}; audit predicted {a['predictedMs']} actual "
+            f"{a['actualMs']} miss {a['miss']}; end state of {len(got['ss_item_sk'])} rows x 8 "
+            "columns equal to the reference upsert")
+
+    # config 12: the 7 queries under auto, cold after ColumnCache.reset(), then warm
+    tab = DeltaTable.for_path(c12["path"], device=dev)
+    data = c12["data"]
+    column_cache.ColumnCache.reset()
+    legs12 = {}
+    for leg in ("cold", "warm"):
+        per = []
+        t_leg = time.perf_counter()
+        for name, q, mask in c12["queries"]:
+            router_audit.clear_audits()
+            with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "auto"}):
+                wall, result = timed(lambda: tab.to_table(filters=[q]))
+            rep = scan_report.last_scan_report()
+            ids = result.column("id").values
+            check(result.num_rows == int(mask.sum())
+                  and int(ids.sum()) == int(data["id"][mask].sum()),
+                  f"config 12 auto {leg} {name}: {result.num_rows} rows, id sum {int(ids.sum())}")
+            [a] = [x for x in router_audit.recent_audits() if x["op"] == "scan.residual"]
+            check(rep.device_residual == a["decision"],
+                  f"config 12 auto {leg} {name}: report {rep.device_residual}, audit "
+                  f"{a['decision']}")
+            per.append(f"{name} {a['decision']} {wall * 1e3:.1f} ms (predicted "
+                       f"{a['predictedMs']}, actual {a['actualMs']}, miss {a['miss']})")
+        legs12[leg] = time.perf_counter() - t_leg
+        say(f"router: config 12 auto {leg} leg {legs12[leg]:.3f} s: " + "; ".join(per))
+    launches = dict(native.launches)  # -- the router's path ends here
+    say(f"router: launches on the router's path {launches}")
+    check(launches["link_probe"] == 1, f"link_probe launched {launches['link_probe']} times, "
+          "not once per profile miss")
+    say(json.dumps({"constants": CONSTS}))
+    return {"launches": launches}
+
+
+def measure_link_probe(dev, rctx):
+    """K17 at the probe's 8 int32, held against its plain version; ``a + 1``
+    is also the library call."""
+    a = torch.arange(8, dtype=torch.int32, device=dev)
+    got, ref = link.link_probe(a), link.link_probe_plain(a)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "link_probe != plain at the probe's shape")
+    b, by = bound(8 * 4 * 2)
+    return [{"name": "link_probe", "route": "cuda", "source": "delta_tpu_torch/csrc/link_probe.cu",
+             "replaces": "delta_tpu/parallel/link.py:315",
+             "launches": rctx["launches"]["link_probe"], "max_abs_err": max_abs_err(got, ref),
+             "ms": cuda_ms(lambda: link.link_probe(a), 200),
+             "plain_ms": cuda_ms(lambda: link.link_probe_plain(a), 200),
+             "bound_ms": b, "bound_by": by,
+             "library_ms": cuda_ms(lambda: torch.add(a, 1), 200),
+             "shape": "n=8 int32 (the probe's warm-up)"}]
+
+
+# -- phase 11: times and bounds at the main path's shapes -----------------------
 
 
 def cull_ops(mins, maxs, alive, lo, hi):
@@ -2004,26 +2323,40 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        ctx = run_slice(dev, workdir)
-        run_fallback(dev, ctx)
+        # phases 4, 5 and 9 count the kernels of a pinned route: under auto
+        # the router may price the host side cheaper (phase 10 drives auto)
+        with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+            ctx = run_slice(dev, workdir)
+            run_fallback(dev, ctx)
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
         kernels += measure_normal_leg(dev, ctx)
-        ctx = None  # the scan phases' lanes and host state are done with
+        c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"]}
+        ctx = None  # the rest of the scan phases' host state is done with
         mctx = run_merge(dev, workdir)
-        kernels += measure_slab(dev, mctx)
+        slab_rows = measure_slab(dev, mctx)
+        kernels += slab_rows
+        measure_probe_constants(dev, mctx, slab_rows)
         mctx = None  # the key-slab phase's slabs are done with
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         cctx = run_merge_command(dev, workdir)
-        kernels += measure_join_probe(dev, cctx)
+        k12_rows = measure_join_probe(dev, cctx)
+        kernels += k12_rows
+        measure_join_constants(cctx, k12_rows)
+        c2 = {"path": cctx["path"], "state": cctx["state"]}
         cctx = None
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         sctx = run_device_scan(dev, workdir)
         kernels += measure_residual_mask(dev, sctx)
+        measure_residual_constants(dev, sctx)
+        c12 = {k: sctx[k] for k in ("path", "data", "queries")}
         sctx = None
-        zctx = run_zorder(dev, workdir)
+        with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
+            zctx = run_zorder(dev, workdir)
         kernels += measure_morton(dev, zctx)
+        rctx = run_router(dev, c6, c2, c12, workdir)
+        kernels += measure_link_probe(dev, rctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

@@ -9,7 +9,10 @@ the card (``ops/key_cache``) and its upload join (``ops/join_kernel``), the
 filtered read path with row-group skipping and the residual filter on the
 card (``ops/column_cache``), and OPTIMIZE with its Z-order key on the card
 (``ops/zorder``), over a Parquet codec of the port's own
-(``exec/parquet``)::
+(``exec/parquet``). Under each ``auto`` mode a link cost model
+(``parallel/link``, probed with K17) picks the card or the host for the
+scan plan, the MERGE join and the residual filter, and ``obs/router_audit``
+records each decision::
 
     from delta_tpu_torch import DeltaLog, DeltaTable, MergeClause, MergeIntoCommand
     from delta_tpu_torch import WriteIntoDelta
@@ -32,5 +35,18 @@ from delta_tpu_torch.api.tables import DeltaTable
 from delta_tpu_torch.commands.merge import MergeClause, MergeIntoCommand
 from delta_tpu_torch.commands.write import WriteIntoDelta
 from delta_tpu_torch.log.deltalog import DeltaLog
+from delta_tpu_torch.utils.config import conf
 
-__all__ = ["DeltaLog", "DeltaTable", "WriteIntoDelta", "MergeIntoCommand", "MergeClause"]
+
+def __getattr__(name):
+    # `delta_tpu_torch.obs` (scan reports, the router audit, calibration),
+    # imported on first use as in the JAX package
+    if name == "obs":
+        import delta_tpu_torch.obs as obs
+
+        return obs
+    raise AttributeError(f"module 'delta_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = ["DeltaLog", "DeltaTable", "WriteIntoDelta", "MergeIntoCommand", "MergeClause",
+           "conf", "obs"]

@@ -26,10 +26,23 @@ The join has four routes, named by ``cmd._join_path``:
   condition with no equi conjunct.
 
 The device routes take 1-2 integer equi keys and no residual conjunct.
-The port has no link cost model (the JAX package's constants are its TPU
-host's), so ``devicePath.mode=auto`` routes as ``force`` does: the device
-route whenever the merge is eligible; ``off`` pins the host join. Every
-route gives the same rows.
+``devicePath.mode=force`` takes a device route whenever the merge is
+eligible; ``off`` pins the host join; ``auto`` (the default) prices each
+device route against the host join with the link cost model
+(``parallel/link``), as the JAX package does: the cold estimate before the
+key decode, from the candidates' ``numRecords`` (``_rows_from_stats``:
+slab upload + sort + probe against the host join); the resident estimate
+when a slab is cached (the probe alone, plus the slab's re-upload when its
+device copy was dropped, against the host join and key decode); and the
+upload join's budget (``join_kernel.inner_join_async(budget_s=)``). A
+declined device route counts ``merge.device.declined`` and records
+``reason`` (``cold-estimate`` / ``resident-estimate`` / ``upload-declined``).
+``cmd._router`` carries the prices compared (``deviceEstS``,
+``hostEstS``); one ``delta.merge.router`` event and one ``merge.join``
+router audit (``obs/router_audit``: the prediction against the measured
+``key_decode_ms + join_ms``, with the calibrator's samples) follow each
+merge. Persisted calibration (``obs/calibration``) is applied before
+routing. Every route gives the same rows.
 
 Where the JAX package turns an error of the device route into the host
 join or a quietly cold next MERGE, the port raises: a kernel or CUDA error
@@ -42,8 +55,8 @@ whose rows disagree with its recorded count.
 Left out, each raising ``NotImplementedError``: schema evolution
 (``delta.tpu.schema.autoMerge.enabled`` with a star clause), tables with
 the change data feed, generated columns. Also left out, result-identical:
-the distributed touched-files probe, row-group skipping, and the router's
-telemetry (events, audit, journal, calibration).
+the distributed touched-files probe and ``devicePath.preferMesh`` (several
+cards), row-group skipping, and the workload journal.
 """
 from __future__ import annotations
 
@@ -71,6 +84,7 @@ from delta_tpu_torch.ops import key_cache as kc_mod
 from delta_tpu_torch.protocol.actions import Action, AddFile
 from delta_tpu_torch.schema import schema_utils
 from delta_tpu_torch.utils import errors as errors_mod
+from delta_tpu_torch.utils import telemetry
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
 from delta_tpu_torch.utils.errors import DeltaAnalysisError, DeltaUnsupportedOperationError
 
@@ -112,6 +126,18 @@ _SRC = "__s__"  # prefix for source columns in the combined pair table
 _TID = "__t_row__"
 _SID = "__s_row__"
 _FID = "__t_file__"
+
+
+def _rows_from_stats(candidates) -> Optional[int]:
+    """Total numRecords over the candidate files; None when a file lacks
+    stats (the cold estimate is then skipped)."""
+    total = 0
+    for add in candidates:
+        n = add.num_logical_records
+        if n is None:
+            return None
+        total += int(n)
+    return total
 
 
 def _int_column(values: np.ndarray) -> HostColumn:
@@ -294,10 +320,21 @@ class MergeIntoCommand:
         return self.delta_log.with_new_transaction(self._body)
 
     def _body(self, txn) -> int:
+        from delta_tpu_torch.obs import calibration
+
+        # persisted calibration first, so a fresh process routes with what
+        # the last one learned (a no-op unless calibration is enabled)
+        calibration.apply_state(self.delta_log.log_path)
         # per-execution state: a re-run must not consume a previous run's
         # device-join flags
         self._device_join = None
         self._resident_candidate = None
+        # the router audit's workload: (target rows, source rows) the join
+        # saw, the slab's rows where a device probe ran, and whether a
+        # device route existed for this condition at all
+        self._audit_units = None
+        self._audit_eligible = False
+        self._audit_slab_rows = None
         # 'resident' | 'device-cold' | 'device-upload' | 'host'
         self._join_path = "host"
         self._router: Dict[str, Any] = {}
@@ -341,6 +378,7 @@ class MergeIntoCommand:
         candidates = candidate_files(txn, prune)
         insert_only = not self.matched_clauses
         matched_pairs, tgt_tables = self._join(txn, candidates, src, equi, residual, metadata)
+        self._emit_router()
         scan_ms = timer.lap_ms()
 
         if not insert_only:
@@ -461,12 +499,29 @@ class MergeIntoCommand:
                 key_need, residual)
 
         mode = str(conf.get("delta.tpu.merge.devicePath.mode", "auto"))
-        # no link cost model: "auto" takes the device whenever it is
-        # eligible, as "force" does
-        device_eligible = bool(
+        base_eligible = bool(
             conf.get_bool("delta.tpu.merge.devicePath.enabled", True)
             and mode != "off" and 1 <= len(equi) <= 2 and not residual
             and candidates and src.num_rows > 0)
+        device_eligible = base_eligible
+        self._audit_eligible = base_eligible
+        if device_eligible and mode == "auto":
+            # the cold price from the files' numRecords, before any decode:
+            # slab upload + sort + probe against the host join. A cached
+            # slab is priced on its own below
+            n_est = _rows_from_stats(candidates)
+            if n_est is not None:
+                from delta_tpu_torch.parallel import link
+
+                device_s = link.cold_merge_device_s(n_est, src.num_rows,
+                                                    link.profile(self.delta_log.device))
+                host_est_s = (n_est + src.num_rows) * link.constant("HOST_JOIN_S_PER_ROW")
+                self._router.setdefault("deviceEstS", round(device_s, 3))
+                self._router.setdefault("hostEstS", round(host_est_s, 3))
+                if device_s > host_est_s:
+                    device_eligible = False
+                    telemetry.bump_counter("merge.device.declined")
+                    self._router.update(reason="cold-estimate")
         # DV-mode matched clauses mark physical rows deleted: every scan that
         # can end up as the phase-2 tables must carry positions
         pos_col = POSITION_COL if (not insert_only and dv_common.dv_enabled(metadata)) else None
@@ -476,7 +531,9 @@ class MergeIntoCommand:
         via = None
         key_pieces: Optional[List[HostTable]] = None
         key_pieces_have_pos = False
-        if device_eligible:
+        if base_eligible:
+            # the resident slab has its own price (no upload), so it is
+            # tried even where the cold estimate declined
             resident = self._launch_resident_probe(txn, candidates, src, equi, target_cols,
                                                    key_need, pos_col, insert_only)
             if resident is not None:
@@ -502,7 +559,7 @@ class MergeIntoCommand:
                     if pending is not None:
                         via = "device-upload"
                     else:
-                        self._router.setdefault("reason", "keys-not-integer")
+                        self._router.setdefault("reason", "upload-declined")
         self.phase_ms["key_decode_ms"] = decode_t.lap_ms_f()
 
         # full-column decode (overlaps the in-flight device probe); reuse the
@@ -529,6 +586,7 @@ class MergeIntoCommand:
             target = HostTable({_TID: _int_column(np.empty(0)), _FID: _int_column(np.empty(0))}, 0)
         else:
             target = concat_tables(pieces)
+        self._audit_units = (target.num_rows, src.num_rows)
 
         def empty_pairs() -> HostTable:
             return _append_all(target.slice(0, 0), src.slice(0, 0))
@@ -654,10 +712,28 @@ class MergeIntoCommand:
             return None
         s_keys, s_ok = packed
         self._router["cacheHit"] = True
+        if str(conf.get("delta.tpu.merge.devicePath.mode", "auto")) == "auto":
+            from delta_tpu_torch.parallel import link
+
+            m, n = len(s_keys), entry.num_rows
+            p = link.profile(self.delta_log.device)
+            device_s = link.resident_probe_device_s(n, m, p)
+            if not entry.is_resident:
+                # the device copy was dropped: the probe re-ships the slab
+                device_s += p.upload_s(entry.capacity * 9)
+            host_s = ((n + m) * link.constant("HOST_JOIN_S_PER_ROW")
+                      + n * link.constant("HOST_KEY_DECODE_S_PER_ROW"))
+            self._router["deviceEstS"] = round(device_s, 3)
+            self._router["hostEstS"] = round(host_s, 3)
+            if device_s > host_s:
+                telemetry.bump_counter("merge.device.declined")
+                self._router.update(reason="resident-estimate")
+                return None
         probe = entry.probe_async(s_keys, s_ok, expected_version=txn.snapshot.version,
                                   insert_only=insert_only)
         if probe is None:
             return None
+        self._audit_slab_rows = entry.num_rows
         return entry, probe
 
     def _launch_slab_pipeline(self, txn, candidates, src, equi, target_cols, key_need,
@@ -735,6 +811,7 @@ class MergeIntoCommand:
         if probe is None:
             self._router.setdefault("reason", "no-sentinel-room")
             return None, key_pieces
+        self._audit_slab_rows = entry.num_rows
         return (entry, probe), key_pieces
 
     def _finalize_resident(self, resident, candidates, tgt_tables, target, pos_col,
@@ -766,6 +843,72 @@ class MergeIntoCommand:
             return join_kernel.JoinResult(t_first_s, res_p.s_matched, res_p.any_multi)
 
         return join_kernel.PendingJoin(finalize)
+
+    def _emit_router(self) -> None:
+        """One ``delta.merge.router`` event per MERGE, the ``merge.device.*``
+        counters, and the router audit of the decision."""
+        decision = self._join_path
+        if self._device_join is not None:
+            telemetry.bump_counter("merge.device.engaged")
+            if decision == "resident":
+                telemetry.bump_counter("merge.device.cacheHit")
+        data = dict(self._router, decision=decision)
+        if "cacheHit" in data:
+            # a cache hit may have been abandoned (a priced decline, no
+            # sentinel room): report whether the engaged join used the cache
+            data["cacheHit"] = decision == "resident"
+        telemetry.record_event("delta.merge.router", data, path=self.delta_log.data_path)
+        self._emit_audit(decision)
+
+    def _emit_audit(self, decision: str):
+        """Record the routed join in the audit ledger: the predicted costs
+        (through ``link.constant``, so calibration feeds back) against the
+        measured ``key_decode_ms + join_ms``, with the samples the EWMA
+        calibrator re-fits from. A join with no measured phase (no
+        candidates, an empty source) is not audited. Returns the audit or
+        None."""
+        if "join_ms" not in self.phase_ms or self._audit_units is None:
+            return None
+        if not conf.get_bool("delta.tpu.telemetry.enabled", True):
+            return None  # blackout: no audit, and no link probe to price one
+        from delta_tpu_torch.obs import router_audit
+        from delta_tpu_torch.parallel import link
+
+        n, m = self._audit_units
+        # the device probe's workload is the slab, not the decode
+        n_dev = self._audit_slab_rows if self._audit_slab_rows is not None else n
+        key_decode_s = self.phase_ms.get("key_decode_ms", 0.0) / 1000.0
+        join_s = self.phase_ms["join_ms"] / 1000.0
+        actual_s = key_decode_s + join_s
+        predicted = {"host": ((n + m) * link.constant("HOST_JOIN_S_PER_ROW")
+                              + n * link.constant("HOST_KEY_DECODE_S_PER_ROW"))}
+        # the device prediction is keyed by the route taken (or "device"
+        # when the host won), and only where a device route existed
+        device_key = "device" if decision == "host" else decision
+        if self._audit_eligible:
+            recorded = self._router.get("deviceEstS")
+            if recorded is not None:
+                predicted[device_key] = float(recorded)
+            else:
+                p = link.profile(self.delta_log.device)
+                predicted[device_key] = (link.resident_probe_device_s(n_dev, m, p)
+                                         if decision == "resident"
+                                         else link.cold_merge_device_s(n_dev, m, p))
+        samples = []
+        if decision == "host":
+            if join_s > 0 and (n + m) > 0:
+                samples.append(("HOST_JOIN_S_PER_ROW", n + m, join_s))
+            if key_decode_s > 0 and n > 0:
+                samples.append(("HOST_KEY_DECODE_S_PER_ROW", n, key_decode_s))
+        elif decision == "resident" and (n_dev + m) > 0:
+            eff = join_s + key_decode_s - link.RESIDENT_PROBE_FIXED_S
+            if eff > 0:
+                samples.append(("RESIDENT_PROBE_S_PER_ROW", n_dev + m, eff))
+        return router_audit.record_audit(
+            "merge.join", self.delta_log.data_path, decision, predicted, actual_s,
+            units={"targetRows": n, "sourceRows": m, "slabRows": n_dev},
+            samples=samples, log_path=self.delta_log.log_path,
+            phases={k: round(v, 1) for k, v in self.phase_ms.items()})
 
     def _maybe_build_resident_keys(self) -> None:
         """Post-commit: start the warmup of the key lane recorded by
@@ -815,8 +958,13 @@ class MergeIntoCommand:
             s_keys = (s0 << 32) | (s1 & 0xFFFFFFFF)
             t_ok = t_ok0 & t_ok1
             s_ok = s_ok0 & s_ok1
+        budget_s = None
+        if str(conf.get("delta.tpu.merge.devicePath.mode", "auto")) == "auto":
+            from delta_tpu_torch.parallel import link
+
+            budget_s = (len(t_keys) + len(s_keys)) * link.constant("HOST_JOIN_S_PER_ROW")
         return join_kernel.inner_join_async(t_keys, t_ok, s_keys, s_ok,
-                                            device=self.delta_log.device)
+                                            device=self.delta_log.device, budget_s=budget_s)
 
     def _check_star_coverage(self, target_cols: Sequence[str], src_cols: Sequence[str],
                              typ: str) -> None:

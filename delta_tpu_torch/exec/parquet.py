@@ -4,7 +4,8 @@ The port's own copy of ``delta_tpu.exec.parquet``, which encodes and
 decodes through Arrow's C++ Parquet module. The port does not depend on
 ``pyarrow``, so this module carries a codec of its own for flat data files
 (``exec/thrift`` for the footer and page headers, ``exec/encodings`` for
-the values, ``exec/snappy`` for the JAX package's compressed pages):
+the values, ``exec/snappy``, ``exec/zstd`` and ``exec/lz4`` for the JAX
+package's compressed pages):
 
 * :func:`read_parquet_file` / :func:`read_parquet_files`: a file's columns
   (all, or a projection; all row groups, or a subset) as the port's
@@ -20,9 +21,10 @@ the values, ``exec/snappy`` for the JAX package's compressed pages):
 
 Scope: flat schemas; physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE
 and BYTE_ARRAY; logical types int8/16/32/64, date, timestamp (ms, µs) and
-string/binary; codecs UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2.
-Anything else — a nested column, FIXED_LEN_BYTE_ARRAY or INT96, an
-unsigned or decimal column, ZSTD/LZ4/BROTLI, a DELTA_* encoding — raises
+string/binary; codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW; data
+pages v1 and v2. Anything else — a nested column, FIXED_LEN_BYTE_ARRAY or
+INT96, an unsigned or decimal column, LZ4 (Hadoop framing) or BROTLI, a
+DELTA_* encoding — raises
 ``NotImplementedError`` naming the column and what it lacks.
 
 Columns map to ``HostColumn`` kinds as ``pyarrow`` types map to the JAX
@@ -47,7 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from delta_tpu_torch.exec import encodings as enc
-from delta_tpu_torch.exec import snappy, thrift
+from delta_tpu_torch.exec import lz4, snappy, thrift, zstd
 from delta_tpu_torch.expr.vectorized import DEFAULT_TYPE, HostColumn, HostTable
 from delta_tpu_torch.utils.config import conf
 
@@ -70,7 +72,7 @@ MAGIC = b"PAR1"
 ROW_GROUP_ROWS = 131_072
 
 # CompressionCodec, PageType, FieldRepetitionType, ConvertedType (parquet.thrift)
-UNCOMPRESSED, SNAPPY, GZIP = 0, 1, 2
+UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW = 0, 1, 2, 6, 7
 _CODEC_NAMES = {0: "UNCOMPRESSED", 1: "SNAPPY", 2: "GZIP", 3: "LZO", 4: "BROTLI",
                 5: "LZ4", 6: "ZSTD", 7: "LZ4_RAW"}
 DATA_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = 0, 2, 3
@@ -317,6 +319,16 @@ def _decompress(codec: int, raw: bytes, size: int, name: str) -> bytes:
             return zlib.decompress(raw, 47)  # gzip or zlib header
         except zlib.error as e:
             raise ValueError(f"Parquet column {name!r}: corrupt GZIP page: {e}") from e
+    if codec == ZSTD:
+        try:
+            return zstd.decompress(raw, size)
+        except zstd.ZstdError as e:
+            raise ValueError(f"Parquet column {name!r}: corrupt ZSTD page: {e}") from e
+    if codec == LZ4_RAW:
+        try:
+            return lz4.decompress(raw, size)
+        except lz4.Lz4Error as e:
+            raise ValueError(f"Parquet column {name!r}: corrupt LZ4_RAW page: {e}") from e
     raise _unsupported(name, f"codec {_CODEC_NAMES.get(codec, codec)}")
 
 

@@ -144,7 +144,10 @@ def plan_row_groups(meta, predicate: ir.Expression,
         rewritten = skipping_predicate(predicate, partition_cols)
     if isinstance(rewritten, ir.Literal) and rewritten.value is None:
         return RowGroupPlan(all_groups, n)  # nothing lowerable: keep all
-    col_index = _column_index(meta)
+    # only the predicate's columns are typed: a column the port cannot
+    # decode blocks no read that leaves it out
+    refs = {r.split(".", 1)[-1].lower() for r in ir.references(rewritten)}
+    col_index = {k: j for k, j in _column_index(meta).items() if k in refs}
     float_leaves = _float_leaves(meta, col_index)
     keep: List[int] = []
     skipped_bytes = 0

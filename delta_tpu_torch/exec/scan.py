@@ -54,13 +54,27 @@ def _abs_data_path(data_path: str, file_path: str) -> str:
     return os.path.join(data_path, urllib.parse.unquote(file_path).replace("/", os.sep))
 
 
+def _read_types(schema, names) -> Dict[str, tuple]:
+    """(kind, stored type) of each schema field in ``names``: only the
+    columns a read touches are typed, so a column type the port cannot
+    decode (struct, list, map, decimal) blocks only the reads that need it."""
+    out = {}
+    for f in schema.fields:
+        if f.name not in names:
+            continue
+        try:
+            out[f.name] = schema_utils.stored_type_for(f.data_type)
+        except NotImplementedError:
+            raise NotImplementedError(
+                f"reading column {f.name!r} of type {f.data_type.simple_string()} "
+                "is not ported") from None
+    return out
+
+
 def _empty(metadata, out_names: Sequence[str]) -> HostTable:
-    cols = {}
-    for f in metadata.schema.fields:
-        if f.name in out_names:
-            kind, stype = schema_utils.stored_type_for(f.data_type)
-            cols[f.name] = null_column(0, kind, stype)
-    return HostTable(cols, 0)
+    declared = _read_types(metadata.schema, set(out_names))
+    return HostTable({f.name: null_column(0, *declared[f.name])
+                      for f in metadata.schema.fields if f.name in declared}, 0)
 
 
 def _group_rows(offsets: np.ndarray, groups: Sequence[int]) -> np.ndarray:
@@ -102,7 +116,11 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         raise NotImplementedError("reading a partitioned table is not ported")
     schema = metadata.schema
     out_names = list(columns) if columns is not None else [f.name for f in schema.fields]
-    declared = {f.name: schema_utils.stored_type_for(f.data_type) for f in schema.fields}
+    pred_refs = (frozenset(r.lower() for r in ir.references(predicate))
+                 if predicate is not None else frozenset())
+    # the projection and the predicate's columns: nothing else is typed
+    declared = _read_types(schema, set(out_names) | {f.name for f in schema.fields
+                                                      if f.name.lower() in pred_refs})
     total_bytes = sum(f.size or 0 for f in files)
     telemetry.bump_counter("scan.files.read", len(files))
     telemetry.bump_counter("scan.bytes.read", total_bytes)
@@ -111,8 +129,6 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         return [] if per_file else _empty(metadata, out_names)
 
     rg_skipping = conf.get_bool("delta.tpu.read.rowGroupSkipping", True)
-    pred_refs = (frozenset(r.lower() for r in ir.references(predicate))
-                 if predicate is not None else frozenset())
     pred_rewrites = None
     if predicate is not None:
         from delta_tpu_torch.expr.synthesis import schema_types

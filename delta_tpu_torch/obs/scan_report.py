@@ -5,7 +5,7 @@
 concurrent scans on different threads never cross), ``read_files_as_table``
 contributes the row-group numbers from the same sums that feed the
 ``scan.rowgroups.*`` counters, ``ops/column_cache`` marks the scans it
-served, and the finished report is retrievable with
+served or its router declined, and the finished report is retrievable with
 :func:`last_scan_report`. The workload journal, the layout advisor and the
 fired-rewrite attribution are not ported.
 """
@@ -47,7 +47,8 @@ class ScanReport:
     #: bytes of row groups decoded on the host because the device mask kept
     #: at least one of their rows
     bytes_device_survivor: int = 0
-    #: ``"device"`` when the device residual served this scan, else None
+    #: ``"device"`` when the device residual served this scan, ``"host"``
+    #: when the router priced the host filter cheaper, else None
     device_residual: Optional[str] = None
     rows_out: int = 0
     phase_ms: Dict[str, int] = field(default_factory=dict)

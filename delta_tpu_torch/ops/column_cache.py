@@ -18,11 +18,19 @@ singleton keyed by (log path, file path, column), per-table rewrite epochs
 decode that raced it is served but never cached) and LRU eviction under
 ``delta.tpu.columnCache.maxBytes`` / ``maxEntries``.
 
+Routing, as in the JAX package: ``delta.tpu.read.deviceResidual.mode=auto``
+prices each scan with the link cost model (``parallel/link``): the device
+mask (the cold lanes' host decode and upload, K14 over every row, the mask
+download) against the host filter, with rows estimated from the files'
+sizes and the resident lanes counted; ``force`` takes the device whenever
+the residual lowers, ``off`` keeps the host path. Both priced modes record
+a ``scan.residual`` router audit (``obs/router_audit``); a declined scan
+counts ``scan.device.declined`` and its report says
+``device_residual == "host"``.
+
 Differences from the JAX package, each deliberate:
 
 * no HBM ledger and no residency gauges yet: the budget is ``maxBytes``;
-* no link cost model: ``delta.tpu.read.deviceResidual.mode=auto`` routes as
-  ``force``, and ``off`` keeps the host path;
 * no quiet fallback: a residual that does not lower
   (``NotDeviceCompilable``) or a column with no lane form returns None and
   counts ``scan.device.fallback``, as in JAX; but a kernel that fails to
@@ -40,6 +48,7 @@ import functools
 import os
 import struct
 import threading
+import time
 import urllib.parse
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -417,11 +426,37 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
         return None  # a partition-only residual: file pruning is exact
     if plan.part_refs:
         raise NotImplementedError("reading a partitioned table is not ported")
+    from delta_tpu_torch.obs import router_audit
+    from delta_tpu_torch.parallel import link
+
     cache = ColumnCache.instance()
+    est_rows = sum(max((f.size or 0) // 64, 1024) for f in files)
+    ncols = max(len(plan.refs), 1)
+    resident_rows = sum(
+        e.n for f in files for c in plan.refs
+        if (e := cache.get(log.log_path, f.path, c)) is not None
+        and _on(e.values, log.device)) // ncols
+    cold_rows = max(est_rows - resident_rows, 0)
+    p = link.profile(log.device)
+    predicted = {"device": link.device_residual_mask_s(cold_rows, resident_rows, ncols, p),
+                 "host": link.host_residual_filter_s(est_rows, ncols)}
+    decision = ("device" if mode == "force" or predicted["device"] < predicted["host"]
+                else "host")
+    rep = scan_report.current_report()
+    if decision == "host":
+        telemetry.bump_counter("scan.device.declined")
+        router_audit.record_audit(
+            "scan.residual", log.data_path, "host", predicted, predicted["host"],
+            units={"rows": est_rows, "cols": ncols}, log_path=log.log_path,
+            calibration_flush=False, files=len(files), mode=mode)
+        if rep is not None:
+            rep.device_residual = "host"
+        return None
     counters = {"hits": 0, "misses": 0, "coldBytes": 0}
     masks: Dict[str, np.ndarray] = {}
     need = sorted(plan.refs)
     scalar_types = tuple((ph, device_eval.I64) for ph, _c, _v in plan.str_binds)
+    t0 = time.perf_counter()
     for add in files:
         lanes = _ensure_lanes(cache, log.log_path, log.data_path, add, need,
                               cache.epoch(log.log_path), counters, log.device)
@@ -442,12 +477,23 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
             _dt_, bits, ok = _scalar_column(int(code))
             scalars[ph] = (bits, ok)
         masks[add.path] = residual_mask(program, env, n, scalars).cpu().numpy()
+    actual_s = time.perf_counter() - t0
     telemetry.bump_counter("scan.device.engaged")
     if counters["hits"]:
         telemetry.bump_counter("columnCache.hits", counters["hits"])
     if counters["misses"]:
         telemetry.bump_counter("columnCache.misses", counters["misses"])
-    rep = scan_report.current_report()
+    total_rows = sum(len(m) for m in masks.values())
+    samples = []
+    if total_rows and counters["misses"] == 0:
+        # a warm pass: the whole wall time is K14 and the mask download,
+        # a clean sample of the device per-cell constant
+        samples.append(("DEVICE_RESIDUAL_S_PER_CELL", total_rows * ncols, actual_s))
+    router_audit.record_audit(
+        "scan.residual", log.data_path, "device", predicted, actual_s,
+        units={"rows": total_rows, "cols": ncols}, samples=samples, log_path=log.log_path,
+        calibration_flush=False, files=len(files), cacheHits=counters["hits"],
+        cacheMisses=counters["misses"], mode=mode)
     if rep is not None:
         rep.device_residual = "device"
     return masks

@@ -24,9 +24,12 @@ a CUDA tensor it launches the kernel or raises. The launch runs on a staging
 thread (the caller overlaps it with the full-column decode), on that
 thread's current stream: the thread records a CUDA event after the launch
 and its downloads are blocking copies, and the finalize joins the thread and
-waits on the event, so no result is read before the card wrote it. The
-sharded kernel K13 and the link cost model that declines a launch
-(``budget_s``) are not ported.
+waits on the event, so no result is read before the card wrote it. Under
+``devicePath.mode=auto`` the MERGE command passes a ``budget_s`` (the host
+join's price): the link cost model (``parallel/link.estimate_device_s``)
+prices the upload, K12 and the download, and the launch is declined (None)
+when it costs more, or when the keys leave no sentinel room. The sharded
+kernel K13 is not ported.
 """
 from __future__ import annotations
 
@@ -204,10 +207,13 @@ def _sentinel_encode(t_key, t_ok, s_key, s_ok, dtype):
 
 
 def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray,
-                     s_valid: np.ndarray, device="cuda") -> PendingJoin:
+                     s_valid: np.ndarray, device="cuda",
+                     budget_s: Optional[float] = None) -> Optional[PendingJoin]:
     """Launch the upload join on ``device`` without blocking. Rows with
     ``valid == False`` (SQL NULL keys) never match. ``device="cpu"`` runs
-    K12's plain version."""
+    K12's plain version. With ``budget_s``, returns None instead of
+    launching when the estimated device time exceeds it, or when the keys
+    leave no sentinel room (the caller has its own host join)."""
     from delta_tpu_torch.utils.device import resolve
 
     dev = resolve(device)
@@ -229,10 +235,23 @@ def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray
     else:
         enc = _sentinel_encode(t_key64, t_ok, s_key64, s_ok, np.int64)
     if enc is None:
-        # the valid keys span the whole dtype: no sentinel room
+        # the valid keys span the whole dtype: no sentinel room. With a
+        # budget the caller's fallback is taken; without one, the numpy
+        # sort-merge join honours the contract
+        if budget_s is not None:
+            return None
         return PendingJoin(lambda: _host_join(t_key64, t_ok, s_key64, s_ok))
     t_enc, s_enc, t_fill, s_fill = enc
     cap_t, cap_s = _bucket(n), _bucket(m)
+    if budget_s is not None:
+        from delta_tpu_torch.parallel import link
+
+        itemsize = t_enc.dtype.itemsize
+        est = link.estimate_device_s(up_bytes=(cap_t + cap_s) * itemsize,
+                                     down_bytes=cap_t // 8 + cap_s // 8,
+                                     kernel_rows=cap_t + cap_s, device=dev)
+        if est.device_s > budget_s:
+            return None
     t_in = _pad(t_enc, cap_t, t_fill)
     s_in = _pad(s_enc, cap_s, s_fill)
     state: dict = {}

@@ -13,8 +13,8 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 ``launches`` counts the launches of each kernel. The wrappers beside the
 plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
-``ops/column_cache``, ``ops/zorder``) add one where they launch, and
-nowhere else.
+``ops/column_cache``, ``ops/zorder``, ``parallel/link``) add one where they
+launch, and nowhere else.
 """
 from __future__ import annotations
 
@@ -73,6 +73,7 @@ _KERNELS = {
     "residual_mask": ("residual_mask", "dtt_residual_mask",
                       [_P, _I, _I, _I, _I, _I, _L, _P, _I, _I, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
+    "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

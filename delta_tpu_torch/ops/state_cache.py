@@ -21,14 +21,18 @@ Kernels (hand-written CUDA in ``delta_tpu_torch/csrc``, bound in
   / ``_scatter_cols_fn`` (``:959``, ``:970``).
 
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises. On any device, ``plan_ranges``
-always takes the block cull (the JAX package's ``devicePlan.mode=force``):
-there is no routing and no fallback to the host plan when a kernel fails.
+tensor it launches the kernel or raises. ``plan_ranges`` routes a batch by
+``delta.tpu.stateCache.devicePlan.*``: under ``auto`` (the default) the
+link cost model (``parallel/link``) prices the block cull against the host
+plan over the float64 mirrors and ``obs/router_audit`` records the
+``scan.plan`` decision; ``force`` and ``off`` pin one side. There is no
+fallback to the host plan when a kernel fails.
 """
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -707,13 +711,15 @@ class ResidentState:
     # -- serving ----------------------------------------------------------
 
     def plan_ranges(self, ranges: Sequence[RangeSet], k=256,
-                    use_device: bool = True,
+                    use_device: Optional[bool] = None,
                     expected_version: Optional[int] = None) -> Optional[List[PlanResult]]:
         """Evaluate a batch of range queries: one block-cull launch, one
         packed-bitmap download, then the exact host fine pass. Structural
-        verdicts short-circuit. ``use_device=False`` plans on the float64
-        host mirrors alone (the exact reference); True takes the block
-        cull, always.
+        verdicts short-circuit. ``use_device=None`` routes by
+        ``delta.tpu.stateCache.devicePlan.*`` (``auto`` prices both sides
+        with the link cost model, :meth:`_route_plan`); True pins the block
+        cull, False the float64 host mirrors alone (the exact reference).
+        Each result records its route in ``via``.
 
         ``k`` caps each result's row list: a scalar for the whole batch, or
         one per range. ``expected_version`` guards against the entry having
@@ -723,6 +729,7 @@ class ResidentState:
               else np.asarray(k, np.int64))
         if len(ks) != n:
             raise ValueError(f"per-range k length {len(ks)} != {n} ranges")
+        priced = None
         with self._lock:
             if expected_version is not None and self.version != expected_version:
                 return None
@@ -742,12 +749,76 @@ class ResidentState:
             lo = np.stack([ranges[i].lo for i in real_ix])  # (M, C)
             hi = np.stack([ranges[i].hi for i in real_ix])
             real_ks = ks[real_ix]
+            if use_device is None:
+                use_device, priced = self._route_plan(len(real_ix))
+            t0 = time.perf_counter_ns()
             results = (self._plan_device(lo, hi, real_ks) if use_device
                        else self._plan_host(lo, hi, real_ks))
+            plan_s = (time.perf_counter_ns() - t0) / 1e9
+            via = "device" if use_device else "host-resident"
             for j, i in enumerate(real_ix):
-                results[j].via = "device" if use_device else "host-resident"
+                results[j].via = via
                 out[i] = results[j]
+        # the audit runs outside the entry lock: the ledger (and the
+        # calibrator's state file) must not serialize planners or a tail
+        # apply. Only an auto-routed batch audits: a pinned mode made no
+        # priced decision
+        if priced is not None:
+            from delta_tpu_torch.obs import router_audit
+
+            device_s, host_s, cells, device_fixed_s = priced
+            # the per-cell sample with the prediction's fixed terms taken
+            # out first: the prediction adds them back
+            if use_device:
+                eff = plan_s - device_fixed_s
+                samples = [("DEVICE_PRUNE_S_PER_CELL", cells, eff)] if eff > 0 else []
+            else:
+                samples = [("HOST_PRUNE_S_PER_CELL", cells, plan_s)]
+            router_audit.record_audit(
+                "scan.plan", self.log_path, via,
+                {"device": device_s, "host-resident": host_s}, plan_s,
+                units={"cells": cells, "queries": len(real_ix)},
+                samples=samples, log_path=self.log_path,
+                calibration_flush=False)
         return out  # type: ignore[return-value]
+
+    def _price_plan(self, m: int) -> Tuple[float, float, int, float]:
+        """The cost model of planning ``m`` range queries against this
+        entry: (device_s, host_s, cells, device_fixed_s). ``device_fixed_s``
+        is the part of the device price that does not grow with the cells
+        (round trips, the bitmap download, the first upload), which the
+        calibrator takes out of a measured sample. The single-card side of
+        the JAX package's ``_price_plan`` (its ``sharded_s`` is always None
+        here)."""
+        from delta_tpu_torch.parallel import link
+
+        cells = m * self.num_rows * max(len(self.columns), 1)
+        host_s = cells * link.constant("HOST_PRUNE_S_PER_CELL")
+        p = link.profile(self.device)
+        down_bytes = m * max(self.capacity // BLOCK // 8, 1)
+        fixed_s = 2 * p.latency_s + p.download_s(down_bytes)
+        if self._dev is None:
+            # the first plan ships the lanes; charge it to this call
+            fixed_s += p.upload_s(self.device_bytes)
+        device_s = fixed_s + cells * link.constant("DEVICE_PRUNE_S_PER_CELL")
+        return device_s, host_s, cells, fixed_s
+
+    def _route_plan(self, m: int):
+        """(use_device, priced) for ``m`` range queries. The enabled/mode
+        checks run before any pricing, so a disabled or pinned deployment
+        never pays the link probe and records no audit; ``priced`` is the
+        :meth:`_price_plan` tuple under ``auto``, else None."""
+        from delta_tpu_torch.utils.config import conf
+
+        if not conf.get_bool("delta.tpu.stateCache.devicePlan.enabled", True):
+            return False, None
+        mode = conf.get("delta.tpu.stateCache.devicePlan.mode", "auto")
+        if mode == "force":
+            return True, None
+        if mode == "off":
+            return False, None
+        priced = self._price_plan(m)
+        return priced[0] < priced[1], priced
 
     def _plan_host(self, lo: np.ndarray, hi: np.ndarray,
                    ks: np.ndarray) -> List[PlanResult]:

@@ -1,0 +1,2 @@
+"""Part of the delta_tpu_torch port; mirrors the delta_tpu subpackage of the same name: the
+link cost model of the auto router (``link``), for one card."""

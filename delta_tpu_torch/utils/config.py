@@ -10,8 +10,12 @@
   refuses when on), ``delta.tpu.history.metricsEnabled``, and the read
   path's keys: ``delta.tpu.read.deviceResidual.mode``,
   ``delta.tpu.read.rowGroupSkipping``, ``delta.tpu.columnCache.maxBytes`` /
-  ``maxEntries`` and the writer's ``delta.tpu.write.rowGroupRows``. A key that is
-  not in the table reads as the caller's default, as in the JAX package.
+  ``maxEntries`` and the writer's ``delta.tpu.write.rowGroupRows``; the
+  router's: ``delta.tpu.stateCache.devicePlan.*``,
+  ``delta.tpu.link.uploadMBps`` / ``downloadMBps``,
+  ``delta.tpu.router.auditKeep``, ``delta.tpu.router.calibration.*`` and
+  ``delta.tpu.telemetry.enabled``. A key that is not in the table reads as
+  the caller's default, as in the JAX package.
 * :class:`DeltaConfigs` is the JAX package's table-property registry,
   whole, so that a table property is validated (and an unknown ``delta.``
   key refused) exactly as there.
@@ -40,9 +44,11 @@ class SqlConf:
     _DEFAULTS: Dict[str, Any] = {
         # ≈ DELTA_MAX_RETRY_COMMIT_ATTEMPTS (DeltaSQLConf.scala:182)
         "delta.tpu.maxCommitAttempts": 10_000_000,
-        # the MERGE join on the card: "auto" and "force" take a device route
-        # whenever the merge is eligible (the port has no link cost model),
-        # "off" pins the host join
+        # the MERGE join on the card: "auto" prices the device route against
+        # the host join through the link cost model (parallel/link), the
+        # resident-slab and the cold-slab cases each with its own price, and
+        # takes the cheaper; "force" takes a device route whenever the merge
+        # is eligible; "off" pins the host join
         "delta.tpu.merge.devicePath.enabled": True,
         "delta.tpu.merge.devicePath.mode": "auto",
         # the cross-MERGE resident key cache (ops/key_cache); either key set
@@ -63,15 +69,38 @@ class SqlConf:
         "delta.tpu.deletionVectors.enabled": True,
         # rows per Parquet row group the writer emits
         "delta.tpu.write.rowGroupRows": 131_072,
-        # the device residual filter (ops/column_cache): "auto" and "force"
-        # engage it whenever the residual lowers (the port has no link cost
-        # model), "off" keeps the host path
+        # the device residual filter (ops/column_cache): "auto" prices the
+        # device mask against the host filter per scan (parallel/link),
+        # "force" engages it whenever the residual lowers, "off" keeps the
+        # host path
         "delta.tpu.read.deviceResidual.mode": "auto",
         # the scan column cache's budgets (ColumnCache._evict)
         "delta.tpu.columnCache.maxBytes": 1 << 30,
         "delta.tpu.columnCache.maxEntries": 4096,
         # footer row-group skipping and late materialization (exec/rowgroups)
         "delta.tpu.read.rowGroupSkipping": True,
+        # scan planning from the resident lanes (ops/state_cache): "auto"
+        # prices the block cull on the card against the host plan, "force"
+        # and "off" pin one; enabled=False pins the host plan
+        "delta.tpu.stateCache.devicePlan.enabled": True,
+        "delta.tpu.stateCache.devicePlan.mode": "auto",
+        # link profile overrides (MB/s); unset, parallel/link probes the
+        # device's link once per process
+        "delta.tpu.link.uploadMBps": None,
+        "delta.tpu.link.downloadMBps": None,
+        # the router audit ring (obs/router_audit): the last N decisions
+        "delta.tpu.router.auditKeep": 256,
+        # the EWMA re-fit of the link constants from audited samples
+        # (obs/calibration), off by default; the state file is statePath, or
+        # <log dir>/.router_calibration.json when unset
+        "delta.tpu.router.calibration.enabled": False,
+        "delta.tpu.router.calibration.statePath": None,
+        "delta.tpu.router.calibration.alpha": 0.2,
+        "delta.tpu.router.calibration.minSamples": 3,
+        "delta.tpu.router.calibration.flushIntervalMs": 2000,
+        # events, gauges, histograms, audits and calibration
+        # (utils/telemetry); false is a blackout (counters stay live)
+        "delta.tpu.telemetry.enabled": True,
     }
 
     def __init__(self):

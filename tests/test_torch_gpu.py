@@ -152,16 +152,21 @@ def test_scans_on_the_card_match_the_cpu(cuda, tmp_path, partitioned):
     queries += ["c1 <= 100.0", "c0 IN (5, 70000)", "c0 <= 100 OR c0 >= 4000000"]
     if partitioned:
         queries += ["day = '2021-01-05'", "bucket >= 4", "day = '2021-01-09' AND c0 >= 100"]
-    for version in (1, 2, 3):
-        if version > 1:
-            _tail(path, version, n, partitioned, rng)
-        on_card = DeltaLog.for_table(path, device=cuda).update()
-        on_cpu = DeltaLog.for_table(path, device="cpu").update()
-        for q in queries:
-            a = pruning.files_for_scan(on_card, [parse_expression(q)])
-            b = pruning.files_for_scan(on_cpu, [parse_expression(q)])
-            assert [f.json() for f in a.files] == [f.json() for f in b.files], q
-            assert (a.total, a.partition, a.scanned) == (b.total, b.partition, b.scanned), q
+    # the card's plan pinned to the block cull: under auto the router may
+    # price the host plan cheaper, and the lanes would not be on the card
+    from delta_tpu_torch.utils.config import conf
+
+    with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+        for version in (1, 2, 3):
+            if version > 1:
+                _tail(path, version, n, partitioned, rng)
+            on_card = DeltaLog.for_table(path, device=cuda).update()
+            on_cpu = DeltaLog.for_table(path, device="cpu").update()
+            for q in queries:
+                a = pruning.files_for_scan(on_card, [parse_expression(q)])
+                b = pruning.files_for_scan(on_cpu, [parse_expression(q)])
+                assert [f.json() for f in a.files] == [f.json() for f in b.files], q
+                assert (a.total, a.partition, a.scanned) == (b.total, b.partition, b.scanned), q
     entry = state_cache.DeviceStateCache.instance().get(on_card)
     assert entry._dev["mins"].is_cuda
 
@@ -559,3 +564,79 @@ def test_read_path_and_optimize_on_the_card_match_the_cpu(cuda, tmp_path):
         files.append(sorted((read_files_as_table(log.data_path, [f], snap.metadata)
                              .column("id").values.tolist() for f in snap.all_files)))
     assert files[0] == files[1] and len(files[0]) == 7
+
+
+# -- K17 and the auto router (the sixth slice) -----------------------------------------
+
+
+@pytest.mark.parametrize("n", [8, 1 << 20, 1000003])
+def test_link_probe_kernel_matches_plain(cuda, n):
+    from delta_tpu_torch.parallel import link
+
+    vals = np.random.RandomState(n).randint(-2**31, 2**31 - 1, n).astype(np.int32)
+    a = torch.from_numpy(vals).to(cuda)
+    before = native.launches["link_probe"]
+    got = link.link_probe(a)
+    torch.cuda.synchronize()
+    assert native.launches["link_probe"] == before + 1
+    assert torch.equal(got, a + 1)
+
+
+def test_probed_profile_on_the_card(cuda):
+    """One probe per device: K17 first (one launch), then finite, positive
+    rates and latency; the CPU's profile is a separate entry."""
+    from delta_tpu_torch.parallel import link
+
+    link.reset()
+    before = native.launches["link_probe"]
+    p = link.profile(cuda)
+    assert native.launches["link_probe"] == before + 1
+    assert p.probed
+    assert np.isfinite([p.up_mbps, p.down_mbps, p.latency_s]).all()
+    assert min(p.up_mbps, p.down_mbps, p.latency_s) > 0
+    assert link.profile(cuda) is p and native.launches["link_probe"] == before + 1
+    assert link.profile("cpu") is not p
+
+
+def test_auto_merge_and_read_on_the_card_match_the_cpu(cuda, tmp_path):
+    """One MERGE and one filtered read under auto, on the card and on the
+    CPU, over copies of one table: the same rows, each decision the one its
+    printed prices imply."""
+    import shutil
+
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.obs import router_audit, scan_report
+    from delta_tpu_torch.exec.scan import scan_to_table
+    from delta_tpu_torch.utils.config import conf
+
+    rng = np.random.RandomState(3)
+    n, m = 200_000, 20_000
+    target = {"k": rng.permutation(n).astype(np.int64), "v": rng.rand(n)}
+    keys = np.concatenate([rng.choice(n, m // 2, replace=False), np.arange(n, n + m // 2)])
+    source = {"k": keys.astype(np.int64), "v": rng.rand(m)}
+    path = str(tmp_path / "t")
+    with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": n // 4}):
+        WriteIntoDelta(DeltaLog.for_table(path, device="cpu"), "append", target).run()
+    shutil.copytree(path, path + "-cpu")
+    rows = []
+    with conf.set_temporarily(**{"delta.tpu.merge.devicePath.mode": "auto",
+                                 "delta.tpu.read.deviceResidual.mode": "auto"}):
+        for p, dev in ((path, cuda), (path + "-cpu", "cpu")):
+            cmd = MergeIntoCommand(DeltaLog.for_table(p, device=dev), source, "t.k = s.k",
+                                   [MergeClause("update")], [MergeClause("insert")],
+                                   source_alias="s", target_alias="t")
+            cmd.run()
+            r = cmd._router
+            assert cmd._join_path == ("host" if r["deviceEstS"] > r["hostEstS"]
+                                      else "device-cold"), r
+            t = scan_to_table(DeltaLog.for_table(p, device=dev).update())
+            order = np.argsort(t.column("k").values, kind="stable")
+            router_audit.clear_audits()
+            got = DeltaTable.for_path(p, device=dev).to_table(filters=["v > 0.5 AND k < 150000"])
+            [a] = [x for x in router_audit.recent_audits() if x["op"] == "scan.residual"]
+            assert scan_report.last_scan_report().device_residual == a["decision"]
+            rows.append(([t.column(c).values[order] for c in ("k", "v")],
+                         np.sort(got.column("k").values)))
+    (card_state, card_read), (cpu_state, cpu_read) = rows
+    assert all(np.array_equal(a, b) for a, b in zip(card_state, cpu_state))
+    assert np.array_equal(card_read, cpu_read) and len(card_read) > 0

@@ -481,13 +481,25 @@ def test_file_keys_none_where_jax_is_none_and_codec_errors_propagate(tmp_table):
         cols = ["k"] if missing is not add else ["nope"]
         assert jkc._file_keys(data, missing, cols, [jir.Column(cols[0])]) is None
         assert tkc._file_keys(data, missing, cols, [tir.Column(cols[0])]) is None
-    with conf.set_temporarily(**{"delta.tpu.write.compression": "zstd"}):
-        WriteIntoDelta(log, "append", pa.table({
-            "k": np.arange(7, dtype=np.int64), "v": np.zeros(7)})).run()
-    zadd = [a for a in log.update().all_files if a.path != add.path][0]
-    assert jkc._file_keys(data, zadd, ["k"], [jir.Column("k")]) is not None
-    with pytest.raises(NotImplementedError, match="ZSTD"):
-        tkc._file_keys(data, zadd, ["k"], [tir.Column("k")])
+    # ZSTD pages decode since the port's own decoder; BROTLI is still a
+    # codec the port does not cover, and its error propagates
+    written = {add.path}
+    new = []
+    for codec in ("zstd", "brotli"):
+        with conf.set_temporarily(**{"delta.tpu.write.compression": codec}):
+            WriteIntoDelta(log, "append", pa.table({
+                "k": np.arange(7, dtype=np.int64), "v": np.zeros(7)})).run()
+        [a] = [a for a in log.update().all_files if a.path not in written]
+        written.add(a.path)
+        new.append(a)
+    zadd, badd = new
+    want = jkc._file_keys(data, zadd, ["k"], [jir.Column("k")])
+    got = tkc._file_keys(data, zadd, ["k"], [tir.Column("k")])
+    assert want is not None and got is not None
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert jkc._file_keys(data, badd, ["k"], [jir.Column("k")]) is not None
+    with pytest.raises(NotImplementedError, match="BROTLI"):
+        tkc._file_keys(data, badd, ["k"], [tir.Column("k")])
 
 
 def test_kernels_plain_versions_agree_with_the_jax_kernels():

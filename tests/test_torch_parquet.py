@@ -14,7 +14,14 @@ encodings, parquet, rowgroups) and deletion-vector reader
 * ``collect_stats``/``stats_json``: equal to ``delta_tpu``'s;
 * deletion vectors, inline and sidecar: equal to ``delta_tpu``'s;
 * what the codec does not cover raises ``NotImplementedError`` naming the
-  column.
+  column;
+* the ZSTD (RFC 8878) and LZ4_RAW page decoders, against ``pyarrow``'s
+  compressors (levels 1, 3, 9, 19 and -5; 0 bytes to 1 MiB of random,
+  repetitive and text-like data), ``zstandard``'s frames (checksums,
+  several frames, skippable frames, a dictionary), XXH64 against
+  ``xxhash``, corrupt input raising ``ValueError``, a corpus that reaches
+  every block, literals and sequence mode, and tables ``delta_tpu`` wrote
+  under ``delta.tpu.write.compression=zstd`` and ``lz4``.
 
 Tolerance: exact (NaN equal to NaN).
 """
@@ -201,6 +208,11 @@ def test_reader_on_required_columns(tmp_path):
 def test_unsupported_raises_not_implemented(tmp_path, make, what):
     p = str(tmp_path / "x.parquet")
     make(p)
+    if what in ("ZSTD", "LZ4"):
+        # covered since the port's own ZSTD and LZ4_RAW decoders: the file
+        # reads as pyarrow reads it
+        _assert_reads_like_pyarrow(p)
+        return
     with pytest.raises(NotImplementedError, match=f"'a'.*{what}|{what}.*'a'"):
         tpq.read_parquet_file(p)
 
@@ -369,3 +381,199 @@ def test_stats_of_a_port_written_file_describe_it(tmp_path):
     tpq.write_parquet_file(host, p)
     stats = json.loads(tpq.stats_json(tpq.read_parquet_file(p)))
     assert stats == jpq.collect_stats(pq.read_table(p))
+
+
+# -- the ZSTD and LZ4_RAW decoders -----------------------------------------------------
+
+from delta_tpu_torch.exec import lz4, zstd  # noqa: E402
+
+ZSTD_LEVELS = (1, 3, 9, 19, -5)
+_WORDS = [b"delta", b"lake", b"parquet", b"zstd", b"the", b"of", b"table", b"merge", b"\n",
+          b" ", b"2021-01-01", b"id="]
+
+
+def _data(kind, n, seed=1):
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        return rng.bytes(n)
+    if kind == "repetitive":
+        return (b"abcabcabd" * (n // 9 + 1))[:n]
+    return b"".join(_WORDS[i] for i in rng.randint(0, len(_WORDS), n))[:n]
+
+
+def _pa_zstd(raw, level):
+    return pa.Codec("zstd", compression_level=level).compress(raw, asbytes=True)
+
+
+@pytest.mark.parametrize("kind", ["random", "repetitive", "text"])
+@pytest.mark.parametrize("size", [0, 1, 1024, 1 << 20])
+def test_zstd_decodes_pyarrow_at_every_level(kind, size):
+    raw = _data(kind, size)
+    for level in ZSTD_LEVELS:
+        assert zstd.decompress(_pa_zstd(raw, level), len(raw)) == raw, level
+
+
+@pytest.mark.parametrize("kind", ["random", "repetitive", "text"])
+@pytest.mark.parametrize("size", [0, 1, 1024, 1 << 20])
+def test_lz4_raw_decodes_pyarrow(kind, size):
+    raw = _data(kind, size)
+    assert lz4.decompress(pa.compress(raw, codec="lz4_raw", asbytes=True), len(raw)) == raw
+
+
+def _rle_literals_input():
+    """Literals that are one byte repeated (a 128 KiB random block, then
+    copies of it each after one 'a'): level 19 codes them as RLE."""
+    rng = np.random.RandomState(3)
+    r = rng.bytes(131072)
+    return r + b"".join(b"a" + r[k:k + 48] for k in rng.randint(0, 131072 - 64, 3000))
+
+
+def test_zstd_corpus_reaches_every_mode():
+    import zstandard
+
+    trace = set()
+    col = np.arange(300_000, dtype="<i8").tobytes()
+    for raw, levels in ((col, (1, 19)), (b"\0" * 300_000, (3,)), (_rle_literals_input(), (19,)),
+                        (_data("text", 1 << 18), (1, 19)), (_data("repetitive", 5000), (3,))):
+        for level in levels:
+            assert zstd.decompress(_pa_zstd(raw, level), len(raw), trace=trace) == raw
+    raw = _data("text", 20_000)
+    frame = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(raw)
+    skip = (0x184D2A5A).to_bytes(4, "little") + (5).to_bytes(4, "little") + b"12345"
+    assert zstd.decompress(skip + frame + frame, trace=trace) == raw + raw
+    want = {"block.raw", "block.rle", "block.compressed", "frame.checksum", "frame.multiple",
+            "frame.skippable", "literals.raw", "literals.rle", "literals.huffman1",
+            "literals.huffman4", "literals.huffman-tree", "literals.treeless",
+            "offset.repeat1", "offset.repeat2", "offset.repeat3", "offset.repeat4"}
+    want |= {f"seq.{k}.{m}" for k in ("ll", "of", "ml")
+             for m in ("predefined", "rle", "fse", "repeat")}
+    assert want <= trace, sorted(want - trace)
+
+
+@pytest.mark.parametrize("level", [1, 19])
+def test_zstd_frames_from_zstandard(level):
+    import zstandard
+
+    raw = _data("text", 200_000, seed=level) + _data("random", 3000)
+    for kw in ({"write_checksum": True}, {"write_content_size": False},
+               {"write_checksum": True, "write_content_size": False}):
+        c = zstandard.ZstdCompressor(level=level, **kw).compress(raw)
+        assert zstd.decompress(c) == raw, kw
+    # a streamed frame: several blocks, no content size
+    cctx = zstandard.ZstdCompressor(level=level, write_checksum=True)
+    obj = cctx.compressobj()
+    streamed = obj.compress(raw) + obj.flush()
+    assert zstd.decompress(streamed) == raw
+    # several frames back to back
+    parts = [_data("text", 5000, seed=i) for i in range(4)]
+    multi = b"".join(zstandard.ZstdCompressor(level=level).compress(p) for p in parts)
+    assert zstd.decompress(multi) == b"".join(parts)
+
+
+def test_zstd_dictionary_frame_is_refused():
+    import zstandard
+
+    samples = [_data("text", 2000, seed=i) for i in range(50)]
+    d = zstandard.train_dictionary(4096, samples)
+    c = zstandard.ZstdCompressor(level=3, dict_data=d).compress(samples[0])
+    with pytest.raises(zstd.ZstdError, match="dictionar"):
+        zstd.decompress(c)
+
+
+def test_xxh64_matches_xxhash():
+    import xxhash
+
+    rng = np.random.RandomState(5)
+    assert zstd.xxh64(b"") == 0xEF46DB3751D8E999
+    for n in list(range(0, 80)) + [1000, 4096 + 3, 1 << 16]:
+        b = rng.bytes(n)
+        assert zstd.xxh64(b) == xxhash.xxh64(b).intdigest(), n
+        assert zstd.xxh64(b, seed=7) == xxhash.xxh64(b, seed=7).intdigest(), n
+
+
+def test_zstd_corrupt_input_raises_value_error():
+    import zstandard
+
+    raw = _data("text", 50_000)
+    good = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(raw)
+    bad_sum = good[:-1] + bytes([good[-1] ^ 0xFF])
+    with pytest.raises(ValueError, match="checksum"):
+        zstd.decompress(bad_sum)
+    with pytest.raises(ValueError):
+        zstd.decompress(b"\x00\x01\x02\x03" + good[4:])  # bad magic
+    with pytest.raises(ValueError):
+        zstd.decompress(good[: len(good) // 2])  # truncated
+    with pytest.raises(ValueError):
+        zstd.decompress(good, size=len(raw) + 1)
+    rng = np.random.RandomState(9)
+    failures = 0
+    for _ in range(40):  # flipped bytes inside the blocks: an error, never a wrong answer
+        b = bytearray(good)
+        i = rng.randint(12, len(b) - 4)
+        b[i] ^= 1 << rng.randint(8)
+        try:
+            out = zstd.decompress(bytes(b))
+        except ValueError:
+            failures += 1
+        else:
+            assert out == raw
+    assert failures > 30
+
+
+def test_lz4_corrupt_input_raises_value_error():
+    raw = _data("text", 50_000)
+    good = pa.compress(raw, codec="lz4_raw", asbytes=True)
+    with pytest.raises(ValueError):
+        lz4.decompress(good[: len(good) // 2], len(raw))
+    with pytest.raises(ValueError):
+        lz4.decompress(good, len(raw) - 1)
+    with pytest.raises(ValueError):
+        lz4.decompress(b"\x1f\x41\x00\x00", 100)  # offset 0
+
+
+@pytest.mark.parametrize("codec,name", [("zstd", "ZSTD"), ("lz4", "LZ4_RAW")])
+def test_corrupt_page_raises_value_error_naming_the_column(tmp_path, codec, name):
+    p = str(tmp_path / "x.parquet")
+    pq.write_table(pa.table({"a": np.arange(20_000)}), p,
+                   compression=codec, use_dictionary=False)
+    md = pq.ParquetFile(p).metadata.row_group(0).column(0)
+    buf = bytearray(open(p, "rb").read())
+    start = md.data_page_offset
+    for i in range(start + 40, start + md.total_compressed_size - 8, 7):
+        buf[i] ^= 0x5A
+    open(p, "wb").write(bytes(buf))
+    with pytest.raises(ValueError, match=f"'a'.*{name}"):
+        tpq.read_parquet_file(p)
+
+
+@pytest.mark.parametrize("codec", ["zstd", "lz4"])
+def test_queue_c_tables_written_compressed_read_like_jax(tmp_path, codec):
+    """1000-row tables ``delta_tpu`` wrote under ``delta.tpu.write.
+    compression``: the port reads the queue's query (10 rows) and the whole
+    table as the reference does."""
+    from delta_tpu import DeltaLog as JaxDeltaLog
+    from delta_tpu.api.tables import DeltaTable as JaxTable
+    from delta_tpu.commands.write import WriteIntoDelta as JaxWrite
+    from delta_tpu_torch.api.tables import DeltaTable
+
+    path = str(tmp_path / codec)
+    rng = np.random.RandomState(4)
+    t = pa.table({"id": np.arange(1000, dtype=np.int64), "x": rng.rand(1000),
+                  "s": pa.array([f"v{i % 37}" for i in range(1000)]),
+                  "n": pa.array([None if i % 5 == 0 else i for i in range(1000)], pa.int32())})
+    with conf.set_temporarily(**{"delta.tpu.write.compression": codec}):
+        JaxWrite(JaxDeltaLog.for_table(path), "append", t).run()
+    files = [f for f in os.listdir(path) if f.endswith(".parquet")]
+    want_codec = {"zstd": "ZSTD", "lz4": "LZ4"}[codec]  # pyarrow's name for LZ4_RAW
+    assert {pq.ParquetFile(os.path.join(path, f)).metadata.row_group(0).column(0).compression
+            for f in files} == {want_codec}
+    for filters in (["id < 10"], []):
+        ref = JaxTable.for_path(path).to_arrow(filters=filters).sort_by("id")
+        got = DeltaTable.for_path(path, device="cpu").to_table(filters=filters)
+        order = np.argsort(got.column("id").values)
+        assert got.num_rows == ref.num_rows == (10 if filters else 1000)
+        for c in ("id", "x", "s"):
+            assert got.column(c).values[order].tolist() == ref.column(c).to_pylist()
+        n = got.column("n")
+        assert [None if not ok else int(v) for v, ok in zip(n.values[order], n.valid[order])] \
+            == ref.column("n").to_pylist()

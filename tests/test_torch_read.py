@@ -12,6 +12,7 @@ and ``force``. Exact throughout (NaN equal to NaN).
 """
 import datetime as dt
 import math
+import os
 import shutil
 
 import numpy as np
@@ -515,3 +516,81 @@ def test_port_written_table_read_by_both(tmp_path):
     for pred in ["id < 700 AND name >= 'k0100'", "ts >= '2021-01-01 00:30:00'"]:
         assert port_rows(path, pred) == jax_rows(path, pred)
     shutil.rmtree(path)
+
+
+# -- a column the port cannot decode blocks only the reads that need it ---------------
+
+
+def _nested_table(tmp_path):
+    path = str(tmp_path / "nested")
+    JaxWrite(JaxDeltaLog.for_table(path), "append", pa.table({
+        "id": pa.array([1, 2, 3], pa.int64()),
+        "st": pa.array([{"a": 1}, {"a": 2}, None], pa.struct([("a", pa.int64())])),
+        "ls": pa.array([[1], [2, 3], None], pa.list_(pa.int64()))})).run()
+    return path
+
+
+def _decimal_table(tmp_path):
+    import decimal
+
+    path = str(tmp_path / "dec")
+    JaxWrite(JaxDeltaLog.for_table(path), "append", pa.table({
+        "id": pa.array([1, 2, 3], pa.int64()),
+        "amt": pa.array([decimal.Decimal(v) for v in ("1.50", "2.25", "3.00")],
+                        pa.decimal128(10, 2)),
+        "tag": ["a", "b", "c"]})).run()
+    return path
+
+
+@pytest.mark.parametrize("filters,columns", [(["id = 1"], ["id"]), ([], ["id"]),
+                                             (["id >= 2"], None)])
+def test_struct_and_list_columns_left_out_of_the_read(tmp_path, filters, columns):
+    path = _nested_table(tmp_path)
+    if columns is None:  # the projection takes every column: st and ls are read
+        with pytest.raises(NotImplementedError, match="reading column 'st' of type struct"):
+            DeltaTable.for_path(path, device="cpu").to_table(filters=filters)
+        return
+    want = JaxTable.for_path(path).to_arrow(filters=filters, columns=columns)
+    for mode in ("off", "force", "auto"):
+        got = port_rows(path, filters[0] if filters else None, columns=columns, mode=mode)
+        assert got == rows_of(want), mode
+
+
+@pytest.mark.parametrize("filters,columns", [(["id > 1"], ["id"]), ([], ["id", "tag"]),
+                                             (["tag = 'b'"], ["id"])])
+def test_decimal_column_left_out_of_the_read(tmp_path, filters, columns):
+    path = _decimal_table(tmp_path)
+    want = JaxTable.for_path(path).to_arrow(filters=filters, columns=columns)
+    assert want.num_rows > 0
+    for mode in ("off", "force"):
+        got = port_rows(path, filters[0] if filters else None, columns=columns, mode=mode)
+        assert got == rows_of(want), mode
+
+
+@pytest.mark.parametrize("filters,columns", [([], None), (["amt > 2"], ["id"]),
+                                             ([], ["amt"])])
+def test_reading_a_decimal_column_is_not_ported(tmp_path, filters, columns):
+    path = _decimal_table(tmp_path)
+    with pytest.raises(NotImplementedError, match="reading column 'amt' of type decimal"):
+        DeltaTable.for_path(path, device="cpu").to_table(filters=filters, columns=columns)
+
+
+def test_row_groups_prune_beside_an_unsupported_column(tmp_path):
+    """Several row groups: the footer planner types only the predicate's
+    columns, so the decimal column's statistics are never decoded."""
+    import decimal
+
+    path = str(tmp_path / "rg")
+    n = 2000
+    JaxWrite(JaxDeltaLog.for_table(path), "append", pa.table({
+        "id": np.arange(n, dtype=np.int64),
+        "amt": pa.array([decimal.Decimal(i) / 4 for i in range(n)], pa.decimal128(10, 2))}),
+        ).run()
+    files = [f for f in os.listdir(path) if f.endswith(".parquet")]
+    pq.write_table(pq.read_table(f"{path}/{files[0]}"), f"{path}/{files[0]}",
+                   row_group_size=250)
+    c0 = telemetry.counters("scan.rowgroups")
+    got = port_rows(path, "id < 100", columns=["id"], mode="off")
+    assert sorted(r["id"] for r in got) == list(range(100))
+    pruned = telemetry.counters("scan.rowgroups").get("scan.rowgroups.pruned", 0)
+    assert pruned - c0.get("scan.rowgroups.pruned", 0) == 7

@@ -177,7 +177,7 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
         "for m in pkgutil.walk_packages(delta_tpu_torch.__path__, 'delta_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'pyarrow', 'delta_tpu'))\n"
+        "('jax', 'jaxlib', 'pyarrow', 'delta_tpu', 'zstandard', 'xxhash', 'lz4'))\n"
         "print(len([n for n in sys.modules if n.startswith('delta_tpu_torch.')]))\n"
         "print(bad)\n"
         "print(' '.join(sorted(n for n in sys.modules if n.startswith('delta_tpu_torch.'))))\n"
@@ -196,7 +196,8 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
               "ops.join_kernel", "ops.key_cache", "utils.config", "schema.schema_utils",
               "txn.isolation", "txn.conflicts", "txn.transaction", "commands.operations",
               "commands.write", "commands.alter", "commands.dml_common", "commands.merge",
-              "exec.write", "exec.scan"):
+              "exec.write", "exec.scan", "exec.zstd", "exec.lz4", "parallel.link",
+              "obs.router_audit", "obs.calibration", "utils.telemetry"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 

@@ -273,3 +273,47 @@ def reset_caches():
     JaxKeyCache.reset()
     TorchKeyCache.reset()
     delta_tpu_torch.DeltaLog.clear_cache()
+
+
+# -- the link router's parity vocabulary --------------------------------------------
+
+#: the cost constants both packages price with; the port's defaults are its
+#: card's, so a parity test installs the JAX package's values in the port
+LINK_CONSTANTS = ("KERNEL_S_PER_ROW", "HOST_JOIN_S_PER_ROW", "HOST_PRUNE_S_PER_CELL",
+                  "DEVICE_PRUNE_S_PER_CELL", "HOST_KEY_DECODE_S_PER_ROW",
+                  "RESIDENT_PROBE_S_PER_ROW", "RESIDENT_PROBE_FIXED_S",
+                  "RESIDENT_PAIR_S_PER_ROW", "DEVICE_SORT_S_PER_ROW",
+                  "HOST_RESIDUAL_S_PER_CELL", "DEVICE_RESIDUAL_S_PER_CELL")
+
+
+def install_reference_constants(monkeypatch):
+    """The JAX package's cost constants in the port, for this test."""
+    from delta_tpu.parallel import link as jax_link
+    from delta_tpu_torch.parallel import link as torch_link
+
+    for name in LINK_CONSTANTS:
+        monkeypatch.setattr(torch_link, name, getattr(jax_link, name))
+
+
+def reset_links():
+    """Both packages' cached link profiles, calibration and audits dropped."""
+    from delta_tpu.obs import calibration as jax_cal
+    from delta_tpu.obs import router_audit as jax_audit
+    from delta_tpu.parallel import link as jax_link
+    from delta_tpu_torch.obs import calibration as torch_cal
+    from delta_tpu_torch.obs import router_audit as torch_audit
+    from delta_tpu_torch.parallel import link as torch_link
+
+    for m in (jax_link, torch_link):
+        m.reset()
+    for m in (jax_cal, torch_cal):
+        m.reset()
+    for m in (jax_audit, torch_audit):
+        m.clear_audits()
+
+
+def both_links(up, down, **kv):
+    """The same injected link profile (MB/s) in both packages' confs, with
+    the JAX package held to one card's pricing (no sharded plan)."""
+    return both_confs(**{"delta.tpu.link.uploadMBps": up, "delta.tpu.link.downloadMBps": down,
+                         "delta.tpu.distributed.plan.enabled": False}, **kv)
