@@ -31,8 +31,14 @@ Phases, each reported on its own line:
    with present, absent and NULL literals, dates and timestamps before
    1970 and +-10^6 days away, the calendar opcodes, INs whose option is a
    column; the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
-   ranks 0 and 65,535); and the link probe's warm-up (K17) at 8 and 2^20
-   int32;
+   ranks 0 and 65,535); the link probe's warm-up (K17) at 8 and 2^20
+   int32; and the state mesh's kernels over 8 shards of the one card: the
+   combine kernel (sum, OR, OR + pack), the sharded replay (K6) at n=2^20
+   (zipf-skewed paths, one empty shard) also against K5, the sharded block
+   cull (K7) on K1's lanes over 2, 4 and 8 shards also against K1
+   unpacked, and the sharded join probe (K13), int32 and int64, at
+   cap_t=16,777,216 and cap_s=2^20 (sentinels, duplicate runs, runs of
+   equal keys across the shard boundaries) also against K12;
 4. the scan-planning path at full size, with every launch counter set to 0
    just before and read just after (phases 4 and 5 pin
    ``stateCache.devicePlan.mode=force``, phase 9 ``deviceResidual.mode=
@@ -128,7 +134,22 @@ Phases, each reported on its own line:
    compares over 33.5e12/s, whichever is larger) and, where one PyTorch
    call computes the same function, that call's time; one JSON line lists
    them;
-12. last line: ``{"ok": true, "device": {...}}``.
+12. the state mesh, with the counters set to 0 again, under
+   ``mesh.using_devices([cuda:0] * 8)``: bench config 6's 256-query plan
+   under ``distributed.plan.mode=force`` (``resident_shards == 8``, every
+   result ``device-sharded``, equal to one card's plans and the host's);
+   ``replay_sharded`` of the log's action stream, equal to K5's masks and
+   sums; M4, a fifth bench config 2 upsert of 1M new rows through the
+   upload join on a hard-linked copy of phase 10's table (deletion vectors
+   off over its deletion-vectored files, as M3), which must launch K13 once
+   a shard and no K12 and end in the reference upsert's state;
+   ``multichip.dryrun_multichip(8)``; then the two shard constants measured
+   on the one card (one JSON line) and the plan under ``auto`` priced with
+   them, its route the one its prices imply. Where there are several cards,
+   the plan, the replay and the dryrun run again over all of them. K6, K7,
+   K13 and the combine kernel are then timed at the phase's shapes (rows of
+   the kernels line);
+13. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -157,7 +178,7 @@ from delta_tpu_torch.ops import (
     state_export, zorder,
 )
 from delta_tpu_torch.obs import router_audit
-from delta_tpu_torch.parallel import link
+from delta_tpu_torch.parallel import link, mesh
 from delta_tpu_torch.utils.config import conf
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
@@ -296,6 +317,7 @@ def synthetic_checks(dev):
     k14_checks(dev)
     k16_checks(dev)
     k17_checks(dev)
+    mesh_checks(dev)
 
 
 def k17_checks(dev):
@@ -309,6 +331,168 @@ def k17_checks(dev):
         torch.cuda.synchronize()
         check(torch.equal(got, link.link_probe_plain(a)), f"link_probe != plain at n={n}")
     say("kernels: link_probe (K17) n=8, 2^20 exact")
+
+
+# -- phase 3, the mesh: K6, K7, K13 and the combine kernel ---------------------------
+
+MESH_SHARDS = 8
+K13_CAP_T = 16_777_216  # _bucket(ceil(12.5M / 8)) * 8: phase 12's upload join
+
+
+def k6_stream(n, seed):
+    """An action stream of n rows for the sharded replay: zipf-skewed paths
+    (a few hot paths carry much of the history, so one shard is heavy),
+    none of which hashes to the last shard (an empty, all-pad shard),
+    removes on both sides of the cutoff, sizes whose int64 sum wraps."""
+    rng = np.random.RandomState(seed)
+    ids = np.arange(n // 4, dtype=np.int64)
+    ids = ids[(replay_kernel._mix64(ids) % np.uint64(MESH_SHARDS)) != MESH_SHARDS - 1]
+    probs = 1.0 / np.arange(1, len(ids) + 1, dtype=np.float64)
+    probs /= probs.sum()
+    pid = ids[rng.choice(len(ids), n, p=probs)].astype(np.int32)
+    return state_export.ReplayArrays(
+        paths=[f"p{i}" for i in range(n // 4)], path_id=pid,
+        seq=(rng.permutation(n).astype(np.int64) << 8) + 7, is_add=rng.rand(n) > 0.3,
+        size=rng.randint(0, 2**62, n).astype(np.int64),
+        deletion_timestamp=rng.randint(0, 2000, n).astype(np.int64))
+
+
+def k6_slabs(stream, dev, shards=MESH_SHARDS):
+    stacked, order, dest = replay_kernel._bucket_by_path(stream, shards)
+    slabs = [tuple(torch.from_numpy(np.ascontiguousarray(c[i])).to(dev) for c in stacked)
+             for i in range(shards)]
+    return slabs, order, dest
+
+
+def k6_checks(dev):
+    """K6 at n = 2^20 over 8 shards (skewed, one shard empty) against its
+    plain version, and against K5 on the whole stream."""
+    n = 1 << 20
+    stream = k6_stream(n, 31)
+    slabs, order, dest = k6_slabs(stream, dev)
+    check(any(int((s[0] >= 0).sum()) == 0 for s in slabs), "K6 check: no empty shard")
+    num_paths = len(stream.paths)
+    cols = [torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        stream.path_id, stream.seq, stream.is_add, stream.size, stream.deletion_timestamp)]
+    for cutoff in (0, 1000):
+        got = replay_kernel.sharded_replay(slabs, num_paths, cutoff)
+        torch.cuda.synchronize()
+        ref = replay_kernel.sharded_replay_plain(slabs, num_paths, cutoff)
+        check(all(torch.equal(g, r) for g, r in zip(got[0], ref[0]))
+              and all(torch.equal(g, r) for g, r in zip(got[1], ref[1]))
+              and torch.equal(got[2], ref[2]), f"K6 != plain at cutoff {cutoff}")
+        k5 = replay_kernel.replay(*cols, num_paths, cutoff)
+        alive = np.zeros(n, bool)
+        alive[order] = torch.cat(got[0]).cpu().numpy()[dest]
+        tomb = np.zeros(n, bool)
+        tomb[order] = torch.cat(got[1]).cpu().numpy()[dest]
+        check(np.array_equal(alive, k5[0].cpu().numpy())
+              and np.array_equal(tomb, k5[1].cpu().numpy())
+              and torch.equal(got[2], k5[2]), f"K6 != K5 at cutoff {cutoff}")
+    rows = [int((s[0] >= 0).sum()) for s in slabs]
+    say(f"kernels: sharded_replay (K6) n=2^20 over {MESH_SHARDS} shards (rows a shard {rows}, "
+        f"cap {slabs[0][0].shape[0]}) cutoffs 0, 1000 exact against its plain version and K5 "
+        f"(sums {got[2].tolist()})")
+
+
+def k7_lanes(dev, seed=1):
+    """synthetic_checks' K1 lanes: C=4, cap=2^20, M=256, NaN lanes and
+    bounds, dead rows, the capacity pad."""
+    rng = np.random.RandomState(seed)
+    c, cap, m = 4, 1 << 20, 256
+    mins = (rng.rand(c, cap) * 100).astype(np.float32)
+    maxs = mins + (rng.rand(c, cap) * 0.5).astype(np.float32)
+    mins[:, rng.rand(cap) < 0.02] = np.nan
+    maxs[:, rng.rand(cap) < 0.02] = np.nan
+    alive = rng.rand(cap) > 0.1
+    alive[-5000:] = False
+    lo = (rng.rand(m, c) * 100).astype(np.float32)
+    hi = lo + np.float32(0.05)
+    lo[rng.rand(m, c) < 0.3] = np.nan
+    hi[rng.rand(m, c) < 0.3] = np.nan
+    return [torch.from_numpy(a).to(dev) for a in (mins, maxs, alive, lo, hi)]
+
+
+def k7_shards(mins, maxs, alive, shards):
+    per = alive.shape[0] // shards
+    return [(mins[:, i * per:(i + 1) * per].contiguous(),
+             maxs[:, i * per:(i + 1) * per].contiguous(),
+             alive[i * per:(i + 1) * per].contiguous()) for i in range(shards)]
+
+
+def k7_checks(dev):
+    mins, maxs, alive, lo, hi = k7_lanes(dev)
+    k1 = state_cache.block_cull(mins, maxs, alive, lo, hi)
+    k1_blocks = torch.from_numpy(np.unpackbits(k1.cpu().numpy(), axis=1,
+                                               count=alive.shape[0] // 1024)).to(dev)
+    for shards in (2, 4, 8):
+        sh = k7_shards(mins, maxs, alive, shards)
+        got = state_cache.sharded_block_cull(sh, lo, hi)
+        torch.cuda.synchronize()
+        check(torch.equal(got, state_cache.sharded_block_cull_plain(sh, lo, hi)),
+              f"K7 != plain over {shards} shards")
+        check(torch.equal(got, k1_blocks), f"K7 != K1 unpacked over {shards} shards")
+    say("kernels: sharded_block_cull (K7) C=4 cap=2^20 M=256 over 2, 4, 8 shards exact against "
+        f"its plain version and K1 ({int(k1_blocks.sum())} live blocks)")
+
+
+def k13_inputs(rng, dt, shape):
+    """K13's padded inputs at phase 12's capacities (cap_t = 16,777,216,
+    cap_s = 2^20 over 8 shards): k12_inputs' shapes, or ``runs``: runs of
+    equal source keys straddling the source pieces' boundaries."""
+    n, m = 12_500_000, 1_000_000
+    if shape != "runs":
+        return k12_inputs(rng, dt, K13_CAP_T, n, 1 << 20, m, shape)
+    info = np.iinfo(dt)
+    piece = (1 << 20) // MESH_SHARDS
+    s = np.full(1 << 20, info.max - 1, dt)
+    s[:m] = np.repeat(rng.randint(-(1 << 29), 1 << 29, m // 64), 64)[:m]
+    s[piece - 32:piece + 32] = 77  # one run across the first boundary
+    t = np.full(K13_CAP_T, info.max, dt)
+    t[:n] = rng.randint(-(1 << 29), 1 << 29, n)
+    t[K13_CAP_T // MESH_SHARDS - 3:K13_CAP_T // MESH_SHARDS + 3] = 77  # and across slabs
+    return t, s
+
+
+def k13_checks(dev):
+    rng = np.random.RandomState(37)
+    for dt, shape in ((np.int32, "half"), (np.int64, "half"), (np.int64, "low"),
+                      (np.int32, "runs"), (np.int64, "dups")):
+        t_in, s_in = k13_inputs(rng, dt, shape)
+        t, s = torch.from_numpy(t_in).to(dev), torch.from_numpy(s_in).to(dev)
+        t_sl, s_pc = list(t.view(MESH_SHARDS, -1)), list(s.view(MESH_SHARDS, -1))
+        got = join_kernel.sharded_join_probe(t_sl, s_pc)
+        torch.cuda.synchronize()
+        check(equal_all(got, join_kernel.sharded_join_probe_plain(t_sl, s)),
+              f"K13 != plain: {np.dtype(dt).name} {shape}")
+        check(equal_all(got, join_kernel.join_probe(t, s)),
+              f"K13 != K12: {np.dtype(dt).name} {shape}")
+        del t, s, t_sl, s_pc, got
+    torch.cuda.empty_cache()
+    say(f"kernels: sharded_join_probe (K13) int32 and int64, cap_t={K13_CAP_T} cap_s=2^20 over "
+        f"{MESH_SHARDS} shards (sentinels at both ends, duplicate runs, runs of equal keys "
+        "across the shard boundaries) exact against its plain version and K12")
+
+
+def combine_checks(dev):
+    rng = np.random.RandomState(41)
+    for n, k in ((8, (1 << 20) + 3), (1, 5), (3, 64)):
+        rows = torch.from_numpy(rng.randint(-2**62, 2**62, (n, k)).astype(np.int64)).to(dev)
+        flags = torch.from_numpy(((rng.rand(n, k) < 0.05)
+                                  * rng.randint(1, 255, (n, k))).astype(np.uint8)).to(dev)
+        for op, x in (("sum", rows), ("or", flags), ("or_pack", flags)):
+            got = mesh.shard_combine(x, op)
+            torch.cuda.synchronize()
+            check(torch.equal(got, mesh.shard_combine_plain(x, op)),
+                  f"shard_combine {op} != plain at ({n}, {k})")
+    say("kernels: shard_combine sum / or / or_pack at (8, 2^20 + 3), (1, 5), (3, 64) exact")
+
+
+def mesh_checks(dev):
+    combine_checks(dev)
+    k6_checks(dev)
+    k7_checks(dev)
+    k13_checks(dev)
 
 
 #: the K15 corpus: every opcode and register dtype, NaN and ±inf lanes,
@@ -1876,7 +2060,8 @@ def run_router(dev, c6, c2, c12, workdir):
     auto_runs = [plan("auto") for _ in range(2)]
     auto_s, auto_plans = min(auto_runs, key=lambda x: x[0])
     m = sum(r.verdict is None for r in ranges)
-    device_s, host_s, cells, fixed_s = entry._price_plan(m)
+    device_s, host_s, cells, fixed_s, sharded_s, _ = entry._price_plan(m)
+    check(sharded_s is None, "config 6 auto: a one-card mesh priced a sharded plan")
     want_via = "device" if device_s < host_s else "host-resident"
     for _, plans in auto_runs:
         for i, (a, f, o) in enumerate(zip(plans, force_plans, off_plans)):
@@ -1965,7 +2150,7 @@ def run_router(dev, c6, c2, c12, workdir):
     check(launches["link_probe"] == 1, f"link_probe launched {launches['link_probe']} times, "
           "not once per profile miss")
     say(json.dumps({"constants": CONSTS}))
-    return {"launches": launches}
+    return {"launches": launches, "c2": {"path": path, "state": state}}
 
 
 def measure_link_probe(dev, rctx):
@@ -2310,6 +2495,324 @@ def measure_slab(dev, mctx):
     return out
 
 
+# -- phase 12: the state mesh ----------------------------------------------------------
+
+
+def mesh_merge(dev, c2a, workdir):
+    """The fifth MERGE: bench config 2's upload route with the 8-entry mesh
+    installed, on a fresh hard-linked copy of phase 10's table (M3's table
+    after the two auto upserts, whose deletion vectors make a copy-on-write
+    merge take the upload join, as M3's did), with a new 1M-row source."""
+    import shutil
+
+    path = c2a["path"] + "-mesh"
+    shutil.copytree(c2a["path"], path, copy_function=os.link)
+    log = DeltaLog.for_table(path, device=dev)
+    [src] = auto_sources(c2a["state"], (16,))
+    want = reference_upsert(c2a["state"], src)
+    captured = {}
+    real = join_kernel.sharded_join_probe
+
+    def capturing(t_slabs, s_parts):  # keeps the merge's K13 inputs
+        captured["args"] = ([t.clone() for t in t_slabs], [x.clone() for x in s_parts])
+        return real(t_slabs, s_parts)
+
+    before = dict(native.launches)
+    join_kernel.sharded_join_probe = capturing
+    try:
+        with conf.set_temporarily(**{"delta.tpu.merge.devicePath.mode": "force",
+                                     "delta.tpu.deletionVectors.enabled": False}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk",
+                                   [MergeClause("update")], [MergeClause("insert")],
+                                   source_alias="s", target_alias="t")
+            cmd.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        join_kernel.sharded_join_probe = real
+    delta = {k: native.launches[k] - before[k] for k in native.launches
+             if native.launches[k] != before[k]}
+    check(cmd._join_path == "device-upload", f"M4: route {cmd._join_path}, not device-upload")
+    check(not cmd._router.get("reason"), f"M4: fell back: {cmd._router}")
+    check(delta.get("sharded_join_probe", 0) == MESH_SHARDS and "join_probe" not in delta,
+          f"M4: launches {delta}: K13 once a shard and no K12 expected")
+    check(cmd.metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
+          and cmd.metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
+          f"M4: metrics {cmd.metrics}")
+    got = end_state(log)
+    for c in STORE_SALES:
+        check(np.array_equal(got[c], want[c]),
+              f"M4: end-state column {c} differs from the reference upsert")
+    phases = {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+    return {"args": captured["args"], "wall_s": wall_s, "phase_ms": phases, "launches": delta,
+            "rows": len(got["ss_item_sk"])}
+
+
+def mesh_plan_leg(entry, ranges, settings):
+    """The 256-query plan on a fresh residency under ``settings``: best of
+    three after a first (cold) call."""
+    entry.drop_device()
+    k = entry.num_rows
+    with conf.set_temporarily(**settings):
+        cold_s, _ = timed(lambda: entry.plan_ranges(ranges, k=k))
+        wall_s, plans = min((timed(lambda: entry.plan_ranges(ranges, k=k)) for _ in range(3)),
+                            key=lambda x: x[0])
+    return cold_s, wall_s, plans
+
+
+def measure_shard_constants(dev, shards, lo, hi):
+    """SHARD_GATHER_S_PER_SHARD: the gather of config 6's 8 block maps into
+    the lead device's map (CUDA events), per shard. SHARD_DISPATCH_S: the
+    host wall of one synchronized sharded cull at the smallest plan that
+    splits over 8 shards (8 queries, one 1024-file block a shard), best of
+    20, less its 8 gathers. Both on one card: the gather is a copy inside
+    it."""
+    out = state_cache.sharded_block_cull(shards, lo, hi)
+    w = out.shape[1] // len(shards)
+    parts = [out[:, i * w:(i + 1) * w].contiguous() for i in range(len(shards))]
+    gather_ms = cuda_ms(lambda: mesh.all_gather(parts, dev, axis=1), 50)
+    rng = np.random.RandomState(43)
+    small = k7_shards(*[torch.from_numpy(a).to(dev) for a in (
+        (rng.rand(4, 8 * 1024) * 100).astype(np.float32),
+        (rng.rand(4, 8 * 1024) * 100 + 100).astype(np.float32),
+        np.ones(8 * 1024, bool))], len(shards))
+    s_lo = torch.from_numpy((rng.rand(8, 4) * 100).astype(np.float32))
+    s_hi = s_lo + 1
+    small_out = state_cache.sharded_block_cull(small, s_lo, s_hi)
+    sp = [small_out[:, i:i + 1].contiguous() for i in range(len(shards))]
+    small_gather_ms = cuda_ms(lambda: mesh.all_gather(sp, dev, axis=1), 200)
+    walls = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_cache.sharded_block_cull(small, s_lo, s_hi)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    gather_s = gather_ms / 1e3 / len(shards)
+    dispatch_s = min(walls) - small_gather_ms / 1e3
+    check(gather_s > 0 and dispatch_s > 0, f"shard constants {gather_s}, {dispatch_s}")
+    return {"SHARD_DISPATCH_S": dispatch_s, "SHARD_GATHER_S_PER_SHARD": gather_s,
+            "gather_ms_8_shards": gather_ms, "small_cull_wall_s": min(walls),
+            "small_gather_ms": small_gather_ms}
+
+
+def auto_leg(entry, ranges, host_plans, leg):
+    """The 256-query plan under ``devicePlan.mode=auto`` on the mesh, its
+    route the one ``_price_plan``'s prices imply (a resident entry keeps its
+    shards), its rows the host's."""
+    router_audit.clear_audits()
+    m = sum(r.verdict is None for r in ranges)
+    with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "auto"}):
+        device_s, host_s, _, _, sh_s, shards = entry._price_plan(m)
+        best = min(device_s, sh_s) if sh_s is not None else device_s
+        if entry.is_resident:
+            sharded = entry.resident_shards > 1
+        else:
+            sharded = sh_s is not None and sh_s < device_s
+        want_via = ("host-resident" if best >= host_s
+                    else "device-sharded" if sharded else "device")
+        auto_s, auto_plans = timed(lambda: entry.plan_ranges(ranges, k=entry.num_rows))
+    for i, (a, ph) in enumerate(zip(auto_plans, host_plans)):
+        check(a.via in (want_via, "verdict"), f"config 6 mesh auto {leg}: query {i} via "
+              f"{a.via}, priced {want_via}")
+        check(np.array_equal(a.rows, ph.rows), f"config 6 mesh auto {leg}: query {i} != host")
+    [a] = [x for x in router_audit.recent_audits() if x["op"] == "scan.plan"]
+    say(f"mesh: config 6 auto {leg} over {shards} feasible shards: {want_via} in "
+        f"{auto_s * 1e3:.3f} ms (priced device {device_s * 1e3:.3f}, sharded "
+        f"{sh_s * 1e3:.3f}, host {host_s * 1e3:.3f} ms); audit predicted "
+        f"{a['predictedMs']} actual {a['actualMs']} miss {a['miss']}")
+
+
+def run_mesh(dev, c6, c2a, workdir):
+    """Phase 12: the sharded paths at full width with one card named 8
+    times, and over every card where there are several."""
+    from delta_tpu_torch.multichip import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    entry, ranges, stream = c6["entry"], c6["ranges"], c6["stream"]
+    cutoff = N_COMMITS + 5
+    force1 = {"delta.tpu.stateCache.devicePlan.mode": "force",
+              "delta.tpu.distributed.plan.enabled": False}
+    force8 = {"delta.tpu.stateCache.devicePlan.mode": "force",
+              "delta.tpu.distributed.plan.mode": "force"}
+    # one card's plans and replay, and the host plans: what the mesh must equal
+    _, single_s, single_plans = mesh_plan_leg(entry, ranges, force1)
+    host_plans = entry.plan_ranges(ranges, k=entry.num_rows, use_device=False)
+    k5 = replay_kernel.replay_alive_mask(stream, min_retention_ts=cutoff, device=dev)
+    devices = [dev] * MESH_SHARDS
+    with mesh.using_devices(devices):
+        m8 = mesh.state_mesh(device=dev)
+        native.reset_launches()  # -- the mesh's path starts here
+        cold_s, sharded_s, plans = mesh_plan_leg(entry, ranges, force8)
+        check(entry.resident_shards == MESH_SHARDS, f"resident_shards {entry.resident_shards}")
+        for i, (p8, p1, ph) in enumerate(zip(plans, single_plans, host_plans)):
+            check(p8.via in ("device-sharded", "verdict"), f"config 6 mesh: query {i} via {p8.via}")
+            check(np.array_equal(p8.rows, p1.rows) and np.array_equal(p8.rows, ph.rows)
+                  and p8.count == p1.count == ph.count,
+                  f"config 6 mesh: query {i} differs from one card's or the host plan")
+        k7_in = [(sh["mins"], sh["maxs"], sh["alive"]) for sh in entry._dev]
+        say(f"mesh: config 6 plan of {len(ranges)} queries over {entry.num_rows} files on "
+            f"{MESH_SHARDS} shards of one card: {sharded_s * 1e3:.3f} ms (cold {cold_s * 1e3:.3f}"
+            f" ms) against one card's {single_s * 1e3:.3f} ms; plans equal one card's and the "
+            "host's")
+        t_rep, rep = timed(lambda: replay_kernel.replay_sharded(stream, m8,
+                                                                min_retention_ts=cutoff))
+        check(np.array_equal(rep.alive, k5.alive) and np.array_equal(rep.tombstone, k5.tombstone)
+              and rep.stats == k5.stats, "replay_sharded != K5's replay_alive_mask")
+        say(f"mesh: replay_sharded over {stream.num_rows} actions on {MESH_SHARDS} shards in "
+            f"{t_rep * 1e3:.3f} ms: {int(rep.stats.num_files)} live files, "
+            f"{int(rep.stats.num_tombstones)} tombstones, bytes {int(rep.stats.total_size)}, "
+            "equal to K5's masks and sums")
+        m4 = mesh_merge(dev, c2a, workdir)
+        say(f"mesh: M4 device-upload on {MESH_SHARDS} shards {m4['wall_s']:.3f} s wall, "
+            f"phase_ms {m4['phase_ms']} (M3's {c2a['m3']['phase_ms']}, {c2a['m3']['wall_s']:.3f}"
+            f" s), launches {m4['launches']}; end state of {m4['rows']} rows x 8 columns equal "
+            "to the reference upsert")
+        t_dry, report = timed(lambda: dryrun_multichip(MESH_SHARDS, device=dev))
+        say(f"mesh: dryrun_multichip({MESH_SHARDS}) in {t_dry:.3f} s: " + json.dumps(report))
+        launches = dict(native.launches)  # -- the mesh's path ends here
+        say(f"mesh: launches on the mesh's path {launches}")
+        for name in ("sharded_block_cull", "sharded_replay", "sharded_join_probe",
+                     "shard_combine", "expr_eval"):
+            check(launches[name] > 0, f"kernel {name} was not launched on the mesh's path")
+
+        # auto, priced with this run's shard constants
+        lo = torch.from_numpy(state_cache._f32_down(np.stack([r.lo for r in ranges])))
+        hi = torch.from_numpy(state_cache._f32_up(np.stack([r.hi for r in ranges])))
+        consts = measure_shard_constants(dev, k7_in, lo, hi)
+        say(json.dumps({"mesh_constants": consts}))
+        for name in ("SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD"):
+            link.set_calibrated(name, consts[name])
+        try:
+            entry.drop_device()
+            for leg in ("cold", "warm"):
+                auto_leg(entry, ranges, host_plans, leg)
+        finally:
+            link.clear_calibrated()
+    count = torch.cuda.device_count()
+    if count > 1:
+        cards = [torch.device("cuda", i) for i in range(count)]
+        with mesh.using_devices(cards):
+            _, multi_s, plans = mesh_plan_leg(entry, ranges, force8)
+            check(all(np.array_equal(p.rows, q.rows) for p, q in zip(plans, host_plans)),
+                  f"config 6 over {count} cards differs from the host plan")
+            rep = replay_kernel.replay_sharded(stream, cards, min_retention_ts=cutoff)
+            check(np.array_equal(rep.alive, k5.alive) and rep.stats == k5.stats,
+                  f"replay_sharded over {count} cards != K5")
+            report = dryrun_multichip(count, device=dev)
+        say(f"mesh: over {count} cards: plan {multi_s * 1e3:.3f} ms on "
+            f"{entry.resident_shards} shards, replay equal to K5, dryrun {json.dumps(report)}")
+    entry.drop_device()
+    say(f"mesh: phase 12 took {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "k7": k7_in, "lo": lo, "hi": hi, "m4": m4,
+            "stream": stream, "cutoff": cutoff}
+
+
+def measure_mesh(dev, xctx):
+    """K6, K7, K13 and the combine kernel at phase 12's shapes."""
+    out = []
+    launches = xctx["launches"]
+    # K7 at config 6's sharded lanes
+    shards, lo, hi = xctx["k7"], xctx["lo"].to(dev), xctx["hi"].to(dev)
+    got = state_cache.sharded_block_cull(shards, lo, hi)
+    ref = state_cache.sharded_block_cull_plain(shards, lo, hi)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "sharded_block_cull != plain on config 6's lanes")
+    mins = torch.cat([s[0] for s in shards], dim=1)
+    maxs = torch.cat([s[1] for s in shards], dim=1)
+    alive = torch.cat([s[2] for s in shards])
+    c, cap = mins.shape
+    m = lo.shape[0]
+    b, by = bound(2 * c * cap * 4 + cap + 2 * m * c * 4 + got.numel(),
+                  cull_ops(mins, maxs, alive, lo, hi))
+    out.append({
+        "name": "sharded_block_cull", "route": "cuda", "source": "delta_tpu_torch/csrc/block_cull.cu",
+        "replaces": "delta_tpu/ops/state_cache.py:1014",
+        "launches": launches["sharded_block_cull"], "max_abs_err": max_abs_err(got, ref),
+        "ms": cuda_ms(lambda: state_cache.sharded_block_cull(shards, lo, hi), 20),
+        "plain_ms": cuda_ms(lambda: state_cache.sharded_block_cull_plain(shards, lo, hi), 3),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"C={c} cap={cap} M={m} over {len(shards)} shards of one card (config 6)"})
+    del mins, maxs, alive
+
+    # K6 at the log's action stream over 8 shards
+    stream, cutoff = xctx["stream"], xctx["cutoff"]
+    slabs, _, _ = k6_slabs(stream, dev)
+    pid = np.asarray(stream.path_id)
+    num_paths = max(len(stream.paths), int(pid.max()) + 1)
+    got = replay_kernel.sharded_replay(slabs, num_paths, cutoff)
+    ref = replay_kernel.sharded_replay_plain(slabs, num_paths, cutoff)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, r) for g, r in zip(got[0] + got[1], ref[0] + ref[1]))
+          and torch.equal(got[2], ref[2]), "sharded_replay != plain on the log's stream")
+    cap_sh = slabs[0][0].shape[0]
+    b, by = bound(MESH_SHARDS * cap_sh * (4 + 8 + 1 + 8 + 8 + 2) + MESH_SHARDS * 3 * 8 + 3 * 8)
+    whole = [torch.from_numpy(np.asarray(a)).to(dev) for a in (stream.path_id, stream.seq)]
+    pid64, seq = whole[0].long(), whole[1]
+    best = torch.empty(num_paths, dtype=torch.int64, device=dev)
+    out.append({
+        "name": "sharded_replay", "route": "cuda", "source": "delta_tpu_torch/csrc/replay.cu",
+        "replaces": "delta_tpu/ops/replay_kernel.py:206",
+        "launches": launches["sharded_replay"],
+        "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got[0] + got[1] + [got[2]],
+                                                               ref[0] + ref[1] + [ref[2]])),
+        "ms": cuda_ms(lambda: replay_kernel.sharded_replay(slabs, num_paths, cutoff), 20),
+        "plain_ms": cuda_ms(lambda: replay_kernel.sharded_replay_plain(slabs, num_paths,
+                                                                       cutoff), 5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: best.fill_(-(1 << 63)).scatter_reduce_(
+            0, pid64, seq, "amax"), 50),
+        "shape": f"{MESH_SHARDS} shards x cap={cap_sh} ({stream.num_rows} actions) "
+                 f"num_paths={num_paths}"})
+    del slabs, whole, pid64, seq, best
+
+    # K13 at M4's own inputs
+    t_slabs, s_parts = xctx["m4"]["args"]
+    got = join_kernel.sharded_join_probe(t_slabs, s_parts)
+    s_full = torch.cat(s_parts)
+    ref = join_kernel.sharded_join_probe_plain(t_slabs, s_full)
+    torch.cuda.synchronize()
+    check(equal_all(got, ref), "sharded_join_probe != plain on M4's inputs")
+    t_full = torch.cat(t_slabs)
+    check(equal_all(got, join_kernel.join_probe(t_full, s_full)),
+          "sharded_join_probe != K12 on M4's inputs")
+    cap_t, cap_s = t_full.shape[0], s_full.shape[0]
+    b, by = bound(t_full.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1,
+                  cap_t * max(int(np.ceil(np.log2(cap_s))), 1))
+    sorted_s = torch.sort(s_full).values
+    out.append({
+        "name": "sharded_join_probe", "route": "cuda", "source": "delta_tpu_torch/csrc/join_probe.cu",
+        "replaces": "delta_tpu/ops/join_kernel.py:150",
+        "launches": launches["sharded_join_probe"],
+        "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        "ms": cuda_ms(lambda: join_kernel.sharded_join_probe(t_slabs, s_parts), 10),
+        "plain_ms": cuda_ms(lambda: join_kernel.sharded_join_probe_plain(t_slabs, s_full), 3),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.searchsorted(sorted_s, t_full), 20),
+        "shape": f"cap_t={cap_t} cap_s={cap_s} {t_full.dtype} over {len(t_slabs)} shards of one "
+                 "card (M4)"})
+    del t_full, s_full, sorted_s
+
+    # the combine at K13's source-hit shape: (8, cap_s) bytes ORed and packed
+    rows = (torch.rand((MESH_SHARDS, cap_s), device=dev) < 0.05).to(torch.uint8)
+    got, ref = mesh.shard_combine(rows, "or_pack"), mesh.shard_combine_plain(rows, "or_pack")
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "shard_combine != plain at K13's shape")
+    b, by = bound(MESH_SHARDS * cap_s + cap_s // 8)
+    out.append({
+        "name": "shard_combine", "route": "cuda", "source": "delta_tpu_torch/csrc/shard_combine.cu",
+        "replaces": "delta_tpu/ops/join_kernel.py:150 (psum)",
+        "launches": launches["shard_combine"], "max_abs_err": max_abs_err(got, ref),
+        "ms": cuda_ms(lambda: mesh.shard_combine(rows, "or_pack"), 100),
+        "plain_ms": cuda_ms(lambda: mesh.shard_combine_plain(rows, "or_pack"), 20),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.any(rows, dim=0), 100),
+        "shape": f"or_pack of ({MESH_SHARDS}, {cap_s}) u8 (K13's source hits)"})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2330,7 +2833,7 @@ def main() -> int:
             run_fallback(dev, ctx)
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
         kernels += measure_normal_leg(dev, ctx)
-        c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"]}
+        c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"], "stream": ctx["stream"]}
         ctx = None  # the rest of the scan phases' host state is done with
         mctx = run_merge(dev, workdir)
         slab_rows = measure_slab(dev, mctx)
@@ -2343,7 +2846,7 @@ def main() -> int:
         k12_rows = measure_join_probe(dev, cctx)
         kernels += k12_rows
         measure_join_constants(cctx, k12_rows)
-        c2 = {"path": cctx["path"], "state": cctx["state"]}
+        c2 = {"path": cctx["path"], "state": cctx["state"], "m3": cctx["merges"][-1]}
         cctx = None
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
@@ -2357,6 +2860,10 @@ def main() -> int:
         kernels += measure_morton(dev, zctx)
         rctx = run_router(dev, c6, c2, c12, workdir)
         kernels += measure_link_probe(dev, rctx)
+        key_cache.KeyCache.reset()
+        torch.cuda.empty_cache()
+        xctx = run_mesh(dev, c6, dict(rctx["c2"], m3=c2["m3"]), workdir)
+        kernels += measure_mesh(dev, xctx)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

@@ -12,7 +12,10 @@ card (``ops/column_cache``), and OPTIMIZE with its Z-order key on the card
 (``exec/parquet``). Under each ``auto`` mode a link cost model
 (``parallel/link``, probed with K17) picks the card or the host for the
 scan plan, the MERGE join and the residual filter, and ``obs/router_audit``
-records each decision::
+records each decision. Over a state mesh of several entries
+(``parallel/mesh``: every card, or one card named several times) the scan
+plan, the replay and the MERGE upload join run sharded, one launch a shard
+(K7, K6, K13), as ``multichip.dryrun_multichip`` drives them::
 
     from delta_tpu_torch import DeltaLog, DeltaTable, MergeClause, MergeIntoCommand
     from delta_tpu_torch import WriteIntoDelta

@@ -55,8 +55,16 @@ whose rows disagree with its recorded count.
 Left out, each raising ``NotImplementedError``: schema evolution
 (``delta.tpu.schema.autoMerge.enabled`` with a star clause), tables with
 the change data feed, generated columns. Also left out, result-identical:
-the distributed touched-files probe and ``devicePath.preferMesh`` (several
-cards), row-group skipping, and the workload journal.
+the distributed touched-files probe (it runs on the multi-host executor),
+row-group skipping, and the workload journal.
+
+On a state mesh of several entries (``parallel/mesh.default_devices``:
+every visible card, or the list ``mesh.using_devices`` installs), the
+upload join runs K13 over the mesh in place of K12, as the JAX package
+passes ``state_mesh()`` whenever it has several devices; with
+``delta.tpu.merge.devicePath.preferMesh`` the cold estimate prices that
+route (``link.estimate_device_s(..., shards=)``) in place of the cold
+slab's.
 """
 from __future__ import annotations
 
@@ -513,9 +521,17 @@ class MergeIntoCommand:
             if n_est is not None:
                 from delta_tpu_torch.parallel import link
 
-                device_s = link.cold_merge_device_s(n_est, src.num_rows,
-                                                    link.profile(self.delta_log.device))
-                host_est_s = (n_est + src.num_rows) * link.constant("HOST_JOIN_S_PER_ROW")
+                mesh = self._state_mesh()
+                rows = n_est + src.num_rows
+                if mesh is None or not conf.get_bool("delta.tpu.merge.devicePath.preferMesh",
+                                                     False):
+                    device_s = link.cold_merge_device_s(n_est, src.num_rows,
+                                                        link.profile(self.delta_log.device))
+                else:
+                    device_s = link.estimate_device_s(
+                        up_bytes=rows * 4, down_bytes=rows // 8, kernel_rows=rows,
+                        shards=len(mesh), device=mesh[0]).device_s
+                host_est_s = rows * link.constant("HOST_JOIN_S_PER_ROW")
                 self._router.setdefault("deviceEstS", round(device_s, 3))
                 self._router.setdefault("hostEstS", round(host_est_s, 3))
                 if device_s > host_est_s:
@@ -963,8 +979,16 @@ class MergeIntoCommand:
             from delta_tpu_torch.parallel import link
 
             budget_s = (len(t_keys) + len(s_keys)) * link.constant("HOST_JOIN_S_PER_ROW")
-        return join_kernel.inner_join_async(t_keys, t_ok, s_keys, s_ok,
-                                            device=self.delta_log.device, budget_s=budget_s)
+        return join_kernel.inner_join_async(t_keys, t_ok, s_keys, s_ok, mesh=self._state_mesh(),
+                                            budget_s=budget_s, device=self.delta_log.device)
+
+    def _state_mesh(self):
+        """The default state mesh when it has several entries (the upload
+        join then runs K13 over it), else None."""
+        from delta_tpu_torch.parallel.mesh import state_mesh
+
+        mesh = state_mesh(device=self.delta_log.device)
+        return mesh if len(mesh) > 1 else None
 
     def _check_star_coverage(self, target_cols: Sequence[str], src_cols: Sequence[str],
                              typ: str) -> None:

@@ -27,6 +27,17 @@
 // (an infinity is kept as an infinity, so the inverted +inf/-inf lanes of a
 // null partition value still prune). Built without fast math / FTZ: the f32
 // lanes can hold subnormals, and flushing them would change comparisons.
+//
+// The sharded block cull (K7) is the second entry point, dtt_block_cull_shard.
+// It replaces delta_tpu/ops/state_cache.py:1014 `_sharded_block_kernel_fn`, a
+// shard_map on the TPU mesh in which each device runs K1's test over its
+// 1/shards slice of the file axis and any-reduces its own 1024-file blocks
+// into UNPACKED u8, all-gathered along the file axis. One launch per shard,
+// over that shard's (C, cap/shards) lanes and alive with the replicated
+// (M, C) bounds; the same CTA body as K1 (templated on the output form)
+// writes one byte per block, (M, cap/shards/1024), so the gathered map is
+// K1's unpacked bit for bit. The shard's slice holds whole blocks (the
+// wrapper asserts it). Bound as K1: compares.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -40,6 +51,9 @@ constexpr int kFilesPerThread = kBlock / kThreads; // per block
 constexpr int kQueries = 32;                       // queries per CTA
 constexpr int kWarps = kThreads / 32;
 
+// kPacked: K1, one bit a block, (M, out_w) bytes; else K7, one byte a block,
+// (M, cap / kBlock) bytes.
+template <bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 block_cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
                   const uint8_t* __restrict__ alive, const float* __restrict__ lo,
@@ -107,9 +121,14 @@ block_cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs
     for (int j = 0; j < kBlocksPerByte; ++j) {
       uint32_t v = 0u;
       for (int w = 0; w < kWarps; ++w) v |= s_any[w][j];
-      bits |= ((v >> tid) & 1u) << (7 - j);
+      if (kPacked) {
+        bits |= ((v >> tid) & 1u) << (7 - j);
+      } else {
+        const long long blk = byte * kBlocksPerByte + j;
+        if (blk < out_w) out[(long long)(q0 + tid) * out_w + blk] = (uint8_t)((v >> tid) & 1u);
+      }
     }
-    out[(long long)(q0 + tid) * out_w + byte] = (uint8_t)bits;
+    if (kPacked) out[(long long)(q0 + tid) * out_w + byte] = (uint8_t)bits;
   }
 }
 
@@ -123,7 +142,24 @@ extern "C" int dtt_block_cull(const float* mins, const float* maxs,
                               long long cap, int M, int out_w, void* stream) {
   const dim3 grid(out_w, (M + kQueries - 1) / kQueries);
   const size_t smem = sizeof(float2) * C * kQueries;
-  block_cull_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  block_cull_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       mins, maxs, alive, lo, hi, out, C, cap, M, out_w);
+  return (int)cudaGetLastError();
+}
+
+// K7, one shard: mins/maxs (C, cap) f32, alive (cap,) u8 0/1 of this shard's
+// slice, lo/hi (M, C) f32, out (M, cap / 1024) u8 (one byte a block); all
+// contiguous, cap a multiple of 1024.
+extern "C" int dtt_block_cull_shard(const float* mins, const float* maxs,
+                                    const uint8_t* alive, const float* lo,
+                                    const float* hi, uint8_t* out, int C,
+                                    long long cap, int M, void* stream) {
+  if (cap % kBlock) return (int)cudaErrorInvalidValue;
+  const long long blocks = cap / kBlock;
+  const dim3 grid((unsigned)((blocks + kBlocksPerByte - 1) / kBlocksPerByte),
+                  (M + kQueries - 1) / kQueries);
+  const size_t smem = sizeof(float2) * C * kQueries;
+  block_cull_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      mins, maxs, alive, lo, hi, out, C, cap, M, (int)blocks);
   return (int)cudaGetLastError();
 }

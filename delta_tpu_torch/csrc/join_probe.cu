@@ -26,6 +26,22 @@
 // What bounds it: on this card, memory traffic and the target's dependent
 // binary-search loads (log2 m of them per key, into a 4-8 MB sorted source
 // that stays in L2), not compares.
+//
+// The sharded join probe (K13) is the second entry point, dtt_join_probe_shard.
+// It replaces delta_tpu/ops/join_kernel.py:150 `_sharded_kernel`, a shard_map
+// over the TPU mesh: the target stays sharded (contiguous slabs of
+// cap_t / p), the padded source is all-gathered (tiled, so in its original
+// order), each shard counts its target keys' hits in the sorted source
+// (packed t bits, any(count > 1)) and the source's hits in its sorted slab,
+// and `psum`s reduce the source hits and the multi flags. Here one launch a
+// shard runs the passes above over (its slab, the whole gathered source):
+// the source direction comes from the same run flags, so the slab is never
+// sorted, and the outputs are the shard's packed t bits, ONE BYTE PER SOURCE
+// ROW (1 where some key of this slab equals it) and its multi byte. The
+// combine kernel (shard_combine.cu) ORs the source bytes over the shards and
+// packs them, and ORs the multi bytes. Every shard sees the whole source, so
+// a key repeated across two source shards still counts as a multi-match on
+// the one target shard that holds it, as in the TPU kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,6 +132,11 @@ __global__ void source_kernel(const int64_t* __restrict__ sk, const int32_t* __r
   }
 }
 
+__global__ void multi_kernel(const unsigned int* __restrict__ multi,
+                             uint8_t* __restrict__ multi_out) {
+  *multi_out = *multi ? 1 : 0;
+}
+
 __global__ void pack_kernel(const uint8_t* __restrict__ s_match, long long m_bytes,
                             uint8_t* __restrict__ s_bits, const unsigned int* __restrict__ multi,
                             uint8_t* __restrict__ multi_out) {
@@ -129,10 +150,12 @@ __global__ void pack_kernel(const uint8_t* __restrict__ s_match, long long m_byt
   if (blockIdx.x == 0 && threadIdx.x == 0) *multi_out = *multi ? 1 : 0;
 }
 
+// s_hit == nullptr: K12 (packed source bits into s_bits); else K13's shard
+// (one byte a source row into s_hit, s_bits unused).
 template <typename K>
 int run(const K* t, long long cap_t, const K* s, long long cap_s, uint8_t* t_bits,
-        uint8_t* s_bits, uint8_t* multi_out, void* scratch, long long scratch_bytes,
-        cudaStream_t st) {
+        uint8_t* s_bits, uint8_t* s_hit, uint8_t* multi_out, void* scratch,
+        long long scratch_bytes, cudaStream_t st) {
   const long long m = cap_s;
   const long long tiles = (m + kTile - 1) / kTile;
   const long long hist_len = (long long)kRadix * tiles;
@@ -165,8 +188,14 @@ int run(const K* t, long long cap_t, const K* s, long long cap_s, uint8_t* t_bit
   decode_kernel<<<grid_for(m), kThreads, 0, st>>>(uk[b], m, sk, run_flag);
   target_kernel<K><<<grid_for(cap_t / 8), kThreads, 0, st>>>(t, cap_t / 8, sk, m, t_bits,
                                                              run_flag, multi);
-  source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, pp[b], m, run_flag, s_match);
-  pack_kernel<<<grid_for(m / 8), kThreads, 0, st>>>(s_match, m / 8, s_bits, multi, multi_out);
+  if (s_hit) {
+    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, pp[b], m, run_flag, s_hit);
+    multi_kernel<<<1, 1, 0, st>>>(multi, multi_out);
+  } else {
+    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, pp[b], m, run_flag, s_match);
+    pack_kernel<<<grid_for(m / 8), kThreads, 0, st>>>(s_match, m / 8, s_bits, multi,
+                                                      multi_out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -185,7 +214,24 @@ extern "C" int dtt_join_probe(const void* t, long long cap_t, const void* s, lon
     return (int)cudaErrorInvalidValue;
   if (is32)
     return run<int32_t>((const int32_t*)t, cap_t, (const int32_t*)s, cap_s, t_bits, s_bits,
-                        multi, scratch, scratch_bytes, st);
-  return run<int64_t>((const int64_t*)t, cap_t, (const int64_t*)s, cap_s, t_bits, s_bits, multi,
-                      scratch, scratch_bytes, st);
+                        nullptr, multi, scratch, scratch_bytes, st);
+  return run<int64_t>((const int64_t*)t, cap_t, (const int64_t*)s, cap_s, t_bits, s_bits,
+                      nullptr, multi, scratch, scratch_bytes, st);
+}
+
+// K13, one shard: t (cap_t,) this shard's target slab, s (cap_s,) the whole
+// gathered source, as dtt_join_probe's. Outputs t_bits (cap_t/8,) u8, s_hit
+// (cap_s,) u8 (0/1 a source row), multi (1,) u8; the same scratch.
+extern "C" int dtt_join_probe_shard(const void* t, long long cap_t, const void* s,
+                                    long long cap_s, int is32, uint8_t* t_bits, uint8_t* s_hit,
+                                    uint8_t* multi, void* scratch, long long scratch_bytes,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cap_t < 0 || cap_s < 8 || cap_t % 8 || cap_s % 8 || cap_s >= (1ll << 31) || !s_hit)
+    return (int)cudaErrorInvalidValue;
+  if (is32)
+    return run<int32_t>((const int32_t*)t, cap_t, (const int32_t*)s, cap_s, t_bits, nullptr,
+                        s_hit, multi, scratch, scratch_bytes, st);
+  return run<int64_t>((const int64_t*)t, cap_t, (const int64_t*)s, cap_s, t_bits, nullptr,
+                      s_hit, multi, scratch, scratch_bytes, st);
 }

@@ -21,6 +21,17 @@
 // What bounds it: bytes (4 + 8 read twice, 1 + 8 + 8 once per row, 2 bytes
 // written) and the random 8-byte accesses to `best`, which for a million
 // paths (8 MB) stay in L2.
+//
+// The sharded replay (K6) is the second entry point, dtt_replay_shard. It
+// replaces delta_tpu/ops/replay_kernel.py:206 `replay_sharded`, a shard_map
+// of the sort-based replay over the TPU mesh with a `psum` of the three
+// sums. The host buckets the rows by a hash of the path (every action of a
+// path lands on one shard) into (n_shards, cap) slabs; each shard is one
+// launch of the two passes above over its slab, with a best-seq table as
+// wide as the whole path dictionary (global ids), and writes its partial
+// sums, as int64, to its own row of an (n_shards, 3) buffer; the combine
+// kernel (shard_combine.cu) adds the rows on the lead device. An all-pad
+// slab (an empty shard) writes zeros.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,17 +112,11 @@ __global__ void replay_kernel(const int32_t* __restrict__ path_id,
 
 }  // namespace
 
-// path_id (n,) i32, seq/size/deletion_ts (n,) i64, is_add (n,) u8; best
-// (num_paths,) i64 scratch, err (1,) i32 scratch; alive/tombstone (n,) u8;
-// sums (3,) u64: live files, their bytes (wrapping), tombstones.
-extern "C" int dtt_replay(const int32_t* path_id, const long long* seq,
-                          const uint8_t* is_add, const long long* size,
-                          const long long* deletion_ts, long long n,
-                          long long* best, int num_paths, int* err,
-                          long long min_retention_ts, uint8_t* alive,
-                          uint8_t* tombstone, unsigned long long* sums,
-                          void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+static int launch_replay(const int32_t* path_id, const long long* seq, const uint8_t* is_add,
+                         const long long* size, const long long* deletion_ts, long long n,
+                         long long* best, int num_paths, int* err, long long min_retention_ts,
+                         uint8_t* alive, uint8_t* tombstone, unsigned long long* sums,
+                         cudaStream_t s) {
   cudaError_t e = cudaMemsetAsync(err, 0, sizeof(int), s);
   if (e == cudaSuccess) e = cudaMemsetAsync(sums, 0, 3 * sizeof(unsigned long long), s);
   if (e != cudaSuccess) return (int)e;
@@ -126,4 +131,35 @@ extern "C" int dtt_replay(const int32_t* path_id, const long long* seq,
                                               alive, tombstone, sums);
   }
   return (int)cudaGetLastError();
+}
+
+// path_id (n,) i32, seq/size/deletion_ts (n,) i64, is_add (n,) u8; best
+// (num_paths,) i64 scratch, err (1,) i32 scratch; alive/tombstone (n,) u8;
+// sums (3,) u64: live files, their bytes (wrapping), tombstones.
+extern "C" int dtt_replay(const int32_t* path_id, const long long* seq,
+                          const uint8_t* is_add, const long long* size,
+                          const long long* deletion_ts, long long n,
+                          long long* best, int num_paths, int* err,
+                          long long min_retention_ts, uint8_t* alive,
+                          uint8_t* tombstone, unsigned long long* sums,
+                          void* stream) {
+  return launch_replay(path_id, seq, is_add, size, deletion_ts, n, best, num_paths, err,
+                       min_retention_ts, alive, tombstone, sums, (cudaStream_t)stream);
+}
+
+// K6, one shard: the slab's columns as dtt_replay's (cap = n rows, pads
+// path_id -1), ids global (below num_paths); sums_rows (n_shards, 3) int64
+// on this shard's device (or a (1, 3) row of its own, with shard 0), of
+// which row `shard` receives this shard's live files, their bytes
+// (wrapping) and tombstones.
+extern "C" int dtt_replay_shard(const int32_t* path_id, const long long* seq,
+                                const uint8_t* is_add, const long long* size,
+                                const long long* deletion_ts, long long n, long long* best,
+                                int num_paths, int* err, long long min_retention_ts,
+                                uint8_t* alive, uint8_t* tombstone, long long* sums_rows,
+                                int shard, void* stream) {
+  if (shard < 0) return (int)cudaErrorInvalidValue;
+  return launch_replay(path_id, seq, is_add, size, deletion_ts, n, best, num_paths, err,
+                       min_retention_ts, alive, tombstone,
+                       (unsigned long long*)(sums_rows + 3ll * shard), (cudaStream_t)stream);
 }

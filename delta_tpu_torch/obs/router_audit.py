@@ -17,7 +17,10 @@ Every audit feeds ``router.predicted_ms`` / ``router.actual_ms`` histograms
 the ``router.missRate`` gauge, and — when calibration is enabled — hands its
 attributable ``(constant, units, seconds)`` samples to `obs/calibration` so
 the constants re-fit from live traffic. The last N records are kept
-(bounded by ``delta.tpu.router.auditKeep``).
+(bounded by ``delta.tpu.router.auditKeep``). A ``scan.plan`` audit over a
+state mesh of several entries carries a third prediction,
+``device-sharded`` (the sharded block cull), and takes that decision when
+the plan ran sharded; the miss rule is the same for every route.
 
 Blackout-gated end to end: ``delta.tpu.telemetry.enabled=false`` records
 nothing and forwards nothing. The workload journal the JAX package also
@@ -44,7 +47,7 @@ class RouterAudit:
 
     op: str            # "merge.join" | "scan.plan"
     path: str          # table data path
-    decision: str      # chosen route (e.g. "host", "resident", "device")
+    decision: str      # chosen route (e.g. "host", "resident", "device", "device-sharded")
     predicted_ms: Dict[str, float]  # per candidate route
     actual_ms: float   # measured duration of the chosen route
     miss: bool         # hindsight: a rejected route's prediction beat actual

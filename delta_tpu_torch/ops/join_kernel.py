@@ -1,6 +1,7 @@
-"""The MERGE join (the port's own copy of ``delta_tpu.ops.join_kernel``,
-single device): the upload join K12, the host joins, and the
-``PendingJoin``/``JoinResult`` contract every executor returns.
+"""The MERGE join (the port's own copy of ``delta_tpu.ops.join_kernel``):
+the upload join on one card (K12) or over the state mesh (K13), the host
+joins, and the ``PendingJoin``/``JoinResult`` contract every executor
+returns.
 
 * :func:`inner_join_async` is the upload route: integer target and source
   keys (int64 values plus validity) are narrowed to int32 when both sides
@@ -28,8 +29,19 @@ waits on the event, so no result is read before the card wrote it. Under
 ``devicePath.mode=auto`` the MERGE command passes a ``budget_s`` (the host
 join's price): the link cost model (``parallel/link.estimate_device_s``)
 prices the upload, K12 and the download, and the launch is declined (None)
-when it costs more, or when the keys leave no sentinel room. The sharded
-kernel K13 is not ported.
+when it costs more, or when the keys leave no sentinel room.
+
+With a ``mesh`` of more than one entry (``parallel/mesh``; the MERGE
+command passes the default mesh when it has several), the upload join runs
+K13 (:func:`sharded_join_probe`, ``csrc/join_probe.cu``'s second entry
+point), which replaces ``_sharded_kernel`` (``join_kernel.py:150``): the
+target is split into contiguous slabs of ``cap_t / p``
+(``cap_t = _bucket(ceil(n / p)) * p``), the padded source (``cap_s =
+_bucket(ceil(m / p)) * p``) is uploaded in p pieces and all-gathered in its
+original order on each device, one launch a shard probes its slab against
+the whole source, and the combine kernel ORs the source hits and the multi
+flags on the lead device. A mesh of one entry takes K12, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -43,7 +55,8 @@ import torch
 from delta_tpu_torch.ops import native
 
 __all__ = ["JoinResult", "PendingJoin", "inner_join", "inner_join_async", "join_probe",
-           "join_probe_plain", "host_equi_join"]
+           "join_probe_plain", "sharded_join_probe", "sharded_join_probe_plain",
+           "host_equi_join"]
 
 
 class JoinResult(NamedTuple):
@@ -143,6 +156,93 @@ def join_probe(t: torch.Tensor, s: torch.Tensor):
     return t_bits, s_bits, multi.view(torch.bool)
 
 
+# -- K13 and its plain version ------------------------------------------------------
+
+
+def sharded_join_probe_plain(t_slabs, s_full):
+    """Plain PyTorch version of K13, the TPU kernel's own formulation per
+    shard (sort the gathered source and the slab, two-way searchsorted),
+    then the reductions: returns (t_bits ``(cap_t/8,)`` with the shards'
+    packed bits in shard order, s_bits ``(cap_s/8,)`` the packed OR of the
+    shards' source hits, multi bool ``(1,)``)."""
+    from delta_tpu_torch.ops.state_cache import _packbits
+
+    s_sorted = torch.sort(s_full).values
+    t_bits, s_hits, multi = [], [], []
+    for t in t_slabs:
+        t = t.to(s_full.device)
+        count = torch.searchsorted(s_sorted, t, right=True) - torch.searchsorted(s_sorted, t)
+        t_sorted = torch.sort(t).values
+        s_count = (torch.searchsorted(t_sorted, s_full, right=True)
+                   - torch.searchsorted(t_sorted, s_full))
+        t_bits.append(_packbits(count > 0))
+        s_hits.append(s_count > 0)
+        multi.append((count > 1).any())
+    return (torch.cat(t_bits), _packbits(torch.stack(s_hits).any(dim=0)),
+            torch.stack(multi).any().reshape(1))
+
+
+def sharded_join_probe(t_slabs, s_parts):
+    """K13: the membership probe of target slabs against a source split in
+    pieces, one (slab, piece) pair a shard on that shard's device (1-D, all
+    int32 or all int64, slab and piece lengths multiples of 8, the pieces
+    of one length). The pieces are all-gathered, in order, once on each
+    distinct device; one launch a shard probes its slab against the whole
+    source; the lead device (the first slab's) gathers the packed target
+    bits and reduces the source hits and the multi flags with the combine
+    kernel. Returns (t_bits, s_bits, multi) as :func:`join_probe` would on
+    the concatenated slabs and the concatenated source. The plain version
+    for tensors on the CPU; on the card the kernel, or an error."""
+    from delta_tpu_torch.parallel import mesh as mesh_mod
+
+    if len(t_slabs) != len(s_parts) or not t_slabs:
+        raise ValueError("sharded_join_probe: one target slab and one source piece a shard")
+    dt = t_slabs[0].dtype
+    if dt not in (torch.int32, torch.int64) or any(
+            x.dtype != dt or x.dim() != 1 for x in (*t_slabs, *s_parts)):
+        raise TypeError("sharded_join_probe: slabs and pieces must be 1-D, all int32 or "
+                        "all int64")
+    if any(t.device != s.device for t, s in zip(t_slabs, s_parts)):
+        raise ValueError("sharded_join_probe: a shard's slab and piece must be on one device")
+    cap_s = sum(s.shape[0] for s in s_parts)
+    if (any(t.shape[0] % 8 for t in t_slabs) or any(s.shape[0] != s_parts[0].shape[0]
+                                                    for s in s_parts)
+            or cap_s % 8 or cap_s < 8 or cap_s >= 1 << 31):
+        raise ValueError(f"sharded_join_probe: bad sizes {[t.shape[0] for t in t_slabs]} / "
+                         f"{[s.shape[0] for s in s_parts]}")
+    mesh = [t.device for t in t_slabs]
+    lead = mesh[0]
+    if all(d.type == "cpu" for d in mesh):
+        return sharded_join_probe_plain(t_slabs, mesh_mod.all_gather(s_parts, lead))
+    if any(d.type != "cuda" for d in mesh):
+        raise ValueError("sharded_join_probe: the shards must all be on the card, or all "
+                         "on the CPU")
+    if not all(x.is_contiguous() for x in (*t_slabs, *s_parts)):
+        raise ValueError("sharded_join_probe: tensors must be contiguous")
+    # the tiled all-gather: the whole source once on each distinct device
+    s_full = {d: mesh_mod.all_gather(s_parts, d) for d in dict.fromkeys(mesh)}
+    nbytes = _join_scratch_bytes(cap_s)
+    is32 = 1 if dt == torch.int32 else 0
+
+    def launch(i, dev):
+        t, s = t_slabs[i], s_full[dev]
+        t_bits = torch.empty(t.shape[0] // 8, dtype=torch.uint8, device=dev)
+        s_hit = torch.empty(cap_s, dtype=torch.uint8, device=dev)
+        multi = torch.empty(1, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        native.call("sharded_join_probe", dev, t.data_ptr(), t.shape[0], s.data_ptr(), cap_s,
+                    is32, t_bits.data_ptr(), s_hit.data_ptr(), multi.data_ptr(),
+                    scratch.data_ptr(), nbytes)
+        native.launches["sharded_join_probe"] += 1
+        return t_bits, s_hit, multi
+
+    outs = mesh_mod.run_shards(mesh, launch)
+    t_bits = mesh_mod.all_gather([o[0] for o in outs], lead)
+    s_bits = mesh_mod.psum([o[1] for o in outs], "or_pack")
+    multi = mesh_mod.psum([o[2] for o in outs], "or")
+    return t_bits, s_bits, multi.view(torch.bool)
+
+
 # -- the host side -----------------------------------------------------------------
 
 
@@ -207,16 +307,19 @@ def _sentinel_encode(t_key, t_ok, s_key, s_ok, dtype):
 
 
 def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray,
-                     s_valid: np.ndarray, device="cuda",
-                     budget_s: Optional[float] = None) -> Optional[PendingJoin]:
+                     s_valid: np.ndarray, mesh=None, budget_s: Optional[float] = None,
+                     device="cuda") -> Optional[PendingJoin]:
     """Launch the upload join on ``device`` without blocking. Rows with
     ``valid == False`` (SQL NULL keys) never match. ``device="cpu"`` runs
-    K12's plain version. With ``budget_s``, returns None instead of
-    launching when the estimated device time exceeds it, or when the keys
-    leave no sentinel room (the caller has its own host join)."""
+    K12's plain version. ``mesh`` (a list of devices, ``parallel/mesh``)
+    of more than one entry runs K13 over it instead, the target split in
+    contiguous slabs and the source gathered; None or one entry runs K12.
+    With ``budget_s``, returns None instead of launching when the estimated
+    device time exceeds it, or when the keys leave no sentinel room (the
+    caller has its own host join)."""
     from delta_tpu_torch.utils.device import resolve
 
-    dev = resolve(device)
+    dev = resolve(device) if mesh is None or len(mesh) <= 1 else mesh[0]
     n, m = len(t_keys), len(s_keys)
     if n == 0 or m == 0:
         return PendingJoin(lambda: JoinResult(np.full(n, -1, np.int64), np.zeros(m, bool), False))
@@ -242,14 +345,21 @@ def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray
             return None
         return PendingJoin(lambda: _host_join(t_key64, t_ok, s_key64, s_ok))
     t_enc, s_enc, t_fill, s_fill = enc
-    cap_t, cap_s = _bucket(n), _bucket(m)
+    if mesh is None or len(mesh) <= 1:
+        p = 1
+        cap_t, cap_s = _bucket(n), _bucket(m)
+    else:
+        p = len(mesh)
+        cap_t = _bucket((n + p - 1) // p) * p
+        cap_s = _bucket((m + p - 1) // p) * p
     if budget_s is not None:
         from delta_tpu_torch.parallel import link
 
         itemsize = t_enc.dtype.itemsize
+        # a shard's work: its target slab against the whole gathered source
         est = link.estimate_device_s(up_bytes=(cap_t + cap_s) * itemsize,
                                      down_bytes=cap_t // 8 + cap_s // 8,
-                                     kernel_rows=cap_t + cap_s, device=dev)
+                                     kernel_rows=cap_t // p + cap_s, device=dev)
         if est.device_s > budget_s:
             return None
     t_in = _pad(t_enc, cap_t, t_fill)
@@ -260,8 +370,14 @@ def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray
         try:
             ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
             with ctx:
-                t_bits, s_bits, multi = join_probe(torch.from_numpy(t_in).to(dev),
-                                                   torch.from_numpy(s_in).to(dev))
+                if p == 1:
+                    t_bits, s_bits, multi = join_probe(torch.from_numpy(t_in).to(dev),
+                                                       torch.from_numpy(s_in).to(dev))
+                else:
+                    t_sh, s_sh = t_in.reshape(p, -1), s_in.reshape(p, -1)
+                    t_bits, s_bits, multi = sharded_join_probe(
+                        [torch.from_numpy(t_sh[i]).to(d) for i, d in enumerate(mesh)],
+                        [torch.from_numpy(s_sh[i]).to(d) for i, d in enumerate(mesh)])
                 if dev.type == "cuda":
                     done = torch.cuda.Event()
                     done.record()
@@ -292,9 +408,10 @@ def inner_join_async(t_keys: np.ndarray, t_valid: np.ndarray, s_keys: np.ndarray
     return PendingJoin(finalize)
 
 
-def inner_join(t_keys, t_valid, s_keys, s_valid, device="cuda") -> JoinResult:
+def inner_join(t_keys, t_valid, s_keys, s_valid, mesh=None, device="cuda") -> JoinResult:
     """Blocking wrapper of :func:`inner_join_async`."""
-    return inner_join_async(t_keys, t_valid, s_keys, s_valid, device=device).result()
+    return inner_join_async(t_keys, t_valid, s_keys, s_valid, mesh=mesh,
+                            device=device).result()
 
 
 # -- the host equi join ---------------------------------------------------------------

@@ -13,8 +13,9 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 ``launches`` counts the launches of each kernel. The wrappers beside the
 plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
-``ops/column_cache``, ``ops/zorder``, ``parallel/link``) add one where they
-launch, and nowhere else.
+``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
+add one where they launch, and nowhere else: a sharded kernel counts one
+launch a shard.
 """
 from __future__ import annotations
 
@@ -74,6 +75,13 @@ _KERNELS = {
                       [_P, _I, _I, _I, _I, _I, _L, _P, _I, _I, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
     "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
+    "sharded_replay": ("replay", "dtt_replay_shard",
+                       [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I, _P]),
+    "sharded_block_cull": ("block_cull", "dtt_block_cull_shard",
+                           [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P]),
+    "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
+                           [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
+    "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _L, _I, _P, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

@@ -17,6 +17,11 @@ Kernels (hand-written CUDA in ``delta_tpu_torch/csrc``, bound in
 ``ops/native``), each beside its plain PyTorch version:
 
 * :func:`block_cull` — replaces ``_block_kernel_fn`` (``state_cache.py:986``);
+* :func:`sharded_block_cull` — replaces ``_sharded_block_kernel_fn``
+  (``:1014``): with the lanes split along the file axis over the state mesh
+  (``parallel/mesh``), one launch a shard writes a byte per 1024-file block
+  of its slice, and the blocks gather along the file axis on the lead
+  device;
 * :func:`scatter_bool` / :func:`scatter_cols` — replace ``_scatter_bool_fn``
   / ``_scatter_cols_fn`` (``:959``, ``:970``).
 
@@ -25,8 +30,13 @@ tensor it launches the kernel or raises. ``plan_ranges`` routes a batch by
 ``delta.tpu.stateCache.devicePlan.*``: under ``auto`` (the default) the
 link cost model (``parallel/link``) prices the block cull against the host
 plan over the float64 mirrors and ``obs/router_audit`` records the
-``scan.plan`` decision; ``force`` and ``off`` pin one side. There is no
-fallback to the host plan when a kernel fails.
+``scan.plan`` decision; ``force`` and ``off`` pin one side. A device plan
+runs sharded (``via="device-sharded"``, the ``dist.plan.sharded`` counter)
+when ``delta.tpu.distributed.plan.*`` and the mesh allow it: ``force`` takes
+the whole feasible mesh, ``auto`` takes it when
+``link.sharded_plan_device_s`` prices it below one card. There is no
+fallback to the host plan when a kernel fails: where the JAX package
+catches a failed cull and plans on the host, the port raises.
 """
 from __future__ import annotations
 
@@ -49,7 +59,8 @@ from delta_tpu_torch.schema.types import StringType, parse_data_type
 __all__ = [
     "ResidentState", "DeviceStateCache", "PlanResult", "RangeSet", "PartLane",
     "extract_ranges", "extract_range_union", "build_entry",
-    "resident_from_numpy", "block_cull", "block_cull_plain", "scatter_bool",
+    "resident_from_numpy", "block_cull", "block_cull_plain", "sharded_block_cull",
+    "sharded_block_cull_plain", "scatter_bool",
     "scatter_bool_plain", "scatter_cols", "scatter_cols_plain", "BLOCK",
 ]
 
@@ -106,9 +117,24 @@ def _packbits(bits: torch.Tensor) -> torch.Tensor:
     return (b * w).sum(dim=-1, dtype=torch.uint8)
 
 
-def block_cull_plain(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Tensor:
-    """Plain PyTorch version of the block cull: the JAX kernel's arithmetic
-    (``state_cache.py:993-1004``) on whole (M, cap) masks."""
+def _check_lanes(name, mins, maxs, alive, lo, hi, bounds_on_device=True):
+    c, cap = mins.shape
+    m = lo.shape[0]
+    if (maxs.shape != (c, cap) or alive.shape != (cap,) or lo.shape != (m, c)
+            or hi.shape != (m, c) or cap % BLOCK):
+        raise ValueError(f"{name}: bad shapes mins {tuple(mins.shape)} maxs "
+                         f"{tuple(maxs.shape)} alive {tuple(alive.shape)} lo "
+                         f"{tuple(lo.shape)} hi {tuple(hi.shape)}")
+    if any(t.dtype != torch.float32 for t in (mins, maxs, lo, hi)) or alive.dtype != torch.bool:
+        raise TypeError(f"{name}: lanes and bounds must be float32, alive bool")
+    if any(t.device != mins.device for t in ((maxs, alive, lo, hi) if bounds_on_device
+                                             else (maxs, alive))):
+        raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def _block_any(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Tensor:
+    """The JAX kernels' keep test on whole (M, cap) masks, any-reduced over
+    each block: (M, cap / block) bool."""
     m, cap = lo.shape[0], alive.shape[0]
     keep = alive[None, :].expand(m, cap).clone()
     for c in range(lo.shape[1]):
@@ -116,8 +142,13 @@ def block_cull_plain(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Ten
         lo_c, hi_c = lo[:, c:c + 1], hi[:, c:c + 1]
         keep &= torch.isnan(mx) | torch.isnan(lo_c) | (mx >= lo_c)
         keep &= torch.isnan(mn) | torch.isnan(hi_c) | (mn <= hi_c)
-    blocks = keep.reshape(m, cap // block, block).any(dim=2)
-    return _packbits(blocks)
+    return keep.reshape(m, cap // block, block).any(dim=2)
+
+
+def block_cull_plain(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Tensor:
+    """Plain PyTorch version of the block cull: the JAX kernel's arithmetic
+    (``state_cache.py:993-1004``) on whole (M, cap) masks."""
+    return _packbits(_block_any(mins, maxs, alive, lo, hi, block))
 
 
 def block_cull(mins: torch.Tensor, maxs: torch.Tensor, alive: torch.Tensor,
@@ -126,18 +157,10 @@ def block_cull(mins: torch.Tensor, maxs: torch.Tensor, alive: torch.Tensor,
     big-endian: ``(M, ceil(cap / 1024 / 8))`` uint8. mins/maxs ``(C, cap)``
     float32, alive ``(cap,)`` bool, lo/hi ``(M, C)`` float32 (NaN = no
     bound); cap a multiple of 1024."""
+    _check_lanes("block_cull", mins, maxs, alive, lo, hi)
     c, cap = mins.shape
     m = lo.shape[0]
-    if (maxs.shape != (c, cap) or alive.shape != (cap,) or lo.shape != (m, c)
-            or hi.shape != (m, c) or cap % BLOCK):
-        raise ValueError(f"block_cull: bad shapes mins {tuple(mins.shape)} maxs "
-                         f"{tuple(maxs.shape)} alive {tuple(alive.shape)} lo "
-                         f"{tuple(lo.shape)} hi {tuple(hi.shape)}")
     ts = (mins, maxs, alive, lo, hi)
-    if any(t.dtype != torch.float32 for t in (mins, maxs, lo, hi)) or alive.dtype != torch.bool:
-        raise TypeError("block_cull: lanes and bounds must be float32, alive bool")
-    if any(t.device != mins.device for t in ts):
-        raise ValueError("block_cull: all tensors must be on one device")
     if mins.device.type == "cpu":
         return block_cull_plain(mins, maxs, alive, lo, hi)
     if not all(t.is_contiguous() for t in ts):
@@ -153,6 +176,59 @@ def block_cull(mins: torch.Tensor, maxs: torch.Tensor, alive: torch.Tensor,
                 c, cap, m, out_w)
     native.launches["block_cull"] += 1
     return out
+
+
+def sharded_block_cull_plain(shards, lo, hi) -> torch.Tensor:
+    """Plain PyTorch version of K7 (``state_cache.py:1020-1038``): each
+    shard's blocks as unpacked uint8, concatenated along the file axis on
+    the first shard's device. ``shards``: one (mins, maxs, alive) slice a
+    shard."""
+    lead = shards[0][0].device
+    return torch.cat([_block_any(mn, mx, al, lo.to(mn.device), hi.to(mn.device))
+                      .to(torch.uint8).to(lead) for mn, mx, al in shards], dim=1)
+
+
+def sharded_block_cull(shards, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """K7: per query, which 1024-file blocks hold a file that can match, one
+    uint8 (0/1) a block, ``(M, sum of the slices' blocks)``, on the lead
+    device (the first shard's). ``shards``: one (mins ``(C, cap_s)``
+    float32, maxs, alive ``(cap_s,)`` bool) slice a shard, each on its own
+    device, ``cap_s`` a multiple of 1024 (whole blocks); lo/hi ``(M, C)``
+    float32, replicated to each device. One launch a shard, then the
+    gather along the file axis. The plain version for slices on the CPU;
+    on the card the kernel, or an error."""
+    from delta_tpu_torch.parallel import mesh as mesh_mod
+
+    for mn, mx, al in shards:
+        _check_lanes("sharded_block_cull", mn, mx, al, lo, hi, bounds_on_device=False)
+    lead = shards[0][0].device
+    if all(sh[0].device.type == "cpu" for sh in shards):
+        return sharded_block_cull_plain(shards, lo.to(lead), hi.to(lead))
+    mesh = [sh[0].device for sh in shards]
+    if any(d.type != "cuda" for d in mesh):
+        raise ValueError("sharded_block_cull: the slices must all be on the card, or all "
+                         "on the CPU")
+    c, m = lo.shape[1], lo.shape[0]
+    if c * 32 * 8 > 48 * 1024:
+        raise ValueError(f"sharded_block_cull: {c} lanes exceed the kernel's shared memory")
+    los = mesh_mod.replicate(lo.contiguous(), mesh)
+    his = mesh_mod.replicate(hi.contiguous(), mesh)
+
+    def launch(i, dev):
+        mn, mx, al = shards[i]
+        if not all(t.is_contiguous() for t in (mn, mx, al)):
+            raise ValueError("sharded_block_cull: tensors must be contiguous")
+        cap = mn.shape[1]
+        out = torch.empty((m, cap // BLOCK), dtype=torch.uint8, device=dev)
+        if m:
+            native.call("sharded_block_cull", dev, mn.data_ptr(), mx.data_ptr(),
+                        al.data_ptr(), los[dev].data_ptr(), his[dev].data_ptr(),
+                        out.data_ptr(), c, cap, m)
+            native.launches["sharded_block_cull"] += 1
+        return out
+
+    parts = mesh_mod.run_shards(mesh, launch)
+    return mesh_mod.all_gather(parts, lead, axis=1)
 
 
 def _xla_rows(rows: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -520,14 +596,15 @@ class PlanResult:
     count: int
     rows: np.ndarray
     overflow: bool = False
-    via: str = "host-resident"  # 'device' | 'host-resident' | 'verdict'
+    via: str = "host-resident"  # 'device' | 'device-sharded' | 'host-resident' | 'verdict'
 
 
 class ResidentState:
     """One table's scan-planning lanes on ``device`` + exact host mirrors.
 
     Rows are append-only (a re-added path gets a fresh row; the old one's
-    alive bit drops); device lanes are padded to a power-of-two capacity.
+    alive bit drops); device lanes are padded to a power-of-two capacity,
+    on one card or split along the file axis over the state mesh.
     """
 
     def __init__(self, log_path: str, metadata_id: str, version: int,
@@ -556,7 +633,10 @@ class ResidentState:
         self.h_hi = lanes["max"]
         self.h_size = lanes["size"]  # (n,) int64
         self._dead = 0
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        # one card: {"mins", "maxs", "alive"}; sharded: a list of such dicts,
+        # one slice of the file axis a mesh entry
+        self._dev = None
+        self._dev_shards = 1  # mesh shards the residency is placed over
         self._lock = threading.RLock()
         self.last_used = 0
 
@@ -571,26 +651,50 @@ class ResidentState:
     def device_bytes(self) -> int:
         return self.capacity * (2 * len(self.columns) * 4 + 1)
 
-    def ensure_resident(self) -> None:
-        with self._lock:
-            if self._dev is not None:
-                return
-            alive = np.zeros(self.capacity, bool)
-            alive[: self.num_rows] = self.h_alive[: self.num_rows]
+    def _build_device(self, shards: int = 1) -> None:
+        alive = np.zeros(self.capacity, bool)
+        alive[: self.num_rows] = self.h_alive[: self.num_rows]
+        mins = self._pad2(_f32_down(self.h_lo))
+        maxs = self._pad2(_f32_up(self.h_hi))
+        if shards > 1:
+            # sharded residency: the lanes split along the file axis, one
+            # slice of whole blocks a mesh entry, each on its own device
+            from delta_tpu_torch.parallel.mesh import state_mesh
+
+            mesh = state_mesh(shards, device=self.device)
+            per = self.capacity // shards
+
+            def piece(a, i):
+                return torch.from_numpy(np.ascontiguousarray(a[..., i * per:(i + 1) * per]))
+
+            self._dev = [{"mins": piece(mins, i).to(d), "maxs": piece(maxs, i).to(d),
+                          "alive": piece(alive, i).to(d)} for i, d in enumerate(mesh)]
+        else:
             d = self.device
-            self._dev = {
-                "mins": torch.from_numpy(self._pad2(_f32_down(self.h_lo))).to(d),
-                "maxs": torch.from_numpy(self._pad2(_f32_up(self.h_hi))).to(d),
-                "alive": torch.from_numpy(alive).to(d),
-            }
+            self._dev = {"mins": torch.from_numpy(mins).to(d),
+                         "maxs": torch.from_numpy(maxs).to(d),
+                         "alive": torch.from_numpy(alive).to(d)}
+        self._dev_shards = shards
+
+    def ensure_resident(self, shards: Optional[int] = None) -> None:
+        with self._lock:
+            if self._dev is None:
+                self._build_device(shards if shards is not None else 1)
 
     @property
     def is_resident(self) -> bool:
         return self._dev is not None
 
+    @property
+    def resident_shards(self) -> int:
+        """Mesh shards the device residency is placed over (1 = one card or
+        not resident)."""
+        return self._dev_shards if self._dev is not None else 1
+
     def drop_device(self) -> None:
         with self._lock:
             self._dev = None
+            self._dev_shards = 1
 
     # -- incremental tail apply ------------------------------------------
 
@@ -631,7 +735,13 @@ class ResidentState:
                     self.path_to_row[p] = start + i
                 self.num_rows = start + k
             if self._dev is not None:
-                self._apply_tail_device(dead_rows, start, k, add_lo, add_hi)
+                if self._dev_shards > 1:
+                    # sharded lanes drop and rebuild from the mirrors on the
+                    # next device plan, as in the JAX package (the router
+                    # prices the cold upload)
+                    self.drop_device()
+                else:
+                    self._apply_tail_device(dead_rows, start, k, add_lo, add_hi)
             self.version = version
             return True
 
@@ -751,11 +861,14 @@ class ResidentState:
             real_ks = ks[real_ix]
             if use_device is None:
                 use_device, priced = self._route_plan(len(real_ix))
+            shards = self._plan_shards(priced, len(real_ix)) if use_device else 1
             t0 = time.perf_counter_ns()
-            results = (self._plan_device(lo, hi, real_ks) if use_device
+            results = (self._plan_device(lo, hi, real_ks, shards=shards) if use_device
                        else self._plan_host(lo, hi, real_ks))
             plan_s = (time.perf_counter_ns() - t0) / 1e9
-            via = "device" if use_device else "host-resident"
+            ran_shards = self._dev_shards if use_device else 1
+            via = ("device-sharded" if ran_shards > 1
+                   else "device" if use_device else "host-resident")
             for j, i in enumerate(real_ix):
                 results[j].via = via
                 out[i] = results[j]
@@ -766,30 +879,36 @@ class ResidentState:
         if priced is not None:
             from delta_tpu_torch.obs import router_audit
 
-            device_s, host_s, cells, device_fixed_s = priced
+            device_s, host_s, cells, device_fixed_s, sharded_s, _ns = priced
             # the per-cell sample with the prediction's fixed terms taken
             # out first: the prediction adds them back
             if use_device:
                 eff = plan_s - device_fixed_s
-                samples = [("DEVICE_PRUNE_S_PER_CELL", cells, eff)] if eff > 0 else []
+                # a sharded run did cells / shards of work a shard: sample
+                # the per-cell rate at that count, so it fits one device
+                cal_cells = cells // max(ran_shards, 1)
+                samples = [("DEVICE_PRUNE_S_PER_CELL", cal_cells, eff)] if eff > 0 else []
             else:
                 samples = [("HOST_PRUNE_S_PER_CELL", cells, plan_s)]
+            predictions = {"device": device_s, "host-resident": host_s}
+            if sharded_s is not None:
+                predictions["device-sharded"] = sharded_s
             router_audit.record_audit(
-                "scan.plan", self.log_path, via,
-                {"device": device_s, "host-resident": host_s}, plan_s,
+                "scan.plan", self.log_path, via, predictions, plan_s,
                 units={"cells": cells, "queries": len(real_ix)},
                 samples=samples, log_path=self.log_path,
                 calibration_flush=False)
         return out  # type: ignore[return-value]
 
-    def _price_plan(self, m: int) -> Tuple[float, float, int, float]:
+    def _price_plan(self, m: int) -> Tuple[float, float, int, float, Optional[float], int]:
         """The cost model of planning ``m`` range queries against this
-        entry: (device_s, host_s, cells, device_fixed_s). ``device_fixed_s``
-        is the part of the device price that does not grow with the cells
-        (round trips, the bitmap download, the first upload), which the
-        calibrator takes out of a measured sample. The single-card side of
-        the JAX package's ``_price_plan`` (its ``sharded_s`` is always None
-        here)."""
+        entry: (device_s, host_s, cells, device_fixed_s, sharded_s,
+        shards). ``device_fixed_s`` is the part of the device price that
+        does not grow with the cells (round trips, the bitmap download, the
+        first upload), which the calibrator takes out of a measured sample.
+        ``sharded_s`` prices the same plan over the feasible mesh
+        (``link.sharded_plan_device_s``), None when only one shard is
+        feasible."""
         from delta_tpu_torch.parallel import link
 
         cells = m * self.num_rows * max(len(self.columns), 1)
@@ -801,13 +920,61 @@ class ResidentState:
             # the first plan ships the lanes; charge it to this call
             fixed_s += p.upload_s(self.device_bytes)
         device_s = fixed_s + cells * link.constant("DEVICE_PRUNE_S_PER_CELL")
-        return device_s, host_s, cells, fixed_s
+        shards = self._feasible_shards()
+        sharded_s = None
+        if shards > 1:
+            sharded_s = fixed_s + link.sharded_plan_device_s(cells, shards, p)
+        return device_s, host_s, cells, fixed_s, sharded_s, shards
+
+    def _feasible_shards(self) -> int:
+        """The largest power-of-two shard count the mesh and the lanes
+        admit: every shard must hold whole 1024-file blocks (the capacity is
+        a power of two, so divisibility falls with the count). 1 when
+        sharded planning is off or the mesh has one entry."""
+        from delta_tpu_torch.parallel.mesh import default_devices
+        from delta_tpu_torch.utils.config import conf
+
+        if not conf.get_bool("delta.tpu.distributed.plan.enabled", True):
+            return 1
+        if conf.get("delta.tpu.distributed.plan.mode", "auto") == "off":
+            return 1
+        nd = len(default_devices(self.device))
+        s = 1
+        while s * 2 <= nd and self.capacity % (s * 2 * BLOCK) == 0:
+            s *= 2
+        return s
+
+    def _plan_shards(self, priced, m: int) -> int:
+        """The shard count of a device-routed batch. An existing residency
+        wins (no re-placement); otherwise ``force`` takes the feasible mesh
+        and ``auto`` takes it when the sharded price is the lower."""
+        from delta_tpu_torch.utils.config import conf
+
+        if self._dev is not None:
+            return self._dev_shards
+        s = self._feasible_shards()
+        if s <= 1:
+            return 1
+        if conf.get("delta.tpu.distributed.plan.mode", "auto") == "force":
+            return s
+        from delta_tpu_torch.parallel import link
+
+        if priced is not None:
+            device_s, _h, _c, _f, sharded_s, shards = priced
+            return shards if sharded_s is not None and sharded_s < device_s else 1
+        # a pinned device route skipped the batch's pricing: price only the
+        # sharded-against-one-card choice here
+        cells = m * self.num_rows * max(len(self.columns), 1)
+        p = link.profile(self.device)
+        single = cells * link.constant("DEVICE_PRUNE_S_PER_CELL")
+        return s if link.sharded_plan_device_s(cells, s, p) < single else 1
 
     def _route_plan(self, m: int):
         """(use_device, priced) for ``m`` range queries. The enabled/mode
         checks run before any pricing, so a disabled or pinned deployment
         never pays the link probe and records no audit; ``priced`` is the
-        :meth:`_price_plan` tuple under ``auto``, else None."""
+        :meth:`_price_plan` tuple under ``auto``, else None. The device side
+        enters at its better price (sharded where the mesh wins)."""
         from delta_tpu_torch.utils.config import conf
 
         if not conf.get_bool("delta.tpu.stateCache.devicePlan.enabled", True):
@@ -818,7 +985,8 @@ class ResidentState:
         if mode == "off":
             return False, None
         priced = self._price_plan(m)
-        return priced[0] < priced[1], priced
+        best_device = priced[0] if priced[4] is None else min(priced[0], priced[4])
+        return best_device < priced[1], priced
 
     def _plan_host(self, lo: np.ndarray, hi: np.ndarray,
                    ks: np.ndarray) -> List[PlanResult]:
@@ -839,24 +1007,35 @@ class ResidentState:
         return out
 
     def _plan_device(self, lo: np.ndarray, hi: np.ndarray,
-                     ks: np.ndarray) -> List[PlanResult]:
+                     ks: np.ndarray, shards: int = 1) -> List[PlanResult]:
         """Coarse-fine plan: the block cull drops 1024-file blocks on the
         resident f32 lanes (one launch, one packed-bitmap download), and
         the host evaluates exactly on the float64 mirrors inside the
         surviving blocks only. The query dimension is padded to a power of
-        two >= 8 with NaN rows (no bound)."""
-        self.ensure_resident()
+        two >= 8 with NaN rows (no bound). With a sharded residency, K7
+        culls each shard's slice on its device and the unpacked block maps
+        gather along the file axis; the same fine pass makes the plans
+        equal to one card's and to the host's."""
+        from delta_tpu_torch.utils import telemetry
+
+        self.ensure_resident(shards)
         m = lo.shape[0]
         mb = _next_pow2(m, floor=8)
         lo_p = np.full((mb, lo.shape[1]), np.nan, np.float32)
         hi_p = np.full((mb, hi.shape[1]), np.nan, np.float32)
         lo_p[:m] = _f32_down(lo)
         hi_p[:m] = _f32_up(hi)
-        d = self.device
-        bits = block_cull(self._dev["mins"], self._dev["maxs"], self._dev["alive"],
-                          torch.from_numpy(lo_p).to(d), torch.from_numpy(hi_p).to(d))
-        blocks = np.unpackbits(bits[:m].cpu().numpy(), axis=1,
-                               count=self.capacity // BLOCK)
+        if self._dev_shards > 1:
+            telemetry.bump_counter("dist.plan.sharded")
+            bl = sharded_block_cull([(sh["mins"], sh["maxs"], sh["alive"]) for sh in self._dev],
+                                    torch.from_numpy(lo_p), torch.from_numpy(hi_p))
+            blocks = bl[:m].cpu().numpy().astype(bool)
+        else:
+            d = self.device
+            bits = block_cull(self._dev["mins"], self._dev["maxs"], self._dev["alive"],
+                              torch.from_numpy(lo_p).to(d), torch.from_numpy(hi_p).to(d))
+            blocks = np.unpackbits(bits[:m].cpu().numpy(), axis=1,
+                                   count=self.capacity // BLOCK)
         return self._fine_pass(blocks, lo, hi, ks)
 
     def _fine_pass(self, blocks: np.ndarray, lo: np.ndarray, hi: np.ndarray,

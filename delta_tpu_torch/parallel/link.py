@@ -36,9 +36,13 @@ JAX package's TPU-host values is carried over. The EWMA calibrator
 :func:`set_calibrated`; every cost function reads them through
 :func:`constant`.
 
-Left out, with the multi-card paths: ``sharded_plan_device_s``,
-``dist_execute_s`` and their constants ``SHARD_DISPATCH_S``,
-``SHARD_GATHER_S_PER_SHARD`` and ``DIST_ITEM_S``.
+The state mesh's pricing (``parallel/mesh``): :func:`sharded_plan_device_s`
+prices the sharded block cull (K7) with ``SHARD_DISPATCH_S`` and
+``SHARD_GATHER_S_PER_SHARD``, and :func:`estimate_device_s` takes a shard
+count. Both shard constants are one card's: ``chip_smoke.py`` measures them
+with every shard on the one H100, where the gather is a copy inside the
+card. Left out, with the multi-host executor: ``dist_execute_s`` and
+``DIST_ITEM_S``.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ __all__ = [
     "HOST_KEY_DECODE_S_PER_ROW", "RESIDENT_PROBE_S_PER_ROW",
     "RESIDENT_PROBE_FIXED_S", "RESIDENT_PAIR_S_PER_ROW", "DEVICE_SORT_S_PER_ROW",
     "HOST_RESIDUAL_S_PER_CELL", "DEVICE_RESIDUAL_S_PER_CELL",
+    "SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD", "sharded_plan_device_s",
     "resident_probe_device_s", "cold_merge_device_s",
     "host_residual_filter_s", "device_residual_mask_s",
     "CALIBRATABLE", "constant", "set_calibrated", "calibrated_constants",
@@ -110,6 +115,15 @@ DEVICE_RESIDUAL_S_PER_CELL = 5.75e-10
 # the block cull K1 + its host fine pass (ResidentState._plan_device), per
 # cell, its fixed terms taken out: config 6's 256 queries
 DEVICE_PRUNE_S_PER_CELL = 1.09e-11
+# the fixed cost of one sharded block cull over the mesh (K7 once a shard,
+# the bounds replicated, the gather, synchronized): its host wall at the
+# smallest plan that splits over 8 shards (8 queries, one block a shard),
+# less its gathers; phase 12, every shard on the one card (PERF.md, call 25)
+SHARD_DISPATCH_S = 4.15e-4
+# the gather of one shard's block map into the lead device's (M, blocks)
+# map, per shard: config 6's 256 queries over 8 shards, a copy inside the
+# one card (the gather between cards is not measured)
+SHARD_GATHER_S_PER_SHARD = 1.03e-5
 
 
 # -- self-calibration ------------------------------------------------------------
@@ -125,7 +139,7 @@ CALIBRATABLE = frozenset({
     "DEVICE_PRUNE_S_PER_CELL", "HOST_KEY_DECODE_S_PER_ROW",
     "RESIDENT_PROBE_S_PER_ROW", "RESIDENT_PAIR_S_PER_ROW",
     "DEVICE_SORT_S_PER_ROW", "HOST_RESIDUAL_S_PER_CELL",
-    "DEVICE_RESIDUAL_S_PER_CELL",
+    "DEVICE_RESIDUAL_S_PER_CELL", "SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD",
 })
 
 _calibrated: Dict[str, float] = {}
@@ -208,6 +222,20 @@ def device_residual_mask_s(cold_rows: int, resident_rows: int, ncols: int,
         + rows * ncols * constant("DEVICE_RESIDUAL_S_PER_CELL")
         + p.download_s(rows)
         + 2 * p.latency_s
+    )
+
+
+def sharded_plan_device_s(cells: int, shards: int, p: "LinkProfile") -> float:
+    """The sharded block cull: each shard tests its 1/shards slice of the
+    lanes, then the block maps gather on the lead device and download.
+    Priced against one card's plan (``cells * DEVICE_PRUNE_S_PER_CELL``)
+    and the host plan."""
+    shards = max(int(shards), 1)
+    return (
+        (cells / shards) * constant("DEVICE_PRUNE_S_PER_CELL")
+        + constant("SHARD_DISPATCH_S")
+        + shards * constant("SHARD_GATHER_S_PER_SHARD")
+        + p.latency_s
     )
 
 
@@ -341,13 +369,16 @@ def _probe(d: torch.device) -> LinkProfile:
     return LinkProfile(up_mbps, down_mbps, max(latency, _LATENCY_FLOOR_S), probed=True)
 
 
-def estimate_device_s(up_bytes: int, down_bytes: int, kernel_rows: int,
+def estimate_device_s(up_bytes: int, down_bytes: int, kernel_rows: int, shards: int = 1,
                       device="cuda") -> Estimate:
     """Wall-clock estimate for shipping operands, one sort-merge-class
-    kernel over ``kernel_rows`` rows, and shipping the results back."""
+    kernel over ``kernel_rows`` rows, and shipping the results back.
+    ``kernel_rows`` is a shard's rows when the caller already divided by
+    the mesh; otherwise pass ``shards`` and the kernel term scales by
+    1/shards."""
     p = profile(device)
     up_s = p.upload_s(up_bytes)
     down_s = p.download_s(down_bytes)
     dispatch_s = 3 * p.latency_s  # put + exec + fetch round trips
-    kernel_s = kernel_rows * constant("KERNEL_S_PER_ROW") + dispatch_s
+    kernel_s = (kernel_rows / max(shards, 1)) * constant("KERNEL_S_PER_ROW") + dispatch_s
     return Estimate(up_s + down_s + kernel_s, up_s, down_s, kernel_s)

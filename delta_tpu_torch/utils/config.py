@@ -11,7 +11,8 @@
   path's keys: ``delta.tpu.read.deviceResidual.mode``,
   ``delta.tpu.read.rowGroupSkipping``, ``delta.tpu.columnCache.maxBytes`` /
   ``maxEntries`` and the writer's ``delta.tpu.write.rowGroupRows``; the
-  router's: ``delta.tpu.stateCache.devicePlan.*``,
+  router's: ``delta.tpu.stateCache.devicePlan.*``, the state mesh's
+  ``delta.tpu.distributed.plan.*`` and ``delta.tpu.merge.devicePath.preferMesh``,
   ``delta.tpu.link.uploadMBps`` / ``downloadMBps``,
   ``delta.tpu.router.auditKeep``, ``delta.tpu.router.calibration.*`` and
   ``delta.tpu.telemetry.enabled``. A key that is not in the table reads as
@@ -84,6 +85,14 @@ class SqlConf:
         # and "off" pin one; enabled=False pins the host plan
         "delta.tpu.stateCache.devicePlan.enabled": True,
         "delta.tpu.stateCache.devicePlan.mode": "auto",
+        # the sharded plan over the state mesh (ops/state_cache): "auto"
+        # shards when link.sharded_plan_device_s prices it below one card,
+        # "force" whenever the mesh and the lanes allow it, "off" never
+        "delta.tpu.distributed.plan.enabled": True,
+        "delta.tpu.distributed.plan.mode": "auto",
+        # MERGE's cold estimate prices the upload join over the mesh
+        # (link.estimate_device_s(..., shards=)) in place of the cold slab
+        "delta.tpu.merge.devicePath.preferMesh": False,
         # link profile overrides (MB/s); unset, parallel/link probes the
         # device's link once per process
         "delta.tpu.link.uploadMBps": None,

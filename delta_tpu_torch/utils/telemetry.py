@@ -3,8 +3,11 @@ port's own copy of part of ``delta_tpu.utils.telemetry``).
 
 * counters (:func:`bump_counter`, :func:`counters`): the read path's
   ``scan.*``, ``scan.device.*`` and ``columnCache.*`` and the router's
-  ``merge.device.*`` and ``router.*`` tallies, under the JAX package's
-  names. Label-free, and live even under a telemetry blackout;
+  ``merge.device.*`` and ``router.*`` tallies and the state mesh's
+  ``dist.plan.sharded`` (a plan batch served by the sharded block cull),
+  under the JAX package's names (``dist.degraded.*`` has no counterpart:
+  where the JAX package degrades a failed sharded plan to the host, the
+  port raises). Label-free, and live even under a telemetry blackout;
 * gauges (:func:`set_gauge`, :func:`gauges`) and histograms
   (:func:`observe`, :func:`histograms`), keyed by name and labels: the
   router audit's ``router.missRate``, ``router.predicted_ms`` and

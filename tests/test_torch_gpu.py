@@ -640,3 +640,150 @@ def test_auto_merge_and_read_on_the_card_match_the_cpu(cuda, tmp_path):
     (card_state, card_read), (cpu_state, cpu_read) = rows
     assert all(np.array_equal(a, b) for a, b in zip(card_state, cpu_state))
     assert np.array_equal(card_read, cpu_read) and len(card_read) > 0
+
+
+# -- the state mesh: K6, K7, K13 and the combine kernel, one card named 8 times -------
+
+
+@pytest.fixture
+def mesh8(cuda):
+    from delta_tpu_torch.parallel import mesh
+
+    with mesh.using_devices([cuda] * 8) as m:
+        yield m
+
+
+@pytest.mark.parametrize("op", ["sum", "or", "or_pack"])
+@pytest.mark.parametrize("n,k", [(1, 1), (8, 13), (8, (1 << 20) + 5)])
+def test_shard_combine_kernel_matches_plain(cuda, op, n, k):
+    from delta_tpu_torch.parallel import mesh
+
+    rng = np.random.RandomState(n * 7 + k)
+    if op == "sum":
+        rows = torch.from_numpy(rng.randint(-2**62, 2**62, (n, k)).astype(np.int64))
+    else:
+        rows = torch.from_numpy(((rng.rand(n, k) < 0.1) * rng.randint(1, 255, (n, k)))
+                                .astype(np.uint8))
+    before = native.launches["shard_combine"]
+    got = mesh.shard_combine(rows.to(cuda), op)
+    torch.cuda.synchronize()
+    assert native.launches["shard_combine"] == before + 1
+    assert torch.equal(got.cpu(), mesh.shard_combine_plain(rows, op))
+
+
+@pytest.mark.parametrize("n", [4096, 1 << 20])
+def test_sharded_replay_kernel_matches_plain_and_k5(cuda, mesh8, n):
+    from delta_tpu_torch.ops.state_export import ReplayArrays
+
+    rng = np.random.RandomState(n)
+    num_paths = max(n // 6, 1)
+    arr = ReplayArrays(paths=[f"p{i}" for i in range(num_paths)],
+                       path_id=rng.randint(0, num_paths, n).astype(np.int32),
+                       seq=rng.permutation(n).astype(np.int64) * 5 + 3,
+                       is_add=rng.rand(n) > 0.3,
+                       size=rng.randint(0, 2**62, n).astype(np.int64),
+                       deletion_timestamp=rng.randint(0, 100, n).astype(np.int64))
+    stacked, _, _ = replay_kernel._bucket_by_path(arr, 8)
+    slabs = [tuple(torch.from_numpy(np.ascontiguousarray(c[i])).to(cuda) for c in stacked)
+             for i in range(8)]
+    before = native.launches["sharded_replay"]
+    got = replay_kernel.sharded_replay(slabs, num_paths, 50)
+    torch.cuda.synchronize()
+    assert native.launches["sharded_replay"] == before + 8
+    ref = replay_kernel.sharded_replay_plain(slabs, num_paths, 50)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+    assert torch.equal(got[2], ref[2])
+    sharded = replay_kernel.replay_sharded(arr, mesh8, min_retention_ts=50)
+    one = replay_kernel.replay_alive_mask(arr, min_retention_ts=50, device=cuda)
+    assert np.array_equal(sharded.alive, one.alive)
+    assert np.array_equal(sharded.tombstone, one.tombstone) and sharded.stats == one.stats
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_sharded_block_cull_kernel_matches_plain_and_k1(cuda, shards):
+    rng = np.random.RandomState(shards)
+    c, cap, m = 4, 1 << 16, 70
+    mins = (rng.rand(c, cap) * 100).astype(np.float32)
+    maxs = mins + (rng.rand(c, cap) * 3).astype(np.float32)
+    mins[:, rng.rand(cap) < 0.05] = np.nan
+    maxs[:, rng.rand(cap) < 0.05] = np.nan
+    mins[0, 7], maxs[0, 7] = np.inf, -np.inf
+    alive = rng.rand(cap) > 0.2
+    lo = (rng.rand(m, c) * 100).astype(np.float32)
+    hi = lo + (rng.rand(m, c) * 0.5).astype(np.float32)
+    lo[rng.rand(m, c) < 0.2] = np.nan
+    hi[rng.rand(m, c) < 0.2] = np.nan
+    t = [torch.from_numpy(a).to(cuda) for a in (mins, maxs, alive)]
+    per = cap // shards
+    sh = [(t[0][:, i * per:(i + 1) * per].contiguous(), t[1][:, i * per:(i + 1) * per].contiguous(),
+           t[2][i * per:(i + 1) * per].contiguous()) for i in range(shards)]
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    before = native.launches["sharded_block_cull"]
+    got = state_cache.sharded_block_cull(sh, lo_t, hi_t)
+    torch.cuda.synchronize()
+    assert native.launches["sharded_block_cull"] == before + shards
+    assert torch.equal(got.cpu(), state_cache.sharded_block_cull_plain(
+        [tuple(x.cpu() for x in s) for s in sh], lo_t, hi_t))
+    k1 = state_cache.block_cull(*t, lo_t.to(cuda), hi_t.to(cuda))
+    assert np.array_equal(np.unpackbits(k1.cpu().numpy(), axis=1, count=cap // 1024),
+                          got.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_sharded_join_probe_kernel_matches_plain_and_k12(cuda, dtype):
+    rng = np.random.RandomState(3)
+    fill_t, fill_s = torch.iinfo(dtype).max, torch.iinfo(dtype).max - 1
+    t = np.full(1 << 18, fill_t, np.int64)
+    t[:200_000] = rng.randint(-5000, 5000, 200_000)
+    s = np.full(1 << 14, fill_s, np.int64)
+    s[:12_000] = np.repeat(rng.randint(-6000, 6000, 3000), 4)
+    s[2048 - 3:2048 + 3] = 17  # a run across the first piece boundary
+    tt, st = torch.from_numpy(t).to(dtype).to(cuda), torch.from_numpy(s).to(dtype).to(cuda)
+    before = native.launches["sharded_join_probe"]
+    from delta_tpu_torch.ops import join_kernel
+
+    got = join_kernel.sharded_join_probe(list(tt.view(8, -1)), list(st.view(8, -1)))
+    torch.cuda.synchronize()
+    assert native.launches["sharded_join_probe"] == before + 8
+    ref = join_kernel.sharded_join_probe_plain([x.cpu() for x in tt.view(8, -1)], st.cpu())
+    k12 = join_kernel.join_probe(tt, st)
+    for g, r, k in zip(got, ref, k12):
+        assert torch.equal(g.cpu(), r) and torch.equal(g, k)
+
+
+def test_sharded_paths_on_the_card_match_the_cpu(cuda, mesh8):
+    """The sharded plan, the upload join over the mesh and the multichip run
+    on one card named 8 times, against the same calls on the CPU."""
+    from delta_tpu_torch.multichip import dryrun_multichip
+    from delta_tpu_torch.ops import join_kernel
+    from delta_tpu_torch.parallel import mesh
+    from delta_tpu_torch.utils.config import conf
+
+    rng = np.random.RandomState(9)
+    n = 20_000
+    lo = np.sort(rng.rand(2, n) * 100.0, axis=0)
+    lanes = {"min": lo, "max": lo + rng.rand(2, n) * 5, "size": np.ones(n, np.int64)}
+    ranges = [state_cache.RangeSet(np.array([v, np.nan]), np.array([v + 1, np.nan]))
+              for v in rng.rand(40) * 100]
+    entry = state_cache.ResidentState("mem://g", "m", 0, ["a", "b"],
+                                      [f"p{i}" for i in range(n)], lanes, cuda)
+    before = native.launches["sharded_block_cull"]
+    with conf.set_temporarily(**{"delta.tpu.distributed.plan.mode": "force",
+                                 "delta.tpu.stateCache.devicePlan.mode": "force"}):
+        plans = entry.plan_ranges(ranges, k=n)
+    assert entry.resident_shards == 8 and native.launches["sharded_block_cull"] == before + 8
+    host = entry.plan_ranges(ranges, k=n, use_device=False)
+    assert all(p.via == "device-sharded" and np.array_equal(p.rows, h.rows)
+               for p, h in zip(plans, host))
+    t = rng.randint(0, 50_000, 300_000).astype(np.int64)
+    s = rng.randint(0, 60_000, 30_000).astype(np.int64)
+    t_ok, s_ok = rng.rand(len(t)) > 0.05, rng.rand(len(s)) > 0.05
+    before = native.launches["sharded_join_probe"]
+    got = join_kernel.inner_join(t, t_ok, s, s_ok, mesh=mesh.state_mesh(device=cuda),
+                                 device=cuda)
+    assert native.launches["sharded_join_probe"] == before + 8
+    want = join_kernel.inner_join(t, t_ok, s, s_ok, device="cpu")
+    assert np.array_equal(got.t_first_s, want.t_first_s)
+    assert np.array_equal(got.s_matched, want.s_matched) and got.any_multi == want.any_multi
+    report = dryrun_multichip(8, device=cuda)
+    assert report["plan_shards"] == 8 and report["n_alive"] > 0

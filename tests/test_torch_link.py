@@ -134,6 +134,7 @@ COST_FUNCTIONS = {
     "cold_merge_device_s": lambda L, n, m, k, p: L.cold_merge_device_s(n, m, p),
     "host_residual_filter_s": lambda L, n, m, k, p: L.host_residual_filter_s(n, k % 9 + 1),
     "device_residual_mask_s": lambda L, n, m, k, p: L.device_residual_mask_s(n, m, k % 9 + 1, p),
+    "sharded_plan_device_s": lambda L, n, m, k, p: L.sharded_plan_device_s(n, k % 16, p),
 }
 
 
@@ -148,13 +149,15 @@ def test_cost_functions_match_jax(fn, up, down, lat):
 
 
 def test_constants_and_calibratable_names():
-    """The port prices with the reference's names; the multi-card constants
-    are left out, and no port default is a TPU-fit value."""
+    """The port prices with the reference's names; the multi-host
+    executor's constant and cost function are left out, and no port default
+    is a TPU-fit value."""
     for name in LINK_CONSTANTS:
         assert hasattr(link, name)
-    assert link.CALIBRATABLE == jax_link.CALIBRATABLE - {
-        "SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD", "DIST_ITEM_S"}
-    for name in ("sharded_plan_device_s", "dist_execute_s", "SHARD_DISPATCH_S"):
+    assert link.CALIBRATABLE == jax_link.CALIBRATABLE - {"DIST_ITEM_S"}
+    for name in ("sharded_plan_device_s", "SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD"):
+        assert hasattr(link, name)
+    for name in ("dist_execute_s", "DIST_ITEM_S"):
         assert not hasattr(link, name)
 
 
@@ -169,14 +172,14 @@ def test_port_defaults_are_not_the_tpu_values():
         importlib.reload(link)
 
 
-@pytest.mark.parametrize("name,value", [("NOT_A_CONSTANT", 1.0), ("SHARD_DISPATCH_S", 1.0),
+@pytest.mark.parametrize("name,value", [("NOT_A_CONSTANT", 1.0), ("DIST_ITEM_S", 1.0),
                                         ("HOST_JOIN_S_PER_ROW", 0.0),
                                         ("HOST_JOIN_S_PER_ROW", -1e-9),
                                         ("KERNEL_S_PER_ROW", float("nan"))])
 def test_set_calibrated_rejects_like_jax(name, value):
     with pytest.raises(ValueError):
         link.set_calibrated(name, value)
-    if name != "SHARD_DISPATCH_S":  # calibratable in the JAX package (its mesh)
+    if name != "DIST_ITEM_S":  # calibratable in the JAX package (its executor)
         with pytest.raises(ValueError):
             jax_link.set_calibrated(name, value)
     assert link.calibrated_constants() == {}

@@ -273,7 +273,7 @@ def test_calibrator_rejects_garbage_samples(tmp_path):
             assert cal.ingest([("NOT_A_CONSTANT", 10, 1.0)]) is None
             assert cal.ingest([("HOST_JOIN_S_PER_ROW", 0, 1.0)]) is None
             assert cal.ingest([("HOST_JOIN_S_PER_ROW", 10, -1.0)]) is None
-            assert cal.ingest([("SHARD_DISPATCH_S" if cal is calibration else "X", 1, 1.0)]) \
+            assert cal.ingest([("DIST_ITEM_S" if cal is calibration else "X", 1, 1.0)]) \
                 is None
     assert link.calibrated_constants() == {} == jax_link.calibrated_constants()
 
@@ -400,7 +400,8 @@ def test_plan_routing_matches_jax(tmp_path, up, down, host_scale):
             [tr] = [r for r in router_audit.recent_audits() if r["op"] == "scan.plan"]
             [jr] = [r for r in jax_audit.recent_audits() if r["op"] == "scan.plan"]
             assert tr["predictedMs"] == jr["predictedMs"] and tr["units"] == jr["units"]
-            assert te._price_plan(40) == pytest.approx(je._price_plan(40)[:4], rel=1e-12)
+            assert te._price_plan(40)[:4] == pytest.approx(je._price_plan(40)[:4], rel=1e-12)
+            assert te._price_plan(40)[4:] == je._price_plan(40)[4:] == (None, 1)
             if up < 1 and host_scale == 1:
                 assert tp[0].via == "host-resident"
             if up >= 10_000 and host_scale > 1:

@@ -197,7 +197,8 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
               "txn.isolation", "txn.conflicts", "txn.transaction", "commands.operations",
               "commands.write", "commands.alter", "commands.dml_common", "commands.merge",
               "exec.write", "exec.scan", "exec.zstd", "exec.lz4", "parallel.link",
-              "obs.router_audit", "obs.calibration", "utils.telemetry"):
+              "obs.router_audit", "obs.calibration", "utils.telemetry", "parallel.mesh",
+              "parallel.distributed", "multichip"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 

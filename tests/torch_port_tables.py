@@ -283,7 +283,8 @@ LINK_CONSTANTS = ("KERNEL_S_PER_ROW", "HOST_JOIN_S_PER_ROW", "HOST_PRUNE_S_PER_C
                   "DEVICE_PRUNE_S_PER_CELL", "HOST_KEY_DECODE_S_PER_ROW",
                   "RESIDENT_PROBE_S_PER_ROW", "RESIDENT_PROBE_FIXED_S",
                   "RESIDENT_PAIR_S_PER_ROW", "DEVICE_SORT_S_PER_ROW",
-                  "HOST_RESIDUAL_S_PER_CELL", "DEVICE_RESIDUAL_S_PER_CELL")
+                  "HOST_RESIDUAL_S_PER_CELL", "DEVICE_RESIDUAL_S_PER_CELL",
+                  "SHARD_DISPATCH_S", "SHARD_GATHER_S_PER_SHARD")
 
 
 def install_reference_constants(monkeypatch):
@@ -317,3 +318,18 @@ def both_links(up, down, **kv):
     the JAX package held to one card's pricing (no sharded plan)."""
     return both_confs(**{"delta.tpu.link.uploadMBps": up, "delta.tpu.link.downloadMBps": down,
                          "delta.tpu.distributed.plan.enabled": False}, **kv)
+
+
+def both_links_on_mesh(up, down, shards=8, **kv):
+    """The same injected link profile (MB/s) in both packages' confs with
+    sharded planning left on: the port on a ``shards``-entry CPU mesh, the
+    JAX package on its 8-device test mesh."""
+    import contextlib
+
+    from delta_tpu_torch.parallel import mesh
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(both_confs(**{"delta.tpu.link.uploadMBps": up,
+                                      "delta.tpu.link.downloadMBps": down}, **kv))
+    stack.enter_context(mesh.using_devices(["cpu"] * shards))
+    return stack
