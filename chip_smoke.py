@@ -10,9 +10,9 @@ Phases, each reported on its own line:
 2. build: compile every CUDA kernel from ``delta_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and load it;
 3. kernels: each kernel against its plain PyTorch version on the card, with
-   EXACT equality — the block cull at C=4, cap=2^20, M=256 (NaN lanes on
-   both sides, dead rows), the tail scatters at cap=2^20 with 8..1024 rows
-   (pads included), the winner bits at n=2^20 and 2^24, the expression
+   EXACT equality — the block cull at C=4, cap=2^20, M=256, 1 and 257
+   (NaN lanes on both sides, dead rows), the tail scatters at cap=2^20
+   with 8..1024 rows (pads included), the winner bits at n=2^20 and 2^24, the expression
    interpreter (K15) at 2^20 rows over a corpus of programs that covers
    every opcode and dtype (NaN and ±inf lanes, timestamps before 1970,
    int32 overflow, saturating casts, an IN with a NULL in a column option),
@@ -125,13 +125,17 @@ Phases, each reported on its own line:
    the host join and key decode from M0's ``phase_ms``, the cold build's
    upload + K8, phase 6's probes, K12, config 12's host filter and warm
    device pass, config 6's host and device plans);
-11. per kernel: time on the card (CUDA events, warmed, many launches) at
-   the main path's shapes and inputs (K12 at M3's own padded inputs, K14
-   on one config-12 file's resident lanes, K16 at config 3's OPTIMIZE
-   ranks, K17 at the probe's 8 int32, each held against its plain version
-   there), the plain version's
+11. per kernel: time on the card (CUDA events, warmed, many launches; the
+   block cull's also replayed from a CUDA graph, ``graph_ms``, and K1's and
+   K8's split by the kernels they launch, ``breakdown_us``) at
+   the main path's shapes and inputs (K1 at config 6's 256-query batch
+   and at one query as ``files_for_scan`` launches it, K12 at M3's own
+   padded inputs, K14 on one config-12 file's resident lanes, K16 at
+   config 3's OPTIMIZE ranks, K17 at the probe's 8 int32, each held
+   against its plain version there), the plain version's
    time, the least time the card could take (bytes over 3.35 TB/s or
-   compares over 33.5e12/s, whichever is larger) and, where one PyTorch
+   compares over 33.5e12/s, whichever is larger; K1 and K7 by the bytes
+   their data needs) and, where one PyTorch
    call computes the same function, that call's time; one JSON line lists
    them;
 12. the state mesh, with the counters set to 0 again, under
@@ -244,6 +248,43 @@ def cuda_ms(fn, reps, warm=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Device time of one call of ``fn``, replayed from a CUDA graph that
+    holds ``reps`` calls: the host's Python and launch overhead left out."""
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return cuda_ms(graph.replay, 10) / reps
+
+
+def kernel_breakdown(fn, calls=20):
+    """Device time per call of each CUDA kernel ``fn`` launches (the
+    profiler's CUPTI trace), in microseconds, by kernel name; empty where
+    there is no card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0 and not e.key.startswith("cuda"):
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0][:90] if "<" not in name else name.split(">(")[0][:90] + ">"
+            out[name] = round(out.get(name, 0.0) + e.device_time_total / calls, 3)
+    return out
+
+
 def bitwise_equal(a, b):
     """Exact equality, NaN included, through the bit patterns."""
     if a.dtype == torch.float32:
@@ -276,10 +317,15 @@ def synthetic_checks(dev):
     lo[rng.rand(m, c) < 0.3] = np.nan
     hi[rng.rand(m, c) < 0.3] = np.nan
     ts = [torch.from_numpy(a).to(dev) for a in (mins, maxs, alive, lo, hi)]
-    got = state_cache.block_cull(*ts)
-    torch.cuda.synchronize()
-    check(bitwise_equal(got, state_cache.block_cull_plain(*ts)), "block_cull != plain")
-    say(f"kernels: block_cull C={c} cap={cap} M={m} exact, {int(got.ne(0).sum())} nonzero bytes")
+    for q in (m, 1, 257):  # the batch, one query (files_for_scan), two sweeps
+        lo_q, hi_q = (ts[3][:q], ts[4][:q]) if q <= m else (ts[3].repeat(2, 1)[:q],
+                                                            ts[4].repeat(2, 1)[:q])
+        args = (*ts[:3], lo_q.contiguous(), hi_q.contiguous())
+        got = state_cache.block_cull(*args)
+        torch.cuda.synchronize()
+        check(bitwise_equal(got, state_cache.block_cull_plain(*args)),
+              f"block_cull != plain at M={q}")
+    say(f"kernels: block_cull C={c} cap={cap} M={m}, 1, 257 exact")
 
     for d in (8, 64, 512, 1024):
         rows = np.full(d, cap, np.int32)
@@ -2174,19 +2220,21 @@ def measure_link_probe(dev, rctx):
 # -- phase 11: times and bounds at the main path's shapes -----------------------
 
 
-def cull_ops(mins, maxs, alive, lo, hi):
-    """Compares the block cull needs on these inputs: 2 per (query, live
-    file, column) up to the first column that drops the file."""
-    total = 0
+def cull_bytes(mins, maxs, alive, lo, hi, out_bytes):
+    """Bytes the block cull needs on these inputs: alive, then a column's
+    (min, max) of each live file some query still keeps after the columns
+    before it (a file every query has dropped needs no more lanes), the
+    bounds in, the bit map out."""
+    need = torch.zeros_like(mins, dtype=torch.bool)
     for q0 in range(0, lo.shape[0], 32):
         l, h = lo[q0:q0 + 32], hi[q0:q0 + 32]
         keep = alive[None, :].expand(l.shape[0], -1).clone()
         for c in range(mins.shape[0]):
-            total += int(keep.sum())
+            need[c] |= keep.any(dim=0)
             mn, mx = mins[c][None, :], maxs[c][None, :]
             keep &= torch.isnan(mx) | torch.isnan(l[:, c:c + 1]) | (mx >= l[:, c:c + 1])
             keep &= torch.isnan(mn) | torch.isnan(h[:, c:c + 1]) | (mn <= h[:, c:c + 1])
-    return 2 * total
+    return alive.shape[0] + 8 * int(need.sum()) + 2 * lo.numel() * 4 + out_bytes
 
 
 def bound(nbytes, compares=0):
@@ -2194,27 +2242,42 @@ def bound(nbytes, compares=0):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def measure(dev, entry, ranges, cols, launches):
-    out = []
-    d = entry._dev
-    m = len(ranges)
-    lo = torch.from_numpy(state_cache._f32_down(np.stack([r.lo for r in ranges]))).to(dev)
-    hi = torch.from_numpy(state_cache._f32_up(np.stack([r.hi for r in ranges]))).to(dev)
+def k1_row(name, d, ranges, launches, reps):
+    """K1 on the resident lanes with the bounds ``_plan_device`` launches
+    for ``ranges`` (``state_cache.plan_bounds``). ``ms`` is the eager call
+    (CUDA events), as every row's; ``graph_ms`` the same call replayed from
+    a CUDA graph (no host Python or launch overhead), ``breakdown_us`` the
+    profiler's device time per kernel. The bound is the bytes this data
+    needs (``cull_bytes``): on these lanes the box test leaves few compares."""
+    lo_np, hi_np = state_cache.plan_bounds(np.stack([r.lo for r in ranges]),
+                                           np.stack([r.hi for r in ranges]))
+    lo, hi = torch.from_numpy(lo_np).to(d["mins"].device), torch.from_numpy(hi_np).to(
+        d["mins"].device)
     args = (d["mins"], d["maxs"], d["alive"], lo, hi)
     got = state_cache.block_cull(*args)
     ref = state_cache.block_cull_plain(*args)
-    check(bitwise_equal(got, ref), "block_cull != plain on the main path's lanes")
+    check(bitwise_equal(got, ref), f"block_cull != plain on the main path's lanes ({name})")
     c, cap = d["mins"].shape
-    nbytes = 2 * c * cap * 4 + cap + 2 * m * c * 4 + got.numel()
-    b, by = bound(nbytes, cull_ops(*args))
-    out.append({
-        "name": "block_cull", "route": "cuda", "source": "delta_tpu_torch/csrc/block_cull.cu",
+    m = lo.shape[0]
+    b, by = bound(cull_bytes(*args, got.numel()))
+    return {
+        "name": name, "route": "cuda", "source": "delta_tpu_torch/csrc/block_cull.cu",
         "replaces": "delta_tpu/ops/state_cache.py:986", "launches": launches["block_cull"],
         "max_abs_err": max_abs_err(got, ref),
-        "ms": cuda_ms(lambda: state_cache.block_cull(*args), 50),
+        "ms": cuda_ms(lambda: state_cache.block_cull(*args), reps),
         "plain_ms": cuda_ms(lambda: state_cache.block_cull_plain(*args), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"C={c} cap={cap} M={m}"})
+        "graph_ms": graph_ms(lambda: state_cache.block_cull(*args), 50),
+        "breakdown_us": kernel_breakdown(lambda: state_cache.block_cull(*args)),
+        "shape": f"C={c} cap={cap} M={m} ({len(ranges)} queries)"}
+
+
+def measure(dev, entry, ranges, cols, launches):
+    d = entry._dev
+    # the batched plan (M=256), then one query as files_for_scan launches it
+    out = [k1_row("block_cull", d, ranges, launches, 50),
+           k1_row("block_cull_single_query", d, ranges[:1], launches, 200)]
+    c, cap = d["mins"].shape
 
     # the tail shapes: 500 dead rows (d = 512), 1000 appended rows (a = 1024)
     rng = np.random.RandomState(5)
@@ -2373,6 +2436,7 @@ def measure_slab(dev, mctx):
                         cuda_ms(lambda: key_cache.slab_sort_plain(*args), 5), 26 * cap,
                         cuda_ms(lambda: torch.sort(enc, stable=True), 20),
                         f"cap={cap} n={n}"))
+    out[-1]["breakdown_us"] = kernel_breakdown(lambda: key_cache.slab_sort(*args))
     sk, perm, inv, sv = got
 
     s_keys = mctx["source"]
@@ -2725,8 +2789,7 @@ def measure_mesh(dev, xctx):
     alive = torch.cat([s[2] for s in shards])
     c, cap = mins.shape
     m = lo.shape[0]
-    b, by = bound(2 * c * cap * 4 + cap + 2 * m * c * 4 + got.numel(),
-                  cull_ops(mins, maxs, alive, lo, hi))
+    b, by = bound(cull_bytes(mins, maxs, alive, lo, hi, got.numel()))
     out.append({
         "name": "sharded_block_cull", "route": "cuda", "source": "delta_tpu_torch/csrc/block_cull.cu",
         "replaces": "delta_tpu/ops/state_cache.py:1014",

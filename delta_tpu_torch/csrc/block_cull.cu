@@ -8,25 +8,62 @@
 // (`jnp.packbits` / `np.unpackbits` order: block 8*b + j is bit 7 - j of
 // byte b), giving (M, ceil(cap / 1024 / 8)) bytes.
 //
-// What bounds it: M*C*cap compares (256 * 4 * 2^20 ~ 1e9 per batch on the
-// main path) against ~35 MB of lanes, so the work is compares, and the lanes
-// must not be fetched from HBM once per query.
+// What bounds it on this card: the bytes its data needs (alive and a
+// column's lanes of the files still kept after the columns before it: ~9 MB,
+// 0.003 ms, for config 6's point queries on clustered lanes), and, where the
+// lanes are not clustered, the per-file tests (2 * M * C compares a file done
+// directly). What holds it at 3-5x that bound: the rank-table launch (~2 us),
+// cap / 1024 CTAs of fixed cost (load, table reads through L2, the block
+// reduction and its atomics) in several waves (102 registers at 4 query
+// tiles, 2 CTAs an SM; 48 at one tile), and the alive word a file. The design
+// reads the lanes once per launch, whatever M, and replaces most compares by
+// a warp's box test and binary searches:
 //
-// Design: one CTA owns one output byte column (8 blocks = 8192 files) and a
-// tile of 32 queries, one bit each of a 32-bit mask. The tile's bounds sit in
-// shared memory as (lo, hi) float2 pairs; each thread walks its 32 files
-// (4 per block, neighbouring threads on neighbouring files), loads each
-// file's (min, max) once per column and tests it against all 32 queries,
-// stopping at the first column that drops every query. A warp OR-reduce
-// (__reduce_or_sync) and a shared-memory pass give each block's any-bit, and
-// thread q writes query q's byte: no atomics, each output byte written once.
+//   * Rank tables (`tables_kernel`, one CTA per (64-query tile, column)):
+//     the tile's `lo` sorted ascending with prefix masks, `lo_pref[k]` = the
+//     queries at lo-sorted positions < k, and its `hi` sorted ascending with
+//     suffix masks, `hi_suf[k]` = the queries at positions >= k. A file's
+//     set {q : max >= lo_q} is a prefix of the lo order, `lo_pref[#{lo <=
+//     max}]`, and {q : min <= hi_q} a suffix of the hi order, `hi_suf[#{hi
+//     < min}]`: two 7-step searches and two mask loads replace 64 x 2
+//     compares. The tables (2 KB a tile and column, with the bounds in
+//     query order too) are read through L1.
+//   * The cull (`cull_kernel`): one CTA a 1024-file block, 4 files a thread,
+//     so cap / 1024 CTAs (1,024 at cap=2^20, several on each of the 132
+//     SMs). Each thread loads a column's (min, max) of its 4 files with two
+//     16-byte streaming loads and holds them while it walks up to 4 query
+//     tiles (256 queries, their 64-bit keep masks in registers); a larger
+//     batch re-reads the lanes once per 256 queries. A batch of at most 64
+//     queries (a `files_for_scan` call has one) runs a one-tile instance of
+//     the kernel: 48 registers instead of 102, so more CTAs fit an SM and
+//     the launch takes fewer waves. Per column, the warp
+//     first tests the box of its still-kept files (the min of their mins,
+//     the max of their maxes: a lane a query, two ballots): a query that
+//     misses the box misses every file in it, so on a clustered column most
+//     tiles end there. In a tile where some query still keeps some file of
+//     the warp, each file is tested against those queries directly when
+//     they are at most 8, else by the two rank searches (on lanes that are
+//     not clustered, this kernel took 0.047 and 0.118 ms at M=256 where a
+//     design without the searches, box test then compares of every
+//     candidate, took 0.115 and 0.61: one H100 at 700 W,
+//     `tools/kernel_ab.py`'s shuffled and random lanes). Once no query
+//     keeps any file of a warp, the warp skips the later columns' loads: a
+//     point query on a clustered column reads little more than that column.
+//   * The block's any-bit per query: a warp OR-reduce and a shared-memory
+//     pass; thread q ORs query q's bit into its packed byte (zeroed by the
+//     tables kernel) with a 32-bit atomicOr, a bit a CTA.
+//
+// The query axis is not padded: M is the batch's own size.
 //
 // NaN means "no bound". It is tested explicitly when a value is loaded: a NaN
 // query bound becomes -inf (lo) / +inf (hi), a NaN file min/max becomes
 // -inf / +inf, after which a plain compare gives exactly the JAX verdict
 // (an infinity is kept as an infinity, so the inverted +inf/-inf lanes of a
-// null partition value still prune). Built without fast math / FTZ: the f32
-// lanes can hold subnormals, and flushing them would change comparisons.
+// null partition value still prune). The searches compare the same values
+// with the same operators (max >= lo as lo <= max, min <= hi as not hi <
+// min), and equal values sort together, so ties keep their verdicts. Built
+// without fast math / FTZ: the f32 lanes can hold subnormals, and flushing
+// them would change comparisons.
 //
 // The sharded block cull (K7) is the second entry point, dtt_block_cull_shard.
 // It replaces delta_tpu/ops/state_cache.py:1014 `_sharded_block_kernel_fn`, a
@@ -37,129 +74,313 @@
 // (M, C) bounds; the same CTA body as K1 (templated on the output form)
 // writes one byte per block, (M, cap/shards/1024), so the gathered map is
 // K1's unpacked bit for bit. The shard's slice holds whole blocks (the
-// wrapper asserts it). Bound as K1: compares.
+// wrapper asserts it).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 1024;                       // files per cull block
-constexpr int kBlocksPerByte = 8;                  // blocks per output byte
+constexpr int kBlock = 1024;                 // files per cull block (one CTA)
 constexpr int kThreads = 256;
-constexpr int kFilesPerThread = kBlock / kThreads; // per block
-constexpr int kQueries = 32;                       // queries per CTA
+constexpr int kFiles = kBlock / kThreads;    // 4 a thread: one float4 a lane
 constexpr int kWarps = kThreads / 32;
+constexpr int kQ = 64;                       // queries a tile: one 64-bit mask
+constexpr int kGroup = 4;                    // tiles held in registers a sweep
+                                             // (1 when the batch has one tile)
+constexpr int kDirect = 8;                   // up to this many queries: compares
 
-// kPacked: K1, one bit a block, (M, out_w) bytes; else K7, one byte a block,
-// (M, cap / kBlock) bytes.
-template <bool kPacked>
+// One (64-query tile, column): absent queries of a partial tile sort last
+// as +inf and have no bit in any mask.
+struct Table {
+  float lo[kQ];                // lo ascending (NaN -> -inf)
+  float hi[kQ];                // hi ascending (NaN -> +inf)
+  unsigned long long lo_pref[kQ + 1];  // queries at lo-sorted positions < k
+  unsigned long long hi_suf[kQ + 1];   // queries at hi-sorted positions >= k
+  float lo_q[kQ];              // lo, hi in query order (NaN -> -inf, +inf)
+  float hi_q[kQ];
+};
+static_assert(sizeof(Table) == 2064, "ops/state_cache.py _TABLE_BYTES");
+
+// grid (tiles, max(C, 1)), kQ threads; also zeroes zero_words words of the
+// packed output.
+__global__ void __launch_bounds__(kQ)
+tables_kernel(const float* __restrict__ lo, const float* __restrict__ hi, int M, int C,
+              Table* __restrict__ tabs, uint32_t* __restrict__ zero, long long zero_words) {
+  const long long stride = (long long)gridDim.x * gridDim.y * blockDim.x;
+  for (long long w = ((long long)blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
+       w < zero_words; w += stride)
+    zero[w] = 0u;
+  const int tile = blockIdx.x, c = blockIdx.y, i = threadIdx.x, q = tile * kQ + i;
+  if (c >= C) return;
+  __shared__ float s_lo[kQ], s_hi[kQ];
+  __shared__ int s_lq[kQ], s_hq[kQ];
+  const bool live = q < M;
+  float l = INFINITY, h = INFINITY;
+  if (live) {
+    l = lo[(long long)q * C + c];
+    h = hi[(long long)q * C + c];
+    l = isnan(l) ? -INFINITY : l;
+    h = isnan(h) ? INFINITY : h;
+  }
+  s_lo[i] = l;
+  s_hi[i] = h;
+  __syncthreads();
+  int rl = 0, rh = 0;  // ranks: value, then index, order
+  for (int j = 0; j < kQ; ++j) {
+    const float a = s_lo[j], b = s_hi[j];
+    rl += (a < l) | ((a == l) & (j < i));
+    rh += (b < h) | ((b == h) & (j < i));
+  }
+  Table* T = tabs + (long long)tile * C + c;
+  T->lo[rl] = l;
+  T->hi[rh] = h;
+  T->lo_q[i] = l;
+  T->hi_q[i] = h;
+  s_lq[rl] = live ? i : -1;
+  s_hq[rh] = live ? i : -1;
+  __syncthreads();
+  // thread p holds the bits of the queries at sorted position p; an OR-scan
+  // over the 64 positions (two warps) gives the prefix and suffix masks
+  const int lane = i & 31, warp = i >> 5;
+  unsigned long long pre = s_lq[i] >= 0 ? 1ull << s_lq[i] : 0ull;  // inclusive prefix
+  unsigned long long suf = s_hq[i] >= 0 ? 1ull << s_hq[i] : 0ull;  // inclusive suffix
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long a = __shfl_up_sync(0xffffffffu, pre, o);
+    const unsigned long long b = __shfl_down_sync(0xffffffffu, suf, o);
+    if (lane >= o) pre |= a;
+    if (lane + o < 32) suf |= b;
+  }
+  __shared__ unsigned long long s_pre0, s_suf1;
+  if (i == 31) s_pre0 = pre;
+  if (i == 32) s_suf1 = suf;
+  __syncthreads();
+  if (warp == 1) pre |= s_pre0;
+  if (warp == 0) suf |= s_suf1;
+  T->lo_pref[i + 1] = pre;
+  T->hi_suf[i] = suf;
+  if (i == 0) {
+    T->lo_pref[0] = 0ull;
+    T->hi_suf[kQ] = 0ull;
+  }
+}
+
+// #{k : a[k] <= x} over the kQ ascending values of a (7 steps for 64).
+__device__ __forceinline__ int count_le(const float* a, float x) {
+  int k = 0;
+#pragma unroll
+  for (int s = kQ / 2; s; s >>= 1) k += __ldg(a + k + s - 1) <= x ? s : 0;
+  return k + (__ldg(a + k) <= x);
+}
+
+// #{k : a[k] < x}
+__device__ __forceinline__ int count_lt(const float* a, float x) {
+  int k = 0;
+#pragma unroll
+  for (int s = kQ / 2; s; s >>= 1) k += __ldg(a + k + s - 1) < x ? s : 0;
+  return k + (__ldg(a + k) < x);
+}
+
+// kPacked: K1, one bit a block ORed into (M, out_w) zeroed bytes; else K7,
+// one byte a block, (M, cap / kBlock) bytes. kG: query tiles a sweep.
+template <bool kPacked, int kG>
 __global__ void __launch_bounds__(kThreads)
-block_cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
-                  const uint8_t* __restrict__ alive, const float* __restrict__ lo,
-                  const float* __restrict__ hi, uint8_t* __restrict__ out,
-                  int C, long long cap, int M, int out_w) {
-  extern __shared__ float2 s_bounds[];  // [C][kQueries] of (lo, hi)
-  __shared__ uint32_t s_any[kWarps][kBlocksPerByte];
+cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
+            const uint8_t* __restrict__ alive, const Table* __restrict__ tabs,
+            uint8_t* __restrict__ out, int C, long long cap, int M, int out_w) {
+  __shared__ unsigned long long s_any[kWarps][kG];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long blk = blockIdx.x;
+  const long long f0 = blk * kBlock + (long long)tid * kFiles;
+  const uint32_t al = *reinterpret_cast<const uint32_t*>(alive + f0);
+  const int tiles = (M + kQ - 1) / kQ;
 
-  const int tid = threadIdx.x;
-  const long long byte = blockIdx.x;
-  const int q0 = blockIdx.y * kQueries;
-  const int nq = min(kQueries, M - q0);
-
-  for (int i = tid; i < C * kQueries; i += kThreads) {
-    const int c = i / kQueries, q = i % kQueries;
-    float l = -INFINITY, h = INFINITY;
-    if (q < nq) {
-      const float a = lo[(long long)(q0 + q) * C + c];
-      const float b = hi[(long long)(q0 + q) * C + c];
-      l = isnan(a) ? -INFINITY : a;
-      h = isnan(b) ? INFINITY : b;
+  for (int g0 = 0; g0 < tiles; g0 += kG) {
+    const int ng = min(kG, tiles - g0);
+    unsigned long long keep[kG][kFiles];
+#pragma unroll
+    for (int t = 0; t < kG; ++t) {
+      const int nq = M - (g0 + t) * kQ;
+      const unsigned long long live =
+          t >= ng ? 0ull : (nq >= kQ ? ~0ull : (1ull << nq) - 1ull);
+#pragma unroll
+      for (int f = 0; f < kFiles; ++f) keep[t][f] = ((al >> (8 * f)) & 0xFFu) ? live : 0ull;
     }
-    s_bounds[i] = make_float2(l, h);
-  }
-  __syncthreads();
-
-  const uint32_t qmask = nq >= 32 ? 0xffffffffu : ((1u << nq) - 1u);
-  uint32_t any[kBlocksPerByte];
+    // column 0's lanes are loaded beside alive, the later ones on demand
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (C > 0) {
+      a = __ldcs(reinterpret_cast<const float4*>(mins + f0));
+      b = __ldcs(reinterpret_cast<const float4*>(maxs + f0));
+    }
+    for (int c = 0; c < C; ++c) {
+      bool kept[kFiles];
+      bool any = false;
 #pragma unroll
-  for (int j = 0; j < kBlocksPerByte; ++j) {
-    any[j] = 0u;
-    const long long base = (byte * kBlocksPerByte + j) * kBlock;
-    if (base >= cap) continue;  // cap is a multiple of kBlock: blocks are whole
+      for (int f = 0; f < kFiles; ++f) {
+        unsigned long long k = 0ull;
 #pragma unroll
-    for (int k = 0; k < kFilesPerThread; ++k) {
-      const long long f = base + tid + k * kThreads;
-      uint32_t keep = alive[f] ? qmask : 0u;
-      for (int c = 0; c < C && keep; ++c) {
-        float mn = mins[(long long)c * cap + f];
-        float mx = maxs[(long long)c * cap + f];
-        mn = isnan(mn) ? -INFINITY : mn;
-        mx = isnan(mx) ? INFINITY : mx;
-        const float2* b = s_bounds + c * kQueries;
-        uint32_t ok = 0u;
+        for (int t = 0; t < kG; ++t) k |= keep[t][f];
+        kept[f] = k != 0ull;
+        any |= kept[f];
+      }
+      if (!__any_sync(0xffffffffu, any)) break;  // warp-uniform
+      if (c > 0) {
+        a = __ldcs(reinterpret_cast<const float4*>(mins + (long long)c * cap + f0));
+        b = __ldcs(reinterpret_cast<const float4*>(maxs + (long long)c * cap + f0));
+      }
+      float mn[kFiles] = {a.x, a.y, a.z, a.w}, mx[kFiles] = {b.x, b.y, b.z, b.w};
+      // the warp's box over the files some query still keeps
+      float bmn = INFINITY, bmx = -INFINITY;
 #pragma unroll
-        for (int q = 0; q < kQueries; ++q) {
-          const float2 bq = b[q];
-          ok |= (uint32_t)((mx >= bq.x) & (mn <= bq.y)) << q;
+      for (int f = 0; f < kFiles; ++f) {
+        mn[f] = isnan(mn[f]) ? -INFINITY : mn[f];
+        mx[f] = isnan(mx[f]) ? INFINITY : mx[f];
+        if (kept[f]) {
+          bmn = fminf(bmn, mn[f]);
+          bmx = fmaxf(bmx, mx[f]);
         }
-        keep &= ok;
       }
-      any[j] |= keep;
-    }
-  }
-
-  const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
-  for (int j = 0; j < kBlocksPerByte; ++j) {
-    const uint32_t v = __reduce_or_sync(0xffffffffu, any[j]);
-    if (lane == 0) s_any[warp][j] = v;
-  }
-  __syncthreads();
-  if (tid < nq) {
-    uint32_t bits = 0u;
-    for (int j = 0; j < kBlocksPerByte; ++j) {
-      uint32_t v = 0u;
-      for (int w = 0; w < kWarps; ++w) v |= s_any[w][j];
-      if (kPacked) {
-        bits |= ((v >> tid) & 1u) << (7 - j);
-      } else {
-        const long long blk = byte * kBlocksPerByte + j;
-        if (blk < out_w) out[(long long)(q0 + tid) * out_w + blk] = (uint8_t)((v >> tid) & 1u);
+      for (int o = 16; o; o >>= 1) {
+        bmn = fminf(bmn, __shfl_xor_sync(0xffffffffu, bmn, o));
+        bmx = fmaxf(bmx, __shfl_xor_sync(0xffffffffu, bmx, o));
+      }
+      // queries that miss the box miss every file in it: every tile's box
+      // test first (lane l tests queries l and l + 32 of the tile, two
+      // ballots), then the files of a tile where some query still keeps
+      // some file of the warp
+      const Table* T = tabs + (long long)g0 * C + c;
+      unsigned long long box[kG];
+#pragma unroll
+      for (int t = 0; t < kG; ++t) {
+        box[t] = 0ull;
+        if (t < ng) {
+          const float* lq = T[t * C].lo_q;
+          const float* hq = T[t * C].hi_q;
+          const unsigned a0 = __ballot_sync(0xffffffffu, (__ldg(lq + lane) <= bmx) &
+                                                             (__ldg(hq + lane) >= bmn));
+          const unsigned a1 = __ballot_sync(0xffffffffu, (__ldg(lq + lane + 32) <= bmx) &
+                                                             (__ldg(hq + lane + 32) >= bmn));
+          box[t] = ((unsigned long long)a1 << 32) | a0;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kG; ++t) {
+        bool live = false;
+#pragma unroll
+        for (int f = 0; f < kFiles; ++f) {
+          keep[t][f] &= box[t];
+          live |= keep[t][f] != 0ull;
+        }
+        if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
+        // the queries some file of the warp still has: few of them are
+        // tested directly, more by the two rank searches a file
+        unsigned long long cand = 0ull;
+#pragma unroll
+        for (int f = 0; f < kFiles; ++f) cand |= keep[t][f];
+        cand = ((unsigned long long)__reduce_or_sync(0xffffffffu, (unsigned)(cand >> 32)) << 32) |
+               __reduce_or_sync(0xffffffffu, (unsigned)cand);
+        if (__popcll(cand) <= kDirect) {
+          unsigned long long hit[kFiles] = {};
+          for (unsigned long long rest = cand; rest; rest &= rest - 1) {
+            const int q = __ffsll(rest) - 1;
+            const float lq = __ldg(T[t * C].lo_q + q), hq = __ldg(T[t * C].hi_q + q);
+#pragma unroll
+            for (int f = 0; f < kFiles; ++f)
+              hit[f] |= (unsigned long long)((mx[f] >= lq) & (mn[f] <= hq)) << q;
+          }
+#pragma unroll
+          for (int f = 0; f < kFiles; ++f) keep[t][f] &= hit[f];
+        } else {
+#pragma unroll
+          for (int f = 0; f < kFiles; ++f)
+            keep[t][f] &= __ldg(T[t * C].lo_pref + count_le(T[t * C].lo, mx[f])) &
+                          __ldg(T[t * C].hi_suf + count_lt(T[t * C].hi, mn[f]));
+        }
       }
     }
-    if (kPacked) out[(long long)(q0 + tid) * out_w + byte] = (uint8_t)bits;
+
+#pragma unroll
+    for (int t = 0; t < kG; ++t) {
+      unsigned long long v = 0ull;
+#pragma unroll
+      for (int f = 0; f < kFiles; ++f) v |= keep[t][f];
+      const unsigned lo32 = __reduce_or_sync(0xffffffffu, (unsigned)v);
+      const unsigned hi32 = __reduce_or_sync(0xffffffffu, (unsigned)(v >> 32));
+      if (lane == 0) s_any[warp][t] = ((unsigned long long)hi32 << 32) | lo32;
+    }
+    __syncthreads();
+    if (tid < ng * kQ) {
+      const int t = tid / kQ, bit = tid % kQ, q = (g0 + t) * kQ + bit;
+      unsigned long long v = 0ull;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v |= s_any[w][t];
+      const unsigned on = (unsigned)(v >> bit) & 1u;
+      if (q < M) {
+        if (kPacked) {
+          if (on) {
+            const uintptr_t addr = (uintptr_t)(out + (long long)q * out_w + (blk >> 3));
+            atomicOr(reinterpret_cast<unsigned*>(addr & ~(uintptr_t)3),
+                     (0x80u >> (blk & 7)) << (8 * (addr & 3)));
+          }
+        } else {
+          out[(long long)q * out_w + blk] = (uint8_t)on;
+        }
+      }
+    }
+    __syncthreads();  // s_any is reused by the next sweep
   }
+}
+
+int launch(bool packed, const float* mins, const float* maxs, const uint8_t* alive,
+           const float* lo, const float* hi, uint8_t* out, int C, long long cap, int M,
+           int out_w, void* tables, cudaStream_t s) {
+  if (cap % kBlock || M < 0 || C < 0) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)mins | (uintptr_t)maxs) % 16 || (uintptr_t)alive % 4 ||
+      (uintptr_t)out % 4 || (uintptr_t)tables % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (M == 0 || cap == 0) return (int)cudaSuccess;
+  const int tiles = (M + kQ - 1) / kQ;
+  // K1 ORs bits into 32-bit words of its output: the wrapper's buffer holds
+  // whole words
+  const long long zero_words = packed ? ((long long)M * out_w + 3) / 4 : 0;
+  tables_kernel<<<dim3(tiles, C > 0 ? C : 1), kQ, 0, s>>>(lo, hi, M, C, (Table*)tables,
+                                                           (uint32_t*)out, zero_words);
+  const unsigned grid = (unsigned)(cap / kBlock);
+  const Table* T = (const Table*)tables;
+  if (packed && tiles == 1)
+    cull_kernel<true, 1><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+  else if (packed)
+    cull_kernel<true, kGroup><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+  else if (tiles == 1)
+    cull_kernel<false, 1><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+  else
+    cull_kernel<false, kGroup><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mins/maxs (C, cap) f32, alive (cap,) u8 0/1, lo/hi (M, C) f32, out (M, out_w)
-// u8 with out_w = ceil(cap / 1024 / 8); all contiguous, cap a multiple of 1024.
-extern "C" int dtt_block_cull(const float* mins, const float* maxs,
-                              const uint8_t* alive, const float* lo,
-                              const float* hi, uint8_t* out, int C,
-                              long long cap, int M, int out_w, void* stream) {
-  const dim3 grid(out_w, (M + kQueries - 1) / kQueries);
-  const size_t smem = sizeof(float2) * C * kQueries;
-  block_cull_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      mins, maxs, alive, lo, hi, out, C, cap, M, out_w);
-  return (int)cudaGetLastError();
+// mins/maxs (C, cap) f32 (16-byte aligned), alive (cap,) u8 0/1, lo/hi (M, C)
+// f32, out (M, out_w) u8 with out_w = ceil(cap / 1024 / 8) in a buffer of
+// whole 32-bit words; all contiguous, cap a multiple of 1024. tables: scratch
+// of ceil(M / 64) * max(C, 1) Tables (ops/state_cache.py `_rank_table_bytes`).
+extern "C" int dtt_block_cull(const float* mins, const float* maxs, const uint8_t* alive,
+                              const float* lo, const float* hi, uint8_t* out, int C,
+                              long long cap, int M, int out_w, void* tables, void* stream) {
+  if (out_w != (int)((cap / kBlock + 7) / 8)) return (int)cudaErrorInvalidValue;
+  return launch(true, mins, maxs, alive, lo, hi, out, C, cap, M, out_w, tables,
+                (cudaStream_t)stream);
 }
 
 // K7, one shard: mins/maxs (C, cap) f32, alive (cap,) u8 0/1 of this shard's
 // slice, lo/hi (M, C) f32, out (M, cap / 1024) u8 (one byte a block); all
-// contiguous, cap a multiple of 1024.
+// contiguous, cap a multiple of 1024; tables as dtt_block_cull's.
 extern "C" int dtt_block_cull_shard(const float* mins, const float* maxs,
                                     const uint8_t* alive, const float* lo,
                                     const float* hi, uint8_t* out, int C,
-                                    long long cap, int M, void* stream) {
-  if (cap % kBlock) return (int)cudaErrorInvalidValue;
-  const long long blocks = cap / kBlock;
-  const dim3 grid((unsigned)((blocks + kBlocksPerByte - 1) / kBlocksPerByte),
-                  (M + kQueries - 1) / kQueries);
-  const size_t smem = sizeof(float2) * C * kQueries;
-  block_cull_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      mins, maxs, alive, lo, hi, out, C, cap, M, (int)blocks);
-  return (int)cudaGetLastError();
+                                    long long cap, int M, void* tables, void* stream) {
+  return launch(false, mins, maxs, alive, lo, hi, out, C, cap, M, (int)(cap / kBlock), tables,
+                (cudaStream_t)stream);
 }

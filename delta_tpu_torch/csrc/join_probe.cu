@@ -13,8 +13,8 @@
 //
 // Design: the TPU kernel sorts both sides because dense compares suit it.
 // Here the large side is the target (~12.6M keys at bench config 2, against
-// 2^20 source keys), so only the source is sorted, with the stable LSD radix
-// passes of the slab sort (radix.cuh; int32 keys vary in at most 4 digits):
+// 2^20 source keys), so only the source is sorted, with the one-sweep radix
+// sort of the slab sort (radix.cuh; int32 keys sort as one uint32 word):
 //   1. each target key is binary-searched for [lo, hi) in the sorted source:
 //      hi - lo is its count, which gives t_bits and multi; where the count is
 //      above 0 a flag is set at lo, the first sorted position of that run;
@@ -51,31 +51,29 @@ namespace {
 
 using namespace dtt_radix;
 
+// The source's sort through radix.cuh: int32 keys sort as uint32 with the
+// sign bit flipped (at most 4 digit bytes, one uint32 word), int64 as uint64;
+// the last pass writes the sorted keys as int64 and the permutation.
 template <typename K>
-__global__ void encode_kernel(const K* __restrict__ s, long long m, uint64_t* __restrict__ uk,
-                              int32_t* __restrict__ perm, unsigned long long* __restrict__ diff) {
-  const uint64_t first = (uint64_t)(int64_t)s[0] ^ kSign;
-  unsigned long long local = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x) {
-    const uint64_t u = (uint64_t)(int64_t)s[i] ^ kSign;
-    uk[i] = u;
-    perm[i] = (int32_t)i;
-    local |= u ^ first;
+struct JoinSrc {
+  const K* s;
+  __device__ __forceinline__ uint64_t key(long long i) const {
+    if (sizeof(K) == 4) return (uint64_t)((uint32_t)s[i] ^ 0x80000000u);
+    return (uint64_t)(int64_t)s[i] ^ kSign;
   }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) local |= __shfl_xor_sync(0xffffffffu, local, o);
-  if ((threadIdx.x & 31) == 0 && local) atomicOr(diff, local);
-}
+  __device__ __forceinline__ uint32_t tag(long long) const { return 0u; }
+};
 
-__global__ void decode_kernel(const uint64_t* __restrict__ uk, long long m,
-                              int64_t* __restrict__ sk, uint8_t* __restrict__ run_flag) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x) {
-    sk[i] = (int64_t)(uk[i] ^ kSign);
-    run_flag[i] = 0;
+template <typename K>
+struct JoinDst {
+  int64_t* sk;
+  int32_t* perm;
+  __device__ __forceinline__ void put(long long pos, uint64_t u, uint32_t row) const {
+    sk[pos] = sizeof(K) == 4 ? (int64_t)(int32_t)((uint32_t)u ^ 0x80000000u)
+                             : (int64_t)(u ^ kSign);
+    perm[pos] = (int32_t)row;
   }
-}
+};
 
 __device__ __forceinline__ long long lower_bound(const int64_t* __restrict__ sk, long long m,
                                                  int64_t key) {
@@ -157,42 +155,25 @@ int run(const K* t, long long cap_t, const K* s, long long cap_s, uint8_t* t_bit
         uint8_t* s_bits, uint8_t* s_hit, uint8_t* multi_out, void* scratch,
         long long scratch_bytes, cudaStream_t st) {
   const long long m = cap_s;
-  const long long tiles = (m + kTile - 1) / kTile;
-  const long long hist_len = (long long)kRadix * tiles;
   char* cur = (char*)scratch;
   char* end = cur + scratch_bytes;
-  uint64_t* uk[2] = {(uint64_t*)dtt_scan::carve(cur, end, 8 * m),
-                     (uint64_t*)dtt_scan::carve(cur, end, 8 * m)};
-  int32_t* pp[2] = {(int32_t*)dtt_scan::carve(cur, end, 4 * m),
-                    (int32_t*)dtt_scan::carve(cur, end, 4 * m)};
-  uint32_t* hist = (uint32_t*)dtt_scan::carve(cur, end, 4 * hist_len);
-  uint32_t* aux = (uint32_t*)dtt_scan::carve(cur, end, 4 * dtt_scan::scan_aux_elems(hist_len));
   int64_t* sk = (int64_t*)dtt_scan::carve(cur, end, 8 * m);
+  int32_t* perm = (int32_t*)dtt_scan::carve(cur, end, 4 * m);
   uint8_t* run_flag = (uint8_t*)dtt_scan::carve(cur, end, m);
   uint8_t* s_match = (uint8_t*)dtt_scan::carve(cur, end, m);
-  // the varying-digit word and the multi word
-  unsigned long long* words = (unsigned long long*)dtt_scan::carve(cur, end, 16);
-  if (!uk[0] || !uk[1] || !pp[0] || !pp[1] || !hist || !aux || !sk || !run_flag || !s_match ||
-      !words)
-    return (int)cudaErrorInvalidValue;
-  unsigned long long* diff = words;
-  unsigned int* multi = (unsigned int*)(words + 1);
-  cudaError_t err = cudaMemsetAsync(words, 0, 16, st);
+  unsigned int* multi = (unsigned int*)dtt_scan::carve(cur, end, 16);
+  if (!sk || !perm || !run_flag || !s_match || !multi) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(run_flag, 0, m, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(multi, 0, 16, st);
+  if (err == cudaSuccess) err = sort_rows(JoinSrc<K>{s}, JoinDst<K>{sk, perm}, m, cur, end, st);
   if (err != cudaSuccess) return (int)err;
-  encode_kernel<K><<<grid_for(m), kThreads, 0, st>>>(s, m, uk[0], pp[0], diff);
-  unsigned long long h_diff = 0;
-  err = cudaMemcpyAsync(&h_diff, diff, 8, cudaMemcpyDeviceToHost, st);
-  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
-  if (err != cudaSuccess) return (int)err;
-  const int b = sort_passes(uk, pp, m, h_diff, hist, aux, st);
-  decode_kernel<<<grid_for(m), kThreads, 0, st>>>(uk[b], m, sk, run_flag);
   target_kernel<K><<<grid_for(cap_t / 8), kThreads, 0, st>>>(t, cap_t / 8, sk, m, t_bits,
                                                              run_flag, multi);
   if (s_hit) {
-    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, pp[b], m, run_flag, s_hit);
+    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, perm, m, run_flag, s_hit);
     multi_kernel<<<1, 1, 0, st>>>(multi, multi_out);
   } else {
-    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, pp[b], m, run_flag, s_match);
+    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, perm, m, run_flag, s_match);
     pack_kernel<<<grid_for(m / 8), kThreads, 0, st>>>(s_match, m / 8, s_bits, multi,
                                                       multi_out);
   }
@@ -203,9 +184,9 @@ int run(const K* t, long long cap_t, const K* s, long long cap_s, uint8_t* t_bit
 
 // t (cap_t,), s (cap_s,) int32 (is32 = 1) or int64; cap_t and cap_s
 // multiples of 8, cap_s >= 8. Outputs t_bits (cap_t/8,) u8, s_bits
-// (cap_s/8,) u8, multi (1,) u8. scratch: two uint64 and two int32 ping-pong
-// lanes, the digit histogram and its scan's aux, the sorted keys (int64),
-// two byte flags and two words, each of cap_s (aligned to 256).
+// (cap_s/8,) u8, multi (1,) u8. scratch (each part aligned to 256): the
+// sorted keys (int64) and the permutation (int32), two byte flags of cap_s,
+// the multi word, then the radix sort's (dtt_radix::sort_rows).
 extern "C" int dtt_join_probe(const void* t, long long cap_t, const void* s, long long cap_s,
                               int is32, uint8_t* t_bits, uint8_t* s_bits, uint8_t* multi,
                               void* scratch, long long scratch_bytes, void* stream) {

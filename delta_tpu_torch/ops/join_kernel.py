@@ -117,13 +117,12 @@ def join_probe_plain(t: torch.Tensor, s: torch.Tensor):
 
 
 def _join_scratch_bytes(cap_s: int) -> int:
-    from delta_tpu_torch.ops.key_cache import _SORT_TILE, _scan_aux_elems
+    """K12's scratch (``csrc/join_probe.cu``): the sorted keys, the
+    permutation, two byte flags and the multi word, then the sort's."""
+    from delta_tpu_torch.ops.key_cache import _aligned, _radix_scratch_bytes
 
-    tiles = max((cap_s + _SORT_TILE - 1) // _SORT_TILE, 1)
-    hist = 256 * tiles
-    parts = [8 * cap_s, 8 * cap_s, 4 * cap_s, 4 * cap_s, 4 * hist, 4 * _scan_aux_elems(hist),
-             8 * cap_s, cap_s, cap_s, 16]
-    return sum((p + 255) // 256 * 256 for p in parts)
+    parts = [8 * cap_s, 4 * cap_s, cap_s, cap_s, 16]
+    return sum(_aligned(p) for p in parts) + _radix_scratch_bytes(cap_s)
 
 
 def join_probe(t: torch.Tensor, s: torch.Tensor):

@@ -20,7 +20,8 @@ takes only for tensors on the CPU; for a CUDA tensor it launches the kernel
 or raises:
 
 * K8 :func:`slab_sort` (``csrc/slab_sort.cu``) replaces ``_sort_kernel``
-  (``key_cache.py:166``): a stable LSD radix sort of the key lane;
+  (``key_cache.py:166``): a one-sweep LSD radix sort of the key lane,
+  narrowed to the bytes that vary (``csrc/radix.cuh``);
 * K9 :func:`slab_probe` (``csrc/slab_probe.cu``) replaces
   ``_probe_sorted_kernel`` (``:206``): binary search of each source key in
   the sorted slab, where the TPU kernel brute-compares blocks against
@@ -206,26 +207,39 @@ def slab_sort_plain(keys: torch.Tensor, valid: torch.Tensor, n: int):
     return sk, perm.to(torch.int32), inv, sv
 
 
-#: keys per radix tile of K8 (``csrc/slab_sort.cu``'s kTile)
-_SORT_TILE = 4096
+#: rows per tile of the device scans (``csrc/scan.cuh``'s users: K10's tiles)
+_SCAN_TILE = 4096
+#: rows per one-sweep tile of the radix sort (``csrc/radix.cuh``'s kTile)
+_RADIX_TILE = 4096
 _ALIGN = 256
 
 
 def _scan_aux_elems(length: int) -> int:
     total = 0
     while length > 1:
-        length = (length + 4095) // 4096
+        length = (length + _SCAN_TILE - 1) // _SCAN_TILE
         total += length
     return total + 1
 
 
+def _aligned(nbytes: int) -> int:
+    return (nbytes + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+def _radix_scratch_bytes(n: int) -> int:
+    """The scratch of the radix sort of ``n`` rows (what ``csrc/radix.cuh``'s
+    ``sort_rows`` carves): the histograms, diff and tile counters; the digit
+    offsets; 8 passes of look-back words; two ping-pong word and row
+    lanes."""
+    tiles = (n + _RADIX_TILE - 1) // _RADIX_TILE
+    return (_aligned(4 * 8 * 256 + 8 + 4 * 8) + _aligned(4 * 8 * 256)
+            + _aligned(8 * 8 * 256 * tiles) + 2 * (_aligned(8 * n) + _aligned(4 * n)))
+
+
 def _sort_scratch_bytes(n: int) -> int:
-    """An upper bound of K8's scratch (the kernel computes its own need and
-    refuses a smaller buffer)."""
-    tiles = max((n + _SORT_TILE - 1) // _SORT_TILE, 1)
-    hist = 256 * tiles
-    parts = [8 * n, 8 * n, 4 * n, 4 * n, 4 * hist, 4 * _scan_aux_elems(hist), 8]
-    return sum(p + _ALIGN for p in parts)
+    """K8's scratch (``csrc/slab_sort.cu``): the inverse's (row, i) pairs
+    and 1024 bucket counters, then the radix sort's."""
+    return _aligned(8 * max(n, 1)) + _aligned(4 * 1024) + _radix_scratch_bytes(n)
 
 
 def slab_sort(keys: torch.Tensor, valid: torch.Tensor, n: int):
@@ -357,7 +371,7 @@ def pair_compact(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tenso
         return pair_compact_plain(t_match, s_first, perm, out_cap)
     _contiguous("pair_compact", t_match, s_first, perm)
     out = torch.empty((2, out_cap), dtype=torch.int32, device=dev)
-    tiles = max((cap + _SORT_TILE - 1) // _SORT_TILE, 1)
+    tiles = max((cap + _SCAN_TILE - 1) // _SCAN_TILE, 1)
     scratch = torch.empty(4 * tiles + 4 * _scan_aux_elems(tiles) + 2 * _ALIGN,
                           dtype=torch.uint8, device=dev)
     native.call("pair_compact", dev, t_match.data_ptr(), s_first.data_ptr(), perm.data_ptr(),

@@ -44,7 +44,7 @@ _L = ctypes.c_longlong
 #: CUDA stream last and returns a cudaError_t
 _KERNELS = {
     "block_cull": ("block_cull", "dtt_block_cull",
-                   [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P]),
     "scatter_bool": ("tail_scatter", "dtt_scatter_bool",
                      [_P, _P, _I, ctypes.c_ubyte, _L, _P]),
     "scatter_cols": ("tail_scatter", "dtt_scatter_cols",
@@ -78,7 +78,7 @@ _KERNELS = {
     "sharded_replay": ("replay", "dtt_replay_shard",
                        [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I, _P]),
     "sharded_block_cull": ("block_cull", "dtt_block_cull_shard",
-                           [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P]),
+                           [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P]),
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
                            [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _L, _I, _P, _P]),

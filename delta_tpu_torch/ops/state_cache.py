@@ -16,7 +16,9 @@ missing stat = keep.
 Kernels (hand-written CUDA in ``delta_tpu_torch/csrc``, bound in
 ``ops/native``), each beside its plain PyTorch version:
 
-* :func:`block_cull` — replaces ``_block_kernel_fn`` (``state_cache.py:986``);
+* :func:`block_cull` — replaces ``_block_kernel_fn`` (``state_cache.py:986``):
+  one read of the lanes per launch, each file's bounds held against every
+  query by two binary searches in per-column rank tables of the batch;
 * :func:`sharded_block_cull` — replaces ``_sharded_block_kernel_fn``
   (``:1014``): with the lanes split along the file axis over the state mesh
   (``parallel/mesh``), one launch a shard writes a byte per 1024-file block
@@ -106,6 +108,16 @@ def _next_pow2(n: int, floor: int = 1024) -> int:
 # -- the kernels and their plain versions -----------------------------------
 
 
+def plan_bounds(lo: np.ndarray, hi: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The block cull's float32 ``(M, C)`` bounds for a batch of float64
+    ranges, rounded outward. The query axis is the batch's own: the JAX
+    package pads it to a power of two >= 8 with NaN rows to bound its
+    recompiles, which a CUDA launch does not have, and a NaN row keeps every
+    live file, so it would cost the kernel its early exit."""
+    return (np.ascontiguousarray(_f32_down(lo), dtype=np.float32),
+            np.ascontiguousarray(_f32_up(hi), dtype=np.float32))
+
+
 def _packbits(bits: torch.Tensor) -> torch.Tensor:
     """``np.packbits(bits, axis=-1)``: big-endian bytes, zero-padded."""
     n = bits.shape[-1]
@@ -151,6 +163,22 @@ def block_cull_plain(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Ten
     return _packbits(_block_any(mins, maxs, alive, lo, hi, block))
 
 
+#: bytes of one K1/K7 rank table (a 64-query tile and column,
+#: ``csrc/block_cull.cu``'s ``Table``)
+_TABLE_BYTES = 2064
+
+
+def _rank_table_bytes(m: int, c: int) -> int:
+    return (m + 63) // 64 * max(c, 1) * _TABLE_BYTES
+
+
+def _check_aligned(name, mins, maxs, alive) -> None:
+    """The kernel reads a lane's 4 files as one 16-byte load and their alive
+    bytes as one word."""
+    if mins.data_ptr() % 16 or maxs.data_ptr() % 16 or alive.data_ptr() % 4:
+        raise ValueError(f"{name}: mins/maxs must start on 16 bytes and alive on 4")
+
+
 def block_cull(mins: torch.Tensor, maxs: torch.Tensor, alive: torch.Tensor,
                lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Per query, which 1024-file blocks hold a file that can match, packed
@@ -165,15 +193,17 @@ def block_cull(mins: torch.Tensor, maxs: torch.Tensor, alive: torch.Tensor,
         return block_cull_plain(mins, maxs, alive, lo, hi)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("block_cull: tensors must be contiguous")
-    if c * 32 * 8 > 48 * 1024:
-        raise ValueError(f"block_cull: {c} lanes exceed the kernel's shared memory")
+    _check_aligned("block_cull", mins, maxs, alive)
     out_w = (cap // BLOCK + 7) // 8
-    out = torch.empty((m, out_w), dtype=torch.uint8, device=mins.device)
+    # the kernel ORs block bits into whole 32-bit words of the output
+    buf = torch.empty((m * out_w + 3) // 4 * 4, dtype=torch.uint8, device=mins.device)
+    out = buf[:m * out_w].view(m, out_w)
     if m == 0:
         return out
+    tables = torch.empty(_rank_table_bytes(m, c), dtype=torch.uint8, device=mins.device)
     native.call("block_cull", mins.device, mins.data_ptr(), maxs.data_ptr(),
                 alive.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-                c, cap, m, out_w)
+                c, cap, m, out_w, tables.data_ptr())
     native.launches["block_cull"] += 1
     return out
 
@@ -209,8 +239,6 @@ def sharded_block_cull(shards, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tens
         raise ValueError("sharded_block_cull: the slices must all be on the card, or all "
                          "on the CPU")
     c, m = lo.shape[1], lo.shape[0]
-    if c * 32 * 8 > 48 * 1024:
-        raise ValueError(f"sharded_block_cull: {c} lanes exceed the kernel's shared memory")
     los = mesh_mod.replicate(lo.contiguous(), mesh)
     his = mesh_mod.replicate(hi.contiguous(), mesh)
 
@@ -218,12 +246,14 @@ def sharded_block_cull(shards, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tens
         mn, mx, al = shards[i]
         if not all(t.is_contiguous() for t in (mn, mx, al)):
             raise ValueError("sharded_block_cull: tensors must be contiguous")
+        _check_aligned("sharded_block_cull", mn, mx, al)
         cap = mn.shape[1]
         out = torch.empty((m, cap // BLOCK), dtype=torch.uint8, device=dev)
         if m:
+            tables = torch.empty(_rank_table_bytes(m, c), dtype=torch.uint8, device=dev)
             native.call("sharded_block_cull", dev, mn.data_ptr(), mx.data_ptr(),
                         al.data_ptr(), los[dev].data_ptr(), his[dev].data_ptr(),
-                        out.data_ptr(), c, cap, m)
+                        out.data_ptr(), c, cap, m, tables.data_ptr())
             native.launches["sharded_block_cull"] += 1
         return out
 
@@ -1011,8 +1041,8 @@ class ResidentState:
         """Coarse-fine plan: the block cull drops 1024-file blocks on the
         resident f32 lanes (one launch, one packed-bitmap download), and
         the host evaluates exactly on the float64 mirrors inside the
-        surviving blocks only. The query dimension is padded to a power of
-        two >= 8 with NaN rows (no bound). With a sharded residency, K7
+        surviving blocks only. The query axis is not padded
+        (:func:`plan_bounds`). With a sharded residency, K7
         culls each shard's slice on its device and the unpacked block maps
         gather along the file axis; the same fine pass makes the plans
         equal to one card's and to the host's."""
@@ -1020,11 +1050,7 @@ class ResidentState:
 
         self.ensure_resident(shards)
         m = lo.shape[0]
-        mb = _next_pow2(m, floor=8)
-        lo_p = np.full((mb, lo.shape[1]), np.nan, np.float32)
-        hi_p = np.full((mb, hi.shape[1]), np.nan, np.float32)
-        lo_p[:m] = _f32_down(lo)
-        hi_p[:m] = _f32_up(hi)
+        lo_p, hi_p = plan_bounds(lo, hi)
         if self._dev_shards > 1:
             telemetry.bump_counter("dist.plan.sharded")
             bl = sharded_block_cull([(sh["mins"], sh["maxs"], sh["alive"]) for sh in self._dev],

@@ -40,10 +40,7 @@ def _same(a, b):
     return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("c,cap,m", [(1, 1024, 1), (4, 1 << 20, 256), (5, 8192, 37),
-                                     (40, 8192, 33)])
-def test_block_cull_kernel_matches_plain(cuda, c, cap, m):
-    rng = np.random.RandomState(cap + m + c)
+def _cull_inputs(rng, c, cap, m, case):
     mins = (rng.rand(c, cap) * 100).astype(np.float32)
     maxs = mins + (rng.rand(c, cap) * 3).astype(np.float32)
     mins[:, rng.rand(cap) < 0.05] = np.nan
@@ -54,7 +51,37 @@ def test_block_cull_kernel_matches_plain(cuda, c, cap, m):
     hi = lo + (rng.rand(m, c) * 0.5).astype(np.float32)
     lo[rng.rand(m, c) < 0.2] = np.nan
     hi[rng.rand(m, c) < 0.2] = np.nan
-    ts = [torch.from_numpy(a).to(cuda) for a in (mins, maxs, alive, lo, hi)]
+    if case == "nan_rows":  # whole queries with no bound: they keep every live file
+        lo[::3], hi[::3] = np.nan, np.nan
+    elif case == "inf_bounds":
+        lo[::2, 0], hi[1::2, 0] = -np.inf, np.inf
+        lo[::3, -1], hi[1::3, -1] = np.inf, -np.inf
+    elif case == "ties":  # equal bounds across queries, and a file's own bounds
+        lo[:, 0], hi[:, 0] = lo[0, 0], hi[0, 0]
+        lo[::2, -1], hi[1::2, -1] = mins[-1, 100], maxs[-1, 100]
+    elif case == "sorted":  # clustered lanes: a warp's box drops most queries
+        mins[:] = np.sort(rng.rand(c, cap) * 100, axis=1)
+        maxs[:] = mins + np.float32(0.01)
+        mins[:, ::50] = np.nan
+    elif case == "inf_lanes":  # files with infinite stats, in both orders
+        mins[:, rng.rand(cap) < 0.05] = -np.inf
+        maxs[:, rng.rand(cap) < 0.05] = np.inf
+        mins[0, ::97], maxs[0, ::97] = np.inf, -np.inf
+    return mins, maxs, alive, lo, hi
+
+
+@pytest.mark.parametrize("c,cap,m,case", [
+    (1, 1024, 1, "random"), (4, 1 << 20, 256, "random"), (5, 8192, 37, "random"),
+    (40, 8192, 33, "random"),
+    (4, 8192, 1, "random"), (4, 8192, 2, "random"), (4, 8192, 31, "random"),
+    (4, 1 << 16, 33, "random"), (4, 8192, 64, "random"), (4, 1 << 16, 257, "random"),
+    (4, 8192, 40, "nan_rows"), (4, 8192, 1, "nan_rows"), (3, 8192, 70, "inf_bounds"),
+    (3, 8192, 70, "ties"), (4, 8192, 20, "inf_lanes"),
+    (4, 9216, 5, "random"), (100, 8192, 200, "random"), (3, 8192, 600, "nan_rows"),
+    (4, 1 << 16, 300, "sorted"), (4, 1 << 16, 1, "sorted")])
+def test_block_cull_kernel_matches_plain(cuda, c, cap, m, case):
+    rng = np.random.RandomState(cap + m + c)
+    ts = [torch.from_numpy(a).to(cuda) for a in _cull_inputs(rng, c, cap, m, case)]
     before = native.launches["block_cull"]
     got = state_cache.block_cull(*ts)
     torch.cuda.synchronize()
@@ -243,14 +270,40 @@ def _equal_all(got, ref):
     return all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-@pytest.mark.parametrize("n,cap", [(0, 1024), (1, 1024), (5000, 8192), (1 << 20, 1 << 21)])
-def test_slab_sort_kernel_matches_plain(cuda, n, cap):
-    rng = np.random.RandomState(n + 1)
+def _sort_lanes(rng, n, cap, kind):
+    """Key lanes for K8: ``mixed`` is full-range keys, dense duplicates and
+    the int64 extremes (every byte varies), then the same masked to 16 bits;
+    the others name the one lane they make."""
     keys = rng.randint(-(1 << 62), 1 << 62, cap).astype(np.int64)
-    keys[: n // 3] = rng.randint(-20, 20, n // 3)
-    keys[:2] = [(1 << 63) - 1, -(1 << 63)]
-    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(rng.rand(cap) > 0.3).to(cuda)
-    for lane in (k, k & 0xFFFF):
+    if kind == "mixed":
+        keys[: n // 3] = rng.randint(-20, 20, n // 3)
+        keys[:2] = [(1 << 63) - 1, -(1 << 63)]
+        return [keys, keys & 0xFFFF]
+    if kind == "wide":  # 44 varying bits: a 6-byte span, the uint64 words
+        return [rng.randint(0, 1 << 44, cap).astype(np.int64)]
+    if kind == "cross":  # bits 12..27 over a fixed high part: bytes 1-3
+        base = np.int64(0x5A5A_0000_0000_0000 - (1 << 62))
+        return [base + (rng.randint(0, 1 << 16, cap).astype(np.int64) << 12)]
+    if kind == "equal":  # no byte varies: no pass
+        keys[:n] = -123456789
+        return [keys]
+    if kind == "dups":  # four keys over many rows: stability
+        return [rng.randint(0, 4, cap).astype(np.int64) * (1 << 33)]
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("n,cap,kind", [
+    (0, 1024, "mixed"), (1, 1024, "mixed"), (5000, 8192, "mixed"), (1 << 20, 1 << 21, "mixed"),
+    (100_000, 1 << 17, "wide"), (100_000, 1 << 17, "cross"), (5000, 8192, "equal"),
+    (1 << 16, 1 << 16, "mixed"), (1 << 16, 1 << 16, "cross"), (4095, 8192, "mixed"),
+    (4097, 8192, "mixed"), (4097, 8192, "cross"), (300_000, 1 << 19, "dups"),
+    (1 << 20, 1 << 20, "dups")])
+def test_slab_sort_kernel_matches_plain(cuda, n, cap, kind):
+    rng = np.random.RandomState(n + 1)
+    lanes = _sort_lanes(rng, n, cap, kind)
+    v = torch.from_numpy(rng.rand(cap) > 0.3).to(cuda)
+    for keys in lanes:
+        lane = torch.from_numpy(keys).to(cuda)
         before = native.launches["slab_sort"]
         got = key_cache.slab_sort(lane, v, n)
         torch.cuda.synchronize()

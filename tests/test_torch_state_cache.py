@@ -84,6 +84,89 @@ def test_block_cull_rejects_bad_shapes():
                        torch.zeros((1, 2)), torch.zeros((1, 2)))
 
 
+# -- K1's rank search (csrc/block_cull.cu), modelled on the CPU -----------------
+
+
+def _rank_tables(lo, hi, q=64):
+    """A model of ``tables_kernel``: per (64-query tile, column), lo sorted
+    ascending (NaN -> -inf) with prefix masks, hi sorted ascending (NaN ->
+    +inf) with suffix masks; absent queries of a partial tile sort last as
+    +inf and carry no bit. Masks as Python ints."""
+    m, c = lo.shape
+    tables = []
+    for t0 in range(0, m, q):
+        row = []
+        for col in range(c):
+            nq = min(q, m - t0)
+            lv = np.full(q, np.inf, np.float32)
+            hv = np.full(q, np.inf, np.float32)
+            lv[:nq] = np.where(np.isnan(lo[t0:t0 + nq, col]), -np.inf, lo[t0:t0 + nq, col])
+            hv[:nq] = np.where(np.isnan(hi[t0:t0 + nq, col]), np.inf, hi[t0:t0 + nq, col])
+            lo_order = np.argsort(lv, kind="stable")
+            hi_order = np.argsort(hv, kind="stable")
+            bit = [1 << int(i) if i < nq else 0 for i in range(q)]
+            pref = [0]
+            for i in lo_order:
+                pref.append(pref[-1] | bit[i])
+            suf = [0]
+            for i in hi_order[::-1]:
+                suf.append(suf[-1] | bit[i])
+            row.append((lv[lo_order], pref, hv[hi_order], suf[::-1]))
+        tables.append(row)
+    return tables
+
+
+def _rank_cull(mins, maxs, alive, lo, hi, q=64):
+    """K1 through the rank tables and a torch search: {q : max >= lo_q} is
+    ``lo_pref[#{lo <= max}]``, {q : min <= hi_q} is ``hi_suf[#{hi < min}]``."""
+    m, c = lo.shape
+    cap = alive.shape[0]
+    keep = np.zeros((m, cap), bool)
+    mn = np.where(np.isnan(mins), -np.inf, mins).astype(np.float32)
+    mx = np.where(np.isnan(maxs), np.inf, maxs).astype(np.float32)
+    for t, row in enumerate(_rank_tables(lo, hi, q)):
+        nq = min(q, m - t * q)
+        masks = np.full(cap, (1 << nq) - 1, object) * alive.astype(object)
+        for col, (lv, pref, hv, suf) in enumerate(row):
+            le = torch.searchsorted(torch.from_numpy(lv), torch.from_numpy(mx[col]), right=True)
+            lt = torch.searchsorted(torch.from_numpy(hv), torch.from_numpy(mn[col]))
+            masks &= np.array(pref, object)[le.numpy()] & np.array(suf, object)[lt.numpy()]
+        for b in range(nq):
+            keep[t * q + b] = (masks >> b) & 1 == 1
+    blocks = keep.reshape(m, cap // tsc.BLOCK, tsc.BLOCK).any(axis=2)
+    return np.packbits(blocks, axis=1)
+
+
+@pytest.mark.parametrize("case", ["random", "nan_rows", "inf_bounds", "ties"])
+@pytest.mark.parametrize("m", [1, 2, 31, 33, 64, 257])
+def test_rank_search_equals_block_cull_plain(m, case):
+    """The method of the CUDA kernel (rank tables of the batch, two searches a
+    file and column) gives the plain version's bits exactly: NaN rows, +-inf
+    bounds, equal bounds across queries (ties in the search), the inverted
+    +inf/-inf lanes of a null partition value, -0.0 against +0.0."""
+    rng = np.random.RandomState(m * 7 + len(case))
+    c, cap = 3, 4096
+    mins, maxs, alive = _lanes(rng, c, cap, cap - 100)
+    mins[0, :40], maxs[0, :40] = np.inf, -np.inf  # null partition lanes
+    mins[1, 40:60], maxs[1, 40:60] = -np.inf, np.inf
+    mins[2, 60:70], maxs[2, 60:70] = -0.0, 0.0
+    lo, hi = _bounds(rng, m, m, c)
+    if case == "nan_rows":
+        lo[::3], hi[::3] = np.nan, np.nan
+    elif case == "inf_bounds":
+        lo[::2, 0], hi[1::2, 1] = -np.inf, np.inf
+        lo[::3, 2], hi[::3, 2] = np.inf, -np.inf
+    elif case == "ties":
+        lo[:, 0], hi[:, 0] = lo[0, 0], hi[0, 0]  # one value for every query
+        lo[::2, 1] = mins[1, 100]  # a file's own bounds, exactly
+        hi[1::2, 1] = maxs[1, 100]
+        lo[:, 2], hi[:, 2] = 0.0, -0.0
+    got = _rank_cull(mins, maxs, alive, lo, hi)
+    ref = tsc.block_cull_plain(*(torch.from_numpy(a) for a in (mins, maxs, alive, lo, hi)))
+    assert np.array_equal(got, ref.numpy())
+    assert ref.numpy().any()
+
+
 # -- outward f32 rounding ------------------------------------------------------
 
 
@@ -243,6 +326,44 @@ def test_plan_device_equals_host_on_port(tmp_path):
     host = te.plan_ranges(rs, k=10_000, use_device=False)
     for d, h in zip(dev, host):
         assert np.array_equal(d.rows, h.rows) and d.via == "device"
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 256])
+def test_unpadded_plan_matches_jax_kernel_and_host(tmp_path, m):
+    """The port launches the cull with the batch's own M (no NaN pad rows):
+    its bits are the JAX kernel's rows for the padded batch, and its plans
+    the host's and the JAX package's."""
+    path = str(tmp_path / "t")
+    write_table(path, n_files=3000)
+    je, te = _entries(path)
+    rs = _ranges(np.random.RandomState(m), te, m)
+    lo = np.stack([r.lo for r in rs])
+    hi = np.stack([r.hi for r in rs])
+    lo_t, hi_t = tsc.plan_bounds(lo, hi)
+    assert lo_t.shape == hi_t.shape == (m, len(te.columns)) and lo_t.dtype == np.float32
+    mb = tsc._next_pow2(m, floor=8)
+    lo_j = np.full((mb, lo.shape[1]), np.nan, np.float32)
+    hi_j = np.full((mb, hi.shape[1]), np.nan, np.float32)
+    lo_j[:m], hi_j[:m] = jsc._f32_down(lo), jsc._f32_up(hi)
+    lanes = [te._pad2(tsc._f32_down(te.h_lo)), te._pad2(tsc._f32_up(te.h_hi))]
+    alive = np.zeros(te.capacity, bool)
+    alive[: te.num_rows] = te.h_alive[: te.num_rows]
+    ref = np.asarray(jsc._block_kernel(jnp.asarray(lanes[0]), jnp.asarray(lanes[1]),
+                                       jnp.asarray(alive), jnp.asarray(lo_j),
+                                       jnp.asarray(hi_j), jsc.BLOCK))[:m]
+    got = tsc.block_cull(*(torch.from_numpy(a) for a in (*lanes, alive, lo_t, hi_t)))
+    assert np.array_equal(got.numpy(), ref) and ref.any()
+    dev = te.plan_ranges(rs, k=10_000, use_device=True)
+    host = te.plan_ranges(rs, k=10_000, use_device=False)
+    jr = [jsc.RangeSet(r.lo.copy(), r.hi.copy()) for r in rs]
+    from delta_tpu.utils.config import conf as jconf
+
+    with jconf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+        jp = je.plan_ranges(jr, k=10_000, use_device=True)
+    assert len(dev) == len(host) == len(jp) == m
+    for d, h, j in zip(dev, host, jp):
+        assert np.array_equal(d.rows, h.rows) and np.array_equal(d.rows, j.rows)
+        assert d.count == h.count == j.count and d.via == "device"
 
 
 @pytest.mark.parametrize("partitioned", [False, True])
