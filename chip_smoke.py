@@ -26,11 +26,13 @@ Phases, each reported on its own line:
    and the six slab updates (K11) with pads out of range; and the upload
    join (K12), int32 and int64, at cap_t=12,582,912 and cap_s=2^20
    (sentinels at both ends of the range, duplicate runs on both sides, no
-   match, all matched, one source key); the residual mask (K14) over
-   lanes of every dtype padded to 2^20 (1,044,255 real rows): string codes
-   with present, absent and NULL literals, dates and timestamps before
-   1970 and +-10^6 days away, the calendar opcodes, INs whose option is a
-   column; the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
+   match, all matched, one source key, the type's minimum: the hash
+   table's empty-slot key); the residual mask (K14) over lanes of every
+   dtype padded to 2^20 (1,044,255 real rows): string codes with present,
+   absent and NULL literals, dates and timestamps before 1970 and +-10^6
+   days away, the calendar opcodes, INs whose option is a column; and its
+   batched launch over 76 files of 0 to 2^20 rows, each with its own
+   dictionary, in two parameter blocks; the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
    ranks 0 and 65,535); the link probe's warm-up (K17) at 8 and 2^20
    int32; and the state mesh's kernels over 8 shards of the one card: the
    combine kernel (sum, OR, OR + pack), the sharded replay (K6) at n=2^20
@@ -126,16 +128,22 @@ Phases, each reported on its own line:
    upload + K8, phase 6's probes, K12, config 12's host filter and warm
    device pass, config 6's host and device plans);
 11. per kernel: time on the card (CUDA events, warmed, many launches; the
-   block cull's also replayed from a CUDA graph, ``graph_ms``, and K1's and
-   K8's split by the kernels they launch, ``breakdown_us``) at
+   block cull's, K12's, K13's and K14's also replayed from a CUDA graph,
+   ``graph_ms``, and K1's, K8's, K12's, K13's and K14's split by the
+   kernels they launch, ``breakdown_us``, left out where the profiler's
+   trace lost kernel records; K12's and K13's hash probes in L2
+   sectors at an L2 rate measured in the run) at
    the main path's shapes and inputs (K1 at config 6's 256-query batch
    and at one query as ``files_for_scan`` launches it, K12 at M3's own
-   padded inputs, K14 on one config-12 file's resident lanes, K16 at
+   padded inputs, K14 over the arith query's 8 config-12 files in its one
+   launch and on one file (its phase-3 checks also run the staged tables
+   of two 200-option IN lists), K16 at
    config 3's OPTIMIZE ranks, K17 at the probe's 8 int32, each held
    against its plain version there), the plain version's
-   time, the least time the card could take (bytes over 3.35 TB/s or
-   compares over 33.5e12/s, whichever is larger; K1 and K7 by the bytes
-   their data needs) and, where one PyTorch
+   time, the least time the card could take (the bytes its inputs and
+   outputs need over 3.35 TB/s: no kernel here does enough operations a
+   byte for them to bound it; K1 and K7 by the bytes their data needs)
+   and, where one PyTorch
    call computes the same function, that call's time; one JSON line lists
    them;
 12. the state mesh, with the counters set to 0 again, under
@@ -146,7 +154,7 @@ Phases, each reported on its own line:
    sums; M4, a fifth bench config 2 upsert of 1M new rows through the
    upload join on a hard-linked copy of phase 10's table (deletion vectors
    off over its deletion-vectored files, as M3), which must launch K13 once
-   a shard and no K12 and end in the reference upsert's state;
+   (one distinct device) and no K12 and end in the reference upsert's state;
    ``multichip.dryrun_multichip(8)``; then the two shard constants measured
    on the one card (one JSON line) and the plan under ``auto`` priced with
    them, its route the one its prices imply. Where there are several cards,
@@ -194,9 +202,6 @@ from delta_tpu_torch.schema.types import (
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# H100 SXM fp32 outside the tensor cores is 67e12 FLOP/s counting an FMA as
-# two operations; a compare is one instruction per lane per cycle, half that
-COMPARES_PER_S = 67e12 / 2
 N_FILES = 1_000_000
 N_COMMITS = 10
 N_QUERIES = 256
@@ -265,23 +270,37 @@ def graph_ms(fn, reps):
 def kernel_breakdown(fn, calls=20):
     """Device time per call of each CUDA kernel ``fn`` launches (the
     profiler's CUPTI trace), in microseconds, by kernel name; empty where
-    there is no card."""
-    from torch.profiler import ProfilerActivity, profile
+    there is no card. A trace switched on just before the calls misses the
+    kernels of its first milliseconds (a process's later traces more than
+    its first), so ``calls`` calls run in a warm-up cycle before the
+    recorded ones. Every call launches the same kernels, so each one's
+    records in the trace are a multiple of ``calls``; where they are not
+    (the trace lost records), None, and a line says how many it holds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     if not torch.cuda.is_available():
         return {}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _cycle in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out, records = {}, {}
     for e in prof.key_averages():
         if e.device_time_total > 0 and not e.key.startswith("cuda"):
             name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0][:90] if "<" not in name else name.split(">(")[0][:90] + ">"
             out[name] = round(out.get(name, 0.0) + e.device_time_total / calls, 3)
+            records[name] = records.get(name, 0) + e.count
+    lost = {k: n for k, n in records.items() if n % calls}
+    if lost:
+        say(f"profiler: {calls} calls left {lost} records of {sorted(lost)} in the trace "
+            f"(times {out}): a partial trace, not used")
+        return None
     return out
 
 
@@ -503,7 +522,8 @@ def k13_inputs(rng, dt, shape):
 def k13_checks(dev):
     rng = np.random.RandomState(37)
     for dt, shape in ((np.int32, "half"), (np.int64, "half"), (np.int64, "low"),
-                      (np.int32, "runs"), (np.int64, "dups")):
+                      (np.int32, "runs"), (np.int64, "dups"), (np.int32, "marker"),
+                      (np.int64, "marker")):
         t_in, s_in = k13_inputs(rng, dt, shape)
         t, s = torch.from_numpy(t_in).to(dev), torch.from_numpy(s_in).to(dev)
         t_sl, s_pc = list(t.view(MESH_SHARDS, -1)), list(s.view(MESH_SHARDS, -1))
@@ -517,7 +537,8 @@ def k13_checks(dev):
     torch.cuda.empty_cache()
     say(f"kernels: sharded_join_probe (K13) int32 and int64, cap_t={K13_CAP_T} cap_s=2^20 over "
         f"{MESH_SHARDS} shards (sentinels at both ends, duplicate runs, runs of equal keys "
-        "across the shard boundaries) exact against its plain version and K12")
+        "across the shard boundaries, the empty-slot key) exact against its plain version "
+        "and K12")
 
 
 def combine_checks(dev):
@@ -787,6 +808,15 @@ def k12_inputs(rng, dt, cap_t, n, cap_s, m, shape):
     elif shape == "all":  # every key on both sides matches
         s = rng.randint(lo_k, hi_k, m)
         t = s[rng.randint(0, m, n)]
+    elif shape == "marker":  # the hash table's empty-slot key (the type's minimum) and the
+        # range's ends on both sides, between narrow keys
+        s = rng.randint(-1000, 1000, m).astype(np.int64)
+        s[::37] = info.min
+        s[5::101] = info.max
+        t = rng.randint(-1200, 1200, n).astype(np.int64)
+        t[::53] = info.min
+        t[7::97] = info.max - 1
+        t[11::89] = info.min + 1
     else:  # half the source present (some twice), half fresh; wide keys
         t = rng.randint(lo_k, hi_k, n)
         s = np.concatenate([t[rng.randint(0, n, m - m // 2)], rng.randint(lo_k, hi_k, m // 2)])
@@ -813,7 +843,9 @@ def k12_checks(dev):
              (np.int32, 1 << 20, 1_000_000, 1 << 16, 65_536, "none"),
              (np.int64, 1 << 20, 1 << 20, 1 << 16, 65_536, "all"),
              (np.int32, 1024, 1000, 8, 1, "half"),
-             (np.int64, 64, 64, 8, 1, "all")]
+             (np.int64, 64, 64, 8, 1, "all"),
+             (np.int32, 1 << 20, 1_000_000, 1 << 16, 60_000, "marker"),
+             (np.int64, K12_CAP_T, 11_000_000, K12_CAP_S, 1_000_000, "marker")]
     for dt, cap_t, n, cap_s, m, shape in cases:
         t_in, s_in = k12_inputs(rng, dt, cap_t, n, cap_s, m, shape)
         t, s = torch.from_numpy(t_in).to(dev), torch.from_numpy(s_in).to(dev)
@@ -823,7 +855,8 @@ def k12_checks(dev):
         check(equal_all(got, ref), f"join_probe != plain: {np.dtype(dt).name} cap_t={cap_t} "
               f"cap_s={cap_s} m={m} {shape}")
     say("kernels: join_probe (K12) int32 and int64, cap_t=12,582,912 cap_s=2^20, sentinels at "
-        "both ends, duplicate runs on both sides, no match, all matched, m=1: exact")
+        "both ends, duplicate runs on both sides, no match, all matched, m=1, the type's "
+        "minimum (the hash table's empty-slot key) and maximum on both sides: exact")
 
 
 # -- K14: the residual mask -----------------------------------------------------------
@@ -845,6 +878,10 @@ K14_CORPUS = [
     "NOT b OR a = 3", "b", "a IN (1, 2, 3, NULL)", "COALESCE(a, l) > 0",
     "CASE WHEN a > 0 THEN x ELSE l END > 0.5", "abs(a) <= 3", "NOT (a IN (5, 7))",
     "NOT (a IN (l))", "a IN (l, 3)", "NOT (a IN (l, NULL))", "x IN (a, 0.5)",
+    # past the launch's parameters (more than 128 literals, and 200 per-file
+    # scalars a file): K14's staged tables
+    "a IN (%s)" % ", ".join(str(v) for v in range(-199, 201, 2)),
+    "NOT (s IN ('gamma', %s))" % ", ".join(f"'w{i}'" for i in range(199)),
 ]
 
 
@@ -887,7 +924,42 @@ def k14_program(sql, env, mapping, types=K14_TYPES):
     return program, scalars
 
 
+def k14_files(dev):
+    """Files for K14's batched launch: (env, dictionary, rows) of unequal
+    sizes (0, 1, 77, 4097: no multiple of a tile, a 250,000-row file as
+    config 12's, a padded 2^20 lane) and 70 files of 1,000 rows, more than
+    one parameter block holds; each file's string dictionary its own."""
+    shapes = [(64, 64, 0), (64, 64, 1), (77, 128, 77), (4097, 8192, 4097),
+              (250_000, 1 << 18, 250_000), ((1 << 20) - 4321, 1 << 20, (1 << 20) - 4321)]
+    shapes += [(1000, 1024, 1000)] * 70
+    out = []
+    for i, (n_lane, cap, n) in enumerate(shapes):
+        env, mapping = k14_lanes(n_lane, cap, 100 + i, dev)
+        out.append((env, mapping, n))
+    return out
+
+
 def k14_checks(dev):
+    files = k14_files(dev)
+    envs, ns = [f[0] for f in files], [f[2] for f in files]
+    staged = 0
+    for sql in K14_CORPUS:
+        program, _ = k14_program(sql, envs[0], files[0][1])
+        staged += column_cache._k14_layout(program, len(files)) is column_cache._K14_GLOBAL
+        scal = [k14_program(sql, env, mapping)[1] for env, mapping, _ in files]
+        before = native.launches["residual_mask"]
+        got, offs = column_cache.residual_masks(program, envs, ns, scal)
+        torch.cuda.synchronize()
+        launched = native.launches["residual_mask"] - before
+        ref, ref_offs = column_cache.residual_masks_plain(program, envs, ns, scal)
+        check(offs == ref_offs and torch.equal(got, ref), f"residual_masks != plain: {sql}")
+        want = len(column_cache._launch_groups(program, len(files)))
+        check(launched == want, f"residual_masks launched {launched} times, not {want}: {sql}")
+    check(staged >= 2, f"only {staged} programs took K14's staged tables")
+    say(f"kernels: residual_masks over {len(files)} files (rows 0, 1, 77, 4097, 250,000, "
+        f"2^20 - 4321 and 70 x 1,000, each with its own dictionary) exact over "
+        f"{len(K14_CORPUS)} programs ({staged} in staged tables), the bytes between files "
+        f"included")
     n, cap = (1 << 20) - 4321, 1 << 20  # a padded lane
     env, mapping = k14_lanes(n, cap, 14, dev)
     kept, seen_ops = [], set()
@@ -1636,20 +1708,23 @@ def measure_join_probe(dev, cctx):
     check(equal_all(got, ref), "join_probe != plain on M3's inputs")
     cap_t, cap_s = t.shape[0], s.shape[0]
     sorted_s = torch.sort(s).values
-    b, by = bound(t.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1,
-                  cap_t * max(int(np.ceil(np.log2(cap_s))), 1))
-    ms = cuda_ms(lambda: join_kernel.join_probe(t, s), 20)
+    b, by = bound(t.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1)
+    fn = lambda: join_kernel.join_probe(t, s)
+    ms = cuda_ms(fn, 20)
     m3 = cctx["merges"][-1]
     say(f"merge command: {m3['name']} {m3['route']}: K12 {ms:.6f} ms of its join_ms "
         f"{m3['phase_ms']['join_ms']} and wall {m3['wall_s']:.3f} s")
-    return [{"name": "join_probe", "route": "cuda", "source": "delta_tpu_torch/csrc/join_probe.cu",
-             "replaces": "delta_tpu/ops/join_kernel.py:127",
-             "launches": cctx["launches"]["join_probe"],
-             "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
-             "ms": ms, "plain_ms": cuda_ms(lambda: join_kernel.join_probe_plain(t, s), 5),
-             "bound_ms": b, "bound_by": by,
-             "library_ms": cuda_ms(lambda: torch.searchsorted(sorted_s, t), 20),
-             "shape": f"cap_t={cap_t} cap_s={cap_s} {t.dtype} (M3)"}]
+    return [dict({"name": "join_probe", "route": "cuda",
+                  "source": "delta_tpu_torch/csrc/join_probe.cu",
+                  "replaces": "delta_tpu/ops/join_kernel.py:127",
+                  "launches": cctx["launches"]["join_probe"],
+                  "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+                  "ms": ms, "plain_ms": cuda_ms(lambda: join_kernel.join_probe_plain(t, s), 5),
+                  "bound_ms": b, "bound_by": by,
+                  "library_ms": cuda_ms(lambda: torch.searchsorted(sorted_s, t), 20),
+                  "graph_ms": graph_ms(fn, 10), "breakdown_us": kernel_breakdown(fn),
+                  "shape": f"cap_t={cap_t} cap_s={cap_s} {t.dtype} (M3)"},
+                 **probe_sectors(dev, cap_t, cap_s))]
 
 
 # -- phase 8: the filtered read path on bench config 12 ------------------------------
@@ -1765,10 +1840,13 @@ def run_device_scan(dev, workdir):
     check(launches["residual_mask"] > 0, "residual_mask was not launched on the read path")
     say(f"device scan: launches on the read path {launches}; every query's rows and id sum "
         f"equal numpy in all three legs")
-    # K14's measured input: the warm arith query's program over one file's lanes
+    check(launches["residual_mask"] == 2 * len(queries),
+          f"residual_mask launched {launches['residual_mask']} times on the read path, not once "
+          f"a query of the two device legs ({2 * len(queries)})")
+    # K14's measured input: the warm arith query's program over its files' lanes
     cache = column_cache.ColumnCache.instance()
     log_path = tab.delta_log.log_path
-    lanes = {c: cache.get(log_path, files[0].path, c) for c in ("price", "qty")}
+    lanes = [{c: cache.get(log_path, f.path, c) for c in ("price", "qty")} for f in files]
     return {"legs": {"host": host, "cold": cold, "warm": warm}, "launches": launches,
             "lanes": lanes, "query": queries[3][1], "types": {"price": LongType(),
                                                              "qty": LongType()},
@@ -1776,29 +1854,48 @@ def run_device_scan(dev, workdir):
 
 
 def measure_residual_mask(dev, sctx):
-    """K14 on one config-12 file's resident lanes (the arith query), held
-    against its plain version and timed."""
-    lanes = sctx["lanes"]
-    n = lanes["price"].n
-    env = {c: device_eval.DeviceColumn(e.values, e.valid) for c, e in lanes.items()}
-    program, scalars = k14_program(sctx["query"], env, {}, sctx["types"])
-    got = column_cache.residual_mask(program, env, n, scalars)
-    ref = column_cache.residual_mask_plain(program, env, n, scalars)
+    """K14 as the read path launches it: the arith query's one launch over
+    config 12's 8 files (their resident lanes), held against its plain
+    version and timed eager, from a CUDA graph and per kernel; the per-file
+    call beside it; the masks' download to pinned memory on a line of its
+    own (the path's cost, not the kernel's)."""
+    files = sctx["lanes"]
+    envs = [{c: device_eval.DeviceColumn(e.values, e.valid) for c, e in f.items()} for f in files]
+    ns = [f["price"].n for f in files]
+    program, scalars = k14_program(sctx["query"], envs[0], {}, sctx["types"])
+    scal = [scalars] * len(files)
+    query = lambda: column_cache.residual_masks(program, envs, ns, scal)
+    (got, offs), (ref, _) = query(), column_cache.residual_masks_plain(program, envs, ns, scal)
     torch.cuda.synchronize()
-    check(torch.equal(got, ref), "residual_mask != plain on config 12's lanes")
-    nbytes = sum(e.values.element_size() * n + n for e in lanes.values()) + n
+    check(torch.equal(got, ref), "residual_masks != plain on config 12's lanes")
+    one = lambda: column_cache.residual_mask(program, envs[0], ns[0], scalars)
+    nbytes = sum(sum(e.values.element_size() * n + n for e in f.values()) + n
+                 for f, n in zip(files, ns))
     b, by = bound(nbytes)
-    return [{"name": "residual_mask", "route": "cuda",
-             "source": "delta_tpu_torch/csrc/residual_mask.cu",
-             "replaces": "delta_tpu/ops/column_cache.py:312",
-             "launches": sctx["launches"]["residual_mask"],
-             "max_abs_err": max_abs_err(got, ref),
-             "ms": cuda_ms(lambda: column_cache.residual_mask(program, env, n, scalars), 50),
-             "plain_ms": cuda_ms(lambda: column_cache.residual_mask_plain(program, env, n,
-                                                                          scalars), 10),
-             "bound_ms": b, "bound_by": by, "library_ms": None,
-             "shape": f"n={n} cap={lanes['price'].values.shape[0]} {len(program.instrs)} "
-                      f"instructions over 2 int64 lanes ({sctx['query']})"}]
+    host = torch.empty(got.shape, dtype=torch.bool, pin_memory=True)
+    down_ms = cuda_ms(lambda: host.copy_(got, non_blocking=True), 20)
+    say(f"device scan: the arith query's {len(files)} masks ({got.numel()} B) come down to pinned "
+        f"memory in {down_ms:.6f} ms ({got.numel() / down_ms / 1e6:.3f} GB/s)")
+    breakdown, graph = kernel_breakdown(query), graph_ms(query, 20)
+    if breakdown:
+        say(f"device scan: K14's profiled kernel time {sum(breakdown.values()):.3f} us a query, "
+            f"its graph time {graph * 1e3:.3f} us")
+    row = {"name": "residual_mask", "route": "cuda",
+           "source": "delta_tpu_torch/csrc/residual_mask.cu",
+           "replaces": "delta_tpu/ops/column_cache.py:312",
+           "launches": sctx["launches"]["residual_mask"],
+           "max_abs_err": max_abs_err(got, ref),
+           "ms": cuda_ms(query, 50),
+           "plain_ms": cuda_ms(lambda: column_cache.residual_masks_plain(program, envs, ns,
+                                                                         scal), 5),
+           "bound_ms": b, "bound_by": by, "library_ms": None, "graph_ms": graph,
+           "per_file_ms": cuda_ms(one, 50), "per_file_graph_ms": graph_ms(one, 20),
+           "shape": f"{len(files)} files x {ns[0]} rows (cap {files[0]['price'].values.shape[0]}"
+                    f"), {len(program.instrs)} instructions over 2 int64 lanes "
+                    f"({sctx['query']}): one launch a query"}
+    if breakdown is not None:  # a partial trace is left out
+        row["breakdown_us"] = breakdown
+    return [row]
 
 
 # -- phase 9: OPTIMIZE ZORDER BY and the point query on bench config 3 --------------
@@ -2016,7 +2113,7 @@ def measure_join_constants(cctx, k12_rows):
 def measure_residual_constants(dev, sctx):
     """HOST_RESIDUAL_S_PER_CELL: the host filter (``boolean_mask``) of each
     config 12 query over its decoded predicate columns; DEVICE_RESIDUAL_S_
-    PER_CELL: the warm device pass (``device_residual_masks``: K14 per file,
+    PER_CELL: the warm device pass (``device_residual_masks``: K14 a query,
     the mask downloads), each per (row x predicate column)."""
     from delta_tpu_torch.exec.scan import read_files_as_table, scan_files
     from delta_tpu_torch.expr.vectorized import boolean_mask
@@ -2237,9 +2334,28 @@ def cull_bytes(mins, maxs, alive, lo, hi, out_bytes):
     return alive.shape[0] + 8 * int(need.sum()) + 2 * lo.numel() * 4 + out_bytes
 
 
-def bound(nbytes, compares=0):
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, compares / COMPARES_PER_S * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
+_L2 = {}
+
+
+def probe_sectors(dev, cap_t, cap_s):
+    """The join's hash probes in L2 sectors (at least one a target key, and
+    one a source row in the build and again in the source pass) and what
+    they take at the L2 rate measured here: a random gather of 2^24 int64
+    from a 16 MB table, one 32-byte sector a read (``torch.take``, timed
+    once a run)."""
+    if "rate" not in _L2:
+        table = torch.randint(0, 1 << 62, (1 << 21,), dtype=torch.int64, device=dev)
+        idx = torch.randint(0, 1 << 21, (1 << 24,), dtype=torch.int64, device=dev)
+        _L2["rate"] = (1 << 24) / (cuda_ms(lambda: torch.take(table, idx), 20) / 1e3)
+    sectors = cap_t + 2 * cap_s
+    return {"l2_sectors": sectors, "l2_sectors_per_s": _L2["rate"],
+            "l2_ms": sectors / _L2["rate"] * 1e3}
+
+
+def bound(nbytes):
+    """The least ms the card could take to move ``nbytes``, and what bounds
+    it."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def k1_row(name, d, ranges, launches, reps):
@@ -2600,8 +2716,8 @@ def mesh_merge(dev, c2a, workdir):
              if native.launches[k] != before[k]}
     check(cmd._join_path == "device-upload", f"M4: route {cmd._join_path}, not device-upload")
     check(not cmd._router.get("reason"), f"M4: fell back: {cmd._router}")
-    check(delta.get("sharded_join_probe", 0) == MESH_SHARDS and "join_probe" not in delta,
-          f"M4: launches {delta}: K13 once a shard and no K12 expected")
+    check(delta.get("sharded_join_probe", 0) == 1 and "join_probe" not in delta,
+          f"M4: launches {delta}: K13 once (one distinct device) and no K12 expected")
     check(cmd.metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
           and cmd.metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
           f"M4: metrics {cmd.metrics}")
@@ -2842,20 +2958,21 @@ def measure_mesh(dev, xctx):
     check(equal_all(got, join_kernel.join_probe(t_full, s_full)),
           "sharded_join_probe != K12 on M4's inputs")
     cap_t, cap_s = t_full.shape[0], s_full.shape[0]
-    b, by = bound(t_full.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1,
-                  cap_t * max(int(np.ceil(np.log2(cap_s))), 1))
+    b, by = bound(t_full.element_size() * (cap_t + cap_s) + cap_t // 8 + cap_s // 8 + 1)
     sorted_s = torch.sort(s_full).values
-    out.append({
+    fn = lambda: join_kernel.sharded_join_probe(t_slabs, s_parts)
+    out.append(dict({
         "name": "sharded_join_probe", "route": "cuda", "source": "delta_tpu_torch/csrc/join_probe.cu",
         "replaces": "delta_tpu/ops/join_kernel.py:150",
         "launches": launches["sharded_join_probe"],
         "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        "ms": cuda_ms(lambda: join_kernel.sharded_join_probe(t_slabs, s_parts), 10),
+        "ms": cuda_ms(fn, 10),
         "plain_ms": cuda_ms(lambda: join_kernel.sharded_join_probe_plain(t_slabs, s_full), 3),
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.searchsorted(sorted_s, t_full), 20),
+        "graph_ms": graph_ms(fn, 10), "breakdown_us": kernel_breakdown(fn),
         "shape": f"cap_t={cap_t} cap_s={cap_s} {t_full.dtype} over {len(t_slabs)} shards of one "
-                 "card (M4)"})
+                 "card (M4): one launch"}, **probe_sectors(dev, cap_t, cap_s)))
     del t_full, s_full, sorted_s
 
     # the combine at K13's source-hit shape: (8, cap_s) bytes ORed and packed

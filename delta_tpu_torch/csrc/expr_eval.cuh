@@ -1,9 +1,12 @@
 // The expression interpreter shared by K15 (csrc/expr_eval.cu, the skipping
 // predicate over per-file stats lanes) and K14 (csrc/residual_mask.cu, the
-// residual filter over a data file's column lanes).
+// residual filter over a query's column lanes).
 //
 // A program is a flat typed register program lowered on the host
-// (delta_tpu_torch/expr/device_eval.py); `interpret` runs it for one row.
+// (delta_tpu_torch/expr/device_eval.py); `alu` states each opcode's
+// semantics once, for one instruction: `interpret` calls it to run a
+// program for one row (K15), K14's tile loops to run one instruction over
+// a tile's rows.
 // Each register is a (value, valid) pair; the value lives in a 64-bit union
 // (bool / int32 / int64 sign-extended in `i`, float32 in `f`, float64 in
 // `d`). Instructions are 8 int32 each (op, dtype, dst, a, b, c, imm, imm2).
@@ -223,10 +226,171 @@ __device__ __forceinline__ long long civil(long long days, int k) {
   return k == 0 ? year : k == 1 ? month : day;
 }
 
+// Register operands an opcode reads (a, then b, then c), as
+// delta_tpu_torch/expr/device_eval._READS lists them.
+__host__ __device__ constexpr int arity(int op) {
+  return op == LIT || op == COL ? 0
+         : op == INSTEP || op == CASESTEP ? 3
+         : op == INFIN || op == INROW ? 2
+         : op == CAST || op == NEG || op == NOT || op == ISNULL || op == ISNOTNULL ||
+                   op == ABS || op == FLOOR || op == CEIL || op == EXP || op == SQRT ||
+                   op == LOG || op == FLAGALL || op == TIMEFIELD || op == TSDAYS || op == CIVIL
+               ? 1
+               : 2;
+}
+
+// A literal's bits as a register of dtype dt (float32 in the low 32 bits).
+__device__ __forceinline__ Reg lit_reg(long long bits, int dt) {
+  Reg v;
+  v.i = bits;
+  if (dt == F32) {
+    v.i = 0;
+    v.f = __uint_as_float((uint32_t)(unsigned long long)bits);
+  }
+  return v;
+}
+
+// One instruction of every opcode but LIT, COL, FLAGALL and INFIN (which
+// read the literal table, the lanes or the flags): the value and validity
+// from the operand registers (a, b, c, as many as arity(op)) and, for
+// TIMEFIELD, its two literals (d, m). K14's tile kernel
+// (csrc/residual_mask.cu) calls it with the opcode a template constant, so
+// the switch folds away there; `interpret` below calls it for K15.
+__device__ __forceinline__ void alu(int op, int dt, int imm, Reg a, bool oa, Reg b, bool ob,
+                                    Reg c, bool oc, Reg d, Reg m, Reg& v, bool& vok) {
+  v.i = 0;
+  vok = true;
+  switch (op) {
+    case CAST:
+      v = cast(a, imm, dt);
+      vok = oa;
+      break;
+    case ADD:
+    case SUB:
+    case MUL:
+      v = arith(op, a, b, dt);
+      vok = oa && ob;
+      break;
+    case DIV: {
+      const bool nz = b.d != 0.0;
+      v.d = __ddiv_rn(a.d, nz ? b.d : 1.0);
+      vok = oa && ob && nz;
+      break;
+    }
+    case NEG:
+      if (dt == I32) v.i = wrap32(0ull - (unsigned long long)a.i);
+      else if (dt == I64) v.i = (long long)(0ull - (unsigned long long)a.i);
+      else if (dt == F32) { v.i = 0; v.f = -a.f; }
+      else v.d = -a.d;
+      vok = oa;
+      break;
+    case EQ:
+    case NE:
+    case LT:
+    case LE:
+    case GT:
+    case GE:
+      v.i = cmp(op, a, b, dt);
+      vok = oa && ob;
+      break;
+    case AND:
+    case OR: {
+      const bool la = a.i != 0, lb = b.i != 0;
+      const bool lt = la && oa, rt = lb && ob;
+      if (op == AND) {
+        v.i = lt && rt;
+        vok = v.i || (!la && oa) || (!lb && ob);
+      } else {
+        v.i = lt || rt;
+        vok = (oa && ob) || v.i;
+      }
+      break;
+    }
+    case NOT:
+      v.i = a.i == 0;
+      vok = oa;
+      break;
+    case ISNULL:
+      v.i = !oa;
+      break;
+    case ISNOTNULL:
+      v.i = oa;
+      break;
+    case NSEQ:
+      v.i = (eq(a, b, dt) && oa && ob) || (!oa && !ob);
+      break;
+    case INSTEP:
+      // validity: every option so far is valid in this row (INROW reads it)
+      v.i = (c.i != 0) || (eq(a, b, dt) && ob);
+      vok = oc && ob;
+      break;
+    case INROW:  // IN with each option's validity taken in its own row
+      v.i = a.i != 0;
+      vok = ob && (v.i || oa);
+      break;
+    case TSDAYS:  // epoch microseconds -> epoch days, rounding toward -inf
+      v.i = floordiv(a.i, 86400000000LL);
+      vok = oa;
+      break;
+    case CIVIL:
+      v.i = civil(a.i, imm);
+      vok = oa;
+      break;
+    case COALESCE:
+      v = oa ? a : b;
+      vok = oa || ob;
+      break;
+    case CASESTEP: {
+      const bool fire = c.i != 0 && oc;
+      v = fire ? a : b;
+      vok = fire ? oa : ob;
+      break;
+    }
+    case ABS:
+      if (dt == I32) v.i = a.i < 0 ? wrap32(0ull - (unsigned long long)a.i) : a.i;
+      else if (dt == I64) v.i = a.i < 0 ? (long long)(0ull - (unsigned long long)a.i) : a.i;
+      else if (dt == F32) { v.i = 0; v.f = fabsf(a.f); }
+      else v.d = fabs(a.d);
+      vok = oa;
+      break;
+    case FLOOR:
+    case CEIL:
+      if (dt == F32) { v.i = 0; v.f = op == FLOOR ? floorf(a.f) : ceilf(a.f); }
+      else v.d = op == FLOOR ? floor(a.d) : ceil(a.d);
+      vok = oa;
+      break;
+    case EXP:
+      v.d = exp(a.d);
+      vok = oa;
+      break;
+    case SQRT:
+      v.d = sqrt(a.d < 0.0 ? 0.0 : a.d);
+      vok = oa && a.d >= 0.0;
+      break;
+    case LOG:
+      v.d = log(a.d < 1e-300 ? 1e-300 : a.d);
+      vok = oa && a.d > 0.0;
+      break;
+    case POW:
+      v.d = pow(a.d, b.d);
+      vok = oa && ob;
+      break;
+    case TIMEFIELD:
+      v = timefield(a, d, m, dt);
+      vok = oa;
+      break;
+    default:
+      break;
+  }
+}
+
 // Run the program `prog` (n_instr instructions, staged in shared memory by
 // the caller) for one row into reg/ok. `buf` holds the literals, their
 // validity and the column pointer tables at the given int64 offsets. FLAGALL
 // instructions of nesting level `pass` OR "this row is NULL" into `flags`.
+// LIT, COL, FLAGALL and INFIN read those tables here; every other opcode is
+// `alu`'s. K15 never receives device_eval.RESIDUAL_OPS (TSDAYS, CIVIL,
+// INROW): only a residual program holds them.
 __device__ __forceinline__ void interpret(const int* prog, int n_instr,
                                           const long long* __restrict__ buf,
                                           int lit_off, int litv_off, int colv_off,
@@ -237,6 +401,8 @@ __device__ __forceinline__ void interpret(const int* prog, int n_instr,
   const long long* lit_valid = buf + litv_off;
   const long long* col_vals = buf + colv_off;
   const long long* col_valid = buf + colk_off;
+  Reg zero;
+  zero.i = 0;
   for (int pc = 0; pc < n_instr; ++pc) {
     const int* ins = prog + pc * 8;
     const int op = ins[0], dt = ins[1], dst = ins[2], a = ins[3], b = ins[4],
@@ -246,12 +412,7 @@ __device__ __forceinline__ void interpret(const int* prog, int n_instr,
     bool vok = true;
     switch (op) {
       case LIT:
-        v.i = lits[imm];
-        if (dt == F32) {
-          const uint32_t bits = (uint32_t)(unsigned long long)lits[imm];
-          v.i = 0;
-          v.f = __uint_as_float(bits);
-        }
+        v = lit_reg(lits[imm], dt);
         vok = lit_valid[imm] != 0;
         break;
       case COL: {
@@ -267,84 +428,9 @@ __device__ __forceinline__ void interpret(const int* prog, int n_instr,
         vok = q == nullptr ? true : q[row] != 0;
         break;
       }
-      case CAST:
-        v = cast(reg[a], imm, dt);
-        vok = ok[a];
-        break;
-      case ADD:
-      case SUB:
-      case MUL:
-        v = arith(op, reg[a], reg[b], dt);
-        vok = ok[a] && ok[b];
-        break;
-      case DIV: {
-        const bool nz = reg[b].d != 0.0;
-        v.d = __ddiv_rn(reg[a].d, nz ? reg[b].d : 1.0);
-        vok = ok[a] && ok[b] && nz;
-        break;
-      }
-      case NEG:
-        if (dt == I32) v.i = wrap32(0ull - (unsigned long long)reg[a].i);
-        else if (dt == I64) v.i = (long long)(0ull - (unsigned long long)reg[a].i);
-        else if (dt == F32) { v.i = 0; v.f = -reg[a].f; }
-        else v.d = -reg[a].d;
-        vok = ok[a];
-        break;
-      case EQ:
-      case NE:
-      case LT:
-      case LE:
-      case GT:
-      case GE:
-        v.i = cmp(op, reg[a], reg[b], dt);
-        vok = ok[a] && ok[b];
-        break;
-      case AND:
-      case OR: {
-        const bool la = reg[a].i != 0, lb = reg[b].i != 0;
-        const bool lt = la && ok[a], rt = lb && ok[b];
-        if (op == AND) {
-          v.i = lt && rt;
-          vok = v.i || (!la && ok[a]) || (!lb && ok[b]);
-        } else {
-          v.i = lt || rt;
-          vok = (ok[a] && ok[b]) || v.i;
-        }
-        break;
-      }
-      case NOT:
-        v.i = reg[a].i == 0;
-        vok = ok[a];
-        break;
-      case ISNULL:
-        v.i = !ok[a];
-        break;
-      case ISNOTNULL:
-        v.i = ok[a];
-        break;
-      case NSEQ:
-        v.i = (eq(reg[a], reg[b], dt) && ok[a] && ok[b]) || (!ok[a] && !ok[b]);
-        break;
-      case INSTEP:
-        // validity: every option so far is valid in this row (INROW reads it)
-        v.i = (reg[c].i != 0) || (eq(reg[a], reg[b], dt) && ok[b]);
-        vok = ok[c] && ok[b];
-        break;
       case FLAGALL:
         if (ins[7] == pass && !ok[a]) atomicOr(flags + imm, 1);
         continue;
-      case INROW:  // IN with each option's validity taken in its own row
-        v.i = reg[a].i != 0;
-        vok = ok[b] && (v.i || ok[a]);
-        break;
-      case TSDAYS:  // epoch microseconds -> epoch days, rounding toward -inf
-        v.i = floordiv(reg[a].i, 86400000000LL);
-        vok = ok[a];
-        break;
-      case CIVIL:
-        v.i = civil(reg[a].i, imm);
-        vok = ok[a];
-        break;
       case INFIN: {
         bool any_null = false;
         for (int k = 0; k < imm2; ++k) any_null = any_null || flags[imm + k] != 0;
@@ -352,65 +438,18 @@ __device__ __forceinline__ void interpret(const int* prog, int n_instr,
         vok = ok[b] && (v.i || !any_null);
         break;
       }
-      case COALESCE:
-        v = ok[a] ? reg[a] : reg[b];
-        vok = ok[a] || ok[b];
-        break;
-      case CASESTEP: {
-        const bool fire = reg[c].i != 0 && ok[c];
-        v = fire ? reg[a] : reg[b];
-        vok = fire ? ok[a] : ok[b];
-        break;
-      }
-      case ABS:
-        if (dt == I32) v.i = reg[a].i < 0 ? wrap32(0ull - (unsigned long long)reg[a].i) : reg[a].i;
-        else if (dt == I64) v.i = reg[a].i < 0 ? (long long)(0ull - (unsigned long long)reg[a].i) : reg[a].i;
-        else if (dt == F32) { v.i = 0; v.f = fabsf(reg[a].f); }
-        else v.d = fabs(reg[a].d);
-        vok = ok[a];
-        break;
-      case FLOOR:
-      case CEIL:
-        if (dt == F32) { v.i = 0; v.f = op == FLOOR ? floorf(reg[a].f) : ceilf(reg[a].f); }
-        else v.d = op == FLOOR ? floor(reg[a].d) : ceil(reg[a].d);
-        vok = ok[a];
-        break;
-      case EXP:
-        v.d = exp(reg[a].d);
-        vok = ok[a];
-        break;
-      case SQRT: {
-        const double x = reg[a].d;
-        v.d = sqrt(x < 0.0 ? 0.0 : x);
-        vok = ok[a] && x >= 0.0;
-        break;
-      }
-      case LOG: {
-        const double x = reg[a].d;
-        v.d = log(x < 1e-300 ? 1e-300 : x);
-        vok = ok[a] && x > 0.0;
-        break;
-      }
-      case POW:
-        v.d = pow(reg[a].d, reg[b].d);
-        vok = ok[a] && ok[b];
-        break;
-      case TIMEFIELD: {
-        Reg d, m;
-        d.i = lits[imm];
-        m.i = lits[imm2];
-        if (dt == F32) {
-          d.i = 0;
-          d.f = __uint_as_float((uint32_t)(unsigned long long)lits[imm]);
-          m.i = 0;
-          m.f = __uint_as_float((uint32_t)(unsigned long long)lits[imm2]);
+      default: {
+        // unused operands are -1: read only the registers the opcode takes
+        const int na = arity(op);
+        Reg d = zero, m = zero;
+        if (op == TIMEFIELD) {
+          d = lit_reg(lits[imm], dt);
+          m = lit_reg(lits[imm2], dt);
         }
-        v = timefield(reg[a], d, m, dt);
-        vok = ok[a];
+        alu(op, dt, imm, na > 0 ? reg[a] : zero, na > 0 && ok[a], na > 1 ? reg[b] : zero,
+            na > 1 && ok[b], na > 2 ? reg[c] : zero, na > 2 && ok[c], d, m, v, vok);
         break;
       }
-      default:
-        break;
     }
     reg[dst] = v;
     ok[dst] = vok;

@@ -1,218 +1,347 @@
-// Upload join probe (K12): the MERGE join's membership kernel for a target
-// key lane uploaded whole (no resident slab).
+// Upload join probe (K12) and its sharded form (K13): the MERGE join's
+// membership kernel for a target key lane uploaded whole (no resident slab).
 //
-// Replaces delta_tpu/ops/join_kernel.py:127 `_single_device_kernel`, an XLA
-// jit on the TPU that sorts both sides and counts with two-way
+// K12 replaces delta_tpu/ops/join_kernel.py:127 `_single_device_kernel`, an
+// XLA jit on the TPU that sorts both sides and counts with two-way
 // searchsorted:
 //   t_bits = packbits(count_in_s(t) > 0), s_bits = packbits(count_in_t(s) > 0),
 //   multi  = any(count_in_s(t) > 1),
 // bits big-endian as jnp.packbits. The inputs are padded by the caller
 // (ops/join_kernel.inner_join_async) with per-side sentinels, so a pad or a
 // NULL key never matches anything; keys are int32 or int64 (both sides the
-// same type).
+// same type). The kernel computes the function for any keys, sentinels or not.
 //
-// Design: the TPU kernel sorts both sides because dense compares suit it.
-// Here the large side is the target (~12.6M keys at bench config 2, against
-// 2^20 source keys), so only the source is sorted, with the one-sweep radix
-// sort of the slab sort (radix.cuh; int32 keys sort as one uint32 word):
-//   1. each target key is binary-searched for [lo, hi) in the sorted source:
-//      hi - lo is its count, which gives t_bits and multi; where the count is
-//      above 0 a flag is set at lo, the first sorted position of that run;
-//   2. each sorted source position reads the flag at its own run's lower
-//      bound and scatters it through the sort permutation to source order,
-//      and the source flags are packed.
-// O((n + m) log m), no sort of the target and no walk over duplicate runs.
+// K13, dtt_join_probe_shard, replaces delta_tpu/ops/join_kernel.py:150
+// `_sharded_kernel`, a shard_map over the TPU mesh: the target stays sharded
+// (contiguous slabs of cap_t / p), the padded source is all-gathered (tiled,
+// so in its original order), each shard counts its slab's keys in the source
+// and the source's keys in its slab, and `psum`s reduce the source hits and
+// the multi flags. Here one call a distinct device runs the passes below over
+// ALL of that device's slabs against the gathered source: its outputs are
+// the slabs' packed t bits (in the order given), ONE BYTE PER SOURCE ROW (1
+// where a key of one of the slabs equals it) and one multi byte. The combine
+// kernel (shard_combine.cu) ORs the source bytes of the distinct devices and
+// packs them, and ORs their multi bytes: the TPU kernel's psum. Every device
+// sees the whole source, so a key repeated across two source pieces still
+// counts as a multi-match on the slab that holds it, as in the TPU kernel.
 //
-// What bounds it: on this card, memory traffic and the target's dependent
-// binary-search loads (log2 m of them per key, into a 4-8 MB sorted source
-// that stays in L2), not compares.
+// Design: the TPU kernel sorts because dense compares suit it. Here the large
+// side is the target (12.6M keys at bench config 2, 16.7M over the mesh,
+// against 2^20 source keys), and a binary search costs ~20 dependent L2 loads
+// a key, so the join builds an open-addressing hash table of the source once
+// and probes it:
+//   1. build (one thread a source row): a power-of-two table of at least
+//      2 cap_s slots (so a probe always ends at an empty slot), linear
+//      probing, one slot a distinct key holding its count: lanes of a warp
+//      with equal keys are counted together (__match_any_sync) and their
+//      leader inserts with atomicCAS on the key and adds the count;
+//   2. target (one thread 8 keys, one t_bits byte): one probe a key, usually
+//      one 32-byte L2 sector; a match sets the slot's hit flag (read first,
+//      so a hot key is written once) and ORs count > 1 into multi;
+//   3. source (one thread 8 rows): each row finds its own key's slot and
+//      writes its hit flag, packed (K12) or as a byte a row (K13).
+// A slot is the key (4 or 8 bytes, stored XOR the sign bit, so a zeroed slot
+// is empty) and a word of count (31 bits) and hit flag (bit 31), padded to 8
+// or 16 bytes: one vector load. The key that would store as 0 (INT32_MIN or
+// INT64_MIN) keeps its count and flag in a word of its own. No sort, no
+// read-back to the host, nothing walks a duplicate run.
 //
-// The sharded join probe (K13) is the second entry point, dtt_join_probe_shard.
-// It replaces delta_tpu/ops/join_kernel.py:150 `_sharded_kernel`, a shard_map
-// over the TPU mesh: the target stays sharded (contiguous slabs of
-// cap_t / p), the padded source is all-gathered (tiled, so in its original
-// order), each shard counts its target keys' hits in the sorted source
-// (packed t bits, any(count > 1)) and the source's hits in its sorted slab,
-// and `psum`s reduce the source hits and the multi flags. Here one launch a
-// shard runs the passes above over (its slab, the whole gathered source):
-// the source direction comes from the same run flags, so the slab is never
-// sorted, and the outputs are the shard's packed t bits, ONE BYTE PER SOURCE
-// ROW (1 where some key of this slab equals it) and its multi byte. The
-// combine kernel (shard_combine.cu) ORs the source bytes over the shards and
-// packs them, and ORs the multi bytes. Every shard sees the whole source, so
-// a key repeated across two source shards still counts as a multi-match on
-// the one target shard that holds it, as in the TPU kernel.
+// What bounds it: the target lane's bytes (one read) and the probes' L2
+// sectors (one or two a key into a 16-32 MB table that stays in L2); the
+// build's and the source pass's work is cap_s, a twelfth of the target's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "radix.cuh"
-
 namespace {
 
-using namespace dtt_radix;
+constexpr int kThreads = 256;
+constexpr int kMaxSlabs = 64;
+constexpr unsigned kHit = 0x80000000u;
 
-// The source's sort through radix.cuh: int32 keys sort as uint32 with the
-// sign bit flipped (at most 4 digit bytes, one uint32 word), int64 as uint64;
-// the last pass writes the sorted keys as int64 and the permutation.
-template <typename K>
-struct JoinSrc {
-  const K* s;
-  __device__ __forceinline__ uint64_t key(long long i) const {
-    if (sizeof(K) == 4) return (uint64_t)((uint32_t)s[i] ^ 0x80000000u);
-    return (uint64_t)(int64_t)s[i] ^ kSign;
-  }
-  __device__ __forceinline__ uint32_t tag(long long) const { return 0u; }
+struct Slabs {
+  const void* t[kMaxSlabs];
+  long long n_bytes[kMaxSlabs];  // keys / 8: the slab's t_bits bytes
+  long long out_off[kMaxSlabs];  // its first byte in t_bits
+  int n;
 };
 
 template <typename K>
-struct JoinDst {
-  int64_t* sk;
-  int32_t* perm;
-  __device__ __forceinline__ void put(long long pos, uint64_t u, uint32_t row) const {
-    sk[pos] = sizeof(K) == 4 ? (int64_t)(int32_t)((uint32_t)u ^ 0x80000000u)
-                             : (int64_t)(u ^ kSign);
-    perm[pos] = (int32_t)row;
+struct Table;
+
+template <>
+struct Table<int32_t> {
+  using Word = unsigned int;
+  static constexpr int kSlot = 8;
+  __device__ static Word enc(int32_t k) { return (unsigned)k ^ 0x80000000u; }
+  __device__ static void load(const char* tab, uint64_t h, Word& key, unsigned& cnt) {
+    const uint2 v = *(const uint2*)(tab + 8 * h);
+    key = v.x;
+    cnt = v.y;
   }
+  __device__ static Word* key_at(char* tab, uint64_t h) { return (Word*)(tab + 8 * h); }
+  __device__ static unsigned* cnt_at(char* tab, uint64_t h) { return (unsigned*)(tab + 8 * h + 4); }
 };
 
-__device__ __forceinline__ long long lower_bound(const int64_t* __restrict__ sk, long long m,
-                                                 int64_t key) {
-  long long lo = 0, hi = m;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (sk[mid] < key) lo = mid + 1; else hi = mid;
+template <>
+struct Table<int64_t> {
+  using Word = unsigned long long;
+  static constexpr int kSlot = 16;
+  __device__ static Word enc(int64_t k) { return (unsigned long long)k ^ 0x8000000000000000ull; }
+  __device__ static void load(const char* tab, uint64_t h, Word& key, unsigned& cnt) {
+    const ulonglong2 v = *(const ulonglong2*)(tab + 16 * h);
+    key = v.x;
+    cnt = (unsigned)v.y;
   }
-  return lo;
+  __device__ static Word* key_at(char* tab, uint64_t h) { return (Word*)(tab + 16 * h); }
+  __device__ static unsigned* cnt_at(char* tab, uint64_t h) { return (unsigned*)(tab + 16 * h + 8); }
+};
+
+// Fibonacci hashing: the top log2(slots) bits of the key times 2^64 / phi
+__device__ __forceinline__ uint64_t home(uint64_t u, int shift) {
+  return (u * 0x9E3779B97F4A7C15ull) >> shift;
 }
 
-__device__ __forceinline__ long long upper_bound(const int64_t* __restrict__ sk, long long lo,
-                                                 long long m, int64_t key) {
-  long long hi = m;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (sk[mid] <= key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// One thread per output byte: 8 consecutive target keys.
+// 8 keys from 16-byte loads (the slab is 16-byte aligned, 8 keys a thread)
 template <typename K>
-__global__ void target_kernel(const K* __restrict__ t, long long n_bytes,
-                              const int64_t* __restrict__ sk, long long m,
-                              uint8_t* __restrict__ t_bits, uint8_t* __restrict__ run_flag,
-                              unsigned int* __restrict__ multi) {
+__device__ __forceinline__ void load8(const K* p, long long j, K (&k)[8]);
+
+template <>
+__device__ __forceinline__ void load8<int32_t>(const int32_t* p, long long j, int32_t (&k)[8]) {
+  const int4 a = __ldg((const int4*)(p + 8 * j)), b = __ldg((const int4*)(p + 8 * j) + 1);
+  k[0] = a.x, k[1] = a.y, k[2] = a.z, k[3] = a.w, k[4] = b.x, k[5] = b.y, k[6] = b.z, k[7] = b.w;
+}
+
+template <>
+__device__ __forceinline__ void load8<int64_t>(const int64_t* p, long long j, int64_t (&k)[8]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const longlong2 v = __ldg((const longlong2*)(p + 8 * j) + q);
+    k[2 * q] = v.x, k[2 * q + 1] = v.y;
+  }
+}
+
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+build_kernel(const K* __restrict__ s, long long m, char* tab, uint64_t mask, int shift,
+             unsigned* marker) {
+  using T = Table<K>;
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // base is the same for a warp's lanes, so they iterate together
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < m; base += stride) {
+    const long long i = base + threadIdx.x;
+    const bool in = i < m;
+    const unsigned live = __ballot_sync(0xffffffffu, in);
+    if (!in) continue;
+    const typename T::Word u = T::enc(s[i]);
+    const unsigned peers = __match_any_sync(live, (unsigned long long)u);
+    if (lane != __ffs(peers) - 1) continue;
+    const unsigned c = __popc(peers);
+    if (u == 0) {
+      atomicAdd(marker, c);
+      continue;
+    }
+    for (uint64_t h = home(u, shift);; h = (h + 1) & mask) {
+      const typename T::Word prev = atomicCAS(T::key_at(tab, h), (typename T::Word)0, u);
+      if (prev == 0 || prev == u) {
+        atomicAdd(T::cnt_at(tab, h), c);
+        break;
+      }
+    }
+  }
+}
+
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+target_kernel(const __grid_constant__ Slabs sl, char* tab, uint64_t mask, int shift,
+              unsigned* marker, uint8_t* __restrict__ t_bits, unsigned* multi) {
+  using T = Table<K>;
+  const int slab = blockIdx.y;
+  const K* t = (const K*)sl.t[slab];
+  const long long nb = sl.n_bytes[slab];
+  uint8_t* out = t_bits + sl.out_off[slab];
   bool local_multi = false;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n_bytes;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < nb;
        j += (long long)gridDim.x * blockDim.x) {
+    K k[8];
+    load8<K>(t, j, k);
+    typename T::Word u[8], key[8];
+    uint64_t h[8];
+    unsigned cnt[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      u[e] = T::enc(k[e]);
+      h[e] = home(u[e], shift);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) T::load(tab, h[e], key[e], cnt[e]);
     unsigned byte = 0;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const int64_t key = (int64_t)t[8 * j + e];
-      const long long lo = lower_bound(sk, m, key);
-      if (lo < m && sk[lo] == key) {
-        const long long hi = upper_bound(sk, lo + 1, m, key);
+      unsigned* flag;
+      if (u[e] == 0) {
+        cnt[e] = *(volatile unsigned*)marker;
+        flag = marker;
+      } else {
+        while (key[e] != u[e] && key[e] != 0) {
+          h[e] = (h[e] + 1) & mask;
+          T::load(tab, h[e], key[e], cnt[e]);
+        }
+        if (key[e] == 0) cnt[e] = 0;
+        flag = T::cnt_at(tab, h[e]);
+      }
+      const unsigned c = cnt[e] & ~kHit;
+      if (c) {
         byte |= 0x80u >> e;
-        run_flag[lo] = 1;
-        local_multi |= hi - lo > 1;
+        if (!(cnt[e] & kHit)) atomicOr(flag, kHit);
+        local_multi |= c > 1;
       }
     }
-    t_bits[j] = (uint8_t)byte;
+    out[j] = (uint8_t)byte;
   }
-  if (local_multi) atomicOr(multi, 1u);
+  if (__any_sync(0xffffffffu, local_multi) && (threadIdx.x & 31) == 0) atomicOr(multi, 1u);
 }
 
-__global__ void source_kernel(const int64_t* __restrict__ sk, const int32_t* __restrict__ perm,
-                              long long m, const uint8_t* __restrict__ run_flag,
-                              uint8_t* __restrict__ s_match) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x) {
-    s_match[perm[i]] = run_flag[lower_bound(sk, m, sk[i])];
-  }
-}
-
-__global__ void multi_kernel(const unsigned int* __restrict__ multi,
-                             uint8_t* __restrict__ multi_out) {
-  *multi_out = *multi ? 1 : 0;
-}
-
-__global__ void pack_kernel(const uint8_t* __restrict__ s_match, long long m_bytes,
-                            uint8_t* __restrict__ s_bits, const unsigned int* __restrict__ multi,
-                            uint8_t* __restrict__ multi_out) {
+// One thread 8 source rows: their hit flags, packed into a byte (K12) or a
+// byte a row (K13); block 0 also writes the multi byte.
+template <typename K, bool kPack>
+__global__ void __launch_bounds__(kThreads)
+source_kernel(const K* __restrict__ s, long long m_bytes, const char* tab, uint64_t mask,
+              int shift, const unsigned* marker, uint8_t* __restrict__ out,
+              const unsigned* multi, uint8_t* __restrict__ multi_out) {
+  using T = Table<K>;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *multi_out = *multi ? 1 : 0;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < m_bytes;
        j += (long long)gridDim.x * blockDim.x) {
+    K k[8];
+    load8<K>(s, j, k);
     unsigned byte = 0;
+    uint8_t hit[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) byte |= (s_match[8 * j + e] ? 0x80u : 0u) >> e;
-    s_bits[j] = (uint8_t)byte;
+    for (int e = 0; e < 8; ++e) {
+      const typename T::Word u = T::enc(k[e]);
+      unsigned cnt;
+      if (u == 0) {
+        cnt = *marker;
+      } else {
+        typename T::Word key;
+        uint64_t h = home(u, shift);
+        T::load(tab, h, key, cnt);
+        while (key != u) {  // every source key is in the table
+          h = (h + 1) & mask;
+          T::load(tab, h, key, cnt);
+        }
+      }
+      hit[e] = (cnt & kHit) ? 1 : 0;
+      byte |= (unsigned)hit[e] << (7 - e);
+    }
+    if (kPack) {
+      out[j] = (uint8_t)byte;
+    } else {
+      uint2 w;
+      w.x = hit[0] | hit[1] << 8 | hit[2] << 16 | (unsigned)hit[3] << 24;
+      w.y = hit[4] | hit[5] << 8 | hit[6] << 16 | (unsigned)hit[7] << 24;
+      *(uint2*)(out + 8 * j) = w;
+    }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *multi_out = *multi ? 1 : 0;
 }
 
-// s_hit == nullptr: K12 (packed source bits into s_bits); else K13's shard
-// (one byte a source row into s_hit, s_bits unused).
+unsigned grid_for(long long items) {
+  const long long b = (items + kThreads - 1) / kThreads;
+  return (unsigned)(b < 1 ? 1 : b > 16384 ? 16384 : b);
+}
+
+// The table's slots: the power of two at least 2 cap_s (and 16).
+int slots_log2(long long cap_s) {
+  int k = 4;
+  while ((1ll << k) < 2 * cap_s) ++k;
+  return k;
+}
+
+// scratch: the table (zeroed here), then the marker word and the multi word
+// (256-byte aligned parts). out_s is s_bits (K12, pack) or s_hit (K13).
 template <typename K>
-int run(const K* t, long long cap_t, const K* s, long long cap_s, uint8_t* t_bits,
-        uint8_t* s_bits, uint8_t* s_hit, uint8_t* multi_out, void* scratch,
-        long long scratch_bytes, cudaStream_t st) {
-  const long long m = cap_s;
-  char* cur = (char*)scratch;
-  char* end = cur + scratch_bytes;
-  int64_t* sk = (int64_t*)dtt_scan::carve(cur, end, 8 * m);
-  int32_t* perm = (int32_t*)dtt_scan::carve(cur, end, 4 * m);
-  uint8_t* run_flag = (uint8_t*)dtt_scan::carve(cur, end, m);
-  uint8_t* s_match = (uint8_t*)dtt_scan::carve(cur, end, m);
-  unsigned int* multi = (unsigned int*)dtt_scan::carve(cur, end, 16);
-  if (!sk || !perm || !run_flag || !s_match || !multi) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(run_flag, 0, m, st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(multi, 0, 16, st);
-  if (err == cudaSuccess) err = sort_rows(JoinSrc<K>{s}, JoinDst<K>{sk, perm}, m, cur, end, st);
+int run(const Slabs& all, const K* s, long long cap_s, uint8_t* t_bits, uint8_t* out_s,
+        bool pack, uint8_t* multi_out, void* scratch, long long scratch_bytes, cudaStream_t st) {
+  const int lg = slots_log2(cap_s);
+  const long long table_bytes = (((long long)Table<K>::kSlot << lg) + 255) / 256 * 256;
+  if (scratch_bytes < table_bytes + 256) return (int)cudaErrorInvalidValue;
+  char* tab = (char*)scratch;
+  unsigned* marker = (unsigned*)(tab + table_bytes);
+  unsigned* multi = marker + 1;
+  const uint64_t mask = (1ull << lg) - 1;
+  const int shift = 64 - lg;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, table_bytes + 256, st);
   if (err != cudaSuccess) return (int)err;
-  target_kernel<K><<<grid_for(cap_t / 8), kThreads, 0, st>>>(t, cap_t / 8, sk, m, t_bits,
-                                                             run_flag, multi);
-  if (s_hit) {
-    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, perm, m, run_flag, s_hit);
-    multi_kernel<<<1, 1, 0, st>>>(multi, multi_out);
-  } else {
-    source_kernel<<<grid_for(m), kThreads, 0, st>>>(sk, perm, m, run_flag, s_match);
-    pack_kernel<<<grid_for(m / 8), kThreads, 0, st>>>(s_match, m / 8, s_bits, multi,
-                                                      multi_out);
-  }
+  build_kernel<K><<<grid_for(cap_s), kThreads, 0, st>>>(s, cap_s, tab, mask, shift, marker);
+  long long most = 0;
+  for (int i = 0; i < all.n; ++i) most = all.n_bytes[i] > most ? all.n_bytes[i] : most;
+  if (most > 0)
+    target_kernel<K><<<dim3(grid_for(most), all.n), kThreads, 0, st>>>(all, tab, mask, shift,
+                                                                       marker, t_bits, multi);
+  if (pack)
+    source_kernel<K, true><<<grid_for(cap_s / 8), kThreads, 0, st>>>(
+        s, cap_s / 8, tab, mask, shift, marker, out_s, multi, multi_out);
+  else
+    source_kernel<K, false><<<grid_for(cap_s / 8), kThreads, 0, st>>>(
+        s, cap_s / 8, tab, mask, shift, marker, out_s, multi, multi_out);
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
-// t (cap_t,), s (cap_s,) int32 (is32 = 1) or int64; cap_t and cap_s
-// multiples of 8, cap_s >= 8. Outputs t_bits (cap_t/8,) u8, s_bits
-// (cap_s/8,) u8, multi (1,) u8. scratch (each part aligned to 256): the
-// sorted keys (int64) and the permutation (int32), two byte flags of cap_s,
-// the multi word, then the radix sort's (dtt_radix::sort_rows).
+// t (cap_t,), s (cap_s,) int32 (is32 = 1) or int64, 16-byte aligned; cap_t
+// and cap_s multiples of 8, cap_s >= 8. Outputs t_bits (cap_t/8,) u8, s_bits
+// (cap_s/8,) u8, multi (1,) u8. scratch: the hash table of the power of two
+// >= 2 cap_s slots (8 bytes a slot for int32 keys, 16 for int64), rounded up
+// to 256 bytes, then 256 bytes (ops/join_kernel._join_scratch_bytes).
 extern "C" int dtt_join_probe(const void* t, long long cap_t, const void* s, long long cap_s,
                               int is32, uint8_t* t_bits, uint8_t* s_bits, uint8_t* multi,
                               void* scratch, long long scratch_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (cap_t < 0 || cap_s < 8 || cap_t % 8 || cap_s % 8 || cap_s >= (1ll << 31))
+  if (cap_t < 0 || cap_s < 8 || cap_t % 8 || cap_s % 8 || cap_s >= (1ll << 31) ||
+      !aligned16(t) || !aligned16(s))
     return (int)cudaErrorInvalidValue;
+  Slabs sl{};
+  sl.n = 1;
+  sl.t[0] = t;
+  sl.n_bytes[0] = cap_t / 8;
   if (is32)
-    return run<int32_t>((const int32_t*)t, cap_t, (const int32_t*)s, cap_s, t_bits, s_bits,
-                        nullptr, multi, scratch, scratch_bytes, st);
-  return run<int64_t>((const int64_t*)t, cap_t, (const int64_t*)s, cap_s, t_bits, s_bits,
-                      nullptr, multi, scratch, scratch_bytes, st);
+    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_bits, true, multi, scratch,
+                        scratch_bytes, st);
+  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_bits, true, multi, scratch,
+                      scratch_bytes, st);
 }
 
-// K13, one shard: t (cap_t,) this shard's target slab, s (cap_s,) the whole
-// gathered source, as dtt_join_probe's. Outputs t_bits (cap_t/8,) u8, s_hit
-// (cap_s,) u8 (0/1 a source row), multi (1,) u8; the same scratch.
-extern "C" int dtt_join_probe_shard(const void* t, long long cap_t, const void* s,
-                                    long long cap_s, int is32, uint8_t* t_bits, uint8_t* s_hit,
-                                    uint8_t* multi, void* scratch, long long scratch_bytes,
-                                    void* stream) {
+// K13 on one device: n_slabs (<= 64) target slabs (slabs[i] of slab_keys[i]
+// keys, each a multiple of 8, 16-byte aligned) against s (cap_s,) the whole gathered source, keys as
+// dtt_join_probe's. Outputs t_bits (sum of slab_keys / 8,) u8, the slabs'
+// bits one after another; s_hit (cap_s,) u8 (0/1 a source row); multi (1,)
+// u8; the same scratch.
+extern "C" int dtt_join_probe_shard(const void* const* slabs, const long long* slab_keys,
+                                    int n_slabs, const void* s, long long cap_s, int is32,
+                                    uint8_t* t_bits, uint8_t* s_hit, uint8_t* multi,
+                                    void* scratch, long long scratch_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (cap_t < 0 || cap_s < 8 || cap_t % 8 || cap_s % 8 || cap_s >= (1ll << 31) || !s_hit)
+  if (n_slabs < 1 || n_slabs > kMaxSlabs || cap_s < 8 || cap_s % 8 || cap_s >= (1ll << 31) ||
+      !s_hit || !aligned16(s))
     return (int)cudaErrorInvalidValue;
+  Slabs sl{};
+  sl.n = n_slabs;
+  long long off = 0;
+  for (int i = 0; i < n_slabs; ++i) {
+    if (slab_keys[i] < 0 || slab_keys[i] % 8 || !aligned16(slabs[i]))
+      return (int)cudaErrorInvalidValue;
+    sl.t[i] = slabs[i];
+    sl.n_bytes[i] = slab_keys[i] / 8;
+    sl.out_off[i] = off;
+    off += slab_keys[i] / 8;
+  }
   if (is32)
-    return run<int32_t>((const int32_t*)t, cap_t, (const int32_t*)s, cap_s, t_bits, nullptr,
-                        s_hit, multi, scratch, scratch_bytes, st);
-  return run<int64_t>((const int64_t*)t, cap_t, (const int64_t*)s, cap_s, t_bits, nullptr,
-                      s_hit, multi, scratch, scratch_bytes, st);
+    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_hit, false, multi, scratch,
+                        scratch_bytes, st);
+  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_hit, false, multi, scratch,
+                      scratch_bytes, st);
 }

@@ -6,8 +6,12 @@ computes each file's survivor mask on the card: the predicate's columns are
 decoded once into per-(table, file, column) lanes — strings as int32
 dictionary codes, dates as epoch days, timestamps as epoch microseconds,
 numerics widened to int64/float64 — kept on the device across queries, and
-one launch of K14 (``csrc/residual_mask.cu``, :func:`residual_mask`) per
-file writes the Kleene-TRUE row mask. Only survivor rows are then decoded on
+one launch of K14 (``csrc/residual_mask.cu``, :func:`residual_masks`) per
+query writes the Kleene-TRUE row masks of all its files (a further launch
+for each further 64 files, or for files whose lanes have other dtypes; a
+program or a file table past the launch's parameters, a long IN list say,
+is staged in pinned memory and copied to the card on the launch's stream);
+they come down in one copy. Only survivor rows are then decoded on
 the host (``exec/scan.read_files_as_table``'s ``device_masks``), and
 ``scan_to_table`` re-applies the residual over them, so the mask may only
 change what decodes, never what returns.
@@ -43,8 +47,11 @@ Differences from the JAX package, each deliberate:
 """
 from __future__ import annotations
 
+import array
+import ctypes
 import datetime as _dt
 import functools
+import itertools
 import os
 import struct
 import threading
@@ -247,7 +254,8 @@ def _mask_program(expr, dtypes: Tuple[Tuple[str, torch.dtype], ...],
                   scalars: Tuple[Tuple[str, int], ...]) -> Program:
     """The residual's program for lanes of these dtypes (the counterpart of
     JAX's ``_mask_kernel`` cache, which jits per rewritten expression and
-    shape)."""
+    shape). Every program the lowering emits fits K14's staged tables (at
+    most MAX_INSTRS instructions, a literal each or a TIMEFIELD's two)."""
     return device_eval.lower(expr, dict(dtypes), row_in=True, scalars=dict(scalars))
 
 
@@ -260,56 +268,309 @@ def _launch_lits(program: Program, scalars: Dict[str, Tuple[int, bool]]):
     return lits, valid
 
 
+def _k14_dtype(instrs: int, lits: int, files: int, ptrs: int, scal: int,
+               lit_scal: str) -> np.dtype:
+    """K14's input block (``csrc/residual_mask.cu``'s ``MaskTables``, field
+    for field) with these capacities: the program, the literal table and a
+    file table."""
+    return np.dtype([
+        ("lits", "<i8", (lits,)), ("fscal", "<i8", (scal,)), ("rows", "<i8", (files,)),
+        ("out_off", "<i8", (files,)), ("ptr", "<u8", (ptrs,)), ("tile_end", "<i4", (files,)),
+        ("hdr", "<i4", (16,)), ("ins", "<i2", (instrs, 8)), ("usrc", "<i2", (instrs, 4)),
+        ("lit_scal", lit_scal, (lits,)), ("lit_valid", "u1", (lits,)),
+        ("fscal_valid", "u1", (scal,))])
+
+
+#: the block passed in the launch's parameters (``MaskParams``)
+_K14_PARAMS = _k14_dtype(256, 128, 64, 512, 128, "i1")
+#: the block staged in pinned memory and copied to the card on the launch's
+#: stream (``MaskGlobal``): room for every program the lowering emits (an
+#: instruction's literal or a TIMEFIELD's two, a column and a scalar each)
+_K14_GLOBAL = _k14_dtype(device_eval.MAX_INSTRS, 2 * device_eval.MAX_INSTRS, 64,
+                         2 * device_eval.MAX_INSTRS, 4096, "<i2")
+assert (_K14_PARAMS.itemsize, _K14_GLOBAL.itemsize) == (14016, 101696)
+# MaskParams::hdr
+(_H_INSTR, _H_COLS, _H_FILES, _H_SCAL, _H_ROOT, _H_ROOT_DT, _H_ROOT_SLOT, _H_TILE, _H_REGS,
+ _H_TILES) = range(10)
+
+
+def _tile_rows(program: Program) -> int:
+    """K14's tile: the most rows (2048 down to 256) whose register file, the
+    program's registers x rows x 9 B in shared memory, fits in 48 KB."""
+    for t in (2048, 1024, 512):
+        if max(program.n_regs, 1) * t * 9 <= 48 * 1024:
+            return t
+    return 256
+
+
+def _uniform_slots(instrs: np.ndarray) -> np.ndarray:
+    """(n, 4) int16 over the program: column 0 is 1 where the instruction is
+    uniform (a LIT, or computed from uniform operands only: the kernel runs
+    it once a tile), columns 1-3 give for each register operand (a, b, c)
+    the uniform instruction whose slot it reads, or -1 where it reads a
+    per-row register. Registers are reused (``device_eval._allocate``), so
+    an operand names its last writer."""
+    out = np.full((len(instrs), 4), -1, np.int16)
+    out[:, 0] = 0
+    writer: Dict[int, int] = {}
+    for pc, ins in enumerate(instrs.tolist()):
+        op = device_eval.OPS[ins[0]]
+        reads = device_eval._READS.get(op, (3, 4))
+        srcs = [_slot(out, writer.get(ins[k], -1)) for k in reads]
+        if op == "LIT" or (op not in ("COL", "FLAGALL", "INFIN") and reads
+                           and all(w >= 0 for w in srcs)):
+            out[pc, 0] = 1
+        out[pc, 1:1 + len(srcs)] = srcs
+        if ins[2] >= 0:
+            writer[ins[2]] = pc
+    return out
+
+
+def _slot(kinds: np.ndarray, w: int) -> int:
+    """The uniform slot of a register last written by instruction ``w``, or
+    -1 where that is a per-row register."""
+    return w if w >= 0 and kinds[w, 0] else -1
+
+
+_TEMPLATES: Dict[Tuple[int, int], Tuple[Program, bytes, List[str], int]] = {}
+_TEMPLATES_LOCK = threading.Lock()
+
+
+def _cap(layout: np.dtype, field: str) -> int:
+    """A field's capacity (its first dimension) in a K14 layout."""
+    return layout.fields[field][0].shape[0]
+
+
+def _k14_template(program: Program, layout: np.dtype) -> Tuple[bytes, List[str], int]:
+    """The program's part of a K14 block of this layout (bytes), built once
+    per program; the per-file scalars' names in the block's order; the
+    tile."""
+    key = (id(program), layout.itemsize)
+    with _TEMPLATES_LOCK:
+        hit = _TEMPLATES.get(key)
+        if hit is not None and hit[0] is program:
+            return hit[1:]
+    n = len(program.instrs)
+    blk = np.zeros(1, layout)
+    blk["lits"][0, :len(program.lits)] = program.lits
+    blk["lit_valid"][0, :len(program.lits)] = program.lit_valid
+    blk["lit_scal"][0] = -1
+    names = sorted(program.scalar_slots or {})
+    for k, name in enumerate(names):
+        blk["lit_scal"][0, program.scalar_slots[name]] = k
+    blk["ins"][0, :n] = program.instrs
+    usrc = _uniform_slots(program.instrs)
+    blk["usrc"][0, :n] = usrc
+    writer = max((pc for pc in range(n) if program.instrs[pc, 2] == program.root), default=-1)
+    tile = _tile_rows(program)
+    blk["hdr"][0, [_H_INSTR, _H_COLS, _H_SCAL, _H_ROOT, _H_ROOT_DT, _H_ROOT_SLOT, _H_TILE,
+                   _H_REGS]] = [n, len(program.columns), len(names), program.root,
+                                program.root_dtype, _slot(usrc, writer), tile,
+                                max(program.n_regs, 1)]
+    out = (program, blk.tobytes(), names, tile)
+    with _TEMPLATES_LOCK:
+        if len(_TEMPLATES) >= 256:
+            _TEMPLATES.clear()
+        _TEMPLATES[key] = out
+    return out[1:]
+
+
+def _fits_k14(program: Program, layout: np.dtype) -> bool:
+    """The program fits a K14 block of this layout (instructions, literals,
+    one file's lane pointers and scalars, int16 fields) and has no IN
+    reduction over rows."""
+    return (not program.n_flags and 0 < len(program.instrs) <= _cap(layout, "ins")
+            and len(program.lits) <= _cap(layout, "lits")
+            and 2 * len(program.columns) <= _cap(layout, "ptr")
+            and len(program.scalar_slots or {}) <= _cap(layout, "fscal")
+            and int(np.abs(program.instrs).max()) < 1 << 15)
+
+
+def _groups(program: Program, n_files: int, layout: np.dtype) -> List[Tuple[int, int]]:
+    n_cols, n_scal = len(program.columns), len(program.scalar_slots or {})
+    files = _cap(layout, "rows")
+    per = min(files, _cap(layout, "ptr") // (2 * n_cols) if n_cols else files,
+              _cap(layout, "fscal") // n_scal if n_scal else files)
+    return [(lo, min(lo + per, n_files)) for lo in range(0, n_files, per)]
+
+
+def _k14_layout(program: Program, n_files: int) -> np.dtype:
+    """The layout of a query's K14 blocks: the launch's parameters, unless
+    the program does not fit them or its files take fewer launches staged
+    (many per-file scalars: each string literal is one a file)."""
+    if not _fits_k14(program, _K14_GLOBAL):
+        raise ValueError("residual_masks: the program does not fit K14's tables")
+    if not _fits_k14(program, _K14_PARAMS):
+        return _K14_GLOBAL
+    staged = len(_groups(program, n_files, _K14_GLOBAL))
+    return _K14_PARAMS if len(_groups(program, n_files, _K14_PARAMS)) <= staged else _K14_GLOBAL
+
+
+def _launch_groups(program: Program, n_files: int) -> List[Tuple[int, int]]:
+    """The files of one launch each, as [lo, hi) ranges: as many as a block
+    of the query's layout (:func:`_k14_layout`) holds in its file table,
+    lane pointers and per-file scalars."""
+    return _groups(program, n_files, _k14_layout(program, n_files))
+
+
+def mask_offsets(ns: List[int]) -> Tuple[List[int], int]:
+    """Each file's offset in the one mask of a batched launch (each file's
+    rows rounded up to 16), and the mask's length."""
+    offs, pos = [], 0
+    for n in ns:
+        offs.append(pos)
+        pos += (int(n) + 15) // 16 * 16
+    return offs, pos
+
+
 def _check(program: Program, env: Dict[str, DeviceColumn], n: int) -> List[DeviceColumn]:
     if program.n_flags:
         raise ValueError("residual_mask: the program reduces an IN option over rows; "
                          "lower it with row_in=True")
     cols = [env[c] for c in program.columns]
-    for c in cols:
+    for c, dt in zip(cols, program.col_dtypes):
         if c.values.dim() != 1 or c.values.shape[0] < n or c.valid.shape != c.values.shape:
             raise ValueError(f"residual_mask: lanes must be 1-D, at least {n} rows long, "
                              "with valid masks of the same shape")
+        if c.values.dtype != device_eval._TORCH[dt] or c.valid.dtype != torch.bool:
+            raise TypeError(f"residual_mask: a {c.values.dtype} lane where the program reads "
+                            f"{device_eval._TORCH[dt]}")
     return cols
+
+
+def residual_masks(program: Program, envs: List[Dict[str, DeviceColumn]], ns: List[int],
+                   scalars_per_file: List[Optional[Dict[str, Tuple[int, bool]]]]
+                   ) -> Tuple[torch.Tensor, List[int]]:
+    """The Kleene-TRUE masks of one residual program over several files'
+    lanes (``envs[i]``, at least ``ns[i]`` rows; ``scalars_per_file[i]``
+    fills the program's per-launch literal slots for file ``i``: name ->
+    (int64 bits, valid)). Returns one bool mask and each file's offset in
+    it (:func:`mask_offsets`): file ``i``'s rows are
+    ``mask[offs[i]:offs[i] + ns[i]]``, and the bytes between files are
+    False. K14 for lanes on a CUDA device, one launch per block
+    (:func:`_launch_groups`); the plain version for lanes on the CPU."""
+    if not (len(envs) == len(ns) == len(scalars_per_file)):
+        raise ValueError("residual_masks: one env, row count and scalar map a file")
+    first = envs[0][program.columns[0]].values if envs and program.columns else None
+    if first is None or first.device.type == "cpu":
+        return residual_masks_plain(program, envs, ns, scalars_per_file)
+    dev = first.device
+    layout = _k14_layout(program, len(ns))
+    ptrs = _lane_ptrs(program, envs, ns, dev)
+    offs, total = mask_offsets(ns)
+    out = torch.empty(total, dtype=torch.bool, device=dev)
+    for blk in _param_blocks(program, ptrs, ns, scalars_per_file, offs, layout):
+        if layout is _K14_PARAMS:
+            raw = (ctypes.c_char * len(blk)).from_buffer(blk)
+            native.call("residual_mask", dev, ctypes.addressof(raw), len(blk), None,
+                        out.data_ptr())
+        else:
+            # staged: pinned memory, then one asynchronous copy on the
+            # launch's stream (the caching host allocator keeps the pinned
+            # block until the copy has run)
+            host = torch.frombuffer(blk, dtype=torch.uint8).pin_memory()
+            tables = torch.empty(len(blk), dtype=torch.uint8, device=dev)
+            tables.copy_(host, non_blocking=True)
+            native.call("residual_mask", dev, host.data_ptr(), len(blk), tables.data_ptr(),
+                        out.data_ptr())
+        native.launches["residual_mask"] += 1
+    return out, offs
+
+
+def _lane_ptrs(program: Program, envs: List[Dict[str, DeviceColumn]], ns: List[int],
+               dev: torch.device) -> List[int]:
+    """The lanes' pointers, file by file and column by column (values, then
+    validity), once each lane is checked: 1-D, at least the file's rows,
+    the program's dtype, on ``dev``, contiguous and 16-byte aligned (the
+    kernel reads 16 bytes a load)."""
+    want = [device_eval._TORCH[dt] for dt in program.col_dtypes]
+    ptrs = []
+    for env, n in zip(envs, ns):
+        for c, dt in zip(program.columns, want):
+            v, ok = env[c].values, env[c].valid
+            shape = v.shape
+            if len(shape) != 1 or shape[0] < n or ok.shape != shape:
+                raise ValueError(f"residual_mask: lanes must be 1-D, at least {n} rows long, "
+                                 "with valid masks of the same shape")
+            if v.dtype != dt or ok.dtype != torch.bool:
+                raise TypeError(f"residual_mask: a {v.dtype} lane where the program reads {dt}")
+            if v.device != dev or ok.device != dev:
+                raise ValueError("residual_mask: lanes on more than one device")
+            pv, pk = v.data_ptr(), ok.data_ptr()
+            if (pv | pk) % 16 or not (v.is_contiguous() and ok.is_contiguous()):
+                raise ValueError("residual_mask: lanes must be contiguous and 16-byte aligned")
+            ptrs += (pv, pk)
+    return ptrs
+
+
+def _put(buf: bytearray, layout: np.dtype, field: str, code: str, values) -> None:
+    off = layout.fields[field][1]
+    b = array.array(code, values).tobytes()
+    buf[off:off + len(b)] = b
+
+
+def _param_blocks(program: Program, ptrs: List[int], ns: List[int],
+                  scalars_per_file: List[Optional[Dict[str, Tuple[int, bool]]]],
+                  offs: List[int], layout: np.dtype) -> List[bytearray]:
+    """K14's blocks of this layout for these files, one a launch
+    (:func:`_groups`; a block whose files have no rows is left out): the
+    program's template, then each file's rows, mask offset, tile prefix,
+    lane pointers (``ptrs``: two a column, file by file) and per-file
+    scalars."""
+    tmpl, names, tile = _k14_template(program, layout)
+    per_file = 2 * len(program.columns)
+    hdr = layout.fields["hdr"][1]
+    out = []
+    for lo, hi in _groups(program, len(ns), layout):
+        tiles = list(itertools.accumulate((int(n) + tile - 1) // tile for n in ns[lo:hi]))
+        if not tiles[-1]:
+            continue
+        buf = bytearray(tmpl)
+        _put(buf, layout, "tile_end", "i", tiles)
+        _put(buf, layout, "rows", "q", ns[lo:hi])
+        _put(buf, layout, "out_off", "q", offs[lo:hi])
+        _put(buf, layout, "ptr", "Q", ptrs[lo * per_file:hi * per_file])
+        if names:
+            scal = [(scalars_per_file[i] or {})[name] for i in range(lo, hi) for name in names]
+            _put(buf, layout, "fscal", "q", [b for b, _ in scal])
+            _put(buf, layout, "fscal_valid", "B", [int(v) for _, v in scal])
+        struct.pack_into("<i", buf, hdr + 4 * _H_FILES, hi - lo)
+        struct.pack_into("<i", buf, hdr + 4 * _H_TILES, tiles[-1])
+        out.append(buf)
+    return out
+
+
+def residual_masks_plain(program: Program, envs: List[Dict[str, DeviceColumn]],
+                         ns: List[int],
+                         scalars_per_file: List[Optional[Dict[str, Tuple[int, bool]]]]
+                         ) -> Tuple[torch.Tensor, List[int]]:
+    """Plain PyTorch version of K14's batched launch: :func:`residual_mask_plain`
+    over each file of each block (:func:`_launch_groups`), into one mask at
+    the files' offsets."""
+    offs, total = mask_offsets(ns)
+    dev = envs[0][program.columns[0]].values.device if envs and program.columns else "cpu"
+    out = torch.zeros(total, dtype=torch.bool, device=dev)
+    for lo, hi in _launch_groups(program, len(envs)):
+        for i in range(lo, hi):
+            out[offs[i]:offs[i] + ns[i]] = residual_mask_plain(program, envs[i], ns[i],
+                                                               scalars_per_file[i])
+    return out, offs
 
 
 def residual_mask(program: Program, env: Dict[str, DeviceColumn], n: int,
                   scalars: Optional[Dict[str, Tuple[int, bool]]] = None) -> torch.Tensor:
     """The Kleene-TRUE mask (bool, ``n`` rows) of a residual program over
-    lanes at least ``n`` rows long: K14 for lanes on a CUDA device, the
-    plain version for lanes on the CPU. ``scalars`` fills the program's
-    per-launch literal slots (name -> (int64 bits, valid))."""
-    cols = _check(program, env, n)
-    dev = cols[0].values.device if cols else torch.device("cpu")
-    if dev.type == "cpu":
-        return residual_mask_plain(program, env, n, scalars)
-    for c in cols:
-        if c.values.device != dev or c.valid.device != dev:
-            raise ValueError("residual_mask: lanes on more than one device")
-    lits, lit_valid = _launch_lits(program, scalars or {})
-    vals = [c.values.contiguous() for c in cols]
-    oks = [c.valid.contiguous() for c in cols]
-    n_instr = program.instrs.shape[0]
-    buf = np.concatenate([
-        np.ascontiguousarray(program.instrs).reshape(-1).view(np.int64),
-        lits, lit_valid.astype(np.int64),
-        np.array([t.data_ptr() for t in vals] or [0], np.int64),
-        np.array([t.data_ptr() for t in oks] or [0], np.int64)])
-    lit_off = n_instr * 4
-    litv_off = lit_off + len(lits)
-    colv_off = litv_off + len(lits)
-    colk_off = colv_off + max(len(vals), 1)
-    dbuf = torch.from_numpy(buf).to(dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    native.call("residual_mask", dev, dbuf.data_ptr(), n_instr, lit_off, litv_off, colv_off,
-                colk_off, n, mask.data_ptr(), program.root, program.root_dtype)
-    native.launches["residual_mask"] += 1
-    return mask
+    one file's lanes, at least ``n`` rows long: :func:`residual_masks` with
+    one file. ``scalars`` fills the program's per-launch literal slots
+    (name -> (int64 bits, valid))."""
+    mask, _ = residual_masks(program, [env], [n], [scalars])
+    return mask[:n]
 
 
 def residual_mask_plain(program: Program, env: Dict[str, DeviceColumn], n: int,
                         scalars: Optional[Dict[str, Tuple[int, bool]]] = None) -> torch.Tensor:
-    """Plain PyTorch version of K14: ``expr_eval_plain`` over the first
-    ``n`` rows of the lanes, then ``values != 0 & valid``."""
+    """Plain PyTorch version of K14 for one file: ``expr_eval_plain`` over
+    the first ``n`` rows of the lanes, then ``values != 0 & valid``."""
     _check(program, env, n)
     lits, lit_valid = _launch_lits(program, scalars or {})
     filled = Program(program.instrs, lits, lit_valid, program.columns, program.col_dtypes,
@@ -453,11 +714,14 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
             rep.device_residual = "host"
         return None
     counters = {"hits": 0, "misses": 0, "coldBytes": 0}
-    masks: Dict[str, np.ndarray] = {}
     need = sorted(plan.refs)
     scalar_types = tuple((ph, device_eval.I64) for ph, _c, _v in plan.str_binds)
     t0 = time.perf_counter()
-    for add in files:
+    # each file's lanes (decoding the misses), then one launch per program:
+    # files whose lanes share dtypes share it (a file that predates a column
+    # binds a float64 NULL lane, and so another program)
+    groups: Dict[Tuple, List[Tuple[int, Dict[str, DeviceColumn], int, Dict]]] = {}
+    for i, add in enumerate(files):
         lanes = _ensure_lanes(cache, log.log_path, log.data_path, add, need,
                               cache.epoch(log.log_path), counters, log.device)
         if lanes is None:
@@ -466,17 +730,41 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
         n = max((e.n for e in lanes.values()), default=0)
         env = {c: DeviceColumn(e.values, e.valid) for c, e in lanes.items()}
         dtypes = tuple(sorted((c, e.values.dtype) for c, e in lanes.items()))
-        try:
-            program = _mask_program(plan.expr, dtypes, scalar_types)
-        except NotDeviceCompilable:
-            telemetry.bump_counter("scan.device.fallback")
-            return None
         scalars = {}
         for ph, col, value in plan.str_binds:
             code = (lanes[col].dict_codes or {}).get(value, device_eval.STR_CODE_ABSENT)
             _dt_, bits, ok = _scalar_column(int(code))
             scalars[ph] = (bits, ok)
-        masks[add.path] = residual_mask(program, env, n, scalars).cpu().numpy()
+        groups.setdefault(dtypes, []).append((i, env, n, scalars))
+    pending = []
+    for dtypes, members in groups.items():
+        try:
+            program = _mask_program(plan.expr, dtypes, scalar_types)
+        except NotDeviceCompilable:
+            telemetry.bump_counter("scan.device.fallback")
+            return None
+        buf, offs = residual_masks(program, [m[1] for m in members], [m[2] for m in members],
+                                   [m[3] for m in members])
+        pending.append((members, buf, offs))
+    # the masks come down in one copy a program, into pinned memory, with one
+    # synchronisation; each file's mask is a view of it
+    total = sum(buf.numel() for _, buf, _ in pending)
+    on_card = any(buf.is_cuda for _, buf, _ in pending)
+    host = torch.empty(total, dtype=torch.bool, pin_memory=on_card)
+    pos, spans = 0, {}
+    for members, buf, offs in pending:
+        host[pos:pos + buf.numel()].copy_(buf, non_blocking=True)
+        for (i, _env, n, _s), off in zip(members, offs):
+            spans[i] = (pos + off, n)
+        pos += buf.numel()
+    for _, buf, _ in pending:
+        if buf.is_cuda:
+            torch.cuda.current_stream(buf.device).synchronize()
+    arr = host.numpy()
+    masks: Dict[str, np.ndarray] = {}
+    for i, add in enumerate(files):
+        off, n = spans[i]
+        masks[add.path] = arr[off:off + n]
     actual_s = time.perf_counter() - t0
     telemetry.bump_counter("scan.device.engaged")
     if counters["hits"]:

@@ -18,8 +18,10 @@ returns.
   shapes (any key type, any number of keys): factorized keys, a sort-merge,
   every pair, NULL never matching NULL.
 
-K12 replaces ``_single_device_kernel`` (``join_kernel.py:127``). Its plain
-PyTorch version :func:`join_probe_plain` (``torch.sort`` +
+K12 replaces ``_single_device_kernel`` (``join_kernel.py:127``): it builds
+an open-addressing hash table of the source on the card and probes it with
+every target key, where the TPU kernel sorts both sides. Its plain PyTorch
+version :func:`join_probe_plain` (the TPU kernel's ``torch.sort`` +
 ``torch.searchsorted``) is what the wrapper runs for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises. The launch runs on a staging
 thread (the caller overlaps it with the full-column decode), on that
@@ -38,9 +40,10 @@ point), which replaces ``_sharded_kernel`` (``join_kernel.py:150``): the
 target is split into contiguous slabs of ``cap_t / p``
 (``cap_t = _bucket(ceil(n / p)) * p``), the padded source (``cap_s =
 _bucket(ceil(m / p)) * p``) is uploaded in p pieces and all-gathered in its
-original order on each device, one launch a shard probes its slab against
-the whole source, and the combine kernel ORs the source hits and the multi
-flags on the lead device. A mesh of one entry takes K12, as the JAX
+original order on each distinct device, one launch a distinct device builds
+the source's hash table there and probes all of that device's slabs against
+it, and the combine kernel ORs the devices' source hits and multi flags on
+the lead device. A mesh of one entry takes K12, as the JAX
 package does.
 """
 from __future__ import annotations
@@ -116,13 +119,20 @@ def join_probe_plain(t: torch.Tensor, s: torch.Tensor):
     return _packbits(count > 0), _packbits(s_count > 0), (count > 1).any().reshape(1)
 
 
-def _join_scratch_bytes(cap_s: int) -> int:
-    """K12's scratch (``csrc/join_probe.cu``): the sorted keys, the
-    permutation, two byte flags and the multi word, then the sort's."""
-    from delta_tpu_torch.ops.key_cache import _aligned, _radix_scratch_bytes
+def _join_scratch_bytes(cap_s: int, itemsize: int) -> int:
+    """K12's and K13's scratch (``csrc/join_probe.cu``): the hash table, the
+    power of two at least ``2 cap_s`` slots of 8 bytes (int32 keys) or 16
+    (int64), then the marker and multi words."""
+    from delta_tpu_torch.ops.key_cache import _aligned
 
-    parts = [8 * cap_s, 4 * cap_s, cap_s, cap_s, 16]
-    return sum(_aligned(p) for p in parts) + _radix_scratch_bytes(cap_s)
+    slots = 16
+    while slots < 2 * cap_s:
+        slots *= 2
+    return _aligned(slots * (8 if itemsize == 4 else 16)) + 256
+
+
+def _aligned16(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def join_probe(t: torch.Tensor, s: torch.Tensor):
@@ -141,12 +151,12 @@ def join_probe(t: torch.Tensor, s: torch.Tensor):
     dev = t.device
     if dev.type == "cpu":
         return join_probe_plain(t, s)
-    if not (t.is_contiguous() and s.is_contiguous()):
-        raise ValueError("join_probe: tensors must be contiguous")
+    if not (t.is_contiguous() and s.is_contiguous() and _aligned16(t, s)):
+        raise ValueError("join_probe: tensors must be contiguous and 16-byte aligned")
     t_bits = torch.empty(cap_t // 8, dtype=torch.uint8, device=dev)
     s_bits = torch.empty(cap_s // 8, dtype=torch.uint8, device=dev)
     multi = torch.empty(1, dtype=torch.uint8, device=dev)
-    nbytes = _join_scratch_bytes(cap_s)
+    nbytes = _join_scratch_bytes(cap_s, t.element_size())
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     native.call("join_probe", dev, t.data_ptr(), cap_t, s.data_ptr(), cap_s,
                 1 if t.dtype == torch.int32 else 0, t_bits.data_ptr(), s_bits.data_ptr(),
@@ -186,12 +196,14 @@ def sharded_join_probe(t_slabs, s_parts):
     pieces, one (slab, piece) pair a shard on that shard's device (1-D, all
     int32 or all int64, slab and piece lengths multiples of 8, the pieces
     of one length). The pieces are all-gathered, in order, once on each
-    distinct device; one launch a shard probes its slab against the whole
-    source; the lead device (the first slab's) gathers the packed target
-    bits and reduces the source hits and the multi flags with the combine
-    kernel. Returns (t_bits, s_bits, multi) as :func:`join_probe` would on
-    the concatenated slabs and the concatenated source. The plain version
-    for tensors on the CPU; on the card the kernel, or an error."""
+    distinct device; one launch a distinct device builds the source's hash
+    table there and probes all that device's slabs against it (at most 64);
+    the lead device (the first slab's) gathers the packed target bits in
+    shard order and reduces the devices' source hits and multi flags with
+    the combine kernel. Returns (t_bits, s_bits, multi) as
+    :func:`join_probe` would on the concatenated slabs and the concatenated
+    source. The plain version for tensors on the CPU; on the card the
+    kernel, or an error."""
     from delta_tpu_torch.parallel import mesh as mesh_mod
 
     if len(t_slabs) != len(s_parts) or not t_slabs:
@@ -216,27 +228,43 @@ def sharded_join_probe(t_slabs, s_parts):
     if any(d.type != "cuda" for d in mesh):
         raise ValueError("sharded_join_probe: the shards must all be on the card, or all "
                          "on the CPU")
-    if not all(x.is_contiguous() for x in (*t_slabs, *s_parts)):
-        raise ValueError("sharded_join_probe: tensors must be contiguous")
-    # the tiled all-gather: the whole source once on each distinct device
-    s_full = {d: mesh_mod.all_gather(s_parts, d) for d in dict.fromkeys(mesh)}
-    nbytes = _join_scratch_bytes(cap_s)
+    if not all(x.is_contiguous() for x in (*t_slabs, *s_parts)) or not _aligned16(*t_slabs):
+        raise ValueError("sharded_join_probe: tensors must be contiguous, the slabs 16-byte "
+                         "aligned")
+    devices = list(dict.fromkeys(mesh))
+    shards_of = {d: [i for i, m in enumerate(mesh) if m == d] for d in devices}
+    if max(len(v) for v in shards_of.values()) > 64:
+        raise ValueError("sharded_join_probe: more than 64 slabs on one device")
+    nbytes = _join_scratch_bytes(cap_s, t_slabs[0].element_size())
     is32 = 1 if dt == torch.int32 else 0
 
-    def launch(i, dev):
-        t, s = t_slabs[i], s_full[dev]
-        t_bits = torch.empty(t.shape[0] // 8, dtype=torch.uint8, device=dev)
+    def launch(_k, dev):
+        # the tiled all-gather: the whole source once on this device
+        s = mesh_mod.all_gather(s_parts, dev)
+        slabs = [t_slabs[i] for i in shards_of[dev]]
+        t_bits = torch.empty(sum(t.shape[0] for t in slabs) // 8, dtype=torch.uint8,
+                             device=dev)
         s_hit = torch.empty(cap_s, dtype=torch.uint8, device=dev)
         multi = torch.empty(1, dtype=torch.uint8, device=dev)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        native.call("sharded_join_probe", dev, t.data_ptr(), t.shape[0], s.data_ptr(), cap_s,
-                    is32, t_bits.data_ptr(), s_hit.data_ptr(), multi.data_ptr(),
-                    scratch.data_ptr(), nbytes)
+        ptrs = np.array([t.data_ptr() for t in slabs], np.uint64)
+        keys = np.array([t.shape[0] for t in slabs], np.int64)
+        native.call("sharded_join_probe", dev, ptrs.ctypes.data, keys.ctypes.data, len(slabs),
+                    s.data_ptr(), cap_s, is32, t_bits.data_ptr(), s_hit.data_ptr(),
+                    multi.data_ptr(), scratch.data_ptr(), nbytes)
         native.launches["sharded_join_probe"] += 1
         return t_bits, s_hit, multi
 
-    outs = mesh_mod.run_shards(mesh, launch)
-    t_bits = mesh_mod.all_gather([o[0] for o in outs], lead)
+    outs = mesh_mod.run_shards(devices, launch)
+    # each shard's bits out of its device's row, on the lead, concatenated in
+    # shard order (one copy kernel for the slices that share the lead)
+    parts = [None] * len(mesh)
+    for d, (bits, _, _) in zip(devices, outs):
+        off = 0
+        for i in shards_of[d]:
+            parts[i] = bits[off:off + t_slabs[i].shape[0] // 8].to(lead, non_blocking=True)
+            off += t_slabs[i].shape[0] // 8
+    t_bits = torch.cat(parts)
     s_bits = mesh_mod.psum([o[1] for o in outs], "or_pack")
     multi = mesh_mod.psum([o[2] for o in outs], "or")
     return t_bits, s_bits, multi.view(torch.bool)

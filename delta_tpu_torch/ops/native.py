@@ -15,7 +15,8 @@ plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
 ``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
 add one where they launch, and nowhere else: a sharded kernel counts one
-launch a shard.
+launch a shard, or (the join probe K13) one a distinct device; the residual
+mask K14 one a parameter block (a query's files).
 """
 from __future__ import annotations
 
@@ -71,8 +72,7 @@ _KERNELS = {
                           [_P, _P, _P, _P, _L, _L, _P, _I, _P, _L, _P]),
     "join_probe": ("join_probe", "dtt_join_probe",
                    [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
-    "residual_mask": ("residual_mask", "dtt_residual_mask",
-                      [_P, _I, _I, _I, _I, _I, _L, _P, _I, _I, _P]),
+    "residual_mask": ("residual_mask", "dtt_residual_masks", [_P, _L, _P, _P, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
     "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
     "sharded_replay": ("replay", "dtt_replay_shard",
@@ -80,7 +80,7 @@ _KERNELS = {
     "sharded_block_cull": ("block_cull", "dtt_block_cull_shard",
                            [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P]),
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
-                           [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
+                           [_P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _L, _I, _P, _P]),
 }
 

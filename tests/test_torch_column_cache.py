@@ -9,6 +9,14 @@ compile_residual``, ``ops/column_cache``) against ``delta_tpu``'s on the CPU:
   string codes bound per file; an ``IN`` whose option is a column is the
   one shape where the two differ (the reference's fault), and there the
   port equals the host evaluator;
+* K14's batched entry (``residual_masks``: one launch a query on the card,
+  its plain version here) equal to JAX's ``_mask_kernel`` file by file over
+  files of unequal sizes (0 and 1 rows included), each binding its own
+  string codes, over more files than one parameter block holds, and over
+  IN lists too long for the launch's parameters (the staged tables); the
+  blocks the card's launch takes, packed on the host; and
+  ``device_residual_masks`` equal to JAX's per-file masks on bench config
+  12's seven queries and on a 200-option IN, which stays on the device;
 * the calendar opcodes over +-10^6 days and timestamps before 1970;
 * the cache's epochs, LRU eviction and register race
   (``tests/test_column_cache.py:322-370``).
@@ -125,14 +133,13 @@ def test_residual_plan_is_a_stable_cache_key():
 N_ROWS = 300  # padded to 512: a pad of 212 invalid rows
 
 
-def _lanes(seed=3):
+def _lanes(seed=3, n=N_ROWS, words=("alpha", "beta", "gamma", "delta")):
     """Decoded lanes of every dtype (values, valid), as ``_lane_from_column``
     gives them: int32 string codes (-1 at NULL), int32 epoch days, int64
     epoch µs, int64, float64, bool; NULLs in every lane, dates and
-    timestamps on both sides of 1970 and far from it."""
+    timestamps on both sides of 1970 and far from it. ``n`` >= 5."""
     rng = np.random.RandomState(seed)
-    n = N_ROWS
-    words = np.array(["alpha", "beta", "gamma", "delta"], object)
+    words = np.array(words, object)
     s_valid = rng.rand(n) > 0.1
     s_vals = words[rng.randint(0, 4, n)]
     codes, valid, mapping = column_cache._lane_from_column(
@@ -161,13 +168,13 @@ def _pad(values, valid, cap=512):
     return pv, pm
 
 
-def _jax_mask(plan, lanes, mapping):
+def _jax_mask(plan, lanes, mapping, n=N_ROWS, cap=512):
     with enable_x64():
-        env = {c: jaxeval.DeviceColumn(jnp.asarray(_pad(*lanes[c])[0]),
-                                       jnp.asarray(_pad(*lanes[c])[1])) for c in plan.refs}
+        env = {c: jaxeval.DeviceColumn(jnp.asarray(_pad(*lanes[c], cap)[0]),
+                                       jnp.asarray(_pad(*lanes[c], cap)[1])) for c in plan.refs}
         for ph, _col, value in plan.str_binds:
             env[ph] = jax_cc._scalar_column(int(mapping.get(value, jaxeval.STR_CODE_ABSENT)))
-        return np.asarray(jax_cc._mask_kernel(plan.expr)(env))[:N_ROWS]
+        return np.asarray(jax_cc._mask_kernel(plan.expr)(env))[:n]
 
 
 def _port_mask(plan, lanes, mapping):
@@ -270,6 +277,297 @@ def test_k14_plain_matches_the_host_on_every_mask_case():
             continue  # the host's row-level fallbacks for these shapes differ in type only
         t = device_eval.compile_residual(parse_predicate(q), _types(TT), ())
         assert np.array_equal(_port_mask(t, lanes, mapping), _host_mask(q, lanes, mapping)), q
+
+
+# -- K14's batched launch (residual_masks) against JAX's _mask_kernel, file by file ----
+
+
+def _port_program(t, lanes_list, maps):
+    """The port's program for plan ``t`` over files' lanes, its per-file
+    scalars and envs (lanes padded to a power of two, floor 64)."""
+    envs = []
+    for lanes in lanes_list:
+        n = len(next(iter(lanes.values()))[0])
+        cap = max(64, 1 << max(n - 1, 0).bit_length())
+        envs.append({c: DeviceColumn(torch.from_numpy(_pad(*lanes[c], cap)[0]),
+                                     torch.from_numpy(_pad(*lanes[c], cap)[1]))
+                     for c in t.refs})
+    dtypes = tuple(sorted((c, e.values.dtype) for c, e in envs[0].items()))
+    scalar_types = tuple((ph, device_eval.I64) for ph, _c, _v in t.str_binds)
+    program = column_cache._mask_program(t.expr, dtypes, scalar_types)
+    scal = []
+    for mapping in maps:
+        scal.append({ph: column_cache._scalar_column(
+            int(mapping.get(v, device_eval.STR_CODE_ABSENT)))[1:] for ph, _c, v in t.str_binds})
+    return program, envs, scal
+
+
+def _batched_against_jax(q, files):
+    """``residual_masks`` over ``files`` ([(lanes, mapping, rows)]) against
+    JAX's ``_mask_kernel`` file by file; the bytes between files are False."""
+    j, t = _plans(q)
+    program, envs, scal = _port_program(t, [f[0] for f in files], [f[1] for f in files])
+    ns = [f[2] for f in files]
+    before = dict(column_cache.native.launches)
+    mask, offs = column_cache.residual_masks(program, envs, ns, scal)
+    assert column_cache.native.launches == before  # the plain version never counts
+    assert (offs, mask.numel()) == column_cache.mask_offsets(ns)
+    got = mask.numpy()
+    for (lanes, mapping, n), off, env in zip(files, offs, envs):
+        want = _jax_mask(j, lanes, mapping, n, env[next(iter(t.refs))].values.shape[0])
+        assert np.array_equal(got[off:off + n], want), (q, n)
+        assert not got[off + n:off + (n + 15) // 16 * 16].any()
+    return program
+
+
+BATCH_CASES = ["s = 'alpha'", "s IN ('alpha', 'delta')", "s = 'nosuch' OR a > 10",
+               "year(d) = 2024 OR month(d) = 2", "month(ts) = 12 AND year(ts) > 2000",
+               "a * 2 + l > 10", "x / a > 0.01", "CASE WHEN a > 0 THEN x ELSE l END > 0.5"]
+
+
+@pytest.mark.parametrize("q", BATCH_CASES)
+def test_residual_masks_of_unequal_files_match_jax(q):
+    """Files of 0, 1, 300, 777 and 1000 rows (no multiple of a tile), each
+    with its own dictionary, in one batched call."""
+    files = []
+    for i, (n_lane, n) in enumerate([(64, 0), (64, 1), (300, 300), (777, 777), (1000, 1000)]):
+        lanes, mapping = _lanes(seed=20 + i, n=n_lane)
+        files.append((lanes, mapping, n))
+    _batched_against_jax(q, files)
+
+
+def test_residual_masks_bind_each_files_string_codes():
+    """``cat = 'eu-c'`` over files whose dictionaries differ (the words
+    first seen in another order, one file without 'eu-c'): each file's
+    literal binds its own code."""
+    orders = [("us-w", "eu-c", "ap-s"), ("eu-c", "ap-s", "us-w"), ("ap-s", "us-w", "eu-c"),
+              ("us-w", "ap-s", "sa-e")]
+    files, truth = [], []
+    for i, words in enumerate(orders):
+        rng = np.random.RandomState(i)
+        vals = np.array(words, object)[np.r_[0, 1, 2, rng.randint(0, 3, 197)]]
+        ok = rng.rand(200) > 0.1
+        ok[:3] = True
+        codes, valid, mapping = column_cache._lane_from_column(
+            HostColumn("str", np.where(ok, vals, None), ok))
+        files.append(({"s": (codes, valid)}, mapping, 200))
+        truth.append((vals == "eu-c") & ok)
+    codes = [f[1].get("eu-c") for f in files]
+    assert len(set(codes)) == 4  # three codes, and one file without the word (None)
+    _batched_against_jax("s = 'eu-c'", files)
+    _j, t = _plans("s = 'eu-c'")
+    program, envs, scal = _port_program(t, [f[0] for f in files], [f[1] for f in files])
+    mask, offs = column_cache.residual_masks(program, envs, [200] * 4, scal)
+    for off, want in zip(offs, truth):
+        assert np.array_equal(mask.numpy()[off:off + 200], want)
+
+
+def test_residual_masks_over_more_files_than_one_parameter_block():
+    """70 files: more than one parameter block holds (64), so two launches
+    on the card; on the CPU the plain version walks the same blocks."""
+    files = []
+    for i in range(70):
+        lanes, mapping = _lanes(seed=100 + i, n=40 + i)
+        files.append((lanes, mapping, 40 + i))
+    program = _batched_against_jax("s = 'gamma' AND a > 0", files)
+    assert column_cache._launch_groups(program, 70) == [(0, 64), (64, 70)]
+
+
+#: past the launch's parameters: 200 int options (more literals than they
+#: hold), 200 strings (200 scalars a file), and 40 strings (3 blocks of the
+#: launch's parameters for 8 files, 1 of the staged tables)
+LONG_IN = ["a IN (%s)" % ", ".join(str(v) for v in range(-199, 201, 2)),
+           "NOT (s IN ('gamma', %s))" % ", ".join(f"'w{i}'" for i in range(199)),
+           "s IN ('beta', %s) OR a > 40" % ", ".join(f"'w{i}'" for i in range(39))]
+
+
+@pytest.mark.parametrize("q", LONG_IN)
+def test_residual_masks_past_the_launch_parameters_match_jax(q):
+    """Long IN lists take K14's staged tables, one block over 8 files
+    (each with its own dictionary), and match JAX's ``_mask_kernel`` file
+    by file."""
+    files = []
+    for i, n in enumerate([0, 1, 300, 777, 1000, 1000, 999, 1000]):
+        lanes, mapping = _lanes(seed=40 + i, n=1000, words=("alpha", "w7", "gamma", "w150"))
+        files.append((lanes, mapping, n))
+    program = _batched_against_jax(q, files)
+    assert column_cache._k14_layout(program, 8) is column_cache._K14_GLOBAL
+    assert column_cache._launch_groups(program, 8) == [(0, 8)]
+    # the launch's parameters would take the short programs in more blocks
+    if column_cache._fits_k14(program, column_cache._K14_PARAMS):
+        assert len(column_cache._groups(program, 8, column_cache._K14_PARAMS)) == 3
+
+
+def test_k14_staged_blocks():
+    """The staged tables (``MaskGlobal``) of a 200-string IN over 70 files:
+    20 files a block (4,096 scalars), int16 scalar slots, each file's codes
+    in its own row of the scalar table."""
+    q = "NOT (s IN ('gamma', %s))" % ", ".join(f"'w{i}'" for i in range(199))
+    files = []
+    for i in range(70):
+        lanes, mapping = _lanes(seed=300 + i, n=64, words=("w3", "gamma", "alpha", "w198"))
+        files.append((lanes, mapping, 64 - i % 7))
+    _j, t = _plans(q)
+    program, envs, scal = _port_program(t, [f[0] for f in files], [f[1] for f in files])
+    ns = [f[2] for f in files]
+    offs, _ = column_cache.mask_offsets(ns)
+    ptrs = [p for env in envs for c in program.columns
+            for p in (env[c].values.data_ptr(), env[c].valid.data_ptr())]
+    layout = column_cache._k14_layout(program, 70)
+    assert layout is column_cache._K14_GLOBAL
+    raw = column_cache._param_blocks(program, ptrs, ns, scal, offs, layout)
+    assert len(raw) == 4 and all(len(b) == 101696 for b in raw)
+    names = sorted(program.scalar_slots)
+    assert len(names) == 200 and len(program.lits) > 128
+    for blk, lo in zip((np.frombuffer(bytes(b), layout)[0] for b in raw), (0, 20, 40, 60)):
+        hi = min(lo + 20, 70)
+        assert blk["hdr"][column_cache._H_FILES] == hi - lo
+        assert blk["hdr"][column_cache._H_SCAL] == 200
+        for k, name in enumerate(names):
+            assert blk["lit_scal"][program.scalar_slots[name]] == k
+        fscal = blk["fscal"][:200 * (hi - lo)].reshape(hi - lo, 200)
+        for i in range(lo, hi):
+            assert fscal[i - lo].tolist() == [scal[i][name][0] for name in names]
+        assert blk["ins"][:len(program.instrs)].tolist() == program.instrs.tolist()
+    _batched_against_jax(q, files[:10])
+
+
+@pytest.mark.parametrize("kind", ["ints", "strings"])
+def test_device_residual_masks_keep_a_long_in_list_on_the_device(tmp_path, kind):
+    """A scan whose residual is an IN of 200 options stays on the device
+    (``scan.device.fallback`` does not move, ``scan.device.engaged`` does)
+    and returns the JAX package's per-file masks."""
+    import pyarrow as pa
+
+    import chip_smoke
+    import delta_tpu_torch
+    from delta_tpu.commands.write import WriteIntoDelta as JaxWrite
+    from delta_tpu.log.deltalog import DeltaLog as JaxDeltaLog
+    from delta_tpu.utils.config import conf as jax_conf
+
+    n = 4000
+    data = chip_smoke.config12_data(n)
+    path = str(tmp_path / "long_in")
+    tbl = pa.table({"id": data["id"], "price": data["price"], "qty": data["qty"],
+                    "cat": pa.array(data["cat"].tolist(), pa.string()),
+                    "ts": pa.array(data["ts"], pa.timestamp("us"))})
+    with jax_conf.set_temporarily(**{"delta.tpu.write.targetFileRows": n // 4}):
+        JaxWrite(JaxDeltaLog.for_table(path), "append", tbl).run()
+    if kind == "ints":
+        q = "price IN (%s)" % ", ".join(str(v) for v in range(0, 4000, 20))
+        want_rows = int(np.isin(data["price"], np.arange(0, 4000, 20)).sum())
+    else:
+        words = ["eu-c", "ap-s"] + [f"x{i}" for i in range(198)]
+        q = "cat IN (%s)" % ", ".join(f"'{w}'" for w in words)
+        want_rows = int(np.isin(data["cat"], words).sum())
+    jax_cc.ColumnCache.reset()
+    jsnap = JaxDeltaLog.for_table(path).update()
+    tsnap = delta_tpu_torch.DeltaLog.for_table(path, device="cpu").update()
+    force = {"delta.tpu.read.deviceResidual.mode": "force"}
+    with jax_conf.set_temporarily(**force):
+        want = jax_cc.device_residual_masks(jsnap, jsnap.all_files, jax_parse(q))
+    c0 = telemetry.counters("scan.device")
+    with conf.set_temporarily(**force):
+        got = column_cache.device_residual_masks(tsnap, tsnap.all_files, parse_predicate(q))
+    c1 = telemetry.counters("scan.device")
+    assert c1.get("scan.device.fallback", 0) == c0.get("scan.device.fallback", 0)
+    assert c1.get("scan.device.engaged", 0) == c0.get("scan.device.engaged", 0) + 1
+    assert want is not None and got is not None and sorted(got) == sorted(want)
+    for f, m in want.items():
+        assert np.array_equal(got[f], m), f
+    assert sum(int(m.sum()) for m in got.values()) == want_rows > 0
+    jax_cc.ColumnCache.reset()
+
+
+def test_k14_parameter_blocks():
+    """The parameter blocks the card's launch takes (``csrc/residual_mask.cu``'s
+    MaskParams), packed on the host: the file table of each block, the
+    per-file string codes, and the instructions computed once a tile."""
+    files = []
+    for i in range(70):
+        n = [0, 1, 300][i % 3] if i < 6 else 500 + i
+        lanes, mapping = _lanes(seed=200 + i, n=max(n, 64))
+        files.append((lanes, mapping, n))
+    _j, t = _plans("s = 'beta' AND a * 2 > 3 + 4")
+    program, envs, scal = _port_program(t, [f[0] for f in files], [f[1] for f in files])
+    ns = [f[2] for f in files]
+    offs, _ = column_cache.mask_offsets(ns)
+    ptrs = [p for env in envs for c in program.columns
+            for p in (env[c].values.data_ptr(), env[c].valid.data_ptr())]
+    assert column_cache._k14_layout(program, 70) is column_cache._K14_PARAMS
+    raw = column_cache._param_blocks(program, ptrs, ns, scal, offs, column_cache._K14_PARAMS)
+    assert len(raw) == 2 and all(len(b) == 14016 for b in raw)
+    blocks = [np.frombuffer(bytes(b), column_cache._K14_PARAMS)[0] for b in raw]
+    hdr = blocks[0]["hdr"]
+    tile = int(hdr[column_cache._H_TILE])
+    assert tile == column_cache._tile_rows(program) and tile in (256, 512, 1024, 2048)
+    for blk, (lo, hi) in zip(blocks, [(0, 64), (64, 70)]):
+        k = hi - lo
+        assert blk["hdr"][column_cache._H_FILES] == k
+        tiles = np.cumsum([(n + tile - 1) // tile for n in ns[lo:hi]])
+        assert np.array_equal(blk["tile_end"][:k], tiles)
+        assert blk["hdr"][column_cache._H_TILES] == tiles[-1]
+        assert np.array_equal(blk["rows"][:k], ns[lo:hi])
+        assert np.array_equal(blk["out_off"][:k], offs[lo:hi])
+        cols = program.columns
+        want_ptrs = [p for env in envs[lo:hi] for c in cols
+                     for p in (env[c].values.data_ptr(), env[c].valid.data_ptr())]
+        assert blk["ptr"][:len(want_ptrs)].tolist() == want_ptrs
+        [slot] = program.scalar_slots.values()
+        assert blk["lit_scal"][slot] == 0 and (blk["lit_scal"] >= 0).sum() == 1
+        assert blk["fscal"][:k].tolist() == [s_[t.str_binds[0][0]][0] for s_ in scal[lo:hi]]
+    ins = program.instrs
+    usrc = blocks[0]["usrc"][:len(ins)]
+    ops = [device_eval.OPS[o] for o in ins[:, 0]]
+    assert all(usrc[pc, 0] == 1 for pc, op in enumerate(ops) if op == "LIT")
+    assert all(usrc[pc, 0] == 0 for pc, op in enumerate(ops) if op == "COL")
+    # 3 + 4 (and the literals' widening casts) are computed from literals
+    # only, once a tile; a * 2 is not
+    uniform = [op for op, u in zip(ops, usrc[:, 0]) if u == 1 and op != "LIT"]
+    assert "ADD" in uniform and set(uniform) == {"ADD", "CAST"}
+    mul = ops.index("MUL")
+    assert usrc[mul, 0] == 0 and usrc[mul, 1] == -1  # a * 2: a per row, 2 from its slot
+    assert ops[usrc[mul, 2]] in ("LIT", "CAST") and usrc[usrc[mul, 2], 0] == 1
+    assert blocks[0]["hdr"][column_cache._H_ROOT_SLOT] == -1
+
+
+def test_device_residual_masks_match_jax_on_config12(tmp_path):
+    """``device_residual_masks`` (one batched call a query, one download)
+    against the JAX package's per-file masks on bench config 12's seven
+    queries at 8,000 rows in 8 files: one table, written by the JAX
+    package, read by both."""
+    import pyarrow as pa
+
+    import chip_smoke
+    import delta_tpu_torch
+    from delta_tpu.commands.write import WriteIntoDelta as JaxWrite
+    from delta_tpu.log.deltalog import DeltaLog as JaxDeltaLog
+    from delta_tpu.utils.config import conf as jax_conf
+
+    n = 8000
+    data = chip_smoke.config12_data(n)
+    path = str(tmp_path / "c12")
+    tbl = pa.table({"id": data["id"], "price": data["price"], "qty": data["qty"],
+                    "cat": pa.array(data["cat"].tolist(), pa.string()),
+                    "ts": pa.array(data["ts"], pa.timestamp("us"))})
+    with jax_conf.set_temporarily(**{"delta.tpu.write.targetFileRows": n // 8}):
+        JaxWrite(JaxDeltaLog.for_table(path), "append", tbl).run()
+    jax_cc.ColumnCache.reset()
+    jsnap = JaxDeltaLog.for_table(path).update()
+    tsnap = delta_tpu_torch.DeltaLog.for_table(path, device="cpu").update()
+    assert len(tsnap.all_files) == 8
+    force = {"delta.tpu.read.deviceResidual.mode": "force"}
+    for name, q, mask in chip_smoke.config12_queries(n)(data):
+        with jax_conf.set_temporarily(**force):
+            want = jax_cc.device_residual_masks(jsnap, jsnap.all_files, jax_parse(q))
+        with conf.set_temporarily(**force):
+            got = column_cache.device_residual_masks(tsnap, tsnap.all_files,
+                                                     parse_predicate(q))
+        assert want is not None and got is not None and sorted(got) == sorted(want), name
+        for f, m in want.items():
+            assert np.array_equal(got[f], m), (name, f)
+        assert sum(int(m.sum()) for m in got.values()) == int(mask.sum()), name
+    jax_cc.ColumnCache.reset()
 
 
 # -- the calendar opcodes ----------------------------------------------------------

@@ -463,6 +463,48 @@ def test_join_probe_kernel_matches_plain(cuda, dtype, cap_t, n, cap_s, m, shape)
     assert _equal_all(got, join_kernel.join_probe_plain(tt, ss))
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("shape", ["marker", "dups", "none", "all", "low"])
+def test_join_probe_hash_cases_match_plain_and_k13(cuda, dtype, shape):
+    """K12 and K13 (8 slabs of one card) on chip_smoke's join traffics,
+    among them keys equal to the hash table's empty-slot key (the type's
+    minimum) and the type's maximum on both sides: each against its plain
+    version and against each other, exactly."""
+    import chip_smoke
+    from delta_tpu_torch.ops import join_kernel
+
+    rng = np.random.RandomState(5)
+    t_in, s_in = chip_smoke.k12_inputs(rng, dtype, 1 << 17, 120_000, 1 << 13, 8000, shape)
+    tt, ss = torch.from_numpy(t_in).to(cuda), torch.from_numpy(s_in).to(cuda)
+    k12 = join_kernel.join_probe(tt, ss)
+    before = native.launches["sharded_join_probe"]
+    k13 = join_kernel.sharded_join_probe(list(tt.view(8, -1)), list(ss.view(8, -1)))
+    torch.cuda.synchronize()
+    assert native.launches["sharded_join_probe"] == before + 1
+    assert _equal_all(k12, join_kernel.join_probe_plain(tt, ss))
+    assert _equal_all(k13, join_kernel.sharded_join_probe_plain(list(tt.view(8, -1)), ss))
+    assert _equal_all(k12, k13)
+
+
+def test_int64_key_equal_to_the_empty_slot_marker(cuda):
+    """INT64_MIN stores as an empty slot: it keeps its count and hit flag
+    apart, and matches, counts and flags like any key."""
+    from delta_tpu_torch.ops import join_kernel
+
+    lo = np.iinfo(np.int64).min
+    s = np.array([lo, 5, lo, 7, 9, 9, 1, 2], np.int64)
+    t = np.array([lo, 3, 5, 9, 100, lo, 0, 1] + [4] * 8, np.int64)
+    tt, ss = torch.from_numpy(t).to(cuda), torch.from_numpy(s).to(cuda)
+    got = join_kernel.join_probe(tt, ss)
+    assert _equal_all(got, join_kernel.join_probe_plain(tt, ss))
+    assert np.unpackbits(got[0].cpu().numpy())[:8].tolist() == [1, 0, 1, 1, 0, 1, 0, 1]
+    assert np.unpackbits(got[1].cpu().numpy()).tolist() == [1, 1, 1, 0, 1, 1, 1, 0]
+    assert bool(got[2][0])  # INT64_MIN and 9 are in the source twice
+    only_marker = join_kernel.join_probe(tt[:8].clone(), torch.full_like(ss, lo))
+    assert _equal_all(only_marker, join_kernel.join_probe_plain(tt[:8].clone(),
+                                                                torch.full_like(ss, lo)))
+
+
 def test_merge_routes_on_the_card_match_the_reference(cuda, tmp_path):
     """A small bench-config-2-shaped MERGE through each route on the card
     (host, device-cold, resident, device-upload), each end state equal to a
@@ -549,6 +591,57 @@ def test_residual_mask_kernel_matches_plain(cuda, n, cap):
         torch.cuda.synchronize()
         assert torch.equal(got, column_cache.residual_mask_plain(program, env, n, scalars)), sql
     assert native.launches["residual_mask"] == before + len(chip_smoke.K14_CORPUS)
+
+
+def test_residual_masks_batched_launch_matches_plain(cuda):
+    """K14's one launch over files of unequal sizes (0, 1, 77, 4097,
+    250,000, a padded 2^20 lane and 70 more: two parameter blocks), each
+    with its own string dictionary, over chip_smoke.py's corpus: the whole
+    mask exact against the plain version, the bytes between files
+    included, one launch a block (the long IN lists of the corpus take the
+    staged tables, 20 files a block where a file has 200 scalars)."""
+    import chip_smoke
+    from delta_tpu_torch.ops import column_cache
+
+    files = chip_smoke.k14_files(cuda)
+    envs, ns = [f[0] for f in files], [f[2] for f in files]
+    for sql in chip_smoke.K14_CORPUS:
+        program, _ = chip_smoke.k14_program(sql, envs[0], files[0][1])
+        scal = [chip_smoke.k14_program(sql, env, mapping)[1] for env, mapping, _ in files]
+        staged = column_cache._k14_layout(program, len(files)) is column_cache._K14_GLOBAL
+        before = native.launches["residual_mask"]
+        got, offs = column_cache.residual_masks(program, envs, ns, scal)
+        torch.cuda.synchronize()
+        want = 4 if staged and program.scalar_slots else 2
+        assert native.launches["residual_mask"] - before == len(
+            column_cache._launch_groups(program, len(files))) == want, sql
+        ref, ref_offs = column_cache.residual_masks_plain(program, envs, ns, scal)
+        assert offs == ref_offs and torch.equal(got, ref), sql
+
+
+@pytest.mark.parametrize("sql", ["a IN (%s)" % ", ".join(str(v) for v in range(200)),
+                                 "s IN ('alpha', %s)" % ", ".join(f"'w{i}'" for i in range(199)),
+                                 "s IN ('beta', %s)" % ", ".join(f"'w{i}'" for i in range(39))])
+def test_residual_masks_past_the_launch_parameters_match_plain(cuda, sql):
+    """An IN of 200 options (more literals than the launch's parameters
+    hold), of 200 strings (200 scalars a file), and of 40 strings (whose
+    scalars would split 8 files into 3 blocks of the launch's parameters):
+    K14's staged tables, one launch over 8 files of 250,000 rows, exact
+    against the plain version."""
+    import chip_smoke
+    from delta_tpu_torch.ops import column_cache
+
+    files = [chip_smoke.k14_lanes(250_000, 1 << 18, 300 + i, cuda) for i in range(8)]
+    envs, ns = [f[0] for f in files], [250_000] * 8
+    program, _ = chip_smoke.k14_program(sql, envs[0], files[0][1])
+    scal = [chip_smoke.k14_program(sql, env, mapping)[1] for env, mapping in files]
+    assert column_cache._k14_layout(program, 8) is column_cache._K14_GLOBAL
+    before = native.launches["residual_mask"]
+    got, offs = column_cache.residual_masks(program, envs, ns, scal)
+    torch.cuda.synchronize()
+    assert native.launches["residual_mask"] - before == 1
+    ref, ref_offs = column_cache.residual_masks_plain(program, envs, ns, scal)
+    assert offs == ref_offs and torch.equal(got, ref) and got.any()
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
@@ -797,7 +890,7 @@ def test_sharded_join_probe_kernel_matches_plain_and_k12(cuda, dtype):
 
     got = join_kernel.sharded_join_probe(list(tt.view(8, -1)), list(st.view(8, -1)))
     torch.cuda.synchronize()
-    assert native.launches["sharded_join_probe"] == before + 8
+    assert native.launches["sharded_join_probe"] == before + 1  # one a distinct device
     ref = join_kernel.sharded_join_probe_plain([x.cpu() for x in tt.view(8, -1)], st.cpu())
     k12 = join_kernel.join_probe(tt, st)
     for g, r, k in zip(got, ref, k12):
@@ -834,7 +927,7 @@ def test_sharded_paths_on_the_card_match_the_cpu(cuda, mesh8):
     before = native.launches["sharded_join_probe"]
     got = join_kernel.inner_join(t, t_ok, s, s_ok, mesh=mesh.state_mesh(device=cuda),
                                  device=cuda)
-    assert native.launches["sharded_join_probe"] == before + 8
+    assert native.launches["sharded_join_probe"] == before + 1  # one a distinct device
     want = join_kernel.inner_join(t, t_ok, s, s_ok, device="cpu")
     assert np.array_equal(got.t_first_s, want.t_first_s)
     assert np.array_equal(got.s_matched, want.s_matched) and got.any_multi == want.any_multi

@@ -3,7 +3,9 @@
 K12 through its plain version), ``_host_join`` and ``_sentinel_encode`` on
 ``tests/test_link.py``'s inputs (those without a ``budget_s``), the plain
 K12 against JAX's ``_single_device_kernel`` on the same padded int32 and
-int64 inputs, and the host equi join against a brute-force pairing.
+int64 inputs (among them the traffics the card's hash table is held to:
+a duplicate-heavy source, all-miss and all-hit targets, the types' extreme
+keys), and the host equi join against a brute-force pairing.
 Every comparison is exact."""
 import jax
 import numpy as np
@@ -113,6 +115,60 @@ def test_join_probe_plain_matches_single_device_kernel(case, dtype):
     # the wrapper takes the plain version for tensors on the CPU
     wrapped = jk.join_probe(torch.from_numpy(t_in), torch.from_numpy(s_in))
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+
+
+def _traffic(kind, dtype, cap_t=1 << 14, n=12_000, cap_s=1 << 11, m=2000, seed=11):
+    """Padded kernel inputs of the traffics a hash probe meets (the target's
+    sentinel at the top of the range, the source's below it): ``dups`` (one
+    source key 600 times, in 5% of the targets), ``miss`` (no target key in
+    the source), ``hit`` (every target key in the source) and ``extremes``
+    (the type's minimum, which a hash slot cannot hold as its key, its
+    minimum + 1, its maximum - 1 and its maximum, on both sides among
+    narrow keys)."""
+    rng = np.random.RandomState(seed)
+    info = np.iinfo(dtype)
+    if kind == "dups":
+        t = rng.randint(-5000, 5000, n)
+        s = np.concatenate([np.full(600, 77), rng.randint(-5000, 5000, m - 600)])
+        t[rng.rand(n) < 0.05] = 77
+    elif kind == "miss":
+        t, s = rng.randint(-5000, 5000, n) * 2, rng.randint(-5000, 5000, m) * 2 + 1
+    elif kind == "hit":
+        s = rng.randint(-(1 << 30), 1 << 30, m)
+        t = s[rng.randint(0, m, n)]
+    else:
+        ends = np.array([info.min, info.min + 1, info.max - 1, info.max], np.int64)
+        s = rng.randint(-300, 300, m).astype(np.int64)
+        t = rng.randint(-300, 300, n).astype(np.int64)
+        s[::11] = info.min
+        s[1::13] = ends[rng.randint(0, 4, len(s[1::13]))]
+        t[::7] = ends[rng.randint(0, 4, len(t[::7]))]
+    t_in = np.full(cap_t, info.max, dtype)
+    t_in[:n] = np.asarray(t, np.int64).astype(dtype)
+    s_in = np.full(cap_s, info.max - 1, dtype)
+    s_in[:m] = np.asarray(s, np.int64).astype(dtype)
+    return t_in, s_in
+
+
+HASH_TRAFFIC = ["dups", "miss", "hit", "extremes"]
+
+
+@pytest.mark.parametrize("kind", HASH_TRAFFIC)
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_join_probe_plain_matches_single_device_kernel_on_hash_traffic(kind, dtype):
+    """K12's plain version (the wrapper on the CPU) against JAX's kernel on
+    the traffics the hash table is held to on the card, exactly."""
+    t_in, s_in = _traffic(kind, dtype)
+    with enable_x64():
+        want = [np.asarray(x) for x in jax_jk._single_device_kernel(jax)(t_in, s_in)]
+    got = jk.join_probe(torch.from_numpy(t_in), torch.from_numpy(s_in))
+    assert np.array_equal(got[0].numpy(), want[0])
+    assert np.array_equal(got[1].numpy(), want[1])
+    assert bool(got[2][0]) == bool(want[2])
+    if kind == "miss":
+        assert not got[0].any() and not got[1].any()
+    if kind == "hit":
+        assert np.unpackbits(got[0].numpy())[:12_000].all()
 
 
 def test_join_probe_refuses_bad_inputs():

@@ -453,7 +453,7 @@ def test_a_failing_kernel_raises_out_of_the_scan(cc_table, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("kernel failed")
 
-    monkeypatch.setattr(column_cache, "residual_mask", boom)
+    monkeypatch.setattr(column_cache, "residual_masks", boom)  # the read path's one launch
     with pytest.raises(RuntimeError, match="kernel failed"):
         port_rows(cc_table, "cat = 'alpha'")
 

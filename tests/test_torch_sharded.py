@@ -402,3 +402,37 @@ def test_prefer_mesh_cold_estimate_matches_jax(tmp_path):
         got = case(Pkg("torch"), str(tmp_path / "torch"))
         want = case(Pkg("jax"), str(tmp_path / "jax"))
     assert got == want and got[0] is not None
+
+
+# -- K13's plain version against JAX's `_sharded_kernel` on the hash traffics -----------
+
+
+@pytest.mark.parametrize("kind", ["dups", "miss", "hit", "extremes"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_sharded_join_probe_matches_sharded_kernel_on_hash_traffic(kind, dtype):
+    """K13 over the 8-entry CPU mesh (its wrapper takes the plain version)
+    against JAX's 8-device kernel on the same padded inputs, and against
+    K12 on the 1-entry mesh, exactly."""
+    import jax
+
+    from delta_tpu.ops import join_kernel as jax_jk
+    from delta_tpu.parallel import mesh as jax_mesh
+    from delta_tpu.utils.jaxcompat import enable_x64
+    from tests.test_torch_join_kernel import _traffic
+
+    t_in, s_in = _traffic(kind, dtype)
+    m = jax_mesh.state_mesh()
+    assert jax_mesh.shard_count(m) == 8
+    with enable_x64():
+        kernel = jax_jk._sharded_kernel(jax, m, jax_mesh.STATE_AXIS)
+        want = [np.asarray(x) for x in kernel(t_in.reshape(8, -1), s_in.reshape(8, -1))]
+    with mesh.using_devices(["cpu"] * 8) as cpu8:
+        devs = [torch.device(d) for d in cpu8]
+        got = join_kernel.sharded_join_probe(
+            [torch.from_numpy(x).to(d) for x, d in zip(t_in.reshape(8, -1), devs)],
+            [torch.from_numpy(x).to(d) for x, d in zip(s_in.reshape(8, -1), devs)])
+    assert np.array_equal(got[0].numpy(), want[0].reshape(-1))
+    assert np.array_equal(got[1].numpy(), want[1])
+    assert bool(got[2][0]) == bool(want[2])
+    k12 = join_kernel.join_probe(torch.from_numpy(t_in), torch.from_numpy(s_in))
+    assert all(torch.equal(a, b) for a, b in zip(got, k12))
