@@ -128,8 +128,9 @@ Phases, each reported on its own line:
    upload + K8, phase 6's probes, K12, config 12's host filter and warm
    device pass, config 6's host and device plans);
 11. per kernel: time on the card (CUDA events, warmed, many launches; the
-   block cull's, K12's, K13's and K14's also replayed from a CUDA graph,
-   ``graph_ms``, and K1's, K8's, K12's, K13's and K14's split by the
+   block cull's, K5's, K6's, K12's, K13's and K14's also replayed from a CUDA
+   graph, ``graph_ms`` (K5's and K6's without the call's download of the
+   sums), and K1's, K5's, K6's, K8's, K12's, K13's and K14's split by the
    kernels they launch, ``breakdown_us``, left out where the profiler's
    trace lost kernel records; K12's and K13's hash probes in L2
    sectors at an L2 rate measured in the run) at
@@ -150,11 +151,12 @@ Phases, each reported on its own line:
    ``mesh.using_devices([cuda:0] * 8)``: bench config 6's 256-query plan
    under ``distributed.plan.mode=force`` (``resident_shards == 8``, every
    result ``device-sharded``, equal to one card's plans and the host's);
-   ``replay_sharded`` of the log's action stream, equal to K5's masks and
-   sums; M4, a fifth bench config 2 upsert of 1M new rows through the
-   upload join on a hard-linked copy of phase 10's table (deletion vectors
-   off over its deletion-vectored files, as M3), which must launch K13 once
-   (one distinct device) and no K12 and end in the reference upsert's state;
+   ``replay_sharded`` of the log's action stream, equal to K5's masks and sums
+   (K6 one launch a replay: 4 on the phase's path); M4, a fifth bench
+   config 2 upsert of 1M new rows through the upload join on a hard-linked
+   copy of phase 10's table (deletion vectors off over its
+   deletion-vectored files, as M3), which must launch K13 once (one
+   distinct device) and no K12 and end in the reference upsert's state;
    ``multichip.dryrun_multichip(8)``; then the two shard constants measured
    on the one card (one JSON line) and the plan under ``auto`` priced with
    them, its route the one its prices imply. Where there are several cards,
@@ -454,9 +456,13 @@ def k6_checks(dev):
         check(np.array_equal(alive, k5[0].cpu().numpy())
               and np.array_equal(tomb, k5[1].cpu().numpy())
               and torch.equal(got[2], k5[2]), f"K6 != K5 at cutoff {cutoff}")
+        one = replay_kernel.sharded_replay([tuple(cols)], num_paths, cutoff)
+        check(torch.equal(one[0][0], k5[0]) and torch.equal(one[1][0], k5[1])
+              and torch.equal(one[2], k5[2]), f"K6 with one shard != K5 at cutoff {cutoff}")
     rows = [int((s[0] >= 0).sum()) for s in slabs]
     say(f"kernels: sharded_replay (K6) n=2^20 over {MESH_SHARDS} shards (rows a shard {rows}, "
-        f"cap {slabs[0][0].shape[0]}) cutoffs 0, 1000 exact against its plain version and K5 "
+        f"cap {slabs[0][0].shape[0]}) cutoffs 0, 1000 exact against its plain version and K5, "
+        "and with one shard against K5 "
         f"(sums {got[2].tolist()})")
 
 
@@ -2334,6 +2340,22 @@ def cull_bytes(mins, maxs, alive, lo, hi, out_bytes):
     return alive.shape[0] + 8 * int(need.sum()) + 2 * lo.numel() * 4 + out_bytes
 
 
+def replay_bytes(slabs, num_paths):
+    """Bytes the replay (K5 on one slab, K6 on a device's slabs) needs on
+    these inputs: every row's path id, the seq and is_add of every row that
+    is no pad, one 8-byte field of each winning row (its size where it adds,
+    its deletion time where it removes: a row that loses needs neither), both
+    masks of every row out, and the three sums."""
+    pid = torch.cat([c[0] for c in slabs])
+    seq = torch.cat([c[1] for c in slabs])
+    valid = pid >= 0
+    p, q = pid[valid].long(), seq[valid]
+    best = torch.full((max(num_paths, 1),), -(1 << 63), dtype=torch.int64, device=pid.device)
+    best.scatter_reduce_(0, p, q, "amax")
+    winners = int((best[p] == q).sum())
+    return (4 + 2) * pid.numel() + (8 + 1) * p.numel() + 8 * winners + 3 * 8
+
+
 _L2 = {}
 
 
@@ -2509,16 +2531,22 @@ def measure_normal_leg(dev, ctx):
     valid = cols[0] >= 0
     pid64, seq = cols[0][valid].long(), cols[1][valid]
     best = torch.empty(num_paths, dtype=torch.int64, device=dev)
-    b, by = bound(cap * (4 + 8 + 1 + 8 + 8) + 2 * cap + 3 * 8)
+    b, by = bound(replay_bytes([cols], num_paths))
+    fn = lambda: replay_kernel.replay(*cols, num_paths, cutoff)
     out.append({
         "name": "replay", "route": "cuda", "source": "delta_tpu_torch/csrc/replay.cu",
         "replaces": "delta_tpu/ops/replay_kernel.py:56", "launches": ctx["fallback_launches"]["replay"],
         "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
-        "ms": cuda_ms(lambda: replay_kernel.replay(*cols, num_paths, cutoff), 50),
+        "ms": cuda_ms(fn, 50),
         "plain_ms": cuda_ms(lambda: replay_kernel.replay_plain(*cols, num_paths, cutoff), 10),
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: best.fill_(-(1 << 63)).scatter_reduce_(
             0, pid64, seq, "amax"), 50),
+        # the launch without the call's download of its sums (a CUDA graph
+        # cannot hold a synchronisation)
+        "graph_ms": graph_ms(lambda: replay_kernel._launch("replay", [cols], num_paths, cutoff),
+                             20),
+        "breakdown_us": kernel_breakdown(fn),
         "shape": f"n={cap} ({stream.num_rows} actions) num_paths={num_paths}"})
     return out
 
@@ -2615,11 +2643,11 @@ def measure_slab(dev, mctx):
         rows = padded(rows_np + off, d)
         got, ref = fn(valid, rows), plain(valid, rows, value)
         check(torch.equal(got, ref), f"{name} != plain on the slab")
-        lane, kept = valid.clone(), rows[rows < cap].long()
+        kept = rows[rows < cap].long()
         out.append(slab_row(name, "slab_update.cu", launches, [got], [ref],
                             cuda_ms(lambda: fn(valid, rows), 50),
                             cuda_ms(lambda: plain(valid, rows, value), 20), 2 * cap + 4 * d,
-                            cuda_ms(lambda: lane.index_fill_(0, kept, value), 50),
+                            cuda_ms(lambda: valid.index_fill(0, kept, value), 50),
                             f"cap={cap} d={d} ({len(rows_np)} rows)"))
     d = state_cache._next_pow2(len(mctx["dv10"]), floor=64)
     rows = padded(mctx["dv10"] + off, d)
@@ -2640,13 +2668,16 @@ def measure_slab(dev, mctx):
     got = key_cache.slab_append(keys, valid, rows, nk, nv)
     ref = key_cache.slab_append_plain(keys, valid, rows, nk, nv)
     check(equal_all(got, ref), "slab_append != plain at the advance's shape")
-    lane, kept, nk64 = keys.clone(), rows[rows < cap].long(), nk[:a_rows].long()
-    kept_nk = nk64[: len(kept)]
+    kept, nk64 = rows[rows < cap].long(), nk[:a_rows].long()
+    kept_nk, kept_nv = nk64[: len(kept)], nv[: len(kept)]
+    # K11 writes new lanes (a probe in flight keeps the ones it pinned): the
+    # library's out-of-place index_copy computes the same function
     out.append(slab_row("slab_append", "slab_update.cu", launches, got, ref,
                         cuda_ms(lambda: key_cache.slab_append(keys, valid, rows, nk, nv), 20),
                         cuda_ms(lambda: key_cache.slab_append_plain(keys, valid, rows, nk, nv),
                                 10), 18 * cap + 9 * a,
-                        cuda_ms(lambda: lane.index_copy_(0, kept, kept_nk), 50),
+                        cuda_ms(lambda: (torch.index_copy(keys, 0, kept, kept_nk),
+                                         torch.index_copy(valid, 0, kept, kept_nv)), 50),
                         f"cap={cap} a={a} ({a_rows} rows, {len(kept)} inside cap)"))
 
     k32 = keys.to(torch.int32)
@@ -2663,14 +2694,20 @@ def measure_slab(dev, mctx):
     got = key_cache.slab_slice_append(keys, valid, start, nk, nv)
     ref = key_cache.slab_slice_append_plain(keys, valid, start, nk, nv)
     check(equal_all(got, ref), "slab_slice_append != plain at the advance's shape")
-    lane, nk64 = keys.clone(), nk.long()
+    nk64 = nk.long()
+
+    def library_slice():
+        k, v = keys.clone(), valid.clone()
+        k[start:start + a].copy_(nk64)
+        v[start:start + a].copy_(nv)
+        return k, v
+
     out.append(slab_row("slab_slice_append", "slab_update.cu", launches, got, ref,
                         cuda_ms(lambda: key_cache.slab_slice_append(keys, valid, start, nk, nv),
                                 50),
                         cuda_ms(lambda: key_cache.slab_slice_append_plain(keys, valid, start,
                                                                           nk, nv), 20),
-                        18 * cap + 5 * a,
-                        cuda_ms(lambda: lane[start:start + a].copy_(nk64), 50),
+                        18 * cap + 5 * a, cuda_ms(library_slice, 50),
                         f"cap={cap} a={a} start={start}"))
     return out
 
@@ -2857,6 +2894,9 @@ def run_mesh(dev, c6, c2a, workdir):
         for name in ("sharded_block_cull", "sharded_replay", "sharded_join_probe",
                      "shard_combine", "expr_eval"):
             check(launches[name] > 0, f"kernel {name} was not launched on the mesh's path")
+        # K6 launches once a replay on one card: this phase's and the dryrun's three
+        check(launches["sharded_replay"] == 4,
+              f"sharded_replay launched {launches['sharded_replay']} times for 4 replays")
 
         # auto, priced with this run's shard constants
         lo = torch.from_numpy(state_cache._f32_down(np.stack([r.lo for r in ranges])))
@@ -2927,24 +2967,29 @@ def measure_mesh(dev, xctx):
     check(all(torch.equal(g, r) for g, r in zip(got[0] + got[1], ref[0] + ref[1]))
           and torch.equal(got[2], ref[2]), "sharded_replay != plain on the log's stream")
     cap_sh = slabs[0][0].shape[0]
-    b, by = bound(MESH_SHARDS * cap_sh * (4 + 8 + 1 + 8 + 8 + 2) + MESH_SHARDS * 3 * 8 + 3 * 8)
+    b, by = bound(replay_bytes(slabs, num_paths))
     whole = [torch.from_numpy(np.asarray(a)).to(dev) for a in (stream.path_id, stream.seq)]
     pid64, seq = whole[0].long(), whole[1]
     best = torch.empty(num_paths, dtype=torch.int64, device=dev)
+    fn = lambda: replay_kernel.sharded_replay(slabs, num_paths, cutoff)
     out.append({
         "name": "sharded_replay", "route": "cuda", "source": "delta_tpu_torch/csrc/replay.cu",
         "replaces": "delta_tpu/ops/replay_kernel.py:206",
         "launches": launches["sharded_replay"],
         "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got[0] + got[1] + [got[2]],
                                                                ref[0] + ref[1] + [ref[2]])),
-        "ms": cuda_ms(lambda: replay_kernel.sharded_replay(slabs, num_paths, cutoff), 20),
+        "ms": cuda_ms(fn, 20),
         "plain_ms": cuda_ms(lambda: replay_kernel.sharded_replay_plain(slabs, num_paths,
                                                                        cutoff), 5),
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: best.fill_(-(1 << 63)).scatter_reduce_(
             0, pid64, seq, "amax"), 50),
+        # the launch and the combine, without the call's download of the sums
+        "graph_ms": graph_ms(lambda: replay_kernel._sharded_launch(slabs, num_paths, cutoff),
+                             20),
+        "breakdown_us": kernel_breakdown(fn),
         "shape": f"{MESH_SHARDS} shards x cap={cap_sh} ({stream.num_rows} actions) "
-                 f"num_paths={num_paths}"})
+                 f"num_paths={num_paths}: one launch"})
     del slabs, whole, pid64, seq, best
 
     # K13 at M4's own inputs

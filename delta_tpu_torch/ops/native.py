@@ -15,8 +15,9 @@ plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
 ``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
 add one where they launch, and nowhere else: a sharded kernel counts one
-launch a shard, or (the join probe K13) one a distinct device; the residual
-mask K14 one a parameter block (a query's files).
+launch a shard (the block cull K7), or one a distinct device (the replay K6,
+the join probe K13); the residual mask K14 one a parameter block (a query's
+files).
 """
 from __future__ import annotations
 
@@ -52,8 +53,7 @@ _KERNELS = {
                      [_P, _P, _P, _I, _I, _L, _P]),
     "winner_bits": ("winner_bits", "dtt_winner_bits",
                     [_P, _L, _P, _I, _P, _P, _P]),
-    "replay": ("replay", "dtt_replay",
-               [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _P]),
+    "replay": ("replay", "dtt_replay", [_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _L, _P]),
     "expr_eval": ("expr_eval", "dtt_expr_eval",
                   [_P, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _I, _I, _P]),
     "slab_sort": ("slab_sort", "dtt_slab_sort",
@@ -75,8 +75,7 @@ _KERNELS = {
     "residual_mask": ("residual_mask", "dtt_residual_masks", [_P, _L, _P, _P, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
     "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
-    "sharded_replay": ("replay", "dtt_replay_shard",
-                       [_P, _P, _P, _P, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I, _P]),
+    "sharded_replay": ("replay", "dtt_replay_shards", [_P, _P, _I, _I, _L, _P, _P, _L, _P]),
     "sharded_block_cull": ("block_cull", "dtt_block_cull_shard",
                            [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P]),
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
@@ -171,13 +170,14 @@ def call(name: str, device: torch.device, *args) -> None:
     launch on the CUDA runtime's current device, so the tensors' ``device``
     must be it. The stream argument is appended here."""
     stem, symbol, _ = _KERNELS[name]
-    if device.index is not None and device.index != torch.cuda.current_device():
-        raise RuntimeError(f"{name}: tensors on {device}, but the current CUDA device "
-                           f"is {torch.cuda.current_device()}; launch under "
-                           f"torch.cuda.device({device.index})")
     if stem not in _libs:
         build_all()
-    stream = torch.cuda.current_stream().cuda_stream
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(f"{name}: tensors on {device}, but the current CUDA device "
+                           f"is {current}; launch under torch.cuda.device({device.index})")
+    # the raw handle of torch.cuda.current_stream(), without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(current)
     err = getattr(_libs[stem], symbol)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

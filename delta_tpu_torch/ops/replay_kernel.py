@@ -16,10 +16,10 @@ version (taken only for tensors on the CPU):
 * :func:`replay_sharded` (``replay_kernel.py:206``) over a state mesh
   (``parallel/mesh``): the host buckets the rows by :func:`_mix64` of the
   path id (every action of a path on one shard, :func:`_bucket_by_path`),
-  the kernel :func:`sharded_replay` (K6, ``csrc/replay.cu``'s second entry
-  point) replays each shard's slab on its own device, the combine kernel
-  adds the shards' sums on the lead device (``mesh.psum``), and the host
-  unscatters the masks.
+  the kernel :func:`sharded_replay` (K6, ``csrc/replay.cu``: K5's body over
+  all the shards of a device in one launch, one winner table a device)
+  replays them, the combine kernel adds the shards' sums on the lead device
+  (``mesh.psum``), and the host unscatters the masks.
 
 Row order is the replay order (``log/columnar`` layout invariant), so the
 winner of a path is its last row; padding rows carry path id -1 and never
@@ -56,22 +56,103 @@ class ReplayResult(NamedTuple):
     stats: ReplayStats
 
 
+def _best_plain(path_id: torch.Tensor, seq: torch.Tensor, num_paths: int) -> torch.Tensor:
+    """The largest ``seq`` of each path (``INT64_MIN`` where it has no row),
+    by a scatter-max over the non-pad rows."""
+    valid = path_id >= 0
+    best = torch.full((max(num_paths, 1),), _I64_MIN, dtype=torch.int64, device=seq.device)
+    best.scatter_reduce_(0, path_id[valid].to(torch.int64), seq[valid], reduce="amax")
+    return best
+
+
+def _masks_plain(cols, best: torch.Tensor, min_retention_ts: int):
+    """The winner test of each row against ``best``, the masks and the sums
+    ``[files, bytes, tombstones]`` (int64)."""
+    path_id, seq, is_add, size, deletion_ts = cols
+    valid = path_id >= 0
+    winner = valid & (best[path_id.to(torch.int64).clamp(min=0)] == seq)
+    alive = winner & is_add
+    tombstone = winner & ~is_add & (deletion_ts > min_retention_ts)
+    sums = torch.stack([alive.sum(), torch.where(alive, size, torch.zeros_like(size)).sum(),
+                        tombstone.sum()]).to(torch.int64)
+    return alive, tombstone, sums
+
+
 def replay_plain(path_id: torch.Tensor, seq: torch.Tensor, is_add: torch.Tensor,
                  size: torch.Tensor, deletion_ts: torch.Tensor, num_paths: int,
                  min_retention_ts: int):
     """Plain PyTorch version of K5: the largest ``seq`` of each path by a
     scatter-max, the same winner test, masks and sums. Returns
     ``(alive, tombstone, sums)``, sums int64 ``[files, bytes, tombstones]``."""
-    valid = path_id >= 0
-    pid = path_id.to(torch.int64)
-    best = torch.full((max(num_paths, 1),), _I64_MIN, dtype=torch.int64, device=seq.device)
-    best.scatter_reduce_(0, pid[valid], seq[valid], reduce="amax")
-    winner = valid & (best[pid.clamp(min=0)] == seq)
-    alive = winner & is_add
-    tombstone = winner & ~is_add & (deletion_ts > min_retention_ts)
-    sums = torch.stack([alive.sum(), torch.where(alive, size, torch.zeros_like(size)).sum(),
-                        tombstone.sum()]).to(torch.int64)
-    return alive, tombstone, sums
+    cols = (path_id, seq, is_add, size, deletion_ts)
+    return _masks_plain(cols, _best_plain(path_id, seq, num_paths), min_retention_ts)
+
+
+_COLS = (torch.int32, torch.int64, torch.bool, torch.int64, torch.int64)
+#: slabs a device a launch (``csrc/replay.cu``'s kMaxShards)
+_MAX_SHARDS = 64
+
+
+class _Launch(NamedTuple):
+    alive: list  # a view a slab
+    tombstone: list
+    rows: torch.Tensor  # (slabs, 4) int64: files, bytes, tombstones, ids >= num_paths
+    masks: torch.Tensor  # (2, rows of all the slabs) bool: alive, then tombstone
+
+
+def _launch(name: str, slabs, num_paths: int, min_retention_ts: int) -> _Launch:
+    """One launch of ``csrc/replay.cu`` over ``slabs`` (all on one CUDA
+    device, contiguous: the callers check) with no synchronisation, so a
+    CUDA graph can hold it."""
+    dev = slabs[0][0].device
+    ns = [cols[0].shape[0] for cols in slabs]
+    total = sum(ns)
+    masks = torch.empty((2, total), dtype=torch.bool, device=dev)
+    # the sums rows, then the winner table (num_paths words, rounded up to a row)
+    scratch = torch.empty((len(slabs) + -(-num_paths // 4), 4), dtype=torch.int64, device=dev)
+    tail = (int(min_retention_ts), scratch.data_ptr(), masks.data_ptr(), total)
+    if name == "replay":
+        native.call(name, dev, *(t.data_ptr() for t in slabs[0]), ns[0], num_paths, *tail)
+    else:
+        ptrs = np.array([[t.data_ptr() for t in cols] for cols in slabs], np.uint64)
+        rows = np.array(ns, np.int64)
+        native.call(name, dev, ptrs.ctypes.data, rows.ctypes.data, len(slabs), num_paths, *tail)
+    native.launches[name] += 1
+    alive, tombstone = (list(m.split_with_sizes(ns)) for m in masks.unbind(0))
+    return _Launch(alive, tombstone, scratch[:len(slabs)], masks)
+
+
+def _raise_bad(name: str, host_words, num_paths: int) -> None:
+    if host_words[3]:
+        raise ValueError(f"{name}: a path id reaches num_paths={num_paths}")
+
+
+def _replay(cols, num_paths: int, min_retention_ts: int):
+    """:func:`replay`, and the sums as host ints (one download on the card,
+    which also carries the bad-id count: the call's one synchronisation)."""
+    n = cols[0].shape[0]
+    for t, d in zip(cols, _COLS):
+        if t.dtype != d or t.dim() != 1 or t.shape[0] != n:
+            raise TypeError("replay: path_id int32, seq/size/deletion_ts int64 and "
+                            "is_add bool, all 1-D of one length")
+        if not t.is_contiguous():
+            raise ValueError("replay: columns must be contiguous")
+    if n >= 1 << 31:
+        raise ValueError(f"replay: {n} rows: at most 2^31 - 1")
+    if cols[0].device.type == "cpu":
+        if n and int(cols[0].max()) >= num_paths:
+            raise ValueError(f"replay: a path id reaches num_paths={num_paths}")
+        alive, tombstone, sums = replay_plain(*cols, num_paths, min_retention_ts)
+        return alive, tombstone, sums, sums.tolist()
+    if any(t.device != cols[0].device for t in cols):
+        raise ValueError("replay: columns must be on one device")
+    out = _launch("replay", [cols], num_paths, min_retention_ts)
+    words = out.rows[0]
+    # its own copy: `words` shares its buffer with the winner table
+    sums = words[:3].clone()
+    host = words.cpu().tolist()
+    _raise_bad("replay", host, num_paths)
+    return out.alive[0], out.tombstone[0], sums, host[:3]
 
 
 def replay(path_id: torch.Tensor, seq: torch.Tensor, is_add: torch.Tensor,
@@ -81,36 +162,10 @@ def replay(path_id: torch.Tensor, seq: torch.Tensor, is_add: torch.Tensor,
     ``seq`` is the largest of its path (``seq`` unique per path). Returns
     ``(alive, tombstone, sums)`` as :func:`replay_plain`. path_id ``(n,)``
     int32 with ids below ``num_paths`` (raises otherwise), seq / size /
-    deletion_ts int64, is_add bool, all on one device."""
-    cols = (path_id, seq, is_add, size, deletion_ts)
-    want = (torch.int32, torch.int64, torch.bool, torch.int64, torch.int64)
-    n = path_id.shape[0]
-    for t, d in zip(cols, want):
-        if t.dtype != d or t.dim() != 1 or t.shape[0] != n:
-            raise TypeError("replay: path_id int32, seq/size/deletion_ts int64 and "
-                            "is_add bool, all 1-D of one length")
-    if n >= 1 << 31:
-        raise ValueError(f"replay: {n} rows: at most 2^31 - 1")
-    if path_id.device.type == "cpu":
-        if n and int(path_id.max()) >= num_paths:
-            raise ValueError(f"replay: a path id reaches num_paths={num_paths}")
-        return replay_plain(*cols, num_paths, min_retention_ts)
-    dev = path_id.device
-    if any(t.device != dev or not t.is_contiguous() for t in cols):
-        raise ValueError("replay: columns must be contiguous, on one device")
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    tombstone = torch.empty(n, dtype=torch.bool, device=dev)
-    best = torch.empty(max(num_paths, 1), dtype=torch.int64, device=dev)
-    err = torch.empty(1, dtype=torch.int32, device=dev)
-    sums = torch.empty(3, dtype=torch.int64, device=dev)
-    native.call("replay", dev, path_id.data_ptr(), seq.data_ptr(), is_add.data_ptr(),
-                size.data_ptr(), deletion_ts.data_ptr(), n, best.data_ptr(), num_paths,
-                err.data_ptr(), int(min_retention_ts), alive.data_ptr(), tombstone.data_ptr(),
-                sums.data_ptr())
-    native.launches["replay"] += 1
-    if int(err.item()) != 0:
-        raise ValueError(f"replay: a path id reaches num_paths={num_paths}")
-    return alive, tombstone, sums
+    deletion_ts int64, is_add bool, all on one device. On the card: one K5
+    launch (K6's body with one slab) and one download, of the sums and the
+    count of bad ids together."""
+    return _replay((path_id, seq, is_add, size, deletion_ts), num_paths, min_retention_ts)[:3]
 
 
 def _pad(col: np.ndarray, cap: int, fill) -> np.ndarray:
@@ -131,8 +186,8 @@ def replay_alive_mask(arrays, min_retention_ts: int = 0, device="cuda") -> Repla
             for a, dt, fill in ((arrays.path_id, np.int32, -1), (arrays.seq, np.int64, 0),
                                 (arrays.is_add, bool, False), (arrays.size, np.int64, 0),
                                 (arrays.deletion_timestamp, np.int64, 0))]
-    alive, tombstone, sums = replay(*cols, len(arrays.paths), int(min_retention_ts))
-    files, size, tombs = sums.cpu().tolist()
+    alive, tombstone, _, (files, size, tombs) = _replay(cols, len(arrays.paths),
+                                                        int(min_retention_ts))
     return ReplayResult(alive.cpu().numpy()[:n], tombstone.cpu().numpy()[:n],
                         ReplayStats(np.int32(files), np.int64(size), np.int32(tombs)))
 
@@ -243,88 +298,139 @@ def _bucket_by_path(arrays, n_shards: int):
 
 
 def sharded_replay_plain(slabs, num_paths: int, min_retention_ts: int):
-    """Plain PyTorch version of K6: K5's plain version on each shard's slab,
-    the sums added. ``slabs``: one (path_id, seq, is_add, size,
-    deletion_ts) tuple a shard. Returns (alive list, tombstone list, sums
-    (3,) int64)."""
-    outs = [replay_plain(*cols, num_paths, min_retention_ts) for cols in slabs]
+    """Plain PyTorch version of K6 as the kernel computes it: one winner
+    table a distinct device, over the rows of all that device's slabs
+    (sound because :func:`_bucket_by_path` puts every path on one slab), then
+    K5's test on each slab, the slabs' sums added on the lead device (the
+    first slab's). ``slabs``: one (path_id, seq, is_add, size, deletion_ts)
+    tuple a shard. Returns (alive list, tombstone list, sums (3,) int64)."""
+    devices = list(dict.fromkeys(cols[0].device for cols in slabs))
+    best = {d: _best_plain(torch.cat([c[0] for c in slabs if c[0].device == d]),
+                           torch.cat([c[1] for c in slabs if c[0].device == d]), num_paths)
+            for d in devices}
+    outs = [_masks_plain(cols, best[cols[0].device], min_retention_ts) for cols in slabs]
     sums = torch.stack([o[2].to(slabs[0][0].device) for o in outs]).sum(dim=0)
     return [o[0] for o in outs], [o[1] for o in outs], sums
 
 
-def sharded_replay(slabs, num_paths: int, min_retention_ts: int = 0):
-    """K6: each shard's slab (a (path_id int32, seq int64, is_add bool, size
-    int64, deletion_ts int64) tuple of one length, on that shard's device)
-    replayed by one launch on its device, ids global (below ``num_paths``;
-    raises otherwise); the shards' (3,) int64 sums reduced on the lead
-    device (the first slab's) by the combine kernel. Returns (alive list,
-    tombstone list, sums (3,) int64: live files, their bytes, tombstones).
-    The plain version for slabs on the CPU; on the card the kernel, or an
-    error."""
-    from delta_tpu_torch.parallel import mesh as mesh_mod
-
-    want = (torch.int32, torch.int64, torch.bool, torch.int64, torch.int64)
+def _check_slabs(slabs, num_paths: int):
+    """Refuse what K6 does not take. Returns None for slabs on the CPU, else
+    each slab's CUDA device index."""
+    if not slabs:
+        raise ValueError("sharded_replay: no slab")
+    where = []
     for cols in slabs:
-        n = cols[0].shape[0]
-        if any(t.dtype != d or t.dim() != 1 or t.shape[0] != n for t, d in zip(cols, want)):
-            raise TypeError("sharded_replay: each slab is path_id int32, seq/size/"
-                            "deletion_ts int64 and is_add bool, 1-D of one length")
-        if n >= 1 << 31:
-            raise ValueError(f"sharded_replay: a slab of {n} rows: at most 2^31 - 1")
-        if any(t.device != cols[0].device for t in cols):
-            raise ValueError("sharded_replay: a slab's columns must be on one device")
+        shape, g = cols[0].shape, cols[0].get_device()
+        for t, d in zip(cols, _COLS):
+            if t.dtype != d or t.shape != shape or len(shape) != 1:
+                raise TypeError("sharded_replay: each slab is path_id int32, seq/size/"
+                                "deletion_ts int64 and is_add bool, 1-D of one length")
+            if t.get_device() != g or not t.is_contiguous():
+                raise ValueError("sharded_replay: a slab's columns must be contiguous, on "
+                                 "one device")
+        if shape[0] >= 1 << 31:
+            raise ValueError(f"sharded_replay: a slab of {shape[0]} rows: at most 2^31 - 1")
+        where.append(g)
     if all(cols[0].device.type == "cpu" for cols in slabs):
         for cols in slabs:
             if cols[0].shape[0] and int(cols[0].max()) >= num_paths:
                 raise ValueError(f"sharded_replay: a path id reaches num_paths={num_paths}")
-        return sharded_replay_plain(slabs, num_paths, min_retention_ts)
-    mesh = [cols[0].device for cols in slabs]
-    if any(d.type != "cuda" for d in mesh):
+        return None
+    if not all(cols[0].is_cuda for cols in slabs):
         raise ValueError("sharded_replay: the slabs must all be on the card, or all on the CPU")
+    if max(where.count(g) for g in set(where)) > _MAX_SHARDS:
+        raise ValueError(f"sharded_replay: more than {_MAX_SHARDS} slabs on one device")
+    return where
 
-    def launch(i, dev):
-        cols = slabs[i]
-        if not all(t.is_contiguous() for t in cols):
-            raise ValueError("sharded_replay: columns must be contiguous")
-        n = cols[0].shape[0]
-        alive = torch.empty(n, dtype=torch.bool, device=dev)
-        tombstone = torch.empty(n, dtype=torch.bool, device=dev)
-        best = torch.empty(max(num_paths, 1), dtype=torch.int64, device=dev)
-        err = torch.empty(1, dtype=torch.int32, device=dev)
-        sums = torch.empty((1, 3), dtype=torch.int64, device=dev)
-        native.call("sharded_replay", dev, *(t.data_ptr() for t in cols[:5]), n,
-                    best.data_ptr(), num_paths, err.data_ptr(), int(min_retention_ts),
-                    alive.data_ptr(), tombstone.data_ptr(), sums.data_ptr(), 0)
-        native.launches["sharded_replay"] += 1
-        return alive, tombstone, sums[0], err
 
-    outs = mesh_mod.run_shards(mesh, launch)
-    if any(int(o[3].item()) != 0 for o in outs):
-        raise ValueError(f"sharded_replay: a path id reaches num_paths={num_paths}")
-    sums = mesh_mod.psum([o[2] for o in outs], "sum")
-    return [o[0] for o in outs], [o[1] for o in outs], sums
+def _sharded_launch(slabs, num_paths: int, min_retention_ts: int, where=None):
+    """K6 on the card with no synchronisation (a CUDA graph can hold it):
+    one launch a distinct device over all its slabs (``where``: each slab's
+    device index), then the devices' sums rows reduced on the lead device
+    by the combine kernel. Returns (alive list, tombstone list, the (4,)
+    int64 words on the lead: files, bytes, tombstones, ids >= num_paths;
+    [(a device's slab indices, its _Launch)])."""
+    from delta_tpu_torch.parallel import mesh as mesh_mod
+
+    if where is None:
+        where = [cols[0].get_device() for cols in slabs]
+    groups = {}
+    for i, g in enumerate(where):
+        groups.setdefault(g, []).append(i)
+    parts = list(groups.values())
+    outs = mesh_mod.run_shards(
+        [slabs[idx[0]][0].device for idx in parts],
+        lambda k, _dev: _launch("sharded_replay", [slabs[i] for i in parts[k]], num_paths,
+                                min_retention_ts))
+    alive, tombstone = [None] * len(slabs), [None] * len(slabs)
+    for idx, out in zip(parts, outs):
+        for j, i in enumerate(idx):
+            alive[i], tombstone[i] = out.alive[j], out.tombstone[j]
+    words = mesh_mod.psum([out.rows for out in outs], "sum")
+    return alive, tombstone, words, list(zip(parts, outs))
+
+
+def _sharded_replay(slabs, num_paths: int, min_retention_ts: int):
+    """:func:`sharded_replay`, the sums as host ints (the call's one
+    download on the card, with the count of bad ids), and the masks as
+    ``[(slab indices, (2, their rows) bool: alive, then tombstone)]``: one
+    buffer a distinct device on the card, one a slab for the plain version."""
+    where = _check_slabs(slabs, num_paths)
+    if where is None:
+        alive, tombstone, sums = sharded_replay_plain(slabs, num_paths, min_retention_ts)
+        return (alive, tombstone, sums, sums.tolist(),
+                [([i], torch.stack(m)) for i, m in enumerate(zip(alive, tombstone))])
+    alive, tombstone, words, outs = _sharded_launch(slabs, num_paths, min_retention_ts, where)
+    host = words.cpu().tolist()
+    _raise_bad("sharded_replay", host, num_paths)
+    return alive, tombstone, words[:3], host[:3], [(idx, out.masks) for idx, out in outs]
+
+
+def sharded_replay(slabs, num_paths: int, min_retention_ts: int = 0):
+    """K6: the shards' slabs (each a (path_id int32, seq int64, is_add bool,
+    size int64, deletion_ts int64) tuple of one length, on that shard's
+    device), ids global (below ``num_paths``; raises otherwise), every path
+    on one slab (:func:`_bucket_by_path`). On the card: one launch a
+    distinct device (at most 64 slabs a device) replays all its slabs
+    against one winner table, the combine kernel adds the shards' sums on
+    the lead device (the first slab's), and one download of the sums and
+    the count of bad ids is the call's one synchronisation. Returns (alive
+    list, tombstone list, sums (3,) int64: live files, their bytes,
+    tombstones). The plain version for slabs on the CPU."""
+    return _sharded_replay(slabs, num_paths, min_retention_ts)[:3]
 
 
 def replay_sharded(arrays, mesh, min_retention_ts: int = 0) -> ReplayResult:
     """Replay an action stream sharded over ``mesh`` (a list of devices,
     ``parallel/mesh.state_mesh``): the host buckets the rows by path, each
-    shard's slab goes to its device, K6 replays every shard, the combine
-    kernel reduces the sums on the lead device, and the host unscatters the
-    masks to the input order. Equal to :func:`replay_alive_mask` on the
+    device receives its shards' slabs as one ``(shards, cap)`` tensor a
+    column (each slab a row of it), K6 replays every device's shards in one
+    launch, the combine kernel reduces the sums on the lead device, and the
+    host downloads the sums and one mask buffer a device, then unscatters
+    the masks to the input order. Equal to :func:`replay_alive_mask` on the
     same stream."""
     n = len(mesh)
     stacked, order, dest = _bucket_by_path(arrays, n)
-    slabs = [tuple(torch.from_numpy(np.ascontiguousarray(col[i])).to(dev) for col in stacked)
-             for i, dev in enumerate(mesh)]
-    # ids are global: the best-seq table spans the dictionary (or the
-    # largest id, for a stream built without one)
+    cap = stacked[0].shape[1]
+    devices = list(dict.fromkeys(mesh))
+    slabs = [None] * n
+    for d in devices:
+        idx = [i for i, m in enumerate(mesh) if m == d]
+        cols = [torch.from_numpy(col if len(idx) == n else col[idx]).to(d) for col in stacked]
+        for j, i in enumerate(idx):
+            slabs[i] = tuple(c[j] for c in cols)
+    # ids are global: the winner table spans the dictionary (or the largest
+    # id, for a stream built without one)
     pid = np.asarray(arrays.path_id)
     num_paths = max(len(arrays.paths), int(pid.max()) + 1 if len(pid) else 0)
-    alive_sh, tomb_sh, sums = sharded_replay(slabs, num_paths, int(min_retention_ts))
-    files, size, tombs = sums.cpu().tolist()
+    _, _, _, (files, size, tombs), parts = _sharded_replay(slabs, num_paths,
+                                                            int(min_retention_ts))
+    flat = np.empty((2, n, cap), bool)  # the alive and tombstone slabs in shard order
+    for idx, masks in parts:  # one download a device: its slabs, each cap rows
+        flat[:, idx] = masks.cpu().numpy().reshape(2, len(idx), cap)
     alive = np.zeros(arrays.num_rows, bool)
     tombstone = np.zeros(arrays.num_rows, bool)
-    alive[order] = np.concatenate([a.cpu().numpy() for a in alive_sh])[dest]
-    tombstone[order] = np.concatenate([t.cpu().numpy() for t in tomb_sh])[dest]
+    alive[order] = flat[0].reshape(-1)[dest]
+    tombstone[order] = flat[1].reshape(-1)[dest]
     return ReplayResult(alive, tombstone,
                         ReplayStats(np.int32(files), np.int64(size), np.int32(tombs)))

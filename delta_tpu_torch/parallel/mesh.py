@@ -121,14 +121,14 @@ def run_shards(mesh: Sequence[torch.device], launch: Callable[[int, torch.device
                ) -> list:
     """``launch(i, device)`` for each shard, under its device and on that
     device's current stream; then the lead's current stream waits on an
-    event recorded after each CUDA shard's launch. Returns the results in
-    shard order."""
+    event recorded after each launch on another card (a launch on the lead
+    is on that stream already). Returns the results in shard order."""
     lead = mesh[0]
     outs, events = [], []
     for i, d in enumerate(mesh):
         with _device_ctx(d):
             outs.append(launch(i, d))
-            if d.type == "cuda":
+            if d.type == "cuda" and d != lead:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(d))
                 events.append(ev)
@@ -165,11 +165,15 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device, axis: int = 
 
 
 def psum(parts: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:
-    """The shards' partial results (each ``(k,)``, on its shard's device)
-    reduced on the lead device (``parts[0]``'s): gathered as ``(n, k)`` rows,
-    then one combine launch (``op`` of :data:`COMBINE_OPS`)."""
+    """The shards' partial results (each ``(k,)``, or ``(r, k)`` for r
+    shards of one device, on its device) reduced on the lead device
+    (``parts[0]``'s): gathered as ``(n, k)`` rows, then one combine launch
+    (``op`` of :data:`COMBINE_OPS`)."""
     lead = parts[0].device
-    rows = all_gather([p.reshape(1, -1) for p in parts], lead)
+    if len(parts) == 1:  # already on the lead: no gather
+        rows = parts[0].reshape(-1, parts[0].shape[-1])
+    else:
+        rows = all_gather([p.reshape(-1, p.shape[-1]) for p in parts], lead)
     with _device_ctx(lead):
         return shard_combine(rows, op)
 

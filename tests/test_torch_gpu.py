@@ -239,6 +239,18 @@ def test_replay_kernel_matches_plain(cuda, n, num_paths):
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
+def test_replay_sums_do_not_hold_the_winner_table(cuda):
+    """K5's sums come back in a buffer of their own: a caller that keeps
+    them does not keep the kernel's winner table (8 B a path) alive."""
+    n, num_paths = 4096, 1 << 20
+    p = torch.arange(n, dtype=torch.int32, device=cuda)
+    z = torch.zeros(n, dtype=torch.int64, device=cuda)
+    sums = replay_kernel.replay(p, z + p, torch.ones(n, dtype=torch.bool, device=cuda), z, z,
+                                num_paths)[2]
+    assert sums.tolist() == [n, 0, 0]
+    assert sums.untyped_storage().nbytes() == 3 * 8
+
+
 def test_replay_kernel_rejects_out_of_range_ids(cuda):
     p = torch.arange(8, dtype=torch.int32, device=cuda)
     z = torch.zeros(8, dtype=torch.int64, device=cuda)
@@ -835,7 +847,7 @@ def test_sharded_replay_kernel_matches_plain_and_k5(cuda, mesh8, n):
     before = native.launches["sharded_replay"]
     got = replay_kernel.sharded_replay(slabs, num_paths, 50)
     torch.cuda.synchronize()
-    assert native.launches["sharded_replay"] == before + 8
+    assert native.launches["sharded_replay"] == before + 1  # one launch a distinct device
     ref = replay_kernel.sharded_replay_plain(slabs, num_paths, 50)
     assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
     assert torch.equal(got[2], ref[2])
@@ -843,6 +855,72 @@ def test_sharded_replay_kernel_matches_plain_and_k5(cuda, mesh8, n):
     one = replay_kernel.replay_alive_mask(arr, min_retention_ts=50, device=cuda)
     assert np.array_equal(sharded.alive, one.alive)
     assert np.array_equal(sharded.tombstone, one.tombstone) and sharded.stats == one.stats
+
+
+def _stream_arrays(name, shards):
+    from delta_tpu_torch.ops.state_export import ReplayArrays
+    from torch_replay_streams import replay_stream  # tests/, on the path as chip_smoke is
+
+    return ReplayArrays(**replay_stream(name, shards))
+
+
+def _padded_cols(arr, dev):
+    cap = replay_kernel._next_pow2(arr.num_rows, floor=8)
+    return [torch.from_numpy(replay_kernel._pad(np.asarray(a, dt), cap, fill)).to(dev)
+            for a, dt, fill in ((arr.path_id, np.int32, -1), (arr.seq, np.int64, 0),
+                                (arr.is_add, bool, False), (arr.size, np.int64, 0),
+                                (arr.deletion_timestamp, np.int64, 0))]
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("stream", ["all-pad-shard", "hot-path", "seq-extremes", "no-paths",
+                                    "wrapping-sizes"])
+def test_replay_kernels_on_edge_streams(cuda, stream, shards):
+    """K5 and K6 (one launch over the shards of one card) against their
+    plain versions, and replay_sharded over [cuda] * shards against
+    replay_alive_mask, on the streams of tests/torch_replay_streams.py."""
+    from delta_tpu_torch.parallel import mesh
+
+    arr = _stream_arrays(stream, shards)
+    num_paths = len(arr.paths)
+    cols = _padded_cols(arr, cuda)
+    for cutoff in (0, 1000):
+        got = replay_kernel.replay(*cols, num_paths, cutoff)
+        ref = replay_kernel.replay_plain(*cols, num_paths, cutoff)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), cutoff
+    stacked, _, _ = replay_kernel._bucket_by_path(arr, shards)
+    big = [torch.from_numpy(c).to(cuda) for c in stacked]
+    slabs = [tuple(c[i] for c in big) for i in range(shards)]
+    before = native.launches["sharded_replay"]
+    got = replay_kernel.sharded_replay(slabs, num_paths, 1000)
+    assert native.launches["sharded_replay"] == before + 1
+    ref = replay_kernel.sharded_replay_plain(slabs, num_paths, 1000)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+    assert torch.equal(got[2], ref[2])
+    with mesh.using_devices([cuda] * shards) as m:
+        sharded = replay_kernel.replay_sharded(arr, m, min_retention_ts=1000)
+    one = replay_kernel.replay_alive_mask(arr, min_retention_ts=1000, device=cuda)
+    assert np.array_equal(sharded.alive, one.alive)
+    assert np.array_equal(sharded.tombstone, one.tombstone) and sharded.stats == one.stats
+
+
+@pytest.mark.parametrize("stream", ["hot-path", "seq-extremes", "wrapping-sizes"])
+def test_k6_with_one_shard_is_k5(cuda, stream):
+    arr = _stream_arrays(stream, 1)
+    cols = _padded_cols(arr, cuda)
+    k5 = replay_kernel.replay(*cols, len(arr.paths), 1000)
+    k6 = replay_kernel.sharded_replay([tuple(cols)], len(arr.paths), 1000)
+    assert torch.equal(k6[0][0], k5[0]) and torch.equal(k6[1][0], k5[1])
+    assert torch.equal(k6[2], k5[2])
+
+
+def test_sharded_replay_kernel_rejects_out_of_range_ids(cuda):
+    p = torch.arange(8, dtype=torch.int32, device=cuda)
+    z = torch.zeros(8, dtype=torch.int64, device=cuda)
+    a = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        replay_kernel.sharded_replay([(p[:4], z[:4], a[:4], z[:4], z[:4]), (p[4:], z[4:], a[4:],
+                                                                          z[4:], z[4:])], 7)
 
 
 @pytest.mark.parametrize("shards", [2, 4, 8])

@@ -234,6 +234,39 @@ def test_sharded_replay_plain_equals_k5_per_shard():
     assert torch.equal(total, sums)
 
 
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("stream", ["all-pad-shard", "hot-path", "seq-extremes", "no-paths",
+                                    "wrapping-sizes"])
+def test_device_grouped_k6_matches_jax_and_k5(stream, shards):
+    """K6's plain version as the kernel runs it (one winner table for all the
+    shards of a device: here every shard is on the one CPU) against
+    ``delta_tpu``'s ``replay_sharded`` on a mesh of as many CPU devices, and
+    against one device's replay (K5), on the edge streams of
+    tests/torch_replay_streams.py."""
+    from tests.torch_replay_streams import replay_stream
+
+    cols = replay_stream(stream, shards)
+    jarr, tarr = JaxArrays(**cols), TorchArrays(**cols)
+    with enable_x64():
+        ref = jrk.replay_sharded(jarr, jax_mesh.state_mesh(shards), min_retention_ts=1000)
+    with mesh.using_devices(CPU8[:shards]) as m:
+        got = trk.replay_sharded(tarr, m, min_retention_ts=1000)
+    one = trk.replay_alive_mask(tarr, min_retention_ts=1000, device="cpu")
+    for res in (got, one):
+        assert np.array_equal(res.alive, np.asarray(ref.alive))
+        assert np.array_equal(res.tombstone, np.asarray(ref.tombstone))
+        for f in ("num_files", "total_size", "num_tombstones"):
+            assert int(getattr(res.stats, f)) == int(getattr(ref.stats, f)), f
+    # the grouped plain version is the per-shard one (each path on one shard)
+    stacked, _, _ = trk._bucket_by_path(tarr, shards)
+    slabs = [tuple(torch.from_numpy(np.ascontiguousarray(c[i])) for c in stacked)
+             for i in range(shards)]
+    alive, tomb, sums = trk.sharded_replay_plain(slabs, len(tarr.paths), 1000)
+    per = [trk.replay_plain(*s, len(tarr.paths), 1000) for s in slabs]
+    assert all(torch.equal(a, p[0]) and torch.equal(t, p[1]) for a, t, p in zip(alive, tomb, per))
+    assert torch.equal(sums, torch.stack([p[2] for p in per]).sum(dim=0))
+
+
 def test_sharded_replay_refuses_bad_inputs():
     pid = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7], dtype=torch.int32)
     z = torch.zeros(8, dtype=torch.int64)
@@ -242,6 +275,11 @@ def test_sharded_replay_refuses_bad_inputs():
         trk.sharded_replay([(pid, z, add, z, z)], 7, 0)
     with pytest.raises(TypeError):
         trk.sharded_replay([(pid.long(), z, add, z, z)], 8, 0)
+    with pytest.raises(ValueError):
+        trk.sharded_replay([], 8, 0)
+    with pytest.raises(ValueError):  # a bad id on a later shard
+        trk.sharded_replay([(pid[:4], z[:4], add[:4], z[:4], z[:4]),
+                            (pid[4:], z[4:], add[4:], z[4:], z[4:])], 7, 0)
 
 
 # -- K13: the sharded join probe -----------------------------------------------------

@@ -221,6 +221,38 @@ def test_replay_alive_mask_pads_and_wraps_like_jax(n):
         _assert_replay_equal(jarr, tarr, retention)
 
 
+@pytest.mark.parametrize("stream", ["all-pad-shard", "hot-path", "seq-extremes", "no-paths",
+                                    "wrapping-sizes"])
+def test_replay_alive_mask_matches_jax_on_edge_streams(stream):
+    """K5's plain version against ``delta_tpu`` on the edge streams of
+    tests/torch_replay_streams.py: one path with 100,000 actions, seq at
+    INT64_MIN and INT64_MAX, no path at all, sizes whose sum wraps."""
+    from delta_tpu.ops.state_export import ReplayArrays as JaxArrays
+    from delta_tpu_torch.ops.state_export import ReplayArrays as TorchArrays
+    from tests.torch_replay_streams import replay_stream
+
+    cols = replay_stream(stream, 8)
+    for retention in (0, 1000):
+        _assert_replay_equal(JaxArrays(**cols), TorchArrays(**cols), retention)
+
+
+@pytest.mark.parametrize("stream", ["hot-path", "seq-extremes", "no-paths", "wrapping-sizes"])
+def test_k6_with_one_shard_is_k5(stream):
+    """K5 is K6's body with one slab: the two wrappers agree on one slab."""
+    from tests.torch_replay_streams import replay_stream
+
+    c = replay_stream(stream, 1)
+    cap = trk._next_pow2(len(c["path_id"]), floor=8)
+    cols = tuple(torch.from_numpy(trk._pad(np.asarray(c[k], dt), cap, fill))
+                 for k, dt, fill in (("path_id", np.int32, -1), ("seq", np.int64, 0),
+                                     ("is_add", bool, False), ("size", np.int64, 0),
+                                     ("deletion_timestamp", np.int64, 0)))
+    k5 = trk.replay(*cols, len(c["paths"]), 1000)
+    alive, tomb, sums = trk.sharded_replay([cols], len(c["paths"]), 1000)
+    assert torch.equal(alive[0], k5[0]) and torch.equal(tomb[0], k5[1])
+    assert torch.equal(sums, k5[2])
+
+
 def test_replay_rejects_out_of_range_ids():
     pid = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7], dtype=torch.int32)
     z = torch.zeros(8, dtype=torch.int64)

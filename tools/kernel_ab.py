@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's block cull (K1), slab sort (K8), upload join
-(K12), sharded join (K13) and residual mask (K14) on one card, on seeded
-inputs, for the ``delta_tpu_torch`` package under ``--root`` (default: this
-checkout).
+"""Time the PyTorch port's block cull (K1), tail scatter (K2), replay (K5),
+sharded replay (K6), slab sort (K8), slab kill (K11), upload join (K12),
+sharded join (K13) and residual mask (K14) on one card, on seeded inputs, for the ``delta_tpu_torch``
+package under ``--root`` (default: this checkout).
 
-    python3 tools/kernel_ab.py [--root DIR] [--only k1,k8,k12,k13,k14,k15,l2]
+    python3 tools/kernel_ab.py [--root DIR] [--only k1,k2,k5,k6,k8,k11,k12,k13,k14,k15,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -27,25 +27,41 @@ columns, in three layouts of the lanes:
 * ``random``: ``chip_smoke.k7_lanes`` (random narrow files, 2% NaN lanes,
   30% NaN bounds), where most queries keep most blocks;
 
-each at M=256, at one query (M=1) and at one query with 7 NaN rows (M=8,
-the query axis padded as the JAX package pads it). K8 on bench config 2's
-slab (10,301,000 keys drawn as ``_store_sales``'s ``ss_item_sk`` in a
-capacity of 10,485,760). K12 on M3's shape (11,000,000 int32 target keys
-padded to 12,582,912, 1,000,000 source keys padded to 2^20) and K13 on M4's
+each at M=256, at one query (M=1) and at one query with 7 NaN rows (M=8, the
+query axis padded as the JAX package pads it). K8 on bench config 2's slab
+(10,301,000 keys drawn as ``_store_sales``'s ``ss_item_sk`` in a capacity of
+10,485,760). K12 on M3's shape (11,000,000 int32 target keys padded to
+12,582,912, 1,000,000 source keys padded to 2^20) and K13 on M4's
 (12,500,000 target keys padded to 16,777,216 in 8 slabs of one card, the
-same source), each in four traffics: ``half`` (half the source present,
-some twice), ``dups`` (one source key 100,000 times, in 1% of the
-targets), ``miss`` (no target key in the source) and ``hit`` (every target
-key in the source). K14 on bench config 12's arith query over its 8 files
-(250,000 rows each, ``price`` and ``qty`` int64 lanes padded to 2^18),
-and ``price IN`` 200 values over the same files (past the launch's
-parameters): the query's masks (one launch over the files where the package
-has ``column_cache.residual_masks``, else one launch a file), the per-file
-call, and the masks' download. K15 (the expression interpreter, which
-shares the residual mask's header) on ``K15_PROGRAMS`` over
-``chip_smoke.k15_columns`` at 1,005,000 rows. ``l2`` times a random gather of 16,777,216
-int64 from a 16 MB table (one L2 sector a read): the rate the join's
-probes are held to.
+same source), each in four traffics: ``half`` (half the source present, some
+twice), ``dups`` (one source key 100,000 times, in 1% of the targets),
+``miss`` (no target key in the source) and ``hit`` (every target key in the
+source). K14 on bench config 12's arith query over its 8 files (250,000 rows
+each, ``price`` and ``qty`` int64 lanes padded to 2^18), and ``price IN``
+200 values over the same files (past the launch's parameters): the query's
+masks (one launch over the files where the package has
+``column_cache.residual_masks``, else one launch a file), the per-file call,
+and the masks' download. K15 (the expression interpreter, which shares the
+residual mask's header) on ``K15_PROGRAMS`` over ``chip_smoke.k15_columns``
+at 1,005,000 rows. K5 and K6 on four action streams (``replay_streams``):
+``log``, bench config 6's stream as ``chip_smoke.py``'s log holds it
+(1,000,000 adds in 10 commits, then 10 tails of 500 removes and 1,000 adds:
+1,015,000 actions over 1,010,000 paths, cutoff 15); ``hot``, 2^20 actions of
+which 100,000 are one path's; ``adds``, 2^20 adds over 262,144 paths;
+``empty``, ``chip_smoke.k6_stream`` (2^20 zipf-skewed actions, one of 8
+shards empty). K5 takes the stream padded as ``replay_alive_mask`` pads it,
+K6 its 8 slabs as ``replay_sharded`` cuts them on one card; each row has the
+eager call, the launches without the call's download replayed from a CUDA
+graph (where the package has them apart), the profiler's kernels, the bound
+of the bytes this data needs (``chip_smoke.replay_bytes``), the winner-table
+half's library call (``fill_`` and
+``scatter_reduce_`` amax) and the host wall of the entry point that runs it
+(``replay_alive_mask``, ``replay_sharded``), upload to unscattered masks,
+the median of 5. K2 (``scatter_bool``) at a tail's 500 dead files in 2^20
+and K11 ``slab_kill`` at a deletion vector of 10,000 rows in a lane of
+10,485,760 time the launch path every wrapper shares (``native.call``):
+eager, host and graph time. ``l2`` times a random gather of 16,777,216 int64 from a 16
+MB table (one L2 sector a read): the rate the join's probes are held to.
 """
 import argparse
 import importlib.util
@@ -79,6 +95,55 @@ def k1_workloads(torch, dev, state_cache, chip_smoke):
     return [("clustered", *on(mins, maxs, alive, lo, hi)),
             ("shuffled", *on(mins[:, perm], maxs[:, perm], alive[perm], lo, hi)),
             ("random", *chip_smoke.k7_lanes(dev))]
+
+
+def replay_streams(chip_smoke, state_export):
+    """The K5/K6 streams: name -> (ReplayArrays, retention cutoff)."""
+    rng = np.random.RandomState(13)
+    # config 6's log: v1-v10 of 100,000 adds, then tails v11-v20, each 500
+    # removes of live files before 1,000 new adds (seq = version << 31 | pos)
+    n_files, per = chip_smoke.N_FILES, chip_smoke.N_FILES // chip_smoke.N_COMMITS
+    adds, rem = chip_smoke.TAIL_ADDS, chip_smoke.TAIL_REMOVES
+    pid = [np.arange(n_files, dtype=np.int32)]
+    seq = [(np.repeat(np.arange(1, chip_smoke.N_COMMITS + 1), per).astype(np.int64) << 31)
+           | np.tile(np.arange(per, dtype=np.int64), chip_smoke.N_COMMITS)]
+    is_add, size, dts = [np.ones(n_files, bool)], [np.full(n_files, 1 << 20)], [np.zeros(n_files)]
+    live = list(range(n_files))
+    for t in range(chip_smoke.N_TAILS):
+        v = chip_smoke.N_COMMITS + 1 + t
+        gone = rng.choice(len(live), rem, replace=False)
+        new_ids = np.arange(n_files + t * adds, n_files + (t + 1) * adds, dtype=np.int32)
+        pid.append(np.concatenate([np.asarray(live, np.int32)[gone], new_ids]))
+        for j in sorted(gone, reverse=True):
+            live[j] = live[-1]
+            live.pop()
+        live.extend(new_ids.tolist())
+        seq.append((np.int64(v) << 31) | np.arange(rem + adds, dtype=np.int64))
+        is_add.append(np.arange(rem + adds) >= rem)
+        size.append(np.where(is_add[-1], 1 << 16, 0))
+        dts.append(np.where(is_add[-1], 0, v))
+    cat = lambda xs, dt: np.concatenate(xs).astype(dt)
+    n_paths = n_files + chip_smoke.N_TAILS * adds
+    log = state_export.ReplayArrays(
+        paths=[f"p{i}" for i in range(n_paths)], path_id=cat(pid, np.int32),
+        seq=cat(seq, np.int64), is_add=cat(is_add, bool), size=cat(size, np.int64),
+        deletion_timestamp=cat(dts, np.int64))
+
+    def synthetic(pid, add):
+        n = len(pid)
+        return state_export.ReplayArrays(
+            paths=[f"p{i}" for i in range(int(pid.max()) + 1)], path_id=pid.astype(np.int32),
+            seq=(np.arange(n, dtype=np.int64) << 8) + 7, is_add=add,
+            size=rng.randint(0, 2**62, n).astype(np.int64),
+            deletion_timestamp=rng.randint(0, 2000, n).astype(np.int64))
+
+    n = 1 << 20
+    hot = rng.randint(0, n // 4, n)
+    hot[rng.choice(n, 100_000, replace=False)] = 0
+    return {"log": (log, chip_smoke.N_COMMITS + 5),
+            "hot": (synthetic(hot, rng.rand(n) > 0.3), 1000),
+            "adds": (synthetic(rng.randint(0, n // 4, n), np.ones(n, bool)), 1000),
+            "empty": (chip_smoke.k6_stream(n, 31), 1000)}
 
 
 #: K15 programs over ``chip_smoke.k15_columns``: Kleene logic, int and
@@ -116,7 +181,7 @@ def join_traffic(rng, cap_t, n, cap_s, m, traffic):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="k1,k8,k12,k13,k14,k15,l2")
+    ap.add_argument("--only", default="k1,k2,k5,k6,k8,k11,k12,k13,k14,k15,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -132,7 +197,8 @@ def main() -> int:
     spec.loader.exec_module(chip_smoke)
     cuda_ms, graph_ms, kernel_breakdown = (chip_smoke.cuda_ms, chip_smoke.graph_ms,
                                            chip_smoke.kernel_breakdown)
-    from delta_tpu_torch.ops import column_cache, join_kernel, key_cache, native, state_cache
+    from delta_tpu_torch.ops import (column_cache, join_kernel, key_cache, native, replay_kernel,
+                                     state_cache, state_export)
 
     card = torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
@@ -176,7 +242,92 @@ def main() -> int:
                      graph_ms=graph_ms(lambda: state_cache.block_cull(*a), 50),
                      breakdown_us=kernel_breakdown(lambda: state_cache.block_cull(*a)))
 
+    if only & {"k5", "k6"}:
+        rk = replay_kernel
+        # the redesign split the launches from the call's download
+        split = hasattr(rk, "_sharded_launch")
+        for name, (arr, cutoff) in replay_streams(chip_smoke, state_export).items():
+            num_paths = len(arr.paths)
+            pid64 = torch.from_numpy(arr.path_id).to(dev).long()
+            seq_all = torch.from_numpy(arr.seq).to(dev)
+            best = torch.empty(num_paths, dtype=torch.int64, device=dev)
+            library = lambda: best.fill_(-(1 << 63)).scatter_reduce_(0, pid64, seq_all, "amax")
+            cap = rk._next_pow2(arr.num_rows, floor=8)
+            cols = [torch.from_numpy(rk._pad(np.asarray(a, dt), cap, fill)).to(dev)
+                    for a, dt, fill in ((arr.path_id, np.int32, -1), (arr.seq, np.int64, 0),
+                                        (arr.is_add, bool, False), (arr.size, np.int64, 0),
+                                        (arr.deletion_timestamp, np.int64, 0))]
+            stacked, _, _ = rk._bucket_by_path(arr, chip_smoke.MESH_SHARDS)
+            big = [torch.from_numpy(c).to(dev) for c in stacked]
+            slabs = [tuple(c[i] for c in big) for i in range(chip_smoke.MESH_SHARDS)]
+            rows = [int((s[0] >= 0).sum()) for s in slabs]
+            runs = []
+            if "k5" in only:
+                runs.append(("replay", lambda: rk.replay(*cols, num_paths, cutoff),
+                             lambda: rk.replay_plain(*cols, num_paths, cutoff),
+                             split and (lambda: rk._launch("replay", [cols], num_paths, cutoff)),
+                             [cols], f"n={cap} ({arr.num_rows} actions) num_paths={num_paths}"))
+            if "k6" in only:
+                runs.append(("sharded_replay",
+                             lambda: rk.sharded_replay(slabs, num_paths, cutoff),
+                             lambda: rk.sharded_replay_plain(slabs, num_paths, cutoff),
+                             split and (lambda: rk._sharded_launch(slabs, num_paths, cutoff)),
+                             slabs,
+                             f"{chip_smoke.MESH_SHARDS} shards x cap={slabs[0][0].shape[0]} "
+                             f"(rows {rows}) num_paths={num_paths}"))
+            # the entry points' host wall, upload to download (the median of 5)
+            entry = {"replay": lambda: rk.replay_alive_mask(arr, cutoff, device=dev),
+                     "sharded_replay": lambda: rk.replay_sharded(
+                         arr, [dev] * chip_smoke.MESH_SHARDS, cutoff)}
+            for kernel, fn, plain, launch_only, inputs, shape in runs:
+                got, ref = fn(), plain()
+                flat = lambda r: (list(r[0]) + list(r[1]) + [r[2]] if isinstance(r[0], list)
+                                  else list(r))
+                if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(ref))):
+                    raise SystemExit(f"kernel_ab: {kernel} != its plain version ({name})")
+                b, _ = chip_smoke.bound(chip_smoke.replay_bytes(inputs, num_paths))
+                row = dict(stream=name, shape=shape, bound_ms=b, launches=launched(fn),
+                           ms=cuda_ms(fn, 50), host_us=host_us(fn, 20),
+                           library_ms=cuda_ms(library, 50), breakdown_us=kernel_breakdown(fn))
+                if launch_only:
+                    row["graph_ms"] = graph_ms(launch_only, 20)
+                walls = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    entry[kernel]()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                row["entry_wall_ms"] = sorted(walls)[2]
+                emit(kernel, **row)
+            del cols, big, slabs, best, pid64, seq_all
+            torch.cuda.empty_cache()
+
     rng = np.random.RandomState(13)
+    # kernels outside the replay on the launch path every wrapper shares
+    # (``native.call``): K2 at a tail's 500 dead files, K11 kill at a MERGE's
+    # deletion vector of 10,000 rows
+    for kernel, cap, d, n_rows in (("scatter_bool", 1 << 20, 512, 500),
+                                   ("slab_kill", 10_485_760, 16_384, 10_000)):
+        if {"scatter_bool": "k2", "slab_kill": "k11"}[kernel] not in only:
+            continue
+        r = np.random.RandomState(5)
+        lane = torch.from_numpy(r.rand(cap) > 0.02).to(dev)
+        rows_np = np.full(d, cap, np.int32)
+        rows_np[:n_rows] = np.sort(r.choice(cap, n_rows, replace=False))
+        rows = torch.from_numpy(rows_np).to(dev)
+        if kernel == "scatter_bool":
+            fn = lambda: state_cache.scatter_bool(lane, rows, False)
+            got, ref = fn().clone(), state_cache.scatter_bool_plain(lane.clone(), rows, False)
+        else:
+            fn = lambda: key_cache.slab_kill(lane, rows)
+            got, ref = fn(), key_cache.slab_flip_plain(lane, rows, False)
+        if not torch.equal(got, ref):
+            raise SystemExit(f"kernel_ab: {kernel} != its plain version")
+        emit(kernel, shape=f"cap={cap} d={d} ({n_rows} rows)", launches=launched(fn),
+             ms=cuda_ms(fn, 200), host_us=host_us(fn, 200), graph_ms=graph_ms(fn, 50),
+             breakdown_us=kernel_breakdown(fn))
+        del lane, rows, got, ref
+
     if "k8" in only:
         n, cap = 10_301_000, 10_485_760
         keys = np.full(cap, 0, np.int64)
