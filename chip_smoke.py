@@ -12,17 +12,24 @@ Phases, each reported on its own line:
 3. kernels: each kernel against its plain PyTorch version on the card, with
    EXACT equality — the block cull at C=4, cap=2^20, M=256, 1 and 257
    (NaN lanes on both sides, dead rows), the tail scatters at cap=2^20
-   with 8..1024 rows (pads included), the winner bits at n=2^20 and 2^24, the expression
+   with 8..1024 rows (pads included) and the tail apply (K3 with K2 on its
+   launch) at C=1 and 4 on ``tests/torch_kernel_cases.py``'s tails (wrapped
+   and dropped rows, a range past cap, dead rows inside the added range),
+   the winner bits at n=2^20 and 2^24, the expression
    interpreter (K15) at 2^20 rows over a corpus of programs that covers
    every opcode and dtype (NaN and ±inf lanes, timestamps before 1970,
    int32 overflow, saturating casts, an IN with a NULL in a column option),
    bit for bit except exp/log/pow/sqrt, where the lanes that differ are
    counted and must be within 1 ulp, the replay (K5) at n=2^20 (pads,
    removes on both sides of the retention cutoff, re-added paths), the
-   MERGE key slab's kernels: the radix sort (K8) and the search probe (K9)
+   MERGE key slab's kernels: the radix sort (K8) and the hash probe (K9)
    at n=2^20 and at cap=10,485,760 (duplicates, negatives, int64.max keys,
    pads, invalid rows, sentinels, absent keys, a dense band, source sizes 1
-   and 2^20), the pair compaction (K10) on empty, partial and full matches,
+   and 2^20) and on ``tests/torch_kernel_cases.py``'s hard shapes at cap
+   16,384 and 2^20 (an int32 source against keys beyond int32, both
+   tables' empty-slot keys, runs of thousands of equal keys, duplicate
+   sources, valid pad rows, m = 8, n = 0, n = cap, the sentinel-padded
+   source), the pair compaction (K10) on empty, partial and full matches,
    and the six slab updates (K11) with pads out of range; and the upload
    join (K12), int32 and int64, at cap_t=12,582,912 and cap_s=2^20
    (sentinels at both ends of the range, duplicate runs on both sides, no
@@ -52,7 +59,8 @@ Phases, each reported on its own line:
    protocol + metadata, then 10 commits of 100k adds); ``DeltaLog`` on the
    card; ``files_for_scan`` for 256 point-range predicates; the same 256 as
    one batched plan; 10 tail commits (1k adds + 500 removes each), each
-   applied incrementally and re-planned; ``replay_columns`` on the card.
+   applied incrementally in one upload and one launch (``tail_apply``: K3
+   with K2 on its launch) and re-planned; ``replay_columns`` on the card.
    Every plan is checked against the float64 host evaluation over the
    mirrors, which does not use the block cull;
 5. the normal leg and the tombstone replay on the same table, with the
@@ -128,14 +136,17 @@ Phases, each reported on its own line:
    upload + K8, phase 6's probes, K12, config 12's host filter and warm
    device pass, config 6's host and device plans);
 11. per kernel: time on the card (CUDA events, warmed, many launches; the
-   block cull's, K5's, K6's, K12's, K13's and K14's also replayed from a CUDA
-   graph, ``graph_ms`` (K5's and K6's without the call's download of the
-   sums), and K1's, K5's, K6's, K8's, K12's, K13's and K14's split by the
+   block cull's, the tail apply's, K5's, K6's, K9's, K12's, K13's and K14's
+   also replayed from a CUDA graph, ``graph_ms`` (K5's and K6's without the
+   call's download of the sums), and K1's, the tail apply's, K5's, K6's,
+   K8's, K9's, K12's, K13's and K14's split by the
    kernels they launch, ``breakdown_us``, left out where the profiler's
    trace lost kernel records; K12's and K13's hash probes in L2
    sectors at an L2 rate measured in the run) at
    the main path's shapes and inputs (K1 at config 6's 256-query batch
-   and at one query as ``files_for_scan`` launches it, K12 at M3's own
+   and at one query as ``files_for_scan`` launches it, K2 and K3 alone and
+   the tail apply at config 6's tail (its ``call_ms`` with the upload), K9
+   at phase 6's slab and source, K12 at M3's own
    padded inputs, K14 over the arith query's 8 config-12 files in its one
    launch and on one file (its phase-3 checks also run the staged tables
    of two 200-option IN lists), K16 at
@@ -366,6 +377,7 @@ def synthetic_checks(dev):
         check(torch.equal(a, b), f"scatter_bool != plain at d={d}")
         check(bitwise_equal(x, y), f"scatter_cols != plain at a={d}")
     say("kernels: scatter_bool, scatter_cols cap=2^20 d=a=8..1024 exact")
+    tail_checks(dev)
 
     for n in (1 << 20, 1 << 24):
         num_paths = n // 10
@@ -385,6 +397,36 @@ def synthetic_checks(dev):
     k16_checks(dev)
     k17_checks(dev)
     mesh_checks(dev)
+
+
+def kernel_cases():
+    """tests/torch_kernel_cases.py (numpy only): the K9 and tail shapes the
+    GPU tests hold too."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_kernel_cases
+
+    return torch_kernel_cases
+
+
+def tail_checks(dev):
+    """The tail apply (K3 with K2 on its launch) against its plain version,
+    on one uploaded buffer as ``_apply_tail_device`` makes it."""
+    cases = kernel_cases()
+    for c in (1, 4):
+        for case in cases.TAIL_CASES:
+            alive, mins, maxs, dead, start, k, lo, hi = cases.tail_case(c, case, cap=1 << 20)
+            on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            got = [on(x) for x in (alive, mins, maxs)]
+            ref = [x.clone() for x in got]
+            buf = on(np.concatenate([dead, lo.view(np.int32).ravel(), hi.view(np.int32).ravel()]))
+            vals = buf[len(dead):].view(torch.float32).view(2, c, k)
+            state_cache.tail_apply(*got, buf[:len(dead)], start, k, vals[0], vals[1])
+            state_cache.tail_apply_plain(*ref, on(dead), start, k, on(lo), on(hi))
+            torch.cuda.synchronize()
+            check(all(bitwise_equal(g, r) for g, r in zip(got, ref)),
+                  f"tail_apply != plain at C={c} ({case})")
+    say(f"kernels: tail_apply C=1, 4 cap=2^20 d=512 (wrapped and dropped rows), "
+        f"{', '.join(cases.TAIL_CASES)}: exact")
 
 
 def k17_checks(dev):
@@ -757,6 +799,16 @@ def slab_checks(dev):
         check(equal_all(key_cache.slab_probe(sk32, sv32, n, s32),
                         key_cache.slab_probe_plain(sk32, sv32, n, s32)),
               f"slab_probe != plain with an int32 source at n={n}")
+    cases = kernel_cases()
+    for scale in (1, 64):
+        for name in cases.CASE_NAMES:
+            sk, sv, n, s = (torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray) else x
+                            for x in cases.probe_case(name, scale))
+            got = key_cache.slab_probe(sk, sv, n, s)
+            torch.cuda.synchronize()
+            check(equal_all(got, key_cache.slab_probe_plain(sk, sv, n, s)),
+                  f"slab_probe != plain on {name} x{scale}")
+    say(f"kernels: slab_probe on {', '.join(cases.CASE_NAMES)} at cap 16,384 and 2^20: exact")
     say(f"kernels: slab_probe n=2^20 and 10,000,000, m=1 and 2^20 (int64), 4104 (int32): exact "
         f"({mc} matched rows in the last); pair_compact empty, partial, full: exact")
 
@@ -1182,8 +1234,10 @@ def run_slice(dev, workdir):
 
     launches = dict(native.launches)  # -- the main path ends here
     say(f"slice: launches on the scan-planning path {launches}")
-    for name in ("block_cull", "scatter_bool", "scatter_cols", "winner_bits"):
+    for name in ("block_cull", "tail_apply", "winner_bits"):
         check(launches[name] > 0, f"kernel {name} was not launched on the scan-planning path")
+    check(launches["tail_apply"] == N_TAILS and launches["scatter_bool"] == 0
+          and launches["scatter_cols"] == 0, "a tail must apply in one launch (K3 with K2)")
     return {"entry": entry, "ranges": ranges, "cols": cols, "launches": launches,
             "log": log, "snap": snap, "store": store, "n_live": n_live}
 
@@ -2410,6 +2464,56 @@ def k1_row(name, d, ranges, launches, reps):
         "shape": f"C={c} cap={cap} M={m} ({len(ranges)} queries)"}
 
 
+def tail_row(dev, d, dead_np, start, k, lo, launches):
+    """The tail apply (K3 with K2 on its launch) at config 6's tail: 500 dead
+    rows padded to 512 and ``k`` rows appended at ``start``, on clones of the
+    resident lanes. ``ms`` is the launch on the uploaded buffer; ``call_ms``
+    the upload from pinned memory and the launch, as ``_apply_tail_device``
+    makes them; no one torch call does all four scatters
+    (``library_parts_ms``: two ``index_fill_`` and two ``index_copy_``)."""
+    c = d["mins"].shape[0]
+    hi = lo + 1
+    packed = np.concatenate([dead_np, lo.cpu().numpy().view(np.int32).ravel(),
+                             hi.cpu().numpy().view(np.int32).ravel()])
+    buf = state_cache._upload(packed, dev)
+    nd = len(dead_np)
+    vals = buf[nd:].view(torch.float32).view(2, c, k)
+    got = [d[x].clone() for x in ("alive", "mins", "maxs")]
+    ref = [x.clone() for x in got]
+    fn = lambda: state_cache.tail_apply(*got, buf[:nd], start, k, vals[0], vals[1])
+    fn()
+    plain = lambda: state_cache.tail_apply_plain(*ref, buf[:nd], start, k, vals[0], vals[1])
+    plain()
+    check(all(bitwise_equal(g, r) for g, r in zip(got, ref)), "tail_apply != plain at the tail")
+
+    def call():
+        b = state_cache._upload(packed, dev)
+        v = b[nd:].view(torch.float32).view(2, c, k)
+        state_cache.tail_apply(*got, b[:nd], start, k, v[0], v[1])
+
+    keep = buf[:nd][buf[:nd] < d["alive"].shape[0]].long()
+    rows = torch.arange(start, start + k, device=dev)
+    lo_v, hi_v = vals[0].contiguous(), vals[1].contiguous()
+    lib = [x.clone() for x in got]
+
+    def library():
+        lib[0].index_fill_(0, keep, False)
+        lib[0].index_fill_(0, rows, True)
+        lib[1].index_copy_(1, rows, lo_v)
+        lib[2].index_copy_(1, rows, hi_v)
+
+    b, by = bound(nd * 4 + int((dead_np < d["alive"].shape[0]).sum()) + k + 2 * (c * k * 4) * 2)
+    return {
+        "name": "tail_apply", "route": "cuda", "source": "delta_tpu_torch/csrc/tail_scatter.cu",
+        "replaces": "delta_tpu/ops/state_cache.py:970", "launches": launches["tail_apply"],
+        "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        "ms": cuda_ms(fn, 200), "plain_ms": cuda_ms(plain, 50), "bound_ms": b, "bound_by": by,
+        "library_ms": None, "library_parts_ms": cuda_ms(library, 200),
+        "call_ms": cuda_ms(call, 200), "graph_ms": graph_ms(fn, 50),
+        "breakdown_us": kernel_breakdown(fn),
+        "shape": f"C={c} cap={d['alive'].shape[0]} d={nd} (500 dead rows), k={k} added rows"}
+
+
 def measure(dev, entry, ranges, cols, launches):
     d = entry._dev
     # the batched plan (M=256), then one query as files_for_scan launches it
@@ -2433,7 +2537,9 @@ def measure(dev, entry, ranges, cols, launches):
     b, by = bound(512 * 4 + 500)
     out.append({
         "name": "scatter_bool", "route": "cuda", "source": "delta_tpu_torch/csrc/tail_scatter.cu",
-        "replaces": "delta_tpu/ops/state_cache.py:959", "launches": launches["scatter_bool"],
+        "replaces": "delta_tpu/ops/state_cache.py:959",
+        "launches": launches["tail_apply"] + launches["scatter_bool"],
+        "launched_as": "tail_apply (one launch a tail applies the dead rows)",
         "max_abs_err": max_abs_err(a, b2),
         "ms": cuda_ms(lambda: state_cache.scatter_bool(a, dead, False), 200),
         "plain_ms": cuda_ms(lambda: state_cache.scatter_bool_plain(b2, dead, False), 50),
@@ -2452,13 +2558,16 @@ def measure(dev, entry, ranges, cols, launches):
     b, by = bound(1024 * 4 + c * 1024 * 4 + c * 1000 * 4)
     out.append({
         "name": "scatter_cols", "route": "cuda", "source": "delta_tpu_torch/csrc/tail_scatter.cu",
-        "replaces": "delta_tpu/ops/state_cache.py:970", "launches": launches["scatter_cols"],
+        "replaces": "delta_tpu/ops/state_cache.py:970",
+        "launches": launches["tail_apply"] + launches["scatter_cols"],
+        "launched_as": "tail_apply (one launch a tail writes both lanes)",
         "max_abs_err": max_abs_err(x, y),
         "ms": cuda_ms(lambda: state_cache.scatter_cols(x, rows, vals), 200),
         "plain_ms": cuda_ms(lambda: state_cache.scatter_cols_plain(y, rows, vals), 50),
         "bound_ms": b, "bound_by": by,
         "library_ms": cuda_ms(lambda: z.index_copy_(1, kept_rows, kept_vals), 200),
-        "shape": f"C={c} cap={cap} a=1024 (1000 rows + pads)"})
+        "shape": f"C={c} cap={cap} a=1024 (1000 rows + pads), one lane"})
+    out.append(tail_row(dev, d, dead_np, entry.num_rows - 1000, 1000, vals[:, :1000], launches))
 
     n = replay_kernel._next_pow2(cols.num_rows, floor=8)
     pid_np = np.full(n, -1, np.int32)
@@ -2600,6 +2709,8 @@ def measure_slab(dev, mctx):
                         5 * cap + 6 + cap_s // 8 + 4 * cap_s + 8 * cap_s + mc,
                         cuda_ms(lambda: torch.searchsorted(real, s64), 20),
                         f"cap={cap} n={n} m={cap_s} ({m} source rows, int32), {mc} matched"))
+    out[-1]["graph_ms"] = graph_ms(lambda: key_cache.slab_probe(sk, sv, n, s), 10)
+    out[-1]["breakdown_us"] = kernel_breakdown(lambda: key_cache.slab_probe(sk, sv, n, s))
 
     out_cap = state_cache._next_pow2(mc, floor=64)
     got = key_cache.pair_compact(t_match, s_first, perm, out_cap)

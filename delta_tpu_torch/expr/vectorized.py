@@ -344,7 +344,8 @@ def _is_num(k: str) -> bool:
 
 def _unify_numeric(l, r, n: int):
     """Arrow's implicit cast for numeric kernels: null takes the other side's
-    type, int64 with double computes in double."""
+    type, int64 with double computes in double, and a date with a timestamp
+    computes as a timestamp (the date at midnight)."""
     lk, rk = l.kind, r.kind
     if lk == "null" and rk == "null":
         return None
@@ -357,16 +358,25 @@ def _unify_numeric(l, r, n: int):
         return "double" if "double" in (lk, rk) else "int"
     if lk == rk and lk in ("bool", "str", "date", "ts"):
         return lk
+    if {lk, rk} == {"date", "ts"}:
+        return "ts"
     raise _NoKernel
 
 
+#: microseconds a day: a date lane (epoch days) widened to a timestamp's
+_US_PER_DAY = 86_400_000_000
+
+
 def _as(v, kind: str, n: int):
-    """Values of ``v`` in ``kind`` (only the numeric widening and null)."""
+    """Values of ``v`` in ``kind`` (only the numeric widening, a date as a
+    timestamp, and null)."""
     vals, valid = _parts(v, n)
     if v.kind == "null":
         vals = _nulls(n, kind).values
     elif kind == "double" and v.kind == "int":
         vals = vals.astype(np.float64)
+    elif kind == "ts" and v.kind == "date":
+        vals = vals.astype(np.int64) * _US_PER_DAY
     return vals, valid
 
 

@@ -315,6 +315,18 @@ def slab_probe_plain(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: i
     return head, t_match, s_first
 
 
+def _probe_scratch_bytes(m: int, itemsize: int) -> int:
+    """K9's scratch (``csrc/slab_probe.cu``): the source's table of 2 L + 8
+    slots (L the power of two at least 2 m, and 16: the ordered part with
+    its 8-slot window, then the overflow part), its keys (``itemsize`` bytes
+    a slot) and its words (4 bytes a slot), then 256 bytes of counters."""
+    slots = 16
+    while slots < 2 * m:
+        slots *= 2
+    total = 2 * slots + 8
+    return _aligned(itemsize * total) + _aligned(4 * total) + 256
+
+
 def slab_probe(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: int,
                s_keys: torch.Tensor):
     """K9: membership probe of the source keys (``(m,)`` int32 or int64, m
@@ -334,14 +346,17 @@ def slab_probe(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: int,
     if dev.type == "cpu":
         return slab_probe_plain(sorted_keys, sorted_valid, n, s_keys)
     _contiguous("slab_probe", sorted_keys, sorted_valid, s_keys)
-    head = torch.empty(6 + m // 8, dtype=torch.uint8, device=dev)
-    t_match = torch.empty(cap, dtype=torch.bool, device=dev)
-    s_first = torch.empty(cap, dtype=torch.int32, device=dev)
-    # run_first int32[n], run_valid u8[n], s_pos int32[m], flags u32[2]
-    scratch = torch.empty(4 * n + n + 4 * m + 8 + 4 * _ALIGN, dtype=torch.uint8, device=dev)
+    # the three outputs in one allocation: s_first, t_match, head
+    at_t, at_h = _aligned(4 * cap), _aligned(4 * cap) + _aligned(cap)
+    out = torch.empty(at_h + 6 + m // 8, dtype=torch.uint8, device=dev)
+    s_first = out[:4 * cap].view(torch.int32)
+    t_match = out[at_t:at_t + cap].view(torch.bool)
+    head = out[at_h:]
+    nbytes = _probe_scratch_bytes(m, s_keys.element_size())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     native.call("slab_probe", dev, sorted_keys.data_ptr(), sorted_valid.data_ptr(), n, cap,
                 s_keys.data_ptr(), 1 if s_keys.dtype == torch.int32 else 0, m, head.data_ptr(),
-                t_match.data_ptr(), s_first.data_ptr(), scratch.data_ptr(), scratch.numel())
+                t_match.data_ptr(), s_first.data_ptr(), scratch.data_ptr(), nbytes)
     native.launches["slab_probe"] += 1
     return head, t_match, s_first
 

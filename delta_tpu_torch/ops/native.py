@@ -51,6 +51,8 @@ _KERNELS = {
                      [_P, _P, _I, ctypes.c_ubyte, _L, _P]),
     "scatter_cols": ("tail_scatter", "dtt_scatter_cols",
                      [_P, _P, _P, _I, _I, _L, _P]),
+    "tail_apply": ("tail_scatter", "dtt_tail_apply",
+                   [_P, _P, _P, _I, _L, _P, _I, _L, _I, _P, _P, _P]),
     "winner_bits": ("winner_bits", "dtt_winner_bits",
                     [_P, _L, _P, _I, _P, _P, _P]),
     "replay": ("replay", "dtt_replay", [_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _L, _P]),

@@ -63,7 +63,8 @@ __all__ = [
     "extract_ranges", "extract_range_union", "build_entry",
     "resident_from_numpy", "block_cull", "block_cull_plain", "sharded_block_cull",
     "sharded_block_cull_plain", "scatter_bool",
-    "scatter_bool_plain", "scatter_cols", "scatter_cols_plain", "BLOCK",
+    "scatter_bool_plain", "scatter_cols", "scatter_cols_plain", "tail_apply",
+    "tail_apply_plain", "BLOCK",
 ]
 
 # block-cull granularity: a power of two <= the capacity floor of _next_pow2,
@@ -261,6 +262,16 @@ def sharded_block_cull(shards, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tens
     return mesh_mod.all_gather(parts, lead, axis=1)
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``: on a card through pinned memory, without waiting
+    (the host allocator keeps the pinned block until the copy is done)."""
+    if device.type != "cuda":
+        return torch.from_numpy(a).to(device)
+    host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(device, non_blocking=True)
+
+
 def _xla_rows(rows: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """XLA scatter index semantics: negative counts from the end, then
     anything outside [0, cap) is dropped. (kept mask, normalized rows)"""
@@ -319,6 +330,48 @@ def scatter_cols(a: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> tor
                 a.shape[0], rows.shape[0], a.shape[1])
     native.launches["scatter_cols"] += 1
     return a
+
+
+def tail_apply_plain(alive: torch.Tensor, mins: torch.Tensor, maxs: torch.Tensor,
+                     dead: torch.Tensor, start: int, k: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> None:
+    """Plain PyTorch version of the tail apply: the four plain calls in the
+    JAX package's order (``_apply_tail_device``), the added rows the range
+    ``[start, start + k)``."""
+    rows = torch.arange(start, start + k, dtype=torch.int64, device=alive.device)
+    scatter_bool_plain(alive, dead, False)
+    scatter_bool_plain(alive, rows, True)
+    scatter_cols_plain(mins, rows, lo)
+    scatter_cols_plain(maxs, rows, hi)
+
+
+def tail_apply(alive: torch.Tensor, mins: torch.Tensor, maxs: torch.Tensor,
+               dead: torch.Tensor, start: int, k: int, lo: torch.Tensor,
+               hi: torch.Tensor) -> None:
+    """One commit tail IN PLACE, in one launch of K3 with K2 on it: ``dead``
+    (d,) int32 rows False in ``alive`` (cap,) bool, then the rows ``[start,
+    start + k)`` True and ``lo``, ``hi`` (C, k) float32 into ``mins``,
+    ``maxs`` (C, cap), each index with XLA drop semantics; a dead row inside
+    the added range ends True. ``dead``, ``lo`` and ``hi`` may be views of
+    one uploaded buffer."""
+    if (alive.dtype != torch.bool or dead.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in (mins, maxs, lo, hi))):
+        raise TypeError("tail_apply: alive bool, dead int32, lanes and values float32")
+    c, cap = mins.shape if mins.dim() == 2 else (-1, -1)
+    if (alive.shape != (cap,) or maxs.shape != (c, cap) or dead.dim() != 1 or k < 0
+            or lo.shape != (c, k) or hi.shape != (c, k)):
+        raise ValueError(f"tail_apply: bad shapes alive {tuple(alive.shape)} mins "
+                         f"{tuple(mins.shape)} maxs {tuple(maxs.shape)} dead "
+                         f"{tuple(dead.shape)} lo {tuple(lo.shape)} hi {tuple(hi.shape)} k={k}")
+    if any(t.device != alive.device for t in (mins, maxs, dead, lo, hi)):
+        raise ValueError("tail_apply: all tensors must be on one device")
+    if alive.device.type == "cpu":
+        return tail_apply_plain(alive, mins, maxs, dead, start, k, lo, hi)
+    if not all(t.is_contiguous() for t in (alive, mins, maxs, dead, lo, hi)):
+        raise ValueError("tail_apply: tensors must be contiguous")
+    native.call("tail_apply", alive.device, alive.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
+                c, cap, dead.data_ptr(), dead.shape[0], start, k, lo.data_ptr(), hi.data_ptr())
+    native.launches["tail_apply"] += 1
 
 
 # -- range extraction from skipping predicates ------------------------------
@@ -827,26 +880,24 @@ class ResidentState:
             return list(arr.paths), lanes["min"], lanes["max"], lanes["size"]
 
     def _apply_tail_device(self, dead_rows, start, k, add_lo, add_hi) -> None:
-        """One small upload + the scatter kernels, in place on the resident
-        lanes. Index vectors are padded to powers of two with ``cap``, which
-        the kernels drop."""
+        """One upload + one launch (:func:`tail_apply`), in place on the
+        resident lanes. The dead rows, padded to a power of two with ``cap``
+        (which the kernel drops), and the added rows' min and max columns
+        travel in one buffer."""
         dev = self._dev
-        d = self.device
         cap = self.capacity
-        dead = np.full(_next_pow2(max(len(dead_rows), 1), floor=8), cap, np.int32)
-        dead[: len(dead_rows)] = dead_rows
-        a = _next_pow2(max(k, 1), floor=8)
-        rows = np.full(a, cap, np.int32)
-        rows[:k] = np.arange(start, start + k, dtype=np.int32)
-        lo32 = np.full((self.h_lo.shape[0], a), np.nan, np.float32)
-        hi32 = np.full((self.h_hi.shape[0], a), np.nan, np.float32)
-        lo32[:, :k] = _f32_down(add_lo)
-        hi32[:, :k] = _f32_up(add_hi)
-        rows_t = torch.from_numpy(rows).to(d)
-        scatter_bool(dev["alive"], torch.from_numpy(dead).to(d), False)
-        scatter_bool(dev["alive"], rows_t, True)
-        scatter_cols(dev["mins"], rows_t, torch.from_numpy(lo32).to(d))
-        scatter_cols(dev["maxs"], rows_t, torch.from_numpy(hi32).to(d))
+        c = self.h_lo.shape[0]
+        nd = _next_pow2(max(len(dead_rows), 1), floor=8)
+        packed = np.empty(nd + 2 * c * k, np.int32)
+        packed[:nd] = cap
+        packed[: len(dead_rows)] = dead_rows
+        vals = packed[nd:].view(np.float32).reshape(2, c, k)
+        vals[0] = _f32_down(add_lo)
+        vals[1] = _f32_up(add_hi)
+        buf = _upload(packed, self.device)
+        lanes = buf[nd:].view(torch.float32).view(2, c, k)
+        tail_apply(dev["alive"], dev["mins"], dev["maxs"], buf[:nd], start, k, lanes[0],
+                   lanes[1])
 
     # -- serving ----------------------------------------------------------
 

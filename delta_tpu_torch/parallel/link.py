@@ -96,10 +96,11 @@ HOST_PRUNE_S_PER_CELL = 6.41e-10
 HOST_KEY_DECODE_S_PER_ROW = 3.13e-8
 # the resident probe's device work, per slab + source row: K9 + K10 at phase
 # 6's 10.3M-row slab and 1M source keys
-RESIDENT_PROBE_S_PER_ROW = 4.24e-11
-# the resident probe's fixed part (launches, the source sort, the finalize's
-# floor): a probe of one source key, less its link terms and its rows
-RESIDENT_PROBE_FIXED_S = 1.57e-3
+RESIDENT_PROBE_S_PER_ROW = 2.67e-11
+# the resident probe's fixed part (launches, the source's table, the
+# finalize's floor): a probe of one source key, less its link terms and its
+# rows
+RESIDENT_PROBE_FIXED_S = 1.13e-3
 # the host side of the resident route, per matched pair (the pair download's
 # host argsort and pairs_for_file): the 1M-key probe less the one-key probe
 RESIDENT_PAIR_S_PER_ROW = 1.07e-7

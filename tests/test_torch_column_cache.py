@@ -98,7 +98,10 @@ def test_residual_plans_match_jax(q):
     "s < 'm'",                 # string ordering has no code semantics
     "upper(s) = 'A'",          # string function
     "m > 5",                   # decimal stays on host
-    "d = ts",                  # mixed temporal compare
+    "d = ts",                  # mixed temporal compare (the host leg answers it)
+    "d < ts",
+    "ts >= d",
+    "d <=> ts",
     "a = 'five'",              # string literal vs numeric lane
     "s IN ('a', x)",           # string IN over a non-literal option
 ])

@@ -24,6 +24,9 @@ from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import AddFile, Metadata, Protocol, RemoveFile
 from delta_tpu_torch.schema.types import DoubleType, IntegerType, LongType, StringType, StructType
 
+# tests/, on the path as chip_smoke is: numpy only
+from torch_kernel_cases import CASE_NAMES, TAIL_CASES, probe_case, tail_case
+
 pytestmark = pytest.mark.gpu
 
 
@@ -108,6 +111,45 @@ def test_scatter_kernels_match_plain(cuda):
     state_cache.scatter_cols_plain(n, r, v)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and _same(m, n)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_apply_kernel_matches_plain(cuda, c, case):
+    """The fused tail apply (K3 with K2 on its launch) in one launch on the
+    buffer ``_apply_tail_device`` uploads, against the four plain calls."""
+    alive, mins, maxs, dead, start, k, lo, hi = tail_case(c, case, cap=1 << 20)
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    got = [on(x) for x in (alive, mins, maxs)]
+    ref = [x.clone() for x in got]
+    buf = on(np.concatenate([dead, lo.view(np.int32).ravel(), hi.view(np.int32).ravel()]))
+    vals = buf[len(dead):].view(torch.float32).view(2, c, k)
+    before = native.launches["tail_apply"]
+    state_cache.tail_apply(*got, buf[:len(dead)], start, k, vals[0], vals[1])
+    torch.cuda.synchronize()
+    assert native.launches["tail_apply"] == before + 1
+    state_cache.tail_apply_plain(*ref, on(dead), start, k, on(lo), on(hi))
+    assert torch.equal(got[0], ref[0]) and _same(got[1], ref[1]) and _same(got[2], ref[2])
+
+
+def test_tail_on_the_card_is_one_upload_and_one_launch(cuda, tmp_path):
+    rng = np.random.RandomState(6)
+    path = str(tmp_path / "t")
+    _table(path, 3000, False, rng)
+    log = DeltaLog.for_table(path, device=cuda)
+    entry = state_cache.DeviceStateCache.instance().get(log.update())
+    entry.ensure_resident()
+    _tail(path, 2, 3000, False, rng)
+    snap = log.update()
+    before = dict(native.launches)
+    assert state_cache.DeviceStateCache.instance().get(snap) is entry
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in native.launches.items() if v != before[k]}
+    assert moved == {"tail_apply": 1}
+    lanes = {k: v.clone() for k, v in entry._dev.items()}
+    entry.drop_device()
+    entry.ensure_resident()
+    assert all(_same(lanes[k], entry._dev[k]) for k in ("alive", "mins", "maxs"))
 
 
 @pytest.mark.parametrize("n,num_paths", [(8, 3), (1 << 20, 100_000), (1 << 24, 1 << 21)])
@@ -345,6 +387,20 @@ def test_slab_probe_and_pair_compact_kernels_match_plain(cuda, n, m, dtype):
         got = key_cache.pair_compact(tm, s_first, perm, out_cap)
         torch.cuda.synchronize()
         assert torch.equal(got, key_cache.pair_compact_plain(tm, s_first, perm, out_cap))
+
+
+@pytest.mark.parametrize("scale", [1, 64])
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_slab_probe_kernel_at_hard_shapes(cuda, name, scale):
+    """K9 (the source's hash table, one pass over the slab) against its plain
+    version at tests/torch_kernel_cases.py's shapes, up to 2^20 rows."""
+    sk, sv, n, s = (torch.from_numpy(x).to(cuda) if isinstance(x, np.ndarray) else x
+                    for x in probe_case(name, scale))
+    before = native.launches["slab_probe"]
+    got = key_cache.slab_probe(sk, sv, n, s)
+    torch.cuda.synchronize()
+    assert native.launches["slab_probe"] == before + 1
+    assert _equal_all(got, key_cache.slab_probe_plain(sk, sv, n, s))
 
 
 def test_slab_update_kernels_match_plain(cuda):

@@ -31,6 +31,7 @@ from delta_tpu_torch.expr import ir as tir
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
 from delta_tpu_torch.expr.vectorized import evaluate as torch_evaluate
 from delta_tpu_torch.ops import key_cache as tkc
+from tests.torch_kernel_cases import CASE_NAMES, probe_case, reference_probe
 
 SIG = "test-k"
 
@@ -584,3 +585,28 @@ def test_read_parquet_of_a_written_table_equals_pyarrow(tmp_table):
         p = f"{log.data_path}/{add.path}"
         t = read_parquet_file(p, ["k"])
         assert np.array_equal(t.column("k").values, pq.read_table(p).column("k").to_numpy())
+
+
+# -- K9 at its hard shapes (tests/torch_kernel_cases.py) -------------------------------
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_slab_probe_plain_matches_jax_at_hard_shapes(name):
+    """K9's plain version (the CPU path, and the kernel's oracle on the
+    card) against a numpy oracle of the contract and against the JAX
+    kernel: an int32 source against keys beyond int32, the empty-slot keys
+    of both tables, runs of thousands of equal keys, duplicate sources,
+    valid pad rows holding source keys, m = 8, n = 0, n = cap and the
+    sentinel-padded source."""
+    from delta_tpu.utils.jaxcompat import enable_x64
+
+    sk, sv, n, s = probe_case(name)
+    want = reference_probe(sk, sv, n, s)
+    got = tkc.slab_probe_plain(torch.from_numpy(sk), torch.from_numpy(sv), n, torch.from_numpy(s))
+    assert all(np.array_equal(g.numpy(), w) for g, w in zip(got, want))
+    with enable_x64():
+        jhead, jt, jfirst = (np.array(x) for x in jkc._probe_sorted_kernel()(
+            sk, sv, np.int32(n), s))
+    assert jhead[1] == 0  # no overflow: the JAX kernel answers these shapes itself
+    assert np.array_equal(jhead, want[0]) and np.array_equal(jt, want[1])
+    assert np.array_equal(jfirst[jt], want[2][jt])

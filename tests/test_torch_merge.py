@@ -8,6 +8,9 @@ compares the sorted end-state rows, ``cmd.metrics`` without the
 exception class. Cases on what the port leaves out (schema evolution,
 generated columns) hold that the port raises ``NotImplementedError``.
 Exact throughout."""
+import datetime as dt
+import math
+
 import numpy as np
 import pytest
 
@@ -218,3 +221,62 @@ def test_generated_columns_are_not_ported(tmp_path, executor):
     P = Pkg("torch")
     with pytest.raises(NotImplementedError, match="generated columns"):
         P.merge(P.log(path), {"id": [2], "twice": [4]}, "t.id = s.id", [UP], [INS], **ALIAS)
+
+
+# -- queue C: a date against a timestamp in a clause condition -----------------------
+
+_DAY = dt.date(2024, 1, 5)
+_MIDNIGHT = dt.datetime(2024, 1, 5)
+
+
+@pytest.mark.parametrize("ts_type", ["timestamp", "timestamp_utc"])
+@pytest.mark.parametrize("cond", ["t.d < t.ts", "t.d = t.ts", "t.d >= s.ts"])
+def test_date_against_timestamp_clause_condition_matches_jax(tmp_path, executor, ts_type,
+                                                             cond):
+    """The clause conditions go through the row filter's compare: a date
+    against a timestamp compares the date at midnight, as Arrow does."""
+    target = {"id": [0, 1, 2, 3],
+              "d": ("date", [_DAY, _DAY, _DAY + dt.timedelta(days=1),
+                             _DAY - dt.timedelta(days=1)]),
+              "ts": (ts_type, [_MIDNIGHT, _MIDNIGHT + dt.timedelta(microseconds=1),
+                               _MIDNIGHT, _MIDNIGHT]),
+              "v": [0, 0, 0, 0]}
+    source = {"id": [0, 1, 2, 3, 4], "v": [9, 9, 9, 9, 9],
+              "ts": (ts_type, [_MIDNIGHT] * 5)}
+    steps = [(source, "t.id = s.id", [("update", cond, {"v": "s.v"})],
+              [("insert", None, {"id": "s.id", "v": "s.v"})])]
+    got = assert_same(tmp_path, target, steps)
+    updated = {"t.d < t.ts": [1, 3], "t.d = t.ts": [0], "t.d >= s.ts": [0, 1, 2]}[cond]
+    assert sorted(r["id"] for r in got[-1] if r["v"] == 9 and r["id"] < 4) == updated
+
+
+# -- queue C: the reference's answers the port does not copy ------------------------
+
+
+def test_fractional_literal_in_a_clause_condition_keeps_spark_answer(tmp_path, executor):
+    """``t.id IN (1, 2.5)``: Spark (and the port) update id 1; the
+    reference truncates 2.5 to 2 and updates ids 1 and 2."""
+    steps = [({"id": [0, 1, 2, 3], "v": [9, 9, 9, 9]}, "t.id = s.id",
+              [("update", "t.id IN (1, 2.5)")], [])]
+    target = {"id": [0, 1, 2, 3], "v": [0, 0, 0, 0]}
+    port = run_case(Pkg("torch"), str(tmp_path / "torch"), target, steps)
+    ref = run_case(Pkg("jax"), str(tmp_path / "jax"), target, steps)
+    assert [r["id"] for r in port[-1] if r["v"] == 9] == [1]
+    assert port[0][0]["numTargetRowsUpdated"] == 1
+    assert [r["id"] for r in ref[-1] if r["v"] == 9] == [1, 2]
+    assert ref[0][0]["numTargetRowsUpdated"] == 2
+
+
+def test_negative_zero_join_key_keeps_spark_answer(tmp_path, executor):
+    """-0.0 joins 0.0 (Spark normalizes -0.0 in join keys): the port updates
+    the 0.0 row; the reference's Arrow hash join compares bits and inserts
+    a fourth row."""
+    target = {"k": [0.0, 1.5, 2.0], "v": [1, 2, 3]}
+    steps = [({"k": [-0.0, 2.0], "v": [10, 30]}, "t.k = s.k", [UP], [INS])]
+    port = run_case(Pkg("torch"), str(tmp_path / "torch"), target, steps)
+    ref = run_case(Pkg("jax"), str(tmp_path / "jax"), target, steps)
+    signed = lambda rows: [(math.copysign(1, r["k"]), r["k"], r["v"]) for r in rows]
+    assert signed(port[-1]) == [(-1, -0.0, 10), (1, 1.5, 2), (1, 2.0, 30)]
+    assert (port[0][0]["numTargetRowsUpdated"], port[0][0]["numTargetRowsInserted"]) == (2, 0)
+    assert signed(ref[-1]) == [(-1, -0.0, 10), (1, 0.0, 1), (1, 1.5, 2), (1, 2.0, 30)]
+    assert (ref[0][0]["numTargetRowsUpdated"], ref[0][0]["numTargetRowsInserted"]) == (1, 1)

@@ -64,9 +64,10 @@ def _arrow(kind, values, valid):
     if kind == "date":
         return pa.array([None if v is None else dt.date(1970, 1, 1) + dt.timedelta(days=v)
                          for v in vals], pa.date32())
-    if kind == "ts":
+    if kind in ("ts", "tsutc"):
         return pa.array([None if v is None else _EPOCH + dt.timedelta(microseconds=v)
-                         for v in vals], pa.timestamp("us"))
+                         for v in vals],
+                        pa.timestamp("us", tz="UTC" if kind == "tsutc" else None))
     t = {"int": pa.int64(), "int32": pa.int32(), "double": pa.float64(), "str": pa.string(),
          "bool": pa.bool_()}[kind]
     return pa.array(vals, t)
@@ -78,6 +79,9 @@ def _host(kind, values, valid):
     if kind == "str":
         return HostColumn("str", np.array([v if ok else None for v, ok in
                                            zip(values.tolist(), valid)], object), valid)
+    if kind == "tsutc":
+        return HostColumn("ts", np.where(valid, values, 0).astype(np.int64), valid,
+                          "timestamp[us, tz=UTC]")
     np_dt = {"int": np.int64, "double": np.float64, "date": np.int64, "ts": np.int64,
              "bool": bool}[kind]
     return HostColumn(kind, np.where(valid, values, 0).astype(np_dt), valid)
@@ -594,3 +598,110 @@ def test_row_groups_prune_beside_an_unsupported_column(tmp_path):
     assert sorted(r["id"] for r in got) == list(range(100))
     pruned = telemetry.counters("scan.rowgroups").get("scan.rowgroups.pruned", 0)
     assert pruned - c0.get("scan.rowgroups.pruned", 0) == 7
+
+
+# -- queue C: a date column against a timestamp column ------------------------------
+
+_D = (dt.date(2024, 1, 5) - dt.date(1970, 1, 1)).days
+_T = int((dt.datetime(2024, 1, 5) - _EPOCH).total_seconds()) * 1_000_000
+
+#: the comparison -> the ids the reference keeps (Arrow casts the date to midnight)
+DATE_TS_PREDS = {"d = ts": [0], "d < ts": [1, 3], "d <= ts": [0, 1, 3], "d > ts": [2],
+                 "d <=> ts": [0], "d >= ts": [0, 2], "d != ts": [1, 2, 3]}
+
+
+@pytest.fixture(scope="module", params=[(w, k) for w in ("jax", "torch")
+                                        for k in ("ts", "tsutc")], ids=str)
+def date_ts_table(request, tmp_path_factory):
+    """(0, 2024-01-05, 2024-01-05 00:00:00), (1, 2024-01-05, ...00.000001),
+    (2, 2024-01-06, 2024-01-05), (3, 2024-01-04, 2024-01-05), with a naive
+    or a UTC timestamp column, written by either package."""
+    writer, ts_kind = request.param
+    path = str(tmp_path_factory.mktemp("dts") / f"{writer}-{ts_kind}")
+    ones = np.ones(4, bool)
+    write(writer, path, {"id": ("int", np.arange(4), ones),
+                         "d": ("date", np.array([_D, _D, _D + 1, _D - 1]), ones),
+                         ts_kind: ("tsutc" if ts_kind == "tsutc" else "ts",
+                                   np.array([_T, _T + 1, _T, _T]), ones)})
+    return path, ts_kind
+
+
+@pytest.mark.parametrize("pred", sorted(DATE_TS_PREDS))
+def test_date_against_timestamp_filter_matches_jax(date_ts_table, pred):
+    path, ts_col = date_ts_table
+    pred = pred.replace("ts", ts_col)
+    want = jax_rows(path, pred)
+    assert [r["id"] for r in want] == DATE_TS_PREDS[pred.replace(ts_col, "ts")]
+    assert port_rows(path, pred, mode="off") == want
+    assert port_rows(path, pred, mode="force") == want
+
+
+def test_date_against_timestamp_on_the_cc_table(cc_table):
+    """The residual declines the mixed compare (as ``jaxeval`` does): the
+    host leg answers under ``force`` too."""
+    want = jax_rows(cc_table, "d < ts")
+    assert len(want) == 49
+    c0 = telemetry.counters("scan.device")
+    assert port_rows(cc_table, "d < ts", mode="force") == want
+    assert telemetry.counters("scan.device").get("scan.device.fallback", 0) \
+        == c0.get("scan.device.fallback", 0) + 1
+    assert port_rows(cc_table, "d < ts", mode="off") == want
+    assert port_rows(cc_table, "d < ts AND cat = 'alpha'") == \
+        jax_rows(cc_table, "d < ts AND cat = 'alpha'")
+
+
+# -- queue C: the reference's answers the port does not copy ------------------------
+
+
+@pytest.fixture(scope="module")
+def pin_table(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("pin") / "t")
+    write("jax", path, {"id": ("int", np.arange(4), np.ones(4, bool)),
+                        "dbl": ("double", np.array([0.0, -0.0, 4.5, np.nan]), np.ones(4, bool))})
+    return path
+
+
+def _values(rows, col):
+    return [r[col] for r in rows]
+
+
+def _jax_rows_in(path, pred, mode):
+    JaxDeltaLog.clear_cache()
+    with jax_conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": mode}):
+        return rows_of(JaxTable.for_path(path).to_arrow(filters=[pred]))
+
+
+#: pred -> (the port's ids in both modes = Spark's, the reference's off, its force)
+FRACTIONAL_IN = {"id IN (2.5)": ([], [2], []),
+                 "id IN (1, 2.5)": ([1], [1, 2], [1]),
+                 "NOT (id IN (2.5))": ([0, 1, 2, 3], [0, 1, 3], [0, 1, 3]),
+                 "id = 2.5": ([], [], [])}
+
+
+@pytest.mark.parametrize("pred", sorted(FRACTIONAL_IN))
+def test_fractional_literal_in_an_integer_in_keeps_spark_answer(pin_table, pred):
+    """The reference's host kernel casts the IN's options to the column's
+    type (2.5 -> 2); Spark widens the column, and so does the port."""
+    port, ref_off, ref_force = FRACTIONAL_IN[pred]
+    for mode in ("off", "force"):
+        assert _values(port_rows(pin_table, pred, mode=mode), "id") == port
+    assert _values(_jax_rows_in(pin_table, pred, "off"), "id") == ref_off
+    assert _values(_jax_rows_in(pin_table, pred, "force"), "id") == ref_force
+
+
+#: pred -> (the port's dbl values in both modes, the reference's off, its force)
+NEG_ZERO_IN = {"dbl IN (0.0, 4.5)": ([0.0, -0.0, 4.5], [0.0, 4.5], [0.0, 4.5]),
+               "NOT (dbl IN (0.0))": ([4.5, "nan"], [-0.0, 4.5, "nan"], [4.5, "nan"]),
+               "dbl = 0.0": ([0.0, -0.0], [0.0, -0.0], [0.0, -0.0])}
+
+
+@pytest.mark.parametrize("pred", sorted(NEG_ZERO_IN))
+def test_negative_zero_in_an_in_keeps_spark_answer(pin_table, pred):
+    """-0.0 equals 0.0 in an IN as in ``=`` (Spark); the reference's
+    ``pc.is_in`` tells them apart."""
+    port, ref_off, ref_force = NEG_ZERO_IN[pred]
+    sign = lambda vs: [(v, math.copysign(1, v)) if isinstance(v, float) else v for v in vs]
+    for mode in ("off", "force"):
+        assert sign(_values(port_rows(pin_table, pred, mode=mode), "dbl")) == sign(port)
+    assert sign(_values(_jax_rows_in(pin_table, pred, "off"), "dbl")) == sign(ref_off)
+    assert sign(_values(_jax_rows_in(pin_table, pred, "force"), "dbl")) == sign(ref_force)

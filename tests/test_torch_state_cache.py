@@ -223,6 +223,53 @@ def test_scatter_negative_index_wraps_as_xla():
     assert np.array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("case", ["fresh", "wrap", "past-cap", "overlap"])
+def test_tail_apply_plain_matches_jax_sequence(c, case):
+    """The tail apply's plain version (the CPU path and the fused kernel's
+    oracle) against the JAX package's sequence: ``_scatter_bool`` False on
+    the dead rows, True on the added rows, then ``_scatter_cols`` on both
+    lanes, the added rows padded with ``cap`` and the bounds with NaN
+    (tests/torch_kernel_cases.py)."""
+    from tests.torch_kernel_cases import tail_case
+
+    alive, mins, maxs, dead, start, k, lo, hi = tail_case(c, case)
+    cap = alive.shape[0]
+    a = 1 << (k - 1).bit_length()
+    rows = np.full(a, cap, np.int32)
+    rows[:k] = np.arange(start, start + k, dtype=np.int32)
+    pad = lambda v: np.concatenate([v, np.full((c, a - k), np.nan, np.float32)], axis=1)
+    ja = jsc._scatter_bool(jnp.asarray(alive), jnp.asarray(dead), False)
+    ja = jsc._scatter_bool(ja, jnp.asarray(rows), True)
+    jmin = jsc._scatter_cols(jnp.asarray(mins), jnp.asarray(rows), jnp.asarray(pad(lo)))
+    jmax = jsc._scatter_cols(jnp.asarray(maxs), jnp.asarray(rows), jnp.asarray(pad(hi)))
+    t = [torch.from_numpy(x.copy()) for x in (alive, mins, maxs)]
+    tsc.tail_apply(*t, torch.from_numpy(dead), start, k, torch.from_numpy(lo),
+                   torch.from_numpy(hi))
+    assert np.array_equal(t[0].numpy(), np.asarray(ja))
+    assert _bits_equal(t[1].numpy(), np.asarray(jmin)) and _bits_equal(t[2].numpy(),
+                                                                      np.asarray(jmax))
+    if case == "overlap":
+        assert t[0].numpy()[start:start + k].all()
+
+
+def test_tail_apply_uploads_once(tmp_path, monkeypatch):
+    """``_apply_tail_device`` uploads one buffer and calls the tail apply
+    once a tail (K3 with K2 on its launch)."""
+    path = str(tmp_path / "t")
+    state = write_table(path, n_files=1800)
+    _, te = _entries(path)
+    te.ensure_resident()
+    calls, uploads = [], []
+    real_apply, real_upload = tsc.tail_apply, tsc._upload
+    monkeypatch.setattr(tsc, "tail_apply", lambda *a: calls.append(a) or real_apply(*a))
+    monkeypatch.setattr(tsc, "_upload", lambda *a: uploads.append(a) or real_upload(*a))
+    for _ in range(2):
+        write_tail(path, state, n_commits=1)
+        assert _entries(path)[1] is te
+    assert len(calls) == 2 and len(uploads) == 2
+
+
 def test_kernel_library_name_follows_source_and_flags(monkeypatch):
     from delta_tpu_torch.ops import native
 
@@ -385,6 +432,32 @@ def test_tail_apply_matches_jax(tmp_path, partitioned):
     for k in ("mins", "maxs"):
         assert _bits_equal(lanes[k].numpy(), te._dev[k].numpy())
     assert torch.equal(lanes["alive"], te._dev["alive"])
+
+
+def test_tail_apply_across_a_capacity_bucket_matches_jax(tmp_path):
+    """Tails that fill the capacity bucket (2048 rows) and then cross it:
+    the ones that fit apply in place, the crossing one rebuilds, and the
+    state and lanes equal the JAX package's and a fresh upload."""
+    path = str(tmp_path / "t")
+    state = write_table(path, n_files=1950)
+    _, te0 = _entries(path)
+    te0.ensure_resident()
+    cap = te0.capacity
+    write_tail(path, state, n_commits=1, adds=60, removes=10)
+    je, te = _entries(path)
+    assert te is te0 and te.capacity == cap and te.num_rows > 2000
+    _assert_same_state(je, te)
+    write_tail(path, state, n_commits=2, adds=60, removes=10)
+    je, te = _entries(path)
+    assert te.num_rows > cap or te.capacity > cap
+    _assert_same_state(je, te)
+    lanes = {k: v.clone() for k, v in te._dev.items()} if te._dev else None
+    te.drop_device()
+    te.ensure_resident()
+    if lanes is not None:
+        for k in ("mins", "maxs"):
+            assert _bits_equal(lanes[k].numpy(), te._dev[k].numpy())
+        assert torch.equal(lanes["alive"], te._dev["alive"])
 
 
 def test_older_snapshot_not_served(tmp_path):

@@ -1,0 +1,169 @@
+"""Inputs of the slab probe K9 and of the tail apply (K3 with K2) at their
+hard shapes, as numpy arrays.
+
+Imports numpy only, so the GPU tests (which run where JAX cannot be
+imported), ``chip_smoke.py`` and the CPU tests (which hand the same arrays
+to ``delta_tpu``'s kernels) share them.
+
+``probe_case(name, scale)`` returns ``(sorted_keys int64 (cap,),
+sorted_valid bool (cap,), n, s_keys int32 or int64 (m,))``: the real rows
+``[0, n)`` sorted, the rows ``[n, cap)`` whatever the case puts there (the
+kernel must ignore them). ``scale`` multiplies the row counts (1 on the
+CPU). ``name`` is one of :data:`CASE_NAMES`:
+
+* ``i32-high-bits``: an int32 source against slab keys that equal a source
+  key in the low 32 bits only (a key narrowed to int32 would match);
+* ``i64-extremes``: ``INT64_MIN`` (the hash table's empty-slot key) and
+  ``INT64_MAX`` among the real slab keys and the source's;
+* ``i32-min``: ``INT32_MIN`` (the int32 table's empty-slot key) in an int32
+  source and among the slab keys;
+* ``long-runs``: runs of thousands of equal slab keys, some rows valid and
+  some not, one run all invalid;
+* ``dup-source``: source keys repeated, matched and unmatched (multi);
+* ``pad-rows``: rows in ``[n, cap)``, valid, whose keys equal source keys;
+* ``m8``: a source of 8 keys;
+* ``n0``: no real row;
+* ``full``: ``n = cap``;
+* ``sentinel-padded``: the source as ``KeyCache.probe_async`` builds it,
+  ``m`` keys then copies of the int32 sentinel up to the bucket;
+* ``crowded``: the slab's keys span +-2^62 but nearly all of them, and of
+  the source's, lie in [0, 6000): ordered by key, the source crowds a few
+  slots of the kernel's table and spills into its overflow part.
+
+:func:`reference_probe` is an independent numpy oracle of the contract.
+
+``tail_case(c, case, cap)`` returns a commit tail as
+``ResidentState._apply_tail_device`` hands it to ``tail_apply``: the lanes
+``alive`` (cap,) bool and ``mins``, ``maxs`` (c, cap) float32; the dead rows
+padded to 512 with ``cap``, with negative and out-of-range indices (XLA
+wraps or drops them); the added range ``(start, k)`` and its (c, k) float32
+bounds, NaN in every seventh column. ``case`` is one of
+:data:`TAIL_CASES`: ``fresh`` (a range below cap), ``wrap`` (a negative
+start), ``past-cap`` (a range that runs past cap, whose tail is dropped),
+``overlap`` (dead rows inside the added range, which end True).
+"""
+import numpy as np
+
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+TAIL_CASES = ["fresh", "wrap", "past-cap", "overlap"]
+CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
+              "m8", "n0", "full", "sentinel-padded", "crowded"]
+
+
+def _sorted(keys, valid, n, pad_keys=None, pad_valid=None):
+    order = np.argsort(keys[:n], kind="stable")
+    cap = len(keys)
+    pk = np.full(cap - n, I64_MAX, np.int64) if pad_keys is None else pad_keys
+    pv = np.zeros(cap - n, bool) if pad_valid is None else pad_valid
+    return (np.concatenate([keys[:n][order], pk]).astype(np.int64),
+            np.concatenate([valid[:n][order], pv]).astype(bool))
+
+
+def probe_case(name: str, scale: int = 1):
+    rng = np.random.RandomState(CASE_NAMES.index(name) + 100 * scale)
+    cap = 16384 * scale
+    n = cap - 1000 * scale
+    valid = rng.rand(cap) > 0.2
+    if name == "i32-high-bits":
+        base = rng.randint(I32_MIN, I32_MAX, 2000 * scale).astype(np.int64)
+        keys = base[rng.randint(0, len(base), cap)] + (rng.randint(-3, 4, cap) << 32)
+        s = base[rng.randint(0, len(base), 4096 * scale)].astype(np.int32)
+        return (*_sorted(keys, valid, n), n, s)
+    if name == "i64-extremes":
+        keys = rng.randint(-1000, 1000, cap).astype(np.int64)
+        keys[rng.choice(n, 300, replace=False)] = I64_MIN
+        keys[rng.choice(n, 300, replace=False)] = I64_MAX
+        keys[rng.choice(n, 50, replace=False)] = I64_MAX - 1
+        s = np.concatenate([rng.randint(-1500, 1500, 4000 * scale),
+                            [I64_MIN, I64_MIN, I64_MAX, I64_MAX - 1, I64_MIN + 1, 7, 7, 7]])
+        return (*_sorted(keys, valid, n), n, s[rng.permutation(len(s))].astype(np.int64))
+    if name == "i32-min":
+        keys = rng.randint(-1000, 1000, cap).astype(np.int64)
+        keys[rng.choice(n, 200, replace=False)] = I32_MIN
+        keys[rng.choice(n, 200, replace=False)] = I32_MIN - 1  # outside int32: no match
+        s = np.concatenate([rng.randint(-1500, 1500, 4096 * scale - 8), [I32_MIN] * 3,
+                            [I32_MAX] * 5]).astype(np.int32)
+        return (*_sorted(keys, valid, n), n, s[rng.permutation(len(s))])
+    if name == "long-runs":
+        keys = rng.randint(0, 5000, cap).astype(np.int64)
+        for k, rows in ((11, 3000), (22, 2500), (33, 4000)):
+            keys[rng.choice(n, rows * scale, replace=False)] = k
+        valid[keys == 33] = False  # one run all invalid
+        s = np.concatenate([[11, 22, 33, 11], rng.randint(0, 8000, 4096 * scale - 4)])
+        return (*_sorted(keys, valid, n), n, s[rng.permutation(len(s))].astype(np.int64))
+    if name == "dup-source":
+        keys = rng.randint(0, 3000, cap).astype(np.int64)
+        s = np.repeat(rng.randint(0, 6000, 1024 * scale), 4)  # half present, each 4 times
+        return (*_sorted(keys, valid, n), n, s[rng.permutation(len(s))].astype(np.int32))
+    if name == "pad-rows":
+        keys = rng.randint(0, 3000, cap).astype(np.int64)
+        s = rng.randint(0, 6000, 4096 * scale).astype(np.int64)
+        s[:8] = [I64_MAX, 9000, 9001, 9002, 9003, 9004, 9005, 9006]  # only in the pad rows
+        pad = np.concatenate([[I64_MAX], 9000 + np.arange(cap - n - 1) % 7]).astype(np.int64)
+        return (*_sorted(keys, valid, n, pad, np.ones(cap - n, bool)), n, s)
+    if name == "m8":
+        keys = rng.randint(0, 100, cap).astype(np.int64)
+        return (*_sorted(keys, valid, n), n, np.array([5, 99, 5, 200, -1, 0, 50, 5], np.int64))
+    if name == "n0":
+        keys = rng.randint(0, 100, cap).astype(np.int64)
+        return (*_sorted(keys, valid, 0, keys, valid), 0,
+                rng.randint(0, 100, 64).astype(np.int32))
+    if name == "full":
+        keys = rng.randint(0, 8000, cap).astype(np.int64)
+        return (*_sorted(keys, valid, cap), cap, rng.randint(0, 16000, 2048 * scale).astype(np.int64))
+    if name == "crowded":
+        keys = rng.randint(0, 3000, cap).astype(np.int64)
+        keys[rng.choice(n, 500, replace=False)] = rng.randint(-(1 << 62), 1 << 62, 500)
+        s = np.concatenate([rng.randint(0, 6000, 4000 * scale),
+                            rng.randint(-(1 << 62), 1 << 62, 96 * scale)]).astype(np.int64)
+        return (*_sorted(keys, valid, n), n, s[rng.permutation(len(s))])
+    assert name == "sentinel-padded"
+    keys = rng.randint(0, 1 << 20, cap).astype(np.int64)
+    m = 3000 * scale
+    s = np.full(4096 * scale, I32_MAX - 1, np.int32)
+    s[:m] = np.concatenate([keys[rng.randint(0, n, m // 2)], rng.randint(0, 1 << 21, m - m // 2)])
+    return (*_sorted(keys, valid, n), n, s)
+
+
+def reference_probe(sk, sv, n, s):
+    """``(head, t_match, s_first)`` of the contract, from a dict of the
+    source's least index a key."""
+    m, cap = len(s), len(sk)
+    first = {}
+    for j, k in enumerate(s.tolist()):
+        first.setdefault(k, j)
+    s_first = np.full(cap, m, np.int32)
+    t_match = np.zeros(cap, bool)
+    flagged = set()
+    for r in range(n):
+        j = first.get(int(sk[r]))
+        if j is not None:
+            s_first[r] = j
+            if sv[r]:
+                t_match[r] = True
+                flagged.add(int(sk[r]))
+    s_match = np.array([k in flagged for k in s.tolist()], bool)
+    multi = any(s_match[j] and first[k] != j for j, k in enumerate(s.tolist()))
+    mc = int(t_match.sum())
+    head = np.concatenate([np.array([int(multi), 0] + [(mc >> sh) & 0xFF for sh in (0, 8, 16, 24)],
+                                    np.uint8), np.packbits(s_match)])
+    return head, t_match, s_first
+
+
+def tail_case(c: int, case: str, cap: int = 8192):
+    rng = np.random.RandomState(3 + c + TAIL_CASES.index(case) * 10 + cap % 1000)
+    alive = rng.rand(cap) > 0.3
+    mins = rng.rand(c, cap).astype(np.float32)
+    maxs = mins + 1
+    start, k = {"fresh": (cap - 1500, 1000), "wrap": (-700, 900), "past-cap": (cap - 300, 600),
+                "overlap": (2000, 1000)}[case]
+    dead = np.full(512, cap, np.int32)
+    dead[:400] = rng.choice(cap, 400, replace=False)
+    dead[400:406] = [-1, -cap, -cap - 1, cap + 5, 1 << 30, -(1 << 30)]
+    if case == "overlap":
+        dead[406:450] = rng.choice(np.arange(start, start + k), 44, replace=False)
+    lo = rng.rand(c, k).astype(np.float32)
+    hi = lo + 0.5
+    lo[:, ::7] = np.nan
+    return alive, mins, maxs, dead, start, k, lo, hi

@@ -6,10 +6,13 @@ both packages read the same ``_delta_log/``. Inputs come from numpy seeds.
 The MERGE parity tests (tests/test_torch_merge*.py) use :class:`Pkg`: one
 vocabulary that builds the same tables, sources and clauses in either
 package. A column is a Python list (ints, floats, strings, None for NULL)
-or a ``(type, list)`` pair naming its type; each package builds its own
-table from it (``pyarrow`` for ``delta_tpu``, numpy masked arrays for
+or a ``(type, list)`` pair naming its type (``date`` takes
+``datetime.date``s, ``timestamp`` and ``timestamp_utc`` naive
+``datetime``s); each package builds its own table from it (``pyarrow`` for
+``delta_tpu``, numpy masked arrays or ``HostColumn``s for
 ``delta_tpu_torch``).
 """
+import datetime as dt
 import json
 
 import numpy as np
@@ -187,6 +190,8 @@ class Pkg:
         if isinstance(values, np.ndarray):
             values = values.tolist()
         mask = np.array([v is None for v in values], bool)
+        if typ in ("date", "timestamp", "timestamp_utc"):
+            return self._temporal(typ, values, mask)
         if self.jax:
             t = {"int64": pa.int64(), "int32": pa.int32(), "float64": pa.float64(),
                  "string": pa.string(), "bool": pa.bool_()}[typ]
@@ -195,6 +200,21 @@ class Pkg:
             return np.ma.masked_array(np.array([v or "" for v in values], object), mask)
         fill = [0 if v is None else v for v in values]
         return np.ma.masked_array(np.array(fill, _NP[typ]), mask)
+
+    def _temporal(self, typ, values, mask):
+        if self.jax:
+            return pa.array(values, {"date": pa.date32(), "timestamp": pa.timestamp("us"),
+                                     "timestamp_utc": pa.timestamp("us", tz="UTC")}[typ])
+        from delta_tpu_torch.expr.vectorized import HostColumn
+
+        if typ == "date":
+            epoch = dt.date(1970, 1, 1)
+            lane = [0 if v is None else (v - epoch).days for v in values]
+            return HostColumn("date", np.array(lane, np.int64), ~mask)
+        epoch = dt.datetime(1970, 1, 1)
+        lane = [0 if v is None else (v - epoch) // dt.timedelta(microseconds=1) for v in values]
+        return HostColumn("ts", np.array(lane, np.int64), ~mask,
+                          "timestamp[us, tz=UTC]" if typ == "timestamp_utc" else None)
 
     def table(self, cols):
         if not isinstance(cols, dict):

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's block cull (K1), tail scatter (K2), replay (K5),
-sharded replay (K6), slab sort (K8), slab kill (K11), upload join (K12),
-sharded join (K13) and residual mask (K14) on one card, on seeded inputs, for the ``delta_tpu_torch``
+"""Time the PyTorch port's block cull (K1), tail scatters (K2, and the tail
+apply with K3), replay (K5), sharded replay (K6), slab sort (K8), slab probe
+(K9), slab kill (K11), upload join (K12), sharded join (K13) and residual
+mask (K14) on one card, on seeded inputs, for the ``delta_tpu_torch``
 package under ``--root`` (default: this checkout).
 
-    python3 tools/kernel_ab.py [--root DIR] [--only k1,k2,k5,k6,k8,k11,k12,k13,k14,k15,l2]
+    python3 tools/kernel_ab.py [--root DIR]
+        [--only k1,k2,k3,k5,k6,k8,k9,k11,k12,k13,k14,k15,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -30,7 +32,23 @@ columns, in three layouts of the lanes:
 each at M=256, at one query (M=1) and at one query with 7 NaN rows (M=8, the
 query axis padded as the JAX package pads it). K8 on bench config 2's slab
 (10,301,000 keys drawn as ``_store_sales``'s ``ss_item_sk`` in a capacity of
-10,485,760). K12 on M3's shape (11,000,000 int32 target keys padded to
+10,485,760). K9 on bench config 2's probe (``k9_traffic``: the 10,301,000-row
+slab and 1,000,000 int32 source keys, half of them present, padded to 2^20
+with ``probe_async``'s sentinel, as ``chip_smoke.py`` probes it
+(``config2``), with the fresh keys above the slab's range (``spread``),
+with a key that runs 100,000 rows (``dups``) and with one key at 2^40
+(``outlier``)):
+eager, graph, profiler kernels, the bound ``chip_smoke.py`` counts and
+``torch.searchsorted`` (the lookup half). K3 with K2 as the tail apply
+runs them at config 6's tail (500 dead rows padded to 512, 1,000 appended
+rows padded to 1,024, C=4 in 2^20): the launches on uploaded inputs
+(eager, graph, profiler), the uploads of the prepared arrays and the
+launches (``upload_launch_ms``: four pageable copies before the redesign,
+one pinned one after), the whole call (``_apply_tail_device``, which also
+rounds the float64 bounds to float32 on the host), and the four library
+calls it replaces
+(two ``index_fill_``, two ``index_copy_``); and K3's own call on one lane
+(``scatter_cols``) beside ``index_copy_``. K12 on M3's shape (11,000,000 int32 target keys padded to
 12,582,912, 1,000,000 source keys padded to 2^20) and K13 on M4's
 (12,500,000 target keys padded to 16,777,216 in 8 slabs of one card, the
 same source), each in four traffics: ``half`` (half the source present, some
@@ -178,10 +196,45 @@ def join_traffic(rng, cap_t, n, cap_s, m, traffic):
     return t_in, s_in
 
 
+def k9_traffic(torch, dev, key_cache, traffic):
+    """(sorted keys, sorted validity, n, padded int32 source) on the card.
+    ``config2``: bench config 2's slab as ``chip_smoke.py``'s probe sees it
+    after the advances (10,000,000 keys drawn from [0, 20,000,000), the
+    appended 300,000-row file's keys from 20,000,000 and the 1,000-row
+    file's from 40,000,000; 1% of rows invalid) and the bench's source,
+    half live keys and half fresh keys from 20,000,000 on; ``spread``: the
+    same slab with 301,000 re-appended keys and the fresh source keys above
+    the slab's range; ``dups``: ``spread`` with key 12,345 in 100,000 rows,
+    some valid and some not; ``outlier``: ``spread`` with one row's key at
+    2^40, so the source keys crowd the low end of the slab's range."""
+    rng = np.random.RandomState(13)
+    n, cap, m = 10_301_000, 10_485_760, 1_000_000
+    keys = np.zeros(cap, np.int64)
+    keys[:10_000_000] = rng.permutation(20_000_000)[:10_000_000]
+    if traffic == "config2":
+        keys[10_000_000:10_300_000] = np.arange(20_000_000, 20_300_000)
+        keys[10_300_000:n] = np.arange(40_000_000, 40_001_000)
+    else:
+        keys[10_000_000:n] = keys[rng.choice(10_000_000, n - 10_000_000, replace=False)]
+    valid = rng.rand(cap) > 0.01
+    if traffic == "dups":
+        keys[rng.choice(n, 100_000, replace=False)] = 12_345
+    if traffic == "outlier":
+        keys[n - 1] = 1 << 40
+    s = np.concatenate([keys[rng.randint(0, 10_000_000, m // 2)], 20_000_000 + np.arange(m - m // 2)])
+    if traffic == "dups":
+        s[:1000] = 12_345
+    s_in = np.full(1 << 20, np.iinfo(np.int32).max - 1, np.int32)
+    s_in[:m] = s[rng.permutation(m)]
+    k, v = torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev)
+    sk, _, _, sv = key_cache.slab_sort_plain(k, v, n)
+    return sk, sv, n, torch.from_numpy(s_in).to(dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="k1,k2,k5,k6,k8,k11,k12,k13,k14,k15,l2")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k8,k9,k11,k12,k13,k14,k15,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -327,6 +380,115 @@ def main() -> int:
              ms=cuda_ms(fn, 200), host_us=host_us(fn, 200), graph_ms=graph_ms(fn, 50),
              breakdown_us=kernel_breakdown(fn))
         del lane, rows, got, ref
+
+    if "k3" in only:
+        import types
+
+        cap, c, d, k, start = 1 << 20, 4, 512, 1000, 1_000_000
+        r = np.random.RandomState(5)
+        dead_rows = np.sort(r.choice(start, 500, replace=False)).astype(np.int64)
+        add_lo = r.rand(c, k) * 1e6
+        add_hi = add_lo + r.rand(c, k)
+        lanes = {"alive": torch.from_numpy(r.rand(cap) > 0.02).to(dev),
+                 "mins": torch.from_numpy(r.rand(c, cap).astype(np.float32)).to(dev)}
+        lanes["maxs"] = lanes["mins"] + 1
+        base = {name: t.clone() for name, t in lanes.items()}
+        h = np.zeros((c, 1))
+        entry = types.SimpleNamespace(_dev=lanes, device=dev, capacity=cap, h_lo=h, h_hi=h)
+        call = lambda: state_cache.ResidentState._apply_tail_device(entry, dead_rows, start, k,
+                                                                      add_lo, add_hi)
+        before = launched(call)
+        # the same tail on uploaded inputs: the launches alone
+        dead = np.full(d, cap, np.int32)
+        dead[:500] = dead_rows
+        a = 1024
+        rows = np.full(a, cap, np.int32)
+        rows[:k] = np.arange(start, start + k)
+        lo32 = np.full((c, a), np.nan, np.float32)
+        hi32 = np.full((c, a), np.nan, np.float32)
+        lo32[:, :k] = state_cache._f32_down(add_lo)
+        hi32[:, :k] = state_cache._f32_up(add_hi)
+        on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        dead_t, rows_t, lo_t, hi_t = on(dead), on(rows), on(lo32), on(hi32)
+        if hasattr(state_cache, "tail_apply"):
+            lo_k, hi_k = lo_t[:, :k].contiguous(), hi_t[:, :k].contiguous()
+            launch = lambda: state_cache.tail_apply(lanes["alive"], lanes["mins"], lanes["maxs"],
+                                                    dead_t, start, k, lo_k, hi_k)
+            packed = np.concatenate([dead, lo32[:, :k].view(np.int32).ravel(),
+                                     hi32[:, :k].view(np.int32).ravel()])
+
+            def upload_launch():
+                buf = state_cache._upload(packed, dev)
+                v = buf[d:].view(torch.float32).view(2, c, k)
+                state_cache.tail_apply(lanes["alive"], lanes["mins"], lanes["maxs"], buf[:d],
+                                       start, k, v[0], v[1])
+        else:
+            def launch():
+                state_cache.scatter_bool(lanes["alive"], dead_t, False)
+                state_cache.scatter_bool(lanes["alive"], rows_t, True)
+                state_cache.scatter_cols(lanes["mins"], rows_t, lo_t)
+                state_cache.scatter_cols(lanes["maxs"], rows_t, hi_t)
+
+            def upload_launch():
+                r = torch.from_numpy(rows).to(dev)
+                state_cache.scatter_bool(lanes["alive"], torch.from_numpy(dead).to(dev), False)
+                state_cache.scatter_bool(lanes["alive"], r, True)
+                state_cache.scatter_cols(lanes["mins"], r, torch.from_numpy(lo32).to(dev))
+                state_cache.scatter_cols(lanes["maxs"], r, torch.from_numpy(hi32).to(dev))
+        got = {name: t.clone() for name, t in lanes.items()}
+        ref = {name: t.clone() for name, t in base.items()}
+        state_cache.scatter_bool_plain(ref["alive"], dead_t, False)
+        state_cache.scatter_bool_plain(ref["alive"], rows_t, True)
+        state_cache.scatter_cols_plain(ref["mins"], rows_t, lo_t)
+        state_cache.scatter_cols_plain(ref["maxs"], rows_t, hi_t)
+        for name in lanes:
+            lanes[name].copy_(base[name])
+        launch()
+        if not all(chip_smoke.bitwise_equal(got[x], ref[x]) and
+                   chip_smoke.bitwise_equal(lanes[x], ref[x]) for x in lanes):
+            raise SystemExit("kernel_ab: the tail apply != the plain sequence")
+        keep_dead, keep_rows = dead_t[:500].long(), rows_t[:k].long()
+        lo_v, hi_v = lo_t[:, :k].contiguous(), hi_t[:, :k].contiguous()
+
+        def library():
+            lanes["alive"].index_fill_(0, keep_dead, False)
+            lanes["alive"].index_fill_(0, keep_rows, True)
+            lanes["mins"].index_copy_(1, keep_rows, lo_v)
+            lanes["maxs"].index_copy_(1, keep_rows, hi_v)
+
+        b, _ = chip_smoke.bound(500 * 4 + 500 + k + 2 * c * k * 4 * 2)
+        emit("tail_apply", shape=f"C={c} cap={cap} d={d} (500 dead rows), a=1024 ({k} rows)",
+             launches=launched(launch), call_launches=before, bound_ms=b,
+             ms=cuda_ms(launch, 200), host_us=host_us(launch, 200),
+             graph_ms=graph_ms(launch, 50), breakdown_us=kernel_breakdown(launch),
+             upload_launch_ms=cuda_ms(upload_launch, 200),
+             upload_launch_host_us=host_us(upload_launch, 200),
+             call_ms=cuda_ms(call, 200), call_host_us=host_us(call, 200),
+             library_ms=cuda_ms(library, 200))
+        one = lambda: state_cache.scatter_cols(lanes["mins"], rows_t, lo_t)
+        emit("scatter_cols", shape=f"C={c} cap={cap} a=1024 ({k} rows), one lane",
+             launches=launched(one), ms=cuda_ms(one, 200), graph_ms=graph_ms(one, 50),
+             library_ms=cuda_ms(lambda: lanes["mins"].index_copy_(1, keep_rows, lo_v), 200))
+        del lanes, base, got, ref
+
+    if "k9" in only:
+        for traffic in ("config2", "spread", "dups", "outlier"):
+            sk, sv, n, s = k9_traffic(torch, dev, key_cache, traffic)
+            cap, cap_s = sk.shape[0], s.shape[0]
+            fn = lambda: key_cache.slab_probe(sk, sv, n, s)
+            got, ref = fn(), key_cache.slab_probe_plain(sk, sv, n, s)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise SystemExit(f"kernel_ab: slab_probe != its plain version ({traffic})")
+            mc = int(ref[1].sum())
+            real, s64 = sk[:n], s.to(torch.int64)
+            b, _ = chip_smoke.bound(5 * cap + 6 + cap_s // 8 + 4 * cap_s + 8 * cap_s + mc)
+            emit("slab_probe", traffic=traffic,
+                 shape=f"cap={cap} n={n} m={cap_s} int32, {mc} matched", bound_ms=b,
+                 launches=launched(fn), ms=cuda_ms(fn, 20), host_us=host_us(fn, 20),
+                 graph_ms=graph_ms(fn, 10), breakdown_us=kernel_breakdown(fn),
+                 library_ms=cuda_ms(lambda: torch.searchsorted(real, s64), 20))
+            del sk, sv, s, got, ref, real, s64
+            torch.cuda.empty_cache()
 
     if "k8" in only:
         n, cap = 10_301_000, 10_485_760
