@@ -30,7 +30,11 @@ Phases, each reported on its own line:
    tables' empty-slot keys, runs of thousands of equal keys, duplicate
    sources, valid pad rows, m = 8, n = 0, n = cap, the sentinel-padded
    source), the pair compaction (K10) on empty, partial and full matches,
-   and the six slab updates (K11) with pads out of range; and the upload
+   the six slab updates (K11) with pads out of range, and the slab advance
+   (K11's one launch an advance) on ``tests/torch_kernel_cases.py``'s
+   advances at d = 64, 16,384 and 2^20 (a slice, a row list with pads and
+   negative rows, runs; int32 and int64 keys; the sorted view mirrored), in
+   place and into new lanes (the inputs then unchanged); and the upload
    join (K12), int32 and int64, at cap_t=12,582,912 and cap_s=2^20
    (sentinels at both ends of the range, duplicate runs on both sides, no
    match, all matched, one source key, the type's minimum: the hash
@@ -80,7 +84,8 @@ Phases, each reported on its own line:
    against a numpy reference join and ``pairs_for_file`` file by file;
    four tail commits (a DV of 10,000 rows, the DV shrunk to 5,000, a
    300,000-row file with a removal, a 1,000-row file), each advanced
-   incrementally and re-probed; a probe on the composite key
+   incrementally in one pinned upload and one ``slab_advance`` launch (no
+   single K11 update on the path) and re-probed; a probe on the composite key
    ``(ss_customer_sk, ss_store_sk)``;
 7. the MERGE command on bench config 2, with the counters set to 0 again:
    the 10M-row target written through ``WriteIntoDelta`` (files of at most
@@ -146,7 +151,11 @@ Phases, each reported on its own line:
    the main path's shapes and inputs (K1 at config 6's 256-query batch
    and at one query as ``files_for_scan`` launches it, K2 and K3 alone and
    the tail apply at config 6's tail (its ``call_ms`` with the upload), K9
-   at phase 6's slab and source, K12 at M3's own
+   at phase 6's slab and source, K11's single updates at phase 6's shapes
+   and its advance at advance a's (in place, ``pinned_ms`` into a new sorted
+   validity, ``upload_launch_ms`` with its pinned upload, graph, profiler,
+   the library calls of the same updates out of place and in place summed
+   beside it), K12 at M3's own
    padded inputs, K14 over the arith query's 8 config-12 files in its one
    launch and on one file (its phase-3 checks also run the staged tables
    of two 200-option IN lists), K16 at
@@ -154,7 +163,8 @@ Phases, each reported on its own line:
    against its plain version there), the plain version's
    time, the least time the card could take (the bytes its inputs and
    outputs need over 3.35 TB/s: no kernel here does enough operations a
-   byte for them to bound it; K1 and K7 by the bytes their data needs)
+   byte for them to bound it; K1 and K7 by the bytes their data needs,
+   the advance by the bytes its rows need, ``advance_bytes``)
    and, where one PyTorch
    call computes the same function, that call's time; one JSON line lists
    them;
@@ -163,7 +173,7 @@ Phases, each reported on its own line:
    under ``distributed.plan.mode=force`` (``resident_shards == 8``, every
    result ``device-sharded``, equal to one card's plans and the host's);
    ``replay_sharded`` of the log's action stream, equal to K5's masks and sums
-   (K6 one launch a replay: 4 on the phase's path); M4, a fifth bench
+   (K6 one launch a replay: 4 on the phase's path; K7 one launch a plan); M4, a fifth bench
    config 2 upsert of 1M new rows through the upload join on a hard-linked
    copy of phase 10's table (deletion vectors off over its
    deletion-vectored files, as M3), which must launch K13 once (one
@@ -227,8 +237,10 @@ MERGE_FILE_ROWS = 4_000_000  # delta.tpu.write.targetFileRows
 MERGE_PROBES = 7
 MERGE_DV_ROWS, MERGE_APPEND_ROWS, MERGE_SMALL_ROWS = 10_000, 300_000, 1_000
 I64_MAX = (1 << 63) - 1
-SLAB_KERNELS = ("slab_sort", "slab_probe", "pair_compact", "slab_kill", "slab_revive",
-                "slab_append", "slab_widen", "slab_map_rows", "slab_slice_append")
+#: the key slab's path (phase 6): K8-K10, K11's advance and widen
+SLAB_KERNELS = ("slab_sort", "slab_probe", "pair_compact", "slab_advance", "slab_widen")
+#: K11's single updates: checked in phase 3, launched on no path
+K11_UPDATES = ("slab_kill", "slab_revive", "slab_append", "slab_map_rows", "slab_slice_append")
 
 
 class SmokeFailure(RuntimeError):
@@ -844,6 +856,29 @@ def slab_checks(dev):
     torch.cuda.synchronize()
     say("kernels: slab kill/revive/map_rows d=64..2^20, append/slice_append a=64..2^20 "
         "(int32 and int64 keys, pads out of range), widen cap=10,485,760: exact")
+    sv = torch.from_numpy(rng.rand(cap) > 0.5).to(dev)
+    for d in (64, 16384, 1 << 20):
+        for case in cases.ADVANCE_CASES:
+            parts = cases.advance_case(rng, cap, d, case, wide=d == 16384)
+            buf, lay = key_cache.pack_advance(**parts)
+            b = torch.from_numpy(buf).to(dev)
+            mirror = case == "mirror"
+            ref = key_cache.slab_advance_plain(keys.clone(), lane.clone(), b, lay,
+                                               sv.clone() if mirror else None,
+                                               inv if mirror else None)
+            for copy in ((), ("keys", "valid", "sorted_valid")):
+                ins = (keys.clone(), lane.clone(), sv.clone())
+                got = key_cache.slab_advance(ins[0], ins[1], b, lay, ins[2] if mirror else None,
+                                             inv if mirror else None, copy=copy)
+                torch.cuda.synchronize()
+                check(all((g is None and r is None) or torch.equal(g, r)
+                          for g, r in zip(got, ref)),
+                      f"slab_advance != plain at d={d} ({case}, copy {copy})")
+                check(not copy or all(torch.equal(t, u) for t, u in zip(ins, (keys, lane, sv))),
+                      f"slab_advance changed its input lanes at d={d} ({case})")
+    say("kernels: slab_advance d=64, 16,384, 2^20 (a slice, a row list with pads and negative "
+        "rows, runs; int32 and int64 keys; the sorted view mirrored), in place and into new "
+        "lanes: exact")
 
 
 #: bench config 2's upload join shapes: cap_t = _bucket(~11M live rows), cap_s
@@ -1525,18 +1560,17 @@ def run_merge(dev, workdir):
                        data_change=True, stats=a.stats, deletion_vector=desc.to_dict())
 
     steps = [
-        (f"a: DV of {len(dv10)} rows", lambda: [readd(dv10)], {f0: dv10},
-         ("slab_kill", "slab_map_rows")),
-        (f"b: DV shrunk to {len(dv5)}", lambda: [readd(dv5)], {f0: dv5}, ("slab_revive",)),
+        (f"a: DV of {len(dv10)} rows", lambda: [readd(dv10)], {f0: dv10}),
+        (f"b: DV shrunk to {len(dv5)}", lambda: [readd(dv5)], {f0: dv5}),
         (f"c: {MERGE_APPEND_ROWS}-row file + a removal",
          lambda: [RemoveFile(path=f2, deletion_timestamp=3, data_change=True),
                   write_data_file(path, "part-00003-c2.parquet", new_c)],
-         {"part-00003-c2.parquet": None}, ("slab_append", "slab_kill")),
+         {"part-00003-c2.parquet": None}),
         (f"d: {MERGE_SMALL_ROWS}-row file", lambda: [write_data_file(path, "part-00004-c2.parquet", new_d)],
-         {"part-00004-c2.parquet": None}, ("slab_slice_append",)),
+         {"part-00004-c2.parquet": None}),
     ]
     advance_ms, reprobe_ms = [], []
-    for v, (label, actions, change, kernels) in enumerate(steps, start=1):
+    for v, (label, actions, change) in enumerate(steps, start=1):
         store.write(f"{path}/_delta_log/{filenames.delta_file(v)}", [a.json() for a in actions()])
         for p, dv in change.items():
             if dv is None:
@@ -1546,7 +1580,7 @@ def run_merge(dev, workdir):
                 live[p] = (files[p], dv)
         if v == 3:
             live.pop(f2)
-        before = {k: native.launches[k] for k in kernels}
+        before = dict(native.launches)
         snap = log.update()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1554,8 +1588,10 @@ def run_merge(dev, workdir):
         torch.cuda.synchronize()
         advance_ms.append((time.perf_counter() - t0) * 1e3)
         check(e is entry and e.version == v, f"advance {label}: not applied incrementally")
-        for k in kernels:
-            check(native.launches[k] > before[k], f"advance {label}: {k} was not launched")
+        n_adv = native.launches["slab_advance"] - before["slab_advance"]
+        check(n_adv == 1, f"advance {label}: slab_advance launched {n_adv} times, not once")
+        check(all(native.launches[k] == before[k] for k in K11_UPDATES),
+              f"advance {label}: a single K11 update was launched")
         ms, probe = check_probe(entry, live, item, s_keys, s_ok, f"after {label}")
         reprobe_ms.append(ms)
         say(f"merge: advance {label}: {advance_ms[-1]:.3f} ms, re-probe {ms:.3f} ms, "
@@ -1585,6 +1621,9 @@ def run_merge(dev, workdir):
     say(f"merge: launches on the key slab's path {launches}")
     for name in SLAB_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the key slab's path")
+    check(launches["slab_advance"] == len(steps) and not any(launches[k] for k in K11_UPDATES),
+          f"the key slab's path: {launches['slab_advance']} slab_advance launches for "
+          f"{len(steps)} advances, single updates {[launches[k] for k in K11_UPDATES]}")
     return {"entry": entry, "source": s_keys, "launches": launches, "cold": cold,
             "probe_p50_ms": float(p50), "probe_p99_ms": float(p99),
             "advance_ms": advance_ms, "dv10": dv10, "dv5": dv5, "off": entry.slabs[f0][0]}
@@ -1594,10 +1633,9 @@ def run_merge(dev, workdir):
 
 STORE_SALES = ("ss_item_sk", "ss_customer_sk", "ss_sold_date_sk", "ss_store_sk", "ss_quantity",
                "ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
-K11 = ("slab_kill", "slab_revive", "slab_append", "slab_widen", "slab_map_rows",
-       "slab_slice_append")
+K11 = ("slab_advance", "slab_widen")
 #: the merges of the phase: (name, table, session settings, the route it must
-#: take, the kernels it must launch; a tuple is "one of these": K11's updates
+#: take, the kernels it must launch; a tuple is "one of these": K11's launches
 #: depend on the layout, e.g. the advance over M1's commit regrows the 10M-row
 #: slab past its capacity, and the re-upload widens)
 MERGES = (
@@ -1753,7 +1791,7 @@ def run_merge_command(dev, workdir):
     say(f"merge command: launches on the MERGE command's path {launches}")
     for k in ("slab_sort", "slab_probe", "pair_compact", "join_probe"):
         check(launches[k] > 0, f"kernel {k} was not launched on the MERGE command's path")
-    check(any(launches[k] > 0 for k in K11), "no K11 update on the MERGE command's path")
+    check(any(launches[k] > 0 for k in K11), "no K11 launch on the MERGE command's path")
     check("args" in captured, "M3 did not reach K12")
     return {"merges": out, "launches": launches, "k12_args": captured["args"], "path": path,
             "state": refs[-1]}
@@ -2434,6 +2472,19 @@ def bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def advance_bytes(rows=0, slice_rows=0, key_bytes=0, run_rows=0, mirror_rows=0, copied=0):
+    """The bytes one slab advance (``key_cache.slab_advance``) must move:
+    each input read once and each output written once. A row of the row
+    list: its 4-byte index and validity byte uploaded, its validity byte
+    written; a row of the slice: its key as uploaded (``key_bytes``) and its
+    validity byte, the 8-byte key and the validity byte written; a row of a
+    run: its validity byte written; a row mirrored into the sorted view: 4
+    bytes of ``inv_perm`` read and its sorted validity byte written; a lane
+    copied because a probe holds it: ``copied`` bytes read and written."""
+    return (6 * rows + (key_bytes + 10) * slice_rows + run_rows + 5 * mirror_rows
+            + 2 * copied)
+
+
 def k1_row(name, d, ranges, launches, reps):
     """K1 on the resident lanes with the bounds ``_plan_device`` launches
     for ``ranges`` (``state_cache.plan_bounds``). ``ms`` is the eager call
@@ -2820,7 +2871,54 @@ def measure_slab(dev, mctx):
                                                                           nk, nv), 20),
                         18 * cap + 5 * a, cuda_ms(library_slice, 50),
                         f"cap={cap} a={a} start={start}"))
+    out.append(advance_row(dev, mctx, keys, valid, sv, inv))
     return out
+
+
+def advance_row(dev, mctx, keys, valid, sv, inv):
+    """K11's advance at phase 6's advance a (the deletion vector of 10,000
+    rows, the sorted view mirrored) on copies of the slab's lanes: in place,
+    into a new sorted validity (a probe in flight), with its pinned upload,
+    and replayed from a CUDA graph; no one torch call computes it, so the
+    in-place and out-of-place library calls of the same updates are summed
+    beside it."""
+    rows_np = mctx["dv10"] + mctx["off"]
+    buf, lay = key_cache.pack_advance(rows=rows_np, rows_valid=np.zeros(len(rows_np), bool))
+    b = torch.from_numpy(buf).to(dev)
+    k, v, s = keys.clone(), valid.clone(), sv.clone()
+    fn = lambda: key_cache.slab_advance(k, v, b, lay, s, inv)  # noqa: E731
+    got = fn()
+    ref = key_cache.slab_advance_plain(keys.clone(), valid.clone(), b, lay, sv.clone(), inv)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)), "slab_advance != plain on the slab")
+    kept = torch.from_numpy(rows_np).to(dev)
+    v2, s2 = v.clone(), s.clone()
+
+    def library(inplace):
+        spos = torch.take(inv, kept).long()
+        if inplace:
+            v2.index_fill_(0, kept, False)
+            s2.index_fill_(0, spos, False)
+        else:
+            return v.index_fill(0, kept, False), s.index_fill(0, spos, False)
+
+    row = slab_row("slab_advance", "slab_update.cu", mctx["launches"], got, ref,
+                   cuda_ms(fn, 50),
+                   cuda_ms(lambda: key_cache.slab_advance_plain(k, v, b, lay, s, inv), 20),
+                   advance_bytes(rows=len(rows_np), mirror_rows=len(rows_np)), None,
+                   f"cap={keys.shape[0]} advance a: {len(rows_np)} rows, sorted view mirrored")
+    row.update(
+        pinned_ms=cuda_ms(lambda: key_cache.slab_advance(k, v, b, lay, s, inv,
+                                                         copy=("sorted_valid",)), 50),
+        pinned_bound_ms=bound(advance_bytes(rows=len(rows_np), mirror_rows=len(rows_np),
+                                            copied=keys.shape[0]))[0],
+        upload_launch_ms=cuda_ms(lambda: key_cache.slab_advance(
+            k, v, state_cache._upload(buf, dev), lay, s, inv), 50),
+        graph_ms=graph_ms(fn, 20), breakdown_us=kernel_breakdown(fn),
+        library_out_of_place_ms=cuda_ms(lambda: library(False), 50),
+        library_inplace_ms=cuda_ms(lambda: library(True), 50),
+        advance_walls_ms=mctx["advance_ms"])
+    return row
 
 
 # -- phase 12: the state mesh ----------------------------------------------------------
@@ -2892,11 +2990,12 @@ def mesh_plan_leg(entry, ranges, settings):
 
 def measure_shard_constants(dev, shards, lo, hi):
     """SHARD_GATHER_S_PER_SHARD: the gather of config 6's 8 block maps into
-    the lead device's map (CUDA events), per shard. SHARD_DISPATCH_S: the
-    host wall of one synchronized sharded cull at the smallest plan that
-    splits over 8 shards (8 queries, one 1024-file block a shard), best of
-    20, less its 8 gathers. Both on one card: the gather is a copy inside
-    it."""
+    the lead device's map (CUDA events), per shard: what K7 pays where the
+    shards span cards. SHARD_DISPATCH_S: the host wall of one synchronized
+    sharded cull at the smallest plan that splits over 8 shards (8 queries,
+    one 1024-file block a shard), best of 20. On one card K7 is one launch
+    that writes the gathered map itself, so no gather is inside that
+    wall."""
     out = state_cache.sharded_block_cull(shards, lo, hi)
     w = out.shape[1] // len(shards)
     parts = [out[:, i * w:(i + 1) * w].contiguous() for i in range(len(shards))]
@@ -2908,9 +3007,6 @@ def measure_shard_constants(dev, shards, lo, hi):
         np.ones(8 * 1024, bool))], len(shards))
     s_lo = torch.from_numpy((rng.rand(8, 4) * 100).astype(np.float32))
     s_hi = s_lo + 1
-    small_out = state_cache.sharded_block_cull(small, s_lo, s_hi)
-    sp = [small_out[:, i:i + 1].contiguous() for i in range(len(shards))]
-    small_gather_ms = cuda_ms(lambda: mesh.all_gather(sp, dev, axis=1), 200)
     walls = []
     for _ in range(20):
         torch.cuda.synchronize()
@@ -2919,11 +3015,11 @@ def measure_shard_constants(dev, shards, lo, hi):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     gather_s = gather_ms / 1e3 / len(shards)
-    dispatch_s = min(walls) - small_gather_ms / 1e3
+    dispatch_s = min(walls)
     check(gather_s > 0 and dispatch_s > 0, f"shard constants {gather_s}, {dispatch_s}")
     return {"SHARD_DISPATCH_S": dispatch_s, "SHARD_GATHER_S_PER_SHARD": gather_s,
             "gather_ms_8_shards": gather_ms, "small_cull_wall_s": min(walls),
-            "small_gather_ms": small_gather_ms}
+}
 
 
 def auto_leg(entry, ranges, host_plans, leg):

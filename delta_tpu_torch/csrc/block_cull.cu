@@ -65,16 +65,21 @@
 // without fast math / FTZ: the f32 lanes can hold subnormals, and flushing
 // them would change comparisons.
 //
-// The sharded block cull (K7) is the second entry point, dtt_block_cull_shard.
-// It replaces delta_tpu/ops/state_cache.py:1014 `_sharded_block_kernel_fn`, a
-// shard_map on the TPU mesh in which each device runs K1's test over its
-// 1/shards slice of the file axis and any-reduces its own 1024-file blocks
-// into UNPACKED u8, all-gathered along the file axis. One launch per shard,
-// over that shard's (C, cap/shards) lanes and alive with the replicated
-// (M, C) bounds; the same CTA body as K1 (templated on the output form)
-// writes one byte per block, (M, cap/shards/1024), so the gathered map is
-// K1's unpacked bit for bit. The shard's slice holds whole blocks (the
-// wrapper asserts it).
+// The sharded block cull (K7) is the second entry point,
+// dtt_block_cull_shards. It replaces delta_tpu/ops/state_cache.py:1014
+// `_sharded_block_kernel_fn`, a shard_map on the TPU mesh in which each
+// device runs K1's test over its 1/shards slice of the file axis and
+// any-reduces its own 1024-file blocks into UNPACKED u8, all-gathered along
+// the file axis. Here ONE launch a distinct device covers all its shards: a
+// by-value table of at most 64 shards (each slice's lanes, its capacity and
+// the output column of its first block), one rank table built once for the
+// device, and one cull grid with blockIdx.y the shard (a shard's blocks past
+// its own capacity return at once). The same CTA body as K1 (templated on
+// the output form) writes one byte per block at (q, col + block) of an
+// (M, out_w) map: where every shard is on the lead device that map is the
+// gathered (M, total blocks) result itself, so the bytes are K1's unpacked
+// bit for bit with no gather. Each slice holds whole blocks (the wrapper
+// asserts it). K1 is the same launch with one shard, packed.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -89,6 +94,17 @@ constexpr int kQ = 64;                       // queries a tile: one 64-bit mask
 constexpr int kGroup = 4;                    // tiles held in registers a sweep
                                              // (1 when the batch has one tile)
 constexpr int kDirect = 8;                   // up to this many queries: compares
+constexpr int kMaxShards = 64;               // shards a launch (a device's)
+
+// The slices one launch culls, blockIdx.y the slice: its lanes (C, cap[s])
+// and alive (cap[s],), and the output column of its first block.
+struct Slices {
+  const float* mins[kMaxShards];
+  const float* maxs[kMaxShards];
+  const uint8_t* alive[kMaxShards];
+  long long cap[kMaxShards];
+  long long col[kMaxShards];
+};
 
 // One (64-query tile, column): absent queries of a partial tile sort last
 // as +inf and have no bit in any mask.
@@ -186,12 +202,16 @@ __device__ __forceinline__ int count_lt(const float* a, float x) {
 // one byte a block, (M, cap / kBlock) bytes. kG: query tiles a sweep.
 template <bool kPacked, int kG>
 __global__ void __launch_bounds__(kThreads)
-cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
-            const uint8_t* __restrict__ alive, const Table* __restrict__ tabs,
-            uint8_t* __restrict__ out, int C, long long cap, int M, int out_w) {
+cull_kernel(const __grid_constant__ Slices S, const Table* __restrict__ tabs,
+            uint8_t* __restrict__ out, int C, int M, long long out_w) {
   __shared__ unsigned long long s_any[kWarps][kG];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long blk = blockIdx.x;
+  const int sh = blockIdx.y;
+  const long long cap = S.cap[sh], blk = blockIdx.x;
+  if (blk * kBlock >= cap) return;  // CTA-uniform: past this slice's blocks
+  const float* __restrict__ mins = S.mins[sh];
+  const float* __restrict__ maxs = S.maxs[sh];
+  const uint8_t* __restrict__ alive = S.alive[sh];
   const long long f0 = blk * kBlock + (long long)tid * kFiles;
   const uint32_t al = *reinterpret_cast<const uint32_t*>(alive + f0);
   const int tiles = (M + kQ - 1) / kQ;
@@ -325,7 +345,7 @@ cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
                      (0x80u >> (blk & 7)) << (8 * (addr & 3)));
           }
         } else {
-          out[(long long)q * out_w + blk] = (uint8_t)on;
+          out[(long long)q * out_w + S.col[sh] + blk] = (uint8_t)on;
         }
       }
     }
@@ -333,30 +353,36 @@ cull_kernel(const float* __restrict__ mins, const float* __restrict__ maxs,
   }
 }
 
-int launch(bool packed, const float* mins, const float* maxs, const uint8_t* alive,
-           const float* lo, const float* hi, uint8_t* out, int C, long long cap, int M,
-           int out_w, void* tables, cudaStream_t s) {
-  if (cap % kBlock || M < 0 || C < 0) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)mins | (uintptr_t)maxs) % 16 || (uintptr_t)alive % 4 ||
-      (uintptr_t)out % 4 || (uintptr_t)tables % 16)
-    return (int)cudaErrorMisalignedAddress;
-  if (M == 0 || cap == 0) return (int)cudaSuccess;
+int launch(bool packed, const Slices& S, int n, const float* lo, const float* hi,
+           uint8_t* out, int C, int M, long long out_w, void* tables, cudaStream_t s) {
+  if (n < 1 || n > kMaxShards || M < 0 || C < 0) return (int)cudaErrorInvalidValue;
+  long long most = 0;
+  for (int i = 0; i < n; ++i) {
+    if (S.cap[i] < 0 || S.cap[i] % kBlock || S.col[i] < 0 ||
+        (!packed && S.col[i] + S.cap[i] / kBlock > out_w))
+      return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)S.mins[i] | (uintptr_t)S.maxs[i]) % 16 || (uintptr_t)S.alive[i] % 4)
+      return (int)cudaErrorMisalignedAddress;
+    most = S.cap[i] > most ? S.cap[i] : most;
+  }
+  if ((uintptr_t)out % 4 || (uintptr_t)tables % 16) return (int)cudaErrorMisalignedAddress;
+  if (M == 0 || most == 0) return (int)cudaSuccess;
   const int tiles = (M + kQ - 1) / kQ;
   // K1 ORs bits into 32-bit words of its output: the wrapper's buffer holds
   // whole words
   const long long zero_words = packed ? ((long long)M * out_w + 3) / 4 : 0;
   tables_kernel<<<dim3(tiles, C > 0 ? C : 1), kQ, 0, s>>>(lo, hi, M, C, (Table*)tables,
                                                            (uint32_t*)out, zero_words);
-  const unsigned grid = (unsigned)(cap / kBlock);
+  const dim3 grid((unsigned)(most / kBlock), (unsigned)n);
   const Table* T = (const Table*)tables;
   if (packed && tiles == 1)
-    cull_kernel<true, 1><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+    cull_kernel<true, 1><<<grid, kThreads, 0, s>>>(S, T, out, C, M, out_w);
   else if (packed)
-    cull_kernel<true, kGroup><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+    cull_kernel<true, kGroup><<<grid, kThreads, 0, s>>>(S, T, out, C, M, out_w);
   else if (tiles == 1)
-    cull_kernel<false, 1><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+    cull_kernel<false, 1><<<grid, kThreads, 0, s>>>(S, T, out, C, M, out_w);
   else
-    cull_kernel<false, kGroup><<<grid, kThreads, 0, s>>>(mins, maxs, alive, T, out, C, cap, M, out_w);
+    cull_kernel<false, kGroup><<<grid, kThreads, 0, s>>>(S, T, out, C, M, out_w);
   return (int)cudaGetLastError();
 }
 
@@ -369,18 +395,32 @@ int launch(bool packed, const float* mins, const float* maxs, const uint8_t* ali
 extern "C" int dtt_block_cull(const float* mins, const float* maxs, const uint8_t* alive,
                               const float* lo, const float* hi, uint8_t* out, int C,
                               long long cap, int M, int out_w, void* tables, void* stream) {
-  if (out_w != (int)((cap / kBlock + 7) / 8)) return (int)cudaErrorInvalidValue;
-  return launch(true, mins, maxs, alive, lo, hi, out, C, cap, M, out_w, tables,
-                (cudaStream_t)stream);
+  if (cap % kBlock || out_w != (int)((cap / kBlock + 7) / 8)) return (int)cudaErrorInvalidValue;
+  Slices S{};
+  S.mins[0] = mins;
+  S.maxs[0] = maxs;
+  S.alive[0] = alive;
+  S.cap[0] = cap;
+  return launch(true, S, 1, lo, hi, out, C, M, out_w, tables, (cudaStream_t)stream);
 }
 
-// K7, one shard: mins/maxs (C, cap) f32, alive (cap,) u8 0/1 of this shard's
-// slice, lo/hi (M, C) f32, out (M, cap / 1024) u8 (one byte a block); all
-// contiguous, cap a multiple of 1024; tables as dtt_block_cull's.
-extern "C" int dtt_block_cull_shard(const float* mins, const float* maxs,
-                                    const uint8_t* alive, const float* lo,
-                                    const float* hi, uint8_t* out, int C,
-                                    long long cap, int M, void* tables, void* stream) {
-  return launch(false, mins, maxs, alive, lo, hi, out, C, cap, M, (int)(cap / kBlock), tables,
-                (cudaStream_t)stream);
+// K7, one device's n shards: lanes (n, 3) pointers (mins, maxs: (C, caps[i])
+// f32, alive (caps[i],) u8 0/1, each contiguous, caps[i] a multiple of
+// 1024), cols (n,) the output column of each shard's first block; lo/hi
+// (M, C) f32 on this device; out (M, out_w) u8, one byte a block; tables as
+// dtt_block_cull's.
+extern "C" int dtt_block_cull_shards(const void* const* lanes, const long long* caps,
+                                     const long long* cols, int n, const float* lo,
+                                     const float* hi, uint8_t* out, int C, int M,
+                                     long long out_w, void* tables, void* stream) {
+  if (n < 1 || n > kMaxShards) return (int)cudaErrorInvalidValue;
+  Slices S{};
+  for (int i = 0; i < n; ++i) {
+    S.mins[i] = (const float*)lanes[3 * i];
+    S.maxs[i] = (const float*)lanes[3 * i + 1];
+    S.alive[i] = (const uint8_t*)lanes[3 * i + 2];
+    S.cap[i] = caps[i];
+    S.col[i] = cols[i];
+  }
+  return launch(false, S, n, lo, hi, out, C, M, out_w, tables, (cudaStream_t)stream);
 }

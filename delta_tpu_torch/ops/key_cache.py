@@ -28,14 +28,27 @@ or raises:
   candidate windows. It never overflows; the head's overflow byte is 0;
 * K10 :func:`pair_compact` (``csrc/pair_compact.cu``) replaces
   ``_pair_compact_kernel`` (``:353``);
-* K11 :func:`slab_kill`, :func:`slab_revive`, :func:`slab_append`,
-  :func:`slab_widen`, :func:`slab_map_rows`, :func:`slab_slice_append`
-  (``csrc/slab_update.cu``) replace ``_update_kernels`` (``:379``).
+* K11 (``csrc/slab_update.cu``) replaces ``_update_kernels`` (``:379``):
+  :func:`slab_advance` applies a whole slab advance in one launch, from one
+  pinned upload (:func:`pack_advance`: the touched rows, each once, with
+  its final validity; the appended rows as a slice; a removed file as a
+  run); :func:`slab_kill`, :func:`slab_revive`, :func:`slab_append`,
+  :func:`slab_map_rows` and :func:`slab_slice_append` run its kernel with
+  one update and keep the JAX kernels' contract (a new tensor, the input
+  unchanged); :func:`slab_widen` is a kernel of its own.
 
 JAX arrays are immutable, and a probe in flight on its staging thread
 keeps the arrays it pinned while a tail advance binds new ones. The port
-keeps that: every K11 update writes a NEW tensor (a copy of the lane with
-the rows changed) and never changes one a probe may hold.
+keeps what that protects, and no more: a probe holds the sorted view
+(``sorted_keys``, ``sorted_valid``, ``perm``), and takes a pin on the entry
+while its staging thread may still read them (:meth:`ResidentJoinKeys.
+probe_async`). An advance writes the lanes IN PLACE when no probe holds
+them; under a pin it binds a new ``sorted_valid`` (one copy of the lane in
+the advance's launch) and leaves the pinned one unchanged. ``keys`` and
+``valid`` are read only by the sort K8, which the probe's caller issues
+under the entry's lock on the same stream, so an advance writes them in
+place always; an advance that changes keys drops the sorted view (the
+probe keeps its tensors) and the next probe re-sorts.
 
 :class:`SlabBuilder` is the MERGE command's cold pipeline: each decoded
 file's key lane lands on a pre-sized device slab as the next files decode,
@@ -66,7 +79,7 @@ import os
 import threading
 import urllib.parse
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,13 +87,14 @@ import torch
 from delta_tpu_torch.ops import native
 from delta_tpu_torch.ops.join_kernel import PendingJoin as PendingProbe
 from delta_tpu_torch.ops.join_kernel import _bucket
-from delta_tpu_torch.ops.state_cache import _next_pow2, _packbits, _xla_rows
+from delta_tpu_torch.ops.state_cache import _next_pow2, _packbits, _upload, _xla_rows
 from delta_tpu_torch.utils.device import resolve
 
 __all__ = ["ResidentJoinKeys", "KeyCache", "PhysicalProbe", "SlabBuilder", "key_cache_enabled",
            "MAX_DEVICE_BYTES", "MAX_ENTRIES",
            "slab_sort", "slab_sort_plain", "slab_probe", "slab_probe_plain", "pair_compact",
-           "pair_compact_plain", "slab_kill", "slab_revive", "slab_flip_plain", "slab_append",
+           "pair_compact_plain", "AdvanceLayout", "pack_advance", "slab_advance",
+           "slab_advance_plain", "slab_kill", "slab_revive", "slab_flip_plain", "slab_append",
            "slab_append_plain", "slab_widen", "slab_widen_plain", "slab_map_rows",
            "slab_map_rows_plain", "slab_slice_append", "slab_slice_append_plain"]
 
@@ -96,6 +110,7 @@ MAX_ENTRIES = 8
 _POISON_VERSION = 1 << 62
 
 _I64_MAX = (1 << 63) - 1
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def key_cache_enabled() -> bool:
@@ -395,6 +410,192 @@ def pair_compact(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tenso
     return out
 
 
+class AdvanceLayout(NamedTuple):
+    """One advance's parts in its upload: the row list (``d`` rows, with
+    keys when ``keyed``), the slice (``a`` rows from ``start``) and the
+    runs (``nr`` of them, ``run_rows`` rows); keys as int32 when
+    ``keys_i32``. The ``o_*`` are byte offsets in the buffer, ``nbytes``
+    its length."""
+
+    d: int
+    a: int
+    start: int
+    nr: int
+    run_rows: int
+    keyed: bool
+    keys_i32: bool
+    o_rows: int
+    o_rvalid: int
+    o_rkeys: int
+    o_skeys: int
+    o_svalid: int
+    o_runs: int
+    o_rval: int
+    nbytes: int
+
+
+def pack_advance(rows=None, rows_valid=None, rows_keys=None, start: int = 0, slice_keys=None,
+                 slice_valid=None, runs=None, run_valid=None):
+    """The host side of one slab advance: its parts in one uint8 buffer
+    (one upload) and their :class:`AdvanceLayout`. ``rows`` (d,) row
+    indices (XLA drop mode) with ``rows_valid`` (d,) bool and, for a keyed
+    list, ``rows_keys`` (d,); the slice ``slice_keys`` / ``slice_valid``
+    (a,) written from ``start``; ``runs`` (nr, 2) (start, count) with
+    ``run_valid`` (nr,) bool. Keys travel as int32 when every one fits.
+    Each part is cast to its type as it is copied in."""
+    def arr(x, dt):
+        return np.empty(0, dt) if x is None else np.asarray(x).reshape(-1)
+
+    rows, rvalid, skeys, svalid = (arr(rows, np.int32), arr(rows_valid, bool),
+                                   arr(slice_keys, np.int64), arr(slice_valid, bool))
+    d, a = len(rows), len(skeys)
+    rkeys = arr(rows_keys, np.int64) if rows_keys is not None and d else None
+    runs = np.asarray(runs if runs is not None else [], np.int64).reshape(-1, 2)
+    rval = arr(run_valid, bool)
+    nr = len(runs)
+    if len(rvalid) != d or len(svalid) != a or len(rval) != nr or (
+            rkeys is not None and len(rkeys) != d):
+        raise ValueError("pack_advance: each part's values must match its rows")
+    keys_i32 = all(int(k.min()) >= _I32_MIN and int(k.max()) <= _I32_MAX
+                   for k in (skeys, rkeys) if k is not None and len(k))
+    kdt = np.int32 if keys_i32 else np.int64
+    run_words = None
+    if nr:  # the runs' starts, then the exclusive prefix of their counts
+        run_words = np.zeros(2 * nr + 1, np.int64)
+        run_words[:nr] = runs[:, 0]
+        np.cumsum(runs[:, 1], out=run_words[nr + 1:])
+    parts = ((rows, np.int32), (rvalid, np.bool_), (rkeys, kdt), (skeys, kdt),
+             (svalid, np.bool_), (run_words, np.int64), (rval, np.bool_))
+    offs, off = [], 0
+    for x, dt in parts:
+        offs.append(off)
+        if x is not None:
+            off += -(-len(x) * dt().itemsize // 16) * 16
+    buf = np.empty(max(off, 16), np.uint8)
+    for (x, dt), o in zip(parts, offs):
+        if x is not None and len(x):
+            buf[o:o + len(x) * dt().itemsize].view(dt)[:] = x
+    return buf, AdvanceLayout(d, a, int(start), nr, int(run_words[-1]) if nr else 0,
+                              rkeys is not None, keys_i32, *offs, len(buf))
+
+
+def _advance_parts(buf: torch.Tensor, lay: AdvanceLayout):
+    """The parts of an advance's buffer as views: (rows, rows_valid,
+    rows_keys, slice_keys, slice_valid, runs (2 nr + 1,), run_valid)."""
+    kdt = torch.int32 if lay.keys_i32 else torch.int64
+
+    def part(o, n, dt):
+        return buf[o:o + n * torch.empty(0, dtype=dt).element_size()].view(dt)
+
+    return (part(lay.o_rows, lay.d, torch.int32), part(lay.o_rvalid, lay.d, torch.bool),
+            part(lay.o_rkeys, lay.d if lay.keyed else 0, kdt), part(lay.o_skeys, lay.a, kdt),
+            part(lay.o_svalid, lay.a, torch.bool),
+            part(lay.o_runs, 2 * lay.nr + 1 if lay.nr else 0, torch.int64),
+            part(lay.o_rval, lay.nr, torch.bool))
+
+
+def slab_advance_plain(keys, valid, buf, lay: AdvanceLayout, sorted_valid=None, inv=None,
+                       copy=()):
+    """Plain PyTorch version of K11's advance: the slice, then the row list
+    (drop mode), then the runs, each validity also at its sorted position
+    ``inv[r]`` when ``sorted_valid`` is given; the lanes named in ``copy``
+    written as new tensors, the others in place (a lane the advance does not
+    write, keys without a slice or keyed rows, is returned as given)."""
+    keys = keys.clone() if "keys" in copy and (lay.a or lay.keyed) else keys
+    valid = valid.clone() if "valid" in copy else valid
+    sv = sorted_valid
+    if sv is not None and "sorted_valid" in copy:
+        sv = sv.clone()
+    cap = valid.shape[0]
+    rows, rvalid, rkeys, skeys, svalid, runs, rval = _advance_parts(buf, lay)
+
+    def put(r, v):
+        valid[r] = v
+        if sv is not None:
+            sv[inv[r].long()] = v
+
+    if lay.a:
+        s = min(max(lay.start, 0), cap - lay.a)
+        keys[s:s + lay.a] = skeys.to(torch.int64)
+        valid[s:s + lay.a] = svalid
+    if lay.d:
+        keep, r = _xla_rows(rows, cap)
+        if lay.keyed:
+            keys[r[keep]] = rkeys[keep].to(torch.int64)
+        put(r[keep], rvalid[keep])
+    if lay.nr:
+        starts, pre = runs[:lay.nr], runs[lay.nr:]
+        counts = pre[1:] - pre[:-1]
+        r = (torch.repeat_interleave(starts - pre[:-1], counts)
+             + torch.arange(lay.run_rows, device=starts.device))
+        v = torch.repeat_interleave(rval, counts)
+        ok = (r >= 0) & (r < cap)
+        put(r[ok], v[ok])
+    return keys, valid, sv
+
+
+def _advance_call(name: str, dev: torch.device, cap: int, *, keys=0, keys_src=0, valid=0,
+                  valid_src=0, sorted_valid=0, sorted_src=0, inv=0, mapped=0, rows=0,
+                  rows_valid=0, rows_keys=0, d=0, value=0, start=0, slice_keys=0,
+                  slice_valid=0, a=0, runs=0, run_valid=0, nr=0, run_rows=0,
+                  keys_i32=0) -> None:
+    """One ``dtt_slab_advance`` launch (pointers as ints, 0 for an absent
+    part), counted under ``name`` where it launches its kernel."""
+    native.call(name, dev, keys, keys_src, valid, valid_src, sorted_valid, sorted_src, inv,
+                mapped, cap, rows, rows_valid, rows_keys, d, value, start, slice_keys,
+                slice_valid, a, runs, run_valid, nr, run_rows, keys_i32)
+    if a + d + run_rows:
+        native.launches[name] += 1
+
+
+def slab_advance(keys: torch.Tensor, valid: torch.Tensor, buf: torch.Tensor,
+                 lay: AdvanceLayout, sorted_valid: Optional[torch.Tensor] = None,
+                 inv: Optional[torch.Tensor] = None, copy=()):
+    """K11: one slab advance in one launch. ``buf`` is :func:`pack_advance`'s
+    buffer on the lanes' device (the parts' rows distinct: the host
+    resolved them), ``keys`` (cap,) int64, ``valid`` (cap,) bool; with
+    ``sorted_valid`` (cap,) bool and ``inv`` (cap,) int32 (only when no key
+    changes) each validity written is mirrored at ``inv[r]``. The lanes
+    named in ``copy`` are written as new tensors (copied once, then
+    written), the others in place. Returns (keys, valid, sorted_valid)."""
+    cap = valid.shape[0]
+    if keys.dtype != torch.int64 or valid.dtype != torch.bool or buf.dtype != torch.uint8 \
+            or valid.dim() != 1 or keys.shape != (cap,) or buf.dim() != 1:
+        raise TypeError("slab_advance: keys (cap,) int64, valid (cap,) bool, buf uint8")
+    mirror = sorted_valid is not None
+    if mirror != (inv is not None) or (mirror and (
+            sorted_valid.dtype != torch.bool or inv.dtype != torch.int32
+            or sorted_valid.shape != (cap,) or inv.shape != (cap,))):
+        raise TypeError("slab_advance: sorted_valid (cap,) bool and inv (cap,) int32 together")
+    if mirror and (lay.a or lay.keyed):
+        raise ValueError("slab_advance: a key change drops the sorted view, it is not mirrored")
+    if lay.nbytes > buf.numel() or lay.a > cap or cap >= 1 << 31:
+        raise ValueError(f"slab_advance: a buffer of {buf.numel()} bytes for a layout of "
+                         f"{lay.nbytes}, a={lay.a}, cap={cap}")
+    ts = (keys, valid, buf) + ((sorted_valid, inv) if mirror else ())
+    dev = _same_device("slab_advance", *ts)
+    if dev.type == "cpu":
+        return slab_advance_plain(keys, valid, buf, lay, sorted_valid, inv, copy)
+    _contiguous("slab_advance", *ts)
+    k = torch.empty_like(keys) if "keys" in copy and (lay.a or lay.keyed) else keys
+    v = torch.empty_like(valid) if "valid" in copy else valid
+    sv = torch.empty_like(sorted_valid) if mirror and "sorted_valid" in copy else sorted_valid
+    base = buf.data_ptr()
+    at = lambda o, n: base + o if n else 0  # noqa: E731
+    _advance_call("slab_advance", dev, cap, keys=k.data_ptr(), keys_src=keys.data_ptr(),
+                  valid=v.data_ptr(), valid_src=valid.data_ptr(),
+                  sorted_valid=sv.data_ptr() if mirror else 0,
+                  sorted_src=sorted_valid.data_ptr() if mirror else 0,
+                  inv=inv.data_ptr() if mirror else 0, rows=at(lay.o_rows, lay.d),
+                  rows_valid=at(lay.o_rvalid, lay.d),
+                  rows_keys=at(lay.o_rkeys, lay.d if lay.keyed else 0), d=lay.d,
+                  start=lay.start, slice_keys=at(lay.o_skeys, lay.a),
+                  slice_valid=at(lay.o_svalid, lay.a), a=lay.a, runs=at(lay.o_runs, lay.nr),
+                  run_valid=at(lay.o_rval, lay.nr), nr=lay.nr, run_rows=lay.run_rows,
+                  keys_i32=int(lay.keys_i32))
+    return k, v, sv
+
+
 def slab_flip_plain(v: torch.Tensor, rows: torch.Tensor, value: bool) -> torch.Tensor:
     """Plain PyTorch version of K11's ``kill``/``revive``: a copy of ``v``
     with ``rows`` set to ``value`` (XLA drop semantics)."""
@@ -412,9 +613,8 @@ def _flip(name: str, v: torch.Tensor, rows: torch.Tensor, value: bool) -> torch.
         return slab_flip_plain(v, rows, value)
     _contiguous(name, v, rows)
     out = torch.empty_like(v)
-    native.call(name, dev, v.data_ptr(), out.data_ptr(), v.shape[0], rows.data_ptr(),
-                rows.shape[0], 1 if value else 0)
-    native.launches[name] += 1
+    _advance_call(name, dev, v.shape[0], valid=out.data_ptr(), valid_src=v.data_ptr(),
+                  rows=rows.data_ptr(), d=rows.shape[0], value=int(value))
     return out
 
 
@@ -452,10 +652,10 @@ def slab_append(keys: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
         return slab_append_plain(keys, valid, rows, nk, nv)
     _contiguous("slab_append", keys, valid, rows, nk, nv)
     k2, v2 = torch.empty_like(keys), torch.empty_like(valid)
-    native.call("slab_append", dev, keys.data_ptr(), valid.data_ptr(), k2.data_ptr(),
-                v2.data_ptr(), keys.shape[0], rows.data_ptr(), nk.data_ptr(),
-                1 if nk.dtype == torch.int32 else 0, nv.data_ptr(), a)
-    native.launches["slab_append"] += 1
+    _advance_call("slab_append", dev, keys.shape[0], keys=k2.data_ptr(), keys_src=keys.data_ptr(),
+                  valid=v2.data_ptr(), valid_src=valid.data_ptr(), rows=rows.data_ptr(),
+                  rows_valid=nv.data_ptr(), rows_keys=nk.data_ptr(), d=a,
+                  keys_i32=int(nk.dtype == torch.int32))
     return k2, v2
 
 
@@ -478,15 +678,15 @@ def slab_widen(k: torch.Tensor) -> torch.Tensor:
 
 def slab_map_rows_plain(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     cap = inv.shape[0]
-    r = rows.to(torch.int64)
-    ok = (r >= 0) & (r < cap)
-    return torch.where(ok, inv[r.clamp(0, cap - 1)], torch.full_like(rows, cap))
+    keep, r = _xla_rows(rows, cap)
+    return torch.where(keep, inv[r.clamp(0, cap - 1)], torch.full_like(rows, cap))
 
 
 def slab_map_rows(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """K11 ``map_rows``: rows to sorted positions through the inverse
-    permutation; a row outside [0, cap) maps to cap (the next scatter drops
-    it)."""
+    permutation, a negative row counting from the end (as the JAX kernel's
+    ``take``); a row still outside [0, cap) maps to cap (the next scatter
+    drops it)."""
     if inv.dtype != torch.int32 or rows.dtype != torch.int32 or inv.dim() != 1 \
             or rows.dim() != 1:
         raise TypeError("slab_map_rows: inv and rows must be 1-D int32")
@@ -495,9 +695,8 @@ def slab_map_rows(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         return slab_map_rows_plain(inv, rows)
     _contiguous("slab_map_rows", inv, rows)
     out = torch.empty_like(rows)
-    native.call("slab_map_rows", dev, inv.data_ptr(), inv.shape[0], rows.data_ptr(),
-                out.data_ptr(), rows.shape[0])
-    native.launches["slab_map_rows"] += 1
+    _advance_call("slab_map_rows", dev, inv.shape[0], inv=inv.data_ptr(), mapped=out.data_ptr(),
+                  rows=rows.data_ptr(), d=rows.shape[0])
     return out
 
 
@@ -527,10 +726,10 @@ def slab_slice_append(keys: torch.Tensor, valid: torch.Tensor, start: int,
         return slab_slice_append_plain(keys, valid, start, nk, nv)
     _contiguous("slab_slice_append", keys, valid, nk, nv)
     k2, v2 = torch.empty_like(keys), torch.empty_like(valid)
-    native.call("slab_slice_append", dev, keys.data_ptr(), valid.data_ptr(), k2.data_ptr(),
-                v2.data_ptr(), cap, start, nk.data_ptr(), 1 if nk.dtype == torch.int32 else 0,
-                nv.data_ptr(), a)
-    native.launches["slab_slice_append"] += 1
+    _advance_call("slab_slice_append", dev, cap, keys=k2.data_ptr(), keys_src=keys.data_ptr(),
+                  valid=v2.data_ptr(), valid_src=valid.data_ptr(), start=start,
+                  slice_keys=nk.data_ptr(), slice_valid=nv.data_ptr(), a=a,
+                  keys_i32=int(nk.dtype == torch.int32))
     return k2, v2
 
 
@@ -546,6 +745,15 @@ def _decode_head(head: np.ndarray, cap_s: int, m: int):
 
 
 # -- the resident entry -----------------------------------------------------------
+
+
+def _distinct(parts: List[np.ndarray]) -> np.ndarray:
+    """The distinct rows of ``parts``, ascending; one part is taken as it
+    is (a deletion vector's flipped rows are distinct and ascending)."""
+    if len(parts) < 2:
+        return parts[0] if parts else np.empty(0, np.int64)
+    r = np.sort(np.concatenate(parts))
+    return r[np.concatenate([[True], r[1:] != r[:-1]])]
 
 
 class ResidentJoinKeys:
@@ -580,6 +788,9 @@ class ResidentJoinKeys:
         self._dead = 0
         self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._pending = None  # batched device updates (see device_batch)
+        # probes whose staging thread may still read the sorted view: an
+        # advance then binds a new sorted_valid instead of writing in place
+        self._pins = 0
         # True when the sorted view lags the key lane: set by key appends,
         # not by validity flips. The next probe re-sorts once.
         self._sort_stale = True
@@ -589,14 +800,14 @@ class ResidentJoinKeys:
     # -- batched device updates ------------------------------------------
     #
     # A tail advance touches many files; inside a device_batch the mutators
-    # accumulate row indices and the flush issues at most three updates.
+    # queue what they touched (appended ranges, removed files' runs, rows a
+    # deletion vector flipped) and the flush issues ONE slab advance.
 
     def device_batch(self):
         @contextlib.contextmanager
         def batch():
             with self._lock:
-                self._pending = {"kill": [], "revive": [],
-                                 "rows": [], "keys": [], "valid": []}
+                self._pending = {"append": [], "runs": [], "rows": []}
             try:
                 yield
             finally:
@@ -607,20 +818,58 @@ class ResidentJoinKeys:
     def _flush_batch(self) -> None:
         with self._lock:
             p, self._pending = self._pending, None
-            if p is None or self._dev is None:
-                return  # device copy dropped mid-batch: mirrors re-ship later
-            # row scatter FIRST: a file appended and DV-masked in the same
-            # batch carries pre-DV validity in the scatter — the kill of its
-            # masked rows must land after, never be overwritten
-            if p["rows"]:
-                rows = np.concatenate(p["rows"]).astype(np.int32)
-                keys = np.concatenate(p["keys"]).astype(np.int64)
-                valid = np.concatenate(p["valid"]).astype(bool)
-                self._dev_scatter_rows(rows, keys, valid)
-            if p["kill"]:
-                self._dev_kill(np.concatenate(p["kill"]).astype(np.int32))
-            if p["revive"]:
-                self._dev_revive(np.concatenate(p["revive"]).astype(np.int32))
+            if p is not None:
+                self._flush(p)
+
+    def _queue(self, part: str, item) -> None:
+        """Queue one touched range or row set for the batch's advance; outside
+        a batch, advance the device copy at once."""
+        if self._pending is not None:
+            self._pending[part].append(item)
+        elif self._dev is not None:
+            self._flush({"append": [], "runs": [], "rows": [], part: [item]})
+
+    def _flush(self, p) -> None:
+        """One slab advance (:func:`slab_advance`) from one upload. Each
+        touched row goes once, with its final validity from the mirror
+        ``h_valid`` (which the mutators keep exact), so no order between a
+        batch's scatters, kills and revives survives to the device: the
+        appended rows as one slice with their keys, a removed file as a run,
+        a deletion vector's flipped rows as the row list (less those inside
+        the slice or a run). A key change drops the sorted view (the next
+        probe re-sorts); otherwise its validity is mirrored in the same
+        launch, into a new lane when a probe holds it (caller holds the
+        entry lock)."""
+        dev = self._dev
+        if dev is None:
+            return  # device copy dropped mid-batch: mirrors re-ship later
+        rows = _distinct(p["rows"])
+        # files append at num_rows, one after another: one block of rows
+        start = p["append"][0][0] if p["append"] else 0
+        a = sum(n for _, n in p["append"])
+        runs = [(o, n) for o, n in p["runs"] if n]
+        if len(rows) and (a or runs):
+            keep = (rows < start) | (rows >= start + a)
+            for o, n in runs:
+                keep &= (rows < o) | (rows >= o + n)
+            rows = rows[keep]
+        if not (len(rows) or a or runs):
+            return
+        if a:
+            self._sort_stale = True
+            for name in ("sorted_keys", "perm", "inv_perm", "sorted_valid"):
+                dev.pop(name, None)
+        mirror = not self._sort_stale and "sorted_valid" in dev
+        buf, lay = pack_advance(
+            rows=rows, rows_valid=self.h_valid[rows], start=start,
+            slice_keys=self.h_keys[start:start + a], slice_valid=self.h_valid[start:start + a],
+            runs=runs, run_valid=[self.h_valid[o] for o, _ in runs])
+        dev["keys"], dev["valid"], sv = slab_advance(
+            dev["keys"], dev["valid"], self._upload(buf), lay,
+            dev["sorted_valid"] if mirror else None, dev["inv_perm"] if mirror else None,
+            copy=("sorted_valid",) if self._pins else ())
+        if mirror:
+            dev["sorted_valid"] = sv
 
     # -- host-side maintenance -------------------------------------------
 
@@ -645,15 +894,7 @@ class ResidentJoinKeys:
                 self._dev = None
                 self.capacity = max(_bucket(int(self.num_rows * 1.25)), 1024)
                 return True
-            if self._pending is not None:
-                self._pending["rows"].append(
-                    np.arange(start, start + n, dtype=np.int32))
-                self._pending["keys"].append(keys.astype(np.int64))
-                self._pending["valid"].append(valid.astype(bool))
-            elif self._dev is not None:
-                self._dev_scatter_rows(
-                    np.arange(start, start + n, dtype=np.int32),
-                    keys.astype(np.int64), valid.astype(bool))
+            self._queue("append", (start, n))
             return True
 
     def _kill_file(self, path: str) -> None:
@@ -665,11 +906,7 @@ class ResidentJoinKeys:
             off, rows = ent
             self.h_valid[off:off + rows] = False
             self._dead += rows
-            if self._pending is not None:
-                self._pending["kill"].append(
-                    np.arange(off, off + rows, dtype=np.int32))
-            elif self._dev is not None:
-                self._dev_kill(np.arange(off, off + rows, dtype=np.int32))
+            self._queue("runs", (off, rows))
 
     def _set_dv(self, path: str, positions: np.ndarray) -> bool:
         """Install a file's deletion-vector state EXACTLY: validity becomes
@@ -692,18 +929,7 @@ class ResidentJoinKeys:
             if len(diff) == 0:
                 return True
             self.h_valid[off:off + rows] = new_valid
-            to_false = (off + diff[~new_valid[diff]]).astype(np.int32)
-            to_true = (off + diff[new_valid[diff]]).astype(np.int32)
-            if self._pending is not None:
-                if len(to_false):
-                    self._pending["kill"].append(to_false)
-                if len(to_true):
-                    self._pending["revive"].append(to_true)
-            elif self._dev is not None:
-                if len(to_false):
-                    self._dev_kill(to_false)
-                if len(to_true):
-                    self._dev_revive(to_true)
+            self._queue("rows", off + diff)
             return True
 
     @property
@@ -727,7 +953,8 @@ class ResidentJoinKeys:
             self._dev = None
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        """An advance's buffer on the device, through pinned memory."""
+        return _upload(arr, self.device)
 
     def alloc_device(self) -> None:
         """Pre-size the device lanes without uploading the host mirrors: the
@@ -763,11 +990,9 @@ class ResidentJoinKeys:
             narrow = (self.num_rows == 0 or (
                 int(keys.min()) >= np.iinfo(np.int32).min
                 and int(keys.max()) <= np.iinfo(np.int32).max))
-            if narrow:
-                dk = slab_widen(self._upload(keys.astype(np.int32)))
-            else:
-                dk = self._upload(keys)
-            dv = self._upload(valid)
+            up = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+            dk = slab_widen(up(keys.astype(np.int32))) if narrow else up(keys)
+            dv = up(valid)
             self._dev = {"keys": dk, "valid": dv}
             self._sort_stale = True
 
@@ -785,59 +1010,6 @@ class ResidentJoinKeys:
         self._dev["sorted_valid"] = sv
         self._sort_stale = False
 
-    def _dev_flip_valid(self, rows: np.ndarray, value: bool) -> None:
-        """Validity flip in ROW space plus, when the sorted view is live,
-        the mirrored flip in SORTED space through the inverse permutation
-        (a k-row update, never a re-sort). Both bind new lanes."""
-        d = _next_pow2(max(len(rows), 1), floor=64)
-        padded = np.full(d, self.capacity, np.int32)
-        padded[: len(rows)] = rows
-        flip = slab_revive if value else slab_kill
-        rows_dev = self._upload(padded)
-        self._dev["valid"] = flip(self._dev["valid"], rows_dev)
-        if not self._sort_stale and "sorted_valid" in self._dev:
-            spos = slab_map_rows(self._dev["inv_perm"], rows_dev)
-            self._dev["sorted_valid"] = flip(self._dev["sorted_valid"], spos)
-
-    def _dev_kill(self, rows: np.ndarray) -> None:
-        self._dev_flip_valid(rows, False)
-
-    def _dev_revive(self, rows: np.ndarray) -> None:
-        self._dev_flip_valid(rows, True)
-
-    def _dev_scatter_rows(self, row_idx: np.ndarray, keys: np.ndarray,
-                          valid: np.ndarray) -> None:
-        k = len(keys)
-        a = _next_pow2(max(k, 1), floor=64)
-        i32 = np.iinfo(np.int32)
-        kdtype = (np.int32 if len(keys) and keys.min() >= i32.min
-                  and keys.max() <= i32.max else np.int64)
-        nk = np.zeros(a, kdtype)
-        nk[:k] = keys
-        nv = np.zeros(a, bool)
-        nv[:k] = valid
-        contiguous = (
-            k > 0
-            and row_idx[0] + a <= self.capacity
-            and bool((row_idx == np.arange(row_idx[0], row_idx[0] + k,
-                                           dtype=row_idx.dtype)).all())
-        )
-        # key rows changed: the sorted view lags; drop it and let the next
-        # probe re-sort
-        self._sort_stale = True
-        for name in ("sorted_keys", "perm", "inv_perm", "sorted_valid"):
-            self._dev.pop(name, None)
-        if contiguous:
-            self._dev["keys"], self._dev["valid"] = slab_slice_append(
-                self._dev["keys"], self._dev["valid"], int(row_idx[0]),
-                self._upload(nk), self._upload(nv))
-            return
-        rows = np.full(a, self.capacity, np.int32)
-        rows[:k] = row_idx
-        self._dev["keys"], self._dev["valid"] = slab_append(
-            self._dev["keys"], self._dev["valid"], self._upload(rows),
-            self._upload(nk), self._upload(nv))
-
     # -- probing ----------------------------------------------------------
 
     def probe_async(self, s_keys: np.ndarray, s_ok: np.ndarray,
@@ -851,9 +1023,10 @@ class ResidentJoinKeys:
 
         ``insert_only``: only the per-source flags are fetched (the head).
 
-        The device pipeline runs on a staging thread over the arrays pinned
-        here; a concurrent advance binds new arrays and never changes
-        these."""
+        The device pipeline runs on a staging thread over the sorted view
+        taken here, with a pin on the entry until its last download: a
+        concurrent advance then binds a new ``sorted_valid`` and never
+        changes these."""
         with self._lock:
             if expected_version is not None and self.version != expected_version:
                 return None
@@ -884,22 +1057,30 @@ class ResidentJoinKeys:
             s_enc = np.where(s_okb, s_key64, s_sent).astype(dtype)
             self.ensure_resident()
             self._ensure_sorted()
-            # pin this version's arrays: updates bind new tensors, so a
-            # concurrent tail advance never changes these
+            # pin this version's sorted view: until the staging thread's
+            # last download, an advance binds a new sorted_valid rather than
+            # write these (keys only change through a re-sort into new ones)
             dev = {"sorted_keys": self._dev["sorted_keys"],
                    "sorted_valid": self._dev["sorted_valid"],
                    "perm": self._dev["perm"]}
             slabs = dict(self.slabs)
             device = self.device
+            self._pins += 1
         m = len(s_enc)
         cap_s = _bucket(m)
         s_in = np.full(cap_s, s_sent, s_enc.dtype)
         s_in[:m] = s_enc
         state: dict = {}
 
+        def unpin():
+            with self._lock:
+                self._pins -= 1
+
         def launch():
             # the whole device pipeline runs on this thread, so the caller
-            # overlaps it with host work; finalize joins and fetches pairs
+            # overlaps it with host work; finalize joins and fetches pairs.
+            # The downloads wait for K9 and K10: no kernel reads the pinned
+            # view once they are done
             try:
                 ctx = torch.cuda.device(device) if device.type == "cuda" \
                     else contextlib.nullcontext()
@@ -917,9 +1098,15 @@ class ResidentJoinKeys:
                                                   out_cap).cpu().numpy()
             except BaseException as e:
                 state["err"] = e
+            finally:
+                unpin()
 
         th = threading.Thread(target=launch, daemon=True, name="delta-merge-device-probe")
-        th.start()
+        try:
+            th.start()
+        except BaseException:
+            unpin()
+            raise
 
         def finalize() -> PhysicalProbe:
             th.join()

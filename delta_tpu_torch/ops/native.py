@@ -15,9 +15,8 @@ plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
 ``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
 add one where they launch, and nowhere else: a sharded kernel counts one
-launch a shard (the block cull K7), or one a distinct device (the replay K6,
-the join probe K13); the residual mask K14 one a parameter block (a query's
-files).
+launch a distinct device (the block cull K7, the replay K6, the join probe
+K13); the residual mask K14 one a parameter block (a query's files).
 """
 from __future__ import annotations
 
@@ -42,6 +41,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+#: the slab advance K11 (``csrc/slab_update.cu``): 8 lane pointers, cap, the
+#: row list (3 pointers, d, value), the slice (start, 2 pointers, a), the runs
+#: (2 pointers, nr, run_rows), keys_i32
+_ADVANCE = [_P] * 8 + [_L, _P, _P, _P, _L, _I, _L, _P, _P, _L, _P, _P, _I, _L, _I, _P]
+
 #: kernel -> (source stem, C symbol, argument types); every symbol takes the
 #: CUDA stream last and returns a cudaError_t
 _KERNELS = {
@@ -64,22 +68,21 @@ _KERNELS = {
                    [_P, _P, _L, _L, _P, _I, _L, _P, _P, _P, _P, _L, _P]),
     "pair_compact": ("pair_compact", "dtt_pair_compact",
                      [_P, _P, _P, _L, _P, _L, _P, _L, _P]),
-    "slab_kill": ("slab_update", "dtt_slab_flip", [_P, _P, _L, _P, _L, ctypes.c_ubyte, _P]),
-    "slab_revive": ("slab_update", "dtt_slab_flip", [_P, _P, _L, _P, _L, ctypes.c_ubyte, _P]),
-    "slab_append": ("slab_update", "dtt_slab_append",
-                    [_P, _P, _P, _P, _L, _P, _P, _I, _P, _L, _P]),
+    "slab_advance": ("slab_update", "dtt_slab_advance", _ADVANCE),
+    "slab_kill": ("slab_update", "dtt_slab_advance", _ADVANCE),
+    "slab_revive": ("slab_update", "dtt_slab_advance", _ADVANCE),
+    "slab_append": ("slab_update", "dtt_slab_advance", _ADVANCE),
     "slab_widen": ("slab_update", "dtt_slab_widen", [_P, _P, _L, _P]),
-    "slab_map_rows": ("slab_update", "dtt_slab_map_rows", [_P, _L, _P, _P, _L, _P]),
-    "slab_slice_append": ("slab_update", "dtt_slab_slice_append",
-                          [_P, _P, _P, _P, _L, _L, _P, _I, _P, _L, _P]),
+    "slab_map_rows": ("slab_update", "dtt_slab_advance", _ADVANCE),
+    "slab_slice_append": ("slab_update", "dtt_slab_advance", _ADVANCE),
     "join_probe": ("join_probe", "dtt_join_probe",
                    [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "residual_mask": ("residual_mask", "dtt_residual_masks", [_P, _L, _P, _P, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
     "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
     "sharded_replay": ("replay", "dtt_replay_shards", [_P, _P, _I, _I, _L, _P, _P, _L, _P]),
-    "sharded_block_cull": ("block_cull", "dtt_block_cull_shard",
-                           [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P]),
+    "sharded_block_cull": ("block_cull", "dtt_block_cull_shards",
+                           [_P, _P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P]),
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
                            [_P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _L, _I, _P, _P]),

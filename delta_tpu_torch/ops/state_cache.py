@@ -21,9 +21,10 @@ Kernels (hand-written CUDA in ``delta_tpu_torch/csrc``, bound in
   query by two binary searches in per-column rank tables of the batch;
 * :func:`sharded_block_cull` — replaces ``_sharded_block_kernel_fn``
   (``:1014``): with the lanes split along the file axis over the state mesh
-  (``parallel/mesh``), one launch a shard writes a byte per 1024-file block
-  of its slice, and the blocks gather along the file axis on the lead
-  device;
+  (``parallel/mesh``), one launch a distinct device writes a byte per
+  1024-file block of each of its slices, straight into the gathered
+  ``(M, blocks)`` map where every slice is on the lead device (else the
+  devices' maps gather along the file axis on the lead);
 * :func:`scatter_bool` / :func:`scatter_cols` — replace ``_scatter_bool_fn``
   / ``_scatter_cols_fn`` (``:959``, ``:970``).
 
@@ -167,6 +168,8 @@ def block_cull_plain(mins, maxs, alive, lo, hi, block: int = BLOCK) -> torch.Ten
 #: bytes of one K1/K7 rank table (a 64-query tile and column,
 #: ``csrc/block_cull.cu``'s ``Table``)
 _TABLE_BYTES = 2064
+#: slices one K7 launch takes (``csrc/block_cull.cu``'s ``kMaxShards``)
+_MAX_SLICES = 64
 
 
 def _rank_table_bytes(m: int, c: int) -> int:
@@ -225,41 +228,68 @@ def sharded_block_cull(shards, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tens
     device (the first shard's). ``shards``: one (mins ``(C, cap_s)``
     float32, maxs, alive ``(cap_s,)`` bool) slice a shard, each on its own
     device, ``cap_s`` a multiple of 1024 (whole blocks); lo/hi ``(M, C)``
-    float32, replicated to each device. One launch a shard, then the
-    gather along the file axis. The plain version for slices on the CPU;
-    on the card the kernel, or an error."""
+    float32, replicated to each device. One launch a distinct device (at
+    most 64 slices a device) over all its slices, each writing its blocks
+    at its columns of one map: the result itself where every slice is on
+    the lead device, else a map a device gathered along the file axis. On
+    the CPU the plain arithmetic fills the same layout; on the card the
+    kernel, or an error."""
     from delta_tpu_torch.parallel import mesh as mesh_mod
 
     for mn, mx, al in shards:
         _check_lanes("sharded_block_cull", mn, mx, al, lo, hi, bounds_on_device=False)
     lead = shards[0][0].device
-    if all(sh[0].device.type == "cpu" for sh in shards):
-        return sharded_block_cull_plain(shards, lo.to(lead), hi.to(lead))
-    mesh = [sh[0].device for sh in shards]
-    if any(d.type != "cuda" for d in mesh):
+    kinds = {sh[0].device.type for sh in shards}
+    if kinds not in ({"cpu"}, {"cuda"}):
         raise ValueError("sharded_block_cull: the slices must all be on the card, or all "
                          "on the CPU")
     c, m = lo.shape[1], lo.shape[0]
-    los = mesh_mod.replicate(lo.contiguous(), mesh)
-    his = mesh_mod.replicate(hi.contiguous(), mesh)
+    groups: Dict[torch.device, List[int]] = {}
+    for i, sh in enumerate(shards):
+        groups.setdefault(sh[0].device, []).append(i)
+    if any(len(idx) > _MAX_SLICES for idx in groups.values()):
+        raise ValueError(f"sharded_block_cull: at most {_MAX_SLICES} slices a device")
+    width = [sh[2].shape[0] // BLOCK for sh in shards]
+    direct = list(groups) == [lead]
+    col = np.cumsum([0] + width[:-1]) if direct else None
+    out = torch.empty((m, sum(width)), dtype=torch.uint8, device=lead) if direct else None
+    devices = list(groups)
+    los = mesh_mod.replicate(lo.contiguous(), devices)
+    his = mesh_mod.replicate(hi.contiguous(), devices)
 
-    def launch(i, dev):
-        mn, mx, al = shards[i]
-        if not all(t.is_contiguous() for t in (mn, mx, al)):
-            raise ValueError("sharded_block_cull: tensors must be contiguous")
-        _check_aligned("sharded_block_cull", mn, mx, al)
-        cap = mn.shape[1]
-        out = torch.empty((m, cap // BLOCK), dtype=torch.uint8, device=dev)
+    def launch(k, dev):
+        idx = groups[dev]
+        cols = (np.array([col[i] for i in idx], np.int64) if direct else
+                np.cumsum([0] + [width[i] for i in idx[:-1]]).astype(np.int64))
+        buf = out if direct else torch.empty((m, sum(width[i] for i in idx)),
+                                             dtype=torch.uint8, device=dev)
+        if dev.type == "cpu":
+            for i, cl in zip(idx, cols):
+                mn, mx, al = shards[i]
+                buf[:, cl:cl + width[i]] = _block_any(mn, mx, al, los[dev], his[dev])
+            return buf, cols
+        for i in idx:
+            if not all(t.is_contiguous() for t in shards[i]):
+                raise ValueError("sharded_block_cull: tensors must be contiguous")
+            _check_aligned("sharded_block_cull", *shards[i])
         if m:
+            ptrs = np.array([[t.data_ptr() for t in shards[i]] for i in idx], np.uint64)
+            caps = np.array([shards[i][2].shape[0] for i in idx], np.int64)
             tables = torch.empty(_rank_table_bytes(m, c), dtype=torch.uint8, device=dev)
-            native.call("sharded_block_cull", dev, mn.data_ptr(), mx.data_ptr(),
-                        al.data_ptr(), los[dev].data_ptr(), his[dev].data_ptr(),
-                        out.data_ptr(), c, cap, m, tables.data_ptr())
+            native.call("sharded_block_cull", dev, ptrs.ctypes.data, caps.ctypes.data,
+                        cols.ctypes.data, len(idx), los[dev].data_ptr(), his[dev].data_ptr(),
+                        buf.data_ptr(), c, m, buf.shape[1], tables.data_ptr())
             native.launches["sharded_block_cull"] += 1
-        return out
+        return buf, cols
 
-    parts = mesh_mod.run_shards(mesh, launch)
-    return mesh_mod.all_gather(parts, lead, axis=1)
+    parts = mesh_mod.run_shards(devices, launch)
+    if direct:
+        return out
+    view = {}
+    for (buf, cols), idx in zip(parts, groups.values()):
+        for i, cl in zip(idx, cols):
+            view[i] = buf[:, cl:cl + width[i]]
+    return mesh_mod.all_gather([view[i] for i in range(len(shards))], lead, axis=1)
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:

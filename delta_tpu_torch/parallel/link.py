@@ -116,11 +116,12 @@ DEVICE_RESIDUAL_S_PER_CELL = 5.75e-10
 # the block cull K1 + its host fine pass (ResidentState._plan_device), per
 # cell, its fixed terms taken out: config 6's 256 queries
 DEVICE_PRUNE_S_PER_CELL = 1.09e-11
-# the fixed cost of one sharded block cull over the mesh (K7 once a shard,
-# the bounds replicated, the gather, synchronized): its host wall at the
-# smallest plan that splits over 8 shards (8 queries, one block a shard),
-# less its gathers; phase 12, every shard on the one card (PERF.md, call 25)
-SHARD_DISPATCH_S = 4.15e-4
+# the fixed cost of one sharded block cull over the mesh (K7 once a distinct
+# device, the bounds replicated, synchronized): its host wall at the smallest
+# plan that splits over 8 shards (8 queries, one block a shard); phase 12,
+# every shard on the one card, where the launch writes the gathered map
+# itself (PERF.md, the sharded block cull's one launch a device)
+SHARD_DISPATCH_S = 2.64e-4
 # the gather of one shard's block map into the lead device's (M, blocks)
 # map, per shard: config 6's 256 queries over 8 shards, a copy inside the
 # one card (the gather between cards is not measured)

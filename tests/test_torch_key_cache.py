@@ -31,7 +31,9 @@ from delta_tpu_torch.expr import ir as tir
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
 from delta_tpu_torch.expr.vectorized import evaluate as torch_evaluate
 from delta_tpu_torch.ops import key_cache as tkc
-from tests.torch_kernel_cases import CASE_NAMES, probe_case, reference_probe
+from tests.torch_kernel_cases import (
+    ADVANCE_CASES, CASE_NAMES, advance_case, probe_case, reference_probe,
+)
 
 SIG = "test-k"
 
@@ -610,3 +612,344 @@ def test_slab_probe_plain_matches_jax_at_hard_shapes(name):
     assert jhead[1] == 0  # no overflow: the JAX kernel answers these shapes itself
     assert np.array_equal(jhead, want[0]) and np.array_equal(jt, want[1])
     assert np.array_equal(jfirst[jt], want[2][jt])
+
+
+# -- K11's slab advance -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("case", ADVANCE_CASES)
+def test_slab_advance_plain_matches_the_jax_update_kernels(seed, wide, case):
+    """One advance through ``slab_advance`` (its plain version on the CPU),
+    in place and with every lane written anew, against the JAX package's
+    ``_update_kernels`` composed as its tail advance composes them: the
+    slice (``slice_append``), the row list (``append`` when keyed, else
+    ``kill`` and ``revive``), the runs (``kill`` / ``revive``) and, with the
+    sorted view live, ``map_rows`` and the flips of the sorted validity."""
+    import jax.numpy as jnp
+
+    from delta_tpu.utils.jaxcompat import enable_x64
+
+    rng = np.random.RandomState(seed)
+    cap = 4096
+    keys = rng.randint(-(1 << 40), 1 << 40, cap).astype(np.int64)
+    valid, sv = rng.rand(cap) > 0.3, rng.rand(cap) > 0.5
+    inv = rng.permutation(cap).astype(np.int32)
+    parts = advance_case(rng, cap, 200, case, wide)
+    buf, lay = tkc.pack_advance(**parts)
+    assert lay.keys_i32 == (not wide or case == "mirror")
+    kdt = np.int32 if lay.keys_i32 else np.int64
+    mirror = case == "mirror"
+    upd = jkc._update_kernels()
+    with enable_x64():
+        k, v, s = jnp.asarray(keys), jnp.asarray(valid), jnp.asarray(sv)
+        if "slice_keys" in parts:
+            k, v = upd["slice_append"](k, v, np.int32(parts["start"]),
+                                       parts["slice_keys"].astype(kdt), parts["slice_valid"])
+        rows, rv = parts["rows"], parts["rows_valid"]
+        run_rows = np.concatenate([np.arange(o, o + n) for o, n in parts["runs"]])
+        run_v = np.repeat(parts["run_valid"], parts["runs"][:, 1])
+        if "rows_keys" in parts:
+            k, v = upd["append"](k, v, rows, parts["rows_keys"].astype(kdt), rv)
+            flips = [(run_rows, run_v)]
+        else:
+            flips = [(rows, rv), (run_rows, run_v)]
+        for r, val in flips:
+            for value in (False, True):
+                pick = np.where(val == value, r, cap).astype(np.int32)
+                v = upd["revive" if value else "kill"](v, pick)
+                if mirror:
+                    s = upd["revive" if value else "kill"](s, upd["map_rows"](inv, pick))
+        want = [np.asarray(x) for x in (k, v, s)]
+    for copy in ((), ("keys", "valid", "sorted_valid")):
+        tk, tv, ts = (torch.from_numpy(x.copy()) for x in (keys, valid, sv))
+        got = tkc.slab_advance(tk, tv, torch.from_numpy(buf), lay, ts if mirror else None,
+                               torch.from_numpy(inv) if mirror else None, copy=copy)
+        assert np.array_equal(got[0].numpy(), want[0]) and np.array_equal(got[1].numpy(), want[1])
+        if mirror:
+            assert np.array_equal(got[2].numpy(), want[2])
+        inputs = (tk, tv) + ((ts,) if mirror else ())
+        # new lanes under copy (keys are not written in the mirror case), the
+        # inputs then as they were
+        assert all((g is t) == (not copy or (mirror and i == 0))
+                   for i, (g, t) in enumerate(zip(got, inputs)))
+        if copy:
+            assert np.array_equal(tk.numpy(), keys) and np.array_equal(tv.numpy(), valid)
+            assert np.array_equal(ts.numpy(), sv)
+
+
+def test_slab_advance_refuses_a_mirror_with_key_changes():
+    cap = 64
+    buf, lay = tkc.pack_advance(start=3, slice_keys=[1, 2], slice_valid=[True, True])
+    k, v = torch.zeros(cap, dtype=torch.int64), torch.zeros(cap, dtype=torch.bool)
+    with pytest.raises(ValueError, match="sorted view"):
+        tkc.slab_advance(k, v, torch.from_numpy(buf), lay, torch.zeros(cap, dtype=torch.bool),
+                         torch.arange(cap, dtype=torch.int32))
+    with pytest.raises(ValueError, match="match its rows"):
+        tkc.pack_advance(rows=[1, 2], rows_valid=[True])
+
+
+def _random_batch(rng, live, sizes, step):
+    """One batch of mutations, the same on every entry: appended files, a
+    removed file, a deletion vector set on a file appended in the same batch
+    and then shrunk (scatter, kill and revive on the same rows), and one
+    grown and shrunk on an older file. A shrink keeps a subset of the
+    vector before it: the JAX package's flush kills before it revives, so a
+    row revived and then killed in one batch would end valid there (a tail
+    advance sets a file's vector once)."""
+    ops = []
+    for i in range(rng.randint(1, 3)):
+        n = int(rng.randint(20, 300))
+        keys = rng.randint(-(1 << 31), 1 << 31, n).astype(np.int64)
+        if step % 3 == 2:
+            keys[:3] = [1 << 40, -(1 << 40), 7]  # past int32: shipped as int64
+        ok = rng.rand(n) > 0.05
+        ops.append(("append", f"f{step}-{i}", np.where(ok, keys, 0), ok))
+        sizes[ops[-1][1]] = n
+    if len(live) > 2 and rng.rand() < 0.6:
+        ops.append(("kill", live[rng.randint(len(live))]))
+    for path in (ops[0][1], live[rng.randint(len(live))]):
+        rows = sizes[path]
+        grown = rng.choice(rows, int(rows * 0.3), replace=False)
+        ops.append(("dv", path, np.sort(grown)))
+        ops.append(("dv", path, np.sort(grown[:int(rows * 0.1)])))
+    return ops
+
+
+def _apply(entry, ops):
+    with entry.device_batch():
+        for op in ops:
+            if op[0] == "append":
+                entry._append_file(op[1], op[2], op[3])
+            elif op[0] == "kill":
+                entry._kill_file(op[1])
+            elif op[1] in entry.slabs:
+                assert entry._set_dv(op[1], op[2])
+
+
+def _jax_scatter(je, row_idx, keys, valid):
+    """The JAX entry's scatter of appended rows through its ``append``
+    kernel, the rows padded with cap: the package's own non-contiguous
+    path reuses its row count's name as a loop variable
+    (``delta_tpu/ops/key_cache.py:748``) and raises there, so the test
+    composes that path's kernel itself."""
+    import jax.numpy as jnp
+
+    from delta_tpu.utils.jaxcompat import enable_x64
+
+    a = tkc._next_pow2(max(len(keys), 1), floor=64)
+    rows = np.full(a, je.capacity, np.int32)
+    rows[:len(keys)] = row_idx
+    nk, nv = np.zeros(a, np.int64), np.zeros(a, bool)
+    nk[:len(keys)], nv[:len(keys)] = keys, valid
+    je._sort_stale = True
+    for name in ("sorted_keys", "perm", "inv_perm", "sorted_valid"):
+        je._dev.pop(name, None)
+    with enable_x64():
+        je._dev["keys"], je._dev["valid"] = jkc._update_kernels()["append"](
+            je._dev["keys"], je._dev["valid"], jnp.asarray(rows), jnp.asarray(nk),
+            jnp.asarray(nv))
+
+
+def _lanes_hold(te, je):
+    """The port's device lanes equal its mirrors, and file by file (the two
+    entries may append a tail's files in another order) the JAX entry's
+    lanes; rows of no live file are invalid in both."""
+    n = te.num_rows
+    assert te.slabs == je.slabs or te.slabs.keys() == je.slabs.keys()
+    assert te.is_resident == je.is_resident
+    if not te.is_resident:
+        return
+    d = te._dev
+    tk, tv = d["keys"].numpy(), d["valid"].numpy()
+    jk, jv = np.asarray(je._dev["keys"]), np.asarray(je._dev["valid"])
+    assert np.array_equal(tk[:n], te.h_keys) and np.array_equal(tv[:n], te.h_valid)
+    assert not tv[n:].any() and not jv[je.num_rows:].any()
+    for e, v in ((te, tv), (je, jv)):
+        live = np.zeros(e.num_rows, bool)
+        for off, rows in e.slabs.values():
+            live[off:off + rows] = True
+        assert not v[:e.num_rows][~live].any()
+    for path, (off, rows) in te.slabs.items():
+        joff, jrows = je.slabs[path]
+        assert rows == jrows
+        assert np.array_equal(tk[off:off + rows], jk[joff:joff + rows])
+        assert np.array_equal(tv[off:off + rows], jv[joff:joff + rows])
+    if not te._sort_stale and "sorted_valid" in d:
+        pm = d["perm"].long()
+        assert torch.equal(d["sorted_valid"], d["valid"][pm] & (pm < n))
+
+
+def _probe_by_file(je, te, s):
+    """Both probes of ``s`` agree per source row and, file by file, on the
+    matched pairs (in each file's own rows)."""
+    s = np.asarray(s, np.int64)
+    a = je.probe_async(s, np.ones(len(s), bool)).result()
+    b = te.probe_async(s, np.ones(len(s), bool)).result()
+    assert np.array_equal(a.s_matched, b.s_matched) and a.any_multi == b.any_multi
+    for path, (_, rows) in b.slabs.items():
+        pa_, pb = a.pairs_for_file(path, None, rows), b.pairs_for_file(path, None, rows)
+        assert all(np.array_equal(x, y) for x, y in zip(pa_, pb))
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_flush_advance_matches_the_jax_entry(seed):
+    """Random batches through the mutators of both entries: after each
+    advance (one ``slab_advance`` on the port's side, the JAX package's
+    scatter, kill and revive updates on its side) the port's lanes equal its
+    mirrors and the JAX entry's lanes, its sorted view stays consistent
+    where it is live, and the probes agree."""
+    rng = np.random.RandomState(seed)
+    je, te = _slab()
+    je._dev_scatter_rows = lambda *a: _jax_scatter(je, *a)
+    sizes, live = {}, []
+    for i in range(3):
+        n = 500 + 100 * i
+        keys = rng.randint(-5000, 5000, n).astype(np.int64)
+        for e in (je, te):
+            e._append_file(f"base{i}", keys, np.ones(n, bool))
+        sizes[f"base{i}"] = n
+        live.append(f"base{i}")
+    for e in (je, te):
+        e.ensure_resident()
+        e._ensure_sorted()
+    before = tkc.native.launches["slab_advance"]
+    for step in range(6):
+        ops = _random_batch(rng, live, sizes, step)
+        for op in ops:
+            if op[0] == "append":
+                live.append(op[1])
+            elif op[0] == "kill":
+                live.remove(op[1])
+        for e in (je, te):
+            _apply(e, ops)
+        _lanes_hold(te, je)
+        for e in (je, te):  # the probe re-sorts a stale view, as a MERGE would
+            e.ensure_resident()
+        s = np.concatenate([te.h_keys[rng.randint(0, te.num_rows, 50)], rng.randint(-9000, 9000, 50)])
+        _probe_both(je, te, s)
+    assert tkc.native.launches["slab_advance"] == before  # the plain version counts nothing
+
+
+def test_a_row_revived_then_killed_in_one_batch_ends_killed():
+    """Each touched row goes to the card once, with its final validity from
+    the mirror: two vectors set on one file in one batch, the second
+    deleting rows the first revived, leave them invalid, as the same two
+    vectors in two batches leave the JAX entry."""
+    je, te = _slab()
+    keys = np.arange(100, dtype=np.int64)
+    for e in (je, te):
+        e._append_file("f", keys, np.ones(100, bool))
+        e.ensure_resident()
+        e._ensure_sorted()
+        assert e._set_dv("f", np.arange(10))
+    with te.device_batch():
+        assert te._set_dv("f", np.arange(5, 10))  # revives rows 0-4
+        assert te._set_dv("f", np.arange(3))  # kills rows 0-2 again
+    for dv in (np.arange(5, 10), np.arange(3)):
+        with je.device_batch():
+            assert je._set_dv("f", dv)
+    _lanes_hold(te, je)
+    assert te._dev["valid"][:5].tolist() == [False, False, False, True, True]
+    _probe_both(je, te, [0, 3, 7, 12])
+
+
+def test_advance_writes_in_place_unless_a_probe_holds_the_lanes(tmp_table, monkeypatch):
+    """No probe in flight: an advance keeps every lane tensor (the same
+    storage). A probe in flight: the advance binds a new sorted validity,
+    writes keys and validity in place (no probe reads them), the pinned
+    probe answers its own version, and its pin is gone once it has."""
+    from delta_tpu.commands.delete import DeleteCommand
+
+    log = _mk_table(tmp_table, files=5)
+    je, te = _entries(tmp_table)
+    te.ensure_resident()
+    te._ensure_sorted()
+    ptrs = {k: t.data_ptr() for k, t in te._dev.items()}
+    path = sorted(te.slabs)[0]
+    off, rows = te.slabs[path]
+    assert te._dev["sorted_valid"].sum() == te._dev["valid"].sum() == te.num_rows
+    with te.device_batch():
+        te._kill_file(path)
+    assert {k: t.data_ptr() for k, t in te._dev.items()} == ptrs and te._pins == 0
+    assert not te._dev["valid"][off:off + rows].any()
+    assert te._dev["sorted_valid"].sum() == te._dev["valid"].sum() == te.num_rows - rows
+
+    log2 = _mk_table(tmp_table + "2", files=5)
+    je, te = _entries(tmp_table + "2")
+    te.ensure_resident()
+    want = je.probe_async(np.array([5, 60, 150]), np.ones(3, bool)).result()
+    started, advanced = threading.Event(), threading.Event()
+    real = tkc.slab_probe
+
+    def held(*args):
+        started.set()
+        assert advanced.wait(30)
+        return real(*args)
+
+    monkeypatch.setattr(tkc, "slab_probe", held)
+    pending = te.probe_async(np.array([5, 60, 150]), np.ones(3, bool))
+    assert started.wait(30) and te._pins == 1
+    ptrs = {k: t.data_ptr() for k, t in te._dev.items()}
+    DeleteCommand(log2, "k < 80").run()
+    _, te2 = _entries(tmp_table + "2")
+    assert te2 is te
+    now = {k: t.data_ptr() for k, t in te._dev.items()}
+    assert now["sorted_valid"] != ptrs["sorted_valid"]
+    assert all(now[k] == ptrs[k] for k in ("keys", "valid", "sorted_keys", "perm", "inv_perm"))
+    advanced.set()
+    _same(want, pending.result())
+    assert te._pins == 0
+    monkeypatch.setattr(tkc, "slab_probe", real)
+    je2, _ = _entries(tmp_table + "2")
+    _probe_both(je2, te, [5, 60, 150])
+    ptrs = {k: t.data_ptr() for k, t in te._dev.items()}
+    DeleteCommand(log2, "k >= 160").run()  # the whole last file: a run
+    _, te3 = _entries(tmp_table + "2")
+    assert te3 is te and {k: t.data_ptr() for k, t in te._dev.items()} == ptrs
+
+
+@pytest.mark.parametrize("dv", [False, True])
+def test_lanes_follow_a_delete_merge_and_dv_sequence(tmp_table, dv, monkeypatch):
+    """After each commit of a DELETE / MERGE / deletion-vector sequence the
+    advanced entry's device lanes equal its host mirrors and the JAX
+    entry's lanes, and the probes agree. (A JAX command that rewrites files
+    drops the JAX cache's entries; here that entry is kept, so both advance
+    over the same tails.)"""
+    from delta_tpu.commands.alter import set_table_properties
+    from delta_tpu.commands.delete import DeleteCommand
+    from delta_tpu.commands.merge import MergeClause, MergeIntoCommand
+
+    monkeypatch.setattr(jkc.KeyCache, "bump_epoch", lambda self, log_path: None)
+    log = _mk_table(tmp_table, files=4)
+    if dv:
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+    je, te = _entries(tmp_table)
+    je._dev_scatter_rows = lambda *a: _jax_scatter(je, *a)
+    je.ensure_resident()
+    te.ensure_resident()
+    te._ensure_sorted()
+    rng = np.random.RandomState(9)
+
+    def merge():
+        src = pa.table({"k": np.arange(180, 260, 3, dtype=np.int64),
+                        "v": rng.rand(len(range(180, 260, 3)))})
+        MergeIntoCommand(log, src, "t.k = s.k",
+                         [MergeClause("update", assignments={"v": "s.v"})],
+                         [MergeClause("insert")], source_alias="s", target_alias="t").run()
+
+    steps = [lambda: DeleteCommand(log, "k = 42 OR k = 120").run(),
+             merge,
+             lambda: DeleteCommand(log, "k < 50").run(),
+             lambda: WriteIntoDelta(log, "append", pa.table({
+                 "k": np.arange(900, 960, dtype=np.int64), "v": np.zeros(60)})).run(),
+             lambda: DeleteCommand(log, "k > 930 AND k < 940").run()]
+    with conf.set_temporarily(**{"delta.tpu.deletionVectors.enabled": dv,
+                                 "delta.tpu.merge.devicePath.mode": "off"}):
+        for step in steps:
+            step()
+            je2, te2 = _entries(tmp_table)
+            assert je2 is je and te2 is te and te.version == je.version
+            _lanes_hold(te, je)
+            _probe_by_file(je, te, [42, 43, 120, 181, 184, 900, 935, 959, 2000])

@@ -424,7 +424,7 @@ def _small_table(path, dv):
 
 
 @pytest.mark.parametrize("wrapper", ["slab_probe", "slab_sort", "pair_compact",
-                                     "slab_slice_append"])
+                                     "slab_advance"])
 def test_device_route_errors_propagate(tmp_path, monkeypatch, wrapper):
     """A raising key-slab kernel (K8-K11) fails the MERGE: no host join."""
     P, log = _small_table(str(tmp_path / "t"), dv=True)

@@ -212,6 +212,40 @@ def test_sharded_block_cull_plain_matches_jax():
                                torch.from_numpy(lo), torch.from_numpy(hi))
 
 
+@pytest.mark.parametrize("m", [0, 1, 70, 300])
+def test_sharded_block_cull_one_launch_layout_matches_jax(m):
+    """K7 as one launch a device over an 8-entry CPU mesh: every slice on
+    the lead device, so each slice's blocks land at its columns of the one
+    (M, blocks) map the wrapper returns (the plain arithmetic fills it on
+    the CPU), equal to JAX's ``_sharded_block_kernel`` over its 8-device
+    mesh and to the plain version's gathered per-shard maps, for batches of
+    no query, one, one partial tile and several tiles."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(m + 3)
+    c, cap = 4, 32 * 1024
+    mins = (rng.rand(c, cap) * 100).astype(np.float32)
+    maxs = mins + (rng.rand(c, cap) * 2).astype(np.float32)
+    mins[:, rng.rand(cap) < 0.03] = np.nan
+    maxs[0, 5], mins[0, 5] = -np.inf, np.inf
+    alive = rng.rand(cap) > 0.2
+    lo = (rng.rand(m, c) * 100).astype(np.float32)
+    hi = lo + np.float32(0.3)
+    lo[rng.rand(m, c) < 0.25] = np.nan
+    want = np.asarray(jsc._sharded_block_kernel(jnp.asarray(mins), jnp.asarray(maxs),
+                                                jnp.asarray(alive), jnp.asarray(lo),
+                                                jnp.asarray(hi), jsc.BLOCK, 8))
+    per = cap // 8
+    shards = [tuple(torch.from_numpy(np.ascontiguousarray(a[..., i * per:(i + 1) * per]))
+                    for a in (mins, maxs, alive)) for i in range(8)]
+    with mesh.using_devices(["cpu"] * 8):
+        got = tsc.sharded_block_cull(shards, torch.from_numpy(lo), torch.from_numpy(hi))
+    assert got.shape == (m, cap // 1024) and got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), want.reshape(m, cap // 1024))
+    assert torch.equal(got, tsc.sharded_block_cull_plain(shards, torch.from_numpy(lo),
+                                                         torch.from_numpy(hi)))
+
+
 # -- the priced auto decision with its sharded price -----------------------------------
 
 

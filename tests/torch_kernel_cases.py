@@ -32,6 +32,15 @@ CPU). ``name`` is one of :data:`CASE_NAMES`:
 
 :func:`reference_probe` is an independent numpy oracle of the contract.
 
+``advance_case(rng, cap, d, case, wide)`` returns one slab advance's parts
+as ``key_cache.pack_advance`` takes them (keyword arguments): distinct rows
+in a slice of ``d // 2`` rows, three runs (one of a single row) and a row
+list of ``d`` rows holding pads (``cap``) and negative rows (XLA wraps
+them), keys past int32 when ``wide``; ``case`` is one of
+:data:`ADVANCE_CASES`: ``slice`` (the slice, an unkeyed list, the runs),
+``keyed`` (the list carries keys too), ``mirror`` (no key changes: the list
+and the runs, as an advance with the sorted view live).
+
 ``tail_case(c, case, cap)`` returns a commit tail as
 ``ResidentState._apply_tail_device`` hands it to ``tail_apply``: the lanes
 ``alive`` (cap,) bool and ``mins``, ``maxs`` (c, cap) float32; the dead rows
@@ -47,6 +56,7 @@ import numpy as np
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 TAIL_CASES = ["fresh", "wrap", "past-cap", "overlap"]
+ADVANCE_CASES = ["slice", "keyed", "mirror"]
 CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
               "m8", "n0", "full", "sentinel-padded", "crowded"]
 
@@ -167,3 +177,29 @@ def tail_case(c: int, case: str, cap: int = 8192):
     hi = lo + 0.5
     lo[:, ::7] = np.nan
     return alive, mins, maxs, dead, start, k, lo, hi
+
+
+def advance_case(rng, cap: int, d: int, case: str, wide: bool = False):
+    """See the module docstring."""
+    a = max(d // 2, 8)
+    assert cap >= 8 * d and cap // 4 > a
+    start = int(rng.randint(0, cap // 4 - a))
+    runs = np.array([[cap // 4 + 17, a], [cap // 2, max(d // 4, 1)],
+                     [cap // 2 + d // 4 + 5, 1]], np.int64)
+    taken = np.zeros(cap, bool)
+    taken[start:start + a] = True
+    for o, n in runs:
+        taken[o:o + n] = True
+    listed = rng.choice(np.flatnonzero(~taken), d - d // 8, replace=False)
+    neg = listed[: d // 16] - cap  # XLA wraps a negative index
+    rows = np.concatenate([listed[d // 16:], neg, np.full(d - len(listed), cap)]).astype(np.int32)
+    rows = rows[rng.permutation(len(rows))]
+    hi = 1 << 40 if wide else 1 << 30
+    parts = dict(rows=rows, rows_valid=rng.rand(d) > 0.5, runs=runs,
+                 run_valid=np.array([False, True, False]))
+    if case != "mirror":
+        parts.update(start=start, slice_keys=rng.randint(-hi, hi, a),
+                     slice_valid=rng.rand(a) > 0.2)
+    if case == "keyed":
+        parts["rows_keys"] = rng.randint(-hi, hi, d)
+    return parts

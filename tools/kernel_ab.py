@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's block cull (K1), tail scatters (K2, and the tail
-apply with K3), replay (K5), sharded replay (K6), slab sort (K8), slab probe
-(K9), slab kill (K11), upload join (K12), sharded join (K13) and residual
-mask (K14) on one card, on seeded inputs, for the ``delta_tpu_torch``
-package under ``--root`` (default: this checkout).
+apply with K3), replay (K5), sharded replay (K6), sharded block cull (K7),
+slab sort (K8), slab probe (K9), slab updates and advances (K11), upload
+join (K12), sharded join (K13), residual mask (K14) and link probe (K17) on
+one card, on seeded inputs, for the ``delta_tpu_torch`` package under
+``--root`` (default: this checkout).
 
     python3 tools/kernel_ab.py [--root DIR]
-        [--only k1,k2,k3,k5,k6,k8,k9,k11,k12,k13,k14,k15,l2]
+        [--only k1,k2,k3,k5,k6,k7,k8,k9,k11,k12,k13,k14,k15,k17,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -30,7 +31,10 @@ columns, in three layouts of the lanes:
   30% NaN bounds), where most queries keep most blocks;
 
 each at M=256, at one query (M=1) and at one query with 7 NaN rows (M=8, the
-query axis padded as the JAX package pads it). K8 on bench config 2's slab
+query axis padded as the JAX package pads it), with the host time of a call
+(``host_us``); K7 on the same three layouts at M=256 cut into config 6's 8
+shards of one card (``chip_smoke.k7_shards``): a plan's eager call (three
+readings), host, graph and profiler time and launches. K8 on bench config 2's slab
 (10,301,000 keys drawn as ``_store_sales``'s ``ss_item_sk`` in a capacity of
 10,485,760). K9 on bench config 2's probe (``k9_traffic``: the 10,301,000-row
 slab and 1,000,000 int32 source keys, half of them present, padded to 2^20
@@ -76,9 +80,17 @@ half's library call (``fill_`` and
 ``scatter_reduce_`` amax) and the host wall of the entry point that runs it
 (``replay_alive_mask``, ``replay_sharded``), upload to unscattered masks,
 the median of 5. K2 (``scatter_bool``) at a tail's 500 dead files in 2^20
-and K11 ``slab_kill`` at a deletion vector of 10,000 rows in a lane of
-10,485,760 time the launch path every wrapper shares (``native.call``):
-eager, host and graph time. ``l2`` times a random gather of 16,777,216 int64 from a 16
+times the launch path every wrapper shares (``native.call``): eager, host
+and graph time. K11 (``k11_rows``) on bench config 2's slab as phase 6 of
+``chip_smoke.py`` holds it: each single update at the shape that phase
+gives it, beside its library call out of place and in place, then phase
+6's four advances a-d as the entry issues them (its flush replayed over the
+updates its mutators queued; in place, and, where the package pins, with a
+probe's pin held), with the launches, eager, host, graph (the launches on
+uploaded inputs) and profiler time, the bound (``chip_smoke.advance_bytes``)
+and the same updates as library calls out of place and in place. K17
+(``k17_rows``) at the link probe's 8 int32: the wrapper and ``torch.add(a,
+1)`` in turns, and the host time of each and of a bare ``native.call``. ``l2`` times a random gather of 16,777,216 int64 from a 16
 MB table (one L2 sector a read): the rate the join's probes are held to.
 """
 import argparse
@@ -231,10 +243,252 @@ def k9_traffic(torch, dev, key_cache, traffic):
     return sk, sv, n, torch.from_numpy(s_in).to(dev)
 
 
+def k11_rows(torch, dev, key_cache, chip_smoke, emit, cuda_ms, graph_ms, host_us,
+             kernel_breakdown, launched):
+    """K11 at bench config 2's slab as ``chip_smoke.py``'s phase 6 holds it
+    (10,000,000 keys in files of 4,000,000, 4,000,000 and 2,000,000 rows,
+    cap 10,485,760, the sorted view live): each single update at the
+    shapes phase 6 gives it, then the four advances a-d as the entry
+    issues them (``_flush_batch`` over the updates its mutators queued)."""
+    cap, n = 10_485_760, 10_000_000
+    rng = np.random.RandomState(31)
+    keys = np.random.RandomState(13).randint(0, 20_000_000, n).astype(np.int64)
+    entry = key_cache.ResidentJoinKeys("kernel_ab", "m", 0, "k11", ["ss_item_sk"], device=dev)
+    off = 0
+    for i, rows in enumerate((4_000_000, 4_000_000, 2_000_000)):
+        entry._append_file(f"f{i}", keys[off:off + rows], np.ones(rows, bool))
+        off += rows
+    if entry.capacity != cap:
+        raise SystemExit(f"kernel_ab: slab capacity {entry.capacity}, not {cap}")
+    entry.ensure_resident()
+    entry._ensure_sorted()
+    dv10 = np.sort(rng.choice(4_000_000, 10_000, replace=False))
+    dv5 = np.sort(dv10[rng.choice(10_000, 5_000, replace=False)])
+    lanes = entry._dev
+
+    def padded(rows, d):
+        r = np.full(d, cap, np.int32)
+        r[:len(rows)] = rows
+        return torch.from_numpy(r).to(dev)
+
+    def single(name, fn, plain, library, library_inplace, shape):
+        got, ref = fn(), plain()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"kernel_ab: {name} != its plain version")
+        emit(name, shape=shape, launches=launched(fn), ms=cuda_ms(fn, 50),
+             host_us=host_us(fn, 50), graph_ms=graph_ms(fn, 20),
+             breakdown_us=kernel_breakdown(fn), library_ms=cuda_ms(library, 50),
+             library_inplace_ms=cuda_ms(library_inplace, 50))
+
+    valid, kl, inv = lanes["valid"], lanes["keys"], lanes["inv_perm"]
+    vv, kk = valid.clone(), kl.clone()  # the in-place library calls' lanes
+    for name, fn, rows_np, value in (("slab_kill", key_cache.slab_kill, dv10, False),
+                                     ("slab_revive", key_cache.slab_revive, dv5, True)):
+        d = 1 << max(6, (len(rows_np) - 1).bit_length())
+        rows = padded(rows_np, d)
+        kept = rows[rows < cap].long()
+        single(name, lambda: fn(valid, rows),
+               lambda: key_cache.slab_flip_plain(valid, rows, value),
+               lambda: valid.index_fill(0, kept, value), lambda: vv.index_fill_(0, kept, value),
+               f"cap={cap} d={d} ({len(rows_np)} rows)")
+    rows = padded(dv10, 16_384)
+    kept = rows[rows < cap].long()
+    mapped = torch.empty(len(kept), dtype=torch.int32, device=dev)
+    single("slab_map_rows", lambda: key_cache.slab_map_rows(inv, rows),
+           lambda: key_cache.slab_map_rows_plain(inv, rows), lambda: torch.take(inv, kept),
+           lambda: torch.index_select(inv, 0, kept, out=mapped), f"cap={cap} d=16384")
+    a, a_rows = 1 << 19, 300_000
+    rows = padded(np.arange(n, n + a_rows), a)
+    nk_np = np.zeros(a, np.int32)
+    nk_np[:a_rows] = np.arange(2 * n, 2 * n + a_rows)
+    nk, nv = torch.from_numpy(nk_np).to(dev), torch.from_numpy(np.arange(a) < a_rows).to(dev)
+    kept = rows[rows < cap].long()
+    knk, knv = nk[:len(kept)].long(), nv[:len(kept)]
+    single("slab_append", lambda: key_cache.slab_append(kl, valid, rows, nk, nv),
+           lambda: key_cache.slab_append_plain(kl, valid, rows, nk, nv),
+           lambda: (torch.index_copy(kl, 0, kept, knk), torch.index_copy(valid, 0, kept, knv)),
+           lambda: (kk.index_copy_(0, kept, knk), vv.index_copy_(0, kept, knv)),
+           f"cap={cap} a={a} ({a_rows} rows, {len(kept)} inside cap)")
+    k32 = kl.to(torch.int32)
+    wide = torch.empty(cap, dtype=torch.int64, device=dev)
+    single("slab_widen", lambda: key_cache.slab_widen(k32),
+           lambda: key_cache.slab_widen_plain(k32), lambda: k32.to(torch.int64),
+           lambda: wide.copy_(k32), f"cap={cap}")
+    start, sk, sv = n - 1000, nk[:1024].contiguous(), torch.ones(1024, dtype=torch.bool,
+                                                                  device=dev)
+    sk64 = sk.long()
+
+    def slice_library():
+        k, v = kl.clone(), valid.clone()
+        k[start:start + 1024].copy_(sk64)
+        v[start:start + 1024].copy_(sv)
+        return k, v
+
+    single("slab_slice_append", lambda: key_cache.slab_slice_append(kl, valid, start, sk, sv),
+           lambda: key_cache.slab_slice_append_plain(kl, valid, start, sk, sv), slice_library,
+           lambda: (kk[start:start + 1024].copy_(sk64), vv[start:start + 1024].copy_(sv)),
+           f"cap={cap} a=1024 start={start}")
+    del vv, kk, k32, wide, nk, nv, kept, knk, knv, mapped
+    torch.cuda.empty_cache()
+
+    # the advances: the mutators queue their updates once (their flush held
+    # back), then the entry's flush replays them: the same device work each
+    # time, in place or into new lanes as the package does it
+    def capture(mutate):
+        entry._flush_batch = lambda: None
+        try:
+            with entry.device_batch():
+                mutate()
+            pending = entry._pending
+        finally:
+            del entry._flush_batch
+            entry._pending = None
+        return pending
+
+    def replay(pending):
+        def run():
+            entry._pending = {k: list(v) for k, v in pending.items()}
+            entry._flush_batch()
+        return run
+
+    def mirrors_hold():
+        d = entry._dev
+        m = entry.num_rows
+        ok = (torch.equal(d["keys"][:m].cpu(), torch.from_numpy(entry.h_keys))
+              and torch.equal(d["valid"][:m].cpu(), torch.from_numpy(entry.h_valid)))
+        if not entry._sort_stale and "sorted_valid" in d:
+            pm = d["perm"].long()
+            ok = ok and torch.equal(d["sorted_valid"], d["valid"][pm] & (pm < m))
+        return ok
+
+    c_keys = np.arange(2 * n, 2 * n + 300_000)
+    d_keys = np.arange(4 * n, 4 * n + 1000)
+    steps = (
+        ("a", "DV of 10,000 rows in f0", lambda: entry._set_dv("f0", dv10),
+         dict(rows=10_000, mirror_rows=10_000)),
+        ("b", "DV shrunk to 5,000", lambda: entry._set_dv("f0", dv5),
+         dict(rows=5_000, mirror_rows=5_000)),
+        ("c", "300,000-row file + the removal of f2 (2,000,000 rows)",
+         lambda: (entry._kill_file("f2"), entry._append_file("c", c_keys, np.ones(300_000, bool))),
+         dict(slice_rows=300_000, key_bytes=4, run_rows=2_000_000)),
+        ("d", "1,000-row file",
+         lambda: entry._append_file("d", d_keys, np.ones(1000, bool)),
+         dict(slice_rows=1000, key_bytes=4)),
+    )
+    for label, what, mutate, counts in steps:
+        entry._ensure_sorted()  # the re-probe before each advance re-sorts a stale view
+        run = replay(capture(mutate))
+        sorted_live = not entry._sort_stale
+        row = dict(advance=label, shape=f"cap={cap}: {what}", sorted_live=sorted_live,
+                   launches=launched(run))
+        torch.cuda.synchronize()
+        if not mirrors_hold():
+            raise SystemExit(f"kernel_ab: advance {label}: the lanes differ from the mirrors")
+        row.update(ms=[cuda_ms(run, 20) for _ in range(3)], host_us=host_us(run, 20),
+                   breakdown_us=kernel_breakdown(run, calls=10),
+                   bound_ms=chip_smoke.bound(chip_smoke.advance_bytes(**counts))[0])
+        if hasattr(entry, "_pins"):  # a probe holds the lanes: new lanes
+            entry._pins += 1
+            row.update(pinned_ms=[cuda_ms(run, 20) for _ in range(3)],
+                       pinned_launches=launched(run),
+                       pinned_bound_ms=chip_smoke.bound(chip_smoke.advance_bytes(
+                           **counts, copied=cap if sorted_live else 0))[0])
+            entry._pins -= 1
+            torch.cuda.synchronize()
+            if not mirrors_hold():
+                raise SystemExit(f"kernel_ab: pinned advance {label}: lanes differ from mirrors")
+        # the launches alone, the uploads served from tensors made once
+        uploads, real = [], entry._upload
+        entry._upload = lambda x: (uploads.append(real(x)), uploads[-1])[1]
+        run()
+        torch.cuda.synchronize()
+
+        def launch_only():
+            it = iter(uploads)
+            entry._upload = lambda x: next(it)
+            run()
+
+        row["graph_ms"] = graph_ms(launch_only, 10)
+        del entry._upload
+        row.update(library_advance(torch, entry, label, dv10, dv5, cuda_ms))
+        emit("slab_advance", **row)
+    del entry, lanes, valid, kl, inv
+
+
+def library_advance(torch, entry, label, dv10, dv5, cuda_ms):
+    """One advance's updates as PyTorch calls on lanes of the slab's shape,
+    out of place (a new lane for each update, as the JAX package binds) and
+    in place (``index_fill_``, ``index_copy_``, slice ``copy_`` /
+    ``fill_``), the indices and values already on the card."""
+    d = entry._dev
+    dev, cap = d["keys"].device, d["keys"].shape[0]
+    valid, keys = d["valid"].clone(), d["keys"].clone()
+    sv, inv = torch.zeros(cap, dtype=torch.bool, device=dev), d.get("inv_perm")
+    if inv is None:
+        inv = torch.arange(cap, dtype=torch.int32, device=dev)
+    if label in ("a", "b"):
+        rows = torch.from_numpy(dv10 if label == "a" else dv5).to(dev)
+        value = label == "b"
+
+        def out():
+            return (valid.index_fill(0, rows, value),
+                    sv.index_fill(0, torch.take(inv, rows).long(), value))
+
+        def inp():
+            valid.index_fill_(0, rows, value)
+            sv.index_fill_(0, torch.take(inv, rows).long(), value)
+    else:
+        s, a = (10_000_000, 300_000) if label == "c" else (10_300_000, 1000)
+        nk = torch.arange(s, s + a, dtype=torch.int64, device=dev)
+        nv = torch.ones(a, dtype=torch.bool, device=dev)
+        rows = torch.arange(s, s + a, dtype=torch.int64, device=dev)
+        dead = torch.arange(8_000_000, 10_000_000, dtype=torch.int64, device=dev)
+
+        def out():
+            k2, v2 = torch.index_copy(keys, 0, rows, nk), torch.index_copy(valid, 0, rows, nv)
+            return v2.index_fill(0, dead, False) if label == "c" else (k2, v2)
+
+        def inp():
+            keys[s:s + a].copy_(nk)
+            valid[s:s + a].copy_(nv)
+            if label == "c":
+                valid[8_000_000:10_000_000].fill_(False)
+
+    return {"library_ms": cuda_ms(out, 20), "library_inplace_ms": cuda_ms(inp, 20)}
+
+
+def k17_rows(torch, dev, native, emit, cuda_ms, graph_ms, host_us, kernel_breakdown,
+             launched):
+    """K17 at the link probe's 8 int32 against ``torch.add(a, 1)``, five
+    readings of each in turns, and the host time of the wrapper, of
+    ``torch.add`` and of a bare ``native.call`` of the kernel (its output
+    allocated once)."""
+    from delta_tpu_torch.parallel import link
+
+    a = torch.arange(8, dtype=torch.int32, device=dev)
+    out = torch.empty_like(a)
+    if not torch.equal(link.link_probe(a), a + 1):
+        raise SystemExit("kernel_ab: link_probe != a + 1")
+    wrapper = lambda: link.link_probe(a)
+    library = lambda: torch.add(a, 1)
+    bare = lambda: native.call("link_probe", dev, a.data_ptr(), 8, out.data_ptr())
+    ms, lib = [], []
+    for _ in range(5):
+        ms.append(cuda_ms(wrapper, 200))
+        lib.append(cuda_ms(library, 200))
+    emit("link_probe", shape="n=8 int32 (the probe's warm-up)", launches=launched(wrapper),
+         ms=ms, library_ms=lib, graph_ms=graph_ms(wrapper, 50),
+         host_us=[host_us(wrapper, 500) for _ in range(3)],
+         library_host_us=[host_us(library, 500) for _ in range(3)],
+         call_host_us=[host_us(bare, 500) for _ in range(3)], call_ms=cuda_ms(bare, 200),
+         breakdown_us=kernel_breakdown(wrapper))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k8,k9,k11,k12,k13,k14,k15,l2")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k7,k8,k9,k11,k12,k13,k14,k15,k17,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -292,8 +546,25 @@ def main() -> int:
                 b, _ = chip_smoke.bound(chip_smoke.cull_bytes(*a, got.numel()))
                 emit("block_cull", lanes=name, M=m, bound_ms=b,
                      ms=cuda_ms(lambda: state_cache.block_cull(*a), 200),
+                     host_us=host_us(lambda: state_cache.block_cull(*a), 200),
                      graph_ms=graph_ms(lambda: state_cache.block_cull(*a), 50),
                      breakdown_us=kernel_breakdown(lambda: state_cache.block_cull(*a)))
+
+    if "k7" in only:
+        # K7 over config 6's 8 shards of one card, on K1's three layouts
+        for name, mins, maxs, alive, lo, hi in k1_workloads(torch, dev, state_cache, chip_smoke):
+            shards = chip_smoke.k7_shards(mins, maxs, alive, chip_smoke.MESH_SHARDS)
+            fn = lambda: state_cache.sharded_block_cull(shards, lo, hi)
+            got = fn()
+            if not torch.equal(got, state_cache.sharded_block_cull_plain(shards, lo, hi)):
+                raise SystemExit(f"kernel_ab: sharded_block_cull != its plain version ({name})")
+            b, _ = chip_smoke.bound(chip_smoke.cull_bytes(mins, maxs, alive, lo, hi, got.numel()))
+            emit("sharded_block_cull", lanes=name, M=lo.shape[0], shards=len(shards), bound_ms=b,
+                 launches=launched(fn), ms=[cuda_ms(fn, 50) for _ in range(3)],
+                 host_us=host_us(fn, 50), graph_ms=graph_ms(fn, 20),
+                 breakdown_us=kernel_breakdown(fn))
+            del shards, got
+        torch.cuda.empty_cache()
 
     if only & {"k5", "k6"}:
         rk = replay_kernel
@@ -356,30 +627,31 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     rng = np.random.RandomState(13)
-    # kernels outside the replay on the launch path every wrapper shares
-    # (``native.call``): K2 at a tail's 500 dead files, K11 kill at a MERGE's
-    # deletion vector of 10,000 rows
-    for kernel, cap, d, n_rows in (("scatter_bool", 1 << 20, 512, 500),
-                                   ("slab_kill", 10_485_760, 16_384, 10_000)):
-        if {"scatter_bool": "k2", "slab_kill": "k11"}[kernel] not in only:
-            continue
+    if "k2" in only:
+        # K2 alone on the launch path every wrapper shares (``native.call``),
+        # at a tail's 500 dead files
+        cap, d = 1 << 20, 512
         r = np.random.RandomState(5)
         lane = torch.from_numpy(r.rand(cap) > 0.02).to(dev)
         rows_np = np.full(d, cap, np.int32)
-        rows_np[:n_rows] = np.sort(r.choice(cap, n_rows, replace=False))
+        rows_np[:500] = np.sort(r.choice(cap, 500, replace=False))
         rows = torch.from_numpy(rows_np).to(dev)
-        if kernel == "scatter_bool":
-            fn = lambda: state_cache.scatter_bool(lane, rows, False)
-            got, ref = fn().clone(), state_cache.scatter_bool_plain(lane.clone(), rows, False)
-        else:
-            fn = lambda: key_cache.slab_kill(lane, rows)
-            got, ref = fn(), key_cache.slab_flip_plain(lane, rows, False)
+        fn = lambda: state_cache.scatter_bool(lane, rows, False)
+        got, ref = fn().clone(), state_cache.scatter_bool_plain(lane.clone(), rows, False)
         if not torch.equal(got, ref):
-            raise SystemExit(f"kernel_ab: {kernel} != its plain version")
-        emit(kernel, shape=f"cap={cap} d={d} ({n_rows} rows)", launches=launched(fn),
+            raise SystemExit("kernel_ab: scatter_bool != its plain version")
+        emit("scatter_bool", shape=f"cap={cap} d={d} (500 rows)", launches=launched(fn),
              ms=cuda_ms(fn, 200), host_us=host_us(fn, 200), graph_ms=graph_ms(fn, 50),
              breakdown_us=kernel_breakdown(fn))
         del lane, rows, got, ref
+
+    timers = dict(cuda_ms=cuda_ms, graph_ms=graph_ms, host_us=host_us,
+                  kernel_breakdown=kernel_breakdown, launched=launched)
+    if "k11" in only:
+        k11_rows(torch, dev, key_cache, chip_smoke, emit, **timers)
+        torch.cuda.empty_cache()
+    if "k17" in only:
+        k17_rows(torch, dev, native, emit, **timers)
 
     if "k3" in only:
         import types
