@@ -29,7 +29,8 @@ Phases, each reported on its own line:
    16,384 and 2^20 (an int32 source against keys beyond int32, both
    tables' empty-slot keys, runs of thousands of equal keys, duplicate
    sources, valid pad rows, m = 8, n = 0, n = cap, the sentinel-padded
-   source), the pair compaction (K10) on empty, partial and full matches,
+   source), the pair compaction (K10) on empty, partial and full matches
+   and at tests/torch_kernel_cases.py's hard shapes,
    the six slab updates (K11) with pads out of range, and the slab advance
    (K11's one launch an advance) on ``tests/torch_kernel_cases.py``'s
    advances at d = 64, 16,384 and 2^20 (a slice, a row list with pads and
@@ -725,6 +726,52 @@ def k15_checks(dev):
     say(f"kernels: expr_eval n=2^20 x {len(K15_CORPUS)} programs, all {len(k15_ops)} "
         f"opcodes, 5 dtypes: bit-exact except transcendentals "
         f"{diffs if diffs else '(none differ)'}")
+    k15_edge_checks(dev, env)
+
+
+def k15_edge_checks(dev, env):
+    """K15 on K14's tile body at its edges, bit for bit: INs whose column
+    option is half NULL or NULL in the last row only (the reduction over
+    every row final before any row reads it), a nested IN, programs past the
+    launch's parameters (the staged tables), one row, lanes that are views
+    at an offset (their starts off a 16-byte boundary), 5,001 rows."""
+    rng = np.random.RandomState(9)
+    n = env["a"].values.shape[0]
+    last = np.ones(n, bool)
+    last[-1] = False
+    half = dict(env, b=device_eval.DeviceColumn(env["b"].values, torch.from_numpy(
+        rng.rand(n) > 0.5).to(dev)))
+    tail = dict(env, a=device_eval.DeviceColumn(env["a"].values, torch.from_numpy(last).to(dev)),
+                g=device_eval.DeviceColumn(env["g"].values,
+                                           torch.ones(n, dtype=torch.bool, device=dev)))
+    one = device_eval.columns_from_numpy({"a": np.array([3], np.int64), "b": np.array([2.5])},
+                                         {"b": np.array([False])}, device=dev)
+    base = k15_columns(5009, 4, dev)
+    views = {k: device_eval.DeviceColumn(c.values[1:5002], c.valid[3:5004])
+             for k, c in base.items()}
+    long_in = "a IN (%s)" % ", ".join(map(str, range(-100, 100)))
+    cases = [(half, "a IN (b, 3, NULL)"), (half, "a IN (b, 3)"), (tail, "b IN (a, g)"),
+             (tail, "NOT (b IN (a, g))"), (env, "(a IN (1, 2)) IN (flag, (a IN (b, NULL)))"),
+             (env, long_in), (env, "b IN (%s)" % ", ".join(f"{v}.5" for v in range(200))),
+             (one, "a IN (b, 3)"), (one, "b IN (a, NULL)"), (one, "coalesce(b, a)")]
+    cases += [(views, q) for q in ("a > 2 AND (b < 20 OR flag)", "i * i", "g * g - g",
+                                   "a IN (b, 3, NULL)", "hour(t)", "big + i")]
+    staged = 0
+    for e, q in cases:
+        program = device_eval.compile_expr(parse_expression(q)).program(e)
+        cols = [e[c] for c in program.columns]
+        layout, _ = device_eval._k15_blocks(program, cols, cols[0].values.shape[0])
+        staged += layout is column_cache._K14_GLOBAL
+        got = device_eval.expr_eval(program, e)
+        torch.cuda.synchronize()
+        ref = device_eval.expr_eval_plain(program, e)
+        same = (ulp_diff(got.values, ref.values)[0] == 0 if got.values.is_floating_point()
+                else torch.equal(got.values, ref.values))
+        check(same and torch.equal(got.valid, ref.valid),
+              f"K15 != plain on {q!r} ({len(program.instrs)} instructions)")
+    check(staged >= 2, "no K15 edge program took the staged tables")
+    say(f"kernels: expr_eval edges (half-NULL and last-row-NULL IN options, nested IN, "
+        f"{staged} programs in the staged tables, one row, lanes at an offset): exact")
 
 
 def k5_checks(dev):
@@ -821,6 +868,26 @@ def slab_checks(dev):
             check(equal_all(got, key_cache.slab_probe_plain(sk, sv, n, s)),
                   f"slab_probe != plain on {name} x{scale}")
     say(f"kernels: slab_probe on {', '.join(cases.CASE_NAMES)} at cap 16,384 and 2^20: exact")
+    for scale in (1, 64):
+        for name in cases.COMPACT_CASES:
+            t_np, first_np, perm_np, out_cap = cases.compact_case(name, scale)
+            t, first, perm = (torch.from_numpy(x).to(dev) for x in (t_np, first_np, perm_np))
+            want = torch.from_numpy(cases.reference_compact(t_np, first_np, perm_np,
+                                                            out_cap)).to(dev)
+            mc = int(t_np.sum())
+            got = key_cache.pair_compact(t, first, perm, out_cap)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(
+                key_cache.pair_compact_plain(t, first, perm, out_cap), want),
+                f"pair_compact != plain on {name} x{scale}")
+            if mc <= out_cap:
+                got = key_cache.pair_compact(t, first, perm, out_cap, mc=mc)
+                host = key_cache.fetch_pairs(t, first, perm, mc)
+                check(torch.equal(got, want) and torch.equal(host[:mc], want[0, :mc].cpu())
+                      and torch.equal(host[mc:2 * mc], want[1, :mc].cpu()),
+                      f"pair_compact with the head's count != plain on {name} x{scale}")
+    say(f"kernels: pair_compact on {', '.join(cases.COMPACT_CASES)} at 70,000 and 4,480,000 "
+        "rows, with and without the head's count and as the probe downloads it: exact")
     say(f"kernels: slab_probe n=2^20 and 10,000,000, m=1 and 2^20 (int64), 4104 (int32): exact "
         f"({mc} matched rows in the last); pair_compact empty, partial, full: exact")
 
@@ -2668,13 +2735,15 @@ def measure_normal_leg(dev, ctx):
     lane_bytes = sum(c.values.element_size() + 1 for c in env.values()) * n
     nbytes = lane_bytes + (got.values.element_size() + 1) * n
     b, by = bound(nbytes)
+    fn = lambda: device_eval.expr_eval(program, env)
     out.append({
-        "name": "expr_eval", "route": "cuda", "source": "delta_tpu_torch/csrc/expr_eval.cu",
+        "name": "expr_eval", "route": "cuda", "source": "delta_tpu_torch/csrc/residual_mask.cu",
         "replaces": "delta_tpu/expr/jaxeval.py:149", "launches": ctx["fallback_launches"]["expr_eval"],
         "max_abs_err": max_abs_err(got.values, ref.values),
-        "ms": cuda_ms(lambda: device_eval.expr_eval(program, env), 50),
+        "ms": cuda_ms(fn, 50),
         "plain_ms": cuda_ms(lambda: device_eval.expr_eval_plain(program, env), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "graph_ms": graph_ms(fn, 20), "breakdown_us": kernel_breakdown(fn),
         "shape": f"n={n} {program.instrs.shape[0]} instructions over {len(env)} lanes ({q!r}); "
                  f"files_to_arrays {f2a_s:.3f} s, lane upload {upload_ms:.3f} ms"})
 
@@ -2764,7 +2833,8 @@ def measure_slab(dev, mctx):
     out[-1]["breakdown_us"] = kernel_breakdown(lambda: key_cache.slab_probe(sk, sv, n, s))
 
     out_cap = state_cache._next_pow2(mc, floor=64)
-    got = key_cache.pair_compact(t_match, s_first, perm, out_cap)
+    compact = lambda: key_cache.pair_compact(t_match, s_first, perm, out_cap, mc=mc)
+    got = compact()
     ref = key_cache.pair_compact_plain(t_match, s_first, perm, out_cap)
     check(torch.equal(got, ref), "pair_compact != plain on the probe's rows")
 
@@ -2772,25 +2842,31 @@ def measure_slab(dev, mctx):
         idx = torch.nonzero(t_match).reshape(-1)
         return torch.index_select(perm, 0, idx), torch.index_select(s_first, 0, idx)
 
-    # the host side of the probe's finalize on these pairs: the download and
-    # the stable argsort into physical order (probe_async's finalize)
+    # the host side of the probe's pairs as probe_async takes them: K10
+    # with the pinned download of the first mc pairs and the count, then
+    # the finalize's casts; K10 puts them in physical order, so the order
+    # step the finalize used to take (a stable argsort) is nothing
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pairs = got.cpu().numpy()
+    host = key_cache.fetch_pairs(t_match, s_first, perm, mc).numpy()
     fetch_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    phys = pairs[0, :mc].astype(np.int64)
-    np.argsort(phys, kind="stable")
-    argsort_ms = (time.perf_counter() - t0) * 1e3
+    phys, srows = host[:mc].astype(np.int64), host[mc:2 * mc].astype(np.int64)
+    cast_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(phys, ref[0, :mc].cpu().numpy()) and
+          np.array_equal(srows, ref[1, :mc].cpu().numpy()) and bool(np.all(np.diff(phys) > 0)),
+          "the probe's downloaded pairs are not the plain version's, in physical order")
 
     out.append(slab_row("pair_compact", "pair_compact.cu", launches, [got], [ref],
-                        cuda_ms(lambda: key_cache.pair_compact(t_match, s_first, perm, out_cap),
-                                20),
+                        cuda_ms(compact, 20),
                         cuda_ms(lambda: key_cache.pair_compact_plain(t_match, s_first, perm,
                                                                      out_cap), 5),
                         cap + 8 * mc + 8 * out_cap, cuda_ms(library_compact, 20),
-                        f"cap={cap} {mc} pairs out_cap={out_cap}; host: download "
-                        f"{fetch_ms:.3f} ms, stable argsort {argsort_ms:.3f} ms"))
+                        f"cap={cap} {mc} pairs out_cap={out_cap}; host: launch and pinned "
+                        f"download {fetch_ms:.3f} ms, casts {cast_ms:.3f} ms, order 0 ms "
+                        "(no argsort)"))
+    out[-1]["graph_ms"] = graph_ms(compact, 10)
+    out[-1]["breakdown_us"] = kernel_breakdown(compact)
 
     def padded(rows, d):
         r = np.full(d, cap, np.int32)

@@ -1,17 +1,18 @@
-// The expression interpreter shared by K15 (csrc/expr_eval.cu, the skipping
-// predicate over per-file stats lanes) and K14 (csrc/residual_mask.cu, the
-// residual filter over a query's column lanes).
+// The expression interpreter's semantics, shared by K15 (the skipping
+// predicate over per-file stats lanes) and K14 (the residual filter over a
+// query's column lanes). Both run on one kernel body, csrc/residual_mask.cu:
+// a CTA takes a tile of rows with the register file in shared memory and
+// runs the program one instruction at a time over the tile's rows; K14
+// writes the Kleene-TRUE mask byte, K15 the root's (value, valid) in its
+// dtype.
 //
 // A program is a flat typed register program lowered on the host
 // (delta_tpu_torch/expr/device_eval.py); `alu` states each opcode's
-// semantics once, for one instruction: `interpret` calls it to run a
-// program for one row (K15), K14's tile loops to run one instruction over
-// a tile's rows.
-// Each register is a (value, valid) pair; the value lives in a 64-bit union
-// (bool / int32 / int64 sign-extended in `i`, float32 in `f`, float64 in
-// `d`). Instructions are 8 int32 each (op, dtype, dst, a, b, c, imm, imm2).
-// Literals and the column pointer tables follow the program in one device
-// buffer.
+// semantics once, for one instruction and one row: the tile loops call it
+// with the opcode a template constant. Each register is a (value, valid)
+// pair; the value lives in a 64-bit union (bool / int32 / int64
+// sign-extended in `i`, float32 in `f`, float64 in `d`). Instructions are 8
+// int32 each (op, dtype, dst, a, b, c, imm, imm2).
 //
 // Semantics mirror the plain version (expr_eval_plain) operation for
 // operation, so the two agree bit for bit: integer arithmetic wraps
@@ -23,6 +24,9 @@
 // nvcc's default flags. The calendar opcodes: TSDAYS is a floor division
 // of epoch microseconds by 86,400,000,000; CIVIL is Hinnant's
 // civil-from-days in int64, as delta_tpu/expr/jaxeval.py:309-322 writes it.
+// FLAGALL (an IN option's "some row is NULL", reduced over all rows) is the
+// body's own: one atomic a CTA; INFIN reads the reduced flags, which the
+// body hands `alu` in place of a TIMEFIELD literal.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -250,12 +254,12 @@ __device__ __forceinline__ Reg lit_reg(long long bits, int dt) {
   return v;
 }
 
-// One instruction of every opcode but LIT, COL, FLAGALL and INFIN (which
-// read the literal table, the lanes or the flags): the value and validity
+// One instruction of every opcode but LIT, COL and FLAGALL (which read the
+// literal table or the lanes, or reduce over rows): the value and validity
 // from the operand registers (a, b, c, as many as arity(op)) and, for
-// TIMEFIELD, its two literals (d, m). K14's tile kernel
-// (csrc/residual_mask.cu) calls it with the opcode a template constant, so
-// the switch folds away there; `interpret` below calls it for K15.
+// TIMEFIELD, its two literals (d, m); for INFIN, d.i is 1 where some option
+// of the IN is NULL in some row. The tile kernel (csrc/residual_mask.cu)
+// calls it with the opcode a template constant, so the switch folds away.
 __device__ __forceinline__ void alu(int op, int dt, int imm, Reg a, bool oa, Reg b, bool ob,
                                     Reg c, bool oc, Reg d, Reg m, Reg& v, bool& vok) {
   v.i = 0;
@@ -324,6 +328,10 @@ __device__ __forceinline__ void alu(int op, int dt, int imm, Reg a, bool oa, Reg
       v.i = (c.i != 0) || (eq(a, b, dt) && ob);
       vok = oc && ob;
       break;
+    case INFIN:  // IN with each option's validity reduced over all rows
+      v.i = a.i != 0;
+      vok = ob && (v.i || !d.i);
+      break;
     case INROW:  // IN with each option's validity taken in its own row
       v.i = a.i != 0;
       vok = ob && (v.i || oa);
@@ -381,78 +389,6 @@ __device__ __forceinline__ void alu(int op, int dt, int imm, Reg a, bool oa, Reg
       break;
     default:
       break;
-  }
-}
-
-// Run the program `prog` (n_instr instructions, staged in shared memory by
-// the caller) for one row into reg/ok. `buf` holds the literals, their
-// validity and the column pointer tables at the given int64 offsets. FLAGALL
-// instructions of nesting level `pass` OR "this row is NULL" into `flags`.
-// LIT, COL, FLAGALL and INFIN read those tables here; every other opcode is
-// `alu`'s. K15 never receives device_eval.RESIDUAL_OPS (TSDAYS, CIVIL,
-// INROW): only a residual program holds them.
-__device__ __forceinline__ void interpret(const int* prog, int n_instr,
-                                          const long long* __restrict__ buf,
-                                          int lit_off, int litv_off, int colv_off,
-                                          int colk_off, long long row, int pass,
-                                          int* __restrict__ flags, Reg* reg,
-                                          bool* ok) {
-  const long long* lits = buf + lit_off;
-  const long long* lit_valid = buf + litv_off;
-  const long long* col_vals = buf + colv_off;
-  const long long* col_valid = buf + colk_off;
-  Reg zero;
-  zero.i = 0;
-  for (int pc = 0; pc < n_instr; ++pc) {
-    const int* ins = prog + pc * 8;
-    const int op = ins[0], dt = ins[1], dst = ins[2], a = ins[3], b = ins[4],
-              c = ins[5], imm = ins[6], imm2 = ins[7];
-    Reg v;
-    v.i = 0;
-    bool vok = true;
-    switch (op) {
-      case LIT:
-        v = lit_reg(lits[imm], dt);
-        vok = lit_valid[imm] != 0;
-        break;
-      case COL: {
-        const void* p = (const void*)col_vals[imm];
-        switch (dt) {
-          case BOOL: v.i = ((const uint8_t*)p)[row] != 0; break;
-          case I32: v.i = ((const int32_t*)p)[row]; break;
-          case I64: v.i = ((const long long*)p)[row]; break;
-          case F32: v.i = 0; v.f = ((const float*)p)[row]; break;
-          default: v.d = ((const double*)p)[row]; break;
-        }
-        const uint8_t* q = (const uint8_t*)col_valid[imm];
-        vok = q == nullptr ? true : q[row] != 0;
-        break;
-      }
-      case FLAGALL:
-        if (ins[7] == pass && !ok[a]) atomicOr(flags + imm, 1);
-        continue;
-      case INFIN: {
-        bool any_null = false;
-        for (int k = 0; k < imm2; ++k) any_null = any_null || flags[imm + k] != 0;
-        v.i = reg[a].i != 0;
-        vok = ok[b] && (v.i || !any_null);
-        break;
-      }
-      default: {
-        // unused operands are -1: read only the registers the opcode takes
-        const int na = arity(op);
-        Reg d = zero, m = zero;
-        if (op == TIMEFIELD) {
-          d = lit_reg(lits[imm], dt);
-          m = lit_reg(lits[imm2], dt);
-        }
-        alu(op, dt, imm, na > 0 ? reg[a] : zero, na > 0 && ok[a], na > 1 ? reg[b] : zero,
-            na > 1 && ok[b], na > 2 ? reg[c] : zero, na > 2 && ok[c], d, m, v, vok);
-        break;
-      }
-    }
-    reg[dst] = v;
-    ok[dst] = vok;
   }
 }
 

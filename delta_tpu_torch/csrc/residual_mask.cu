@@ -1,6 +1,8 @@
-// Residual mask (K14): the Kleene-TRUE row masks of a scan's lowered
-// residual predicate over the resident column lanes of a query's files, in
-// one launch.
+// Residual mask (K14) and expression interpreter (K15): one tile body, two
+// outputs. K14: the Kleene-TRUE row masks of a scan's lowered residual
+// predicate over the resident column lanes of a query's files, in one
+// launch. K15: a lowered skipping predicate over the per-file stats lanes,
+// the root's (value, valid) in its dtype (below).
 //
 // Replaces delta_tpu/ops/column_cache.py:312 `_mask_kernel` (one jitted XLA
 // executable per rewritten expression over
@@ -26,8 +28,8 @@
 // (ops/column_cache.py).
 //
 // Design: a CTA takes one tile of T rows of one file (T = 256..2048, picked
-// by the host so that the register file fits in 48 KB: the CTA finds its
-// file by a binary search over the tiles' prefix). The register file lives
+// by the host so that the register file fits in 48 KB, 55 KB for K15: the
+// CTA finds its file by a binary search over the tiles' prefix). The register file lives
 // in shared memory, laid out [register][row] (8-byte values, then 1-byte
 // validity), sized to the program's registers, not to the interpreter's 64.
 // Each instruction is decoded once per tile: the opcode is a template
@@ -43,15 +45,28 @@
 // root register, 0 past the file's rows up to its 16-row aligned end, so
 // every byte of the output is written.
 //
-// Semantics are the interpreter's (`alu` in csrc/expr_eval.cuh, shared with
-// K15): the two agree with the plain version bit for bit.
+// K15 replaces delta_tpu/expr/jaxeval.py:149 `compile_expr` as jitted by
+// delta_tpu/ops/pruning.py:361 `_compiled_skipping` and run by :371
+// `_prune_device`. Its stats lanes are one "file" of n rows in the same
+// MaskTables layouts (ops/column_cache's packing, shared by
+// expr/device_eval.expr_eval), and the body writes the root's value and
+// validity instead of the mask. An IN's option validity reduces over ALL
+// rows: FLAGALL ORs "some row of this tile is NULL" into its flag with one
+// atomic a CTA (__syncthreads_or), in a launch of its own per nesting level
+// of the IN (dtt_expr_eval: the flags zeroed, then a launch per level that
+// runs the program up to its last FLAGALL, then the launch that writes the
+// output, whose INFIN reads the final flags). A lane whose start is off a
+// 16-byte boundary (a view at an offset) is read one element a thread.
+//
+// Semantics are the interpreter's (`alu` in csrc/expr_eval.cuh): the body
+// agrees with the plain versions bit for bit.
 //
 // What bounds it: bytes. Each row reads its lanes once (value + 1 B valid
-// per column) and writes 1 B. At config 12's shapes the interpreter's own
-// work meets the card first (PERF.md): staging the columns with
-// cp.async, persistent double-buffered CTAs, two rows a thread step and
-// capped registers were each slower than this layout, which holds 64
-// registers and four CTAs an SM.
+// per column) and writes 1 B (K14) or the root's value and 1 B (K15). At
+// config 12's shapes the interpreter's own work meets the card first
+// (PERF.md): staging the columns with cp.async, persistent double-buffered
+// CTAs, two rows a thread step and capped registers were each slower than
+// this layout, which holds 64 registers and four CTAs an SM.
 #include "expr_eval.cuh"
 
 namespace {
@@ -94,6 +109,19 @@ struct Tile {
   const Reg* uval;    // [n_instr]
   const uint8_t* uok;
   int T, n;           // tile rows, rows of the file in this tile
+};
+
+// Where a launch writes. K14: the mask bytes. K15: the root's (value,
+// valid) in its dtype, rows [0, n) of the one "file" (the stats lanes of n
+// files), and FLAGALL's flags; a K15 launch either reduces the FLAGALLs of
+// nesting level `pass` (running the first `stop` instructions, no output)
+// or, with pass = -1, runs the whole program and writes the output.
+struct Out {
+  uint8_t* mask;
+  void* value;
+  uint8_t* valid;
+  int* flags;
+  int pass, stop;
 };
 
 template <class P>
@@ -148,12 +176,31 @@ __device__ __forceinline__ void run_rows(const Tile& t, int dt, int dst, int imm
 }
 
 // A COL instruction: rows [base, base + n) of the file's lane into shared
-// register dst, 16 bytes a load (rows past n are not read).
+// register dst, 16 bytes a load (rows past n are not read); with kAnyAlign,
+// a lane whose start is off a 16-byte boundary one element a thread.
+template <bool kAnyAlign>
 __device__ __forceinline__ void load_col(const Tile& t, const void* vp, const uint8_t* kp,
                                          int dt, int dst, long long base) {
   long long* out = t.val + dst * t.T;
   uint8_t* okd = t.ok + dst * t.T;
   const int n = t.n;
+  const int size = dt == I64 || dt == F64 ? 8 : dt == BOOL ? 1 : 4;
+  if (kAnyAlign && ((uintptr_t)vp % 16 || (uintptr_t)kp % 16)) {
+    // a lane that starts off a 16-byte boundary (a view at an offset):
+    // one element a thread, consecutive threads on consecutive rows
+    for (int r = threadIdx.x; r < n; r += kThreads) {
+      const char* e = (const char*)vp + (base + r) * size;
+      Reg x;
+      x.i = 0;
+      if (size == 8) x.i = *(const long long*)e;
+      else if (dt == I32) x.i = *(const int*)e;
+      else if (dt == F32) x.f = *(const float*)e;
+      else x.i = *(const uint8_t*)e != 0;
+      out[r] = x.i;
+      okd[r] = kp == nullptr ? 1 : kp[base + r];
+    }
+    return;
+  }
   if (dt == I64 || dt == F64) {
     const long long* src = (const long long*)vp + base;
     for (int v = threadIdx.x; 2 * v < n; v += kThreads) {
@@ -222,8 +269,8 @@ __device__ __forceinline__ void load_col(const Tile& t, const void* vp, const ui
                   p.usrc[pc][3], d, m);                                                \
     break;
 
-template <class P>
-__device__ __forceinline__ void masks_body(const P& p, uint8_t* __restrict__ mask) {
+template <class P, bool K15>
+__device__ __forceinline__ void masks_body(const P& p, const Out& o) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.hdr[H_TILE], n_regs = p.hdr[H_REGS], n_instr = p.hdr[H_INSTR];
   // this CTA's file: the first whose tiles end past blockIdx.x
@@ -284,14 +331,30 @@ __device__ __forceinline__ void masks_body(const P& p, uint8_t* __restrict__ mas
   }
   __syncthreads();
 
-  for (int pc = 0; pc < n_instr; ++pc) {
+  const int stop = K15 && o.pass >= 0 ? o.stop : n_instr;
+  for (int pc = 0; pc < stop; ++pc) {
     if (p.usrc[pc][0]) continue;
     const short* ins = p.ins[pc];
     const int op = ins[0], dt = ins[1], dst = ins[2], imm = ins[6], imm2 = ins[7];
+    if (K15 && op == FLAGALL) {
+      // "some row of the option is NULL", reduced over the tile: one
+      // atomic a CTA, in the launch that reduces this nesting level
+      if (imm2 != o.pass) continue;
+      const int a = ins[3], u = p.usrc[pc][1];
+      bool null_row = false;
+      if (u >= 0) {
+        null_row = t.n > 0 && !uok[u];
+      } else {
+        for (int r = threadIdx.x; r < t.n; r += kThreads) null_row |= !t.ok[a * T + r];
+      }
+      if (__syncthreads_or(null_row) && threadIdx.x == 0) atomicOr(o.flags + imm, 1);
+      continue;
+    }
     if (op == COL) {
       const int j = 2 * (f * p.hdr[H_COLS] + imm);
       __syncthreads();  // the register's earlier readers are done
-      load_col(t, p.ptr[j], (const uint8_t*)p.ptr[j + 1], dt, dst, base);
+      // K14's host hands it 16-byte aligned lanes only
+      load_col<K15>(t, p.ptr[j], (const uint8_t*)p.ptr[j + 1], dt, dst, base);
       __syncthreads();
       continue;
     }
@@ -301,6 +364,9 @@ __device__ __forceinline__ void masks_body(const P& p, uint8_t* __restrict__ mas
       bool dv;
       d = literal(p, f, imm, dt, &dv);
       m = literal(p, f, imm2, dt, &dv);
+    } else if (K15 && op == INFIN) {
+      // the flags of the IN's options, final: earlier launches reduced them
+      for (int k = 0; k < imm2; ++k) d.i |= o.flags[imm + k] != 0;
     }
     switch (op) {
       K14_CASE(CAST) K14_CASE(ADD) K14_CASE(SUB) K14_CASE(MUL) K14_CASE(DIV) K14_CASE(NEG)
@@ -308,17 +374,43 @@ __device__ __forceinline__ void masks_body(const P& p, uint8_t* __restrict__ mas
       K14_CASE(AND) K14_CASE(OR) K14_CASE(NOT) K14_CASE(ISNULL) K14_CASE(ISNOTNULL)
       K14_CASE(NSEQ) K14_CASE(INSTEP) K14_CASE(COALESCE) K14_CASE(CASESTEP) K14_CASE(ABS)
       K14_CASE(FLOOR) K14_CASE(CEIL) K14_CASE(EXP) K14_CASE(SQRT) K14_CASE(LOG) K14_CASE(POW)
-      K14_CASE(TIMEFIELD) K14_CASE(TSDAYS) K14_CASE(CIVIL) K14_CASE(INROW)
+      K14_CASE(TIMEFIELD) K14_CASE(TSDAYS) K14_CASE(CIVIL) K14_CASE(INROW) K14_CASE(INFIN)
       default:
-        break;  // FLAGALL and INFIN: refused by the host
+        break;  // FLAGALL: above (K14's host refuses FLAGALL and INFIN)
     }
+  }
+  if (K15) {
+    if (o.pass >= 0) return;
+    // the root's value and validity in its dtype, this tile's rows
+    const int root = p.hdr[H_ROOT], root_dt = p.hdr[H_ROOT_DT], slot = p.hdr[H_ROOT_SLOT];
+    for (int r = threadIdx.x; r < t.n; r += kThreads) {
+      Reg x;
+      bool ok;
+      if (slot >= 0) {
+        x = uval[slot];
+        ok = uok[slot] != 0;
+      } else {
+        x.i = t.val[root * T + r];
+        ok = t.ok[root * T + r] != 0;
+      }
+      const long long row = base + r;
+      switch (root_dt) {
+        case BOOL: ((uint8_t*)o.value)[row] = x.i != 0; break;
+        case I32: ((int32_t*)o.value)[row] = (int32_t)x.i; break;
+        case I64: ((long long*)o.value)[row] = x.i; break;
+        case F32: ((float*)o.value)[row] = x.f; break;
+        default: ((double*)o.value)[row] = x.d; break;
+      }
+      o.valid[row] = ok;
+    }
+    return;
   }
 
   // the mask: this tile's rows, 0 past the file's rows up to its aligned end
   const int root = p.hdr[H_ROOT], root_dt = p.hdr[H_ROOT_DT], slot = p.hdr[H_ROOT_SLOT];
   const long long end16 = (rows + 15) & ~15ll;
   const int out_n = (int)min((long long)T, end16 - base);
-  uint8_t* out = mask + p.out_off[f] + base;
+  uint8_t* out = o.mask + p.out_off[f] + base;
   for (int r = threadIdx.x; r < out_n; r += kThreads) {
     bool truth = false;
     if (r < t.n) {
@@ -338,13 +430,23 @@ __device__ __forceinline__ void masks_body(const P& p, uint8_t* __restrict__ mas
 }
 
 __global__ void __launch_bounds__(kThreads)
-residual_masks_kernel(const __grid_constant__ MaskParams p, uint8_t* __restrict__ mask) {
-  masks_body(p, mask);
+residual_masks_kernel(const __grid_constant__ MaskParams p, const Out o) {
+  masks_body<MaskParams, false>(p, o);
 }
 
 __global__ void __launch_bounds__(kThreads)
-residual_masks_global_kernel(const MaskGlobal* __restrict__ p, uint8_t* __restrict__ mask) {
-  masks_body(*p, mask);
+residual_masks_global_kernel(const MaskGlobal* __restrict__ p, const Out o) {
+  masks_body<MaskGlobal, false>(*p, o);
+}
+
+__global__ void __launch_bounds__(kThreads)
+expr_eval_kernel(const __grid_constant__ MaskParams p, const Out o) {
+  masks_body<MaskParams, true>(p, o);
+}
+
+__global__ void __launch_bounds__(kThreads)
+expr_eval_global_kernel(const MaskGlobal* __restrict__ p, const Out o) {
+  masks_body<MaskGlobal, true>(*p, o);
 }
 
 // The block's header against its layout's capacities; the dynamic shared
@@ -364,6 +466,43 @@ int check_block(const P& p, size_t* smem) {
   return 0;
 }
 
+// One launch of `kernel` over the block's tiles, the dynamic shared memory
+// raised past 48 KB where the program needs it.
+template <class K, class A>
+int launch(K kernel, const A& arg, int tiles, size_t smem, const Out& o, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<tiles, kThreads, smem, s>>>(arg, o);
+  return (int)cudaGetLastError();
+}
+
+// K15's launches over one block: a launch per nesting level of the IN
+// reductions (level `pass` reduced by the instructions up to its last
+// FLAGALL), then the launch that writes the output.
+template <class P, class K, class A>
+int expr_launches(const P& p, K kernel, const A& arg, size_t smem, Out o, int passes,
+                  cudaStream_t s) {
+  const int n_instr = p.hdr[H_INSTR], tiles = p.hdr[H_TILES];
+  bool flags = false;
+  for (int pc = 0; pc < n_instr; ++pc) flags |= p.ins[pc][0] == FLAGALL;
+  for (int pass = 0; flags && pass < passes; ++pass) {
+    int stop = 0;
+    for (int pc = 0; pc < n_instr; ++pc)
+      if (p.ins[pc][0] == FLAGALL && p.ins[pc][7] == pass) stop = pc + 1;
+    if (!stop) continue;
+    o.pass = pass;
+    o.stop = stop;
+    const int err = launch(kernel, arg, tiles, smem, o, s);
+    if (err) return err;
+  }
+  o.pass = -1;
+  o.stop = n_instr;
+  return launch(kernel, arg, tiles, smem, o, s);
+}
+
 }  // namespace
 
 // K14 over one block of files: mask (the output, sum of the files' rows
@@ -375,31 +514,49 @@ int check_block(const P& p, size_t* smem) {
 extern "C" int dtt_residual_masks(const void* host, long long bytes, const void* tables,
                                   uint8_t* mask, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const Out o{mask, nullptr, nullptr, nullptr, -1, 0};
   size_t smem = 0;
   int err;
   if (bytes == (long long)sizeof(MaskParams) && tables == nullptr) {
     const MaskParams& p = *(const MaskParams*)host;
     if ((err = check_block(p, &smem)) != 0) return err;
     if (p.hdr[H_TILES] == 0) return (int)cudaGetLastError();
-    if (smem > 48 * 1024 &&
-        (err = (int)cudaFuncSetAttribute(residual_masks_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem)) != 0)
-      return err;
-    residual_masks_kernel<<<p.hdr[H_TILES], kThreads, smem, s>>>(p, mask);
-  } else if (bytes == (long long)sizeof(MaskGlobal) && tables != nullptr) {
+    return launch(residual_masks_kernel, p, p.hdr[H_TILES], smem, o, s);
+  }
+  if (bytes == (long long)sizeof(MaskGlobal) && tables != nullptr) {
     const MaskGlobal& p = *(const MaskGlobal*)host;
     if ((err = check_block(p, &smem)) != 0) return err;
     if (p.hdr[H_TILES] == 0) return (int)cudaGetLastError();
-    if (smem > 48 * 1024 &&
-        (err = (int)cudaFuncSetAttribute(residual_masks_global_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem)) != 0)
-      return err;
-    residual_masks_global_kernel<<<p.hdr[H_TILES], kThreads, smem, s>>>(
-        (const MaskGlobal*)tables, mask);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch(residual_masks_global_kernel, (const MaskGlobal*)tables, p.hdr[H_TILES], smem,
+                  o, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// K15 over one block (a MaskParams or a MaskGlobal, as for K14) whose one
+// file is the n rows of the stats lanes: value (n,) of the root's dtype and
+// valid (n,) u8; flags (n_flags,) i32, zeroed here; passes: the program's
+// nesting levels of IN reductions.
+extern "C" int dtt_expr_eval(const void* host, long long bytes, const void* tables, void* value,
+                             uint8_t* valid, int* flags, int n_flags, int passes,
+                             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Out o{nullptr, value, valid, flags, -1, 0};
+  size_t smem = 0;
+  int err;
+  if (n_flags > 0 && (err = (int)cudaMemsetAsync(flags, 0, 4ll * n_flags, s)) != 0) return err;
+  if (bytes == (long long)sizeof(MaskParams) && tables == nullptr) {
+    const MaskParams& p = *(const MaskParams*)host;
+    if ((err = check_block(p, &smem)) != 0) return err;
+    if (p.hdr[H_FILES] != 1 || p.hdr[H_TILES] == 0) return (int)cudaErrorInvalidValue;
+    return expr_launches(p, expr_eval_kernel, p, smem, o, passes, s);
+  }
+  if (bytes == (long long)sizeof(MaskGlobal) && tables != nullptr) {
+    const MaskGlobal& p = *(const MaskGlobal*)host;
+    if ((err = check_block(p, &smem)) != 0) return err;
+    if (p.hdr[H_FILES] != 1 || p.hdr[H_TILES] == 0) return (int)cudaErrorInvalidValue;
+    return expr_launches(p, expr_eval_global_kernel, (const MaskGlobal*)tables, smem, o, passes,
+                         s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

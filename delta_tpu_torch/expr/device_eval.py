@@ -7,9 +7,11 @@ a validity mask (NULL = invalid lane). The JAX package traces the tree into
 ``jnp`` ops that XLA fuses; here :func:`compile_expr` does the type
 inference on the host and lowers the tree to a flat typed program — a few
 dozen instructions over virtual registers, literals in a table — that ONE
-hand-written CUDA kernel (K15, ``csrc/expr_eval.cu``, :func:`expr_eval`)
-interprets: one thread per row, each register a (value, valid) pair. No
-code is generated or compiled per expression. :func:`expr_eval_plain`
+hand-written CUDA kernel (K15, :func:`expr_eval`) interprets on the
+residual mask K14's tile body (``csrc/residual_mask.cu``): a CTA a tile of
+rows, the register file in shared memory, each register a (value, valid)
+pair, each instruction decoded once a tile. No code is generated or
+compiled per expression. :func:`expr_eval_plain`
 interprets the same program with torch ops; it is taken only for tensors
 on the CPU, and the card holds the kernel against it bit for bit.
 
@@ -26,8 +28,9 @@ Semantics are the JAX package's under x64, value for value:
 * ``hour``/``minute``/``second`` are Python-style floor division and mod
   by constants that take the operand's type (int32 wraps them);
 * ``IN`` is NULL where not found and some option is NULL in ANY row (the
-  option's validity reduces over all rows), so the kernel makes a first
-  pass per nesting level to reduce it; a program lowered with
+  option's validity reduces over all rows), so the kernel makes a launch
+  per nesting level to reduce it before the launch that writes the
+  output; a program lowered with
   ``row_in=True`` (the residual filter's, :func:`compile_residual`) takes
   each option's validity in its own row instead, which is the host
   evaluator's semantics (see ``ops/column_cache``);
@@ -113,8 +116,8 @@ OP = {name: i for i, name in enumerate(OPS)}
 #: holds: the calendar nodes and the per-row IN
 RESIDUAL_OPS = ("TSDAYS", "CIVIL", "INROW")
 
-#: physical registers and instructions the kernel holds (local memory and
-#: shared memory); a program needing more does not lower
+#: physical registers and instructions the kernel holds (its register file
+#: in shared memory, its tables); a program needing more does not lower
 MAX_REGS = 64
 MAX_INSTRS = 1024
 
@@ -541,10 +544,30 @@ def _env_device(cols: List[DeviceColumn], env: Env) -> torch.device:
     return torch.device("cpu")
 
 
+def _k15_blocks(program: Program, cols: List[DeviceColumn], n: int):
+    """K15's block: the program and the stats lanes as one "file" of ``n``
+    rows, packed by the residual mask K14's packing
+    (``ops/column_cache``: the launch's parameters, or staged tables when
+    the program does not fit them); returns (layout, blocks), one block or
+    none when ``n`` is 0."""
+    from delta_tpu_torch.ops import column_cache
+
+    # every program the lowering emits fits the staged tables
+    layout = column_cache._K14_PARAMS if column_cache._fits_tables(
+        program, column_cache._K14_PARAMS) else column_cache._K14_GLOBAL
+    ptrs = [p for c in cols for p in (c.values.data_ptr(), c.valid.data_ptr())]
+    return layout, column_cache._param_blocks(program, ptrs, [n], [None], [0], layout,
+                                              column_cache._K15_TILE_BYTES)
+
+
 def expr_eval(program: Program, env: Env) -> DeviceColumn:
     """Run ``program`` over ``env``: the K15 kernel for columns on a CUDA
-    device, the plain version for columns on the CPU. Returns the root's
+    device (``csrc/residual_mask.cu``'s tile body, as K14 runs it: one
+    launch a nesting level of IN reductions, then the one that writes the
+    output), the plain version for columns on the CPU. Returns the root's
     ``(values, valid)``, 0-d when the program reads no column."""
+    from delta_tpu_torch.ops import column_cache
+
     cols = _env_columns(program, env)
     dev = _env_device(cols, env)
     if dev.type == "cpu":
@@ -553,27 +576,24 @@ def expr_eval(program: Program, env: Env) -> DeviceColumn:
     for c in cols:
         if c.values.device != dev or c.valid.device != dev:
             raise ValueError("expr_eval: env columns on more than one device")
-    vals = [c.values.contiguous() for c in cols]
-    oks = [c.valid.contiguous() for c in cols]
-    n_instr = program.instrs.shape[0]
-    n_lits = len(program.lits)
-    buf = np.concatenate([
-        np.ascontiguousarray(program.instrs).reshape(-1).view(np.int64),
-        program.lits, program.lit_valid.astype(np.int64),
-        np.array([t.data_ptr() for t in vals] or [0], np.int64),
-        np.array([t.data_ptr() for t in oks] or [0], np.int64)])
-    lit_off = n_instr * 4
-    litv_off = lit_off + n_lits
-    colv_off = litv_off + n_lits
-    colk_off = colv_off + max(len(vals), 1)
-    dbuf = torch.from_numpy(buf).to(dev)
-    flags = torch.zeros(max(program.n_flags, 1), dtype=torch.int32, device=dev)
-    out = torch.empty(n, dtype=_TORCH[program.root_dtype], device=dev)
-    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
-    native.call("expr_eval", dev, dbuf.data_ptr(), n_instr, lit_off, litv_off, colv_off,
-                colk_off, program.passes, n, flags.data_ptr(), out.data_ptr(),
-                out_valid.data_ptr(), program.root, program.root_dtype)
-    native.launches["expr_eval"] += 1
+    # contiguous lanes, whatever their offset: the kernel reads a lane that
+    # starts off a 16-byte boundary one element a thread
+    cols = [DeviceColumn(c.values.contiguous(), c.valid.contiguous()) for c in cols]
+    layout, blocks = _k15_blocks(program, cols, n)
+    flags = max(program.n_flags, 1)
+    # the output, its validity and the flags in one allocation
+    nv = n * _TORCH[program.root_dtype].itemsize
+    at_ok = (nv + 15) // 16 * 16
+    at_fl = (at_ok + n + 15) // 16 * 16
+    buf = torch.empty(at_fl + 4 * flags, dtype=torch.uint8, device=dev)
+    out = buf[:nv].view(_TORCH[program.root_dtype])
+    out_valid = buf[at_ok:at_ok + n].view(torch.bool)
+    for blk in blocks:
+        host, tables, _keep = column_cache._block_args(blk, layout, dev)
+        native.call("expr_eval", dev, host, len(blk), tables, out.data_ptr(),
+                    out_valid.data_ptr(), buf.data_ptr() + at_fl, program.n_flags,
+                    program.passes)
+        native.launches["expr_eval"] += 1
     if program.scalar:
         return DeviceColumn(out.reshape(()), out_valid.reshape(()))
     return DeviceColumn(out, out_valid)

@@ -294,11 +294,18 @@ assert (_K14_PARAMS.itemsize, _K14_GLOBAL.itemsize) == (14016, 101696)
  _H_TILES) = range(10)
 
 
-def _tile_rows(program: Program) -> int:
-    """K14's tile: the most rows (2048 down to 256) whose register file, the
-    program's registers x rows x 9 B in shared memory, fits in 48 KB."""
+#: the register file a tile may hold in shared memory: K14's 48 KB; K15's
+#: 55 KB, four CTAs an SM (the 64 registers a thread allow four) in its
+#: 228 KB, which measured 20% faster on the normal leg's program
+_K14_TILE_BYTES = 48 * 1024
+_K15_TILE_BYTES = 55 * 1024
+
+
+def _tile_rows(program: Program, budget: int = _K14_TILE_BYTES) -> int:
+    """A tile: the most rows (2048 down to 256) whose register file, the
+    program's registers x rows x 9 B in shared memory, fits in ``budget``."""
     for t in (2048, 1024, 512):
-        if max(program.n_regs, 1) * t * 9 <= 48 * 1024:
+        if max(program.n_regs, 1) * t * 9 <= budget:
             return t
     return 256
 
@@ -341,11 +348,12 @@ def _cap(layout: np.dtype, field: str) -> int:
     return layout.fields[field][0].shape[0]
 
 
-def _k14_template(program: Program, layout: np.dtype) -> Tuple[bytes, List[str], int]:
-    """The program's part of a K14 block of this layout (bytes), built once
-    per program; the per-file scalars' names in the block's order; the
-    tile."""
-    key = (id(program), layout.itemsize)
+def _k14_template(program: Program, layout: np.dtype,
+                  budget: int = _K14_TILE_BYTES) -> Tuple[bytes, List[str], int]:
+    """The program's part of a block of this layout (bytes), built once per
+    program and tile budget; the per-file scalars' names in the block's
+    order; the tile."""
+    key = (id(program), layout.itemsize, budget)
     with _TEMPLATES_LOCK:
         hit = _TEMPLATES.get(key)
         if hit is not None and hit[0] is program:
@@ -362,7 +370,7 @@ def _k14_template(program: Program, layout: np.dtype) -> Tuple[bytes, List[str],
     usrc = _uniform_slots(program.instrs)
     blk["usrc"][0, :n] = usrc
     writer = max((pc for pc in range(n) if program.instrs[pc, 2] == program.root), default=-1)
-    tile = _tile_rows(program)
+    tile = _tile_rows(program, budget)
     blk["hdr"][0, [_H_INSTR, _H_COLS, _H_SCAL, _H_ROOT, _H_ROOT_DT, _H_ROOT_SLOT, _H_TILE,
                    _H_REGS]] = [n, len(program.columns), len(names), program.root,
                                 program.root_dtype, _slot(usrc, writer), tile,
@@ -375,15 +383,20 @@ def _k14_template(program: Program, layout: np.dtype) -> Tuple[bytes, List[str],
     return out[1:]
 
 
-def _fits_k14(program: Program, layout: np.dtype) -> bool:
-    """The program fits a K14 block of this layout (instructions, literals,
-    one file's lane pointers and scalars, int16 fields) and has no IN
-    reduction over rows."""
-    return (not program.n_flags and 0 < len(program.instrs) <= _cap(layout, "ins")
+def _fits_tables(program: Program, layout: np.dtype) -> bool:
+    """The program fits a block of this layout (instructions, literals, one
+    file's lane pointers and scalars, int16 fields)."""
+    return (0 < len(program.instrs) <= _cap(layout, "ins")
             and len(program.lits) <= _cap(layout, "lits")
             and 2 * len(program.columns) <= _cap(layout, "ptr")
             and len(program.scalar_slots or {}) <= _cap(layout, "fscal")
             and int(np.abs(program.instrs).max()) < 1 << 15)
+
+
+def _fits_k14(program: Program, layout: np.dtype) -> bool:
+    """The program fits a K14 block of this layout and has no IN reduction
+    over rows."""
+    return not program.n_flags and _fits_tables(program, layout)
 
 
 def _groups(program: Program, n_files: int, layout: np.dtype) -> List[Tuple[int, int]]:
@@ -460,21 +473,26 @@ def residual_masks(program: Program, envs: List[Dict[str, DeviceColumn]], ns: Li
     offs, total = mask_offsets(ns)
     out = torch.empty(total, dtype=torch.bool, device=dev)
     for blk in _param_blocks(program, ptrs, ns, scalars_per_file, offs, layout):
-        if layout is _K14_PARAMS:
-            raw = (ctypes.c_char * len(blk)).from_buffer(blk)
-            native.call("residual_mask", dev, ctypes.addressof(raw), len(blk), None,
-                        out.data_ptr())
-        else:
-            # staged: pinned memory, then one asynchronous copy on the
-            # launch's stream (the caching host allocator keeps the pinned
-            # block until the copy has run)
-            host = torch.frombuffer(blk, dtype=torch.uint8).pin_memory()
-            tables = torch.empty(len(blk), dtype=torch.uint8, device=dev)
-            tables.copy_(host, non_blocking=True)
-            native.call("residual_mask", dev, host.data_ptr(), len(blk), tables.data_ptr(),
-                        out.data_ptr())
+        host, tables, _keep = _block_args(blk, layout, dev)
+        native.call("residual_mask", dev, host, len(blk), tables, out.data_ptr())
         native.launches["residual_mask"] += 1
     return out, offs
+
+
+def _block_args(blk: bytearray, layout: np.dtype, dev: torch.device):
+    """A block's launch arguments (the host address of its bytes, the
+    address of its copy on the card or None) and what must outlive the
+    launch: the launch's parameters carry a ``_K14_PARAMS`` block; a staged
+    one goes to pinned memory, then by one asynchronous copy on the
+    launch's stream to the card (the caching host allocator keeps the
+    pinned block until the copy has run)."""
+    if layout is _K14_PARAMS:
+        raw = (ctypes.c_char * len(blk)).from_buffer(blk)
+        return ctypes.addressof(raw), None, raw
+    host = torch.frombuffer(blk, dtype=torch.uint8).pin_memory()
+    tables = torch.empty(len(blk), dtype=torch.uint8, device=dev)
+    tables.copy_(host, non_blocking=True)
+    return host.data_ptr(), tables.data_ptr(), (host, tables)
 
 
 def _lane_ptrs(program: Program, envs: List[Dict[str, DeviceColumn]], ns: List[int],
@@ -511,13 +529,14 @@ def _put(buf: bytearray, layout: np.dtype, field: str, code: str, values) -> Non
 
 def _param_blocks(program: Program, ptrs: List[int], ns: List[int],
                   scalars_per_file: List[Optional[Dict[str, Tuple[int, bool]]]],
-                  offs: List[int], layout: np.dtype) -> List[bytearray]:
+                  offs: List[int], layout: np.dtype,
+                  budget: int = _K14_TILE_BYTES) -> List[bytearray]:
     """K14's blocks of this layout for these files, one a launch
     (:func:`_groups`; a block whose files have no rows is left out): the
     program's template, then each file's rows, mask offset, tile prefix,
     lane pointers (``ptrs``: two a column, file by file) and per-file
-    scalars."""
-    tmpl, names, tile = _k14_template(program, layout)
+    scalars. ``budget``: the tile's register file (:func:`_tile_rows`)."""
+    tmpl, names, tile = _k14_template(program, layout, budget)
     per_file = 2 * len(program.columns)
     hdr = layout.fields["hdr"][1]
     out = []

@@ -27,7 +27,10 @@ or raises:
   the sorted slab, where the TPU kernel brute-compares blocks against
   candidate windows. It never overflows; the head's overflow byte is 0;
 * K10 :func:`pair_compact` (``csrc/pair_compact.cu``) replaces
-  ``_pair_compact_kernel`` (``:353``);
+  ``_pair_compact_kernel`` (``:353``) together with the host's stable
+  argsort of its pairs in the probe's finalize (``:908-912``): the pairs
+  come out in physical slab order, and :func:`fetch_pairs` downloads just
+  them;
 * K11 (``csrc/slab_update.cu``) replaces ``_update_kernels`` (``:379``):
   :func:`slab_advance` applies a whole slab advance in one launch, from one
   pinned upload (:func:`pack_advance`: the touched rows, each once, with
@@ -93,7 +96,7 @@ from delta_tpu_torch.utils.device import resolve
 __all__ = ["ResidentJoinKeys", "KeyCache", "PhysicalProbe", "SlabBuilder", "key_cache_enabled",
            "MAX_DEVICE_BYTES", "MAX_ENTRIES",
            "slab_sort", "slab_sort_plain", "slab_probe", "slab_probe_plain", "pair_compact",
-           "pair_compact_plain", "AdvanceLayout", "pack_advance", "slab_advance",
+           "pair_compact_plain", "fetch_pairs", "AdvanceLayout", "pack_advance", "slab_advance",
            "slab_advance_plain", "slab_kill", "slab_revive", "slab_flip_plain", "slab_append",
            "slab_append_plain", "slab_widen", "slab_widen_plain", "slab_map_rows",
            "slab_map_rows_plain", "slab_slice_append", "slab_slice_append_plain"]
@@ -222,19 +225,9 @@ def slab_sort_plain(keys: torch.Tensor, valid: torch.Tensor, n: int):
     return sk, perm.to(torch.int32), inv, sv
 
 
-#: rows per tile of the device scans (``csrc/scan.cuh``'s users: K10's tiles)
-_SCAN_TILE = 4096
 #: rows per one-sweep tile of the radix sort (``csrc/radix.cuh``'s kTile)
 _RADIX_TILE = 4096
 _ALIGN = 256
-
-
-def _scan_aux_elems(length: int) -> int:
-    total = 0
-    while length > 1:
-        length = (length + _SCAN_TILE - 1) // _SCAN_TILE
-        total += length
-    return total + 1
 
 
 def _aligned(nbytes: int) -> int:
@@ -378,36 +371,85 @@ def slab_probe(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor, n: int,
 
 def pair_compact_plain(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tensor,
                        out_cap: int) -> torch.Tensor:
-    """Plain PyTorch version of K10."""
-    idx = torch.nonzero(t_match).reshape(-1)[:out_cap]
+    """Plain PyTorch version of K10: the matched rows' (``perm[i]``,
+    ``s_first[i]``) sorted by ``perm[i]``, the first ``out_cap`` of them,
+    zeros after."""
+    idx = torch.nonzero(t_match).reshape(-1)
+    phys, order = torch.sort(perm[idx])
+    keep = min(len(idx), out_cap)
     out = torch.zeros((2, out_cap), dtype=torch.int32, device=t_match.device)
-    out[0, :len(idx)] = perm[idx]
-    out[1, :len(idx)] = s_first[idx]
+    out[0, :keep] = phys[:keep]
+    out[1, :keep] = s_first[idx[order[:keep]]]
     return out
 
 
+def _compact_scratch_bytes(cap: int) -> int:
+    """K10's scratch (``csrc/pair_compact.cu``): the physical bitmap (a bit
+    a row), a status word a tile of 8,192 rows, the ticket and the count,
+    then the source rows by physical row (4 bytes a row)."""
+    words = (cap + 31) // 32
+    tiles = (words + 255) // 256
+    return _aligned(4 * words) + _aligned(8 * tiles) + _aligned(8) + _aligned(4 * cap)
+
+
 def pair_compact(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tensor,
-                 out_cap: int) -> torch.Tensor:
-    """K10: the matched sorted rows, in sorted order, compacted into a
-    ``(2, out_cap)`` int32 of (``perm[i]``, ``s_first[i]``); zeros past the
-    matched count, rows past ``out_cap`` dropped."""
+                 out_cap: int, mc: Optional[int] = None,
+                 host: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10: the matched sorted rows' (``perm[i]``, ``s_first[i]``) in
+    physical order (ascending ``perm[i]``), compacted into a ``(2, out_cap)``
+    int32; zeros past the matched count, and where ``out_cap`` is below it,
+    the first ``out_cap`` pairs in physical order. ``mc``, the matched count
+    when the caller knows it (the probe's head), spares zeroing the slots
+    below it. ``host`` (int32 ``(2 mc + 1,)``, pinned for a CUDA launch)
+    receives the pairs ``[:, :mc]`` and then the kernel's count, copied on
+    the stream after the kernel (:func:`fetch_pairs` waits for it)."""
     cap = t_match.shape[0]
     if t_match.dtype != torch.bool or s_first.dtype != torch.int32 or perm.dtype != torch.int32:
         raise TypeError("pair_compact: t_match bool, s_first and perm int32")
     if s_first.shape != (cap,) or perm.shape != (cap,) or out_cap < 0:
         raise ValueError("pair_compact: bad shapes")
+    if host is not None and (mc is None or not 0 <= mc <= out_cap
+                             or host.dtype != torch.int32 or host.shape != (2 * mc + 1,)):
+        raise ValueError("pair_compact: host needs mc <= out_cap and int32 (2 mc + 1,)")
     dev = _same_device("pair_compact", t_match, s_first, perm)
     if dev.type == "cpu":
-        return pair_compact_plain(t_match, s_first, perm, out_cap)
+        out = pair_compact_plain(t_match, s_first, perm, out_cap)
+        if host is not None:
+            host[:2 * mc] = out[:, :mc].reshape(-1)
+            host[2 * mc] = int(t_match.sum())
+        return out
     _contiguous("pair_compact", t_match, s_first, perm)
-    out = torch.empty((2, out_cap), dtype=torch.int32, device=dev)
-    tiles = max((cap + _SCAN_TILE - 1) // _SCAN_TILE, 1)
-    scratch = torch.empty(4 * tiles + 4 * _scan_aux_elems(tiles) + 2 * _ALIGN,
-                          dtype=torch.uint8, device=dev)
+    if host is not None and not host.is_pinned():
+        raise ValueError("pair_compact: host must be pinned")
+    # the output and the scratch in one allocation, the scratch 256-aligned
+    at = _aligned(8 * out_cap)
+    nbytes = _compact_scratch_bytes(cap)
+    buf = torch.empty(at + nbytes, dtype=torch.uint8, device=dev)
+    out = buf[:8 * out_cap].view(torch.int32).view(2, out_cap)
     native.call("pair_compact", dev, t_match.data_ptr(), s_first.data_ptr(), perm.data_ptr(),
-                cap, out.data_ptr(), out_cap, scratch.data_ptr(), scratch.numel())
+                cap, out.data_ptr(), out_cap, -1 if mc is None else mc,
+                None if host is None else host.data_ptr(), buf.data_ptr() + at, nbytes)
     native.launches["pair_compact"] += 1
     return out
+
+
+def fetch_pairs(t_match: torch.Tensor, s_first: torch.Tensor, perm: torch.Tensor,
+                mc: int) -> torch.Tensor:
+    """The probe's pairs on the host: K10 into a ``(2, out_cap)`` buffer
+    (``out_cap`` the power of two from ``mc``, at least 64) and its first
+    ``mc`` pairs and count downloaded into one int32 ``(2 mc + 1,)``
+    (pinned for a CUDA launch): the physical rows ascending at ``[:mc]``,
+    their first source rows at ``[mc:2 mc]``. Waits for the download on
+    the current stream; raises if the kernel's count is not ``mc``."""
+    dev = t_match.device
+    host = torch.empty(2 * mc + 1, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    pair_compact(t_match, s_first, perm, _next_pow2(mc, floor=64), mc=mc, host=host)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    if int(host[2 * mc]) != mc:
+        raise RuntimeError(f"pair_compact counted {int(host[2 * mc])} matched rows where the "
+                           f"probe's head counts {mc}")
+    return host
 
 
 class AdvanceLayout(NamedTuple):
@@ -1017,8 +1059,8 @@ class ResidentJoinKeys:
                     insert_only: bool = False) -> Optional[PendingProbe]:
         """Membership probe of the source keys against the resident slab,
         fused with the pairing: K9 emits each matched slab row's first
-        source row and K10 compacts the pairs, so the finalize downloads
-        O(matched). None when no sentinel value exists (the valid keys span
+        source row and K10 compacts the pairs in physical order, so the
+        finalize downloads O(matched) and sorts nothing. None when no sentinel value exists (the valid keys span
         int64) or the slab is not at ``expected_version``.
 
         ``insert_only``: only the per-source flags are fetched (the head).
@@ -1093,9 +1135,8 @@ class ResidentJoinKeys:
                     _multi, _overflow, mc, _s = _decode_head(head, cap_s, m)
                     if insert_only or mc == 0:
                         return
-                    out_cap = _next_pow2(mc, floor=64)
-                    state["pairs"] = pair_compact(t_match_dev, s_first_dev, dev["perm"],
-                                                  out_cap).cpu().numpy()
+                    # in physical order, downloaded and checked against mc
+                    state["pairs"] = fetch_pairs(t_match_dev, s_first_dev, dev["perm"], mc)
             except BaseException as e:
                 state["err"] = e
             finally:
@@ -1120,11 +1161,9 @@ class ResidentJoinKeys:
             if mc == 0:
                 empty = np.empty(0, np.int64)
                 return PhysicalProbe(s, multi, slabs, n, (empty, empty))
-            pairs = state["pairs"]
-            phys = pairs[0, :mc].astype(np.int64)
-            srows = pairs[1, :mc].astype(np.int64)
-            order = np.argsort(phys, kind="stable")
-            return PhysicalProbe(s, multi, slabs, n, (phys[order], srows[order]))
+            pairs = state["pairs"].numpy()  # K10 put them in physical order
+            return PhysicalProbe(s, multi, slabs, n, (pairs[:mc].astype(np.int64),
+                                                      pairs[mc:2 * mc].astype(np.int64)))
 
         return PendingProbe(finalize)
 

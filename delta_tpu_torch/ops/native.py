@@ -60,14 +60,13 @@ _KERNELS = {
     "winner_bits": ("winner_bits", "dtt_winner_bits",
                     [_P, _L, _P, _I, _P, _P, _P]),
     "replay": ("replay", "dtt_replay", [_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _L, _P]),
-    "expr_eval": ("expr_eval", "dtt_expr_eval",
-                  [_P, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _I, _I, _P]),
+    "expr_eval": ("residual_mask", "dtt_expr_eval", [_P, _L, _P, _P, _P, _P, _I, _I, _P]),
     "slab_sort": ("slab_sort", "dtt_slab_sort",
                   [_P, _P, _L, _L, _P, _P, _P, _P, _P, _L, _P]),
     "slab_probe": ("slab_probe", "dtt_slab_probe",
                    [_P, _P, _L, _L, _P, _I, _L, _P, _P, _P, _P, _L, _P]),
     "pair_compact": ("pair_compact", "dtt_pair_compact",
-                     [_P, _P, _P, _L, _P, _L, _P, _L, _P]),
+                     [_P, _P, _P, _L, _P, _L, _L, _P, _P, _L, _P]),
     "slab_advance": ("slab_update", "dtt_slab_advance", _ADVANCE),
     "slab_kill": ("slab_update", "dtt_slab_advance", _ADVANCE),
     "slab_revive": ("slab_update", "dtt_slab_advance", _ADVANCE),

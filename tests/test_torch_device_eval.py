@@ -202,9 +202,11 @@ def test_plain_version_launches_nothing_on_the_cpu():
 
 def test_opcode_and_dtype_tables_match_the_kernel_source():
     # the interpreter (opcodes, dtypes, registers) is shared by K15 and K14
-    # through csrc/expr_eval.cuh, which expr_eval.cu includes
+    # through csrc/expr_eval.cuh, which their one kernel body,
+    # residual_mask.cu, includes
     csrc = os.path.join(REPO, "delta_tpu_torch", "csrc")
-    src = "".join(open(os.path.join(csrc, f)).read() for f in ("expr_eval.cu", "expr_eval.cuh"))
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in ("residual_mask.cu", "expr_eval.cuh"))
     assert '#include "expr_eval.cuh"' in src
     ops = re.search(r"enum Op \{(.*?)\};", src, re.S).group(1)
     names = [x.split("=")[0].strip() for x in ops.replace("\n", " ").split(",")]
@@ -213,3 +215,56 @@ def test_opcode_and_dtype_tables_match_the_kernel_source():
     assert [x.split("=")[0].strip() for x in dts.split(",")] == \
         ["BOOL", "I32", "I64", "F32", "F64"]
     assert f"kMaxRegs = {device_eval.MAX_REGS}" in src
+
+
+def _read_k15_block(blk: bytes, layout, env):
+    """The plain reader of a K15 block: the program, its literal table and
+    its lanes as the kernel reads them from the block (the lane pointers
+    looked up among ``env``'s tensors), as a ``Program`` over ``env``."""
+    from delta_tpu_torch.ops import column_cache as cc
+
+    b = np.frombuffer(blk, layout)[0]
+    hdr = b["hdr"]
+    n_instr, n_cols = int(hdr[cc._H_INSTR]), int(hdr[cc._H_COLS])
+    assert int(hdr[cc._H_FILES]) == 1 and int(hdr[cc._H_SCAL]) == 0
+    ins = b["ins"][:n_instr].astype(np.int32)
+    by_ptr = {c.values.data_ptr(): (name, c) for name, c in env.items()}
+    names, dts = [], []
+    for k in range(n_cols):
+        name, c = by_ptr[int(b["ptr"][2 * k])]
+        assert int(b["ptr"][2 * k + 1]) == c.valid.data_ptr()
+        names.append(name)
+        dts.append(device_eval._FROM_TORCH[c.values.dtype])
+    levels = [int(x[7]) for x in ins if device_eval.OPS[x[0]] == "FLAGALL"]
+    return device_eval.Program(
+        ins, b["lits"].copy(), b["lit_valid"].astype(bool), names, dts, int(hdr[cc._H_ROOT]),
+        int(hdr[cc._H_ROOT_DT]), int(hdr[cc._H_REGS]), len(levels), max(levels, default=0) + 1,
+        n_cols == 0), int(b["rows"][0]), int(hdr[cc._H_TILES])
+
+
+@pytest.mark.parametrize("sql", CORPUS + ["b IN (a, g)", "(a IN (1, 2)) IN (flag, (a IN (b, NULL)))",
+                                          "1 + 2 > 2", "a IN (%s)" % ", ".join(map(str, range(200)))])
+def test_k15_block_read_back_evaluates_as_expr_eval_plain(sql):
+    """The K15 block packed by K14's shared packing (``_k15_blocks``: the
+    launch's parameters, or the staged tables for a 200-value IN) holds
+    the program, its literals, its root and its lanes: read back by its
+    plain reader, it evaluates to ``expr_eval_plain``'s answer bit for bit,
+    over one "file" of N rows."""
+    from delta_tpu_torch.ops import column_cache as cc
+
+    env = device_eval.columns_from_numpy(COLS, MASKS, device="cpu")
+    program = device_eval.compile_expr(torch_parse(sql)).program(env)
+    cols = [env[c] for c in program.columns]
+    n = 1 if program.scalar else N
+    layout, blocks = device_eval._k15_blocks(program, cols, n)
+    assert layout is (cc._K14_PARAMS if len(program.instrs) <= 256 and len(program.lits) <= 128
+                      else cc._K14_GLOBAL)
+    assert len(blocks) == 1 and len(blocks[0]) == layout.itemsize
+    read, rows, tiles = _read_k15_block(bytes(blocks[0]), layout, env)
+    assert rows == n and tiles == -(-n // cc._tile_rows(program, cc._K15_TILE_BYTES))
+    assert read.passes == program.passes and read.n_flags == program.n_flags
+    want, got = device_eval.expr_eval_plain(program, env), device_eval.expr_eval_plain(read, env)
+    assert got.values.dtype == want.values.dtype and got.values.shape == want.values.shape
+    assert np.array_equal(got.valid.numpy(), want.valid.numpy())
+    gv, wv = got.values.numpy().reshape(-1), want.values.numpy().reshape(-1)
+    assert np.array_equal(gv.view(np.uint8), wv.view(np.uint8))

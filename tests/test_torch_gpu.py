@@ -26,7 +26,8 @@ from delta_tpu_torch.schema.types import DoubleType, IntegerType, LongType, Stri
 
 # tests/, on the path as chip_smoke is: numpy only
 from torch_kernel_cases import (
-    ADVANCE_CASES, CASE_NAMES, TAIL_CASES, advance_case, probe_case, tail_case,
+    ADVANCE_CASES, CASE_NAMES, COMPACT_CASES, TAIL_CASES, advance_case, compact_case,
+    probe_case, reference_compact, tail_case,
 )
 
 pytestmark = pytest.mark.gpu
@@ -245,27 +246,88 @@ def test_scans_on_the_card_match_the_cpu(cuda, tmp_path, partitioned):
 # -- K15 and K5 (the second slice) ---------------------------------------------
 
 
-def test_expr_eval_kernel_matches_plain(cuda):
-    """chip_smoke.py's corpus at 4096 rows: bit for bit, except exp / log /
-    pow / sqrt, within 1 ulp."""
+def _k15_matches_plain(program, env, sql):
     import chip_smoke
     from delta_tpu_torch.expr import device_eval
 
-    env = chip_smoke.k15_columns(4096, 5, cuda)
+    got = device_eval.expr_eval(program, env)
+    torch.cuda.synchronize()
+    ref = device_eval.expr_eval_plain(program, env)
+    assert got.values.dtype == ref.values.dtype and got.values.shape == ref.values.shape, sql
+    assert torch.equal(got.valid, ref.valid), sql
+    if got.values.is_floating_point():
+        lanes, ulps = chip_smoke.ulp_diff(got.values, ref.values)
+        assert lanes == 0 or (any(f in sql for f in chip_smoke._TRANSCENDENTAL)
+                              and ulps <= 1), sql
+    else:
+        assert torch.equal(got.values, ref.values), sql
+
+
+@pytest.mark.parametrize("n", [4096, 5001, 14])
+def test_expr_eval_kernel_matches_plain(cuda, n):
+    """chip_smoke.py's corpus (every opcode K15 runs, 0-d programs among
+    them) at 4096 rows, at a row count that is no multiple of any tile and
+    at 14 rows: bit for bit, except exp / log / pow / sqrt, within 1 ulp;
+    one launch a call."""
+    import chip_smoke
+    from delta_tpu_torch.expr import device_eval
+
+    env = chip_smoke.k15_columns(n, 5, cuda)
     before = native.launches["expr_eval"]
+    ops = set()
     for sql in chip_smoke.K15_CORPUS:
         program = device_eval.compile_expr(parse_expression(sql)).program(env)
-        got = device_eval.expr_eval(program, env)
-        torch.cuda.synchronize()
-        ref = device_eval.expr_eval_plain(program, env)
-        assert torch.equal(got.valid, ref.valid), sql
-        if got.values.is_floating_point():
-            lanes, ulps = chip_smoke.ulp_diff(got.values, ref.values)
-            assert lanes == 0 or (any(f in sql for f in chip_smoke._TRANSCENDENTAL)
-                                  and ulps <= 1), sql
-        else:
-            assert torch.equal(got.values, ref.values), sql
+        ops.update(program.opcodes())
+        _k15_matches_plain(program, env, sql)
     assert native.launches["expr_eval"] == before + len(chip_smoke.K15_CORPUS)
+    assert ops == set(device_eval.OPS) - set(device_eval.RESIDUAL_OPS)
+
+
+def test_expr_eval_kernel_edge_cases(cuda):
+    """K15 on K14's tile body at its edges: one row; an IN whose column
+    option is half NULL, and one whose only NULL option row is the last (the
+    reduction over every row must be final before any row reads it); a
+    program past the launch's parameters (the staged tables); lanes that
+    are views at an offset (their starts off a 16-byte boundary)."""
+    import chip_smoke
+    from delta_tpu_torch.expr import device_eval
+    from delta_tpu_torch.ops import column_cache
+
+    rng = np.random.RandomState(9)
+    one = device_eval.columns_from_numpy({"a": np.array([3], np.int64), "b": np.array([2.5])},
+                                         {"b": np.array([False])}, device=cuda)
+    for sql in ("a + 1", "a IN (b, 3)", "b IN (a, NULL)", "1 + 2 > 2", "coalesce(b, a)"):
+        _k15_matches_plain(device_eval.compile_expr(parse_expression(sql)).program(one), one,
+                           sql)
+    n = 1_005_000
+    env = chip_smoke.k15_columns(n, 3, cuda)
+    half = dict(env, b=device_eval.DeviceColumn(env["b"].values, torch.from_numpy(
+        rng.rand(n) > 0.5).to(cuda)))
+    last = np.ones(n, bool)
+    last[-1] = False
+    tail = dict(env, a=device_eval.DeviceColumn(env["a"].values, torch.from_numpy(last).to(cuda)),
+                g=device_eval.DeviceColumn(env["g"].values, torch.ones(n, dtype=torch.bool,
+                                                                      device=cuda)))
+    for e, sql in ((half, "a IN (b, 3, NULL)"), (half, "a IN (b, 3)"), (tail, "b IN (a, g)"),
+                   (tail, "NOT (b IN (a, g))"), (env, "(a IN (1, 2)) IN (flag, (a IN (b, NULL)))"),
+                   (env, "a IN (%s)" % ", ".join(map(str, range(-100, 100)))),
+                   (env, "b IN (%s)" % ", ".join(f"{v}.5" for v in range(200)))):
+        program = device_eval.compile_expr(parse_expression(sql)).program(e)
+        _k15_matches_plain(program, e, sql)
+    big = device_eval.compile_expr(parse_expression("a IN (%s)" % ", ".join(
+        map(str, range(200))))).program(env)
+    layout, _ = device_eval._k15_blocks(big, [env["a"]], n)
+    assert layout is column_cache._K14_GLOBAL
+    # lanes at an offset: values 8 B (one row in), 4 B and 1 B off, validity 3 B off
+    m = 4099
+    base = chip_smoke.k15_columns(m + 8, 4, cuda)
+    views = {k: device_eval.DeviceColumn(c.values[1:m + 1], c.valid[3:m + 3])
+             for k, c in base.items()}
+    assert views["a"].values.data_ptr() % 16 and views["a"].valid.data_ptr() % 16
+    for sql in ("a > 2 AND (b < 20 OR flag)", "i * i", "g * g - g", "a IN (b, 3, NULL)",
+                "CASE WHEN flag THEN b ELSE g END", "hour(t)", "big + i"):
+        program = device_eval.compile_expr(parse_expression(sql)).program(views)
+        _k15_matches_plain(program, views, sql)
 
 
 @pytest.mark.parametrize("n,num_paths", [(8, 3), (4096, 1000), (1 << 20, 1 << 18)])
@@ -389,6 +451,35 @@ def test_slab_probe_and_pair_compact_kernels_match_plain(cuda, n, m, dtype):
         got = key_cache.pair_compact(tm, s_first, perm, out_cap)
         torch.cuda.synchronize()
         assert torch.equal(got, key_cache.pair_compact_plain(tm, s_first, perm, out_cap))
+
+
+@pytest.mark.parametrize("scale", [1, 64])
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_pair_compact_kernel_at_hard_shapes(cuda, case, scale):
+    """K10 (a physical bitmap, then one compaction over it in physical
+    order) against its plain version and the numpy oracle at
+    tests/torch_kernel_cases.py's shapes, up to 4,480,000 rows: with and
+    without the head's count, and as the probe downloads it
+    (``fetch_pairs``: the first mc pairs and the count, pinned)."""
+    t_np, first_np, perm_np, out_cap = compact_case(case, scale)
+    t, first, perm = (torch.from_numpy(x).to(cuda) for x in (t_np, first_np, perm_np))
+    want = torch.from_numpy(reference_compact(t_np, first_np, perm_np, out_cap)).to(cuda)
+    mc = int(t_np.sum())
+    before = native.launches["pair_compact"]
+    got = key_cache.pair_compact(t, first, perm, out_cap)
+    torch.cuda.synchronize()
+    assert native.launches["pair_compact"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(key_cache.pair_compact_plain(t, first, perm, out_cap), want)
+    if mc <= out_cap:
+        assert torch.equal(key_cache.pair_compact(t, first, perm, out_cap, mc=mc), want)
+        host = key_cache.fetch_pairs(t, first, perm, mc)
+        assert host.is_pinned() and int(host[2 * mc]) == mc
+        full = reference_compact(t_np, first_np, perm_np, max(mc, 1))
+        assert np.array_equal(host[:mc].numpy(), full[0, :mc])
+        assert np.array_equal(host[mc:2 * mc].numpy(), full[1, :mc])
+        with pytest.raises(RuntimeError, match="counted"):
+            key_cache.fetch_pairs(t, first, perm, max(mc - 1, 0) if mc else 1)
 
 
 @pytest.mark.parametrize("scale", [1, 64])

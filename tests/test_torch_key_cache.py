@@ -32,7 +32,8 @@ from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
 from delta_tpu_torch.expr.vectorized import evaluate as torch_evaluate
 from delta_tpu_torch.ops import key_cache as tkc
 from tests.torch_kernel_cases import (
-    ADVANCE_CASES, CASE_NAMES, advance_case, probe_case, reference_probe,
+    ADVANCE_CASES, CASE_NAMES, COMPACT_CASES, advance_case, compact_case, probe_case,
+    reference_compact, reference_probe,
 )
 
 SIG = "test-k"
@@ -505,12 +506,29 @@ def test_file_keys_none_where_jax_is_none_and_codec_errors_propagate(tmp_table):
         tkc._file_keys(data, badd, ["k"], [tir.Column("k")])
 
 
+def _jax_pairs_in_physical_order(t, first, perm, out_cap):
+    """The JAX package's K10 followed by its probe finalize's stable argsort
+    by physical row (``delta_tpu/ops/key_cache.py:908-912``), laid out as
+    the port's K10 returns it: (2, out_cap) int32, zeros past the count."""
+    from delta_tpu.utils.jaxcompat import enable_x64
+
+    with enable_x64():
+        pairs = np.asarray(jkc._pair_compact_kernel()(t, first, perm, out_cap))
+    k = min(int(t.sum()), out_cap)
+    order = np.argsort(pairs[0, :k].astype(np.int64), kind="stable")
+    out = np.zeros_like(pairs)
+    out[:, :k] = pairs[:, :k][:, order]
+    return out
+
+
 def test_kernels_plain_versions_agree_with_the_jax_kernels():
     """K8-K11's plain versions (the CPU path) against the JAX kernels on the
     same inputs, where the outputs are defined alike: the sort (keys and
     sorted validity; ties may order differently, the JAX sort is not
     stable), the probe's flags, count and matched rows' first source, the
-    compaction and the six updates."""
+    compaction (the JAX kernel followed by its finalize's reorder into
+    physical order, which the port's K10 does itself) and the six
+    updates."""
     from delta_tpu.utils.jaxcompat import enable_x64
 
     rng = np.random.RandomState(4)
@@ -532,7 +550,8 @@ def test_kernels_plain_versions_agree_with_the_jax_kernels():
         assert np.array_equal(head, jhead) and np.array_equal(t, jt)
         assert np.array_equal(first[t], jfirst[t])
         out_cap = 2048
-        jpairs = np.asarray(jkc._pair_compact_kernel()(jt, jfirst, jperm, out_cap))
+        assert int(jt.sum()) <= out_cap
+        jpairs = _jax_pairs_in_physical_order(jt, jfirst, jperm, out_cap)
         pairs = tkc.pair_compact_plain(torch.from_numpy(jt), torch.from_numpy(jfirst),
                                        torch.from_numpy(jperm), out_cap).numpy()
         assert np.array_equal(pairs, jpairs)
@@ -612,6 +631,75 @@ def test_slab_probe_plain_matches_jax_at_hard_shapes(name):
     assert jhead[1] == 0  # no overflow: the JAX kernel answers these shapes itself
     assert np.array_equal(jhead, want[0]) and np.array_equal(jt, want[1])
     assert np.array_equal(jfirst[jt], want[2][jt])
+
+
+# -- K10 at its hard shapes (tests/torch_kernel_cases.py) ------------------------------
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_pair_compact_plain_matches_the_jax_kernel_and_reorder(case):
+    """K10's plain version (the CPU path, and the kernel's oracle on the
+    card) against a numpy oracle of its contract and against the JAX
+    package's K10 followed by its finalize's stable argsort: no match,
+    every row, ``out_cap`` equal to the count, matches only past the first
+    emit tile and at the last live row, a band of neighbours in both
+    orders, pad rows. Where ``out_cap`` is below the count (``short``) the
+    port keeps the first pairs in PHYSICAL order and the JAX kernel the
+    first in sorted order (a deliberate difference; no caller passes such
+    an ``out_cap``)."""
+    t, first, perm, out_cap = compact_case(case)
+    want = reference_compact(t, first, perm, out_cap)
+    got = tkc.pair_compact(torch.from_numpy(t), torch.from_numpy(first), torch.from_numpy(perm),
+                           out_cap).numpy()
+    assert np.array_equal(got, want)
+    jax_order = _jax_pairs_in_physical_order(t, first, perm, out_cap)
+    if case == "short":
+        idx = np.flatnonzero(t)[:out_cap]  # the JAX kernel's drop: sorted order
+        assert np.array_equal(np.sort(jax_order[0]), np.sort(perm[idx]))
+        assert not np.array_equal(jax_order, want)
+    else:
+        assert np.array_equal(jax_order, want)
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_fetch_pairs_lays_out_the_pairs_and_the_count(case):
+    """The probe's download (CPU path): the first mc pairs in physical
+    order at ``[:mc]`` and ``[mc:2 mc]``, the kernel's count last; a count
+    that disagrees with the head's raises."""
+    t, first, perm, _ = compact_case(case)
+    mc = int(t.sum())
+    want = reference_compact(t, first, perm, max(mc, 1))
+    args = (torch.from_numpy(t), torch.from_numpy(first), torch.from_numpy(perm))
+    host = tkc.fetch_pairs(*args, mc).numpy()
+    assert host.dtype == np.int32 and host.shape == (2 * mc + 1,)
+    assert np.array_equal(host[:mc], want[0, :mc]) and np.array_equal(host[mc:2 * mc],
+                                                                       want[1, :mc])
+    assert host[2 * mc] == mc
+    with pytest.raises(RuntimeError, match="counted"):
+        tkc.fetch_pairs(*args, mc + 1)
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_physical_probe_pairs_match_jax_at_hard_shapes(name):
+    """A probe through both entries over K9's hard shapes, the slab's rows
+    in a shuffled physical order over three files: ``t_pairs`` (physical
+    rows ascending, by K10 on the port's side and by the host argsort on
+    the JAX side), ``t_bits`` and ``pairs_for_file`` agree."""
+    sk, sv, n, s = probe_case(name)
+    rng = np.random.RandomState(5)
+    phys = rng.permutation(n)
+    keys, valid = sk[:n][phys], sv[:n][phys]
+    je, te = _slab()
+    cuts = [0, n // 3, 2 * n // 3, n]
+    for e in (je, te):
+        for i in range(3):
+            e._append_file(f"f{i}", keys[cuts[i]:cuts[i + 1]], valid[cuts[i]:cuts[i + 1]])
+    src = s.astype(np.int64)
+    ok = np.ones(len(src), bool)
+    pa, pb = je.probe_async(src, ok), te.probe_async(src, ok)
+    assert (pa is None) == (pb is None)
+    if pa is not None:
+        _same(pa.result(), pb.result())
 
 
 # -- K11's slab advance -------------------------------------------------------------

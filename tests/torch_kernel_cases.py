@@ -32,6 +32,19 @@ CPU). ``name`` is one of :data:`CASE_NAMES`:
 
 :func:`reference_probe` is an independent numpy oracle of the contract.
 
+``compact_case(case, scale)`` returns the pair compaction K10's inputs
+``(t_match bool (cap,), s_first int32 (cap,), perm int32 (cap,), out_cap)``
+as the probe hands them over: ``perm`` the sort's permutation (the real rows
+``[0, n)`` shuffled, the pad rows ``[n, cap)`` in place), no match at or past
+``n``. ``case`` is one of :data:`COMPACT_CASES`: ``none`` (no match),
+``all`` (every row of a full slab), ``exact`` (``out_cap`` equal to the
+count, not a power of two), ``short`` (``out_cap`` below the count: the
+first pairs in physical order are kept), ``tile-edge`` (matches only at
+physical rows from 32,768, a boundary of the emit's 8,192-row tiles, and at
+the slab's last live row), ``band`` (a band of rows that are neighbours in both orders, all
+matched: whole bitmap words set by one warp) and ``n-below-cap`` (half the
+rows are pad). :func:`reference_compact` is a numpy oracle of the contract.
+
 ``advance_case(rng, cap, d, case, wide)`` returns one slab advance's parts
 as ``key_cache.pack_advance`` takes them (keyword arguments): distinct rows
 in a slice of ``d // 2`` rows, three runs (one of a single row) and a row
@@ -57,6 +70,7 @@ I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 TAIL_CASES = ["fresh", "wrap", "past-cap", "overlap"]
 ADVANCE_CASES = ["slice", "keyed", "mirror"]
+COMPACT_CASES = ["none", "all", "exact", "short", "tile-edge", "band", "n-below-cap"]
 CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
               "m8", "n0", "full", "sentinel-padded", "crowded"]
 
@@ -203,3 +217,45 @@ def advance_case(rng, cap: int, d: int, case: str, wide: bool = False):
     if case == "keyed":
         parts["rows_keys"] = rng.randint(-hi, hi, d)
     return parts
+
+
+def compact_case(case: str, scale: int = 1):
+    """K10's inputs at one of :data:`COMPACT_CASES` (see the module's
+    docstring), ``70,000 * scale`` rows."""
+    rng = np.random.RandomState(COMPACT_CASES.index(case) + 17)
+    cap = 70_000 * scale
+    n = cap if case == "all" else cap // 2 if case == "n-below-cap" else cap - 777
+    perm = np.arange(cap, dtype=np.int32)
+    order = rng.permutation(n).astype(np.int32)
+    if case == "band":  # rows [1000, 40000) keep their place: neighbours in both orders
+        rest = np.setdiff1d(np.arange(n), np.arange(1000, 40_000))
+        order = np.arange(n, dtype=np.int32)
+        order[rest] = rest[rng.permutation(len(rest))]
+    perm[:n] = order
+    if case == "none":
+        t = np.zeros(cap, bool)
+    elif case == "all":
+        t = np.ones(cap, bool)
+    elif case == "tile-edge":
+        t = ((perm >= 32_768) & (perm < 32_868)) | (perm == n - 1)
+    elif case == "band":
+        t = ((perm >= 1000) & (perm < 40_000)) | (rng.rand(cap) < 0.05)
+    else:
+        t = rng.rand(cap) < 0.3
+    t[n:] = False
+    s_first = rng.randint(-1, 1 << 20, cap).astype(np.int32)
+    mc = int(t.sum())
+    out_cap = mc if case == "exact" else max(mc // 3, 1) if case == "short" else \
+        max(64, 1 << max(mc - 1, 0).bit_length())
+    return t, s_first, perm, out_cap
+
+
+def reference_compact(t, s_first, perm, out_cap):
+    """K10's contract in numpy: the matched rows' (perm, s_first) in
+    ascending perm, the first ``out_cap``, zeros after; (2, out_cap) int32."""
+    idx = np.flatnonzero(t)
+    order = np.argsort(perm[idx], kind="stable")[:out_cap]
+    out = np.zeros((2, out_cap), np.int32)
+    out[0, :len(order)] = perm[idx][order]
+    out[1, :len(order)] = s_first[idx][order]
+    return out

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's block cull (K1), tail scatters (K2, and the tail
 apply with K3), replay (K5), sharded replay (K6), sharded block cull (K7),
-slab sort (K8), slab probe (K9), slab updates and advances (K11), upload
-join (K12), sharded join (K13), residual mask (K14) and link probe (K17) on
+slab sort (K8), slab probe (K9), pair compaction (K10), slab updates and
+advances (K11), upload join (K12), sharded join (K13), residual mask (K14),
+expression interpreter (K15) and link probe (K17) on
 one card, on seeded inputs, for the ``delta_tpu_torch`` package under
 ``--root`` (default: this checkout).
 
     python3 tools/kernel_ab.py [--root DIR]
-        [--only k1,k2,k3,k5,k6,k7,k8,k9,k11,k12,k13,k14,k15,k17,l2]
+        [--only k1,k2,k3,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k17,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -65,7 +66,12 @@ masks (one launch over the files where the package has
 ``column_cache.residual_masks``, else one launch a file), the per-file call,
 and the masks' download. K15 (the expression interpreter, which shares the
 residual mask's header) on ``K15_PROGRAMS`` over ``chip_smoke.k15_columns``
-at 1,005,000 rows. K5 and K6 on four action streams (``replay_streams``):
+at 1,005,000 rows, an IN whose column option is half NULL, the normal
+leg's declined program (``k15_normal_leg``) and, without timing, an IN
+whose option column is NULL in its last row only (the rows whose validity
+differs from the plain version's). K10 (``k10``) at ``k9_traffic``'s
+``config2`` and ``spread`` probes with the probe's host side
+(``k10_finalize``). K5 and K6 on four action streams (``replay_streams``):
 ``log``, bench config 6's stream as ``chip_smoke.py``'s log holds it
 (1,000,000 adds in 10 commits, then 10 tails of 500 removes and 1,000 adds:
 1,015,000 actions over 1,010,000 paths, cutoff 15); ``hot``, 2^20 actions of
@@ -208,8 +214,9 @@ def join_traffic(rng, cap_t, n, cap_s, m, traffic):
     return t_in, s_in
 
 
-def k9_traffic(torch, dev, key_cache, traffic):
-    """(sorted keys, sorted validity, n, padded int32 source) on the card.
+def k9_traffic(torch, dev, key_cache, traffic, with_perm=False):
+    """(sorted keys, sorted validity, n, padded int32 source) on the card,
+    and the sort's permutation after them with ``with_perm``.
     ``config2``: bench config 2's slab as ``chip_smoke.py``'s probe sees it
     after the advances (10,000,000 keys drawn from [0, 20,000,000), the
     appended 300,000-row file's keys from 20,000,000 and the 1,000-row
@@ -239,8 +246,72 @@ def k9_traffic(torch, dev, key_cache, traffic):
     s_in = np.full(1 << 20, np.iinfo(np.int32).max - 1, np.int32)
     s_in[:m] = s[rng.permutation(m)]
     k, v = torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev)
-    sk, _, _, sv = key_cache.slab_sort_plain(k, v, n)
-    return sk, sv, n, torch.from_numpy(s_in).to(dev)
+    sk, perm, _, sv = key_cache.slab_sort_plain(k, v, n)
+    out = (sk, sv, n, torch.from_numpy(s_in).to(dev))
+    return out + (perm,) if with_perm else out
+
+
+def k10_call(key_cache, t_match, s_first, perm, out_cap, mc):
+    """K10's launch as the probe makes it: with the head's matched count
+    where the package's ``pair_compact`` takes it (it then zeroes only the
+    slots past the count), else the four-argument call."""
+    if hasattr(key_cache, "fetch_pairs"):
+        return lambda: key_cache.pair_compact(t_match, s_first, perm, out_cap, mc=mc)
+    return lambda: key_cache.pair_compact(t_match, s_first, perm, out_cap)
+
+
+def k10_finalize(torch, key_cache, t_match, s_first, perm, out_cap, mc):
+    """The probe's pairs from K10's launch to the physical-order arrays its
+    finalize hands ``PhysicalProbe`` (``probe_async``): the host wall of
+    the launch with the download, of the int64 casts and of the order step
+    (the stable argsort where the package still sorts on the host, else
+    nothing), the median of 5, in ms."""
+    parts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if hasattr(key_cache, "fetch_pairs"):
+            host = key_cache.fetch_pairs(t_match, s_first, perm, mc).numpy()
+            t1 = time.perf_counter()
+            phys, srows = host[:mc].astype(np.int64), host[mc:2 * mc].astype(np.int64)
+            t2 = t3 = time.perf_counter()
+        else:
+            pairs = key_cache.pair_compact(t_match, s_first, perm, out_cap).cpu().numpy()
+            t1 = time.perf_counter()
+            phys, srows = pairs[0, :mc].astype(np.int64), pairs[1, :mc].astype(np.int64)
+            t2 = time.perf_counter()
+            order = np.argsort(phys, kind="stable")
+            phys, srows = phys[order], srows[order]
+            t3 = time.perf_counter()
+        parts.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+    if not (np.all(np.diff(phys) > 0) and len(phys) == mc == len(srows)):
+        raise SystemExit("kernel_ab: the probe's pairs are not in physical order")
+    med = np.median(np.asarray(parts), axis=0) * 1e3
+    return dict(zip(("launch_download_ms", "cast_ms", "order_ms", "total_ms"),
+                    (float(x) for x in med)))
+
+
+def k15_normal_leg(torch, dev, pruning, state_export):
+    """``chip_smoke.py``'s declined normal-leg program (``c0 * c1 >
+    1.0e18`` rewritten for skipping) over config 6's stats lanes at
+    1,005,000 files: (sql, program, env)."""
+    from delta_tpu_torch.expr import ir
+    from delta_tpu_torch.expr.parser import parse_expression
+    from delta_tpu_torch.schema.types import DoubleType, LongType
+
+    rng = np.random.RandomState(13)
+    n, sql = 1_005_000, "c0 * c1 > 1.0e18"
+    types = {f"c{c}": DoubleType() if c % 2 else LongType() for c in range(4)}
+    lo = {c: np.floor(rng.rand(n) * 1e6) for c in types}
+    arrays = state_export.FileStateArrays(
+        paths=[""] * n, size=np.full(n, 1 << 20, np.int64), partition_codes={},
+        partition_dicts={}, stats_min=lo, stats_max={c: v + 1000 for c, v in lo.items()},
+        modification_time=np.zeros(n, np.int64), num_records=np.full(n, 10_000, np.int64),
+        stats_null_count={c: np.zeros(n, np.int64) for c in types})
+    rw = ir.and_all([r.rewritten for r in pruning.conjunct_rewrites(
+        [parse_expression(sql)], frozenset(), types)])
+    program = pruning._compiled_skipping(rw).program_for(arrays.lane_dtypes())
+    return sql, program, arrays.device_env(dev, names=program.columns)
 
 
 def k11_rows(torch, dev, key_cache, chip_smoke, emit, cuda_ms, graph_ms, host_us,
@@ -488,7 +559,7 @@ def k17_rows(torch, dev, native, emit, cuda_ms, graph_ms, host_us, kernel_breakd
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k7,k8,k9,k11,k12,k13,k14,k15,k17,l2")
+    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k17,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -762,6 +833,33 @@ def main() -> int:
             del sk, sv, s, got, ref, real, s64
             torch.cuda.empty_cache()
 
+    if "k10" in only:
+        for traffic in ("config2", "spread"):
+            sk, sv, n, s, perm = k9_traffic(torch, dev, key_cache, traffic, with_perm=True)
+            _, t_match, s_first = key_cache.slab_probe(sk, sv, n, s)
+            del sk, sv, s
+            cap, mc = t_match.shape[0], int(t_match.sum())
+            out_cap = state_cache._next_pow2(mc, floor=64)
+            fn = k10_call(key_cache, t_match, s_first, perm, out_cap, mc)
+            got = fn()
+            if not torch.equal(got, key_cache.pair_compact_plain(t_match, s_first, perm,
+                                                                 out_cap)):
+                raise SystemExit(f"kernel_ab: pair_compact != its plain version ({traffic})")
+
+            def library():
+                idx = torch.nonzero(t_match).reshape(-1)
+                return torch.index_select(perm, 0, idx), torch.index_select(s_first, 0, idx)
+
+            b, _ = chip_smoke.bound(cap + 8 * mc + 8 * out_cap)
+            emit("pair_compact", traffic=traffic, shape=f"cap={cap} n={n}, {mc} matched, "
+                 f"out_cap={out_cap}", bound_ms=b, launches=launched(fn),
+                 ms=[cuda_ms(fn, 20) for _ in range(3)], host_us=host_us(fn, 20),
+                 graph_ms=graph_ms(fn, 10), breakdown_us=kernel_breakdown(fn),
+                 library_ms=cuda_ms(library, 20),
+                 finalize=k10_finalize(torch, key_cache, t_match, s_first, perm, out_cap, mc))
+            del t_match, s_first, perm, got
+            torch.cuda.empty_cache()
+
     if "k8" in only:
         n, cap = 10_301_000, 10_485_760
         keys = np.full(cap, 0, np.int64)
@@ -869,13 +967,53 @@ def main() -> int:
     if "k15" in only:
         from delta_tpu_torch.expr import device_eval
         from delta_tpu_torch.expr.parser import parse_expression
+        from delta_tpu_torch.ops import pruning
 
+        # the redesign runs K15 on K14's body with its tables in the launch's
+        # parameters or staged; before it, every call uploaded its program
+        # from pageable memory, which a CUDA graph cannot capture
+        k15_capturable = hasattr(device_eval, "_k15_blocks")
         env = chip_smoke.k15_columns(1_005_000, 3, dev)
-        for sql in K15_PROGRAMS:
-            program = device_eval.compile_expr(parse_expression(sql)).program(env)
-            fn = lambda: device_eval.expr_eval(program, env)
-            emit("expr_eval", shape=f"n=1005000 {len(program.instrs)} instructions ({sql})",
-                 ms=cuda_ms(fn, 50), breakdown_us=kernel_breakdown(fn))
+        # the NULL-heavy FLAGALL: an IN whose column option is half NULL
+        half = dict(env, b=device_eval.DeviceColumn(env["b"].values, torch.from_numpy(
+            np.random.RandomState(7).rand(1_005_000) > 0.5).to(dev)))
+        runs = [(sql, device_eval.compile_expr(parse_expression(sql)).program(env), env, "")
+                for sql in K15_PROGRAMS]
+        sql = "a IN (b, 3, NULL)"
+        runs.append((sql, device_eval.compile_expr(parse_expression(sql)).program(half), half,
+                     ", b 50% NULL"))
+        sql, program, leg = k15_normal_leg(torch, dev, pruning, state_export)
+        runs.append((sql, program, leg, ", the normal leg's declined program"))
+        for sql, program, e, note in runs:
+            fn = lambda: device_eval.expr_eval(program, e)
+            got, ref = fn(), device_eval.expr_eval_plain(program, e)
+            same = (chip_smoke.ulp_diff(got.values, ref.values)[1] <= 1  # exp: 1 ulp
+                    if got.values.is_floating_point() else torch.equal(got.values, ref.values))
+            if not (same and torch.equal(got.valid, ref.valid)):
+                raise SystemExit(f"kernel_ab: expr_eval != its plain version ({sql})")
+            n = got.values.numel()
+            lanes = [e[c] for c in program.columns]
+            b, _ = chip_smoke.bound(sum(c.values.element_size() + 1 for c in lanes) * n
+                                    + (got.values.element_size() + 1) * n)
+            row = dict(shape=f"n={n} {len(program.instrs)} instructions over {len(lanes)} "
+                             f"lanes ({sql}{note})", bound_ms=b, launches=launched(fn),
+                       ms=[cuda_ms(fn, 50) for _ in range(3)], host_us=host_us(fn),
+                       breakdown_us=kernel_breakdown(fn))
+            row["graph_ms"] = graph_ms(fn, 20) if k15_capturable else None
+            emit("expr_eval", **row)
+        # an IN whose option column is NULL in the last row only: every row
+        # where the value is in no option is NULL; the rows whose validity
+        # differs from the plain version's, three calls
+        last = np.ones(1_005_000, bool)
+        last[-1] = False
+        tail = dict(env, a=device_eval.DeviceColumn(env["a"].values, torch.from_numpy(last).to(dev)),
+                    g=device_eval.DeviceColumn(env["g"].values, torch.ones_like(env["g"].valid)))
+        sql = "b IN (a, g)"
+        program = device_eval.compile_expr(parse_expression(sql)).program(tail)
+        ref = device_eval.expr_eval_plain(program, tail)
+        emit("expr_eval", shape=f"n=1005000 ({sql}, a NULL in the last row only)",
+             valid_rows_differing=[int((device_eval.expr_eval(program, tail).valid != ref.valid)
+                                       .sum()) for _ in range(3)])
 
     if "l2" in only:
         table = torch.randint(0, 1 << 62, (1 << 21,), dtype=torch.int64, device=dev)
