@@ -44,10 +44,17 @@ Phases, each reported on its own line:
    absent and NULL literals, dates and timestamps before 1970 and +-10^6
    days away, the calendar opcodes, INs whose option is a column; and its
    batched launch over 76 files of 0 to 2^20 rows, each with its own
-   dictionary, in two parameter blocks; the Morton interleave (K16) at 2^22 rows for k = 1..6 (ties,
-   ranks 0 and 65,535); the link probe's warm-up (K17) at 8 and 2^20
+   dictionary, in two parameter blocks; the Morton interleave (K16) at
+   2^22 rows for k = 1..6 (ties, ranks 0 and 65,535), and the Z-order
+   sorts: the key's unsigned order and an integer column's rank (int64 and
+   int32) on k = 6's key and on ``tests/torch_kernel_cases.py``'s sort
+   cases (all equal, sorted, reversed, n = 1, 2 and 2^22 + 5), also against
+   numpy's stable argsort; the link probe's warm-up (K17) at 8 and 2^20
    int32; and the state mesh's kernels over 8 shards of the one card: the
-   combine kernel (sum, OR, OR + pack), the sharded replay (K6) at n=2^20
+   combine kernel (sum, OR, OR + pack, at eight cards' shapes and small
+   ones, and the mesh path's four sets with the eight-card shapes in one
+   launch, every other set a slice off a 16-byte boundary), the sharded
+   replay (K6) at n=2^20
    (zipf-skewed paths, one empty shard) also against K5, the sharded block
    cull (K7) on K1's lanes over 2, 4 and 8 shards also against K1
    unpacked, and the sharded join probe (K13), int32 and int64, at
@@ -121,7 +128,10 @@ Phases, each reported on its own line:
    ["ss_item_sk", "ss_sold_date_sk"], target_rows=500_000)`` (timed), the
    query again: the same rows before and after, equal to numpy, fewer files
    scanned after, each new file's rows in the order of a numpy Morton
-   reference, and both device caches' epochs moved;
+   reference, both device caches' epochs moved, and the Z-order on the card
+   (two ranks, one interleave, one key sort: no host argsort); OPTIMIZE's
+   wall split (read, ranks, interleave, sort, download, take, write) is
+   printed;
 10. the link-priced ``auto`` router, with the counters set to 0 again: the
    link profile probed once (K17 first), then three ``auto`` legs. Config
    6: the 256-query plan under ``devicePlan.mode=auto`` on phase 4's
@@ -160,7 +170,10 @@ Phases, each reported on its own line:
    padded inputs, K14 over the arith query's 8 config-12 files in its one
    launch and on one file (its phase-3 checks also run the staged tables
    of two 200-option IN lists), K16 at
-   config 3's OPTIMIZE ranks, K17 at the probe's 8 int32, each held
+   config 3's OPTIMIZE ranks (with ``graph_ms``, ``breakdown_us`` and
+   ``morton_order``'s wall split by step), the rank of its ``ss_item_sk``
+   and the key's sort (beside ``torch.sort(stable=True)``), K17 at the
+   probe's 8 int32, each held
    against its plain version there), the plain version's
    time, the least time the card could take (the bytes its inputs and
    outputs need over 3.35 TB/s: no kernel here does enough operations a
@@ -174,12 +187,15 @@ Phases, each reported on its own line:
    under ``distributed.plan.mode=force`` (``resident_shards == 8``, every
    result ``device-sharded``, equal to one card's plans and the host's);
    ``replay_sharded`` of the log's action stream, equal to K5's masks and sums
-   (K6 one launch a replay: 4 on the phase's path; K7 one launch a plan); M4, a fifth bench
+   (K6 one launch a replay: 4 on the phase's path, each writing its
+   shards' sums into one row; K7 one launch a plan); M4, a fifth bench
    config 2 upsert of 1M new rows through the upload join on a hard-linked
    copy of phase 10's table (deletion vectors off over its
    deletion-vectored files, as M3), which must launch K13 once (one
-   distinct device) and no K12 and end in the reference upsert's state;
-   ``multichip.dryrun_multichip(8)``; then the two shard constants measured
+   distinct device, its source hits packed in its launch) and no K12 and
+   end in the reference upsert's state; ``multichip.dryrun_multichip(8)``;
+   the combine launched exactly ``MESH_COMBINES`` times (one:
+   ``multichip``'s count); then the two shard constants measured
    on the one card (one JSON line) and the plan under ``auto`` priced with
    them, its route the one its prices imply. Where there are several cards,
    the plan, the replay and the dryrun run again over all of them. K6, K7,
@@ -458,6 +474,7 @@ def k17_checks(dev):
 # -- phase 3, the mesh: K6, K7, K13 and the combine kernel ---------------------------
 
 MESH_SHARDS = 8
+MESH_COMBINES = 1  # combine launches on phase 12's path (9 before K6 and K13 folded)
 K13_CAP_T = 16_777_216  # _bucket(ceil(12.5M / 8)) * 8: phase 12's upload join
 
 
@@ -602,18 +619,51 @@ def k13_checks(dev):
         "and K12")
 
 
+#: the combine's shapes: the mesh path's with every shard on one card (K6's
+#: sums per call and multichip's count before and after K6's fold) and
+#: eight cards' (K13's packed source hits of cap_s = 2^20 rows, the sums of
+#: 2^20 columns, a ragged width)
+COMBINE_SHAPES = ((8, 4), (8, 1), (1, 1), (1, 5), (3, 64), (33, 17),
+                  (MESH_SHARDS, 1 << 17), (MESH_SHARDS, 1 << 20), (MESH_SHARDS, (1 << 20) + 3))
+#: sets of one launch: K13's across eight cards (its packed hits, its multi
+#: bytes), and both ops at a ragged width whose rows start off a 16-byte
+#: boundary
+COMBINE_BATCHES = (((("or", MESH_SHARDS, 1 << 17), 0), (("or", MESH_SHARDS, 1), 0)),
+                   ((("sum", 3, (1 << 17) + 5), 3), (("or", 3, (1 << 17) + 5), 3)),
+                   ((("sum", 33, 9), 1), (("or", 33, 9), 1)))
+
+
 def combine_checks(dev):
-    rng = np.random.RandomState(41)
-    for n, k in ((8, (1 << 20) + 3), (1, 5), (3, 64)):
-        rows = torch.from_numpy(rng.randint(-2**62, 2**62, (n, k)).astype(np.int64)).to(dev)
-        flags = torch.from_numpy(((rng.rand(n, k) < 0.05)
-                                  * rng.randint(1, 255, (n, k))).astype(np.uint8)).to(dev)
-        for op, x in (("sum", rows), ("or", flags), ("or_pack", flags)):
+    """Each op alone at every shape of COMBINE_SHAPES, then each batch of
+    COMBINE_BATCHES in one launch, against the plain version."""
+    cases = kernel_cases()
+    for i, (n, k) in enumerate(COMBINE_SHAPES):
+        for op in mesh.COMBINE_OPS:
+            x = torch.from_numpy(cases.combine_rows(cases.combine_case(op, n, k, 0, seed=i),
+                                                    n, k)).to(dev)
             got = mesh.shard_combine(x, op)
             torch.cuda.synchronize()
             check(torch.equal(got, mesh.shard_combine_plain(x, op)),
                   f"shard_combine {op} != plain at ({n}, {k})")
-    say("kernels: shard_combine sum / or / or_pack at (8, 2^20 + 3), (1, 5), (3, 64) exact")
+    for i, batch in enumerate(COMBINE_BATCHES):
+        sets = []
+        for (op, n, k), offset in batch:
+            buf = torch.from_numpy(cases.combine_case(op, n, k, offset, seed=40 + i)).to(dev)
+            sets.append((cases.combine_rows(buf, n, k, offset), op))
+        before = native.launches["shard_combine"]
+        got = mesh.shard_combine_many(sets)
+        torch.cuda.synchronize()
+        check(native.launches["shard_combine"] - before == 1,
+              f"shard_combine_many of {len(sets)} sets: "
+              f"{native.launches['shard_combine'] - before} launches, not 1")
+        for g, (x, op) in zip(got, sets):
+            check(torch.equal(g, mesh.shard_combine_plain(x, op)),
+                  f"shard_combine_many: {op} of {tuple(x.shape)} != plain")
+    shapes = ", ".join(f"({n}, {k})" for n, k in COMBINE_SHAPES)
+    batches = "; ".join(" + ".join(f"{op} ({n}, {k}) at offset {o}" for (op, n, k), o in b)
+                        for b in COMBINE_BATCHES)
+    say(f"kernels: shard_combine sum and or each at {shapes} exact; in one launch each: "
+        f"{batches} exact")
 
 
 def mesh_checks(dev):
@@ -1149,13 +1199,39 @@ def k16_ranks(k, n, seed, dev):
 
 
 def k16_checks(dev):
+    """K16 at k = 1..6; the key's sort and an integer column's rank on the
+    Z-order sort cases, against their plain versions and numpy."""
     n = 1 << 22
     for k in range(1, 7):
         ranks = k16_ranks(k, n, 16, dev)
         got = zorder.interleave(ranks)
         torch.cuda.synchronize()
         check(torch.equal(got, zorder.interleave_plain(ranks)), f"morton != plain at k={k}")
-    say(f"kernels: morton n=2^22 k=1..6 exact (ties, ranks 0 and 65535)")
+        key = got
+    # the k=6 key (bit 63 set in many) sorted; its low bits ranked as a column
+    check(torch.equal(zorder.key_order(key), zorder.key_order_plain(key)),
+          "morton_sort != plain at k=6")
+    col = key >> 40
+    check(torch.equal(zorder.rank_column(col), zorder.rank_column_plain(col)),
+          "morton_rank != plain at k=6's key")
+    cases = kernel_cases()
+    for case in cases.ZSORT_CASES:
+        vals = cases.zsort_case(case)
+        t = torch.from_numpy(vals).to(dev)
+        perm, ranks = zorder.key_order(t), zorder.rank_column(t)
+        torch.cuda.synchronize()
+        check(np.array_equal(perm.cpu().numpy(), cases.reference_key_order(vals))
+              and torch.equal(perm, zorder.key_order_plain(t)),
+              f"morton_sort != numpy's stable argsort on {case}")
+        check(np.array_equal(ranks.cpu().numpy(), cases.reference_rank(vals))
+              and torch.equal(ranks, zorder.rank_column_plain(t)),
+              f"morton_rank != rank_u16 on {case}")
+        small = torch.clamp(t, -(1 << 31), (1 << 31) - 1).to(torch.int32)
+        check(torch.equal(zorder.rank_column(small), zorder.rank_column_plain(small)),
+              f"morton_rank of int32 != plain on {case}")
+    say(f"kernels: morton n=2^22 k=1..6 exact (ties, ranks 0 and 65535); morton_sort and "
+        f"morton_rank (int64 and int32) on k=6's key and on {', '.join(cases.ZSORT_CASES)} "
+        "exact against their plain versions and numpy's stable argsort")
 
 
 # -- phase 4: the slice at full size -------------------------------------------
@@ -2154,7 +2230,10 @@ def run_zorder(dev, workdir):
     check(key_cache.KeyCache.instance().epoch(log.log_path) > epochs[0]
           and column_cache.ColumnCache.instance().epoch(log.log_path) > epochs[1],
           "OPTIMIZE did not bump both device caches' epochs")
-    check(launches["morton"] > 0, "morton was not launched on the Z-order path")
+    # config 3's two int64 columns: two ranks, one interleave, one sort
+    for name, want in (("morton", 1), ("morton_rank", 2), ("morton_sort", 1)):
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times on the Z-order path, not {want}")
     check(launches["residual_mask"] > 0, "residual_mask was not launched by the point query")
     # the new files' rows, in order, against the numpy Morton reference
     src = {c: np.concatenate([v[i * step:(i + 1) * step] for i in order_in])
@@ -2177,29 +2256,105 @@ def run_zorder(dev, workdir):
         f"({cmd.metrics['numRemovedFiles']} files -> {cmd.metrics['numAddedFiles']}); every "
         f"new file's rows in the numpy Morton order; both caches' epochs moved; launches "
         f"{launches}")
+    split = {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+    say("zorder: OPTIMIZE split, wall ms: " + json.dumps(split) + " (the zorder step's own "
+        "split, by morton_order's steps, is measure_morton's line)")
     ranks = np.stack([zorder.rank_u16(src["ss_item_sk"]),
                       zorder.rank_u16(src["ss_sold_date_sk"])]).astype(np.int32)
     return {"launches": launches, "ranks": torch.from_numpy(ranks).to(dev),
+            "cols": [src["ss_item_sk"], src["ss_sold_date_sk"]], "perm": perm,
             "pre_ms": pre_s * 1e3, "post_ms": post_s * 1e3, "optimize_s": opt_s,
-            "files": (pre_files, post_files)}
+            "phase_ms": split, "files": (pre_files, post_files)}
+
+
+def morton_steps(cols, dev):
+    """``zorder.morton_order``'s steps on ``cols``, the device synchronised
+    after each: (the permutation, wall ms of ``ranks``, ``interleave``,
+    ``sort``, ``download`` and ``total``). The steps are morton_order's own
+    calls; the timing lives here, so the command carries none."""
+    out = {}
+    torch.cuda.synchronize()
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        out[name] = (clock[-1] - clock[-2]) * 1e3
+
+    ranks = torch.empty((len(cols), len(cols[0])), dtype=torch.int32, device=dev)
+    for c, values in enumerate(cols):
+        up = zorder._device_rankable(values)
+        if up is not None:
+            zorder.rank_column(torch.from_numpy(np.ascontiguousarray(values, up)).to(dev),
+                               out=ranks[c])
+        else:
+            ranks[c].copy_(torch.from_numpy(zorder.rank_u16(values).astype(np.int32)))
+    lap("ranks")
+    key = zorder.interleave(ranks)
+    lap("interleave")
+    perm = zorder.key_order(key)
+    lap("sort")
+    perm = perm.cpu().numpy().astype(np.int64)
+    lap("download")
+    out["total"] = (clock[-1] - clock[0]) * 1e3
+    return perm, out
 
 
 def measure_morton(dev, zctx):
-    """K16 at config 3's OPTIMIZE input (k=2, n=4M), held against its plain
-    version and timed."""
+    """K16 at config 3's OPTIMIZE input (k=2, n=4M), the rank of its
+    ss_item_sk column and the key's sort, each held against its plain
+    version and timed; ``morton_order``'s wall on the two columns split by
+    step (the median of 3)."""
     ranks = zctx["ranks"]
     k, n = ranks.shape
     got, ref = zorder.interleave(ranks), zorder.interleave_plain(ranks)
     torch.cuda.synchronize()
     check(torch.equal(got, ref), "morton != plain at config 3's ranks")
+    key, flipped = got, got ^ torch.iinfo(torch.int64).min
+    check(np.array_equal(zorder.morton_order(zctx["cols"], device=dev), zctx["perm"]),
+          "morton_order != the numpy Morton order")
+    splits = []
+    for _ in range(3):
+        perm, t = morton_steps(zctx["cols"], dev)
+        check(np.array_equal(perm, zctx["perm"]), "morton_order's steps != the numpy Morton order")
+        splits.append(t)
+    split = sorted(splits, key=lambda t: t["total"])[1]
+    say("zorder: morton_order on config 3's two columns, wall ms by step (median of 3): "
+        + json.dumps({k2: round(v, 3) for k2, v in split.items()}))
+    fn = lambda: zorder.interleave(ranks)
     b, by = bound(4 * k * n + 8 * n)
-    return [{"name": "morton", "route": "cuda", "source": "delta_tpu_torch/csrc/morton.cu",
+    rows = [{"name": "morton", "route": "cuda", "source": "delta_tpu_torch/csrc/morton.cu",
              "replaces": "delta_tpu/ops/zorder.py:34", "launches": zctx["launches"]["morton"],
              "max_abs_err": max_abs_err(got, ref),
-             "ms": cuda_ms(lambda: zorder.interleave(ranks), 50),
+             "ms": cuda_ms(fn, 50),
              "plain_ms": cuda_ms(lambda: zorder.interleave_plain(ranks), 5),
              "bound_ms": b, "bound_by": by, "library_ms": None,
+             "graph_ms": graph_ms(fn, 20), "breakdown_us": kernel_breakdown(fn),
+             "morton_order_split_ms": split,
              "shape": f"k={k} n={n} (config 3's OPTIMIZE)"}]
+    # the rank of config 3's ss_item_sk (int64) and the key's sort: each
+    # reads the sort's diff back to the host, so no CUDA graph holds them
+    col = torch.from_numpy(np.ascontiguousarray(zctx["cols"][0])).to(dev)
+    for name, kfn, plain, lib, nbytes, replaces, shape in (
+            ("morton_rank", lambda: zorder.rank_column(col),
+             lambda: zorder.rank_column_plain(col), lambda: torch.sort(col, stable=True),
+             12 * n, "delta_tpu/ops/zorder.py:27 (rank_u16's argsort)",
+             f"n={n} int64 (config 3's ss_item_sk)"),
+            ("morton_sort", lambda: zorder.key_order(key), lambda: zorder.key_order_plain(key),
+             lambda: torch.sort(flipped, stable=True), 12 * n,
+             "delta_tpu/ops/zorder.py:62 (the key's argsort)",
+             f"n={n} (config 3's k=2 key)")):
+        g, r = kfn(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(g, r), f"{name} != plain at config 3's shapes")
+        b, by = bound(nbytes)
+        rows.append({"name": name, "route": "cuda", "source": "delta_tpu_torch/csrc/morton.cu",
+                     "replaces": replaces, "launches": zctx["launches"][name],
+                     "max_abs_err": max_abs_err(g, r), "ms": cuda_ms(kfn, 20),
+                     "plain_ms": cuda_ms(plain, 5), "bound_ms": b, "bound_by": by,
+                     "library_ms": cuda_ms(lib, 20), "breakdown_us": kernel_breakdown(kfn, 10),
+                     "shape": shape})
+    return rows
 
 
 # -- phase 10: the link-priced auto router ----------------------------------------
@@ -3180,6 +3335,11 @@ def run_mesh(dev, c6, c2a, workdir):
         # K6 launches once a replay on one card: this phase's and the dryrun's three
         check(launches["sharded_replay"] == 4,
               f"sharded_replay launched {launches['sharded_replay']} times for 4 replays")
+        # every shard on one card: K6 and K13 reduce in their own launches;
+        # the one combine is multichip's count of K15's kept rows
+        check(launches["shard_combine"] == MESH_COMBINES,
+              f"shard_combine launched {launches['shard_combine']} times on the mesh's path, "
+              f"not {MESH_COMBINES}")
 
         # auto, priced with this run's shard constants
         lo = torch.from_numpy(state_cache._f32_down(np.stack([r.lo for r in ranges])))
@@ -3303,21 +3463,41 @@ def measure_mesh(dev, xctx):
                  "card (M4): one launch"}, **probe_sectors(dev, cap_t, cap_s)))
     del t_full, s_full, sorted_s
 
-    # the combine at K13's source-hit shape: (8, cap_s) bytes ORed and packed
-    rows = (torch.rand((MESH_SHARDS, cap_s), device=dev) < 0.05).to(torch.uint8)
-    got, ref = mesh.shard_combine(rows, "or_pack"), mesh.shard_combine_plain(rows, "or_pack")
+    # the combine at K13's reduction over eight cards: each card's packed
+    # source hits (cap_s / 8 bytes) and multi byte, ORed in one launch; no
+    # one PyTorch call ORs bytes across rows, so library_ms is null
+    hits = (torch.rand((MESH_SHARDS, cap_s), device=dev) < 0.05).to(torch.uint8)
+    packed = state_cache._packbits(hits)
+    multi = (torch.arange(MESH_SHARDS, device=dev) == 5).to(torch.uint8).reshape(-1, 1)
+    pair = [(packed, "or"), (multi, "or")]
+    fn = lambda: mesh.shard_combine_many(pair)
+    got = fn()
+    ref = [mesh.shard_combine_plain(x, op) for x, op in pair]
     torch.cuda.synchronize()
-    check(torch.equal(got, ref), "shard_combine != plain at K13's shape")
-    b, by = bound(MESH_SHARDS * cap_s + cap_s // 8)
+    check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+          "shard_combine_many != plain at K13's shape")
+    check(torch.equal(got[0], state_cache._packbits(hits.any(dim=0))),
+          "the OR of K13's packed hits != the packing of their OR")
+    b, by = bound(packed.numel() + cap_s // 8 + MESH_SHARDS + 1)
+    # the one launch on the smoke's path: multichip's (8, 1) step count
+    count = torch.arange(MESH_SHARDS, dtype=torch.int64, device=dev).reshape(-1, 1)
+    one = lambda: mesh.shard_combine(count, "sum")
+    bp, _ = bound(8 * MESH_SHARDS + 8)
     out.append({
         "name": "shard_combine", "route": "cuda", "source": "delta_tpu_torch/csrc/shard_combine.cu",
         "replaces": "delta_tpu/ops/join_kernel.py:150 (psum)",
-        "launches": launches["shard_combine"], "max_abs_err": max_abs_err(got, ref),
-        "ms": cuda_ms(lambda: mesh.shard_combine(rows, "or_pack"), 100),
-        "plain_ms": cuda_ms(lambda: mesh.shard_combine_plain(rows, "or_pack"), 20),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.any(rows, dim=0), 100),
-        "shape": f"or_pack of ({MESH_SHARDS}, {cap_s}) u8 (K13's source hits)"})
+        "launches": launches["shard_combine"],
+        "max_abs_err": max(max_abs_err(g, r) for g, r in zip(got, ref)),
+        "ms": cuda_ms(fn, 100),
+        "plain_ms": cuda_ms(lambda: [mesh.shard_combine_plain(x, op) for x, op in pair], 20),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "graph_ms": graph_ms(fn, 50), "breakdown_us": kernel_breakdown(fn),
+        "shape": f"or of ({MESH_SHARDS}, {cap_s // 8}) u8 + or of ({MESH_SHARDS}, 1) u8 in one "
+                 "launch (K13's packed source hits and multi bytes over eight cards)",
+        "path_launch": {"shape": f"sum of ({MESH_SHARDS}, 1) int64 (multichip's count)",
+                        "ms": cuda_ms(one, 100), "graph_ms": graph_ms(one, 50),
+                        "bound_ms": bp, "library_ms": cuda_ms(lambda: count.sum(dim=0), 100),
+                        "breakdown_us": kernel_breakdown(one)}})
     return out
 
 

@@ -4,7 +4,8 @@
 * compaction: bin-pack each partition's small files (below
   ``min_file_size``) into files of at most ``target_rows`` rows;
 * Z-ORDER BY (cols): re-sort the selected files by the Morton key
-  (``ops/zorder``, whose interleave is K16 on the card) and re-split,
+  (``ops/zorder``: on the card the integer columns' ranks, the interleave
+  K16 and the key's sort; only the permutation comes back) and re-split,
   giving compact per-file min/max boxes for data skipping;
 * purge (REORG TABLE ... APPLY (PURGE)): rewrite exactly the files that
   carry deletion vectors, materializing the deletes.
@@ -25,6 +26,7 @@ and writer do not cover.
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -78,6 +80,10 @@ class OptimizeCommand:
         # any data is read or written
         self.max_rewrite_bytes = max_rewrite_bytes
         self.metrics: Dict[str, int] = {}
+        # wall ms of the rewrite's steps, summed over the groups: read, the
+        # Z-order (its permutation comes back to the host, so the lap holds
+        # its device work), the table's take and write
+        self.phase_ms: Dict[str, float] = {}
 
     def run(self) -> int:
         return self.delta_log.with_new_transaction(self._body)
@@ -109,13 +115,23 @@ class OptimizeCommand:
     def _rewrite_group(self, group: List[AddFile], metadata):
         """Read, (for Z-order) re-sort, and rewrite one group; returns
         ``(new_adds, removes)``."""
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            clock.append(time.perf_counter())
+            self.phase_ms[name] = self.phase_ms.get(name, 0.0) + (clock[-1] - clock[-2]) * 1e3
+
         table = read_files_as_table(self.delta_log.data_path, group, metadata)
+        lap("read")
         if self.z_order_by:
             perm = morton_order([np_col(table, c) for c in self.z_order_by],
                                 device=self.delta_log.device)
+            lap("zorder")
             table = table.take(perm)
+            lap("take")
         new_adds = write_exec.write_files(self.delta_log.data_path, table, metadata,
                                           data_change=False, target_file_rows=self.target_rows)
+        lap("write")
         return new_adds, [f.remove(data_change=False) for f in group]
 
     def _body(self, txn) -> int:

@@ -18,12 +18,15 @@
 // and the source's keys in its slab, and `psum`s reduce the source hits and
 // the multi flags. Here one call a distinct device runs the passes below over
 // ALL of that device's slabs against the gathered source: its outputs are
-// the slabs' packed t bits (in the order given), ONE BYTE PER SOURCE ROW (1
-// where a key of one of the slabs equals it) and one multi byte. The combine
-// kernel (shard_combine.cu) ORs the source bytes of the distinct devices and
-// packs them, and ORs their multi bytes: the TPU kernel's psum. Every device
-// sees the whole source, so a key repeated across two source pieces still
-// counts as a multi-match on the slab that holds it, as in the TPU kernel.
+// the slabs' packed t bits (in the order given), the source hits packed
+// big-endian as K12's (a bit set where a key of one of the slabs equals the
+// row's) and one multi byte. Where one device holds every shard, that launch
+// is the whole reduction. Across devices, one launch of the combine kernel
+// (shard_combine.cu) ORs the devices' packed hit bytes (the OR of packed
+// bytes is the packing of the OR) and their multi bytes: the TPU kernel's
+// psum. Every device sees the whole source, so a key repeated across two
+// source pieces still counts as a multi-match on the slab that holds it, as
+// in the TPU kernel.
 //
 // Design: the TPU kernel sorts because dense compares suit it. Here the large
 // side is the target (12.6M keys at bench config 2, 16.7M over the mesh,
@@ -39,7 +42,7 @@
 //      one 32-byte L2 sector; a match sets the slot's hit flag (read first,
 //      so a hot key is written once) and ORs count > 1 into multi;
 //   3. source (one thread 8 rows): each row finds its own key's slot and
-//      writes its hit flag, packed (K12) or as a byte a row (K13).
+//      writes its hit flag, packed big-endian.
 // A slot is the key (4 or 8 bytes, stored XOR the sign bit, so a zeroed slot
 // is empty) and a word of count (31 bits) and hit flag (bit 31), padded to 8
 // or 16 bytes: one vector load. The key that would store as 0 (INT32_MIN or
@@ -202,9 +205,9 @@ target_kernel(const __grid_constant__ Slabs sl, char* tab, uint64_t mask, int sh
   if (__any_sync(0xffffffffu, local_multi) && (threadIdx.x & 31) == 0) atomicOr(multi, 1u);
 }
 
-// One thread 8 source rows: their hit flags, packed into a byte (K12) or a
-// byte a row (K13); block 0 also writes the multi byte.
-template <typename K, bool kPack>
+// One thread 8 source rows: their hit flags, packed into a byte; block 0
+// also writes the multi byte.
+template <typename K>
 __global__ void __launch_bounds__(kThreads)
 source_kernel(const K* __restrict__ s, long long m_bytes, const char* tab, uint64_t mask,
               int shift, const unsigned* marker, uint8_t* __restrict__ out,
@@ -216,7 +219,6 @@ source_kernel(const K* __restrict__ s, long long m_bytes, const char* tab, uint6
     K k[8];
     load8<K>(s, j, k);
     unsigned byte = 0;
-    uint8_t hit[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const typename T::Word u = T::enc(k[e]);
@@ -232,17 +234,9 @@ source_kernel(const K* __restrict__ s, long long m_bytes, const char* tab, uint6
           T::load(tab, h, key, cnt);
         }
       }
-      hit[e] = (cnt & kHit) ? 1 : 0;
-      byte |= (unsigned)hit[e] << (7 - e);
+      byte |= ((cnt & kHit) ? 1u : 0u) << (7 - e);
     }
-    if (kPack) {
-      out[j] = (uint8_t)byte;
-    } else {
-      uint2 w;
-      w.x = hit[0] | hit[1] << 8 | hit[2] << 16 | (unsigned)hit[3] << 24;
-      w.y = hit[4] | hit[5] << 8 | hit[6] << 16 | (unsigned)hit[7] << 24;
-      *(uint2*)(out + 8 * j) = w;
-    }
+    out[j] = (uint8_t)byte;
   }
 }
 
@@ -259,10 +253,10 @@ int slots_log2(long long cap_s) {
 }
 
 // scratch: the table (zeroed here), then the marker word and the multi word
-// (256-byte aligned parts). out_s is s_bits (K12, pack) or s_hit (K13).
+// (256-byte aligned parts). s_bits (cap_s / 8,) the packed source hits.
 template <typename K>
-int run(const Slabs& all, const K* s, long long cap_s, uint8_t* t_bits, uint8_t* out_s,
-        bool pack, uint8_t* multi_out, void* scratch, long long scratch_bytes, cudaStream_t st) {
+int run(const Slabs& all, const K* s, long long cap_s, uint8_t* t_bits, uint8_t* s_bits,
+        uint8_t* multi_out, void* scratch, long long scratch_bytes, cudaStream_t st) {
   const int lg = slots_log2(cap_s);
   const long long table_bytes = (((long long)Table<K>::kSlot << lg) + 255) / 256 * 256;
   if (scratch_bytes < table_bytes + 256) return (int)cudaErrorInvalidValue;
@@ -279,12 +273,8 @@ int run(const Slabs& all, const K* s, long long cap_s, uint8_t* t_bits, uint8_t*
   if (most > 0)
     target_kernel<K><<<dim3(grid_for(most), all.n), kThreads, 0, st>>>(all, tab, mask, shift,
                                                                        marker, t_bits, multi);
-  if (pack)
-    source_kernel<K, true><<<grid_for(cap_s / 8), kThreads, 0, st>>>(
-        s, cap_s / 8, tab, mask, shift, marker, out_s, multi, multi_out);
-  else
-    source_kernel<K, false><<<grid_for(cap_s / 8), kThreads, 0, st>>>(
-        s, cap_s / 8, tab, mask, shift, marker, out_s, multi, multi_out);
+  source_kernel<K><<<grid_for(cap_s / 8), kThreads, 0, st>>>(s, cap_s / 8, tab, mask, shift,
+                                                              marker, s_bits, multi, multi_out);
   return (int)cudaGetLastError();
 }
 
@@ -309,24 +299,24 @@ extern "C" int dtt_join_probe(const void* t, long long cap_t, const void* s, lon
   sl.t[0] = t;
   sl.n_bytes[0] = cap_t / 8;
   if (is32)
-    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_bits, true, multi, scratch,
+    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_bits, multi, scratch,
                         scratch_bytes, st);
-  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_bits, true, multi, scratch,
+  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_bits, multi, scratch,
                       scratch_bytes, st);
 }
 
 // K13 on one device: n_slabs (<= 64) target slabs (slabs[i] of slab_keys[i]
-// keys, each a multiple of 8, 16-byte aligned) against s (cap_s,) the whole gathered source, keys as
-// dtt_join_probe's. Outputs t_bits (sum of slab_keys / 8,) u8, the slabs'
-// bits one after another; s_hit (cap_s,) u8 (0/1 a source row); multi (1,)
-// u8; the same scratch.
+// keys, each a multiple of 8, 16-byte aligned) against s (cap_s,) the whole
+// gathered source, keys as dtt_join_probe's. Outputs t_bits (sum of
+// slab_keys / 8,) u8, the slabs' bits one after another; s_bits (cap_s / 8,)
+// u8, the packed source hits of these slabs; multi (1,) u8; the same scratch.
 extern "C" int dtt_join_probe_shard(const void* const* slabs, const long long* slab_keys,
                                     int n_slabs, const void* s, long long cap_s, int is32,
-                                    uint8_t* t_bits, uint8_t* s_hit, uint8_t* multi,
+                                    uint8_t* t_bits, uint8_t* s_bits, uint8_t* multi,
                                     void* scratch, long long scratch_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n_slabs < 1 || n_slabs > kMaxSlabs || cap_s < 8 || cap_s % 8 || cap_s >= (1ll << 31) ||
-      !s_hit || !aligned16(s))
+      !s_bits || !aligned16(s))
     return (int)cudaErrorInvalidValue;
   Slabs sl{};
   sl.n = n_slabs;
@@ -340,8 +330,8 @@ extern "C" int dtt_join_probe_shard(const void* const* slabs, const long long* s
     off += slab_keys[i] / 8;
   }
   if (is32)
-    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_hit, false, multi, scratch,
+    return run<int32_t>(sl, (const int32_t*)s, cap_s, t_bits, s_bits, multi, scratch,
                         scratch_bytes, st);
-  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_hit, false, multi, scratch,
+  return run<int64_t>(sl, (const int64_t*)s, cap_s, t_bits, s_bits, multi, scratch,
                       scratch_bytes, st);
 }

@@ -18,30 +18,32 @@
 // one call: a by-value table (`Shards`, at most 64 slabs: five column
 // pointers, the row count and the slab's first row in the mask buffer) and
 // ONE `best` table, which all the device's shards share:
-//   memset: the sums rows (n_shards x 4 words) and `best` (num_paths words),
-//           one cudaMemsetAsync. A slot holds the best seq XOR the sign bit,
+//   memset: the sums row (4 words) and `best` (num_paths words), one
+//           cudaMemsetAsync. A slot holds the best seq XOR the sign bit,
 //           so a zeroed slot is empty and INT64_MIN keeps its order;
 //   pass A: best[path] = max over its rows, an unsigned 64-bit atomicMax a
 //           row (its result unused: the thread does not wait on it);
-//   pass B: the winner test, the masks and the sums. Row `s` of the sums
-//           receives shard s's live files, their bytes (wrapping u64), its
-//           tombstones and, in a fourth word, its rows with an id >=
-//           num_paths.
+//   pass B: the winner test, the masks and the sums. The sums row
+//           receives all the device's shards' live files, their bytes
+//           (wrapping u64), their tombstones and, in a fourth word, their
+//           rows with an id >= num_paths: the device's reduction is done
+//           in this launch.
 // Both passes are one grid over all the shards, blockIdx.y the shard, and a
 // CTA walks its shard's rows grid-stride (a few CTAs an SM in all), four
 // rows a thread a step, a warp's width apart: each load and store of a warp
 // is 32 consecutive rows (one 128-byte line of path_id, 256 bytes of seq),
 // and where neighbouring rows have neighbouring paths (a log's first adds)
 // a warp's atomics and gathers fall in a few sectors of `best`. A CTA adds
-// its sums to its shard's row once.
+// its sums to the row once: four 8-byte atomics a CTA.
 //
 // Sharing `best` is sound only because the caller gives every path to one
 // shard: replay_kernel._bucket_by_path puts all the actions of a path on the
 // shard `_mix64(path_id) % n_shards`. A caller that puts one path on two
 // shards of one device gets ONE winner for both (the later seq), not one a
-// shard. The combine kernel (shard_combine.cu) adds the rows of all the
-// shards on the lead device: the TPU kernel's psum. K5 (dtt_replay) is this
-// body with one shard.
+// shard. The sums row is the TPU kernel's psum where one device holds
+// every shard; across devices the combine kernel (shard_combine.cu) adds
+// the devices' rows on the lead device. K5 (dtt_replay) is this body with
+// one shard.
 //
 // What bounds it: bytes (path_id and seq read twice, is_add, size and
 // deletion_ts once, 2 bytes of masks written a row) and the random 8-byte
@@ -161,7 +163,7 @@ mask_kernel(const __grid_constant__ Shards sh, const unsigned long long* __restr
   if (threadIdx.x < kWords) {
     unsigned long long v = 0;
     for (int w = 0; w < kThreads / 32; ++w) v += s_sum[w][threadIdx.x];
-    if (v) atomicAdd(sums + (long long)kWords * s + threadIdx.x, v);
+    if (v) atomicAdd(sums + threadIdx.x, v);
   }
 }
 
@@ -190,16 +192,16 @@ int grid_x(long long max_rows, int n_shards) {
 }
 
 // alive / tombstone are rows 0 and 1 of one (2, total) u8 buffer; scratch
-// is the sums rows (n_shards x 4 words) and then `best` (num_paths words)
+// is the sums row (4 words) and then `best` (num_paths words)
 int run(const Shards& sh, int n_shards, int num_paths, long long min_retention_ts,
         unsigned long long* scratch, uint8_t* masks, long long total, cudaStream_t st) {
   long long max_rows = 0;
   for (int s = 0; s < n_shards; ++s) max_rows = sh.n[s] > max_rows ? sh.n[s] : max_rows;
   cudaError_t e = cudaMemsetAsync(
-      scratch, 0, ((long long)kWords * n_shards + num_paths) * sizeof(unsigned long long), st);
+      scratch, 0, ((long long)kWords + num_paths) * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return (int)e;
   if (max_rows > 0) {
-    unsigned long long* best = scratch + (long long)kWords * n_shards;
+    unsigned long long* best = scratch + kWords;
     const dim3 grid(grid_x(max_rows, n_shards), n_shards);
     best_kernel<<<grid, kThreads, 0, st>>>(sh, best, num_paths);
     mask_kernel<<<grid, kThreads, 0, st>>>(sh, best, num_paths, min_retention_ts, masks,
@@ -213,11 +215,11 @@ int run(const Shards& sh, int n_shards, int num_paths, long long min_retention_t
 // K6 on one device: n_shards (1..64) slabs, cols[5 s + c] the pointer of
 // column c (path_id i32, seq i64, is_add u8, size i64, deletion_ts i64) of
 // slab s, rows[s] its rows (below 2^31). Ids are global, below num_paths,
-// and every path lies on one slab of the device. scratch (4 n_shards +
-// num_paths,) int64: its first 4 n_shards words come back as the (n_shards,
-// 4) sums rows. masks (2, total) u8: slab s's alive and tombstone bytes at
-// rows 0 and 1, from column off(s) = the sum of the earlier slabs' rows;
-// total must be the sum of all the slabs' rows.
+// and every path lies on one slab of the device. scratch (4 + num_paths,)
+// int64: its first 4 words come back as the slabs' sums. masks (2, total)
+// u8: slab s's alive and tombstone bytes at rows 0 and 1, from column
+// off(s) = the sum of the earlier slabs' rows; total must be the sum of all
+// the slabs' rows.
 extern "C" int dtt_replay_shards(const void* const* cols, const long long* rows, int n_shards,
                                  int num_paths, long long min_retention_ts, long long* scratch,
                                  uint8_t* masks, long long total, void* stream) {

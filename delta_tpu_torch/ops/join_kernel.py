@@ -42,9 +42,9 @@ target is split into contiguous slabs of ``cap_t / p``
 _bucket(ceil(m / p)) * p``) is uploaded in p pieces and all-gathered in its
 original order on each distinct device, one launch a distinct device builds
 the source's hash table there and probes all of that device's slabs against
-it, and the combine kernel ORs the devices' source hits and multi flags on
-the lead device. A mesh of one entry takes K12, as the JAX
-package does.
+it, its hits packed, and one combine launch ORs the devices' packed hits
+and multi flags on the lead device (none where one device holds every
+shard). A mesh of one entry takes K12, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -200,7 +200,8 @@ def sharded_join_probe(t_slabs, s_parts):
     table there and probes all that device's slabs against it (at most 64);
     the lead device (the first slab's) gathers the packed target bits in
     shard order and reduces the devices' source hits and multi flags with
-    the combine kernel. Returns (t_bits, s_bits, multi) as
+    one combine launch (each device packs its own hits; none where one
+    device holds every shard). Returns (t_bits, s_bits, multi) as
     :func:`join_probe` would on the concatenated slabs and the concatenated
     source. The plain version for tensors on the CPU; on the card the
     kernel, or an error."""
@@ -237,25 +238,27 @@ def sharded_join_probe(t_slabs, s_parts):
         raise ValueError("sharded_join_probe: more than 64 slabs on one device")
     nbytes = _join_scratch_bytes(cap_s, t_slabs[0].element_size())
     is32 = 1 if dt == torch.int32 else 0
-
     def launch(_k, dev):
         # the tiled all-gather: the whole source once on this device
         s = mesh_mod.all_gather(s_parts, dev)
         slabs = [t_slabs[i] for i in shards_of[dev]]
         t_bits = torch.empty(sum(t.shape[0] for t in slabs) // 8, dtype=torch.uint8,
                              device=dev)
-        s_hit = torch.empty(cap_s, dtype=torch.uint8, device=dev)
+        s_bits = torch.empty(cap_s // 8, dtype=torch.uint8, device=dev)
         multi = torch.empty(1, dtype=torch.uint8, device=dev)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         ptrs = np.array([t.data_ptr() for t in slabs], np.uint64)
         keys = np.array([t.shape[0] for t in slabs], np.int64)
         native.call("sharded_join_probe", dev, ptrs.ctypes.data, keys.ctypes.data, len(slabs),
-                    s.data_ptr(), cap_s, is32, t_bits.data_ptr(), s_hit.data_ptr(),
+                    s.data_ptr(), cap_s, is32, t_bits.data_ptr(), s_bits.data_ptr(),
                     multi.data_ptr(), scratch.data_ptr(), nbytes)
         native.launches["sharded_join_probe"] += 1
-        return t_bits, s_hit, multi
+        return t_bits, s_bits, multi
 
     outs = mesh_mod.run_shards(devices, launch)
+    if len(devices) == 1:  # its launch is the whole reduction, the bits in shard order
+        t_bits, s_bits, multi = outs[0]
+        return t_bits, s_bits, multi.view(torch.bool)
     # each shard's bits out of its device's row, on the lead, concatenated in
     # shard order (one copy kernel for the slices that share the lead)
     parts = [None] * len(mesh)
@@ -265,8 +268,9 @@ def sharded_join_probe(t_slabs, s_parts):
             parts[i] = bits[off:off + t_slabs[i].shape[0] // 8].to(lead, non_blocking=True)
             off += t_slabs[i].shape[0] // 8
     t_bits = torch.cat(parts)
-    s_bits = mesh_mod.psum([o[1] for o in outs], "or_pack")
-    multi = mesh_mod.psum([o[2] for o in outs], "or")
+    # the packed hits and the multi bytes ORed across devices in one launch
+    s_bits, multi = mesh_mod.psum_many([([o[1] for o in outs], "or"),
+                                        ([o[2] for o in outs], "or")])
     return t_bits, s_bits, multi.view(torch.bool)
 
 

@@ -16,7 +16,9 @@ plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
 add one where they launch, and nowhere else: a sharded kernel counts one
 launch a distinct device (the block cull K7, the replay K6, the join probe
-K13); the residual mask K14 one a parameter block (a query's files).
+K13); the residual mask K14 one a parameter block (a query's files); the
+combine one a launch of one or two reductions; the Z-order sorts
+(``morton_rank``, ``morton_sort``) one a sort.
 """
 from __future__ import annotations
 
@@ -78,13 +80,15 @@ _KERNELS = {
                    [_P, _L, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "residual_mask": ("residual_mask", "dtt_residual_masks", [_P, _L, _P, _P, _P]),
     "morton": ("morton", "dtt_morton", [_P, _I, _L, _P, _P]),
+    "morton_rank": ("morton", "dtt_morton_rank", [_P, _I, _L, _P, _P, _L, _P]),
+    "morton_sort": ("morton", "dtt_morton_sort", [_P, _L, _P, _P, _L, _P]),
     "link_probe": ("link_probe", "dtt_link_probe", [_P, _L, _P, _P]),
     "sharded_replay": ("replay", "dtt_replay_shards", [_P, _P, _I, _I, _L, _P, _P, _L, _P]),
     "sharded_block_cull": ("block_cull", "dtt_block_cull_shards",
                            [_P, _P, _P, _I, _P, _P, _P, _I, _I, _L, _P, _P]),
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
                            [_P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
-    "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _L, _I, _P, _P]),
+    "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

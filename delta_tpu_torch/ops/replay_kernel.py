@@ -18,8 +18,9 @@ version (taken only for tensors on the CPU):
   path id (every action of a path on one shard, :func:`_bucket_by_path`),
   the kernel :func:`sharded_replay` (K6, ``csrc/replay.cu``: K5's body over
   all the shards of a device in one launch, one winner table a device)
-  replays them, the combine kernel adds the shards' sums on the lead device
-  (``mesh.psum``), and the host unscatters the masks.
+  replays and sums them, the combine kernel adds the devices' sums on the
+  lead device where there are several (``mesh.psum``), and the host
+  unscatters the masks.
 
 Row order is the replay order (``log/columnar`` layout invariant), so the
 winner of a path is its last row; padding rows carry path id -1 and never
@@ -96,8 +97,9 @@ _MAX_SHARDS = 64
 class _Launch(NamedTuple):
     alive: list  # a view a slab
     tombstone: list
-    rows: torch.Tensor  # (slabs, 4) int64: files, bytes, tombstones, ids >= num_paths
     masks: torch.Tensor  # (2, rows of all the slabs) bool: alive, then tombstone
+    # (4,) int64, the slabs' sums: files, bytes, tombstones, ids >= num_paths
+    total: torch.Tensor
 
 
 def _launch(name: str, slabs, num_paths: int, min_retention_ts: int) -> _Launch:
@@ -108,8 +110,8 @@ def _launch(name: str, slabs, num_paths: int, min_retention_ts: int) -> _Launch:
     ns = [cols[0].shape[0] for cols in slabs]
     total = sum(ns)
     masks = torch.empty((2, total), dtype=torch.bool, device=dev)
-    # the sums rows, then the winner table (num_paths words, rounded up to a row)
-    scratch = torch.empty((len(slabs) + -(-num_paths // 4), 4), dtype=torch.int64, device=dev)
+    # the sums row, then the winner table (num_paths words, rounded up to a row)
+    scratch = torch.empty((1 + -(-num_paths // 4), 4), dtype=torch.int64, device=dev)
     tail = (int(min_retention_ts), scratch.data_ptr(), masks.data_ptr(), total)
     if name == "replay":
         native.call(name, dev, *(t.data_ptr() for t in slabs[0]), ns[0], num_paths, *tail)
@@ -119,7 +121,7 @@ def _launch(name: str, slabs, num_paths: int, min_retention_ts: int) -> _Launch:
         native.call(name, dev, ptrs.ctypes.data, rows.ctypes.data, len(slabs), num_paths, *tail)
     native.launches[name] += 1
     alive, tombstone = (list(m.split_with_sizes(ns)) for m in masks.unbind(0))
-    return _Launch(alive, tombstone, scratch[:len(slabs)], masks)
+    return _Launch(alive, tombstone, masks, scratch[0])
 
 
 def _raise_bad(name: str, host_words, num_paths: int) -> None:
@@ -147,7 +149,7 @@ def _replay(cols, num_paths: int, min_retention_ts: int):
     if any(t.device != cols[0].device for t in cols):
         raise ValueError("replay: columns must be on one device")
     out = _launch("replay", [cols], num_paths, min_retention_ts)
-    words = out.rows[0]
+    words = out.total
     # its own copy: `words` shares its buffer with the winner table
     sums = words[:3].clone()
     host = words.cpu().tolist()
@@ -346,10 +348,12 @@ def _check_slabs(slabs, num_paths: int):
 def _sharded_launch(slabs, num_paths: int, min_retention_ts: int, where=None):
     """K6 on the card with no synchronisation (a CUDA graph can hold it):
     one launch a distinct device over all its slabs (``where``: each slab's
-    device index), then the devices' sums rows reduced on the lead device
-    by the combine kernel. Returns (alive list, tombstone list, the (4,)
-    int64 words on the lead: files, bytes, tombstones, ids >= num_paths;
-    [(a device's slab indices, its _Launch)])."""
+    device index), each writing its slabs' sums row; across devices the
+    rows are added on the lead device by one combine launch, and where one
+    device holds every slab its row is the answer. Returns
+    (alive list, tombstone list, the (4,) int64 words on the lead: files,
+    bytes, tombstones, ids >= num_paths; [(a device's slab indices, its
+    _Launch)])."""
     from delta_tpu_torch.parallel import mesh as mesh_mod
 
     if where is None:
@@ -366,7 +370,10 @@ def _sharded_launch(slabs, num_paths: int, min_retention_ts: int, where=None):
     for idx, out in zip(parts, outs):
         for j, i in enumerate(idx):
             alive[i], tombstone[i] = out.alive[j], out.tombstone[j]
-    words = mesh_mod.psum([out.rows for out in outs], "sum")
+    if len(outs) == 1:
+        words = outs[0].total
+    else:
+        words = mesh_mod.psum([out.total for out in outs], "sum")
     return alive, tombstone, words, list(zip(parts, outs))
 
 
@@ -392,12 +399,16 @@ def sharded_replay(slabs, num_paths: int, min_retention_ts: int = 0):
     device), ids global (below ``num_paths``; raises otherwise), every path
     on one slab (:func:`_bucket_by_path`). On the card: one launch a
     distinct device (at most 64 slabs a device) replays all its slabs
-    against one winner table, the combine kernel adds the shards' sums on
-    the lead device (the first slab's), and one download of the sums and
-    the count of bad ids is the call's one synchronisation. Returns (alive
-    list, tombstone list, sums (3,) int64: live files, their bytes,
-    tombstones). The plain version for slabs on the CPU."""
-    return _sharded_replay(slabs, num_paths, min_retention_ts)[:3]
+    against one winner table and sums them, the combine kernel adds the
+    devices' sums on the lead device (the first slab's) where there are
+    several, and one download of the sums and the count of bad ids is the
+    call's one synchronisation. Returns (alive list, tombstone list, sums
+    (3,) int64: live files, their bytes, tombstones). The plain version for
+    slabs on the CPU."""
+    alive, tombstone, sums = _sharded_replay(slabs, num_paths, min_retention_ts)[:3]
+    # its own copy: on one device the sums share their buffer with the
+    # winner table
+    return alive, tombstone, sums.clone()
 
 
 def replay_sharded(arrays, mesh, min_retention_ts: int = 0) -> ReplayResult:
@@ -405,7 +416,8 @@ def replay_sharded(arrays, mesh, min_retention_ts: int = 0) -> ReplayResult:
     ``parallel/mesh.state_mesh``): the host buckets the rows by path, each
     device receives its shards' slabs as one ``(shards, cap)`` tensor a
     column (each slab a row of it), K6 replays every device's shards in one
-    launch, the combine kernel reduces the sums on the lead device, and the
+    launch, which also sums them, the combine kernel adds the devices' sums
+    on the lead device where there are several, and the
     host downloads the sums and one mask buffer a device, then unscatters
     the masks to the input order. Equal to :func:`replay_alive_mask` on the
     same stream."""

@@ -24,8 +24,12 @@ The two collectives the kernels need live here:
 * :func:`psum`: the partial results gathered to the lead device (the
   mesh's first entry) as ``(n, k)`` rows, then reduced there by the
   hand-written combine kernel (:func:`shard_combine`,
-  ``csrc/shard_combine.cu``): a sum of int64 rows, an OR of byte rows
-  packed big-endian, or an OR of byte rows.
+  ``csrc/shard_combine.cu``): a sum of int64 rows or a bytewise OR of byte
+  rows. :func:`psum_many` reduces one or two ``(parts, op)`` pairs with one
+  gather each and ONE combine launch (:func:`shard_combine_many`): K13's packed
+  source hits and multi flags. Where one device holds every shard, the
+  sharded kernels reduce in their own launch (K6 sums all its slabs into
+  one row, K13 packs its hits) and no combine runs.
 
 Each shard launches under ``torch.cuda.device(its device)`` on that
 device's current stream, and the lead's current stream waits on an event
@@ -37,6 +41,7 @@ more than one card.
 from __future__ import annotations
 
 import contextlib
+import struct
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -46,13 +51,15 @@ from delta_tpu_torch.ops import native
 from delta_tpu_torch.utils.device import resolve
 
 __all__ = ["STATE_AXIS", "state_mesh", "shard_count", "pad_to_multiple", "default_devices",
-           "using_devices", "run_shards", "replicate", "all_gather", "psum",
-           "shard_combine", "shard_combine_plain", "COMBINE_OPS"]
+           "using_devices", "run_shards", "replicate", "all_gather", "psum", "psum_many",
+           "shard_combine", "shard_combine_many", "shard_combine_plain", "COMBINE_OPS"]
 
 STATE_AXIS = "shards"
 
 #: the combine kernel's reductions, by name
-COMBINE_OPS = {"sum": 0, "or_pack": 1, "or": 2}
+COMBINE_OPS = {"sum": 0, "or": 1}
+#: reductions one combine launch takes (``csrc/shard_combine.cu``'s kMaxSets)
+COMBINE_MAX_SETS = 2
 
 _lock = threading.Lock()
 _installed: Optional[List[torch.device]] = None
@@ -164,56 +171,87 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device, axis: int = 
     return out
 
 
+def _rows_on_lead(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The shards' partial results as ``(n, k)`` rows on the lead device
+    (``parts[0]``'s): no copy when one part holds them all."""
+    if len(parts) == 1:  # already on the lead: no gather
+        return parts[0].reshape(-1, parts[0].shape[-1])
+    return all_gather([p.reshape(-1, p.shape[-1]) for p in parts], parts[0].device)
+
+
 def psum(parts: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:
     """The shards' partial results (each ``(k,)``, or ``(r, k)`` for r
     shards of one device, on its device) reduced on the lead device
     (``parts[0]``'s): gathered as ``(n, k)`` rows, then one combine launch
     (``op`` of :data:`COMBINE_OPS`)."""
-    lead = parts[0].device
-    if len(parts) == 1:  # already on the lead: no gather
-        rows = parts[0].reshape(-1, parts[0].shape[-1])
-    else:
-        rows = all_gather([p.reshape(-1, p.shape[-1]) for p in parts], lead)
+    return psum_many([(parts, op)])[0]
+
+
+def psum_many(pairs) -> List[torch.Tensor]:
+    """:func:`psum` of each ``(parts, op)`` pair, all on one lead device:
+    one gather a pair, then one combine launch for all of them."""
+    lead = pairs[0][0][0].device
+    if any(parts[0].device != lead for parts, _ in pairs):
+        raise ValueError("psum_many: every pair must lead on one device")
+    sets = [(_rows_on_lead(parts), op) for parts, op in pairs]
     with _device_ctx(lead):
-        return shard_combine(rows, op)
+        return shard_combine_many(sets)
 
 
 # -- the combine kernel and its plain version -------------------------------------------
 
 
 def shard_combine_plain(rows: torch.Tensor, op: str) -> torch.Tensor:
-    """Plain PyTorch version of the combine: ``rows.sum(0)`` (int64),
-    ``packbits(rows.any(0))`` or ``rows.any(0)`` as uint8."""
+    """Plain PyTorch version of the combine: ``rows.sum(0)`` (int64) or the
+    bytewise OR of the rows (uint8)."""
     if op == "sum":
         return rows.sum(dim=0, dtype=torch.int64)
-    hit = (rows != 0).any(dim=0)
-    if op == "or":
-        return hit.to(torch.uint8)
-    from delta_tpu_torch.ops.state_cache import _packbits
-
-    return _packbits(hit)
+    out = rows[0].clone()
+    for r in rows[1:]:
+        out |= r
+    return out
 
 
-def shard_combine(rows: torch.Tensor, op: str) -> torch.Tensor:
-    """The cross-shard reduction of ``(n, k)`` rows on one device: ``"sum"``
-    of int64 rows gives ``(k,)`` int64; ``"or_pack"`` of uint8 rows gives
-    ``(ceil(k/8),)`` uint8, big-endian; ``"or"`` of uint8 rows gives
-    ``(k,)`` uint8 0/1. The plain version for a tensor on the CPU; for a
-    CUDA tensor the kernel, or an error."""
+def _check_rows(rows: torch.Tensor, op: str) -> None:
     if op not in COMBINE_OPS:
         raise ValueError(f"shard_combine: op {op!r} is not one of {sorted(COMBINE_OPS)}")
     want = torch.int64 if op == "sum" else torch.uint8
     if rows.dtype != want or rows.dim() != 2 or rows.shape[0] < 1:
         raise TypeError(f"shard_combine: {op} takes (n >= 1, k) {want} rows, got "
                         f"{tuple(rows.shape)} {rows.dtype}")
-    if rows.device.type == "cpu":
-        return shard_combine_plain(rows, op)
-    if not rows.is_contiguous():
-        raise ValueError("shard_combine: rows must be contiguous")
-    n, k = rows.shape
-    size = (k + 7) // 8 if op == "or_pack" else k
-    out = torch.empty(size, dtype=want, device=rows.device)
-    native.call("shard_combine", rows.device, rows.data_ptr(), n, k, COMBINE_OPS[op],
-                out.data_ptr())
-    native.launches["shard_combine"] += 1
-    return out
+
+
+def shard_combine(rows: torch.Tensor, op: str) -> torch.Tensor:
+    """The cross-shard reduction of ``(n, k)`` rows on one device: ``"sum"``
+    of int64 rows gives ``(k,)`` int64; ``"or"`` of uint8 rows gives their
+    ``(k,)`` bytewise OR. The plain version for a tensor on the CPU; for a
+    CUDA tensor the kernel, or an error."""
+    return shard_combine_many([(rows, op)])[0]
+
+
+def shard_combine_many(sets) -> List[torch.Tensor]:
+    """:func:`shard_combine` of each of at most :data:`COMBINE_MAX_SETS`
+    ``(rows, op)`` pairs, all on one device, in one launch of the kernel
+    (none when every ``k`` is 0). Each set's rows are contiguous, at any
+    offset."""
+    if not 1 <= len(sets) <= COMBINE_MAX_SETS:
+        raise ValueError(f"shard_combine_many: 1 to {COMBINE_MAX_SETS} sets, got {len(sets)}")
+    dev = sets[0][0].device
+    for rows, op in sets:
+        _check_rows(rows, op)
+        if rows.device != dev:
+            raise ValueError("shard_combine_many: every set must be on one device")
+        if not rows.is_contiguous():
+            raise ValueError("shard_combine_many: each set's rows must be contiguous")
+    if dev.type == "cpu":
+        return [shard_combine_plain(rows, op) for rows, op in sets]
+    outs, words = [], []
+    for rows, op in sets:
+        n, k = rows.shape
+        out = torch.empty(k, dtype=rows.dtype, device=dev)
+        outs.append(out)
+        words += [rows.data_ptr(), out.data_ptr(), k, n, COMBINE_OPS[op]]
+    if any(rows.shape[1] for rows, _ in sets):
+        native.call("shard_combine", dev, struct.pack(f"{len(words)}q", *words), len(sets))
+        native.launches["shard_combine"] += 1
+    return outs

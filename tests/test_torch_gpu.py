@@ -26,8 +26,9 @@ from delta_tpu_torch.schema.types import DoubleType, IntegerType, LongType, Stri
 
 # tests/, on the path as chip_smoke is: numpy only
 from torch_kernel_cases import (
-    ADVANCE_CASES, CASE_NAMES, COMPACT_CASES, TAIL_CASES, advance_case, compact_case,
-    probe_case, reference_compact, tail_case,
+    ADVANCE_CASES, CASE_NAMES, COMBINE_KS, COMBINE_NS, COMPACT_CASES, TAIL_CASES, ZSORT_CASES,
+    advance_case, combine_case, combine_rows, compact_case, probe_case, reference_combine, reference_compact,
+    reference_key_order, reference_rank, tail_case, zsort_case,
 )
 
 pytestmark = pytest.mark.gpu
@@ -745,9 +746,12 @@ def test_join_probe_hash_cases_match_plain_and_k13(cuda, dtype, shape):
     tt, ss = torch.from_numpy(t_in).to(cuda), torch.from_numpy(s_in).to(cuda)
     k12 = join_kernel.join_probe(tt, ss)
     before = native.launches["sharded_join_probe"]
+    combines = native.launches["shard_combine"]
     k13 = join_kernel.sharded_join_probe(list(tt.view(8, -1)), list(ss.view(8, -1)))
     torch.cuda.synchronize()
     assert native.launches["sharded_join_probe"] == before + 1
+    # one device holds every shard: K13's launch packs its hits, no combine
+    assert native.launches["shard_combine"] == combines
     assert _equal_all(k12, join_kernel.join_probe_plain(tt, ss))
     assert _equal_all(k13, join_kernel.sharded_join_probe_plain(list(tt.view(8, -1)), ss))
     assert _equal_all(k12, k13)
@@ -1066,7 +1070,7 @@ def mesh8(cuda):
         yield m
 
 
-@pytest.mark.parametrize("op", ["sum", "or", "or_pack"])
+@pytest.mark.parametrize("op", ["sum", "or"])
 @pytest.mark.parametrize("n,k", [(1, 1), (8, 13), (8, (1 << 20) + 5)])
 def test_shard_combine_kernel_matches_plain(cuda, op, n, k):
     from delta_tpu_torch.parallel import mesh
@@ -1266,3 +1270,147 @@ def test_sharded_paths_on_the_card_match_the_cpu(cuda, mesh8):
     assert np.array_equal(got.s_matched, want.s_matched) and got.any_multi == want.any_multi
     report = dryrun_multichip(8, device=cuda)
     assert report["plan_shards"] == 8 and report["n_alive"] > 0
+
+
+# -- the combine, batched and folded, and the Z-order sorts (the fourteenth slice) ------
+
+
+@pytest.mark.parametrize("k", COMBINE_KS)
+@pytest.mark.parametrize("n", COMBINE_NS)
+def test_shard_combine_batch_matches_plain(cuda, n, k):
+    """Both ops at (n, k) in ONE launch, on rows that start on a 16-byte
+    boundary and on rows whose base is off it (offset 3), against the
+    plain version and numpy; a third set is refused."""
+    from delta_tpu_torch.parallel import mesh
+
+    for offset in (0, 3):
+        sets, refs = [], []
+        for op in ("sum", "or"):
+            buf = combine_case(op, n, k, offset, seed=11)
+            sets.append((combine_rows(torch.from_numpy(buf).to(cuda), n, k, offset), op))
+            refs.append(reference_combine(combine_rows(buf, n, k, offset), op))
+        before = native.launches["shard_combine"]
+        got = mesh.shard_combine_many(sets)
+        torch.cuda.synchronize()
+        assert native.launches["shard_combine"] - before == (0 if k == 0 else 1)
+        for g, r, (x, op) in zip(got, refs, sets):
+            assert np.array_equal(g.cpu().numpy(), r), (op, n, k, offset)
+            assert torch.equal(g.cpu(), mesh.shard_combine_plain(x.cpu(), op))
+    with pytest.raises(ValueError):
+        mesh.shard_combine_many(sets + sets[:1])
+
+
+def test_psum_many_on_one_card_mesh_is_one_launch(cuda, mesh8):
+    """psum_many of K13's sets across devices (each device's packed source
+    hits and its multi flag): one combine launch, equal to the single
+    psums, to numpy and to the packing of the hits' OR; K6's sums alone."""
+    from delta_tpu_torch.parallel import mesh
+
+    rng = np.random.RandomState(3)
+    flags = (rng.rand(8, 1 << 12) < 0.1).astype(np.uint8)
+    hits = [torch.from_numpy(np.packbits(f)).to(cuda) for f in flags]
+    multi = [torch.from_numpy(np.array([i == 5], np.uint8)).to(cuda) for i in range(8)]
+    sums = [torch.from_numpy(rng.randint(-2**62, 2**62, 4).astype(np.int64)).to(cuda)
+            for _ in range(8)]
+    pairs = [(hits, "or"), (multi, "or")]
+    before = native.launches["shard_combine"]
+    got = mesh.psum_many(pairs)
+    torch.cuda.synchronize()
+    assert native.launches["shard_combine"] - before == 1
+    assert np.array_equal(got[0].cpu().numpy(), np.packbits(flags.any(axis=0)))
+    for g, (parts, op) in zip(got + [mesh.psum(sums, "sum")], pairs + [(sums, "sum")]):
+        assert torch.equal(g, mesh.psum(parts, op))
+        assert np.array_equal(g.cpu().numpy(),
+                              reference_combine(torch.stack(parts).cpu().numpy(), op))
+
+
+def test_sharded_replay_on_one_card_launches_no_combine(cuda, mesh8):
+    """K6 with every slab on one card sums its slabs into one row in its launch:
+    no combine, sums equal to the plain version's and to K5's."""
+    import chip_smoke
+
+    stream = chip_smoke.k6_stream(1 << 16, 5)
+    slabs, _, _ = chip_smoke.k6_slabs(stream, cuda)
+    num_paths = len(stream.paths)
+    before = dict(native.launches)
+    got = replay_kernel.sharded_replay(slabs, num_paths, 1000)
+    torch.cuda.synchronize()
+    assert native.launches["sharded_replay"] - before["sharded_replay"] == 1
+    assert native.launches["shard_combine"] == before["shard_combine"]
+    ref = replay_kernel.sharded_replay_plain(slabs, num_paths, 1000)
+    assert torch.equal(got[2], ref[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+
+
+@pytest.mark.parametrize("n", [1, 3, (1 << 16) + 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 65])
+def test_morton_table_kernel_matches_plain(cuda, k, n):
+    """The table-driven K16 past 8 bits a column (k >= 8: the high byte's
+    shift reaches 64) and past 64 columns (k = 65: c >= 64), on tails of n
+    not a multiple of 4 (columns off a 16-byte boundary)."""
+    from delta_tpu_torch.ops import zorder
+
+    rng = np.random.RandomState(k * 7 + n)
+    r = rng.randint(0, 1 << 16, (k, n)).astype(np.int32)
+    r[:, 0] = 65535
+    ranks = torch.from_numpy(r).to(cuda)
+    before = native.launches["morton"]
+    got = zorder.interleave(ranks)
+    torch.cuda.synchronize()
+    assert native.launches["morton"] == before + 1
+    assert torch.equal(got, zorder.interleave_plain(ranks))
+
+
+@pytest.mark.parametrize("case", ZSORT_CASES)
+def test_key_order_and_rank_match_numpy(cuda, case):
+    """The key's stable unsigned order and a column's stable rank on the
+    card against numpy's stable argsort (all equal: the sort runs no pass
+    and the sink writes the identity)."""
+    from delta_tpu_torch.ops import zorder
+
+    key = zsort_case(case)
+    dkey = torch.from_numpy(key).to(cuda)
+    before = dict(native.launches)
+    perm = zorder.key_order(dkey)
+    ranks = zorder.rank_column(dkey)
+    torch.cuda.synchronize()
+    assert native.launches["morton_sort"] - before["morton_sort"] == 1
+    assert native.launches["morton_rank"] - before["morton_rank"] == 1
+    assert perm.dtype == torch.int32 and ranks.dtype == torch.int32
+    assert np.array_equal(perm.cpu().numpy(), reference_key_order(key))
+    assert np.array_equal(ranks.cpu().numpy(), reference_rank(key))
+    assert torch.equal(perm.cpu(), zorder.key_order_plain(dkey.cpu()))
+    small = np.clip(key, -(1 << 31), (1 << 31) - 1).astype(np.int32)  # an int32 column
+    got32 = zorder.rank_column(torch.from_numpy(small).to(cuda))
+    assert np.array_equal(got32.cpu().numpy(), reference_rank(small))
+
+
+def test_morton_order_on_the_card_runs_no_host_sort(cuda, monkeypatch):
+    """morton_order of integer columns on the card: the ranks and the key's
+    sort on the card (no host argsort), equal to numpy's order; a double
+    column keeps the host rank."""
+    import chip_smoke
+    from delta_tpu_torch.ops import zorder
+
+    data = chip_smoke.store_sales(200_000, np.random.RandomState(5))
+    cols = [data["ss_item_sk"], data["ss_sold_date_sk"].astype(np.int32)]
+    want = chip_smoke.reference_morton(cols)
+    real_argsort = np.argsort
+
+    def no_host_sort(*a, **kw):
+        raise AssertionError("morton_order sorted on the host")
+
+    monkeypatch.setattr(np, "argsort", no_host_sort)
+    before = dict(native.launches)
+    got = zorder.morton_order(cols, device=cuda)
+    monkeypatch.setattr(np, "argsort", real_argsort)
+    assert native.launches["morton_rank"] - before["morton_rank"] == 2
+    assert native.launches["morton_sort"] - before["morton_sort"] == 1
+    assert np.array_equal(got, want)
+    floats = [data["ss_sales_price"], data["ss_item_sk"]]
+    floats[0][::97] = np.nan
+    floats[0][::89] = -0.0
+    before = dict(native.launches)
+    got = zorder.morton_order(floats, device=cuda)
+    assert native.launches["morton_rank"] - before["morton_rank"] == 1
+    assert np.array_equal(got, chip_smoke.reference_morton(floats))

@@ -25,6 +25,7 @@ from delta_tpu_torch.ops import native
 from delta_tpu_torch.ops import replay_kernel as trk
 from delta_tpu_torch.ops.state_export import ReplayArrays as TorchArrays
 from delta_tpu_torch.parallel import distributed, mesh
+from tests.torch_kernel_cases import COMBINE_KS, combine_case, combine_rows, reference_combine
 
 CPU8 = ["cpu"] * 8
 
@@ -85,8 +86,10 @@ def test_shard_combine_plain_matches_numpy(n, k):
     flags = (rng.rand(n, k) < 0.1).astype(np.uint8) * rng.randint(1, 255, (n, k)).astype(
         np.uint8)
     assert np.array_equal(mesh.shard_combine(torch.from_numpy(flags), "or").numpy(),
-                          flags.any(axis=0).astype(np.uint8))
-    assert np.array_equal(mesh.shard_combine(torch.from_numpy(flags), "or_pack").numpy(),
+                          np.bitwise_or.reduce(flags, axis=0))
+    # the OR of packed rows is the packing of the OR (K13's source hits)
+    packed = np.packbits(flags != 0, axis=1)
+    assert np.array_equal(mesh.shard_combine(torch.from_numpy(packed), "or").numpy(),
                           np.packbits(flags.any(axis=0)))
     # psum gathers per-shard parts first
     parts = [torch.from_numpy(r) for r in rows]
@@ -101,7 +104,98 @@ def test_shard_combine_refuses_bad_inputs():
     with pytest.raises(TypeError):
         mesh.shard_combine(torch.zeros(3, dtype=torch.uint8), "or")
     with pytest.raises(TypeError):
-        mesh.shard_combine(torch.zeros((0, 3), dtype=torch.uint8), "or_pack")
+        mesh.shard_combine(torch.zeros((0, 3), dtype=torch.uint8), "or")
+    with pytest.raises(ValueError):  # the hits come packed: no packing op
+        mesh.shard_combine(torch.zeros((2, 3), dtype=torch.uint8), "or_pack")
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (3, 17), (8, 13), (33, 1 << 12)])
+def test_psum_many_matches_single_psums_and_numpy(n, k, cpu_mesh):
+    """The batched psum's plain version: one gather a pair, both ops
+    together, equal to each op's own psum and to numpy."""
+    pairs, want = [], []
+    for op in ("sum", "or"):
+        rows = combine_rows(combine_case(op, n, k, 0, seed=3), n, k)
+        pairs.append(([torch.from_numpy(r) for r in rows], op))
+        want.append(reference_combine(rows, op))
+    got = mesh.psum_many(pairs)
+    for g, w, (parts, op) in zip(got, want, pairs):
+        assert np.array_equal(g.numpy(), w)
+        assert torch.equal(g, mesh.psum(parts, op))
+
+
+@pytest.mark.parametrize("k", COMBINE_KS)
+@pytest.mark.parametrize("offset", [0, 3])
+def test_shard_combine_many_on_row_slices(k, offset):
+    """A launch's two sets, contiguous rows at an offset into a larger
+    buffer: each equal to numpy and to the single call."""
+    sets, want = [], []
+    for i, op in enumerate(("sum", "or")):
+        buf = combine_case(op, 3, k, offset, seed=i)
+        sets.append((combine_rows(torch.from_numpy(buf), 3, k, offset), op))
+        want.append(reference_combine(combine_rows(buf, 3, k, offset), op))
+    got = mesh.shard_combine_many(sets)
+    assert len(got) == 2
+    for g, w, (x, op) in zip(got, want, sets):
+        assert np.array_equal(g.numpy(), w)
+        assert torch.equal(g, mesh.shard_combine(x, op))
+
+
+def test_shard_combine_many_refuses_mixed_devices_and_bad_rows():
+    with pytest.raises(ValueError):
+        mesh.shard_combine_many([(torch.zeros((2, 3), dtype=torch.int64), "sum"),
+                                 (torch.zeros((2, 3), dtype=torch.uint8, device="meta"), "or")])
+    with pytest.raises(TypeError):
+        mesh.shard_combine_many([(torch.zeros((2, 3), dtype=torch.int64), "or")])
+    with pytest.raises(ValueError):
+        mesh.psum_many([([torch.zeros(3, dtype=torch.int64)], "sum"),
+                        ([torch.zeros(3, dtype=torch.uint8, device="meta")], "or")])
+    with pytest.raises(ValueError):  # one launch takes two sets
+        mesh.shard_combine_many([(torch.zeros((2, 3), dtype=torch.int64), "sum")] * 3)
+    with pytest.raises(ValueError):  # a slice of wider rows
+        mesh.shard_combine_many([(torch.zeros((2, 8), dtype=torch.uint8)[:, 2:5], "or")])
+
+
+@pytest.mark.parametrize("case,dtype", [("link", np.int32), ("zipf", np.int32),
+                                        ("runs_across_shards", np.int64)])
+def test_psum_many_reduces_like_jax_sharded_join(case, dtype):
+    """Each shard's packed source hits and multi flag, reduced by one
+    psum_many (bytewise ORs), equal to the psums inside JAX's
+    `_sharded_kernel` on its 8-device CPU mesh."""
+    t_in, s_in = _sharded_inputs(case, dtype)
+    with enable_x64():
+        kernel = jax_jk._sharded_kernel(jax, _jax_mesh(), jax_mesh.STATE_AXIS)
+        want = [np.asarray(x) for x in kernel(t_in.reshape(8, -1), s_in.reshape(8, -1))]
+    s_full = torch.from_numpy(s_in)
+    s_sorted = torch.sort(s_full).values
+    hits, multis = [], []
+    for t in torch.from_numpy(t_in).reshape(8, -1):
+        hits.append(torch.from_numpy(np.packbits(torch.isin(s_full, t).numpy())))
+        count = (torch.searchsorted(s_sorted, t, right=True)
+                 - torch.searchsorted(s_sorted, t))
+        multis.append((count > 1).any().reshape(1).to(torch.uint8))
+    s_bits, multi = mesh.psum_many([(hits, "or"), (multis, "or")])
+    assert np.array_equal(s_bits.numpy(), want[1])
+    assert bool(multi[0]) == bool(want[2])
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_psum_many_of_shard_sums_matches_jax_replay(shards):
+    """Each shard's replay sums (files, bytes, tombstones) reduced by
+    psum_many on the 8-entry CPU mesh, against JAX's sharded replay."""
+    jarr, tarr = _zipf_pair(20_000, 500, 17)
+    with mesh.using_devices(["cpu"] * shards):
+        stacked, _, _ = trk._bucket_by_path(tarr, shards)
+        slabs = [tuple(torch.from_numpy(np.ascontiguousarray(c[i])) for c in stacked)
+                 for i in range(shards)]
+        best = trk._best_plain(torch.cat([c[0] for c in slabs]), torch.cat([c[1] for c in slabs]),
+                               len(tarr.paths))
+        parts = [trk._masks_plain(c, best, 100)[2] for c in slabs]
+        (sums,) = mesh.psum_many([(parts, "sum")])
+    with enable_x64():
+        want = jrk.replay_sharded(jarr, _jax_mesh(), min_retention_ts=100)
+    assert sums.tolist() == [int(want.stats.num_files), int(want.stats.total_size),
+                             int(want.stats.num_tombstones)]
 
 
 # -- K6: the sharded replay ------------------------------------------------------------

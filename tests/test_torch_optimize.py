@@ -1,8 +1,11 @@
 """The port's OPTIMIZE and Z-order key (``commands/optimize``, ``ops/zorder``)
 against ``delta_tpu``'s on the CPU:
 
-* ``morton_order`` permutations equal to JAX's for k = 1..6 (ties, NULLs
-  through ``np_col``, strings, floats with NaN, bit 63 set);
+* ``morton_order`` permutations equal to JAX's for k = 1..8 (ties, NULLs
+  through ``np_col`` of the integer, date and timestamp kinds, strings,
+  floats with NaN and -0.0, bit 63 set, n = 1 and 2), with the device
+  sorts' plain versions (the ranks of integer columns, the key's order)
+  against numpy's stable argsort;
 * OPTIMIZE end states equal to ``delta_tpu``'s on the cases of
   ``tests/test_dml.py:363-520``: each package optimizes its own copy of one
   table ``delta_tpu`` wrote, and the new files' rows, in order, and the
@@ -39,6 +42,7 @@ from delta_tpu_torch.ops.column_cache import ColumnCache
 from delta_tpu_torch.ops.key_cache import KeyCache
 from delta_tpu_torch.utils.config import conf
 from delta_tpu_torch.utils.errors import OptimizeBudgetExceeded
+from tests.torch_kernel_cases import reference_key_order, reference_rank, zsort_case
 from tests.torch_port_tables import Pkg, reset_caches, sorted_rows
 
 
@@ -80,6 +84,133 @@ def test_interleave_keeps_bit_63_and_drops_past_64():
                                  np.array([0, 65535, 3]), np.array([0, 65535, 3])],
                                 device="cpu")
     assert order.tolist() == [0, 2, 1]  # the unsigned order: bit 63 sorts last
+
+
+_INT_DTYPES = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_morton_order_of_integer_columns_matches_jax(k):
+    """Integer columns of every width take the device rank (its plain
+    version here) and the key's sort: equal to JAX's host argsorts."""
+    rng = np.random.RandomState(40 + k)
+    cols = []
+    for c in range(k):
+        dt = np.dtype(_INT_DTYPES[(c + k) % len(_INT_DTYPES)])
+        lo, hi = (np.iinfo(dt).min, np.iinfo(dt).max) if c % 2 else (0, 30)  # ties
+        cols.append(rng.randint(lo, int(hi) + 1, 3000, dtype=np.int64).astype(dt))
+    got = zorder.morton_order(cols, device="cpu")
+    assert got.dtype == np.int64
+    assert np.array_equal(got, jax_morton(cols))
+
+
+@pytest.mark.parametrize("case", ["ties", "all-equal", "n1", "n2", "n2-equal", "extremes"])
+def test_morton_order_edge_shapes_match_jax(case):
+    i64 = np.iinfo(np.int64)
+    cols = {
+        "ties": [np.repeat(np.arange(5), 200), np.tile(np.arange(4), 250)],
+        "all-equal": [np.full(700, 9), np.full(700, -3.5)],
+        "n1": [np.array([7]), np.array([2.0])],
+        "n2": [np.array([7, -7]), np.array([1, 1])],
+        "n2-equal": [np.array([4, 4])],
+        "extremes": [np.array([i64.max, i64.min, 0, -1, i64.max, i64.min], np.int64)] * 3,
+    }[case]
+    assert np.array_equal(zorder.morton_order(cols, device="cpu"), jax_morton(cols))
+
+
+@pytest.mark.parametrize("kind", ["int64", "int8", "int32", "date", "ts"])
+def test_morton_order_null_heavy_kinds_match_jax(kind):
+    """NULL-heavy integer, int8, int32, date and timestamp columns through
+    both packages' ``np_col`` (NULLs take the column's minimum): the port
+    ranks them as integers, JAX argsorts its numpy (dates and timestamps as
+    datetime64); the orders are equal."""
+    import datetime as dt
+
+    rng = np.random.RandomState(7)
+    n = 4000
+    valid = rng.rand(n) < 0.15
+    raw = rng.randint(-5000, 5000, n)
+    if kind == "int8":
+        raw = raw % 200 - 100
+    np_dt = {"int64": np.int64, "int8": np.int8, "int32": np.int32, "date": np.int64,
+             "ts": np.int64}[kind]
+    vals = raw.astype(np_dt)
+    if kind == "ts":
+        vals = vals * 1_000_003
+    pa_type = {"int64": pa.int64(), "int8": pa.int8(), "int32": pa.int32(),
+               "date": pa.date32(), "ts": pa.timestamp("us")}[kind]
+    if kind == "date":
+        py = [dt.date(1970, 1, 1) + dt.timedelta(days=int(v)) for v in vals]
+    elif kind == "ts":
+        py = [dt.datetime(1970, 1, 1) + dt.timedelta(microseconds=int(v)) for v in vals]
+    else:
+        py = vals.tolist()
+    second = rng.randint(0, 50, n)
+    pa_t = pa.table({"c": pa.array([v if ok else None for v, ok in zip(py, valid)], pa_type),
+                     "d": pa.array(second.tolist(), pa.int64())})
+    host_kind = {"date": "date", "ts": "ts"}.get(kind, "int")
+    host = HostTable({"c": HostColumn(host_kind, vals, valid),
+                      "d": HostColumn("int", second, np.ones(n, bool))}, n)
+    t = [np_col(host, c) for c in ("c", "d")]
+    assert t[0].dtype.kind == "i"  # the integer kinds go to the device rank
+    assert np.array_equal(zorder.morton_order(t, device="cpu"),
+                          jax_morton([jax_np_col(pa_t, c) for c in ("c", "d")]))
+
+
+def test_morton_order_ranks_integers_on_the_device_and_floats_on_the_host(monkeypatch):
+    """Integer columns never reach the host rank; a double column with NaN
+    and -0.0 does (its order is numpy's), and the result is JAX's."""
+    rng = np.random.RandomState(2)
+    f = rng.randn(2000)
+    f[::13] = np.nan
+    f[::7] = -0.0
+    f[1::7] = 0.0
+    ints = rng.randint(0, 100, 2000)
+    host_ranked = []
+    real = zorder.rank_u16
+
+    def spy(values):
+        host_ranked.append(values.dtype)
+        return real(values)
+
+    monkeypatch.setattr(zorder, "rank_u16", spy)
+    got = zorder.morton_order([f, ints, ints.astype(np.int32)], device="cpu")
+    assert host_ranked == [np.dtype(np.float64)]
+    assert np.array_equal(got, jax_morton([f, ints, ints.astype(np.int32)]))
+
+
+@pytest.mark.parametrize("case", ["equal", "sorted", "reversed", "narrow", "one", "two"])
+def test_rank_and_key_order_plain_match_numpy(case):
+    """The device sorts' plain versions against numpy's stable argsort: the
+    key's unsigned order and a column's signed rank."""
+    key = zsort_case(case)
+    t = torch.from_numpy(key)
+    assert np.array_equal(zorder.key_order(t).numpy(), reference_key_order(key))
+    assert np.array_equal(zorder.rank_column(t).numpy(), reference_rank(key))
+    assert np.array_equal(zorder.rank_column(t).numpy(), zorder.rank_u16(key).astype(np.int32))
+    out = torch.full((len(key),), -1, dtype=torch.int32)
+    assert zorder.rank_column(t, out=out) is out and np.array_equal(out.numpy(),
+                                                                    reference_rank(key))
+    with pytest.raises(TypeError):
+        zorder.key_order(t.to(torch.int32))
+    with pytest.raises(ValueError):
+        zorder.rank_column(t, out=torch.empty(len(key) + 1, dtype=torch.int32))
+
+
+def test_optimize_reports_its_phases(tmp_path):
+    """The Z-order rewrite's wall split (read, zorder, take, write) lands in
+    ``phase_ms``."""
+    path = str(tmp_path / "t")
+    rng = np.random.RandomState(1)
+    delta_tpu_torch.WriteIntoDelta(
+        delta_tpu_torch.DeltaLog.for_table(path, device="cpu"), "append",
+        HostTable({"a": HostColumn("int", rng.randint(0, 99, 500), np.ones(500, bool)),
+                   "b": HostColumn("double", rng.rand(500), np.ones(500, bool))}, 500)).run()
+    cmd = OptimizeCommand(delta_tpu_torch.DeltaLog.for_table(path, device="cpu"),
+                          z_order_by=["a", "b"], target_rows=100)
+    cmd.run()
+    assert set(cmd.phase_ms) == {"read", "zorder", "take", "write"}
+    assert all(v >= 0 for v in cmd.phase_ms.values())
 
 
 def _table(cols):

@@ -63,6 +63,24 @@ bounds, NaN in every seventh column. ``case`` is one of
 :data:`TAIL_CASES`: ``fresh`` (a range below cap), ``wrap`` (a negative
 start), ``past-cap`` (a range that runs past cap, whose tail is dropped),
 ``overlap`` (dead rows inside the added range, which end True).
+
+``combine_case(op, n, k, offset, seed)`` returns a flat numpy buffer of
+``n * k + offset + 3`` elements (int64 for ``sum``, u8 for ``or``, mostly
+zero) that holds the cross-shard combine's ``(n, k)`` rows at element
+``offset``; :func:`combine_rows` cuts them out of it (a numpy array or a
+tensor), contiguous, their base off a 16-byte boundary when ``offset`` is
+not a multiple of 16 bytes' elements. :func:`reference_combine` is the
+numpy oracle (the wrapping sum, the bytewise OR). ``COMBINE_KS`` and
+``COMBINE_NS`` are the widths and row counts the tests cross.
+
+``zsort_case(case)`` returns an int64 column for the Z-order sorts (the
+key's unsigned order and a column's signed rank): ``equal`` (one value),
+``sorted`` and ``reversed`` (full 64-bit keys, bit 63 set in half, in
+unsigned order and its reverse), ``narrow`` (a k = 2 key: 32 bits that
+vary, many ties), ``one`` and ``two`` (n = 1, 2), ``big`` (n = 2^22 + 5,
+random 64-bit patterns, runs of ties). ``ZSORT_CASES`` names them;
+:func:`reference_key_order` and :func:`reference_rank` are the numpy
+oracles (``np.argsort(kind="stable")`` of the unsigned key; ``rank_u16``).
 """
 import numpy as np
 
@@ -71,6 +89,9 @@ I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
 TAIL_CASES = ["fresh", "wrap", "past-cap", "overlap"]
 ADVANCE_CASES = ["slice", "keyed", "mirror"]
 COMPACT_CASES = ["none", "all", "exact", "short", "tile-edge", "band", "n-below-cap"]
+COMBINE_KS = [0, 1, 15, 16, 17, (1 << 20) + 3]
+COMBINE_NS = [1, 3, 8, 33]
+ZSORT_CASES = ["equal", "sorted", "reversed", "narrow", "one", "two", "big"]
 CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
               "m8", "n0", "full", "sentinel-padded", "crowded"]
 
@@ -259,3 +280,63 @@ def reference_compact(t, s_first, perm, out_cap):
     out[0, :len(order)] = perm[idx][order]
     out[1, :len(order)] = s_first[idx][order]
     return out
+
+
+def combine_case(op: str, n: int, k: int, offset: int = 0, seed: int = 0):
+    """A flat buffer holding (n, k) rows at element ``offset``: int64
+    across the whole range for ``sum`` (its sum wraps), sparse nonzero
+    bytes for ``or``."""
+    rng = np.random.RandomState(seed + 31 * n + k % 1000 + offset)
+    w = n * k + offset + 3
+    if op == "sum":
+        return rng.randint(I64_MIN, I64_MAX, w, dtype=np.int64)
+    return ((rng.rand(w) < 0.05) * rng.randint(1, 256, w)).astype(np.uint8)
+
+
+def combine_rows(buf, n: int, k: int, offset: int = 0):
+    """The (n, k) rows of :func:`combine_case`'s buffer (numpy or torch)."""
+    return buf[offset:offset + n * k].reshape(n, k)
+
+
+def reference_combine(rows: np.ndarray, op: str) -> np.ndarray:
+    """The combine's contract in numpy: the wrapping int64 sum, or the
+    bytewise OR of the rows."""
+    if op == "sum":
+        return rows.sum(axis=0, dtype=np.int64)
+    return np.bitwise_or.reduce(rows, axis=0).astype(np.uint8)
+
+
+def zsort_case(case: str) -> np.ndarray:
+    """An int64 column for the Z-order sorts (see the module's note)."""
+    rng = np.random.RandomState(ZSORT_CASES.index(case) + 7)
+    if case == "equal":
+        return np.full(5000, -12345, np.int64)
+    if case in ("sorted", "reversed"):
+        u = np.sort(rng.randint(I64_MIN, I64_MAX, 100_000, dtype=np.int64).view(np.uint64))
+        u[10:20] = u[10]  # ties
+        u = u if case == "sorted" else u[::-1].copy()
+        return u.view(np.int64)
+    if case == "narrow":
+        return rng.randint(0, 1 << 16, 200_000).astype(np.int64) << 16 | rng.randint(0, 4, 200_000)
+    if case == "one":
+        return np.array([I64_MIN], np.int64)
+    if case == "two":
+        return np.array([5, -5], np.int64)
+    n = (1 << 22) + 5
+    out = rng.randint(I64_MIN, I64_MAX, n, dtype=np.int64)
+    out[rng.rand(n) < 0.2] = 42  # ties
+    return out
+
+
+def reference_key_order(key: np.ndarray) -> np.ndarray:
+    """The key's stable order as unsigned (JAX's ``morton_order``'s argsort)."""
+    return np.argsort(key.view(np.uint64), kind="stable")
+
+
+def reference_rank(values: np.ndarray) -> np.ndarray:
+    """``rank_u16`` of a column: the stable sort's position scaled to
+    [0, 2^16), int32."""
+    order = np.argsort(values, kind="stable")
+    ranks = np.empty(len(values), np.int64)
+    ranks[order] = np.arange(len(values))
+    return ((ranks * 65535) // max(len(values) - 1, 1)).astype(np.int32)

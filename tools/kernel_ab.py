@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's block cull (K1), tail scatters (K2, and the tail
-apply with K3), replay (K5), sharded replay (K6), sharded block cull (K7),
-slab sort (K8), slab probe (K9), pair compaction (K10), slab updates and
-advances (K11), upload join (K12), sharded join (K13), residual mask (K14),
-expression interpreter (K15) and link probe (K17) on
-one card, on seeded inputs, for the ``delta_tpu_torch`` package under
+apply with K3), winner bits (K4), replay (K5), sharded replay (K6), sharded
+block cull (K7), slab sort (K8), slab probe (K9), pair compaction (K10), slab
+updates and advances (K11), upload join (K12), sharded join (K13), residual
+mask (K14), expression interpreter (K15), Morton interleave (K16) with
+``morton_order``'s sorts, link probe (K17) and cross-shard combine on one
+card, on seeded inputs, for the ``delta_tpu_torch`` package under
 ``--root`` (default: this checkout).
 
     python3 tools/kernel_ab.py [--root DIR]
-        [--only k1,k2,k3,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k17,l2]
+        [--only k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k16,k17,combine,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -556,10 +557,203 @@ def k17_rows(torch, dev, native, emit, cuda_ms, graph_ms, host_us, kernel_breakd
          breakdown_us=kernel_breakdown(wrapper))
 
 
+def combine_rows(torch, dev, emit, t, chip_smoke):
+    """The cross-shard combine at the mesh path's shapes and at eight
+    cards'; K13's reduction over eight cards as the package runs it: the
+    devices' unpacked hits packed by the combine (``or_pack``) and their
+    multi bytes in two launches where the package has that op, else their
+    packed hits and multi bytes ORed in one launch."""
+    from delta_tpu_torch.ops import state_cache
+    from delta_tpu_torch.parallel import mesh
+
+    rng = np.random.RandomState(41)
+
+    def rows_of(op, n, k):
+        if op == "sum":
+            return torch.from_numpy(rng.randint(-2**62, 2**62, (n, k)).astype(np.int64)).to(dev)
+        return torch.from_numpy(((rng.rand(n, k) < 0.05)
+                                 * rng.randint(1, 255, (n, k))).astype(np.uint8)).to(dev)
+
+    def timed(kernel, fn, b, **fields):
+        emit(kernel, bound_ms=b, launches=t["launched"](fn),
+             ms=[t["cuda_ms"](fn, 100) for _ in range(3)], host_us=t["host_us"](fn, 100),
+             graph_ms=t["graph_ms"](fn, 50), breakdown_us=t["kernel_breakdown"](fn), **fields)
+
+    for op, n, k in [("sum", 8, 4), ("sum", 8, 1), ("or", 1, 1), ("sum", 8, 1 << 20)]:
+        x = rows_of(op, n, k)
+        fn = lambda x=x, op=op: mesh.shard_combine(x, op)
+        if not torch.equal(fn(), mesh.shard_combine_plain(x, op)):
+            raise SystemExit(f"kernel_ab: shard_combine {op} != its plain version ({n}, {k})")
+        b, _ = chip_smoke.bound(x.numel() * x.element_size() + k * x.element_size())
+        library = ((lambda x=x: x.sum(dim=0)) if op == "sum"
+                   else (lambda x=x: torch.any(x, dim=0)))
+        timed("shard_combine", fn, b, op=op, shape=f"({n}, {k}) {x.dtype}",
+              library_ms=t["cuda_ms"](library, 100))
+    # K13 over eight cards: cap_s = 2^20 source rows
+    cap_s = 1 << 20
+    hits = torch.from_numpy((rng.rand(8, cap_s) < 0.05).astype(np.uint8)).to(dev)
+    multi = torch.from_numpy(np.array([[i == 5] for i in range(8)], np.uint8)).to(dev)
+    want = state_cache._packbits(hits.any(dim=0))
+    if "or_pack" in mesh.COMBINE_OPS:
+        hit_rows, hit_op = hits, "or_pack"
+        pair = lambda: (mesh.shard_combine(hits, "or_pack"), mesh.shard_combine(multi, "or"))
+    else:
+        hit_rows, hit_op = state_cache._packbits(hits), "or"
+        pair = lambda: mesh.shard_combine_many([(hit_rows, "or"), (multi, "or")])
+    one = lambda: mesh.shard_combine(hit_rows, hit_op)
+    got = pair()
+    if not (torch.equal(one(), want) and torch.equal(got[0], want)
+            and got[1].tolist() == [1]):
+        raise SystemExit("kernel_ab: K13's combine != the packing of the hits' OR")
+    b, _ = chip_smoke.bound(hit_rows.numel() + cap_s // 8)
+    timed("k13_hits_combine", one, b, op=hit_op, shape=f"{hit_op} of {tuple(hit_rows.shape)} u8")
+    b, _ = chip_smoke.bound(hit_rows.numel() + cap_s // 8 + 8 + 1)
+    timed("k13_combine", pair, b,
+          shape=f"{hit_op} of {tuple(hit_rows.shape)} u8 + or of (8, 1) u8")
+
+
+def k16_rows(torch, dev, emit, t, chip_smoke):
+    """K16 at k = 1..6 and at config 3's ranks; ``morton_order``'s wall on
+    config 3's two columns, split into its steps."""
+    from delta_tpu_torch.ops import zorder
+
+    n = 4_000_000
+    data = chip_smoke.store_sales(n, np.random.RandomState(5))
+    cols = [data["ss_item_sk"], data["ss_sold_date_sk"]]
+    config3 = torch.from_numpy(np.stack([zorder.rank_u16(c) for c in cols]).astype(np.int32))
+    for k in range(1, 8):
+        ranks = chip_smoke.k16_ranks(k, n, 16, dev) if k < 7 else config3.to(dev)
+        fn = lambda ranks=ranks: zorder.interleave(ranks)
+        key = fn()
+        if not torch.equal(key, zorder.interleave_plain(ranks)):
+            raise SystemExit(f"kernel_ab: morton != its plain version (k={k})")
+        flipped = key ^ torch.iinfo(torch.int64).min
+        b, _ = chip_smoke.bound(4 * ranks.numel() + 8 * n)
+        emit("morton", shape=(f"k={k} n={n} (k16_ranks)" if k < 7
+                              else f"k=2 n={n} (config 3's ranks)"),
+             bound_ms=b, launches=t["launched"](fn), ms=[t["cuda_ms"](fn, 50) for _ in range(3)],
+             host_us=t["host_us"](fn, 50), graph_ms=t["graph_ms"](fn, 20),
+             breakdown_us=t["kernel_breakdown"](fn),
+             library_ms=t["cuda_ms"](lambda: torch.sort(flipped, stable=True), 10))
+        del ranks, key, flipped
+
+    def split():
+        """One morton_order on config 3's columns, each step timed after a
+        synchronisation: (the permutation, ms by step)."""
+        if hasattr(zorder, "key_order"):  # the sorts on the card
+            return chip_smoke.morton_steps(cols, dev)
+        # the host ranks and the host argsort of the downloaded key
+        out = {}
+        torch.cuda.synchronize()
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            out[name] = (clock[-1] - clock[-2]) * 1e3
+
+        ranks = np.stack([zorder.rank_u16(c) for c in cols]).astype(np.int32)
+        lap("ranks")
+        dranks = torch.from_numpy(ranks).to(dev)
+        lap("upload")
+        key = zorder.interleave(dranks)
+        lap("interleave")
+        host_key = key.cpu().numpy()
+        lap("download")
+        perm = np.argsort(host_key.view(np.uint64), kind="stable")
+        lap("sort")
+        out["total"] = (clock[-1] - clock[0]) * 1e3
+        return perm, out
+
+    perm, _ = split()
+    walls = [split()[1] for _ in range(5)]
+    walls.sort(key=lambda w: w["total"])
+    emit("morton_order", shape=f"k=2 n={n} (config 3's ss_item_sk, ss_sold_date_sk)",
+         split_ms=walls[2], totals_ms=[w["total"] for w in walls],
+         perm_head=[int(i) for i in perm[:4]])
+    emit("optimize", **optimize_wall(torch, dev, chip_smoke, data))
+
+
+def optimize_wall(torch, dev, chip_smoke, data):
+    """Bench config 3's OPTIMIZE ZORDER BY as ``chip_smoke.run_zorder``
+    runs it (4M rows appended in 8 commits, files of 500,000 rows): its
+    wall, twice on fresh copies, with ``phase_ms`` where the command has
+    it."""
+    import shutil
+    import tempfile
+
+    from delta_tpu_torch import DeltaLog, WriteIntoDelta
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+
+    n = len(data["ss_item_sk"])
+    step = n // 8
+    out = {"shape": f"n={n} ZORDER BY (ss_item_sk, ss_sold_date_sk)", "wall_s": [],
+           "phase_ms": []}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_", dir=os.path.join(HERE, "build")) as d:
+        src = os.path.join(d, "src")
+        log = DeltaLog.for_table(src, device=dev)
+        for i in range(8):
+            WriteIntoDelta(log, "append",
+                           {c: v[i * step:(i + 1) * step] for c, v in data.items()}).run()
+        for r in range(2):
+            path = os.path.join(d, f"run{r}")
+            shutil.copytree(src, path)
+            DeltaLog.clear_cache()
+            cmd = OptimizeCommand(DeltaLog.for_table(path, device=dev),
+                                  z_order_by=["ss_item_sk", "ss_sold_date_sk"], target_rows=step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmd.run()
+            torch.cuda.synchronize()
+            out["wall_s"].append(time.perf_counter() - t0)
+            out["phase_ms"].append(dict(getattr(cmd, "phase_ms", {})))
+    return out
+
+
+def k4_rows(torch, dev, emit, t, chip_smoke, state_export):
+    """K4 at the log stream's path ids padded to 2^20 (the main path's) and
+    at phase 3's random ids."""
+    from delta_tpu_torch.ops import native, replay_kernel
+
+    log, _ = replay_streams(chip_smoke, state_export)["log"]
+    rng = np.random.RandomState(13)
+    n = 1 << 20
+    pid_log = np.full(n, -1, np.int32)
+    pid_log[:log.num_rows] = log.path_id
+    pid_rand = rng.randint(0, n // 10, n).astype(np.int32)
+    pid_rand[-(n // 64):] = -1
+    for name, pid_np, num_paths in (("log", pid_log, len(log.paths)),
+                                    ("random", pid_rand, n // 10)):
+        pid = torch.from_numpy(pid_np).to(dev)
+        fn = lambda pid=pid, num_paths=num_paths: replay_kernel.winner_bits(pid, num_paths)
+        if not torch.equal(fn(), replay_kernel.winner_bits_plain(pid, num_paths)):
+            raise SystemExit(f"kernel_ab: winner_bits != its plain version ({name})")
+        out = torch.empty(n // 8, dtype=torch.uint8, device=dev)
+        last = torch.empty(num_paths, dtype=torch.int32, device=dev)
+        err = torch.empty(1, dtype=torch.int32, device=dev)
+        # the launch alone, without the wrapper's read of the error word
+        launch = lambda pid=pid, num_paths=num_paths, out=out, last=last, err=err: native.call(
+            "winner_bits", dev, pid.data_ptr(), n, last.data_ptr(), num_paths, err.data_ptr(),
+            out.data_ptr())
+        valid = pid >= 0
+        pid64, idx = pid[valid].long(), torch.arange(n, device=dev)[valid]
+        last64 = torch.empty(num_paths, dtype=torch.int64, device=dev)
+        b, _ = chip_smoke.bound(4 * n + n // 8)
+        emit("winner_bits", stream=name, shape=f"n={n} num_paths={num_paths}", bound_ms=b,
+             launches=t["launched"](fn), ms=[t["cuda_ms"](fn, 50) for _ in range(3)],
+             host_us=t["host_us"](fn, 50), graph_ms=t["graph_ms"](launch, 20),
+             breakdown_us=t["kernel_breakdown"](fn),
+             library_ms=t["cuda_ms"](lambda: last64.fill_(-1).scatter_reduce_(
+                 0, pid64, idx, "amax"), 50))
+        del pid, out, last, err, pid64, idx, last64
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="k1,k2,k3,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k17,l2")
+    ap.add_argument("--only", default="k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k16,"
+                                      "k17,combine,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -1014,6 +1208,13 @@ def main() -> int:
         emit("expr_eval", shape=f"n=1005000 ({sql}, a NULL in the last row only)",
              valid_rows_differing=[int((device_eval.expr_eval(program, tail).valid != ref.valid)
                                        .sum()) for _ in range(3)])
+
+    if "combine" in only:
+        combine_rows(torch, dev, emit, timers, chip_smoke)
+    if "k16" in only:
+        k16_rows(torch, dev, emit, timers, chip_smoke)
+    if "k4" in only:
+        k4_rows(torch, dev, emit, timers, chip_smoke, state_export)
 
     if "l2" in only:
         table = torch.randint(0, 1 << 62, (1 << 21,), dtype=torch.int64, device=dev)
