@@ -15,7 +15,12 @@ Phases, each reported on its own line:
    with 8..1024 rows (pads included) and the tail apply (K3 with K2 on its
    launch) at C=1 and 4 on ``tests/torch_kernel_cases.py``'s tails (wrapped
    and dropped rows, a range past cap, dead rows inside the added range),
-   the winner bits at n=2^20 and 2^24, the expression
+   the winner bits (K4) at n = 8, 2^20 and 2^24 on
+   ``tests/torch_kernel_cases.py``'s streams (config 5's and 6's shapes,
+   random ids, one path on every row, zipf ids, num_paths = 1, all pads, no
+   pad), twice in a row on one table (the first call must leave it valid),
+   off a 16-byte boundary, and an out-of-range id, which
+   ``winner_mask_device`` must raise, the expression
    interpreter (K15) at 2^20 rows over a corpus of programs that covers
    every opcode and dtype (NaN and ±inf lanes, timestamps before 1970,
    int32 overflow, saturating casts, an IN with a NULL in a column option),
@@ -67,9 +72,12 @@ Phases, each reported on its own line:
    may price the host side cheaper): a 1M-file table laid out as the hot-plan
    benchmark's
    config 6 (``bench.py:915-1000``, seed 13: 4 stats columns, well
-   clustered) written as JSON commits through the port's LogStore (v0 =
-   protocol + metadata, then 10 commits of 100k adds); ``DeltaLog`` on the
-   card; ``files_for_scan`` for 256 point-range predicates; the same 256 as
+   clustered) in the bench's layout (``bench.py:959-985``): v0's JSON
+   commit holds protocol + metadata, and the checkpoint at version 0,
+   written by the port's ``write_checkpoint``, holds them and the 1M adds
+   (its write and decode times printed); ``DeltaLog`` on the card (the
+   segment the checkpoint, its typed ``stats_parsed`` lanes the resident
+   build's); ``files_for_scan`` for 256 point-range predicates; the same 256 as
    one batched plan; 10 tail commits (1k adds + 500 removes each), each
    applied incrementally in one upload and one launch (``tail_apply``: K3
    with K2 on its launch) and re-planned; ``replay_columns`` on the card.
@@ -81,8 +89,16 @@ Phases, each reported on its own line:
    K15 interpreter on the card and checked file for file against the host
    prune (``_prune_host``, numpy); one query that synthesis makes exact,
    served by the resident planner; ``replay_alive_mask`` over the log's
-   whole action stream, whose alive set must be the snapshot's live files
-   and whose tombstones the host replay's;
+   whole action stream (the checkpoint's actions, then the tails), whose
+   alive set must be the snapshot's live files and whose tombstones the host
+   replay's; then bench config 5 (``bench.py:815-908``: seed 7, 10,000
+   versions of 20 actions over 50,000 path names, the checkpoint at version
+   5,000, written through the port's LogStore and ``write_checkpoint``), the
+   counters set to 0 again: ``decode_segment`` of the checkpoint and its
+   tail and ``replay_columns`` with K4 on the card, three times; the live
+   file count equal to the sequential host replay's (``bench.py:858-872``),
+   the winner mask to the host winner; ``decode_ms``, ``device_winner_ms``,
+   ``host_winner_ms`` and the host replay's ms on one JSON line;
 6. the MERGE key slab on bench config 2 (``bench.py:165-260``), with the
    counters set to 0 again: the 10M-row ``_store_sales`` target written
    through the port's Parquet writer (files of at most 4M rows, stats from
@@ -234,7 +250,7 @@ from delta_tpu_torch.parallel import link, mesh
 from delta_tpu_torch.utils.config import conf
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
-    AddFile, Metadata, Protocol, RemoveFile, actions_from_lines,
+    AddFile, Metadata, Protocol, RemoveFile,
 )
 from delta_tpu_torch.protocol.deletion_vectors import write_deletion_vector
 from delta_tpu_torch.schema.types import (
@@ -243,9 +259,9 @@ from delta_tpu_torch.schema.types import (
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 N_FILES = 1_000_000
-N_COMMITS = 10
 N_QUERIES = 256
 N_TAILS = 10
+TOMB_CUTOFF = N_TAILS // 2  # tails v1-v10 remove at their version: v6-v10 are retained
 TAIL_ADDS, TAIL_REMOVES = 1000, 500
 SEED = 13
 # bench config 2 (bench.py:165-260): the MERGE upsert's target and source
@@ -408,16 +424,7 @@ def synthetic_checks(dev):
     say("kernels: scatter_bool, scatter_cols cap=2^20 d=a=8..1024 exact")
     tail_checks(dev)
 
-    for n in (1 << 20, 1 << 24):
-        num_paths = n // 10
-        pid = rng.randint(0, num_paths, n).astype(np.int32)
-        pid[-(n // 64):] = -1  # pads
-        p = torch.from_numpy(pid).to(dev)
-        got = replay_kernel.winner_bits(p, num_paths)
-        torch.cuda.synchronize()
-        check(torch.equal(got, replay_kernel.winner_bits_plain(p, num_paths)),
-              f"winner_bits != plain at n={n}")
-    say("kernels: winner_bits n=2^20, 2^24 exact")
+    k4_checks(dev)
     k15_checks(dev)
     k5_checks(dev)
     slab_checks(dev)
@@ -456,6 +463,42 @@ def tail_checks(dev):
                   f"tail_apply != plain at C={c} ({case})")
     say(f"kernels: tail_apply C=1, 4 cap=2^20 d=512 (wrapped and dropped rows), "
         f"{', '.join(cases.TAIL_CASES)}: exact")
+
+
+def k4_checks(dev):
+    """K4 on ``tests/torch_kernel_cases.py``'s streams (config 5's and 6's
+    shapes, random, one path everywhere, zipf, num_paths = 1, all pads, no
+    pad) at n = 8, 2^20 and 2^24, twice in a row on one
+    table (the first call must leave it clean), on a base off a 16-byte
+    boundary, and an out-of-range id, which ``winner_mask_device`` must
+    raise, after which the table is clean again."""
+    cases = kernel_cases()
+    WINNER_CASES, winner_case, reference_winner = (cases.WINNER_CASES, cases.winner_case,
+                                                   cases.reference_winner)
+    for n in (8, 1 << 20, 1 << 24):
+        for case in WINNER_CASES:
+            pid, num_paths = winner_case(case, n)
+            p = torch.from_numpy(pid).to(dev)
+            ref = replay_kernel.winner_bits_plain(p, num_paths)
+            for rep in range(2):
+                got = replay_kernel.winner_bits(p, num_paths)
+                check(torch.equal(got, ref), f"winner_bits != plain: {case} n={n} call {rep}")
+            del p, ref
+    pid, num_paths = winner_case("zipf", 1 << 20)
+    buf = torch.from_numpy(np.concatenate([[0], pid[:1000]]).astype(np.int32)).to(dev)
+    check(torch.equal(replay_kernel.winner_bits(buf[1:], num_paths),
+                      replay_kernel.winner_bits_plain(buf[1:], num_paths)),
+          "winner_bits != plain off a 16-byte boundary")
+    try:
+        replay_kernel.winner_mask_device(np.array([0, 3, 9, -1], np.int32), 9, device=dev)
+        raise SmokeFailure("winner_mask_device took an id >= num_paths")
+    except ValueError:
+        pass
+    got = replay_kernel.winner_mask_device(pid, num_paths, device=dev)
+    check(np.array_equal(np.packbits(got), reference_winner(pid)),
+          "winner_mask_device after an out-of-range id")
+    say(f"kernels: winner_bits n=8, 2^20, 2^24 x {WINNER_CASES}, "
+        "twice a table, a base off 16 bytes: exact; an out-of-range id raised")
 
 
 def k17_checks(dev):
@@ -1240,8 +1283,13 @@ def k16_checks(dev):
 def write_config6_table(path):
     """The hot-plan benchmark's config 6 table (bench.py:915-1000, seed 13):
     N_FILES files, 4 indexed stats columns (c0/c2 long, c1/c3 double), each
-    file covering a narrow range per column, as JSON commits."""
+    file covering a narrow range per column, laid out as the bench lays it
+    out (``bench.py:959-985``): version 0's JSON commit holds the protocol
+    and the metadata, and the checkpoint at version 0, written by the port's
+    ``write_checkpoint``, holds them and the N_FILES adds. Returns the
+    store, the queries and the checkpoint's write seconds."""
     log_path = os.path.join(path, "_delta_log")
+    from delta_tpu_torch.log import checkpoints
     from delta_tpu_torch.storage.logstore import LocalLogStore
 
     store = LocalLogStore()
@@ -1249,27 +1297,26 @@ def write_config6_table(path):
     schema = StructType()
     for c in range(4):
         schema = schema.add(f"c{c}", DoubleType() if c % 2 else LongType())
-    store.write(f"{log_path}/{filenames.delta_file(0)}",
-                [Protocol(1, 2).json(), Metadata(schema_string=schema.to_json()).json()])
+    proto, meta = Protocol(1, 2), Metadata(schema_string=schema.to_json())
+    store.write(f"{log_path}/{filenames.delta_file(0)}", [proto.json(), meta.json()])
     base = {f"c{c}": np.sort(rng.rand(N_FILES) * 1e6) if c % 2 else
             np.sort(rng.randint(0, 1 << 40, N_FILES).astype(np.int64))
             for c in range(4)}
     width = {f"c{c}": 1e6 / N_FILES * 8 if c % 2 else max((1 << 40) // N_FILES * 8, 1)
              for c in range(4)}
-    per = N_FILES // N_COMMITS
     nulls = {c: 0 for c in base}
-    for v in range(N_COMMITS):
-        lines = []
-        for i in range(v * per, (v + 1) * per):
-            mins = {c: (float(x[i]) if c in ("c1", "c3") else int(x[i])) for c, x in base.items()}
-            maxs = {c: (float(x[i] + width[c]) if c in ("c1", "c3") else int(x[i] + width[c]))
-                    for c, x in base.items()}
-            stats = json.dumps({"numRecords": 10000, "minValues": mins,
-                                "maxValues": maxs, "nullCount": nulls})
-            lines.append(AddFile(path=f"part-{i:07d}.parquet", size=1 << 20,
-                                 modification_time=0, data_change=False,
-                                 stats=stats).json())
-        store.write(f"{log_path}/{filenames.delta_file(v + 1)}", lines)
+    adds = []
+    for i in range(N_FILES):
+        mins = {c: (float(x[i]) if c in ("c1", "c3") else int(x[i])) for c, x in base.items()}
+        maxs = {c: (float(x[i] + width[c]) if c in ("c1", "c3") else int(x[i] + width[c]))
+                for c, x in base.items()}
+        stats = json.dumps({"numRecords": 10000, "minValues": mins,
+                            "maxValues": maxs, "nullCount": nulls})
+        adds.append(AddFile(path=f"part-{i:07d}.parquet", size=1 << 20,
+                            modification_time=0, data_change=False, stats=stats))
+    t0 = time.perf_counter()
+    checkpoints.write_checkpoint(store, log_path, 0, [proto, meta] + adds)
+    write_s = time.perf_counter() - t0
     queries = []
     for _ in range(N_QUERIES):
         i = rng.randint(N_FILES)
@@ -1277,7 +1324,7 @@ def write_config6_table(path):
         lo1 = float(base["c1"][i])
         queries.append(f"c0 >= {lo0} AND c0 <= {lo0 + int(width['c0'])} "
                        f"AND c1 >= {lo1:.6f} AND c1 <= {lo1 + width['c1']:.6f}")
-    return store, queries
+    return store, queries, write_s
 
 
 def write_tail_commit(store, log_path, version, rng, live):
@@ -1333,9 +1380,11 @@ def check_batch(entry, ranges, label):
 def run_slice(dev, workdir):
     path = os.path.join(workdir, "config6")
     t0 = time.perf_counter()
-    store, queries = write_config6_table(path)
-    say(f"slice: wrote {N_FILES} files in {N_COMMITS} JSON commits in "
-        f"{time.perf_counter() - t0:.3f} s")
+    store, queries, write_s = write_config6_table(path)
+    parts = config6_checkpoint(store, os.path.join(path, "_delta_log"))
+    say(f"slice: wrote {N_FILES} files as the checkpoint at version 0 ({len(parts)} parts, "
+        f"{sum(os.path.getsize(p) for p in parts) / 1e6:.1f} MB) in {write_s:.3f} s "
+        f"(the table in {time.perf_counter() - t0:.3f} s)")
 
     native.reset_launches()  # -- the main path starts here
     DeltaLog.clear_cache()
@@ -1346,6 +1395,10 @@ def run_slice(dev, workdir):
     snap = log.update()
     check(snap.num_of_files == N_FILES, f"snapshot has {snap.num_of_files} files")
     decode_s = time.perf_counter() - t0
+    check(snap.segment.checkpoint_version == 0 and snap._columnar.stats_parsed is not None,
+          "the snapshot did not decode the checkpoint's typed stats")
+    say(f"slice: decode of the checkpoint {decode_s:.3f} s (PERF.md section 5 has the decode "
+        "of the same table as JSON commits, on another host: no A/B)")
     t0 = time.perf_counter()
     entry = state_cache.DeviceStateCache.instance().get(snap)
     check(entry is not None, "no resident entry")
@@ -1378,7 +1431,7 @@ def run_slice(dev, workdir):
     live = list(entry.paths)
     tail_ms, tail_plan_ms = [], []
     for t in range(N_TAILS):
-        v = N_COMMITS + 1 + t
+        v = 1 + t
         write_tail_commit(store, log.log_path, v, rng, live)
         snap = log.update()
         torch.cuda.synchronize()
@@ -1433,9 +1486,31 @@ def fallback_queries():
     return declined, exact
 
 
-def log_actions(store, log_path, version):
-    return [(v, actions_from_lines(store.read(f"{log_path}/{filenames.delta_file(v)}")))
-            for v in range(version + 1)]
+def config6_checkpoint(store, log_path):
+    """The paths of config 6's checkpoint at version 0 (its parts: a
+    million and two actions take two at the default part size, as in the
+    JAX package), from ``_last_checkpoint``."""
+    from delta_tpu_torch.log import checkpoints
+
+    md = checkpoints.read_last_checkpoint(store, log_path)
+    check(md is not None and md.version == 0, "config 6: no checkpoint at version 0")
+    return checkpoints.CheckpointInstance(md.version, md.parts).paths(log_path)
+
+
+def config6_stream(store, log_path, version):
+    """Config 6's whole action stream (the checkpoint at version 0's rows,
+    then each commit's up to ``version``) as the replay's arrays, decoded by
+    ``decode_segment``: its row order is the replay order, so a row's seq is
+    its index."""
+    from delta_tpu_torch.log.columnar import decode_segment
+
+    cols = decode_segment(store, config6_checkpoint(store, log_path),
+                          [f"{log_path}/{filenames.delta_file(v)}"
+                           for v in range(1, version + 1)])
+    return state_export.ReplayArrays(
+        paths=cols.path_dict, path_id=cols.path_id,
+        seq=np.arange(cols.num_rows, dtype=np.int64), is_add=cols.is_add, size=cols.size,
+        deletion_timestamp=cols.deletion_timestamp)
 
 
 def run_fallback(dev, ctx):
@@ -1461,10 +1536,10 @@ def run_fallback(dev, ctx):
     s_exact = pruning.files_for_scan(snap, [parse_expression(exact)])
     check(native.launches["block_cull"] > 0, f"{exact!r} was not served by the resident planner")
     t0 = time.perf_counter()
-    stream = state_export.actions_to_arrays(log_actions(store, log.log_path, snap.version))
+    stream = config6_stream(store, log.log_path, snap.version)
     stream_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rep = replay_kernel.replay_alive_mask(stream, min_retention_ts=N_COMMITS + 5, device=dev)
+    rep = replay_kernel.replay_alive_mask(stream, min_retention_ts=TOMB_CUTOFF, device=dev)
     replay_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(native.launches)  # -- the normal leg's path ends here
     say(f"normal leg: launches {launches}")
@@ -1493,7 +1568,7 @@ def run_fallback(dev, ctx):
     # the replay against the snapshot and the host replay
     live = {stream.paths[stream.path_id[i]] for i in np.nonzero(rep.alive)[0]}
     check(live == {f.path for f in files}, "replay_alive_mask: alive set != the snapshot's files")
-    _, tomb = snap._columnar.replay(min_retention_ts=N_COMMITS + 5)
+    _, tomb = snap._columnar.replay(min_retention_ts=TOMB_CUTOFF)
     check(int(rep.stats.num_tombstones) == int(tomb.sum()) > 0,
           f"replay_alive_mask: {int(rep.stats.num_tombstones)} tombstones, host {int(tomb.sum())}")
     check(int(rep.stats.num_files) == len(files), "replay_alive_mask: file count")
@@ -1506,6 +1581,120 @@ def run_fallback(dev, ctx):
         f"all_files {all_files_s:.3f} s once")
     ctx.update(fallback_launches=launches, stream=stream, files=files, declined=declined,
                fallback_p50_ms=p50)
+
+
+# -- phase 5b: bench config 5, a checkpointed log's replay ------------------------
+
+# bench config 5 (bench.py:815-908): 10,000 versions of 20 actions over 50,000
+# path names, the checkpoint at version 5,000
+C5_VERSIONS, C5_PER_COMMIT, C5_PATHS, C5_SEED = 10_000, 20, 50_000, 7
+
+
+def write_config5_log(log_path, n_versions=C5_VERSIONS, per_commit=C5_PER_COMMIT,
+                      n_paths=C5_PATHS, seed=C5_SEED):
+    """Bench config 5's log through the port's LogStore: each version's
+    commit of ``per_commit`` actions (85% adds of a fresh file name of one
+    of ``n_paths`` parts, else removes), and at version ``n_versions // 2``
+    the port's ``write_checkpoint`` of the live files (``bench.py:827-853``).
+    Returns (store, checkpoint paths, delta paths after it, live files)."""
+    from delta_tpu_torch.log import checkpoints
+    from delta_tpu_torch.storage.logstore import LocalLogStore
+
+    store = LocalLogStore()
+    rng = np.random.RandomState(seed)
+    ckpt_v = n_versions // 2
+    active = {}
+    for v in range(n_versions):
+        lines = []
+        for _ in range(per_commit):
+            p = f"part-{rng.randint(n_paths):05d}-{v}.parquet"
+            if rng.rand() < 0.85:
+                sz = int(rng.randint(1, 1 << 24))
+                lines.append(json.dumps({"add": {
+                    "path": p, "partitionValues": {}, "size": sz,
+                    "modificationTime": v, "dataChange": True}}))
+                active[p] = sz
+            else:
+                lines.append(json.dumps({"remove": {
+                    "path": p, "deletionTimestamp": v * 1000, "dataChange": True}}))
+                active.pop(p, None)
+        store.write(f"{log_path}/{filenames.delta_file(v)}", lines)
+        if v == ckpt_v:
+            checkpoints.write_checkpoint(store, log_path, v, [
+                AddFile(path=p, size=s_, modification_time=0, data_change=False)
+                for p, s_ in active.items()])
+    ckpt_paths = [f"{log_path}/{filenames.checkpoint_file_single(ckpt_v)}"]
+    deltas = [f"{log_path}/{filenames.delta_file(v)}" for v in range(ckpt_v + 1, n_versions)]
+    return store, ckpt_paths, deltas, active
+
+
+def host_replay(store, ckpt_paths, deltas):
+    """The sequential object replay of ``bench.py:858-872``: the checkpoint's
+    actions, then each commit line by line; the live file count."""
+    from delta_tpu_torch.log import checkpoints
+    from delta_tpu_torch.protocol.actions import action_from_json
+
+    state = {}
+    for a in checkpoints.read_checkpoint_actions(store, ckpt_paths):
+        if isinstance(a, AddFile):
+            state[a.path] = a.size
+    for p in deltas:
+        for line in store.read(p):
+            a = action_from_json(line)
+            if isinstance(a, AddFile):
+                state[a.path] = a.size
+            elif isinstance(a, RemoveFile):
+                state.pop(a.path, None)
+    return len(state)
+
+
+def run_config5(dev, workdir):
+    """Bench config 5 on the card: the log written through the port's
+    LogStore and ``write_checkpoint``, then (the counters set to 0 just
+    before) ``decode_segment`` of the checkpoint and its 4,999-commit tail
+    and ``replay_columns`` with K4 on the card, three times; the live count
+    against the sequential host replay, the winner mask against the host
+    winner."""
+    from delta_tpu_torch.log.columnar import decode_segment
+
+    log_path = os.path.join(workdir, "config5", "_delta_log")
+    t0 = time.perf_counter()
+    store, ckpt_paths, deltas, active = write_config5_log(log_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_n = host_replay(store, ckpt_paths, deltas)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(host_n == len(active), f"config 5: host replay {host_n} != {len(active)} live files")
+
+    native.reset_launches()  # -- the config 5 path starts here
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cols = decode_segment(store, ckpt_paths, deltas)
+        t1 = time.perf_counter()
+        r = replay_kernel.replay_columns(cols, min_retention_ts=0, device=dev)
+        t2 = time.perf_counter()
+        runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        check(int(r.stats.num_files) == host_n,
+              f"config 5: {int(r.stats.num_files)} live files on the card, host {host_n}")
+    launches = dict(native.launches)  # -- the config 5 path ends here
+    check(launches["winner_bits"] == 3, f"config 5: winner_bits launched {launches}")
+    t0 = time.perf_counter()
+    host_alive, host_tomb = cols.replay(0)
+    host_winner_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(r.alive, host_alive) and np.array_equal(r.tombstone, host_tomb),
+          "config 5: the card's winner mask differs from the host winner")
+    dev_mask = replay_kernel.winner_mask_device(cols.path_id, cols.num_paths, device=dev)
+    check(np.array_equal(dev_mask, cols.winner_mask()), "config 5: winner_mask_device != host")
+    decode_ms, winner_ms = min(runs)
+    say(f"config 5: {C5_VERSIONS} versions of {C5_PER_COMMIT} actions over {C5_PATHS} paths, "
+        f"the checkpoint at {C5_VERSIONS // 2} ({len(ckpt_paths)} part), written in "
+        f"{write_s:.3f} s; {cols.num_rows} rows, {cols.num_paths} paths, {host_n} live files "
+        "on the card and in the host replay, the winner mask equal to the host winner")
+    say(json.dumps({"config5": {"decode_ms": decode_ms, "device_winner_ms": winner_ms,
+                                "host_winner_ms": host_winner_ms, "host_replay_ms": host_ms,
+                                "runs_ms": runs, "launches": launches}}))
+    return {"cols": cols, "launches": launches}
 
 
 # -- phase 6: the MERGE key slab on bench config 2 -------------------------------
@@ -2908,7 +3097,7 @@ def measure_normal_leg(dev, ctx):
             for a, dt, fill in ((stream.path_id, np.int32, -1), (stream.seq, np.int64, 0),
                                 (stream.is_add, bool, False), (stream.size, np.int64, 0),
                                 (stream.deletion_timestamp, np.int64, 0))]
-    num_paths, cutoff = len(stream.paths), N_COMMITS + 5
+    num_paths, cutoff = len(stream.paths), TOMB_CUTOFF
     got = replay_kernel.replay(*cols, num_paths, cutoff)
     ref = replay_kernel.replay_plain(*cols, num_paths, cutoff)
     check(all(torch.equal(g, r) for g, r in zip(got, ref)), "replay != plain on the log's stream")
@@ -3287,7 +3476,7 @@ def run_mesh(dev, c6, c2a, workdir):
 
     t_phase = time.perf_counter()
     entry, ranges, stream = c6["entry"], c6["ranges"], c6["stream"]
-    cutoff = N_COMMITS + 5
+    cutoff = TOMB_CUTOFF
     force1 = {"delta.tpu.stateCache.devicePlan.mode": "force",
               "delta.tpu.distributed.plan.enabled": False}
     force8 = {"delta.tpu.stateCache.devicePlan.mode": "force",
@@ -3519,7 +3708,12 @@ def main() -> int:
         with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
             ctx = run_slice(dev, workdir)
             run_fallback(dev, ctx)
+        c5 = run_config5(dev, workdir)
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
+        for k in kernels:  # K4 runs on phase 4's path and on config 5's
+            if k["name"] == "winner_bits":
+                k["launches"] += c5["launches"]["winner_bits"]
+        c5 = None
         kernels += measure_normal_leg(dev, ctx)
         c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"], "stream": ctx["stream"]}
         ctx = None  # the rest of the scan phases' host state is done with

@@ -23,7 +23,7 @@ __all__ = ["PLAIN", "PLAIN_DICTIONARY", "RLE", "RLE_DICTIONARY",
            "BYTE_STREAM_SPLIT", "ENCODING_NAMES", "BOOLEAN", "INT32", "INT64", "INT96",
            "FLOAT", "DOUBLE", "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY", "TYPE_NAMES",
            "read_varint", "decode_hybrid", "decode_plain", "decode_byte_stream_split",
-           "decode_dictionary_indices", "encode_hybrid_bits", "encode_plain"]
+           "decode_dictionary_indices", "encode_hybrid_bits", "encode_hybrid", "encode_plain"]
 
 # Encoding (parquet.thrift)
 PLAIN, PLAIN_DICTIONARY, RLE = 0, 2, 3
@@ -228,3 +228,24 @@ def encode_plain(ptype: int, values) -> bytes:
             out[np.repeat(starts + 4 - data_starts, lens) + np.arange(data.size)] = data
         return out.tobytes()
     raise EncodingError(f"PLAIN {TYPE_NAMES.get(ptype, ptype)} is not encoded here")
+
+
+def encode_hybrid(values: np.ndarray, bit_width: int) -> bytes:
+    """The hybrid of ``bit_width``-bit values (definition and repetition
+    levels): one RLE run when all agree, else one bit-packed run."""
+    vals = np.asarray(values, np.int64)
+    n = len(vals)
+    out = bytearray()
+    if n == 0 or bit_width == 0:
+        return b""
+    if (vals == vals[0]).all():
+        _put_varint(out, n << 1)
+        out += int(vals[0]).to_bytes((bit_width + 7) // 8, "little")
+        return bytes(out)
+    groups = (n + 7) // 8
+    padded = np.zeros(groups * 8, np.int64)
+    padded[:n] = vals
+    bits = ((padded[:, None] >> np.arange(bit_width)) & 1).astype(np.uint8).ravel()
+    _put_varint(out, (groups << 1) | 1)
+    out += np.packbits(bits, bitorder="little").tobytes()
+    return bytes(out)

@@ -671,3 +671,570 @@ def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
     os.replace(tmp, abs_path)
     st_ = os.stat(abs_path)
     return st_.st_size, int(st_.st_mtime * 1000)
+
+
+# -- nested columns (checkpoints) -------------------------------------------------
+#
+# What ``pyarrow`` does for the JAX package's checkpoint reads and writes
+# (``log/columnar.py:492`` ``decode_checkpoint_parts``, ``log/checkpoints.py:
+# 863-921``): struct, map and list columns by definition and repetition
+# levels (Dremel), vectorised in numpy: a column's levels decode run by run,
+# and the structure (validity, list offsets) of every node on a leaf's path
+# comes from a few masks and searches over them, with no loop over rows.
+
+_MAP, _MAP_KEY_VALUE, _LIST = 1, 2, 3
+
+
+class NCol:
+    """A decoded (or to be written) column of ``n`` slots.
+
+    ``kind`` is ``"leaf"`` (``values``: numpy, object for strings and
+    binary, zero or None where invalid; ``stype`` the stored type),
+    ``"struct"`` (``fields``: name -> NCol over the same slots), ``"list"``
+    (``offsets``: int64 ``(n + 1,)``, ``element``: NCol over the elements)
+    or ``"map"`` (as a list, ``element`` a struct whose first field is the
+    key and whose second is the value). ``valid`` is the slot's validity.
+    ``unsupported`` names what the codec lacks where a leaf could not be
+    decoded (its values are then unavailable, its validity is exact)."""
+
+    __slots__ = ("kind", "valid", "values", "stype", "fields", "offsets", "element",
+                 "unsupported")
+
+    def __init__(self, kind, valid, values=None, stype=None, fields=None, offsets=None,
+                 element=None, unsupported=None):
+        self.kind, self.valid, self.values, self.stype = kind, valid, values, stype
+        self.fields, self.offsets, self.element = fields, offsets, element
+        self.unsupported = unsupported
+
+    def __len__(self) -> int:
+        return len(self.valid)
+
+    def field(self, name: str) -> Optional["NCol"]:
+        return self.fields.get(name) if self.kind == "struct" else None
+
+    def to_py(self, rows=None) -> List[Any]:
+        """Python values of the slots (all, or ``rows``): None where
+        invalid, a dict for a struct, a list for a list, a dict for a map
+        (the first of equal keys kept, as ``pyarrow``'s map lookup); dates,
+        timestamps as epoch days, µs."""
+        idx = np.arange(len(self)) if rows is None else np.asarray(rows, np.int64)
+        ok = self.valid[idx]
+        if self.kind == "leaf":
+            if self.unsupported:
+                if ok.any():
+                    raise _unsupported(self.unsupported[0], self.unsupported[1])
+                return [None] * len(idx)
+            vals = self.values[idx].tolist()
+            return [v if k else None for v, k in zip(vals, ok.tolist())]
+        if self.kind == "struct":
+            cols = {k: c.to_py(idx) for k, c in self.fields.items()}
+            names = list(cols)
+            return [({k: cols[k][i] for k in names} if ok[i] else None)
+                    for i in range(len(idx))]
+        lo, hi = self.offsets[idx], self.offsets[idx + 1]
+        flat = self.element.to_py(np.concatenate([np.arange(a, b) for a, b in
+                                                  zip(lo.tolist(), hi.tolist())])
+                                  if len(idx) else np.zeros(0, np.int64))
+        out: List[Any] = []
+        pos = 0
+        for i, k in enumerate(ok.tolist()):
+            m = int(hi[i] - lo[i])
+            part = flat[pos:pos + m]
+            pos += m
+            if not k:
+                out.append(None)
+            elif self.kind == "list":
+                out.append(part)
+            else:
+                keys = list(self.element.fields)
+                d: Dict[Any, Any] = {}
+                for kv in part:
+                    d.setdefault(kv[keys[0]], kv[keys[1]])
+                out.append(d)
+        return out
+
+
+class _SNode:
+    """A schema element in the tree, with the definition and repetition
+    levels at it."""
+
+    __slots__ = ("el", "name", "children", "d", "r", "leaf")
+
+    def __init__(self, el, d, r):
+        self.el, self.name, self.children, self.d, self.r, self.leaf = el, el.name, [], d, r, -1
+
+
+def _schema_tree(schema) -> _SNode:
+    root = _SNode(schema[0], 0, 0)
+    pos, leaf = 1, 0
+
+    def build(parent: _SNode, count: int):
+        nonlocal pos, leaf
+        for _ in range(count):
+            el = schema[pos]
+            pos += 1
+            rep = el.repetition_type or 0
+            node = _SNode(el, parent.d + (rep != 0), parent.r + (rep == REPEATED))
+            parent.children.append(node)
+            if el.num_children:
+                build(node, el.num_children)
+            else:
+                node.leaf = leaf
+                leaf += 1
+
+    build(root, root.el.num_children or 0)
+    return root
+
+
+def _levels_bits(max_level: int) -> int:
+    return max(int(max_level).bit_length(), 0)
+
+
+def _read_leaf_chunk(data, md, node: _SNode, name: str):
+    """One leaf's column chunk: (definition levels, repetition levels, the
+    dense values of the entries at the leaf's full definition level)."""
+    ptype = md.type
+    max_d, max_r = node.d, node.r
+    wd, wr = _levels_bits(max_d), _levels_bits(max_r)
+    pos = (md.dictionary_page_offset if md.dictionary_page_offset
+           else md.data_page_offset)
+    pos = min(pos, md.data_page_offset)
+    end = pos + md.total_compressed_size
+    dictionary = None
+    defs: List[np.ndarray] = []
+    reps: List[np.ndarray] = []
+    values: List[Any] = []
+    seen = 0
+    while seen < md.num_values:
+        ph, pos = thrift.read(thrift.PageHeader, data, pos)
+        body_end = pos + ph.compressed_page_size
+        if body_end > end:
+            raise ValueError(f"Parquet column {name!r}: page runs past its column chunk")
+        if ph.type == DICTIONARY_PAGE:
+            dh = ph.dictionary_page_header
+            page = _decompress(md.codec, bytes(data[pos:body_end]), ph.uncompressed_page_size,
+                               name)
+            dictionary = _as_array(ptype, enc.decode_plain(page, 0, len(page), ptype,
+                                                           dh.num_values))
+        elif ph.type in (DATA_PAGE, DATA_PAGE_V2):
+            if ph.type == DATA_PAGE:
+                dh = ph.data_page_header
+                n = dh.num_values
+                page = _decompress(md.codec, bytes(data[pos:body_end]),
+                                   ph.uncompressed_page_size, name)
+                p = 0
+                r = np.zeros(n, np.int64)
+                if max_r:
+                    (ln,) = struct.unpack_from("<I", page, p)
+                    r = enc.decode_hybrid(page, p + 4, p + 4 + ln, wr, n)
+                    p += 4 + ln
+                d = np.full(n, max_d, np.int64)
+                if max_d:
+                    (ln,) = struct.unpack_from("<I", page, p)
+                    d = enc.decode_hybrid(page, p + 4, p + 4 + ln, wd, n)
+                    p += 4 + ln
+                body, bp = page, p
+            else:
+                dh = ph.data_page_header_v2
+                n = dh.num_values
+                rl, dl = dh.repetition_levels_byte_length or 0, dh.definition_levels_byte_length or 0
+                r = (enc.decode_hybrid(data, pos, pos + rl, wr, n) if max_r
+                     else np.zeros(n, np.int64))
+                d = (enc.decode_hybrid(data, pos + rl, pos + rl + dl, wd, n) if max_d
+                     else np.full(n, max_d, np.int64))
+                body = bytes(data[pos + rl + dl:body_end])
+                if dh.is_compressed is None or dh.is_compressed:
+                    body = _decompress(md.codec, body, ph.uncompressed_page_size - dl - rl, name)
+                bp = 0
+            k = int((d == max_d).sum())
+            vals = _decode_values(name, body, bp, len(body), dh.encoding, ptype, k, dictionary)
+            defs.append(d)
+            reps.append(r)
+            values.append(_as_array(ptype, vals))
+            seen += n
+        pos = body_end
+    cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
+    dense = np.concatenate(values) if values else _as_array(ptype, [])
+    return cat(defs), cat(reps), dense
+
+
+def _leaf_values(stype: str, scale: int, dense, present: np.ndarray):
+    """Dense physical values placed at the ``present`` slots."""
+    kind = _TYPES[stype][0]
+    n = len(present)
+    if kind in ("str", "object"):
+        out = np.empty(n, object)
+        if len(dense):
+            flat = dense
+            if kind == "str":
+                if flat.dtype.kind == "S":
+                    uniq, inv = np.unique(flat, return_inverse=True)
+                    flat = np.array([u.decode("utf-8") for u in uniq.tolist()],
+                                    object)[inv.ravel()]
+                else:
+                    flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
+                                       len(flat))
+            elif flat.dtype.kind == "S":
+                flat = flat.astype(object)
+            out[present] = flat
+        return out
+    np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
+    out = np.zeros(n, np_dt)
+    if len(dense):
+        flat = np.asarray(dense)
+        out[present] = flat.astype(np_dt) * scale if scale != 1 else flat
+    return out
+
+
+def _assemble_leaf(node_path: List[_SNode], d: np.ndarray, r: np.ndarray, dense,
+                   built: Dict[int, Any]) -> None:
+    """Walk one leaf's path from the top, computing each node's slots in this
+    leaf's entries (a row's entries start where the repetition level is 0;
+    a repeated node's elements where it is at most the node's and the
+    definition level reaches the node); record each node's validity, or a
+    repeated node's offsets over its parent's slots, the first time it is
+    met, and the leaf's values."""
+    slots = np.nonzero(r == 0)[0]
+    for node in node_path:
+        key = id(node)
+        if node.el.repetition_type == REPEATED:
+            elems = np.nonzero((r <= node.r) & (d >= node.d))[0]
+            if key not in built:
+                offs = np.empty(len(slots) + 1, np.int64)
+                offs[:-1] = np.searchsorted(elems, slots)
+                offs[-1] = len(elems)
+                built[key] = offs
+            slots = elems
+        elif key not in built:
+            built[key] = d[slots] >= node.d
+        if node.leaf >= 0:
+            present = d[slots] == node.d
+            built[("leaf", key)] = (present, dense)
+
+
+def _ncol(node: _SNode, built, leaf_types) -> NCol:
+    """The NCol of a schema node from what the leaves' walks recorded. A
+    group over one repeated child is a map where it is annotated MAP, or
+    unannotated over two fields (key and value, read by position), else a
+    list."""
+    if node.el.repetition_type == REPEATED:
+        # a repeated field outside a LIST/MAP group: a required list
+        offs = built[id(node)]
+        return NCol("list", np.ones(len(offs) - 1, bool), offsets=offs,
+                    element=_element_col(node, built, leaf_types))
+    if node.leaf >= 0:
+        return _leaf_col(node, built, leaf_types)
+    valid = built[id(node)]
+    if len(node.children) == 1 and node.children[0].el.repetition_type == REPEATED:
+        rep = node.children[0]
+        ct, lt = node.el.converted_type, node.el.logicalType
+        listed = ct == _LIST or (lt is not None and lt.LIST is not None)
+        mapped = ct in (_MAP, _MAP_KEY_VALUE) or (lt is not None and lt.MAP is not None)
+        kind = "map" if mapped or (not listed and len(rep.children) == 2) else "list"
+        return NCol(kind, valid, offsets=built[id(rep)],
+                    element=_element_col(rep, built, leaf_types))
+    return NCol("struct", valid, fields={c.name: _ncol(c, built, leaf_types)
+                                         for c in node.children})
+
+
+def _element_col(rep: _SNode, built, leaf_types) -> NCol:
+    """The element of a repeated node (the spec's list rules): a repeated
+    leaf's values; a repeated group's one child (the 3-level list's
+    ``element``) unless the group is named ``array`` or ``*_tuple``; else
+    the group itself as a struct (a map's key and value, read by
+    position)."""
+    if rep.leaf >= 0:
+        return _leaf_col(rep, built, leaf_types)
+    fields = {c.name: _ncol(c, built, leaf_types) for c in rep.children}
+    first = next(iter(fields.values()))
+    if len(fields) == 1 and rep.name != "array" and not rep.name.endswith("_tuple"):
+        return first
+    return NCol("struct", np.ones(len(first), bool), fields=fields)
+
+
+def _leaf_col(node: _SNode, built, leaf_types) -> NCol:
+    present, dense = built[("leaf", id(node))]
+    stype = leaf_types.get(id(node))
+    if isinstance(stype, NotImplementedError):
+        return NCol("leaf", present, unsupported=(node.name, str(stype)))
+    st, scale = stype
+    return NCol("leaf", present, values=_leaf_values(st, scale, dense, present), stype=st)
+
+
+def read_nested(data, columns: Optional[Sequence[str]] = None) -> Tuple[int, Dict[str, NCol]]:
+    """A Parquet file's top-level columns (all, or those of ``columns``
+    that it has), nested or flat, from its bytes: ``(num_rows, name ->
+    NCol)``. Every row group is read; a leaf of a type the codec lacks
+    decodes its validity and raises only when its values are asked for."""
+    data = memoryview(data)
+    size = len(data)
+    if size < 12 or bytes(data[size - 4:]) != MAGIC:
+        raise ValueError("not a Parquet file (no PAR1 footer)")
+    (n_foot,) = struct.unpack("<I", bytes(data[size - 8:size - 4]))
+    if n_foot + 12 > size:
+        raise ValueError(f"footer length {n_foot} exceeds the file's {size} bytes")
+    meta, _ = thrift.read(thrift.FileMetaData, bytes(data[size - 8 - n_foot:size - 8]))
+    if not meta.schema:
+        raise ValueError("a Parquet footer without a schema")
+    root = _schema_tree(meta.schema)
+    want = {c.name: c for c in root.children}
+    names = list(want) if columns is None else [c for c in columns if c in want]
+    groups = meta.row_groups or []
+    out: Dict[str, NCol] = {}
+    for top in names:
+        built: Dict[Any, Any] = {}
+        leaf_types: Dict[int, Any] = {}
+
+        def walk(node, path):
+            path = path + [node]
+            if node.leaf >= 0:
+                try:
+                    leaf_types[id(node)] = _leaf_type(node.el)
+                except NotImplementedError as e:
+                    leaf_types[id(node)] = e
+                parts = [_read_leaf_chunk(data, rg.columns[node.leaf].meta_data, node,
+                                          ".".join(p.name for p in path))
+                         for rg in groups]
+                d = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
+                r = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
+                dense = (np.concatenate([p[2] for p in parts]) if parts
+                         else _as_array(enc.BYTE_ARRAY, []))
+                _assemble_leaf(path, d, r, dense, built)
+            for c in node.children:
+                walk(c, path)
+
+        walk(want[top], [])
+        out[top] = _ncol(want[top], built, leaf_types)
+    return int(meta.num_rows or 0), out
+
+
+# -- writing nested columns -------------------------------------------------------
+#
+# A column's type for :func:`write_nested`: a stored type of ``_TYPES``
+# (a leaf), ``("struct", [(name, type), ...])``, ``("map", key type, value
+# type)`` or ``("list", element type)``. Every field is OPTIONAL but a map's
+# key (REQUIRED), as ``pyarrow`` writes them: a map is a MAP group over a
+# repeated ``key_value`` group, a list a LIST group over a repeated
+# ``list`` group whose child is ``element``.
+
+
+def _schema_elements(name: str, spec, out: List[Any], repetition=OPTIONAL) -> None:
+    if isinstance(spec, str):
+        if spec not in _TYPES:
+            raise _unsupported(name, f"type {spec!r}")
+        _, ptype, lt, ct = _TYPES[spec]
+        out.append(thrift.SchemaElement(type=ptype, repetition_type=repetition, name=name,
+                                        converted_type=ct, logicalType=lt))
+        return
+    kind = spec[0]
+    if kind == "struct":
+        if not spec[1]:
+            raise _unsupported(name, "a struct with no fields")
+        out.append(thrift.SchemaElement(repetition_type=repetition, name=name,
+                                        num_children=len(spec[1])))
+        for child, cspec in spec[1]:
+            _schema_elements(child, cspec, out)
+    elif kind == "map":
+        out.append(thrift.SchemaElement(repetition_type=repetition, name=name, num_children=1,
+                                        converted_type=_MAP,
+                                        logicalType=thrift.LogicalType(MAP=thrift.Empty())))
+        out.append(thrift.SchemaElement(repetition_type=REPEATED, name="key_value",
+                                        num_children=2))
+        _schema_elements("key", spec[1], out, repetition=0)
+        _schema_elements("value", spec[2], out)
+    elif kind == "list":
+        out.append(thrift.SchemaElement(repetition_type=repetition, name=name, num_children=1,
+                                        converted_type=_LIST,
+                                        logicalType=thrift.LogicalType(LIST=thrift.Empty())))
+        out.append(thrift.SchemaElement(repetition_type=REPEATED, name="list", num_children=1))
+        _schema_elements("element", spec[1], out)
+    else:
+        raise _unsupported(name, f"column type {kind!r}")
+
+
+def _shred(spec, col: NCol, n: int, out: List[Tuple[str, np.ndarray, np.ndarray, Any, int,
+                                                       int]], name: str) -> None:
+    """Every leaf of one top-level column as (stored type, definition
+    levels, repetition levels, dense values, max definition, max
+    repetition), vectorised: each entry is a slot of the node it reached,
+    a list's entries repeat once an element."""
+
+    def walk(spec, col, slot, d, r, alive, max_d, max_r, optional=True):
+        if optional:
+            ok = alive.copy()
+            ok[alive] = col.valid[slot[alive]]
+            d = d + ok
+            alive, max_d = ok, max_d + 1
+        if isinstance(spec, str):
+            sel = slot[alive]
+            if col.unsupported:
+                raise _unsupported(*col.unsupported)
+            out.append((spec, d, r, col.values[sel], max_d, max_r))
+            return
+        kind = spec[0]
+        if kind == "struct":
+            for (child, cspec) in spec[1]:
+                walk(cspec, col.fields[child], slot, d, r, alive, max_d, max_r)
+            return
+        # the repeated group: an entry whose list has k >= 1 elements becomes k
+        offs = col.offsets
+        s = np.where(alive, slot, 0)
+        count = np.where(alive, offs[s + 1] - offs[s], 0)
+        has = count > 0
+        reps = np.where(has, count, 1)
+        src = np.repeat(np.arange(len(slot)), reps)
+        starts = np.cumsum(reps) - reps
+        j = np.arange(len(src)) - starts[src]
+        e_alive = has[src]
+        e_slot = np.where(e_alive, offs[s[src]] + j, 0)
+        e_d = d[src] + e_alive
+        e_r = np.where(j > 0, max_r + 1, r[src])
+        el = col.element
+        if kind == "list":
+            walk(spec[1], el, e_slot, e_d, e_r, e_alive, max_d + 1, max_r + 1)
+        else:
+            keys = list(el.fields)
+            walk(spec[1], el.fields[keys[0]], e_slot, e_d, e_r, e_alive, max_d + 1, max_r + 1,
+                 optional=False)
+            walk(spec[2], el.fields[keys[1]], e_slot, e_d, e_r, e_alive, max_d + 1, max_r + 1)
+
+    walk(spec, col, np.arange(n), np.zeros(n, np.int64), np.zeros(n, np.int64),
+         np.ones(n, bool), 0, 0)
+
+
+def write_nested(columns: Sequence[Tuple[str, Any, NCol]], num_rows: int,
+                 row_group_rows: int = ROW_GROUP_ROWS) -> bytes:
+    """A Parquet file of nested or flat top-level columns ``(name, type,
+    NCol)`` (types as above), as bytes: PLAIN values, uncompressed v1 data
+    pages, the hybrid for levels, row groups of ``row_group_rows`` rows.
+    No footer statistics."""
+    schema = [thrift.SchemaElement(name="schema", num_children=len(columns))]
+    leaves: List[Tuple[List[str], Tuple]] = []
+    for name, spec, col in columns:
+        start = len(schema)
+        _schema_elements(name, spec, schema)
+        shredded: List[Tuple] = []
+        _shred(spec, col, num_rows, shredded, name)
+        paths = _leaf_paths(schema[start:])
+        leaves.extend(zip(paths, shredded))
+    out = bytearray(MAGIC)
+    row_groups = []
+    step = max(int(row_group_rows), 1)
+    bounds = [(lo, min(lo + step, num_rows)) for lo in range(0, num_rows, step)] or [(0, 0)]
+    row_starts = [np.concatenate([np.nonzero(r == 0)[0], [len(r)]]) for _, (_, _, r, _, _, _)
+                  in leaves]
+    dense_starts = [np.concatenate([[0], np.cumsum(d == md)]) for _, (_, d, _, _, md, _)
+                    in leaves]
+    for rg_i, (lo, hi) in enumerate(bounds):
+        chunks = []
+        rg_start = len(out)
+        for (path, (stype, d, r, dense, max_d, max_r)), rs, ds in zip(leaves, row_starts,
+                                                                      dense_starts):
+            kind, ptype, _, _ = _TYPES[stype]
+            e0, e1 = int(rs[lo]), int(rs[hi])
+            v0, v1 = int(ds[e0]), int(ds[e1])
+            body = bytearray()
+            if max_r:
+                lv = enc.encode_hybrid(r[e0:e1], _levels_bits(max_r))
+                body += struct.pack("<I", len(lv)) + lv
+            if max_d:
+                lv = enc.encode_hybrid(d[e0:e1], _levels_bits(max_d))
+                body += struct.pack("<I", len(lv)) + lv
+            body += enc.encode_plain(ptype, _physical(stype, kind, dense[v0:v1]))
+            header = thrift.PageHeader(
+                type=DATA_PAGE, uncompressed_page_size=len(body), compressed_page_size=len(body),
+                data_page_header=thrift.DataPageHeader(
+                    num_values=e1 - e0, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
+                    repetition_level_encoding=enc.RLE)).write()
+            offset = len(out)
+            out += header
+            out += body
+            size = len(header) + len(body)
+            md = thrift.ColumnMetaData(
+                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=path,
+                codec=UNCOMPRESSED, num_values=e1 - e0, total_uncompressed_size=size,
+                total_compressed_size=size, data_page_offset=offset)
+            chunks.append(thrift.ColumnChunk(file_offset=offset, meta_data=md))
+        total = len(out) - rg_start
+        row_groups.append(thrift.RowGroup(columns=chunks, total_byte_size=total,
+                                          num_rows=hi - lo, file_offset=rg_start,
+                                          total_compressed_size=total, ordinal=rg_i))
+    meta = thrift.FileMetaData(
+        version=1, schema=schema, num_rows=num_rows, row_groups=row_groups,
+        created_by="delta_tpu_torch parquet writer",
+        column_orders=[thrift.ColumnOrder(TYPE_ORDER=thrift.Empty()) for _ in leaves])
+    footer = meta.write()
+    out += footer
+    out += struct.pack("<I", len(footer))
+    out += MAGIC
+    return bytes(out)
+
+
+def _leaf_paths(elements: List[Any]) -> List[List[str]]:
+    """The path in the schema of each leaf of one top-level column's
+    elements (pre-order)."""
+    paths: List[List[str]] = []
+    pos = 0
+
+    def walk(prefix):
+        nonlocal pos
+        el = elements[pos]
+        pos += 1
+        here = prefix + [el.name]
+        if not el.num_children:
+            paths.append(here)
+        for _ in range(el.num_children or 0):
+            walk(here)
+
+    walk([])
+    return paths
+
+
+def ncol_from_py(spec, values: Sequence[Any]) -> NCol:
+    """An NCol of ``spec`` from Python values (None, dicts for structs and
+    maps, lists for lists; epoch days and µs for dates and timestamps)."""
+    n = len(values)
+    valid = np.fromiter((v is not None for v in values), bool, n)
+    if isinstance(spec, str):
+        kind = _TYPES[spec][0]
+        if kind in ("str", "object"):
+            arr = np.empty(n, object)
+            arr[:] = list(values)
+        else:
+            np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
+            arr = np.fromiter((0 if v is None else v for v in values), np_dt, n)
+        return NCol("leaf", valid, values=arr, stype=spec)
+    kind = spec[0]
+    if kind == "struct":
+        return NCol("struct", valid, fields={
+            name: ncol_from_py(cspec, [None if v is None else v.get(name) for v in values])
+            for name, cspec in spec[1]})
+    items: List[Any] = []
+    offs = np.zeros(n + 1, np.int64)
+    for i, v in enumerate(values):
+        if v is not None:
+            items.extend(v.items() if kind == "map" else v)
+        offs[i + 1] = len(items)
+    if kind == "list":
+        return NCol("list", valid, offsets=offs, element=ncol_from_py(spec[1], items))
+    kv = NCol("struct", np.ones(len(items), bool), fields={
+        "key": ncol_from_py(spec[1], [k for k, _ in items]),
+        "value": ncol_from_py(spec[2], [x for _, x in items])})
+    return NCol("map", valid, offsets=offs, element=kv)
+
+
+def embed(col: NCol, rows: np.ndarray, n: int) -> NCol:
+    """``col`` (``len(rows)`` slots) placed at the ascending ``rows`` of
+    ``n`` slots, null elsewhere."""
+    valid = np.zeros(n, bool)
+    valid[rows] = col.valid
+    if col.kind == "leaf":
+        vals = np.empty(n, object) if col.values.dtype == object else np.zeros(n, col.values.dtype)
+        vals[rows] = col.values
+        return NCol("leaf", valid, values=vals, stype=col.stype)
+    if col.kind == "struct":
+        return NCol("struct", valid, fields={k: embed(c, rows, n) for k, c in col.fields.items()})
+    counts = np.zeros(n, np.int64)
+    counts[rows] = np.diff(col.offsets)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return NCol(col.kind, valid, offsets=offsets, element=col.element)

@@ -1,7 +1,10 @@
 """DeltaLog: the per-table handle (the port's own copy of
-``delta_tpu.log.deltalog``, without checkpointing and cleanup): the log
-store, snapshot updates, time travel, a per-(path, device) singleton cache,
-the protocol gates and the transactions (``txn/transaction``).
+``delta_tpu.log.deltalog``): the log store, snapshot updates (listing from
+``_last_checkpoint``), time travel, a per-(path, device) singleton cache,
+the protocol gates, the transactions (``txn/transaction``), checkpoints
+(``log/checkpoints``) with the expired-log cleanup after them
+(``log/cleanup``), and the ``.crc`` of a committed version
+(``log/checksum``).
 
 An ``update()`` that finds only new commits decodes just those and extends
 the previous snapshot's columnar state (when it was decoded), where the JAX
@@ -13,11 +16,15 @@ the CPU behind the caller's back.
 """
 from __future__ import annotations
 
+import logging
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from delta_tpu_torch.log import checkpoints as ckpt_mod
+from delta_tpu_torch.log import checksum as crc_mod
 from delta_tpu_torch.log import snapshot_management as sm
 from delta_tpu_torch.log.columnar import decode_segment, extend_segment_columns
 from delta_tpu_torch.log.snapshot import Snapshot
@@ -28,9 +35,12 @@ from delta_tpu_torch.protocol.actions import (
 from delta_tpu_torch.storage.logstore import LocalLogStore
 from delta_tpu_torch.utils import errors as errors_mod
 from delta_tpu_torch.utils.device import resolve
+from delta_tpu_torch.utils.config import DeltaConfigs, conf
 from delta_tpu_torch.utils.errors import DeltaIllegalStateError, VersionNotFoundError
 
 __all__ = ["DeltaLog"]
+
+logger = logging.getLogger(__name__)
 
 
 class DeltaLog:
@@ -47,6 +57,9 @@ class DeltaLog:
         self._update_lock = threading.Lock()
         # serializes this process's commits to the table (txn/transaction)
         self.lock = threading.RLock()
+        self.clock = lambda: int(time.time() * 1000)
+        # checkpoint versions that failed to decode: listings skip them
+        self._corrupt_checkpoints: frozenset = frozenset()
         self.update()
 
     @classmethod
@@ -69,13 +82,18 @@ class DeltaLog:
         """Re-list the log and install a new Snapshot if the segment changed
         (``SnapshotManagement.scala:244-330``)."""
         with self._update_lock:
-            segment = sm.get_log_segment_for_version(self.store, self.log_path)
+            last = ckpt_mod.read_last_checkpoint(self.store, self.log_path)
+            segment = sm.get_log_segment_for_version(
+                self.store, self.log_path, start_checkpoint=last.version if last else None,
+                excluded_checkpoints=self._corrupt_checkpoints)
             previous = self._snapshot
             if previous is not None and segment is not None and previous.segment == segment:
                 return previous
             snap = Snapshot(self, segment.version if segment else -1, segment)
             if (previous is not None and segment is not None and previous.segment is not None
-                    and "_columnar" in previous.__dict__):
+                    and "_columnar" in previous.__dict__
+                    and [f.path for f in previous.segment.checkpoint_files]
+                    == [f.path for f in segment.checkpoint_files]):
                 known = [f.path for f in previous.segment.deltas]
                 if [f.path for f in segment.deltas[: len(known)]] == known:
                     # the new version only appends commits: decode just those
@@ -96,8 +114,52 @@ class DeltaLog:
         latest = self.update().version
         if version < 0 or version > latest:
             raise VersionNotFoundError(version, 0, latest)
-        segment = sm.get_log_segment_for_version(self.store, self.log_path, version)
+        found = ckpt_mod.find_last_complete_checkpoint_before(self.store, self.log_path,
+                                                              version + 1)
+        segment = sm.get_log_segment_for_version(
+            self.store, self.log_path, version,
+            start_checkpoint=found.version if found is not None else None)
+        if segment is None:
+            raise VersionNotFoundError(version, 0, latest)
         return Snapshot(self, segment.version, segment)
+
+    @property
+    def corrupt_checkpoints(self) -> frozenset:
+        return self._corrupt_checkpoints
+
+    def mark_corrupt_checkpoint(self, version: int) -> frozenset:
+        """Memoize a checkpoint that failed to decode; returns the set."""
+        self._corrupt_checkpoints = self._corrupt_checkpoints | {version}
+        return self._corrupt_checkpoints
+
+    # -- checkpoints, cleanup and checksums (DeltaLog.scala, Checkpoints.scala)
+
+    def checkpoint(self, snapshot: Optional[Snapshot] = None) -> ckpt_mod.CheckpointMetaData:
+        """Write a checkpoint of ``snapshot`` (default: the latest), publish
+        ``_last_checkpoint`` after its parts, then clean up expired logs
+        (``Checkpoints.scala:221-260``)."""
+        snap = snapshot or self.update()
+        if snap.version < 0:
+            raise DeltaIllegalStateError("Cannot checkpoint an uninitialized table")
+        md = ckpt_mod.write_checkpoint(self.store, self.log_path, snap.version,
+                                       snap.checkpoint_actions(),
+                                       part_size=conf.get("delta.tpu.checkpointPartSize")
+                                       or 1_000_000)
+        self.cleanup_expired_logs(snap)
+        return md
+
+    def cleanup_expired_logs(self, snapshot: Snapshot) -> None:
+        from delta_tpu_torch.log.cleanup import cleanup_expired_logs
+
+        try:
+            if DeltaConfigs.ENABLE_EXPIRED_LOG_CLEANUP.from_metadata(snapshot.metadata):
+                cleanup_expired_logs(self, snapshot)
+        except Exception:  # noqa: BLE001 - cleanup must not fail a commit
+            logger.warning("Metadata cleanup failed", exc_info=True)
+
+    def write_checksum_for(self, snapshot: Snapshot) -> None:
+        crc_mod.write_checksum(self.store, self.log_path, snapshot.version,
+                               crc_mod.VersionChecksum.of_snapshot(snapshot))
 
     @property
     def snapshot(self) -> Snapshot:

@@ -1,13 +1,18 @@
 """Snapshot: immutable table state at a version (the port's own copy of
-``delta_tpu.log.snapshot``, JSON segments only).
+``delta_tpu.log.snapshot``).
 
-State reconstruction is columnar: the segment decodes to SoA columns
-(``log/columnar``), last-writer-wins is the host winner mask — as the JAX
-package's production snapshots take it (``log/snapshot.py:192-194``) — and
-AddFile dataclasses are materialized only for the rows a caller touches.
+State reconstruction is columnar: the segment (checkpoint parts and JSON
+commits) decodes to SoA columns (``log/columnar``), last-writer-wins is the
+host winner mask — as the JAX package's production snapshots take it
+(``log/snapshot.py:192-194``) — and AddFile dataclasses are materialized
+only for the rows a caller touches. A checkpoint that fails to decode is
+excluded and the segment recomputed from the listing, as in the JAX
+package (``log/snapshot.py:118-175``).
 """
 from __future__ import annotations
 
+import logging
+from dataclasses import replace as _dc_replace
 from functools import cached_property
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
@@ -16,13 +21,16 @@ import numpy as np
 from delta_tpu_torch.log.columnar import SegmentColumns, decode_segment
 from delta_tpu_torch.log.snapshot_management import LogSegment
 from delta_tpu_torch.protocol.actions import (
-    AddFile, Metadata, Protocol, SetTransaction,
+    Action, AddFile, Metadata, Protocol, RemoveFile, SetTransaction,
 )
+from delta_tpu_torch.utils.config import DeltaConfigs
 
 if TYPE_CHECKING:
     from delta_tpu_torch.log.deltalog import DeltaLog
 
 __all__ = ["Snapshot"]
+
+logger = logging.getLogger(__name__)
 
 
 class Snapshot:
@@ -33,8 +41,45 @@ class Snapshot:
 
     @cached_property
     def _columnar(self) -> SegmentColumns:
-        deltas = self.segment.deltas if self.segment is not None else []
-        return decode_segment(self.delta_log.store, [], [f.path for f in deltas])
+        """The segment's columns. A checkpoint part that does not decode
+        (truncated or garbage Parquet) is memoized on the DeltaLog as
+        corrupt and the segment recomputed from the listing: an earlier
+        complete checkpoint, or the JSON commits from version 0. A corrupt
+        JSON commit surfaces."""
+        segment = self.segment
+        if segment is None:
+            return decode_segment(self.delta_log.store, [], [])
+        while True:
+            try:
+                return decode_segment(self.delta_log.store,
+                                      [f.path for f in segment.checkpoint_files],
+                                      [f.path for f in segment.deltas])
+            except Exception as e:
+                if segment.checkpoint_version is None or self._checkpoint_readable(segment):
+                    raise
+                from delta_tpu_torch.log import snapshot_management as sm
+
+                excluded = self.delta_log.mark_corrupt_checkpoint(segment.checkpoint_version)
+                logger.warning("checkpoint at version %s failed to decode (%s: %s); "
+                               "recovering from the log listing",
+                               segment.checkpoint_version, type(e).__name__, e)
+                retry = sm.get_log_segment_for_version(
+                    self.delta_log.store, segment.log_path, version_to_load=self.version,
+                    excluded_checkpoints=excluded)
+                if retry is None or retry.checkpoint_version in excluded:
+                    raise
+                segment = self.segment = retry
+
+    def _checkpoint_readable(self, segment: LogSegment) -> bool:
+        """Does every checkpoint part decode as Parquet?"""
+        from delta_tpu_torch.exec.parquet import read_nested
+
+        try:
+            for f in segment.checkpoint_files:
+                read_nested(self.delta_log.store.read_bytes(f.path), ["protocol"])
+            return True
+        except Exception:
+            return False
 
     @cached_property
     def _winner(self) -> np.ndarray:
@@ -66,6 +111,10 @@ class Snapshot:
         m = self._other_state[1]
         return m if m is not None else Metadata()
 
+    @cached_property
+    def set_transactions(self) -> Dict[str, SetTransaction]:
+        return dict(self._other_state[2])
+
     def transaction_version(self, app_id: str) -> int:
         """The latest committed version of a streaming ``appId``, -1 when
         none (``DeltaSink`` idempotency)."""
@@ -95,6 +144,33 @@ class Snapshot:
         rows = np.asarray(sorted(by_path[p] for p in paths), np.int64)
         return sorted(self._columnar.materialize(rows), key=lambda a: a.path)
 
+    def min_file_retention_timestamp(self) -> int:
+        return self.delta_log.clock() - DeltaConfigs.TOMBSTONE_RETENTION.from_metadata(
+            self.metadata)
+
+    @cached_property
+    def tombstones(self) -> List[RemoveFile]:
+        """The removes still inside the tombstone retention, in row order."""
+        _, tomb = self._columnar.replay(self.min_file_retention_timestamp(),
+                                        winner=self._winner)
+        return list(self._columnar.materialize(tomb))
+
+    def checkpoint_actions(self) -> List[Action]:
+        """The reconciled state, a checkpoint's content
+        (``InMemoryLogReplay.scala:71-77``): protocol, metadata, txns,
+        retained tombstones, live files sorted by path, ``dataChange``
+        false."""
+        out: List[Action] = []
+        proto, meta, txns = self._other_state
+        if proto is not None:
+            out.append(proto)
+        if meta is not None:
+            out.append(meta)
+        out.extend(txns.values())
+        out.extend(_dc_replace(r, data_change=False) for r in self.tombstones)
+        out.extend(a.with_data_change(False) for a in self.all_files)
+        return out
+
     @property
     def num_of_files(self) -> int:
         return int(self._alive_mask.sum())
@@ -102,6 +178,18 @@ class Snapshot:
     @property
     def size_in_bytes(self) -> int:
         return int(self._columnar.size[self._alive_mask].sum())
+
+    @property
+    def num_of_metadata(self) -> int:
+        return 1 if self._other_state[1] is not None else 0
+
+    @property
+    def num_of_protocol(self) -> int:
+        return 1 if self._other_state[0] is not None else 0
+
+    @property
+    def num_of_set_transactions(self) -> int:
+        return len(self.set_transactions)
 
     def __repr__(self) -> str:
         return f"Snapshot(version={self.version})"

@@ -11,7 +11,10 @@ version (taken only for tensors on the CPU):
   three sums, all on the card;
 * ``winner_mask_device`` (``:134``) and ``replay_columns`` (``:147``): the
   kernel :func:`winner_bits` (K4, ``csrc/winner_bits.cu``) replaces
-  ``_winner_bits_kernel`` (``:115``).
+  ``_winner_bits_kernel`` (``:115``): two launches, no memset (its table
+  lives on the card from call to call, one a device and stream, and the
+  call leaves it clean) and no read-back (the error word follows the mask,
+  and ``winner_mask_device`` downloads both in one copy).
 
 * :func:`replay_sharded` (``replay_kernel.py:206``) over a state mesh
   (``parallel/mesh``): the host buckets the rows by :func:`_mix64` of the
@@ -29,6 +32,7 @@ downloaded mask, as in the JAX package.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -207,10 +211,57 @@ def winner_bits_plain(path_id: torch.Tensor, num_paths: int) -> torch.Tensor:
     return _packbits(winner)
 
 
+#: K4's self-cleaning tables: (device index, raw stream) -> (last, flag),
+#: ``last`` all -1 and ``flag`` 0 between calls (the pack pass leaves them
+#: so); one a stream, since two streams' calls could overlap
+_winner_tables: dict = {}
+_winner_lock = threading.Lock()
+
+
+def _winner_table(key, dev: torch.device, num_paths: int):
+    """The (last, flag) pair of ``key``, at least ``num_paths`` entries:
+    filled with -1 once, when it is made or grown."""
+    have = _winner_tables.get(key)
+    if have is None or have[0].shape[0] < max(num_paths, 1):
+        with _winner_lock:
+            have = (torch.full((max(num_paths, 1),), -1, dtype=torch.int32, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
+            _winner_tables[key] = have
+    return have
+
+
+def _winner_launch(path_id: torch.Tensor, num_paths: int) -> torch.Tensor:
+    """K4 on a CUDA tensor: ``(round_up(n / 8, 4) + 4,)`` uint8, the packed
+    mask then the int32 error word (1 where an id reaches ``num_paths``).
+    No memset and no synchronisation: the stream's table cleans itself. An
+    out-of-range id leaves it clean too (such an id is never written); a
+    failed launch drops it, and the next call fills a new one."""
+    if not path_id.is_contiguous():
+        raise ValueError("winner_bits: path_id must be contiguous")
+    n = path_id.shape[0]
+    dev = path_id.device
+    cur = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (cur, torch._C._cuda_getCurrentRawStream(cur))
+    last, flag = _winner_table(key, dev, num_paths)
+    out = torch.empty(-(-(n // 8) // 4) * 4 + 4, dtype=torch.uint8, device=dev)
+    try:
+        native.call("winner_bits", dev, path_id.data_ptr(), n, last.data_ptr(), num_paths,
+                    flag.data_ptr(), out.data_ptr())
+    except Exception:
+        with _winner_lock:  # the table may be left unclean: the next call makes one
+            _winner_tables.pop(key, None)
+        raise
+    native.launches["winner_bits"] += 1
+    return out
+
+
 def winner_bits(path_id: torch.Tensor, num_paths: int) -> torch.Tensor:
     """Winner mask packed big-endian into ``n / 8`` bytes: row i wins when
     ``path_id[i] >= 0`` and no later row has the same id. path_id ``(n,)``
-    int32, n a multiple of 8, ids below ``num_paths`` (raises otherwise)."""
+    int32, n a multiple of 8. On the CPU an id at or above ``num_paths``
+    raises here; on the card the call does not synchronise, and the error
+    word rides after the mask: :func:`winner_mask_device` reads it with the
+    mask and raises."""
     if path_id.dtype != torch.int32 or path_id.dim() != 1:
         raise TypeError("winner_bits: path_id must be 1-D int32")
     n = path_id.shape[0]
@@ -220,28 +271,27 @@ def winner_bits(path_id: torch.Tensor, num_paths: int) -> torch.Tensor:
         if n and int(path_id.max()) >= num_paths:
             raise ValueError(f"winner_bits: a path id reaches num_paths={num_paths}")
         return winner_bits_plain(path_id, num_paths)
-    if not path_id.is_contiguous():
-        raise ValueError("winner_bits: path_id must be contiguous")
-    dev = path_id.device
-    out = torch.empty(n // 8, dtype=torch.uint8, device=dev)
-    last = torch.empty(max(num_paths, 1), dtype=torch.int32, device=dev)
-    err = torch.empty(1, dtype=torch.int32, device=dev)
-    native.call("winner_bits", dev, path_id.data_ptr(), n, last.data_ptr(), num_paths,
-                err.data_ptr(), out.data_ptr())
-    native.launches["winner_bits"] += 1
-    if int(err.item()) != 0:
-        raise ValueError(f"winner_bits: a path id reaches num_paths={num_paths}")
-    return out
+    if n == 0:
+        return torch.empty(0, dtype=torch.uint8, device=path_id.device)
+    return _winner_launch(path_id, num_paths)[:n // 8]
 
 
 def winner_mask_device(path_id: np.ndarray, num_paths: int, device="cuda") -> np.ndarray:
     """Last-writer-wins winner mask for a replay-ordered action stream:
-    one int32 column up, one bitmask down."""
+    one int32 column up, one download of the bitmask and its error word;
+    raises ``ValueError`` when an id reaches ``num_paths``."""
     n = len(path_id)
     padded = np.full(_next_pow2(n, floor=8), -1, np.int32)
     padded[:n] = path_id
-    bits = winner_bits(torch.from_numpy(padded).to(resolve(device)), num_paths)
-    return np.unpackbits(bits.cpu().numpy(), count=n).astype(bool)
+    pid = torch.from_numpy(padded).to(resolve(device))
+    if pid.device.type == "cpu":
+        bits = winner_bits(pid, num_paths).numpy()
+    else:
+        host = _winner_launch(pid, num_paths).cpu().numpy()
+        if int(host[-4:].view(np.int32)[0]) != 0:
+            raise ValueError(f"winner_bits: a path id reaches num_paths={num_paths}")
+        bits = host[:len(padded) // 8]
+    return np.unpackbits(bits, count=n).astype(bool)
 
 
 def replay_columns(cols, min_retention_ts: int = 0, device="cuda") -> ReplayResult:

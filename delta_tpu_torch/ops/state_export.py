@@ -214,7 +214,14 @@ def arrays_from_columns(
         stats_min={c: np.full(n, np.nan) for c in stats_columns},
         stats_max={c: np.full(n, np.nan) for c in stats_columns},
     )
+    struct_rows = _struct_stat_lanes(getattr(cols, "stats_parsed", None), rows, stats_columns,
+                                     prefix_set, col_types, out.stats_min, out.stats_max)
+    if struct_rows is not None and struct_rows.all():
+        return out  # every row served by the typed lanes: no JSON parse
     raw = [cols.stats[r] for r in rows.tolist()]
+    if struct_rows is not None:
+        # the rows the struct served leave the JSON pass
+        raw = [None if hit else s for s, hit in zip(raw, struct_rows.tolist())]
     idx = [i for i, s in enumerate(raw) if s is not None and s.strip()]
     if not idx:
         return out
@@ -243,6 +250,65 @@ def arrays_from_columns(
         out.stats_min[c][at] = np.array(lo_vals[c], dtype=np.float64)  # None -> NaN
         out.stats_max[c][at] = np.array(hi_vals[c], dtype=np.float64)
     return out
+
+
+def _typed_lane(values: np.ndarray, valid: np.ndarray, stype: str, prefix: bool,
+                dt: Optional[DataType]) -> Optional[np.ndarray]:
+    """A typed ``stats_parsed`` leaf as a float64 lane (NaN = missing), as
+    the JAX package's ``_numeric_to_lane`` / ``_temporal_to_lane`` /
+    ``_string_prefix_lanes`` give it: integers beyond 2^53 missing, dates
+    as epoch days, timestamps as epoch µs, strings as the 6-byte prefix
+    lane where the column asks for one; None where it gives none."""
+    if stype is None:
+        return None
+    if stype in ("string",):
+        if not prefix:
+            if isinstance(dt, (DateType, TimestampType)):
+                out = np.array([_stat_to_lane(v, dt) if ok else None
+                                for v, ok in zip(values.tolist(), valid.tolist())], np.float64)
+                return out
+            return None
+        return np.array([string_prefix_lane_value(v) if ok else np.nan
+                         for v, ok in zip(values.tolist(), valid.tolist())], np.float64)
+    if stype in ("bool", "binary"):
+        return None
+    if stype.startswith("int"):
+        ints = values.astype(np.int64)
+        out = ints.astype(np.float64)
+        out[np.abs(ints) > 2**53] = np.nan
+    else:  # floats, dates (epoch days), timestamps (epoch µs)
+        out = values.astype(np.float64)
+    out[~valid] = np.nan
+    return out
+
+
+def _struct_stat_lanes(sp, rows, stats_columns, prefix_set, col_types, smin, smax):
+    """Fill the min/max lanes from a segment's typed ``stats_parsed``
+    (``log/columnar.StatsParsed``) at ``rows``, as the JAX package's
+    ``_struct_stat_lanes`` does; the bool mask of the rows it served, or
+    None where it cannot serve this request (no struct, none present, or a
+    requested column missing from its min or max fields: then the JSON pass
+    computes every lane, so no column is half served)."""
+    if sp is None:
+        return None
+    minf, maxf = set(sp.fields.get("minValues", ())), set(sp.fields.get("maxValues", ()))
+    if not set(stats_columns) <= (minf & maxf):
+        return None
+    served = sp.valid[rows]
+    if not served.any():
+        return None
+    idx = np.nonzero(served)[0]
+    at = rows[idx]
+    for name, dest in (("minValues", smin), ("maxValues", smax)):
+        for c in stats_columns:
+            lane = sp.lanes.get(f"{name}.{c}")
+            if lane is None:
+                continue
+            got = _typed_lane(lane[0][at], lane[1][at], lane[2], c in prefix_set,
+                              col_types.get(c))
+            if got is not None:
+                dest[c][idx] = got
+    return served
 
 
 # -- the skipping evaluator's lanes, from AddFile objects ----------------------

@@ -45,7 +45,12 @@ class LocalLogStore:
             return f.read()
 
     def write(self, path: str, lines: Iterable[str], overwrite: bool = False) -> None:
-        data = "".join(line + "\n" for line in lines).encode("utf-8")
+        self.write_bytes(path, "".join(line + "\n" for line in lines).encode("utf-8"),
+                         overwrite)
+
+    def write_bytes(self, path: str, data: bytes, overwrite: bool = False) -> None:
+        """Stage under a unique temp name, then publish: replaced where
+        ``overwrite``, else created only if absent (``FileExistsError``)."""
         p = _strip_scheme(path)
         parent = os.path.dirname(p)
         os.makedirs(parent, exist_ok=True)
@@ -64,6 +69,16 @@ class LocalLogStore:
                 os.unlink(tmp)  # no-op after a successful replace
             except OSError:
                 pass
+
+    def exists(self, path: str) -> bool:
+        return os.path.exists(_strip_scheme(path))
+
+    def delete(self, path: str) -> bool:
+        try:
+            os.unlink(_strip_scheme(path))
+            return True
+        except FileNotFoundError:
+            return False
 
     def list_from(self, path: str) -> Iterator[FileStatus]:
         p = _strip_scheme(path)

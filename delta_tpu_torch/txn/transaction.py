@@ -9,14 +9,17 @@ the conflict checker (``txn/conflicts``) and retries at the next version.
 
 Cut to what the port's commands run: no group commit, no ambiguous-outcome
 reconciliation (the local store's create either lands or raises
-``FileExistsError``), no telemetry. After the commit the log's snapshot is
-updated and nothing else runs: the port writes no checkpoint, no ``.crc``
-checksum and runs no post-commit hook, so a log it writes stays readable
-through its JSON commits.
+``FileExistsError``), no telemetry, no post-commit hooks. After the commit
+(``_post_commit``) the log's snapshot is updated, the version's ``.crc`` is
+written, and every ``delta.checkpointInterval`` versions a checkpoint (a
+failed one leaves the landed commit standing and logs a warning). The
+async and incremental checkpointer is not ported:
+``delta.tpu.checkpoint.async`` set to true raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextvars
+import logging
 import time
 import uuid
 from dataclasses import dataclass, field, replace
@@ -37,6 +40,8 @@ from delta_tpu_torch.utils import errors
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
 
 __all__ = ["OptimisticTransaction", "CommitStats"]
+
+logger = logging.getLogger(__name__)
 
 _active_txn: "contextvars.ContextVar[Optional[OptimisticTransaction]]" = contextvars.ContextVar(
     "active_delta_torch_txn", default=None)
@@ -214,6 +219,9 @@ class OptimisticTransaction:
         self.stats.phase_durations_ms["prepare"] = int((time.perf_counter() - t0) * 1000)
         if DeltaConfigs.SYMLINK_FORMAT_MANIFEST_ENABLED.from_metadata(self.metadata):
             raise NotImplementedError("post-commit hooks (the symlink manifest) are not ported")
+        if conf.get_bool("delta.tpu.checkpoint.async", False):
+            raise NotImplementedError("delta.tpu.checkpoint.async: the async and incremental "
+                                      "checkpointer is not ported")
         # isolation pick (scala:432-440)
         no_data_changed = all(not a.data_change for a in actions
                               if isinstance(a, (AddFile, RemoveFile)))
@@ -258,9 +266,23 @@ class OptimisticTransaction:
         self.stats.bytes_new = sum(a.size for a in actions
                                    if isinstance(a, AddFile) and a.data_change)
         t2 = time.perf_counter()
-        self.delta_log.update_after_commit(version)
+        self._post_commit(version)
         self.stats.phase_durations_ms["postCommit"] = int((time.perf_counter() - t2) * 1000)
         return version
+
+    def _post_commit(self, version: int) -> None:
+        """The ``.crc`` and the interval checkpoint (scala:582-594, 880-915)."""
+        snapshot = self.delta_log.update_after_commit(version)
+        if snapshot.version == version:
+            self.delta_log.write_checksum_for(snapshot)
+        interval = DeltaConfigs.CHECKPOINT_INTERVAL.from_metadata(self.metadata)
+        if version != 0 and version % interval == 0:
+            try:
+                self.delta_log.checkpoint(snapshot if snapshot.version == version
+                                          else self.delta_log.get_snapshot_at(version))
+            except Exception:  # noqa: BLE001 - a checkpoint must not fail the commit
+                logger.warning("Post-commit checkpoint at version %s failed", version,
+                               exc_info=True)
 
     def _prepare_commit(self, actions: List[Action]) -> List[Action]:
         """Validation + first-commit injection

@@ -110,6 +110,14 @@ class SqlConf:
         # events, gauges, histograms, audits and calibration
         # (utils/telemetry); false is a blackout (counters stay live)
         "delta.tpu.telemetry.enabled": True,
+        # checkpoints (log/checkpoints): actions a part, the V2 stats
+        # columns' engine default, the .crc after each commit; the async and
+        # incremental checkpointer is not ported (true raises)
+        "delta.tpu.checkpointPartSize": 1_000_000,
+        "delta.tpu.checkpoint.writeStatsAsStruct": True,
+        "delta.tpu.checkpoint.async": False,
+        "delta.tpu.writeChecksum.enabled": True,
+        "delta.tpu.cleanup.tmpOrphanTtlMs": 3_600_000,
     }
 
     def __init__(self):

@@ -9,7 +9,7 @@ from typing import Iterable, Optional
 __all__ = [
     "DeltaError", "DeltaAnalysisError", "DeltaIllegalStateError", "DeltaParseError",
     "VersionNotFoundError",
-    "versions_not_contiguous", "cannot_tokenize_predicate",
+    "versions_not_contiguous", "missing_part_files", "cannot_tokenize_predicate",
     "unexpected_end_of_expression", "trailing_tokens", "unexpected_keyword",
     "bad_column_path", "unexpected_token", "expected_type_name", "parse_expected",
     "column_not_found_in_row", "column_not_found_in_table", "unsupported_function",
@@ -75,6 +75,11 @@ class VersionNotFoundError(DeltaAnalysisError):
         self.version = version
         self.earliest = earliest
         self.latest = latest
+
+
+def missing_part_files(version: int, cause: Exception) -> DeltaIllegalStateError:
+    return DeltaIllegalStateError(
+        f"Couldn't find all part files of the checkpoint version: {version} ({cause})")
 
 
 def versions_not_contiguous(versions: Iterable[int]) -> DeltaIllegalStateError:

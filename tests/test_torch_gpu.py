@@ -27,8 +27,9 @@ from delta_tpu_torch.schema.types import DoubleType, IntegerType, LongType, Stri
 # tests/, on the path as chip_smoke is: numpy only
 from torch_kernel_cases import (
     ADVANCE_CASES, CASE_NAMES, COMBINE_KS, COMBINE_NS, COMPACT_CASES, TAIL_CASES, ZSORT_CASES,
-    advance_case, combine_case, combine_rows, compact_case, probe_case, reference_combine, reference_compact,
-    reference_key_order, reference_rank, tail_case, zsort_case,
+    WINNER_CASES, advance_case, combine_case, combine_rows, compact_case, probe_case,
+    reference_combine, reference_compact, reference_key_order, reference_rank,
+    reference_winner, tail_case, winner_case, zsort_case,
 )
 
 pytestmark = pytest.mark.gpu
@@ -168,9 +169,46 @@ def test_winner_bits_kernel_matches_plain(cuda, n, num_paths):
 
 
 def test_winner_bits_kernel_rejects_out_of_range_ids(cuda):
-    p = torch.arange(8, dtype=torch.int32, device=cuda)
+    # the card's call does not synchronise: the error word rides after the
+    # mask, and winner_mask_device, which downloads both, raises
     with pytest.raises(ValueError):
-        replay_kernel.winner_bits(p, 7)
+        replay_kernel.winner_mask_device(np.arange(8, dtype=np.int32), 7, device=cuda)
+    # the table and the flag are clean again: the next call is exact
+    pid, num_paths = winner_case("random", 1 << 12)
+    got = replay_kernel.winner_mask_device(pid, num_paths, device=cuda)
+    assert np.array_equal(np.packbits(got), reference_winner(pid))
+
+
+@pytest.mark.parametrize("n", [8, 1 << 20])
+@pytest.mark.parametrize("case", WINNER_CASES)
+def test_winner_bits_cases(cuda, case, n):
+    pid, num_paths = winner_case(case, n)
+    p = torch.from_numpy(pid).to(cuda)
+    ref = reference_winner(pid)
+    for _ in range(2):  # twice on one table: the first call left it clean
+        got = replay_kernel.winner_bits(p, num_paths)
+        assert np.array_equal(got.cpu().numpy(), ref)
+    assert torch.equal(got, replay_kernel.winner_bits_plain(p, num_paths))
+
+
+def test_winner_bits_big_and_unaligned(cuda):
+    pid, num_paths = winner_case("zipf", 1 << 24)
+    p = torch.from_numpy(pid).to(cuda)
+    assert np.array_equal(replay_kernel.winner_bits(p, num_paths).cpu().numpy(),
+                          reference_winner(pid))
+    # a base off a 16-byte boundary takes the scalar loads; n not a
+    # multiple of 32 leaves a tail of bytes past the last full word
+    buf = torch.from_numpy(np.concatenate([[0], pid[:1000]]).astype(np.int32)).to(cuda)
+    got = replay_kernel.winner_bits(buf[1:], num_paths)
+    assert np.array_equal(got.cpu().numpy(), reference_winner(pid[:1000]))
+    # a smaller num_paths on the grown table, then an out-of-range id
+    pid2, np2 = winner_case("num-paths-1", 1 << 16)
+    assert np.array_equal(np.packbits(replay_kernel.winner_mask_device(pid2, np2, device=cuda)),
+                          reference_winner(pid2))
+    with pytest.raises(ValueError):
+        replay_kernel.winner_mask_device(np.array([0, 1, 5, -1]), 5, device=cuda)
+    assert np.array_equal(np.packbits(replay_kernel.winner_mask_device(pid2, np2, device=cuda)),
+                          reference_winner(pid2))
 
 
 def _write(path, version, actions):

@@ -59,6 +59,60 @@ def test_winner_bits_rejects_out_of_range_ids():
     pid = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7], dtype=torch.int32)
     with pytest.raises(ValueError):
         trk.winner_bits(pid, 7)
+    # the entry on the main path raises too (on the card it is the one that
+    # reads the error word, with the mask)
+    with pytest.raises(ValueError):
+        trk.winner_mask_device(pid.numpy(), 7, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["config5", "config6", "random", "one-path", "zipf",
+                                  "num-paths-1", "all-pad", "no-pad"])
+def test_winner_bits_cases_match_jax(case):
+    """K4's shared streams (``tests/torch_kernel_cases.py``, the ones the
+    card's tests and the smoke hold the kernel to) through both packages'
+    winner bits and the numpy oracle."""
+    from tests.torch_kernel_cases import reference_winner, winner_case
+
+    pid, num_paths = winner_case(case, 1 << 12)
+    ref = np.asarray(jrk._winner_bits_kernel(jnp.asarray(pid)))
+    got = trk.winner_bits(torch.from_numpy(pid), num_paths).numpy()
+    assert np.array_equal(got, ref) and np.array_equal(got, reference_winner(pid))
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("versions,paths", [(120, 300), (301, 40)])
+def test_replay_columns_on_a_config5_log_matches_jax(tmp_path, versions, paths):
+    """Bench config 5's log at a small scale (``chip_smoke.write_config5_log``:
+    the port's LogStore and ``write_checkpoint``, the checkpoint at the
+    middle version): both packages' ``decode_segment`` and
+    ``replay_columns`` give the same masks and stats, and the live count is
+    the sequential host replay's."""
+    cs = _chip_smoke()
+    log_path = str(tmp_path / "_delta_log")
+    store, ckpts, deltas, active = cs.write_config5_log(log_path, n_versions=versions,
+                                                        n_paths=paths)
+    from delta_tpu.storage.logstore import LocalLogStore as JaxStore
+
+    jcols = jax_decode(JaxStore(), ckpts, deltas)
+    tcols = torch_decode(store, ckpts, deltas)
+    assert np.array_equal(jcols.path_id, tcols.path_id) and tcols.num_rows > len(deltas)
+    for retention in (0, versions * 500):
+        want = jrk.replay_columns(jcols, retention, device=True)
+        got = trk.replay_columns(tcols, retention, device="cpu")
+        assert np.array_equal(want.alive, got.alive)
+        assert np.array_equal(want.tombstone, got.tombstone)
+        assert tuple(want.stats) == tuple(got.stats)
+    assert int(got.stats.num_files) == cs.host_replay(store, ckpts, deltas) == len(active)
 
 
 def _segment_pair(path):

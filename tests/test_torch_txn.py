@@ -5,8 +5,10 @@ on the CPU: the cases of ``tests/test_txn.py``'s ``TestCommitPipeline``,
 own. Each case gives the same committed versions, the same exception classes
 and the same log: every commit file equal line for line, ``commitInfo``
 without its timestamp, ``txnId`` and ``engineInfo``, ``metaData`` without
-its id. The port writes no checkpoint, so ``test_checkpoint_written_at_interval``
-becomes a case that holds it writes none."""
+its id. ``test_checkpoint_written_at_interval`` becomes
+``test_port_writes_no_checkpoint``, which holds the post-commit files (the
+``.crc`` of each version, the interval checkpoint, ``_last_checkpoint``)
+equal to the JAX package's."""
 import json
 import os
 import threading
@@ -425,8 +427,79 @@ def test_many_threads_all_commit(tmp_path):
     assert got == [list(range(1, 9)), 8]
 
 
+def post_commit_files(path):
+    """The log's files after the commits: the listing, every ``.crc`` and
+    ``_last_checkpoint`` as text, and each checkpoint's actions as read by
+    both packages (metadata id dropped)."""
+    from delta_tpu.log import checkpoints as jax_ck
+    from delta_tpu_torch.log import checkpoints as torch_ck
+
+    log_dir = os.path.join(path, "_delta_log")
+    names = sorted(n for n in os.listdir(log_dir) if not n.startswith("."))
+    text = {n: open(os.path.join(log_dir, n)).read() for n in names
+            if n.endswith(".crc") or n == "_last_checkpoint"}
+    ckpts = {}
+    for n in names:
+        if ".checkpoint." in n:
+            full = os.path.join(log_dir, n)
+            for pkg, mod, store in (("jax", jax_ck, delta_tpu.DeltaLog.for_table(path).store),
+                                    ("torch", torch_ck,
+                                     delta_tpu_torch.DeltaLog.for_table(path, device="cpu").store)):
+                acts = []
+                for a in mod.read_checkpoint_actions(store, [full]):
+                    d = a.to_dict()
+                    d.pop("id", None) if type(a).__name__ == "Metadata" else None
+                    acts.append((type(a).__name__, d))
+                ckpts[(n, pkg)] = acts
+    return names, text, ckpts
+
+
 def test_port_writes_no_checkpoint(tmp_path):
-    path = str(tmp_path / "torch")
-    assert no_checkpoint_at_interval(Pkg("torch"), path) == [5, 5]
-    assert not [n for n in os.listdir(os.path.join(path, "_delta_log"))
-                if "checkpoint" in n or n.endswith(".crc")]
+    """Named when the port wrote no checkpoint. The port's commits now write
+    what the JAX package's do: a ``.crc`` after each commit and a checkpoint
+    every ``delta.checkpointInterval`` versions, with ``_last_checkpoint``;
+    the same files, the same ``.crc`` and pointer contents, and each
+    checkpoint's actions equal read by either package."""
+    torch_path, jax_path = str(tmp_path / "torch"), str(tmp_path / "jax")
+    assert no_checkpoint_at_interval(Pkg("torch"), torch_path) == [5, 5]
+    assert no_checkpoint_at_interval(Pkg("jax"), jax_path) == [5, 5]
+    names, text, ckpts = post_commit_files(torch_path)
+    j_names, j_text, j_ckpts = post_commit_files(jax_path)
+    assert names == j_names
+    assert "00000000000000000004.checkpoint.parquet" in names and "_last_checkpoint" in names
+    assert sum(n.endswith(".crc") for n in names) == 6
+    assert text == j_text
+    assert {k[0]: v for k, v in ckpts.items() if k[1] == "torch"} == \
+        {k[0]: v for k, v in ckpts.items() if k[1] == "jax"}
+    assert ckpts == j_ckpts
+    assert log_lines(torch_path) == log_lines(jax_path)
+
+
+def test_checkpoint_async_is_refused(tmp_path):
+    """``delta.tpu.checkpoint.async``: the async checkpointer is not ported,
+    so a commit under it raises before anything lands."""
+    from delta_tpu_torch.utils.config import conf
+
+    log = Pkg("torch").create(str(tmp_path / "t"))
+    with conf.set_temporarily(**{"delta.tpu.checkpoint.async": True}):
+        with pytest.raises(NotImplementedError, match="async"):
+            log.start_transaction().commit([Pkg("torch").add("f0")],
+                                           torch_ops.Write("Append"))
+    assert log.update().version == 0
+
+
+def test_failed_checkpoint_leaves_the_commit(tmp_path, monkeypatch):
+    """A checkpoint that fails after its commit landed leaves the version
+    standing (a warning), as in the JAX package."""
+    P = Pkg("torch")
+    log = P.create(str(tmp_path / "t"), configuration={"delta.checkpointInterval": "2"})
+
+    def boom(*a, **k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(delta_tpu_torch.log.checkpoints, "write_checkpoint", boom)
+    assert log.start_transaction().commit([P.add("f0")], P.ops.Write("Append")) == 1
+    assert log.start_transaction().commit([P.add("f1")], P.ops.Write("Append")) == 2
+    assert log.update().version == 2 and len(log.update().all_files) == 2
+    assert not [n for n in os.listdir(os.path.join(str(tmp_path / "t"), "_delta_log"))
+                if "checkpoint" in n]

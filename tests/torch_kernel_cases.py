@@ -340,3 +340,79 @@ def reference_rank(values: np.ndarray) -> np.ndarray:
     ranks = np.empty(len(values), np.int64)
     ranks[order] = np.arange(len(values))
     return ((ranks * 65535) // max(len(values) - 1, 1)).astype(np.int32)
+
+
+#: the winner bits K4's streams (``winner_case``)
+WINNER_CASES = ["config5", "config6", "random", "one-path", "zipf", "num-paths-1", "all-pad",
+                "no-pad"]
+
+
+def winner_case(case: str, n: int, seed: int = 0):
+    """K4's inputs ``(path_id int32 (n,), num_paths)`` for ``case`` of
+    :data:`WINNER_CASES` at ``n`` rows (a multiple of 8), pads (-1) at the
+    end as ``winner_mask_device`` pads a stream to a power of two:
+
+    * ``config5``: bench config 5's shape: 20 actions a commit over 50,000
+      path names of which each version's names are new (``-{v}``), so most
+      ids appear once, a few twice, ids in order of first appearance;
+    * ``config6``: config 6's log: a million distinct adds, then tails that
+      remove and re-add (each id once or twice, in order of first appearance);
+    * ``random``: uniform ids over n / 10 paths, 1/64 pads;
+    * ``one-path``: every row the same id of n / 4 paths;
+    * ``zipf``: zipf-skewed ids over n / 4 paths (a few hot ids own much of
+      the stream);
+    * ``num-paths-1``: ids 0 and pads only, ``num_paths`` 1;
+    * ``all-pad``: no real row;
+    * ``no-pad``: every row a real id.
+    """
+    rng = np.random.RandomState(seed + n)
+    if case == "config5":
+        num_paths = max(n // 2, 1)
+        first = np.arange(n, dtype=np.int64) // 2
+        again = rng.rand(n) < 0.1
+        pid = np.where(again, rng.randint(0, np.maximum(first, 1)), first)
+        pid = np.minimum(pid, num_paths - 1)
+    elif case == "config6":
+        base = max(n - n // 32, 1)
+        num_paths = base + n // 64
+        tail = n - base
+        pid = np.concatenate([np.arange(base), rng.randint(0, num_paths, tail)])
+    elif case == "random":
+        num_paths = max(n // 10, 1)
+        pid = rng.randint(0, num_paths, n)
+        pid[-(n // 64):] = -1 if n >= 64 else pid[-(n // 64):]
+    elif case == "one-path":
+        num_paths = max(n // 4, 1)
+        pid = np.full(n, num_paths - 1)
+    elif case == "zipf":
+        num_paths = max(n // 4, 1)
+        probs = 1.0 / np.arange(1, num_paths + 1, dtype=np.float64)
+        pid = rng.choice(num_paths, n, p=probs / probs.sum())
+    elif case == "num-paths-1":
+        num_paths = 1
+        pid = np.where(rng.rand(n) < 0.3, -1, 0)
+    elif case == "all-pad":
+        num_paths = 5
+        pid = np.full(n, -1)
+    elif case == "no-pad":
+        num_paths = max(n // 3, 1)
+        pid = rng.randint(0, num_paths, n)
+    else:
+        raise KeyError(case)
+    pid = pid.astype(np.int32)
+    if case not in ("random", "all-pad", "no-pad") and n >= 16:
+        pid[-(n // 16):] = -1
+    return pid, int(num_paths)
+
+
+def reference_winner(path_id: np.ndarray) -> np.ndarray:
+    """K4's contract in numpy: row i wins when its id is >= 0 and no later
+    row has it; packed big-endian, bit 7 - j of byte b is row 8b + j."""
+    n = len(path_id)
+    win = np.zeros(n, bool)
+    valid = np.nonzero(path_id >= 0)[0]
+    if len(valid):
+        rev = valid[::-1]
+        _, first = np.unique(path_id[rev], return_index=True)
+        win[rev[first]] = True
+    return np.packbits(win)

@@ -110,6 +110,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the ``log`` stream's commits of adds before its tails (config 6's JSON
+#: layout, as ``chip_smoke.py`` laid it out before its checkpoint)
+LOG_COMMITS = 10
 
 
 def k1_workloads(torch, dev, state_cache, chip_smoke):
@@ -139,15 +142,15 @@ def replay_streams(chip_smoke, state_export):
     rng = np.random.RandomState(13)
     # config 6's log: v1-v10 of 100,000 adds, then tails v11-v20, each 500
     # removes of live files before 1,000 new adds (seq = version << 31 | pos)
-    n_files, per = chip_smoke.N_FILES, chip_smoke.N_FILES // chip_smoke.N_COMMITS
+    n_files, per = chip_smoke.N_FILES, chip_smoke.N_FILES // LOG_COMMITS
     adds, rem = chip_smoke.TAIL_ADDS, chip_smoke.TAIL_REMOVES
     pid = [np.arange(n_files, dtype=np.int32)]
-    seq = [(np.repeat(np.arange(1, chip_smoke.N_COMMITS + 1), per).astype(np.int64) << 31)
-           | np.tile(np.arange(per, dtype=np.int64), chip_smoke.N_COMMITS)]
+    seq = [(np.repeat(np.arange(1, LOG_COMMITS + 1), per).astype(np.int64) << 31)
+           | np.tile(np.arange(per, dtype=np.int64), LOG_COMMITS)]
     is_add, size, dts = [np.ones(n_files, bool)], [np.full(n_files, 1 << 20)], [np.zeros(n_files)]
     live = list(range(n_files))
     for t in range(chip_smoke.N_TAILS):
-        v = chip_smoke.N_COMMITS + 1 + t
+        v = LOG_COMMITS + 1 + t
         gone = rng.choice(len(live), rem, replace=False)
         new_ids = np.arange(n_files + t * adds, n_files + (t + 1) * adds, dtype=np.int32)
         pid.append(np.concatenate([np.asarray(live, np.int32)[gone], new_ids]))
@@ -177,7 +180,7 @@ def replay_streams(chip_smoke, state_export):
     n = 1 << 20
     hot = rng.randint(0, n // 4, n)
     hot[rng.choice(n, 100_000, replace=False)] = 0
-    return {"log": (log, chip_smoke.N_COMMITS + 5),
+    return {"log": (log, LOG_COMMITS + 5),
             "hot": (synthetic(hot, rng.rand(n) > 0.3), 1000),
             "adds": (synthetic(rng.randint(0, n // 4, n), np.ones(n, bool)), 1000),
             "empty": (chip_smoke.k6_stream(n, 31), 1000)}
@@ -712,8 +715,15 @@ def optimize_wall(torch, dev, chip_smoke, data):
 
 
 def k4_rows(torch, dev, emit, t, chip_smoke, state_export):
-    """K4 at the log stream's path ids padded to 2^20 (the main path's) and
-    at phase 3's random ids."""
+    """K4 at n = 2^20 on four streams: the log stream's path ids padded to
+    2^20 (the main path's), phase 3's random ids, phase 3's zipf-skewed K6
+    ids (``chip_smoke.k6_stream``) and one path on every row. Eager (three
+    readings), host, graph, profiler, ``scatter_reduce_`` amax (the scatter
+    half alone) and ``winner_mask_device``'s whole call (upload, kernel,
+    download: the median of 20 host walls). Where the package has the
+    self-cleaning entry (``replay_kernel._winner_launch``), the graph
+    replays the wrapper itself (it does not synchronise); before it, the
+    launch without the wrapper's read of the error word."""
     from delta_tpu_torch.ops import native, replay_kernel
 
     log, _ = replay_streams(chip_smoke, state_export)["log"]
@@ -723,30 +733,49 @@ def k4_rows(torch, dev, emit, t, chip_smoke, state_export):
     pid_log[:log.num_rows] = log.path_id
     pid_rand = rng.randint(0, n // 10, n).astype(np.int32)
     pid_rand[-(n // 64):] = -1
+    pid_zipf = chip_smoke.k6_stream(n, 31).path_id.astype(np.int32)
+    redesigned = hasattr(replay_kernel, "_winner_launch")
     for name, pid_np, num_paths in (("log", pid_log, len(log.paths)),
-                                    ("random", pid_rand, n // 10)):
+                                    ("random", pid_rand, n // 10),
+                                    ("zipf", pid_zipf, n // 4),
+                                    ("one_path", np.zeros(n, np.int32), 1)):
         pid = torch.from_numpy(pid_np).to(dev)
-        fn = lambda pid=pid, num_paths=num_paths: replay_kernel.winner_bits(pid, num_paths)
-        if not torch.equal(fn(), replay_kernel.winner_bits_plain(pid, num_paths)):
-            raise SystemExit(f"kernel_ab: winner_bits != its plain version ({name})")
-        out = torch.empty(n // 8, dtype=torch.uint8, device=dev)
-        last = torch.empty(num_paths, dtype=torch.int32, device=dev)
-        err = torch.empty(1, dtype=torch.int32, device=dev)
-        # the launch alone, without the wrapper's read of the error word
-        launch = lambda pid=pid, num_paths=num_paths, out=out, last=last, err=err: native.call(
-            "winner_bits", dev, pid.data_ptr(), n, last.data_ptr(), num_paths, err.data_ptr(),
-            out.data_ptr())
         valid = pid >= 0
         pid64, idx = pid[valid].long(), torch.arange(n, device=dev)[valid]
         last64 = torch.empty(num_paths, dtype=torch.int64, device=dev)
+        library_ms = t["cuda_ms"](lambda: last64.fill_(-1).scatter_reduce_(
+            0, pid64, idx, "amax"), 50)
         b, _ = chip_smoke.bound(4 * n + n // 8)
-        emit("winner_bits", stream=name, shape=f"n={n} num_paths={num_paths}", bound_ms=b,
-             launches=t["launched"](fn), ms=[t["cuda_ms"](fn, 50) for _ in range(3)],
+        fn = lambda pid=pid, num_paths=num_paths: replay_kernel.winner_bits(pid, num_paths)
+        if not torch.equal(fn(), replay_kernel.winner_bits_plain(pid, num_paths)):
+            raise SystemExit(f"kernel_ab: winner_bits != its plain version ({name})")
+        if redesigned:
+            launch = fn
+        else:
+            out = torch.empty(n // 8, dtype=torch.uint8, device=dev)
+            last = torch.empty(num_paths, dtype=torch.int32, device=dev)
+            err = torch.empty(1, dtype=torch.int32, device=dev)
+            # the launch alone, without the wrapper's read of the error word
+            launch = lambda pid=pid, num_paths=num_paths, out=out, last=last, err=err: (
+                native.call("winner_bits", dev, pid.data_ptr(), n, last.data_ptr(),
+                            num_paths, err.data_ptr(), out.data_ptr()))
+        walls = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mask = replay_kernel.winner_mask_device(pid_np, num_paths, device=dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(mask, np.unpackbits(
+                replay_kernel.winner_bits_plain(pid, num_paths).cpu().numpy()).astype(bool)):
+            raise SystemExit(f"kernel_ab: winner_mask_device != the plain mask ({name})")
+        emit("winner_bits", stream=name, shape=f"n={n} num_paths={num_paths}",
+             bound_ms=b, launches=t["launched"](fn),
+             ms=[t["cuda_ms"](fn, 50) for _ in range(3)],
              host_us=t["host_us"](fn, 50), graph_ms=t["graph_ms"](launch, 20),
-             breakdown_us=t["kernel_breakdown"](fn),
-             library_ms=t["cuda_ms"](lambda: last64.fill_(-1).scatter_reduce_(
-                 0, pid64, idx, "amax"), 50))
-        del pid, out, last, err, pid64, idx, last64
+             breakdown_us=t["kernel_breakdown"](fn), library_ms=library_ms,
+             mask_device_ms=sorted(walls[1:])[10])
+        del pid, pid64, idx, last64
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
