@@ -217,7 +217,35 @@ Phases, each reported on its own line:
    the plan, the replay and the dryrun run again over all of them. K6, K7,
    K13 and the combine kernel are then timed at the phase's shapes (rows of
    the kernels line);
-13. last line: ``{"ok": true, "device": {...}}``.
+13. DELETE, UPDATE, RESTORE, VACUUM and time travel on bench config 2,
+   with the counters set to 0 again: a hard-linked copy of phase 7's
+   table in M3's end state (deletion vectors on), its numpy reference
+   carried along. Step 0 upserts 10,000 rows (the cold slab, K8); step 1
+   DELETEs ``ss_quantity >= 96`` on the deletion-vector path (K1 plans its
+   candidates; every touched file re-added with a vector, no data file
+   written, ``numDeletedRows`` numpy's count); step 2 UPDATEs
+   ``ss_net_paid + 1.0`` and ``ss_item_sk + 30000000`` where
+   ``ss_store_sk < 25`` (moving MERGE keys); step 3 MERGEs a 1M-row source
+   (half live keys, some moved, half fresh) through the resident slab,
+   advanced over steps 1-2 by ``slab_advance`` (the same entry, no cold
+   rebuild; the appended keys are re-sorted once); step 4 DELETEs
+   ``ss_item_sk >= 30000000``, which keeps exactly the files whose own max
+   ``ss_item_sk`` holds a moved key (K1); step 5 UPDATEs ``ss_quantity * 2``
+   where ``ss_customer_sk < 10000`` copy-on-write (both caches' epochs
+   move) and MERGEs again (the slab rebuilt: K8 once); step 6 reads the
+   version before step 1 and the timestamp of step 2's commit while the
+   resident entry sits at the latest version (the "older" verdict, a host
+   plan); step 7 RESTOREs the version before step 1 (the restored and
+   removed counts the two snapshots imply, both epochs moved) and MERGEs a
+   source holding keys step 1 deleted; step 8 VACUUMs with no retention
+   (the dry run lists exactly what an ``os.walk`` finds unreferenced by a
+   live file or sidecar, the real run deletes those) and a RESTORE to a
+   version whose files are gone raises before any commit. Each step's end
+   state, read with ``scan_to_table``, equals numpy's on all 8 columns;
+   each command's wall time, ``scanTimeMs`` / ``rewriteTimeMs`` and
+   launches are printed beside the card's name and power limit, and the
+   phase's launches join the kernels line's;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -3690,6 +3718,360 @@ def measure_mesh(dev, xctx):
     return out
 
 
+# -- phase 13: DELETE, UPDATE, RESTORE, VACUUM and time travel on bench config 2 -----
+
+DML_MOVE = 30_000_000  # step 2 moves keys past every key the table holds
+#: fresh-key bases of the phase's upserts: above every key of phase 7's end
+#: state (< MERGE_ROWS * 2 + 3 * MERGE_SOURCE = 23M) and below DML_MOVE
+DML_FRESH = {"prime": 24_000_000, "step3": 25_000_000, "step5": 26_000_000,
+             "step7": 27_000_000}
+DML_PRIME = 10_000  # step 0's upsert: it builds the key slab that steps 1-3 advance
+
+
+def state_of(t):
+    """A scan's rows as numpy columns sorted by ss_item_sk (no NULLs)."""
+    cols = {c: t.column(c).values for c in STORE_SALES}
+    check(all(t.column(c).valid.all() for c in STORE_SALES), "a NULL in a read")
+    order = np.argsort(cols["ss_item_sk"], kind="stable")
+    return {c: v[order] for c, v in cols.items()}
+
+
+def same_state(got, want, label):
+    check(len(got["ss_item_sk"]) == len(want["ss_item_sk"]),
+          f"{label}: {len(got['ss_item_sk'])} rows, the reference {len(want['ss_item_sk'])}")
+    for c in STORE_SALES:
+        check(np.array_equal(got[c], want[c]), f"{label}: column {c} differs from numpy")
+
+
+def take_state(state, keep):
+    """The rows of ``state`` where ``keep``, sorted by ss_item_sk."""
+    out = {c: v[keep] for c, v in state.items()}
+    order = np.argsort(out["ss_item_sk"], kind="stable")
+    return {c: v[order] for c, v in out.items()}
+
+
+def dml_source(seed, n, picks, fresh_base):
+    """An upsert of ``n`` rows: the keys in ``picks`` (live keys the caller
+    drew), the rest fresh from ``fresh_base``; payload from RandomState(seed)."""
+    r = np.random.RandomState(seed)
+    fresh = np.arange(fresh_base, fresh_base + n - len(picks), dtype=np.int64)
+    keys = np.concatenate([np.asarray(picks, np.int64), fresh])
+    r.shuffle(keys)
+    return dict(store_sales(n, r), ss_item_sk=keys)
+
+
+def data_files_on_disk(root):
+    """Every file an independent walk of the table finds outside hidden
+    (``_``/``.``) names, relative to the root."""
+    out = set()
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if not x.startswith(("_", "."))]
+        rel = os.path.relpath(d, root)
+        out |= {os.path.normpath(os.path.join(rel, f)) for f in files
+                if not f.startswith(("_", "."))}
+    return out
+
+
+def commit_actions(log, version):
+    from delta_tpu_torch.protocol.actions import actions_from_lines
+
+    return actions_from_lines(log.store.read(f"{log.log_path}/{filenames.delta_file(version)}"))
+
+
+def run_dml(dev, c2, workdir, card):
+    """Phase 13: DELETE, UPDATE, MERGE, RESTORE, VACUUM and time travel on a
+    hard-linked copy of phase 7's table (M3's end state), each step's end
+    state read back with ``scan_to_table`` and equal, all 8 columns exactly,
+    to numpy's same operations on the generated arrays."""
+    import shutil
+    import urllib.parse
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.errors import DeltaIllegalStateError
+
+    path = c2["path"] + "-dml"
+    shutil.copytree(c2["path"], path, copy_function=os.link)
+    key_cache.KeyCache.reset()
+    torch.cuda.empty_cache()
+    log = DeltaLog.for_table(path, device=dev)
+    table = DeltaTable.for_path(path, device=dev)
+    state = c2["state"]
+    steps, states = [], {}
+
+    def slab_entry():
+        """The table's one resident key slab (the upserts' ss_item_sk lane)."""
+        cache = key_cache.KeyCache.instance()
+        with cache._lock:
+            found = [e for k, e in cache._entries.items() if k[0] == log.log_path]
+        check(len(found) <= 1, f"{len(found)} key slabs for one table")
+        return found[0] if found else None
+
+    def epochs():
+        return (key_cache.KeyCache.instance().epoch(log.log_path),
+                ColumnCache.instance().epoch(log.log_path))
+
+    def timed_step(name, fn, settings=None):
+        """Run one command with its launch counts and wall time."""
+        before = dict(native.launches)
+        with conf.set_temporarily(**(settings or {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
+        check(key_cache.KeyCache.instance().last_build_error is None,
+              f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
+        delta = {k: native.launches[k] - before[k] for k in native.launches
+                 if native.launches[k] != before[k]}
+        return out, wall_s, delta
+
+    def merge(name, src, want_route, settings=None):
+        def run():
+            cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk",
+                                   [MergeClause("update")], [MergeClause("insert")],
+                                   source_alias="s", target_alias="t")
+            cmd.run()
+            return cmd
+
+        cmd, wall_s, delta = timed_step(name, run, dict(
+            {"delta.tpu.merge.devicePath.mode": "force"}, **(settings or {})))
+        check(cmd._join_path == want_route, f"{name}: route {cmd._join_path}, not {want_route}")
+        check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
+        hits = int(np.isin(src["ss_item_sk"], state["ss_item_sk"]).sum())
+        check(cmd.metrics["numTargetRowsUpdated"] == hits
+              and cmd.metrics["numTargetRowsInserted"] == len(src["ss_item_sk"]) - hits,
+              f"{name}: metrics {cmd.metrics}, numpy {hits} updates")
+        phases = {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+        return cmd, wall_s, delta, phases
+
+    def record(name, wall_s, delta, detail):
+        got = state_of(scan_to_table(log.update()))
+        same_state(got, state, f"dml {name}")
+        steps.append({"step": name, "wall_s": wall_s, "launches": delta, "version":
+                      log.update().version, "rows": len(got["ss_item_sk"])})
+        say(f"dml: {name} {wall_s:.3f} s wall, {detail}, launches {delta}; end state of "
+            f"{len(got['ss_item_sk'])} rows x 8 columns equal to numpy | {card}")
+
+    settings = {"delta.tpu.write.targetFileRows": MERGE_FILE_ROWS,
+                "delta.tpu.stateCache.devicePlan.mode": "force"}
+    with conf.set_temporarily(**settings):
+        native.reset_launches()  # -- the DML phase's path starts here
+        # step 0: a small upsert builds the key slab cold (K8)
+        live = state["ss_item_sk"]
+        r = np.random.RandomState(21)
+        src = dml_source(21, DML_PRIME, live[r.choice(len(live), DML_PRIME // 2,
+                                                      replace=False)], DML_FRESH["prime"])
+        cmd, wall_s, delta, phases = merge("step 0 MERGE (prime)", src, "device-cold")
+        state = reference_upsert(state, src)
+        check(delta.get("slab_sort", 0) == 1, f"step 0: launches {delta}, one K8 expected")
+        slab0 = slab_entry()
+        check(slab0 is not None, "step 0: no resident key slab")
+        record("step 0 MERGE (prime)", wall_s, delta, f"device-cold, phase_ms {phases}")
+        pre = state
+        v_pre = log.update().version
+        files_before = data_files_on_disk(path)
+
+        # step 1: DELETE on the deletion-vector path, candidates through K1
+        # (``>= 96`` is ``> 95`` on an integer column, in the form the
+        # resident planner lowers exactly)
+        live_paths = {f.path for f in log.update().all_files}
+        m, wall_s, delta = timed_step("step 1", lambda: table.delete("ss_quantity >= 96"))
+        doomed = state["ss_quantity"] >= 96
+        check(m["numDeletedRows"] == int(doomed.sum()),
+              f"step 1: numDeletedRows {m['numDeletedRows']}, numpy {int(doomed.sum())}")
+        check(delta.get("block_cull", 0) >= 1, f"step 1: launches {delta}: K1 not launched")
+        acts = commit_actions(log, log.update().version)
+        adds = [a for a in acts if isinstance(a, AddFile)]
+        check(adds and all(a.deletion_vector is not None and a.path in live_paths for a in adds),
+              "step 1: a touched file without a deletion vector, or a new data file")
+        check(data_files_on_disk(path) - files_before <= {
+            a.deletion_vector["pathOrInlineDv"] for a in adds
+            if a.deletion_vector["storageType"] == "u"}, "step 1: a data file was written")
+        check(m["numAddedFiles"] == len(adds) and m["numRemovedFiles"] == len(adds),
+              f"step 1: metrics {m}")
+        state = take_state(state, ~doomed)
+        record("step 1 DELETE (DV)", wall_s, delta,
+               f"{m['numDeletedRows']} rows, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}, {len(adds)} files re-added with a deletion vector")
+
+        # step 2: UPDATE on the deletion-vector path, moving MERGE keys
+        m, wall_s, delta = timed_step("step 2", lambda: table.update(
+            {"ss_net_paid": "ss_net_paid + 1.0", "ss_item_sk": f"ss_item_sk + {DML_MOVE}"},
+            "ss_store_sk < 25"))
+        hit = state["ss_store_sk"] < 25
+        check(m["numUpdatedRows"] == int(hit.sum()),
+              f"step 2: numUpdatedRows {m['numUpdatedRows']}, numpy {int(hit.sum())}")
+        state = {c: v.copy() for c, v in state.items()}
+        state["ss_net_paid"][hit] += 1.0
+        moved = state["ss_item_sk"][hit] + DML_MOVE
+        state["ss_item_sk"][hit] = moved
+        state = take_state(state, np.ones(len(hit), bool))
+        v_step2 = log.update().version
+        record("step 2 UPDATE (DV)", wall_s, delta,
+               f"{m['numUpdatedRows']} rows, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}, {m['numAddedFiles']} files added")
+        states["step2"] = state
+
+        # step 3: MERGE through the resident slab, advanced over steps 1-2
+        r = np.random.RandomState(23)
+        unmoved = state["ss_item_sk"][state["ss_item_sk"] < DML_MOVE]
+        n_moved = min(MERGE_SOURCE // 20, len(moved))
+        picks = np.concatenate([r.choice(moved, n_moved, replace=False),
+                                r.choice(unmoved, MERGE_SOURCE // 2 - n_moved, replace=False)])
+        src = dml_source(23, MERGE_SOURCE, picks, DML_FRESH["step3"])
+        cmd, wall_s, delta, phases = merge("step 3", src, "resident")
+        # the advance over steps 1-2 is slab_advance on the slab step 0
+        # built; step 2's appended keys leave its sorted view stale, so the
+        # probe re-sorts it once (K8 over the device lanes, no key decode)
+        check(delta.get("slab_advance", 0) >= 1 and delta.get("slab_sort", 0) <= 1,
+              f"step 3: launches {delta}: slab_advance and at most the re-sort expected")
+        check(slab_entry() is slab0 and slab0.version == log.update().version - 1,
+              "step 3: the key slab was rebuilt, not advanced")
+        state = reference_upsert(state, src)
+        record("step 3 MERGE (resident)", wall_s, delta,
+               f"{cmd.metrics['numTargetRowsUpdated']} updated ({n_moved} moved keys), "
+               f"{cmd.metrics['numTargetRowsInserted']} inserted, phase_ms {phases}")
+
+        # step 4: DELETE whose stats keep only the files that hold moved keys
+        snap = log.update()
+        holders = set()
+        for f in snap.all_files:
+            mx = (f.stats_dict() or {}).get("maxValues", {}).get("ss_item_sk")
+            check(mx is not None, f"step 4: {f.path} has no max ss_item_sk")
+            if mx >= DML_MOVE:
+                holders.add(f.path)
+        kept = {f.path for f in pruning.files_for_scan(
+            snap, [parse_predicate(f"ss_item_sk >= {DML_MOVE}")]).files}
+        check(kept == holders, f"step 4: files_for_scan kept {len(kept)} files, the stats "
+              f"name {len(holders)} holders of moved keys")
+        check(len(holders) < len(snap.all_files), "step 4: every file holds a moved key")
+        m, wall_s, delta = timed_step("step 4", lambda: table.delete(
+            f"ss_item_sk >= {DML_MOVE}"))
+        doomed = state["ss_item_sk"] >= DML_MOVE
+        check(m["numDeletedRows"] == int(doomed.sum()) and m["numRemovedFiles"] == len(holders),
+              f"step 4: metrics {m}, numpy {int(doomed.sum())} rows in {len(holders)} files")
+        check(delta.get("block_cull", 0) >= 1, f"step 4: launches {delta}: K1 not launched")
+        state = take_state(state, ~doomed)
+        record("step 4 DELETE (stats pruning)", wall_s, delta,
+               f"{m['numDeletedRows']} rows in {len(holders)} of {len(snap.all_files)} files, "
+               f"scanTimeMs {m['scanTimeMs']}, rewriteTimeMs {m['rewriteTimeMs']}")
+
+        # step 5: UPDATE copy-on-write, then a MERGE that rebuilds the slab
+        e0 = epochs()
+        m, wall_s, delta = timed_step("step 5", lambda: table.update(
+            {"ss_quantity": "ss_quantity * 2"}, "ss_customer_sk < 10000"),
+            {"delta.tpu.deletionVectors.enabled": False})
+        hit = state["ss_customer_sk"] < 10000
+        check(m["numUpdatedRows"] == int(hit.sum()), f"step 5: metrics {m}")
+        e1 = epochs()
+        check(e1 == (e0[0] + 1, e0[1] + 1), f"step 5: epochs {e0} -> {e1}, both must move")
+        v_step5 = log.update().version
+        state = {c: v.copy() for c, v in state.items()}
+        state["ss_quantity"][hit] *= 2
+        record("step 5 UPDATE (copy-on-write)", wall_s, delta,
+               f"{m['numUpdatedRows']} rows, {m['numRemovedFiles']} files rewritten into "
+               f"{m['numAddedFiles']}, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}, epochs {e0} -> {e1}")
+        r = np.random.RandomState(25)
+        live = state["ss_item_sk"]
+        src = dml_source(25, MERGE_SOURCE, live[r.choice(len(live), MERGE_SOURCE // 2,
+                                                         replace=False)], DML_FRESH["step5"])
+        cmd, wall_s, delta, phases = merge("step 5 MERGE", src, "device-cold")
+        check(delta.get("slab_sort", 0) == 1, f"step 5 MERGE: launches {delta}: one K8")
+        check(slab_entry() is not slab0, "step 5 MERGE: the stale slab survived the rewrite")
+        state = reference_upsert(state, src)
+        record("step 5 MERGE (cold rebuild)", wall_s, delta, f"phase_ms {phases}")
+
+        # step 6: time travel while the resident entry sits at the latest version
+        latest = log.update()
+        pruning.files_for_scan(latest, [parse_predicate("ss_item_sk >= 0")])
+        entry = state_cache.DeviceStateCache.instance().get(latest)
+        check(entry is not None and entry.version == latest.version,
+              "step 6: no resident entry at the latest version")
+        commit_ts = int(os.stat(f"{log.log_path}/{filenames.delta_file(v_step2)}").st_mtime
+                        * 1000)
+        for label, kw, want in (("version", {"version": v_pre}, pre),
+                                ("timestamp", {"timestamp": commit_ts}, states["step2"])):
+            old = log.snapshot_for(**kw)
+            verdict = state_cache.DeviceStateCache.instance()._lookup(
+                (log.log_path, str(log.device)), old)[1]
+            check(verdict == "older", f"step 6 {label}: verdict {verdict}, not older")
+            got, wall_s, delta = timed_step(f"step 6 {label}", lambda: table.to_table(
+                filters=["ss_item_sk >= 0"], **kw))
+            same_state(state_of(got), want, f"dml step 6 {label}")
+            check(entry.version == latest.version, f"step 6 {label}: the entry moved")
+            say(f"dml: step 6 time travel by {label} {kw} to version {old.version}: "
+                f"{wall_s:.3f} s wall, {got.num_rows} rows x 8 columns equal to numpy, the "
+                f"resident entry left at version {entry.version}, launches {delta} | {card}")
+            steps.append({"step": f"step 6 {label}", "wall_s": wall_s, "launches": delta,
+                          "version": old.version, "rows": got.num_rows})
+
+        # step 7: RESTORE to before step 1, then a MERGE of keys step 1 deleted
+        cur, tgt = log.update(), log.get_snapshot_at(v_pre)
+        cur_files = {f.path: f for f in cur.all_files}
+        want_restored = sum(1 for p, f in ((f.path, f) for f in tgt.all_files)
+                            if p not in cur_files
+                            or cur_files[p].deletion_vector != f.deletion_vector)
+        want_removed = len(set(cur_files) - {f.path for f in tgt.all_files})
+        e0 = epochs()
+        m, wall_s, delta = timed_step("step 7", lambda: table.restore_to_version(v_pre))
+        check(m["numRestoredFiles"] == want_restored and m["numRemovedFiles"] == want_removed,
+              f"step 7: metrics {m}, the snapshots imply {want_restored} restored and "
+              f"{want_removed} removed")
+        e1 = epochs()
+        check(e1 == (e0[0] + 1, e0[1] + 1), f"step 7: epochs {e0} -> {e1}, both must move")
+        state = pre
+        record("step 7 RESTORE", wall_s, delta,
+               f"to version {v_pre}: {m['numRestoredFiles']} restored, {m['numRemovedFiles']} "
+               f"removed, epochs {e0} -> {e1}")
+        r = np.random.RandomState(27)
+        deleted = pre["ss_item_sk"][pre["ss_quantity"] >= 96]
+        n_del = min(MERGE_SOURCE // 10, len(deleted))
+        others = pre["ss_item_sk"][pre["ss_quantity"] < 96]
+        picks = np.concatenate([r.choice(deleted, n_del, replace=False),
+                                r.choice(others, MERGE_SOURCE // 2 - n_del, replace=False)])
+        src = dml_source(27, MERGE_SOURCE, picks, DML_FRESH["step7"])
+        cmd, wall_s, delta, phases = merge("step 7 MERGE", src, "device-cold")
+        state = reference_upsert(state, src)
+        record("step 7 MERGE (revived keys)", wall_s, delta,
+               f"{cmd.metrics['numTargetRowsUpdated']} updated ({n_del} keys step 1 deleted), "
+               f"phase_ms {phases}")
+
+        # step 8: VACUUM with no retention
+        snap = log.update()
+        referenced = {urllib.parse.unquote(f.path) for f in snap.all_files}
+        referenced |= {f.deletion_vector["pathOrInlineDv"] for f in snap.all_files
+                       if f.deletion_vector and f.deletion_vector["storageType"] == "u"}
+        expected = sorted(data_files_on_disk(path) - referenced)
+        dry, wall_dry, _ = timed_step("step 8 dry run", lambda: table.vacuum(
+            retention_hours=0, dry_run=True, retention_check_enabled=False))
+        check(dry.deleted_paths == expected, f"step 8: the dry run lists {dry.files_deleted} "
+              f"files, the walk finds {len(expected)} unreferenced")
+        res, wall_s, delta = timed_step("step 8", lambda: table.vacuum(
+            retention_hours=0, retention_check_enabled=False))
+        check(res.deleted_paths == expected
+              and not any(os.path.exists(os.path.join(path, p)) for p in expected),
+              "step 8: VACUUM deleted other files than the dry run listed")
+        record("step 8 VACUUM", wall_s, delta,
+               f"{res.files_deleted} files deleted (dry run {wall_dry:.3f} s)")
+        version = log.update().version
+        try:
+            table.restore_to_version(v_step5)
+        except DeltaIllegalStateError:
+            pass  # the refusal this step checks
+        else:
+            check(False, f"step 8: RESTORE to version {v_step5}, whose files are gone, ran")
+        check(log.update().version == version, "step 8: the refused RESTORE committed")
+        say(f"dml: step 8 RESTORE to version {v_step5} refused before any commit (its files "
+            f"are gone); the log stays at version {version}")
+        launches = dict(native.launches)  # -- the DML phase's path ends here
+    say(f"dml: launches on the DML phase's path {launches} | {card}")
+    say(json.dumps({"dml": steps}))
+    return {"launches": launches, "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3746,6 +4128,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         xctx = run_mesh(dev, c6, dict(rctx["c2"], m3=c2["m3"]), workdir)
         kernels += measure_mesh(dev, xctx)
+        xctx = None
+        dctx = run_dml(dev, c2, workdir, card)
+        for k in kernels:  # the DML phase's path runs K1, K8-K11 and the tail apply
+            k["launches"] += dctx["launches"].get(k["name"], 0)
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

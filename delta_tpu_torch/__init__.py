@@ -7,9 +7,11 @@ fine pass, the whole of ``files_for_scan``), the tombstone replay, the
 transaction and the table writer, the MERGE command with its key slab on
 the card (``ops/key_cache``) and its upload join (``ops/join_kernel``), the
 filtered read path with row-group skipping and the residual filter on the
-card (``ops/column_cache``), and OPTIMIZE with its Z-order key on the card
-(``ops/zorder``), over a Parquet codec of the port's own
-(``exec/parquet``). Under each ``auto`` mode a link cost model
+card (``ops/column_cache``), time travel by version or timestamp
+(``log/history``), DELETE and UPDATE (their candidates through
+``files_for_scan``, deletion vectors or rewrites), RESTORE, VACUUM, and
+OPTIMIZE with its Z-order key on the card (``ops/zorder``), over a Parquet
+codec of the port's own (``exec/parquet``). Under each ``auto`` mode a link cost model
 (``parallel/link``, probed with K17) picks the card or the host for the
 scan plan, the MERGE join and the residual filter, and ``obs/router_audit``
 records each decision. Over a state mesh of several entries
@@ -28,6 +30,11 @@ plan, the replay and the MERGE upload join run sharded, one launch a shard
                      [MergeClause("insert")], source_alias="s", target_alias="t").run()
     table = DeltaTable.for_path(path)
     rows = table.to_table(filters=["k > 10"])       # a HostTable
+    table.delete("k < 5")
+    table.update({"v": "v + 1"}, "k = 7")
+    before = table.to_table(version=1)
+    table.restore_to_version(1)
+    table.vacuum()
     table.optimize().execute_z_order_by("k", "v")
 
 It imports torch, numpy and the standard library only: never ``jax``,

@@ -1,19 +1,26 @@
-"""Shared DML machinery (the port's own copy of part of
-``delta_tpu.commands.dml_common``): candidate selection, the phase timer,
-the position column and the deletion-vector marking."""
+"""Shared DML machinery (the port's own copy of
+``delta_tpu.commands.dml_common``): candidate selection, the candidates'
+read with one row mask per file, the phase timer, the position column and
+the deletion-vector marking.
+
+A file's match mask is the predicate over its rows with NULL as False
+(``expr/vectorized.boolean_mask``), as SQL's WHERE takes it."""
 from __future__ import annotations
 
 import time
-from dataclasses import replace
-from typing import List, Optional
+from dataclasses import dataclass, replace
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from delta_tpu_torch.exec.scan import read_files_as_table
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr.vectorized import HostTable, boolean_mask
 from delta_tpu_torch.ops import pruning
 from delta_tpu_torch.protocol.actions import AddFile
 
-__all__ = ["Timer", "POSITION_COL", "candidate_files", "dv_enabled", "dv_mark_deleted"]
+__all__ = ["Timer", "POSITION_COL", "TouchedFile", "candidate_files", "read_candidates",
+           "dv_enabled", "dv_mark_deleted", "dv_mark_from_mask", "bump_cache_epochs"]
 
 # physical-row-position column attached to scans when deletion vectors are on
 POSITION_COL = "__pos__"
@@ -53,6 +60,36 @@ def candidate_files(txn, predicate: Optional[ir.Expression]) -> List[AddFile]:
     return [f for f in matched if f.path in kept_paths]
 
 
+@dataclass
+class TouchedFile:
+    add: AddFile
+    table: HostTable  # the file's live rows
+    mask: np.ndarray  # True = the row matches the predicate
+
+
+def read_candidates(data_path: str, files: Sequence[AddFile], metadata,
+                    predicate: Optional[ir.Expression], with_positions: bool = False,
+                    prune_row_groups: bool = False) -> List[TouchedFile]:
+    """Read each candidate and compute its match mask.
+
+    ``prune_row_groups=True`` pushes the predicate into the decode, so row
+    groups that cannot match never decode (``exec/rowgroups``). Only the
+    deletion-vector path may ask for it: it consumes only the matching
+    rows, whose physical positions stay right under skipping. The rewrite
+    path reads files whole, since the rows of a pruned group are exactly
+    the rows it must copy forward."""
+    tables = read_files_as_table(
+        data_path, files, metadata, per_file=True,
+        position_column=POSITION_COL if with_positions else None,
+        predicate=predicate if prune_row_groups else None)
+    out: List[TouchedFile] = []
+    for add, t in zip(files, tables):
+        mask = (np.ones(t.num_rows, bool) if predicate is None
+                else boolean_mask(predicate, t))
+        out.append(TouchedFile(add=add, table=t, mask=mask))
+    return out
+
+
 def dv_enabled(metadata) -> bool:
     from delta_tpu_torch.utils.config import DeltaConfigs, conf
 
@@ -81,3 +118,21 @@ def dv_mark_deleted(data_path: str, add: AddFile, matched_positions):
         return add.remove(), None
     desc = dv_mod.write_deletion_vector(all_rows, data_path)
     return add.remove(), replace(add, deletion_vector=desc.to_dict(), data_change=True)
+
+
+def dv_mark_from_mask(data_path: str, add: AddFile, table: HostTable, mask: np.ndarray):
+    """DV-mark the rows of ``table`` (a :class:`TouchedFile` read with
+    positions) that ``mask`` selects; see :func:`dv_mark_deleted`."""
+    return dv_mark_deleted(data_path, add, table.column(POSITION_COL).values[mask])
+
+
+def bump_cache_epochs(log_path: str) -> None:
+    """After a file rewrite or rewind (OPTIMIZE, a DELETE or UPDATE that
+    rewrites, RESTORE): neither the key slab (``ops/key_cache``) nor a scan
+    lane (``ops/column_cache``) of the table's old files may serve a later
+    MERGE or scan."""
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.ops.key_cache import KeyCache
+
+    KeyCache.instance().bump_epoch(log_path)
+    ColumnCache.instance().bump_epoch(log_path)

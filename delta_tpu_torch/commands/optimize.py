@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from delta_tpu_torch.commands import operations as ops
-from delta_tpu_torch.commands.dml_common import Timer
+from delta_tpu_torch.commands.dml_common import Timer, bump_cache_epochs
 from delta_tpu_torch.exec import write as write_exec
 from delta_tpu_torch.exec.scan import read_files_as_table
 from delta_tpu_torch.expr import ir
@@ -135,8 +135,6 @@ class OptimizeCommand:
         return new_adds, [f.remove(data_change=False) for f in group]
 
     def _body(self, txn) -> int:
-        from delta_tpu_torch.ops.column_cache import ColumnCache
-        from delta_tpu_torch.ops.key_cache import KeyCache
         from delta_tpu_torch.utils import telemetry
 
         metadata = txn.metadata
@@ -184,11 +182,8 @@ class OptimizeCommand:
         else:
             op = ops.Optimize(predicate=pred_sql, z_order_by=self.z_order_by or None)
         version = txn.commit(removes + adds, op)
-        # a file rewrite: neither a key slab nor a scan lane of the old files
-        # may serve a later MERGE or scan
         if removes or adds:
-            KeyCache.instance().bump_epoch(self.delta_log.log_path)
-            ColumnCache.instance().bump_epoch(self.delta_log.log_path)
+            bump_cache_epochs(self.delta_log.log_path)
         if removes:
             telemetry.bump_counter("maintenance.optimize.filesCompacted", len(removes))
         if adds:

@@ -1,7 +1,8 @@
 """DeltaLog: the per-table handle (the port's own copy of
 ``delta_tpu.log.deltalog``): the log store, snapshot updates (listing from
-``_last_checkpoint``), time travel, a per-(path, device) singleton cache,
-the protocol gates, the transactions (``txn/transaction``), checkpoints
+``_last_checkpoint``), a per-(path, device) singleton cache, time travel
+by version or timestamp (``snapshot_for``, through ``log/history``), the
+protocol gates, the transactions (``txn/transaction``), checkpoints
 (``log/checkpoints``) with the expired-log cleanup after them
 (``log/cleanup``), and the ``.crc`` of a committed version
 (``log/checksum``).
@@ -107,7 +108,10 @@ class DeltaLog:
             return snap
 
     def get_snapshot_at(self, version: int) -> Snapshot:
-        """Time travel to ``version`` (``SnapshotManagement.scala:342-360``)."""
+        """Time travel to ``version`` (``SnapshotManagement.scala:342-360``).
+        A version older than the earliest reproducible commit (its deltas
+        cleaned up, no checkpoint covering it) raises
+        ``VersionNotFoundError`` naming the range that is left."""
         current = self._snapshot
         if current is not None and current.version == version:
             return current
@@ -116,12 +120,44 @@ class DeltaLog:
             raise VersionNotFoundError(version, 0, latest)
         found = ckpt_mod.find_last_complete_checkpoint_before(self.store, self.log_path,
                                                               version + 1)
-        segment = sm.get_log_segment_for_version(
-            self.store, self.log_path, version,
-            start_checkpoint=found.version if found is not None else None)
+        try:
+            segment = sm.get_log_segment_for_version(
+                self.store, self.log_path, version,
+                start_checkpoint=found.version if found is not None else None)
+        except DeltaIllegalStateError:
+            # a head cleaned up below a later checkpoint is a missing
+            # version; any other gap in the log stays the error it is
+            earliest = self.history.get_earliest_reproducible_commit()
+            if version < earliest:
+                raise VersionNotFoundError(version, earliest, latest) from None
+            raise
         if segment is None:
-            raise VersionNotFoundError(version, 0, latest)
+            raise VersionNotFoundError(version, self.history.get_earliest_reproducible_commit(),
+                                       latest)
         return Snapshot(self, segment.version, segment)
+
+    @property
+    def history(self):
+        from delta_tpu_torch.log.history import DeltaHistoryManager
+
+        return DeltaHistoryManager(self)
+
+    def snapshot_for(self, version: Optional[int] = None, timestamp=None) -> Snapshot:
+        """The one time-travel resolution of every surface that takes version
+        or timestamp options (reads, RESTORE): at most one selector; a
+        timestamp is epoch ms or ISO-8601 and resolves to the last commit at
+        or before it; neither is the latest version."""
+        if version is not None and timestamp is not None:
+            raise errors_mod.DeltaAnalysisError("Cannot specify both version and timestamp")
+        if version is not None:
+            return self.get_snapshot_at(int(version))
+        if timestamp is not None:
+            from delta_tpu_torch.utils.timeparse import timestamp_option_to_ms
+
+            commit = self.history.get_active_commit_at_time(
+                timestamp_option_to_ms(timestamp), can_return_last_commit=True)
+            return self.get_snapshot_at(commit.version)
+        return self.update()
 
     @property
     def corrupt_checkpoints(self) -> frozenset:

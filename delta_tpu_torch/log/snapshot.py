@@ -151,9 +151,22 @@ class Snapshot:
     @cached_property
     def tombstones(self) -> List[RemoveFile]:
         """The removes still inside the tombstone retention, in row order."""
-        _, tomb = self._columnar.replay(self.min_file_retention_timestamp(),
-                                        winner=self._winner)
+        return self.tombstones_newer_than(self.min_file_retention_timestamp())
+
+    def tombstones_newer_than(self, cutoff_ms: int) -> List[RemoveFile]:
+        """The removes deleted after ``cutoff_ms``: VACUUM applies its own
+        horizon, not the snapshot's clock reading."""
+        _, tomb = self._columnar.replay(cutoff_ms, winner=self._winner)
         return list(self._columnar.materialize(tomb))
+
+    @property
+    def timestamp(self) -> int:
+        """The modification time of the version's last commit file (of its
+        checkpoint when no delta follows it); -1 for an empty table."""
+        seg = self.segment
+        if seg is None:
+            return -1
+        return (seg.deltas or seg.checkpoint_files)[-1].modification_time
 
     def checkpoint_actions(self) -> List[Action]:
         """The reconciled state, a checkpoint's content

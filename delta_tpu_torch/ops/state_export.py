@@ -47,13 +47,24 @@ _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
 _US = _dt.timedelta(microseconds=1)
 
 
+_I64_MIN = -(1 << 63)
+
+
+def _int_lane(v: int) -> Optional[float]:
+    """An integer JSON stats value as its lane value: exact within 2^53, and
+    -2^63, which a float64 holds exactly and the JAX package's Arrow lanes
+    keep (its ``np.abs`` of INT64_MIN overflows to a negative); every other
+    magnitude beyond 2^53 is missing."""
+    return float(v) if -2**53 <= v <= 2**53 or v == _I64_MIN else None
+
+
 def _stat_to_lane(v: Any, dt: DataType) -> Optional[float]:
     """One JSON stats value as a comparable float64 lane value, or None
     (missing: pruning keeps the file)."""
     if v is None or isinstance(v, bool):
         return None
     if isinstance(v, int):
-        return None if abs(v) > 2**53 else float(v)
+        return _int_lane(v)
     try:
         if isinstance(v, str):
             if isinstance(dt, DateType):
@@ -84,7 +95,7 @@ def _numeric_lane(dt: Optional[DataType]):
         if t is float:
             return v
         if t is int:
-            return float(v) if -2**53 <= v <= 2**53 else None
+            return _int_lane(v)
         return _stat_to_lane(v, dt)
 
     return num
@@ -317,8 +328,10 @@ def _struct_stat_lanes(sp, rows, stats_columns, prefix_set, col_types, smin, sma
 def _file_stat_to_lane(v: Any, dt: DataType) -> Optional[float]:
     """One JSON stats value as a float64 lane value, as the JAX package's
     per-file path (``files_to_arrays``) converts it: integers beyond 2^53
-    are missing, ISO dates become epoch days and timestamps epoch
-    microseconds through ``datetime.timestamp()``."""
+    are missing, -2^63 included (that path takes Python's ``abs``, which
+    does not overflow, unlike the Arrow lanes of :func:`_int_lane`), ISO
+    dates become epoch days and timestamps epoch microseconds through
+    ``datetime.timestamp()``."""
     if v is None:
         return None
     if isinstance(v, int) and abs(v) > 2**53:

@@ -209,6 +209,12 @@ class OptimisticTransaction:
         self.read_files.update({f.path: f for f in matched})
         return matched
 
+    def read_whole_table(self) -> None:
+        """Record a read of every file: any concurrent add conflicts
+        (``OptimisticTransaction.scala:381-384``)."""
+        self.read_predicates.append(ir.TRUE)
+        self.read_the_whole_table = True
+
     # -- commit ----------------------------------------------------------
 
     def commit(self, actions: Sequence[Action], op) -> int:

@@ -68,6 +68,8 @@ class SqlConf:
         "delta.tpu.write.targetFileRows": 4_000_000,
         # DML writes deletion vectors where the table enables them
         "delta.tpu.deletionVectors.enabled": True,
+        # VACUUM refuses a retention below the tombstone retention
+        "delta.tpu.retentionDurationCheck.enabled": True,
         # rows per Parquet row group the writer emits
         "delta.tpu.write.rowGroupRows": 131_072,
         # the device residual filter (ops/column_cache): "auto" prices the

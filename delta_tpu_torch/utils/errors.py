@@ -1,14 +1,17 @@
 """Error classes the port raises (the port's own copy of the subset of
 ``delta_tpu.utils.errors`` it needs): the log's, the expression
 language's (parser, row evaluator, host evaluator), the transaction's
-conflict verdicts, the writer's, the MERGE command's and OPTIMIZE's."""
+conflict verdicts, the writer's, the commands' (MERGE, OPTIMIZE, DELETE,
+UPDATE, VACUUM) and the history manager's time travel."""
 from __future__ import annotations
 
 from typing import Iterable, Optional
 
 __all__ = [
     "DeltaError", "DeltaAnalysisError", "DeltaIllegalStateError", "DeltaParseError",
-    "VersionNotFoundError",
+    "VersionNotFoundError", "DeltaFileNotFoundError", "TimestampEarlierThanCommitRetentionError",
+    "TemporallyUnstableInputError", "invalid_timestamp_format", "update_column_not_found",
+    "update_expression_type_mismatch", "retention_period_too_short",
     "versions_not_contiguous", "missing_part_files", "cannot_tokenize_predicate",
     "unexpected_end_of_expression", "trailing_tokens", "unexpected_keyword",
     "bad_column_path", "unexpected_token", "expected_type_name", "parse_expected",
@@ -75,6 +78,58 @@ class VersionNotFoundError(DeltaAnalysisError):
         self.version = version
         self.earliest = earliest
         self.latest = latest
+
+
+class DeltaFileNotFoundError(DeltaError, FileNotFoundError):
+    pass
+
+
+class TimestampEarlierThanCommitRetentionError(DeltaAnalysisError):
+    pass
+
+
+class TemporallyUnstableInputError(DeltaAnalysisError):
+    """The requested timestamp is after the latest commit's."""
+
+    def __init__(self, user_ts, commit_ts, latest_version: int):
+        super().__init__(
+            f"The provided timestamp ({user_ts}) is after the latest version "
+            f"available to this table ({commit_ts}, version {latest_version}).")
+        self.commit_ts = commit_ts
+        self.latest_version = latest_version
+
+
+def invalid_timestamp_format(ts, cause=None) -> DeltaAnalysisError:
+    tail = f": {cause}" if cause is not None else "."
+    return DeltaAnalysisError(
+        f"Invalid timestamp {ts!r}. Provide epoch milliseconds or an "
+        f"ISO-8601 string like '2024-05-01 12:00:00'{tail}")
+
+
+def update_column_not_found(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Column {column!r} not found in table schema. SET clauses may only "
+        "assign existing columns.")
+
+
+def update_expression_type_mismatch(name: str, new_type, old_type) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"UPDATE expression for {name} has incompatible type {new_type} "
+        f"(column is {old_type})")
+
+
+def retention_period_too_short(retention_hours: float,
+                               configured_hours: float) -> DeltaIllegalArgumentError:
+    return DeltaIllegalArgumentError(
+        "Are you sure you would like to vacuum files with such a low "
+        f"retention period ({retention_hours} hours)? If you have writers "
+        "that are currently writing to this table, there is a risk that you "
+        "may corrupt the state of your Delta table.\nIf you are certain "
+        "there are no operations being performed on this table, such as "
+        "insert/upsert/delete/optimize, then you may turn off this check by "
+        "setting delta.tpu.retentionDurationCheck.enabled = false\nIf you "
+        "are not sure, please use a value not less than "
+        f"{configured_hours} hours.")
 
 
 def missing_part_files(version: int, cause: Exception) -> DeltaIllegalStateError:

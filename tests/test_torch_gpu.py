@@ -1452,3 +1452,90 @@ def test_morton_order_on_the_card_runs_no_host_sort(cuda, monkeypatch):
     got = zorder.morton_order(floats, device=cuda)
     assert native.launches["morton_rank"] - before["morton_rank"] == 1
     assert np.array_equal(got, chip_smoke.reference_morton(floats))
+
+
+# -- DELETE, UPDATE and RESTORE before a MERGE (the sixteenth slice) -------------------
+
+
+def dml_then_merge(dev, root):
+    """A DV DELETE (its candidates through K1 under ``devicePlan.mode=force``),
+    a MERGE that advances the resident slab over it, a DV UPDATE that moves
+    keys, a second MERGE, then a RESTORE to before the DELETE and a MERGE
+    that rebuilds the slab. Returns each step's launch counts, routes and
+    metrics, and the end state's columns sorted by key."""
+    import os
+
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.ops.key_cache import KeyCache
+    from delta_tpu_torch.utils.config import conf
+
+    rng = np.random.RandomState(11)
+    n = 40_000
+    target = {"k": rng.permutation(n * 2)[:n].astype(np.int64), "v": rng.rand(n),
+              "q": rng.randint(0, 100, n).astype(np.int64)}
+    DeltaLog.clear_cache()
+    KeyCache.reset()
+    path = os.path.join(str(root), dev.type)
+    settings = {"delta.tpu.write.targetFileRows": 10_000,
+                "delta.tpu.merge.devicePath.mode": "force",
+                "delta.tpu.stateCache.devicePlan.mode": "force"}
+    steps = []
+    with conf.set_temporarily(**settings):
+        log = DeltaLog.for_table(path, device=dev)
+        WriteIntoDelta(log, "append", target).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        t = DeltaTable.for_path(path, device=dev)
+
+        def merge(keys):
+            src = {"k": keys.astype(np.int64), "v": rng.rand(len(keys)),
+                   "q": rng.randint(0, 100, len(keys)).astype(np.int64)}
+            cmd = MergeIntoCommand(log, src, "t.k = s.k", [MergeClause("update")],
+                                   [MergeClause("insert")], source_alias="s", target_alias="t")
+            cmd.run()
+            return cmd._join_path, {k: v for k, v in cmd.metrics.items()
+                                    if not k.endswith("TimeMs")}
+
+        def step(name, fn):
+            native.reset_launches()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            steps.append((name, {k: v for k, v in native.launches.items() if v}, out))
+
+        step("merge0", lambda: merge(target["k"][:500]))
+        before = t.version
+        step("delete", lambda: {k: v for k, v in t.delete("q >= 90").items()
+                                if not k.endswith("TimeMs")})
+        step("merge1", lambda: merge(np.concatenate([target["k"][500:1500],
+                                                      np.arange(n * 2, n * 2 + 200)])))
+        step("update", lambda: {k: v for k, v in t.update(
+            {"k": "k + 1000000"}, "q < 5").items() if not k.endswith("TimeMs")})
+        step("merge2", lambda: merge(np.concatenate([target["k"][:300] + 1_000_000,
+                                                      target["k"][2000:2300]])))
+        step("restore", lambda: t.restore_to_version(before)["numRestoredFiles"])
+        step("merge3", lambda: merge(target["k"][3000:3400]))
+        end = t.to_table()
+    order = np.argsort(end.column("k").values, kind="stable")
+    return steps, {c: end.column(c).values[order] for c in ("k", "v", "q")}
+
+
+def test_dml_then_merge_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The DML slice on the card: the DV DELETE launches K1, the MERGEs
+    after the DV commands take the resident route, advancing the slab
+    (``slab_advance``; at most one K8, the re-sort appended keys need), the
+    MERGE after RESTORE rebuilds it (K8); routes, metrics and the end state
+    equal the same run on the CPU, whose plain versions count nothing."""
+    got, got_end = dml_then_merge(cuda, tmp_path)
+    want, want_end = dml_then_merge(torch.device("cpu"), tmp_path)
+    assert [(n, out) for n, _, out in got] == [(n, out) for n, _, out in want]
+    launches = {n: c for n, c, _ in got}
+    assert launches["delete"].get("block_cull", 0) >= 1
+    for name in ("merge1", "merge2"):
+        assert launches[name].get("slab_advance", 0) >= 1, name
+        assert launches[name].get("slab_sort", 0) <= 1, name
+    assert launches["merge3"].get("slab_sort", 0) >= 1
+    assert [out[0] for n, _, out in got if n.startswith("merge")] == [
+        "device-cold", "resident", "resident", "device-cold"]
+    for c in ("k", "v", "q"):
+        assert np.array_equal(got_end[c], want_end[c]), c
