@@ -245,7 +245,28 @@ Phases, each reported on its own line:
    each command's wall time, ``scanTimeMs`` / ``rewriteTimeMs`` and
    launches are printed beside the card's name and power limit, and the
    phase's launches join the kernels line's;
-14. last line: ``{"ok": true, "device": {...}}``.
+14. partitioned tables, with the counters set to 0 again. 14a, bench
+   config 6p (``bench_hot_plan(partitioned=True)``, seed 13): 1M files in
+   732 ``day`` partitions, the port's checkpoint at version 0 (with
+   ``partitionValues_parsed``), the resident entry with its value-sorted
+   day dictionary, 256 plans under ``devicePlan.mode=force`` (every 4th
+   ``day = d AND c0 >= lo``, every 4th offset by 2 a 4-day range, the rest
+   stats ranges) equal to the host's float64 plan and to numpy, then three
+   one-file tails on the same entry, the third with a new day (the card's
+   day lane holds its code), each re-planned and checked. 14b,
+   store_sales(PART_ROWS) written through ``WriteIntoDelta(...,
+   partition_columns=["ss_sold_date_sk"])`` (2,000 partitions, deletion
+   vectors on): two reads with the residual on the card (K14; the second
+   binds each file's date as a per-file scalar), a cold and a resident
+   1M-row MERGE, a partition-only DELETE that reads no file, a DV DELETE
+   (K1) and a resident MERGE (K11's advance), an UPDATE of the partition
+   column that moves rows across partitions, a replaceWhere overwrite,
+   OPTIMIZE ZORDER BY inside 100 partitions (K16) with a point read before
+   and after, and VACUUM, which removes the partition directories that no
+   live file holds; each step's end state equals numpy's on all 8
+   columns, and K14's launch with the partition scalar equals its plain
+   version. Each phase's wall seconds are printed before the kernels line;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -1308,14 +1329,18 @@ def k16_checks(dev):
 # -- phase 4: the slice at full size -------------------------------------------
 
 
-def write_config6_table(path):
+def write_config6_table(path, partitioned=False):
     """The hot-plan benchmark's config 6 table (bench.py:915-1000, seed 13):
     N_FILES files, 4 indexed stats columns (c0/c2 long, c1/c3 double), each
     file covering a narrow range per column, laid out as the bench lays it
     out (``bench.py:959-985``): version 0's JSON commit holds the protocol
     and the metadata, and the checkpoint at version 0, written by the port's
-    ``write_checkpoint``, holds them and the N_FILES adds. Returns the
-    store, the queries and the checkpoint's write seconds."""
+    ``write_checkpoint``, holds them and the N_FILES adds. ``partitioned``
+    is config 6p (``bench_hot_plan(partitioned=True)``): a ``day`` STRING
+    partition column over C6P_DAYS days from 2020-01-01, file i in day
+    ``i * C6P_DAYS // N_FILES``, and every other query on ``day`` (an
+    equality with a c0 bound, or a 4-day range). Returns the store, the
+    queries and the checkpoint's write seconds."""
     log_path = os.path.join(path, "_delta_log")
     from delta_tpu_torch.log import checkpoints
     from delta_tpu_torch.storage.logstore import LocalLogStore
@@ -1325,33 +1350,52 @@ def write_config6_table(path):
     schema = StructType()
     for c in range(4):
         schema = schema.add(f"c{c}", DoubleType() if c % 2 else LongType())
-    proto, meta = Protocol(1, 2), Metadata(schema_string=schema.to_json())
+    days = c6p_days() if partitioned else []
+    if partitioned:
+        schema = schema.add("day", StringType())
+    proto = Protocol(1, 2)
+    meta = Metadata(schema_string=schema.to_json(),
+                    partition_columns=["day"] if partitioned else [])
     store.write(f"{log_path}/{filenames.delta_file(0)}", [proto.json(), meta.json()])
     base = {f"c{c}": np.sort(rng.rand(N_FILES) * 1e6) if c % 2 else
             np.sort(rng.randint(0, 1 << 40, N_FILES).astype(np.int64))
             for c in range(4)}
     width = {f"c{c}": 1e6 / N_FILES * 8 if c % 2 else max((1 << 40) // N_FILES * 8, 1)
              for c in range(4)}
-    nulls = {c: 0 for c in base}
+    # each file's stats JSON, as json.dumps writes it (floats by repr),
+    # formatted from Python lists: the table is set-up, not the path
+    lo = [base[c].tolist() for c in ("c0", "c1", "c2", "c3")]
+    hi = [(base[c] + width[c]).tolist() for c in ("c0", "c1", "c2", "c3")]
+    form = ('{"numRecords": 10000, "minValues": {"c0": %d, "c1": %r, "c2": %d, "c3": %r}, '
+            '"maxValues": {"c0": %d, "c1": %r, "c2": %d, "c3": %r}, '
+            '"nullCount": {"c0": 0, "c1": 0, "c2": 0, "c3": 0}}')
     adds = []
     for i in range(N_FILES):
-        mins = {c: (float(x[i]) if c in ("c1", "c3") else int(x[i])) for c, x in base.items()}
-        maxs = {c: (float(x[i] + width[c]) if c in ("c1", "c3") else int(x[i] + width[c]))
-                for c, x in base.items()}
-        stats = json.dumps({"numRecords": 10000, "minValues": mins,
-                            "maxValues": maxs, "nullCount": nulls})
+        stats = form % (lo[0][i], lo[1][i], lo[2][i], lo[3][i], hi[0][i], hi[1][i], hi[2][i],
+                        hi[3][i])
+        pv = {"day": days[i * len(days) // N_FILES]} if partitioned else {}
         adds.append(AddFile(path=f"part-{i:07d}.parquet", size=1 << 20,
-                            modification_time=0, data_change=False, stats=stats))
+                            modification_time=0, data_change=False, stats=stats,
+                            partition_values=pv))
     t0 = time.perf_counter()
     checkpoints.write_checkpoint(store, log_path, 0, [proto, meta] + adds)
     write_s = time.perf_counter() - t0
     queries = []
-    for _ in range(N_QUERIES):
+    for k in range(N_QUERIES):
         i = rng.randint(N_FILES)
         lo0 = int(base["c0"][i])
         lo1 = float(base["c1"][i])
-        queries.append(f"c0 >= {lo0} AND c0 <= {lo0 + int(width['c0'])} "
-                       f"AND c1 >= {lo1:.6f} AND c1 <= {lo1 + width['c1']:.6f}")
+        if partitioned and k % 2 == 0:  # bench.py:1001-1011
+            d = i * len(days) // N_FILES
+            if k % 4 == 0:
+                queries.append(f"day = '{days[d]}' AND c0 >= {lo0}")
+            else:
+                queries.append(f"day >= '{days[d]}' AND day <= '{days[min(d + 3, len(days) - 1)]}'")
+        else:
+            queries.append(f"c0 >= {lo0} AND c0 <= {lo0 + int(width['c0'])} "
+                           f"AND c1 >= {lo1:.6f} AND c1 <= {lo1 + width['c1']:.6f}")
+    if partitioned:
+        return store, queries, write_s, {"base": base, "width": width, "days": days}
     return store, queries, write_s
 
 
@@ -1381,7 +1425,8 @@ def write_tail_commit(store, log_path, version, rng, live):
 
 def lower(entry, snapshot, q):
     """The range box ``files_for_scan`` plans for predicate ``q``."""
-    rw = pruning.conjunct_rewrites([parse_expression(q)], frozenset(),
+    pcols = frozenset(c.lower() for c in snapshot.metadata.partition_columns)
+    rw = pruning.conjunct_rewrites([parse_expression(q)], pcols,
                                    pruning.schema_types(snapshot.metadata))
     terms = state_cache.extract_range_union(
         ir.and_all([r.rewritten for r in rw]), entry.columns,
@@ -1575,11 +1620,19 @@ def run_fallback(dev, ctx):
         check(launches[name] > 0, f"kernel {name} was not launched on the normal leg")
 
     # each declined query against the host prune over the same files
+    # (``pruning._prune_host``: the host evaluator over ``stats_table``, the
+    # table built once for the three queries)
+    from delta_tpu_torch.expr.vectorized import to_keep_mask
+
+    t0 = time.perf_counter()
+    table = state_export.stats_table(files, meta)
+    say(f"normal leg: the host prune's stats table of {len(files)} files in "
+        f"{time.perf_counter() - t0:.3f} s")
     for q, s in zip(declined, kept):
         rw = ir.and_all([r.rewritten for r in pruning.conjunct_rewrites(
             [parse_expression(q)], frozenset(), pruning.schema_types(meta))])
         t0 = time.perf_counter()
-        host = pruning._prune_host(files, meta, rw)
+        host = to_keep_mask(evaluate(rw, table))
         host_s = time.perf_counter() - t0
         want = [f.path for f, k in zip(files, host) if k]
         check([f.path for f in s.files] == want, f"{q!r}: the card's files differ from the host prune")
@@ -4072,16 +4125,451 @@ def run_dml(dev, c2, workdir, card):
     return {"launches": launches, "steps": steps}
 
 
+# -- phase 14: partitioned tables: bench config 6p, then a date-partitioned store_sales --
+
+C6P_DAYS = 732  # bench.py:944-948
+#: the day a third tail adds: after every day of the table, so the dictionary
+#: extends in order (the codes of the tail's own dictionary re-map into the
+#: entry's) and day ranges keep lowering to code ranges
+C6P_NEW_DAY = "2022-01-03"
+#: store_sales(4_000_000): the bench's 10M rows cut to keep the smoke in its
+#: time limit (PERF.md section 4); the 2,000 date partitions stay
+PART_ROWS = 4_000_000
+PART_COL = "ss_sold_date_sk"
+PART_FRESH = {"m1": 40_000_000, "m2": 41_000_000, "m3": 42_000_000, "rw": 43_000_000}
+PART_REPLACE = 50_000  # step 6's replaceWhere rows
+
+
+def c6p_days():
+    import datetime as dt
+
+    day0 = dt.date(2020, 1, 1)
+    return [(day0 + dt.timedelta(days=d)).isoformat() for d in range(C6P_DAYS)]
+
+
+def c6p_expected(q, files):
+    """Numpy's verdict of ``q`` over ``files`` (stats lanes and day index a
+    file, a missing stat keeps): the indices of the files a plan must keep."""
+    import re
+
+    keep = np.ones(len(files["path"]), bool)
+    with np.errstate(invalid="ignore"):
+        for conj in q.split(" AND "):
+            m = re.fullmatch(r"(\w+) (>=|<=|=) (.+)", conj.strip())
+            col, op, lit = m.groups()
+            if col == "day":
+                v = files["days"].index(lit.strip("'")) if lit.strip("'") in files["days"] \
+                    else -1
+                d = files["day"]
+                keep &= {"=": d == v, ">=": d >= v, "<=": (d <= v) & (d >= 0)}[op] & (d >= 0)
+                continue
+            x = float(lit) if col in ("c1", "c3") else int(lit)
+            lo, hi = files[col + "_min"], files[col + "_max"]
+            if op == ">=":
+                keep &= ~(hi < x)
+            elif op == "<=":
+                keep &= ~(lo > x)
+            else:
+                keep &= ~(hi < x) & ~(lo > x)
+    return np.flatnonzero(keep)
+
+
+def c6p_tail(store, log_path, version, day, files, name):
+    """One file in ``day`` (bench.py:1054-1069: stats on c0 only)."""
+    st = json.dumps({"numRecords": 1, "minValues": {"c0": 1}, "maxValues": {"c0": 2},
+                     "nullCount": {c: 0 for c in ("c0", "c1", "c2", "c3")}})
+    add = AddFile(path=name, size=1 << 20, modification_time=version, data_change=True,
+                  partition_values={"day": day}, stats=st)
+    store.write(f"{log_path}/{filenames.delta_file(version)}", [add.json()])
+    if day not in files["days"]:
+        files["days"].append(day)
+    files["path"].append(name)
+    files["day"] = np.append(files["day"], files["days"].index(day))
+    for c in ("c0", "c1", "c2", "c3"):
+        lo, hi = (1, 2) if c == "c0" else (np.nan, np.nan)
+        files[c + "_min"] = np.append(files[c + "_min"], lo)
+        files[c + "_max"] = np.append(files[c + "_max"], hi)
+
+
+def run_c6p(dev, workdir, card):
+    """Phase 14a: bench config 6p on the card: the 1M-file checkpoint with a
+    ``day`` partition column, the resident entry with its dictionary-coded
+    day lane, 256 plans under ``devicePlan.mode=force`` equal to the host's
+    float64 evaluation and to numpy, then three one-file tails applied to
+    the same entry (the third one with a new day)."""
+    path = os.path.join(workdir, "config6p")
+    t0 = time.perf_counter()
+    store, queries, write_s, shape = write_config6_table(path, partitioned=True)
+    log_path = os.path.join(path, "_delta_log")
+    parts = config6_checkpoint(store, log_path)
+    say(f"6p: wrote {N_FILES} files in {C6P_DAYS} days as the checkpoint at version 0 "
+        f"({len(parts)} parts, {sum(os.path.getsize(p) for p in parts) / 1e6:.1f} MB) in "
+        f"{write_s:.3f} s (the table in {time.perf_counter() - t0:.3f} s)")
+    base, width = shape["base"], shape["width"]
+    files = {"path": [f"part-{i:07d}.parquet" for i in range(N_FILES)],
+             "days": list(shape["days"]),
+             "day": (np.arange(N_FILES) * C6P_DAYS // N_FILES).astype(np.int64)}
+    for c in ("c0", "c1", "c2", "c3"):
+        files[c + "_min"] = base[c].astype(np.float64) if c in ("c1", "c3") else base[c]
+        files[c + "_max"] = (base[c] + width[c]) if c in ("c1", "c3") else base[c] + int(width[c])
+
+    native.reset_launches()  # -- 6p's path starts here
+    DeltaLog.clear_cache()
+    state_cache.DeviceStateCache.reset()
+    log = DeltaLog.for_table(path, device=dev)
+    t0 = time.perf_counter()
+    snap = log.update()
+    check(snap.num_of_files == N_FILES, f"6p: snapshot has {snap.num_of_files} files")
+    decode_s = time.perf_counter() - t0
+    cols = snap._columnar
+    check(snap.segment.checkpoint_version == 0 and cols.stats_parsed is not None,
+          "6p: the snapshot did not decode the checkpoint's typed stats")
+    from delta_tpu_torch.exec.parquet import read_metadata
+
+    names = {el.name for el in read_metadata(parts[0]).schema}
+    check("partitionValues_parsed" in names and "stats_parsed" in names,
+          "6p: the checkpoint lacks partitionValues_parsed or stats_parsed")
+    t0 = time.perf_counter()
+    entry = state_cache.DeviceStateCache.instance().get(snap)
+    check(entry is not None and "day" in entry.part_info, "6p: no resident entry with a day lane")
+    entry.ensure_resident()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lane = entry.part_info["day"]
+    check(lane.values == files["days"] and lane.sorted, "6p: the day dictionary is not the days "
+          "in order")
+    say(f"6p: decode {decode_s:.3f} s, resident build {build_s:.3f} s (capacity "
+        f"{entry.capacity}, lanes {entry.columns}) | {card}")
+
+    index = {p: i for i, p in enumerate(files["path"])}
+    row_file = np.array([index[p] for p in entry.paths], np.int64)  # entry row -> file
+
+    def plan_all(label, qs):
+        nonlocal row_file
+        if len(row_file) < len(entry.paths):  # the tails' rows
+            row_file = np.append(row_file, [files["path"].index(p)
+                                            for p in entry.paths[len(row_file):]])
+        snap = log.update()
+        ranges = [lower(entry, snap, q) for q in qs]
+        ms, host = check_batch(entry, ranges, label)
+        for q, h in zip(qs, host):
+            check(np.array_equal(np.sort(row_file[h.rows]), c6p_expected(q, files)),
+                  f"{label}: the plan of {q} differs from numpy")
+        return ms, sum(h.count for h in host)
+
+    plan_ms = []
+    for _ in range(3):
+        ms, kept = plan_all("6p batch", queries)
+        plan_ms.append(round(ms, 3))
+    say(f"6p: batched plan of {N_QUERIES} queries (128 on day): {plan_ms} ms, {kept} files kept, "
+        f"equal to the host plan and to numpy | {card}")
+    tails = []
+    extra = [f"day = '{C6P_NEW_DAY}'", f"day >= '{files['days'][-2]}'"]
+    for v, (day, name) in enumerate(((files["days"][-1], "part-new.parquet"),
+                                     (files["days"][-1], "part-new2.parquet"),
+                                     (C6P_NEW_DAY, "part-new3.parquet")), start=1):
+        c6p_tail(store, log_path, v, day, files, name)
+        snap = log.update()
+        t0 = time.perf_counter()
+        e = state_cache.DeviceStateCache.instance().get(snap)
+        torch.cuda.synchronize()
+        tail_ms = (time.perf_counter() - t0) * 1e3
+        check(e is entry and e.version == v, f"6p tail {v}: not applied to the same entry")
+        check(entry.part_info["day"].values == files["days"] and entry.part_info["day"].sorted,
+              f"6p tail {v}: the day dictionary")
+        # the day lane on the card holds the new file's code (no stale upload)
+        row = entry.path_to_row[name]
+        code = float(files["days"].index(day))
+        lanes = entry._dev
+        d_col = entry.columns.index("day")
+        got = (float(lanes["mins"][d_col, row]), float(lanes["maxs"][d_col, row]))
+        check(got == (code, code), f"6p tail {v}: the card's day lane {got}, not {code}")
+        ms, kept = plan_all(f"6p tail {v}", queries + (extra if day == C6P_NEW_DAY else []))
+        tails.append({"version": v, "tail_ms": round(tail_ms, 3), "plan_ms": round(ms, 3),
+                      "kept": kept})
+    launches = {k: v for k, v in native.launches.items() if v}  # -- 6p's path ends here
+    say(f"6p: three tails applied to the same entry (the third adds day {C6P_NEW_DAY}: "
+        f"dictionary {len(entry.part_info['day'].values)} days): {tails}; launches {launches} "
+        f"| {card}")
+    # one K1 launch a batch (3, then one after each tail), one tail apply a tail
+    check(launches.get("block_cull", 0) == 6 and launches.get("tail_apply", 0) == 3,
+          f"6p: launches {launches}")
+    entry.drop_device()
+    return {"launches": launches, "decode_s": decode_s, "build_s": build_s,
+            "plan_ms": plan_ms, "tails": tails}
+
+
+def part_sources(state, n, seed, fresh_base):
+    """A 1M-row upsert: half live keys of ``state``, half fresh from
+    ``fresh_base``; payload (its date spreads over the partitions) from
+    RandomState(seed)."""
+    r = np.random.RandomState(seed)
+    live = state["ss_item_sk"]
+    return dml_source(seed, n, live[r.choice(len(live), n // 2, replace=False)], fresh_base)
+
+
+def run_partitioned(dev, workdir, card):
+    """Phase 14b: store_sales(PART_ROWS) partitioned by ss_sold_date_sk
+    (2,000 partitions) through the port's writer, deletion vectors on, then
+    reads, MERGEs, DELETEs, an UPDATE that moves rows across partitions, a
+    replaceWhere overwrite, OPTIMIZE ZORDER BY inside the chosen partitions
+    and VACUUM; each step's end state (after the last command of a step of
+    two) equal to numpy on all 8 columns."""
+    import urllib.parse
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.obs.scan_report import last_scan_report
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils import telemetry
+
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    torch.cuda.empty_cache()
+    path = os.path.join(workdir, "store_sales_by_date")
+    target = store_sales(PART_ROWS, np.random.RandomState(7))
+    order = np.argsort(target["ss_item_sk"], kind="stable")
+    state = {c: target[c][order] for c in STORE_SALES}
+    steps, captured = [], {}
+    real_masks = column_cache.residual_masks
+
+    def timed_step(name, fn, settings=None):
+        before = dict(native.launches)
+        with conf.set_temporarily(**(settings or {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
+        check(key_cache.KeyCache.instance().last_build_error is None,
+              f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
+        delta = {k: native.launches[k] - before[k] for k in native.launches
+                 if native.launches[k] != before[k]}
+        return out, wall_s, delta
+
+    def record(name, wall_s, delta, detail, check_state=True):
+        if check_state:
+            same_state(state_of(scan_to_table(log.update())), state, f"partitioned {name}")
+        steps.append({"step": name, "wall_s": round(wall_s, 3), "launches": delta,
+                      "detail": detail})
+        say(f"partitioned: {name} {wall_s:.3f} s wall, {detail}, launches {delta}"
+            + ("; end state of %d rows x 8 columns equal to numpy" % len(state["ss_item_sk"])
+               if check_state else "") + f" | {card}")
+
+    def merge(name, src, want_route):
+        def run():
+            cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk",
+                                   [MergeClause("update")], [MergeClause("insert")],
+                                   source_alias="s", target_alias="t")
+            cmd.run()
+            return cmd
+
+        cmd, wall_s, delta = timed_step(name, run, {"delta.tpu.merge.devicePath.mode": "force"})
+        check(cmd._join_path == want_route, f"{name}: route {cmd._join_path}, not {want_route}")
+        check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
+        hits = int(np.isin(src["ss_item_sk"], state["ss_item_sk"]).sum())
+        check(cmd.metrics["numTargetRowsUpdated"] == hits
+              and cmd.metrics["numTargetRowsInserted"] == len(src["ss_item_sk"]) - hits,
+              f"{name}: metrics {cmd.metrics}, numpy {hits} updates")
+        return cmd, wall_s, delta, {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+
+    def part_dirs():
+        return {d for d in os.listdir(path) if d.startswith(PART_COL + "=")}
+
+    # the table grows to about 15,000 live files: their parsed footers stay
+    # cached across the steps (exec/rowgroups.FooterCache, ~10 KB a footer)
+    settings = {"delta.tpu.stateCache.devicePlan.mode": "force",
+                "delta.tpu.read.deviceResidual.mode": "force",
+                "delta.tpu.read.footerCacheEntries": 32_768}
+    with conf.set_temporarily(**settings):
+        native.reset_launches()  # -- the partitioned phase's path starts here
+        # step 0: the partitioned write, then deletion vectors on
+        log = DeltaLog.for_table(path, device=dev)
+        _, wall_s, delta = timed_step("step 0", lambda: WriteIntoDelta(
+            log, "append", target, partition_columns=[PART_COL]).run())
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        table = DeltaTable.for_path(path, device=dev)
+        snap = log.update()
+        n_parts = len(np.unique(target[PART_COL]))
+        check(len(snap.all_files) == n_parts == len(part_dirs()),
+              f"step 0: {len(snap.all_files)} files, {n_parts} dates, {len(part_dirs())} dirs")
+        check(all(urllib.parse.unquote(f.path).startswith(
+            f"{PART_COL}={f.partition_values[PART_COL]}/") for f in snap.all_files),
+            "step 0: a file outside its partition directory")
+        nbytes = sum(f.size for f in snap.all_files)
+        record("step 0 partitioned write", wall_s, delta,
+               f"{len(snap.all_files)} files in {n_parts} partitions, {nbytes / 1e6:.1f} MB")
+
+        # step 1: two reads with the device residual
+        def capturing(program, envs, ns, scalars):
+            captured.setdefault("args", (program, envs, ns, scalars))
+            return real_masks(program, envs, ns, scalars)
+
+        for label, pred, want in (
+                ("a", f"{PART_COL} BETWEEN 2450100 AND 2450199 AND ss_quantity > 90",
+                 (state[PART_COL] >= 2450100) & (state[PART_COL] <= 2450199)
+                 & (state["ss_quantity"] > 90)),
+                ("b", f"{PART_COL} = 2450500 OR ss_quantity >= 99",
+                 (state[PART_COL] == 2450500) | (state["ss_quantity"] >= 99))):
+            column_cache.residual_masks = capturing if label == "b" else real_masks
+            try:
+                got, wall_s, delta = timed_step(f"step 1{label}",
+                                                lambda: table.to_table(filters=[pred]))
+            finally:
+                column_cache.residual_masks = real_masks
+            rep = last_scan_report()
+            same_state(state_of(got), take_state(state, want), f"partitioned step 1{label}")
+            check(rep.device_residual == "device" and delta.get("residual_mask", 0) >= 1,
+                  f"step 1{label}: K14 did not run ({rep.device_residual}, {delta})")
+            record(f"step 1{label} read", wall_s, delta,
+                   f"{pred}: {got.num_rows} rows from {rep.files_scanned} of {rep.files_total} "
+                   f"files, phase_ms {rep.phase_ms}", check_state=False)
+        check("args" in captured and captured["args"][0].scalar_slots,
+              "step 1b: K14 ran without the partition scalar")
+
+        # step 2: a 1M-row upsert (cold slab), then a resident MERGE
+        src = part_sources(state, MERGE_SOURCE, 31, PART_FRESH["m1"])
+        cmd, wall_s, delta, phases = merge("step 2 MERGE (cold)", src, "device-cold")
+        state = reference_upsert(state, src)
+        record("step 2 MERGE (cold)", wall_s, delta, f"phase_ms {phases}", check_state=False)
+        src = part_sources(state, MERGE_SOURCE, 32, PART_FRESH["m2"])
+        cmd, wall_s, delta, phases = merge("step 2 MERGE (resident)", src, "resident")
+        state = reference_upsert(state, src)
+        record("step 2 MERGE (resident)", wall_s, delta, f"phase_ms {phases}")
+
+        # step 3: a partition-only DELETE: metadata only
+        emptied = {f"{PART_COL}={d}" for d in np.unique(state[PART_COL][state[PART_COL] < 2450050])}
+        r0 = telemetry.counters("scan.files").get("scan.files.read", 0)
+        m, wall_s, delta = timed_step("step 3", lambda: table.delete(f"{PART_COL} < 2450050"))
+        check(telemetry.counters("scan.files").get("scan.files.read", 0) == r0,
+              "step 3: the metadata-only DELETE read a data file")
+        check(m["numDeletedRows"] == -1 and m["numAddedFiles"] == 0 and m["numRemovedFiles"] > 0,
+              f"step 3: metrics {m}")
+        state = take_state(state, state[PART_COL] >= 2450050)
+        record("step 3 DELETE (partitions)", wall_s, delta,
+               f"{m['numRemovedFiles']} files of {len(emptied)} partitions removed, no file read")
+
+        # step 4: a DV DELETE through K1, then a resident MERGE (K11's advance)
+        m, wall_s, delta = timed_step("step 4", lambda: table.delete("ss_quantity >= 96"))
+        doomed = state["ss_quantity"] >= 96
+        check(m["numDeletedRows"] == int(doomed.sum()), f"step 4: metrics {m}")
+        check(delta.get("block_cull", 0) >= 1, f"step 4: launches {delta}: K1 not launched")
+        state = take_state(state, ~doomed)
+        record("step 4 DELETE (DV)", wall_s, delta,
+               f"{m['numDeletedRows']} rows, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}", check_state=False)
+        # a 100,000-row upsert into 100 partitions: the advance is its point,
+        # and the table gains 100 files, not 2,000 (each later read pays a
+        # file); it keeps step 3's partitions empty for step 8
+        src = part_sources(state, MERGE_SOURCE // 10, 34, PART_FRESH["m3"])
+        src[PART_COL] = 2451000 + src[PART_COL] % 100
+        cmd, wall_s, delta, phases = merge("step 4 MERGE (resident)", src, "resident")
+        check(delta.get("slab_advance", 0) + delta.get("slab_widen", 0) >= 1,
+              f"step 4 MERGE: launches {delta}: no K11 advance")
+        state = reference_upsert(state, src)
+        record("step 4 MERGE (resident)", wall_s, delta, f"phase_ms {phases}")
+
+        # step 5: an UPDATE of the partition column: rows move across partitions
+        m, wall_s, delta = timed_step("step 5", lambda: table.update(
+            {PART_COL: f"{PART_COL} + 1"}, "ss_store_sk < 5"))
+        hit = state["ss_store_sk"] < 5
+        check(m["numUpdatedRows"] == int(hit.sum()), f"step 5: metrics {m}")
+        state = {c: v.copy() for c, v in state.items()}
+        state[PART_COL][hit] += 1
+        check(f"{PART_COL}=2452000" in part_dirs(), "step 5: no row moved past the last date")
+        record("step 5 UPDATE (partition column)", wall_s, delta,
+               f"{m['numUpdatedRows']} rows moved, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}")
+
+        # step 6: an overwrite with replaceWhere on the last dates
+        new = store_sales(PART_REPLACE, np.random.RandomState(36))
+        new["ss_item_sk"] = np.arange(PART_FRESH["rw"], PART_FRESH["rw"] + PART_REPLACE,
+                                      dtype=np.int64)
+        new[PART_COL] = np.random.RandomState(37).randint(2451990, 2452000, PART_REPLACE)
+        _, wall_s, delta = timed_step("step 6", lambda: WriteIntoDelta(
+            log, "overwrite", new, replace_where=f"{PART_COL} >= 2451990").run())
+        keep = state[PART_COL] < 2451990
+        state = take_state({c: np.concatenate([state[c][keep], new[c]]) for c in STORE_SALES},
+                           np.ones(int(keep.sum()) + PART_REPLACE, bool))
+        record("step 6 overwrite (replaceWhere)", wall_s, delta,
+               f"{PART_REPLACE} rows replace {int((~keep).sum())}")
+
+        # step 7: OPTIMIZE ZORDER BY inside the chosen partitions, a point read
+        # before and after
+        pick = np.flatnonzero(state[PART_COL] == 2451950)[0]
+        point = (f"{PART_COL} = 2451950 AND ss_customer_sk = {state['ss_customer_sk'][pick]} "
+                 f"AND ss_item_sk = {state['ss_item_sk'][pick]}")
+        point_want = take_state(state, (state[PART_COL] == 2451950)
+                                & (state["ss_customer_sk"] == state["ss_customer_sk"][pick])
+                                & (state["ss_item_sk"] == state["ss_item_sk"][pick]))
+        reads = []
+        for when in ("before", "after"):
+            if when == "after":
+                n_before = len(log.update().all_files)
+                cmd = OptimizeCommand(log, f"{PART_COL} >= 2451900",
+                                      z_order_by=["ss_customer_sk", "ss_item_sk"])
+                _, wall_s, delta = timed_step("step 7", cmd.run)
+                check(delta.get("morton", 0) >= 1, f"step 7: launches {delta}: K16 not launched")
+                n_after = len(log.update().all_files)
+                record("step 7 OPTIMIZE ZORDER BY", wall_s, delta,
+                       f"{cmd.metrics['numRemovedFiles']} files into "
+                       f"{cmd.metrics['numAddedFiles']} ({n_before} -> {n_after} live), "
+                       f"phase_ms {({k: round(v, 3) for k, v in cmd.phase_ms.items()})}")
+            got, p_wall, p_delta = timed_step(f"step 7 read {when}",
+                                              lambda: table.to_table(filters=[point]))
+            same_state(state_of(got), point_want, f"partitioned step 7 read {when}")
+            reads.append((when, round(p_wall, 4), last_scan_report().files_scanned))
+        say(f"partitioned: step 7 point read (wall s, files scanned) {reads} | {card}")
+        steps.append({"step": "step 7 point read", "reads": reads})
+
+        # step 8: VACUUM with no retention: step 3's partitions are gone
+        check(emptied <= part_dirs(), "step 8: step 3's directories vanished before VACUUM")
+        res, wall_s, delta = timed_step("step 8", lambda: table.vacuum(
+            retention_hours=0, retention_check_enabled=False))
+        live_dirs = {os.path.dirname(urllib.parse.unquote(f.path)) for f in log.update().all_files}
+        check(not emptied & part_dirs() and part_dirs() == live_dirs,
+              "step 8: VACUUM left a partition directory that holds no live file")
+        record("step 8 VACUUM", wall_s, delta,
+               f"{res.files_deleted} files, {res.dirs_deleted} directories deleted")
+        launches = dict(native.launches)  # -- the partitioned phase's path ends here
+    say(f"partitioned: launches on the partitioned phase's path {launches} | {card}")
+    for k in ("block_cull", "slab_sort", "slab_probe", "pair_compact", "residual_mask", "morton"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the partitioned path")
+    check(launches.get("slab_advance", 0) + launches.get("slab_widen", 0) > 0,
+          "K11 was not launched on the partitioned path")
+    # K14 with the partition value bound per file, against its plain version
+    program, envs, ns, scalars = captured["args"]
+    got, offs = column_cache.residual_masks(program, envs, ns, scalars)
+    ref, ref_offs = column_cache.residual_masks_plain(program, envs, ns, scalars)
+    torch.cuda.synchronize()
+    check(offs == ref_offs and torch.equal(got.cpu(), ref.cpu()),
+          "K14 with partition scalars differs from its plain version")
+    say(f"partitioned: K14 over step 1b's first launch ({len(envs)} files, "
+        f"{len(program.scalar_slots)} scalar) equal to its plain version")
+    say(json.dumps({"partitioned": steps}))
+    return {"launches": launches, "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(name):  # each phase's wall seconds, printed before the kernels line
+        now = time.perf_counter()
+        laps[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     card = card_line()
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     say(f"build: {native.build_all():.3f} s")
     synthetic_checks(dev)
+    lap("1-3 build and kernels")
     if "--kernels-only" in sys.argv[1:]:
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -4090,13 +4578,16 @@ def main() -> int:
         with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
             ctx = run_slice(dev, workdir)
             run_fallback(dev, ctx)
+        lap("4-5 config 6")
         c5 = run_config5(dev, workdir)
+        lap("5b config 5")
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
         for k in kernels:  # K4 runs on phase 4's path and on config 5's
             if k["name"] == "winner_bits":
                 k["launches"] += c5["launches"]["winner_bits"]
         c5 = None
         kernels += measure_normal_leg(dev, ctx)
+        lap("11 config 6's kernels")
         c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"], "stream": ctx["stream"]}
         ctx = None  # the rest of the scan phases' host state is done with
         mctx = run_merge(dev, workdir)
@@ -4104,6 +4595,7 @@ def main() -> int:
         kernels += slab_rows
         measure_probe_constants(dev, mctx, slab_rows)
         mctx = None  # the key-slab phase's slabs are done with
+        lap("6 key slab")
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         cctx = run_merge_command(dev, workdir)
@@ -4112,6 +4604,7 @@ def main() -> int:
         measure_join_constants(cctx, k12_rows)
         c2 = {"path": cctx["path"], "state": cctx["state"], "m3": cctx["merges"][-1]}
         cctx = None
+        lap("7 MERGE command")
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         sctx = run_device_scan(dev, workdir)
@@ -4119,19 +4612,35 @@ def main() -> int:
         measure_residual_constants(dev, sctx)
         c12 = {k: sctx[k] for k in ("path", "data", "queries")}
         sctx = None
+        lap("8 read path")
         with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
             zctx = run_zorder(dev, workdir)
         kernels += measure_morton(dev, zctx)
+        lap("9 OPTIMIZE")
         rctx = run_router(dev, c6, c2, c12, workdir)
         kernels += measure_link_probe(dev, rctx)
+        lap("10 router")
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         xctx = run_mesh(dev, c6, dict(rctx["c2"], m3=c2["m3"]), workdir)
         kernels += measure_mesh(dev, xctx)
         xctx = None
+        lap("12 mesh")
         dctx = run_dml(dev, c2, workdir, card)
         for k in kernels:  # the DML phase's path runs K1, K8-K11 and the tail apply
             k["launches"] += dctx["launches"].get(k["name"], 0)
+        dctx = c2 = None
+        lap("13 DML")
+        with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+            pctx = run_c6p(dev, workdir, card)
+        state_cache.DeviceStateCache.reset()
+        lap("14a config 6p")
+        qctx = run_partitioned(dev, workdir, card)
+        lap("14b store_sales by date")
+        for k in kernels:  # phase 14: K1 and the tail apply (6p); K1, K8-K11, K14, K16
+            k["launches"] += (pctx["launches"].get(k["name"], 0)
+                              + qctx["launches"].get(k["name"], 0))
+    say(f"phases (wall s): {laps}, {sum(laps.values()):.1f} s in all | {card}")
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "
             f"bound {k['bound_ms']:.6f} by {k['bound_by']}, library {k['library_ms']})")

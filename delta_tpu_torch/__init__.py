@@ -1,10 +1,11 @@
 """delta_tpu_torch: the PyTorch + CUDA port of ``delta_tpu`` for an NVIDIA H100.
 
 A second package beside the JAX one, which stays the reference. Ported so
-far: the scan-planning path (log replay into a snapshot, the table's scan
+far, on unpartitioned and partitioned tables alike: the scan-planning path (log replay into a snapshot, the table's scan
 lanes resident on the card, batched block-cull planning with an exact host
 fine pass, the whole of ``files_for_scan``), the tombstone replay, the
-transaction and the table writer, the MERGE command with its key slab on
+transaction and the table writer (Hive-style partition directories,
+``replace_where``), the MERGE command with its key slab on
 the card (``ops/key_cache``) and its upload join (``ops/join_kernel``), the
 filtered read path with row-group skipping and the residual filter on the
 card (``ops/column_cache``), time travel by version or timestamp
@@ -25,6 +26,7 @@ plan, the replay and the MERGE upload join run sharded, one launch a shard
 
     log = DeltaLog.for_table(path)                    # device="cuda"
     WriteIntoDelta(log, "append", target).run()       # dict of numpy arrays
+    # partitioned: WriteIntoDelta(log, "append", target, partition_columns=["d"])
     set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
     MergeIntoCommand(log, source, "t.k = s.k", [MergeClause("update")],
                      [MergeClause("insert")], source_alias="s", target_alias="t").run()

@@ -18,9 +18,10 @@ Metrics and operation are the reference's (``numRemovedFiles``,
 ``Delete``). A rewrite bumps the epochs of the key slab
 (``ops/key_cache``) and the scan column lanes (``ops/column_cache``);
 removes and deletion vectors reach the slab through its incremental
-advance at the next MERGE. Left out: the change data feed (case 3 raises
-``NotImplementedError`` on such a table), reading partitioned tables
-(case 3 raises there through the reader), the span and the journal.
+advance at the next MERGE. On a partitioned table case 3's candidates
+carry their partition columns and a rewrite's survivors land back in their
+own partition. Left out: the change data feed (case 3 raises
+``NotImplementedError`` on such a table), the span and the journal.
 """
 from __future__ import annotations
 

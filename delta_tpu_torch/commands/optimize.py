@@ -2,7 +2,9 @@
 (the port's own copy of ``delta_tpu.commands.optimize``).
 
 * compaction: bin-pack each partition's small files (below
-  ``min_file_size``) into files of at most ``target_rows`` rows;
+  ``min_file_size``) into files of at most ``target_rows`` rows, written
+  back into the partition's directory; a ``predicate`` on partition
+  columns only selects the partitions;
 * Z-ORDER BY (cols): re-sort the selected files by the Morton key
   (``ops/zorder``: on the card the integer columns' ranks, the interleave
   K16 and the key's sort; only the permutation comes back) and re-split,
@@ -21,8 +23,7 @@ default), byte-identical to its classic loop. ``workers > 1``,
 ``distribute=True`` (with its leases) and ``on_failure="quarantine"`` need
 the sharded executor and the lease files (``parallel/executor``,
 ``parallel/leases``), which are not ported yet: they raise
-``NotImplementedError``. So do partitioned tables, which the port's reader
-and writer do not cover.
+``NotImplementedError``.
 """
 from __future__ import annotations
 

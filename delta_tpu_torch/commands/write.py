@@ -1,23 +1,31 @@
-"""Batch write command: append / overwrite / error / ignore (the port's own
-copy of ``delta_tpu.commands.write``, unpartitioned).
+"""Batch write command: append / overwrite / replaceWhere / error / ignore
+(the port's own copy of ``delta_tpu.commands.write``).
 
 Equivalent of ``commands/WriteIntoDelta.scala:46-138`` plus the implicit
 metadata logic of ``schema/ImplicitMetadataOperation.scala:30-62``: the
-first write creates the table with its schema from the data (and the
-``configuration=`` table properties); later writes must fit the table's
-schema. ``rearrange_only`` flips ``dataChange=False`` on every action.
+first write creates the table with its schema from the data, its
+``partition_columns`` (the writer lays the files out in Hive-style
+partition directories) and the ``configuration=`` table properties; later
+writes must fit the table's schema and name its partition columns, if any.
+``replace_where`` turns an overwrite into an atomic replacement of the
+files a partition predicate selects, after checking that every written
+file lies inside it (a data-column predicate is refused, as the reference
+refuses it). ``rearrange_only`` flips ``dataChange=False`` on every action.
 
 The data is a ``HostTable`` (``expr/vectorized``) or a dict of numpy
 arrays or Python lists (:func:`coerce_to_table`); never a ``pyarrow``
-table. Left out, each raising ``NotImplementedError``: ``merge_schema``,
-``overwrite_schema``, ``replace_where`` and ``partition_columns``.
+table. Left out, each raising ``NotImplementedError``: ``merge_schema``
+and ``overwrite_schema``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 from delta_tpu_torch.commands import operations as ops
 from delta_tpu_torch.exec import write as write_exec
+from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr import partition as partition_expr
+from delta_tpu_torch.expr.parser import parse_predicate
 from delta_tpu_torch.expr.vectorized import HostTable, column_from_values, table_from_rows
 from delta_tpu_torch.protocol.actions import Action, AddFile, Metadata
 from delta_tpu_torch.schema import schema_utils
@@ -66,7 +74,8 @@ def update_metadata_on_write(txn, data_schema: StructType, partition_columns: Se
 
 class WriteIntoDelta:
     def __init__(self, delta_log, mode: str, data: Any, partition_columns: Sequence[str] = (),
-                 replace_where=None, merge_schema: bool = False, overwrite_schema: bool = False,
+                 replace_where: Optional[Union[str, ir.Expression]] = None,
+                 merge_schema: bool = False, overwrite_schema: bool = False,
                  rearrange_only: bool = False, configuration: Optional[Dict[str, str]] = None,
                  user_metadata: Optional[str] = None):
         mode = mode.lower()
@@ -74,15 +83,15 @@ class WriteIntoDelta:
             raise DeltaIllegalArgumentError(f"Unknown save mode {mode!r}")
         if replace_where is not None and mode != "overwrite":
             raise DeltaAnalysisError("replaceWhere is only supported with mode('overwrite')")
-        for name, on in (("replaceWhere", replace_where is not None),
-                         ("mergeSchema", merge_schema), ("overwriteSchema", overwrite_schema),
-                         ("partitioned writes (partition_columns)", bool(partition_columns))):
+        for name, on in (("mergeSchema", merge_schema), ("overwriteSchema", overwrite_schema)):
             if on:
                 raise NotImplementedError(f"WriteIntoDelta: {name} is not ported")
         self.delta_log = delta_log
         self.mode = mode
         self.table = coerce_to_table(data)
-        self.partition_columns: List[str] = []
+        self.partition_columns = list(partition_columns)
+        self.replace_where = (parse_predicate(replace_where) if isinstance(replace_where, str)
+                              else replace_where)
         self.rearrange_only = rearrange_only
         self.configuration = configuration
         self.user_metadata = user_metadata
@@ -100,7 +109,8 @@ class WriteIntoDelta:
             adds = [a for a in actions if isinstance(a, AddFile)]
             txn.report_metrics(numFiles=len(adds), numOutputBytes=sum(a.size or 0 for a in adds),
                                numOutputRows=self.table.num_rows)
-            op = ops.Write(mode=self.mode, partition_by=None, predicate=None)
+            op = ops.Write(mode=self.mode, partition_by=self.partition_columns or None,
+                           predicate=self.replace_where.sql() if self.replace_where else None)
             return txn.commit(actions, op)
 
         return log.with_new_transaction(body)
@@ -108,12 +118,34 @@ class WriteIntoDelta:
     def write(self, txn) -> List[Action]:
         data_schema = schema_utils.schema_from_table(self.table)
         is_overwrite = self.mode == "overwrite"
-        update_metadata_on_write(txn, data_schema, txn.metadata.partition_columns,
+        update_metadata_on_write(txn, data_schema,
+                                 self.partition_columns or txn.metadata.partition_columns,
                                  configuration=self.configuration)
         adds = write_exec.write_files(self.delta_log.data_path, self.table, txn.metadata,
                                       data_change=not self.rearrange_only)
         removes: List[Action] = []
         if is_overwrite:
-            removes = [f.remove(data_change=not self.rearrange_only)
-                       for f in txn.filter_files()]
+            if self.replace_where is None:
+                removes = [f.remove(data_change=not self.rearrange_only)
+                           for f in txn.filter_files()]
+            else:
+                removes = self._replace_where_removes(txn, adds)
         return list(adds) + removes
+
+    def _replace_where_removes(self, txn, written: List[AddFile]) -> List[Action]:
+        """Check that the written files lie inside the predicate, then remove
+        the files it selects (``WriteIntoDelta.scala:112-125``). Partition
+        predicates only: removing a file a data predicate matched would also
+        delete its rows outside the predicate."""
+        pred = self.replace_where
+        metadata = txn.metadata
+        pcols = metadata.partition_columns
+        if not all(partition_expr.is_partition_predicate(c, pcols)
+                   for c in ir.split_conjuncts(pred)):
+            raise errors.replace_where_needs_partition_columns(pred.sql(), pcols)
+        for add in written:
+            if not partition_expr.matches(pred, add, metadata.partition_schema):
+                raise errors.replace_where_mismatch(pred.sql(),
+                                                    f"partitions {add.partition_values}")
+        return [f.remove(data_change=not self.rearrange_only)
+                for f in txn.filter_files([pred])]

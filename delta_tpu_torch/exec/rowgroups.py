@@ -1,7 +1,7 @@
 """Row-group data skipping inside a Parquet file (the port's own copy of
-``delta_tpu.exec.rowgroups``: :func:`read_footer`, the pushdown planner
-:func:`plan_row_groups`, :func:`row_group_offsets` and
-:func:`row_groups_for_positions`).
+``delta_tpu.exec.rowgroups``: :func:`read_footer` through the footer LRU
+:class:`FooterCache`, the pushdown planner :func:`plan_row_groups`,
+:func:`row_group_offsets` and :func:`row_groups_for_positions`).
 
 The planner evaluates a scan's skipping rewrite (``ops/pruning``, the same
 rewrite the file tier evaluates over AddFile stats) against each row
@@ -9,13 +9,15 @@ group's footer statistics; a group survives unless the rewrite is
 definitely False. The statistics come from the port's own footer reader
 (``exec/parquet.chunk_statistics``), decoded to the Python values
 ``pyarrow`` gives, so a plan here equals the JAX package's plan over the
-same file. The JAX package's footer LRU, its fired-rewrite attribution and
-``stats_from_footer`` (CONVERT TO DELTA) are not ported: the port reads
-each footer once per scan.
+same file. The JAX package's fired-rewrite attribution and
+``stats_from_footer`` (CONVERT TO DELTA) are not ported.
 """
 from __future__ import annotations
 
 import math
+import os
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, FrozenSet, List, Optional
 
@@ -23,15 +25,84 @@ import numpy as np
 
 from delta_tpu_torch.exec.parquet import chunk_statistics, read_metadata
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.utils import telemetry
+from delta_tpu_torch.utils.config import conf
 
-__all__ = ["read_footer", "RowGroupPlan", "plan_row_groups", "row_group_offsets",
-           "row_groups_for_positions"]
+__all__ = ["read_footer", "FooterCache", "RowGroupPlan", "plan_row_groups",
+           "row_group_offsets", "row_groups_for_positions"]
+
+
+class FooterCache:
+    """Bounded LRU of parsed Parquet footers (``exec.thrift.FileMetaData``),
+    ``delta.tpu.read.footerCacheEntries`` of them (0 turns it off).
+
+    Entries are keyed by absolute path and checked against the file's
+    current ``(size, mtime_ns)`` at every lookup, so a file rewritten in
+    place is parsed again. A cached footer is only read, never changed, so
+    one object serves every reader. The footer parse is Python thrift, about
+    a millisecond a file: a table of thousands of small files (one a
+    partition) pays it at every scan without the cache."""
+
+    _instance: Optional["FooterCache"] = None
+    _instance_lock = threading.Lock()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # abs_path -> ((size, mtime_ns), FileMetaData)
+        self._entries: "OrderedDict[str, tuple]" = OrderedDict()
+
+    @classmethod
+    def instance(cls) -> "FooterCache":
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = FooterCache()
+            return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._instance_lock:
+            cls._instance = None
+
+    @staticmethod
+    def capacity() -> int:
+        return int(conf.get("delta.tpu.read.footerCacheEntries", 1024))
+
+    def get(self, abs_path: str):
+        """The file's parsed footer; cached when the cache is on."""
+        cap = self.capacity()
+        if cap <= 0:
+            return read_metadata(abs_path)
+        st = os.stat(abs_path)
+        key = (st.st_size, st.st_mtime_ns)
+        with self._lock:
+            hit = self._entries.get(abs_path)
+            if hit is not None and hit[0] == key:
+                self._entries.move_to_end(abs_path)
+                telemetry.bump_counter("footerCache.hits")
+                return hit[1]
+        meta = read_metadata(abs_path)
+        telemetry.bump_counter("footerCache.misses")
+        with self._lock:
+            self._entries[abs_path] = (key, meta)
+            self._entries.move_to_end(abs_path)
+            while len(self._entries) > cap:
+                self._entries.popitem(last=False)
+                telemetry.bump_counter("footerCache.evictions")
+        return meta
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
 
 
 def read_footer(abs_path: str):
     """The file's parsed footer (``exec.thrift.FileMetaData``: ``num_rows``,
-    ``row_groups``, ``schema``)."""
-    return read_metadata(abs_path)
+    ``row_groups``, ``schema``), through the process's :class:`FooterCache`."""
+    return FooterCache.instance().get(abs_path)
 
 
 class _StatsEnv(dict):

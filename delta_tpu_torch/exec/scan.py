@@ -1,11 +1,15 @@
 """Scan executor: AddFiles -> ``HostTable`` (the port's own copy of
 ``delta_tpu.exec.scan``'s ``read_files_as_table``, ``scan_files`` and
-``scan_to_table``, unpartitioned).
+``scan_to_table``).
 
-Decode each file through the port's Parquet codec (``exec/parquet``), drop
-the rows its deletion vector marks, fill the columns a file predates with
-NULL, cast each column up to the table's declared type, and optionally
-attach each row's PHYSICAL position in its file.
+Decode each file's data columns through the port's Parquet codec
+(``exec/parquet``), drop the rows its deletion vector marks, fill the
+columns a file predates with NULL, materialize the partition columns from
+``add.partitionValues`` (typed through ``expr/partition.typed_partition_row``:
+NULL where the value is NULL or fails to cast), cast each column up to the
+table's declared type, return the columns in the requested order, and
+optionally attach each row's PHYSICAL position in its file. A projection of
+partition columns only decodes no column and carries the row count.
 
 A scan's read goes through three tiers, as in the JAX package: the file
 tier (``ops/pruning.files_for_scan``), the row-group tier inside each file
@@ -18,11 +22,12 @@ filtered to the mask. ``scan_to_table`` re-applies the residual on the host
 over what survives, so every tier only changes what decodes, never what
 returns.
 
-Left out: partitioned tables (``NotImplementedError``), the decode thread
-pool, the scan journal and the fired-rewrite attribution.
+Left out: the decode thread pool, the scan journal and the fired-rewrite
+attribution.
 """
 from __future__ import annotations
 
+import datetime as _dt
 import os
 import time
 import urllib.parse
@@ -34,6 +39,7 @@ from delta_tpu_torch.exec import rowgroups
 from delta_tpu_torch.exec.parquet import column_names, read_parquet_file
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr.parser import parse_predicate
+from delta_tpu_torch.expr.partition import typed_partition_row
 from delta_tpu_torch.expr.vectorized import (
     HostColumn, HostTable, boolean_mask, cast_column, concat_tables, filter_table, null_column,
     stored_type,
@@ -77,6 +83,24 @@ def _empty(metadata, out_names: Sequence[str]) -> HostTable:
                       for f in metadata.schema.fields if f.name in declared}, 0)
 
 
+def _constant_column(value, kind: str, stype: str, n: int) -> HostColumn:
+    """A partition value (as ``typed_partition_row`` types it) repeated over
+    ``n`` rows, in the column's declared type."""
+    if value is None:
+        return null_column(n, kind, stype)
+    if kind == "date":
+        v = np.full(n, (value - _dt.date(1970, 1, 1)).days, np.int64)
+    elif kind == "ts":
+        v = np.full(n, (value - _dt.datetime(1970, 1, 1)) // _dt.timedelta(microseconds=1),
+                    np.int64)
+    elif kind in ("str", "object"):
+        v = np.empty(n, object)
+        v.fill(value)
+    else:
+        v = np.full(n, value, {"bool": bool, "int": np.int64, "double": np.float64}[kind])
+    return cast_column(HostColumn(kind, v, np.ones(n, bool)), kind, stype)
+
+
 def _group_rows(offsets: np.ndarray, groups: Sequence[int]) -> np.ndarray:
     """The physical rows of ``groups``, in order."""
     if not groups:
@@ -112,10 +136,12 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         DeletionVectorDescriptor, read_deletion_vector,
     )
 
-    if metadata.partition_columns:
-        raise NotImplementedError("reading a partitioned table is not ported")
     schema = metadata.schema
+    part_cols = list(metadata.partition_columns)
+    part_schema = metadata.partition_schema
+    pcols_lower = frozenset(c.lower() for c in part_cols)
     out_names = list(columns) if columns is not None else [f.name for f in schema.fields]
+    data_cols = [c for c in out_names if c not in part_cols]
     pred_refs = (frozenset(r.lower() for r in ir.references(predicate))
                  if predicate is not None else frozenset())
     # the projection and the predicate's columns: nothing else is typed
@@ -134,23 +160,27 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         from delta_tpu_torch.expr.synthesis import schema_types
 
         # scan-constant: the row-group planner's rewrite, computed once
-        pred_rewrites = pruning.conjunct_rewrites([predicate], frozenset(),
+        pred_rewrites = pruning.conjunct_rewrites([predicate], pcols_lower,
                                                   schema_types(metadata))
     # per file: (groups, pruned, late skipped, bytes planned away, bytes late
     # skipped, groups device skipped, bytes device skipped, survivor bytes)
     rg_stats: List[tuple] = []
 
-    def _mask_table(t1: HostTable) -> HostTable:
+    def _mask_table(t1: HostTable, part_row) -> HostTable:
         """``t1`` plus a NULL column for each predicate column the file
-        predates: the table the residual filter will see, so the late
-        verdict cannot diverge from it."""
+        predates and the file's typed partition constants: the table the
+        residual filter will see, so the late verdict cannot diverge from
+        it."""
         for f in schema.fields:
             if f.name.lower() in pred_refs and f.name not in t1.columns:
                 kind, stype = declared[f.name]
-                t1 = t1.append_column(f.name, null_column(t1.num_rows, kind, stype))
+                t1 = t1.append_column(
+                    f.name, _constant_column(part_row.get(f.name) if f.name in part_cols
+                                             else None, kind, stype, t1.num_rows))
         return t1
 
-    def _decode_pruned(abs_path, meta, keep_idx, file_cols, present, need_positions):
+    def _decode_pruned(abs_path, meta, keep_idx, file_cols, present, need_positions,
+                       part_row):
         """Decode only ``keep_idx`` (late-materializing around the predicate
         columns): (table, physical positions or None, late-skipped groups,
         late-skipped bytes)."""
@@ -166,7 +196,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         if keep_idx and late_materialize and refs_covered and pred_cols and rest_cols:
             t1 = read_parquet_file(abs_path, pred_cols, row_groups=keep_idx, meta=meta)
             try:
-                mask = boolean_mask(predicate, _mask_table(t1))
+                mask = boolean_mask(predicate, _mask_table(t1, part_row))
             except Exception:
                 mask = None  # unevaluable here: keep every group
             if mask is not None:
@@ -226,7 +256,8 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         abs_path = _abs_data_path(data_path, add.path)
         meta = rowgroups.read_footer(abs_path)
         present = column_names(meta)
-        file_cols = [c for c in out_names if c in present]
+        file_cols = [c for c in data_cols if c in present]
+        part_row = typed_partition_row(add, part_schema) if part_cols else {}
         need_positions = add.deletion_vector is not None or position_column is not None
         t = positions = None
         n_rg = len(meta.row_groups or [])
@@ -234,7 +265,8 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             keep_idx = list(range(n_rg))
             skipped_bytes = 0
             if n_rg > 1:
-                plan = rowgroups.plan_row_groups(meta, predicate, rewrites=pred_rewrites)
+                plan = rowgroups.plan_row_groups(meta, predicate, part_row or None,
+                                                 pcols_lower, rewrites=pred_rewrites)
                 keep_idx, skipped_bytes = plan.keep, plan.skipped_bytes
             pruned = n_rg - len(keep_idx)
             late_capable = late_materialize and keep_idx and pred_refs and n_rg > 1
@@ -245,7 +277,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                 rg_stats.append((n_rg, pruned, 0, skipped_bytes, 0) + dstats)
             elif pruned or late_capable:
                 t, positions, late_n, late_bytes = _decode_pruned(
-                    abs_path, meta, keep_idx, file_cols, present, need_positions)
+                    abs_path, meta, keep_idx, file_cols, present, need_positions, part_row)
                 rg_stats.append((n_rg, pruned, late_n, skipped_bytes, late_bytes, 0, 0, 0))
             else:
                 rg_stats.append((n_rg, 0, 0, 0, 0, 0, 0, 0))
@@ -272,7 +304,9 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                 continue
             kind, stype = declared[name]
             col = t.columns.get(name)
-            if col is None:
+            if name in part_cols:
+                cols[name] = _constant_column(part_row.get(name), kind, stype, t.num_rows)
+            elif col is None:
                 cols[name] = null_column(t.num_rows, kind, stype)
             elif col.kind != kind or stored_type(col) != stype:
                 # a file written before a type widening carries the old type
@@ -324,8 +358,6 @@ def scan_to_table(snapshot, filters: Sequence[Union[str, ir.Expression]] = (),
     (``obs.scan_report.last_scan_report()``)."""
     from delta_tpu_torch.ops import column_cache
 
-    if snapshot.metadata.partition_columns:
-        raise NotImplementedError("reading a partitioned table is not ported")
     token = scan_report.start_report(snapshot.delta_log.data_path, snapshot.version)
     ok = False
     try:

@@ -1,33 +1,68 @@
-"""Transactional write path: a ``HostTable`` batch -> Parquet data files ->
-AddFiles (the port's own copy of ``delta_tpu.exec.write``, unpartitioned).
+"""Transactional write path: a ``HostTable`` batch -> partitioned Parquet
+data files -> AddFiles (the port's own copy of ``delta_tpu.exec.write``).
 
 Normalize the batch to the table schema (order, case, the declared types),
-split it at ``delta.tpu.write.targetFileRows`` rows, write one
-``part-<n>-<uuid>.c000.snappy.parquet`` file per chunk through the port's
-Parquet writer (``exec/parquet.write_parquet_file``) and return AddFiles
-carrying the protocol's stats over the first
-``delta.dataSkippingNumIndexedCols`` columns. Files become visible only
-through the commit.
+split it by partition values (a stable sort by the partition columns, NULLs
+and then NaNs last as Arrow's ``sort_by`` places them, and one scan for the
+run boundaries), split each partition at ``delta.tpu.write.targetFileRows``
+rows, write one ``<partition path>/part-<n>-<uuid>.c000.snappy.parquet``
+file per chunk through the port's Parquet writer
+(``exec/parquet.write_parquet_file``), holding the data columns only, and
+return AddFiles carrying the protocol's stats over the first
+``delta.dataSkippingNumIndexedCols`` data columns. A partition value's
+string is what ``str()`` of Arrow's Python scalar gives (``true``/``false``,
+``1.0``, ``nan``, a date's ISO form, ``2020-01-01 00:00:00``), NULL is
+``__HIVE_DEFAULT_PARTITION__``, and a directory name is Hive-escaped. Files
+become visible only through the commit.
 
-Left out: partitioned tables, generated columns, CHECK constraints and the
-char/varchar write semantics each raise ``NotImplementedError``.
+Left out: generated columns, CHECK constraints and the char/varchar write
+semantics each raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import datetime as _dt
 import os
 import urllib.parse
 import uuid
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from delta_tpu_torch.exec import parquet as pq_exec
-from delta_tpu_torch.expr.vectorized import HostTable, cast_column, null_column
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, cast_column, null_column
 from delta_tpu_torch.protocol.actions import AddFile, Metadata
 from delta_tpu_torch.schema import schema_utils
 from delta_tpu_torch.schema.types import CharType, StructType, VarcharType
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
 from delta_tpu_torch.utils.errors import SchemaMismatchError
 
-__all__ = ["normalize_data", "write_files"]
+__all__ = ["normalize_data", "write_files", "escape_partition_value",
+           "unescape_partition_value", "partition_path", "HIVE_DEFAULT_PARTITION"]
+
+# Hive-style partition-path escaping (Spark's ExternalCatalogUtils): these
+# characters are %-encoded in directory names
+_ESCAPE = set('\\"#%\'*/:=?\x7f[]^ \t\n\x0b\x0c\r{}')
+HIVE_DEFAULT_PARTITION = "__HIVE_DEFAULT_PARTITION__"
+_EPOCH_DAY = _dt.date(1970, 1, 1)
+_EPOCH_TS = _dt.datetime(1970, 1, 1)
+
+
+def escape_partition_value(v: Optional[str]) -> str:
+    if v is None or v == "":
+        return HIVE_DEFAULT_PARTITION
+    return "".join(f"%{ord(c):02X}" if c in _ESCAPE or ord(c) < 0x20 else c for c in v)
+
+
+def unescape_partition_value(s: str) -> Optional[str]:
+    if s == HIVE_DEFAULT_PARTITION:
+        return None
+    return urllib.parse.unquote(s)
+
+
+def partition_path(partition_values: Dict[str, Optional[str]],
+                   partition_columns: Sequence[str]) -> str:
+    return "/".join(f"{c}={escape_partition_value(partition_values.get(c))}"
+                    for c in partition_columns)
 
 
 def _resolve(table: HostTable, name: str) -> Optional[str]:
@@ -65,13 +100,77 @@ def normalize_data(table: HostTable, schema: StructType) -> HostTable:
     return HostTable(cols, table.num_rows)
 
 
+def _sort_ranks(col: HostColumn) -> np.ndarray:
+    """Dense ascending ranks of a column's values, with NaN after every
+    number and NULL after NaN (Arrow's ``sort_by`` order); -0.0 and 0.0
+    share a rank, as they compare equal."""
+    n = len(col.valid)
+    valid = np.asarray(col.valid, bool)
+    if col.kind == "double":
+        nan = valid & np.isnan(col.values)
+    else:
+        nan = np.zeros(n, bool)
+    real = valid & ~nan
+    ranks = np.empty(n, np.int64)
+    uniq, inv = (np.unique(col.values[real], return_inverse=True) if real.any()
+                 else (np.empty(0), np.empty(0, np.int64)))
+    ranks[real] = inv
+    ranks[nan] = len(uniq)
+    ranks[~valid] = len(uniq) + 1
+    return ranks
+
+
+def _partition_value_str(col: HostColumn, i: int) -> Optional[str]:
+    """Row ``i``'s partition value as the JAX package writes it: ``str()`` of
+    Arrow's Python scalar."""
+    if not col.valid[i]:
+        return None
+    v = col.values[i]
+    if col.kind == "bool":
+        return "true" if v else "false"
+    if col.kind == "int":
+        return str(int(v))
+    if col.kind == "double":
+        return str(float(v))
+    if col.kind == "date":
+        return str(_EPOCH_DAY + _dt.timedelta(days=int(v)))
+    if col.kind == "ts":
+        out = str(_EPOCH_TS + _dt.timedelta(microseconds=int(v)))
+        return out + "+00:00" if col.type == "timestamp[us, tz=UTC]" else out
+    return str(v)
+
+
+def _split_by_partition(table: HostTable, part_cols: Sequence[str]
+                        ) -> List[Tuple[Dict[str, Optional[str]], HostTable]]:
+    """One stable sort by the partition columns and one scan for the run
+    boundaries: NULL<->value is a boundary, NULL<->NULL and NaN<->NaN are
+    not. Each group's values are its first row's."""
+    n = table.num_rows
+    if n == 0:
+        return []
+    cols = [table.column(c) for c in part_cols]
+    ranks = [_sort_ranks(c) for c in cols]
+    order = np.lexsort(ranks[::-1])  # stable; the first column is the major key
+    change = np.zeros(n, bool)
+    change[0] = True
+    for r in ranks:
+        rs = r[order]
+        change[1:] |= rs[1:] != rs[:-1]
+    starts = np.flatnonzero(change)
+    bounds = np.append(starts, n)
+    out = []
+    for i, s in enumerate(starts):
+        rows = order[s:bounds[i + 1]]
+        pv = {c: _partition_value_str(col, int(rows[0])) for c, col in zip(part_cols, cols)}
+        out.append((pv, table.take(rows)))
+    return out
+
+
 def write_files(data_path: str, table: HostTable, metadata: Metadata,
                 data_change: bool = True,
                 target_file_rows: Optional[int] = None) -> List[AddFile]:
-    """Write a batch as Parquet data files; return their AddFiles."""
+    """Write a batch as partitioned Parquet data files; return their AddFiles."""
     schema: StructType = metadata.schema
-    if metadata.partition_columns:
-        raise NotImplementedError("writing a partitioned table is not ported")
     if any("delta.generationExpression" in (f.metadata or {}) for f in schema.fields):
         raise NotImplementedError("generated columns are not ported")
     if any(isinstance(f.data_type, (CharType, VarcharType))
@@ -85,20 +184,29 @@ def write_files(data_path: str, table: HostTable, metadata: Metadata,
     num_indexed = DeltaConfigs.DATA_SKIPPING_NUM_INDEXED_COLS.from_metadata(metadata)
     if target_file_rows is None:
         target_file_rows = int(conf.get("delta.tpu.write.targetFileRows", 4_000_000))
-    if table.num_rows == 0:
-        return []
-    if target_file_rows and table.num_rows > target_file_rows:
-        chunks = [table.slice(s, target_file_rows)
-                  for s in range(0, table.num_rows, target_file_rows)]
-    else:
-        chunks = [table]
+    part_cols = list(metadata.partition_columns)
+    data_cols = [f.name for f in schema.fields if f.name not in part_cols]
+    groups = _split_by_partition(table, part_cols) if part_cols else [({}, table)]
     adds = []
-    for idx, chunk in enumerate(chunks):
-        rel = f"part-{idx:05d}-{uuid.uuid4()}.c000.snappy.parquet"
-        size, mtime = pq_exec.write_parquet_file(chunk, os.path.join(data_path, rel))
-        adds.append(AddFile(
-            # AddFile.path is URI-encoded per the protocol; readers unquote once
-            path=urllib.parse.quote(rel, safe="/:@!$&'()*+,;=-._~"),
-            partition_values={}, size=size, modification_time=mtime,
-            data_change=data_change, stats=pq_exec.stats_json(chunk, num_indexed)))
+    for pv, part_table in groups:
+        if part_table.num_rows == 0:
+            continue
+        if target_file_rows and part_table.num_rows > target_file_rows:
+            chunks = [part_table.slice(s, target_file_rows)
+                      for s in range(0, part_table.num_rows, target_file_rows)]
+        else:
+            chunks = [part_table]
+        prefix = partition_path(pv, part_cols)
+        for idx, chunk in enumerate(chunks):
+            file_data = chunk.select(data_cols) if part_cols else chunk
+            name = f"part-{idx:05d}-{uuid.uuid4()}.c000.snappy.parquet"
+            rel = f"{prefix}/{name}" if prefix else name
+            size, mtime = pq_exec.write_parquet_file(
+                file_data, os.path.join(data_path, rel.replace("/", os.sep)))
+            adds.append(AddFile(
+                # AddFile.path is URI-encoded per the protocol (a Hive-escaped
+                # directory's '%' becomes '%25'); readers unquote once
+                path=urllib.parse.quote(rel, safe="/:@!$&'()*+,;=-._~"),
+                partition_values=pv, size=size, modification_time=mtime,
+                data_change=data_change, stats=pq_exec.stats_json(file_data, num_indexed)))
     return adds

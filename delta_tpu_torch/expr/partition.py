@@ -11,12 +11,13 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr.parser import parse_expression
 from delta_tpu_torch.protocol.actions import AddFile
 from delta_tpu_torch.schema.types import DateType, StringType, StructType, TimestampType
 from delta_tpu_torch.utils.timeparse import iso_to_date, iso_to_naive_utc
 
 __all__ = ["typed_partition_row", "eval_on_file", "matches", "matches_maybe", "filter_files",
-           "is_partition_predicate"]
+           "is_partition_predicate", "split_partition_and_data_predicates"]
 
 
 def typed_partition_row(add: AddFile, partition_schema: StructType) -> Dict[str, Any]:
@@ -76,3 +77,14 @@ def is_partition_predicate(expr: ir.Expression, partition_columns: Sequence[str]
     predicates (e.g. TRUE) are partition predicates too."""
     pset = {c.lower() for c in partition_columns}
     return all(r.lower() in pset for r in ir.references(expr))
+
+
+def split_partition_and_data_predicates(expr_or_str, partition_columns: Sequence[str]):
+    """A predicate's conjuncts split into (partition-only, needs-data)."""
+    expr = parse_expression(expr_or_str) if isinstance(expr_or_str, str) else expr_or_str
+    partition_preds: List[ir.Expression] = []
+    data_preds: List[ir.Expression] = []
+    for conj in ir.split_conjuncts(expr):
+        (partition_preds if is_partition_predicate(conj, partition_columns)
+         else data_preds).append(conj)
+    return partition_preds, data_preds

@@ -172,21 +172,33 @@ class SegmentColumns:
         rows = np.asarray(mask_or_rows)
         if rows.dtype == bool:
             rows = np.nonzero(rows)[0]
-        out: List[Action] = []
+        rows = rows.tolist()
+        out: List[Optional[Action]] = [None] * len(rows)
         offsets = [b[0] for b in self.ckpt_batches]
-        for r in rows.tolist():
+        # a checkpoint batch's rows convert together, one column at a time
+        # (a row at a time costs a pass over the nested columns a row)
+        in_batch: Dict[int, List[Tuple[int, int]]] = {}
+        for j, r in enumerate(rows):
             line = self.lines[r]
             if line is not None:
-                a = action_from_dict(json.loads(line))
+                out[j] = action_from_dict(json.loads(line))
             else:
-                start, index, add, rem = self.ckpt_batches[bisect_right(offsets, r) - 1]
-                t = index[r - start: r - start + 1]
-                if add is not None and add.field("path").valid[t[0]]:
-                    a = row_to_action("add", add.to_py(t)[0])
-                else:
-                    a = row_to_action("remove", rem.to_py(t)[0])
-            canon = self.path_dict[self.path_id[r]]
-            out.append(a if a.path == canon else replace(a, path=canon))
+                b = bisect_right(offsets, r) - 1
+                in_batch.setdefault(b, []).append((j, r - self.ckpt_batches[b][0]))
+        for b, items in in_batch.items():
+            _start, index, add, rem = self.ckpt_batches[b]
+            t = index[np.asarray([loc for _, loc in items], np.int64)]
+            is_add = (add.field("path").valid[t] if add is not None
+                      else np.zeros(len(t), bool))
+            for kind, col, sel in (("add", add, is_add), ("remove", rem, ~is_add)):
+                if sel.any():
+                    for (j, _loc), d in zip((it for it, s in zip(items, sel) if s),
+                                            col.to_py(t[sel])):
+                        out[j] = row_to_action(kind, d)
+        for j, r in enumerate(rows):
+            a, canon = out[j], self.path_dict[self.path_id[r]]
+            if a.path != canon:
+                out[j] = replace(a, path=canon)
         return out
 
     def paths_for(self, rows: np.ndarray) -> List[str]:

@@ -43,7 +43,11 @@ Differences from the JAX package, each deliberate:
 * an ``IN`` takes each option's validity in its own row, the host
   evaluator's semantics (``expr/device_eval``'s ``row_in``). The JAX kernel
   reduces it over every row of the padded lane, so a padded file's
-  not-found rows turn NULL and the mask under-keeps.
+  not-found rows turn NULL and the mask under-keeps;
+* a partition column the residual references binds as a per-file scalar
+  of the column's declared lane dtype, a NULL value as that dtype with
+  ``valid=False``, so files with and without a value share one program
+  and one launch; the JAX kernel traces a NULL value as a float32 scalar.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ import torch
 
 from delta_tpu_torch.expr import device_eval
 from delta_tpu_torch.expr.device_eval import DeviceColumn, NotDeviceCompilable, Program
+from delta_tpu_torch.expr.partition import typed_partition_row
 from delta_tpu_torch.expr.vectorized import HostColumn
 from delta_tpu_torch.ops import native
 from delta_tpu_torch.ops.state_cache import _next_pow2
@@ -621,6 +626,17 @@ def _scalar_column(value: Any) -> Tuple[int, int, bool]:
     raise NotDeviceCompilable(f"partition value {value!r} has no lane form")
 
 
+def _partition_scalar(value: Any, want: int) -> Tuple[int, bool]:
+    """A file's typed partition value as the (int64 bits, valid) of a
+    scalar of program dtype ``want``, the column's declared lane dtype."""
+    if value is None:
+        return 0, False
+    dt, bits, ok = _scalar_column(value)
+    if dt != want:
+        raise NotDeviceCompilable(f"partition value {value!r} does not fit its lane dtype")
+    return bits, ok
+
+
 # -- the scan path ------------------------------------------------------------------
 
 
@@ -704,8 +720,6 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
         return None
     if not plan.refs:
         return None  # a partition-only residual: file pruning is exact
-    if plan.part_refs:
-        raise NotImplementedError("reading a partitioned table is not ported")
     from delta_tpu_torch.obs import router_audit
     from delta_tpu_torch.parallel import link
 
@@ -734,7 +748,15 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
         return None
     counters = {"hits": 0, "misses": 0, "coldBytes": 0}
     need = sorted(plan.refs)
-    scalar_types = tuple((ph, device_eval.I64) for ph, _c, _v in plan.str_binds)
+    # a partition column binds as a per-file scalar of its declared lane
+    # dtype, a NULL value as that dtype with valid=False: one program serves
+    # files with and without a value (JAX's jit traces a NULL as float32)
+    lane_dt = device_eval.lane_dtypes(schema_types(metadata))
+    part_types = {c: device_eval._FROM_TORCH[lane_dt.get(c, torch.float64)]
+                  for c in plan.part_refs}
+    scalar_types = tuple(sorted([(ph, device_eval.I64) for ph, _c, _v in plan.str_binds]
+                                + list(part_types.items())))
+    part_schema = metadata.partition_schema
     t0 = time.perf_counter()
     # each file's lanes (decoding the misses), then one launch per program:
     # files whose lanes share dtypes share it (a file that predates a column
@@ -754,6 +776,14 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
             code = (lanes[col].dict_codes or {}).get(value, device_eval.STR_CODE_ABSENT)
             _dt_, bits, ok = _scalar_column(int(code))
             scalars[ph] = (bits, ok)
+        if part_types:
+            typed = {k.lower(): v for k, v in typed_partition_row(add, part_schema).items()}
+            try:
+                for c, want in part_types.items():
+                    scalars[c] = _partition_scalar(typed.get(c), want)
+            except NotDeviceCompilable:
+                telemetry.bump_counter("scan.device.fallback")
+                return None
         groups.setdefault(dtypes, []).append((i, env, n, scalars))
     pending = []
     for dtypes, members in groups.items():

@@ -820,6 +820,10 @@ class ResidentJoinKeys:
         # immutable per row once appended: key is non-NULL. h_valid is
         # derived: null_ok AND file alive AND not deletion-vector-deleted
         self.h_nullok = np.empty(0, bool)
+        # the buffers the three mirrors are views of (keys, valid, null_ok),
+        # grown by doubling: a table of thousands of small files (one a
+        # partition) appends file by file in amortized O(rows)
+        self._h_bufs: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         # conservative valid-key range, maintained on append (kills and DV
         # masks only shrink the valid set): keeps the per-probe sentinel and
         # narrowing decision O(source)
@@ -921,9 +925,7 @@ class ResidentJoinKeys:
             if path in self.slabs:
                 return False
             self.slabs[path] = (self.num_rows, n)
-            self.h_keys = np.concatenate([self.h_keys, keys.astype(np.int64)])
-            self.h_valid = np.concatenate([self.h_valid, valid.astype(bool)])
-            self.h_nullok = np.concatenate([self.h_nullok, valid.astype(bool)])
+            self._extend_mirrors(keys, valid)
             if valid.any():
                 self.h_min = min(self.h_min, int(keys[valid].min()))
                 self.h_max = max(self.h_max, int(keys[valid].max()))
@@ -938,6 +940,22 @@ class ResidentJoinKeys:
                 return True
             self._queue("append", (start, n))
             return True
+
+    def _extend_mirrors(self, keys: np.ndarray, valid: np.ndarray) -> None:
+        """Append rows to the host mirrors (the JAX package concatenates the
+        mirrors a file at a time: quadratic over many files)."""
+        n0, n = len(self.h_keys), len(keys)
+        bufs = self._h_bufs
+        if bufs is None or n0 + n > len(bufs[0]) or self.h_keys.base is not bufs[0]:
+            cap = max(2 * (n0 + n), 1024)
+            bufs = (np.empty(cap, np.int64), np.empty(cap, bool), np.empty(cap, bool))
+            for buf, cur in zip(bufs, (self.h_keys, self.h_valid, self.h_nullok)):
+                buf[:n0] = cur
+            self._h_bufs = bufs
+        bufs[0][n0:n0 + n] = keys
+        bufs[1][n0:n0 + n] = valid
+        bufs[2][n0:n0 + n] = valid
+        self.h_keys, self.h_valid, self.h_nullok = (b[:n0 + n] for b in bufs)
 
     def _kill_file(self, path: str) -> None:
         with self._lock:

@@ -9,7 +9,8 @@
   the deletion-vector switch, the schema-evolution switch (which the port
   refuses when on), ``delta.tpu.history.metricsEnabled``, and the read
   path's keys: ``delta.tpu.read.deviceResidual.mode``,
-  ``delta.tpu.read.rowGroupSkipping``, ``delta.tpu.columnCache.maxBytes`` /
+  ``delta.tpu.read.rowGroupSkipping``, ``delta.tpu.read.footerCacheEntries``,
+  ``delta.tpu.columnCache.maxBytes`` /
   ``maxEntries`` and the writer's ``delta.tpu.write.rowGroupRows``; the
   router's: ``delta.tpu.stateCache.devicePlan.*``, the state mesh's
   ``delta.tpu.distributed.plan.*`` and ``delta.tpu.merge.devicePath.preferMesh``,
@@ -82,6 +83,8 @@ class SqlConf:
         "delta.tpu.columnCache.maxEntries": 4096,
         # footer row-group skipping and late materialization (exec/rowgroups)
         "delta.tpu.read.rowGroupSkipping": True,
+        # parsed Parquet footers kept across scans (exec/rowgroups.FooterCache)
+        "delta.tpu.read.footerCacheEntries": 1024,
         # scan planning from the resident lanes (ops/state_cache): "auto"
         # prices the block cull on the card against the host plan, "force"
         # and "off" pin one; enabled=False pins the host plan

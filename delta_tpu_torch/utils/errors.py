@@ -374,6 +374,16 @@ def partition_columns_mismatch(given, current) -> DeltaAnalysisError:
     return DeltaAnalysisError(f"Partition columns {list(given)} don't match the table's {current}")
 
 
+def replace_where_mismatch(replace_where: str, detail: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Data written out does not match replaceWhere '{replace_where}'.\n"
+                              f"Invalid data would be written to {detail}.")
+
+
+def replace_where_needs_partition_columns(pred_sql: str, partition_cols) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"replaceWhere {pred_sql!r} must reference only partition columns "
+                              f"{partition_cols}")
+
+
 def partition_column_not_found(column: str, schema_str: str) -> DeltaAnalysisError:
     return DeltaAnalysisError(f"Partition column `{column}` not found in schema {schema_str}")
 

@@ -335,6 +335,31 @@ def test_multipart_checkpoint_opens_in_both(tmp_path, writer):
     assert views[0] == views[1]
 
 
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_materialize_in_any_row_order_matches_one_row_at_a_time(tmp_path, writer):
+    """The segment's actions come out of a multi-part checkpoint (adds and
+    tombstones) and its JSON tail the same whether rows convert a batch at
+    a time, in any order, or one at a time; and the snapshot's files equal
+    the JAX package's."""
+    path = str(tmp_path / "t")
+    state = write_table(path, n_files=120, partitioned=True)
+    write_tail(path, state, n_commits=2)
+    kv = {"delta.tpu.checkpointPartSize": 50}
+    with jax_conf.set_temporarily(**kv), torch_conf.set_temporarily(**kv):
+        _open(writer, path).checkpoint()
+    write_tail(path, state, n_commits=2)
+    JaxDeltaLog.clear_cache()
+    TorchDeltaLog.clear_cache()
+    snap = _open("torch", path).update()
+    cols = snap._columnar
+    assert len(cols.ckpt_batches) > 1 and any(line is not None for line in cols.lines)
+    rows = np.random.RandomState(4).permutation(cols.num_rows)
+    got = cols.materialize(rows)
+    assert got == [cols.materialize(np.array([r]))[0] for r in rows]
+    assert {type(a).__name__ for a in got} == {"AddFile", "RemoveFile"}
+    assert _snapshot_view(snap) == _snapshot_view(_open("jax", path).update())
+
+
 def _log_with_checkpoints(path, commits=12):
     """A JAX-written table whose log has ``commits`` commits after the
     first, a checkpoint at 5 and at 10 (``delta.checkpointInterval`` 5)."""

@@ -9,13 +9,16 @@ copies), the operation metrics without wall times, the last commit's
 add/remove counts and the deletion-vector cardinalities
 (``tests/torch_dml_tables.assert_same_end_state``).
 
-Partitioned, change-data-feed and generated-column cases assert the port's
-``NotImplementedError``, except the metadata-only DELETE on a partitioned
-table, which reads no data and matches the reference. After each port
+Change-data-feed and generated-column cases assert the port's
+``NotImplementedError``; the partitioned DELETE and UPDATE cases match the
+reference (tests/test_torch_partitioned.py holds the rest of the
+partitioned cases). After each port
 command a port MERGE serves no stale key slab or scan lane: the DV
 commands advance the resident slab, the rewrites rebuild it. A kernel
 failure inside DELETE, UPDATE or the MERGE after them propagates.
 """
+import os
+
 import pytest
 
 from delta_tpu.schema.generated import generated_field
@@ -206,28 +209,29 @@ def test_history_rows_match_jax(tmp_path):
     assert [h["version"] for h in limited] == [4, 3]
 
 
-# -- what the port refuses, and the one partitioned case it runs --------------------
+# -- partitioned tables, and what the port refuses ---------------------------------
 
 
 def test_delete_partition_only_matches_jax_on_a_partitioned_table(tmp_path):
-    """``test_delete_partition_only_metadata``: case 2 reads no data, so it
-    runs on the partitioned table ``delta_tpu`` wrote; the port cannot read
-    the result, ``delta_tpu`` reads both copies to equal rows."""
+    """``test_delete_partition_only_metadata``: case 2 reads no data, on the
+    partitioned table ``delta_tpu`` wrote; each package reads both copies
+    to equal rows."""
     paths, out = _run_both(
         tmp_path, lambda s: create(s, {"id": [1, 2, 3, 4], "c": ["a", "a", "b", "b"]},
                                    partition_columns=["c"]),
         lambda t: t.delete("c = 'a'"))
     assert metrics(out["torch"]) == metrics(out["jax"])
     assert out["torch"]["numDeletedRows"] == -1 and out["torch"]["numAddedFiles"] == 0
-    got = assert_same_end_state(paths, port_reads=False)
+    got = assert_same_end_state(paths)
     assert sorted(r["id"] for r in got) == [3, 4]
 
 
 @pytest.mark.parametrize("op", ["delete_data", "update", "update_partition_column"])
 def test_partitioned_data_commands_raise_not_implemented(tmp_path, op):
-    """A data predicate or an UPDATE on a partitioned table reads data, which
-    the port's reader refuses (``test_update_partition_column_moves_rows``
-    and the partitioned DELETE)."""
+    """A data predicate or an UPDATE on a partitioned table (the partitioned
+    DELETE and ``test_update_partition_column_moves_rows``): the port reads
+    and writes partitioned tables, so each matches the reference, with the
+    rows of an assigned partition column moved to their new directory."""
     run = {"delete_data": lambda t: t.delete("id > 1"),
            "update": lambda t: t.update({"id": "id + 1"}, "id = 2"),
            "update_partition_column": lambda t: t.update({"c": "'b'"}, "id = 2")}[op]
@@ -235,8 +239,13 @@ def test_partitioned_data_commands_raise_not_implemented(tmp_path, op):
         tmp_path, lambda s: create(s, {"id": [1, 2], "c": ["a", "a"]}, partition_columns=["c"]),
         run)
     assert not isinstance(out["jax"], str)
-    assert out["torch"] == "NotImplementedError"
-    assert log("torch", paths["torch"]).update().version == 0
+    assert metrics(out["torch"]) == metrics(out["jax"])
+    assert log("torch", paths["torch"]).update().version == 1
+    got = assert_same_end_state(paths)
+    if op == "update_partition_column":
+        assert [r["id"] for r in rows("torch", paths["jax"], filters=["c = 'b'"])] == [2]
+        assert os.path.isdir(os.path.join(paths["torch"], "c=b"))
+    assert len(got) == (1 if op == "delete_data" else 2)
 
 
 @pytest.mark.parametrize("op", ["delete", "update"])

@@ -1539,3 +1539,129 @@ def test_dml_then_merge_on_the_card_matches_the_cpu(cuda, tmp_path):
         "device-cold", "resident", "resident", "device-cold"]
     for c in ("k", "v", "q"):
         assert np.array_equal(got_end[c], want_end[c]), c
+
+
+# -- partitioned tables (the seventeenth slice) ---------------------------------------
+
+
+def _typed_partition_table(path):
+    """Three files, each with its own value (one NULL) of an int, a double,
+    a bool, a date and a timestamp partition column, written on the CPU."""
+    from delta_tpu_torch import WriteIntoDelta
+    from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+
+    per_file = {"i": ("int", [5, 0, -2]), "f": ("double", [1.5, 0.0, float("nan")]),
+                "b": ("bool", [True, False, False]), "d": ("date", [18262, 0, -1]),
+                "t": ("ts", [1577840400000000, 0, -315619200000000])}
+    log = DeltaLog.for_table(path, device="cpu")
+    n = 1000
+    for k in range(3):
+        cols = {"id": HostColumn("int", np.arange(k * n, (k + 1) * n, dtype=np.int64),
+                                 np.ones(n, bool)),
+                "x": HostColumn("double", np.random.RandomState(k).rand(n), np.ones(n, bool))}
+        for name, (kind, vals) in per_file.items():
+            dt = {"int": np.int64, "double": np.float64, "bool": bool}.get(kind, np.int64)
+            cols[name] = HostColumn(kind, np.full(n, vals[k], dt), np.full(n, k != 1))
+        WriteIntoDelta(log, "append", HostTable(cols, n), partition_columns=list(per_file)).run()
+
+
+PARTITION_PREDICATES = ["i = 5 OR x > 0.9", "i IS NULL AND x < 0.3", "f > 1.0 OR id = 2500",
+                        "NOT b AND x >= 0.5", "d >= '2020-01-01' OR x < 0.01",
+                        "t < '2000-01-01' AND x > 0.4", "coalesce(i, 100) > 50 AND x > 0.1"]
+
+
+def test_residual_mask_with_partition_scalars_matches_plain(cuda, tmp_path):
+    """A read mixing NULL and non-NULL partitions of every lane dtype: K14
+    runs once over the three files, each file's partition values bound as
+    its scalars, and its mask equals the plain version's bit for bit; the
+    rows equal the same read on the CPU."""
+    import shutil
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.ops import column_cache
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.config import conf
+
+    path = str(tmp_path / "t")
+    _typed_partition_table(path)
+    shutil.copytree(path, path + "-cpu")
+    real = column_cache.residual_masks
+    seen = []
+
+    def checking(program, envs, ns, scalars):
+        got, offs = real(program, envs, ns, scalars)
+        ref, ref_offs = column_cache.residual_masks_plain(program, envs, ns, scalars)
+        torch.cuda.synchronize()
+        seen.append((len(envs), len(program.scalar_slots),
+                     offs == ref_offs and torch.equal(got.cpu(), ref.cpu())))
+        return got, offs
+
+    ColumnCache.reset()
+    column_cache.residual_masks = checking
+    try:
+        with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
+            for pred in PARTITION_PREDICATES:
+                del seen[:]
+                before = native.launches["residual_mask"]
+                got = DeltaTable.for_path(path, device=cuda).to_table(filters=[pred])
+                assert seen and all(ok for _n, _s, ok in seen), pred
+                assert native.launches["residual_mask"] > before, pred
+                ref = DeltaTable.for_path(path + "-cpu", device="cpu").to_table(filters=[pred])
+                assert sorted(got.column("id").values.tolist()) == \
+                    sorted(ref.column("id").values.tolist()), pred
+    finally:
+        column_cache.residual_masks = real
+
+
+def test_partitioned_write_read_merge_on_the_card_match_the_cpu(cuda, tmp_path):
+    """store_sales partitioned by date (40,000 rows, 50 partitions, deletion
+    vectors on) through the writer, a read with the device residual, a
+    MERGE on the key slab, a DV DELETE and an UPDATE of the partition
+    column, on the card and on the CPU: the same rows and the same
+    partition directories."""
+    import os
+    import urllib.parse
+
+    import chip_smoke
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.config import conf
+
+    n = 40_000
+    target = chip_smoke.store_sales(n, np.random.RandomState(7))
+    target["ss_sold_date_sk"] = 2450000 + target["ss_sold_date_sk"] % 50
+    src = chip_smoke.store_sales(4_000, np.random.RandomState(8))
+    src["ss_item_sk"][:2000] = target["ss_item_sk"][:2000]
+    src["ss_item_sk"][2000:] += 10 * n
+    src["ss_sold_date_sk"] = 2450000 + src["ss_sold_date_sk"] % 60
+    out = {}
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        path = str(tmp_path / name)
+        log = DeltaLog.for_table(path, device=dev)
+        WriteIntoDelta(log, "append", dict(target), partition_columns=["ss_sold_date_sk"]).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        table = DeltaTable.for_path(path, device=dev)
+        settings = {"delta.tpu.read.deviceResidual.mode": "force",
+                    "delta.tpu.merge.devicePath.mode": "force",
+                    "delta.tpu.stateCache.devicePlan.mode": "force"}
+        with conf.set_temporarily(**settings):
+            read = table.to_table(filters=["ss_sold_date_sk = 2450007 OR ss_quantity > 97"])
+            cmd = MergeIntoCommand(log, dict(src), "t.ss_item_sk = s.ss_item_sk",
+                                   [MergeClause("update")], [MergeClause("insert")],
+                                   source_alias="s", target_alias="t")
+            cmd.run()
+            table.delete("ss_quantity >= 96")
+            table.update({"ss_sold_date_sk": "ss_sold_date_sk + 1"}, "ss_store_sk < 20")
+            end = table.to_table()
+        dirs = sorted(os.path.dirname(urllib.parse.unquote(f.path))
+                      for f in log.update().all_files)
+        out[name] = (chip_smoke.state_of(read), chip_smoke.state_of(end), cmd.metrics, dirs,
+                     cmd._join_path)
+    for a, b in zip(out["card"][:2], out["cpu"][:2]):
+        assert all(np.array_equal(a[c], b[c]) for c in chip_smoke.STORE_SALES)
+    assert {k: v for k, v in out["card"][2].items() if not k.endswith("TimeMs")} == \
+        {k: v for k, v in out["cpu"][2].items() if not k.endswith("TimeMs")}
+    assert out["card"][3] == out["cpu"][3] and out["card"][4] == out["cpu"][4] == "device-cold"

@@ -9,8 +9,7 @@ against ``delta_tpu``'s on the CPU:
 * OPTIMIZE end states equal to ``delta_tpu``'s on the cases of
   ``tests/test_dml.py:363-520``: each package optimizes its own copy of one
   table ``delta_tpu`` wrote, and the new files' rows, in order, and the
-  file counts must match (partitioned tables: the port raises
-  ``NotImplementedError``);
+  file counts must match, partitioned tables included;
 * a table the port optimized reads back through ``delta_tpu``;
 * no stale lane or slab after an OPTIMIZE (``tests/test_column_cache.py:
   244``): both device caches' epochs move and the next scan and MERGE see
@@ -342,13 +341,23 @@ def test_zorder_rejects_partition_column(tmp_path):
 
 
 def test_partitioned_optimize_is_not_ported(tmp_path):
+    """Partitioned OPTIMIZE, once refused by the port, now matches the
+    reference: a partition predicate compacts only its partition; NULL
+    partition values bin together; Z-order inside the selected
+    partitions."""
     writes = [({"id": [i, i + 10], "c": ["a", "b"]}, {"partition_columns": ["c"]})
               for i in range(3)]
     j, t = _both_optimize(tmp_path, writes, predicate="c = 'a'")
-    assert t == "NotImplementedError" and j != t
-    writes = [({"id": [1], "p": [None]}, {"partition_columns": ["p"]}), ({"id": [2], "p": [None]}, {})]
-    _j, t = _both_optimize(tmp_path / "b", writes)
-    assert t == "NotImplementedError"
+    assert t == j and t[0] == {"numRemovedFiles": 3, "numAddedFiles": 1} and len(t[1]) == 4
+    writes = [({"id": [1], "p": ("string", [None])}, {"partition_columns": ["p"]}),
+              ({"id": [2], "p": ("string", [None])}, {})]
+    j, t = _both_optimize(tmp_path / "b", writes)
+    assert t == j and t[0] == {"numRemovedFiles": 2, "numAddedFiles": 1}
+    writes = [({"x": [5, 1, 3, 2], "y": [0, 9, 4, 4], "c": ["a", "a", "b", "b"]},
+               {"partition_columns": ["c"]}) for _ in range(2)]
+    j, t = _both_optimize(tmp_path / "z", writes, predicate="c = 'b'", z_order_by=["x", "y"],
+                          target_rows=2)
+    assert t == j and t[0] == {"numRemovedFiles": 2, "numAddedFiles": 2}
 
 
 def test_purge_materializes_deletion_vectors(tmp_path):

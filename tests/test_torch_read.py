@@ -463,10 +463,15 @@ def test_a_failing_kernel_raises_out_of_the_scan(cc_table, monkeypatch):
 
 
 def test_partitioned_tables_are_not_ported(tmp_path):
+    """A partitioned table, once refused by the port's reader, reads as the
+    reference reads it, under both residual modes (the partition value a
+    per-file scalar of K14's program on the device leg)."""
     path = str(tmp_path / "part")
     write("jax", path, _cc_spec(0), partition_columns=["p"])
-    with pytest.raises(NotImplementedError):
-        port_rows(path, "cat = 'alpha'")
+    for pred in ("cat = 'alpha'", "p = 1 OR x < 0.2", "p = 0 AND cat = 'beta'"):
+        want = jax_rows(path, pred)
+        for mode in ("off", "force"):
+            assert port_rows(path, pred, mode=mode) == want, (pred, mode)
 
 
 # -- the reference's fault: an IN whose option is a column -------------------------
@@ -705,3 +710,52 @@ def test_negative_zero_in_an_in_keeps_spark_answer(pin_table, pred):
         assert sign(_values(port_rows(pin_table, pred, mode=mode), "dbl")) == sign(port)
     assert sign(_values(_jax_rows_in(pin_table, pred, "off"), "dbl")) == sign(ref_off)
     assert sign(_values(_jax_rows_in(pin_table, pred, "force"), "dbl")) == sign(ref_force)
+
+
+# -- the footer LRU (tests/test_rowgroups.py:336-363) -------------------------------
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_footer_cache_invalidation_on_rewrite(tmp_path, pkg):
+    """Both packages' footer caches: a hit returns the same parsed object; a
+    file rewritten in place (another size and mtime) is parsed again."""
+    cache = (jax_rowgroups if pkg == "jax" else rowgroups).FooterCache()
+    p = str(tmp_path / "c.parquet")
+    pq.write_table(pa.table({"v": pa.array(range(100), pa.int64())}), p)
+    m1 = cache.get(p)
+    assert cache.get(p) is m1
+    pq.write_table(pa.table({"v": pa.array(range(7), pa.int64())}), p)
+    os.utime(p, ns=(1, 1))
+    m2 = cache.get(p)
+    assert m2 is not m1 and m2.num_rows == 7
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_footer_cache_bounded_and_disabled(tmp_path, pkg):
+    cache = (jax_rowgroups if pkg == "jax" else rowgroups).FooterCache()
+    settings = jax_conf if pkg == "jax" else conf
+    paths = []
+    for i in range(5):
+        p = str(tmp_path / f"f{i}.parquet")
+        pq.write_table(pa.table({"v": pa.array([i], pa.int64())}), p)
+        paths.append(p)
+    with settings.set_temporarily(**{"delta.tpu.read.footerCacheEntries": 3}):
+        for p in paths:
+            cache.get(p)
+        assert len(cache) == 3
+    with settings.set_temporarily(**{"delta.tpu.read.footerCacheEntries": 0}):
+        before = len(cache)
+        assert cache.get(paths[0]).num_rows == 1 and len(cache) == before
+
+
+def test_a_scan_reads_each_footer_once_while_it_is_cached(tmp_path):
+    """A second scan of a table parses no footer: every file's is a hit."""
+    path = str(tmp_path / "t")
+    for i in range(4):
+        write("torch", path, _cc_spec(i), partition_columns=["p"])
+    rowgroups.FooterCache.reset()
+    port_rows(path, "x > 0.5", mode="off")
+    telemetry.clear_counters()
+    assert port_rows(path, "x > 0.5", mode="off") == jax_rows(path, "x > 0.5")
+    c = telemetry.counters()
+    assert c.get("footerCache.hits", 0) == 4 and "footerCache.misses" not in c

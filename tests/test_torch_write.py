@@ -150,12 +150,31 @@ def test_target_file_rows_split(tmp_path, file_rows):
 
 
 def test_write_refuses_what_is_not_ported(tmp_path):
+    """``merge_schema`` and ``overwrite_schema`` stay refused;
+    ``partition_columns`` and ``replace_where`` run as in ``delta_tpu``
+    (a replaceWhere on a data column is refused by both)."""
     log = delta_tpu_torch.DeltaLog.for_table(str(tmp_path / "t"), device="cpu")
-    for kw in ({"partition_columns": ["id"]}, {"merge_schema": True}):
+    for kw in ({"merge_schema": True}, {"overwrite_schema": True}):
         with pytest.raises(NotImplementedError):
-            WriteIntoDelta(log, "append", {"id": np.arange(3)}, **kw)
-    with pytest.raises(NotImplementedError):
-        WriteIntoDelta(log, "overwrite", {"id": np.arange(3)}, replace_where="id > 1")
+            WriteIntoDelta(log, "overwrite", {"id": np.arange(3)}, **kw)
+    a, b = str(tmp_path / "torch"), str(tmp_path / "jax")
+    steps = [("append", {"id": [1, 2, 3], "c": ["x", "y", "y"]}, {"partition_columns": ["c"]}),
+             ("overwrite", {"id": [7], "c": ["y"]}, {"replace_where": "id > 1"}),
+             ("overwrite", {"id": [7], "c": ["y"]}, {"replace_where": "c = 'y'"})]
+    for mode, cols, kw in steps:
+        outs = []
+        for run in (lambda: WriteIntoDelta(delta_tpu_torch.DeltaLog.for_table(a, device="cpu"),
+                                           mode, cols, **kw).run(),
+                    lambda: JaxWrite(delta_tpu.DeltaLog.for_table(b), mode, pa.table(cols),
+                                     **kw).run()):
+            try:
+                outs.append(run())
+            except Exception as e:  # the class is the observation
+                outs.append(type(e).__name__)
+        assert outs[0] == outs[1]
+    assert commits(a) == commits(b)
+    assert rows_torch(a) == rows_jax(a) == rows_jax(b) == [(("id", 1), ("c", "x")),
+                                                           (("id", 7), ("c", "y"))]
 
 
 def test_append_of_a_mismatched_schema_fails_as_jax(tmp_path):

@@ -102,19 +102,14 @@ def metrics(m):
     return {k: v for k, v in m.items() if not k.endswith("TimeMs")}
 
 
-def assert_same_end_state(paths, port_reads=True):
-    """Both copies' end states agree: rows (each package reads both copies;
-    ``port_reads=False`` where the port cannot read the table, e.g. a
-    partitioned one, and then the port's read must raise
-    ``NotImplementedError``), the last commit's add/remove counts and the
-    deletion-vector cardinalities."""
+def assert_same_end_state(paths):
+    """Both copies' end states agree: rows (each package reads both copies),
+    the last commit's add/remove counts and the deletion-vector
+    cardinalities."""
     want = rows("jax", paths["jax"])
     assert rows("jax", paths["torch"]) == want
-    if port_reads:
-        assert rows("torch", paths["torch"]) == want
-        assert rows("torch", paths["jax"]) == want
-    else:
-        assert observe(lambda: rows("torch", paths["torch"])) == "NotImplementedError"
+    assert rows("torch", paths["torch"]) == want
+    assert rows("torch", paths["jax"]) == want
     assert last_commit_counts(paths["torch"]) == last_commit_counts(paths["jax"])
     # a file both copies hold is one the source had (new files take fresh
     # names): its vector must agree; every vector's cardinality must too
