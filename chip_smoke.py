@@ -265,8 +265,26 @@ Phases, each reported on its own line:
    and after, and VACUUM, which removes the partition directories that no
    live file holds; each step's end state equals numpy's on all 8
    columns, and K14's launch with the partition scalar equals its plain
-   version. Each phase's wall seconds are printed before the kernels line;
-15. last line: ``{"ok": true, "device": {...}}``.
+   version;
+15. DECIMAL and nested data columns, with the counters set to 0 again.
+   15a, store_sales(DEC_ROWS) in TPC-DS's own types (the generator's
+   draws, ``ss_sales_price``, ``ss_ext_discount_amt`` and ``ss_net_paid``
+   decimal(7,2): the unscaled values floor(rand * 10000), floor(rand *
+   1000) and floor(rand * 9000)), deletion vectors on: the write (stats
+   ``nullCount`` only for the decimals), a plan on the date (K1), a read
+   with the residual on the card (K14) returning the decimals, a read
+   whose residual names a decimal (the host, ``scan.device.fallback``), a
+   cold 1M-row MERGE (K8-K10), a DV UPDATE ``ss_net_paid = ss_sales_price
+   * ss_quantity`` (K15 plans its candidates), a DV DELETE (K1), a resident
+   MERGE (K11), OPTIMIZE ZORDER BY (K16), a checkpoint with
+   ``writeStatsAsStruct`` read back by a fresh log, a read of version 1;
+   each end state equal to numpy over the unscaled integers. 15b,
+   NESTED_ROWS rows of ``id`` and the struct, list and map shapes of
+   tests/test_datatypes.py (NULL, empty and NULL inside): the write, a
+   MERGE with update * / insert * (K8-K10), a DV DELETE of ``id % 10 =
+   0``, OPTIMIZE, the end state equal to a Python reference row for row.
+   Each phase's wall seconds are printed before the kernels line;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -3831,6 +3849,48 @@ def commit_actions(log, version):
     return actions_from_lines(log.store.read(f"{log.log_path}/{filenames.delta_file(version)}"))
 
 
+def timed_step(name, fn, settings=None):
+    """Run one command under ``settings``: (its value, wall seconds, the
+    launches it made by kernel), after the key cache's warmups it started
+    have ended without a build error."""
+    before = dict(native.launches)
+    with conf.set_temporarily(**(settings or {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
+    check(key_cache.KeyCache.instance().last_build_error is None,
+          f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
+    delta = {k: native.launches[k] - before[k] for k in native.launches
+             if native.launches[k] != before[k]}
+    return out, wall_s, delta
+
+
+def upsert(log, name, source, keys, live, want_route, settings=None):
+    """One MERGE upsert keyed on ss_item_sk (update *, insert *) on the
+    card's join path, its route and its metrics checked against numpy's
+    (``keys`` the source's keys, ``live`` the target's): (command, wall
+    seconds, launches, phase ms)."""
+    def run():
+        cmd = MergeIntoCommand(log, source, "t.ss_item_sk = s.ss_item_sk",
+                               [MergeClause("update")], [MergeClause("insert")],
+                               source_alias="s", target_alias="t")
+        cmd.run()
+        return cmd
+
+    cmd, wall_s, delta = timed_step(name, run, dict(
+        {"delta.tpu.merge.devicePath.mode": "force"}, **(settings or {})))
+    check(cmd._join_path == want_route, f"{name}: route {cmd._join_path}, not {want_route}")
+    check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
+    hits = int(np.isin(keys, live).sum())
+    check(cmd.metrics["numTargetRowsUpdated"] == hits
+          and cmd.metrics["numTargetRowsInserted"] == len(keys) - hits,
+          f"{name}: metrics {cmd.metrics}, numpy {hits} updates")
+    return cmd, wall_s, delta, {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+
+
 def run_dml(dev, c2, workdir, card):
     """Phase 13: DELETE, UPDATE, MERGE, RESTORE, VACUUM and time travel on a
     hard-linked copy of phase 7's table (M3's end state), each step's end
@@ -3864,40 +3924,9 @@ def run_dml(dev, c2, workdir, card):
         return (key_cache.KeyCache.instance().epoch(log.log_path),
                 ColumnCache.instance().epoch(log.log_path))
 
-    def timed_step(name, fn, settings=None):
-        """Run one command with its launch counts and wall time."""
-        before = dict(native.launches)
-        with conf.set_temporarily(**(settings or {})):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
-        check(key_cache.KeyCache.instance().last_build_error is None,
-              f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
-        delta = {k: native.launches[k] - before[k] for k in native.launches
-                 if native.launches[k] != before[k]}
-        return out, wall_s, delta
-
     def merge(name, src, want_route, settings=None):
-        def run():
-            cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk",
-                                   [MergeClause("update")], [MergeClause("insert")],
-                                   source_alias="s", target_alias="t")
-            cmd.run()
-            return cmd
-
-        cmd, wall_s, delta = timed_step(name, run, dict(
-            {"delta.tpu.merge.devicePath.mode": "force"}, **(settings or {})))
-        check(cmd._join_path == want_route, f"{name}: route {cmd._join_path}, not {want_route}")
-        check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
-        hits = int(np.isin(src["ss_item_sk"], state["ss_item_sk"]).sum())
-        check(cmd.metrics["numTargetRowsUpdated"] == hits
-              and cmd.metrics["numTargetRowsInserted"] == len(src["ss_item_sk"]) - hits,
-              f"{name}: metrics {cmd.metrics}, numpy {hits} updates")
-        phases = {k: round(v, 3) for k, v in cmd.phase_ms.items()}
-        return cmd, wall_s, delta, phases
+        return upsert(log, name, src, src["ss_item_sk"], state["ss_item_sk"], want_route,
+                      settings)
 
     def record(name, wall_s, delta, detail):
         got = state_of(scan_to_table(log.update()))
@@ -4331,49 +4360,17 @@ def run_partitioned(dev, workdir, card):
     target = store_sales(PART_ROWS, np.random.RandomState(7))
     order = np.argsort(target["ss_item_sk"], kind="stable")
     state = {c: target[c][order] for c in STORE_SALES}
-    steps, captured = [], {}
+    captured = {}
     real_masks = column_cache.residual_masks
 
-    def timed_step(name, fn, settings=None):
-        before = dict(native.launches)
-        with conf.set_temporarily(**(settings or {})):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        check(key_cache.KeyCache.instance().wait_warmups(600), f"{name}: warmup hangs")
-        check(key_cache.KeyCache.instance().last_build_error is None,
-              f"{name}: key-lane build error {key_cache.KeyCache.instance().last_build_error!r}")
-        delta = {k: native.launches[k] - before[k] for k in native.launches
-                 if native.launches[k] != before[k]}
-        return out, wall_s, delta
+    def state_check(name):
+        same_state(state_of(scan_to_table(log.update())), state, f"partitioned {name}")
+        return "; end state of %d rows x 8 columns equal to numpy" % len(state["ss_item_sk"])
 
-    def record(name, wall_s, delta, detail, check_state=True):
-        if check_state:
-            same_state(state_of(scan_to_table(log.update())), state, f"partitioned {name}")
-        steps.append({"step": name, "wall_s": round(wall_s, 3), "launches": delta,
-                      "detail": detail})
-        say(f"partitioned: {name} {wall_s:.3f} s wall, {detail}, launches {delta}"
-            + ("; end state of %d rows x 8 columns equal to numpy" % len(state["ss_item_sk"])
-               if check_state else "") + f" | {card}")
+    record, steps = _phase_steps(card, "partitioned", state_check)
 
     def merge(name, src, want_route):
-        def run():
-            cmd = MergeIntoCommand(log, src, "t.ss_item_sk = s.ss_item_sk",
-                                   [MergeClause("update")], [MergeClause("insert")],
-                                   source_alias="s", target_alias="t")
-            cmd.run()
-            return cmd
-
-        cmd, wall_s, delta = timed_step(name, run, {"delta.tpu.merge.devicePath.mode": "force"})
-        check(cmd._join_path == want_route, f"{name}: route {cmd._join_path}, not {want_route}")
-        check(not cmd._router.get("reason"), f"{name}: fell back: {cmd._router}")
-        hits = int(np.isin(src["ss_item_sk"], state["ss_item_sk"]).sum())
-        check(cmd.metrics["numTargetRowsUpdated"] == hits
-              and cmd.metrics["numTargetRowsInserted"] == len(src["ss_item_sk"]) - hits,
-              f"{name}: metrics {cmd.metrics}, numpy {hits} updates")
-        return cmd, wall_s, delta, {k: round(v, 3) for k, v in cmd.phase_ms.items()}
+        return upsert(log, name, src, src["ss_item_sk"], state["ss_item_sk"], want_route)
 
     def part_dirs():
         return {d for d in os.listdir(path) if d.startswith(PART_COL + "=")}
@@ -4552,6 +4549,415 @@ def run_partitioned(dev, workdir, card):
     return {"launches": launches, "steps": steps}
 
 
+# -- phase 15: DECIMAL and nested data columns on the card's table path -----------------
+
+#: store_sales in TPC-DS's own column types: the money columns decimal(7,2)
+DEC_TYPE = "decimal128(7, 2)"
+DEC_MONEY = ("ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
+#: 15a's rows: the bench's 10M cut to keep the smoke in its time limit
+#: (PERF.md section 4: 4M, phase 14b's cut, took the run to 1,111 s)
+DEC_ROWS = 1_000_000
+#: 15a's files (the writer's targetFileRows): 16 files, so the plan (K1)
+#: and the residual (K14) have a table to cull
+DEC_FILE_ROWS = 62_500
+DEC_FRESH = {"m1": 50_000_000, "m2": 51_000_000}
+#: 15b: a nested table's rows (1M cut as 15a's), its MERGE's source rows
+#: and its files' rows (10 files)
+NESTED_ROWS, NESTED_SOURCE, NESTED_FILE_ROWS = 250_000, 100_000, 25_000
+
+
+def typed_store_sales(n, rng):
+    """``store_sales``' draws (bench.py:168), the money columns as the
+    unscaled values of decimal(7,2): floor(rand * 10000), floor(rand *
+    1000) and floor(rand * 9000)."""
+    cols = {
+        "ss_item_sk": rng.permutation(n * 2)[:n].astype(np.int64),
+        "ss_customer_sk": rng.randint(0, 1_000_000, n).astype(np.int64),
+        "ss_sold_date_sk": rng.randint(2450000, 2452000, n).astype(np.int64),
+        "ss_store_sk": rng.randint(0, 500, n).astype(np.int64),
+        "ss_quantity": rng.randint(1, 100, n).astype(np.int64),
+    }
+    for c, top in zip(DEC_MONEY, (10000, 1000, 9000)):
+        cols[c] = np.floor(rng.rand(n) * top).astype(np.int64)
+    return cols
+
+
+def decimal_table(cols):
+    """numpy columns as the port's table: the money columns decimal(7,2)
+    (their values unscaled), the rest int64."""
+    n = len(cols["ss_item_sk"])
+    ones = np.ones(n, bool)
+    return HostTable({c: HostColumn("decimal", cols[c], ones, DEC_TYPE) if c in DEC_MONEY
+                      else HostColumn("int", cols[c], ones) for c in STORE_SALES}, n)
+
+
+def typed_source(state, n, seed, fresh_base):
+    """An upsert of ``n`` rows: half live keys of ``state``, half fresh from
+    ``fresh_base``; payload from RandomState(seed)."""
+    r = np.random.RandomState(seed)
+    live = state["ss_item_sk"]
+    picks = live[r.choice(len(live), n // 2, replace=False)]
+    fresh = np.arange(fresh_base, fresh_base + n - len(picks), dtype=np.int64)
+    keys = np.concatenate([picks, fresh])
+    r.shuffle(keys)
+    return dict(typed_store_sales(n, r), ss_item_sk=keys)
+
+
+def _phase_steps(card, label, state_check):
+    """A phase's step recorder and its list of steps: ``record`` checks the
+    end state through ``state_check(name)`` (which returns what to print)
+    unless ``check_state=False``."""
+    steps = []
+
+    def record(name, wall_s, delta, detail, check_state=True):
+        what = state_check(name) if check_state else ""
+        steps.append({"step": name, "wall_s": round(wall_s, 3), "launches": delta,
+                      "detail": detail})
+        say(f"{label}: {name} {wall_s:.3f} s wall, {detail}, launches {delta}{what} | {card}")
+
+    return record, steps
+
+
+def run_decimal(dev, workdir, card):
+    """Phase 15a: store_sales(DEC_ROWS) with its money columns decimal(7,2),
+    deletion vectors on: the write, a plan (K1), a read with the residual on
+    the card (K14) that returns the decimal columns, a read whose residual
+    names a decimal (the host: ``scan.device.fallback``), a cold 1M-row
+    MERGE (K8-K10), a DV UPDATE of a decimal by decimal arithmetic (K15), a
+    DV DELETE (K1), a resident MERGE (K11), OPTIMIZE ZORDER BY (K16), a
+    checkpoint with ``writeStatsAsStruct`` read back, and a read of version
+    1; each end state equal to numpy's over the unscaled integers."""
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.exec.parquet import read_nested
+    from delta_tpu_torch.obs.scan_report import last_scan_report
+    from delta_tpu_torch.ops import pruning
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils import telemetry
+
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    torch.cuda.empty_cache()
+    path = os.path.join(workdir, "store_sales_decimal")
+    target = typed_store_sales(DEC_ROWS, np.random.RandomState(7))
+    order = np.argsort(target["ss_item_sk"], kind="stable")
+    state = {c: target[c][order] for c in STORE_SALES}
+    original = state
+    box = {}
+
+    def state_check(name):
+        t = scan_to_table(box["log"].update())
+        check(all(t.column(c).type == DEC_TYPE for c in DEC_MONEY),
+              f"decimal {name}: a money column read as {[t.column(c).type for c in DEC_MONEY]}")
+        same_state(state_of(t), box["state"], f"decimal {name}")
+        return "; end state of %d rows x 8 columns equal to numpy" % len(box["state"]["ss_item_sk"])
+
+    record, steps = _phase_steps(card, "decimal", state_check)
+
+    def merge(name, src, want_route):
+        _, wall_s, delta, phases = upsert(log, name, decimal_table(src), src["ss_item_sk"],
+                                          box["state"]["ss_item_sk"], want_route)
+        return wall_s, delta, phases
+
+    settings = {"delta.tpu.stateCache.devicePlan.mode": "force",
+                "delta.tpu.read.deviceResidual.mode": "force",
+                "delta.tpu.write.targetFileRows": DEC_FILE_ROWS}
+    with conf.set_temporarily(**settings):
+        native.reset_launches()  # -- the decimal phase's path starts here
+        # step 1: the write (version 0), then deletion vectors on (version 1)
+        log = box["log"] = DeltaLog.for_table(path, device=dev)
+        box["state"] = state
+        _, wall_s, delta = timed_step("step 1", lambda: WriteIntoDelta(
+            log, "append", decimal_table(target)).run())
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        table = DeltaTable.for_path(path, device=dev)
+        snap = log.update()
+        schema = {f.name: f.data_type.simple_string() for f in snap.metadata.schema.fields}
+        check(all(schema[c] == "decimal(7,2)" for c in DEC_MONEY), f"step 1: schema {schema}")
+        st = json.loads(snap.all_files[0].stats)
+        check(all(c not in st["minValues"] and st["nullCount"][c] == 0 for c in DEC_MONEY),
+              f"step 1: decimal stats {st}")
+        record("step 1 write", wall_s, delta,
+               f"{len(snap.all_files)} files, {sum(f.size for f in snap.all_files) / 1e6:.1f} MB; "
+               "schema decimal(7,2) x3, stats nullCount only for them")
+
+        # step 2: a plan on the date (K1)
+        pred = "ss_sold_date_sk >= 2451900"
+        plan, wall_s, delta = timed_step(
+            "step 2", lambda: pruning.files_for_scan(log.update(), [parse_predicate(pred)]))
+        check(delta.get("block_cull", 0) >= 1, f"step 2: launches {delta}: K1 not launched")
+        check(len(plan.files) == len(snap.all_files), "step 2: a file pruned that holds the dates")
+        record("step 2 files_for_scan", wall_s, delta, f"{pred}: {len(plan.files)} files kept",
+               check_state=False)
+
+        # step 3: the residual on the card over an integer, the decimals returned
+        pred = "ss_quantity > 50"
+        got, wall_s, delta = timed_step("step 3", lambda: table.to_table(filters=[pred]))
+        rep = last_scan_report()
+        same_state(state_of(got), take_state(state, state["ss_quantity"] > 50), "decimal step 3")
+        check(rep.device_residual == "device" and delta.get("residual_mask", 0) >= 1,
+              f"step 3: K14 did not run ({rep.device_residual}, {delta})")
+        record("step 3 read (K14)", wall_s, delta,
+               f"{pred}: {got.num_rows} rows with the decimal columns, phase_ms {rep.phase_ms}",
+               check_state=False)
+
+        # step 4: a residual on a decimal: the host, as in the JAX package
+        pred = "ss_net_paid > 45.00"
+        fb0 = telemetry.counters("scan.device").get("scan.device.fallback", 0)
+        got, wall_s, delta = timed_step("step 4", lambda: table.to_table(filters=[pred]))
+        fb = telemetry.counters("scan.device").get("scan.device.fallback", 0) - fb0
+        same_state(state_of(got), take_state(state, state["ss_net_paid"] > 4500), "decimal step 4")
+        check(fb >= 1 and delta.get("residual_mask", 0) == 0,
+              f"step 4: the decimal residual did not stay on the host ({fb}, {delta})")
+        record("step 4 read (host)", wall_s, delta,
+               f"{pred}: {got.num_rows} rows, scan.device.fallback +{fb}", check_state=False)
+
+        # step 5: a cold 1M-row upsert setting the decimal columns
+        src = typed_source(state, MERGE_SOURCE, 41, DEC_FRESH["m1"])
+        wall_s, delta, phases = merge("step 5 MERGE (cold)", src, "device-cold")
+        state = box["state"] = reference_upsert(state, src)
+        record("step 5 MERGE (cold)", wall_s, delta, f"phase_ms {phases}")
+
+        # step 6: a DV UPDATE of a decimal by decimal arithmetic: decimal(7,2)
+        # times int64 is decimal(27,2), cast back into decimal(7,2) (no value
+        # here passes 7 digits: 9999 x 99); its candidate files are planned by
+        # the skipping rewrite on the card (K15): the normal leg's threshold
+        # (4,096 files) set to 1 for the table's few files
+        m, wall_s, delta = timed_step("step 6", lambda: table.update(
+            {"ss_net_paid": "ss_sales_price * ss_quantity"}, "ss_store_sk < 50"),
+            {"delta.tpu.device.pruning.minFiles": 1})
+        check(delta.get("expr_eval", 0) >= 1, f"step 6: launches {delta}: K15 not launched")
+        hit = state["ss_store_sk"] < 50
+        check(m["numUpdatedRows"] == int(hit.sum()), f"step 6: metrics {m}")
+        state = {c: v.copy() for c, v in state.items()}
+        state["ss_net_paid"][hit] = state["ss_sales_price"][hit] * state["ss_quantity"][hit]
+        box["state"] = state
+        record("step 6 UPDATE (decimal arithmetic)", wall_s, delta,
+               f"{m['numUpdatedRows']} rows, scanTimeMs {m['scanTimeMs']}, rewriteTimeMs "
+               f"{m['rewriteTimeMs']}")
+
+        # step 7: a DV DELETE (K1)
+        m, wall_s, delta = timed_step("step 7", lambda: table.delete("ss_quantity >= 96"))
+        doomed = state["ss_quantity"] >= 96
+        check(m["numDeletedRows"] == int(doomed.sum()), f"step 7: metrics {m}")
+        check(delta.get("block_cull", 0) >= 1, f"step 7: launches {delta}: K1 not launched")
+        state = box["state"] = take_state(state, ~doomed)
+        record("step 7 DELETE (DV)", wall_s, delta,
+               f"{m['numDeletedRows']} rows, scanTimeMs {m['scanTimeMs']}")
+
+        # step 8: a resident MERGE (K11's advance over steps 6-7)
+        src = typed_source(state, MERGE_SOURCE // 10, 42, DEC_FRESH["m2"])
+        wall_s, delta, phases = merge("step 8 MERGE (resident)", src, "resident")
+        check(delta.get("slab_advance", 0) + delta.get("slab_widen", 0) >= 1,
+              f"step 8: launches {delta}: no K11 advance")
+        state = box["state"] = reference_upsert(state, src)
+        record("step 8 MERGE (resident)", wall_s, delta, f"phase_ms {phases}")
+
+        # step 9: OPTIMIZE ZORDER BY (K16 and its sorts)
+        cmd = OptimizeCommand(log, None, z_order_by=["ss_item_sk", "ss_store_sk"])
+        _, wall_s, delta = timed_step("step 9", cmd.run)
+        check(delta.get("morton", 0) >= 1, f"step 9: launches {delta}: K16 not launched")
+        record("step 9 OPTIMIZE ZORDER BY", wall_s, delta,
+               f"{cmd.metrics['numRemovedFiles']} files into {cmd.metrics['numAddedFiles']}, "
+               f"phase_ms {({k: round(v, 3) for k, v in cmd.phase_ms.items()})}")
+
+        # step 10: a checkpoint with struct stats, read back by a fresh log
+        def checkpoint():
+            set_table_properties(log, {"delta.checkpoint.writeStatsAsStruct": "true"})
+            return log.checkpoint()
+
+        md, wall_s, delta = timed_step("step 10", checkpoint)
+        files = {(f.path, f.size) for f in log.update().all_files}
+        DeltaLog.clear_cache()
+        log = box["log"] = DeltaLog.for_table(path, device=dev)
+        check({(f.path, f.size) for f in log.update().all_files} == files,
+              "step 10: the checkpoint's snapshot differs")
+        cp = os.path.join(path, "_delta_log", filenames.checkpoint_file_single(md.version))
+        _, cols = read_nested(open(cp, "rb").read(), ["add"])
+        sp = cols["add"].field("stats_parsed")
+        leaf = sp.field("minValues").field("ss_net_paid")
+        check(leaf.stype == DEC_TYPE and not leaf.valid.any()
+              and not sp.field("nullCount").field("ss_net_paid").values.any(),
+              "step 10: stats_parsed's decimal leaf")
+        record("step 10 checkpoint (writeStatsAsStruct)", wall_s, delta,
+               f"version {md.version}, {md.size} actions; stats_parsed decimal(7,2) leaves, "
+               "read back by a fresh log")
+        table = DeltaTable.for_path(path, device=dev)
+
+        # step 11: time travel to version 1 (the write, deletion vectors on)
+        got, wall_s, delta = timed_step("step 11", lambda: table.to_table(version=1))
+        same_state(state_of(got), original, "decimal step 11")
+        record("step 11 read version 1", wall_s, delta,
+               f"{got.num_rows} rows equal to the written table", check_state=False)
+        launches = dict(native.launches)  # -- the decimal phase's path ends here
+    say(f"decimal: launches on the decimal phase's path {launches} | {card}")
+    for k in ("block_cull", "slab_sort", "slab_probe", "pair_compact", "residual_mask",
+              "expr_eval", "morton"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the decimal path")
+    check(launches.get("slab_advance", 0) + launches.get("slab_widen", 0) > 0,
+          "K11 was not launched on the decimal path")
+    say(json.dumps({"decimal": steps}))
+    return {"launches": launches, "steps": steps}
+
+
+def nested_columns(ids, seed):
+    """``id`` and the three nested shapes of tests/test_datatypes.py:34-37
+    over ``ids``, drawn from RandomState(seed) in numpy: ``st struct<x
+    int64, y string>`` (5% NULL structs, 5% structs of NULLs), ``arr
+    list<int64>`` of 0-8 elements (5% NULL lists, 5% empty; 5% NULL
+    elements), ``m map<string, int64>`` of 0-4 entries (5% NULL maps, 5%
+    empty; keys k0..k3 in order, 5% NULL values). Returns (HostTable,
+    Python rows keyed by id: the reference)."""
+    from delta_tpu_torch.expr.nested import NCol
+
+    n = len(ids)
+    r = np.random.RandomState(seed)
+    kind = r.randint(0, 20, n)
+    st_valid, st_nulls = kind != 0, kind == 1
+    x = r.randint(-10**6, 10**6, n).astype(np.int64)
+    x_ok = st_valid & ~st_nulls & (r.rand(n) > 0.1)
+    words = np.array([f"y{k}" for k in range(1000)], object)
+    y = words[r.randint(0, 1000, n)]
+    y_ok = st_valid & ~st_nulls & (r.rand(n) > 0.1)
+    y = np.where(y_ok, y, None)
+
+    def listing(max_len, values):
+        kind = r.randint(0, 20, n)
+        count = np.where(kind <= 1, 0, r.randint(0, max_len + 1, n))
+        offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(count, out=offsets[1:])
+        total = int(offsets[-1])
+        return kind != 0, count, offsets, values(total), r.rand(total) > 0.05
+
+    a_valid, a_count, a_offs, a_vals, a_ok = listing(
+        8, lambda t: r.randint(-1000, 1000, t).astype(np.int64))
+    m_valid, m_count, m_offs, m_vals, m_ok = listing(
+        4, lambda t: r.randint(-10**9, 10**9, t).astype(np.int64))
+    m_keys = np.array([f"k{j}" for j in range(4)], object)[
+        np.arange(int(m_offs[-1])) - np.repeat(m_offs[:-1], m_count)]
+    leaf = lambda vals, ok, stype: NCol("leaf", ok, values=vals, stype=stype)
+    st = NCol("struct", st_valid, fields={"x": leaf(np.where(x_ok, x, 0), x_ok, "int64"),
+                                          "y": leaf(y, y_ok, "string")})
+    arr = NCol("list", a_valid, offsets=a_offs,
+               element=leaf(np.where(a_ok, a_vals, 0), a_ok, "int64"))
+    m = NCol("map", m_valid, offsets=m_offs, element=NCol(
+        "struct", np.ones(len(m_keys), bool), fields={
+            "key": leaf(m_keys, np.ones(len(m_keys), bool), "string"),
+            "value": leaf(np.where(m_ok, m_vals, 0), m_ok, "int64")}))
+    table = HostTable({
+        "id": HostColumn("int", np.asarray(ids, np.int64), np.ones(n, bool)),
+        "st": HostColumn("nested", st, st_valid, ("struct", (("x", "int64"), ("y", "string")))),
+        "arr": HostColumn("nested", arr, a_valid, ("list", "int64")),
+        "m": HostColumn("nested", m, m_valid, ("map", "string", "int64"))}, n)
+    # the reference, row by row in Python from the same draws
+    xl, yl = x.tolist(), y.tolist()
+    avl, aol, mvl, mol, mkl = (a_vals.tolist(), a_ok.tolist(), m_vals.tolist(), m_ok.tolist(),
+                               m_keys.tolist())
+    ref = {}
+    for i, key in enumerate(np.asarray(ids).tolist()):
+        s = ({"x": xl[i] if x_ok[i] else None, "y": yl[i]} if st_valid[i] else None)
+        a0, a1 = int(a_offs[i]), int(a_offs[i + 1])
+        a = [avl[j] if aol[j] else None for j in range(a0, a1)] if a_valid[i] else None
+        m0, m1 = int(m_offs[i]), int(m_offs[i + 1])
+        mm = ([(mkl[j], mvl[j] if mol[j] else None) for j in range(m0, m1)]
+              if m_valid[i] else None)
+        ref[key] = {"id": key, "st": s, "arr": a, "m": mm}
+    return table, ref
+
+
+def run_nested(dev, workdir, card):
+    """Phase 15b: a table of ``id`` and struct, list and map columns
+    (NESTED_ROWS rows, deletion vectors on): the write, a MERGE with update
+    * / insert * keyed on ``id`` (K8-K10), a DV DELETE of ``id % 10 = 0``,
+    OPTIMIZE (each step's row counts checked); then the end state read and
+    compared with the Python reference row for row."""
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    torch.cuda.empty_cache()
+    path = os.path.join(workdir, "nested")
+    box = {}
+
+    def state_check(name):
+        t = scan_to_table(box["log"].update())
+        ref = box["ref"]
+        check(t.num_rows == len(ref), f"nested {name}: {t.num_rows} rows, the reference "
+              f"{len(ref)}")
+        got = t.to_pylist()
+        check(all(row == ref.get(row["id"]) for row in got),
+              f"nested {name}: a row differs from the Python reference")
+        return f"; end state of {len(ref)} rows equal to the Python reference row for row"
+
+    record, steps = _phase_steps(card, "nested", state_check)
+    t0 = time.perf_counter()
+    target, ref = nested_columns(np.arange(NESTED_ROWS), 51)
+    say(f"nested: data and its Python reference built in {time.perf_counter() - t0:.1f} s")
+    settings = {"delta.tpu.stateCache.devicePlan.mode": "force",
+                "delta.tpu.write.targetFileRows": NESTED_FILE_ROWS}
+    with conf.set_temporarily(**settings):
+        native.reset_launches()  # -- the nested phase's path starts here
+        log = box["log"] = DeltaLog.for_table(path, device=dev)
+        box["ref"] = ref
+        _, wall_s, delta = timed_step("step 1", lambda: WriteIntoDelta(log, "append", target)
+                                      .run())
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        table = DeltaTable.for_path(path, device=dev)
+        snap = log.update()
+        schema = {f.name: f.data_type.simple_string() for f in snap.metadata.schema.fields}
+        record("step 1 write", wall_s, delta, f"{len(snap.all_files)} files, schema {schema}",
+               check_state=False)
+
+        r = np.random.RandomState(52)
+        ids = np.concatenate([r.choice(NESTED_ROWS, NESTED_SOURCE // 2, replace=False),
+                              np.arange(NESTED_ROWS, NESTED_ROWS + NESTED_SOURCE // 2)])
+        r.shuffle(ids)
+        src, src_ref = nested_columns(ids, 53)
+
+        def run_merge():
+            cmd = MergeIntoCommand(log, src, "t.id = s.id", [MergeClause("update")],
+                                   [MergeClause("insert")], source_alias="s", target_alias="t")
+            cmd.run()
+            return cmd
+
+        cmd, wall_s, delta = timed_step("step 2", run_merge,
+                                        {"delta.tpu.merge.devicePath.mode": "force"})
+        check(cmd._join_path == "device-cold" and not cmd._router.get("reason"),
+              f"step 2: route {cmd._join_path} {cmd._router}")
+        check(cmd.metrics["numTargetRowsUpdated"] == NESTED_SOURCE // 2
+              and cmd.metrics["numTargetRowsInserted"] == NESTED_SOURCE // 2,
+              f"step 2: metrics {cmd.metrics}")
+        ref.update(src_ref)
+        record("step 2 MERGE (update *, insert *)", wall_s, delta,
+               f"phase_ms {({k: round(v, 3) for k, v in cmd.phase_ms.items()})}",
+               check_state=False)
+
+        # step 3: a DV DELETE; ``id % 10`` has no skipping rewrite, so every
+        # file is a candidate and no plan kernel runs (as in the JAX package)
+        m, wall_s, delta = timed_step("step 3", lambda: table.delete("id % 10 = 0"))
+        gone = [k for k in ref if k % 10 == 0]
+        check(m["numDeletedRows"] == len(gone), f"step 3: metrics {m}")
+        for k in gone:
+            del ref[k]
+        record("step 3 DELETE (DV)", wall_s, delta, f"{m['numDeletedRows']} rows",
+               check_state=False)
+
+        cmd = OptimizeCommand(log, None)
+        _, wall_s, delta = timed_step("step 4", cmd.run)
+        check(cmd.metrics["numRemovedFiles"] > 1, f"step 4: metrics {cmd.metrics}")
+        record("step 4 OPTIMIZE", wall_s, delta,
+               f"{cmd.metrics['numRemovedFiles']} files into {cmd.metrics['numAddedFiles']}")
+        launches = dict(native.launches)  # -- the nested phase's path ends here
+    say(f"nested: launches on the nested phase's path {launches} | {card}")
+    for k in ("slab_sort", "slab_probe", "pair_compact"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the nested path")
+    say(json.dumps({"nested": steps}))
+    return {"launches": launches, "steps": steps}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4640,6 +5046,15 @@ def main() -> int:
         for k in kernels:  # phase 14: K1 and the tail apply (6p); K1, K8-K11, K14, K16
             k["launches"] += (pctx["launches"].get(k["name"], 0)
                               + qctx["launches"].get(k["name"], 0))
+        pctx = qctx = None
+        with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+            dectx = run_decimal(dev, workdir, card)
+        lap("15a store_sales in TPC-DS types")
+        nctx = run_nested(dev, workdir, card)
+        lap("15b nested")
+        for k in kernels:  # phase 15: K1, K8-K11, K14, K15, K16; K1, K8-K10
+            k["launches"] += (dectx["launches"].get(k["name"], 0)
+                              + nctx["launches"].get(k["name"], 0))
     say(f"phases (wall s): {laps}, {sum(laps.values()):.1f} s in all | {card}")
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "

@@ -114,7 +114,9 @@ def _coerce_join_keys(t_vals: HostColumn, s_vals: HostColumn) -> Tuple[HostColum
     cast (wrapped or rounded keys fabricate matches). int vs int and
     float vs float compare as they are (the values are int64 and float64
     already); int vs float keeps int64 and maps the float side through an
-    integrality check; a string against anything compares as strings."""
+    integrality check; a string against anything compares as strings; a
+    decimal key joins a decimal key of its own type only, on the host (a
+    decimal key never takes a device lane)."""
     a, b = stored_type(t_vals), stored_type(s_vals)
     if a == b:
         return t_vals, s_vals
@@ -127,6 +129,10 @@ def _coerce_join_keys(t_vals: HostColumn, s_vals: HostColumn) -> Tuple[HostColum
         return _float_to_int64(t_vals), s_vals
     if ka == "str" or kb == "str":
         return cast_column(t_vals, "str", None), cast_column(s_vals, "str", None)
+    if "decimal" in (ka, kb):
+        # Arrow's hash join refuses keys of two types
+        raise ValueError(f"Incompatible data types for corresponding join field keys: {a} "
+                         f"and {b}")
     return t_vals, s_vals
 
 

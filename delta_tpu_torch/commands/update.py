@@ -29,7 +29,7 @@ from delta_tpu_torch.exec import write as write_exec
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr.parser import parse_expression, parse_predicate
 from delta_tpu_torch.expr.vectorized import (
-    HostColumn, HostTable, cast_column, evaluate, stored_type,
+    HostTable, cast_column, evaluate, stored_type, where_column,
 )
 from delta_tpu_torch.protocol.actions import Action
 from delta_tpu_torch.utils import errors
@@ -125,6 +125,5 @@ class UpdateCommand:
             except NotImplementedError:
                 raise errors.update_expression_type_mismatch(
                     name, stored_type(new), stored_type(old)) from None
-            cols[name] = HostColumn(old.kind, np.where(mask, new.values, old.values),
-                                    np.where(mask, new.valid, old.valid), old.type)
+            cols[name] = where_column(mask, new, old)
         return HostTable(cols, table.num_rows)

@@ -11,6 +11,14 @@ length-prefixed one after another and decode value by value (each becomes
 a Python object anyway).
 
 The encoders are the writer's: PLAIN and the hybrid for levels.
+
+DECIMAL values are unscaled integers: :func:`decimal_from_bytes` turns
+big-endian two's complement of any width from 1 to 16 bytes (a
+FIXED_LEN_BYTE_ARRAY page, or BYTE_ARRAY values padded to one width) into
+int64 lanes (at most 8 bytes) or Python ints (wider), and
+:func:`decimal_to_bytes` writes the low ``width`` bytes of each value back,
+as Arrow's Parquet writer does (a value wider than its precision keeps its
+low bytes).
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ __all__ = ["PLAIN", "PLAIN_DICTIONARY", "RLE", "RLE_DICTIONARY",
            "BYTE_STREAM_SPLIT", "ENCODING_NAMES", "BOOLEAN", "INT32", "INT64", "INT96",
            "FLOAT", "DOUBLE", "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY", "TYPE_NAMES",
            "read_varint", "decode_hybrid", "decode_plain", "decode_byte_stream_split",
-           "decode_dictionary_indices", "encode_hybrid_bits", "encode_hybrid", "encode_plain"]
+           "decode_dictionary_indices", "encode_hybrid_bits", "encode_hybrid", "encode_plain",
+           "decode_fixed", "decimal_from_bytes", "decimal_to_bytes", "decimal_width"]
 
 # Encoding (parquet.thrift)
 PLAIN, PLAIN_DICTIONARY, RLE = 0, 2, 3
@@ -151,6 +160,68 @@ def decode_plain(buf, pos: int, end: int, ptype: int, count: int):
     raise EncodingError(f"PLAIN {TYPE_NAMES.get(ptype, ptype)} is not decoded here")
 
 
+def decode_fixed(buf, pos: int, end: int, width: int, count: int) -> np.ndarray:
+    """``count`` PLAIN FIXED_LEN_BYTE_ARRAY values of ``width`` bytes, as a
+    ``(count, width)`` uint8 array."""
+    if pos + count * width > end:
+        raise EncodingError(f"{count} PLAIN FIXED_LEN_BYTE_ARRAY values past the page end")
+    return np.frombuffer(buf, np.uint8, count * width, pos).reshape(count, width)
+
+
+_U64 = (1 << 64) - 1
+
+
+def decimal_from_bytes(raw: np.ndarray, wide: bool) -> np.ndarray:
+    """Big-endian two's complement rows of a ``(n, w)`` uint8 array as
+    unscaled integers: int64 where ``wide`` is False (a wider value keeps
+    its low 8 bytes), else an object array of Python ints."""
+    n, w = raw.shape
+    if w == 0:
+        return np.zeros(n, object if wide else np.int64)
+    neg = raw[:, 0] >= 0x80
+    if w <= 8:
+        pad = np.where(neg, 0xFF, 0).astype(np.uint8)[:, None].repeat(8 - w, 1)
+        lo = np.ascontiguousarray(np.concatenate([pad, raw], 1)).view(">i8").ravel()
+        return lo.astype(object) if wide else lo.astype(np.int64)
+    lo = np.ascontiguousarray(raw[:, w - 8:]).view(">u8").ravel()
+    if not wide:
+        return lo.astype(np.uint64).view(np.int64)
+    hi = decimal_from_bytes(np.ascontiguousarray(raw[:, :w - 8]), False)
+    return hi.astype(object) * (1 << 64) + lo.astype(np.uint64).astype(object)
+
+
+def decimal_width(precision: int) -> int:
+    """The fewest bytes that hold every unscaled value of ``precision``
+    digits (Arrow's FIXED_LEN_BYTE_ARRAY width)."""
+    top = 10 ** precision - 1
+    w = 1
+    while top >= 1 << (8 * w - 1):
+        w += 1
+    return w
+
+
+def decimal_to_bytes(values: np.ndarray, width: int) -> np.ndarray:
+    """Unscaled integers (int64 or Python ints) as a ``(n, width)`` uint8
+    array of big-endian two's complement: each value's low ``width``
+    bytes."""
+    n = len(values)
+    if values.dtype != object:
+        full = np.ascontiguousarray(values.astype(">i8")).view(np.uint8).reshape(n, 8)
+        if width <= 8:
+            return full[:, 8 - width:]
+        sign = np.where(values < 0, 0xFF, 0).astype(np.uint8)[:, None].repeat(width - 8, 1)
+        return np.concatenate([sign, full], 1)
+    lo = np.array([int(v) & _U64 for v in values.tolist()], np.uint64) if n else \
+        np.zeros(0, np.uint64)
+    lo_b = np.ascontiguousarray(lo.astype(">u8")).view(np.uint8).reshape(n, 8)
+    if width <= 8:
+        return lo_b[:, 8 - width:]
+    hi = np.array([(int(v) >> 64) & _U64 for v in values.tolist()], np.uint64) if n else \
+        np.zeros(0, np.uint64)
+    hi_b = np.ascontiguousarray(hi.astype(">u8")).view(np.uint8).reshape(n, 8)
+    return np.concatenate([hi_b[:, 16 - width:], lo_b], 1)
+
+
 def decode_byte_stream_split(buf, pos: int, end: int, ptype: int, count: int) -> np.ndarray:
     """BYTE_STREAM_SPLIT: byte k of every value stored together, stream
     after stream."""
@@ -206,11 +277,14 @@ def encode_hybrid_bits(bits: np.ndarray) -> bytes:
 
 def encode_plain(ptype: int, values) -> bytes:
     """PLAIN bytes of ``values`` (numpy for fixed widths and booleans, a
-    sequence of ``bytes`` for BYTE_ARRAY)."""
+    ``(count, width)`` uint8 array for FIXED_LEN_BYTE_ARRAY, a sequence of
+    ``bytes`` for BYTE_ARRAY)."""
     if ptype in _FIXED:
         return np.ascontiguousarray(values, _FIXED[ptype]).tobytes()
     if ptype == BOOLEAN:
         return np.packbits(np.asarray(values, bool), bitorder="little").tobytes()
+    if ptype == FIXED_LEN_BYTE_ARRAY:  # a (count, width) uint8 array
+        return np.ascontiguousarray(values, np.uint8).tobytes()
     if ptype == BYTE_ARRAY:
         vs: Sequence[bytes] = values
         n = len(vs)

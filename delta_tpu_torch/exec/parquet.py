@@ -19,21 +19,25 @@ package's compressed pages):
 * :func:`json_stat_value`, :func:`collect_stats`, :func:`stats_json`: the
   protocol's per-file stats, with the JAX package's output.
 
-Scope: flat schemas; physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE
-and BYTE_ARRAY; logical types int8/16/32/64, date, timestamp (ms, µs) and
-string/binary; codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW; data
-pages v1 and v2. Anything else — a nested column, FIXED_LEN_BYTE_ARRAY or
-INT96, an unsigned or decimal column, LZ4 (Hadoop framing) or BROTLI, a
-DELTA_* encoding — raises
-``NotImplementedError`` naming the column and what it lacks.
+Scope: flat and nested (struct, list, map) columns; physical types
+BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY;
+logical types int8/16/32/64, date, timestamp (ms, µs), string/binary and
+DECIMAL (stored as INT32, INT64, FIXED_LEN_BYTE_ARRAY or BYTE_ARRAY; the
+writer stores FIXED_LEN_BYTE_ARRAY of the fewest bytes, as ``pyarrow``
+does); codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW; data pages v1
+and v2. Anything else — INT96, an unsigned column, LZ4 (Hadoop framing) or
+BROTLI, a DELTA_* encoding — raises ``NotImplementedError`` naming the
+column and what it lacks.
 
 Columns map to ``HostColumn`` kinds as ``pyarrow`` types map to the JAX
 package's evaluator: integers -> ``int`` (int64 values), floats ->
 ``double`` (float64 values), strings -> ``str``, binary -> ``object``
 (``bytes``), dates -> ``date`` (epoch days), timestamps -> ``ts`` (epoch
-µs), booleans -> ``bool``. ``HostColumn.type`` keeps the stored type
-(``int32``, ``float32``, ...), so a file read and written again keeps its
-schema.
+µs), booleans -> ``bool``, decimals -> ``decimal`` (unscaled integers:
+int64 up to 18 digits, Python ints beyond), a nested column -> ``nested``
+(an ``expr/nested.NCol``, its type the column's spec). ``HostColumn.type``
+keeps the stored type (``int32``, ``float32``, ``decimal128(7, 2)``, ...),
+so a file read and written again keeps its schema.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import numpy as np
 
 from delta_tpu_torch.exec import encodings as enc
 from delta_tpu_torch.exec import lz4, snappy, thrift, zstd
+from delta_tpu_torch.expr.nested import NCol, decimal_ps, decimal_type, leaf_kind, to_decimal
 from delta_tpu_torch.expr.vectorized import DEFAULT_TYPE, HostColumn, HostTable
 from delta_tpu_torch.utils.config import conf
 
@@ -173,7 +178,8 @@ def stats_json(table: HostTable, num_indexed_cols: int = 32) -> str:
 
 # -- column types ----------------------------------------------------------------
 
-#: stored type -> (kind, physical type, LogicalType, ConvertedType)
+#: stored type -> (kind, physical type, LogicalType, ConvertedType); a
+#: decimal's entry is built by :func:`_type_entry`
 _TYPES = {
     "bool": ("bool", enc.BOOLEAN, None, None),
     "int8": ("int", enc.INT32, thrift.LogicalType(INTEGER=thrift.IntType(
@@ -197,6 +203,34 @@ _TYPES = {
 _INT_RANGE = {"int8": 8, "int16": 16, "int32": 32, "int64": 64}
 
 
+def _type_entry(stype: str):
+    """``_TYPES``'s entry of a stored type, a decimal's included (None for
+    an unknown type)."""
+    ps = decimal_ps(stype)
+    if ps is None:
+        return _TYPES.get(stype)
+    return ("decimal", enc.FIXED_LEN_BYTE_ARRAY,
+            thrift.LogicalType(DECIMAL=thrift.DecimalType(scale=ps[1], precision=ps[0])),
+            _DECIMAL)
+
+
+def _leaf_element(name: str, stype: str, repetition: int):
+    """The ``SchemaElement`` the writer gives a leaf of ``stype``."""
+    entry = _type_entry(stype)
+    if entry is None:
+        raise _unsupported(name, f"type {stype!r}")
+    _, ptype, lt, ct = entry
+    ps = decimal_ps(stype)
+    if ps is None:
+        return thrift.SchemaElement(type=ptype, repetition_type=repetition, name=name,
+                                    converted_type=ct, logicalType=lt)
+    if not 1 <= ps[0] <= 38:
+        raise _unsupported(name, f"a DECIMAL of precision {ps[0]}")
+    return thrift.SchemaElement(type=ptype, type_length=enc.decimal_width(ps[0]),
+                                repetition_type=repetition, name=name, converted_type=ct,
+                                logicalType=lt, scale=ps[1], precision=ps[0])
+
+
 def _unsupported(name: str, what: str) -> NotImplementedError:
     return NotImplementedError(f"Parquet column {name!r}: {what} is not supported by the "
                                "port's Parquet codec")
@@ -206,10 +240,16 @@ def _leaf_type(el) -> Tuple[str, int]:
     """(stored type, scale of a timestamp to µs) of a leaf
     ``SchemaElement``; raises for what the codec does not cover."""
     name, pt, lt, ct = el.name, el.type, el.logicalType, el.converted_type
+    if (lt is not None and lt.DECIMAL is not None) or ct == _DECIMAL:
+        if pt not in (enc.INT32, enc.INT64, enc.FIXED_LEN_BYTE_ARRAY, enc.BYTE_ARRAY):
+            raise _unsupported(name, f"a DECIMAL stored as {enc.TYPE_NAMES.get(pt, pt)}")
+        dec = lt.DECIMAL if lt is not None and lt.DECIMAL is not None else el
+        precision, scale = int(dec.precision or 0), int(dec.scale or 0)
+        if not 1 <= precision <= 38:
+            raise _unsupported(name, f"a DECIMAL of precision {precision}")
+        return decimal_type(precision, scale), 1
     if pt in (enc.INT96, enc.FIXED_LEN_BYTE_ARRAY):
         raise _unsupported(name, f"physical type {enc.TYPE_NAMES[pt]}")
-    if (lt is not None and lt.DECIMAL is not None) or ct == _DECIMAL:
-        raise _unsupported(name, "a DECIMAL column")
     if pt == enc.BOOLEAN:
         return "bool", 1
     if pt in (enc.FLOAT, enc.DOUBLE):
@@ -333,8 +373,10 @@ def _decompress(codec: int, raw: bytes, size: int, name: str) -> bytes:
 
 
 def _decode_values(name: str, buf, pos: int, end: int, encoding: int, ptype: int,
-                   count: int, dictionary):
+                   count: int, dictionary, width: int = 0):
     if encoding == enc.PLAIN:
+        if ptype == enc.FIXED_LEN_BYTE_ARRAY:
+            return enc.decode_fixed(buf, pos, end, width, count)
         return enc.decode_plain(buf, pos, end, ptype, count)
     if encoding in (enc.RLE_DICTIONARY, enc.PLAIN_DICTIONARY):
         if dictionary is None:
@@ -344,12 +386,18 @@ def _decode_values(name: str, buf, pos: int, end: int, encoding: int, ptype: int
         if len(idx) and int(idx.max()) >= len(dictionary):
             raise ValueError(f"Parquet column {name!r}: dictionary index out of range")
         return dictionary[idx]
-    if encoding == enc.BYTE_STREAM_SPLIT:
+    if encoding == enc.BYTE_STREAM_SPLIT and ptype != enc.FIXED_LEN_BYTE_ARRAY:
         return enc.decode_byte_stream_split(buf, pos, end, ptype, count)
     if encoding == enc.RLE and ptype == enc.BOOLEAN:
         (n,) = struct.unpack_from("<I", buf, pos)
         return enc.decode_hybrid(buf, pos + 4, pos + 4 + n, 1, count).astype(bool)
     raise _unsupported(name, f"encoding {enc.ENCODING_NAMES.get(encoding, encoding)}")
+
+
+def _dictionary(name: str, page, ptype: int, count: int, width: int):
+    if ptype == enc.FIXED_LEN_BYTE_ARRAY:
+        return enc.decode_fixed(page, 0, len(page), width, count)
+    return _as_array(ptype, enc.decode_plain(page, 0, len(page), ptype, count))
 
 
 def _as_array(ptype: int, vals):
@@ -360,11 +408,18 @@ def _as_array(ptype: int, vals):
     return vals
 
 
+def _empty_dense(ptype: int, width: int):
+    if ptype == enc.FIXED_LEN_BYTE_ARRAY:
+        return np.zeros((0, width), np.uint8)
+    return _as_array(ptype, [])
+
+
 def _read_chunk(f, el, md, num_rows: int):
     """One column chunk: (physical values, valid mask), values zero/None at
     NULL rows."""
     name = el.name
     ptype = md.type
+    width = int(el.type_length or 0)
     optional = el.repetition_type == OPTIONAL
     start = md.dictionary_page_offset if md.dictionary_page_offset else md.data_page_offset
     if md.data_page_offset < start:
@@ -387,8 +442,7 @@ def _read_chunk(f, el, md, num_rows: int):
                 raise _unsupported(name, f"dictionary encoding "
                                    f"{enc.ENCODING_NAMES.get(dh.encoding, dh.encoding)}")
             page = _decompress(md.codec, data[pos:body_end], ph.uncompressed_page_size, name)
-            dictionary = _as_array(ptype, enc.decode_plain(page, 0, len(page), ptype,
-                                                           dh.num_values))
+            dictionary = _dictionary(name, page, ptype, dh.num_values, width)
         elif ph.type == DATA_PAGE:
             dh = ph.data_page_header
             n = dh.num_values
@@ -404,18 +458,19 @@ def _read_chunk(f, el, md, num_rows: int):
             else:
                 valid = np.ones(n, bool)
             k = int(valid.sum())
-            vals = _decode_values(name, page, p, len(page), dh.encoding, ptype, k, dictionary)
+            vals = _decode_values(name, page, p, len(page), dh.encoding, ptype, k, dictionary,
+                                  width)
             values.append(_as_array(ptype, vals))
             valids.append(valid)
             seen += n
         elif ph.type == DATA_PAGE_V2:
             dh = ph.data_page_header_v2
             n = dh.num_values
-            dl, rl = dh.definition_levels_byte_length, dh.repetition_levels_byte_length
-            if rl:
-                raise _unsupported(name, "repetition levels (a nested column)")
+            dl, rl = dh.definition_levels_byte_length, dh.repetition_levels_byte_length or 0
+            # a flat column's repetition levels (if a writer stores any) are
+            # all 0: the definition levels follow them
             if optional:
-                valid = enc.decode_hybrid(data, pos, pos + dl, 1, n).astype(bool)
+                valid = enc.decode_hybrid(data, pos + rl, pos + rl + dl, 1, n).astype(bool)
             else:
                 valid = np.ones(n, bool)
             body = data[pos + dl + rl:body_end]
@@ -425,7 +480,8 @@ def _read_chunk(f, el, md, num_rows: int):
             if k != int(valid.sum()):
                 raise ValueError(f"Parquet column {name!r}: page null count disagrees "
                                  "with its definition levels")
-            vals = _decode_values(name, body, 0, len(body), dh.encoding, ptype, k, dictionary)
+            vals = _decode_values(name, body, 0, len(body), dh.encoding, ptype, k, dictionary,
+                                  width)
             values.append(_as_array(ptype, vals))
             valids.append(valid)
             seen += n
@@ -434,37 +490,72 @@ def _read_chunk(f, el, md, num_rows: int):
     if len(valid) != num_rows:
         raise ValueError(f"Parquet column {name!r}: {len(valid)} values in a row group "
                          f"of {num_rows} rows")
-    dense = np.concatenate(values) if values else _as_array(ptype, [])
+    dense = np.concatenate(values) if values else _empty_dense(ptype, width)
     return dense, valid
 
 
-def _to_column(stype: str, scale: int, chunks: List[Tuple[Any, np.ndarray]]) -> HostColumn:
-    kind = _TYPES[stype][0]
-    valid = np.concatenate([v for _, v in chunks]) if chunks else np.zeros(0, bool)
-    n = len(valid)
+def _decimal_dense(stype: str, ptype: int, dense) -> np.ndarray:
+    """A decimal chunk's physical values as unscaled integers (int64 up to
+    18 digits, else Python ints)."""
+    wide = decimal_ps(stype)[0] > 18
+    if ptype == enc.FIXED_LEN_BYTE_ARRAY:
+        return enc.decimal_from_bytes(np.asarray(dense, np.uint8), wide)
+    if ptype == enc.BYTE_ARRAY:
+        vals = [int.from_bytes(bytes(b), "big", signed=True) for b in np.asarray(dense).tolist()]
+        if wide:
+            out = np.empty(len(vals), object)
+            out[:] = vals
+            return out
+        return np.array([((v + (1 << 63)) % (1 << 64)) - (1 << 63) for v in vals], np.int64)
+    vals = np.asarray(dense).astype(np.int64)
+    return vals.astype(object) if wide else vals
+
+
+def _leaf_values(stype: str, scale: int, dense, present: np.ndarray, ptype: int):
+    """Dense physical values placed at the ``present`` slots."""
+    kind = leaf_kind(stype)
+    n = len(present)
     if kind in ("str", "object"):
         out = np.empty(n, object)
-        dense = [d for d, _ in chunks]
-        if n:
-            flat = np.concatenate(dense)
-            if kind == "str" and flat.dtype.kind == "S":
-                # fixed-width bytes: decode each distinct value once
-                uniq, inv = np.unique(flat, return_inverse=True)
-                flat = np.array([u.decode("utf-8") for u in uniq.tolist()],
-                                object)[inv.ravel()]
-            elif kind == "str":
-                flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
-                                   len(flat))
+        if len(dense):
+            flat = dense
+            if kind == "str":
+                if flat.dtype.kind == "S":
+                    # fixed-width bytes: decode each distinct value once
+                    uniq, inv = np.unique(flat, return_inverse=True)
+                    flat = np.array([u.decode("utf-8") for u in uniq.tolist()],
+                                    object)[inv.ravel()]
+                else:
+                    flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
+                                       len(flat))
             elif flat.dtype.kind == "S":
                 flat = flat.astype(object)
-            out[valid] = flat
-        return HostColumn(kind, out, valid, stype if stype != DEFAULT_TYPE[kind] else None)
+            out[present] = flat
+        return out
+    if kind == "decimal":
+        flat = _decimal_dense(stype, ptype, dense)
+        if flat.dtype == object:
+            out = np.empty(n, object)
+            out.fill(0)
+        else:
+            out = np.zeros(n, np.int64)
+        out[present] = flat
+        return out
     np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
     out = np.zeros(n, np_dt)
-    if n:
-        flat = np.concatenate([np.asarray(d) for d, _ in chunks])
-        out[valid] = flat.astype(np_dt) * scale if scale != 1 else flat
-    return HostColumn(kind, out, valid, stype if stype != DEFAULT_TYPE[kind] else None)
+    if len(dense):
+        flat = np.asarray(dense)
+        out[present] = flat.astype(np_dt) * scale if scale != 1 else flat
+    return out
+
+
+def _to_column(stype: str, scale: int, chunks: List[Tuple[Any, np.ndarray]],
+               ptype: int) -> HostColumn:
+    kind = leaf_kind(stype)
+    valid = np.concatenate([v for _, v in chunks]) if chunks else np.zeros(0, bool)
+    flat = np.concatenate([d for d, _ in chunks]) if chunks else _empty_dense(ptype, 1)
+    vals = _leaf_values(stype, scale, flat, valid, ptype)
+    return HostColumn(kind, vals, valid, stype if stype != DEFAULT_TYPE.get(kind) else None)
 
 
 def column_names(meta) -> List[str]:
@@ -477,7 +568,8 @@ def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None,
                       row_groups: Optional[Sequence[int]] = None, meta=None) -> HostTable:
     """A data file's columns (all, or ``columns`` in the order given) as a
     ``HostTable``: every row group, or those of ``row_groups`` in the order
-    given. ``meta`` is the file's footer where the caller has read it."""
+    given. ``meta`` is the file's footer where the caller has read it. A
+    nested column is a ``nested`` column (Dremel levels, ``expr/nested``)."""
     if meta is None:
         meta = read_metadata(abs_path)
     top = _top_level(meta.schema)
@@ -485,31 +577,66 @@ def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None,
     for c in names:
         if c not in top:
             raise KeyError(f"{abs_path}: no column {c!r} (columns: {list(top)})")
-        el, leaf = top[c]
-        if leaf < 0:
-            raise _unsupported(c, "a nested column")
     cols: Dict[str, HostColumn] = {}
     all_groups = meta.row_groups or []
     groups = all_groups if row_groups is None else [all_groups[i] for i in row_groups]
+    tree = None
     with open(abs_path, "rb") as f:
         for c in names:
             el, leaf = top[c]
+            if leaf < 0:
+                if tree is None:
+                    tree = {node.name: node for node in _schema_tree(meta.schema).children}
+
+                def chunk(md, node, name):
+                    start = (md.dictionary_page_offset if md.dictionary_page_offset
+                             else md.data_page_offset)
+                    start = min(start, md.data_page_offset)
+                    f.seek(start)
+                    return _read_leaf_chunk(f.read(md.total_compressed_size), md, node, name,
+                                            base=start)
+
+                ncol = _read_top(tree[c], groups, chunk)
+                cols[c] = HostColumn("nested", ncol, ncol.valid, _spec_of(ncol, c))
+                continue
             stype, scale = _leaf_type(el)
             chunks = []
             for rg in groups:
                 md = rg.columns[leaf].meta_data
                 chunks.append(_read_chunk(f, el, md, rg.num_rows))
-            cols[c] = _to_column(stype, scale, chunks)
+            cols[c] = _to_column(stype, scale, chunks, el.type)
     n = int(meta.num_rows) if row_groups is None else sum(int(rg.num_rows) for rg in groups)
     return HostTable(cols, n)
+
+
+def _spec_of(col: NCol, name: str):
+    """The spec of a decoded nested column (raises where a leaf could not
+    be decoded)."""
+    if col.kind == "leaf":
+        if col.unsupported:
+            raise _unsupported(*col.unsupported)
+        return col.stype
+    if col.kind == "struct":
+        return ("struct", tuple((k, _spec_of(c, k)) for k, c in col.fields.items()))
+    if col.kind == "list":
+        return ("list", _spec_of(col.element, name))
+    key, value = list(col.element.fields.values())[:2]
+    return ("map", _spec_of(key, name), _spec_of(value, name))
 
 
 def _stat_value(el, ptype: int, raw: bytes) -> Any:
     """One PLAIN-encoded footer statistic as ``pyarrow`` gives it: int,
     float, bool, str for a string column and bytes for a binary one, a
     ``date``, a ``datetime`` (aware in UTC where the column is adjusted to
-    UTC). Raises for a column the codec does not cover."""
+    UTC), a ``Decimal``. Raises for a column the codec does not cover."""
     stype, scale = _leaf_type(el)
+    ps = decimal_ps(stype)
+    if ps is not None:
+        if ptype in (enc.FIXED_LEN_BYTE_ARRAY, enc.BYTE_ARRAY):
+            v = int.from_bytes(bytes(raw), "big", signed=True)
+        else:
+            v = int.from_bytes(bytes(raw), "little", signed=True)
+        return to_decimal(v, ps[1])
     if ptype == enc.BYTE_ARRAY:
         return raw.decode("utf-8") if stype == "string" else bytes(raw)
     if ptype == enc.BOOLEAN:
@@ -558,7 +685,8 @@ def read_parquet_files(abs_paths: Sequence[str],
 
 def _stored_type(name: str, col: HostColumn) -> str:
     if col.type is not None:
-        if col.type not in _TYPES or _TYPES[col.type][0] != col.kind:
+        entry = _type_entry(col.type) if isinstance(col.type, str) else None
+        if entry is None or entry[0] != col.kind:
             raise _unsupported(name, f"type {col.type!r} for a {col.kind} column")
         return col.type
     if col.kind not in DEFAULT_TYPE:
@@ -572,6 +700,8 @@ def _physical(stype: str, kind: str, vals: np.ndarray):
         return [v.encode("utf-8") for v in vals.tolist()]
     if kind == "object":
         return [bytes(v) for v in vals.tolist()]
+    if kind == "decimal":
+        return enc.decimal_to_bytes(vals, enc.decimal_width(decimal_ps(stype)[0]))
     if stype == "float32":
         return vals.astype(np.float32)
     if stype in _INT_RANGE:
@@ -592,13 +722,23 @@ def _stat_bytes(ptype: int, v) -> bytes:
     return enc.encode_plain(ptype, np.asarray([v]))
 
 
-def _chunk_stats(ptype: int, dense, nulls: int):
+def _chunk_stats(ptype: int, stype: str, vals, physical, nulls: int):
+    """A chunk's footer statistics: ``vals`` are its dense values, as the
+    column holds them, ``physical`` the same values as they are encoded. A
+    decimal's bounds are the signed order of its unscaled values."""
     st = thrift.Statistics(null_count=nulls)
-    if ptype == enc.BYTE_ARRAY:
-        if dense:
-            st.min_value, st.max_value = min(dense), max(dense)
-    elif len(dense):
-        vals = dense
+    ps = decimal_ps(stype)
+    if ps is not None:
+        if len(vals):
+            width = enc.decimal_width(ps[0])
+            bounds = np.array([vals.min(), vals.max()], vals.dtype)
+            raw = enc.decimal_to_bytes(bounds, width)
+            st.min_value, st.max_value = raw[0].tobytes(), raw[1].tobytes()
+    elif ptype == enc.BYTE_ARRAY:
+        if physical:
+            st.min_value, st.max_value = min(physical), max(physical)
+    elif len(physical):
+        vals = physical
         if ptype in (enc.FLOAT, enc.DOUBLE):
             vals = vals[~np.isnan(vals)]
         if len(vals):
@@ -612,146 +752,142 @@ def _chunk_stats(ptype: int, dense, nulls: int):
     return st
 
 
-def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
-    """Write one Parquet file; returns (size_bytes, mtime_ms). Every column
-    is OPTIONAL, PLAIN, uncompressed; one data page per column chunk."""
-    names = table.column_names
-    cols = [table.columns[c] for c in names]
-    stypes = [_stored_type(c, col) for c, col in zip(names, cols)]
-    schema = [thrift.SchemaElement(name="schema", num_children=len(names))]
-    for c, st in zip(names, stypes):
-        _, ptype, lt, ct = _TYPES[st]
-        schema.append(thrift.SchemaElement(type=ptype, repetition_type=OPTIONAL, name=c,
-                                           converted_type=ct, logicalType=lt))
-    n = table.num_rows
+class _Leaf:
+    """One column chunk's source: a flat column (``col``: its values and
+    validity are the levels) or a nested leaf shredded into definition and
+    repetition levels (``d``, ``r``: one entry a level, ``dense``: the
+    values at the full definition level)."""
+
+    __slots__ = ("path", "stype", "col", "d", "r", "dense", "max_d", "max_r",
+                 "row_starts", "dense_starts")
+
+    def __init__(self, path, stype, col=None, d=None, r=None, dense=None, max_d=1, max_r=0):
+        self.path, self.stype, self.col = path, stype, col
+        self.d, self.r, self.dense, self.max_d, self.max_r = d, r, dense, max_d, max_r
+        if col is None:
+            self.row_starts = np.concatenate([np.flatnonzero(r == 0), [len(r)]])
+            self.dense_starts = np.concatenate([[0], np.cumsum(d == max_d)])
+
+    def chunk(self, lo: int, hi: int):
+        """Rows ``lo:hi``: (level bytes, dense values, levels, nulls)."""
+        if self.col is not None:
+            valid = np.asarray(self.col.valid[lo:hi], bool)
+            levels = enc.encode_hybrid_bits(valid)
+            return (struct.pack("<I", len(levels)) + levels, self.col.values[lo:hi][valid],
+                    hi - lo, int((~valid).sum()))
+        e0, e1 = int(self.row_starts[lo]), int(self.row_starts[hi])
+        v0, v1 = int(self.dense_starts[e0]), int(self.dense_starts[e1])
+        body = bytearray()
+        if self.max_r:
+            lv = enc.encode_hybrid(self.r[e0:e1], _levels_bits(self.max_r))
+            body += struct.pack("<I", len(lv)) + lv
+        if self.max_d:
+            lv = enc.encode_hybrid(self.d[e0:e1], _levels_bits(self.max_d))
+            body += struct.pack("<I", len(lv)) + lv
+        return bytes(body), self.dense[v0:v1], e1 - e0, (e1 - e0) - (v1 - v0)
+
+
+def _leaves_of(name: str, col: HostColumn, n: int, schema: List[Any]) -> List[_Leaf]:
+    """A top-level column's schema elements (appended to ``schema``) and
+    its chunks' sources."""
+    if col.kind != "nested":
+        stype = _stored_type(name, col)
+        schema.append(_leaf_element(name, stype, OPTIONAL))
+        return [_Leaf([name], stype, col=col)]
+    return _nested_leaves(name, col.type, col.values, n, schema)
+
+
+def _nested_leaves(name: str, spec, ncol: NCol, n: int, schema: List[Any]) -> List[_Leaf]:
+    start = len(schema)
+    _schema_elements(name, spec, schema)
+    shredded: List[Tuple] = []
+    _shred(spec, ncol, n, shredded, name)
+    return [_Leaf(path, stype, d=d, r=r, dense=dense, max_d=md, max_r=mr)
+            for path, (stype, d, r, dense, md, mr) in zip(_leaf_paths(schema[start:]),
+                                                          shredded)]
+
+
+def _write_file(schema: List[Any], leaves: Sequence[_Leaf], num_rows: int, rg_rows: int,
+                stats: bool, version: int) -> bytes:
+    """The file's bytes: PLAIN values, one uncompressed v1 data page a
+    column chunk, row groups of ``rg_rows`` rows cut at record boundaries
+    (repetition level 0), footer statistics where ``stats``."""
     out = bytearray(MAGIC)
     row_groups = []
-    rg_rows = max(int(conf.get("delta.tpu.write.rowGroupRows", ROW_GROUP_ROWS)), 1)
-    for rg_i, lo in enumerate(range(0, n, rg_rows)):
-        hi = min(lo + rg_rows, n)
+    step = max(int(rg_rows), 1)
+    bounds = [(lo, min(lo + step, num_rows)) for lo in range(0, num_rows, step)]
+    if not bounds and version == 1:
+        bounds = [(0, 0)]
+    for rg_i, (lo, hi) in enumerate(bounds):
         chunks = []
         rg_start = len(out)
-        for c, col, st in zip(names, cols, stypes):
-            kind, ptype, _, _ = _TYPES[st]
-            valid = np.asarray(col.valid[lo:hi], bool)
-            dense = _physical(st, kind, col.values[lo:hi][valid])
-            levels = enc.encode_hybrid_bits(valid)
-            body = struct.pack("<I", len(levels)) + levels + enc.encode_plain(ptype, dense)
+        for leaf in leaves:
+            kind, ptype, _, _ = _type_entry(leaf.stype)
+            levels, vals, count, nulls = leaf.chunk(lo, hi)
+            physical = _physical(leaf.stype, kind, vals)
+            body = levels + enc.encode_plain(ptype, physical)
             header = thrift.PageHeader(
                 type=DATA_PAGE, uncompressed_page_size=len(body), compressed_page_size=len(body),
                 data_page_header=thrift.DataPageHeader(
-                    num_values=hi - lo, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
+                    num_values=count, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
                     repetition_level_encoding=enc.RLE)).write()
             offset = len(out)
             out += header
             out += body
             size = len(header) + len(body)
             md = thrift.ColumnMetaData(
-                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=[c],
-                codec=UNCOMPRESSED, num_values=hi - lo, total_uncompressed_size=size,
+                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=leaf.path,
+                codec=UNCOMPRESSED, num_values=count, total_uncompressed_size=size,
                 total_compressed_size=size, data_page_offset=offset,
-                statistics=_chunk_stats(ptype, dense, int((~valid).sum())))
+                statistics=(_chunk_stats(ptype, leaf.stype, vals, physical, nulls)
+                            if stats else None))
             chunks.append(thrift.ColumnChunk(file_offset=offset, meta_data=md))
         total = len(out) - rg_start
         row_groups.append(thrift.RowGroup(columns=chunks, total_byte_size=total,
                                           num_rows=hi - lo, file_offset=rg_start,
                                           total_compressed_size=total, ordinal=rg_i))
     meta = thrift.FileMetaData(
-        version=2, schema=schema, num_rows=n, row_groups=row_groups,
+        version=version, schema=schema, num_rows=num_rows, row_groups=row_groups,
         created_by="delta_tpu_torch parquet writer",
-        column_orders=[thrift.ColumnOrder(TYPE_ORDER=thrift.Empty()) for _ in names])
+        column_orders=[thrift.ColumnOrder(TYPE_ORDER=thrift.Empty()) for _ in leaves])
     footer = meta.write()
     out += footer
     out += struct.pack("<I", len(footer))
     out += MAGIC
+    return bytes(out)
+
+
+def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
+    """Write one Parquet file; returns (size_bytes, mtime_ms). Every column
+    is OPTIONAL, PLAIN, uncompressed; one data page per column chunk; a
+    nested column is written by its levels, its row groups cut at the same
+    rows as the flat columns'."""
+    schema = [thrift.SchemaElement(name="schema", num_children=len(table.columns))]
+    leaves: List[_Leaf] = []
+    for name, col in table.columns.items():
+        leaves.extend(_leaves_of(name, col, table.num_rows, schema))
+    rg_rows = max(int(conf.get("delta.tpu.write.rowGroupRows", ROW_GROUP_ROWS)), 1)
+    data = _write_file(schema, leaves, table.num_rows, rg_rows, stats=True, version=2)
     os.makedirs(os.path.dirname(abs_path) or ".", exist_ok=True)
     tmp = f"{abs_path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
-        f.write(out)
+        f.write(data)
     os.replace(tmp, abs_path)
     st_ = os.stat(abs_path)
     return st_.st_size, int(st_.st_mtime * 1000)
 
 
-# -- nested columns (checkpoints) -------------------------------------------------
+# -- nested columns ---------------------------------------------------------------
 #
 # What ``pyarrow`` does for the JAX package's checkpoint reads and writes
 # (``log/columnar.py:492`` ``decode_checkpoint_parts``, ``log/checkpoints.py:
-# 863-921``): struct, map and list columns by definition and repetition
-# levels (Dremel), vectorised in numpy: a column's levels decode run by run,
-# and the structure (validity, list offsets) of every node on a leaf's path
-# comes from a few masks and searches over them, with no loop over rows.
+# 863-921``) and its nested data columns: struct, map and list columns by
+# definition and repetition levels (Dremel), vectorised in numpy: a column's
+# levels decode run by run, and the structure (validity, list offsets) of
+# every node on a leaf's path comes from a few masks and searches over them,
+# with no loop over rows.
 
 _MAP, _MAP_KEY_VALUE, _LIST = 1, 2, 3
-
-
-class NCol:
-    """A decoded (or to be written) column of ``n`` slots.
-
-    ``kind`` is ``"leaf"`` (``values``: numpy, object for strings and
-    binary, zero or None where invalid; ``stype`` the stored type),
-    ``"struct"`` (``fields``: name -> NCol over the same slots), ``"list"``
-    (``offsets``: int64 ``(n + 1,)``, ``element``: NCol over the elements)
-    or ``"map"`` (as a list, ``element`` a struct whose first field is the
-    key and whose second is the value). ``valid`` is the slot's validity.
-    ``unsupported`` names what the codec lacks where a leaf could not be
-    decoded (its values are then unavailable, its validity is exact)."""
-
-    __slots__ = ("kind", "valid", "values", "stype", "fields", "offsets", "element",
-                 "unsupported")
-
-    def __init__(self, kind, valid, values=None, stype=None, fields=None, offsets=None,
-                 element=None, unsupported=None):
-        self.kind, self.valid, self.values, self.stype = kind, valid, values, stype
-        self.fields, self.offsets, self.element = fields, offsets, element
-        self.unsupported = unsupported
-
-    def __len__(self) -> int:
-        return len(self.valid)
-
-    def field(self, name: str) -> Optional["NCol"]:
-        return self.fields.get(name) if self.kind == "struct" else None
-
-    def to_py(self, rows=None) -> List[Any]:
-        """Python values of the slots (all, or ``rows``): None where
-        invalid, a dict for a struct, a list for a list, a dict for a map
-        (the first of equal keys kept, as ``pyarrow``'s map lookup); dates,
-        timestamps as epoch days, µs."""
-        idx = np.arange(len(self)) if rows is None else np.asarray(rows, np.int64)
-        ok = self.valid[idx]
-        if self.kind == "leaf":
-            if self.unsupported:
-                if ok.any():
-                    raise _unsupported(self.unsupported[0], self.unsupported[1])
-                return [None] * len(idx)
-            vals = self.values[idx].tolist()
-            return [v if k else None for v, k in zip(vals, ok.tolist())]
-        if self.kind == "struct":
-            cols = {k: c.to_py(idx) for k, c in self.fields.items()}
-            names = list(cols)
-            return [({k: cols[k][i] for k in names} if ok[i] else None)
-                    for i in range(len(idx))]
-        lo, hi = self.offsets[idx], self.offsets[idx + 1]
-        flat = self.element.to_py(np.concatenate([np.arange(a, b) for a, b in
-                                                  zip(lo.tolist(), hi.tolist())])
-                                  if len(idx) else np.zeros(0, np.int64))
-        out: List[Any] = []
-        pos = 0
-        for i, k in enumerate(ok.tolist()):
-            m = int(hi[i] - lo[i])
-            part = flat[pos:pos + m]
-            pos += m
-            if not k:
-                out.append(None)
-            elif self.kind == "list":
-                out.append(part)
-            else:
-                keys = list(self.element.fields)
-                d: Dict[Any, Any] = {}
-                for kv in part:
-                    d.setdefault(kv[keys[0]], kv[keys[1]])
-                out.append(d)
-        return out
 
 
 class _SNode:
@@ -790,15 +926,17 @@ def _levels_bits(max_level: int) -> int:
     return max(int(max_level).bit_length(), 0)
 
 
-def _read_leaf_chunk(data, md, node: _SNode, name: str):
+def _read_leaf_chunk(data, md, node: _SNode, name: str, base: int = 0):
     """One leaf's column chunk: (definition levels, repetition levels, the
-    dense values of the entries at the leaf's full definition level)."""
+    dense values of the entries at the leaf's full definition level).
+    ``data`` holds the file's bytes from offset ``base`` on."""
     ptype = md.type
+    width = int(node.el.type_length or 0)
     max_d, max_r = node.d, node.r
     wd, wr = _levels_bits(max_d), _levels_bits(max_r)
     pos = (md.dictionary_page_offset if md.dictionary_page_offset
            else md.data_page_offset)
-    pos = min(pos, md.data_page_offset)
+    pos = min(pos, md.data_page_offset) - base
     end = pos + md.total_compressed_size
     dictionary = None
     defs: List[np.ndarray] = []
@@ -814,8 +952,7 @@ def _read_leaf_chunk(data, md, node: _SNode, name: str):
             dh = ph.dictionary_page_header
             page = _decompress(md.codec, bytes(data[pos:body_end]), ph.uncompressed_page_size,
                                name)
-            dictionary = _as_array(ptype, enc.decode_plain(page, 0, len(page), ptype,
-                                                           dh.num_values))
+            dictionary = _dictionary(name, page, ptype, dh.num_values, width)
         elif ph.type in (DATA_PAGE, DATA_PAGE_V2):
             if ph.type == DATA_PAGE:
                 dh = ph.data_page_header
@@ -847,43 +984,16 @@ def _read_leaf_chunk(data, md, node: _SNode, name: str):
                     body = _decompress(md.codec, body, ph.uncompressed_page_size - dl - rl, name)
                 bp = 0
             k = int((d == max_d).sum())
-            vals = _decode_values(name, body, bp, len(body), dh.encoding, ptype, k, dictionary)
+            vals = _decode_values(name, body, bp, len(body), dh.encoding, ptype, k, dictionary,
+                                  width)
             defs.append(d)
             reps.append(r)
             values.append(_as_array(ptype, vals))
             seen += n
         pos = body_end
     cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
-    dense = np.concatenate(values) if values else _as_array(ptype, [])
+    dense = np.concatenate(values) if values else _empty_dense(ptype, width)
     return cat(defs), cat(reps), dense
-
-
-def _leaf_values(stype: str, scale: int, dense, present: np.ndarray):
-    """Dense physical values placed at the ``present`` slots."""
-    kind = _TYPES[stype][0]
-    n = len(present)
-    if kind in ("str", "object"):
-        out = np.empty(n, object)
-        if len(dense):
-            flat = dense
-            if kind == "str":
-                if flat.dtype.kind == "S":
-                    uniq, inv = np.unique(flat, return_inverse=True)
-                    flat = np.array([u.decode("utf-8") for u in uniq.tolist()],
-                                    object)[inv.ravel()]
-                else:
-                    flat = np.fromiter((b.decode("utf-8") for b in flat.tolist()), object,
-                                       len(flat))
-            elif flat.dtype.kind == "S":
-                flat = flat.astype(object)
-            out[present] = flat
-        return out
-    np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
-    out = np.zeros(n, np_dt)
-    if len(dense):
-        flat = np.asarray(dense)
-        out[present] = flat.astype(np_dt) * scale if scale != 1 else flat
-    return out
 
 
 def _assemble_leaf(node_path: List[_SNode], d: np.ndarray, r: np.ndarray, dense,
@@ -958,7 +1068,35 @@ def _leaf_col(node: _SNode, built, leaf_types) -> NCol:
     if isinstance(stype, NotImplementedError):
         return NCol("leaf", present, unsupported=(node.name, str(stype)))
     st, scale = stype
-    return NCol("leaf", present, values=_leaf_values(st, scale, dense, present), stype=st)
+    return NCol("leaf", present, values=_leaf_values(st, scale, dense, present, node.el.type),
+                stype=st)
+
+
+def _read_top(top: _SNode, groups, chunk) -> NCol:
+    """One top-level column of the row groups ``groups``; ``chunk(md, node,
+    name)`` reads a leaf's chunk (``_read_leaf_chunk``'s triple)."""
+    built: Dict[Any, Any] = {}
+    leaf_types: Dict[int, Any] = {}
+
+    def walk(node, path):
+        path = path + [node]
+        if node.leaf >= 0:
+            try:
+                leaf_types[id(node)] = _leaf_type(node.el)
+            except NotImplementedError as e:
+                leaf_types[id(node)] = e
+            name = ".".join(p.name for p in path)
+            parts = [chunk(rg.columns[node.leaf].meta_data, node, name) for rg in groups]
+            d = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
+            r = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
+            dense = (np.concatenate([p[2] for p in parts]) if parts
+                     else _empty_dense(node.el.type, int(node.el.type_length or 0)))
+            _assemble_leaf(path, d, r, dense, built)
+        for c in node.children:
+            walk(c, path)
+
+    walk(top, [])
+    return _ncol(top, built, leaf_types)
 
 
 def read_nested(data, columns: Optional[Sequence[str]] = None) -> Tuple[int, Dict[str, NCol]]:
@@ -980,51 +1118,25 @@ def read_nested(data, columns: Optional[Sequence[str]] = None) -> Tuple[int, Dic
     want = {c.name: c for c in root.children}
     names = list(want) if columns is None else [c for c in columns if c in want]
     groups = meta.row_groups or []
-    out: Dict[str, NCol] = {}
-    for top in names:
-        built: Dict[Any, Any] = {}
-        leaf_types: Dict[int, Any] = {}
-
-        def walk(node, path):
-            path = path + [node]
-            if node.leaf >= 0:
-                try:
-                    leaf_types[id(node)] = _leaf_type(node.el)
-                except NotImplementedError as e:
-                    leaf_types[id(node)] = e
-                parts = [_read_leaf_chunk(data, rg.columns[node.leaf].meta_data, node,
-                                          ".".join(p.name for p in path))
-                         for rg in groups]
-                d = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
-                r = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
-                dense = (np.concatenate([p[2] for p in parts]) if parts
-                         else _as_array(enc.BYTE_ARRAY, []))
-                _assemble_leaf(path, d, r, dense, built)
-            for c in node.children:
-                walk(c, path)
-
-        walk(want[top], [])
-        out[top] = _ncol(want[top], built, leaf_types)
-    return int(meta.num_rows or 0), out
+    return int(meta.num_rows or 0), {
+        top: _read_top(want[top], groups,
+                       lambda md, node, name: _read_leaf_chunk(data, md, node, name))
+        for top in names}
 
 
 # -- writing nested columns -------------------------------------------------------
 #
-# A column's type for :func:`write_nested`: a stored type of ``_TYPES``
-# (a leaf), ``("struct", [(name, type), ...])``, ``("map", key type, value
-# type)`` or ``("list", element type)``. Every field is OPTIONAL but a map's
-# key (REQUIRED), as ``pyarrow`` writes them: a map is a MAP group over a
-# repeated ``key_value`` group, a list a LIST group over a repeated
-# ``list`` group whose child is ``element``.
+# A column's type for :func:`write_nested`: a stored type of ``_TYPES`` or
+# a decimal (a leaf), ``("struct", [(name, type), ...])``, ``("map", key
+# type, value type)`` or ``("list", element type)``. Every field is OPTIONAL
+# but a map's key (REQUIRED), as ``pyarrow`` writes them: a map is a MAP
+# group over a repeated ``key_value`` group, a list a LIST group over a
+# repeated ``list`` group whose child is ``element``.
 
 
 def _schema_elements(name: str, spec, out: List[Any], repetition=OPTIONAL) -> None:
     if isinstance(spec, str):
-        if spec not in _TYPES:
-            raise _unsupported(name, f"type {spec!r}")
-        _, ptype, lt, ct = _TYPES[spec]
-        out.append(thrift.SchemaElement(type=ptype, repetition_type=repetition, name=name,
-                                        converted_type=ct, logicalType=lt))
+        out.append(_leaf_element(name, spec, repetition))
         return
     kind = spec[0]
     if kind == "struct":
@@ -1109,65 +1221,10 @@ def write_nested(columns: Sequence[Tuple[str, Any, NCol]], num_rows: int,
     pages, the hybrid for levels, row groups of ``row_group_rows`` rows.
     No footer statistics."""
     schema = [thrift.SchemaElement(name="schema", num_children=len(columns))]
-    leaves: List[Tuple[List[str], Tuple]] = []
+    leaves: List[_Leaf] = []
     for name, spec, col in columns:
-        start = len(schema)
-        _schema_elements(name, spec, schema)
-        shredded: List[Tuple] = []
-        _shred(spec, col, num_rows, shredded, name)
-        paths = _leaf_paths(schema[start:])
-        leaves.extend(zip(paths, shredded))
-    out = bytearray(MAGIC)
-    row_groups = []
-    step = max(int(row_group_rows), 1)
-    bounds = [(lo, min(lo + step, num_rows)) for lo in range(0, num_rows, step)] or [(0, 0)]
-    row_starts = [np.concatenate([np.nonzero(r == 0)[0], [len(r)]]) for _, (_, _, r, _, _, _)
-                  in leaves]
-    dense_starts = [np.concatenate([[0], np.cumsum(d == md)]) for _, (_, d, _, _, md, _)
-                    in leaves]
-    for rg_i, (lo, hi) in enumerate(bounds):
-        chunks = []
-        rg_start = len(out)
-        for (path, (stype, d, r, dense, max_d, max_r)), rs, ds in zip(leaves, row_starts,
-                                                                      dense_starts):
-            kind, ptype, _, _ = _TYPES[stype]
-            e0, e1 = int(rs[lo]), int(rs[hi])
-            v0, v1 = int(ds[e0]), int(ds[e1])
-            body = bytearray()
-            if max_r:
-                lv = enc.encode_hybrid(r[e0:e1], _levels_bits(max_r))
-                body += struct.pack("<I", len(lv)) + lv
-            if max_d:
-                lv = enc.encode_hybrid(d[e0:e1], _levels_bits(max_d))
-                body += struct.pack("<I", len(lv)) + lv
-            body += enc.encode_plain(ptype, _physical(stype, kind, dense[v0:v1]))
-            header = thrift.PageHeader(
-                type=DATA_PAGE, uncompressed_page_size=len(body), compressed_page_size=len(body),
-                data_page_header=thrift.DataPageHeader(
-                    num_values=e1 - e0, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
-                    repetition_level_encoding=enc.RLE)).write()
-            offset = len(out)
-            out += header
-            out += body
-            size = len(header) + len(body)
-            md = thrift.ColumnMetaData(
-                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=path,
-                codec=UNCOMPRESSED, num_values=e1 - e0, total_uncompressed_size=size,
-                total_compressed_size=size, data_page_offset=offset)
-            chunks.append(thrift.ColumnChunk(file_offset=offset, meta_data=md))
-        total = len(out) - rg_start
-        row_groups.append(thrift.RowGroup(columns=chunks, total_byte_size=total,
-                                          num_rows=hi - lo, file_offset=rg_start,
-                                          total_compressed_size=total, ordinal=rg_i))
-    meta = thrift.FileMetaData(
-        version=1, schema=schema, num_rows=num_rows, row_groups=row_groups,
-        created_by="delta_tpu_torch parquet writer",
-        column_orders=[thrift.ColumnOrder(TYPE_ORDER=thrift.Empty()) for _ in leaves])
-    footer = meta.write()
-    out += footer
-    out += struct.pack("<I", len(footer))
-    out += MAGIC
-    return bytes(out)
+        leaves.extend(_nested_leaves(name, spec, col, num_rows, schema))
+    return _write_file(schema, leaves, num_rows, row_group_rows, stats=False, version=1)
 
 
 def _leaf_paths(elements: List[Any]) -> List[List[str]]:
@@ -1188,53 +1245,3 @@ def _leaf_paths(elements: List[Any]) -> List[List[str]]:
 
     walk([])
     return paths
-
-
-def ncol_from_py(spec, values: Sequence[Any]) -> NCol:
-    """An NCol of ``spec`` from Python values (None, dicts for structs and
-    maps, lists for lists; epoch days and µs for dates and timestamps)."""
-    n = len(values)
-    valid = np.fromiter((v is not None for v in values), bool, n)
-    if isinstance(spec, str):
-        kind = _TYPES[spec][0]
-        if kind in ("str", "object"):
-            arr = np.empty(n, object)
-            arr[:] = list(values)
-        else:
-            np_dt = {"bool": bool, "double": np.float64}.get(kind, np.int64)
-            arr = np.fromiter((0 if v is None else v for v in values), np_dt, n)
-        return NCol("leaf", valid, values=arr, stype=spec)
-    kind = spec[0]
-    if kind == "struct":
-        return NCol("struct", valid, fields={
-            name: ncol_from_py(cspec, [None if v is None else v.get(name) for v in values])
-            for name, cspec in spec[1]})
-    items: List[Any] = []
-    offs = np.zeros(n + 1, np.int64)
-    for i, v in enumerate(values):
-        if v is not None:
-            items.extend(v.items() if kind == "map" else v)
-        offs[i + 1] = len(items)
-    if kind == "list":
-        return NCol("list", valid, offsets=offs, element=ncol_from_py(spec[1], items))
-    kv = NCol("struct", np.ones(len(items), bool), fields={
-        "key": ncol_from_py(spec[1], [k for k, _ in items]),
-        "value": ncol_from_py(spec[2], [x for _, x in items])})
-    return NCol("map", valid, offsets=offs, element=kv)
-
-
-def embed(col: NCol, rows: np.ndarray, n: int) -> NCol:
-    """``col`` (``len(rows)`` slots) placed at the ascending ``rows`` of
-    ``n`` slots, null elsewhere."""
-    valid = np.zeros(n, bool)
-    valid[rows] = col.valid
-    if col.kind == "leaf":
-        vals = np.empty(n, object) if col.values.dtype == object else np.zeros(n, col.values.dtype)
-        vals[rows] = col.values
-        return NCol("leaf", valid, values=vals, stype=col.stype)
-    if col.kind == "struct":
-        return NCol("struct", valid, fields={k: embed(c, rows, n) for k, c in col.fields.items()})
-    counts = np.zeros(n, np.int64)
-    counts[rows] = np.diff(col.offsets)
-    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    return NCol(col.kind, valid, offsets=offsets, element=col.element)

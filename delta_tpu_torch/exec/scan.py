@@ -38,6 +38,7 @@ import numpy as np
 from delta_tpu_torch.exec import rowgroups
 from delta_tpu_torch.exec.parquet import column_names, read_parquet_file
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr.nested import ncol_from_py
 from delta_tpu_torch.expr.parser import parse_predicate
 from delta_tpu_torch.expr.partition import typed_partition_row
 from delta_tpu_torch.expr.vectorized import (
@@ -63,7 +64,7 @@ def _abs_data_path(data_path: str, file_path: str) -> str:
 def _read_types(schema, names) -> Dict[str, tuple]:
     """(kind, stored type) of each schema field in ``names``: only the
     columns a read touches are typed, so a column type the port cannot
-    decode (struct, list, map, decimal) blocks only the reads that need it."""
+    decode blocks only the reads that need it."""
     out = {}
     for f in schema.fields:
         if f.name not in names:
@@ -96,6 +97,8 @@ def _constant_column(value, kind: str, stype: str, n: int) -> HostColumn:
     elif kind in ("str", "object"):
         v = np.empty(n, object)
         v.fill(value)
+    elif kind == "decimal":
+        return HostColumn(kind, ncol_from_py(stype, [value] * n).values, np.ones(n, bool), stype)
     else:
         v = np.full(n, value, {"bool": bool, "int": np.int64, "double": np.float64}[kind])
     return cast_column(HostColumn(kind, v, np.ones(n, bool)), kind, stype)
@@ -166,7 +169,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
     # skipped, groups device skipped, bytes device skipped, survivor bytes)
     rg_stats: List[tuple] = []
 
-    def _mask_table(t1: HostTable, part_row) -> HostTable:
+    def _mask_table(t1: HostTable, const_row) -> HostTable:
         """``t1`` plus a NULL column for each predicate column the file
         predates and the file's typed partition constants: the table the
         residual filter will see, so the late verdict cannot diverge from
@@ -175,12 +178,12 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             if f.name.lower() in pred_refs and f.name not in t1.columns:
                 kind, stype = declared[f.name]
                 t1 = t1.append_column(
-                    f.name, _constant_column(part_row.get(f.name) if f.name in part_cols
+                    f.name, _constant_column(const_row.get(f.name) if f.name in part_cols
                                              else None, kind, stype, t1.num_rows))
         return t1
 
     def _decode_pruned(abs_path, meta, keep_idx, file_cols, present, need_positions,
-                       part_row):
+                       const_row):
         """Decode only ``keep_idx`` (late-materializing around the predicate
         columns): (table, physical positions or None, late-skipped groups,
         late-skipped bytes)."""
@@ -196,7 +199,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         if keep_idx and late_materialize and refs_covered and pred_cols and rest_cols:
             t1 = read_parquet_file(abs_path, pred_cols, row_groups=keep_idx, meta=meta)
             try:
-                mask = boolean_mask(predicate, _mask_table(t1, part_row))
+                mask = boolean_mask(predicate, _mask_table(t1, const_row))
             except Exception:
                 mask = None  # unevaluable here: keep every group
             if mask is not None:
@@ -258,6 +261,9 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         present = column_names(meta)
         file_cols = [c for c in data_cols if c in present]
         part_row = typed_partition_row(add, part_schema) if part_cols else {}
+        # the materialized constants: decimals exact, not through a float
+        const_row = (typed_partition_row(add, part_schema, exact_decimals=True)
+                     if part_cols else {})
         need_positions = add.deletion_vector is not None or position_column is not None
         t = positions = None
         n_rg = len(meta.row_groups or [])
@@ -277,7 +283,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                 rg_stats.append((n_rg, pruned, 0, skipped_bytes, 0) + dstats)
             elif pruned or late_capable:
                 t, positions, late_n, late_bytes = _decode_pruned(
-                    abs_path, meta, keep_idx, file_cols, present, need_positions, part_row)
+                    abs_path, meta, keep_idx, file_cols, present, need_positions, const_row)
                 rg_stats.append((n_rg, pruned, late_n, skipped_bytes, late_bytes, 0, 0, 0))
             else:
                 rg_stats.append((n_rg, 0, 0, 0, 0, 0, 0, 0))
@@ -305,7 +311,7 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             kind, stype = declared[name]
             col = t.columns.get(name)
             if name in part_cols:
-                cols[name] = _constant_column(part_row.get(name), kind, stype, t.num_rows)
+                cols[name] = _constant_column(const_row.get(name), kind, stype, t.num_rows)
             elif col is None:
                 cols[name] = null_column(t.num_rows, kind, stype)
             elif col.kind != kind or stored_type(col) != stype:

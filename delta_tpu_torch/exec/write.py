@@ -11,9 +11,11 @@ file per chunk through the port's Parquet writer
 return AddFiles carrying the protocol's stats over the first
 ``delta.dataSkippingNumIndexedCols`` data columns. A partition value's
 string is what ``str()`` of Arrow's Python scalar gives (``true``/``false``,
-``1.0``, ``nan``, a date's ISO form, ``2020-01-01 00:00:00``), NULL is
-``__HIVE_DEFAULT_PARTITION__``, and a directory name is Hive-escaped. Files
-become visible only through the commit.
+``1.0``, ``nan``, a date's ISO form, ``2020-01-01 00:00:00``, a decimal's
+digits with its scale kept: ``1.50``, ``1E-7``), NULL is
+``__HIVE_DEFAULT_PARTITION__``, and a directory name is Hive-escaped. A
+nested column cannot partition a table (Arrow sorts none). Files become
+visible only through the commit.
 
 Left out: generated columns, CHECK constraints and the char/varchar write
 semantics each raise ``NotImplementedError``.
@@ -29,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from delta_tpu_torch.exec import parquet as pq_exec
+from delta_tpu_torch.expr.nested import decimal_ps, spec_string, to_decimal
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, cast_column, null_column
 from delta_tpu_torch.protocol.actions import AddFile, Metadata
 from delta_tpu_torch.schema import schema_utils
@@ -106,6 +109,8 @@ def _sort_ranks(col: HostColumn) -> np.ndarray:
     share a rank, as they compare equal."""
     n = len(col.valid)
     valid = np.asarray(col.valid, bool)
+    if col.kind == "nested":
+        raise TypeError(f"Sorting not supported for type {spec_string(col.type)}")
     if col.kind == "double":
         nan = valid & np.isnan(col.values)
     else:
@@ -137,6 +142,8 @@ def _partition_value_str(col: HostColumn, i: int) -> Optional[str]:
     if col.kind == "ts":
         out = str(_EPOCH_TS + _dt.timedelta(microseconds=int(v)))
         return out + "+00:00" if col.type == "timestamp[us, tz=UTC]" else out
+    if col.kind == "decimal":
+        return str(to_decimal(v, decimal_ps(col.type)[1]))
     return str(v)
 
 

@@ -8,20 +8,46 @@ semantics).
 """
 from __future__ import annotations
 
+import decimal
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr.parser import parse_expression
 from delta_tpu_torch.protocol.actions import AddFile
-from delta_tpu_torch.schema.types import DateType, StringType, StructType, TimestampType
+from delta_tpu_torch.schema.types import (
+    DateType, DecimalType, StringType, StructType, TimestampType,
+)
 from delta_tpu_torch.utils.timeparse import iso_to_date, iso_to_naive_utc
 
 __all__ = ["typed_partition_row", "eval_on_file", "matches", "matches_maybe", "filter_files",
            "is_partition_predicate", "split_partition_and_data_predicates"]
 
 
-def typed_partition_row(add: AddFile, partition_schema: StructType) -> Dict[str, Any]:
-    """Partition values cast from their string form to the column types."""
+_EXACT = decimal.Context(prec=80)
+
+
+def _exact_decimal(raw: str, dt: DecimalType) -> Optional[decimal.Decimal]:
+    """``raw`` as an exact ``Decimal``, or NULL where it does not parse or
+    its digits, cut toward zero to ``dt``'s scale, exceed its precision."""
+    try:
+        d = decimal.Decimal(raw.strip())
+    except decimal.InvalidOperation:
+        return None
+    if not d.is_finite():
+        return None
+    unscaled = int(d.scaleb(dt.scale, context=_EXACT).to_integral_value(
+        rounding=decimal.ROUND_DOWN, context=_EXACT))
+    return d if abs(unscaled) < 10 ** dt.precision else None
+
+
+def typed_partition_row(add: AddFile, partition_schema: StructType,
+                        exact_decimals: bool = False) -> Dict[str, Any]:
+    """Partition values cast from their string form to the column types.
+
+    A decimal value is a float, as the predicate evaluator compares it;
+    ``exact_decimals=True`` gives the exact ``Decimal`` instead, for the
+    callers that materialize it as a column (a float keeps about 16
+    digits)."""
     row: Dict[str, Any] = {}
     for f in partition_schema.fields:
         raw: Optional[str] = None
@@ -33,6 +59,8 @@ def typed_partition_row(add: AddFile, partition_schema: StructType) -> Dict[str,
             row[f.name] = None
         elif isinstance(f.data_type, StringType):
             row[f.name] = raw
+        elif exact_decimals and isinstance(f.data_type, DecimalType):
+            row[f.name] = _exact_decimal(raw, f.data_type)
         elif isinstance(f.data_type, (DateType, TimestampType)):
             # natural temporal objects (not the device epoch-int encoding):
             # '2024-05-01'-style literals coerce against them

@@ -26,13 +26,28 @@ they differ from the row evaluator's:
 * a node whose operand types Arrow has no kernel for (or whose cast
   fails) falls back to the row evaluator for that node, as the JAX
   package's visitor does; every node's children are evaluated, so an
-  error anywhere in the tree surfaces.
+  error anywhere in the tree surfaces;
+* a decimal is its unscaled integers (int64 up to 18 digits, Python ints
+  beyond), computed exactly with Arrow's rules: an integer operand is a
+  ``decimal(19, 0)`` (int32 ``(10, 0)``, int16 ``(5, 0)``, int8 ``(3,
+  0)``), ``+``/``-`` give ``(max(p1 - s1, p2 - s2) + max(s1, s2) + 1,
+  max(s1, s2))``, ``*`` ``(p1 + p2 + 1, s1 + s2)``, ``/`` the scale
+  ``max(4, s1 + p2 - s2 + 1)`` (truncated; a decimal divisor of fewer
+  than 19 integer digits takes the row evaluator, as the JAX package's
+  visitor does), a precision past 38 has no kernel (the row evaluator
+  takes the node); against a double, a decimal
+  is a double; a cast to fewer fractional digits truncates toward zero and
+  keeps a value past the precision (the unsafe cast), a double casts by
+  rounding half to even;
+* a nested column (struct, list, map) is carried, compared by nothing:
+  only ``IS [NOT] NULL`` and the table operations read it.
 
 NULL is the validity mask; AND/OR are Kleene.
 """
 from __future__ import annotations
 
 import datetime as _dt
+import decimal as _decimal
 import math
 import re
 from dataclasses import dataclass
@@ -41,14 +56,18 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr import nested as nested_mod
+from delta_tpu_torch.expr.nested import decimal_ps, decimal_type, to_decimal
 from delta_tpu_torch.schema.types import (
-    DateType, DoubleType, FloatType, LongType, StringType,
+    ByteType, DateType, DecimalType, DoubleType, FloatType, IntegerType, LongType, ShortType,
+    StringType,
 )
 from delta_tpu_torch.utils import errors
 
 __all__ = ["HostColumn", "HostTable", "StatsTypeError", "table_from_rows",
            "evaluate", "to_keep_mask", "boolean_mask", "filter_table", "concat_tables",
-           "column_from_values", "cast_column", "null_column", "DEFAULT_TYPE", "stored_type"]
+           "column_from_values", "cast_column", "null_column", "DEFAULT_TYPE", "stored_type",
+           "CastError", "where_column"]
 
 _EPOCH_DAY = _dt.date(1970, 1, 1)
 _EPOCH_TS = _dt.datetime(1970, 1, 1)
@@ -59,6 +78,20 @@ class StatsTypeError(errors.DeltaAnalysisError, TypeError):
     """A stats table column mixes values no single column type holds."""
 
 
+class CastError(NotImplementedError, ValueError):
+    """A cast Arrow refuses (its ``ArrowInvalid``, a ``ValueError``): an
+    integer into a decimal too narrow for the integer type, between nested
+    types. A ``NotImplementedError`` too, so the callers that turn a cast
+    the port lacks into their own error treat it alike."""
+
+
+# the (kind, stored type) of a cast out of a decimal that ``cast_column`` makes
+_CASTS_OUT_OF_DECIMAL = {
+    DoubleType: ("double", None), FloatType: ("double", "float32"), LongType: ("int", None),
+    IntegerType: ("int", "int32"), ShortType: ("int", "int16"), ByteType: ("int", "int8"),
+    StringType: ("str", None)}
+
+
 class _NoKernel(Exception):
     """Arrow would refuse this node (no kernel for the operand types, or a
     cast that fails): the visitor falls back to the row evaluator."""
@@ -67,12 +100,15 @@ class _NoKernel(Exception):
 @dataclass
 class HostColumn:
     """One column: ``kind`` is null | bool | int | double | str | date |
-    ts | object; ``values`` numpy (int64 days for date, int64 µs for ts,
-    object for str/object); ``valid`` True = non-NULL. ``type`` is the
-    stored column type where it is narrower than the kind says (``int8``,
-    ``int16``, ``int32``, ``float32``, ``binary``,
+    ts | object | decimal | nested; ``values`` numpy (int64 days for date,
+    int64 µs for ts, object for str/object, the unscaled integers for a
+    decimal: int64 up to 18 digits, Python ints beyond) or, for a nested
+    column, an ``expr/nested.NCol``; ``valid`` True = non-NULL. ``type`` is
+    the stored column type where it is narrower than the kind says
+    (``int8``, ``int16``, ``int32``, ``float32``, ``binary``,
     ``timestamp[us, tz=UTC]``: see ``exec/parquet``); None takes the kind's
-    widest type."""
+    widest type. A decimal's type is always given (``decimal128(7, 2)``), a
+    nested column's is its spec (``("list", "int64")``)."""
 
     kind: str
     values: np.ndarray
@@ -95,6 +131,7 @@ class _Scalar:
     kind: str
     value: Any  # numpy-compatible value for the kind
     valid: bool
+    type: Optional[str] = None
 
 
 # -- building the table -----------------------------------------------------
@@ -113,6 +150,8 @@ def _value_kind(v: Any) -> str:
         return "ts"
     if isinstance(v, _dt.date):
         return "date"
+    if isinstance(v, _decimal.Decimal):
+        return "decimal"
     return "object"
 
 
@@ -128,9 +167,9 @@ def _infer_kind(values: Sequence[Any]) -> str:
         k = _value_kind(v)
         if kind == "null":
             kind = k
-        elif kind == "int" and k == "double":
-            kind = "double"
-        elif (kind, k) in (("double", "int"), ("date", "ts")) or k == kind:
+        elif kind == "int" and k in ("double", "decimal"):
+            kind = k
+        elif (kind, k) in (("double", "int"), ("date", "ts"), ("decimal", "int")) or k == kind:
             continue
         else:
             break
@@ -147,6 +186,8 @@ def _convert(name: str, kind: str, values: Sequence[Any]) -> HostColumn:
 
     if kind == "null":
         return HostColumn("null", np.zeros(n, np.int64), valid)
+    if kind == "decimal":
+        return _decimal_column(name, values, valid)
     if kind == "object":
         out = np.empty(n, object)
         for i, v in enumerate(values):
@@ -204,6 +245,33 @@ def _convert(name: str, kind: str, values: Sequence[Any]) -> HostColumn:
         else:
             raise bad(v)
     return HostColumn(kind, out, valid)
+
+
+def _decimal_column(name: str, values: Sequence[Any], valid: np.ndarray) -> HostColumn:
+    """Python ``Decimal``s (and ints) as ``pyarrow.array`` types them: the
+    largest scale of any value, and the most integer digits of any value
+    added to it."""
+    scale, int_digits = 0, 1
+    for v in values:
+        if v is None:
+            continue
+        if isinstance(v, bool) or not isinstance(v, (int, _decimal.Decimal)):
+            raise StatsTypeError(f"stats column {name!r}: cannot convert {v!r} to a decimal")
+        if isinstance(v, int):
+            int_digits = max(int_digits, len(str(abs(v))))
+            continue
+        if not v.is_finite():
+            raise StatsTypeError(f"stats column {name!r}: {v} is not a finite decimal")
+        t = v.as_tuple()
+        digits, exp = len(t.digits), t.exponent
+        p, sc = (digits + exp, 0) if exp >= 0 else (max(digits, -exp), -exp)
+        scale = max(scale, sc)
+        int_digits = max(int_digits, p - sc)
+    precision = int_digits + scale
+    if precision > 76:
+        raise StatsTypeError(f"stats column {name!r}: a decimal of {precision} digits")
+    spec = decimal_type(precision, scale)
+    return HostColumn("decimal", nested_mod.ncol_from_py(spec, values).values, valid, spec)
 
 
 def _ts_micros(v: _dt.datetime) -> int:
@@ -287,6 +355,12 @@ def table_from_rows(rows: Sequence[Dict[str, Any]]) -> HostTable:
 
 
 def _to_python(c: HostColumn) -> List[Any]:
+    if c.kind == "nested":
+        return c.values.to_py(typed=True)
+    if c.kind == "decimal":
+        scale = decimal_ps(c.type)[1]
+        return [to_decimal(v, scale) if ok else None
+                for v, ok in zip(c.values.tolist(), c.valid.tolist())]
     out: List[Any] = []
     for v, ok in zip(c.values.tolist(), c.valid.tolist()):
         if not ok:
@@ -309,6 +383,9 @@ def _lit(value: Any) -> _Scalar:
     k = _value_kind(value)
     if k == "int" and not _I64_MIN <= value <= _I64_MAX:
         raise _NoKernel  # no int64 scalar: the row evaluator takes the node
+    if k == "decimal":
+        col = _decimal_column("<literal>", [value], np.ones(1, bool))
+        return _Scalar("decimal", col.values[0], True, col.type)
     if k == "date":
         return _Scalar("date", (value - _EPOCH_DAY).days, True)
     if k == "ts":
@@ -321,10 +398,12 @@ def _arr(v, n: int) -> HostColumn:
         return v
     dtype = {"bool": bool, "int": np.int64, "double": np.float64, "date": np.int64,
              "ts": np.int64, "null": np.int64}.get(v.kind, object)
+    if v.kind == "decimal" and decimal_ps(v.type)[0] <= 18:
+        dtype = np.int64
     vals = np.empty(n, dtype) if dtype is object else np.zeros(n, dtype)
     if v.valid:
         vals[:] = v.value
-    return HostColumn(v.kind, vals, np.full(n, bool(v.valid)))
+    return HostColumn(v.kind, vals, np.full(n, bool(v.valid)), v.type)
 
 
 def _nulls(n: int, kind: str = "null") -> HostColumn:
@@ -447,7 +526,263 @@ _OPS = {
 }
 
 
+# -- decimals ---------------------------------------------------------------
+
+#: (precision, 0) of an integer type cast to a decimal (Arrow's rule)
+_INT_DECIMAL = {"int8": 3, "int16": 5, "int32": 10, "int64": 19, None: 19}
+_POW10 = [10 ** k for k in range(80)]
+
+
+def _decimal_operand(v, n: int):
+    """(unscaled values, valid, precision, scale) of a decimal or integer
+    operand; None for any other kind."""
+    if v.kind == "decimal":
+        p, sc = decimal_ps(v.type)
+    elif v.kind == "int":
+        p, sc = _INT_DECIMAL[v.type if v.type in _INT_DECIMAL else None], 0
+    else:
+        return None
+    vals, valid = _parts(v, n)
+    return vals, valid, p, sc
+
+
+def _widened(vals: np.ndarray, wide: bool) -> np.ndarray:
+    """Unscaled values as Python ints (``wide``) or int64."""
+    if wide:
+        return vals if vals.dtype == object else vals.astype(object)
+    return vals.astype(np.int64) if vals.dtype != object else _wrap64(vals)
+
+
+def _wrap64(vals: np.ndarray) -> np.ndarray:
+    """Python ints to int64, each value's low 64 bits (what a value past
+    an 18-digit decimal's precision keeps in its lane)."""
+    try:
+        return vals.astype(np.int64)  # every value fits: one pass
+    except OverflowError:
+        return np.array([((int(v) + (1 << 63)) & ((1 << 64) - 1)) - (1 << 63)
+                         for v in vals.tolist()], np.int64)
+
+
+def _rescale(vals: np.ndarray, by: int, wide: bool) -> np.ndarray:
+    """Unscaled values moved ``by`` decimal places (down truncates toward
+    zero, as Arrow's unsafe rescale does)."""
+    if by < 0:  # exact first: the quotient may fit int64 where the dividend did not
+        exact = vals.dtype == object or -by > 18
+        return _widened(_trunc_div(_widened(vals, exact), _POW10[-by], exact), wide)
+    vals = _widened(vals, wide)
+    if by > 0:
+        return vals * (_POW10[by] if wide else np.int64(_POW10[by]))
+    return vals
+
+
+def _trunc_div(a: np.ndarray, b, wide: bool) -> np.ndarray:
+    """``a / b`` truncated toward zero, exactly."""
+    if wide:
+        q = np.abs(a) // np.abs(b)
+        neg = (a < 0) != (np.asarray(b) < 0)
+        return np.where(neg, -q, q).astype(object)
+    q = np.abs(a) // np.abs(b)
+    return np.where((a < 0) != (np.asarray(b) < 0), -q, q).astype(np.int64)
+
+
+def _decimal_doubles(vals: np.ndarray, scale: int, dtype=np.float64) -> np.ndarray:
+    """Unscaled values as float64 (or float32), as Arrow's decimal to real
+    cast gives them: a magnitude the real type holds exactly (2^53, 2^24)
+    times ``10 ** -scale``; a larger one split into its whole part plus its
+    fraction times ``10 ** -scale``; each part converted as a 128-bit value
+    (high word times 2^64, plus the low word). Returned as float64."""
+    limit = 1 << (53 if dtype is np.float64 else 24)
+    neg = vals < 0
+    mag = np.where(neg, -vals, vals)
+    small = mag <= limit
+    power = dtype(10.0 ** -scale)
+    out = np.empty(len(vals), dtype)
+    out[small] = _real(mag[small], dtype) * power
+    if not small.all():
+        big = mag[~small]  # // and % (not np.divmod) work on object ints too
+        unit = _POW10[scale] if mag.dtype == object else np.int64(_POW10[scale])
+        whole, frac = big // unit, big % unit
+        out[~small] = _real(whole, dtype) + _real(frac, dtype) * power
+    return np.where(neg, -out, out).astype(np.float64)
+
+
+def _real(mag: np.ndarray, dtype) -> np.ndarray:
+    if mag.dtype != object:
+        return mag.astype(dtype)
+    hi = (mag // (1 << 64)).astype(np.float64).astype(dtype)
+    lo = (mag % (1 << 64)).astype(np.float64).astype(dtype)
+    return hi * dtype(2.0 ** 64) + lo
+
+
+def _as_double(v, n: int):
+    """A numeric or decimal operand as float64 lanes."""
+    if v.kind == "decimal":
+        vals, ok = _parts(v, n)
+        return _decimal_doubles(vals, decimal_ps(v.type)[1]), ok
+    return _as(v, "double", n)
+
+
+def _involves_decimal(l, r) -> bool:
+    return l.kind == "decimal" or r.kind == "decimal"
+
+
+def _decimal_compare(cls, l, r, n: int) -> HostColumn:
+    if "null" in (l.kind, r.kind):
+        return _nulls(n, "bool")
+    if "double" in (l.kind, r.kind):
+        lv, lok = _as_double(l, n)
+        rv, rok = _as_double(r, n)
+    else:
+        a, b = _decimal_operand(l, n), _decimal_operand(r, n)
+        if a is None or b is None:
+            raise _NoKernel
+        sc = max(a[3], b[3])
+        wide = max(a[2] + sc - a[3], b[2] + sc - b[3]) > 18
+        lv, lok = _rescale(a[0], sc - a[3], wide), a[1]
+        rv, rok = _rescale(b[0], sc - b[3], wide), b[1]
+    valid = lok & rok
+    with np.errstate(invalid="ignore"):
+        out = np.asarray(_OPS[cls](lv, rv), bool)
+    return HostColumn("bool", out & valid, valid)
+
+
+def _decimal_arith(cls, l, r, n: int) -> HostColumn:
+    if "null" in (l.kind, r.kind):
+        return _nulls(n)
+    if "double" in (l.kind, r.kind):
+        lv, lok = _as_double(l, n)
+        rv, rok = _as_double(r, n)
+        with np.errstate(all="ignore"):
+            out = {ir.Add: np.add, ir.Sub: np.subtract, ir.Mul: np.multiply}[cls](lv, rv)
+        return HostColumn("double", out, lok & rok)
+    a, b = _decimal_operand(l, n), _decimal_operand(r, n)
+    if a is None or b is None:
+        raise _NoKernel
+    (av, aok, p1, s1), (bv, bok, p2, s2) = a, b
+    if cls is ir.Mul:
+        p, sc = p1 + p2 + 1, s1 + s2
+    else:
+        sc = max(s1, s2)
+        p = max(p1 - s1, p2 - s2) + sc + 1
+    if p > 38:
+        raise _NoKernel  # Arrow: decimal precision out of range
+    wide = p > 18
+    if cls is ir.Mul:
+        out = _widened(av, wide) * _widened(bv, wide)
+    else:
+        x, y = _rescale(av, sc - s1, wide), _rescale(bv, sc - s2, wide)
+        out = x + y if cls is ir.Add else x - y
+    return HostColumn("decimal", out, aok & bok, decimal_type(p, sc))
+
+
+def _decimal_divide(l, r, n: int) -> HostColumn:
+    """Arrow's decimal division (a zero divisor is NULL, as the JAX
+    package's visitor nulls it first)."""
+    if "null" in (l.kind, r.kind):
+        return _nulls(n, "double" if "double" in (l.kind, r.kind) else "null")
+    if "double" in (l.kind, r.kind):
+        lv, lok = _as_double(l, n)
+        rv, rok = _as_double(r, n)
+        rok = rok & (rv != 0)
+        with np.errstate(all="ignore"):
+            out = lv / np.where(rok, rv, 1)
+        return HostColumn("double", out, lok & rok)
+    a, b = _decimal_operand(l, n), _decimal_operand(r, n)
+    if a is None or b is None:
+        raise _NoKernel
+    (av, aok, p1, s1), (bv, bok, p2, s2) = a, b
+    if r.kind == "decimal" and p2 - s2 < 19:
+        # the JAX package's visitor nulls a zero divisor by casting the
+        # literal 0 (an int64) into the divisor's type, which Arrow refuses
+        # for fewer than 19 integer digits: that node takes the row evaluator
+        raise _NoKernel
+    sc = max(4, s1 + p2 - s2 + 1)
+    p = p1 - s1 + s2 + sc
+    if p > 38:
+        raise _NoKernel  # Arrow: decimal precision out of range
+    bok = bok & (bv != 0)
+    wide = True  # the upscaled dividend passes 18 digits at any scale >= 4 past s1
+    num = _rescale(av, sc - s1 + s2, wide)
+    den = _widened(np.where(bok, bv, 1), wide)
+    out = _trunc_div(num, den, wide)
+    return HostColumn("decimal", out if p > 18 else _widened(out, False), aok & bok,
+                      decimal_type(p, sc))
+
+
+def _double_to_unscaled(vals: np.ndarray, precision: int, scale: int) -> np.ndarray:
+    """Arrow's unsafe double to decimal cast: the double's exact binary
+    value at ``scale`` digits, rounded half to even; a value past the
+    precision (or not finite) becomes 0. Vectorised, with the values whose
+    scaled double lies within a few ulps of a half redone exactly."""
+    v = vals.astype(np.float64)
+    top = _POW10[precision]
+    with np.errstate(all="ignore"):
+        y = v * 10.0 ** scale
+        r = np.rint(y)
+        fits = np.isfinite(y) & (np.abs(y) < 2.0 * 10.0 ** precision)
+        near = fits & ((np.abs(np.abs(y - np.trunc(y)) - 0.5) <= 8 * np.spacing(np.abs(y)))
+                       | (scale > 15))  # past 15 digits 10 ** scale is not a double
+    out = np.zeros(len(v), object)
+    out[fits] = r[fits].astype(object)
+    unit = _decimal.Decimal(1).scaleb(-scale)
+    for i in np.flatnonzero(near):
+        d = _decimal.Decimal(float(v[i])).quantize(unit, _decimal.ROUND_HALF_EVEN,
+                                                    context=nested_mod._EXACT)
+        out[i] = int(d.scaleb(scale, context=nested_mod._EXACT))
+    out[fits] = [int(x) if abs(int(x)) < top else 0 for x in out[fits].tolist()]
+    return _widened(out, precision > 18)
+
+
+def _to_decimal_column(col, precision: int, scale: int, n: int) -> HostColumn:
+    """``col`` cast to ``decimal(precision, scale)`` as Arrow's unsafe cast
+    does; raises :class:`CastError` where Arrow raises."""
+    stype = decimal_type(precision, scale)
+    wide = precision > 18
+    vals, valid = _parts(col, n)
+    if col.kind == "null":
+        return null_column(n, "decimal", stype)
+    if col.kind == "decimal":
+        out = _rescale(vals, scale - decimal_ps(col.type)[1], wide)
+    elif col.kind == "int":
+        digits = _INT_DECIMAL[col.type if col.type in _INT_DECIMAL else None]
+        if precision - scale < digits:
+            raise CastError(f"Precision is not great enough for the result. It should be at "
+                            f"least {digits + scale}")
+        out = _rescale(vals, scale, wide)
+    elif col.kind == "double":
+        out = _double_to_unscaled(vals, precision, scale)
+    else:
+        raise CastError(f"casting a {col.kind} column to {stype} is not supported")
+    return HostColumn("decimal", _widened(out, wide), valid.copy(), stype)
+
+
+def _decimal_strings(vals: np.ndarray, valid: np.ndarray, scale: int) -> np.ndarray:
+    out = np.empty(len(vals), object)
+    for i in np.flatnonzero(valid):
+        out[i] = format(to_decimal(vals[i], scale), "f")
+    return out
+
+
+def _decimal_round(vals: np.ndarray, scale: int, mode: str) -> np.ndarray:
+    """Unscaled values rounded to a whole number, kept at ``scale``:
+    ``floor``, ``ceil`` or ``half_even``."""
+    if scale <= 0:
+        return vals
+    wide = vals.dtype == object
+    unit = _POW10[scale] if wide else np.int64(_POW10[scale])
+    q, rem = np.divmod(vals, unit)  # floor division
+    if mode == "ceil":
+        q = q + (rem != 0)
+    elif mode == "half_even":
+        twice = rem * 2
+        q = q + ((twice > unit) | ((twice == unit) & (q % 2 != 0)))
+    out = q * unit
+    return out if wide else out.astype(np.int64)
+
+
 def _compare(cls, l, r, n: int) -> HostColumn:
+    if _involves_decimal(l, r):
+        return _decimal_compare(cls, l, r, n)
     l, r = _numeric_coerce(l, r, n)
     kind = _unify_numeric(l, r, n)
     if kind is None:
@@ -463,6 +798,8 @@ def _compare(cls, l, r, n: int) -> HostColumn:
 
 
 def _arith(cls, l, r, n: int) -> HostColumn:
+    if _involves_decimal(l, r):
+        return _decimal_arith(cls, l, r, n)
     l, r = _numeric_coerce(l, r, n)
     kind = _unify_numeric(l, r, n)
     if kind is None:
@@ -503,8 +840,14 @@ class _Vectorizer:
 
     def _fallback(self, e: ir.Expression) -> HostColumn:
         """Exact-semantics fallback: row-at-a-time eval, typed as
-        ``pyarrow.array`` types the results."""
-        vals = [e.eval(r) for r in self.table.rows()]
+        ``pyarrow.array`` types the results. Only the columns ``e`` names
+        become Python values (all of them where a name resolves to none,
+        so the error lists the table's columns)."""
+        refs = {r.lower() for r in ir.references(e)}
+        names = [c for c in self.table.column_names if c.lower() in refs]
+        rows = (self.table.select(names).rows() if {c.lower() for c in names} == refs
+                else self.table.rows())
+        vals = [e.eval(r) for r in rows]
         return _convert("<row fallback>", _infer_kind(vals), vals)
 
     def visit(self, e: ir.Expression):
@@ -556,7 +899,24 @@ class _Vectorizer:
             return self._fallback(e)
         opts = [o.value for o in e.options]
         vals = [o for o in opts if o is not None]
-        if v.kind in ("int", "double"):
+        if v.kind == "decimal":
+            # the option array takes the column's type: ints and Decimals
+            # whose digits fit it, as ``pa.array(vals, type=...)`` takes them
+            p, sc = decimal_ps(v.type)
+            want = []
+            for o in vals:
+                if isinstance(o, bool) or not isinstance(o, (int, _decimal.Decimal)):
+                    raise _NoKernel
+                u = _decimal.Decimal(o).scaleb(sc, context=nested_mod._EXACT)
+                if u != u.to_integral_value() or abs(u) >= _POW10[p]:
+                    raise _NoKernel
+                want.append(int(u))
+            if v.values.dtype == object:
+                want_set = set(want)
+                found = np.fromiter((x in want_set for x in v.values.tolist()), bool, self.n)
+            else:
+                found = np.isin(v.values, np.array(want, np.int64))
+        elif v.kind in ("int", "double"):
             for o in vals:  # the option array takes the column's type
                 if isinstance(o, bool) or not isinstance(o, (int, float)):
                     raise _NoKernel
@@ -599,6 +959,8 @@ class _Vectorizer:
     def _v_Div(self, e):
         l = self.visit(e.left)
         r = _arr(self.visit(e.right), self.n)
+        if _involves_decimal(l, r):
+            return _decimal_divide(l, r, self.n)
         if r.kind not in ("int", "double", "null") or l.kind not in ("int", "double", "null"):
             raise _NoKernel
         rv, rok = _as(r, "double" if r.kind == "double" else "int", self.n)
@@ -614,11 +976,11 @@ class _Vectorizer:
         c = self.visit(e.child)
         if c.kind == "null":
             return _nulls(self.n)
-        if not _is_num(c.kind):
+        if not _is_num(c.kind) and c.kind != "decimal":
             raise _NoKernel
         v, ok = _parts(c, self.n)
         with np.errstate(all="ignore"):
-            return HostColumn(c.kind, -v, ok)
+            return HostColumn(c.kind, -v, ok, c.type if c.kind == "decimal" else None)
 
     def _v_Cast(self, e):
         c = self.visit(e.child)
@@ -626,6 +988,16 @@ class _Vectorizer:
         v, ok = _parts(c, self.n)
         if c.kind == "null":
             return _nulls(self.n)
+        if isinstance(dt, DecimalType):
+            try:
+                return _to_decimal_column(c, dt.precision, dt.scale, self.n)
+            except CastError:
+                raise _NoKernel from None
+        if c.kind == "decimal":
+            target = _CASTS_OUT_OF_DECIMAL.get(type(dt))
+            if target is None:
+                raise _NoKernel
+            return cast_column(_arr(c, self.n), *target)
         if isinstance(dt, (DoubleType, FloatType)) and _is_num(c.kind):
             out = v.astype(np.float64)
             if isinstance(dt, FloatType):
@@ -676,6 +1048,8 @@ class _Vectorizer:
         kinds = {c.kind for c in cols} - {"null"}
         if not kinds:
             return _nulls(self.n)
+        if "decimal" in kinds:
+            return self._coalesce_decimal(cols, kinds)
         if kinds <= {"int", "double"}:
             kind = "double" if "double" in kinds else "int"
         elif len(kinds) == 1 and next(iter(kinds)) in ("bool", "str", "date", "ts"):
@@ -689,6 +1063,27 @@ class _Vectorizer:
             out = np.where(take, v, out)
             valid |= ok
         return HostColumn(kind, out, valid)
+
+    def _coalesce_decimal(self, cols, kinds):
+        """Decimals (and integers) coalesce in their common decimal type:
+        the largest scale, and the most integer digits added to it."""
+        if not kinds <= {"decimal", "int"}:
+            raise _NoKernel
+        ops = [_decimal_operand(c, self.n) for c in cols if c.kind != "null"]
+        sc = max(o[3] for o in ops)
+        p = max(o[2] - o[3] for o in ops) + sc
+        if p > 38:
+            raise _NoKernel
+        common = [_to_decimal_column(c, p, sc, self.n) if c.kind != "null" else c for c in cols]
+        out = null_column(self.n, "decimal", decimal_type(p, sc))
+        vals, valid = out.values, out.valid
+        for c in common:
+            if c.kind == "null":
+                continue
+            take = c.valid & ~valid
+            vals = np.where(take, c.values, vals)
+            valid = valid | c.valid
+        return HostColumn("decimal", _widened(vals, p > 18), valid, decimal_type(p, sc))
 
     def _v_CaseWhen(self, e):
         result = self.visit(e.children[-1])
@@ -755,10 +1150,23 @@ class _Vectorizer:
             sliced = HostColumn("str", np.array([s[:10] if o else None
                                                  for s, o in zip(v, ok)], object), ok)
             return _str_to_temporal(sliced, "date", self.n)
+        if name == "round" and _round_to_whole(e):
+            c = self.visit(e.children[0])
+            if c.kind == "decimal":  # Arrow's round, half to even, the type kept
+                v, ok = _parts(c, self.n)
+                return HostColumn("decimal", _decimal_round(v, decimal_ps(c.type)[1],
+                                                            "half_even"), ok, c.type)
+            return self._fallback(e)
         if name in ("abs", "floor", "ceil") and len(e.children) == 1:
             c = self.visit(e.children[0])
             if c.kind == "null":
                 return _nulls(self.n)
+            if c.kind == "decimal":
+                v, ok = _parts(c, self.n)
+                scale = decimal_ps(c.type)[1]
+                with np.errstate(all="ignore"):
+                    out = np.abs(v) if name == "abs" else _decimal_round(v, scale, name)
+                return HostColumn("decimal", out, ok, c.type)
             if not _is_num(c.kind):
                 raise _NoKernel
             v, ok = _parts(c, self.n)
@@ -768,6 +1176,16 @@ class _Vectorizer:
             fn = np.floor if name == "floor" else np.ceil
             return HostColumn("double", fn(v.astype(np.float64)), ok)
         return self._fallback(e)  # the exact row semantics
+
+
+def _round_to_whole(e) -> bool:
+    """``round(x)`` or ``round(x, 0)``: the one ``round`` the JAX package's
+    visitor hands to Arrow."""
+    if len(e.children) == 1:
+        return True
+    a = e.children[1]
+    return (len(e.children) == 2 and isinstance(a, ir.Literal) and isinstance(a.value, int)
+            and not isinstance(a.value, bool) and a.value == 0)
 
 
 def _civil(days: np.ndarray):
@@ -839,6 +1257,19 @@ def _concat_columns(cols: Sequence[HostColumn]) -> HostColumn:
         raise StatsTypeError(f"cannot concatenate columns of kinds {sorted(kinds)}")
     kind = kinds.pop()
     types = {c.type for c in cols if c.kind != "null"}
+    if kind in ("decimal", "nested"):
+        if len(types) > 1:
+            raise StatsTypeError(f"cannot concatenate columns of types {sorted(map(str, types))}")
+        stype = types.pop()
+        full = [c if c.kind != "null" else null_column(len(c.valid), kind, stype) for c in cols]
+        if kind == "nested":
+            ncol = nested_mod.concat([c.values for c in full])
+            return HostColumn("nested", ncol, ncol.valid, stype)
+        parts = [c.values for c in full]
+        if any(v.dtype == object for v in parts):
+            parts = [v.astype(object) for v in parts]
+        return HostColumn(kind, np.concatenate(parts), np.concatenate([c.valid for c in full]),
+                          stype)
     parts = [c.values if c.kind != "null" else _nulls(len(c.valid), kind).values for c in cols]
     return HostColumn(kind, np.concatenate(parts), np.concatenate([c.valid for c in cols]),
                       types.pop() if len(types) == 1 else None)
@@ -882,9 +1313,26 @@ def column_from_values(name: str, values) -> HostColumn:
     return _convert(name, _infer_kind(vals), vals)
 
 
-def null_column(n: int, kind: str, stype: Optional[str] = None) -> HostColumn:
+def null_column(n: int, kind: str, stype: Any = None) -> HostColumn:
+    if kind in ("nested", "decimal"):
+        ncol = nested_mod.ncol_nulls(stype, n)
+        return HostColumn(kind, ncol if kind == "nested" else ncol.values, ncol.valid, stype)
     c = _nulls(n, kind)
     return HostColumn(c.kind, c.values, c.valid, stype)
+
+
+def where_column(mask: np.ndarray, new: HostColumn, old: HostColumn) -> HostColumn:
+    """``new`` where ``mask``, else ``old`` (one kind and type), row by
+    row; a nested column is gathered from both."""
+    if old.kind == "nested":
+        n = len(mask)
+        both = nested_mod.concat([old.values, new.values])
+        ncol = both.take(np.where(mask, np.arange(n) + n, np.arange(n)))
+        return HostColumn("nested", ncol, ncol.valid, old.type)
+    vals = np.where(mask, new.values, old.values)
+    if old.kind == "decimal":
+        vals = _widened(vals, decimal_ps(old.type)[0] > 18)
+    return HostColumn(old.kind, vals, np.where(mask, new.valid, old.valid), old.type)
 
 
 _INT_BITS = {"int8": 8, "int16": 16, "int32": 32, None: 64, "int64": 64}
@@ -897,17 +1345,36 @@ def _wrap(vals: np.ndarray, stype: Optional[str]) -> np.ndarray:
     return vals.astype({8: np.int8, 16: np.int16, 32: np.int32}[bits]).astype(np.int64)
 
 
-def cast_column(col: HostColumn, kind: str, stype: Optional[str]) -> HostColumn:
+def cast_column(col: HostColumn, kind: str, stype: Any) -> HostColumn:
     """``col`` cast to (kind, stored type) as Arrow's unsafe cast does:
     integers wrap to the narrower width, doubles truncate toward zero
     (then wrap), a double narrowed to float32 rounds, bools cast to 0/1,
-    numbers to bool by ``!= 0``; a NULL column takes the type. Casts Arrow
-    would make between other kinds raise ``NotImplementedError``."""
+    numbers to bool by ``!= 0``, decimals as the module's docstring says;
+    a NULL column takes the type. Casts Arrow would make between other
+    kinds raise ``NotImplementedError``, those it refuses
+    :class:`CastError`."""
     stype = None if stype == DEFAULT_TYPE.get(kind) else stype
     n = len(col.valid)
     valid = col.valid
     if col.kind == "null":
         return null_column(n, kind, stype)
+    if kind == "decimal":
+        return _to_decimal_column(col, *decimal_ps(stype), n)
+    if kind == "nested" or col.kind == "nested":
+        if col.kind == kind and col.type == stype:
+            return col
+        raise CastError(f"casting a {col.kind} column of type {col.type!r} to {stype!r} is not "
+                        "supported")
+    if col.kind == "decimal":
+        scale = decimal_ps(col.type)[1]
+        if kind == "double":
+            real = np.float32 if stype == "float32" else np.float64
+            return HostColumn("double", _decimal_doubles(col.values, scale, real), valid, stype)
+        if kind == "int":
+            whole = _rescale(col.values, -scale, col.values.dtype == object)
+            return HostColumn("int", _wrap(_widened(whole, False), stype), valid, stype)
+        if kind == "str":
+            return HostColumn("str", _decimal_strings(col.values, valid, scale), valid, None)
     if kind == "int" and col.kind in ("int", "double", "bool"):
         with np.errstate(all="ignore"):
             v = col.values

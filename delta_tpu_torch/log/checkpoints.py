@@ -11,13 +11,15 @@ with struct stats on (:func:`write_stats_as_struct`) also get the V2 typed
 The JAX package has two writers (a columnar one over the segment's columns
 and one over action rows); the port keeps one, over actions, whose rows
 equal both. It writes PLAIN, uncompressed pages (what the port's Parquet
-writer has); a column type that writer lacks (DECIMAL, nested data types)
-raises ``NotImplementedError`` naming it. Parts are written one after
-another; distributed part writes wait for a later slice.
+writer has); a DECIMAL stats leaf is a ``decimal128(p, s)`` column and a
+list or map data column's a list or map column, as ``arrow_type_for`` lays
+them out. Parts are written one after another; distributed part writes
+wait for a later slice.
 """
 from __future__ import annotations
 
 import datetime as _dt
+import decimal
 import json
 import math
 import os
@@ -33,9 +35,10 @@ from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
     Action, AddFile, Metadata, Protocol, RemoveFile, SetTransaction,
 )
+from delta_tpu_torch.expr.nested import NCol, decimal_type, embed, ncol_from_py
 from delta_tpu_torch.schema.types import (
-    BinaryType, BooleanType, ByteType, DataType, DateType, DecimalType, DoubleType, FloatType,
-    IntegerType, LongType, ShortType, StringType, StructType, TimestampType,
+    ArrayType, BinaryType, BooleanType, ByteType, DataType, DateType, DecimalType, DoubleType,
+    FloatType, IntegerType, LongType, MapType, ShortType, StringType, StructType, TimestampType,
 )
 from delta_tpu_torch.storage.logstore import LocalLogStore
 from delta_tpu_torch.utils import errors
@@ -181,7 +184,8 @@ _SCHEMA = [
 
 def _stored(dt: DataType, name: str):
     """The codec's type of a stats or partition leaf (``arrow_type_for``'s
-    layout); raises for what the port's Parquet writer lacks."""
+    layout): a stored type, a decimal's ``decimal128(p, s)``, or the spec of
+    a struct, list or map."""
     for cls, st in ((BooleanType, "bool"), (ByteType, "int8"), (ShortType, "int16"),
                     (IntegerType, "int32"), (LongType, "int64"), (FloatType, "float32"),
                     (DoubleType, "float64"), (StringType, "string"), (DateType, "date32"),
@@ -191,11 +195,14 @@ def _stored(dt: DataType, name: str):
     if isinstance(dt, StructType):
         return ("struct", [(f.name, _stored(f.data_type, f.name)) for f in dt.fields])
     if isinstance(dt, DecimalType):
-        raise NotImplementedError(
-            f"checkpoint column {name!r}: DECIMAL is not written by the port's Parquet writer")
+        return decimal_type(dt.precision, dt.scale)
+    if isinstance(dt, ArrayType):
+        return ("list", _stored(dt.element_type, name))
+    if isinstance(dt, MapType):
+        return ("map", _stored(dt.key_type, name), _stored(dt.value_type, name))
     raise NotImplementedError(
-        f"checkpoint column {name!r}: nested data type {type(dt).__name__} is not written by "
-        "the port's Parquet writer")
+        f"checkpoint column {name!r}: data type {type(dt).__name__} is not written by the "
+        "port's Parquet writer")
 
 
 def _null_count_spec(dt: DataType):
@@ -304,6 +311,8 @@ def _v2(actions: Sequence[Action]):
             return (iso_to_date(str(v)) - _EPOCH_DAY).days
         if isinstance(dt, TimestampType):
             return (iso_to_naive_utc(str(v)) - _EPOCH_TS) // _dt.timedelta(microseconds=1)
+        if isinstance(dt, DecimalType):  # a JSON number's shortest digits
+            return decimal.Decimal(str(v))
         return v
 
     def null_count(v, dt):
@@ -327,11 +336,11 @@ def _v2(actions: Sequence[Action]):
                 out.append(None)
         return out
 
-    def build(adds: Sequence[AddFile]) -> Dict[str, pq.NCol]:
-        cols: Dict[str, pq.NCol] = {}
+    def build(adds: Sequence[AddFile]) -> Dict[str, NCol]:
+        cols: Dict[str, NCol] = {}
         if typed_pcols:
-            rows = [typed_partition_row(a, part_schema) for a in adds]
-            cols["partitionValues_parsed"] = pq.ncol_from_py(
+            rows = [typed_partition_row(a, part_schema, exact_decimals=True) for a in adds]
+            cols["partitionValues_parsed"] = ncol_from_py(
                 specs["partitionValues_parsed"], [_typed(specs["partitionValues_parsed"], r)
                                                   for r in rows])
         if not data_fields:
@@ -347,19 +356,19 @@ def _v2(actions: Sequence[Action]):
                 col = [x.get(f.name) for x in sub]
                 if key == "nullCount":
                     col = [null_count(v, f.data_type) for v in col]
-                elif isinstance(f.data_type, (DateType, TimestampType, StructType)):
+                elif isinstance(f.data_type, (DateType, TimestampType, DecimalType, StructType)):
                     col = [coerce(v, f.data_type) for v in col]
                 leaves[key][f.name] = col
         k = len(adds)
         ones = np.ones(k, bool)
         sp = specs["stats_parsed"][1]
-        fields = {"numRecords": pq.ncol_from_py("int64", [
+        fields = {"numRecords": ncol_from_py("int64", [
             v if isinstance(v, int) and not isinstance(v, bool) else
             (int(v) if isinstance(v, float) else None) for v in nr])}
         for key, spec in sp[1:]:
-            fields[key] = pq.NCol("struct", ones.copy(), fields={
-                name: pq.ncol_from_py(cspec, leaves[key][name]) for name, cspec in spec[1]})
-        cols["stats_parsed"] = pq.NCol("struct", ones.copy(), fields=fields)
+            fields[key] = NCol("struct", ones.copy(), fields={
+                name: ncol_from_py(cspec, leaves[key][name]) for name, cspec in spec[1]})
+        cols["stats_parsed"] = NCol("struct", ones.copy(), fields=fields)
         return cols
 
     return extra, build
@@ -369,22 +378,22 @@ def _dv_row(dv):
     return None if dv is None else {k: dv.get(k) for k, _ in _DV[1]}
 
 
-def _adds_ncol(adds: Sequence[AddFile], spec, build) -> pq.NCol:
+def _adds_ncol(adds: Sequence[AddFile], spec, build) -> NCol:
     """The ``add`` struct over ``adds``, column by column."""
     k = len(adds)
     fields = {
-        "path": pq.ncol_from_py("string", [a.path for a in adds]),
-        "partitionValues": pq.ncol_from_py(_STR_MAP, [a.partition_values for a in adds]),
-        "size": pq.ncol_from_py("int64", [a.size for a in adds]),
-        "modificationTime": pq.ncol_from_py("int64", [a.modification_time for a in adds]),
-        "dataChange": pq.ncol_from_py("bool", [a.data_change for a in adds]),
-        "stats": pq.ncol_from_py("string", [a.stats for a in adds]),
-        "tags": pq.ncol_from_py(_STR_MAP, [a.tags for a in adds]),
-        "deletionVector": pq.ncol_from_py(_DV, [_dv_row(a.deletion_vector) for a in adds]),
+        "path": ncol_from_py("string", [a.path for a in adds]),
+        "partitionValues": ncol_from_py(_STR_MAP, [a.partition_values for a in adds]),
+        "size": ncol_from_py("int64", [a.size for a in adds]),
+        "modificationTime": ncol_from_py("int64", [a.modification_time for a in adds]),
+        "dataChange": ncol_from_py("bool", [a.data_change for a in adds]),
+        "stats": ncol_from_py("string", [a.stats for a in adds]),
+        "tags": ncol_from_py(_STR_MAP, [a.tags for a in adds]),
+        "deletionVector": ncol_from_py(_DV, [_dv_row(a.deletion_vector) for a in adds]),
     }
     if build is not None:
         fields.update(build(adds))
-    return pq.NCol("struct", np.ones(k, bool), fields={name: fields[name] for name, _ in spec[1]})
+    return NCol("struct", np.ones(k, bool), fields={name: fields[name] for name, _ in spec[1]})
 
 
 def _part_bytes(acts: Sequence[Action], schema, v2_build) -> bytes:
@@ -401,8 +410,8 @@ def _part_bytes(acts: Sequence[Action], schema, v2_build) -> bytes:
         if name == "add":
             col = _adds_ncol(picked, spec, v2_build)
         else:
-            col = pq.ncol_from_py(spec, [a.to_dict() for a in picked])
-        cols.append((name, spec, pq.embed(col, rows, n)))
+            col = ncol_from_py(spec, [a.to_dict() for a in picked])
+        cols.append((name, spec, embed(col, rows, n)))
     return pq.write_nested(cols, n)
 
 

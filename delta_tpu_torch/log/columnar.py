@@ -28,6 +28,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from delta_tpu_torch.exec import parquet as pq
+from delta_tpu_torch.expr.nested import NCol
 from delta_tpu_torch.log.checkpoints import row_to_action
 from delta_tpu_torch.protocol.actions import (
     Action, Metadata, Protocol, SetTransaction, action_from_dict,
@@ -64,7 +65,7 @@ class StatsParsed:
                 tuple((k, tuple(v)) for k, v in self.fields.items()))
 
     @staticmethod
-    def of(col: Optional[pq.NCol], rows: np.ndarray) -> Optional["StatsParsed"]:
+    def of(col: Optional[NCol], rows: np.ndarray) -> Optional["StatsParsed"]:
         """From a decoded ``stats_parsed`` struct column, at ``rows``."""
         if col is None or col.kind != "struct":
             return None
@@ -129,7 +130,7 @@ class SegmentColumns:
     #: the checkpoint parts' decoded add/remove columns, for materializing
     #: their rows: (first row, the part's table row of each of its rows,
     #: add NCol, remove NCol)
-    ckpt_batches: List[Tuple[int, np.ndarray, Optional[pq.NCol], Optional[pq.NCol]]] = \
+    ckpt_batches: List[Tuple[int, np.ndarray, Optional[NCol], Optional[NCol]]] = \
         field(default_factory=list)
     #: ``add.stats_parsed`` aligned with the rows (null on JSON rows), or
     #: None where no checkpoint part carries it (or the parts disagree)
@@ -278,20 +279,20 @@ def _int(v) -> int:
     return int(v) if isinstance(v, (int, float)) and not isinstance(v, bool) else 0
 
 
-def _strings(col: Optional[pq.NCol], rows: np.ndarray) -> List[Optional[str]]:
+def _strings(col: Optional[NCol], rows: np.ndarray) -> List[Optional[str]]:
     if col is None:
         return [None] * len(rows)
     vals = col.values[rows].tolist()
     return [v if ok else None for v, ok in zip(vals, col.valid[rows].tolist())]
 
 
-def _ints(col: Optional[pq.NCol], rows: np.ndarray) -> np.ndarray:
+def _ints(col: Optional[NCol], rows: np.ndarray) -> np.ndarray:
     if col is None or col.kind != "leaf":
         return np.zeros(len(rows), np.int64)
     return np.where(col.valid[rows], col.values[rows], 0).astype(np.int64)
 
 
-def _partition_dicts(col: Optional[pq.NCol], rows: np.ndarray, is_add: np.ndarray):
+def _partition_dicts(col: Optional[NCol], rows: np.ndarray, is_add: np.ndarray):
     """The adds' ``partitionValues`` maps at ``rows`` as dicts (the shared
     empty map where one is empty, None where absent); None for removes."""
     n = len(rows)

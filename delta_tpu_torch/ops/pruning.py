@@ -36,14 +36,15 @@ from delta_tpu_torch.expr import synthesis
 from delta_tpu_torch.ops import state_export
 from delta_tpu_torch.protocol.actions import AddFile, Metadata
 from delta_tpu_torch.schema.types import DoubleType, FloatType
+from delta_tpu_torch.utils.config import conf
 
 __all__ = ["DataSize", "DeltaScan", "skipping_predicate", "ConjunctRewrite",
            "conjunct_rewrites", "schema_types", "prune_files", "files_for_scan",
            "DEVICE_PRUNING_MIN_FILES"]
 
 #: From this many candidate files the skipping predicate evaluates on the
-#: card; below it the host evaluator finishes first (the JAX package's
-#: ``delta.tpu.device.pruning.minFiles`` default).
+#: card; below it the host evaluator finishes first (the default of
+#: ``delta.tpu.device.pruning.minFiles``, as in the JAX package).
 DEVICE_PRUNING_MIN_FILES = 4096
 
 schema_types = synthesis.schema_types
@@ -305,7 +306,7 @@ def prune_files(files: Sequence[AddFile], metadata: Metadata,
     rewrites = conjunct_rewrites(list(data_filters), pcols, schema_types(metadata))
     pred = ir.and_all([r.rewritten for r in rewrites])
     keep: Optional[np.ndarray] = None
-    if len(files) >= DEVICE_PRUNING_MIN_FILES:
+    if len(files) >= int(conf.get("delta.tpu.device.pruning.minFiles", DEVICE_PRUNING_MIN_FILES)):
         keep = _prune_device(state_export.files_to_arrays(files, metadata), pred, device)
     if keep is None:
         keep = _prune_host(files, metadata, pred)

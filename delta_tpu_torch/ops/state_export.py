@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from delta_tpu_torch.expr.nested import decimal_ps
 from delta_tpu_torch.protocol.actions import Action, AddFile, Metadata, RemoveFile
 from delta_tpu_torch.schema.types import (
     ByteType, DataType, DateType, DoubleType, FloatType, IntegerType, LongType,
@@ -269,8 +270,9 @@ def _typed_lane(values: np.ndarray, valid: np.ndarray, stype: str, prefix: bool,
     the JAX package's ``_numeric_to_lane`` / ``_temporal_to_lane`` /
     ``_string_prefix_lanes`` give it: integers beyond 2^53 missing, dates
     as epoch days, timestamps as epoch µs, strings as the 6-byte prefix
-    lane where the column asks for one; None where it gives none."""
-    if stype is None:
+    lane where the column asks for one; None where it gives none (a
+    decimal, as Arrow's decimal is neither an integer nor a float there)."""
+    if stype is None or decimal_ps(stype) is not None:
         return None
     if stype in ("string",):
         if not prefix:

@@ -388,6 +388,25 @@ def partition_column_not_found(column: str, schema_str: str) -> DeltaAnalysisErr
     return DeltaAnalysisError(f"Partition column `{column}` not found in schema {schema_str}")
 
 
+def decimal_merge_mismatch(cur_precision: int, new_precision: int, cur_scale: int,
+                           new_scale: int) -> SchemaMismatchError:
+    """Two decimal types of another precision or scale do not merge."""
+    if cur_precision != new_precision and cur_scale != new_scale:
+        return SchemaMismatchError(
+            f"Failed to merge decimal types with incompatible precision {cur_precision} and "
+            f"{new_precision} & scale {cur_scale} and {new_scale}")
+    if cur_precision != new_precision:
+        return SchemaMismatchError(f"Failed to merge decimal types with incompatible precision "
+                                   f"{cur_precision} and {new_precision}")
+    return SchemaMismatchError(f"Failed to merge decimal types with incompatible scale "
+                               f"{cur_scale} and {new_scale}")
+
+
+def generated_column_type_change(name: str, data_type: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Column {name} is a generated column or a column used by a "
+                              f"generated column; its data type {data_type} cannot be changed.")
+
+
 def duplicate_columns(context: str, first: str, second: str) -> DeltaAnalysisError:
     return DeltaAnalysisError(f"Found duplicate column(s) {context}: {first}, {second}")
 

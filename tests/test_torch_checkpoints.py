@@ -252,13 +252,31 @@ def test_string_stats_with_iso_date_literals_round_trip_verbatim(tmp_path):
 
 
 def test_decimal_struct_stats_raise_naming_the_type(tmp_path):
+    """Once a refusal, now the feature: a DECIMAL stats leaf under
+    ``writeStatsAsStruct`` checkpoints in both packages to equal Parquet
+    rows, and each package reads either package's checkpoint to the same
+    snapshot (files, schema and rows)."""
     import decimal
 
-    src = str(tmp_path / "t")
-    _jax_table(src, pa.table({"m": pa.array([decimal.Decimal("1.50")], pa.decimal128(5, 2))}),
-               configuration={"delta.checkpoint.writeStatsAsStruct": "true"})
-    with pytest.raises(NotImplementedError, match="DECIMAL"):
-        _open("torch", src).checkpoint()
+    from tests.torch_dml_tables import rows as table_rows
+
+    out = _checkpoint_both(tmp_path, lambda p: _jax_table(p, pa.table(
+        {"m": pa.array([decimal.Decimal("1.50")], pa.decimal128(5, 2))}),
+        configuration={"delta.checkpoint.writeStatsAsStruct": "true"}))
+    assert _rows(out["torch"][0]) == _rows(out["jax"][0])
+    [add] = [r["add"] for r in _rows(out["torch"][0]) if r["add"]]
+    assert add["stats_parsed"]["minValues"]["m"] is None
+    assert add["stats_parsed"]["nullCount"]["m"] == 0
+    for copy in ("jax", "torch"):
+        path = str(tmp_path / copy)
+        JaxDeltaLog.clear_cache()
+        TorchDeltaLog.clear_cache()
+        snaps = {pkg: _open(pkg, path).update() for pkg in ("jax", "torch")}
+        assert ({(f.path, f.size, f.stats) for f in snaps["torch"].all_files}
+                == {(f.path, f.size, f.stats) for f in snaps["jax"].all_files})
+        assert snaps["torch"].metadata.schema_string == snaps["jax"].metadata.schema_string
+        assert (table_rows("torch", path) == table_rows("jax", path)
+                == [{"m": decimal.Decimal("1.50")}])
 
 
 # -- tests/test_format_compat.py's checkpoint cases --------------------------------

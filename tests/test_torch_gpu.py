@@ -1665,3 +1665,96 @@ def test_partitioned_write_read_merge_on_the_card_match_the_cpu(cuda, tmp_path):
     assert {k: v for k, v in out["card"][2].items() if not k.endswith("TimeMs")} == \
         {k: v for k, v in out["cpu"][2].items() if not k.endswith("TimeMs")}
     assert out["card"][3] == out["cpu"][3] and out["card"][4] == out["cpu"][4] == "device-cold"
+
+
+def test_decimal_store_sales_read_and_merge_on_the_card_match_the_cpu(cuda, tmp_path):
+    """store_sales with its money columns decimal(7,2) (40,000 rows in 4
+    files, deletion vectors on): a read with the residual on the card (K14)
+    that returns the decimal columns, a read whose residual names a decimal
+    (the host), a MERGE on the key slab setting the decimals (K8-K10) and a
+    DV UPDATE of a decimal by decimal arithmetic, on the card and on the
+    CPU: the same unscaled values and metrics."""
+    import chip_smoke
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.config import conf
+
+    n = 40_000
+    target = chip_smoke.typed_store_sales(n, np.random.RandomState(7))
+    src = chip_smoke.typed_store_sales(4_000, np.random.RandomState(8))
+    src["ss_item_sk"][:2000] = target["ss_item_sk"][:2000]
+    src["ss_item_sk"][2000:] += 10 * n
+    out = {}
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        path = str(tmp_path / name)
+        log = DeltaLog.for_table(path, device=dev)
+        with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": 10_000}):
+            WriteIntoDelta(log, "append", chip_smoke.decimal_table(target)).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        table = DeltaTable.for_path(path, device=dev)
+        settings = {"delta.tpu.read.deviceResidual.mode": "force",
+                    "delta.tpu.merge.devicePath.mode": "force",
+                    "delta.tpu.stateCache.devicePlan.mode": "force"}
+        with conf.set_temporarily(**settings):
+            before = native.launches["residual_mask"]
+            read = table.to_table(filters=["ss_quantity > 50"])
+            k14 = native.launches["residual_mask"] - before
+            host = table.to_table(filters=["ss_net_paid > 45.00"])
+            cmd = MergeIntoCommand(log, chip_smoke.decimal_table(src),
+                                   "t.ss_item_sk = s.ss_item_sk", [MergeClause("update")],
+                                   [MergeClause("insert")], source_alias="s", target_alias="t")
+            cmd.run()
+            m = table.update({"ss_net_paid": "ss_sales_price * ss_quantity"}, "ss_store_sk < 50")
+            end = table.to_table()
+        assert all(end.column(c).type == chip_smoke.DEC_TYPE for c in chip_smoke.DEC_MONEY)
+        out[name] = (chip_smoke.state_of(read), chip_smoke.state_of(host),
+                     chip_smoke.state_of(end), cmd.metrics, m, cmd._join_path, k14)
+    for a, b in zip(out["card"][:3], out["cpu"][:3]):
+        assert all(np.array_equal(a[c], b[c]) for c in chip_smoke.STORE_SALES)
+    for i in (3, 4):
+        assert {k: v for k, v in out["card"][i].items() if not k.endswith("TimeMs")} == \
+            {k: v for k, v in out["cpu"][i].items() if not k.endswith("TimeMs")}
+    assert out["card"][5] == out["cpu"][5] == "device-cold"
+    assert out["card"][6] >= 1
+    want = chip_smoke.take_state(target, target["ss_net_paid"] > 4500)
+    assert all(np.array_equal(out["card"][1][c], want[c]) for c in chip_smoke.STORE_SALES)
+
+
+def test_nested_merge_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A table of struct, list and map columns (20,000 rows): a MERGE with
+    update * / insert * on the key slab (K8-K10), a DV DELETE and OPTIMIZE,
+    on the card and on the CPU: the same rows as the Python reference."""
+    import chip_smoke
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.commands.optimize import OptimizeCommand
+    from delta_tpu_torch.ops.column_cache import ColumnCache
+    from delta_tpu_torch.utils.config import conf
+
+    n = 20_000
+    target, ref = chip_smoke.nested_columns(np.arange(n), 51)
+    ids = np.concatenate([np.arange(0, n, 7), np.arange(n, n + 1000)])
+    src, src_ref = chip_smoke.nested_columns(ids, 53)
+    ref.update(src_ref)
+    ref = {k: v for k, v in ref.items() if k % 10}
+    key_cache.KeyCache.reset()
+    ColumnCache.reset()
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        path = str(tmp_path / name)
+        log = DeltaLog.for_table(path, device=dev)
+        with conf.set_temporarily(**{"delta.tpu.write.targetFileRows": 5_000}):
+            WriteIntoDelta(log, "append", target).run()
+        set_table_properties(log, {"delta.tpu.enableDeletionVectors": "true"})
+        with conf.set_temporarily(**{"delta.tpu.merge.devicePath.mode": "force",
+                                     "delta.tpu.stateCache.devicePlan.mode": "force"}):
+            cmd = MergeIntoCommand(log, src, "t.id = s.id", [MergeClause("update")],
+                                   [MergeClause("insert")], source_alias="s", target_alias="t")
+            cmd.run()
+            DeltaTable.for_path(path, device=dev).delete("id % 10 = 0")
+            OptimizeCommand(log, None).run()
+        assert cmd._join_path == "device-cold"
+        got = DeltaTable.for_path(path, device=dev).to_table().to_pylist()
+        assert len(got) == len(ref) and all(row == ref[row["id"]] for row in got), name

@@ -8,9 +8,11 @@ vocabulary that builds the same tables, sources and clauses in either
 package. A column is a Python list (ints, floats, strings, None for NULL)
 or a ``(type, list)`` pair naming its type (``date`` takes
 ``datetime.date``s, ``timestamp`` and ``timestamp_utc`` naive
-``datetime``s); each package builds its own table from it (``pyarrow`` for
-``delta_tpu``, numpy masked arrays or ``HostColumn``s for
-``delta_tpu_torch``).
+``datetime``s, ``decimal(p,s)`` ``Decimal``s, a nested spec of
+``delta_tpu_torch.expr.nested`` such as ``("struct", (("x", "int64"), ("y",
+"string")))`` its Python values: dicts, lists, lists of pairs for a map);
+each package builds its own table from it (``pyarrow`` for ``delta_tpu``,
+numpy masked arrays or ``HostColumn``s for ``delta_tpu_torch``).
 """
 import datetime as dt
 import json
@@ -192,6 +194,8 @@ class Pkg:
         mask = np.array([v is None for v in values], bool)
         if typ in ("date", "timestamp", "timestamp_utc"):
             return self._temporal(typ, values, mask)
+        if isinstance(typ, tuple) or typ.startswith("decimal("):
+            return self._typed(typ, values)
         if self.jax:
             t = {"int64": pa.int64(), "int32": pa.int32(), "float64": pa.float64(),
                  "string": pa.string(), "bool": pa.bool_()}[typ]
@@ -215,6 +219,22 @@ class Pkg:
         lane = [0 if v is None else (v - epoch) // dt.timedelta(microseconds=1) for v in values]
         return HostColumn("ts", np.array(lane, np.int64), ~mask,
                           "timestamp[us, tz=UTC]" if typ == "timestamp_utc" else None)
+
+    def _typed(self, typ, values):
+        """A decimal or nested column."""
+        from delta_tpu_torch.expr.nested import decimal_type, ncol_from_py
+        from delta_tpu_torch.expr.vectorized import HostColumn
+
+        spec = typ
+        if isinstance(typ, str):
+            p, sc = (int(x) for x in typ[len("decimal("):-1].split(","))
+            spec = decimal_type(p, sc)
+        if self.jax:
+            return pa.array(values, arrow_type(spec))
+        ncol = ncol_from_py(spec, values)
+        if isinstance(spec, str):
+            return HostColumn("decimal", ncol.values, ncol.valid, spec)
+        return HostColumn("nested", ncol, ncol.valid, spec)
 
     def table(self, cols):
         if not isinstance(cols, dict):
@@ -254,6 +274,24 @@ class Pkg:
 
     def key_cache(self):
         return JaxKeyCache if self.jax else TorchKeyCache
+
+
+def arrow_type(spec):
+    """The ``pyarrow`` type of a ``delta_tpu_torch.expr.nested`` spec."""
+    from delta_tpu_torch.expr.nested import decimal_ps
+
+    if isinstance(spec, tuple):
+        if spec[0] == "struct":
+            return pa.struct([(name, arrow_type(s)) for name, s in spec[1]])
+        if spec[0] == "list":
+            return pa.list_(arrow_type(spec[1]))
+        return pa.map_(arrow_type(spec[1]), arrow_type(spec[2]))
+    ps = decimal_ps(spec)
+    if ps is not None:
+        return pa.decimal128(*ps)
+    return {"int64": pa.int64(), "int32": pa.int32(), "float64": pa.float64(),
+            "string": pa.string(), "bool": pa.bool_(), "date32": pa.date32(),
+            "timestamp[us]": pa.timestamp("us")}[spec]
 
 
 def sorted_rows(rows):
