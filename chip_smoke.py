@@ -55,7 +55,15 @@ Phases, each reported on its own line:
    int32) on k = 6's key and on ``tests/torch_kernel_cases.py``'s sort
    cases (all equal, sorted, reversed, n = 1, 2 and 2^22 + 5), also against
    numpy's stable argsort; the link probe's warm-up (K17) at 8 and 2^20
-   int32; and the state mesh's kernels over 8 shards of the one card: the
+   int32; the page codec (``snappy_compress``, ``snappy_decompress``) on
+   one batch of ``tests/torch_kernel_cases.py``'s pages (0 B, 1 B, 64 KiB
+   - 1, 64 KiB, 64 KiB + 1, literal-length edges, repeats, random bytes,
+   store_sales columns' PLAIN and BYTE_STREAM_SPLIT pages, 1 MiB, 8 MiB):
+   the kernel's Snappy decodes through the plain decoder, the plain
+   compressor's through the kernel, byte for byte, the kernel's bytes
+   within 1.10x of the plain compressor's, and malformed bodies raise
+   ``SnappyError`` and write nothing outside their slots; and the state
+   mesh's kernels over 8 shards of the one card: the
    combine kernel (sum, OR, OR + pack, at eight cards' shapes and small
    ones, and the mesh path's four sets with the eight-card shapes in one
    launch, every other set a slice off a 16-byte boundary), the sharded
@@ -75,7 +83,9 @@ Phases, each reported on its own line:
    clustered) in the bench's layout (``bench.py:959-985``): v0's JSON
    commit holds protocol + metadata, and the checkpoint at version 0,
    written by the port's ``write_checkpoint``, holds them and the 1M adds
-   (its write and decode times printed); ``DeltaLog`` on the card (the
+   (its bytes, write and decode times printed; every chunk's codec and
+   encodings read back with the port's thrift and held to the checkpoint
+   policy: SNAPPY, a dictionary on every non-boolean leaf); ``DeltaLog`` on the card (the
    segment the checkpoint, its typed ``stats_parsed`` lanes the resident
    build's); ``files_for_scan`` for 256 point-range predicates; the same 256 as
    one batched plan; 10 tail commits (1k adds + 500 removes each), each
@@ -102,7 +112,9 @@ Phases, each reported on its own line:
 6. the MERGE key slab on bench config 2 (``bench.py:165-260``), with the
    counters set to 0 again: the 10M-row ``_store_sales`` target written
    through the port's Parquet writer (files of at most 4M rows, stats from
-   ``collect_stats``, committed as v0 with deletion vectors enabled); a cold
+   ``collect_stats``, committed as v0 with deletion vectors enabled; the
+   first file's chunks held to the writer's policy: BYTE_STREAM_SPLIT and
+   SNAPPY on the floats, SNAPPY on the integers the probe says pay); a cold
    ``KeyCache.get`` on the card, its parts timed; probes of the bench's 1M
    source keys (p50/p99 of 7, one insert-only), each held pair for pair
    against a numpy reference join and ``pairs_for_file`` file by file;
@@ -263,9 +275,9 @@ Phases, each reported on its own line:
    column that moves rows across partitions, a replaceWhere overwrite,
    OPTIMIZE ZORDER BY inside 100 partitions (K16) with a point read before
    and after, and VACUUM, which removes the partition directories that no
-   live file holds; each step's end state equals numpy's on all 8
-   columns, and K14's launch with the partition scalar equals its plain
-   version;
+   live file holds; the end state after steps 5 and 8 (each read checks
+   the steps since the last) equals numpy's on all 8 columns, and K14's
+   launch with the partition scalar equals its plain version;
 15. DECIMAL and nested data columns, with the counters set to 0 again.
    15a, store_sales(DEC_ROWS) in TPC-DS's own types (the generator's
    draws, ``ss_sales_price``, ``ss_ext_discount_amt`` and ``ss_net_paid``
@@ -283,7 +295,13 @@ Phases, each reported on its own line:
    tests/test_datatypes.py (NULL, empty and NULL inside): the write, a
    MERGE with update * / insert * (K8-K10), a DV DELETE of ``id % 10 =
    0``, OPTIMIZE, the end state equal to a Python reference row for row.
-   Each phase's wall seconds are printed before the kernels line;
+   Each phase's wall seconds are printed before the kernels line; the page
+   codec's launches on every phase's path (each phase's counts set to 0
+   just before it) are summed, each kernel must have launched, and both
+   are timed on a 1 MiB page and eight (8 MiB) of store_sales bytes: the
+   whole call, the launch alone eager and replayed from a CUDA graph,
+   beside the plain versions and the bound of their bytes in and out
+   (``codec_rows``; no PyTorch call compresses Snappy);
 16. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
@@ -307,7 +325,7 @@ from delta_tpu_torch.exec.scan import scan_to_table
 from delta_tpu_torch.expr import device_eval, ir
 from delta_tpu_torch.expr.parser import parse_expression, parse_predicate
 from delta_tpu_torch.exec.parquet import collect_stats, read_parquet_file, write_parquet_file
-from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, evaluate
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, evaluate, stored_type
 from delta_tpu_torch.ops import (
     column_cache, join_kernel, key_cache, native, pruning, replay_kernel, state_cache,
     state_export, zorder,
@@ -499,6 +517,7 @@ def synthetic_checks(dev):
     k14_checks(dev)
     k16_checks(dev)
     k17_checks(dev)
+    codec_checks(dev)
     mesh_checks(dev)
 
 
@@ -579,6 +598,205 @@ def k17_checks(dev):
         torch.cuda.synchronize()
         check(torch.equal(got, link.link_probe_plain(a)), f"link_probe != plain at n={n}")
     say("kernels: link_probe (K17) n=8, 2^20 exact")
+
+
+# -- phase 3, the page codec: snappy_compress and snappy_decompress ----------------------
+
+#: the JAX package's host work the codec kernels stand in for (Arrow's C++
+#: compresses in pq.write_table and decompresses in pq.read_table)
+CODEC_REPLACES = {"snappy_compress": "delta_tpu/exec/parquet.py:182",
+                  "snappy_decompress": "delta_tpu/exec/parquet.py:203"}
+CODEC_KERNELS = tuple(CODEC_REPLACES)
+
+
+def codec_checks(dev):
+    """The page codec on ``tests/torch_kernel_cases.py``'s batch (0 B, 1 B,
+    64 KiB - 1, 64 KiB, 64 KiB + 1, literal-length edges, repeats, random
+    bytes, store_sales columns' PLAIN and BYTE_STREAM_SPLIT pages of a row
+    group, 1 MiB, 8 MiB) in one launch each: the kernel's Snappy decodes
+    through the plain decoder to the input, the plain compressor's through
+    the kernel, and the kernel's own through the kernel, byte for byte; the
+    kernel's bytes within 1.10x of the plain compressor's; the malformed
+    bodies raise ``SnappyError``, one at a time and in a batch with good
+    pages, and write nothing outside their slots."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    kc = kernel_cases()
+    pages = kc.codec_pages(big=True)
+    names, raw = [n for n, _ in pages], [p for _, p in pages]
+    sizes = [len(p) for p in raw]
+    z_dev = page_codec.compress(raw, dev)
+    z_plain = [snappy.compress(p) for p in raw]
+    for name, p, z in zip(names, raw, z_dev):
+        check(snappy.decompress(z) == p, f"snappy_compress: page {name} does not decode "
+              "through the plain decoder to its input")
+    for what, z in (("the plain compressor's", z_plain), ("its own", z_dev)):
+        back = page_codec.decompress(z, sizes, dev)
+        for name, p, b in zip(names, raw, back):
+            check(b == p, f"snappy_decompress: {what} page {name} does not decode to its input")
+    ratio = sum(map(len, z_dev)) / sum(map(len, z_plain))
+    worst = max((len(a) / max(len(b), 1), n) for a, b, n in zip(z_dev, z_plain, names))
+    check(ratio <= 1.10, f"snappy_compress: {ratio:.4f}x the plain compressor's bytes")
+    bad = kc.codec_malformed()
+    for name, body, size in bad:
+        try:
+            page_codec.decompress([body], [size], dev)
+        except snappy.SnappyError:
+            continue
+        check(False, f"snappy_decompress: the malformed body {name} decoded")
+    codec_guard_check(dev, bad, z_dev[:4], raw[:4])
+    say(f"kernels: snappy_compress, snappy_decompress on {len(raw)} pages "
+        f"({sum(sizes)} bytes) exact both ways; the kernel's bytes {ratio:.4f}x the plain "
+        f"compressor's (worst page {worst[1]} {worst[0]:.4f}x); {len(bad)} malformed bodies "
+        "raise and stay in their slots")
+
+
+def codec_guard_check(dev, bad, good, want):
+    """``decompress_launch`` over the malformed bodies and good ones, each
+    slot followed by 64 guard bytes that no page owns: every malformed page
+    sets its error word, every good page decodes, and no guard byte
+    changes."""
+    from delta_tpu_torch.ops import page_codec
+
+    bodies = [b for _, b, _ in bad] + list(good)
+    sizes = [s for _, _, s in bad] + [len(w) for w in want]
+    guard = 64
+    table = np.zeros((len(bodies), 4), np.int64)
+    at_in = at_out = 0
+    for i, (b, s) in enumerate(zip(bodies, sizes)):
+        table[i] = (at_in, len(b), at_out, s)
+        at_in += len(b)
+        at_out += s + guard
+    src = torch.from_numpy(np.frombuffer(b"".join(bodies), np.uint8).copy()).to(dev)
+    out = torch.full((at_out,), 0xAB, dtype=torch.uint8, device=dev)
+    err = torch.zeros(len(bodies), dtype=torch.int32, device=dev)
+    page_codec.decompress_launch(src, torch.from_numpy(table).to(dev), out, err)
+    torch.cuda.synchronize()
+    got, errs = out.cpu().numpy(), err.cpu().numpy()
+    for i, (b, s) in enumerate(zip(bodies, sizes)):
+        o = int(table[i, 2])
+        check(bool((got[o + s:o + s + guard] == 0xAB).all()),
+              f"snappy_decompress: page {i} wrote past its slot")
+        if i < len(bad):
+            check(errs[i] != 0, f"snappy_decompress: malformed body {bad[i][0]} set no error")
+        else:
+            check(errs[i] == 0 and got[o:o + s].tobytes() == want[i - len(bad)],
+                  f"snappy_decompress: good page {i} beside malformed ones: error {errs[i]}")
+
+
+def footer_policy(path, checkpoint=False):
+    """Read a file's footer with the port's thrift and hold every chunk's
+    codec and encodings to the writer's policy: a checkpoint SNAPPY on
+    every leaf, a dictionary on all but booleans; a data file a dictionary
+    on top-level strings, BYTE_STREAM_SPLIT on floats (both SNAPPY), and
+    elsewhere PLAIN, SNAPPY where the plain probe of the column's first
+    64 KiB says it pays. Returns {leaf: (codec, encodings)}."""
+    from delta_tpu_torch.exec import encodings as enc, parquet as pqx
+
+    meta = pqx.read_metadata(path)
+    probed = [".".join(c.meta_data.path_in_schema) for c in meta.row_groups[0].columns
+              if len(c.meta_data.path_in_schema) == 1
+              and c.meta_data.type not in (enc.BYTE_ARRAY, enc.FLOAT, enc.DOUBLE)]
+    table = None if checkpoint else read_parquet_file(path, probed, device=torch.device("cuda"))
+    seen = {}
+    for rg in meta.row_groups:
+        for ch in rg.columns:
+            md = ch.meta_data
+            leaf = ".".join(md.path_in_schema)
+            got = (pqx._CODEC_NAMES[md.codec],
+                   tuple(sorted(enc.ENCODING_NAMES[e] for e in set(md.encodings))))
+            if checkpoint:
+                want = ("SNAPPY", ("PLAIN", "RLE") if md.type == enc.BOOLEAN
+                        else ("PLAIN", "RLE", "RLE_DICTIONARY"))
+            elif len(md.path_in_schema) == 1 and md.type == enc.BYTE_ARRAY:
+                want = ("SNAPPY", ("PLAIN", "RLE", "RLE_DICTIONARY"))
+            elif len(md.path_in_schema) == 1 and md.type in (enc.FLOAT, enc.DOUBLE):
+                want = ("SNAPPY", ("BYTE_STREAM_SPLIT", "RLE"))
+            elif len(md.path_in_schema) > 1:
+                want = ("UNCOMPRESSED", ("PLAIN", "RLE"))
+            else:
+                col = table.columns[leaf]
+                ok = pqx._compresses_well([pqx._probe_sample(col, stored_type(col))],
+                                          torch.device("cpu"))[0]
+                want = ("SNAPPY" if ok else "UNCOMPRESSED", ("PLAIN", "RLE"))
+            check(got == want, f"{path}: chunk {leaf} is {got}, the policy's is {want}")
+            seen[leaf] = got
+    return seen
+
+
+def codec_rows(dev, launches):
+    """Both codec kernels at the writer's shapes: a 1 MiB page and a batch
+    of eight (8 MiB) cut from store_sales columns' PLAIN and
+    BYTE_STREAM_SPLIT bytes. ``ms`` is the wrapper's whole call (pinned
+    upload, the launch, the download, the host's stitch) timed by CUDA
+    events, ``graph_ms`` the launch alone replayed from a CUDA graph on
+    buffers already on the card; the bound is the bytes in and out at 3.35
+    TB/s."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    plain, bss = kernel_cases()._store_sales_bytes(1 << 20)
+    mix = b"".join(b for _, b in plain + bss)
+    batches = {"1mib": [mix[:1 << 20]],
+               "8mib": [mix[i << 20:(i + 1) << 20] for i in range(8)]}
+    rows = {k: {} for k in CODEC_KERNELS}
+    for label, pages in batches.items():
+        sizes = [len(p) for p in pages]
+        z = page_codec.compress(pages, dev)
+        t0 = time.perf_counter()
+        zp = [snappy.compress(p) for p in pages]
+        plain_c = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain_back = [snappy.decompress(x) for x in z]
+        plain_d = (time.perf_counter() - t0) * 1e3
+        back = page_codec.decompress(z, sizes, dev)
+        check(back == pages and plain_back == pages,
+              f"codec rows: the {label} batch does not round-trip")
+        n_in, n_z = sum(sizes), sum(map(len, z))
+        # the launches alone, on buffers already on the card
+        table, _ = page_codec.fragment_table(sizes)
+        src = torch.from_numpy(np.frombuffer(b"".join(pages), np.uint8).copy()).to(dev)
+        frags = torch.from_numpy(table).to(dev)
+        scratch = torch.empty(len(table) * page_codec.FRAG_CAP, dtype=torch.uint8, device=dev)
+        fsizes = torch.empty(len(table), dtype=torch.int32, device=dev)
+        ptab = np.zeros((len(z), 4), np.int64)
+        ptab[:, 1], ptab[:, 3] = [len(x) for x in z], sizes
+        ptab[:, 0] = np.cumsum(ptab[:, 1]) - ptab[:, 1]
+        ptab[:, 2] = np.cumsum(ptab[:, 3]) - ptab[:, 3]
+        zsrc = torch.from_numpy(np.frombuffer(b"".join(z), np.uint8).copy()).to(dev)
+        pt = torch.from_numpy(ptab).to(dev)
+        out = torch.empty(n_in, dtype=torch.uint8, device=dev)
+        err = torch.empty(len(z), dtype=torch.int32, device=dev)
+        for name, call, launch, plain_ms in (
+                ("snappy_compress", lambda: page_codec.compress(pages, dev),
+                 lambda: page_codec.compress_launch(src, frags, scratch, fsizes), plain_c),
+                ("snappy_decompress", lambda: page_codec.decompress(z, sizes, dev),
+                 lambda: page_codec.decompress_launch(zsrc, pt, out, err), plain_d)):
+            rows[name][label] = {"ms": cuda_ms(call, 3, warm=1),
+                                 "launch_ms": cuda_ms(launch, 3, warm=1),
+                                 "graph_ms": graph_ms(launch, 3), "plain_ms": plain_ms,
+                                 "bytes_in": n_in if name == "snappy_compress" else n_z,
+                                 "bytes_out": n_z if name == "snappy_compress" else n_in}
+        check(torch.equal(out, torch.from_numpy(np.frombuffer(b"".join(pages), np.uint8)
+                                                .copy()).to(dev)) and not bool(err.any()),
+              f"codec rows: the timed decompress launch of {label} is wrong")
+        say(f"codec: {label} batch of {len(pages)} pages, {n_in} bytes -> {n_z} snappy "
+            f"({n_z / n_in:.4f}); plain compressor {sum(map(len, zp))} bytes; "
+            f"{json.dumps({k: v[label] for k, v in rows.items()})}")
+    out_rows = []
+    for name in CODEC_KERNELS:
+        r = rows[name]["8mib"]
+        b, by = bound(r["bytes_in"] + r["bytes_out"])
+        out_rows.append({
+            "name": name, "route": "cuda", "source": "delta_tpu_torch/csrc/page_codec.cu",
+            "replaces": CODEC_REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": 0.0, "ms": r["ms"], "graph_ms": r["graph_ms"],
+            "launch_ms": r["launch_ms"], "ms_1mib": rows[name]["1mib"]["ms"],
+            "graph_ms_1mib": rows[name]["1mib"]["graph_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": "8 pages of 1 MiB (store_sales PLAIN and BYTE_STREAM_SPLIT bytes)"})
+    return out_rows
 
 
 # -- phase 3, the mesh: K6, K7, K13 and the combine kernel ---------------------------
@@ -1473,9 +1691,11 @@ def run_slice(dev, workdir):
     t0 = time.perf_counter()
     store, queries, write_s = write_config6_table(path)
     parts = config6_checkpoint(store, os.path.join(path, "_delta_log"))
+    policy = [footer_policy(p, checkpoint=True) for p in parts]
     say(f"slice: wrote {N_FILES} files as the checkpoint at version 0 ({len(parts)} parts, "
-        f"{sum(os.path.getsize(p) for p in parts) / 1e6:.1f} MB) in {write_s:.3f} s "
-        f"(the table in {time.perf_counter() - t0:.3f} s)")
+        f"{sum(os.path.getsize(p) for p in parts)} bytes) in {write_s:.3f} s "
+        f"(the table in {time.perf_counter() - t0:.3f} s); every chunk of every part as the "
+        f"policy says: {len(policy[0])} leaves, {sorted(set(policy[0].values()))}")
 
     native.reset_launches()  # -- the main path starts here
     DeltaLog.clear_cache()
@@ -1690,12 +1910,13 @@ C5_VERSIONS, C5_PER_COMMIT, C5_PATHS, C5_SEED = 10_000, 20, 50_000, 7
 
 
 def write_config5_log(log_path, n_versions=C5_VERSIONS, per_commit=C5_PER_COMMIT,
-                      n_paths=C5_PATHS, seed=C5_SEED):
+                      n_paths=C5_PATHS, seed=C5_SEED, device="cuda"):
     """Bench config 5's log through the port's LogStore: each version's
     commit of ``per_commit`` actions (85% adds of a fresh file name of one
     of ``n_paths`` parts, else removes), and at version ``n_versions // 2``
-    the port's ``write_checkpoint`` of the live files (``bench.py:827-853``).
-    Returns (store, checkpoint paths, delta paths after it, live files)."""
+    the port's ``write_checkpoint`` of the live files (``bench.py:827-853``),
+    its pages compressed on ``device``. Returns (store, checkpoint paths,
+    delta paths after it, live files)."""
     from delta_tpu_torch.log import checkpoints
     from delta_tpu_torch.storage.logstore import LocalLogStore
 
@@ -1721,20 +1942,20 @@ def write_config5_log(log_path, n_versions=C5_VERSIONS, per_commit=C5_PER_COMMIT
         if v == ckpt_v:
             checkpoints.write_checkpoint(store, log_path, v, [
                 AddFile(path=p, size=s_, modification_time=0, data_change=False)
-                for p, s_ in active.items()])
+                for p, s_ in active.items()], device=device)
     ckpt_paths = [f"{log_path}/{filenames.checkpoint_file_single(ckpt_v)}"]
     deltas = [f"{log_path}/{filenames.delta_file(v)}" for v in range(ckpt_v + 1, n_versions)]
     return store, ckpt_paths, deltas, active
 
 
-def host_replay(store, ckpt_paths, deltas):
+def host_replay(store, ckpt_paths, deltas, device="cuda"):
     """The sequential object replay of ``bench.py:858-872``: the checkpoint's
     actions, then each commit line by line; the live file count."""
     from delta_tpu_torch.log import checkpoints
     from delta_tpu_torch.protocol.actions import action_from_json
 
     state = {}
-    for a in checkpoints.read_checkpoint_actions(store, ckpt_paths):
+    for a in checkpoints.read_checkpoint_actions(store, ckpt_paths, device=device):
         if isinstance(a, AddFile):
             state[a.path] = a.size
     for p in deltas:
@@ -1916,8 +2137,10 @@ def run_merge(dev, workdir):
     store = LocalLogStore()
     t0 = time.perf_counter()
     files, adds, source = write_config2_table(path, store)
+    nbytes = sum(os.path.getsize(os.path.join(path, p)) for p in files)
     say(f"merge: wrote {MERGE_ROWS} rows x 8 columns as {len(files)} files in "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"{time.perf_counter() - t0:.3f} s, {nbytes} bytes; the first file's chunks "
+        f"{footer_policy(os.path.join(path, next(iter(files))))}, the writer's policy")
     live = {p: (cols, np.empty(0, np.int64)) for p, cols in files.items()}
     item = lambda p: live[p][0]["ss_item_sk"]  # noqa: E731
     s_keys = source["ss_item_sk"]
@@ -2120,18 +2343,37 @@ def reference_upsert(state, src):
         col = state[c].copy()
         col[pos[hit]] = src[c][hit]
         out[c] = np.concatenate([col, src[c][~hit]])
-    order = np.argsort(out["ss_item_sk"], kind="stable")
-    return {c: v[order] for c, v in out.items()}
+    return by_key(out)
+
+
+def by_key(cols):
+    """``cols`` (numpy columns of one length) reordered as numpy's stable
+    argsort of ss_item_sk orders them. The harness's own bookkeeping, no
+    code of the port: already sorted columns come back as they are, and
+    otherwise torch sorts the keys (``stable=True``) and gathers the
+    numeric columns on the card when there is one (seconds a 10M-row state
+    on the host, milliseconds there)."""
+    keys = cols["ss_item_sk"]
+    if len(keys) < 2 or bool((keys[1:] >= keys[:-1]).all()):
+        return dict(cols)
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    order = torch.sort(torch.from_numpy(np.ascontiguousarray(keys)).to(dev), stable=True).indices
+    host_order = None
+    out = {}
+    for c, v in cols.items():
+        if v.dtype == object:
+            if host_order is None:
+                host_order = order.cpu().numpy()
+            out[c] = v[host_order]
+        else:
+            out[c] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)[order].cpu().numpy()
+    return out
 
 
 def end_state(log):
     """The table's live rows, read back through the port's scan, sorted by
     ss_item_sk."""
-    t = scan_to_table(log.update())
-    cols = {c: t.column(c).values for c in STORE_SALES}
-    check(all(t.column(c).valid.all() for c in STORE_SALES), "a NULL in the end state")
-    order = np.argsort(cols["ss_item_sk"], kind="stable")
-    return {c: v[order] for c, v in cols.items()}
+    return state_of(scan_to_table(log.update()))
 
 
 def run_merge_command(dev, workdir):
@@ -2164,8 +2406,7 @@ def run_merge_command(dev, workdir):
         logs = {"table": log, "copy": DeltaLog.for_table(path + "-copy", device=dev)}
         say(f"merge command: wrote the {MERGE_ROWS}-row target through WriteIntoDelta in "
             f"{write_s:.3f} s ({len(log.update().all_files)} files), deletion vectors on")
-        order = np.argsort(target["ss_item_sk"], kind="stable")
-        refs = [reference_upsert({c: target[c][order] for c in STORE_SALES}, sources[0])]
+        refs = [reference_upsert(by_key({c: target[c] for c in STORE_SALES}), sources[0])]
         for src in sources[1:]:
             refs.append(reference_upsert(refs[-1], src))
         ends, out = {}, []
@@ -3801,10 +4042,8 @@ DML_PRIME = 10_000  # step 0's upsert: it builds the key slab that steps 1-3 adv
 
 def state_of(t):
     """A scan's rows as numpy columns sorted by ss_item_sk (no NULLs)."""
-    cols = {c: t.column(c).values for c in STORE_SALES}
     check(all(t.column(c).valid.all() for c in STORE_SALES), "a NULL in a read")
-    order = np.argsort(cols["ss_item_sk"], kind="stable")
-    return {c: v[order] for c, v in cols.items()}
+    return by_key({c: t.column(c).values for c in STORE_SALES})
 
 
 def same_state(got, want, label):
@@ -3816,9 +4055,7 @@ def same_state(got, want, label):
 
 def take_state(state, keep):
     """The rows of ``state`` where ``keep``, sorted by ss_item_sk."""
-    out = {c: v[keep] for c, v in state.items()}
-    order = np.argsort(out["ss_item_sk"], kind="stable")
-    return {c: v[order] for c, v in out.items()}
+    return by_key({c: v[keep] for c, v in state.items()})
 
 
 def dml_source(seed, n, picks, fresh_base):
@@ -4342,8 +4579,9 @@ def run_partitioned(dev, workdir, card):
     (2,000 partitions) through the port's writer, deletion vectors on, then
     reads, MERGEs, DELETEs, an UPDATE that moves rows across partitions, a
     replaceWhere overwrite, OPTIMIZE ZORDER BY inside the chosen partitions
-    and VACUUM; each step's end state (after the last command of a step of
-    two) equal to numpy on all 8 columns."""
+    and VACUUM; the end state after steps 5 and 8 (each read checks the
+    steps since the last: the smoke's limit) equal to numpy on all 8
+    columns."""
     import urllib.parse
 
     from delta_tpu_torch import DeltaTable
@@ -4358,8 +4596,7 @@ def run_partitioned(dev, workdir, card):
     torch.cuda.empty_cache()
     path = os.path.join(workdir, "store_sales_by_date")
     target = store_sales(PART_ROWS, np.random.RandomState(7))
-    order = np.argsort(target["ss_item_sk"], kind="stable")
-    state = {c: target[c][order] for c in STORE_SALES}
+    state = by_key({c: target[c] for c in STORE_SALES})
     captured = {}
     real_masks = column_cache.residual_masks
 
@@ -4397,7 +4634,8 @@ def run_partitioned(dev, workdir, card):
             "step 0: a file outside its partition directory")
         nbytes = sum(f.size for f in snap.all_files)
         record("step 0 partitioned write", wall_s, delta,
-               f"{len(snap.all_files)} files in {n_parts} partitions, {nbytes / 1e6:.1f} MB")
+               f"{len(snap.all_files)} files in {n_parts} partitions, {nbytes / 1e6:.1f} MB",
+               check_state=False)
 
         # step 1: two reads with the device residual
         def capturing(program, envs, ns, scalars):
@@ -4434,7 +4672,8 @@ def run_partitioned(dev, workdir, card):
         src = part_sources(state, MERGE_SOURCE, 32, PART_FRESH["m2"])
         cmd, wall_s, delta, phases = merge("step 2 MERGE (resident)", src, "resident")
         state = reference_upsert(state, src)
-        record("step 2 MERGE (resident)", wall_s, delta, f"phase_ms {phases}")
+        record("step 2 MERGE (resident)", wall_s, delta, f"phase_ms {phases}",
+               check_state=False)
 
         # step 3: a partition-only DELETE: metadata only
         emptied = {f"{PART_COL}={d}" for d in np.unique(state[PART_COL][state[PART_COL] < 2450050])}
@@ -4445,8 +4684,10 @@ def run_partitioned(dev, workdir, card):
         check(m["numDeletedRows"] == -1 and m["numAddedFiles"] == 0 and m["numRemovedFiles"] > 0,
               f"step 3: metrics {m}")
         state = take_state(state, state[PART_COL] >= 2450050)
+        # its end state is read after step 5, with that step's (the smoke's limit)
         record("step 3 DELETE (partitions)", wall_s, delta,
-               f"{m['numRemovedFiles']} files of {len(emptied)} partitions removed, no file read")
+               f"{m['numRemovedFiles']} files of {len(emptied)} partitions removed, no file read",
+               check_state=False)
 
         # step 4: a DV DELETE through K1, then a resident MERGE (K11's advance)
         m, wall_s, delta = timed_step("step 4", lambda: table.delete("ss_quantity >= 96"))
@@ -4466,7 +4707,8 @@ def run_partitioned(dev, workdir, card):
         check(delta.get("slab_advance", 0) + delta.get("slab_widen", 0) >= 1,
               f"step 4 MERGE: launches {delta}: no K11 advance")
         state = reference_upsert(state, src)
-        record("step 4 MERGE (resident)", wall_s, delta, f"phase_ms {phases}")
+        record("step 4 MERGE (resident)", wall_s, delta, f"phase_ms {phases}",
+               check_state=False)
 
         # step 5: an UPDATE of the partition column: rows move across partitions
         m, wall_s, delta = timed_step("step 5", lambda: table.update(
@@ -4490,8 +4732,9 @@ def run_partitioned(dev, workdir, card):
         keep = state[PART_COL] < 2451990
         state = take_state({c: np.concatenate([state[c][keep], new[c]]) for c in STORE_SALES},
                            np.ones(int(keep.sum()) + PART_REPLACE, bool))
+        # its end state is read after step 8, with that step's (the smoke's limit)
         record("step 6 overwrite (replaceWhere)", wall_s, delta,
-               f"{PART_REPLACE} rows replace {int((~keep).sum())}")
+               f"{PART_REPLACE} rows replace {int((~keep).sum())}", check_state=False)
 
         # step 7: OPTIMIZE ZORDER BY inside the chosen partitions, a point read
         # before and after
@@ -4513,7 +4756,8 @@ def run_partitioned(dev, workdir, card):
                 record("step 7 OPTIMIZE ZORDER BY", wall_s, delta,
                        f"{cmd.metrics['numRemovedFiles']} files into "
                        f"{cmd.metrics['numAddedFiles']} ({n_before} -> {n_after} live), "
-                       f"phase_ms {({k: round(v, 3) for k, v in cmd.phase_ms.items()})}")
+                       f"phase_ms {({k: round(v, 3) for k, v in cmd.phase_ms.items()})}",
+                       check_state=False)
             got, p_wall, p_delta = timed_step(f"step 7 read {when}",
                                               lambda: table.to_table(filters=[point]))
             same_state(state_of(got), point_want, f"partitioned step 7 read {when}")
@@ -4555,15 +4799,16 @@ def run_partitioned(dev, workdir, card):
 DEC_TYPE = "decimal128(7, 2)"
 DEC_MONEY = ("ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
 #: 15a's rows: the bench's 10M cut to keep the smoke in its time limit
-#: (PERF.md section 4: 4M, phase 14b's cut, took the run to 1,111 s)
-DEC_ROWS = 1_000_000
+#: (PERF.md section 4: 4M, phase 14b's cut, took the run to 1,111 s; 1M
+#: with the page codec on every read and write, to 1,267 s)
+DEC_ROWS = 600_000
 #: 15a's files (the writer's targetFileRows): 16 files, so the plan (K1)
 #: and the residual (K14) have a table to cull
-DEC_FILE_ROWS = 62_500
+DEC_FILE_ROWS = 37_500
 DEC_FRESH = {"m1": 50_000_000, "m2": 51_000_000}
 #: 15b: a nested table's rows (1M cut as 15a's), its MERGE's source rows
 #: and its files' rows (10 files)
-NESTED_ROWS, NESTED_SOURCE, NESTED_FILE_ROWS = 250_000, 100_000, 25_000
+NESTED_ROWS, NESTED_SOURCE, NESTED_FILE_ROWS = 150_000, 100_000, 15_000
 
 
 def typed_store_sales(n, rng):
@@ -4641,8 +4886,7 @@ def run_decimal(dev, workdir, card):
     torch.cuda.empty_cache()
     path = os.path.join(workdir, "store_sales_decimal")
     target = typed_store_sales(DEC_ROWS, np.random.RandomState(7))
-    order = np.argsort(target["ss_item_sk"], kind="stable")
-    state = {c: target[c][order] for c in STORE_SALES}
+    state = by_key({c: target[c] for c in STORE_SALES})
     original = state
     box = {}
 
@@ -4978,14 +5222,27 @@ def main() -> int:
     lap("1-3 build and kernels")
     if "--kernels-only" in sys.argv[1:]:
         return 0
+    # every phase reads and writes Parquet: the page codec's launches on each
+    # phase's path (its counts set to 0 just before it) add up here
+    codec = {k: 0 for k in CODEC_KERNELS}
+
+    def tally(launches):
+        for k in CODEC_KERNELS:
+            codec[k] += launches.get(k, 0)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         # phases 4, 5 and 9 count the kernels of a pinned route: under auto
         # the router may price the host side cheaper (phase 10 drives auto)
         with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
             ctx = run_slice(dev, workdir)
             run_fallback(dev, ctx)
+        check(ctx["launches"]["snappy_decompress"] > 0,
+              "config 6's checkpoint decoded without snappy_decompress")
+        tally(ctx["launches"])
+        tally(ctx["fallback_launches"])
         lap("4-5 config 6")
         c5 = run_config5(dev, workdir)
+        tally(c5["launches"])
         lap("5b config 5")
         kernels = measure(dev, ctx["entry"], ctx["ranges"], ctx["cols"], ctx["launches"])
         for k in kernels:  # K4 runs on phase 4's path and on config 5's
@@ -4997,6 +5254,7 @@ def main() -> int:
         c6 = {"entry": ctx["entry"], "ranges": ctx["ranges"], "stream": ctx["stream"]}
         ctx = None  # the rest of the scan phases' host state is done with
         mctx = run_merge(dev, workdir)
+        tally(mctx["launches"])
         slab_rows = measure_slab(dev, mctx)
         kernels += slab_rows
         measure_probe_constants(dev, mctx, slab_rows)
@@ -5005,6 +5263,9 @@ def main() -> int:
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         cctx = run_merge_command(dev, workdir)
+        check(cctx["launches"]["snappy_compress"] > 0 and cctx["launches"]["snappy_decompress"] > 0,
+              f"the MERGE command's path launched no page codec kernel: {cctx['launches']}")
+        tally(cctx["launches"])
         k12_rows = measure_join_probe(dev, cctx)
         kernels += k12_rows
         measure_join_constants(cctx, k12_rows)
@@ -5014,6 +5275,7 @@ def main() -> int:
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         sctx = run_device_scan(dev, workdir)
+        tally(sctx["launches"])
         kernels += measure_residual_mask(dev, sctx)
         measure_residual_constants(dev, sctx)
         c12 = {k: sctx[k] for k in ("path", "data", "queries")}
@@ -5021,18 +5283,22 @@ def main() -> int:
         lap("8 read path")
         with conf.set_temporarily(**{"delta.tpu.read.deviceResidual.mode": "force"}):
             zctx = run_zorder(dev, workdir)
+        tally(zctx["launches"])
         kernels += measure_morton(dev, zctx)
         lap("9 OPTIMIZE")
         rctx = run_router(dev, c6, c2, c12, workdir)
+        tally(rctx["launches"])
         kernels += measure_link_probe(dev, rctx)
         lap("10 router")
         key_cache.KeyCache.reset()
         torch.cuda.empty_cache()
         xctx = run_mesh(dev, c6, dict(rctx["c2"], m3=c2["m3"]), workdir)
+        tally(xctx["launches"])
         kernels += measure_mesh(dev, xctx)
         xctx = None
         lap("12 mesh")
         dctx = run_dml(dev, c2, workdir, card)
+        tally(dctx["launches"])
         for k in kernels:  # the DML phase's path runs K1, K8-K11 and the tail apply
             k["launches"] += dctx["launches"].get(k["name"], 0)
         dctx = c2 = None
@@ -5046,6 +5312,8 @@ def main() -> int:
         for k in kernels:  # phase 14: K1 and the tail apply (6p); K1, K8-K11, K14, K16
             k["launches"] += (pctx["launches"].get(k["name"], 0)
                               + qctx["launches"].get(k["name"], 0))
+        tally(pctx["launches"])
+        tally(qctx["launches"])
         pctx = qctx = None
         with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
             dectx = run_decimal(dev, workdir, card)
@@ -5055,6 +5323,13 @@ def main() -> int:
         for k in kernels:  # phase 15: K1, K8-K11, K14, K15, K16; K1, K8-K10
             k["launches"] += (dectx["launches"].get(k["name"], 0)
                               + nctx["launches"].get(k["name"], 0))
+        tally(dectx["launches"])
+        tally(nctx["launches"])
+    say(f"page codec: launches on every phase's path {codec}")
+    for k in CODEC_KERNELS:
+        check(codec[k] > 0, f"kernel {k} was launched on no phase's path")
+    kernels += codec_rows(dev, codec)
+    lap("codec rows")
     say(f"phases (wall s): {laps}, {sum(laps.values()):.1f} s in all | {card}")
     for k in kernels:
         say(f"time: {k['name']} {k['shape']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f}, "

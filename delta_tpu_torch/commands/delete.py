@@ -25,7 +25,7 @@ own partition. Left out: the change data feed (case 3 raises
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 from delta_tpu_torch.commands import operations as ops
 from delta_tpu_torch.commands.dml_common import (
@@ -35,6 +35,7 @@ from delta_tpu_torch.exec import write as write_exec
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr import partition as partition_expr
 from delta_tpu_torch.expr.parser import parse_predicate
+from delta_tpu_torch.expr.vectorized import HostTable
 from delta_tpu_torch.protocol.actions import Action
 from delta_tpu_torch.utils.config import DeltaConfigs
 
@@ -93,11 +94,13 @@ class DeleteCommand:
         use_dv = dv_enabled(metadata)
         candidates = candidate_files(txn, self.condition)
         touched = read_candidates(self.delta_log.data_path, candidates, metadata,
-                                  self.condition, with_positions=use_dv, prune_row_groups=use_dv)
+                                  self.condition, with_positions=use_dv, prune_row_groups=use_dv,
+                                  device=self.delta_log.device)
         scan_ms = timer.lap_ms()
 
         removes: List[Action] = []
         adds: List[Action] = []
+        rewrites: List[Tuple[int, HostTable]] = []  # (position in adds, the rows to write)
         deleted_rows = 0
         for tf in touched:
             matches = int(tf.mask.sum())
@@ -113,10 +116,15 @@ class DeleteCommand:
                 continue
             removes.append(tf.add.remove())
             if matches < tf.table.num_rows:
-                adds.extend(write_exec.write_files(self.delta_log.data_path,
-                                                   tf.table.filter(~tf.mask), metadata,
-                                                   data_change=True))
+                rewrites.append((len(adds), tf.table.filter(~tf.mask)))
                 self._rewrote_files = True
+        # every rewritten file's rows in one write (shared codec batches), their
+        # adds in the order a write a file gives them
+        written = write_exec.write_tables(self.delta_log.data_path, [t for _, t in rewrites],
+                                          metadata, data_change=True,
+                                          device=self.delta_log.device)
+        for (at, _), new_adds in reversed(list(zip(rewrites, written))):
+            adds[at:at] = new_adds
         self.metrics.update(numRemovedFiles=len(removes), numAddedFiles=len(adds),
                             numDeletedRows=deleted_rows, scanTimeMs=scan_ms,
                             rewriteTimeMs=timer.lap_ms())

@@ -69,7 +69,7 @@ class TouchedFile:
 
 def read_candidates(data_path: str, files: Sequence[AddFile], metadata,
                     predicate: Optional[ir.Expression], with_positions: bool = False,
-                    prune_row_groups: bool = False) -> List[TouchedFile]:
+                    prune_row_groups: bool = False, device="cuda") -> List[TouchedFile]:
     """Read each candidate and compute its match mask.
 
     ``prune_row_groups=True`` pushes the predicate into the decode, so row
@@ -81,7 +81,7 @@ def read_candidates(data_path: str, files: Sequence[AddFile], metadata,
     tables = read_files_as_table(
         data_path, files, metadata, per_file=True,
         position_column=POSITION_COL if with_positions else None,
-        predicate=predicate if prune_row_groups else None)
+        predicate=predicate if prune_row_groups else None, device=device)
     out: List[TouchedFile] = []
     for add, t in zip(files, tables):
         mask = (np.ones(t.num_rows, bool) if predicate is None

@@ -458,7 +458,8 @@ class MergeIntoCommand:
             out = concat_tables([b.select(target_cols) for b in out_blocks])
             if out.num_rows:
                 adds += list(write_exec.write_files(self.delta_log.data_path, out, metadata,
-                                                    data_change=True))
+                                                    data_change=True,
+                                                    device=self.delta_log.device))
         rewrite_ms = timer.lap_ms()
         self.phase_ms["write_ms"] = rewrite_ms - self.phase_ms["apply_ms"]
 
@@ -573,7 +574,8 @@ class MergeIntoCommand:
                 key_cols = [c for c in target_cols if c.lower() in key_need]
                 key_pieces = read_files_as_table(self.delta_log.data_path, candidates, metadata,
                                                  columns=key_cols or None, per_file=True,
-                                                 position_column=pos_col)
+                                                 position_column=pos_col,
+                                                 device=self.delta_log.device)
             if resident is None:
                 key_tab = concat_tables(key_pieces) if key_pieces else None
                 if key_tab is not None and key_tab.num_rows:
@@ -593,7 +595,8 @@ class MergeIntoCommand:
         else:
             raw_pieces = read_files_as_table(self.delta_log.data_path, candidates, metadata,
                                              columns=read_cols, per_file=True,
-                                             position_column=pos_col)
+                                             position_column=pos_col,
+                                             device=self.delta_log.device)
         tgt_tables: Dict[int, HostTable] = {}
         pieces: List[HostTable] = []
         row_base = 0
@@ -814,7 +817,7 @@ class MergeIntoCommand:
             key_pieces = read_files_as_table(
                 self.delta_log.data_path, candidates, metadata, columns=key_cols or None,
                 per_file=True, position_column=POSITION_COL,
-                file_ready=lambda i, add, tab: q.put((add, tab)))
+                file_ready=lambda i, add, tab: q.put((add, tab)), device=self.delta_log.device)
         finally:
             q.put(None)
             th.join()

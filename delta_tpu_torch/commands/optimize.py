@@ -122,7 +122,8 @@ class OptimizeCommand:
             clock.append(time.perf_counter())
             self.phase_ms[name] = self.phase_ms.get(name, 0.0) + (clock[-1] - clock[-2]) * 1e3
 
-        table = read_files_as_table(self.delta_log.data_path, group, metadata)
+        table = read_files_as_table(self.delta_log.data_path, group, metadata,
+                                    device=self.delta_log.device)
         lap("read")
         if self.z_order_by:
             perm = morton_order([np_col(table, c) for c in self.z_order_by],
@@ -131,7 +132,8 @@ class OptimizeCommand:
             table = table.take(perm)
             lap("take")
         new_adds = write_exec.write_files(self.delta_log.data_path, table, metadata,
-                                          data_change=False, target_file_rows=self.target_rows)
+                                          data_change=False, target_file_rows=self.target_rows,
+                                          device=self.delta_log.device)
         lap("write")
         return new_adds, [f.remove(data_change=False) for f in group]
 

@@ -16,7 +16,7 @@ span and the journal.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -74,11 +74,13 @@ class UpdateCommand:
         use_dv = dv_enabled(metadata)
         candidates = candidate_files(txn, self.condition)
         touched = read_candidates(self.delta_log.data_path, candidates, metadata,
-                                  self.condition, with_positions=use_dv, prune_row_groups=use_dv)
+                                  self.condition, with_positions=use_dv, prune_row_groups=use_dv,
+                                  device=self.delta_log.device)
         scan_ms = timer.lap_ms()
 
         removes: List[Action] = []
         adds: List[Action] = []
+        rewrites: List[Tuple[int, HostTable]] = []  # (position in adds, the rows to write)
         updated_rows = 0
         for tf in touched:
             n_match = int(tf.mask.sum())
@@ -99,8 +101,14 @@ class UpdateCommand:
             else:
                 removes.append(tf.add.remove())
                 rewritten = self._apply_updates(tf.table, tf.mask)
-            adds.extend(write_exec.write_files(self.delta_log.data_path, rewritten, metadata,
-                                               data_change=True))
+            rewrites.append((len(adds), rewritten))
+        # every rewritten file's rows in one write (shared codec batches), their
+        # adds in the order a write a file gives them
+        written = write_exec.write_tables(self.delta_log.data_path, [t for _, t in rewrites],
+                                          metadata, data_change=True,
+                                          device=self.delta_log.device)
+        for (at, _), new_adds in reversed(list(zip(rewrites, written))):
+            adds[at:at] = new_adds
         self.metrics.update(numRemovedFiles=len(removes), numAddedFiles=len(adds),
                             numUpdatedRows=updated_rows, scanTimeMs=scan_ms,
                             rewriteTimeMs=timer.lap_ms())

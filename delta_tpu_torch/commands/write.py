@@ -122,7 +122,8 @@ class WriteIntoDelta:
                                  self.partition_columns or txn.metadata.partition_columns,
                                  configuration=self.configuration)
         adds = write_exec.write_files(self.delta_log.data_path, self.table, txn.metadata,
-                                      data_change=not self.rearrange_only)
+                                      data_change=not self.rearrange_only,
+                                      device=self.delta_log.device)
         removes: List[Action] = []
         if is_overwrite:
             if self.replace_where is None:

@@ -10,7 +10,12 @@ Python work is per run, not per value. BYTE_ARRAY values are
 length-prefixed one after another and decode value by value (each becomes
 a Python object anyway).
 
-The encoders are the writer's: PLAIN and the hybrid for levels.
+The encoders are the writer's: PLAIN, the hybrid for levels, a
+dictionary (:func:`dictionary_encode`: a PLAIN dictionary page and
+RLE_DICTIONARY indices, that stops collecting at its page limit and leaves
+the rest of the chunk to PLAIN pages, as Arrow's writer falls back) and
+BYTE_STREAM_SPLIT, all vectorised but the dictionary of BYTE_ARRAY values
+(a dict lookup a value, in batches, until the limit).
 
 DECIMAL values are unscaled integers: :func:`decimal_from_bytes` turns
 big-endian two's complement of any width from 1 to 16 bytes (a
@@ -23,7 +28,7 @@ low bytes).
 from __future__ import annotations
 
 import struct
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,7 +37,9 @@ __all__ = ["PLAIN", "PLAIN_DICTIONARY", "RLE", "RLE_DICTIONARY",
            "FLOAT", "DOUBLE", "BYTE_ARRAY", "FIXED_LEN_BYTE_ARRAY", "TYPE_NAMES",
            "read_varint", "decode_hybrid", "decode_plain", "decode_byte_stream_split",
            "decode_dictionary_indices", "encode_hybrid_bits", "encode_hybrid", "encode_plain",
-           "decode_fixed", "decimal_from_bytes", "decimal_to_bytes", "decimal_width"]
+           "decode_fixed", "decimal_from_bytes", "decimal_to_bytes", "decimal_width",
+           "encode_byte_stream_split", "dictionary_encode", "encode_dictionary_indices",
+           "dictionary_bit_width", "DICTIONARY_PAGE_LIMIT"]
 
 # Encoding (parquet.thrift)
 PLAIN, PLAIN_DICTIONARY, RLE = 0, 2, 3
@@ -317,9 +324,110 @@ def encode_hybrid(values: np.ndarray, bit_width: int) -> bytes:
         out += int(vals[0]).to_bytes((bit_width + 7) // 8, "little")
         return bytes(out)
     groups = (n + 7) // 8
-    padded = np.zeros(groups * 8, np.int64)
+    padded = np.zeros(groups * 8, np.uint32)
     padded[:n] = vals
-    bits = ((padded[:, None] >> np.arange(bit_width)) & 1).astype(np.uint8).ravel()
+    bits = ((padded[:, None] >> np.arange(bit_width, dtype=np.uint32)) & 1).astype(np.uint8).ravel()
     _put_varint(out, (groups << 1) | 1)
     out += np.packbits(bits, bitorder="little").tobytes()
     return bytes(out)
+
+
+def encode_byte_stream_split(ptype: int, values) -> bytes:
+    """BYTE_STREAM_SPLIT of fixed-width values: byte k of every value
+    together, stream after stream."""
+    dt = _FIXED.get(ptype)
+    if dt is None:
+        raise EncodingError(f"BYTE_STREAM_SPLIT of {TYPE_NAMES.get(ptype, ptype)}")
+    raw = np.ascontiguousarray(values, dt).view(np.uint8).reshape(-1, dt.itemsize)
+    return np.ascontiguousarray(raw.T).tobytes()
+
+
+#: Arrow's ``dictionary_pagesize_limit``: a chunk whose dictionary page
+#: reaches it writes the rest of its values PLAIN
+DICTIONARY_PAGE_LIMIT = 1 << 20
+#: the values Arrow's writer takes a batch (``write_batch_size``): the
+#: dictionary's size is checked after each
+_BATCH = 1024
+
+
+def dictionary_bit_width(entries: int) -> int:
+    """The indices' bit width for a dictionary of ``entries`` (1 at least)."""
+    return max(int(entries - 1).bit_length(), 1)
+
+
+def _dictionary_bytes(ptype: int, values, limit: int, cuts: np.ndarray):
+    """BYTE_ARRAY values: a dict lookup a value, batch by batch, until the
+    dictionary's PLAIN size reaches ``limit``; then on to the next cut."""
+    ids: dict = {}
+    keys: List[bytes] = []
+    idx: List[int] = []
+    size = 0
+    n = len(values)
+    stop = n
+    pos = 0
+    while pos < stop:
+        end = min(pos + _BATCH, stop)
+        for v in values[pos:end]:
+            i = ids.get(v)
+            if i is None:
+                i = ids[v] = len(keys)
+                keys.append(v)
+                size += 4 + len(v)
+            idx.append(i)
+        pos = end
+        if stop == n and size >= limit and pos < n:
+            stop = int(cuts[np.searchsorted(cuts, pos)])
+    return keys, np.asarray(idx, np.int64), stop
+
+
+def _dictionary_keys(ptype: int, values) -> Tuple[np.ndarray, int]:
+    """Fixed-width values as keys that compare as their bytes (a float's
+    bit pattern: -0.0 and each NaN stay themselves), and their width."""
+    if ptype == FIXED_LEN_BYTE_ARRAY:
+        raw = np.ascontiguousarray(values, np.uint8)
+        return raw.view(np.dtype((np.void, raw.shape[1]))).ravel(), raw.shape[1]
+    dt = _FIXED[ptype]
+    arr = np.ascontiguousarray(values, dt)
+    return arr.view(np.dtype(f"<u{dt.itemsize}")), dt.itemsize
+
+
+def dictionary_encode(ptype: int, values, limit: int = DICTIONARY_PAGE_LIMIT,
+                      cuts: Optional[np.ndarray] = None):
+    """A column chunk's dictionary: ``(dictionary values, indices, k)``.
+    The first ``k`` values are dictionary-encoded (``indices``, int64, in
+    the order of first appearance); where the dictionary's PLAIN size
+    reaches ``limit`` after a batch of 1024 values, ``k`` is the first of
+    ``cuts`` (the permitted cut points: record boundaries, ascending,
+    ending at ``len(values)``) at or past that batch, and the rest are
+    written PLAIN. BYTE_ARRAY values are a sequence of ``bytes``, and the
+    dictionary is a list of them; fixed widths numpy, and the dictionary
+    an array of the same kind."""
+    n = len(values)
+    if cuts is None:
+        cuts = np.arange(n + 1)
+    if ptype == BYTE_ARRAY:
+        return _dictionary_bytes(ptype, values, limit, cuts)
+    if ptype == BOOLEAN:
+        raise EncodingError("a BOOLEAN column is not dictionary-encoded")
+    keys, width = _dictionary_keys(ptype, values)
+    if n == 0:
+        return values[:0], np.zeros(0, np.int64), 0
+    uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), np.int64)
+    rank[order] = np.arange(len(uniq))
+    first_sorted = first[order]
+    full = -(-limit // width)  # entries at which the page reaches the limit
+    k = n
+    if len(uniq) >= full:
+        at = int(first_sorted[full - 1]) + 1
+        at = min(n, -(-at // _BATCH) * _BATCH)
+        if at < n:
+            k = int(cuts[np.searchsorted(cuts, at)])
+    entries = int(np.searchsorted(first_sorted, k))
+    return values[first_sorted[:entries]], rank[inv.ravel()[:k]], k
+
+
+def encode_dictionary_indices(indices: np.ndarray, bit_width: int) -> bytes:
+    """RLE_DICTIONARY data: one byte of bit width, then the hybrid."""
+    return bytes([bit_width]) + encode_hybrid(indices, bit_width)

@@ -10,9 +10,16 @@ package's compressed pages):
 * :func:`read_parquet_file` / :func:`read_parquet_files`: a file's columns
   (all, or a projection; all row groups, or a subset) as the port's
   ``HostTable`` (``expr/vectorized``);
-* :func:`write_parquet_file`: PLAIN values, uncompressed pages, RLE
-  definition levels, row groups of ``delta.tpu.write.rowGroupRows`` rows
-  and min/max/null statistics per column chunk in the footer;
+* :func:`write_parquet_file`: the JAX package's encoding policy
+  (dictionary pages for strings, BYTE_STREAM_SPLIT floats, SNAPPY where it
+  pays, ``delta.tpu.write.compression`` and ``.byteStreamSplit``), data
+  pages cut near 1 MiB, RLE definition levels, row groups of
+  ``delta.tpu.write.rowGroupRows`` rows and min/max/null statistics per
+  column chunk in the footer; :func:`write_nested` a checkpoint's file
+  (SNAPPY and a dictionary on every leaf);
+* the page codec: every SNAPPY page a file write or read touches goes in
+  one batch through ``exec/snappy`` (the kernels on ``cuda``, the plain
+  versions on ``cpu``);
 * :func:`chunk_statistics`: one column chunk's footer statistics as the
   Python values ``pyarrow``'s ``Statistics.min``/``max`` give (the row-group
   planner's input, ``exec/rowgroups``);
@@ -60,8 +67,10 @@ from delta_tpu_torch.utils.config import conf
 
 __all__ = [
     "write_parquet_file",
+    "write_parquet_files",
     "read_parquet_file",
     "read_parquet_files",
+    "read_parquet_batch",
     "read_metadata",
     "column_names",
     "collect_stats",
@@ -349,11 +358,8 @@ def _top_level(schema) -> Dict[str, Tuple[Any, int]]:
     return out
 
 
-def _decompress(codec: int, raw: bytes, size: int, name: str) -> bytes:
-    if codec == UNCOMPRESSED:
-        return raw
-    if codec == SNAPPY:
-        return snappy.decompress(raw)
+def _decompress(codec: int, raw, size: int, name: str) -> bytes:
+    """A page body of a codec other than SNAPPY (the batch's), on the host."""
     if codec == GZIP:
         try:
             return zlib.decompress(raw, 47)  # gzip or zlib header
@@ -370,6 +376,78 @@ def _decompress(codec: int, raw: bytes, size: int, name: str) -> bytes:
         except lz4.Lz4Error as e:
             raise ValueError(f"Parquet column {name!r}: corrupt LZ4_RAW page: {e}") from e
     raise _unsupported(name, f"codec {_CODEC_NAMES.get(codec, codec)}")
+
+
+class _Page:
+    """A page of a column chunk, its header parsed: ``levels`` a v2 page's
+    level bytes (stored uncompressed ahead of its body), ``body`` the bytes
+    as stored until :func:`_inflate` replaces them with the page's
+    uncompressed ones (``size`` bytes)."""
+
+    __slots__ = ("header", "levels", "body", "size", "compressed")
+
+    def __init__(self, header, levels, body, size, compressed):
+        self.header, self.levels, self.body = header, levels, body
+        self.size, self.compressed = size, compressed
+
+
+def _chunk_start(md) -> int:
+    start = md.dictionary_page_offset if md.dictionary_page_offset else md.data_page_offset
+    return min(start, md.data_page_offset)
+
+
+def _parse_pages(data, md, name: str, pos: int = 0) -> List[_Page]:
+    """The pages of one column chunk whose bytes start at ``data[pos]``:
+    headers until the chunk's values are all seen."""
+    end = min(pos + md.total_compressed_size, len(data))
+    pages: List[_Page] = []
+    seen = 0
+    while seen < md.num_values:
+        ph, pos = thrift.read(thrift.PageHeader, data, pos)
+        body_end = pos + ph.compressed_page_size
+        if body_end > end:
+            raise ValueError(f"Parquet column {name!r}: page runs past its column chunk")
+        if ph.type == DICTIONARY_PAGE:
+            dh = ph.dictionary_page_header
+            if dh.encoding not in (enc.PLAIN, enc.PLAIN_DICTIONARY):
+                raise _unsupported(name, f"dictionary encoding "
+                                   f"{enc.ENCODING_NAMES.get(dh.encoding, dh.encoding)}")
+            pages.append(_Page(ph, None, data[pos:body_end], ph.uncompressed_page_size, True))
+        elif ph.type == DATA_PAGE:
+            pages.append(_Page(ph, None, data[pos:body_end], ph.uncompressed_page_size, True))
+            seen += ph.data_page_header.num_values
+        elif ph.type == DATA_PAGE_V2:
+            dh = ph.data_page_header_v2
+            lv = (dh.repetition_levels_byte_length or 0) + (dh.definition_levels_byte_length or 0)
+            pages.append(_Page(ph, data[pos:pos + lv], data[pos + lv:body_end],
+                               ph.uncompressed_page_size - lv,
+                               dh.is_compressed is None or bool(dh.is_compressed)))
+            seen += dh.num_values
+        pos = body_end
+    return pages
+
+
+def _inflate(chunks: Sequence[Tuple[List[_Page], int, str, str]], device) -> None:
+    """Every page of ``chunks`` (pages, codec, column name, the file's
+    path) uncompressed in place: the SNAPPY pages of them all in one batch
+    on ``device`` (``exec/snappy.decompress_pages``), GZIP, ZSTD and
+    LZ4_RAW pages by their host decoders."""
+    jobs: List[_Page] = []
+    labels: List[str] = []
+    for pages, codec, name, source in chunks:
+        for p in pages:
+            if not p.compressed or codec == UNCOMPRESSED:
+                continue
+            if codec == SNAPPY:
+                jobs.append(p)
+                labels.append(f"{source}: column {name!r}" if source else f"column {name!r}")
+            else:
+                p.body = _decompress(codec, p.body, p.size, name)
+    if jobs:
+        out = snappy.decompress_pages([p.body for p in jobs], [p.size for p in jobs], device,
+                                      labels)
+        for p, body in zip(jobs, out):
+            p.body = body
 
 
 def _decode_values(name: str, buf, pos: int, end: int, encoding: int, ptype: int,
@@ -414,39 +492,24 @@ def _empty_dense(ptype: int, width: int):
     return _as_array(ptype, [])
 
 
-def _read_chunk(f, el, md, num_rows: int):
-    """One column chunk: (physical values, valid mask), values zero/None at
-    NULL rows."""
+def _decode_chunk(pages: List[_Page], el, md, num_rows: int):
+    """One flat column chunk from its inflated pages: (physical values,
+    valid mask), values zero/None at NULL rows."""
     name = el.name
     ptype = md.type
     width = int(el.type_length or 0)
     optional = el.repetition_type == OPTIONAL
-    start = md.dictionary_page_offset if md.dictionary_page_offset else md.data_page_offset
-    if md.data_page_offset < start:
-        start = md.data_page_offset
-    f.seek(start)
-    data = f.read(md.total_compressed_size)
-    pos = 0
     dictionary = None
     values: List[Any] = []
     valids: List[np.ndarray] = []
-    seen = 0
-    while seen < md.num_values:
-        ph, pos = thrift.read(thrift.PageHeader, data, pos)
-        body_end = pos + ph.compressed_page_size
-        if body_end > len(data):
-            raise ValueError(f"Parquet column {name!r}: page runs past its column chunk")
+    for pg in pages:
+        ph, page = pg.header, pg.body
         if ph.type == DICTIONARY_PAGE:
-            dh = ph.dictionary_page_header
-            if dh.encoding not in (enc.PLAIN, enc.PLAIN_DICTIONARY):
-                raise _unsupported(name, f"dictionary encoding "
-                                   f"{enc.ENCODING_NAMES.get(dh.encoding, dh.encoding)}")
-            page = _decompress(md.codec, data[pos:body_end], ph.uncompressed_page_size, name)
-            dictionary = _dictionary(name, page, ptype, dh.num_values, width)
+            dictionary = _dictionary(name, page, ptype, ph.dictionary_page_header.num_values,
+                                     width)
         elif ph.type == DATA_PAGE:
             dh = ph.data_page_header
             n = dh.num_values
-            page = _decompress(md.codec, data[pos:body_end], ph.uncompressed_page_size, name)
             p = 0
             if optional:
                 if dh.definition_level_encoding != enc.RLE:
@@ -462,30 +525,24 @@ def _read_chunk(f, el, md, num_rows: int):
                                   width)
             values.append(_as_array(ptype, vals))
             valids.append(valid)
-            seen += n
-        elif ph.type == DATA_PAGE_V2:
+        else:  # DATA_PAGE_V2
             dh = ph.data_page_header_v2
             n = dh.num_values
             dl, rl = dh.definition_levels_byte_length, dh.repetition_levels_byte_length or 0
             # a flat column's repetition levels (if a writer stores any) are
             # all 0: the definition levels follow them
             if optional:
-                valid = enc.decode_hybrid(data, pos + rl, pos + rl + dl, 1, n).astype(bool)
+                valid = enc.decode_hybrid(pg.levels, rl, rl + dl, 1, n).astype(bool)
             else:
                 valid = np.ones(n, bool)
-            body = data[pos + dl + rl:body_end]
-            if dh.is_compressed is None or dh.is_compressed:
-                body = _decompress(md.codec, body, ph.uncompressed_page_size - dl - rl, name)
             k = n - int(dh.num_nulls or 0) if optional else n
             if k != int(valid.sum()):
                 raise ValueError(f"Parquet column {name!r}: page null count disagrees "
                                  "with its definition levels")
-            vals = _decode_values(name, body, 0, len(body), dh.encoding, ptype, k, dictionary,
+            vals = _decode_values(name, page, 0, len(page), dh.encoding, ptype, k, dictionary,
                                   width)
             values.append(_as_array(ptype, vals))
             valids.append(valid)
-            seen += n
-        pos = body_end
     valid = np.concatenate(valids) if valids else np.zeros(0, bool)
     if len(valid) != num_rows:
         raise ValueError(f"Parquet column {name!r}: {len(valid)} values in a row group "
@@ -564,49 +621,91 @@ def column_names(meta) -> List[str]:
     return list(_top_level(meta.schema))
 
 
+class _PendingRead:
+    """One file's read with its page headers parsed and its pages not yet
+    inflated (:func:`_load_file`, then :func:`_inflate` of ``todo``, then
+    :func:`_finish_file`)."""
+
+    __slots__ = ("meta", "top", "names", "groups", "row_groups", "tree", "flat", "types",
+                 "pages", "todo")
+
+
+def _load_file(abs_path: str, columns: Optional[Sequence[str]], row_groups, meta) -> _PendingRead:
+    r = _PendingRead()
+    if meta is None:
+        meta = read_metadata(abs_path)
+    r.meta, r.row_groups = meta, row_groups
+    r.top = _top_level(meta.schema)
+    r.names = list(r.top) if columns is None else list(columns)
+    for c in r.names:
+        if c not in r.top:
+            raise KeyError(f"{abs_path}: no column {c!r} (columns: {list(r.top)})")
+    all_groups = meta.row_groups or []
+    r.groups = all_groups if row_groups is None else [all_groups[i] for i in row_groups]
+    r.tree = None
+    r.flat, r.types, r.pages, r.todo = {}, {}, {}, []
+    with open(abs_path, "rb") as f:
+
+        def load(md, name):
+            f.seek(_chunk_start(md))
+            return _parse_pages(f.read(md.total_compressed_size), md, name)
+
+        for c in r.names:
+            el, leaf = r.top[c]
+            if leaf < 0:
+                if r.tree is None:
+                    r.tree = {node.name: node for node in _schema_tree(meta.schema).children}
+                _load_top(r.tree[c], r.groups, load, abs_path, r.pages, r.todo)
+                continue
+            r.types[c] = _leaf_type(el)
+            r.flat[c] = []
+            for rg in r.groups:
+                md = rg.columns[leaf].meta_data
+                pgs = load(md, c)
+                r.flat[c].append(pgs)
+                r.todo.append((pgs, md.codec, c, abs_path))
+    return r
+
+
+def _finish_file(r: _PendingRead) -> HostTable:
+    cols: Dict[str, HostColumn] = {}
+    for c in r.names:
+        el, leaf = r.top[c]
+        if leaf < 0:
+            ncol = _read_top(r.tree[c], r.groups, r.pages)
+            cols[c] = HostColumn("nested", ncol, ncol.valid, _spec_of(ncol, c))
+            continue
+        stype, scale = r.types[c]
+        chunks = [_decode_chunk(pgs, el, rg.columns[leaf].meta_data, rg.num_rows)
+                  for pgs, rg in zip(r.flat[c], r.groups)]
+        cols[c] = _to_column(stype, scale, chunks, el.type)
+    n = (int(r.meta.num_rows) if r.row_groups is None
+         else sum(int(rg.num_rows) for rg in r.groups))
+    return HostTable(cols, n)
+
+
 def read_parquet_file(abs_path: str, columns: Optional[Sequence[str]] = None,
-                      row_groups: Optional[Sequence[int]] = None, meta=None) -> HostTable:
+                      row_groups: Optional[Sequence[int]] = None, meta=None,
+                      device="cuda") -> HostTable:
     """A data file's columns (all, or ``columns`` in the order given) as a
     ``HostTable``: every row group, or those of ``row_groups`` in the order
     given. ``meta`` is the file's footer where the caller has read it. A
-    nested column is a ``nested`` column (Dremel levels, ``expr/nested``)."""
-    if meta is None:
-        meta = read_metadata(abs_path)
-    top = _top_level(meta.schema)
-    names = list(top) if columns is None else list(columns)
-    for c in names:
-        if c not in top:
-            raise KeyError(f"{abs_path}: no column {c!r} (columns: {list(top)})")
-    cols: Dict[str, HostColumn] = {}
-    all_groups = meta.row_groups or []
-    groups = all_groups if row_groups is None else [all_groups[i] for i in row_groups]
-    tree = None
-    with open(abs_path, "rb") as f:
-        for c in names:
-            el, leaf = top[c]
-            if leaf < 0:
-                if tree is None:
-                    tree = {node.name: node for node in _schema_tree(meta.schema).children}
+    nested column is a ``nested`` column (Dremel levels, ``expr/nested``).
+    The page headers of every chunk read are parsed first, then the SNAPPY
+    pages of them all inflate in one batch on ``device``, then the values
+    decode."""
+    return read_parquet_batch([(abs_path, columns, row_groups, meta)], device)[0]
 
-                def chunk(md, node, name):
-                    start = (md.dictionary_page_offset if md.dictionary_page_offset
-                             else md.data_page_offset)
-                    start = min(start, md.data_page_offset)
-                    f.seek(start)
-                    return _read_leaf_chunk(f.read(md.total_compressed_size), md, node, name,
-                                            base=start)
 
-                ncol = _read_top(tree[c], groups, chunk)
-                cols[c] = HostColumn("nested", ncol, ncol.valid, _spec_of(ncol, c))
-                continue
-            stype, scale = _leaf_type(el)
-            chunks = []
-            for rg in groups:
-                md = rg.columns[leaf].meta_data
-                chunks.append(_read_chunk(f, el, md, rg.num_rows))
-            cols[c] = _to_column(stype, scale, chunks, el.type)
-    n = int(meta.num_rows) if row_groups is None else sum(int(rg.num_rows) for rg in groups)
-    return HostTable(cols, n)
+def read_parquet_batch(reads: Sequence[Tuple[str, Optional[Sequence[str]], Any, Any]],
+                       device="cuda") -> List[HostTable]:
+    """Several reads (``(abs_path, columns, row_groups, meta)`` each, as
+    :func:`read_parquet_file` takes them) with the SNAPPY pages of them all
+    in one batch on ``device``: a scan over many small files pays one
+    launch set, not one a file."""
+    pending = [_load_file(*r) for r in reads]
+    _inflate([t for r in pending for t in r.todo], device)
+    return [_finish_file(r) for r in pending]
 
 
 def _spec_of(col: NCol, name: str):
@@ -674,10 +773,10 @@ def _leaves(schema) -> List[Any]:
     return [el for el in schema[1:] if not el.num_children]
 
 
-def read_parquet_files(abs_paths: Sequence[str],
-                       columns: Optional[Sequence[str]] = None) -> List[HostTable]:
-    """Read data files; one table per file."""
-    return [read_parquet_file(p, columns) for p in abs_paths]
+def read_parquet_files(abs_paths: Sequence[str], columns: Optional[Sequence[str]] = None,
+                       device="cuda") -> List[HostTable]:
+    """Read data files, their pages in one batch; one table per file."""
+    return read_parquet_batch([(p, columns, None, None) for p in abs_paths], device)
 
 
 # -- writing ---------------------------------------------------------------------
@@ -752,31 +851,69 @@ def _chunk_stats(ptype: int, stype: str, vals, physical, nulls: int):
     return st
 
 
+#: Arrow's ``data_page_size``: a chunk's data pages are cut at the first
+#: record boundary past each multiple of this many bytes of encoded values
+PAGE_BYTES = 1 << 20
+#: the bytes of a column's first buffer that ``_compresses_well`` samples
+_SAMPLE = 65536
+#: ``delta.tpu.write.compression`` -> codec; the JAX package's other codecs
+#: are not written by the port (ROADMAP.md queue A item 3)
+_WRITE_CODECS = {"none": UNCOMPRESSED, "uncompressed": UNCOMPRESSED, "snappy": SNAPPY,
+                 "gzip": GZIP}
+_UNWRITTEN = ("zstd", "lz4", "lz4_raw", "brotli")
+
+
+def _write_codec(name: str) -> int:
+    key = str(name).lower()
+    if key in _UNWRITTEN:
+        raise NotImplementedError(
+            f"delta.tpu.write.compression={name!r}: the port writes SNAPPY, GZIP or no codec; "
+            "ZSTD, LZ4 and BROTLI writes are ROADMAP.md queue A item 3")
+    if key not in _WRITE_CODECS:
+        raise ValueError(f"delta.tpu.write.compression={name!r}: not a Parquet codec "
+                         "(auto, none, uncompressed, snappy, gzip)")
+    return _WRITE_CODECS[key]
+
+
 class _Leaf:
     """One column chunk's source: a flat column (``col``: its values and
     validity are the levels) or a nested leaf shredded into definition and
     repetition levels (``d``, ``r``: one entry a level, ``dense``: the
-    values at the full definition level)."""
+    values at the full definition level), with how it is written: its
+    ``codec``, a ``dictionary``, or BYTE_STREAM_SPLIT (``bss``)."""
 
     __slots__ = ("path", "stype", "col", "d", "r", "dense", "max_d", "max_r",
-                 "row_starts", "dense_starts")
+                 "row_starts", "dense_starts", "codec", "dictionary", "bss")
 
     def __init__(self, path, stype, col=None, d=None, r=None, dense=None, max_d=1, max_r=0):
         self.path, self.stype, self.col = path, stype, col
         self.d, self.r, self.dense, self.max_d, self.max_r = d, r, dense, max_d, max_r
+        self.codec, self.dictionary, self.bss = UNCOMPRESSED, False, False
         if col is None:
             self.row_starts = np.concatenate([np.flatnonzero(r == 0), [len(r)]])
             self.dense_starts = np.concatenate([[0], np.cumsum(d == max_d)])
 
-    def chunk(self, lo: int, hi: int):
-        """Rows ``lo:hi``: (level bytes, dense values, levels, nulls)."""
+    def values(self, lo: int, hi: int):
+        """The dense values of rows ``lo:hi``."""
         if self.col is not None:
-            valid = np.asarray(self.col.valid[lo:hi], bool)
-            levels = enc.encode_hybrid_bits(valid)
-            return (struct.pack("<I", len(levels)) + levels, self.col.values[lo:hi][valid],
-                    hi - lo, int((~valid).sum()))
+            return self.col.values[lo:hi][np.asarray(self.col.valid[lo:hi], bool)]
+        v0 = int(self.dense_starts[self.row_starts[lo]])
+        return self.dense[v0:int(self.dense_starts[self.row_starts[hi]])]
+
+    def value_starts(self, lo: int, hi: int) -> np.ndarray:
+        """The index among the dense values of rows ``lo:hi`` at which each
+        row boundary ``lo..hi`` falls."""
+        if self.col is not None:
+            return np.concatenate([[0], np.cumsum(np.asarray(self.col.valid[lo:hi], bool))])
+        at = self.dense_starts[self.row_starts[lo:hi + 1]]
+        return at - at[0]
+
+    def levels(self, lo: int, hi: int) -> Tuple[bytes, int]:
+        """Rows ``lo:hi``: (a v1 page's level bytes, its entry count)."""
+        if self.col is not None:
+            lv = enc.encode_hybrid_bits(np.asarray(self.col.valid[lo:hi], bool))
+            return struct.pack("<I", len(lv)) + lv, hi - lo
         e0, e1 = int(self.row_starts[lo]), int(self.row_starts[hi])
-        v0, v1 = int(self.dense_starts[e0]), int(self.dense_starts[e1])
         body = bytearray()
         if self.max_r:
             lv = enc.encode_hybrid(self.r[e0:e1], _levels_bits(self.max_r))
@@ -784,7 +921,7 @@ class _Leaf:
         if self.max_d:
             lv = enc.encode_hybrid(self.d[e0:e1], _levels_bits(self.max_d))
             body += struct.pack("<I", len(lv)) + lv
-        return bytes(body), self.dense[v0:v1], e1 - e0, (e1 - e0) - (v1 - v0)
+        return bytes(body), e1 - e0
 
 
 def _leaves_of(name: str, col: HostColumn, n: int, schema: List[Any]) -> List[_Leaf]:
@@ -807,45 +944,200 @@ def _nested_leaves(name: str, spec, ncol: NCol, n: int, schema: List[Any]) -> Li
                                                           shredded)]
 
 
+def _page_cuts(cum: np.ndarray) -> List[int]:
+    """Row boundaries ``0..R`` of a run of data pages, cut at the first row
+    boundary past each multiple of ``PAGE_BYTES``; ``cum[r]`` is the encoded
+    bytes before row ``r``."""
+    rows = len(cum) - 1
+    total = int(cum[-1]) if rows else 0
+    if total <= PAGE_BYTES:
+        return [0, rows]
+    targets = np.arange(1, total // PAGE_BYTES + 1, dtype=np.int64) * PAGE_BYTES
+    cuts = np.unique(np.searchsorted(cum, targets, side="left"))
+    return [0] + [c for c in cuts.tolist() if 0 < c < rows] + [rows]
+
+
+class _PageOut:
+    """A page as the writer emits it, before its codec: ``kind``
+    (DICTIONARY_PAGE or DATA_PAGE), ``count`` (dictionary entries, or the
+    data page's level entries), ``encoding`` and its uncompressed ``body``;
+    ``stored`` the bytes after the codec."""
+
+    __slots__ = ("kind", "count", "encoding", "body", "stored")
+
+    def __init__(self, kind, count, encoding, body):
+        self.kind, self.count, self.encoding, self.body = kind, count, encoding, body
+        self.stored = body
+
+
+def _value_bytes(physical) -> np.ndarray:
+    """The PLAIN bytes before each BYTE_ARRAY value (``len + 1`` entries)."""
+    lens = np.fromiter((len(v) for v in physical), np.int64, len(physical)) + 4
+    return np.concatenate([[0], np.cumsum(lens)])
+
+
+def _encode_chunk(leaf: _Leaf, lo: int, hi: int, stats: bool):
+    """Rows ``lo:hi`` of ``leaf`` as pages: (pages, encodings, entries,
+    footer statistics or None). A dictionary leaf gets a PLAIN dictionary
+    page and RLE_DICTIONARY data pages until the dictionary reaches its
+    page limit, then PLAIN pages; a ``bss`` leaf BYTE_STREAM_SPLIT pages;
+    any other PLAIN. Data pages are cut near ``PAGE_BYTES`` of encoded
+    values at record boundaries."""
+    kind, ptype, _, _ = _type_entry(leaf.stype)
+    vals = leaf.values(lo, hi)
+    physical = _physical(leaf.stype, kind, vals)
+    vstarts = leaf.value_starts(lo, hi)
+    rows = hi - lo
+    n_vals = len(physical)
+    width = {enc.INT32: 4, enc.FLOAT: 4, enc.INT64: 8, enc.DOUBLE: 8}.get(ptype, 1)
+    if ptype == enc.FIXED_LEN_BYTE_ARRAY:
+        width = enc.decimal_width(decimal_ps(leaf.stype)[0])
+    pages: List[_PageOut] = []
+    encodings = [enc.RLE]
+    cut_row = 0
+    entries = 0
+
+    def data_pages(r0: int, r1: int, cum: np.ndarray, encode, encoding: int) -> None:
+        nonlocal entries
+        bounds = _page_cuts(cum)
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            lv, count = leaf.levels(lo + r0 + a, lo + r0 + b)
+            v0, v1 = int(vstarts[r0 + a]), int(vstarts[r0 + b])
+            pages.append(_PageOut(DATA_PAGE, count, encoding, lv + encode(v0, v1)))
+            entries += count
+
+    if leaf.dictionary:
+        dvals, idx, k = enc.dictionary_encode(ptype, physical, cuts=vstarts)
+        cut_row = rows if k >= n_vals else int(np.searchsorted(vstarts, k, side="left"))
+        bw = enc.dictionary_bit_width(len(dvals))
+        pages.append(_PageOut(DICTIONARY_PAGE, len(dvals), enc.PLAIN,
+                              enc.encode_plain(ptype, dvals)))
+        data_pages(0, cut_row, vstarts[:cut_row + 1] * bw // 8,
+                   lambda v0, v1: enc.encode_dictionary_indices(idx[v0:v1], bw),
+                   enc.RLE_DICTIONARY)
+        encodings += [enc.PLAIN, enc.RLE_DICTIONARY]
+    if cut_row < rows or not pages:
+        rest = vstarts[cut_row:]
+        if ptype == enc.BYTE_ARRAY:
+            cum_v = _value_bytes(physical)
+            cum = cum_v[rest] - cum_v[rest[0]]
+        else:
+            cum = (rest - rest[0]) * width // (8 if ptype == enc.BOOLEAN else 1)
+        if leaf.bss:
+            data_pages(cut_row, rows, cum,
+                       lambda v0, v1: enc.encode_byte_stream_split(ptype, physical[v0:v1]),
+                       enc.BYTE_STREAM_SPLIT)
+            encodings.append(enc.BYTE_STREAM_SPLIT)
+        else:
+            data_pages(cut_row, rows, cum,
+                       lambda v0, v1: enc.encode_plain(ptype, physical[v0:v1]), enc.PLAIN)
+            if enc.PLAIN not in encodings:
+                encodings.append(enc.PLAIN)
+    st = (_chunk_stats(ptype, leaf.stype, vals, physical, entries - n_vals)
+          if stats else None)
+    return pages, encodings, entries, st
+
+
+def _gzip(body: bytes) -> bytes:
+    c = zlib.compressobj(6, zlib.DEFLATED, 31)  # gzip framing, as Arrow writes GZIP
+    return c.compress(body) + c.flush()
+
+
+class _FileOut:
+    """A file being written: its schema and leaves, its row groups' bounds
+    and encoded chunks (:func:`_encode_file`), its SNAPPY pages still to
+    compress (``jobs``)."""
+
+    __slots__ = ("schema", "leaves", "num_rows", "version", "bounds", "groups", "jobs")
+
+
+def _encode_file(schema: List[Any], leaves: Sequence[_Leaf], num_rows: int, rg_rows: int,
+                 stats: bool, version: int) -> _FileOut:
+    """Row groups of ``rg_rows`` rows cut at record boundaries (repetition
+    level 0), each leaf's chunk encoded, GZIP pages compressed, SNAPPY
+    pages listed in ``jobs`` for one batch; footer statistics where
+    ``stats``."""
+    f = _FileOut()
+    f.schema, f.leaves, f.num_rows, f.version = schema, leaves, num_rows, version
+    step = max(int(rg_rows), 1)
+    f.bounds = [(lo, min(lo + step, num_rows)) for lo in range(0, num_rows, step)]
+    if not f.bounds and version == 1:
+        f.bounds = [(0, 0)]
+    f.groups = [[_encode_chunk(leaf, lo, hi, stats) for leaf in leaves] for lo, hi in f.bounds]
+    f.jobs = []
+    for chunks in f.groups:
+        for leaf, (pages, _, _, _) in zip(leaves, chunks):
+            for p in pages:
+                if leaf.codec == SNAPPY:
+                    f.jobs.append(p)
+                elif leaf.codec == GZIP:
+                    p.stored = _gzip(p.body)
+    return f
+
+
+def _compress_files(files: Sequence[_FileOut], device) -> None:
+    """The SNAPPY pages of every file, in one batch on ``device``."""
+    jobs = [p for f in files for p in f.jobs]
+    for p, stored in zip(jobs, snappy.compress_pages([p.body for p in jobs], device)):
+        p.stored = stored
+
+
 def _write_file(schema: List[Any], leaves: Sequence[_Leaf], num_rows: int, rg_rows: int,
-                stats: bool, version: int) -> bytes:
-    """The file's bytes: PLAIN values, one uncompressed v1 data page a
-    column chunk, row groups of ``rg_rows`` rows cut at record boundaries
-    (repetition level 0), footer statistics where ``stats``."""
+                stats: bool, version: int, device) -> bytes:
+    """The file's bytes: :func:`_encode_file`, its SNAPPY pages in one
+    batch on ``device``, v1 data pages."""
+    f = _encode_file(schema, leaves, num_rows, rg_rows, stats, version)
+    _compress_files([f], device)
+    return _file_bytes(f)
+
+
+def _file_bytes(f: _FileOut) -> bytes:
+    """An encoded, compressed file's bytes: its pages and the footer."""
+    schema, leaves, num_rows, version = f.schema, f.leaves, f.num_rows, f.version
+    bounds, groups = f.bounds, f.groups
     out = bytearray(MAGIC)
     row_groups = []
-    step = max(int(rg_rows), 1)
-    bounds = [(lo, min(lo + step, num_rows)) for lo in range(0, num_rows, step)]
-    if not bounds and version == 1:
-        bounds = [(0, 0)]
-    for rg_i, (lo, hi) in enumerate(bounds):
-        chunks = []
+    for rg_i, ((lo, hi), chunks) in enumerate(zip(bounds, groups)):
+        cols = []
         rg_start = len(out)
-        for leaf in leaves:
-            kind, ptype, _, _ = _type_entry(leaf.stype)
-            levels, vals, count, nulls = leaf.chunk(lo, hi)
-            physical = _physical(leaf.stype, kind, vals)
-            body = levels + enc.encode_plain(ptype, physical)
-            header = thrift.PageHeader(
-                type=DATA_PAGE, uncompressed_page_size=len(body), compressed_page_size=len(body),
-                data_page_header=thrift.DataPageHeader(
-                    num_values=count, encoding=enc.PLAIN, definition_level_encoding=enc.RLE,
-                    repetition_level_encoding=enc.RLE)).write()
-            offset = len(out)
-            out += header
-            out += body
-            size = len(header) + len(body)
+        rg_raw = 0
+        for leaf, (pages, encodings, entries, st) in zip(leaves, chunks):
+            ptype = _type_entry(leaf.stype)[1]
+            start = len(out)
+            dict_at = data_at = None
+            raw = 0
+            for p in pages:
+                if p.kind == DICTIONARY_PAGE:
+                    dict_at = len(out)
+                    header = thrift.PageHeader(
+                        type=DICTIONARY_PAGE, uncompressed_page_size=len(p.body),
+                        compressed_page_size=len(p.stored),
+                        dictionary_page_header=thrift.DictionaryPageHeader(
+                            num_values=p.count, encoding=p.encoding)).write()
+                else:
+                    if data_at is None:
+                        data_at = len(out)
+                    header = thrift.PageHeader(
+                        type=DATA_PAGE, uncompressed_page_size=len(p.body),
+                        compressed_page_size=len(p.stored),
+                        data_page_header=thrift.DataPageHeader(
+                            num_values=p.count, encoding=p.encoding,
+                            definition_level_encoding=enc.RLE,
+                            repetition_level_encoding=enc.RLE)).write()
+                out += header
+                out += p.stored
+                raw += len(header) + len(p.body)
+            rg_raw += raw
             md = thrift.ColumnMetaData(
-                type=ptype, encodings=[enc.PLAIN, enc.RLE], path_in_schema=leaf.path,
-                codec=UNCOMPRESSED, num_values=count, total_uncompressed_size=size,
-                total_compressed_size=size, data_page_offset=offset,
-                statistics=(_chunk_stats(ptype, leaf.stype, vals, physical, nulls)
-                            if stats else None))
-            chunks.append(thrift.ColumnChunk(file_offset=offset, meta_data=md))
-        total = len(out) - rg_start
-        row_groups.append(thrift.RowGroup(columns=chunks, total_byte_size=total,
+                type=ptype, encodings=encodings, path_in_schema=leaf.path, codec=leaf.codec,
+                num_values=entries, total_uncompressed_size=raw,
+                total_compressed_size=len(out) - start, data_page_offset=data_at,
+                dictionary_page_offset=dict_at, statistics=st)
+            cols.append(thrift.ColumnChunk(file_offset=start, meta_data=md))
+        row_groups.append(thrift.RowGroup(columns=cols, total_byte_size=rg_raw,
                                           num_rows=hi - lo, file_offset=rg_start,
-                                          total_compressed_size=total, ordinal=rg_i))
+                                          total_compressed_size=len(out) - rg_start,
+                                          ordinal=rg_i))
     meta = thrift.FileMetaData(
         version=version, schema=schema, num_rows=num_rows, row_groups=row_groups,
         created_by="delta_tpu_torch parquet writer",
@@ -857,24 +1149,134 @@ def _write_file(schema: List[Any], leaves: Sequence[_Leaf], num_rows: int, rg_ro
     return bytes(out)
 
 
-def write_parquet_file(table: HostTable, abs_path: str) -> Tuple[int, int]:
+def _probe_sample(col: HostColumn, stype: str) -> Optional[bytes]:
+    """The first 64 KiB of the buffer Arrow holds a flat column's values
+    in, NULL slots zero as Arrow fills them (``_compresses_well`` samples
+    it): integers, dates and timestamps at their width, booleans
+    bit-packed, decimals as 16-byte little-endian words, floats as they
+    are, strings and binary their bytes without offsets, a nested column's
+    last leaf (Arrow's last buffer of its flattened children). None for an
+    empty column."""
+    if col.kind == "nested":  # the last buffer of the flattened children
+        node = col.values
+        while node.kind != "leaf":
+            node = list(node.fields.values())[-1] if node.kind == "struct" else node.element
+        return _probe_sample(HostColumn(leaf_kind(node.stype), node.values, node.valid,
+                                        node.stype), node.stype)
+    n = len(col.valid)
+    if n == 0:
+        return None
+    valid = np.asarray(col.valid, bool)
+    kind = col.kind
+    if kind == "bool":
+        take = min(n, 8 * _SAMPLE)
+        bits = np.asarray(col.values[:take], bool) & valid[:take]
+        return np.packbits(bits, bitorder="little").tobytes()
+    if kind in ("str", "object"):
+        parts, size = [], 0
+        for v, ok in zip(col.values.tolist(), valid.tolist()):
+            if ok:
+                b = v.encode("utf-8") if kind == "str" else bytes(v)
+                parts.append(b)
+                size += len(b)
+                if size >= _SAMPLE:
+                    break
+        return b"".join(parts)[:_SAMPLE]
+    if kind == "decimal":
+        take = min(n, _SAMPLE // 16)
+        v = np.where(valid[:take], col.values[:take], 0)
+        v = v.astype(object) if col.values.dtype == object else v.astype(np.int64)
+        return np.ascontiguousarray(enc.decimal_to_bytes(v, 16)[:, ::-1]).tobytes()
+    width = {"int8": 1, "int16": 2, "int32": 4, "date32": 4, "float32": 4}.get(stype, 8)
+    dt = np.dtype(f"<f{width}") if kind == "double" else np.dtype(f"<i{width}")
+    take = min(n, _SAMPLE // width)
+    v = np.where(valid[:take], np.asarray(col.values[:take]), 0)
+    return v.astype(dt).tobytes()
+
+
+def _compresses_well(samples: Sequence[Optional[bytes]], device) -> List[bool]:
+    """The JAX package's ``_compresses_well`` for each sample: True for an
+    empty column or a sample under 1,024 bytes, else whether Snappy takes
+    it below 0.9 of its size. The samples are compressed in one batch on
+    ``device``."""
+    out = [True] * len(samples)
+    probe = [i for i, s in enumerate(samples) if s is not None and len(s) >= 1024]
+    for i, z in zip(probe, snappy.compress_pages([samples[i] for i in probe], device)):
+        out[i] = len(z) < 0.9 * len(samples[i])
+    return out
+
+
+def write_parquet_file(table: HostTable, abs_path: str, compression: Optional[str] = None,
+                       device="cuda") -> Tuple[int, int]:
     """Write one Parquet file; returns (size_bytes, mtime_ms). Every column
-    is OPTIONAL, PLAIN, uncompressed; one data page per column chunk; a
-    nested column is written by its levels, its row groups cut at the same
-    rows as the flat columns'."""
-    schema = [thrift.SchemaElement(name="schema", num_children=len(table.columns))]
-    leaves: List[_Leaf] = []
-    for name, col in table.columns.items():
-        leaves.extend(_leaves_of(name, col, table.num_rows, schema))
+    is OPTIONAL; row groups of ``delta.tpu.write.rowGroupRows`` rows, data
+    pages cut near 1 MiB, a nested column written by its levels with its
+    row groups cut at the same rows as the flat columns'.
+
+    The JAX package's encoding policy (``delta_tpu/exec/parquet.py``
+    ``write_parquet_file``): a dictionary for top-level string and binary
+    columns, BYTE_STREAM_SPLIT for float columns unless
+    ``delta.tpu.write.byteStreamSplit`` is off, PLAIN elsewhere. Under
+    ``delta.tpu.write.compression=auto`` (or ``compression``) SNAPPY goes
+    to the dictionary and float columns and to any other top-level column
+    whose sample of Arrow's buffer compresses below 0.9
+    (:func:`_compresses_well`, its probes in one batch on ``device``); a
+    nested column's leaves stay uncompressed (the reference's per-column
+    codecs name top-level columns only). A named codec goes to every leaf.
+    The file's SNAPPY pages are compressed in one more batch."""
+    return write_parquet_files([(table, abs_path)], compression, device)[0]
+
+
+def write_parquet_files(items: Sequence[Tuple[HostTable, str]],
+                        compression: Optional[str] = None,
+                        device="cuda") -> List[Tuple[int, int]]:
+    """:func:`write_parquet_file` of each ``(table, abs_path)``, the probes
+    of them all in one batch on ``device`` and their SNAPPY pages in one
+    more: a write of many small files pays two launch sets, not two a
+    file."""
+    codec_name = str(compression if compression is not None
+                     else conf.get("delta.tpu.write.compression", "auto"))
+    codec_all = None if codec_name.lower() == "auto" else _write_codec(codec_name)
+    bss = bool(conf.get("delta.tpu.write.byteStreamSplit", True))
     rg_rows = max(int(conf.get("delta.tpu.write.rowGroupRows", ROW_GROUP_ROWS)), 1)
-    data = _write_file(schema, leaves, table.num_rows, rg_rows, stats=True, version=2)
-    os.makedirs(os.path.dirname(abs_path) or ".", exist_ok=True)
-    tmp = f"{abs_path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, abs_path)
-    st_ = os.stat(abs_path)
-    return st_.st_size, int(st_.st_mtime * 1000)
+    files = []
+    probed: List[Tuple[_Leaf, Optional[bytes]]] = []
+    for table, _ in items:
+        schema = [thrift.SchemaElement(name="schema", num_children=len(table.columns))]
+        leaves: List[_Leaf] = []
+        for name, col in table.columns.items():
+            lv = _leaves_of(name, col, table.num_rows, schema)
+            leaves.extend(lv)
+            if col.kind == "nested":
+                for leaf in lv:
+                    leaf.codec = UNCOMPRESSED if codec_all is None else codec_all
+                continue
+            leaf = lv[0]
+            leaf.dictionary = col.kind in ("str", "object")
+            floating = leaf.stype in ("float32", "float64")
+            leaf.bss = floating and bss
+            if codec_all is not None:
+                leaf.codec = codec_all
+            elif leaf.dictionary or floating:
+                leaf.codec = SNAPPY
+            else:
+                probed.append((leaf, _probe_sample(col, leaf.stype)))
+        files.append((schema, leaves, table.num_rows))
+    for (leaf, _), ok in zip(probed, _compresses_well([s for _, s in probed], device)):
+        leaf.codec = SNAPPY if ok else UNCOMPRESSED
+    encoded = [_encode_file(schema, leaves, n, rg_rows, stats=True, version=2)
+               for schema, leaves, n in files]
+    _compress_files(encoded, device)
+    out = []
+    for f, (_, abs_path) in zip(encoded, items):
+        os.makedirs(os.path.dirname(abs_path) or ".", exist_ok=True)
+        tmp = f"{abs_path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(_file_bytes(f))
+        os.replace(tmp, abs_path)
+        st_ = os.stat(abs_path)
+        out.append((st_.st_size, int(st_.st_mtime * 1000)))
+    return out
 
 
 # -- nested columns ---------------------------------------------------------------
@@ -926,71 +1328,54 @@ def _levels_bits(max_level: int) -> int:
     return max(int(max_level).bit_length(), 0)
 
 
-def _read_leaf_chunk(data, md, node: _SNode, name: str, base: int = 0):
-    """One leaf's column chunk: (definition levels, repetition levels, the
-    dense values of the entries at the leaf's full definition level).
-    ``data`` holds the file's bytes from offset ``base`` on."""
+def _decode_leaf(pages: List[_Page], md, node: _SNode, name: str):
+    """One leaf's column chunk from its inflated pages: (definition levels,
+    repetition levels, the dense values of the entries at the leaf's full
+    definition level)."""
     ptype = md.type
     width = int(node.el.type_length or 0)
     max_d, max_r = node.d, node.r
     wd, wr = _levels_bits(max_d), _levels_bits(max_r)
-    pos = (md.dictionary_page_offset if md.dictionary_page_offset
-           else md.data_page_offset)
-    pos = min(pos, md.data_page_offset) - base
-    end = pos + md.total_compressed_size
     dictionary = None
     defs: List[np.ndarray] = []
     reps: List[np.ndarray] = []
     values: List[Any] = []
-    seen = 0
-    while seen < md.num_values:
-        ph, pos = thrift.read(thrift.PageHeader, data, pos)
-        body_end = pos + ph.compressed_page_size
-        if body_end > end:
-            raise ValueError(f"Parquet column {name!r}: page runs past its column chunk")
+    for pg in pages:
+        ph = pg.header
         if ph.type == DICTIONARY_PAGE:
-            dh = ph.dictionary_page_header
-            page = _decompress(md.codec, bytes(data[pos:body_end]), ph.uncompressed_page_size,
-                               name)
-            dictionary = _dictionary(name, page, ptype, dh.num_values, width)
-        elif ph.type in (DATA_PAGE, DATA_PAGE_V2):
-            if ph.type == DATA_PAGE:
-                dh = ph.data_page_header
-                n = dh.num_values
-                page = _decompress(md.codec, bytes(data[pos:body_end]),
-                                   ph.uncompressed_page_size, name)
-                p = 0
-                r = np.zeros(n, np.int64)
-                if max_r:
-                    (ln,) = struct.unpack_from("<I", page, p)
-                    r = enc.decode_hybrid(page, p + 4, p + 4 + ln, wr, n)
-                    p += 4 + ln
-                d = np.full(n, max_d, np.int64)
-                if max_d:
-                    (ln,) = struct.unpack_from("<I", page, p)
-                    d = enc.decode_hybrid(page, p + 4, p + 4 + ln, wd, n)
-                    p += 4 + ln
-                body, bp = page, p
-            else:
-                dh = ph.data_page_header_v2
-                n = dh.num_values
-                rl, dl = dh.repetition_levels_byte_length or 0, dh.definition_levels_byte_length or 0
-                r = (enc.decode_hybrid(data, pos, pos + rl, wr, n) if max_r
-                     else np.zeros(n, np.int64))
-                d = (enc.decode_hybrid(data, pos + rl, pos + rl + dl, wd, n) if max_d
-                     else np.full(n, max_d, np.int64))
-                body = bytes(data[pos + rl + dl:body_end])
-                if dh.is_compressed is None or dh.is_compressed:
-                    body = _decompress(md.codec, body, ph.uncompressed_page_size - dl - rl, name)
-                bp = 0
-            k = int((d == max_d).sum())
-            vals = _decode_values(name, body, bp, len(body), dh.encoding, ptype, k, dictionary,
-                                  width)
-            defs.append(d)
-            reps.append(r)
-            values.append(_as_array(ptype, vals))
-            seen += n
-        pos = body_end
+            dictionary = _dictionary(name, pg.body, ptype, ph.dictionary_page_header.num_values,
+                                     width)
+            continue
+        if ph.type == DATA_PAGE:
+            dh = ph.data_page_header
+            n = dh.num_values
+            page = pg.body
+            p = 0
+            r = np.zeros(n, np.int64)
+            if max_r:
+                (ln,) = struct.unpack_from("<I", page, p)
+                r = enc.decode_hybrid(page, p + 4, p + 4 + ln, wr, n)
+                p += 4 + ln
+            d = np.full(n, max_d, np.int64)
+            if max_d:
+                (ln,) = struct.unpack_from("<I", page, p)
+                d = enc.decode_hybrid(page, p + 4, p + 4 + ln, wd, n)
+                p += 4 + ln
+            body, bp = page, p
+        else:  # DATA_PAGE_V2
+            dh = ph.data_page_header_v2
+            n = dh.num_values
+            rl, dl = dh.repetition_levels_byte_length or 0, dh.definition_levels_byte_length or 0
+            r = (enc.decode_hybrid(pg.levels, 0, rl, wr, n) if max_r
+                 else np.zeros(n, np.int64))
+            d = (enc.decode_hybrid(pg.levels, rl, rl + dl, wd, n) if max_d
+                 else np.full(n, max_d, np.int64))
+            body, bp = pg.body, 0
+        k = int((d == max_d).sum())
+        vals = _decode_values(name, body, bp, len(body), dh.encoding, ptype, k, dictionary, width)
+        defs.append(d)
+        reps.append(r)
+        values.append(_as_array(ptype, vals))
     cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
     dense = np.concatenate(values) if values else _empty_dense(ptype, width)
     return cat(defs), cat(reps), dense
@@ -1072,38 +1457,63 @@ def _leaf_col(node: _SNode, built, leaf_types) -> NCol:
                 stype=st)
 
 
-def _read_top(top: _SNode, groups, chunk) -> NCol:
-    """One top-level column of the row groups ``groups``; ``chunk(md, node,
-    name)`` reads a leaf's chunk (``_read_leaf_chunk``'s triple)."""
-    built: Dict[Any, Any] = {}
-    leaf_types: Dict[int, Any] = {}
+def _leaf_paths_of(top: _SNode) -> List[Tuple[_SNode, List[_SNode]]]:
+    """Each leaf under ``top`` with its path from ``top``."""
+    out = []
 
     def walk(node, path):
         path = path + [node]
         if node.leaf >= 0:
-            try:
-                leaf_types[id(node)] = _leaf_type(node.el)
-            except NotImplementedError as e:
-                leaf_types[id(node)] = e
-            name = ".".join(p.name for p in path)
-            parts = [chunk(rg.columns[node.leaf].meta_data, node, name) for rg in groups]
-            d = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
-            r = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
-            dense = (np.concatenate([p[2] for p in parts]) if parts
-                     else _empty_dense(node.el.type, int(node.el.type_length or 0)))
-            _assemble_leaf(path, d, r, dense, built)
+            out.append((node, path))
         for c in node.children:
             walk(c, path)
 
     walk(top, [])
+    return out
+
+
+def _read_top(top: _SNode, groups, pages) -> NCol:
+    """One top-level column of the row groups ``groups``; ``pages[(id(leaf
+    node), row group index)]`` are each leaf chunk's inflated pages."""
+    built: Dict[Any, Any] = {}
+    leaf_types: Dict[int, Any] = {}
+    for node, path in _leaf_paths_of(top):
+        try:
+            leaf_types[id(node)] = _leaf_type(node.el)
+        except NotImplementedError as e:
+            leaf_types[id(node)] = e
+        name = ".".join(p.name for p in path)
+        parts = [_decode_leaf(pages[(id(node), i)], rg.columns[node.leaf].meta_data, node, name)
+                 for i, rg in enumerate(groups)]
+        d = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
+        r = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
+        dense = (np.concatenate([p[2] for p in parts]) if parts
+                 else _empty_dense(node.el.type, int(node.el.type_length or 0)))
+        _assemble_leaf(path, d, r, dense, built)
     return _ncol(top, built, leaf_types)
 
 
-def read_nested(data, columns: Optional[Sequence[str]] = None) -> Tuple[int, Dict[str, NCol]]:
+def _load_top(top: _SNode, groups, load, source: str, pages: Dict[Any, List[_Page]],
+              todo: List[Tuple[List[_Page], int, str, str]]) -> None:
+    """Parse every leaf chunk of ``top`` (``load(md, name)`` gives a
+    chunk's pages) into ``pages``, and list each for :func:`_inflate`."""
+    for node, path in _leaf_paths_of(top):
+        name = ".".join(p.name for p in path)
+        for i, rg in enumerate(groups):
+            md = rg.columns[node.leaf].meta_data
+            pgs = load(md, name)
+            pages[(id(node), i)] = pgs
+            todo.append((pgs, md.codec, name, source))
+
+
+def read_nested(data, columns: Optional[Sequence[str]] = None, device="cuda",
+                source: str = "") -> Tuple[int, Dict[str, NCol]]:
     """A Parquet file's top-level columns (all, or those of ``columns``
     that it has), nested or flat, from its bytes: ``(num_rows, name ->
-    NCol)``. Every row group is read; a leaf of a type the codec lacks
-    decodes its validity and raises only when its values are asked for."""
+    NCol)``. Every row group is read; the file's SNAPPY pages inflate in
+    one batch on ``device``; a leaf of a type the codec lacks decodes its
+    validity and raises only when its values are asked for. ``source``
+    (the file's path) prefixes a corrupt page's error."""
     data = memoryview(data)
     size = len(data)
     if size < 12 or bytes(data[size - 4:]) != MAGIC:
@@ -1118,10 +1528,14 @@ def read_nested(data, columns: Optional[Sequence[str]] = None) -> Tuple[int, Dic
     want = {c.name: c for c in root.children}
     names = list(want) if columns is None else [c for c in columns if c in want]
     groups = meta.row_groups or []
-    return int(meta.num_rows or 0), {
-        top: _read_top(want[top], groups,
-                       lambda md, node, name: _read_leaf_chunk(data, md, node, name))
-        for top in names}
+    pages: Dict[Any, List[_Page]] = {}
+    todo: List[Tuple[List[_Page], int, str, str]] = []
+    for top in names:
+        _load_top(want[top], groups, lambda md, name: _parse_pages(data, md, name,
+                                                                   _chunk_start(md)),
+                  source, pages, todo)
+    _inflate(todo, device)
+    return int(meta.num_rows or 0), {top: _read_top(want[top], groups, pages) for top in names}
 
 
 # -- writing nested columns -------------------------------------------------------
@@ -1215,16 +1629,23 @@ def _shred(spec, col: NCol, n: int, out: List[Tuple[str, np.ndarray, np.ndarray,
 
 
 def write_nested(columns: Sequence[Tuple[str, Any, NCol]], num_rows: int,
-                 row_group_rows: int = ROW_GROUP_ROWS) -> bytes:
+                 row_group_rows: int = ROW_GROUP_ROWS, device="cuda") -> bytes:
     """A Parquet file of nested or flat top-level columns ``(name, type,
-    NCol)`` (types as above), as bytes: PLAIN values, uncompressed v1 data
-    pages, the hybrid for levels, row groups of ``row_group_rows`` rows.
-    No footer statistics."""
+    NCol)`` (types as above), as bytes, written as the JAX package's
+    checkpoints are (``pq.write_table(..., compression="snappy")``): SNAPPY
+    on every leaf (one batch on ``device``), a dictionary on every leaf but
+    a boolean one (PLAIN past the dictionary's page limit), v1 data pages,
+    the hybrid for levels, row groups of ``row_group_rows`` rows. No footer
+    statistics."""
     schema = [thrift.SchemaElement(name="schema", num_children=len(columns))]
     leaves: List[_Leaf] = []
     for name, spec, col in columns:
         leaves.extend(_nested_leaves(name, spec, col, num_rows, schema))
-    return _write_file(schema, leaves, num_rows, row_group_rows, stats=False, version=1)
+    for leaf in leaves:
+        leaf.codec = SNAPPY
+        leaf.dictionary = _type_entry(leaf.stype)[1] != enc.BOOLEAN
+    return _write_file(schema, leaves, num_rows, row_group_rows, stats=False, version=1,
+                       device=device)
 
 
 def _leaf_paths(elements: List[Any]) -> List[List[str]]:

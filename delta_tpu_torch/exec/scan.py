@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from delta_tpu_torch.exec import rowgroups
-from delta_tpu_torch.exec.parquet import column_names, read_parquet_file
+from delta_tpu_torch.exec.parquet import column_names, read_parquet_batch, read_parquet_file
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr.nested import ncol_from_py
 from delta_tpu_torch.expr.parser import parse_predicate
@@ -53,6 +53,10 @@ from delta_tpu_torch.utils import telemetry
 from delta_tpu_torch.utils.config import conf
 
 __all__ = ["read_files_as_table", "scan_files", "scan_to_table"]
+
+#: the stored bytes of consecutive whole-file reads whose pages inflate in one
+#: batch (``exec/parquet.read_parquet_batch``): one launch set a group, not a file
+_BATCH_BYTES = 64 << 20
 
 
 def _abs_data_path(data_path: str, file_path: str) -> str:
@@ -116,7 +120,8 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                         columns: Optional[Sequence[str]] = None, per_file: bool = False,
                         position_column: Optional[str] = None, predicate=None,
                         late_materialize: bool = True, file_ready=None,
-                        device_masks: Optional[Dict[str, np.ndarray]] = None):
+                        device_masks: Optional[Dict[str, np.ndarray]] = None,
+                        device="cuda"):
     """Decode AddFiles to one ``HostTable`` (or, ``per_file=True``, one per
     file in ``files`` order). Rows a file's deletion vector marks are
     dropped; ``position_column`` attaches each row's physical position
@@ -134,7 +139,12 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
     decode, the rest decode once and ARE filtered to the mask, so only a
     caller that re-applies the residual may pass it. Positions stay
     physical throughout: deletion vectors and masks both index physical
-    rows, and compose before any filter."""
+    rows, and compose before any filter. SNAPPY pages inflate on
+    ``device`` (the table's ``DeltaLog``'s): the consecutive files that
+    decode whole (one row group or no predicate, no device mask) or by
+    their device mask's surviving groups share one batch for up to
+    ``_BATCH_BYTES`` stored bytes of them; a file decoded by its row-group
+    plan takes a batch a decode."""
     from delta_tpu_torch.protocol.deletion_vectors import (
         DeletionVectorDescriptor, read_deletion_vector,
     )
@@ -197,7 +207,8 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                             - {c.lower() for c in file_cols})
         t = None
         if keep_idx and late_materialize and refs_covered and pred_cols and rest_cols:
-            t1 = read_parquet_file(abs_path, pred_cols, row_groups=keep_idx, meta=meta)
+            t1 = read_parquet_file(abs_path, pred_cols, row_groups=keep_idx, meta=meta,
+                                   device=device)
             try:
                 mask = boolean_mask(predicate, _mask_table(t1, const_row))
             except Exception:
@@ -220,20 +231,20 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
                 if late_skipped:
                     t1 = t1.take(np.concatenate(rows) if rows else np.empty(0, np.int64))
                     keep_idx = survivors
-            t2 = read_parquet_file(abs_path, rest_cols, row_groups=keep_idx, meta=meta)
+            t2 = read_parquet_file(abs_path, rest_cols, row_groups=keep_idx, meta=meta,
+                                   device=device)
             cols = dict(t1.columns)
             cols.update(t2.columns)
             t = HostTable({c: cols[c] for c in file_cols}, t1.num_rows)
         if t is None:
-            t = read_parquet_file(abs_path, file_cols, row_groups=keep_idx, meta=meta)
+            t = read_parquet_file(abs_path, file_cols, row_groups=keep_idx, meta=meta,
+                                  device=device)
         pos = _group_rows(offsets, keep_idx) if need_positions else None
         return t, pos, late_skipped, late_bytes
 
-    def _decode_device_masked(abs_path, meta, keep_idx, file_cols, need_positions, dev_mask):
-        """The device path's survivor fetch: drop the groups whose mask slice
-        is all False, decode the rest once and filter them to the mask:
-        (table, positions or None, (groups skipped, bytes skipped, survivor
-        bytes))."""
+    def _device_survivors(abs_path, meta, keep_idx, dev_mask):
+        """The groups of ``keep_idx`` whose mask slice holds a survivor:
+        (survivors, (groups skipped, bytes skipped, survivor bytes))."""
         offsets = rowgroups.row_group_offsets(meta)
         if len(dev_mask) != offsets[-1]:
             raise ValueError(f"{abs_path}: a device mask of {len(dev_mask)} rows for a "
@@ -248,16 +259,58 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             else:
                 dev_skipped += 1
                 dev_bytes += size
-        t = read_parquet_file(abs_path, file_cols, row_groups=survivors, meta=meta)
+        return survivors, (dev_skipped, dev_bytes, surv_bytes)
+
+    def _decode_device_masked(abs_path, meta, survivors, file_cols, need_positions, dev_mask,
+                              pre: Optional[HostTable]):
+        """The device path's survivor fetch: the surviving groups (``pre``
+        where the batch decoded them) filtered to the mask: (table,
+        positions or None)."""
+        offsets = rowgroups.row_group_offsets(meta)
+        t = pre if pre is not None else read_parquet_file(
+            abs_path, file_cols, row_groups=survivors, meta=meta, device=device)
         phys = _group_rows(offsets, survivors)
         keep = dev_mask[phys]
         t = t.filter(keep)
         pos = phys[keep] if need_positions else None
-        return t, pos, (dev_skipped, dev_bytes, surv_bytes)
+        return t, pos
 
-    def read_one(fidx: int, add: AddFile) -> HostTable:
+    def _plan(meta, part_row):
+        """The row-group tier's plan of a file: (groups kept, bytes planned
+        away)."""
+        if len(meta.row_groups or []) > 1:
+            plan = rowgroups.plan_row_groups(meta, predicate, part_row or None,
+                                             pcols_lower, rewrites=pred_rewrites)
+            return plan.keep, plan.skipped_bytes
+        return list(range(len(meta.row_groups or []))), 0
+
+    def whole(add: AddFile):
+        """(path, footer, columns, the row groups a batch may decode, the
+        device plan): a file read with no row-group plan (a single group,
+        or no predicate) and no device mask decodes whole (``None``), a
+        file with a device mask its surviving groups (the plan is then
+        ``(groups kept, bytes planned away, survivors, device stats)``);
+        both share a batch. Other planned files decode alone (``False``)."""
         abs_path = _abs_data_path(data_path, add.path)
         meta = rowgroups.read_footer(abs_path)
+        present = column_names(meta)
+        n_rg = len(meta.row_groups or [])
+        dev_mask = device_masks.get(add.path) if device_masks else None
+        planned = (rg_skipping and predicate is not None and n_rg
+                   and (n_rg > 1 or dev_mask is not None))
+        cols_ = [c for c in data_cols if c in present]
+        if not planned:
+            return abs_path, meta, cols_, None, None
+        if dev_mask is None:
+            return abs_path, meta, cols_, False, None
+        keep_idx, skipped_bytes = _plan(
+            meta, typed_partition_row(add, part_schema) if part_cols else {})
+        survivors, dstats = _device_survivors(abs_path, meta, keep_idx, dev_mask)
+        return abs_path, meta, cols_, survivors, (keep_idx, skipped_bytes, survivors, dstats)
+
+    def read_one(fidx: int, add: AddFile, meta, pre: Optional[HostTable],
+                 dplan) -> HostTable:
+        abs_path = _abs_data_path(data_path, add.path)
         present = column_names(meta)
         file_cols = [c for c in data_cols if c in present]
         part_row = typed_partition_row(add, part_schema) if part_cols else {}
@@ -268,18 +321,16 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
         t = positions = None
         n_rg = len(meta.row_groups or [])
         if rg_skipping and predicate is not None and n_rg:
-            keep_idx = list(range(n_rg))
-            skipped_bytes = 0
-            if n_rg > 1:
-                plan = rowgroups.plan_row_groups(meta, predicate, part_row or None,
-                                                 pcols_lower, rewrites=pred_rewrites)
-                keep_idx, skipped_bytes = plan.keep, plan.skipped_bytes
-            pruned = n_rg - len(keep_idx)
-            late_capable = late_materialize and keep_idx and pred_refs and n_rg > 1
             dev_mask = device_masks.get(add.path) if device_masks else None
             if dev_mask is not None:
-                t, positions, dstats = _decode_device_masked(
-                    abs_path, meta, keep_idx, file_cols, need_positions, dev_mask)
+                keep_idx, skipped_bytes, survivors, dstats = dplan
+            else:
+                keep_idx, skipped_bytes = _plan(meta, part_row)
+            pruned = n_rg - len(keep_idx)
+            late_capable = late_materialize and keep_idx and pred_refs and n_rg > 1
+            if dev_mask is not None:
+                t, positions = _decode_device_masked(
+                    abs_path, meta, survivors, file_cols, need_positions, dev_mask, pre)
                 rg_stats.append((n_rg, pruned, 0, skipped_bytes, 0) + dstats)
             elif pruned or late_capable:
                 t, positions, late_n, late_bytes = _decode_pruned(
@@ -288,7 +339,8 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             else:
                 rg_stats.append((n_rg, 0, 0, 0, 0, 0, 0, 0))
         if t is None:
-            t = read_parquet_file(abs_path, file_cols, meta=meta)
+            t = pre if pre is not None else read_parquet_file(abs_path, file_cols, meta=meta,
+                                                              device=device)
         if add.deletion_vector is not None:
             dv_rows = read_deletion_vector(DeletionVectorDescriptor.from_dict(add.deletion_vector),
                                            data_path).astype(np.int64)
@@ -327,7 +379,23 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
             file_ready(fidx, add, t)
         return t
 
-    out = [read_one(i, add) for i, add in enumerate(files)]
+    # files that decode whole, and the device-masked files' surviving
+    # groups, go in groups of up to _BATCH_BYTES stored bytes, each group's
+    # pages inflating in one batch; the rest a file at a time
+    out: List[HostTable] = []
+    i = 0
+    while i < len(files):
+        group, size = [], 0
+        while i < len(files) and (not group or size < _BATCH_BYTES):
+            abs_path, meta, cols_, rgs, dplan = whole(files[i])
+            group.append((i, abs_path, meta, cols_, rgs, dplan))
+            size += sum(int(rg.total_compressed_size or 0) for rg in meta.row_groups or [])
+            i += 1
+        batch = [g for g in group if g[4] is not False]
+        pre = dict(zip([g[0] for g in batch], read_parquet_batch(
+            [(p, c, rgs, m) for _, p, m, c, rgs, _ in batch], device)))
+        out.extend(read_one(j, files[j], m, pre.pop(j, None), dp)
+                   for j, _, m, _, _, dp in group)
     if rg_stats:
         s = np.asarray([r for r in rg_stats], np.int64).sum(axis=0)
         rg_total, rg_pruned, rg_late, planned, late_bytes, rg_dev, dev_bytes, survivor = \
@@ -383,7 +451,8 @@ def scan_to_table(snapshot, filters: Sequence[Union[str, ir.Expression]] = (),
         if residual and scan.files:
             device_masks = column_cache.device_residual_masks(snapshot, scan.files, pred)
         table = read_files_as_table(snapshot.delta_log.data_path, scan.files, snapshot.metadata,
-                                    read_cols, predicate=pred, device_masks=device_masks)
+                                    read_cols, predicate=pred, device_masks=device_masks,
+                                    device=snapshot.delta_log.device)
         t2 = time.perf_counter_ns()
         if residual and table.num_rows:
             table = filter_table(table, pred)

@@ -38,13 +38,15 @@ class Struct:
     """A Thrift structure: ``FIELDS`` maps field id -> (name, type)."""
 
     FIELDS: Dict[int, Tuple[str, Any]] = {}
+    #: the field names; each is also a class attribute of value None, so an
+    #: instance holds only the fields that were set (a page header a page)
+    NAMES: frozenset = frozenset()
+    #: (field id, name, type, compact wire type) in field-id order: the writer's walk
+    PLAN: Tuple = ()
 
     def __init__(self, **kw):
-        names = {n for n, _ in self.FIELDS.values()}
-        for n in names:
-            setattr(self, n, None)
         for k, v in kw.items():
-            if k not in names:
+            if k not in self.NAMES:
                 raise TypeError(f"{type(self).__name__} has no field {k!r}")
             setattr(self, k, v)
 
@@ -68,7 +70,12 @@ def struct(name: str, fields: Sequence[Tuple[int, str, Any]]) -> type:
     Types: ``"bool"``, ``"i8"``, ``"i16"``, ``"i32"``, ``"i64"``,
     ``"double"``, ``"binary"``, ``"string"``, a Struct subclass, or
     ``("list", type)``."""
-    return type(name, (Struct,), {"FIELDS": {fid: (n, t) for fid, n, t in fields}})
+    names = [n for _, n, _ in fields]
+    return type(name, (Struct,), dict({n: None for n in names},
+                                      FIELDS={fid: (n, t) for fid, n, t in fields},
+                                      NAMES=frozenset(names),
+                                      PLAN=tuple((fid, n, t, _wire(t))
+                                                 for fid, n, t in sorted(fields))))
 
 
 # -- reading -----------------------------------------------------------------
@@ -142,7 +149,7 @@ def _read_value(buf, pos: int, wire: int, spec) -> Tuple[Any, int]:
 
 
 def _read_struct(buf, pos: int, cls) -> Tuple[Any, int]:
-    obj = cls() if cls is not None else None
+    obj = cls.__new__(cls) if cls is not None else None  # every field None
     last = 0
     while True:
         if pos >= len(buf):
@@ -236,12 +243,10 @@ def _write_value(out: bytearray, spec, v) -> None:
 
 def _write_struct(out: bytearray, obj: Struct) -> None:
     last = 0
-    for fid in sorted(obj.FIELDS):
-        name, spec = obj.FIELDS[fid]
+    for fid, name, spec, wire in obj.PLAN:
         v = getattr(obj, name)
         if v is None:
             continue
-        wire = _wire(spec)
         if spec == "bool":
             wire = _TRUE if v else _FALSE
         delta = fid - last

@@ -39,13 +39,17 @@ from delta_tpu_torch.schema.types import CharType, StructType, VarcharType
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
 from delta_tpu_torch.utils.errors import SchemaMismatchError
 
-__all__ = ["normalize_data", "write_files", "escape_partition_value",
+__all__ = ["normalize_data", "write_files", "write_tables", "escape_partition_value",
            "unescape_partition_value", "partition_path", "HIVE_DEFAULT_PARTITION"]
 
 # Hive-style partition-path escaping (Spark's ExternalCatalogUtils): these
 # characters are %-encoded in directory names
 _ESCAPE = set('\\"#%\'*/:=?\x7f[]^ \t\n\x0b\x0c\r{}')
 HIVE_DEFAULT_PARTITION = "__HIVE_DEFAULT_PARTITION__"
+#: the values (rows x columns) of consecutive files written with one codec
+#: batch (``exec/parquet.write_parquet_files``): two launch sets a group of
+#: small files, not two a file
+_BATCH_CELLS = 32 << 20
 _EPOCH_DAY = _dt.date(1970, 1, 1)
 _EPOCH_TS = _dt.datetime(1970, 1, 1)
 
@@ -175,8 +179,20 @@ def _split_by_partition(table: HostTable, part_cols: Sequence[str]
 
 def write_files(data_path: str, table: HostTable, metadata: Metadata,
                 data_change: bool = True,
-                target_file_rows: Optional[int] = None) -> List[AddFile]:
-    """Write a batch as partitioned Parquet data files; return their AddFiles."""
+                target_file_rows: Optional[int] = None, device="cuda") -> List[AddFile]:
+    """Write a batch as partitioned Parquet data files; return their AddFiles.
+    Each file's page codec runs on ``device`` (the table's ``DeltaLog``'s)."""
+    return write_tables(data_path, [table], metadata, data_change, target_file_rows,
+                        device)[0]
+
+
+def write_tables(data_path: str, tables: Sequence[HostTable], metadata: Metadata,
+                 data_change: bool = True, target_file_rows: Optional[int] = None,
+                 device="cuda") -> List[List[AddFile]]:
+    """:func:`write_files` of each table (each split into its own files, as
+    one call a table would), the files of them all sharing codec batches:
+    a command that rewrites many files pays two launch sets a batch, not
+    two a file."""
     schema: StructType = metadata.schema
     if any("delta.generationExpression" in (f.metadata or {}) for f in schema.fields):
         raise NotImplementedError("generated columns are not ported")
@@ -185,35 +201,48 @@ def write_files(data_path: str, table: HostTable, metadata: Metadata,
         raise NotImplementedError("char/varchar write semantics are not ported")
     if any(k.lower().startswith("delta.constraints.") for k in metadata.configuration or {}):
         raise NotImplementedError("CHECK constraints are not ported")
-    schema_utils.check_column_name_duplication(schema_utils.schema_from_table(table),
-                                               "in the data to save")
-    table = normalize_data(table, schema)
     num_indexed = DeltaConfigs.DATA_SKIPPING_NUM_INDEXED_COLS.from_metadata(metadata)
     if target_file_rows is None:
         target_file_rows = int(conf.get("delta.tpu.write.targetFileRows", 4_000_000))
     part_cols = list(metadata.partition_columns)
     data_cols = [f.name for f in schema.fields if f.name not in part_cols]
-    groups = _split_by_partition(table, part_cols) if part_cols else [({}, table)]
-    adds = []
-    for pv, part_table in groups:
-        if part_table.num_rows == 0:
-            continue
-        if target_file_rows and part_table.num_rows > target_file_rows:
-            chunks = [part_table.slice(s, target_file_rows)
-                      for s in range(0, part_table.num_rows, target_file_rows)]
-        else:
-            chunks = [part_table]
-        prefix = partition_path(pv, part_cols)
-        for idx, chunk in enumerate(chunks):
-            file_data = chunk.select(data_cols) if part_cols else chunk
-            name = f"part-{idx:05d}-{uuid.uuid4()}.c000.snappy.parquet"
-            rel = f"{prefix}/{name}" if prefix else name
-            size, mtime = pq_exec.write_parquet_file(
-                file_data, os.path.join(data_path, rel.replace("/", os.sep)))
-            adds.append(AddFile(
-                # AddFile.path is URI-encoded per the protocol (a Hive-escaped
-                # directory's '%' becomes '%25'); readers unquote once
-                path=urllib.parse.quote(rel, safe="/:@!$&'()*+,;=-._~"),
-                partition_values=pv, size=size, modification_time=mtime,
-                data_change=data_change, stats=pq_exec.stats_json(file_data, num_indexed)))
-    return adds
+    planned = []  # (table index, partition values, file data, relative path)
+    for ti, table in enumerate(tables):
+        schema_utils.check_column_name_duplication(schema_utils.schema_from_table(table),
+                                                   "in the data to save")
+        table = normalize_data(table, schema)
+        groups = _split_by_partition(table, part_cols) if part_cols else [({}, table)]
+        for pv, part_table in groups:
+            if part_table.num_rows == 0:
+                continue
+            if target_file_rows and part_table.num_rows > target_file_rows:
+                chunks = [part_table.slice(s, target_file_rows)
+                          for s in range(0, part_table.num_rows, target_file_rows)]
+            else:
+                chunks = [part_table]
+            prefix = partition_path(pv, part_cols)
+            for idx, chunk in enumerate(chunks):
+                file_data = chunk.select(data_cols) if part_cols else chunk
+                name = f"part-{idx:05d}-{uuid.uuid4()}.c000.snappy.parquet"
+                planned.append((ti, pv, file_data, f"{prefix}/{name}" if prefix else name))
+    # consecutive files of up to _BATCH_CELLS values share their codec batches
+    written: List[Tuple[int, int]] = []
+    at = 0
+    while at < len(planned):
+        end, cells = at, 0
+        while end < len(planned) and (end == at or cells < _BATCH_CELLS):
+            cells += planned[end][2].num_rows * max(len(planned[end][2].columns), 1)
+            end += 1
+        written += pq_exec.write_parquet_files(
+            [(t, os.path.join(data_path, rel.replace("/", os.sep)))
+             for _, _, t, rel in planned[at:end]], device=device)
+        at = end
+    out: List[List[AddFile]] = [[] for _ in tables]
+    for (ti, pv, file_data, rel), (size, mtime) in zip(planned, written):
+        out[ti].append(AddFile(
+            # AddFile.path is URI-encoded per the protocol (a Hive-escaped
+            # directory's '%' becomes '%25'); readers unquote once
+            path=urllib.parse.quote(rel, safe="/:@!$&'()*+,;=-._~"),
+            partition_values=pv, size=size, modification_time=mtime,
+            data_change=data_change, stats=pq_exec.stats_json(file_data, num_indexed)))
+    return out

@@ -396,7 +396,7 @@ def _adds_ncol(adds: Sequence[AddFile], spec, build) -> NCol:
     return NCol("struct", np.ones(k, bool), fields={name: fields[name] for name, _ in spec[1]})
 
 
-def _part_bytes(acts: Sequence[Action], schema, v2_build) -> bytes:
+def _part_bytes(acts: Sequence[Action], schema, v2_build, device) -> bytes:
     """One part's Parquet bytes: a row an action, in the order given; the
     adds column by column, the few other actions through their rows."""
     n = len(acts)
@@ -412,17 +412,17 @@ def _part_bytes(acts: Sequence[Action], schema, v2_build) -> bytes:
         else:
             col = ncol_from_py(spec, [a.to_dict() for a in picked])
         cols.append((name, spec, embed(col, rows, n)))
-    return pq.write_nested(cols, n)
+    return pq.write_nested(cols, n, device=device)
 
 
 def write_checkpoint(store: LocalLogStore, log_path: str, version: int,
                      actions: Sequence[Action], parts: Optional[int] = None,
-                     part_size: int = 1_000_000) -> CheckpointMetaData:
+                     part_size: int = 1_000_000, device="cuda") -> CheckpointMetaData:
     """Write a checkpoint of ``version`` holding ``actions`` (the
     reconciled state, ``Snapshot.checkpoint_actions``): one part, or
     ``parts`` (or as many as ``part_size`` actions a part need), each a
-    slice of the actions in order; then ``_last_checkpoint``, after every
-    part is written."""
+    slice of the actions in order, its pages compressed on ``device``; then
+    ``_last_checkpoint``, after every part is written."""
     n = len(actions)
     if parts is None:
         parts = 1 if n <= part_size else math.ceil(n / part_size)
@@ -438,7 +438,7 @@ def write_checkpoint(store: LocalLogStore, log_path: str, version: int,
         chunk = math.ceil(n / parts) if n else 0
         slices = [actions[i * chunk:(i + 1) * chunk] for i in range(parts)]
     for path, acts in zip(paths, slices):
-        store.write_bytes(path, _part_bytes(acts, schema, build), overwrite=True)
+        store.write_bytes(path, _part_bytes(acts, schema, build, device), overwrite=True)
     md = CheckpointMetaData(version, n, None if parts == 1 else parts)
     write_last_checkpoint(store, log_path, md)
     return md
@@ -465,9 +465,11 @@ def row_to_action(name: str, d: Optional[Dict[str, Any]]) -> Optional[Action]:
     return None
 
 
-def read_checkpoint_actions(store: LocalLogStore, paths: Sequence[str]) -> List[Action]:
+def read_checkpoint_actions(store: LocalLogStore, paths: Sequence[str],
+                            device="cuda") -> List[Action]:
     """One checkpoint (all its parts) back into actions: parts in order,
-    within a part protocol, metadata, txns, removes, adds."""
+    within a part protocol, metadata, txns, removes, adds; each part's
+    pages inflate on ``device``."""
     out: List[Action] = []
     for p in paths:
         try:
@@ -475,7 +477,8 @@ def read_checkpoint_actions(store: LocalLogStore, paths: Sequence[str]) -> List[
         except FileNotFoundError as e:
             version = filenames.get_file_version(os.path.basename(paths[0]))
             raise errors.missing_part_files(version, e) from e
-        _, cols = pq.read_nested(data, ["protocol", "metaData", "txn", "remove", "add"])
+        _, cols = pq.read_nested(data, ["protocol", "metaData", "txn", "remove", "add"],
+                                 device=device, source=p)
         for name in ("protocol", "metaData", "txn", "remove", "add"):
             col = cols.get(name)
             if col is None:

@@ -317,10 +317,12 @@ def _partition_dicts(col: Optional[NCol], rows: np.ndarray, is_add: np.ndarray):
     return out
 
 
-def decode_checkpoint_parts(store: LocalLogStore, paths: Sequence[str]):
+def decode_checkpoint_parts(store: LocalLogStore, paths: Sequence[str], device="cuda"):
     """Each checkpoint part's columns, in part order: ``(num_rows, name ->
-    NCol)`` by the nested Parquet reader."""
-    return [pq.read_nested(store.read_bytes(p), ["txn", "add", "remove", "metaData", "protocol"])
+    NCol)`` by the nested Parquet reader, each part's pages inflated in one
+    batch on ``device``."""
+    return [pq.read_nested(store.read_bytes(p), ["txn", "add", "remove", "metaData", "protocol"],
+                           device=device, source=p)
             for p in paths]
 
 
@@ -328,9 +330,10 @@ def decode_segment(
     store: LocalLogStore,
     checkpoint_paths: Sequence[str],
     delta_paths: Sequence[str],
+    device="cuda",
 ) -> SegmentColumns:
     """Decode a log segment (checkpoint parts, then ordered delta files) to
-    :class:`SegmentColumns`.
+    :class:`SegmentColumns`; the checkpoint's pages inflate on ``device``.
 
     Field semantics follow the JAX package's explicit-schema Arrow parse: a
     row is a file action when ``add.path`` or ``remove.path`` is present,
@@ -348,7 +351,7 @@ def decode_segment(
     batches = []
     sp_parts = []
     n_rows = 0
-    for n, cols in decode_checkpoint_parts(store, checkpoint_paths):
+    for n, cols in decode_checkpoint_parts(store, checkpoint_paths, device):
         for name in ("protocol", "metaData", "txn"):
             col = cols.get(name)
             if col is not None and col.valid.any():

@@ -180,7 +180,7 @@ class DeltaLog:
         md = ckpt_mod.write_checkpoint(self.store, self.log_path, snap.version,
                                        snap.checkpoint_actions(),
                                        part_size=conf.get("delta.tpu.checkpointPartSize")
-                                       or 1_000_000)
+                                       or 1_000_000, device=self.device)
         self.cleanup_expired_logs(snap)
         return md
 

@@ -53,7 +53,7 @@ class Snapshot:
             try:
                 return decode_segment(self.delta_log.store,
                                       [f.path for f in segment.checkpoint_files],
-                                      [f.path for f in segment.deltas])
+                                      [f.path for f in segment.deltas], self.delta_log.device)
             except Exception as e:
                 if segment.checkpoint_version is None or self._checkpoint_readable(segment):
                     raise
@@ -71,13 +71,19 @@ class Snapshot:
                 segment = self.segment = retry
 
     def _checkpoint_readable(self, segment: LogSegment) -> bool:
-        """Does every checkpoint part decode as Parquet?"""
+        """Does every checkpoint part decode as Parquet? A failing page codec
+        kernel (``RuntimeError``) is no verdict on the file: it raises."""
         from delta_tpu_torch.exec.parquet import read_nested
 
         try:
             for f in segment.checkpoint_files:
-                read_nested(self.delta_log.store.read_bytes(f.path), ["protocol"])
+                read_nested(self.delta_log.store.read_bytes(f.path), ["protocol"],
+                            device=self.delta_log.device)
             return True
+        except NotImplementedError:
+            return False
+        except RuntimeError:
+            raise
         except Exception:
             return False
 

@@ -652,50 +652,79 @@ def _on(t: torch.Tensor, device: torch.device) -> bool:
                               else torch.cuda.current_device())
 
 
-def _ensure_lanes(cache: ColumnCache, log_path: str, data_path: str, add, need: List[str],
+#: the stored bytes of the files whose missing predicate columns decode in
+#: one batch (one page-codec launch set a batch, not a file)
+_LANE_BATCH_BYTES = 64 << 20
+
+
+def _ensure_lanes(cache: ColumnCache, log_path: str, data_path: str, files, need: List[str],
                   epoch: int, counters: Dict[str, int],
-                  device) -> Optional[Dict[str, ResidentColumn]]:
-    """Resident lanes for one file's predicate columns, decoding the misses
-    (the predicate's columns only; the projection decodes later, for
-    survivors). None when a column has no lane form. A column the file
-    predates binds an all-invalid (NULL) lane."""
-    from delta_tpu_torch.exec.parquet import column_names, read_parquet_file
+                  device) -> Optional[List[Dict[str, ResidentColumn]]]:
+    """Resident lanes for each file's predicate columns, one dict a file,
+    decoding the misses (the predicate's columns only; the projection
+    decodes later, for survivors) of consecutive files together, up to
+    ``_LANE_BATCH_BYTES`` stored bytes a batch. None when a column has no
+    lane form. A column a file predates binds an all-invalid (NULL) lane."""
+    from delta_tpu_torch.exec.parquet import column_names, read_parquet_batch
     from delta_tpu_torch.exec.rowgroups import read_footer
 
-    out: Dict[str, ResidentColumn] = {}
-    missing = []
-    for c in need:
-        e = cache.get(log_path, add.path, c)
-        if e is not None and _on(e.values, device):
-            out[c] = e
-            counters["hits"] += 1
-        else:
-            missing.append(c)
-            counters["misses"] += 1
-    if not missing:
-        return out
-    abs_path = _abs_data_path(data_path, add.path)
-    meta = read_footer(abs_path)
-    present = {name.lower(): name for name in column_names(meta)}
-    stored = [present[c] for c in missing if c in present]
-    tbl = read_parquet_file(abs_path, stored, meta=meta) if stored else None
-    if stored:
-        counters["coldBytes"] += sum(int(rg.total_byte_size) for rg in meta.row_groups or [])
-    for c in missing:
-        if c in present:
-            lane = _lane_from_column(tbl.columns[present[c]])
-            if lane is None:
+    outs: List[Dict[str, ResidentColumn]] = []
+    batch: list = []
+
+    def flush() -> bool:
+        reads = [(abs_path, stored, None, meta) for _, _, _, abs_path, meta, _, stored in batch
+                 if stored]
+        tabs = iter(read_parquet_batch(reads, device)) if reads else iter(())
+        for i, add, missing, _abs, meta, present, stored in batch:
+            tbl = next(tabs) if stored else None
+            if stored:
+                counters["coldBytes"] += sum(int(rg.total_byte_size)
+                                             for rg in meta.row_groups or [])
+            for c in missing:
+                if c in present:
+                    lane = _lane_from_column(tbl.columns[present[c]])
+                    if lane is None:
+                        return False
+                    vals, valid, codes = lane
+                else:
+                    # schema evolution: the file predates the column
+                    vals = np.zeros(int(meta.num_rows), np.float64)
+                    valid = np.zeros(int(meta.num_rows), bool)
+                    codes = None
+                entry = ResidentColumn(log_path, add.path, c, vals, valid, codes, epoch, device)
+                cache.register(entry)  # an epoch race: served uncached, still exact
+                outs[i][c] = entry
+        batch.clear()
+        return True
+
+    size = 0
+    for add in files:
+        out: Dict[str, ResidentColumn] = {}
+        outs.append(out)
+        missing = []
+        for c in need:
+            e = cache.get(log_path, add.path, c)
+            if e is not None and _on(e.values, device):
+                out[c] = e
+                counters["hits"] += 1
+            else:
+                missing.append(c)
+                counters["misses"] += 1
+        if not missing:
+            continue
+        abs_path = _abs_data_path(data_path, add.path)
+        meta = read_footer(abs_path)
+        present = {name.lower(): name for name in column_names(meta)}
+        stored = [present[c] for c in missing if c in present]
+        batch.append((len(outs) - 1, add, missing, abs_path, meta, present, stored))
+        size += sum(int(rg.total_compressed_size or 0) for rg in meta.row_groups or [])
+        if size >= _LANE_BATCH_BYTES:
+            if not flush():
                 return None
-            vals, valid, codes = lane
-        else:
-            # schema evolution: the file predates the column
-            vals = np.zeros(int(meta.num_rows), np.float64)
-            valid = np.zeros(int(meta.num_rows), bool)
-            codes = None
-        entry = ResidentColumn(log_path, add.path, c, vals, valid, codes, epoch, device)
-        cache.register(entry)  # an epoch race: served uncached, still exact
-        out[c] = entry
-    return out
+            size = 0
+    if batch and not flush():
+        return None
+    return outs
 
 
 def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.ndarray]]:
@@ -762,12 +791,12 @@ def device_residual_masks(snapshot, files, predicate) -> Optional[Dict[str, np.n
     # files whose lanes share dtypes share it (a file that predates a column
     # binds a float64 NULL lane, and so another program)
     groups: Dict[Tuple, List[Tuple[int, Dict[str, DeviceColumn], int, Dict]]] = {}
-    for i, add in enumerate(files):
-        lanes = _ensure_lanes(cache, log.log_path, log.data_path, add, need,
+    all_lanes = _ensure_lanes(cache, log.log_path, log.data_path, files, need,
                               cache.epoch(log.log_path), counters, log.device)
-        if lanes is None:
-            telemetry.bump_counter("scan.device.fallback")
-            return None
+    if all_lanes is None:
+        telemetry.bump_counter("scan.device.fallback")
+        return None
+    for i, (add, lanes) in enumerate(zip(files, all_lanes)):
         n = max((e.n for e in lanes.values()), default=0)
         env = {c: DeviceColumn(e.values, e.valid) for c, e in lanes.items()}
         dtypes = tuple(sorted((c, e.values.dtype) for c, e in lanes.items()))

@@ -1195,24 +1195,62 @@ def _abs_data_path(data_path: str, path: str) -> str:
     return os.path.join(data_path, urllib.parse.unquote(path).replace("/", os.sep))
 
 
-def _file_keys(data_path: str, add, key_cols: List[str], exprs) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """The packed target key lane over a file's PHYSICAL rows (no DV
-    filtering; DV positions are masked invalid separately). None for a
-    missing file or column or an unpackable lane, as in the JAX package; the
-    codec's ``NotImplementedError`` propagates."""
-    from delta_tpu_torch.exec.parquet import column_names, read_metadata, read_parquet_file
+#: the stored bytes of the files whose key columns inflate in one batch
+_KEY_BATCH_BYTES = 64 << 20
+
+
+def _files_keys(data_path: str, adds, key_cols: List[str], exprs,
+                device) -> Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]]:
+    """The packed target key lane over each file's PHYSICAL rows (no DV
+    filtering; DV positions are masked invalid separately),
+    ``{path: (keys, valid)}``, their pages in batches of up to
+    ``_KEY_BATCH_BYTES`` stored bytes on ``device`` (one launch set a batch,
+    not a file). None where any file is missing, lacks a key column or has
+    an unpackable lane, as the JAX package's ``_file_keys`` is None for it;
+    the codec's ``NotImplementedError`` and a failing page codec kernel's
+    ``RuntimeError`` propagate."""
+    from delta_tpu_torch.exec.parquet import column_names, read_metadata, read_parquet_batch
     from delta_tpu_torch.expr.vectorized import evaluate
 
-    abs_path = _abs_data_path(data_path, add.path)
-    try:
-        names = column_names(read_metadata(abs_path))
+    out: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    reads: list = []
+    paths: List[str] = []
+
+    def flush() -> bool:
+        try:
+            tabs = read_parquet_batch(reads, device)
+        except (OSError, ValueError):
+            return False
+        for path, tab in zip(paths, tabs):
+            kv = _pack_lanes(tab, exprs, evaluate)
+            if kv is None:
+                return False
+            out[path] = kv
+        reads.clear()
+        paths.clear()
+        return True
+
+    size = 0
+    for add in adds:
+        abs_path = _abs_data_path(data_path, add.path)
+        try:
+            meta = read_metadata(abs_path)
+        except (OSError, ValueError):
+            return None
+        names = column_names(meta)
         present = [c for c in key_cols if c in names]
         if len(present) != len(key_cols):
             return None
-        tab = read_parquet_file(abs_path, present)
-    except (OSError, ValueError):
+        reads.append((abs_path, present, None, meta))
+        paths.append(add.path)
+        size += sum(int(rg.total_compressed_size or 0) for rg in meta.row_groups or [])
+        if size >= _KEY_BATCH_BYTES:
+            if not flush():
+                return None
+            size = 0
+    if reads and not flush():
         return None
-    return _pack_lanes(tab, exprs, evaluate)
+    return out
 
 
 def _pack_lanes(tab, exprs, evaluate) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -1536,11 +1574,12 @@ class KeyCache:
                              device=snapshot.delta_log.device)
         e.epoch = epoch
         data_path = snapshot.delta_log.data_path
-        for add in snapshot.all_files:
-            kv = _file_keys(data_path, add, key_cols, exprs)
-            if kv is None:
-                return None
-            keys, valid = kv
+        files = snapshot.all_files
+        kvs = _files_keys(data_path, files, key_cols, exprs, snapshot.delta_log.device)
+        if kvs is None:
+            return None
+        for add in files:
+            keys, valid = kvs[add.path]
             e._append_file(add.path, keys, valid)
             if add.deletion_vector is not None:
                 pos = _dv_positions(add.deletion_vector, data_path)
@@ -1578,15 +1617,17 @@ class KeyCache:
             # clean failure and on an exception alike
             ok = False
             try:
+                fresh = _files_keys(data_path, [a for a in actions if isinstance(a, AddFile)
+                                                and a.path not in e.slabs], key_cols, exprs,
+                                    log.device)
+                if fresh is None:
+                    return False
                 for a in actions:
                     if isinstance(a, RemoveFile):
                         e._kill_file(a.path)
                     elif isinstance(a, AddFile):
                         if a.path not in e.slabs:
-                            kv = _file_keys(data_path, a, key_cols, exprs)
-                            if kv is None:
-                                return False
-                            if not e._append_file(a.path, *kv):
+                            if not e._append_file(a.path, *fresh[a.path]):
                                 return False
                         # re-adds keep their keys (physical rows are
                         # immutable); only the DV validity may change

@@ -13,12 +13,13 @@ The kernels launch on PyTorch's current stream; each C entry point returns
 ``launches`` counts the launches of each kernel. The wrappers beside the
 plain PyTorch versions (``ops/state_cache``, ``ops/replay_kernel``,
 ``expr/device_eval``, ``ops/key_cache``, ``ops/join_kernel``,
-``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``)
-add one where they launch, and nowhere else: a sharded kernel counts one
+``ops/column_cache``, ``ops/zorder``, ``parallel/link``, ``parallel/mesh``,
+``ops/page_codec``) add one where they launch, and nowhere else: a sharded kernel counts one
 launch a distinct device (the block cull K7, the replay K6, the join probe
 K13); the residual mask K14 one a parameter block (a query's files); the
 combine one a launch of one or two reductions; the Z-order sorts
-(``morton_rank``, ``morton_sort``) one a sort.
+(``morton_rank``, ``morton_sort``) one a sort; the page codec
+(``snappy_compress``, ``snappy_decompress``) one a batch of pages.
 """
 from __future__ import annotations
 
@@ -89,6 +90,8 @@ _KERNELS = {
     "sharded_join_probe": ("join_probe", "dtt_join_probe_shard",
                            [_P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _L, _P]),
     "shard_combine": ("shard_combine", "dtt_shard_combine", [_P, _I, _P]),
+    "snappy_compress": ("page_codec", "dtt_snappy_compress", [_P, _P, _I, _P, _P, _P]),
+    "snappy_decompress": ("page_codec", "dtt_snappy_decompress", [_P, _P, _I, _P, _P, _P]),
 }
 
 launches: Dict[str, int] = {k: 0 for k in _KERNELS}

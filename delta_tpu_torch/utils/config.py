@@ -73,6 +73,11 @@ class SqlConf:
         "delta.tpu.retentionDurationCheck.enabled": True,
         # rows per Parquet row group the writer emits
         "delta.tpu.write.rowGroupRows": 131_072,
+        # the Parquet writer's codec: "auto" (SNAPPY where it pays, the JAX
+        # package's policy), "snappy", "gzip", "none"/"uncompressed"
+        "delta.tpu.write.compression": "auto",
+        # BYTE_STREAM_SPLIT for float columns (off for parquet-mr < 1.12)
+        "delta.tpu.write.byteStreamSplit": True,
         # the device residual filter (ops/column_cache): "auto" prices the
         # device mask against the host filter per scan (parallel/link),
         # "force" engages it whenever the residual lowers, "off" keeps the

@@ -51,6 +51,11 @@ from tests.torch_port_tables import write_table, write_tail
 PKGS = {"jax": (jck, JA, JaxStore), "torch": (tck, TA, TorchStore)}
 
 
+def _cpu(mod):
+    """The port's checkpoint codec on the CPU (its plain versions)."""
+    return {"device": "cpu"} if mod is tck else {}
+
+
 @pytest.fixture(autouse=True)
 def _fresh_caches():
     for c in (jsc.DeviceStateCache, tsc.DeviceStateCache, jkc.KeyCache, tkc.KeyCache):
@@ -112,11 +117,11 @@ def test_roundtrip_read_by_both(tmp_path, writer, parts):
     ``test_multipart_roundtrip``)."""
     log = str(tmp_path / "_delta_log")
     mod, A, Store = PKGS[writer]
-    md = mod.write_checkpoint(Store(), log, 10, state_actions(A), parts=parts)
+    md = mod.write_checkpoint(Store(), log, 10, state_actions(A), parts=parts, **_cpu(mod))
     assert (md.version, md.size, md.parts) == (10, 6, parts)
     paths = (mod.CheckpointInstance(10, parts).paths(log))
     assert all(os.path.exists(p) for p in paths)
-    got = {name: _dicts(m.read_checkpoint_actions(S(), paths))
+    got = {name: _dicts(m.read_checkpoint_actions(S(), paths, **_cpu(m)))
            for name, (m, _, S) in PKGS.items()}
     assert got["jax"] == got["torch"]
     assert sorted(t for t, _ in got["torch"]) == sorted(type(a).__name__
@@ -130,7 +135,7 @@ def test_roundtrip_read_by_both(tmp_path, writer, parts):
 def test_both_writers_write_the_same_rows(tmp_path):
     a, b = str(tmp_path / "a" / "_delta_log"), str(tmp_path / "b" / "_delta_log")
     jck.write_checkpoint(JaxStore(), a, 4, state_actions(JA))
-    tck.write_checkpoint(TorchStore(), b, 4, state_actions(TA))
+    tck.write_checkpoint(TorchStore(), b, 4, state_actions(TA), device="cpu")
     name = filenames.checkpoint_file_single(4)
     assert _rows(f"{a}/{name}") == _rows(f"{b}/{name}")
     assert open(f"{a}/_last_checkpoint").read() == open(f"{b}/_last_checkpoint").read()
@@ -166,8 +171,8 @@ def test_latest_complete_checkpoint_matches():
 def test_find_last_complete_checkpoint_before(tmp_path, writer):
     log = str(tmp_path / "_delta_log")
     mod, A, Store = PKGS[writer]
-    mod.write_checkpoint(Store(), log, 10, state_actions(A))
-    mod.write_checkpoint(Store(), log, 20, state_actions(A), parts=2)
+    mod.write_checkpoint(Store(), log, 10, state_actions(A), **_cpu(mod))
+    mod.write_checkpoint(Store(), log, 20, state_actions(A), parts=2, **_cpu(mod))
     for m, S in ((jck, JaxStore), (tck, TorchStore)):
         found = [m.find_last_complete_checkpoint_before(S(), log, v) for v in (15, 25, 10)]
         assert [None if f is None else (f.version, f.parts) for f in found] == \
@@ -464,7 +469,7 @@ def _segments(path):
     de = [f.path for f in jsnap.segment.deltas]
     from delta_tpu.log.columnar import decode_segment as jax_decode
 
-    return jsnap, jax_decode(jsnap.store, ck, de), torch_decode(TorchStore(), ck, de)
+    return jsnap, jax_decode(jsnap.store, ck, de), torch_decode(TorchStore(), ck, de, device="cpu")
 
 
 def _assert_same_segment(a, b):

@@ -98,7 +98,7 @@ def host(t: pa.Table) -> tvec.HostTable:
     os.close(fd)
     try:
         pq.write_table(t, path)
-        return tpq.read_parquet_file(path)
+        return tpq.read_parquet_file(path, device="cpu")
     finally:
         os.remove(path)
 
@@ -354,7 +354,7 @@ def test_decimal_physical_forms_read_like_pyarrow(tmp_path, p, s, as_int, dictio
     ptype = meta.row_group(0).column(0).physical_type
     assert ptype == ("FIXED_LEN_BYTE_ARRAY" if not as_int or p > 18 else
                      "INT32" if p <= 9 else "INT64")
-    got = tpq.read_parquet_file(path)
+    got = tpq.read_parquet_file(path, device="cpu")
     assert got.to_pylist() == t.to_pylist()
     assert got.columns["x"].type == f"decimal128({p}, {s})"
     assert got.columns["x"].values.dtype == (object if p > 18 else np.int64)
@@ -406,7 +406,7 @@ def test_byte_array_decimal_reads_like_pyarrow(tmp_path, p, s):
     _byte_array_decimal_file(path, vals, p, s)
     want = pq.read_table(path)
     assert want.column("x").to_pylist() == vals  # the legacy converted type
-    assert tpq.read_parquet_file(path).to_pylist() == want.to_pylist()
+    assert tpq.read_parquet_file(path, device="cpu").to_pylist() == want.to_pylist()
 
 
 @pytest.mark.parametrize("p,s", [(7, 2), (10, 2), (15, 5), (18, 0), (30, 10), (38, 4)])
@@ -417,7 +417,7 @@ def test_port_decimal_files_read_by_pyarrow(tmp_path, p, s):
     t = pa.table({"x": pa.array(vals, pa.decimal128(p, s))})
     path = str(tmp_path / "w.parquet")
     with TORCH.conf.set_temporarily(**{"delta.tpu.write.rowGroupRows": 16}):
-        tpq.write_parquet_file(host(t), path)
+        tpq.write_parquet_file(host(t), path, device="cpu")
     assert pq.read_table(path).to_pylist() == t.to_pylist()
     meta = pq.ParquetFile(path).metadata
     ref = io.BytesIO()
@@ -447,12 +447,12 @@ def test_nested_columns_split_at_record_boundaries(tmp_path):
                   "st": pa.array(st, pa.struct([("x", pa.int64()), ("y", pa.string())]))})
     path = str(tmp_path / "n.parquet")
     with TORCH.conf.set_temporarily(**{"delta.tpu.write.rowGroupRows": 17}):
-        tpq.write_parquet_file(host(t), path)
+        tpq.write_parquet_file(host(t), path, device="cpu")
     f = pq.ParquetFile(path)
     assert f.metadata.num_row_groups == 6
     assert all(f.metadata.row_group(i).num_rows == min(17, n - 17 * i) for i in range(6))
     assert pq.read_table(path).to_pylist() == t.to_pylist()
-    got = tpq.read_parquet_file(path, row_groups=[4, 1])
+    got = tpq.read_parquet_file(path, row_groups=[4, 1], device="cpu")
     assert got.to_pylist() == [t.slice(68, 17).to_pylist() + t.slice(17, 17).to_pylist()][0]
 
 

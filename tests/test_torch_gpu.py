@@ -1758,3 +1758,126 @@ def test_nested_merge_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert cmd._join_path == "device-cold"
         got = DeltaTable.for_path(path, device=dev).to_table().to_pylist()
         assert len(got) == len(ref) and all(row == ref[row["id"]] for row in got), name
+
+
+# -- the page codec: snappy_compress and snappy_decompress -----------------------------
+
+
+def _codec_pages():
+    from torch_kernel_cases import codec_pages
+
+    return codec_pages(big=True)
+
+
+def test_snappy_compress_decodes_through_the_plain_decoder(cuda):
+    """The kernel's Snappy of every page decodes through the plain decoder
+    to the page, and its bytes are within 1.10x of the plain compressor's."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    pages = _codec_pages()
+    before = native.launches["snappy_compress"]
+    got = page_codec.compress([p for _, p in pages], cuda)
+    assert native.launches["snappy_compress"] == before + 1
+    for (name, p), z in zip(pages, got):
+        assert snappy.decompress(z) == p, name
+    plain = sum(len(snappy.compress(p)) for _, p in pages)
+    ratio = sum(map(len, got)) / plain
+    print(f"snappy_compress: {sum(map(len, got))} bytes, the plain compressor {plain}: "
+          f"{ratio:.4f}x")
+    assert ratio <= 1.10
+
+
+def test_snappy_decompress_matches_the_plain_decoder(cuda):
+    """The plain compressor's Snappy and the kernel's own decode through
+    the kernel, in one batch each, byte for byte as the plain decoder
+    decodes them."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    pages = _codec_pages()
+    raw = [p for _, p in pages]
+    sizes = [len(p) for p in raw]
+    for z in ([snappy.compress(p) for p in raw], page_codec.compress(raw, cuda)):
+        before = native.launches["snappy_decompress"]
+        got = page_codec.decompress(z, sizes, cuda, [n for n, _ in pages])
+        assert native.launches["snappy_decompress"] == before + 1
+        assert got == [snappy.decompress(x) for x in z] == raw
+
+
+def test_snappy_batches_past_the_staging_cap_go_in_chunks(cuda, monkeypatch):
+    """With ``STAGING_CAP`` at 1 MiB the codec batch goes in chunks, a
+    launch set each, to the same bytes as one launch; the 8 MiB page stages
+    alone in buffers it frees, and the kept pinned buffers stay within the
+    cap."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    pages = _codec_pages()
+    raw = [p for _, p in pages]
+    sizes = [len(p) for p in raw]
+    whole = page_codec.compress(raw, cuda)
+    monkeypatch.setattr(page_codec, "STAGING_CAP", 1 << 20)
+    monkeypatch.setattr(page_codec, "_pinned", {})
+    c_need = [-(-n // snappy.FRAGMENT) * (page_codec.FRAG_CAP + 16) for n in sizes]
+    d_need = [max(len(z), n) + 36 for z, n in zip(whole, sizes)]
+    before = dict(native.launches)
+    got = page_codec.compress(raw, cuda)
+    back = page_codec.decompress(whole, sizes, cuda, [n for n, _ in pages])
+    assert native.launches["snappy_compress"] - before["snappy_compress"] == len(
+        [g for g in page_codec._chunks(c_need) if sum(sizes[g.start:g.stop])])
+    assert native.launches["snappy_decompress"] - before["snappy_decompress"] == len(
+        page_codec._chunks(d_need)) > 1
+    assert got == whole and back == raw
+    assert all(b.numel() <= 1 << 20 for b in page_codec._pinned.values())
+
+
+@pytest.mark.parametrize("case", ["truncated", "offset-0", "before-page", "preamble", "overflow"])
+def test_snappy_decompress_rejects_a_malformed_page(cuda, case):
+    """A malformed body raises ``SnappyError`` naming its label, alone and
+    among good pages, and writes nothing past its slot."""
+    import chip_smoke
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+    from torch_kernel_cases import codec_malformed
+
+    bad = [b for b in codec_malformed() if b[0] == case]
+    name, body, size = bad[0]
+    good = [b"hello world " * 50, bytes(1000)]
+    z = [snappy.compress(g) for g in good]
+    with pytest.raises(snappy.SnappyError, match="file.parquet: column 'x'"):
+        page_codec.decompress([z[0], body, z[1]], [len(good[0]), size, len(good[1])], cuda,
+                              ["a", "file.parquet: column 'x'", "b"])
+    chip_smoke.codec_guard_check(cuda, bad, z, good)
+
+
+def test_parquet_write_and_read_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A table written on the card is the file the CPU writes but for the
+    compressors' bytes: the same codecs and encodings, and each package's
+    device reads the other's file to the same rows."""
+    from delta_tpu_torch.exec import parquet as pqx
+    from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
+
+    rng = np.random.RandomState(5)
+    n = 300_000
+    t = HostTable({
+        "i": HostColumn("int", rng.randint(0, 1000, n).astype(np.int64), rng.rand(n) > 0.1),
+        "r": HostColumn("int", rng.randint(-2**62, 2**62, n).astype(np.int64), np.ones(n, bool)),
+        "f": HostColumn("double", rng.rand(n), np.ones(n, bool)),
+        "s": HostColumn("str", np.array([f"v{x}" for x in rng.randint(0, 50, n)], object),
+                        np.ones(n, bool)),
+    }, n)
+    paths = {d: str(tmp_path / f"{d}.parquet") for d in ("cpu", "cuda")}
+    for d, p in paths.items():
+        pqx.write_parquet_file(t, p, device=d)
+    metas = {d: pqx.read_metadata(p) for d, p in paths.items()}
+    chunks = {d: [(c.meta_data.codec, sorted(set(c.meta_data.encodings)))
+                  for rg in m.row_groups for c in rg.columns] for d, m in metas.items()}
+    assert chunks["cpu"] == chunks["cuda"]
+    for d in ("cpu", "cuda"):
+        for p in paths.values():
+            got = pqx.read_parquet_file(p, device=d)
+            for c in t.column_names:
+                v = t.columns[c].valid
+                assert np.array_equal(got.columns[c].valid, v)
+                assert np.array_equal(got.columns[c].values[v], t.columns[c].values[v])

@@ -287,7 +287,8 @@ def test_failed_advance_poisons_version(tmp_table, monkeypatch):
     jsnap = log.update()
     tsnap = TorchDeltaLog.for_table(tmp_table, device="cpu").update()
     monkeypatch.setattr(jkc, "_file_keys", lambda *a, **k: None)
-    monkeypatch.setattr(tkc, "_file_keys", lambda *a, **k: None)
+    # the port reads an advance's new files' keys in one batch
+    monkeypatch.setattr(tkc, "_files_keys", lambda *a, **k: None)
     assert jkc.KeyCache.instance()._advance(je, jsnap, ["k"], [jir.Column("k")]) is False
     assert tkc.KeyCache.instance()._advance(te, tsnap, ["k"], [tir.Column("k")]) is False
     assert te.version == je.version and te.version not in (v0, tsnap.version)
@@ -302,7 +303,7 @@ def test_failed_advance_poisons_version(tmp_table, monkeypatch):
     WriteIntoDelta(log, "append", pa.table({
         "k": np.arange(600, 610, dtype=np.int64), "v": np.zeros(10)})).run()
     tsnap2 = TorchDeltaLog.for_table(tmp_table, device="cpu").update()
-    monkeypatch.setattr(tkc, "_file_keys", boom)
+    monkeypatch.setattr(tkc, "_files_keys", boom)
     with pytest.raises(ValueError):
         tkc.KeyCache.instance()._advance(te2, tsnap2, ["k"], [tir.Column("k")])
     assert te2.version not in (tsnap.version, tsnap2.version)
@@ -475,6 +476,9 @@ def test_probe_pinned_at_version_survives_an_advance(tmp_table, monkeypatch):
 
 
 def test_file_keys_none_where_jax_is_none_and_codec_errors_propagate(tmp_table):
+    """The port's ``_files_keys`` (one file a list) against the JAX
+    package's ``_file_keys``: None for a missing file or column, the same
+    lane for a ZSTD file, and BROTLI's ``NotImplementedError`` through."""
     from delta_tpu.protocol.actions import AddFile
 
     log = _mk_table(tmp_table, files=1)
@@ -484,7 +488,7 @@ def test_file_keys_none_where_jax_is_none_and_codec_errors_propagate(tmp_table):
                             data_change=True), add):
         cols = ["k"] if missing is not add else ["nope"]
         assert jkc._file_keys(data, missing, cols, [jir.Column(cols[0])]) is None
-        assert tkc._file_keys(data, missing, cols, [tir.Column(cols[0])]) is None
+        assert tkc._files_keys(data, [missing], cols, [tir.Column(cols[0])], "cpu") is None
     # ZSTD pages decode since the port's own decoder; BROTLI is still a
     # codec the port does not cover, and its error propagates
     written = {add.path}
@@ -498,12 +502,17 @@ def test_file_keys_none_where_jax_is_none_and_codec_errors_propagate(tmp_table):
         new.append(a)
     zadd, badd = new
     want = jkc._file_keys(data, zadd, ["k"], [jir.Column("k")])
-    got = tkc._file_keys(data, zadd, ["k"], [tir.Column("k")])
-    assert want is not None and got is not None
-    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    got = tkc._files_keys(data, [zadd], ["k"], [tir.Column("k")], "cpu")
+    assert want is not None and got is not None and list(got) == [zadd.path]
+    assert all(np.array_equal(a, b) for a, b in zip(got[zadd.path], want))
+    # two files in one batch: each file's lane as the JAX package's
+    both = tkc._files_keys(data, [add, zadd], ["k"], [tir.Column("k")], "cpu")
+    for a in (add, zadd):
+        ref = jkc._file_keys(data, a, ["k"], [jir.Column("k")])
+        assert all(np.array_equal(x, y) for x, y in zip(both[a.path], ref))
     assert jkc._file_keys(data, badd, ["k"], [jir.Column("k")]) is not None
     with pytest.raises(NotImplementedError, match="BROTLI"):
-        tkc._file_keys(data, badd, ["k"], [tir.Column("k")])
+        tkc._files_keys(data, [badd], ["k"], [tir.Column("k")], "cpu")
 
 
 def _jax_pairs_in_physical_order(t, first, perm, out_cap):
@@ -604,7 +613,7 @@ def test_read_parquet_of_a_written_table_equals_pyarrow(tmp_table):
     log = _mk_table(tmp_table, files=2)
     for add in log.update().all_files:
         p = f"{log.data_path}/{add.path}"
-        t = read_parquet_file(p, ["k"])
+        t = read_parquet_file(p, ["k"], device="cpu")
         assert np.array_equal(t.column("k").values, pq.read_table(p).column("k").to_numpy())
 
 

@@ -255,7 +255,8 @@ def _files_rows(jax, path):
     else:
         log = delta_tpu_torch.DeltaLog.for_table(path, device="cpu")
         snap = log.update()
-        per = [read_files_as_table(log.data_path, [f], snap.metadata).to_pylist()
+        per = [read_files_as_table(log.data_path, [f], snap.metadata,
+                                   device="cpu").to_pylist()
                for f in snap.all_files]
     return sorted(per, key=repr)
 

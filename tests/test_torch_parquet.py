@@ -91,7 +91,7 @@ def _eq(a, b):
 
 
 def _assert_reads_like_pyarrow(path, columns=None):
-    got = tpq.read_parquet_file(path, columns)
+    got = tpq.read_parquet_file(path, columns, device="cpu")
     ref = pq.read_table(path, columns=columns)
     assert got.column_names == ref.column_names
     assert got.num_rows == ref.num_rows
@@ -222,16 +222,16 @@ def test_unsupported_raises_not_implemented(tmp_path, make, what):
         return
     if what == "nested":
         # covered since nested data columns: the rows pyarrow reads
-        assert tpq.read_parquet_file(p).to_pylist() == pq.read_table(p).to_pylist()
+        assert tpq.read_parquet_file(p, device="cpu").to_pylist() == pq.read_table(p).to_pylist()
         return
     with pytest.raises(NotImplementedError, match=f"'a'.*{what}|{what}.*'a'"):
-        tpq.read_parquet_file(p)
+        tpq.read_parquet_file(p, device="cpu")
 
 
 def test_unsupported_column_outside_the_projection_is_not_read(tmp_path):
     p = str(tmp_path / "x.parquet")
     pq.write_table(pa.table({"a": [[1], [2]], "k": [1, 2]}), p)
-    assert tpq.read_parquet_file(p, ["k"]).column("k").values.tolist() == [1, 2]
+    assert tpq.read_parquet_file(p, ["k"], device="cpu").column("k").values.tolist() == [1, 2]
 
 
 # -- the writer --------------------------------------------------------------------
@@ -248,7 +248,7 @@ def _host(t: pa.Table) -> HostTable:
     with open(p, "wb") as f:
         f.write(buf.getvalue())
     try:
-        return tpq.read_parquet_file(p)
+        return tpq.read_parquet_file(p, device="cpu")
     finally:
         os.unlink(p)
 
@@ -257,7 +257,7 @@ def test_writer_round_trips_through_pyarrow(tmp_path):
     src = _table(5000, seed=1)
     host = _host(src)
     p = str(tmp_path / "w.parquet")
-    size, mtime = tpq.write_parquet_file(host, p)
+    size, mtime = tpq.write_parquet_file(host, p, device="cpu")
     assert size == os.path.getsize(p) and mtime > 0
     back = pq.read_table(p)
     assert back.schema.names == src.schema.names
@@ -275,13 +275,13 @@ def test_writer_row_groups_and_empty_table(tmp_path):
     n = tpq.ROW_GROUP_ROWS * 2 + 17
     host = HostTable({"k": HostColumn("int", np.arange(n, dtype=np.int64), np.ones(n, bool))}, n)
     p = str(tmp_path / "big.parquet")
-    tpq.write_parquet_file(host, p)
+    tpq.write_parquet_file(host, p, device="cpu")
     md = pq.ParquetFile(p).metadata
     assert md.num_row_groups == 3 and md.row_group(2).num_rows == 17
     assert pq.read_table(p).column("k").to_numpy().tolist() == list(range(n))
     e = HostTable({"k": HostColumn("int", np.zeros(0, np.int64), np.zeros(0, bool))}, 0)
     p2 = str(tmp_path / "empty.parquet")
-    tpq.write_parquet_file(e, p2)
+    tpq.write_parquet_file(e, p2, device="cpu")
     assert pq.read_table(p2).num_rows == 0
 
 
@@ -298,7 +298,7 @@ def test_hypothesis_round_trips(tmp_path, ints, strs, floats):
     pq.write_table(t, p, data_page_size=256)
     got = _assert_reads_like_pyarrow(p)
     p2 = str(tmp_path / "h2.parquet")
-    tpq.write_parquet_file(got, p2)
+    tpq.write_parquet_file(got, p2, device="cpu")
     back = pq.read_table(p2)
     for name in t.column_names:
         assert _eq(back.column(name).to_pylist(), t.column(name).to_pylist())
@@ -389,8 +389,8 @@ def test_deletion_vectors_match_jax(tmp_path, rows):
 def test_stats_of_a_port_written_file_describe_it(tmp_path):
     host = _host(_table(500, seed=4))
     p = str(tmp_path / "s.parquet")
-    tpq.write_parquet_file(host, p)
-    stats = json.loads(tpq.stats_json(tpq.read_parquet_file(p)))
+    tpq.write_parquet_file(host, p, device="cpu")
+    stats = json.loads(tpq.stats_json(tpq.read_parquet_file(p, device="cpu")))
     assert stats == jpq.collect_stats(pq.read_table(p))
 
 
@@ -554,7 +554,7 @@ def test_corrupt_page_raises_value_error_naming_the_column(tmp_path, codec, name
         buf[i] ^= 0x5A
     open(p, "wb").write(bytes(buf))
     with pytest.raises(ValueError, match=f"'a'.*{name}"):
-        tpq.read_parquet_file(p)
+        tpq.read_parquet_file(p, device="cpu")
 
 
 @pytest.mark.parametrize("codec", ["zstd", "lz4"])
@@ -664,7 +664,7 @@ def test_nested_reader_matches_pyarrow(version, dictionary, codec, tmp_path):
     path = str(tmp_path / "n.parquet")
     pq.write_table(t, path, data_page_version=version, use_dictionary=dictionary,
                    compression=codec, row_group_size=300, data_page_size=2048)
-    n, cols = tpq.read_nested(open(path, "rb").read())
+    n, cols = tpq.read_nested(open(path, "rb").read(), device="cpu")
     assert n == 700
     want = pq.read_table(path)
     for name in ("s", "i"):
@@ -685,7 +685,7 @@ def test_nested_writer_read_by_pyarrow_and_the_port(tmp_path):
           pa.array(arrow_vals, _NESTED_TYPE).to_pylist()]
     data = tpq.write_nested([("s", spec, ncol_from_py(spec, py)),
                              ("i", "int32", ncol_from_py("int32", list(range(500))))],
-                            500, row_group_rows=128)
+                            500, row_group_rows=128, device="cpu")
     path = str(tmp_path / "w.parquet")
     open(path, "wb").write(data)
     got = pq.read_table(path)
@@ -694,7 +694,7 @@ def test_nested_writer_read_by_pyarrow_and_the_port(tmp_path):
     assert got.column("i").to_pylist() == list(range(500))
     m = got.schema.field("s").type.field("m").type
     assert pa.types.is_map(m) and not m.key_field.nullable
-    n, cols = tpq.read_nested(data)
+    n, cols = tpq.read_nested(data, device="cpu")
     assert n == 500 and cols["s"].to_py() == py
 
 
@@ -718,7 +718,7 @@ def test_nested_reader_on_a_jax_checkpoint(tmp_path):
     log = str(tmp_path / "_delta_log")
     jck.write_checkpoint(LocalLogStore(), log, 3, acts)
     path = f"{log}/00000000000000000003.checkpoint.parquet"
-    n, cols = tpq.read_nested(open(path, "rb").read())
+    n, cols = tpq.read_nested(open(path, "rb").read(), device="cpu")
     want = pq.read_table(path)
     assert n == want.num_rows
     for name in want.column_names:
@@ -735,8 +735,8 @@ def test_nested_writer_refuses_what_it_lacks():
     spec = ("struct", [("d", "decimal128(38, 4)"), ("l", ("list", "decimal128(7, 2)"))])
     py = [{"d": decimal.Decimal("-" + "9" * 34 + ".9999"), "l": [decimal.Decimal("1.50"), None]},
           None, {"d": None, "l": []}]
-    data = tpq.write_nested([("x", spec, ncol_from_py(spec, py))], 3)
+    data = tpq.write_nested([("x", spec, ncol_from_py(spec, py))], 3, device="cpu")
     assert pq.read_table(pa.BufferReader(data)).column("x").to_pylist() == py
-    assert tpq.read_nested(data)[1]["x"].to_py(typed=True) == py
+    assert tpq.read_nested(data, device="cpu")[1]["x"].to_py(typed=True) == py
     with pytest.raises(NotImplementedError, match="decimal"):
-        tpq.write_nested([("x", "decimal", ncol_from_py("int64", [1]))], 1)
+        tpq.write_nested([("x", "decimal", ncol_from_py("int64", [1]))], 1, device="cpu")

@@ -15,8 +15,8 @@ case there. The two tables must then agree exactly:
 * layout: each live file's relative directory, ``partitionValues``,
   stats and deletion-vector flag (file names hold a random uuid);
 * commits: each version's operation, ``operationParameters`` and
-  operation metrics (without times and byte counts: the port's Parquet
-  files are PLAIN and uncompressed).
+  operation metrics (without times and byte counts: the two packages'
+  Snappy compressors give files of other sizes).
 
 Tolerance: exact everywhere, NaN equal to NaN.
 """
@@ -930,7 +930,8 @@ def _commit_in(name, path, read_part, write_part):
     data = Pkg(name).table({"x": [9], "part": [write_part]})
     if name == "torch":
         data = coerce_to_table(data)
-    adds = wx(log.data_path, data, txn.metadata)
+    adds = wx(log.data_path, data, txn.metadata,
+              **({"device": "cpu"} if name == "torch" else {}))
     ops = jax_ops if name == "jax" else torch_ops
     return txn, adds, ops
 

@@ -235,7 +235,8 @@ def test_dv_positions_stay_physical_under_pruning(dv_table):
     log = delta_tpu_torch.DeltaLog.for_table(dv_table, device="cpu")
     snap = log.update()
     t = read_files_as_table(log.data_path, snap.all_files, snap.metadata, columns=["id"],
-                            position_column="pos", predicate=parse_predicate("id >= 3000"))
+                            position_column="pos", predicate=parse_predicate("id >= 3000"),
+                            device="cpu")
     ids = t.column("id").values
     assert np.array_equal(t.column("pos").values, ids)  # one file: position == id
     assert 3000 in ids.tolist() and 3950 not in ids.tolist() and 120 not in ids.tolist()
@@ -257,7 +258,7 @@ def test_predicate_column_outside_projection(rg_table):
     snap = log.update()
     out = read_files_as_table(log.data_path, snap.all_files, snap.metadata,
                               columns=["id", "name"],
-                              predicate=parse_predicate("id >= 0 AND v = 50"))
+                              predicate=parse_predicate("id >= 0 AND v = 50"), device="cpu")
     # rows are not filtered by the decode, and no group late-skips on the
     # all-NULL mask a missing predicate column would give
     assert out.num_rows == N
@@ -389,6 +390,30 @@ def test_device_scan_report_attribution(cc_table):
     assert rep.bytes_device_survivor > 0 and rep.files_scanned == 3
     port_rows(cc_table, "cat = 'alpha'", mode="off")
     assert last_scan_report().device_residual is None
+
+
+def test_device_scan_inflates_a_batch_not_a_file(cc_table, monkeypatch):
+    """The device residual's lanes (cold) and its survivors' groups inflate
+    their SNAPPY pages in one batch each over all three files, not one a
+    file; warm, the lanes need none."""
+    from delta_tpu_torch.exec import snappy
+
+    calls = []
+    real = snappy.decompress_pages
+
+    def counting(bodies, sizes, device="cuda", labels=None):
+        calls.append(len(bodies))
+        return real(bodies, sizes, device, labels)
+
+    monkeypatch.setattr(snappy, "decompress_pages", counting)
+    ColumnCache.reset()
+    want = jax_rows(cc_table, "cat = 'alpha' AND x > 0.25")
+    assert port_rows(cc_table, "cat = 'alpha' AND x > 0.25") == want
+    assert last_scan_report().files_scanned == 3
+    assert len(calls) == 2 and all(calls)
+    calls.clear()
+    assert port_rows(cc_table, "cat = 'alpha' AND x > 0.25") == want
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("pkg", ["jax", "torch"])

@@ -100,11 +100,11 @@ def test_replay_columns_on_a_config5_log_matches_jax(tmp_path, versions, paths):
     cs = _chip_smoke()
     log_path = str(tmp_path / "_delta_log")
     store, ckpts, deltas, active = cs.write_config5_log(log_path, n_versions=versions,
-                                                        n_paths=paths)
+                                                        n_paths=paths, device="cpu")
     from delta_tpu.storage.logstore import LocalLogStore as JaxStore
 
     jcols = jax_decode(JaxStore(), ckpts, deltas)
-    tcols = torch_decode(store, ckpts, deltas)
+    tcols = torch_decode(store, ckpts, deltas, device="cpu")
     assert np.array_equal(jcols.path_id, tcols.path_id) and tcols.num_rows > len(deltas)
     for retention in (0, versions * 500):
         want = jrk.replay_columns(jcols, retention, device=True)
@@ -112,7 +112,8 @@ def test_replay_columns_on_a_config5_log_matches_jax(tmp_path, versions, paths):
         assert np.array_equal(want.alive, got.alive)
         assert np.array_equal(want.tombstone, got.tombstone)
         assert tuple(want.stats) == tuple(got.stats)
-    assert int(got.stats.num_files) == cs.host_replay(store, ckpts, deltas) == len(active)
+    assert int(got.stats.num_files) == cs.host_replay(store, ckpts, deltas, device="cpu") \
+        == len(active)
 
 
 def _segment_pair(path):
@@ -184,7 +185,7 @@ def test_random_logs_decode_like_jax(tmp_path, seed):
     log_path, store, _ = _write_log(tmp_path, random.Random(seed), 30, n_paths=40)
     deltas = [f"{log_path}/{filenames.delta_file(v)}" for v in range(30)]
     jc = jax_decode(store, [], deltas)
-    tc = torch_decode(LocalLogStore(), [], deltas)
+    tc = torch_decode(LocalLogStore(), [], deltas, device="cpu")
     assert tc.path_dict == jc.path_dict.to_pylist()
     for name in ("path_id", "is_add", "size", "modification_time", "deletion_timestamp"):
         assert np.array_equal(getattr(tc, name), getattr(jc, name)), name

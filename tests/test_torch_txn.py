@@ -446,7 +446,8 @@ def post_commit_files(path):
                                     ("torch", torch_ck,
                                      delta_tpu_torch.DeltaLog.for_table(path, device="cpu").store)):
                 acts = []
-                for a in mod.read_checkpoint_actions(store, [full]):
+                kw = {"device": "cpu"} if pkg == "torch" else {}
+                for a in mod.read_checkpoint_actions(store, [full], **kw):
                     d = a.to_dict()
                     d.pop("id", None) if type(a).__name__ == "Metadata" else None
                     acts.append((type(a).__name__, d))

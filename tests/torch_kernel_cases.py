@@ -81,6 +81,19 @@ vary, many ties), ``one`` and ``two`` (n = 1, 2), ``big`` (n = 2^22 + 5,
 random 64-bit patterns, runs of ties). ``ZSORT_CASES`` names them;
 :func:`reference_key_order` and :func:`reference_rank` are the numpy
 oracles (``np.argsort(kind="stable")`` of the unsigned key; ``rank_u16``).
+
+``codec_pages(big)`` returns the page codec's batch as ``(name, bytes)``:
+0 B, 1 B, 64 KiB - 1, 64 KiB and 64 KiB + 1 (a fragment's edges), a
+short-period repeat, random bytes, zeros, literal-length edges (60-64,
+256 and 65,536 bytes of random bytes), bench config 2's store_sales
+columns (``bench.py:168-181``'s draws, seed 7) as 32,768 rows' PLAIN
+int64 and BYTE_STREAM_SPLIT float64 pages, and pages of 1 MiB and 8 MiB cut
+from those columns' bytes; ``big=False`` (the CPU) takes 8,192 rows and
+256 KiB in place of 32,768 rows, 1 MiB and 8 MiB.
+``codec_malformed()`` returns ``(name, body, uncompressed size)`` of raw
+Snappy bodies that must not decode: cut short, a copy of offset 0, a copy
+reaching before the page, a preamble that disagrees with the size, and
+output past the size.
 """
 import numpy as np
 
@@ -92,6 +105,7 @@ COMPACT_CASES = ["none", "all", "exact", "short", "tile-edge", "band", "n-below-
 COMBINE_KS = [0, 1, 15, 16, 17, (1 << 20) + 3]
 COMBINE_NS = [1, 3, 8, 33]
 ZSORT_CASES = ["equal", "sorted", "reversed", "narrow", "one", "two", "big"]
+CODEC_MALFORMED = ["truncated", "offset-0", "before-page", "preamble", "overflow"]
 CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
               "m8", "n0", "full", "sentinel-padded", "crowded"]
 
@@ -416,3 +430,53 @@ def reference_winner(path_id: np.ndarray) -> np.ndarray:
         _, first = np.unique(path_id[rev], return_index=True)
         win[rev[first]] = True
     return np.packbits(win)
+
+
+def _store_sales_bytes(rows: int):
+    """Bench config 2's store_sales columns (``bench.py:168-181``, seed 7)
+    as (name, PLAIN int64 bytes) and (name, BYTE_STREAM_SPLIT float64
+    bytes)."""
+    rng = np.random.RandomState(7)
+    ints = {"ss_item_sk": rng.permutation(rows * 2)[:rows],
+            "ss_customer_sk": rng.randint(0, 1_000_000, rows),
+            "ss_sold_date_sk": rng.randint(2450000, 2452000, rows),
+            "ss_store_sk": rng.randint(0, 500, rows),
+            "ss_quantity": rng.randint(1, 100, rows)}
+    floats = {"ss_sales_price": rng.rand(rows) * 100,
+              "ss_ext_discount_amt": rng.rand(rows) * 10,
+              "ss_net_paid": rng.rand(rows) * 90}
+    plain = [(k, v.astype("<i8").tobytes()) for k, v in ints.items()]
+    bss = [(k, np.ascontiguousarray(v.astype("<f8").view(np.uint8).reshape(-1, 8).T).tobytes())
+           for k, v in floats.items()]
+    return plain, bss
+
+
+def codec_pages(big: bool = True):
+    rng = np.random.RandomState(19)
+    rows = 32_768 if big else 8_192
+    plain, bss = _store_sales_bytes(rows)
+    mix = b"".join(b for _, b in plain + bss)
+    pages = [("empty", b""), ("one", b"\x07"),
+             ("frag-1", rng.randint(0, 4, 65535).astype(np.uint8).tobytes()),
+             ("frag", mix[:65536]), ("frag+1", mix[65536:2 * 65536 + 1]),
+             ("short-period", b"abcab" * 20_000), ("random", rng.bytes(100_000)),
+             ("zeros", bytes(200_000))]
+    pages += [(f"literal-{n}", rng.bytes(n)) for n in (60, 61, 62, 63, 64, 256, 65536)]
+    pages += [(f"plain-{k}", b) for k, b in plain] + [(f"bss-{k}", b) for k, b in bss]
+    for name, size in (("1mib", 1 << 20), ("8mib", 8 << 20)) if big else (("256kib", 1 << 18),):
+        reps = -(-size // len(mix))
+        pages.append((name, (mix * reps)[:size] if reps > 1 else mix[:size]))
+    return pages
+
+
+def codec_malformed():
+    lit = bytes([3 << 2]) + b"abcd"  # a literal of 4 bytes
+    good = (bytes([100, (25 - 1) << 2]) + b"x" * 25      # 100 bytes: a literal of 25,
+            + bytes([2 | (63 << 2), 25, 0, 2 | (10 << 2), 25, 0]))  # copies of 64 and 11
+    return [
+        ("truncated", good[:-10], 100),
+        ("offset-0", bytes([8]) + lit + bytes([2 | (3 << 2), 0, 0]), 8),
+        ("before-page", bytes([8]) + lit + bytes([2 | (3 << 2), 5, 0]), 8),
+        ("preamble", good, 99),
+        ("overflow", bytes([8]) + lit + bytes([2 | (7 << 2), 4, 0]), 8),
+    ]
