@@ -61,8 +61,12 @@ Phases, each reported on its own line:
    store_sales columns' PLAIN and BYTE_STREAM_SPLIT pages, 1 MiB, 8 MiB):
    the kernel's Snappy decodes through the plain decoder, the plain
    compressor's through the kernel, byte for byte, the kernel's bytes
-   within 1.10x of the plain compressor's, and malformed bodies raise
-   ``SnappyError`` and write nothing outside their slots; and the state
+   within 1.03x of the plain compressor's on every page and on the batch,
+   streams the port's compressor never writes (copy-4 offsets past 64 KiB,
+   overlapping copies of every offset 1-63, literals of 1-4 length bytes,
+   one long run) decode exactly, and malformed bodies (faults after a page's
+   33rd element among them) raise ``SnappyError``, set their error words and
+   write nothing outside their slots; and the state
    mesh's kernels over 8 shards of the one card: the
    combine kernel (sum, OR, OR + pack, at eight cards' shapes and small
    ones, and the mesh path's four sets with the eight-card shapes in one
@@ -295,7 +299,9 @@ Phases, each reported on its own line:
    tests/test_datatypes.py (NULL, empty and NULL inside): the write, a
    MERGE with update * / insert * (K8-K10), a DV DELETE of ``id % 10 =
    0``, OPTIMIZE, the end state equal to a Python reference row for row.
-   Each phase's wall seconds are printed before the kernels line; the page
+   Each phase's wall seconds are printed before the kernels line, and after
+   each phase the page codec's device ms in it (``ops/page_codec.device_ms``,
+   CUDA events around each launch); the page
    codec's launches on every phase's path (each phase's counts set to 0
    just before it) are summed, each kernel must have launched, and both
    are timed on a 1 MiB page and eight (8 MiB) of store_sales bytes: the
@@ -609,6 +615,11 @@ CODEC_REPLACES = {"snappy_compress": "delta_tpu/exec/parquet.py:182",
 CODEC_KERNELS = tuple(CODEC_REPLACES)
 
 
+#: the most bytes the kernel's Snappy may take, over the plain compressor's
+#: on a page and on a batch (the writer's probe runs on the kernel's bytes)
+CODEC_BYTES_RATIO = 1.03
+
+
 def codec_checks(dev):
     """The page codec on ``tests/torch_kernel_cases.py``'s batch (0 B, 1 B,
     64 KiB - 1, 64 KiB, 64 KiB + 1, literal-length edges, repeats, random
@@ -616,9 +627,15 @@ def codec_checks(dev):
     group, 1 MiB, 8 MiB) in one launch each: the kernel's Snappy decodes
     through the plain decoder to the input, the plain compressor's through
     the kernel, and the kernel's own through the kernel, byte for byte; the
-    kernel's bytes within 1.10x of the plain compressor's; the malformed
-    bodies raise ``SnappyError``, one at a time and in a batch with good
-    pages, and write nothing outside their slots."""
+    kernel's bytes within ``CODEC_BYTES_RATIO`` of the plain compressor's on
+    every page and on the batch; the streams the port's compressor never
+    writes (``codec_streams``: copy-1, -2 and -4 tags, copy-4 offsets past
+    64 KiB in a 2 MiB page, overlapping copies of every offset 1-63, literals
+    of 1-4 length bytes, one long run) decode through the kernel in one
+    launch; the malformed bodies and the faults after a page's 33rd element
+    (``codec_faults``) raise ``SnappyError``, one at a time and in a batch
+    with good pages, set their error words and write nothing outside their
+    slots."""
     from delta_tpu_torch.exec import snappy
     from delta_tpu_torch.ops import page_codec
 
@@ -637,26 +654,36 @@ def codec_checks(dev):
             check(b == p, f"snappy_decompress: {what} page {name} does not decode to its input")
     ratio = sum(map(len, z_dev)) / sum(map(len, z_plain))
     worst = max((len(a) / max(len(b), 1), n) for a, b, n in zip(z_dev, z_plain, names))
-    check(ratio <= 1.10, f"snappy_compress: {ratio:.4f}x the plain compressor's bytes")
-    bad = kc.codec_malformed()
+    check(ratio <= CODEC_BYTES_RATIO and worst[0] <= CODEC_BYTES_RATIO,
+          f"snappy_compress: {ratio:.4f}x the plain compressor's bytes, page {worst[1]} "
+          f"{worst[0]:.4f}x (at most {CODEC_BYTES_RATIO})")
+    streams = kc.codec_streams()
+    got = page_codec.decompress([b for _, b, _ in streams], [len(w) for _, _, w in streams],
+                                dev, [n for n, _, _ in streams])
+    for (name, _, want), g in zip(streams, got):
+        check(g == want, f"snappy_decompress: the stream {name} does not decode to its bytes")
+    faults = kc.codec_faults()
+    bad = kc.codec_malformed() + [(n, b, size) for n, b, size, _ in faults]
     for name, body, size in bad:
         try:
             page_codec.decompress([body], [size], dev)
         except snappy.SnappyError:
             continue
         check(False, f"snappy_decompress: the malformed body {name} decoded")
-    codec_guard_check(dev, bad, z_dev[:4], raw[:4])
+    words = [None] * (len(bad) - len(faults)) + [w for _, _, _, w in faults]
+    codec_guard_check(dev, bad, z_dev[:4], raw[:4], words)
     say(f"kernels: snappy_compress, snappy_decompress on {len(raw)} pages "
         f"({sum(sizes)} bytes) exact both ways; the kernel's bytes {ratio:.4f}x the plain "
-        f"compressor's (worst page {worst[1]} {worst[0]:.4f}x); {len(bad)} malformed bodies "
-        "raise and stay in their slots")
+        f"compressor's (worst page {worst[1]} {worst[0]:.4f}x); {len(streams)} streams the "
+        f"port never writes exact; {len(bad)} malformed bodies raise, set their error words "
+        "and stay in their slots")
 
 
-def codec_guard_check(dev, bad, good, want):
+def codec_guard_check(dev, bad, good, want, words=None):
     """``decompress_launch`` over the malformed bodies and good ones, each
     slot followed by 64 guard bytes that no page owns: every malformed page
-    sets its error word, every good page decodes, and no guard byte
-    changes."""
+    sets its error word (``words[i]`` where given and not None), every good
+    page decodes, and no guard byte changes."""
     from delta_tpu_torch.ops import page_codec
 
     bodies = [b for _, b, _ in bad] + list(good)
@@ -680,6 +707,9 @@ def codec_guard_check(dev, bad, good, want):
               f"snappy_decompress: page {i} wrote past its slot")
         if i < len(bad):
             check(errs[i] != 0, f"snappy_decompress: malformed body {bad[i][0]} set no error")
+            if words is not None and words[i] is not None:
+                check(errs[i] == words[i], f"snappy_decompress: malformed body {bad[i][0]} "
+                      f"set error {errs[i]}, not {words[i]}")
         else:
             check(errs[i] == 0 and got[o:o + s].tobytes() == want[i - len(bad)],
                   f"snappy_decompress: good page {i} beside malformed ones: error {errs[i]}")
@@ -725,6 +755,31 @@ def footer_policy(path, checkpoint=False):
     return seen
 
 
+def codec_launches(pages, z, dev):
+    """Both codec kernels' launches alone, on buffers already on the card:
+    ``snappy_compress`` over ``pages`` and ``snappy_decompress`` over their
+    Snappy bodies ``z``. Returns the two launches, the pages on the card,
+    and the decompressor's output and error words."""
+    from delta_tpu_torch.ops import page_codec
+
+    sizes = [len(p) for p in pages]
+    table, _ = page_codec.fragment_table(sizes)
+    src = torch.from_numpy(np.frombuffer(b"".join(pages), np.uint8).copy()).to(dev)
+    frags = torch.from_numpy(table).to(dev)
+    scratch = torch.empty(len(table) * page_codec.FRAG_CAP, dtype=torch.uint8, device=dev)
+    fsizes = torch.empty(len(table), dtype=torch.int32, device=dev)
+    ptab = np.zeros((len(z), 4), np.int64)
+    ptab[:, 1], ptab[:, 3] = [len(x) for x in z], sizes
+    ptab[:, 0] = np.cumsum(ptab[:, 1]) - ptab[:, 1]
+    ptab[:, 2] = np.cumsum(ptab[:, 3]) - ptab[:, 3]
+    zsrc = torch.from_numpy(np.frombuffer(b"".join(z), np.uint8).copy()).to(dev)
+    pt = torch.from_numpy(ptab).to(dev)
+    out = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    err = torch.empty(len(z), dtype=torch.int32, device=dev)
+    return (lambda: page_codec.compress_launch(src, frags, scratch, fsizes),
+            lambda: page_codec.decompress_launch(zsrc, pt, out, err), src, out, err)
+
+
 def codec_rows(dev, launches):
     """Both codec kernels at the writer's shapes: a 1 MiB page and a batch
     of eight (8 MiB) cut from store_sales columns' PLAIN and
@@ -754,32 +809,21 @@ def codec_rows(dev, launches):
         check(back == pages and plain_back == pages,
               f"codec rows: the {label} batch does not round-trip")
         n_in, n_z = sum(sizes), sum(map(len, z))
-        # the launches alone, on buffers already on the card
-        table, _ = page_codec.fragment_table(sizes)
-        src = torch.from_numpy(np.frombuffer(b"".join(pages), np.uint8).copy()).to(dev)
-        frags = torch.from_numpy(table).to(dev)
-        scratch = torch.empty(len(table) * page_codec.FRAG_CAP, dtype=torch.uint8, device=dev)
-        fsizes = torch.empty(len(table), dtype=torch.int32, device=dev)
-        ptab = np.zeros((len(z), 4), np.int64)
-        ptab[:, 1], ptab[:, 3] = [len(x) for x in z], sizes
-        ptab[:, 0] = np.cumsum(ptab[:, 1]) - ptab[:, 1]
-        ptab[:, 2] = np.cumsum(ptab[:, 3]) - ptab[:, 3]
-        zsrc = torch.from_numpy(np.frombuffer(b"".join(z), np.uint8).copy()).to(dev)
-        pt = torch.from_numpy(ptab).to(dev)
-        out = torch.empty(n_in, dtype=torch.uint8, device=dev)
-        err = torch.empty(len(z), dtype=torch.int32, device=dev)
+        check(n_z <= CODEC_BYTES_RATIO * sum(map(len, zp)),
+              f"codec rows: the {label} batch's Snappy is {n_z / sum(map(len, zp)):.4f}x the "
+              f"plain compressor's bytes (at most {CODEC_BYTES_RATIO})")
+        compress_launch, decompress_launch, src, out, err = codec_launches(pages, z, dev)
         for name, call, launch, plain_ms in (
-                ("snappy_compress", lambda: page_codec.compress(pages, dev),
-                 lambda: page_codec.compress_launch(src, frags, scratch, fsizes), plain_c),
+                ("snappy_compress", lambda: page_codec.compress(pages, dev), compress_launch,
+                 plain_c),
                 ("snappy_decompress", lambda: page_codec.decompress(z, sizes, dev),
-                 lambda: page_codec.decompress_launch(zsrc, pt, out, err), plain_d)):
+                 decompress_launch, plain_d)):
             rows[name][label] = {"ms": cuda_ms(call, 3, warm=1),
                                  "launch_ms": cuda_ms(launch, 3, warm=1),
                                  "graph_ms": graph_ms(launch, 3), "plain_ms": plain_ms,
                                  "bytes_in": n_in if name == "snappy_compress" else n_z,
                                  "bytes_out": n_z if name == "snappy_compress" else n_in}
-        check(torch.equal(out, torch.from_numpy(np.frombuffer(b"".join(pages), np.uint8)
-                                                .copy()).to(dev)) and not bool(err.any()),
+        check(torch.equal(out, src) and not bool(err.any()),
               f"codec rows: the timed decompress launch of {label} is wrong")
         say(f"codec: {label} batch of {len(pages)} pages, {n_in} bytes -> {n_z} snappy "
             f"({n_z / n_in:.4f}); plain compressor {sum(map(len, zp))} bytes; "
@@ -5207,12 +5251,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    from delta_tpu_torch.ops import page_codec
+
     laps, clock = {}, [time.perf_counter()]
+    codec_ms = [dict(page_codec.device_ms)]
 
     def lap(name):  # each phase's wall seconds, printed before the kernels line
         now = time.perf_counter()
         laps[name] = round(now - clock[0], 1)
         clock[0] = now
+        # the page codec's device ms in the phase (CUDA events around each launch)
+        spent = {k: round(v - codec_ms[0][k], 3) for k, v in page_codec.device_ms.items()}
+        codec_ms[0] = dict(page_codec.device_ms)
+        say(f"page codec device ms in {name} ({laps[name]} s of wall): {json.dumps(spent)}")
 
     card = card_line()
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {card} | "

@@ -21,11 +21,15 @@ at most ``STAGING_CAP`` (a launch set each), and a page that needs more
 alone stages in buffers freed after its call. Each card has its own lock.
 :func:`compress_launch` and :func:`decompress_launch` are the launches
 alone, on buffers already on the card.
+
+:data:`device_ms` sums each kernel's device milliseconds over the launch
+sets of :func:`compress` and :func:`decompress`: a pair of CUDA events
+around each launch, read after the synchronise the launch set makes anyway.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from delta_tpu_torch.exec.snappy import FRAGMENT, SnappyError
 from delta_tpu_torch.ops import native
 
 __all__ = ["compress", "decompress", "compress_launch", "decompress_launch", "FRAG_CAP",
-           "STAGING_CAP", "fragment_table", "ERRORS"]
+           "STAGING_CAP", "fragment_table", "ERRORS", "device_ms"]
 
 #: a fragment's output slot: Snappy's bound 32 + n + n/6 at n = 64 KiB, to 128
 FRAG_CAP = 76544
@@ -50,6 +54,9 @@ ERRORS = {1: "a truncated or overlong length preamble",
 #: the most page-locked host memory a staging buffer keeps between calls,
 #: and the most one launch set stages when its batch has more than one page
 STAGING_CAP = 64 << 20
+
+#: each kernel's device milliseconds, summed over the wrappers' launch sets
+device_ms: Dict[str, float] = {"snappy_compress": 0.0, "snappy_decompress": 0.0}
 
 _locks_guard = threading.Lock()
 _locks: Dict[int, threading.Lock] = {}
@@ -142,6 +149,20 @@ def decompress_launch(src: torch.Tensor, pages: torch.Tensor, out: torch.Tensor,
         native.launches["snappy_decompress"] += 1
 
 
+def _timed(name: str, launch: Callable[[], None]) -> Callable[[], None]:
+    """Run ``launch`` between two CUDA events; returns a function that adds
+    the device time to ``device_ms[name]`` once the stream is synchronised."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+
+    def add() -> None:
+        device_ms[name] += start.elapsed_time(end)
+
+    return add
+
+
 def _put_varint(n: int) -> bytes:
     out = bytearray()
     while True:
@@ -191,11 +212,13 @@ def _compress_chunk(pages: Sequence, sizes: List[int], dev: torch.device) -> Lis
         d_up = torch.empty(up_bytes, dtype=torch.uint8, device=dev)
         d_up.copy_(up[:up_bytes], non_blocking=True)
         d_out = torch.empty(max(down_bytes, 16), dtype=torch.uint8, device=dev)
-        compress_launch(d_up[t_bytes:], d_up[:table.nbytes].view(torch.int64).view(-1, 2),
-                        d_out[s_bytes:], d_out[:4 * nfrag].view(torch.int32))
+        timed = _timed("snappy_compress", lambda: compress_launch(
+            d_up[t_bytes:], d_up[:table.nbytes].view(torch.int64).view(-1, 2),
+            d_out[s_bytes:], d_out[:4 * nfrag].view(torch.int32)))
         down = _staging("down", dev, down_bytes)
         down[:down_bytes].copy_(d_out[:down_bytes], non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
+        timed()
         got = down.numpy()
         frag_sizes = got[:4 * nfrag].view(np.int32).tolist()
         out = []
@@ -249,11 +272,13 @@ def _decompress_chunk(bodies: Sequence, lens: List[int], sizes: Sequence[int],
         d_up = torch.empty(up_bytes, dtype=torch.uint8, device=dev)
         d_up.copy_(up[:up_bytes], non_blocking=True)
         d_out = torch.empty(max(down_bytes, 16), dtype=torch.uint8, device=dev)
-        decompress_launch(d_up[t_bytes:], d_up[:table.nbytes].view(torch.int64).view(-1, 4),
-                          d_out[e_bytes:], d_out[:4 * npages].view(torch.int32))
+        timed = _timed("snappy_decompress", lambda: decompress_launch(
+            d_up[t_bytes:], d_up[:table.nbytes].view(torch.int64).view(-1, 4),
+            d_out[e_bytes:], d_out[:4 * npages].view(torch.int32)))
         down = _staging("down", dev, down_bytes)
         down[:down_bytes].copy_(d_out[:down_bytes], non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
+        timed()
         got = down.numpy()
         errs = got[:4 * npages].view(np.int32)
         bad = np.flatnonzero(errs)

@@ -94,6 +94,19 @@ from those columns' bytes; ``big=False`` (the CPU) takes 8,192 rows and
 Snappy bodies that must not decode: cut short, a copy of offset 0, a copy
 reaching before the page, a preamble that disagrees with the size, and
 output past the size.
+
+``codec_streams()`` returns ``(name, body, expected bytes)`` of raw Snappy
+bodies that the port's compressor never writes, built element by element
+here (no ``pyarrow``): :data:`CODEC_STREAMS` names them: ``copy-tags``
+(copy-1, copy-2 and copy-4 tags at random offsets and lengths, copies of 1-3
+bytes among them), ``copy4-far`` (a 2 MiB page of copy-4 tags whose
+offsets reach past 64 KiB), ``overlap`` (a copy of every offset 1-63 at
+every length 4-64), ``literal-lengths`` (literals with 1, 2, 3 and 4 length
+bytes, one of them over 64 KiB) and ``one-run`` (1 MiB of one byte).
+``codec_faults()`` returns ``(name, body, uncompressed size, error word)``
+of bodies whose fault lies after their 33rd element, in the first input
+chunk or deep in the page (:data:`CODEC_FAULTS`); the error words are
+``ops/page_codec.ERRORS``'.
 """
 import numpy as np
 
@@ -106,6 +119,10 @@ COMBINE_KS = [0, 1, 15, 16, 17, (1 << 20) + 3]
 COMBINE_NS = [1, 3, 8, 33]
 ZSORT_CASES = ["equal", "sorted", "reversed", "narrow", "one", "two", "big"]
 CODEC_MALFORMED = ["truncated", "offset-0", "before-page", "preamble", "overflow"]
+CODEC_STREAMS = ["copy-tags", "copy4-far", "overlap", "literal-lengths", "one-run"]
+CODEC_FAULTS = ["mid-offset-0", "mid-before-page", "mid-copy4-before", "mid-overflow",
+                "mid-literal-past-input", "mid-tag-past-input", "deep-offset", "deep-overflow",
+                "short"]
 CASE_NAMES = ["i32-high-bits", "i64-extremes", "i32-min", "long-runs", "dup-source", "pad-rows",
               "m8", "n0", "full", "sentinel-padded", "crowded"]
 
@@ -480,3 +497,133 @@ def codec_malformed():
         ("preamble", good, 99),
         ("overflow", bytes([8]) + lit + bytes([2 | (7 << 2), 4, 0]), 8),
     ]
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        if not n:
+            return bytes(out + bytes([b]))
+        out.append(b | 0x80)
+
+
+class _Stream:
+    """A raw Snappy body built element by element, with the bytes it decodes
+    to (``out``); ``body(size)`` puts the preamble in front."""
+
+    def __init__(self):
+        self.elems = []
+        self.out = bytearray()
+
+    def literal(self, data: bytes, nb: int = 0):
+        """A literal; ``nb`` length bytes (1-4), or the length in the tag."""
+        n = len(data) - 1
+        if nb == 0:
+            assert n < 60
+            self.elems.append(bytes([n << 2]))
+        else:
+            self.elems.append(bytes([(59 + nb) << 2]) + n.to_bytes(nb, "little"))
+        self.elems.append(bytes(data))
+        self.out += data
+
+    def copy(self, kind: int, offset: int, length: int):
+        """A copy with a 1-, 2- or 4-byte offset (``kind`` 1, 2 or 4)."""
+        if kind == 1:
+            assert 4 <= length <= 11 and offset < 2048
+            self.elems.append(bytes([1 | ((length - 4) << 2) | ((offset >> 8) << 5), offset & 0xFF]))
+        else:
+            assert 1 <= length <= 64
+            self.elems.append(bytes([(2 if kind == 2 else 3) | ((length - 1) << 2)])
+                              + offset.to_bytes(kind, "little"))
+        for _ in range(length):  # byte by byte: an overlapping copy repeats its pattern
+            self.out.append(self.out[-offset] if 0 < offset <= len(self.out) else 0)
+
+    def raw(self, data: bytes):
+        """Bytes that are no element (a fault)."""
+        self.elems.append(bytes(data))
+
+    def body(self, size=None) -> bytes:
+        return _varint(len(self.out) if size is None else size) + b"".join(self.elems)
+
+
+def codec_streams():
+    rng = np.random.RandomState(23)
+    out = []
+    st = _Stream()  # copy-1, copy-2 and copy-4 tags
+    st.literal(rng.bytes(64), 1)
+    for i in range(3000):
+        kind = (1, 2, 4)[i % 3]
+        if kind == 1:
+            st.copy(1, int(rng.randint(1, min(2048, len(st.out) + 1))), int(rng.randint(4, 12)))
+        else:
+            reach = min(len(st.out), 65_535 if kind == 2 else len(st.out))
+            st.copy(kind, int(rng.randint(1, reach + 1)), int(rng.randint(1, 65)))
+        if i % 7 == 0:
+            st.literal(rng.bytes(int(rng.randint(1, 20))))
+    out.append(("copy-tags", st.body(), bytes(st.out)))
+    st = _Stream()  # 2 MiB, copy-4 offsets past 64 KiB
+    st.literal(rng.bytes(100_000), 3)
+    size = 2 << 20
+    while len(st.out) + 64 <= size:
+        st.copy(4, int(rng.randint(65_537, len(st.out) + 1)), 64)
+        if rng.rand() < 0.05:
+            st.copy(2, int(rng.randint(1, 65_536)), int(rng.randint(1, 65)))
+    st.literal(rng.bytes(size - len(st.out)))
+    out.append(("copy4-far", st.body(), bytes(st.out)))
+    st = _Stream()  # every offset 1-63 at every length 4-64
+    st.literal(rng.bytes(64), 1)
+    for d in range(1, 64):
+        for n in range(4, 65):
+            st.copy(1 if n <= 11 and (d + n) % 2 else (2 if d % 3 else 4), d, n)
+    out.append(("overlap", st.body(), bytes(st.out)))
+    st = _Stream()  # literals of 1, 2, 3 and 4 length bytes, one over 64 KiB
+    for nb, n in ((1, 61), (1, 256), (2, 257), (2, 65_536), (3, 70_000), (4, 100),
+                  (4, 100_000), (0, 1), (0, 60)):
+        st.literal(rng.bytes(n), nb)
+        st.copy(2, int(rng.randint(1, min(65_536, len(st.out) + 1))), 40)
+    out.append(("literal-lengths", st.body(), bytes(st.out)))
+    st = _Stream()  # one long run
+    st.literal(b"\x2a")
+    while len(st.out) < 1 << 20:
+        st.copy(2, 1, min(64, (1 << 20) - len(st.out)))
+    out.append(("one-run", st.body(), bytes(st.out)))
+    return out
+
+
+def _good_prefix(st: _Stream, rng, elements: int):
+    st.literal(rng.bytes(16))
+    while len(st.elems) < elements:
+        if rng.rand() < 0.3:
+            st.literal(rng.bytes(int(rng.randint(1, 8))))
+        else:
+            st.copy(1, int(rng.randint(1, min(2048, len(st.out) + 1))), int(rng.randint(4, 12)))
+
+
+def codec_faults():
+    rng = np.random.RandomState(29)
+    out = []
+
+    def faulty(name, fault, err, elements=40, size_delta=0, tail=True):
+        st = _Stream()
+        _good_prefix(st, rng, elements)
+        fault(st)
+        if tail:  # good elements after the fault: none may be written
+            for _ in range(50):
+                st.copy(1, 1, 11)
+        out.append((name, st.body(len(st.out) + size_delta), len(st.out) + size_delta, err))
+
+    faulty("mid-offset-0", lambda st: st.raw(bytes([2 | (7 << 2), 0, 0])), 4)
+    faulty("mid-before-page", lambda st: st.raw(bytes([2 | (7 << 2)]) + (len(st.out) + 1)
+                                                 .to_bytes(2, "little")), 4)
+    faulty("mid-copy4-before", lambda st: st.raw(bytes([3 | (7 << 2)]) + (1 << 31)
+                                                  .to_bytes(4, "little")), 4)
+    # the size stops 20 bytes into the tail: its first copies fit, then one passes it
+    faulty("mid-overflow", lambda st: None, 5, size_delta=-(50 * 11 - 20))
+    faulty("mid-literal-past-input", lambda st: st.raw(bytes([59 << 2]) + b"abc"), 3,
+           tail=False)
+    faulty("mid-tag-past-input", lambda st: st.raw(bytes([3 | (3 << 2), 1, 0])), 3, tail=False)
+    faulty("deep-offset", lambda st: st.raw(bytes([2 | (7 << 2), 0, 0])), 4, elements=5000)
+    faulty("deep-overflow", lambda st: None, 5, elements=5000, size_delta=-1)
+    faulty("short", lambda st: None, 6, elements=300, size_delta=7)
+    return out

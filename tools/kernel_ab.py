@@ -5,11 +5,12 @@ block cull (K7), slab sort (K8), slab probe (K9), pair compaction (K10), slab
 updates and advances (K11), upload join (K12), sharded join (K13), residual
 mask (K14), expression interpreter (K15), Morton interleave (K16) with
 ``morton_order``'s sorts, link probe (K17) and cross-shard combine on one
-card, on seeded inputs, for the ``delta_tpu_torch`` package under
-``--root`` (default: this checkout).
+card, and the page codec (``snappy_compress``, ``snappy_decompress``), on
+seeded inputs, for the ``delta_tpu_torch`` package under ``--root``
+(default: this checkout).
 
     python3 tools/kernel_ab.py [--root DIR]
-        [--only k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k16,k17,combine,l2]
+        [--only k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k16,k17,combine,codec,l2]
 
 Run it on two checkouts in one call on one card (A, B, B, A) to compare two
 versions of the kernels. Each line printed is one JSON object: the kernel,
@@ -99,6 +100,15 @@ and the same updates as library calls out of place and in place. K17
 (``k17_rows``) at the link probe's 8 int32: the wrapper and ``torch.add(a,
 1)`` in turns, and the host time of each and of a bare ``native.call``. ``l2`` times a random gather of 16,777,216 int64 from a 16
 MB table (one L2 sector a read): the rate the join's probes are held to.
+``codec`` (``codec_ab_rows``) times both page codec kernels at
+``chip_smoke.codec_rows``' shapes (one 1 MiB page and eight, cut from
+store_sales columns' PLAIN and BYTE_STREAM_SPLIT bytes) and at a small
+file's (eight pages of 2,000 rows, 16,000 bytes each, as
+``tools/codec_bench.py``): the wrapper's whole call (three readings), the
+launch alone eager and replayed from a CUDA graph on buffers already on the
+card, the profiler's kernels, the bound of the bytes in and out, the plain
+version's time (``exec/snappy``) and, for ``snappy_compress``, its bytes
+beside the plain compressor's.
 """
 import argparse
 import importlib.util
@@ -778,11 +788,57 @@ def k4_rows(torch, dev, emit, t, chip_smoke, state_export):
         torch.cuda.empty_cache()
 
 
+def codec_ab_rows(torch, dev, emit, t, chip_smoke):
+    """Both page codec kernels of the package under ``--root`` at the
+    writer's shapes (see the module's docstring)."""
+    from delta_tpu_torch.exec import snappy
+    from delta_tpu_torch.ops import page_codec
+
+    cases = chip_smoke.kernel_cases()
+    plain, bss = cases._store_sales_bytes(1 << 20)
+    mix = b"".join(b for _, b in plain + bss)
+    small_plain, small_bss = cases._store_sales_bytes(2000)
+    shapes = {"1 MiB": [mix[:1 << 20]],
+              "8 x 1 MiB": [mix[i << 20:(i + 1) << 20] for i in range(8)],
+              "8 x 16,000 B": [b for _, b in small_plain + small_bss]}
+    for shape, pages in shapes.items():
+        sizes = [len(p) for p in pages]
+        z = page_codec.compress(pages, dev)
+        t0 = time.perf_counter()
+        zp = [snappy.compress(p) for p in pages]
+        plain_c = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = [snappy.decompress(x) for x in z]
+        plain_d = (time.perf_counter() - t0) * 1e3
+        if back != pages or page_codec.decompress(z, sizes, dev) != pages:
+            raise SystemExit(f"kernel_ab: the codec's {shape} batch does not round-trip")
+        n_in, n_z = sum(sizes), sum(map(len, z))
+        compress_launch, decompress_launch, src, out, err = chip_smoke.codec_launches(
+            pages, z, dev)
+        b, _ = chip_smoke.bound(n_in + n_z)
+        for name, call, launch, plain_ms, extra in (
+                ("snappy_compress", lambda: page_codec.compress(pages, dev), compress_launch,
+                 plain_c, {"bytes_out": n_z, "plain_bytes_out": sum(map(len, zp)),
+                           "ratio_to_plain": n_z / sum(map(len, zp))}),
+                ("snappy_decompress", lambda: page_codec.decompress(z, sizes, dev),
+                 decompress_launch, plain_d, {})):
+            emit(name, shape=shape, pages=len(pages), bytes_in=n_in if name == "snappy_compress"
+                 else n_z, launches=t["launched"](call),
+                 ms=[t["cuda_ms"](call, 3, warm=1) for _ in range(3)],
+                 launch_ms=t["cuda_ms"](launch, 5, warm=1), graph_ms=t["graph_ms"](launch, 5),
+                 breakdown_us=t["kernel_breakdown"](launch, calls=5), bound_ms=b,
+                 plain_ms=plain_ms, **extra)
+        if not torch.equal(out, src) or bool(err.any()):
+            raise SystemExit(f"kernel_ab: the timed decompress launch of {shape} is wrong")
+        del compress_launch, decompress_launch, src, out, err
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--only", default="k1,k2,k3,k4,k5,k6,k7,k8,k9,k10,k11,k12,k13,k14,k15,k16,"
-                                      "k17,combine,l2")
+                                      "k17,combine,codec,l2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     only = set(args.only.split(","))
@@ -1244,6 +1300,8 @@ def main() -> int:
         k16_rows(torch, dev, emit, timers, chip_smoke)
     if "k4" in only:
         k4_rows(torch, dev, emit, timers, chip_smoke, state_export)
+    if "codec" in only:
+        codec_ab_rows(torch, dev, emit, timers, chip_smoke)
 
     if "l2" in only:
         table = torch.randint(0, 1 << 62, (1 << 21,), dtype=torch.int64, device=dev)
