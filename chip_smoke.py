@@ -308,7 +308,34 @@ Phases, each reported on its own line:
    whole call, the launch alone eager and replayed from a CUDA graph,
    beside the plain versions and the bound of their bytes in and out
    (``codec_rows``; no PyTorch call compresses Snappy);
-16. last line: ``{"ok": true, "device": {...}}``.
+16. the table API (``DeltaTable``), with the counters set to 0 again.
+   16a, inside phases 4-5's ``devicePlan.mode=force`` block on their live
+   1M-file residency: config 6's 256 queries as filter lists through
+   ``plan_queries(k=256)``: one K1 launch for the batch, 256 bumps of
+   ``stateCache.plan.resident``, every plan on the card and equal, path for
+   path with its count and overflow, to ``entry.plan_ranges`` and to the
+   host's ``files_for_scan``. 16b, bench config 2 at full width through the
+   API: ``DeltaTable.create(..., data=store_sales(10M), configuration=
+   {deletion vectors})`` in one commit at version 0, read back, then the
+   1M-row upsert through ``alias("t").merge(...).when_matched_update_all()
+   .when_not_matched_insert_all().execute()`` under
+   ``merge.devicePath.mode=force`` (K8-K10; 500,000 updated and inserted),
+   its end state equal to ``reference_upsert`` on all 8 columns. 16c, on
+   that table: ``upgrade_table_protocol`` (a no-op at the table's protocol;
+   a downgrade refused), a read of ``path@v0`` equal to the CTAS and a
+   DELETE on it refused, shallow clones at version 0 and at the latest
+   version (each read equal to the source at that version, no data file
+   copied), a DV DELETE and a VACUUM on the clone that leave the source's
+   files and rows as they were, ``generate()`` listing exactly the live
+   files and, with ``delta.compatibility.symlinkFormatManifest.enabled``,
+   the next DELETE's commit rewriting it, a ``create`` by name through a
+   catalog in the work directory read back by ``for_name``. 16d,
+   CONVERT_FILES Parquet files of store_sales written by the port's writer
+   in ``ss_sold_date_sk=`` directories, converted with a partition schema
+   and footer stats (``convert.stats.fromFooter`` for every file), a
+   filtered read with the residual on the card (K14) equal to numpy's that
+   scans fewer files, and a read the footer stats prune to no file;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -326,7 +353,7 @@ import time
 import numpy as np
 import torch
 
-from delta_tpu_torch import DeltaLog, MergeClause, MergeIntoCommand, WriteIntoDelta
+from delta_tpu_torch import DeltaLog, DeltaTable, MergeClause, MergeIntoCommand, WriteIntoDelta
 from delta_tpu_torch.exec.scan import scan_to_table
 from delta_tpu_torch.expr import device_eval, ir
 from delta_tpu_torch.expr.parser import parse_expression, parse_predicate
@@ -1825,7 +1852,7 @@ def run_slice(dev, workdir):
     check(launches["tail_apply"] == N_TAILS and launches["scatter_bool"] == 0
           and launches["scatter_cols"] == 0, "a tail must apply in one launch (K3 with K2)")
     return {"entry": entry, "ranges": ranges, "cols": cols, "launches": launches,
-            "log": log, "snap": snap, "store": store, "n_live": n_live}
+            "queries": queries, "log": log, "snap": snap, "store": store, "n_live": n_live}
 
 
 # -- phase 5: the normal leg and the tombstone replay ----------------------------
@@ -5246,6 +5273,219 @@ def run_nested(dev, workdir, card):
     say(json.dumps({"nested": steps}))
     return {"launches": launches, "steps": steps}
 
+# -- phase 16: the table API: plan_queries, CTAS, the MERGE builder, clone, GENERATE, convert --
+
+API_DV = {"delta.tpu.enableDeletionVectors": "true"}
+API_DELETE = "ss_quantity >= 96"
+#: 16d's Parquet directory: CONVERT_FILES files of CONVERT_FILE_ROWS
+#: store_sales rows, one an ``ss_sold_date_sk=`` directory
+CONVERT_FILES, CONVERT_FILE_ROWS = 64, 20_000
+MANIFEST = "_symlink_format_manifest"
+
+
+def run_plan_queries(dev, ctx):
+    """16a: config 6's 256 queries, as filter lists, through
+    ``DeltaTable.plan_queries`` on phase 4's live residency (no second
+    one): one K1 launch for the batch, 256 bumps of
+    ``stateCache.plan.resident``, each plan on the card and equal, path for
+    path, to ``entry.plan_ranges`` and to the host's ``files_for_scan``."""
+    from delta_tpu_torch.utils import telemetry
+
+    entry, snap, queries = ctx["entry"], ctx["snap"], ctx["queries"]
+    table = DeltaTable.for_path(ctx["log"].data_path, device=dev)
+    check(table.delta_log is ctx["log"] and table.version == snap.version,
+          "plan_queries: the handle is not on phase 4's log at its version")
+    want = entry.plan_ranges(ctx["ranges"], k=N_QUERIES, expected_version=snap.version)
+    counted = telemetry.counters("stateCache.plan.resident").get("stateCache.plan.resident", 0)
+    native.reset_launches()  # -- 16a's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = table.plan_queries([[q] for q in queries], k=N_QUERIES)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(native.launches)  # -- 16a's path ends here
+    bumped = telemetry.counters("stateCache.plan.resident")["stateCache.plan.resident"] - counted
+    check(launches["block_cull"] == 1, f"plan_queries: {launches['block_cull']} K1 launches")
+    check(bumped == N_QUERIES, f"plan_queries: stateCache.plan.resident bumped by {bumped}")
+    overflow = 0
+    for i, (q, got, w) in enumerate(zip(queries, plans, want)):
+        check(got.via == "device", f"plan_queries: query {i} planned by {got.via}")
+        check(got.paths == [entry.paths[r] for r in w.rows] and got.count == w.count
+              and got.overflow == w.overflow, f"plan_queries: query {i} differs from plan_ranges")
+        host = [f.path for f in pruning.files_for_scan(snap, [parse_expression(q)]).files]
+        check(got.count == len(host) and (sorted(got.paths) == host if not got.overflow
+                                          else set(got.paths) <= set(host)),
+              f"plan_queries: query {i} differs from files_for_scan: {q}")
+        overflow += got.overflow
+    say(f"table API: plan_queries of {N_QUERIES} queries in {plan_ms:.3f} ms (k={N_QUERIES}, "
+        f"{overflow} overflowing), launches {launches}; every plan on the card and equal to "
+        "plan_ranges and files_for_scan")
+    return {"launches": launches, "plan_ms": plan_ms}
+
+
+def manifest_lines(log):
+    """The table's top-level symlink manifest, and the lines its live files
+    make (``file:`` and the quoted absolute path)."""
+    import urllib.parse
+
+    with open(os.path.join(log.data_path, MANIFEST, "manifest")) as f:
+        got = f.read().splitlines()
+    want = sorted("file:" + urllib.parse.quote(os.path.abspath(
+        os.path.join(log.data_path, urllib.parse.unquote(a.path))))
+        for a in log.update().all_files)
+    return got, want
+
+
+def run_table_api(dev, workdir, card):
+    """16b-16d: bench config 2 through the table API at full width, then
+    clone, GENERATE, the catalog and CONVERT TO DELTA; each step's wall
+    seconds and launches printed beside the card."""
+    from delta_tpu_torch.catalog.catalog import Catalog
+    from delta_tpu_torch.commands.alter import set_table_properties
+    from delta_tpu_torch.commands.convert import ConvertToDeltaCommand
+    from delta_tpu_torch.obs.scan_report import last_scan_report
+    from delta_tpu_torch.schema.types import StructField
+    from delta_tpu_torch.utils import telemetry
+    from delta_tpu_torch.utils.errors import DeltaAnalysisError, ProtocolError
+
+    t_phase = time.perf_counter()
+    target = store_sales(MERGE_ROWS, np.random.RandomState(7))
+    src = merge_sources(target["ss_item_sk"])[0]
+    v0 = by_key({c: target[c] for c in STORE_SALES})
+    want = reference_upsert(v0, src)
+    path = os.path.join(workdir, "config2-api")
+    DeltaLog.clear_cache()
+    key_cache.KeyCache.reset()
+    steps = []
+
+    def step(name, fn, settings=None):
+        out, wall_s, delta = timed_step(name, fn, settings)
+        steps.append((name, wall_s, delta))
+        say(f"table API: {name} {wall_s:.3f} s, launches {delta} | {card}")
+        return out
+
+    native.reset_launches()  # -- 16b-16d's path starts here
+    # 16b: CTAS, then the MERGE builder's upsert
+    table = step("16b CTAS", lambda: DeltaTable.create(path, data=host_table(target),
+                                                       configuration=API_DV, device=dev),
+                 {"delta.tpu.write.targetFileRows": MERGE_FILE_ROWS})
+    commits = sorted(f for f in os.listdir(os.path.join(path, "_delta_log"))
+                     if f.endswith(".json"))
+    check(table.version == 0 and commits == [filenames.delta_file(0)],
+          f"CTAS: version {table.version}, commits {commits}")
+    same_state(step("16b read back", lambda: state_of(table.to_table())), v0, "CTAS read back")
+    metrics = step("16b MERGE builder", lambda: (
+        DeltaTable.for_path(path, device=dev).alias("t")
+        .merge(src, "t.ss_item_sk = s.ss_item_sk", source_alias="s")
+        .when_matched_update_all().when_not_matched_insert_all().execute()),
+        {"delta.tpu.merge.devicePath.mode": "force"})
+    check(metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
+          and metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
+          f"MERGE builder: metrics {metrics}")
+    merge_launches = steps[-1][2]
+    for k in ("slab_sort", "slab_probe", "pair_compact"):
+        check(merge_launches.get(k, 0) > 0, f"MERGE builder: {k} was not launched")
+    same_state(step("16b end state", lambda: state_of(table.to_table())), want,
+               "MERGE builder end state")
+    latest = table.version
+
+    # 16c: the protocol, a pinned handle, clones, GENERATE, the catalog
+    step("16c upgrade_table_protocol", lambda: table.upgrade_table_protocol(3, 7))
+    check(table.version == latest, "upgrading to the protocol the table has committed")
+    try:
+        table.upgrade_table_protocol(2, 8)
+        check(False, "a protocol downgrade was not refused")
+    except ProtocolError:
+        pass
+    pinned = DeltaTable.for_path(path + "@v0", device=dev)
+    same_state(step("16c read path@v0", lambda: state_of(pinned.to_table())), v0, "path@v0")
+    try:
+        pinned.delete("ss_quantity > 0")
+        check(False, "a DELETE on a path@v0 handle was not refused")
+    except DeltaAnalysisError:
+        pass
+    check(table.version == latest, "the refused DELETE committed")
+    source_files = data_files_on_disk(path)
+    clones = {}
+    for name, version, state in (("api-clone-v0", 0, v0), ("api-clone-latest", None, want)):
+        cpath = os.path.join(workdir, name)
+        clones[name] = step(f"16c clone {name}",
+                            lambda: table.clone(cpath, version=version))
+        same_state(state_of(clones[name].to_table()), state, f"clone {name}")
+        check(not [f for _, _, fs in os.walk(cpath) for f in fs if f.endswith(".parquet")],
+              f"clone {name} copied a data file")
+    clone = clones["api-clone-latest"]
+    deleted = int((want["ss_quantity"] >= 96).sum())
+    m = step("16c DELETE on the clone", lambda: clone.delete(API_DELETE))
+    check(m["numDeletedRows"] == deleted, f"DELETE on the clone: {m}")
+    kept = np.sort(want["ss_item_sk"][want["ss_quantity"] < 96])
+    check(np.array_equal(np.sort(clone.to_table(columns=["ss_item_sk"]).column(
+        "ss_item_sk").values), kept), "the clone's rows after its DELETE")
+    res = step("16c VACUUM of the clone",
+               lambda: clone.vacuum(retention_hours=0, retention_check_enabled=False))
+    check(data_files_on_disk(path) == source_files and table.version == latest,
+          "the clone's DELETE or VACUUM touched the source")
+    check(table.to_table(columns=["ss_item_sk"]).num_rows == len(want["ss_item_sk"]),
+          "the source's rows after the clone's DELETE")
+    say(f"table API: the clone's VACUUM deleted {res.files_deleted} files, none of the source's")
+    step("16c generate", table.generate)
+    got, live = manifest_lines(table.delta_log)
+    check(got == live, "GENERATE: the manifest does not list exactly the live files")
+    set_table_properties(table.delta_log,
+                         {"delta.compatibility.symlinkFormatManifest.enabled": "true"})
+    os.remove(os.path.join(path, MANIFEST, "manifest"))
+    m = step("16c DELETE with the manifest hook", lambda: table.delete(API_DELETE))
+    check(m["numDeletedRows"] == deleted, f"DELETE with the manifest hook: {m}")
+    got, live = manifest_lines(table.delta_log)
+    check(got == live, "the DELETE's commit did not rewrite the manifest")
+    store = os.path.join(workdir, "catalog.json")
+    small = {c: v[:100_000] for c, v in target.items()}
+    step("16c create by name", lambda: Catalog(store).create_table(
+        "tpcds.store_sales_api", os.path.join(workdir, "api-by-name"),
+        data=host_table(small), device=dev))
+    named = DeltaTable.for_name("tpcds.store_sales_api", catalog=Catalog(store), device=dev)
+    same_state(state_of(named.to_table()), by_key(small), "for_name")
+
+    # 16d: CONVERT TO DELTA of Parquet files the port's writer wrote
+    conv = os.path.join(workdir, "api-convert")
+    cols = store_sales(CONVERT_FILES * CONVERT_FILE_ROWS, np.random.RandomState(17))
+    days = 2450000 + np.arange(len(cols["ss_item_sk"])) // CONVERT_FILE_ROWS
+    cols["ss_sold_date_sk"] = days.astype(np.int64)
+
+    def write_dir():
+        for d in np.unique(days):
+            part = {c: v[days == d] for c, v in cols.items() if c != "ss_sold_date_sk"}
+            os.makedirs(os.path.join(conv, f"ss_sold_date_sk={d}"))
+            write_parquet_file(host_table(part), os.path.join(
+                conv, f"ss_sold_date_sk={d}", "part-00000.parquet"), device=dev)
+
+    step("16d write the Parquet directory", write_dir)
+    before = telemetry.counters("convert.stats")
+    step("16d convert", lambda: ConvertToDeltaCommand(
+        DeltaLog.for_table(conv, device=dev),
+        StructType([StructField("ss_sold_date_sk", LongType())]), collect_stats=True).run())
+    stats = {k: v - before.get(k, 0) for k, v in telemetry.counters("convert.stats").items()}
+    check(stats == {"convert.stats.fromFooter": CONVERT_FILES},
+          f"convert: stats {stats}, not all from the footers")
+    converted = DeltaTable.for_path(conv, device=dev)
+    filters = ["ss_sold_date_sk < 2450008", "ss_quantity >= 90"]
+    keep = (days < 2450008) & (cols["ss_quantity"] >= 90)
+    got = step("16d filtered read", lambda: converted.to_table(filters=filters),
+               {"delta.tpu.read.deviceResidual.mode": "force"})
+    same_state(state_of(got), take_state(cols, keep), "the converted table's filtered read")
+    check(steps[-1][2].get("residual_mask", 0) > 0, "the filtered read launched no K14")
+    scanned = last_scan_report().files_scanned
+    check(scanned < CONVERT_FILES, f"the converted table's read scanned {scanned} files")
+    none = converted.to_table(filters=["ss_store_sk > 1000"])
+    check(none.num_rows == 0 and last_scan_report().files_scanned == 0,
+          "the footer stats pruned no file")
+    launches = dict(native.launches)  # -- 16b-16d's path ends here
+    say(f"table API: convert of {CONVERT_FILES} files, stats {stats}, the filtered read "
+        f"scanned {scanned} files; launches on 16b-16d's path {launches} | {card}")
+    say(f"table API: 16b-16d took {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "steps": steps, "merge_launches": merge_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5287,11 +5527,14 @@ def main() -> int:
         with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
             ctx = run_slice(dev, workdir)
             run_fallback(dev, ctx)
+            lap("4-5 config 6")
+            # 16a on phase 4's live residency, before its host state goes
+            pq_ctx = run_plan_queries(dev, ctx)
+            lap("16a plan_queries")
         check(ctx["launches"]["snappy_decompress"] > 0,
               "config 6's checkpoint decoded without snappy_decompress")
         tally(ctx["launches"])
         tally(ctx["fallback_launches"])
-        lap("4-5 config 6")
         c5 = run_config5(dev, workdir)
         tally(c5["launches"])
         lap("5b config 5")
@@ -5376,6 +5619,16 @@ def main() -> int:
                               + nctx["launches"].get(k["name"], 0))
         tally(dectx["launches"])
         tally(nctx["launches"])
+        dectx = nctx = None
+        key_cache.KeyCache.reset()
+        torch.cuda.empty_cache()
+        actx = run_table_api(dev, workdir, card)
+        lap("16b-d table API")
+        for k in kernels:  # phase 16: K1 (16a); K1, K8-K10, K14 and the rest of 16b-d
+            k["launches"] += pq_ctx["launches"].get(k["name"], 0) + actx["launches"].get(
+                k["name"], 0)
+        tally(pq_ctx["launches"])
+        tally(actx["launches"])
     say(f"page codec: launches on every phase's path {codec}")
     for k in CODEC_KERNELS:
         check(codec[k] > 0, f"kernel {k} was launched on no phase's path")

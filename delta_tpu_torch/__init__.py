@@ -18,7 +18,13 @@ scan plan, the MERGE join and the residual filter, and ``obs/router_audit``
 records each decision. Over a state mesh of several entries
 (``parallel/mesh``: every card, or one card named several times) the scan
 plan, the replay and the MERGE upload join run sharded, one launch a shard
-(K7, K6, K13), as ``multichip.dryrun_multichip`` drives them::
+(K7, K6, K13), as ``multichip.dryrun_multichip`` drives them. ``DeltaTable``
+(``api/tables``) carries the JAX package's table API but the change data
+feed, ``doctor`` and ``advise``: create and CTAS (``commands/create``),
+write, the MERGE builder, batched plans (``exec/scan.plan_scans``), shallow
+clones (``commands/clone``), CONVERT TO DELTA (``commands/convert``),
+symlink manifests (``hooks/symlink_manifest``), the protocol upgrade, the
+name catalog (``catalog/catalog``) and the read-only ``path@v`` handles::
 
     from delta_tpu_torch import DeltaLog, DeltaTable, MergeClause, MergeIntoCommand
     from delta_tpu_torch import WriteIntoDelta
@@ -32,6 +38,9 @@ plan, the replay and the MERGE upload join run sharded, one launch a shard
                      [MergeClause("insert")], source_alias="s", target_alias="t").run()
     table = DeltaTable.for_path(path)
     rows = table.to_table(filters=["k > 10"])       # a HostTable
+    (table.alias("t").merge(source, "t.k = s.k", source_alias="s")
+        .when_matched_update_all().when_not_matched_insert_all().execute())
+    plans = table.plan_queries([["k = 3"], ["k > 10 AND k < 20"]])
     table.delete("k < 5")
     table.update({"v": "v + 1"}, "k = 7")
     before = table.to_table(version=1)

@@ -9,8 +9,9 @@ group's footer statistics; a group survives unless the rewrite is
 definitely False. The statistics come from the port's own footer reader
 (``exec/parquet.chunk_statistics``), decoded to the Python values
 ``pyarrow`` gives, so a plan here equals the JAX package's plan over the
-same file. The JAX package's fired-rewrite attribution and
-``stats_from_footer`` (CONVERT TO DELTA) are not ported.
+same file. :func:`stats_from_footer` derives a file's protocol stats from
+its footer alone (CONVERT TO DELTA). The JAX package's fired-rewrite
+attribution is not ported.
 """
 from __future__ import annotations
 
@@ -23,13 +24,15 @@ from typing import Any, Dict, FrozenSet, List, Optional
 
 import numpy as np
 
-from delta_tpu_torch.exec.parquet import chunk_statistics, read_metadata
+from delta_tpu_torch.exec.parquet import (
+    _leaf_type, _top_level, chunk_statistics, json_stat_value, read_metadata,
+)
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.utils import telemetry
 from delta_tpu_torch.utils.config import conf
 
 __all__ = ["read_footer", "FooterCache", "RowGroupPlan", "plan_row_groups",
-           "row_group_offsets", "row_groups_for_positions"]
+           "row_group_offsets", "row_groups_for_positions", "stats_from_footer"]
 
 
 class FooterCache:
@@ -252,3 +255,79 @@ def row_groups_for_positions(meta, positions) -> FrozenSet[int]:
     if pos.size == 0:
         return frozenset()
     return frozenset(int(i) for i in np.unique(np.searchsorted(off, pos, side="right") - 1))
+
+
+def _skippable(stype: str) -> bool:
+    """A stored type whose bounds become protocol stats (``collect_stats``'
+    kinds: integers, floats, strings, dates, timestamps, booleans,
+    decimals)."""
+    return (stype in ("bool", "int8", "int16", "int32", "int64", "float32", "float64",
+                      "string", "date32") or stype.startswith("timestamp")
+            or stype.startswith("decimal"))
+
+
+def stats_from_footer(meta, num_indexed_cols: int = 32) -> Optional[Dict[str, Any]]:
+    """Protocol stats (numRecords/minValues/maxValues/nullCount) from the
+    footer's row-group statistics, or None where the footer cannot stand in
+    for a decode: a nested or undecodable column among the indexed ones, a
+    chunk without a null count, NaN float bounds, or a chunk with values
+    whose bounds the writer withheld. Bounds ``collect_stats`` would not
+    emit (binary, decimal, non-finite floats) are left out, so the footer's
+    stats equal the decode's wherever both exist."""
+    try:
+        top = _top_level(meta.schema)
+    except Exception:
+        return None
+    names = list(top)[: num_indexed_cols if num_indexed_cols >= 0 else None]
+    n_rgs = len(meta.row_groups or [])
+    mins: Dict[str, Any] = {}
+    maxs: Dict[str, Any] = {}
+    nulls: Dict[str, Any] = {}
+    for name in names:
+        el, j = top[name]
+        if j < 0:
+            return None  # nested: the footer cannot cover this column
+        try:
+            stype = _leaf_type(el)[0]
+        except NotImplementedError:
+            return None
+        is_float = stype in ("float32", "float64")
+        total_null = 0
+        col_mins: List[Any] = []
+        col_maxs: List[Any] = []
+        bounds_incomplete = False
+        for i in range(n_rgs):
+            try:
+                st = chunk_statistics(meta, i, j)
+            except Exception:
+                return None
+            if st is None or st[0] is None:
+                return None  # not even a null count: decode
+            null_count, bounds = st
+            total_null += int(null_count)
+            if bounds is not None:
+                mn, mx = bounds
+                if is_float and ((isinstance(mn, float) and math.isnan(mn))
+                                 or (isinstance(mx, float) and math.isnan(mx))):
+                    return None  # NaN-polluted bounds: decode
+                col_mins.append(mn)
+                col_maxs.append(mx)
+            elif int(null_count) != int(meta.row_groups[i].num_rows):
+                bounds_incomplete = True  # values without bounds: decode
+        nulls[name] = total_null
+        if not _skippable(stype) or total_null == int(meta.num_rows):
+            continue
+        if bounds_incomplete or not col_mins:
+            return None
+        try:
+            mn_v, mx_v = min(col_mins), max(col_maxs)
+        except TypeError:
+            return None
+        mn_j = json_stat_value(mn_v)
+        mx_j = json_stat_value(mx_v, round_up=True)
+        if mn_j is not None:
+            mins[name] = mn_j
+        if mx_j is not None:
+            maxs[name] = mx_j
+    return {"numRecords": int(meta.num_rows), "minValues": mins, "maxValues": maxs,
+            "nullCount": nulls}

@@ -1,6 +1,6 @@
 """Scan executor: AddFiles -> ``HostTable`` (the port's own copy of
-``delta_tpu.exec.scan``'s ``read_files_as_table``, ``scan_files`` and
-``scan_to_table``).
+``delta_tpu.exec.scan``'s ``read_files_as_table``, ``scan_files``,
+``scan_to_table`` and the batched planner ``plan_scans``).
 
 Decode each file's data columns through the port's Parquet codec
 (``exec/parquet``), drop the rows its deletion vector marks, fill the
@@ -31,6 +31,7 @@ import datetime as _dt
 import os
 import time
 import urllib.parse
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -52,7 +53,7 @@ from delta_tpu_torch.schema import schema_utils
 from delta_tpu_torch.utils import telemetry
 from delta_tpu_torch.utils.config import conf
 
-__all__ = ["read_files_as_table", "scan_files", "scan_to_table"]
+__all__ = ["read_files_as_table", "scan_files", "scan_to_table", "QueryPlan", "plan_scans"]
 
 #: the stored bytes of consecutive whole-file reads whose pages inflate in one
 #: batch (``exec/parquet.read_parquet_batch``): one launch set a group, not a file
@@ -421,6 +422,83 @@ def read_files_as_table(data_path: str, files: Sequence[AddFile], metadata,
 def scan_files(snapshot, filters: Sequence[Union[str, ir.Expression]] = ()) -> pruning.DeltaScan:
     exprs = [parse_predicate(f) if isinstance(f, str) else f for f in filters]
     return pruning.files_for_scan(snapshot, exprs)
+
+
+@dataclass
+class QueryPlan:
+    """One query's pruned file list from :func:`plan_scans`. ``overflow``
+    marks a query whose match set exceeded k (``paths`` holds the first k;
+    ``count`` stays exact); ``via`` is the route that planned it
+    ('device', 'device-sharded', 'host-resident', 'verdict', or 'scan' for
+    the per-query fallback)."""
+
+    paths: List[str]
+    count: int
+    overflow: bool = False
+    via: str = "scan"
+
+
+def plan_scans(snapshot, queries: Sequence[Sequence[Union[str, ir.Expression]]],
+               k: int = 256) -> List[QueryPlan]:
+    """Plan a batch of queries (each a list of filters) against one
+    snapshot. With the table's scan lanes resident (``ops/state_cache``)
+    the queries that lower to range boxes are one ``plan_ranges`` call for
+    the whole batch: one block cull (K1; K7 over a state mesh) and one
+    download. A query that does not lower, or a batch whose entry has moved
+    past the snapshot, falls back to ``files_for_scan`` query by query."""
+    from delta_tpu_torch.expr.synthesis import schema_types
+    from delta_tpu_torch.ops.state_cache import DeviceStateCache, extract_range_union
+
+    parsed = [[parse_predicate(f) if isinstance(f, str) else f for f in q] for q in queries]
+    out: List[Optional[QueryPlan]] = [None] * len(queries)
+    entry = DeviceStateCache.instance().get(snapshot)
+    range_ix, term_lists = [], []
+    if entry is not None:
+        pcols = frozenset(c.lower() for c in snapshot.metadata.partition_columns)
+        types = schema_types(snapshot.metadata)
+        for i, exprs in enumerate(parsed):
+            if not exprs:
+                continue
+            rewritten = pruning.skipping_predicate(ir.and_all(list(exprs)), pcols, types)
+            terms = extract_range_union(rewritten, entry.columns, entry.part_info,
+                                        str_lanes=entry.str_lanes)
+            if terms:
+                range_ix.append(i)
+                term_lists.append(terms)
+            else:
+                telemetry.bump_counter("stateCache.plan.fallback.lowering")
+    else:
+        telemetry.bump_counter("stateCache.plan.fallback.noentry", len(queries))
+    if term_lists:
+        # an OR's boxes union after the plan, so they ask for complete row
+        # sets; a single-box query keeps k
+        flat, flat_ks = [], []
+        full_k = max(entry.num_rows, 1)
+        for terms in term_lists:
+            flat.extend(terms)
+            flat_ks.extend([k if len(terms) == 1 else full_k] * len(terms))
+        plans = entry.plan_ranges(flat, k=flat_ks, expected_version=snapshot.version)
+        if plans is not None:  # None: the entry advanced past the snapshot
+            telemetry.bump_counter("stateCache.plan.resident", len(term_lists))
+            pos = 0
+            for i, terms in zip(range_ix, term_lists):
+                chunk = plans[pos:pos + len(terms)]
+                pos += len(terms)
+                if len(chunk) == 1:
+                    rows, count = chunk[0].rows, chunk[0].count
+                else:
+                    rows = np.unique(np.concatenate([p.rows for p in chunk]))
+                    count = len(rows)
+                out[i] = QueryPlan(paths=[entry.paths[r] for r in rows[:k]], count=int(count),
+                                   overflow=bool(count > k or chunk[0].overflow),
+                                   via=chunk[0].via)
+        else:
+            telemetry.bump_counter("stateCache.plan.fallback.version", len(term_lists))
+    for i, exprs in enumerate(parsed):
+        if out[i] is None:
+            scan = pruning.files_for_scan(snapshot, exprs)
+            out[i] = QueryPlan(paths=[f.path for f in scan.files], count=len(scan.files))
+    return out  # type: ignore[return-value]
 
 
 def scan_to_table(snapshot, filters: Sequence[Union[str, ir.Expression]] = (),

@@ -72,6 +72,7 @@ __all__ = ["HostColumn", "HostTable", "StatsTypeError", "table_from_rows",
 _EPOCH_DAY = _dt.date(1970, 1, 1)
 _EPOCH_TS = _dt.datetime(1970, 1, 1)
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 class StatsTypeError(errors.DeltaAnalysisError, TypeError):
@@ -1111,6 +1112,29 @@ class _Vectorizer:
             valid = np.where(fire, vok, valid)
         return HostColumn(kind, out, valid)
 
+    def _date_arith(self, e):
+        """``date_add``/``date_sub``/``datediff`` on the day lane with
+        Arrow's semantics: a date's days, the count cast to int32, the sum
+        or difference unchecked in int32, NULL where either side is. An
+        operand that is not a date takes the row semantics, as in the JAX
+        package."""
+        a = self.visit(e.children[0])
+        b = self.visit(e.children[1])
+        if a.kind != "date":
+            return self._fallback(e)
+        av, aok = _parts(a, self.n)
+        if e.name == "datediff":
+            if b.kind != "date":
+                return self._fallback(e)
+            bv, bok = _parts(b, self.n)
+            return HostColumn("int", _wrap_int32(av - bv), aok & bok)
+        count = _int32_days(b, self.n)
+        if count is None:
+            return self._fallback(e)
+        bv, bok = count
+        out = av + bv if e.name == "date_add" else av - bv
+        return HostColumn("date", _wrap_int32(out), aok & bok)
+
     def _v_Func(self, e):
         name = e.name
         if name in ("substring", "substr") and all(
@@ -1150,6 +1174,8 @@ class _Vectorizer:
             sliced = HostColumn("str", np.array([s[:10] if o else None
                                                  for s, o in zip(v, ok)], object), ok)
             return _str_to_temporal(sliced, "date", self.n)
+        if name in ("date_add", "date_sub", "datediff") and len(e.children) == 2:
+            return self._date_arith(e)
         if name == "round" and _round_to_whole(e):
             c = self.visit(e.children[0])
             if c.kind == "decimal":  # Arrow's round, half to even, the type kept
@@ -1176,6 +1202,30 @@ class _Vectorizer:
             fn = np.floor if name == "floor" else np.ceil
             return HostColumn("double", fn(v.astype(np.float64)), ok)
         return self._fallback(e)  # the exact row semantics
+
+
+def _int32_days(c: HostColumn, n: int):
+    """A count as Arrow's safe cast to int32 gives it: (values, valid), or
+    None where a valid value does not fit (Arrow raises, and the JAX
+    package's visitor then takes the row semantics)."""
+    if c.kind == "null":
+        return np.zeros(n, np.int64), np.zeros(n, bool)
+    if c.kind not in ("int", "bool", "double"):
+        return None
+    v, ok = _parts(c, n)
+    if c.kind == "double":
+        live = v[ok]
+        if not np.all(np.isfinite(live)) or np.any(live != np.trunc(live)):
+            return None
+    v = np.where(ok, v, 0).astype(np.float64 if c.kind == "double" else np.int64)
+    if np.any((v < _I32_MIN) | (v > _I32_MAX)):
+        return None
+    return v.astype(np.int64), ok
+
+
+def _wrap_int32(v: np.ndarray) -> np.ndarray:
+    """Arrow's unchecked int32 add/subtract: the low 32 bits, signed."""
+    return ((v.astype(np.int64) - _I32_MIN) % (1 << 32)) + _I32_MIN
 
 
 def _round_to_whole(e) -> bool:

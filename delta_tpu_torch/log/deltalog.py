@@ -4,8 +4,9 @@
 by version or timestamp (``snapshot_for``, through ``log/history``), the
 protocol gates, the transactions (``txn/transaction``), checkpoints
 (``log/checkpoints``) with the expired-log cleanup after them
-(``log/cleanup``), and the ``.crc`` of a committed version
-(``log/checksum``).
+(``log/cleanup``), the ``.crc`` of a committed version
+(``log/checksum``), the explicit protocol upgrade, and the ``path@v123`` /
+``path@yyyyMMddHHmmssSSS`` handles (:func:`extract_path_time_travel`).
 
 An ``update()`` that finds only new commits decodes just those and extends
 the previous snapshot's columnar state (when it was decoded), where the JAX
@@ -17,7 +18,9 @@ the CPU behind the caller's back.
 """
 from __future__ import annotations
 
+import datetime as _dt
 import logging
+import re
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -37,11 +40,36 @@ from delta_tpu_torch.storage.logstore import LocalLogStore
 from delta_tpu_torch.utils import errors as errors_mod
 from delta_tpu_torch.utils.device import resolve
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
-from delta_tpu_torch.utils.errors import DeltaIllegalStateError, VersionNotFoundError
+from delta_tpu_torch.utils.errors import (
+    DeltaIllegalStateError, ProtocolError, VersionNotFoundError,
+)
 
-__all__ = ["DeltaLog"]
+__all__ = ["DeltaLog", "extract_path_time_travel"]
 
 logger = logging.getLogger(__name__)
+
+# path-embedded time travel (`DeltaTimeTravelSpec.scala:137`): `/t@v123` pins
+# a version, `/t@yyyyMMddHHmmssSSS` (17 digits) a timestamp
+_TT_SUFFIX = re.compile(r"^(?P<base>.+)@(?:[vV](?P<ver>\d+)|(?P<ts>\d{17}))$")
+
+
+def extract_path_time_travel(path: str):
+    """(base_path, version, timestamp_ms) when ``path`` carries an embedded
+    time-travel suffix, else None. Callers apply it only when the literal
+    path is not itself a table. The timestamp's digits are a UTC wall clock,
+    as in the JAX package (the reference reads them in the session's zone)."""
+    m = _TT_SUFFIX.match(path.rstrip("/"))
+    if not m:
+        return None
+    base = m.group("base")
+    if m.group("ver") is not None:
+        return base, int(m.group("ver")), None
+    s = m.group("ts")
+    try:
+        d = _dt.datetime.strptime(s[:14], "%Y%m%d%H%M%S").replace(tzinfo=_dt.timezone.utc)
+    except ValueError:
+        return None
+    return base, None, int(d.timestamp() * 1000) + int(s[14:])
 
 
 class DeltaLog:
@@ -235,6 +263,24 @@ class DeltaLog:
             raise errors_mod.invalid_protocol_version(
                 SUPPORTED_READER_VERSION, SUPPORTED_WRITER_VERSION,
                 protocol.min_reader_version or 0, v)
+
+    def upgrade_protocol(self, new_protocol: Protocol) -> None:
+        """Explicit protocol upgrade (``DeltaLog.scala:198-216``): a no-op
+        when the table is already there, an error on a downgrade."""
+        current = self.update().protocol
+        if (current.min_reader_version >= new_protocol.min_reader_version
+                and current.min_writer_version >= new_protocol.min_writer_version):
+            logger.info("Table already at protocol %s; skipping upgrade", current)
+            return
+        if (new_protocol.min_reader_version < current.min_reader_version
+                or new_protocol.min_writer_version < current.min_writer_version):
+            raise ProtocolError(
+                f"Protocol version cannot be downgraded from {current} to {new_protocol}")
+        from delta_tpu_torch.commands.operations import UpgradeProtocol
+
+        txn = self.start_transaction()
+        txn.new_protocol = new_protocol
+        txn.commit([], UpgradeProtocol(new_protocol))
 
     # -- transactions ----------------------------------------------------
 

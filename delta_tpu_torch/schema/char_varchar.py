@@ -1,5 +1,7 @@
-"""Read-side char(n) padding (the port's own copy of
-``delta_tpu.schema.char_varchar``'s ``raw_type`` and ``pad_char_literals``).
+"""Char/varchar declarations (the port's own copy of
+``delta_tpu.schema.char_varchar``'s ``replace_char_varchar_with_string``,
+``raw_type`` and ``pad_char_literals``): the declaration a CREATE and an
+ADD COLUMNS commit, and the read-side char(n) padding.
 A char(n) column is stored as STRING plus the reference's type-string field
 metadata (``CharVarcharUtils.scala:38``), or declared as ``char(n)``."""
 from __future__ import annotations
@@ -8,12 +10,27 @@ from typing import Optional
 
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.schema.types import (
-    CharType, DataType, StructField, StructType, VarcharType, parse_data_type,
+    CharType, DataType, StringType, StructField, StructType, VarcharType, parse_data_type,
 )
 
-__all__ = ["CHAR_VARCHAR_TYPE_STRING_METADATA_KEY", "raw_type", "pad_char_literals"]
+__all__ = ["CHAR_VARCHAR_TYPE_STRING_METADATA_KEY", "replace_char_varchar_with_string",
+           "raw_type", "pad_char_literals"]
 
 CHAR_VARCHAR_TYPE_STRING_METADATA_KEY = "__CHAR_VARCHAR_TYPE_STRING"
+
+
+def replace_char_varchar_with_string(schema: StructType) -> StructType:
+    """Top-level char/varchar fields become STRING plus the type-string
+    metadata (``CharVarcharUtils.scala:35-60``); nested ones are kept."""
+    fields = []
+    for f in schema.fields:
+        if isinstance(f.data_type, (CharType, VarcharType)):
+            md = dict(f.metadata or {})
+            md[CHAR_VARCHAR_TYPE_STRING_METADATA_KEY] = f.data_type.name
+            fields.append(StructField(f.name, StringType(), f.nullable, md))
+        else:
+            fields.append(f)
+    return StructType(fields)
 
 
 def raw_type(field: StructField) -> DataType:

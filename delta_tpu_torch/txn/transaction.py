@@ -9,10 +9,13 @@ the conflict checker (``txn/conflicts``) and retries at the next version.
 
 Cut to what the port's commands run: no group commit, no ambiguous-outcome
 reconciliation (the local store's create either lands or raises
-``FileExistsError``), no telemetry, no post-commit hooks. After the commit
-(``_post_commit``) the log's snapshot is updated, the version's ``.crc`` is
-written, and every ``delta.checkpointInterval`` versions a checkpoint (a
-failed one leaves the landed commit standing and logs a warning). The
+``FileExistsError``), no telemetry. After the commit (``_post_commit``) the
+log's snapshot is updated, the version's ``.crc`` is written, every
+``delta.checkpointInterval`` versions a checkpoint (a failed one leaves the
+landed commit standing and logs a warning), then the registered post-commit
+hooks run (the symlink manifest, ``hooks/symlink_manifest``, on a table with
+``delta.compatibility.symlinkFormatManifest.enabled``; a failing hook logs a
+warning). The
 async and incremental checkpointer is not ported:
 ``delta.tpu.checkpoint.async`` set to true raises ``NotImplementedError``.
 """
@@ -87,6 +90,7 @@ class OptimisticTransaction:
         self.staged_removes: List[RemoveFile] = []
         self.operation_metrics: Dict[str, str] = {}
         self.user_metadata: Optional[str] = None
+        self.post_commit_hooks: List = []
         self.stats = CommitStats(start_version=self.read_version)
 
     # -- ambient active transaction (scala:99-144) ----------------------
@@ -224,7 +228,9 @@ class OptimisticTransaction:
         actions = self._prepare_commit(list(actions))
         self.stats.phase_durations_ms["prepare"] = int((time.perf_counter() - t0) * 1000)
         if DeltaConfigs.SYMLINK_FORMAT_MANIFEST_ENABLED.from_metadata(self.metadata):
-            raise NotImplementedError("post-commit hooks (the symlink manifest) are not ported")
+            from delta_tpu_torch.hooks.symlink_manifest import SymlinkManifestHook
+
+            self.register_post_commit_hook(SymlinkManifestHook())
         if conf.get_bool("delta.tpu.checkpoint.async", False):
             raise NotImplementedError("delta.tpu.checkpoint.async: the async and incremental "
                                       "checkpointer is not ported")
@@ -277,7 +283,8 @@ class OptimisticTransaction:
         return version
 
     def _post_commit(self, version: int) -> None:
-        """The ``.crc`` and the interval checkpoint (scala:582-594, 880-915)."""
+        """The ``.crc``, the interval checkpoint and the hooks
+        (scala:582-594, 880-915)."""
         snapshot = self.delta_log.update_after_commit(version)
         if snapshot.version == version:
             self.delta_log.write_checksum_for(snapshot)
@@ -289,6 +296,15 @@ class OptimisticTransaction:
             except Exception:  # noqa: BLE001 - a checkpoint must not fail the commit
                 logger.warning("Post-commit checkpoint at version %s failed", version,
                                exc_info=True)
+        for hook in self.post_commit_hooks:
+            try:
+                hook.run(self, version, snapshot)
+            except Exception as e:  # noqa: BLE001 - a hook must not fail the commit
+                logger.warning("Post-commit hook %s failed: %s", getattr(hook, "name", hook), e)
+
+    def register_post_commit_hook(self, hook) -> None:
+        if hook not in self.post_commit_hooks:
+            self.post_commit_hooks.append(hook)
 
     def _prepare_commit(self, actions: List[Action]) -> List[Action]:
         """Validation + first-commit injection

@@ -128,6 +128,10 @@ class SqlConf:
         "delta.tpu.checkpoint.async": False,
         "delta.tpu.writeChecksum.enabled": True,
         "delta.tpu.cleanup.tmpOrphanTtlMs": 3_600_000,
+        # the name catalog (catalog/catalog): its JSON file (unset: in
+        # memory), and the age past which an in-flight CREATE's claim lapses
+        "delta.tpu.catalog.path": None,
+        "delta.tpu.catalog.claimTimeoutMs": 600_000,
     }
 
     def __init__(self):

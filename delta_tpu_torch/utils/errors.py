@@ -8,6 +8,18 @@ from __future__ import annotations
 from typing import Iterable, Optional
 
 __all__ = [
+    "replace_requires_existing_table", "unsupported_generate_mode", "column_not_in_schema",
+    "invalid_table_identifier", "table_already_exists_in_catalog",
+    "table_being_created_concurrently", "table_not_found_in_catalog",
+    "partition_path_segment_invalid", "partition_path_mismatch", "unset_nonexistent_property",
+    "parent_is_not_struct", "position_after_column_not_found", "invalid_column_position_spec",
+    "add_columns_must_be_nullable", "cannot_change_column_type",
+    "cannot_change_nullable_to_not_null", "add_column_anchor_not_found",
+    "column_already_exists", "struct_not_found_at_position", "drop_column_index_below_zero",
+    "add_column_index_below_zero", "add_column_index_too_large", "parent_not_struct",
+    "replace_column_index_oob", "array_access_needs_element_step", "nested_op_only_in_struct",
+    "drop_column_index_too_large", "array_access_element_path_hint",
+    "map_access_needs_key_or_value", "column_path_not_nested", "column_path_not_found",
     "DeltaError", "DeltaAnalysisError", "DeltaIllegalStateError", "DeltaParseError",
     "VersionNotFoundError", "DeltaFileNotFoundError", "TimestampEarlierThanCommitRetentionError",
     "TemporallyUnstableInputError", "invalid_timestamp_format", "update_column_not_found",
@@ -447,3 +459,176 @@ class OptimizeBudgetExceeded(DeltaError):
         self.est_bytes = est_bytes
         self.cap_bytes = cap_bytes
         self.files = files
+
+
+# -- the table API's errors: create/replace, the catalog, convert, generate,
+# -- ALTER's column edits and nested positions
+
+
+def replace_requires_existing_table(path: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Table not found: {path} (REPLACE requires an existing table; use "
+        "CREATE OR REPLACE)")
+
+
+def unsupported_generate_mode(mode: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Unsupported GENERATE mode: {mode!r}. The only supported mode is "
+        "'symlink_format_manifest'.")
+
+
+def invalid_table_identifier(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Invalid table identifier: {name!r}. Use 'table', 'db.table', or a "
+        "path identifier delta.`/path/to/table`.")
+
+
+def table_already_exists_in_catalog(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Table {name!r} already exists in catalog. Use CREATE OR REPLACE to "
+        "overwrite it, or DROP TABLE first.")
+
+
+def table_being_created_concurrently(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Table {name!r} is being created concurrently by another writer. "
+        "Wait for that create to finish, or retry the operation.")
+
+
+def table_not_found_in_catalog(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Table {name!r} not found in catalog. Check the identifier, or use "
+        "a path identifier delta.`/path/to/table` for path-addressed tables.")
+
+
+def partition_path_segment_invalid(segment: str, rel_path: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Expecting partition column in path segment {segment!r} of {rel_path!r}")
+
+
+def partition_path_mismatch(rel_path: str, found, expected) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Partition columns in path {rel_path!r} ({sorted(found)}) don't "
+        f"match the declared partition schema ({sorted(expected)}). "
+        "CONVERT TO DELTA requires PARTITIONED BY matching the layout.")
+
+
+def unset_nonexistent_property(key: str, table: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Attempted to unset non-existent property '{key}' in table {table}")
+
+
+def parent_is_not_struct(parent: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Parent {parent} is not a struct")
+
+
+def position_after_column_not_found(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Couldn't find column {column} to position AFTER")
+
+
+def invalid_column_position_spec(spec: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Invalid column position spec {spec!r}. Use FIRST or AFTER "
+        "<existing column>.")
+
+
+def add_columns_must_be_nullable(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"ADD COLUMNS requires nullable columns, {name} is NOT NULL")
+
+
+def cannot_change_column_type(name: str, old: str, new: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot change column {name} from {old} to {new}")
+
+
+def cannot_change_nullable_to_not_null(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot change nullable column {name} to NOT NULL")
+
+
+def add_column_anchor_not_found(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Couldn't resolve the position to add the column {column}: the "
+        "AFTER anchor column does not exist at that nesting level.")
+
+
+def column_already_exists(column: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Column {column} already exists.")
+
+
+def struct_not_found_at_position(position) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Struct not found at position {position}; the parent of a nested "
+        "column operation must be a struct column.")
+
+
+def drop_column_index_below_zero(position: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Index {position} to drop column is lower than 0")
+
+
+def add_column_index_below_zero(position: int, name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Index {position} to add column {name} is lower than 0")
+
+
+def add_column_index_too_large(position: int, name: str, length: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Index {position} to add column {name} is larger than struct "
+        f"length: {length}")
+
+
+def parent_not_struct(name: str, found: Optional[str] = None) -> DeltaAnalysisError:
+    tail = f" Found {found}" if found else ""
+    return DeltaAnalysisError(
+        f"Cannot add {name} because its parent is not a StructType.{tail}")
+
+
+def replace_column_index_oob(position: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Index {position} to replace column is out of bounds")
+
+
+def array_access_needs_element_step(verb: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Incorrectly accessing an ArrayType during {verb}: use the element "
+        "step")
+
+
+def nested_op_only_in_struct(verb: str, found: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Can only {verb} nested columns inside StructType. Found: {found}")
+
+
+def drop_column_index_too_large(position: int, length: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Index {position} to drop column equals to or is larger than "
+        f"struct length: {length}")
+
+
+def array_access_element_path_hint(corrected_path: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        "An ArrayType was found. In order to access elements of an "
+        f"ArrayType, specify {corrected_path}")
+
+
+def map_access_needs_key_or_value(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Cannot access {name} in a MapType: use key or value")
+
+
+def column_path_not_nested(path: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Column path {path} descends into a non-nested type")
+
+
+def column_path_not_found(path: str, schema_str: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Couldn't find column {path} in schema {schema_str}")
+
+
+def column_not_in_schema(column: str, schema_cols=None) -> DeltaAnalysisError:
+    detail = f" Available columns: {list(schema_cols)}." if schema_cols else ""
+    return DeltaAnalysisError(f"Column {column} does not exist.{detail}")

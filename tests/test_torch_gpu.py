@@ -1923,3 +1923,112 @@ def test_parquet_write_and_read_on_the_card_match_the_cpu(cuda, tmp_path):
                 v = t.columns[c].valid
                 assert np.array_equal(got.columns[c].valid, v)
                 assert np.array_equal(got.columns[c].values[v], t.columns[c].values[v])
+
+
+# -- the table API (the twenty-first slice) -------------------------------------------
+
+
+def _api_table(path, device, n_files=40, rows=2000):
+    """A CTAS of ``n_files`` files through the API (the writer's page codec
+    on ``device``), then appends: ``id`` keys spread over the files."""
+    from delta_tpu_torch import DeltaTable
+
+    rng = np.random.RandomState(21)
+    per = rows // n_files
+    t = None
+    for f in range(n_files):
+        ids = np.arange(f * per, (f + 1) * per, dtype=np.int64)
+        data = {"id": ids, "v": rng.randint(0, 1000, per).astype(np.int64),
+                "s": np.array([f"k{i % 97}" for i in ids], object)}
+        if t is None:
+            t = DeltaTable.create(path, data=data, device=device,
+                                  configuration={"delta.tpu.enableDeletionVectors": "true"})
+        else:
+            t.write(data)
+    return t
+
+
+def test_plan_queries_on_the_card_match_the_cpu(cuda, tmp_path):
+    """plan_queries of a batch on the card: one K1 launch, every plan equal
+    (paths, count, overflow) to the same batch planned on the CPU."""
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.utils.config import conf
+
+    path = str(tmp_path / "t")
+    _api_table(path, torch.device("cpu"))
+    queries = [[f"id >= {i * 37} AND id <= {i * 37 + 60}"] for i in range(50)]
+    queries += [["id < 100 OR id > 1900"], ["s = 'k3'"], [], ["v % 2 = 0"]]
+    want = [(p.paths, p.count, p.overflow)
+            for p in DeltaTable.for_path(path, device="cpu").plan_queries(queries, k=8)]
+    state_cache.DeviceStateCache.reset()
+    with conf.set_temporarily(**{"delta.tpu.stateCache.devicePlan.mode": "force"}):
+        t = DeltaTable.for_path(path, device=cuda)
+        t.plan_queries(queries[:1])  # the residency
+        native.reset_launches()
+        got = t.plan_queries(queries, k=8)
+        launches = dict(native.launches)
+    assert [(p.paths, p.count, p.overflow) for p in got] == want
+    assert launches.get("block_cull", 0) == 1
+    assert {p.via for p in got[:50]} == {"device"}
+
+
+def test_merge_builder_on_the_card_matches_merge_into_command(cuda, tmp_path):
+    """The fluent builder's MERGE on the card equals MergeIntoCommand run
+    directly on a copy of the same table: metrics and end state."""
+    import shutil
+
+    from delta_tpu_torch import DeltaTable, MergeClause, MergeIntoCommand
+
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    _api_table(a, cuda)
+    shutil.copytree(a, b)
+    rng = np.random.RandomState(5)
+    keys = np.concatenate([rng.choice(2000, 300, replace=False),
+                           np.arange(5000, 5200)]).astype(np.int64)
+    src = {"id": keys, "v": rng.randint(0, 1000, len(keys)).astype(np.int64),
+           "s": np.array([f"n{i}" for i in keys], object)}
+    DeltaLog.clear_cache()
+    m1 = (DeltaTable.for_path(a, device=cuda).alias("t")
+          .merge(src, "t.id = s.id", source_alias="s")
+          .when_matched_update_all().when_not_matched_insert_all().execute())
+    cmd = MergeIntoCommand(DeltaLog.for_table(b, device=cuda), src, "t.id = s.id",
+                           [MergeClause("update")], [MergeClause("insert")],
+                           source_alias="s", target_alias="t")
+    cmd.run()
+    drop = lambda m: {k: v for k, v in m.items() if not k.endswith("TimeMs")}  # noqa: E731
+    assert drop(m1) == drop(cmd.metrics)
+    assert m1["numTargetRowsUpdated"] == 300 and m1["numTargetRowsInserted"] == 200
+
+    def rows(p):
+        got = DeltaTable.for_path(p, device=cuda).to_table().to_pylist()
+        return sorted((r["id"], r["v"], r["s"]) for r in got)
+
+    assert rows(a) == rows(b)
+
+
+def test_ctas_and_convert_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A CTAS written on the card and a CONVERT of Parquet files written on
+    the card read back equal to the same built on the CPU (rows, stats)."""
+    import os
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.commands.write import coerce_to_table
+    from delta_tpu_torch.exec.parquet import write_parquet_file
+    from delta_tpu_torch.schema.types import StructField
+
+    def build(root, device):
+        t = _api_table(os.path.join(root, "ctas"), device, n_files=4)
+        conv = os.path.join(root, "conv")
+        for day in range(4):
+            os.makedirs(os.path.join(conv, f"d={day}"))
+            ids = np.arange(day * 500, (day + 1) * 500, dtype=np.int64)
+            write_parquet_file(coerce_to_table({"id": ids, "x": ids * 0.5}),
+                               os.path.join(conv, f"d={day}", "part-0.parquet"), device=device)
+        c = DeltaTable.convert_to_delta(conv, StructType([StructField("d", IntegerType())]),
+                                        device=device)
+        stats = sorted(f.stats or "" for f in c.delta_log.update().all_files)
+        return (sorted(tuple(r.values()) for r in t.to_table().to_pylist()),
+                sorted(tuple(r.values()) for r in c.to_table(filters=["id > 1700"]).to_pylist()),
+                stats)
+
+    assert build(str(tmp_path / "gpu"), cuda) == build(str(tmp_path / "cpu"), "cpu")

@@ -787,3 +787,55 @@ def test_a_scan_reads_each_footer_once_while_it_is_cached(tmp_path):
     assert port_rows(path, "x > 0.5", mode="off") == jax_rows(path, "x > 0.5")
     c = telemetry.counters()
     assert c.get("footerCache.hits", 0) == 4 and "footerCache.misses" not in c
+
+
+# -- date arithmetic at the calendar's ends ------------------------------------------
+
+_DATE_ROWS = {
+    "id": [1, 2, 3, 4, 5, 6],
+    "d": pa.array([dt.date(9999, 12, 31), dt.date(1, 1, 1), dt.date(2020, 2, 29), None,
+                   dt.date(1970, 1, 1), dt.date(9999, 12, 30)], pa.date32()),
+    "e": pa.array([dt.date(1, 1, 1), None, dt.date(2020, 3, 1), dt.date(2000, 1, 1),
+                   dt.date(9999, 12, 31), dt.date(9999, 12, 31)], pa.date32()),
+    "n": pa.array([1, 1, None, 5, -1, 2], pa.int64()),
+    "v": [10, 20, 30, 40, 50, 60],
+}
+_DATE_PREDS = [
+    "date_add(d, 1) > d", "date_sub(d, 1) < d", "date_add(d, n) >= d", "date_sub(d, n) <= d",
+    "datediff(date_add(d, 1), d) = 1", "datediff(d, date_sub(d, 1)) = 1",
+    "date_add(d, 1) IS NULL", "datediff(d, e) > 0", "datediff(e, d) < 0",
+    "date_add(d, n) > e", "date_sub(e, 1) = d", "date_add(d, 3000000000) IS NULL",
+]
+
+
+@pytest.mark.parametrize("op", ["filter_off", "filter_force", "delete", "update"])
+@pytest.mark.parametrize("pred", _DATE_PREDS)
+def test_date_arithmetic_past_the_calendar_ends_matches_jax(tmp_path, op, pred):
+    """``date_add``/``date_sub``/``datediff`` at 9999-12-31 + 1 and
+    0001-01-01 - 1, with NULL operands and an int64 count, as a filter
+    (the residual off, and forced in both packages: a count past int32
+    takes the row semantics, which raise on a date the forced residual
+    keeps), a DELETE and an UPDATE's condition: the port's rows, metrics
+    and errors equal the JAX package's (Arrow's int32 day arithmetic,
+    unchecked)."""
+    from tests.torch_dml_tables import (
+        assert_same_end_state, copies, create, metrics, observe, rows, table,
+    )
+
+    src = create(str(tmp_path / "src"), dict(_DATE_ROWS))
+    if op.startswith("filter"):
+        mode = {"filter_off": OFF, "filter_force": FORCE}[op]
+        with jax_conf.set_temporarily(**mode), conf.set_temporarily(**mode):
+            want = observe(lambda: rows("jax", src, filters=[pred]))
+            got = observe(lambda: rows("torch", src, filters=[pred]))
+        assert got == want
+        return
+    paths = copies(src, tmp_path)
+    seen = {}
+    for name in ("jax", "torch"):
+        t = table(name, paths[name])
+        run = ((lambda: t.delete(pred)) if op == "delete"
+               else (lambda: t.update({"v": "v + 1"}, pred)))
+        seen[name] = observe(lambda: metrics(run()))
+    assert seen["torch"] == seen["jax"]
+    assert_same_end_state(paths)

@@ -198,7 +198,9 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
               "commands.write", "commands.alter", "commands.dml_common", "commands.merge",
               "exec.write", "exec.scan", "exec.zstd", "exec.lz4", "parallel.link",
               "obs.router_audit", "obs.calibration", "utils.telemetry", "parallel.mesh",
-              "parallel.distributed", "multichip"):
+              "parallel.distributed", "multichip", "api.tables", "commands.create",
+              "commands.clone", "commands.convert", "catalog.catalog",
+              "hooks.symlink_manifest"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 
