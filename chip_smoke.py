@@ -98,8 +98,10 @@ Phases, each reported on its own line:
    Every plan is checked against the float64 host evaluation over the
    mirrors, which does not use the block cull;
 5. the normal leg and the tombstone replay on the same table, with the
-   counters set to 0 again: three queries the resident planner declines
-   (each checked to be declined), planned by ``files_for_scan`` through the
+   counters set to 0 again: one query the resident planner declines, the
+   disjunction of three shapes it cannot plan (a strict float bound beside
+   ``!=``, a multi-column interval, a null count; checked to be declined),
+   planned by ``files_for_scan`` through the
    K15 interpreter on the card and checked file for file against the host
    prune (``_prune_host``, numpy); one query that synthesis makes exact,
    served by the resident planner; ``replay_alive_mask`` over the log's
@@ -314,12 +316,13 @@ Phases, each reported on its own line:
    ``plan_queries(k=256)``: one K1 launch for the batch, 256 bumps of
    ``stateCache.plan.resident``, every plan on the card and equal, path for
    path with its count and overflow, to ``entry.plan_ranges`` and to the
-   host's ``files_for_scan``. 16b, bench config 2 at full width through the
-   API: ``DeltaTable.create(..., data=store_sales(10M), configuration=
-   {deletion vectors})`` in one commit at version 0, read back, then the
-   1M-row upsert through ``alias("t").merge(...).when_matched_update_all()
+   host's ``files_for_scan``. 16b, bench config 2 through the API, cut to
+   API_ROWS (phase 17 runs it at full width): ``DeltaTable.create(...,
+   data=store_sales(API_ROWS), configuration={deletion vectors})`` in one
+   commit at version 0, read back, then the API_SOURCE-row upsert through
+   ``alias("t").merge(...).when_matched_update_all()
    .when_not_matched_insert_all().execute()`` under
-   ``merge.devicePath.mode=force`` (K8-K10; 500,000 updated and inserted),
+   ``merge.devicePath.mode=force`` (K8-K10; half updated, half inserted),
    its end state equal to ``reference_upsert`` on all 8 columns. 16c, on
    that table: ``upgrade_table_protocol`` (a no-op at the table's protocol;
    a downgrade refused), a read of ``path@v0`` equal to the CTAS and a
@@ -335,7 +338,27 @@ Phases, each reported on its own line:
    and footer stats (``convert.stats.fromFooter`` for every file), a
    filtered read with the residual on the card (K14) equal to numpy's that
    scans fewer files, and a read the footer stats prune to no file;
-17. last line: ``{"ok": true, "device": {...}}``.
+17. the write semantics, with the counters set to 0 again: bench config
+   2's store_sales (10M rows, seed 7) created through ``DeltaTable.create``
+   with ``delta.enableChangeDataFeed``, deletion vectors, the CHECK
+   constraint ``ss_quantity > 0`` and the generated column
+   ``ss_ext_sales_price`` (``ss_quantity * ss_sales_price``), then written.
+   (a) the 1M-row upsert (half updates, half inserts) through the MERGE
+   builder with ``delta.tpu.schema.autoMerge.enabled`` and star clauses, its
+   source carrying ``ss_promo_sk``: the schema evolves, K8-K11 run, the CDC
+   file goes through the page codec; (b) a DV DELETE and an UPDATE with
+   data predicates, K15 planning their candidates; (c) a MERGE whose source
+   breaks the constraint raises ``InvariantViolationError`` and commits
+   nothing; (d) ``table_changes`` from (a)'s version: each (version, change
+   type) block (500,000 each of ``update_preimage``, ``update_postimage`` and
+   ``insert``, then the DELETE's and the UPDATE's rows) equal to numpy's on
+   every column, each ``_commit_timestamp`` its commit's; (e) a
+   ``StreamingQuery`` from the table's snapshot into a second table, one
+   file a trigger, whose end state is the table's, and a ``DeltaCDFSource``
+   from (a)'s version whose rows are (d)'s. Each step's wall seconds and
+   launches are printed beside the card's name and power limit, and the
+   phase's launches join the kernels line's;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 3 (a quick check of a kernel change);
 it prints no result line.
@@ -1636,18 +1659,20 @@ def k16_checks(dev):
 # -- phase 4: the slice at full size -------------------------------------------
 
 
-def write_config6_table(path, partitioned=False):
+def write_config6_table(path, partitioned=False, n_files=None):
     """The hot-plan benchmark's config 6 table (bench.py:915-1000, seed 13):
-    N_FILES files, 4 indexed stats columns (c0/c2 long, c1/c3 double), each
+    ``n_files`` files, 4 indexed stats columns (c0/c2 long, c1/c3 double), each
     file covering a narrow range per column, laid out as the bench lays it
     out (``bench.py:959-985``): version 0's JSON commit holds the protocol
     and the metadata, and the checkpoint at version 0, written by the port's
-    ``write_checkpoint``, holds them and the N_FILES adds. ``partitioned``
+    ``write_checkpoint``, holds them and the ``n_files`` adds. ``partitioned``
     is config 6p (``bench_hot_plan(partitioned=True)``): a ``day`` STRING
     partition column over C6P_DAYS days from 2020-01-01, file i in day
-    ``i * C6P_DAYS // N_FILES``, and every other query on ``day`` (an
+    ``i * C6P_DAYS // n_files``, and every other query on ``day`` (an
     equality with a c0 bound, or a 4-day range). Returns the store, the
-    queries and the checkpoint's write seconds."""
+    queries and the checkpoint's write seconds. ``n_files`` is N_FILES unless
+    given."""
+    n_files = N_FILES if n_files is None else n_files
     log_path = os.path.join(path, "_delta_log")
     from delta_tpu_torch.log import checkpoints
     from delta_tpu_torch.storage.logstore import LocalLogStore
@@ -1664,10 +1689,10 @@ def write_config6_table(path, partitioned=False):
     meta = Metadata(schema_string=schema.to_json(),
                     partition_columns=["day"] if partitioned else [])
     store.write(f"{log_path}/{filenames.delta_file(0)}", [proto.json(), meta.json()])
-    base = {f"c{c}": np.sort(rng.rand(N_FILES) * 1e6) if c % 2 else
-            np.sort(rng.randint(0, 1 << 40, N_FILES).astype(np.int64))
+    base = {f"c{c}": np.sort(rng.rand(n_files) * 1e6) if c % 2 else
+            np.sort(rng.randint(0, 1 << 40, n_files).astype(np.int64))
             for c in range(4)}
-    width = {f"c{c}": 1e6 / N_FILES * 8 if c % 2 else max((1 << 40) // N_FILES * 8, 1)
+    width = {f"c{c}": 1e6 / n_files * 8 if c % 2 else max((1 << 40) // n_files * 8, 1)
              for c in range(4)}
     # each file's stats JSON, as json.dumps writes it (floats by repr),
     # formatted from Python lists: the table is set-up, not the path
@@ -1677,10 +1702,10 @@ def write_config6_table(path, partitioned=False):
             '"maxValues": {"c0": %d, "c1": %r, "c2": %d, "c3": %r}, '
             '"nullCount": {"c0": 0, "c1": 0, "c2": 0, "c3": 0}}')
     adds = []
-    for i in range(N_FILES):
+    for i in range(n_files):
         stats = form % (lo[0][i], lo[1][i], lo[2][i], lo[3][i], hi[0][i], hi[1][i], hi[2][i],
                         hi[3][i])
-        pv = {"day": days[i * len(days) // N_FILES]} if partitioned else {}
+        pv = {"day": days[i * len(days) // n_files]} if partitioned else {}
         adds.append(AddFile(path=f"part-{i:07d}.parquet", size=1 << 20,
                             modification_time=0, data_change=False, stats=stats,
                             partition_values=pv))
@@ -1689,11 +1714,11 @@ def write_config6_table(path, partitioned=False):
     write_s = time.perf_counter() - t0
     queries = []
     for k in range(N_QUERIES):
-        i = rng.randint(N_FILES)
+        i = rng.randint(n_files)
         lo0 = int(base["c0"][i])
         lo1 = float(base["c1"][i])
         if partitioned and k % 2 == 0:  # bench.py:1001-1011
-            d = i * len(days) // N_FILES
+            d = i * len(days) // n_files
             if k % 4 == 0:
                 queries.append(f"day = '{days[d]}' AND c0 >= {lo0}")
             else:
@@ -1859,11 +1884,12 @@ def run_slice(dev, workdir):
 
 
 def fallback_queries():
-    """Three queries the resident planner declines on config 6 (a strict
-    float bound, a multi-column interval, a null count) and one that
-    synthesis makes exact."""
-    declined = ["c0 != 123456789 AND c1 > 999000.5", "c0 * c1 > 1.0e18",
-                "c2 IS NULL OR c3 * 2 > 1999000.5"]
+    """The query the resident planner declines on config 6, one disjunction
+    of the three shapes it cannot plan (a strict float bound beside ``!=``,
+    a multi-column interval, a null count), and one that synthesis makes
+    exact."""
+    declined = ["(c0 != 123456789 AND c1 > 999000.5) OR c0 * c1 > 1.0e18 "
+                "OR c2 IS NULL OR c3 * 2 > 1999000.5"]
     exact = "c0 * 2 + 10 >= 2198000000010"
     return declined, exact
 
@@ -1930,7 +1956,7 @@ def run_fallback(dev, ctx):
 
     # each declined query against the host prune over the same files
     # (``pruning._prune_host``: the host evaluator over ``stats_table``, the
-    # table built once for the three queries)
+    # table built once for the declined queries)
     from delta_tpu_torch.expr.vectorized import to_keep_mask
 
     t0 = time.perf_counter()
@@ -2375,20 +2401,29 @@ MERGES = (
 )
 
 
+def bench_source(target_keys, rng, n=MERGE_SOURCE):
+    """The bench's upsert source of ``n`` rows (bench.py:205-214; 1M at
+    full width): half live keys drawn from ``rng`` (RandomState(7) past the
+    target's draws), half fresh keys above every key, payload
+    RandomState(11)."""
+    existing = target_keys[rng.choice(len(target_keys), n // 2, replace=False)]
+    top = len(target_keys) * 2
+    fresh = np.arange(top, top + n - n // 2, dtype=np.int64)
+    keys = np.concatenate([existing, fresh])
+    rng.shuffle(keys)
+    return dict(store_sales(n, np.random.RandomState(11)), ss_item_sk=keys)
+
+
 def merge_sources(target_keys):
     """The phase's three sources, 1M rows each: M1's (and M0's) is the
-    bench's (bench.py:205-214, drawn after the target from RandomState(7),
-    payload RandomState(11)); M2's and M3's are half live keys and half
+    bench's (``bench_source``); M2's and M3's are half live keys and half
     fresh keys above every key so far, payload and draws RandomState(12)
     and (13)."""
     rng = np.random.RandomState(7)
     store_sales(MERGE_ROWS, rng)  # the target's draws
-    existing = target_keys[rng.choice(MERGE_ROWS, MERGE_SOURCE // 2, replace=False)]
+    sources = [bench_source(target_keys, rng)]
     top = MERGE_ROWS * 2
     fresh = np.arange(top, top + MERGE_SOURCE - MERGE_SOURCE // 2, dtype=np.int64)
-    keys = np.concatenate([existing, fresh])
-    rng.shuffle(keys)
-    sources = [dict(store_sales(MERGE_SOURCE, np.random.RandomState(11)), ss_item_sk=keys)]
     live = np.union1d(target_keys, fresh)
     for seed in (12, 13):
         top += MERGE_SOURCE
@@ -3466,11 +3501,11 @@ def measure(dev, entry, ranges, cols, launches):
 
 
 def measure_normal_leg(dev, ctx):
-    """K15 on the multi-column declined query's program over the live files' lanes,
-    and K5 over the log's action stream: time, plain time, bound."""
+    """K15 on the declined query's program over the live files' lanes, and
+    K5 over the log's action stream: time, plain time, bound."""
     out = []
     meta, files = ctx["snap"].metadata, ctx["files"]
-    q = ctx["declined"][1]
+    q = ctx["declined"][0]
     rw = ir.and_all([r.rewritten for r in pruning.conjunct_rewrites(
         [parse_expression(q)], frozenset(), pruning.schema_types(meta))])
     t0 = time.perf_counter()
@@ -4465,13 +4500,16 @@ def run_dml(dev, c2, workdir, card):
 # -- phase 14: partitioned tables: bench config 6p, then a date-partitioned store_sales --
 
 C6P_DAYS = 732  # bench.py:944-948
+#: bench config 6p's 1M files cut to keep the smoke in its time limit
+#: (PERF.md section 4); its 732 days and 256 queries stay
+C6P_FILES = 500_000
 #: the day a third tail adds: after every day of the table, so the dictionary
 #: extends in order (the codes of the tail's own dictionary re-map into the
 #: entry's) and day ranges keep lowering to code ranges
 C6P_NEW_DAY = "2022-01-03"
-#: store_sales(4_000_000): the bench's 10M rows cut to keep the smoke in its
+#: store_sales(2_000_000): the bench's 10M rows cut to keep the smoke in its
 #: time limit (PERF.md section 4); the 2,000 date partitions stay
-PART_ROWS = 4_000_000
+PART_ROWS = 2_000_000
 PART_COL = "ss_sold_date_sk"
 PART_FRESH = {"m1": 40_000_000, "m2": 41_000_000, "m3": 42_000_000, "rw": 43_000_000}
 PART_REPLACE = 50_000  # step 6's replaceWhere rows
@@ -4529,23 +4567,24 @@ def c6p_tail(store, log_path, version, day, files, name):
 
 
 def run_c6p(dev, workdir, card):
-    """Phase 14a: bench config 6p on the card: the 1M-file checkpoint with a
+    """Phase 14a: bench config 6p on the card: the C6P_FILES-file checkpoint with a
     ``day`` partition column, the resident entry with its dictionary-coded
     day lane, 256 plans under ``devicePlan.mode=force`` equal to the host's
     float64 evaluation and to numpy, then three one-file tails applied to
     the same entry (the third one with a new day)."""
     path = os.path.join(workdir, "config6p")
     t0 = time.perf_counter()
-    store, queries, write_s, shape = write_config6_table(path, partitioned=True)
+    store, queries, write_s, shape = write_config6_table(path, partitioned=True,
+                                                         n_files=C6P_FILES)
     log_path = os.path.join(path, "_delta_log")
     parts = config6_checkpoint(store, log_path)
-    say(f"6p: wrote {N_FILES} files in {C6P_DAYS} days as the checkpoint at version 0 "
+    say(f"6p: wrote {C6P_FILES} files in {C6P_DAYS} days as the checkpoint at version 0 "
         f"({len(parts)} parts, {sum(os.path.getsize(p) for p in parts) / 1e6:.1f} MB) in "
         f"{write_s:.3f} s (the table in {time.perf_counter() - t0:.3f} s)")
     base, width = shape["base"], shape["width"]
-    files = {"path": [f"part-{i:07d}.parquet" for i in range(N_FILES)],
+    files = {"path": [f"part-{i:07d}.parquet" for i in range(C6P_FILES)],
              "days": list(shape["days"]),
-             "day": (np.arange(N_FILES) * C6P_DAYS // N_FILES).astype(np.int64)}
+             "day": (np.arange(C6P_FILES) * C6P_DAYS // C6P_FILES).astype(np.int64)}
     for c in ("c0", "c1", "c2", "c3"):
         files[c + "_min"] = base[c].astype(np.float64) if c in ("c1", "c3") else base[c]
         files[c + "_max"] = (base[c] + width[c]) if c in ("c1", "c3") else base[c] + int(width[c])
@@ -4556,7 +4595,7 @@ def run_c6p(dev, workdir, card):
     log = DeltaLog.for_table(path, device=dev)
     t0 = time.perf_counter()
     snap = log.update()
-    check(snap.num_of_files == N_FILES, f"6p: snapshot has {snap.num_of_files} files")
+    check(snap.num_of_files == C6P_FILES, f"6p: snapshot has {snap.num_of_files} files")
     decode_s = time.perf_counter() - t0
     cols = snap._columnar
     check(snap.segment.checkpoint_version == 0 and cols.stats_parsed is not None,
@@ -4871,7 +4910,8 @@ DEC_TYPE = "decimal128(7, 2)"
 DEC_MONEY = ("ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
 #: 15a's rows: the bench's 10M cut to keep the smoke in its time limit
 #: (PERF.md section 4: 4M, phase 14b's cut, took the run to 1,111 s; 1M
-#: with the page codec on every read and write, to 1,267 s)
+#: with the page codec on every read and write, to 1,267 s; 600,000 since:
+#: its MERGE draws 500,000 live keys)
 DEC_ROWS = 600_000
 #: 15a's files (the writer's targetFileRows): 16 files, so the plan (K1)
 #: and the residual (K14) have a table to cull
@@ -4879,7 +4919,7 @@ DEC_FILE_ROWS = 37_500
 DEC_FRESH = {"m1": 50_000_000, "m2": 51_000_000}
 #: 15b: a nested table's rows (1M cut as 15a's), its MERGE's source rows
 #: and its files' rows (10 files)
-NESTED_ROWS, NESTED_SOURCE, NESTED_FILE_ROWS = 150_000, 100_000, 15_000
+NESTED_ROWS, NESTED_SOURCE, NESTED_FILE_ROWS = 100_000, 100_000, 10_000
 
 
 def typed_store_sales(n, rng):
@@ -5276,6 +5316,10 @@ def run_nested(dev, workdir, card):
 # -- phase 16: the table API: plan_queries, CTAS, the MERGE builder, clone, GENERATE, convert --
 
 API_DV = {"delta.tpu.enableDeletionVectors": "true"}
+#: 16b-c's store_sales: config 2's 10M rows and 1M-row upsert cut to make room
+#: for phase 17, which runs config 2 at full width through the same API (3
+#: files: the DELETEs stay below K1's minFiles)
+API_ROWS, API_SOURCE, API_FILE_ROWS = 4_000_000, 400_000, 1_500_000
 API_DELETE = "ss_quantity >= 96"
 #: 16d's Parquet directory: CONVERT_FILES files of CONVERT_FILE_ROWS
 #: store_sales rows, one an ``ss_sold_date_sk=`` directory
@@ -5337,7 +5381,7 @@ def manifest_lines(log):
 
 
 def run_table_api(dev, workdir, card):
-    """16b-16d: bench config 2 through the table API at full width, then
+    """16b-16d: bench config 2 through the table API (API_ROWS), then
     clone, GENERATE, the catalog and CONVERT TO DELTA; each step's wall
     seconds and launches printed beside the card."""
     from delta_tpu_torch.catalog.catalog import Catalog
@@ -5349,8 +5393,9 @@ def run_table_api(dev, workdir, card):
     from delta_tpu_torch.utils.errors import DeltaAnalysisError, ProtocolError
 
     t_phase = time.perf_counter()
-    target = store_sales(MERGE_ROWS, np.random.RandomState(7))
-    src = merge_sources(target["ss_item_sk"])[0]
+    rng = np.random.RandomState(7)
+    target = store_sales(API_ROWS, rng)
+    src = bench_source(target["ss_item_sk"], rng, API_SOURCE)
     v0 = by_key({c: target[c] for c in STORE_SALES})
     want = reference_upsert(v0, src)
     path = os.path.join(workdir, "config2-api")
@@ -5368,7 +5413,7 @@ def run_table_api(dev, workdir, card):
     # 16b: CTAS, then the MERGE builder's upsert
     table = step("16b CTAS", lambda: DeltaTable.create(path, data=host_table(target),
                                                        configuration=API_DV, device=dev),
-                 {"delta.tpu.write.targetFileRows": MERGE_FILE_ROWS})
+                 {"delta.tpu.write.targetFileRows": API_FILE_ROWS})
     commits = sorted(f for f in os.listdir(os.path.join(path, "_delta_log"))
                      if f.endswith(".json"))
     check(table.version == 0 and commits == [filenames.delta_file(0)],
@@ -5379,8 +5424,8 @@ def run_table_api(dev, workdir, card):
         .merge(src, "t.ss_item_sk = s.ss_item_sk", source_alias="s")
         .when_matched_update_all().when_not_matched_insert_all().execute()),
         {"delta.tpu.merge.devicePath.mode": "force"})
-    check(metrics["numTargetRowsUpdated"] == MERGE_SOURCE // 2
-          and metrics["numTargetRowsInserted"] == MERGE_SOURCE - MERGE_SOURCE // 2,
+    check(metrics["numTargetRowsUpdated"] == API_SOURCE // 2
+          and metrics["numTargetRowsInserted"] == API_SOURCE - API_SOURCE // 2,
           f"MERGE builder: metrics {metrics}")
     merge_launches = steps[-1][2]
     for k in ("slab_sort", "slab_probe", "pair_compact"):
@@ -5484,6 +5529,226 @@ def run_table_api(dev, workdir, card):
         f"scanned {scanned} files; launches on 16b-16d's path {launches} | {card}")
     say(f"table API: 16b-16d took {time.perf_counter() - t_phase:.3f} s")
     return {"launches": launches, "steps": steps, "merge_launches": merge_launches}
+
+
+# -- phase 17: write semantics on the card --------------------------------------------
+
+#: phase 17's table: the change data feed, deletion vectors and a CHECK constraint
+WS_PROPS = {"delta.enableChangeDataFeed": "true", "delta.tpu.enableDeletionVectors": "true",
+            "delta.constraints.qpos": "ss_quantity > 0"}
+WS_GEN, WS_GEN_SQL = "ss_ext_sales_price", "ss_quantity * ss_sales_price"
+WS_NEW = "ss_promo_sk"  # the MERGE source's column the table does not have yet
+WS_DELETE = "ss_quantity > 95"
+WS_UPDATE_WHERE, WS_UPDATE_SET = "ss_store_sk < 5", {"ss_quantity": "ss_quantity + 1"}
+WS_COLS = STORE_SALES + (WS_GEN, WS_NEW)
+WS_DOUBLES = ("ss_sales_price", "ss_ext_discount_amt", "ss_net_paid")
+
+
+def ws_generated(cols):
+    """``cols`` with the generated column as numpy computes it."""
+    return dict(cols, **{WS_GEN: cols["ss_quantity"].astype(np.float64) * cols["ss_sales_price"]})
+
+
+def ws_rows(t):
+    """A read or a change block as numpy columns sorted by ss_item_sk: the
+    table's columns, the new column's values and its validity."""
+    check(all(t.column(c).valid.all() for c in STORE_SALES + (WS_GEN,)), "a NULL in a read")
+    cols = {c: t.column(c).values for c in STORE_SALES + (WS_GEN,)}
+    new = t.column(WS_NEW) if WS_NEW in t.column_names else None
+    n = t.num_rows
+    cols[WS_NEW] = np.where(new.valid, new.values, 0).astype(np.int64) if new is not None \
+        else np.zeros(n, np.int64)
+    cols[WS_NEW + "?"] = np.asarray(new.valid, bool) if new is not None else np.zeros(n, bool)
+    return by_key(cols)
+
+
+def ws_same(got, want, label):
+    check(len(got["ss_item_sk"]) == len(want["ss_item_sk"]),
+          f"{label}: {len(got['ss_item_sk'])} rows, numpy {len(want['ss_item_sk'])}")
+    for c in want:
+        check(np.array_equal(got[c], want[c]), f"{label}: column {c} differs from numpy")
+
+
+def run_write_semantics(dev, workdir, card):
+    """Phase 17: bench config 2's store_sales (10M rows, seed 7) created
+    through the table API with the change data feed, deletion vectors, the
+    CHECK constraint ``ss_quantity > 0`` and the generated column
+    ``ss_ext_sales_price`` (``ss_quantity * ss_sales_price``). (a) the 1M-row
+    upsert through the MERGE builder with autoMerge and a star clause, its
+    source carrying the new column ``ss_promo_sk``: the schema evolves, K8-K11
+    run, the CDC file goes through the page codec; (b) a DV DELETE and an
+    UPDATE with data predicates (K15 plans their candidates); (c) a source
+    batch breaking the constraint raises and commits nothing; (d)
+    ``table_changes`` over the versions (a)-(b) wrote, every block equal to
+    numpy's; (e) a ``StreamingQuery`` from the table's snapshot into a
+    second table, one file a trigger, whose end state is the table's, and a
+    ``DeltaCDFSource`` from (a)'s version whose rows are (d)'s."""
+    from delta_tpu_torch.exec import cdf
+    from delta_tpu_torch.schema.generated import generated_field
+    from delta_tpu_torch.streaming.query import StreamingQuery
+    from delta_tpu_torch.streaming.sink import DeltaSink
+    from delta_tpu_torch.streaming.source import DeltaCDFSource, DeltaSource
+    from delta_tpu_torch.utils.errors import InvariantViolationError
+
+    t_phase = time.perf_counter()
+    key_cache.KeyCache.reset()
+    DeltaLog.clear_cache()
+    torch.cuda.empty_cache()
+    path = os.path.join(workdir, "store_sales_cdf")
+    rng = np.random.RandomState(7)
+    target = store_sales(MERGE_ROWS, rng)
+    src = bench_source(target["ss_item_sk"], rng)  # merge_sources' first, drawn once
+    src[WS_NEW] = np.random.RandomState(17).randint(0, 2000, MERGE_SOURCE).astype(np.int64)
+    state = ws_generated({c: target[c] for c in STORE_SALES})
+    state[WS_NEW], state[WS_NEW + "?"] = (np.zeros(MERGE_ROWS, np.int64),
+                                          np.zeros(MERGE_ROWS, bool))
+    state = by_key(state)
+    schema = StructType()
+    for c in STORE_SALES:
+        schema = schema.add(c, DoubleType() if c in WS_DOUBLES else LongType())
+    schema = schema.add_field(generated_field(WS_GEN, DoubleType(), WS_GEN_SQL))
+    steps = []
+
+    def step(name, fn, settings=None, kernels=()):
+        t0 = time.perf_counter()
+        out, wall_s, delta = timed_step(name, fn, settings)
+        steps.append((name, wall_s, delta))
+        say(f"write semantics: {name} {wall_s:.3f} s ({time.perf_counter() - t0:.3f} s with "
+            f"the warmups it started; the phase at {time.perf_counter() - t_phase:.1f} s), "
+            f"launches {delta} | {card}")
+        for k in kernels:
+            names = k if isinstance(k, tuple) else (k,)
+            check(any(delta.get(x, 0) > 0 for x in names), f"{name}: {k} was not launched")
+        return out
+
+    native.reset_launches()  # -- phase 17's path starts here
+    table = step("create", lambda: DeltaTable.create(path, schema, configuration=WS_PROPS,
+                                                     device=dev))
+    step("write 10M rows", lambda: table.write(host_table(target)),
+         {"delta.tpu.write.targetFileRows": MERGE_FILE_ROWS}, ("snappy_compress",))
+    proto = table.delta_log.update().protocol
+    check((proto.min_reader_version, proto.min_writer_version) == (3, 7),
+          f"protocol {proto}: deletion vectors take (3, 7), over the feed's writer version 4")
+
+    # (a) the evolving upsert
+    v_merge = table.version + 1
+    metrics = step("(a) MERGE builder, autoMerge", lambda: (
+        DeltaTable.for_path(path, device=dev).alias("t")
+        .merge(host_table(src), "t.ss_item_sk = s.ss_item_sk", source_alias="s")
+        .when_matched_update_all().when_not_matched_insert_all().execute()),
+        {"delta.tpu.merge.devicePath.mode": "force", "delta.tpu.schema.autoMerge.enabled": True},
+        ("slab_sort", "slab_probe", "pair_compact", K11, "snappy_compress"))
+    half = MERGE_SOURCE // 2
+    check(metrics["numTargetRowsUpdated"] == half
+          and metrics["numTargetRowsInserted"] == MERGE_SOURCE - half, f"(a): metrics {metrics}")
+    check([f.name for f in table.schema().fields] == list(WS_COLS),
+          f"(a): the schema did not evolve: {[f.name for f in table.schema().fields]}")
+    keys = state["ss_item_sk"]
+    pos = np.minimum(np.searchsorted(keys, src["ss_item_sk"]), len(keys) - 1)
+    hit = keys[pos] == src["ss_item_sk"]
+    src_full = ws_generated({c: src[c] for c in STORE_SALES})
+    src_full[WS_NEW], src_full[WS_NEW + "?"] = src[WS_NEW], np.ones(MERGE_SOURCE, bool)
+    blocks = {(v_merge, "update_preimage"): by_key({c: v[pos[hit]] for c, v in state.items()}),
+              (v_merge, "update_postimage"): by_key({c: v[hit] for c, v in src_full.items()}),
+              (v_merge, "insert"): by_key({c: v[~hit] for c, v in src_full.items()})}
+    merged = {}
+    for c, v in state.items():
+        col = v.copy()
+        col[pos[hit]] = src_full[c][hit]
+        merged[c] = np.concatenate([col, src_full[c][~hit]])
+    state = by_key(merged)
+    check(len(blocks[(v_merge, "update_preimage")]["ss_item_sk"]) == half, "(a): numpy's hits")
+
+    # (b) a DV DELETE and an UPDATE with data predicates, K15 on their candidates
+    few_files = {"delta.tpu.device.pruning.minFiles": 1}
+    gone = state["ss_quantity"] > 95
+    m = step("(b) DV DELETE", lambda: table.delete(WS_DELETE), few_files, ("expr_eval",))
+    check(m["numDeletedRows"] == int(gone.sum()), f"(b) DELETE: metrics {m}")
+    blocks[(v_merge + 1, "delete")] = take_state(state, gone)
+    state = take_state(state, ~gone)
+    upd = state["ss_store_sk"] < 5
+    m = step("(b) UPDATE", lambda: table.update(WS_UPDATE_SET, WS_UPDATE_WHERE), few_files,
+             ("expr_eval",))
+    check(m["numUpdatedRows"] == int(upd.sum()), f"(b) UPDATE: metrics {m}")
+    blocks[(v_merge + 2, "update_preimage")] = take_state(state, upd)
+    state = {c: v.copy() for c, v in state.items()}
+    state["ss_quantity"][upd] += 1
+    state = ws_generated(state)
+    blocks[(v_merge + 2, "update_postimage")] = take_state(state, upd)
+    latest = table.version
+    check(latest == v_merge + 2, f"versions: {latest}, not {v_merge + 2}")
+
+    # (c) a source batch that breaks the constraint commits nothing
+    bad = dict(store_sales(1000, np.random.RandomState(19)),
+               ss_item_sk=np.arange(90_000_000, 90_001_000, dtype=np.int64))
+    bad["ss_quantity"][500] = 0
+    bad[WS_NEW] = np.zeros(1000, np.int64)
+    try:
+        step("(c) MERGE breaking the constraint", lambda: (
+            table.alias("t").merge(host_table(bad), "t.ss_item_sk = s.ss_item_sk",
+                                   source_alias="s")
+            .when_matched_update_all().when_not_matched_insert_all().execute()),
+            {"delta.tpu.merge.devicePath.mode": "force"})
+        check(False, "(c): the MERGE broke the CHECK constraint and committed")
+    except InvariantViolationError as e:
+        say(f"write semantics: (c) raised {type(e).__name__}: {str(e).splitlines()[0]}")
+    check(DeltaLog.for_table(path, device=dev).update().version == latest,
+          "(c): the refused MERGE committed")
+    ws_same(step("end state", lambda: ws_rows(table.to_table())), state, "end state")
+
+    # (d) the change feed of (a)-(b), every block against numpy's
+    changes = step("(d) table_changes", lambda: table.table_changes(v_merge),
+                   kernels=("snappy_decompress",))
+    commits = table.delta_log.history.get_commits(v_merge)
+    stamps = np.zeros(latest + 1, np.int64)
+    stamps[[c.version for c in commits]] = [c.timestamp for c in commits]
+    ver = changes.column(cdf.COMMIT_VERSION_COL).values
+    kind = changes.column(cdf.CHANGE_TYPE_COL).values
+    ts = changes.column(cdf.COMMIT_TIMESTAMP_COL).values
+    check(bool((ts == stamps[ver]).all()), "(d): a _commit_timestamp is not its commit's")
+    is_kind = {k: kind == k for k in set(np.unique(kind).tolist())}
+    seen = sorted((int(v), k) for k, m in is_kind.items() for v in np.unique(ver[m]))
+    check(seen == sorted(blocks), f"(d): blocks {seen}, numpy {sorted(blocks)}")
+    for (v, k), want in blocks.items():
+        ws_same(ws_rows(changes.filter((ver == v) & is_kind[k])), want, f"(d) {k} at {v}")
+    counts = {f"{k}@{v}": len(b["ss_item_sk"]) for (v, k), b in sorted(blocks.items())}
+    say(f"write semantics: (d) change rows {counts}, each block equal to numpy | {card}")
+
+    # (e) a stream of the table into a second table, and the change feed's stream
+    dst = os.path.join(workdir, "store_sales_cdf_copy")
+    query = StreamingQuery(DeltaSource(DeltaLog.for_table(path, device=dev),
+                                       max_files_per_trigger=1),
+                           DeltaSink(DeltaLog.for_table(dst, device=dev), query_id="phase17"),
+                           os.path.join(workdir, "store_sales_cdf_ckpt"))
+    batches = step("(e) StreamingQuery", query.process_all_available,
+                   kernels=("snappy_decompress", "snappy_compress"))
+    n_files = len(table.delta_log.update().all_files)
+    check(batches == n_files, f"(e): {batches} batches for {n_files} files, one a trigger")
+    ws_same(ws_rows(DeltaTable.for_path(dst, device=dev).to_table()), state,
+            "(e) the stream's end state")
+    source = DeltaCDFSource(DeltaLog.for_table(path, device=dev), starting_version=v_merge)
+
+    def drain():
+        parts, cur = [], None
+        while True:
+            end = source.latest_offset(cur if cur is not None else source.initial_offset())
+            if end is None:
+                return cdf.concat_permissive(parts)
+            parts.append(source.get_batch(cur, end))
+            cur = end
+
+    streamed = step("(e) DeltaCDFSource", drain, kernels=("snappy_decompress",))
+    sver = streamed.column(cdf.COMMIT_VERSION_COL).values
+    skind = streamed.column(cdf.CHANGE_TYPE_COL).values
+    for (v, k), want in blocks.items():
+        ws_same(ws_rows(streamed.filter((sver == v) & (skind == k))), want,
+                f"(e) the CDF stream's {k} at {v}")
+    check(streamed.num_rows == changes.num_rows, "(e): the CDF stream's rows are not (d)'s")
+    launches = dict(native.launches)  # -- phase 17's path ends here
+    say(f"write semantics: the stream ran {batches} batches; launches on phase 17's path "
+        f"{launches} | {card}")
+    say(f"write semantics: phase 17 took {time.perf_counter() - t_phase:.3f} s")
+    return {"launches": launches, "steps": steps}
 
 
 def main() -> int:
@@ -5629,6 +5894,15 @@ def main() -> int:
                 k["name"], 0)
         tally(pq_ctx["launches"])
         tally(actx["launches"])
+        actx = pq_ctx = None
+        key_cache.KeyCache.reset()
+        torch.cuda.empty_cache()
+        wctx = run_write_semantics(dev, workdir, card)
+        lap("17 write semantics")
+        for k in kernels:  # phase 17: K8-K11 (the MERGE), K15 (the DML's candidates)
+            k["launches"] += wctx["launches"].get(k["name"], 0)
+        tally(wctx["launches"])
+        wctx = None
     say(f"page codec: launches on every phase's path {codec}")
     for k in CODEC_KERNELS:
         check(codec[k] > 0, f"kernel {k} was launched on no phase's path")

@@ -20,14 +20,15 @@
     t.clone(other_path, version=2)                           # a shallow clone
     t.generate()                                              # symlink manifests
     t.upgrade_table_protocol(3, 7)
+    changes = t.table_changes(1)                              # the change data feed
     DeltaTable.convert_to_delta(parquet_dir, partition_schema)
     DeltaTable.for_name("db.sales")                           # catalog/catalog
 
 ``to_table`` is the counterpart of ``to_arrow``: it returns the port's
 ``HostTable`` (``expr/vectorized``), since the port carries no Arrow; data
 goes in as a ``HostTable``, a dict of columns or a list of rows
-(``commands/write.coerce_to_table``). The change data feed
-(``table_changes``), ``doctor`` and ``advise`` are not ported.
+(``commands/write.coerce_to_table``). ``doctor`` and ``advise`` are not
+ported.
 """
 from __future__ import annotations
 
@@ -174,6 +175,17 @@ class DeltaTable:
 
     def history(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
         return describe_history(self.delta_log, limit)
+
+    def table_changes(self, starting_version: int,
+                      ending_version: Optional[int] = None) -> HostTable:
+        """The change data feed between two versions, inclusive: rows with
+        ``_change_type``, ``_commit_version`` and ``_commit_timestamp``
+        (``exec/cdf.read_changes``). UPDATE and MERGE rows are exact with
+        ``delta.enableChangeDataFeed=true``; appends and deletes are rebuilt
+        from the file actions either way."""
+        from delta_tpu_torch.exec import cdf as cdf_exec
+
+        return cdf_exec.read_changes(self.delta_log, starting_version, ending_version)
 
     def detail(self) -> Dict[str, Any]:
         return describe_detail(self.delta_log)

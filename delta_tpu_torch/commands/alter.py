@@ -1,6 +1,7 @@
-"""ALTER TABLE: SET/UNSET TBLPROPERTIES, ADD COLUMNS and CHANGE COLUMN (the
-port's own copy of ``delta_tpu.commands.alter``, without ADD/DROP
-CONSTRAINT). Each is one metadata-only transaction.
+"""ALTER TABLE: SET/UNSET TBLPROPERTIES, ADD COLUMNS, CHANGE COLUMN and
+ADD/DROP CONSTRAINT (the port's own copy of ``delta_tpu.commands.alter``).
+Each is one metadata-only transaction; ADD CONSTRAINT first reads the
+table and holds every row to the new check, as the reference does.
 """
 from __future__ import annotations
 
@@ -8,11 +9,15 @@ from dataclasses import replace
 from typing import Dict, Optional, Sequence
 
 from delta_tpu_torch.commands import operations as ops
+from delta_tpu_torch.expr.parser import parse_predicate
+from delta_tpu_torch.expr.vectorized import boolean_mask
 from delta_tpu_torch.schema import schema_utils
+from delta_tpu_torch.schema.constraints import CONSTRAINT_PROP_PREFIX
 from delta_tpu_torch.schema.types import ArrayType, MapType, StructField, StructType
 from delta_tpu_torch.utils import errors
 
-__all__ = ["set_table_properties", "unset_table_properties", "add_columns", "change_column"]
+__all__ = ["set_table_properties", "unset_table_properties", "add_columns", "change_column",
+           "add_constraint", "drop_constraint"]
 
 
 def set_table_properties(delta_log, properties: Dict[str, str]) -> int:
@@ -144,5 +149,49 @@ def change_column(delta_log, name: str, new_type=None, nullable: Optional[bool] 
                                              _position_spec(schema, parts[:-1], position))
         txn.update_metadata(replace(meta, schema_string=schema.to_json()))
         return txn.commit([], ops.ChangeColumn(name, new_field.json_value()))
+
+    return delta_log.with_new_transaction(body)
+
+
+def add_constraint(delta_log, name: str, expr_sql: str) -> int:
+    """ADD CONSTRAINT (``:519``): every existing row must satisfy the check
+    before it commits (the reference runs a full scan too)."""
+    from delta_tpu_torch.exec.scan import scan_to_table
+
+    key = CONSTRAINT_PROP_PREFIX + name.lower()
+
+    def body(txn):
+        meta = txn.metadata
+        cfg = dict(meta.configuration or {})
+        if any(k.lower() == key for k in cfg):
+            raise errors.constraint_already_exists(name)
+        expr = parse_predicate(expr_sql)
+        existing = scan_to_table(txn.snapshot)
+        if existing.num_rows:
+            bad = int((~boolean_mask(expr, existing)).sum())
+            if bad:
+                raise errors.new_check_constraint_violated(bad, delta_log.data_path, expr_sql)
+        txn.read_whole_table()
+        cfg[key] = expr_sql
+        txn.update_metadata(replace(meta, configuration=cfg))
+        return txn.commit([], ops.AddConstraint(name, expr_sql))
+
+    return delta_log.with_new_transaction(body)
+
+
+def drop_constraint(delta_log, name: str, if_exists: bool = True) -> int:
+    key = CONSTRAINT_PROP_PREFIX + name.lower()
+
+    def body(txn):
+        meta = txn.metadata
+        cfg = dict(meta.configuration or {})
+        actual = next((k for k in cfg if k.lower() == key), None)
+        if actual is None:
+            if if_exists:
+                return txn.commit([], ops.DropConstraint(name, None))
+            raise errors.constraint_does_not_exist(name)
+        expr = cfg.pop(actual)
+        txn.update_metadata(replace(meta, configuration=cfg))
+        return txn.commit([], ops.DropConstraint(name, expr))
 
     return delta_log.with_new_transaction(body)

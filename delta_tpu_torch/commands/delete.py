@@ -20,8 +20,9 @@ Metrics and operation are the reference's (``numRemovedFiles``,
 removes and deletion vectors reach the slab through its incremental
 advance at the next MERGE. On a partitioned table case 3's candidates
 carry their partition columns and a rewrite's survivors land back in their
-own partition. Left out: the change data feed (case 3 raises
-``NotImplementedError`` on such a table), the span and the journal.
+own partition. With the change data feed on, case 3's deleted rows go to
+one CDC file as ``delete`` (``exec/cdf``); cases 1 and 2 write none (the
+feed rebuilds them from the removes). Left out: the span and the journal.
 """
 from __future__ import annotations
 
@@ -31,13 +32,13 @@ from delta_tpu_torch.commands import operations as ops
 from delta_tpu_torch.commands.dml_common import (
     Timer, bump_cache_epochs, candidate_files, dv_enabled, dv_mark_from_mask, read_candidates,
 )
+from delta_tpu_torch.exec import cdf
 from delta_tpu_torch.exec import write as write_exec
 from delta_tpu_torch.expr import ir
 from delta_tpu_torch.expr import partition as partition_expr
 from delta_tpu_torch.expr.parser import parse_predicate
 from delta_tpu_torch.expr.vectorized import HostTable
 from delta_tpu_torch.protocol.actions import Action
-from delta_tpu_torch.utils.config import DeltaConfigs
 
 __all__ = ["DeleteCommand"]
 
@@ -88,10 +89,9 @@ class DeleteCommand:
             return [f.remove() for f in to_remove]
 
         # case 3: scan, then DV-mark or rewrite each touched file
-        if DeltaConfigs.CHANGE_DATA_FEED.from_metadata(metadata):
-            raise NotImplementedError("DELETE with a data predicate on a table with the change "
-                                      "data feed (delta.enableChangeDataFeed) is not ported")
         use_dv = dv_enabled(metadata)
+        use_cdf = cdf.cdf_enabled(metadata)
+        cdf_blocks: List[Tuple[str, HostTable]] = []
         candidates = candidate_files(txn, self.condition)
         touched = read_candidates(self.delta_log.data_path, candidates, metadata,
                                   self.condition, with_positions=use_dv, prune_row_groups=use_dv,
@@ -107,6 +107,8 @@ class DeleteCommand:
             if not matches:
                 continue  # file untouched
             deleted_rows += matches
+            if use_cdf:
+                cdf_blocks.append(("delete", tf.table.filter(tf.mask)))
             if use_dv:
                 rm, re_add = dv_mark_from_mask(self.delta_log.data_path, tf.add, tf.table,
                                                tf.mask)
@@ -125,7 +127,9 @@ class DeleteCommand:
                                           device=self.delta_log.device)
         for (at, _), new_adds in reversed(list(zip(rewrites, written))):
             adds[at:at] = new_adds
+        cdc_actions: List[Action] = list(cdf.write_change_data(
+            self.delta_log.data_path, cdf_blocks, metadata, device=self.delta_log.device))
         self.metrics.update(numRemovedFiles=len(removes), numAddedFiles=len(adds),
                             numDeletedRows=deleted_rows, scanTimeMs=scan_ms,
                             rewriteTimeMs=timer.lap_ms())
-        return removes + adds
+        return removes + adds + cdc_actions

@@ -52,11 +52,18 @@ one fallback kept is a data disagreement, recorded in
 decode (``pairs_for_file`` returns None) or the cold build finds a file
 whose rows disagree with its recorded count.
 
-Left out, each raising ``NotImplementedError``: schema evolution
-(``delta.tpu.schema.autoMerge.enabled`` with a star clause), tables with
-the change data feed, generated columns. Also left out, result-identical:
-the distributed touched-files probe (it runs on the multi-host executor),
-row-group skipping, and the workload journal.
+Write semantics, as in the JAX package: with
+``delta.tpu.schema.autoMerge.enabled`` and a star clause the target schema
+evolves to ``merge_schemas(target, source)`` before the join (new source
+columns append, types widen, generated columns and their inputs keep
+their types); a generated column is computed for inserted rows and
+recomputed where an update assigns one of its inputs; with the change data
+feed on, the clauses' rows go to one CDC file (``update_preimage`` and
+``update_postimage`` from the matched pairs, whichever route produced them,
+``delete`` once a target row, ``insert``), and the candidate scan is not
+narrowed to the join keys. Left out, result-identical: the distributed
+touched-files probe (it runs on the multi-host executor), row-group
+skipping, and the workload journal.
 
 On a state mesh of several entries (``parallel/mesh.default_devices``:
 every visible card, or the list ``mesh.using_devices`` installs), the
@@ -70,7 +77,7 @@ from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -79,6 +86,7 @@ from delta_tpu_torch.commands import dml_common as dv_common
 from delta_tpu_torch.commands import operations as ops
 from delta_tpu_torch.commands.dml_common import POSITION_COL, Timer, candidate_files
 from delta_tpu_torch.commands.write import coerce_to_table
+from delta_tpu_torch.exec import cdf as cdf_exec
 from delta_tpu_torch.exec import write as write_exec
 from delta_tpu_torch.exec.scan import read_files_as_table
 from delta_tpu_torch.expr import ir
@@ -90,10 +98,11 @@ from delta_tpu_torch.expr.vectorized import (
 from delta_tpu_torch.ops import join_kernel
 from delta_tpu_torch.ops import key_cache as kc_mod
 from delta_tpu_torch.protocol.actions import Action, AddFile
+from delta_tpu_torch.schema import generated as generated_mod
 from delta_tpu_torch.schema import schema_utils
 from delta_tpu_torch.utils import errors as errors_mod
 from delta_tpu_torch.utils import telemetry
-from delta_tpu_torch.utils.config import DeltaConfigs, conf
+from delta_tpu_torch.utils.config import conf
 from delta_tpu_torch.utils.errors import DeltaAnalysisError, DeltaUnsupportedOperationError
 
 __all__ = ["MergeIntoCommand", "MergeClause"]
@@ -261,17 +270,24 @@ class MergeIntoCommand:
                     raise errors_mod.merge_unresolvable_column(col, target_cols, [])
                 self._resolve(e, [], source_cols)
 
-    def _check_supported(self, metadata) -> None:
+    def _migrate_schema(self, txn):
+        """MERGE schema evolution (``deltaMerge.scala:224-424``,
+        ``PreprocessTableMerge.scala:65-71``): with
+        ``delta.tpu.schema.autoMerge.enabled`` and a star clause the target
+        schema widens to ``merge_schemas(target, source)``. Returns the
+        transaction's (possibly evolved) metadata."""
+        metadata = txn.metadata
         has_star = any(c.is_star for c in self.matched_clauses + self.not_matched_clauses)
-        if conf.get_bool("delta.tpu.schema.autoMerge.enabled", False) and has_star:
-            raise NotImplementedError(
-                "schema evolution in MERGE (delta.tpu.schema.autoMerge.enabled) is not ported")
-        if DeltaConfigs.CHANGE_DATA_FEED.from_metadata(metadata):
-            raise NotImplementedError("MERGE into a table with the change data feed "
-                                      "(delta.enableChangeDataFeed) is not ported")
-        if any("delta.generationExpression" in (f.metadata or {})
-               for f in metadata.schema.fields):
-            raise NotImplementedError("MERGE into a table with generated columns is not ported")
+        if not (conf.get_bool("delta.tpu.schema.autoMerge.enabled", False) and has_star):
+            return metadata
+        merged = schema_utils.merge_schemas(
+            metadata.schema, schema_utils.schema_from_table(self.source),
+            allow_implicit_conversions=True,
+            fixed_type_columns=generated_mod.fixed_type_columns(metadata.schema))
+        if merged.to_json() != metadata.schema.to_json():
+            txn.update_metadata(replace(metadata, schema_string=merged.to_json()))
+            metadata = txn.metadata
+        return metadata
 
     # -- name resolution --------------------------------------------------
 
@@ -352,20 +368,21 @@ class MergeIntoCommand:
         # 'resident' | 'device-cold' | 'device-upload' | 'host'
         self._join_path = "host"
         self._router: Dict[str, Any] = {}
+        self._cdf_blocks: List[Tuple[str, HostTable]] = []
+        self._use_cdf = cdf_exec.cdf_enabled(txn.metadata)
         self.phase_ms.clear()
         timer = Timer()
-        metadata = txn.metadata
-        self._check_supported(metadata)
+        metadata = self._migrate_schema(txn)
         target_cols = [f.name for f in metadata.schema.fields]
         source_cols = list(self.source.column_names)
         # static star coverage (`deltaMerge.scala:322-328`)
         for clause in self.matched_clauses:
             if clause.is_star:
-                self._check_star_coverage(target_cols, source_cols, "UPDATE")
+                self._check_star_coverage(target_cols, source_cols, "UPDATE", metadata)
                 break
         for clause in self.not_matched_clauses:
             if clause.is_star:
-                self._check_star_coverage(target_cols, source_cols, "INSERT")
+                self._check_star_coverage(target_cols, source_cols, "INSERT", metadata)
                 break
         # read-side char padding of the condition and the matched clauses'
         # conditions (only refs that resolve to the target pad)
@@ -451,6 +468,8 @@ class MergeIntoCommand:
                                                       source_cols, metadata)
         if inserts is not None and inserts.num_rows:
             out_blocks.append(inserts)
+            if self._use_cdf:
+                self._cdf_blocks.append(("insert", inserts))
 
         self.phase_ms["apply_ms"] = timer.peek_ms()
         adds: List[Action] = list(dv_adds)
@@ -460,6 +479,10 @@ class MergeIntoCommand:
                 adds += list(write_exec.write_files(self.delta_log.data_path, out, metadata,
                                                     data_change=True,
                                                     device=self.delta_log.device))
+        # the change data after the data files: a write the constraints refuse
+        # leaves no CDC file behind
+        cdc_actions: List[Action] = list(cdf_exec.write_change_data(
+            self.delta_log.data_path, self._cdf_blocks, metadata, device=self.delta_log.device))
         rewrite_ms = timer.lap_ms()
         self.phase_ms["write_ms"] = rewrite_ms - self.phase_ms["apply_ms"]
 
@@ -488,7 +511,7 @@ class MergeIntoCommand:
             deletes=[_clause_info(c) for c in self.matched_clauses if c.kind == "delete"],
             inserts=[_clause_info(c) for c in self.not_matched_clauses],
         )
-        version = txn.commit(removes + adds, op)
+        version = txn.commit(removes + adds + cdc_actions, op)
         self._maybe_build_resident_keys()
         return version
 
@@ -677,9 +700,13 @@ class MergeIntoCommand:
                                    residual) -> Optional[List[str]]:
         """The target columns phase 2 can touch, or None when every column
         is needed. Valid only when nothing re-materializes whole target
-        rows: deletion vectors on and every update clause a star. For a star
-        upsert this collapses the scan to the join keys."""
-        if not dv_common.dv_enabled(metadata):
+        rows: deletion vectors on, the change data feed off (no preimages),
+        no generated columns (a recompute reads any base column) and every
+        update clause a star. For a star upsert this collapses the scan to
+        the join keys."""
+        if not dv_common.dv_enabled(metadata) or self._use_cdf:
+            return None
+        if generated_mod.generated_column_names(metadata.schema):
             return None
         source_bare = [c[len(_SRC):] for c in src_prefixed]
         src_lower = {c.lower() for c in source_bare}
@@ -1000,10 +1027,15 @@ class MergeIntoCommand:
         return mesh if len(mesh) > 1 else None
 
     def _check_star_coverage(self, target_cols: Sequence[str], src_cols: Sequence[str],
-                             typ: str) -> None:
-        """Star clauses resolve every target column against the source."""
+                             typ: str, metadata) -> None:
+        """Star clauses resolve every target column against the source,
+        generated columns aside (they are computed), unless schema evolution
+        is on (the star then expands over the source's columns)."""
+        if conf.get_bool("delta.tpu.schema.autoMerge.enabled", False):
+            return
         src_low = {s.lower() for s in src_cols}
-        missing = [c for c in target_cols if c.lower() not in src_low]
+        gen = generated_mod.generated_column_names(metadata.schema)
+        missing = [c for c in target_cols if c.lower() not in src_low and c.lower() not in gen]
         if missing:
             raise errors_mod.merge_clause_unresolvable(missing[0], typ, src_cols)
 
@@ -1049,12 +1081,20 @@ class MergeIntoCommand:
             if count:
                 block = pairs.filter(fire)
                 if clause.kind == "update":
-                    out_parts.append(self._project_update(block, clause, target_cols, metadata))
+                    projected = self._project_update(block, clause, target_cols, metadata)
+                    out_parts.append(projected)
+                    if self._use_cdf:
+                        self._cdf_blocks += [("update_preimage", block.select(target_cols)),
+                                             ("update_postimage", projected)]
                     n_updated += count
                 else:
                     # distinct target ROWS: a single unconditional DELETE may
-                    # legally multi-match
-                    n_deleted += len(np.unique(block.column(_TID).values))
+                    # legally multi-match (and the feed has one row a target row)
+                    tids, first = np.unique(block.column(_TID).values, return_index=True)
+                    if self._use_cdf:
+                        self._cdf_blocks.append(
+                            ("delete", block.take(np.sort(first)).select(target_cols)))
+                    n_deleted += len(tids)
             unclaimed &= ~fire
         claimed_pairs = pairs.filter(~unclaimed)
         # files with at least one FIRED row: only these are rewritten
@@ -1105,7 +1145,9 @@ class MergeIntoCommand:
                 # cast to the SCHEMA's declared type: with the projection
                 # pushed down the assigned target column is not decoded
                 cols[c] = cast_column(evaluate(e, block), *declared[c])
-        return HostTable(cols, block.num_rows)
+        # a generated column whose base columns were assigned is recomputed
+        return generated_mod.recompute_stale(HostTable(cols, block.num_rows), metadata.schema,
+                                             list(assignments))
 
     def _apply_not_matched(self, pairs: HostTable, src: HostTable, target_cols: List[str],
                            source_cols: List[str], metadata):
@@ -1144,14 +1186,19 @@ class MergeIntoCommand:
                 else:
                     assignments = {col.split(".")[-1]: self._resolve(e, [], source_cols)
                                    for col, e in clause.assignments.items()}
+                gen_cols = generated_mod.generated_column_names(metadata.schema)
                 cols = {}
                 for f in metadata.schema.fields:
                     e = next((v for k, v in assignments.items()
                               if k.lower() == f.name.lower()), None)
                     kind, stype = schema_utils.stored_type_for(f.data_type)
+                    if e is None and f.name.lower() in gen_cols:
+                        continue  # computed from the built row, not NULL
                     cols[f.name] = (null_column(block.num_rows, kind, stype) if e is None
                                     else cast_column(evaluate(e, block), kind, stype))
-                parts.append(HostTable(cols, block.num_rows).select(target_cols))
+                part = generated_mod.compute_on_write(HostTable(cols, block.num_rows),
+                                                      metadata.schema)
+                parts.append(part.select(target_cols))
                 n_inserted += count
             unclaimed &= ~fire
         out = concat_tables(parts) if parts else None

@@ -12,13 +12,17 @@ files a partition predicate selects, after checking that every written
 file lies inside it (a data-column predicate is refused, as the reference
 refuses it). ``rearrange_only`` flips ``dataChange=False`` on every action.
 
+``merge_schema`` evolves the table's schema to take the batch's new
+columns and widened types (``schema_utils.merge_schemas``);
+``overwrite_schema`` (overwrite mode only) replaces it with the batch's.
+
 The data is a ``HostTable`` (``expr/vectorized``) or a dict of numpy
 arrays or Python lists (:func:`coerce_to_table`); never a ``pyarrow``
-table. Left out, each raising ``NotImplementedError``: ``merge_schema``
-and ``overwrite_schema``.
+table.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 from delta_tpu_torch.commands import operations as ops
@@ -55,10 +59,15 @@ def coerce_to_table(data: Any) -> HostTable:
 
 
 def update_metadata_on_write(txn, data_schema: StructType, partition_columns: Sequence[str],
-                             configuration: Optional[Dict[str, str]] = None) -> None:
+                             configuration: Optional[Dict[str, str]] = None,
+                             is_overwrite: bool = False, merge_schema: bool = False,
+                             overwrite_schema: bool = False) -> None:
     """``ImplicitMetadataOperation.updateMetadata``: create the table from the
-    data's schema, or hold the data to the table's."""
+    data's schema, replace it (``overwrite_schema``), evolve it
+    (``merge_schema``), or hold the data to it."""
     table_exists = txn.read_version >= 0 and txn.metadata.schema_string is not None
+    if overwrite_schema and not is_overwrite:
+        raise DeltaAnalysisError("overwriteSchema requires mode('overwrite')")
     if not table_exists:
         schema_utils.check_partition_columns(partition_columns, data_schema)
         txn.update_metadata(Metadata(schema_string=data_schema.to_json(),
@@ -69,6 +78,16 @@ def update_metadata_on_write(txn, data_schema: StructType, partition_columns: Se
     if partition_columns and [c.lower() for c in partition_columns] != [
             c.lower() for c in current.partition_columns]:
         raise errors.partition_columns_mismatch(partition_columns, current.partition_columns)
+    if overwrite_schema:
+        txn.update_metadata(replace(
+            current, schema_string=data_schema.to_json(),
+            partition_columns=list(partition_columns or current.partition_columns)))
+        return
+    if merge_schema:
+        merged = schema_utils.merge_schemas(current.schema, data_schema)
+        if merged.to_json() != current.schema.to_json():
+            txn.update_metadata(replace(current, schema_string=merged.to_json()))
+        return
     schema_utils.enforce_write_compatibility(current.schema, data_schema)
 
 
@@ -83,15 +102,14 @@ class WriteIntoDelta:
             raise DeltaIllegalArgumentError(f"Unknown save mode {mode!r}")
         if replace_where is not None and mode != "overwrite":
             raise DeltaAnalysisError("replaceWhere is only supported with mode('overwrite')")
-        for name, on in (("mergeSchema", merge_schema), ("overwriteSchema", overwrite_schema)):
-            if on:
-                raise NotImplementedError(f"WriteIntoDelta: {name} is not ported")
         self.delta_log = delta_log
         self.mode = mode
         self.table = coerce_to_table(data)
         self.partition_columns = list(partition_columns)
         self.replace_where = (parse_predicate(replace_where) if isinstance(replace_where, str)
                               else replace_where)
+        self.merge_schema = merge_schema
+        self.overwrite_schema = overwrite_schema
         self.rearrange_only = rearrange_only
         self.configuration = configuration
         self.user_metadata = user_metadata
@@ -120,7 +138,9 @@ class WriteIntoDelta:
         is_overwrite = self.mode == "overwrite"
         update_metadata_on_write(txn, data_schema,
                                  self.partition_columns or txn.metadata.partition_columns,
-                                 configuration=self.configuration)
+                                 configuration=self.configuration, is_overwrite=is_overwrite,
+                                 merge_schema=self.merge_schema,
+                                 overwrite_schema=self.overwrite_schema)
         adds = write_exec.write_files(self.delta_log.data_path, self.table, txn.metadata,
                                       data_change=not self.rearrange_only,
                                       device=self.delta_log.device)

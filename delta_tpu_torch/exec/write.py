@@ -17,8 +17,12 @@ digits with its scale kept: ``1.50``, ``1E-7``), NULL is
 nested column cannot partition a table (Arrow sorts none). Files become
 visible only through the commit.
 
-Left out: generated columns, CHECK constraints and the char/varchar write
-semantics each raise ``NotImplementedError``.
+Before the split each batch goes through the write semantics, in the JAX
+package's order: generated columns computed or checked
+(``schema/generated.compute_on_write``, before normalization loses which
+columns were provided), normalization, the char/varchar padding and length
+check (``schema/char_varchar``), then NOT NULL and CHECK constraints
+(``schema/constraints``). A violation raises before any file is written.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ from delta_tpu_torch.exec import parquet as pq_exec
 from delta_tpu_torch.expr.nested import decimal_ps, spec_string, to_decimal
 from delta_tpu_torch.expr.vectorized import HostColumn, HostTable, cast_column, null_column
 from delta_tpu_torch.protocol.actions import AddFile, Metadata
-from delta_tpu_torch.schema import schema_utils
-from delta_tpu_torch.schema.types import CharType, StructType, VarcharType
+from delta_tpu_torch.schema import char_varchar, constraints, generated, schema_utils
+from delta_tpu_torch.schema.types import StructType
 from delta_tpu_torch.utils.config import DeltaConfigs, conf
 from delta_tpu_torch.utils.errors import SchemaMismatchError
 
@@ -194,13 +198,7 @@ def write_tables(data_path: str, tables: Sequence[HostTable], metadata: Metadata
     a command that rewrites many files pays two launch sets a batch, not
     two a file."""
     schema: StructType = metadata.schema
-    if any("delta.generationExpression" in (f.metadata or {}) for f in schema.fields):
-        raise NotImplementedError("generated columns are not ported")
-    if any(isinstance(f.data_type, (CharType, VarcharType))
-           or "__CHAR_VARCHAR_TYPE_STRING" in (f.metadata or {}) for f in schema.fields):
-        raise NotImplementedError("char/varchar write semantics are not ported")
-    if any(k.lower().startswith("delta.constraints.") for k in metadata.configuration or {}):
-        raise NotImplementedError("CHECK constraints are not ported")
+    checks = constraints.from_metadata(metadata)
     num_indexed = DeltaConfigs.DATA_SKIPPING_NUM_INDEXED_COLS.from_metadata(metadata)
     if target_file_rows is None:
         target_file_rows = int(conf.get("delta.tpu.write.targetFileRows", 4_000_000))
@@ -210,7 +208,10 @@ def write_tables(data_path: str, tables: Sequence[HostTable], metadata: Metadata
     for ti, table in enumerate(tables):
         schema_utils.check_column_name_duplication(schema_utils.schema_from_table(table),
                                                    "in the data to save")
+        table = generated.compute_on_write(table, schema)
         table = normalize_data(table, schema)
+        table = char_varchar.apply_write_semantics(table, metadata)
+        constraints.enforce(checks, table)
         groups = _split_by_partition(table, part_cols) if part_cols else [({}, table)]
         for pv, part_table in groups:
             if part_table.num_rows == 0:

@@ -882,7 +882,8 @@ def compile_residual(e: ir.Expression, types: Dict[str, Any],
       lane encodings (epoch days / epoch microseconds), and
       ``year``/``month``/``day``/``to_date``/``hour`` over temporal columns
       lower to the calendar opcodes;
-    * decimal columns, string partition references and mixed
+    * decimal columns, a cast to DECIMAL (it rounds half up at its scale,
+      which no opcode does), string partition references and mixed
       date-vs-timestamp compares raise :class:`NotDeviceCompilable`, and
       the caller keeps the host path.
 
@@ -892,6 +893,14 @@ def compile_residual(e: ir.Expression, types: Dict[str, Any],
 
     from delta_tpu_torch.schema.types import DateType, DecimalType, StringType, TimestampType
     from delta_tpu_torch.utils.timeparse import iso_to_date, iso_to_naive_utc
+
+    def _no_decimal_cast(x):
+        if isinstance(x, ir.Cast) and isinstance(x.data_type, DecimalType):
+            raise NotDeviceCompilable(f"{x.sql()} rounds to a decimal: it stays on host")
+        for c in x.children:
+            _no_decimal_cast(c)
+
+    _no_decimal_cast(e)
 
     parts = frozenset(c.lower() for c in partition_names)
     binds: list = []

@@ -13,6 +13,7 @@ AND/OR use Kleene logic, as in Spark SQL.
 """
 from __future__ import annotations
 
+import decimal as _decimal
 import math
 import re
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -467,9 +468,16 @@ class Mod(_Arith):
 
     @staticmethod
     def py(l, r):
+        """Spark's remainder (Java's ``%``): the sign of the dividend, for
+        integers as for doubles (``math.fmod``) and decimals."""
         if r == 0:
             return None
-        return math.fmod(l, r) if isinstance(l, float) or isinstance(r, float) else l % r
+        if isinstance(l, float) or isinstance(r, float):
+            return math.fmod(l, r)
+        if isinstance(l, int) and isinstance(r, int):
+            m = abs(l) % abs(r)
+            return m if l >= 0 else -m
+        return l % r
 
 
 class Neg(Expression):
@@ -711,6 +719,39 @@ def _pow(x, y):
     return r
 
 
+_WIDE = _decimal.Context(prec=800)
+
+
+def _round_half_up(x, n=0):
+    """Spark's ``round``: half away from zero at ``n`` fractional digits
+    (``RoundingMode.HALF_UP``), a double taken at its shortest decimal form
+    as ``BigDecimal(double)`` takes it (``round(2.675, 2)`` is 2.68); the
+    type kept. ``bround`` is the half-even one."""
+    if x is None or n is None:
+        return None
+    n = int(n)
+    if isinstance(x, bool):
+        return x
+    if isinstance(x, float):
+        if not math.isfinite(x):
+            return x
+        d = _decimal.Decimal(repr(x))
+    elif isinstance(x, int):
+        if n >= 0:
+            return x
+        d = _decimal.Decimal(x)
+    elif isinstance(x, _decimal.Decimal):
+        d = x
+    else:
+        return round(x, n)
+    if d.as_tuple().exponent >= -n:
+        return x
+    q = d.quantize(_decimal.Decimal(1).scaleb(-n), _decimal.ROUND_HALF_UP, context=_WIDE)
+    if isinstance(x, float):
+        return float(q)
+    return int(q) if isinstance(x, int) else q
+
+
 def _log(*args):
     if any(a is None for a in args):
         return None
@@ -733,7 +774,7 @@ class Func(Expression):
         "length": lambda x: None if x is None else len(x),
         "lower": lambda x: None if x is None else str(x).lower(),
         "upper": lambda x: None if x is None else str(x).upper(),
-        "trim": lambda x: None if x is None else str(x).strip(),
+        "trim": lambda x: None if x is None else str(x).strip(" "),
         "concat": lambda *xs: None if any(x is None for x in xs) else "".join(str(x) for x in xs),
         "substring": _substring,
         "substr": _substring,
@@ -745,7 +786,7 @@ class Func(Expression):
         "second": lambda t: None if t is None else ((t // 1_000_000) % 60),
         "floor": lambda x: None if x is None else math.floor(x),
         "ceil": lambda x: None if x is None else math.ceil(x),
-        "round": lambda x, n=0: None if x is None else round(x, n),
+        "round": _round_half_up,
         "to_date": _to_date,
         "date_add": _date_add,
         "date_sub": lambda d, n: _date_add(d, n, sign=-1),

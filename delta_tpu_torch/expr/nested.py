@@ -244,6 +244,42 @@ def ncol_nulls(spec, n: int) -> NCol:
     return NCol(spec[0], valid, offsets=np.zeros(n + 1, np.int64), element=element)
 
 
+def reshape(col: NCol, src, dst) -> Optional[NCol]:
+    """``col`` (of spec ``src``) as spec ``dst`` where ``dst`` differs only
+    by struct fields that ``col`` lacks, at any depth: those read NULL, and
+    the fields take ``dst``'s names and order (matched case-insensitively),
+    as Arrow's cast of a struct to a wider struct does on a write and on a
+    read of a file older than an evolved schema. None where ``dst`` drops
+    a field or changes a leaf type."""
+    if src == dst:
+        return col
+    if isinstance(src, str) or isinstance(dst, str) or src[0] != dst[0]:
+        return None
+    if src[0] == "struct":
+        have = {name.lower(): (name, s) for name, s in src[1]}
+        if len(have) != len(src[1]) or not set(have) <= {n.lower() for n, _ in dst[1]}:
+            return None
+        fields = {}
+        for name, s in dst[1]:
+            hit = have.get(name.lower())
+            sub = ncol_nulls(s, len(col)) if hit is None else reshape(col.fields[hit[0]],
+                                                                      hit[1], s)
+            if sub is None:
+                return None
+            fields[name] = sub
+        return NCol("struct", col.valid, fields=fields)
+    if src[0] == "list":
+        element = reshape(col.element, src[1], dst[1])
+    else:
+        (kname, key), (vname, value) = col.element.fields.items()
+        k, v = reshape(key, src[1], dst[1]), reshape(value, src[2], dst[2])
+        element = (None if k is None or v is None else
+                   NCol("struct", col.element.valid, fields={kname: k, vname: v}))
+    if element is None:
+        return None
+    return NCol(src[0], col.valid, offsets=col.offsets, element=element)
+
+
 def _leaf_from_py(spec: str, values: Sequence[Any], valid: np.ndarray) -> np.ndarray:
     n = len(values)
     kind = leaf_kind(spec)

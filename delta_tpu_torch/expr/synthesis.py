@@ -385,8 +385,11 @@ def _emit_bounds(col: ir.Column, b: _Bounds, base: _Base) -> ir.Expression:
     return out
 
 
-_WIDENING_CASTS = ("float", "double", "decimal")
-_TRUNC_CASTS = ("byte", "short", "integer", "long")
+_WIDENING_CASTS = ("float", "double")
+# casts that move a value by less than 1: integer truncation, and a decimal's
+# rounding to its scale (half up, Spark's cast; the bound is evaluated on the
+# uncast stats, so it pads by the unit as a truncation does)
+_TRUNC_CASTS = ("byte", "short", "integer", "long", "decimal")
 
 
 def _invert_chain(e: ir.Expression, b: _Bounds,
@@ -532,10 +535,11 @@ def _interval(e: ir.Expression, pcols: FrozenSet[str],
         c = _as_num(divisor.value)
         if c == 0:
             raise _Never
-        # int %: result in [0, |c|) or (-|c|, 0] by divisor sign; float
-        # fmod: sign follows the DIVIDEND — [-|c|, |c|] covers every
-        # combination the engine's Mod can produce. Gate the dividend like
-        # any operand (types/partition checks) even though its bounds drop.
+        # Spark's remainder takes the sign of the DIVIDEND for integers,
+        # doubles and decimals alike (Java's %): the result lies in
+        # (-|c|, |c|), which [-|c|, |c|] covers for any dividend. Gate the
+        # dividend like any operand (types/partition checks) even though
+        # its bounds drop.
         _interval(e.left, pcols, types)
         return [ir.Literal(-abs(float(c)))], [ir.Literal(abs(float(c)))]
     if isinstance(e, ir.Cast):

@@ -37,8 +37,10 @@ they differ from the row evaluator's:
   visitor does), a precision past 38 has no kernel (the row evaluator
   takes the node); against a double, a decimal
   is a double; a cast to fewer fractional digits truncates toward zero and
-  keeps a value past the precision (the unsafe cast), a double casts by
-  rounding half to even;
+  keeps a value past the precision (the unsafe cast), a double casts at
+  its shortest decimal form, rounding half up (Spark's cast; Arrow's
+  rounds the binary value half to even), and ``round`` of a decimal rounds
+  half up (Spark's ``round``, where Arrow's is half to even);
 * a nested column (struct, list, map) is carried, compared by nothing:
   only ``IS [NOT] NULL`` and the table operations read it.
 
@@ -711,15 +713,17 @@ def _decimal_divide(l, r, n: int) -> HostColumn:
 
 
 def _double_to_unscaled(vals: np.ndarray, precision: int, scale: int) -> np.ndarray:
-    """Arrow's unsafe double to decimal cast: the double's exact binary
-    value at ``scale`` digits, rounded half to even; a value past the
-    precision (or not finite) becomes 0. Vectorised, with the values whose
-    scaled double lies within a few ulps of a half redone exactly."""
+    """Spark's double to decimal cast (``Decimal(double)``, then
+    ``changePrecision`` with ``ROUND_HALF_UP``): the double's shortest
+    decimal form at ``scale`` digits, rounded half away from zero; a value
+    past the precision (or not finite) becomes 0, as Arrow's unsafe cast
+    leaves it. Vectorised, with the values whose scaled double lies within
+    a few ulps of a half redone exactly."""
     v = vals.astype(np.float64)
     top = _POW10[precision]
     with np.errstate(all="ignore"):
         y = v * 10.0 ** scale
-        r = np.rint(y)
+        r = np.where(y >= 0, np.floor(y + 0.5), np.ceil(y - 0.5))
         fits = np.isfinite(y) & (np.abs(y) < 2.0 * 10.0 ** precision)
         near = fits & ((np.abs(np.abs(y - np.trunc(y)) - 0.5) <= 8 * np.spacing(np.abs(y)))
                        | (scale > 15))  # past 15 digits 10 ** scale is not a double
@@ -727,8 +731,8 @@ def _double_to_unscaled(vals: np.ndarray, precision: int, scale: int) -> np.ndar
     out[fits] = r[fits].astype(object)
     unit = _decimal.Decimal(1).scaleb(-scale)
     for i in np.flatnonzero(near):
-        d = _decimal.Decimal(float(v[i])).quantize(unit, _decimal.ROUND_HALF_EVEN,
-                                                    context=nested_mod._EXACT)
+        d = _decimal.Decimal(repr(float(v[i]))).quantize(unit, _decimal.ROUND_HALF_UP,
+                                                          context=nested_mod._EXACT)
         out[i] = int(d.scaleb(scale, context=nested_mod._EXACT))
     out[fits] = [int(x) if abs(int(x)) < top else 0 for x in out[fits].tolist()]
     return _widened(out, precision > 18)
@@ -766,7 +770,7 @@ def _decimal_strings(vals: np.ndarray, valid: np.ndarray, scale: int) -> np.ndar
 
 def _decimal_round(vals: np.ndarray, scale: int, mode: str) -> np.ndarray:
     """Unscaled values rounded to a whole number, kept at ``scale``:
-    ``floor``, ``ceil`` or ``half_even``."""
+    ``floor``, ``ceil`` or ``half_up`` (half away from zero)."""
     if scale <= 0:
         return vals
     wide = vals.dtype == object
@@ -774,9 +778,9 @@ def _decimal_round(vals: np.ndarray, scale: int, mode: str) -> np.ndarray:
     q, rem = np.divmod(vals, unit)  # floor division
     if mode == "ceil":
         q = q + (rem != 0)
-    elif mode == "half_even":
+    elif mode == "half_up":
         twice = rem * 2
-        q = q + ((twice > unit) | ((twice == unit) & (q % 2 != 0)))
+        q = q + ((twice > unit) | ((twice == unit) & (vals >= 0)))
     out = q * unit
     return out if wide else out.astype(np.int64)
 
@@ -1178,10 +1182,10 @@ class _Vectorizer:
             return self._date_arith(e)
         if name == "round" and _round_to_whole(e):
             c = self.visit(e.children[0])
-            if c.kind == "decimal":  # Arrow's round, half to even, the type kept
+            if c.kind == "decimal":  # Spark's round, half up, the type kept
                 v, ok = _parts(c, self.n)
                 return HostColumn("decimal", _decimal_round(v, decimal_ps(c.type)[1],
-                                                            "half_even"), ok, c.type)
+                                                            "half_up"), ok, c.type)
             return self._fallback(e)
         if name in ("abs", "floor", "ceil") and len(e.children) == 1:
             c = self.visit(e.children[0])
@@ -1413,6 +1417,9 @@ def cast_column(col: HostColumn, kind: str, stype: Any) -> HostColumn:
     if kind == "nested" or col.kind == "nested":
         if col.kind == kind and col.type == stype:
             return col
+        ncol = nested_mod.reshape(col.values, col.type, stype) if col.kind == kind else None
+        if ncol is not None:
+            return HostColumn("nested", ncol, ncol.valid, stype)
         raise CastError(f"casting a {col.kind} column of type {col.type!r} to {stype!r} is not "
                         "supported")
     if col.kind == "decimal":

@@ -23,7 +23,7 @@ import logging
 import re
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -34,8 +34,10 @@ from delta_tpu_torch.log.columnar import decode_segment, extend_segment_columns
 from delta_tpu_torch.log.snapshot import Snapshot
 from delta_tpu_torch.protocol.actions import (
     READER_VERSION, SUPPORTED_READER_FEATURES, SUPPORTED_READER_VERSION,
-    SUPPORTED_WRITER_FEATURES, SUPPORTED_WRITER_VERSION, WRITER_VERSION, Protocol,
+    SUPPORTED_WRITER_FEATURES, SUPPORTED_WRITER_VERSION, WRITER_VERSION, Action, Protocol,
+    actions_from_lines,
 )
+from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.storage.logstore import LocalLogStore
 from delta_tpu_torch.utils import errors as errors_mod
 from delta_tpu_torch.utils.device import resolve
@@ -233,6 +235,29 @@ class DeltaLog:
     @property
     def table_exists(self) -> bool:
         return self.snapshot.version >= 0
+
+    def get_changes(self, start_version: int, fail_on_data_loss: bool = False
+                    ) -> Iterator[Tuple[int, List[Action]]]:
+        """(version, actions) of every commit from ``start_version`` on, in
+        order (``DeltaLog.getChanges``); a gap in the versions raises, and
+        with ``fail_on_data_loss`` so does a first version past the start."""
+        prefix = f"{self.log_path}/{filenames.check_version_prefix(start_version)}"
+        try:
+            statuses = list(self.store.list_from(prefix))
+        except FileNotFoundError:
+            statuses = []
+        last_seen: Optional[int] = None
+        for fs in statuses:
+            if not filenames.is_delta_file(fs.name):
+                continue
+            v = filenames.delta_version(fs.name)
+            if fail_on_data_loss and last_seen is None and v > start_version:
+                raise DeltaIllegalStateError(
+                    f"Events were deleted: expected version {start_version}, first available {v}")
+            if last_seen is not None and v > last_seen + 1:
+                raise errors_mod.versions_not_contiguous([last_seen, v])
+            last_seen = v
+            yield v, actions_from_lines(self.store.read(fs.path))
 
     # -- protocol gating (DeltaLog.scala:248-275) ------------------------
 

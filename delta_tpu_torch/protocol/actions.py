@@ -8,7 +8,7 @@ envelope ``{"add": {...}}`` / ``{"remove": {...}}`` / etc.
 
 The port's own copy of ``delta_tpu.protocol.actions``: pure Python, the
 host-side log kernel's vocabulary. Change-data (``cdc``) lines decode to
-None here; the port's replay ignores them, as the reference's does.
+:class:`AddCDCFile`; the state replay skips them, as the reference's does.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ __all__ = [
     "FileAction",
     "AddFile",
     "RemoveFile",
+    "AddCDCFile",
     "Format",
     "Metadata",
     "JobInfo",
@@ -269,6 +270,32 @@ class RemoveFile(FileAction):
 
 
 @dataclass(frozen=True)
+class AddCDCFile(FileAction):
+    """A change-data file (PROTOCOL.md "Add CDC File"; actions.scala:328-341):
+    ``dataChange`` is always false, so it never enters the table state."""
+
+    path: str
+    partition_values: Dict[str, Optional[str]] = field(default_factory=dict)
+    size: int = 0
+    tags: Optional[Dict[str, str]] = None
+
+    wrap_key = "cdc"
+    data_change = False
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"path": self.path, "partitionValues": self.partition_values,
+                             "size": self.size, "dataChange": False}
+        if self.tags is not None:
+            d["tags"] = self.tags
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "AddCDCFile":
+        return AddCDCFile(path=d["path"], partition_values=dict(d.get("partitionValues") or {}),
+                          size=int(d.get("size") or 0), tags=d.get("tags"))
+
+
+@dataclass(frozen=True)
 class Format:
     provider: str = "parquet"
     options: Dict[str, str] = field(default_factory=dict)
@@ -454,6 +481,7 @@ class CommitInfo(Action):
 _DECODERS = {
     "add": AddFile.from_dict,
     "remove": RemoveFile.from_dict,
+    "cdc": AddCDCFile.from_dict,
     "metaData": Metadata.from_dict,
     "protocol": Protocol.from_dict,
     "txn": SetTransaction.from_dict,

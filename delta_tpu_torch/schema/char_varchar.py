@@ -1,20 +1,24 @@
-"""Char/varchar declarations (the port's own copy of
-``delta_tpu.schema.char_varchar``'s ``replace_char_varchar_with_string``,
-``raw_type`` and ``pad_char_literals``): the declaration a CREATE and an
-ADD COLUMNS commit, and the read-side char(n) padding.
+"""Char/varchar semantics (the port's own copy of
+``delta_tpu.schema.char_varchar``): the declaration a CREATE and an ADD
+COLUMNS commit, the write-side length check and padding
+(:func:`apply_write_semantics`), and the read-side char(n) padding.
 A char(n) column is stored as STRING plus the reference's type-string field
 metadata (``CharVarcharUtils.scala:38``), or declared as ``char(n)``."""
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 from delta_tpu_torch.expr import ir
+from delta_tpu_torch.expr.vectorized import HostColumn, HostTable
 from delta_tpu_torch.schema.types import (
     CharType, DataType, StringType, StructField, StructType, VarcharType, parse_data_type,
 )
+from delta_tpu_torch.utils import errors
 
 __all__ = ["CHAR_VARCHAR_TYPE_STRING_METADATA_KEY", "replace_char_varchar_with_string",
-           "raw_type", "pad_char_literals"]
+           "raw_type", "apply_write_semantics", "pad_char_literals"]
 
 CHAR_VARCHAR_TYPE_STRING_METADATA_KEY = "__CHAR_VARCHAR_TYPE_STRING"
 
@@ -45,6 +49,42 @@ def raw_type(field: StructField) -> DataType:
         if isinstance(dt, (CharType, VarcharType)):
             return dt
     return field.data_type
+
+
+def apply_write_semantics(table: HostTable, metadata) -> HostTable:
+    """The write-path char/varchar step over a batch:
+
+    - an over-length value first sheds trailing spaces down to the bound
+      (the reference's char/varcharTypeWriteSideCheck trims before it
+      errs): it truncates to exactly n characters, never a full rtrim;
+    - a value still longer than n characters raises the length error;
+    - char(n): values pad with spaces on the right to exactly n characters
+      (the data file carries the padded form, so every reader agrees).
+    """
+    cols = dict(table.columns)
+    for f in metadata.schema.fields:
+        dt = raw_type(f)
+        if not isinstance(dt, (CharType, VarcharType)):
+            continue
+        name = next((c for c in cols if c.lower() == f.name.lower()), None)
+        if name is None or cols[name].kind != "str" or cols[name].type not in (None, "string"):
+            continue
+        col = cols[name]
+        live = np.flatnonzero(col.valid)
+        vals = col.values.copy()
+        over = [i for i in live.tolist() if len(vals[i]) > dt.length]
+        if over:
+            still = [i for i in over if len(vals[i].rstrip(" ")) > dt.length]
+            if still:
+                raise errors.char_varchar_length_exceeded(
+                    f.name, dt.name, dt.length, vals[still[0]].rstrip(" "))
+            for i in over:
+                vals[i] = vals[i][:dt.length]
+        if isinstance(dt, CharType):
+            for i in live.tolist():
+                vals[i] = vals[i].ljust(dt.length)
+        cols[name] = HostColumn("str", vals, col.valid, col.type)
+    return HostTable(cols, table.num_rows)
 
 
 def pad_char_literals(expr, metadata, target_qualifiers=None):

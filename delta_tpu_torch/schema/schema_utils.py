@@ -27,6 +27,7 @@ __all__ = ["check_column_names", "check_partition_columns", "check_column_name_d
            "enforce_write_compatibility", "delta_type_for", "stored_type_for",
            "schema_from_table", "merge_schemas", "find_column_position", "add_column",
            "drop_column_at", "replace_column_at", "find_field", "can_change_data_type",
+           "normalize_column_names", "is_read_compatible",
            "ARRAY_ELEMENT_INDEX", "MAP_KEY_INDEX", "MAP_VALUE_INDEX"]
 
 _INVALID_CHARS = set(' ,;{}()\n\t=')
@@ -118,13 +119,26 @@ def check_partition_columns(partition_columns: Sequence[str], schema: StructType
 
 
 def check_column_name_duplication(schema: StructType, context: str) -> None:
-    """Reject case-insensitively duplicated column names."""
-    seen = {}
-    for f in schema.fields:
-        low = f.name.lower()
-        if low in seen:
-            raise errors.duplicate_columns(context, seen[low], f.name)
-        seen[low] = f.name
+    """Reject case-insensitively duplicated column names, at any nesting
+    level (the reference asks Spark's SchemaUtils before merging)."""
+
+    def walk(dt: DataType, path: str):
+        if isinstance(dt, StructType):
+            seen = {}
+            for f in dt.fields:
+                low = f.name.lower()
+                if low in seen:
+                    raise errors.duplicate_columns(context, f"{path}{seen[low]}",
+                                                   f"{path}{f.name}")
+                seen[low] = f.name
+                walk(f.data_type, path + f.name + ".")
+        elif isinstance(dt, ArrayType):
+            walk(dt.element_type, path + "element.")
+        elif isinstance(dt, MapType):
+            walk(dt.key_type, path + "key.")
+            walk(dt.value_type, path + "value.")
+
+    walk(schema, "")
 
 
 _WIDENING: List[Tuple[type, type]] = [
@@ -252,6 +266,39 @@ def enforce_write_compatibility(table_schema: StructType, data_schema: StructTyp
 ARRAY_ELEMENT_INDEX = 0
 MAP_KEY_INDEX = 0
 MAP_VALUE_INDEX = 1
+
+
+def normalize_column_names(table_schema: StructType, data_schema: StructType
+                           ) -> List[Tuple[str, str]]:
+    """(data name, table name) case fixes (``normalizeColumnNames :223``)."""
+    by_lower = {f.name.lower(): f for f in table_schema.fields}
+    return [(f.name, by_lower[f.name.lower()].name) for f in data_schema.fields
+            if f.name.lower() in by_lower and by_lower[f.name.lower()].name != f.name]
+
+
+def is_read_compatible(existing: StructType, new: StructType) -> bool:
+    """Can data written with ``existing`` be read as ``new``
+    (``isReadCompatible :265``): ``new`` holds every existing column with
+    its type and does not tighten nullability."""
+    new_by_lower = {f.name.lower(): f for f in new.fields}
+    for f in existing.fields:
+        n = new_by_lower.get(f.name.lower())
+        if n is None or not _type_read_compatible(f.data_type, n.data_type):
+            return False
+        if f.nullable and not n.nullable:
+            return False
+    return True
+
+
+def _type_read_compatible(old: DataType, new: DataType) -> bool:
+    if isinstance(old, StructType) and isinstance(new, StructType):
+        return is_read_compatible(old, new)
+    if isinstance(old, ArrayType) and isinstance(new, ArrayType):
+        return _type_read_compatible(old.element_type, new.element_type)
+    if isinstance(old, MapType) and isinstance(new, MapType):
+        return (_type_read_compatible(old.key_type, new.key_type)
+                and _type_read_compatible(old.value_type, new.value_type))
+    return old == new
 
 
 def _can_widen(from_t: DataType, to_t: DataType) -> bool:

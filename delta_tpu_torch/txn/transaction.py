@@ -33,10 +33,10 @@ from delta_tpu_torch.expr import partition as part
 from delta_tpu_torch.expr.parser import parse_expression
 from delta_tpu_torch.protocol import filenames
 from delta_tpu_torch.protocol.actions import (
-    DV_FEATURE_NAME, Action, AddFile, CommitInfo, Metadata, Protocol, RemoveFile,
+    DV_FEATURE_NAME, Action, AddCDCFile, AddFile, CommitInfo, Metadata, Protocol, RemoveFile,
     actions_from_lines,
 )
-from delta_tpu_torch.schema import schema_utils
+from delta_tpu_torch.schema import generated, schema_utils
 from delta_tpu_torch.txn import conflicts as conflicts_mod
 from delta_tpu_torch.txn import isolation
 from delta_tpu_torch.utils import errors
@@ -137,15 +137,8 @@ class OptimisticTransaction:
         if metadata.schema_string is not None:
             schema_utils.check_column_names(metadata.schema)
             schema_utils.check_partition_columns(metadata.partition_columns, metadata.schema)
-            if any("delta.generationExpression" in (f.metadata or {})
-                   for f in metadata.schema.fields):
-                raise NotImplementedError("generated columns are not ported")
+            generated.validate_generated_columns(metadata.schema)
         cfg = DeltaConfigs.validate_configuration(metadata.configuration)
-        if DeltaConfigs.CHANGE_DATA_FEED.from_metadata(replace(metadata, configuration=cfg)):
-            raise NotImplementedError("tables with the change data feed "
-                                      "(delta.enableChangeDataFeed) are not ported")
-        if any(k.lower().startswith("delta.constraints.") for k in cfg):
-            raise NotImplementedError("CHECK constraints are not ported")
         metadata = replace(metadata, configuration=cfg)
         # keep table id stable across metadata updates
         if self.read_version >= 0 and self.snapshot.metadata.id:
@@ -154,9 +147,16 @@ class OptimisticTransaction:
         self.new_protocol = self._required_protocol_upgrade(metadata)
 
     def _required_protocol_upgrade(self, metadata: Metadata) -> Optional[Protocol]:
-        """Feature-driven minimum protocol (``actions.scala:124-159``)."""
+        """Feature-driven minimum protocol (``actions.scala:124-159``): writer
+        version 4 for generated columns or the change data feed, 3 for CHECK
+        constraints, table features (3, 7) for deletion vectors."""
         required_writer = 2
         props = metadata.configuration or {}
+        if (generated.has_generated_columns(metadata.schema)
+                or props.get("delta.enableChangeDataFeed", "false").lower() == "true"):
+            required_writer = 4
+        elif any(k.lower().startswith("delta.constraints.") for k in props):
+            required_writer = 3
         required_reader = 1
         feature_names: set = set()
         if props.get("delta.tpu.enableDeletionVectors", "false").lower() == "true":
@@ -244,7 +244,7 @@ class OptimisticTransaction:
                 DeltaConfigs.ISOLATION_LEVEL.from_metadata(self.metadata)]
         # blind-append detection (scala:442-447)
         only_add_files = all(isinstance(a, AddFile) for a in actions
-                             if isinstance(a, (AddFile, RemoveFile)))
+                             if isinstance(a, (AddFile, RemoveFile, AddCDCFile)))
         depends_on_files = bool(self.read_predicates) or bool(self.read_files)
         is_blind_append = only_add_files and not depends_on_files
         self.staged_removes = [a for a in actions if isinstance(a, RemoveFile)]
@@ -352,6 +352,12 @@ class OptimisticTransaction:
                     raise errors.modify_append_only_table()
         proto = next((a for a in actions if isinstance(a, Protocol)), self.protocol)
         self.delta_log.assert_protocol_write(proto)
+        # change data files only on a table with the feed on (actions.scala:151-156)
+        if any(isinstance(a, AddCDCFile) for a in actions) \
+                and not DeltaConfigs.CHANGE_DATA_FEED.from_metadata(current_metadata):
+            raise errors.DeltaUnsupportedOperationError(
+                "Cannot write change data files to a table without "
+                "delta.enableChangeDataFeed=true")
         return actions
 
     def _do_commit_retry(self, actions: List[Action]) -> int:

@@ -41,7 +41,7 @@ __all__ = [
     "merge_unresolvable_qualifier", "merge_unresolvable_column", "merge_clause_unresolvable",
     "partition_columns_mismatch", "partition_column_not_found", "duplicate_columns",
     "invalid_column_name", "not_a_delta_table", "zorder_column_not_in_schema",
-    "zorder_on_partition_column", "OptimizeBudgetExceeded",
+    "zorder_on_partition_column", "OptimizeBudgetExceeded", "InvariantViolationError",
 ]
 
 
@@ -79,6 +79,11 @@ class ProtocolError(DeltaError):
 
 class DeltaParseError(DeltaAnalysisError):
     pass
+
+
+class InvariantViolationError(DeltaError):
+    """A row-level constraint or NOT NULL violation
+    (``schema/InvariantViolationException.scala``)."""
 
 
 class VersionNotFoundError(DeltaAnalysisError):
@@ -632,3 +637,76 @@ def column_path_not_found(path: str, schema_str: str) -> DeltaAnalysisError:
 def column_not_in_schema(column: str, schema_cols=None) -> DeltaAnalysisError:
     detail = f" Available columns: {list(schema_cols)}." if schema_cols else ""
     return DeltaAnalysisError(f"Column {column} does not exist.{detail}")
+
+
+# -- write semantics: constraints, generated and char/varchar columns, CDF ----
+
+
+def not_null_invariant_violated(column: str, null_rows: Optional[int] = None
+                                ) -> InvariantViolationError:
+    detail = f" ({null_rows} null rows)" if null_rows else ""
+    return InvariantViolationError(f"NOT NULL constraint violated for column: {column}{detail}.")
+
+
+def check_constraint_violated(name: str, expr_sql: str, values: Optional[dict] = None
+                              ) -> InvariantViolationError:
+    lines = "".join(f"\n - {c} : {v}" for c, v in (values or {}).items())
+    return InvariantViolationError(
+        f"CHECK constraint {name} ({expr_sql}) violated by row with values:{lines}")
+
+
+def new_check_constraint_violated(num: int, table: str, expr: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"{num} rows in {table} violate the new CHECK constraint ({expr})")
+
+
+def char_varchar_length_exceeded(column: str, declared: str, limit: int, sample
+                                 ) -> InvariantViolationError:
+    return InvariantViolationError(
+        f"Exceeds char/varchar type length limitation: column {column} is declared "
+        f"{declared} but value {sample!r} is longer than {limit} characters.")
+
+
+def constraint_already_exists(name: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Constraint '{name}' already exists. DROP CONSTRAINT first to replace it.")
+
+
+def constraint_does_not_exist(name: str, table: str = "") -> DeltaAnalysisError:
+    where = f" in table {table}" if table else ""
+    return DeltaAnalysisError(f"Constraint '{name}' does not exist{where}. Nothing to drop.")
+
+
+def invalid_generation_expression(column: str, cause) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"Invalid generation expression for column {column!r}: {cause}")
+
+
+def generation_expr_unknown_column(column: str, ref: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Generation expression for {column!r} references unknown column {ref!r}")
+
+
+def generation_expr_references_generated(column: str, ref: str) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Generation expression for {column!r} references generated column {ref!r}; "
+        "generated columns cannot reference each other")
+
+
+def generation_expr_type_mismatch(column: str, got, want, cause) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"Generation expression for {column!r} produces type {got}, which cannot become "
+        f"declared type {want}: {cause}")
+
+
+def cdf_start_after_latest(start: int, latest: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"CDF start version {start} is after the latest table version {latest}")
+
+
+def cdf_start_after_end(start: int, end: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(f"CDF start version {start} is after end version {end}")
+
+
+def cdf_start_unavailable(start: int, earliest: int) -> DeltaAnalysisError:
+    return DeltaAnalysisError(
+        f"CDF start version {start} is no longer available (earliest retained commit is "
+        f"{earliest}); the change feed for cleaned-up versions is lost")

@@ -9,8 +9,8 @@ copies), the operation metrics without wall times, the last commit's
 add/remove counts and the deletion-vector cardinalities
 (``tests/torch_dml_tables.assert_same_end_state``).
 
-Change-data-feed and generated-column cases assert the port's
-``NotImplementedError``; the partitioned DELETE and UPDATE cases match the
+Change-data-feed and generated-column cases run in both packages with the
+same end state and change rows; the partitioned DELETE and UPDATE cases match the
 reference (tests/test_torch_partitioned.py holds the rest of the
 partitioned cases). After each port
 command a port MERGE serves no stale key slab or scan lane: the DV
@@ -250,13 +250,24 @@ def test_partitioned_data_commands_raise_not_implemented(tmp_path, op):
 
 @pytest.mark.parametrize("op", ["delete", "update"])
 def test_change_data_feed_table_raises_not_implemented(tmp_path, op):
+    """A table with the change data feed: each package runs the DELETE or
+    UPDATE on its copy with the same metrics, end state and change rows
+    (both packages read each copy's feed), and writes one ``cdc`` action.
+    (The port refused such a table before the feed was ported; the name is
+    kept.)"""
+    from tests.torch_write_tables import changes
+
     run = {"delete": lambda t: t.delete("id > 1"),
            "update": lambda t: t.update({"id": "id + 1"}, "id = 2")}[op]
     paths, out = _run_both(
         tmp_path, lambda s: create(s, {"id": [1, 2, 3]}, {"delta.enableChangeDataFeed": "true"}),
         run)
-    assert not isinstance(out["jax"], str)
-    assert out["torch"] == "NotImplementedError"
+    assert not isinstance(out["jax"], str) and not isinstance(out["torch"], str)
+    assert metrics(out["torch"]) == metrics(out["jax"])
+    assert_same_end_state(paths)
+    assert changes(paths["torch"], 1) == changes(paths["jax"], 1)
+    assert {r["_change_type"] for r in changes(paths["torch"], 1)} == (
+        {"delete"} if op == "delete" else {"update_preimage", "update_postimage"})
     # a whole-table DELETE writes no change data: both run it
     paths2, out2 = _run_both(
         tmp_path / "all",
@@ -267,7 +278,10 @@ def test_change_data_feed_table_raises_not_implemented(tmp_path, op):
 
 
 def test_generated_column_update_raises_not_implemented(tmp_path):
-    """``test_update_recomputes_generated``: the port refuses the table."""
+    """``test_update_recomputes_generated``: each package's UPDATE of a base
+    column recomputes the generated column, with the same end state. (The
+    port refused the table before generated columns were ported; the name is
+    kept.)"""
     from delta_tpu.api.tables import DeltaTable as JaxTable
 
     schema = (StructType().add("id", LongType()).add("name", StringType())
@@ -276,11 +290,11 @@ def test_generated_column_update_raises_not_implemented(tmp_path):
     JaxTable.create(src, schema)
     append(src, {"id": [1, 2], "name": ["a", "b"]})
     paths = copies(src, tmp_path)
-    jt = table("jax", paths["jax"])
-    jt.update({"id": "id + 10"}, "id = 1")
-    assert observe(lambda: table("torch", paths["torch"]).update({"id": "id + 10"},
-                                                                 "id = 1")) == \
-        "NotImplementedError"
+    out = {name: observe(lambda: table(name, paths[name]).update({"id": "id + 10"}, "id = 1"))
+           for name in PKGS}
+    assert metrics(out["torch"]) == metrics(out["jax"])
+    got = assert_same_end_state(paths)
+    assert sorted((r["id"], r["id2"]) for r in got) == [(2, 4), (11, 22)]
 
 
 # -- a port MERGE after each port command serves no stale slab or lane --------------

@@ -2032,3 +2032,57 @@ def test_ctas_and_convert_on_the_card_match_the_cpu(cuda, tmp_path):
                 stats)
 
     assert build(str(tmp_path / "gpu"), cuda) == build(str(tmp_path / "cpu"), "cpu")
+
+
+# -- write semantics on the card ----------------------------------------------------------
+
+
+def _cdf_merge_run(device, root):
+    """A small CDF MERGE with schema evolution and a generated column, on one
+    device: the table's rows, the CDC file's rows and the change feed."""
+    import glob
+    import os
+
+    from delta_tpu_torch import DeltaTable
+    from delta_tpu_torch.exec.parquet import read_parquet_files
+    from delta_tpu_torch.schema.generated import generated_field
+    from delta_tpu_torch.utils.config import conf
+
+    path = os.path.join(root, "t")
+    schema = (StructType().add("id", LongType()).add("q", LongType())
+              .add_field(generated_field("g", LongType(), "q * 3")))
+    t = DeltaTable.create(path, schema, device=device, configuration={
+        "delta.enableChangeDataFeed": "true", "delta.tpu.enableDeletionVectors": "true",
+        "delta.constraints.qpos": "q > 0"})
+    rng = np.random.RandomState(11)
+    n = 5000
+    t.write({"id": np.arange(n, dtype=np.int64), "q": rng.randint(1, 100, n).astype(np.int64)})
+    src_ids = np.concatenate([rng.choice(n, 300, replace=False), np.arange(n, n + 200)])
+    source = {"id": src_ids.astype(np.int64),
+              "q": rng.randint(1, 100, len(src_ids)).astype(np.int64),
+              "tag": np.array([f"t{i % 7}" for i in range(len(src_ids))], object)}
+    with conf.set_temporarily(**{"delta.tpu.schema.autoMerge.enabled": True,
+                                 "delta.tpu.merge.devicePath.mode": "force"}):
+        (t.alias("t").merge(source, "t.id = s.id", source_alias="s")
+         .when_matched_update_all().when_not_matched_insert_all().execute())
+    cdc = sorted(glob.glob(os.path.join(path, "_change_data", "*.parquet")))
+    def ordered(rows):  # NULLs in the new column: sort on the values' reprs
+        return sorted((tuple(r.values()) for r in rows), key=repr)
+
+    cdc_rows = ordered(r for f in read_parquet_files(cdc, device=device) for r in f.to_pylist())
+    feed = [{k: v for k, v in r.items() if k != "_commit_timestamp"}
+            for r in t.table_changes(1).to_pylist()]
+    return ordered(t.to_table().to_pylist()), cdc_rows, ordered(feed)
+
+
+def test_cdf_merge_with_evolution_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Its table, its CDC rows and its ``table_changes`` on ``cuda`` equal
+    the same run on the CPU, the key slab kernels (K8-K11) and the page
+    codec launched on the card."""
+    before = dict(native.launches)
+    got = _cdf_merge_run("cuda", str(tmp_path / "cuda"))
+    launched = {k for k, v in native.launches.items() if v > before.get(k, 0)}
+    want = _cdf_merge_run("cpu", str(tmp_path / "cpu"))
+    assert got == want
+    assert len(got[1]) == 300 * 2 + 200
+    assert launched & {"snappy_compress", "slab_sort", "slab_probe"}

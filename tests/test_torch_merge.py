@@ -5,9 +5,9 @@ and the host join, ``off``). Each case builds the same target and source
 in both packages, each with its own writer, runs the same MERGE and
 compares the sorted end-state rows, ``cmd.metrics`` without the
 ``*TimeMs`` keys, ``cmd._join_path`` and, for the error cases, the
-exception class. Cases on what the port leaves out (schema evolution,
-generated columns) hold that the port raises ``NotImplementedError``.
-Exact throughout."""
+exception class. Schema evolution and generated columns run as parity
+cases too (tests/test_torch_schema_evolution.py and
+test_torch_generated.py hold the rest of them). Exact throughout."""
 import datetime as dt
 import math
 
@@ -196,20 +196,26 @@ def test_evolution_requires_star_clause(tmp_path, executor):
 
 @pytest.mark.parametrize("matched,not_matched", [([UP], [INS]), ([UP], []), ([], [INS])])
 def test_schema_evolution_is_not_ported(tmp_path, executor, matched, not_matched):
-    """test_merge_matrix's evolution cases (a star clause with
-    autoMerge on): the port refuses them."""
-    P = Pkg("torch")
-    log = P.write(str(tmp_path / "t"), {"id": [1, 2], "v": [10, 20]})
+    """test_merge_matrix's evolution cases (a star clause with autoMerge
+    on): both packages evolve the schema to take ``extra`` and give the same
+    rows, metrics and route. (The port refused these before schema
+    evolution was ported; the name is kept.)"""
+    steps = [({"id": [2, 3], "v": [21, 31], "extra": ["a", "b"]}, "t.id = s.id", matched,
+              not_matched)]
     with both_confs(**{"delta.tpu.schema.autoMerge.enabled": True}):
-        with pytest.raises(NotImplementedError, match="schema evolution"):
-            P.merge(log, {"id": [2, 3], "v": [21, 31], "extra": ["a", "b"]}, "t.id = s.id",
-                    matched, not_matched, **ALIAS)
-    assert P.rows(log) == [{"id": 1, "v": 10}, {"id": 2, "v": 20}]
+        got = assert_same(tmp_path, {"id": [1, 2], "v": [10, 20]}, steps)
+    assert all("extra" in r for r in got[-1])
 
 
 def test_generated_columns_are_not_ported(tmp_path, executor):
     """test_evolution_cannot_retype_generated_column's table (a generated
-    column, written by delta_tpu): the port refuses to merge into it."""
+    column, written by delta_tpu), copied once a package: a MERGE that
+    provides the generated column's right value merges in both, one that
+    would retype it under autoMerge fails in both with the same class.
+    (The port refused the table before generated columns were ported; the
+    name is kept.)"""
+    import shutil
+
     from delta_tpu.api.tables import DeltaTable
     from delta_tpu.schema.generated import generated_field
     from delta_tpu.schema.types import LongType, StructType
@@ -218,9 +224,20 @@ def test_generated_columns_are_not_ported(tmp_path, executor):
     schema = StructType().add("id", LongType()).add_field(
         generated_field("twice", LongType(), "id + id"))
     DeltaTable.create(path, schema).write({"id": [1]})
-    P = Pkg("torch")
-    with pytest.raises(NotImplementedError, match="generated columns"):
-        P.merge(P.log(path), {"id": [2], "twice": [4]}, "t.id = s.id", [UP], [INS], **ALIAS)
+    out = {}
+    for name in ("jax", "torch"):
+        copy = str(tmp_path / name)
+        shutil.copytree(path, copy)
+        P = Pkg(name)
+        log = P.log(copy)
+        cmd = P.merge(log, {"id": [1, 2], "twice": [2, 4]}, "t.id = s.id", [UP], [INS], **ALIAS)
+        with both_confs(**{"delta.tpu.schema.autoMerge.enabled": True}):
+            retype = observe(lambda: P.merge(log, {"id": [2], "twice": [4.5]}, "t.id = s.id",
+                                             [UP], [INS], **ALIAS))
+        out[name] = (metrics(cmd), cmd._join_path, retype, P.rows(log))
+    assert out["torch"] == out["jax"]
+    assert out["jax"][2] == "DeltaAnalysisError"
+    assert out["jax"][3] == [{"id": 1, "twice": 2}, {"id": 2, "twice": 4}]
 
 
 # -- queue C: a date against a timestamp in a clause condition -----------------------

@@ -91,11 +91,19 @@ EXPRESSIONS = [
 ]
 
 
+#: expressions whose value is Spark's in the port and differs in delta_tpu:
+#: (the port's value, delta_tpu's), tests/test_torch_spark_functions.py
+SPARK_VALUES = {"round(2.5)": (3.0, 2.0)}
+
+
 @pytest.mark.parametrize("sql", EXPRESSIONS)
 def test_parse_tree_and_row_value_match_jax(sql):
     j, t = jax_parse(sql), torch_parse(sql)
     assert t.sql() == j.sql() and type(t).__name__ == type(j).__name__
-    assert t.eval({}) == j.eval({})
+    if sql in SPARK_VALUES:
+        assert (t.eval({}), j.eval({})) == SPARK_VALUES[sql]
+    else:
+        assert t.eval({}) == j.eval({})
 
 
 def test_columns_backticks_and_dotted_paths():

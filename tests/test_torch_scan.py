@@ -200,7 +200,9 @@ def test_port_imports_no_jax_pyarrow_or_delta_tpu():
               "obs.router_audit", "obs.calibration", "utils.telemetry", "parallel.mesh",
               "parallel.distributed", "multichip", "api.tables", "commands.create",
               "commands.clone", "commands.convert", "catalog.catalog",
-              "hooks.symlink_manifest"):
+              "hooks.symlink_manifest", "schema.constraints", "schema.generated",
+              "exec.cdf", "streaming.offset", "streaming.source", "streaming.sink",
+              "streaming.query"):
         assert f"delta_tpu_torch.{m}" in names.split(), m
 
 
